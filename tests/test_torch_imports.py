@@ -1,0 +1,87 @@
+"""The port stands alone: no module of ``vocalie_tts_tpu_torch`` and not
+``chip_smoke.py`` imports JAX or the JAX package; the package imports
+with JAX blocked and without Triton or a GPU; and its entry points,
+called without ``device="cpu"`` on a machine without CUDA, raise instead
+of running on the CPU."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+PKG = REPO / "vocalie_tts_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "vocalie_tts_tpu")
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(encoding="utf-8"), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            yield node.module
+
+
+def _forbidden(name: str) -> bool:
+    root = name.split(".")[0]
+    return root in FORBIDDEN
+
+
+SOURCES = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(REPO)))
+def test_no_jax_imports(path):
+    bad = [name for name in _imports(path) if _forbidden(name)]
+    assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+def test_package_imports_with_jax_blocked():
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['jaxlib'] = None\n"
+        "sys.modules['triton'] = None\n"
+        "sys.modules['vocalie_tts_tpu'] = None\n"
+        "import importlib, pkgutil, vocalie_tts_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr[-2000:]
+
+
+def test_entry_points_refuse_cpu_fallback(tmp_path, monkeypatch):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid here")
+    from vocalie_tts_tpu_torch.engines.chatterbox import ChatterboxEngine
+    from vocalie_tts_tpu_torch.models.chatterbox.runtime import ChatterboxRuntime
+    from vocalie_tts_tpu_torch.pipeline import run_tts_pipeline
+
+    monkeypatch.setenv("VOCALIE_MODEL_SCALE", "tiny")
+    monkeypatch.setenv("VOCALIE_KV_INT8", "1")
+    monkeypatch.setenv("VOCALIE_ALLOW_RANDOM_WEIGHTS", "1")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ChatterboxRuntime.create(tmp_path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ChatterboxEngine()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_tts_pipeline({"tts_backend": "chatterbox", "script": "Bonjour à tous.",
+                          "out_path": str(tmp_path / "x.wav")})
+    assert not (tmp_path / "x.wav").exists()
+
+
+def test_dense_kernel_env_names_the_next_slice(monkeypatch):
+    from vocalie_tts_tpu_torch.models.chatterbox.runtime import SCALES
+    from vocalie_tts_tpu_torch.models.common.ar_runtime import apply_runtime_env
+
+    monkeypatch.setenv("VOCALIE_DENSE_KERNEL", "1")
+    with pytest.raises(NotImplementedError, match="next slice"):
+        apply_runtime_env(SCALES["tiny"])

@@ -1,0 +1,171 @@
+"""The port's CUDA kernels (B1 int8 decode attention, B5 KV-cache append,
+B6 flash attention) against their plain PyTorch versions on the GPU, at
+the edge shapes the main path does not reach: GQA, head dims other than
+64, ragged and fully masked rows, valid lengths off the 128-slot grid,
+f32 as well as bf16. ``chip_smoke.py`` holds the kernels at the main
+path's shapes.
+
+These tests need an NVIDIA GPU (a CUDA kernel has no CPU mode) and skip
+without one. They import neither JAX nor the JAX package, so they run on
+a machine that has only PyTorch:
+
+    python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
+
+Tolerances: B5 byte-exact. B1 atol 5e-4 on unit-scale inputs: both
+sides re-quantize q and p to int8, and a value on a rounding boundary
+may round the other way under another exp/summation order; a p block
+of other than 128 slots lands well outside it
+(tests/test_torch_decode_attention.py). B6 in f32
+atol 1e-4 (f32 throughout, only the summation order differs); in bf16
+|diff| <= 1e-2 + 1e-2·|ref| (bf16 output, one step is 2^-8 of the
+value; p rounds to bf16 against a running max in the kernel, the row
+max in the plain version).
+"""
+
+import math
+
+import pytest
+import torch
+
+from vocalie_tts_tpu_torch.ops.cache_update import cache_append_plain, cache_append_stacked
+from vocalie_tts_tpu_torch.ops.decode_attention import (
+    decode_attention_plain,
+    decode_attention_stacked,
+)
+from vocalie_tts_tpu_torch.ops.flash_attention import attention_plain, flash_attention
+
+pytestmark = pytest.mark.device
+
+NEG = -0.7 * float(torch.finfo(torch.float32).max)
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _gen(dev, seed):
+    return torch.Generator(device=dev).manual_seed(seed)
+
+
+# ── B1 ──────────────────────────────────────────────────────────────────
+
+
+@pytest.mark.parametrize("L,b,kv,g,T,d,prompt_pad,n_dec,layer", [
+    (2, 3, 2, 1, 512, 64, 256, 44, 1),     # valid_len 300, off the 128 grid
+    (1, 2, 2, 2, 256, 64, 100, 28, 0),     # GQA, valid_len exactly 128
+    (2, 2, 2, 4, 384, 16, 200, 57, 1),     # d 16, valid_len 257
+    (1, 4, 1, 8, 128, 128, 3, 2, 0),       # d 128, g 8, valid_len 5
+    (1, 2, 2, 1, 256, 32, 200, 56, 0),     # valid_len == T: every block read
+])
+def test_decode_attention_kernel(dev, L, b, kv, g, T, d, prompt_pad, n_dec, layer):
+    gen = _gen(dev, T + d + g)
+    q = torch.randn((b, kv, g, d), generator=gen, device=dev)
+    k, v = (torch.randint(-127, 128, (L, b, kv, T, d), generator=gen, device=dev,
+                          dtype=torch.int8) for _ in range(2))
+    ks, vs = (((torch.rand((L, b, kv, T), generator=gen, device=dev) + 0.5) / 127)
+              .to(torch.bfloat16) for _ in range(2))
+    kn, vn = (torch.randn((b, kv, d), generator=gen, device=dev) for _ in range(2))
+    lens = torch.randint(1, prompt_pad + 1, (b,), generator=gen, device=dev)
+    pos = torch.arange(T, device=dev)[None, :]
+    valid_len = prompt_pad + n_dec
+    valid = (pos < lens[:, None]) | ((pos >= prompt_pad) & (pos < valid_len))
+    bias = torch.where(valid, 0.0, NEG).float()
+    sm = 1.0 / math.sqrt(d)
+    before = decode_attention_stacked.launches
+    out = decode_attention_stacked(q, k, v, bias, layer, ks, vs, kn, vn,
+                                   valid_len=valid_len, sm_scale=sm)
+    ref = decode_attention_plain(q, k, v, bias, layer, ks, vs, kn, vn, valid_len, sm)
+    torch.cuda.synchronize()
+    assert decode_attention_stacked.launches == before + 1
+    assert torch.allclose(out, ref, atol=5e-4, rtol=0), (out - ref).abs().max().item()
+
+
+def test_decode_attention_kernel_rejects_bad_inputs(dev):
+    L, b, kv, g, T, d = 1, 2, 2, 1, 128, 64
+    q = torch.zeros((b, kv, g, d), device=dev)
+    k = torch.zeros((L, b, kv, T, d), dtype=torch.int8, device=dev)
+    s = torch.ones((L, b, kv, T), dtype=torch.bfloat16, device=dev)
+    bias = torch.zeros((b, T), device=dev)
+    kn = torch.zeros((b, kv, d), device=dev)
+    args = dict(valid_len=4, sm_scale=0.125)
+    with pytest.raises(ValueError, match="k_scale"):
+        decode_attention_stacked(q, k, k, bias, 0, s.float(), s, kn, kn, **args)
+    with pytest.raises(ValueError, match="contiguous"):
+        decode_attention_stacked(q, k, k, torch.zeros((T, b), device=dev).t(), 0, s, s, kn, kn,
+                                 **args)
+    with pytest.raises(ValueError, match="layer"):
+        decode_attention_stacked(q, k, k, bias, 1, s, s, kn, kn, **args)
+
+
+# ── B5 ──────────────────────────────────────────────────────────────────
+
+
+@pytest.mark.parametrize("L,b,kv,T,d,pos", [
+    (30, 16, 16, 640, 64, 416),
+    (2, 3, 2, 256, 16, 0),
+    (1, 1, 1, 128, 128, 127),
+])
+def test_cache_append_kernel_is_byte_exact(dev, L, b, kv, T, d, pos):
+    gen = _gen(dev, pos + d)
+    k, v = (torch.randint(-127, 128, (L, b, kv, T, d), generator=gen, device=dev,
+                          dtype=torch.int8) for _ in range(2))
+    ks, vs = (torch.rand((L, b, kv, T), generator=gen, device=dev).to(torch.bfloat16)
+              for _ in range(2))
+    kn, vn = (torch.randint(-127, 128, (L, b, kv, d), generator=gen, device=dev,
+                            dtype=torch.int8) for _ in range(2))
+    ksn, vsn = (torch.rand((L, b, kv), generator=gen, device=dev).to(torch.bfloat16)
+                for _ in range(2))
+    got = cache_append_stacked(k.clone(), v.clone(), ks.clone(), vs.clone(),
+                               kn, vn, ksn, vsn, pos)
+    ref = cache_append_plain(k.clone(), v.clone(), ks.clone(), vs.clone(), kn, vn, ksn, vsn, pos)
+    torch.cuda.synchronize()
+    for a, r in zip(got, ref):
+        bits = torch.uint8 if a.dtype == torch.int8 else torch.int16
+        assert torch.equal(a.view(bits), r.view(bits))
+
+
+# ── B6 ──────────────────────────────────────────────────────────────────
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,h,hk,s_q,s_k,d,causal,lens", [
+    (1, 2, 2, 512, 512, 64, True, None),
+    (3, 2, 2, 320, 320, 64, False, (320, 200, 17)),
+    (2, 4, 2, 100, 100, 32, True, None),           # GQA, s off the 64-row tile
+    (2, 4, 1, 256, 256, 16, False, (256, 0)),      # GQA 4:1, one fully masked row
+    (2, 2, 2, 70, 130, 8, True, (130, 33)),        # s_q != s_k, causal and kv_lens
+])
+def test_flash_attention_kernel(dev, dtype, b, h, hk, s_q, s_k, d, causal, lens):
+    gen = _gen(dev, s_q + d + h)
+    q = torch.randn((b, h, s_q, d), generator=gen, device=dev).to(dtype)
+    k, v = (torch.randn((b, hk, s_k, d), generator=gen, device=dev).to(dtype)
+            for _ in range(2))
+    kv_lens = None if lens is None else torch.tensor(lens, dtype=torch.int32, device=dev)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=causal, kv_lens=kv_lens)
+    ref = attention_plain(q, k, v, causal=causal, kv_lens=kv_lens)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert out.dtype == dtype and torch.all(torch.isfinite(out))
+    diff = (out.float() - ref.float()).abs()
+    if dtype == torch.float32:
+        assert diff.max().item() <= 1e-4, diff.max().item()
+    else:
+        assert torch.all(diff <= 1e-2 + 1e-2 * ref.float().abs()), diff.max().item()
+    if lens is not None and 0 in lens:
+        assert torch.all(out[list(lens).index(0)] == 0)
+
+
+def test_flash_attention_kernel_rejects_bad_inputs(dev):
+    q = torch.zeros((1, 2, 8, 64), device=dev)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="head dims"):
+        flash_attention(q[..., :48].contiguous(), q[..., :48].contiguous(),
+                        q[..., :48].contiguous())
+    with pytest.raises(ValueError, match="kv_lens"):
+        flash_attention(q, q, q, kv_lens=torch.zeros(1, dtype=torch.int64, device=dev))

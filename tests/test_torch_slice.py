@@ -1,0 +1,174 @@
+"""The whole slice at the tiny scale: the JAX ``ChatterboxRuntime`` and
+the port's, on the same weights (saved once in the ``.npz`` format and
+loaded by both), in the slice's configuration (int8 KV cache, int8
+weights, the decode-attention and cache-append kernels, dense kernels
+off — ``VOCALIE_DENSE_KERNEL=0`` on both sides).
+
+- Greedy decoding (temperature 0) with CFG and the repetition penalty:
+  token ids and lengths must be equal.
+- Stage 2 on the JAX tokens, with JAX's noise handed to the port: int16
+  PCM within 33 LSB (1e-3 of full scale, the stage-2 tolerance).
+- ``run_tts_pipeline`` on a 3-chunk ``[[CHUNK]]`` script: chunk count,
+  per-chunk token lengths and durations, WAV length and meta keys agree
+  (the sample values are covered by the stage-2 comparison).
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+SCRIPT = (
+    "Bonjour à tous, voici un premier essai.\n[[CHUNK]]\n"
+    "La deuxième phrase est un peu plus longue que la première, mais pas trop.\n[[CHUNK]]\n"
+    "Et enfin, une troisième."
+)
+ENV = {
+    "VOCALIE_MODEL_SCALE": "tiny",
+    "VOCALIE_KV_INT8": "1",
+    "VOCALIE_WEIGHT_INT8": "1",
+    "VOCALIE_DENSE_KERNEL": "0",
+    "VOCALIE_ALLOW_RANDOM_WEIGHTS": "1",
+}
+
+
+@pytest.fixture(scope="module")
+def runtimes(tmp_path_factory):
+    from vocalie_tts_tpu.models.chatterbox.model import init_t3, init_token_decoder
+    from vocalie_tts_tpu.models.chatterbox.runtime import SCALES as JAX_SCALES
+    from vocalie_tts_tpu.models.chatterbox.runtime import ChatterboxRuntime as JaxRuntime
+    from vocalie_tts_tpu.models.common.weights import save_params
+    from vocalie_tts_tpu_torch.models.chatterbox.runtime import ChatterboxRuntime
+
+    assets = tmp_path_factory.mktemp("assets")
+    with pytest.MonkeyPatch.context() as mp:
+        for k, v in ENV.items():
+            mp.setenv(k, v)
+        mp.setenv("VOCALIE_ASSETS_DIR", str(assets))
+        cfg = JAX_SCALES["tiny"]
+        wdir = assets / "chatterbox" / "weights"
+        save_params(wdir, "t3", init_t3(jax.random.PRNGKey(1), cfg),
+                    meta={"family": "chatterbox", "stage": "t3"})
+        save_params(wdir, "s3gen", init_token_decoder(jax.random.PRNGKey(2), cfg),
+                    meta={"family": "chatterbox", "stage": "s3gen"})
+        jrt = JaxRuntime.create(assets / "chatterbox")
+        prt = ChatterboxRuntime.create(assets / "chatterbox", device="cpu")
+        assert jrt.cfg.lm.dense_kernel is False and jrt.cfg.lm.decode_kernel is True
+        yield jrt, prt, mp
+
+
+def _texts():
+    from vocalie_tts_tpu_torch.text import parse_manual_chunks, render_clean_text_from_segments
+
+    chunks, _ = parse_manual_chunks(SCRIPT)
+    return [render_clean_text_from_segments(c.segments) for c in chunks]
+
+
+def _jax_generate(jrt, texts, **kw):
+    t3, embeds, lens, (_, _, decode_bucket, cache_len) = jrt._prepare_batch(
+        texts, mode="fr_finetune", lang="fr", voice_ref_path=None,
+        exaggeration=0.5, cfg_weight=kw["cfg_weight"])
+    toks, lengths = jrt._generate(t3, embeds, lens, jax.random.PRNGKey(0), cache_len=cache_len,
+                                  max_new=decode_bucket, **kw)
+    return np.asarray(toks), np.asarray(lengths)
+
+
+def _port_generate(prt, texts, **kw):
+    t3, embeds, lens, (_, _, decode_bucket, cache_len) = prt._prepare_batch(
+        texts, mode="fr_finetune", lang="fr", exaggeration=0.5, cfg_weight=kw["cfg_weight"])
+    toks, lengths = prt.generate(t3, embeds, lens, cache_len=cache_len, max_new=decode_bucket, **kw)
+    return toks.numpy(), lengths.numpy()
+
+
+def test_greedy_tokens_match(runtimes):
+    jrt, prt, _ = runtimes
+    kw = dict(temperature=0.0, cfg_weight=0.6, repetition_penalty=1.35)
+    jt, jl = _jax_generate(jrt, _texts(), **kw)
+    pt, pl = _port_generate(prt, _texts(), **kw)
+    np.testing.assert_array_equal(pl, jl)
+    np.testing.assert_array_equal(pt, jt)
+    assert (jl > 0).all()
+
+
+def jax_stage2_noise(cfg, key, b, n_tok):
+    """Stage2Noise with the draws the JAX stage 2 makes from ``key``."""
+    from vocalie_tts_tpu_torch.models.common.token2wav import Stage2Noise
+
+    t2w = cfg.t2w
+    r1, r2 = jax.random.split(key)
+    frames = n_tok * t2w.token_mel_ratio
+    r2, k1 = jax.random.split(r2)
+    h1 = t2w.hift.nb_harmonics + 1
+    return Stage2Noise(
+        z=torch.from_numpy(np.array(jax.random.normal(r1, (b, frames, t2w.n_mels), jnp.float32))),
+        rand_ini=torch.from_numpy(np.array(jax.random.uniform(k1, (b, h1)))),
+        source_normal=torch.from_numpy(np.array(
+            jax.random.normal(r2, (b, frames * t2w.hift.hop, h1)))),
+    )
+
+
+def test_stage2_pcm_on_jax_tokens(runtimes):
+    jrt, prt, _ = runtimes
+    toks, lens = _jax_generate(jrt, _texts(), temperature=0.0, cfg_weight=0.6,
+                               repetition_penalty=1.35)
+    key = jax.random.PRNGKey(5)
+    b = toks.shape[0]
+    ref = np.asarray(jrt._stage2(jrt.params["decoder"], tokens=jnp.asarray(toks),
+                                 tok_lengths=jnp.asarray(lens),
+                                 xvec_emb=jnp.zeros((b, 192), jnp.float32), rng=key))
+    out = prt.stage2_pcm16(torch.from_numpy(toks.copy()), torch.from_numpy(lens.copy()),
+                           jax_stage2_noise(jrt.cfg, key, b, toks.shape[1])).numpy()
+    assert out.dtype == ref.dtype == np.int16 and out.shape == ref.shape
+    assert np.abs(out.astype(np.int32) - ref.astype(np.int32)).max() <= 33
+
+
+def test_run_tts_pipeline_matches(runtimes, tmp_path):
+    from vocalie_tts_tpu.engines import get_backend
+    from vocalie_tts_tpu.io.wavio import read_wav
+    from vocalie_tts_tpu.pipeline import run_tts_pipeline as jax_pipeline
+    from vocalie_tts_tpu.text import parse_manual_chunks as jax_chunks
+    from vocalie_tts_tpu_torch.engines.chatterbox import ChatterboxEngine
+    from vocalie_tts_tpu_torch.pipeline import run_tts_pipeline
+    from vocalie_tts_tpu_torch.text import parse_manual_chunks
+
+    jrt, prt, _ = runtimes
+    base = {
+        "tts_backend": "chatterbox",
+        "script": SCRIPT,
+        "engine_params": {"chatterbox_mode": "fr_finetune", "temperature": 0.0,
+                          "cfg_weight": 0.6, "repetition_penalty": 1.35},
+        "inter_chunk_gap_ms": 250,
+        "target_sr": 24000,
+    }
+    jax_engine = get_backend("chatterbox")
+    jax_engine.release_runtime()
+    try:
+        jax_engine._runtime = jrt
+        jres = jax_pipeline({**base, "chunks": jax_chunks(SCRIPT)[0],
+                             "out_path": str(tmp_path / "jax.wav")})
+    finally:
+        jax_engine.release_runtime()
+    engine = ChatterboxEngine(device="cpu")
+    engine._runtime = prt
+    pres = run_tts_pipeline({**base, "chunks": parse_manual_chunks(SCRIPT)[0],
+                             "out_path": str(tmp_path / "port.wav")}, engine=engine)
+
+    jm, pm = jres.meta, pres.meta
+    assert pm["chunks"] == jm["chunks"] == 3
+    assert pm.keys() == jm.keys()
+    assert pm["durations"] == jm["durations"]
+    assert pm["total_duration"] == jm["total_duration"]
+    for key in ("retries", "sr", "inter_chunk_gap_ms", "inter_chunk_gap_applied",
+                "backend_id", "num_subunits"):
+        assert pm[key] == jm[key], key
+    drop = {"elapsed_ms_batch"}
+    assert ({k: v for k, v in pm["backend_meta"].items() if k not in drop}
+            == {k: v for k, v in jm["backend_meta"].items() if k not in drop})
+    assert pm["perf"].keys() == jm["perf"].keys()
+    jwav, jsr = read_wav(jres.out_path)
+    pwav, psr = read_wav(pres.out_path)
+    assert psr == jsr == 24000 and len(pwav) == len(jwav)
+    assert np.isfinite(pwav).all()

@@ -1,0 +1,37 @@
+"""Param trees from the JAX package → torch.
+
+Takes the JAX tree after ``jax.device_get`` (numpy leaves) and returns
+the same tree with torch tensors: keys unchanged, the stacked ``[L, …]``
+layer axis and the ``x @ W`` layout kept, int8 ``{"q","s"}`` leaves kept
+int8 with their scales, bfloat16 leaves (numpy ``ml_dtypes``) kept
+bfloat16. Conv kernels keep the JAX ``[kernel, c_in, c_out]`` layout;
+the modules that use them re-lay them out internally.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+
+def to_torch(leaf: Any, device="cpu") -> torch.Tensor:
+    arr = np.asarray(leaf)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.astype(np.float32)).to(device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(arr, copy=True)).to(device)
+
+
+def tree_to_torch(tree: Any, device="cpu") -> Any:
+    """Map every array leaf of nested dicts/lists/tuples to a tensor."""
+    if isinstance(tree, dict):
+        return {k: tree_to_torch(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_to_torch(v, device) for v in tree)
+    if tree is None:
+        return None
+    return to_torch(tree, device)
+
+
+__all__ = ["to_torch", "tree_to_torch"]

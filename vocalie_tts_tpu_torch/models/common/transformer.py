@@ -1,0 +1,396 @@
+"""Decoder-only transformer core (counterpart of
+``vocalie_tts_tpu/models/common/transformer.py``).
+
+Params are the JAX package's tree, bridged to torch (``bridge.py``):
+layers stacked on a leading ``[n_layers]`` axis, ``x @ W`` layout,
+int8 weights as ``{"q": int8, "s": f32 [..., 1, d_out]}``. The layer
+loop is a Python loop over that axis. ``prefill`` and ``decode_step``
+take the runtime's weights, with q/k/v and gate/up concatenated by
+``fuse_decode_weights`` (``ar_runtime.maybe_quantize_lm``).
+
+This slice ports the Chatterbox-class serving path: RMSNorm, RoPE, GQA,
+SwiGLU, the int8 KV cache read by the decode-attention kernel (B1) and
+appended by the cache-update kernel (B5), and flash attention (B6) in
+prefill at prompt buckets >= 512. The int8-native dense decode kernels
+(``dense_kernel``) and the other family variants (LayerNorm/GELU,
+biases, qk-norm, learned positions) are not ported yet.
+
+The KV cache is a mutable object: ``decode_step`` writes the step's k/v
+into it IN PLACE and returns it (the JAX version returns a new cache).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from vocalie_tts_tpu_torch.ops.cache_update import cache_append_stacked
+from vocalie_tts_tpu_torch.ops.decode_attention import decode_attention_stacked
+from vocalie_tts_tpu_torch.ops.flash_attention import flash_attention, reference_attention
+
+Params = Dict[str, Any]
+
+#: the additive mask for cache slots that hold no token (-0.7 * f32 max)
+MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    vocab_size: int
+    d_model: int
+    n_layers: int
+    n_heads: int
+    n_kv_heads: int
+    d_head: int
+    d_ff: int
+    max_seq_len: int = 2048
+    rope_theta: float = 10000.0
+    norm_eps: float = 1e-5
+    #: int8 KV cache with per-(layer, row, head, position) bf16 scales
+    kv_quant: bool = False
+    #: decode attention through the int8 kernel (B1) and the in-place
+    #: cache append (B5)
+    decode_kernel: bool = False
+    #: int8-native dense decode kernels (B2-B4) — not ported yet
+    dense_kernel: bool = False
+    dtype: torch.dtype = torch.bfloat16
+
+    @property
+    def q_dim(self) -> int:
+        return self.n_heads * self.d_head
+
+    @property
+    def kv_dim(self) -> int:
+        return self.n_kv_heads * self.d_head
+
+
+def check_supported(cfg: TransformerConfig) -> None:
+    """Refuse configurations this slice does not port, instead of
+    running something other than what the JAX package would run."""
+    if cfg.dense_kernel:
+        raise NotImplementedError(
+            "VOCALIE_DENSE_KERNEL=1 (the int8-native dense decode kernels "
+            "B2-B4) is ported in the next slice; run with VOCALIE_DENSE_KERNEL=0"
+        )
+    if not (cfg.kv_quant and cfg.decode_kernel):
+        raise NotImplementedError(
+            "the port serves the int8 KV cache with the decode-attention "
+            "kernel only (VOCALIE_KV_INT8=1, VOCALIE_DECODE_KERNEL unset or 1)"
+        )
+
+
+@dataclasses.dataclass
+class StackedKVCache:
+    """All layers' int8 caches stacked on a leading [n_layers] axis, k and
+    v split. Positions [0, prompt_pad) hold the padded prompt; decode
+    tokens land at the uniform slot ``prompt_pad + n_decoded``. Per-row
+    validity comes from ``prompt_lengths``; RoPE uses logical positions.
+    ``n_decoded`` and ``prompt_pad`` are host integers."""
+
+    k: torch.Tensor        # [L, b, kv, T, d] int8
+    v: torch.Tensor        # [L, b, kv, T, d] int8
+    k_scale: torch.Tensor  # [L, b, kv, T] bf16
+    v_scale: torch.Tensor  # [L, b, kv, T] bf16
+    prompt_lengths: torch.Tensor  # [b] int32
+    n_decoded: int = 0
+    prompt_pad: int = 0
+
+    @classmethod
+    def create(cls, n_layers, batch, kv_heads, max_len, head_dim, device) -> "StackedKVCache":
+        shape = (n_layers, batch, kv_heads, max_len, head_dim)
+        return cls(
+            k=torch.zeros(shape, dtype=torch.int8, device=device),
+            v=torch.zeros(shape, dtype=torch.int8, device=device),
+            k_scale=torch.zeros(shape[:-1], dtype=torch.bfloat16, device=device),
+            v_scale=torch.zeros(shape[:-1], dtype=torch.bfloat16, device=device),
+            prompt_lengths=torch.zeros((batch,), dtype=torch.int32, device=device),
+        )
+
+    @property
+    def max_len(self) -> int:
+        return self.k.shape[3]
+
+    @property
+    def length(self) -> torch.Tensor:
+        """Per-row logical sequence length (prompt + decoded)."""
+        return self.prompt_lengths + self.n_decoded
+
+    def valid_mask(self) -> torch.Tensor:
+        """[batch, max_len] — True where a cache slot holds a real token."""
+        pos = torch.arange(self.max_len, device=self.k.device)[None, :]
+        in_prompt = pos < self.prompt_lengths[:, None]
+        in_decode = (pos >= self.prompt_pad) & (pos < self.prompt_pad + self.n_decoded)
+        return in_prompt | in_decode
+
+
+# ── building blocks ─────────────────────────────────────────────────────
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * weight).to(x.dtype)
+
+
+def rope_angles(positions: torch.Tensor, d_head: int, theta: float):
+    """(cos, sin) tables for *positions* — [..., d_head // 2]."""
+    inv_freq = 1.0 / (
+        theta ** (torch.arange(0, d_head, 2, dtype=torch.float32, device=positions.device) / d_head)
+    )
+    angles = positions[..., None].float() * inv_freq
+    return torch.cos(angles), torch.sin(angles)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """x: [batch, heads, seq, d_head]; cos/sin: [batch, seq, d_head/2]."""
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    cos = cos[:, None]
+    sin = sin[:, None]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def _split_heads(x: torch.Tensor, n_heads: int, d_head: int) -> torch.Tensor:
+    b, s, _ = x.shape
+    return x.reshape(b, s, n_heads, d_head).transpose(1, 2)
+
+
+def _merge_heads(x: torch.Tensor) -> torch.Tensor:
+    b, h, s, d = x.shape
+    return x.transpose(1, 2).reshape(b, s, h * d)
+
+
+def _quantize_kv(t: torch.Tensor):
+    """[..., d] → (int8 values, bf16 scales [...]) with per-vector amax;
+    the bf16-rounded scale is what divides the values (round half even)."""
+    tf = t.float()
+    scale = torch.clamp(tf.abs().amax(-1) / 127.0, min=1e-8).to(torch.bfloat16)
+    q = torch.clamp(torch.round(tf / scale[..., None].float()), -127, 127).to(torch.int8)
+    return q, scale
+
+
+# ── int8 weight-only quantization ───────────────────────────────────────
+
+_QUANT_KEYS = {"lm_head", "cond_proj", "wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"}
+
+
+def _quantize_dense(w: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """[..., d_in, d_out] → {"q": int8, "s": f32 [..., 1, d_out]}."""
+    wf = w.float()
+    s = torch.clamp(wf.abs().amax(-2, keepdim=True) / 127.0, min=1e-8)
+    q = torch.clamp(torch.round(wf / s), -127, 127).to(torch.int8)
+    return {"q": q, "s": s}
+
+
+def quantize_weights_int8(params: Params) -> Params:
+    """Matmul weights int8 with per-output-channel scales; embeddings and
+    norms keep their dtype. ``_qdot`` dispatches on the leaf type."""
+    out = dict(params)
+    for key in ("lm_head", "cond_proj"):
+        if key in out:
+            out[key] = _quantize_dense(out[key])
+    layers = dict(params["layers"])
+    for key in list(layers):
+        if key in _QUANT_KEYS:
+            layers[key] = _quantize_dense(layers[key])
+    out["layers"] = layers
+    return out
+
+
+def fuse_decode_weights(params: Params) -> Params:
+    """Concatenate q/k/v (and gate/up) along the output channel, and pad
+    an int8 lm_head to a 128-multiple width (zero weights, unit scales;
+    logits are sliced back to the vocabulary)."""
+    layers = dict(params["layers"])
+
+    def cat(names):
+        vals = [layers.pop(n) for n in names]
+        if isinstance(vals[0], dict):
+            return {"q": torch.cat([v["q"] for v in vals], dim=-1),
+                    "s": torch.cat([v["s"] for v in vals], dim=-1)}
+        return torch.cat(vals, dim=-1)
+
+    layers["wqkv"] = cat(["wq", "wk", "wv"])
+    layers["w_gateup"] = cat(["w_gate", "w_up"])
+    out = {**params, "layers": layers}
+    lm = out.get("lm_head")
+    if isinstance(lm, dict):
+        pad = (-lm["q"].shape[-1]) % 128
+        if pad:
+            out["lm_head"] = {
+                "q": F.pad(lm["q"], (0, pad)),
+                "s": F.pad(lm["s"], (0, pad), value=1.0),
+            }
+    return out
+
+
+def _qdot(x: torch.Tensor, w, f32_out: bool = False) -> torch.Tensor:
+    """x @ w for plain or int8 ({"q","s"}) weights. ``f32_out`` is the
+    JAX ``preferred_element_type=f32``: the product is taken in f32."""
+    if isinstance(w, dict):
+        if f32_out:
+            y = torch.matmul(x.float(), w["q"].float())
+        else:
+            y = torch.matmul(x, w["q"].to(x.dtype))
+        return y * w["s"].reshape(w["s"].shape[-1]).to(y.dtype)
+    if f32_out:
+        return torch.matmul(x.float(), w.float())
+    return torch.matmul(x, w)
+
+
+def _lm_head_logits(x2d: torch.Tensor, params: Params, cfg: TransformerConfig) -> torch.Tensor:
+    """[b, d_model] → [b, vocab] f32 logits (the ``_qdot`` branch)."""
+    logits = _qdot(x2d, params["lm_head"], f32_out=True)
+    return logits[..., : cfg.vocab_size]
+
+
+def _layer(layers: Params, l: int) -> Params:
+    """Layer ``l`` of the stacked tree (views, no copies)."""
+    return {k: ({"q": v["q"][l], "s": v["s"][l]} if isinstance(v, dict) else v[l])
+            for k, v in layers.items()}
+
+
+def _block_qkv(layer: Params, x: torch.Tensor, cfg: TransformerConfig, cos, sin):
+    h = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
+    qkv = _qdot(h, layer["wqkv"])
+    q = qkv[..., : cfg.q_dim]
+    k = qkv[..., cfg.q_dim : cfg.q_dim + cfg.kv_dim]
+    v = qkv[..., cfg.q_dim + cfg.kv_dim :]
+    return _finish_qkv(cfg, q, k, v, cos, sin)
+
+
+def _finish_qkv(cfg: TransformerConfig, q, k, v, cos, sin):
+    """Head split + RoPE (post-projection)."""
+    q = _split_heads(q, cfg.n_heads, cfg.d_head)
+    k = _split_heads(k, cfg.n_kv_heads, cfg.d_head)
+    v = _split_heads(v, cfg.n_kv_heads, cfg.d_head)
+    return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+
+
+def _block_tail(layer: Params, x: torch.Tensor, attn: torch.Tensor, cfg: TransformerConfig):
+    o = _qdot(_merge_heads(attn), layer["wo"])
+    x = x + o.to(x.dtype)
+    h2 = rms_norm(x, layer["mlp_norm"], cfg.norm_eps)
+    gu = _qdot(h2, layer["w_gateup"], f32_out=True)
+    gate, up = gu[..., : cfg.d_ff], gu[..., cfg.d_ff :]
+    hidden = (F.silu(gate) * up).to(x.dtype)
+    mlp = _qdot(hidden, layer["w_down"], f32_out=True)
+    return x + mlp.to(x.dtype)
+
+
+# ── forward passes ──────────────────────────────────────────────────────
+
+
+@torch.no_grad()
+def prefill(
+    params: Params,
+    cfg: TransformerConfig,
+    tokens: Optional[torch.Tensor],      # [batch, seq] — unused with inputs_embeds
+    lengths: torch.Tensor,               # [batch] valid prompt lengths
+    inputs_embeds: Optional[torch.Tensor] = None,
+    cache_len: Optional[int] = None,
+) -> Tuple[torch.Tensor, StackedKVCache]:
+    """Encode the prompt, fill a fresh int8 cache, return last-position
+    logits. Attention runs the flash kernel at seq >= 512 and the naive
+    f32 softmax below (the JAX package's split: no kernel there)."""
+    check_supported(cfg)
+    x = params["tok_emb"][tokens] if inputs_embeds is None else inputs_embeds
+    b, s = x.shape[:2]
+    dev = x.device
+    positions = torch.arange(s, device=dev)[None, :].expand(b, s)
+    cos, sin = rope_angles(positions, cfg.d_head, cfg.rope_theta)
+    attn_fn = flash_attention if s >= 512 else reference_attention
+
+    cache = StackedKVCache.create(cfg.n_layers, b, cfg.n_kv_heads,
+                                  cache_len or cfg.max_seq_len, cfg.d_head, dev)
+    for l in range(cfg.n_layers):
+        layer = _layer(params["layers"], l)
+        q, k, v = _block_qkv(layer, x, cfg, cos, sin)
+        attn = attn_fn(q.contiguous(), k.contiguous(), v.contiguous(), causal=True)
+        x = _block_tail(layer, x, attn, cfg)
+        k_q, k_s = _quantize_kv(k)
+        v_q, v_s = _quantize_kv(v)
+        cache.k[l, :, :, :s] = k_q
+        cache.v[l, :, :, :s] = v_q
+        cache.k_scale[l, :, :, :s] = k_s
+        cache.v_scale[l, :, :, :s] = v_s
+    cache.prompt_lengths = lengths.to(device=dev, dtype=torch.int32)
+    cache.prompt_pad = s
+
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    last_idx = torch.clamp(cache.prompt_lengths.long() - 1, 0, s - 1)
+    x_last = x[torch.arange(b, device=dev), last_idx]
+    return _lm_head_logits(x_last, params, cfg), cache
+
+
+@torch.no_grad()
+def decode_step(
+    params: Params,
+    cfg: TransformerConfig,
+    token: torch.Tensor,      # [batch] — previous token
+    cache: StackedKVCache,
+) -> Tuple[torch.Tensor, StackedKVCache]:
+    """One AR step: (logits [b, vocab] f32, cache). The cache stays
+    read-only through the layer loop (the current token's k/v merge
+    inside the attention kernel); the step's k/v of all layers are then
+    quantized and appended in place by ONE kernel launch."""
+    check_supported(cfg)
+    b = token.shape[0]
+    x = params["tok_emb"][token][:, None, :]  # [b, 1, d_model]
+    positions = cache.length[:, None]
+    cos, sin = rope_angles(positions, cfg.d_head, cfg.rope_theta)
+    write_pos = cache.prompt_pad + cache.n_decoded
+    if write_pos >= cache.max_len:
+        raise ValueError(f"KV cache full ({cache.max_len} slots)")
+    attend = cache.valid_mask()
+    bias2d = torch.where(attend, 0.0, MASK_VALUE).to(torch.float32)
+    sm_scale = 1.0 / math.sqrt(cfg.d_head)
+    group = cfg.n_heads // cfg.n_kv_heads
+
+    k_news, v_news = [], []
+    for l in range(cfg.n_layers):
+        layer = _layer(params["layers"], l)
+        q, k_new, v_new = _block_qkv(layer, x, cfg, cos, sin)
+        kn = k_new[:, :, 0, :].float().contiguous()  # [b, kv, d]
+        vn = v_new[:, :, 0, :].float().contiguous()
+        qg = q.reshape(b, cfg.n_kv_heads, group, cfg.d_head).float().contiguous()
+        attn = decode_attention_stacked(
+            qg, cache.k, cache.v, bias2d, l, cache.k_scale, cache.v_scale, kn, vn,
+            valid_len=write_pos, sm_scale=sm_scale,
+        )
+        attn = attn.reshape(b, cfg.n_heads, 1, cfg.d_head).to(x.dtype)
+        x = _block_tail(layer, x, attn, cfg)
+        k_news.append(kn)
+        v_news.append(vn)
+    return _decode_step_finish(params, cfg, cache, x, torch.stack(k_news), torch.stack(v_news),
+                               write_pos)
+
+
+def _decode_step_finish(params, cfg, cache, x, k_news, v_news, write_pos):
+    """Quantize the step's [L, b, kv, d] k/v, append them in place at
+    ``write_pos`` (one kernel launch for all layers), final norm + head."""
+    k_q, k_s = _quantize_kv(k_news)
+    v_q, v_s = _quantize_kv(v_news)
+    cache_append_stacked(cache.k, cache.v, cache.k_scale, cache.v_scale,
+                         k_q, v_q, k_s, v_s, write_pos)
+    cache.n_decoded += 1
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return _lm_head_logits(x[:, 0], params, cfg), cache
+
+
+__all__ = [
+    "TransformerConfig",
+    "StackedKVCache",
+    "MASK_VALUE",
+    "check_supported",
+    "rms_norm",
+    "rope_angles",
+    "apply_rope",
+    "quantize_weights_int8",
+    "fuse_decode_weights",
+    "prefill",
+    "decode_step",
+]

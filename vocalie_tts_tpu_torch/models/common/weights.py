@@ -1,0 +1,76 @@
+"""Weight persistence: the JAX package's ``.npz`` + ``meta.json`` format
+(counterpart of ``vocalie_tts_tpu/models/common/weights.py``).
+
+Keys are the param tree's paths joined by "/" (dict keys, list
+indices); bfloat16 leaves are stored widened to f32 and cast back to the
+template's dtype on load, so a checkpoint saved by the JAX package loads
+here. (Saving belongs to the fine-tune path, not ported yet.)
+"""
+
+from __future__ import annotations
+
+import json
+from pathlib import Path
+from typing import Any, Dict, Iterator, Tuple
+
+import numpy as np
+import torch
+
+_META_NAME = "meta.json"
+
+
+def _flatten(tree: Any, prefix: str = "") -> Iterator[Tuple[str, Any]]:
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _flatten(v, f"{prefix}{k}/")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _flatten(v, f"{prefix}{i}/")
+    else:
+        yield prefix[:-1], tree
+
+
+def _unflatten_like(tree: Any, values: Dict[str, Any], prefix: str = "") -> Any:
+    if isinstance(tree, dict):
+        return {k: _unflatten_like(v, values, f"{prefix}{k}/") for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_unflatten_like(v, values, f"{prefix}{i}/") for i, v in enumerate(tree))
+    return values[prefix[:-1]]
+
+
+def load_params(weights_dir: Path, name: str, template: Any, device="cpu") -> Any:
+    """Load checkpoint ``name`` into the structure, shapes and dtypes of
+    *template* (a tree of tensors). Keys the template lacks are ignored."""
+    path = Path(weights_dir) / f"{name}.npz"
+    data = np.load(path)
+    values = {}
+    for key, leaf in _flatten(template):
+        if key not in data.files:
+            raise ValueError(f"checkpoint {path} is missing key {key!r}")
+        raw = data[key]
+        if raw.dtype.kind == "V" and raw.dtype.itemsize == 2:
+            raise ValueError(f"{key}: legacy raw-bfloat16 entry; re-save with the JAX package")
+        t = torch.from_numpy(np.ascontiguousarray(raw)).to(device=device, dtype=leaf.dtype)
+        if tuple(t.shape) != tuple(leaf.shape):
+            raise ValueError(f"{key}: shape {tuple(t.shape)} != template {tuple(leaf.shape)}")
+        values[key] = t
+    return _unflatten_like(template, values)
+
+
+def checkpoint_exists(weights_dir: Path, name: str) -> bool:
+    return (Path(weights_dir) / f"{name}.npz").exists()
+
+
+def load_meta(weights_dir: Path, name: str) -> Dict:
+    meta_path = Path(weights_dir) / _META_NAME
+    if not meta_path.exists():
+        return {}
+    try:
+        all_meta = json.loads(meta_path.read_text(encoding="utf-8"))
+    except json.JSONDecodeError:
+        return {}
+    entry = all_meta.get(name)
+    return dict(entry) if isinstance(entry, dict) else {}
+
+
+__all__ = ["load_params", "checkpoint_exists", "load_meta"]

@@ -1,0 +1,127 @@
+"""Flash attention forward (kernel B6) and its plain version.
+
+Counterpart of ``vocalie_tts_tpu/ops/flash_attention.py::flash_attention``
+(forward only): ``[b, h, s, d]`` attention, causal (start-aligned, query
+i sees keys <= i) or masked per batch row by ``kv_lens``, with GQA when
+k/v carry fewer heads. :func:`reference_attention` is the counterpart of
+that module's ``reference_attention`` (the XLA softmax that prefill runs
+below 512 positions).
+
+On a CUDA tensor the wrapper launches ``csrc/flash_attention.cu``; on a
+CPU tensor it runs :func:`attention_plain`. A row with no valid key
+returns zeros.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from vocalie_tts_tpu_torch.ops import _build
+
+_ARGTYPES = [_build.P] * 5 + [_build.I] * 7 + [_build.F, _build.I, _build.P]
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _valid_keys(b, s_q, s_k, causal, kv_lens, device):
+    """[b, 1, s_q, s_k] bool — True where a query may see a key."""
+    cols = torch.arange(s_k, device=device)
+    ok = torch.ones((b, 1, s_q, s_k), dtype=torch.bool, device=device)
+    if kv_lens is not None:
+        ok = ok & (cols[None, None, None, :] < kv_lens.to(device)[:, None, None, None])
+    if causal:
+        rows = torch.arange(s_q, device=device)
+        ok = ok & (cols[None, :] <= rows[:, None])[None, None]
+    return ok
+
+
+def attention_plain(q, k, v, *, causal: bool = True, sm_scale: Optional[float] = None,
+                    kv_lens: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Softmax attention in f32; the probabilities are cast to the input
+    type before the p.v product, as the kernels do."""
+    b, h, s_q, d = q.shape
+    hk, s_k = k.shape[1], k.shape[2]
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    grp = h // hk
+    f32 = torch.float32
+    qf = q.to(f32).reshape(b, hk, grp, s_q, d)
+    s = torch.matmul(qf, k.to(f32)[:, :, None].transpose(-1, -2)) * sm_scale
+    ok = _valid_keys(b, s_q, s_k, causal, kv_lens, q.device)[:, :, None]
+    s = s.masked_fill(~ok, -math.inf)
+    m = s.amax(-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = torch.exp(s - m)
+    lsum = p.sum(-1, keepdim=True)
+    pc = p.to(q.dtype).to(f32)
+    o = torch.matmul(pc, v.to(f32)[:, :, None])
+    o = o * torch.where(lsum == 0, torch.ones_like(lsum), 1.0 / lsum)
+    return o.reshape(b, h, s_q, d).to(q.dtype)
+
+
+def reference_attention(q, k, v, *, causal: bool = True,
+                        sm_scale: Optional[float] = None) -> torch.Tensor:
+    """Naive softmax attention, all in f32, cast to q's dtype at the end."""
+    b, h, s_q, d = q.shape
+    hk, s_k = k.shape[1], k.shape[2]
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    f32 = torch.float32
+    qf = q.to(f32).reshape(b, hk, h // hk, s_q, d)
+    s = torch.matmul(qf, k.to(f32)[:, :, None].transpose(-1, -2)) * sm_scale
+    if causal:
+        s = s.masked_fill(~_valid_keys(1, s_q, s_k, True, None, q.device)[:, :, None], -math.inf)
+    o = torch.matmul(torch.softmax(s, dim=-1), v.to(f32)[:, :, None])
+    return o.reshape(b, h, s_q, d).to(q.dtype)
+
+
+def flash_attention(
+    q: torch.Tensor,          # [b, h, s_q, d]
+    k: torch.Tensor,          # [b, hk, s_k, d]
+    v: torch.Tensor,
+    *,
+    causal: bool = True,
+    sm_scale: Optional[float] = None,
+    kv_lens: Optional[torch.Tensor] = None,   # [b] int32
+) -> torch.Tensor:
+    b, h, s_q, d = q.shape
+    bk, hk, s_k, dk = k.shape
+    if bk != b or dk != d or tuple(v.shape) != tuple(k.shape) or h % hk:
+        raise ValueError(f"shapes q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    if q.device.type == "cpu":
+        return attention_plain(q, k, v, causal=causal, sm_scale=sm_scale, kv_lens=kv_lens)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"kernel takes float32 or bfloat16 q/k/v, got {q.dtype}/{k.dtype}/{v.dtype}")
+    if d not in (8, 16, 32, 64):
+        raise ValueError(f"kernel takes head dims 8, 16, 32 or 64, got {d}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous tensor on {q.device}")
+    lens_ptr = 0
+    if kv_lens is not None:
+        if kv_lens.dtype != torch.int32 or tuple(kv_lens.shape) != (b,) \
+                or kv_lens.device != q.device or not kv_lens.is_contiguous():
+            raise ValueError(f"kv_lens must be a contiguous int32 [{b}] tensor on {q.device}")
+        lens_ptr = kv_lens.data_ptr()
+    out = torch.empty_like(q)
+    fn = _build.kernel("vt_flash_attention_fwd", _ARGTYPES)
+    flash_attention.launches += 1
+    rc = fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lens_ptr,
+        b, h, hk, s_q, s_k, d, int(bool(causal)), float(sm_scale), _DTYPES[q.dtype],
+        _build.stream_ptr(q),
+    )
+    _build.check(rc, "vt_flash_attention_fwd")
+    return out
+
+
+#: launches of the CUDA kernel (the plain version is not counted)
+flash_attention.launches = 0
+
+__all__ = ["flash_attention", "attention_plain", "reference_attention"]
