@@ -6,24 +6,38 @@ Phases (any failure exits non-zero before the final line is printed):
 
 1. build the port's CUDA kernels from ``vocalie_tts_tpu_torch/csrc`` with
    nvcc for sm_90a (one nvcc per source, all started together);
-2. for each kernel of the voice-over path — B1 int8 decode attention,
-   B5 KV-cache append, B6 flash attention — at the shapes the path gives
-   it: hold the kernel against its plain PyTorch version on the card,
-   time kernel, plain version and (where one exists) the one PyTorch call
-   that computes the same function, and compute the least time the card
-   could take (bytes over 3.35 TB/s or operations over the peak rate);
-3. a small-input reference check: the tiny-scale model on the GPU
-   (kernels) against the same weights on the CPU (plain versions) —
-   teacher-forced decode logits and stage-2 PCM on shared noise;
+2. for each kernel of the voice-over path -- B1 int8 decode attention,
+   B5 KV-cache append, B6 flash attention, and the dense decode kernels
+   B3 norm+qkv, B2 layer tail + next qkv, B4 int8 lm_head -- at the shapes
+   the path gives it: hold the kernel against its plain PyTorch version on
+   the card, time kernel, plain version and (where one exists) the one
+   PyTorch call that computes the same function (for B2-B4 there is none;
+   the slice-1 ops that do the same work are timed as a yardstick, and a
+   child process counts the CUDA kernels one call issues with
+   torch.profiler), and compute the least time the card could take (bytes
+   over 3.35 TB/s or operations over the peak rate);
+3. small-input references: the tiny-scale model on the GPU (kernels)
+   against the same weights on the CPU (plain versions) -- teacher-forced
+   decode logits and stage-2 PCM on shared noise; then a d_model-128
+   transformer with the dense kernels on, the GPU kernels against the same
+   GPU step through the dense kernels' plain versions, and against the CPU;
 4. the main path: ``run_tts_pipeline`` at the full Chatterbox T3 width
-   (random weights from a seed) with the slice's env, for the 8-chunk
-   bench script and for a request whose chunk takes the 512 prompt
-   bucket (causal flash attention in prefill). Every WAV is checked, the
-   kernels' launch counters must have moved, and audio seconds, wall
-   seconds and the real-time factor are printed.
+   (random weights from a seed), in the JAX package's default int8 serving
+   configuration (``VOCALIE_KV_INT8=1 VOCALIE_WEIGHT_INT8=1``, the dense
+   kernels on) for the 8-chunk bench script and for a request whose chunk
+   takes the 512 prompt bucket (causal flash attention in prefill); then
+   the slice-1 configuration (``VOCALIE_DENSE_KERNEL=0``) on the bench
+   script. Every WAV is checked; each path's launch counters are set to 0
+   just before it and read just after, must have moved, and must fit the
+   path (B2 = 30 x decode steps, B3 = decode steps, B4 = decode steps +
+   prefills); audio seconds, wall seconds, the real-time factor and
+   ms/step are printed;
+5. torch.profiler, only now, so that nothing above is timed in a process
+   where it has been on: short windows of each configuration show where
+   the time goes.
 
-The second-to-last lines are the card's name and power limit and a JSON
-``kernels`` line; the last line is ``{"ok": true, "device": {...}}``.
+The second-to-last lines are a JSON ``kernels`` line and the card's name
+and power limit; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -43,11 +57,21 @@ PEAK_BF16_FLOPS = 989e12        # H100 SXM dense bf16 tensor rate
 PEAK_INT8_OPS = 1979e12
 NEG = -0.7 * float(torch.finfo(torch.float32).max)
 
-SLICE_ENV = {
-    "VOCALIE_KV_INT8": "1",
-    "VOCALIE_WEIGHT_INT8": "1",
-    "VOCALIE_DENSE_KERNEL": "0",
-}
+#: the JAX package's default int8 serving configuration (bench.py's env)
+DEFAULT_ENV = {"VOCALIE_KV_INT8": "1", "VOCALIE_WEIGHT_INT8": "1"}
+#: slice 1's configuration: the dense decode kernels off
+SLICE1_ENV = {**DEFAULT_ENV, "VOCALIE_DENSE_KERNEL": "0"}
+#: knobs that change the decode path; cleared before each configuration
+PATH_KNOBS = ("VOCALIE_KV_INT8", "VOCALIE_WEIGHT_INT8", "VOCALIE_DENSE_KERNEL",
+              "VOCALIE_DECODE_KERNEL", "VOCALIE_MEGATAIL", "VOCALIE_MEGALAYER",
+              "VOCALIE_FUSED_STEP")
+
+
+def set_env(env: dict) -> None:
+    for k in PATH_KNOBS:
+        os.environ.pop(k, None)
+    os.environ.update(env)
+
 
 # the bench script: ~60 s of French voice-over in 8 marked chunks
 _SENT = (
@@ -245,6 +269,195 @@ def check_flash_attention(dev, failures):
             **cfm, "prefill_causal": pre}
 
 
+#: B2-B4 against their plain versions: the kernels repeat the plain
+#: versions' rounding step for step (exact int32 products, the variance
+#: summed in double, IEEE divides, the same f32 epilogue order), so only an
+#: int8 activation on a .5 tie reached from the other side could move an
+#: output (by ~1e-3 of its scale); a d_ff block other than the tile moves
+#: it by ~1e-2 (tests/test_torch_decode_dense.py)
+DENSE_TOL = 1e-5
+
+
+def kernels_per_call(fn) -> dict:
+    """The CUDA kernels one call of ``fn`` issues, by name, as
+    torch.profiler sees them (empty if it saw none)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {key: n for _, n, key in _device_rows(prof)}
+
+
+def count_dense_kernels(kernels, failures) -> None:
+    """Record in each B2-B4 entry the CUDA kernels one call of its wrapper
+    issues at the main path's shapes, as torch.profiler counts them in a
+    child process (``--count-kernels``). The profiler is never on in this
+    process, which times everything before phase 5; in a fresh process it
+    saw every kernel of a single call, while after other profiled windows
+    it missed some."""
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--count-kernels"],
+                          capture_output=True, text=True, timeout=300)
+    lines = proc.stdout.strip().splitlines()
+    counted = json.loads(lines[-1]) if proc.returncode == 0 and lines else {}
+    if proc.returncode != 0:
+        failures.append(f"the kernel-count child failed (rc {proc.returncode}): "
+                        f"{proc.stderr.strip()[-2000:]}")
+    for entry in kernels:
+        if entry["name"] not in DENSE_LINES:
+            continue
+        per_call = counted.get(entry["name"], {})
+        n_kernels = sum(per_call.values()) or None
+        listed = ", ".join(f"{k.split('(')[0]} x{n}" for k, n in sorted(per_call.items()))
+        entry["cuda_kernels_per_call"] = n_kernels
+        log(f"{entry['name']}: CUDA kernels per call (profiled): "
+            + (f"{n_kernels} ({listed})" if n_kernels else "not measured (profiler saw none)"))
+
+
+def _count_kernels_child() -> int:
+    """``--count-kernels``: one profiled call of each of B2-B4 (after one
+    unprofiled call that loads the library), printed as one JSON line."""
+    dev = torch.device("cuda:0")
+    calls = _dense_inputs(dev).calls
+    out = {}
+    for name, call in calls.items():
+        call()
+        out[name] = kernels_per_call(call)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def _dense_entry(name, *, got, ref, ms, plain_ms, slice1_ms, n_bytes, n_ops,
+                 shape, failures):
+    errs = [(g - r).abs().max().item() for g, r in zip(got, ref)]
+    worst = max(e / (DENSE_TOL * r.abs().max().item()) for e, r in zip(errs, ref))
+    err = max(errs)
+    bms, by = bound_ms(n_bytes, n_ops, PEAK_INT8_OPS)
+    log(f"{name}: max_abs_err={err:.3e}, worst |diff| / ({DENSE_TOL} x max|ref|) = {worst:.3f} "
+        f"(must be <= 1); kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, slice-1 ops "
+        f"{slice1_ms:.6f} ms, bound {bms:.6f} ms ({by})")
+    if not worst <= 1.0:
+        failures.append(f"{name} differs from its plain version: worst ratio {worst}")
+    return {"name": name, "route": "cuda",
+            "source": "vocalie_tts_tpu_torch/csrc/decode_dense.cu",
+            "replaces": f"vocalie_tts_tpu/ops/decode_dense.py:{DENSE_LINES[name]}",
+            "max_abs_err": err, "tolerance": f"{DENSE_TOL} x max|ref|", "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": None,
+            "slice1_ops_ms": slice1_ms, "cuda_kernels_per_call": None, "shape": shape}
+
+
+#: the dense kernels' names in the ``kernels`` line and the lines of the
+#: JAX functions they replace in vocalie_tts_tpu/ops/decode_dense.py
+DENSE_LINES = {"B3 qkv_norm_int8": 269, "B2 tail_swiglu_qkv_int8": 519,
+               "B4 dense_int8 (lm_head)": 116}
+
+
+def _dense_inputs(dev, L: int = 30):
+    """The inputs of B3, B2 and B4 at the decode shapes of the main path
+    (b = 16: 8 chunks, CFG-doubled; T3 full width; the 128-padded head),
+    from a seed, and one call of each wrapper by its entry's name."""
+    import types
+
+    from vocalie_tts_tpu_torch.ops import decode_dense as dd
+
+    b, d, F, Q, N, eps = 16, 1024, 4096, 3072, 1152, 1e-5
+    gen = torch.Generator(device=dev).manual_seed(6)
+
+    def weights(d_in, d_out, n=L):
+        q = torch.randint(-127, 128, (n, d_in, d_out), generator=gen, device=dev,
+                          dtype=torch.int8)
+        s = (torch.rand((n, 1, d_out), generator=gen, device=dev) + 0.5) / 127 * d_in ** -0.5
+        return q, s
+
+    x = torch.randn((b, d), generator=gen, device=dev).to(torch.bfloat16)
+    attn = torch.randn((b, d), generator=gen, device=dev) * 0.3
+    nw = 1 + 0.1 * torch.randn((L, d), generator=gen, device=dev)
+    mw = 1 + 0.1 * torch.randn((L, d), generator=gen, device=dev)
+    wq, sq = weights(d, Q)
+    wo, wos = weights(d, d)
+    wgu, sgu = weights(d, 2 * F)
+    wd, sd = weights(F, d)
+    wh, sh = weights(d, N)
+    args = (attn, x, wo, wos, mw, wgu, sgu, wd, sd, nw, wq, sq)
+    calls = {"B3 qkv_norm_int8": lambda: dd.qkv_norm_int8_stacked(x, nw, wq, sq, 1, eps=eps),
+             "B2 tail_swiglu_qkv_int8": lambda: dd.tail_swiglu_qkv_int8_stacked(*args, 1, eps=eps),
+             "B4 dense_int8 (lm_head)": lambda: dd.dense_int8_stacked(x, wh, sh, 1)}
+    return types.SimpleNamespace(**locals())
+
+
+def check_dense(dev, failures, L: int = 30):
+    """B3, B2 and B4 at the decode shapes of the main path. Each timed call
+    reads another layer of 30, as the decode step does (the 0.5 GB of int8
+    weights are far larger than the 50 MB L2); the head is timed over 30
+    copies for the same reason."""
+    from vocalie_tts_tpu_torch.models.common import transformer as tr
+    from vocalie_tts_tpu_torch.ops import decode_dense as dd
+
+    t = _dense_inputs(dev, L)
+    b, d, F, Q, N, eps = t.b, t.d, t.F, t.Q, t.N, t.eps
+    x, attn, nw, mw, args = t.x, t.attn, t.nw, t.mw, t.args
+    wq, sq, wo, wos, wgu, sgu, wd, sd, wh, sh = (t.wq, t.sq, t.wo, t.wos, t.wgu, t.sgu, t.wd,
+                                                  t.sd, t.wh, t.sh)
+    cfg = tr.TransformerConfig(vocab_size=1026, d_model=d, n_layers=L, n_heads=16, n_kv_heads=16,
+                               d_head=64, d_ff=F)
+
+    def i8(w, s, l):
+        return {"q": w[l], "s": s[l]}
+
+    out = []
+    # B3: the layer-0 norm + qkv prologue
+    got = [dd.qkv_norm_int8_stacked(x, nw, wq, sq, 0, eps=eps)]
+    ref = [dd.qkv_norm_int8_plain(x, nw, wq, sq, 0, eps=eps)]
+    torch.cuda.synchronize()
+    out.append(_dense_entry(
+        "B3 qkv_norm_int8", got=got, ref=ref,
+        ms=cuda_ms(lambda i: dd.qkv_norm_int8_stacked(x, nw, wq, sq, i % L, eps=eps), 300),
+        plain_ms=cuda_ms(lambda i: dd.qkv_norm_int8_plain(x, nw, wq, sq, i % L, eps=eps), 20),
+        slice1_ms=cuda_ms(lambda i: tr._qdot(tr.rms_norm(x, nw[i % L], eps),
+                                             i8(wq, sq, i % L)), 100),
+        n_bytes=b * d * 2 + d * 4 + d * Q + Q * 4 + b * Q * 4, n_ops=2 * b * d * Q,
+        shape=f"x[{b},{d}] bf16, W[{L},{d},{Q}] int8", failures=failures))
+    # B2: the layer tail + the next layer's norm + qkv, at a middle layer
+    # and at the last one (next qkv clamped to it)
+    got, ref = [], []
+    for layer in (L // 2, L - 1):
+        got += dd.tail_swiglu_qkv_int8_stacked(*args, layer, eps=eps)
+        ref += dd.tail_swiglu_qkv_int8_plain(*args, layer, eps=eps)
+    torch.cuda.synchronize()
+    attn_heads = attn.to(torch.bfloat16).reshape(b, 16, 1, 64)
+
+    def slice1_tail(i):
+        l = i % L
+        layer = {"wo": i8(wo, wos, l), "mlp_norm": mw[l], "w_gateup": i8(wgu, sgu, l),
+                 "w_down": i8(wd, sd, l)}
+        y = tr._block_tail(layer, x[:, None], attn_heads, cfg)
+        return tr._qdot(tr.rms_norm(y, nw[min(l + 1, L - 1)], eps), i8(wq, sq, min(l + 1, L - 1)))
+
+    out.append(_dense_entry(
+        "B2 tail_swiglu_qkv_int8", got=got, ref=ref,
+        ms=cuda_ms(lambda i: dd.tail_swiglu_qkv_int8_stacked(*args, i % L, eps=eps), 300),
+        plain_ms=cuda_ms(lambda i: dd.tail_swiglu_qkv_int8_plain(*args, i % L, eps=eps), 20),
+        slice1_ms=cuda_ms(slice1_tail, 100),
+        n_bytes=(b * d * 4 + b * d * 2 + d * d + d * 2 * F + F * d + d * Q
+                 + 4 * (d + d + 2 * F + d + d + Q) + b * d * 4 + b * Q * 4),
+        n_ops=2 * b * (d * d + d * 2 * F + F * d + d * Q),
+        shape=f"attn[{b},{d}] f32, x[{b},{d}] bf16, d_ff {F} in tiles of "
+              f"{dd.pick_tile(F, dd.TILE_BUDGET, 2 * d)}, qkv {Q}, {L} layers", failures=failures))
+    # B4: the 128-padded int8 lm_head (1026 -> 1152 columns)
+    got = [dd.dense_int8_stacked(x, wh[:1], sh[:1], 0)]
+    ref = [dd.dense_int8_plain(x, wh[:1], sh[:1], 0)]
+    torch.cuda.synchronize()
+    out.append(_dense_entry(
+        "B4 dense_int8 (lm_head)", got=got, ref=ref,
+        ms=cuda_ms(lambda i: dd.dense_int8_stacked(x, wh, sh, i % L), 300),
+        plain_ms=cuda_ms(lambda i: dd.dense_int8_plain(x, wh, sh, i % L), 20),
+        slice1_ms=cuda_ms(lambda i: tr._qdot(x, i8(wh, sh, i % L), f32_out=True), 100),
+        n_bytes=b * d * 2 + d * N + N * 4 + b * N * 4, n_ops=2 * b * d * N,
+        shape=f"x[{b},{d}] bf16, W[1,{d},{N}] int8", failures=failures))
+    return out
+
+
 # ── phase 3: small-input reference (GPU kernels vs CPU plain) ───────────
 
 
@@ -269,7 +482,8 @@ def small_reference(dev, failures):
         cpu = ChatterboxRuntime(_to(rt.params, "cpu"), rt.cfg, rt.weights_dir,
                                 torch.device("cpu"))
     cfg = rt.cfg.lm
-    assert cfg.kv_quant and cfg.decode_kernel and not cfg.dense_kernel
+    # the dense flag is on, but d_model 64 is not eligible: _qdot, as in JAX
+    assert cfg.kv_quant and cfg.decode_kernel and cfg.dense_kernel
     gen = torch.Generator().manual_seed(5)
     b, s = 4, 64
     emb = torch.randn((b, s, cfg.d_model), generator=gen) * 0.5
@@ -308,6 +522,76 @@ def small_reference(dev, failures):
         failures.append(f"tiny stage-2 PCM differs by {lsb} LSB")
 
 
+def small_reference_dense(dev, failures):
+    """A d_model-128 transformer (2 layers, 2 heads, d_head 64, d_ff 256,
+    f32, int8 weights) with the dense kernels on: prefill + 12 teacher-forced
+    decode steps on the GPU through the kernels, against (a) the same GPU
+    steps through the dense kernels' plain versions -- the kernels repeat
+    their rounding, so DENSE_TOL holds at every step -- and (b) the CPU. On
+    (b), an int8 activation on a .5 tie can round the other way under
+    another exp or cos and move one row's logits at one step by up to a few
+    1e-2; a wrong kernel or path moves most rows at every step. So (b)
+    fails if more than a quarter of the (step, row) logit rows are outside
+    2e-3 + 2e-3|ref|."""
+    from vocalie_tts_tpu_torch.models.chatterbox.model import init_transformer
+    from vocalie_tts_tpu_torch.models.common import transformer as tr
+    from vocalie_tts_tpu_torch.ops import decode_dense as dd
+
+    cfg = tr.TransformerConfig(vocab_size=96, d_model=128, n_layers=2, n_heads=2, n_kv_heads=2,
+                               d_head=64, d_ff=256, max_seq_len=256, kv_quant=True,
+                               decode_kernel=True, dense_kernel=True, dtype=torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    params = tr.fuse_decode_weights(tr.quantize_weights_int8(
+        init_transformer(cfg, generator=gen, device=dev)))
+    cpu_params = _to(params, "cpu")
+    g = torch.Generator().manual_seed(13)
+    b, s, n_steps = 4, 32, 12
+    emb = torch.randn((b, s, cfg.d_model), generator=g) * 0.5
+    lens = torch.tensor([32, 20, 3, 11], dtype=torch.int32)
+    toks = torch.randint(0, cfg.vocab_size, (n_steps, b), generator=g)
+
+    def run(p, d):
+        logits, cache = tr.prefill(p, cfg, None, lens.to(d), inputs_embeds=emb.to(d),
+                                   cache_len=256)
+        steps = [logits.cpu()]
+        for i in range(n_steps):
+            logits, cache = tr.decode_step(p, cfg, toks[i].to(d), cache)
+            steps.append(logits.cpu())
+        return steps
+
+    wrappers = (dd.qkv_norm_int8_stacked, dd.tail_swiglu_qkv_int8_stacked, dd.dense_int8_stacked)
+    before = [w.launches for w in wrappers]
+    kernel = run(params, dev)
+    launched = [w.launches - b0 for w, b0 in zip(wrappers, before)]
+    kept = (tr.qkv_norm_int8_stacked, tr.tail_swiglu_qkv_int8_stacked, tr.dense_int8_stacked)
+    tr.qkv_norm_int8_stacked = dd.qkv_norm_int8_plain
+    tr.tail_swiglu_qkv_int8_stacked = dd.tail_swiglu_qkv_int8_plain
+    tr.dense_int8_stacked = dd.dense_int8_plain
+    try:
+        plain = run(params, dev)
+    finally:
+        (tr.qkv_norm_int8_stacked, tr.tail_swiglu_qkv_int8_stacked,
+         tr.dense_int8_stacked) = kept
+    cpu = run(cpu_params, torch.device("cpu"))
+    want = [n_steps, cfg.n_layers * n_steps, n_steps + 1]
+    worst_plain = max(((a - c).abs().max() / (DENSE_TOL * c.abs().max())).item()
+                      for a, c in zip(kernel, plain))
+    ratios = torch.stack([((a - c).abs() / (2e-3 + 2e-3 * c.abs())).amax(-1)
+                          for a, c in zip(kernel, cpu)])
+    outside = int((ratios > 1).sum())
+    log(f"small reference, dense path (d_model 128, prefill + {n_steps} teacher-forced steps): "
+        f"launches B3/B2/B4 = {launched} (expected {want}); GPU kernels vs GPU plain versions: "
+        f"worst |diff| / ({DENSE_TOL} x max|ref|) = {worst_plain:.3f} (must be <= 1); GPU vs CPU: "
+        f"worst |diff| / (2e-3 + 2e-3|ref|) = {ratios.max().item():.3f}, {outside} of "
+        f"{ratios.numel()} (step, row) logit rows outside it (at most a quarter)")
+    if launched != want:
+        failures.append(f"dense reference launches {launched} != {want}")
+    if not worst_plain <= 1.0:
+        failures.append(f"dense reference: kernels differ from plain versions by {worst_plain}")
+    if outside * 4 > ratios.numel():
+        failures.append(f"dense reference: {outside} logit rows differ from the CPU")
+
+
 # ── phase 4: the main path ───────────────────────────────────────────────
 
 
@@ -326,81 +610,131 @@ def _request(script: str, out_path: str) -> dict:
     }
 
 
-def main_path(dev, failures, scale: str = "full"):
-    from vocalie_tts_tpu_torch.engines.chatterbox import ChatterboxEngine
-    from vocalie_tts_tpu_torch.io.wavio import read_wav
+#: the kernels of the voice-over path, by the names of PERF.md's table
+KERNEL_NAMES = ("B1", "B2", "B3", "B4", "B5", "B6")
+
+
+def _wrappers():
     from vocalie_tts_tpu_torch.ops.cache_update import cache_append_stacked
     from vocalie_tts_tpu_torch.ops.decode_attention import decode_attention_stacked
+    from vocalie_tts_tpu_torch.ops.decode_dense import (
+        dense_int8_stacked,
+        qkv_norm_int8_stacked,
+        tail_swiglu_qkv_int8_stacked,
+    )
     from vocalie_tts_tpu_torch.ops.flash_attention import flash_attention
+
+    return dict(zip(KERNEL_NAMES, (decode_attention_stacked, tail_swiglu_qkv_int8_stacked,
+                                   qkv_norm_int8_stacked, dense_int8_stacked,
+                                   cache_append_stacked, flash_attention)))
+
+
+def drive_path(dev, failures, label: str, env: dict, requests, scale: str = "full"):
+    """Build the full-width runtime under ``env``, warm it up on the bench
+    script, set every launch counter to 0, run ``requests`` through
+    ``run_tts_pipeline``, read the counters, and time the bench request's
+    decode and stage 2. Returns the counters by kernel and a function that
+    runs the profiled windows of ``breakdown`` (kept for after every timed
+    phase)."""
+    from vocalie_tts_tpu_torch.engines.chatterbox import ChatterboxEngine
+    from vocalie_tts_tpu_torch.io.wavio import read_wav
+    from vocalie_tts_tpu_torch.models.chatterbox import runtime as rt_mod
     from vocalie_tts_tpu_torch.pipeline import run_tts_pipeline
 
+    set_env(env)
     os.environ["VOCALIE_MODEL_SCALE"] = scale
     os.environ["VOCALIE_ALLOW_RANDOM_WEIGHTS"] = "1"
-    wrappers = (decode_attention_stacked, cache_append_stacked, flash_attention)
-    requests = [("bench 8-chunk", BENCH_SCRIPT), ("512-bucket prompt", LONG_SCRIPT)]
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.monotonic()
-        engine = ChatterboxEngine(device=dev, assets=os.path.join(tmp, "assets"))
-        rt = engine.runtime()
-        torch.cuda.synchronize()
-        log(f"main path: full-width runtime built in {time.monotonic() - t0:.2f} s "
-            f"(random weights, seed 7; T3 {rt.cfg.n_layers} layers x d_model {rt.cfg.d_model})")
-        t0 = time.monotonic()
-        warm = run_tts_pipeline(_request(BENCH_SCRIPT, os.path.join(tmp, "warm.wav")),
-                                engine=engine)
-        log(f"main path warm-up (bench script, first call: CUDA/cuBLAS/cuDNN set-up): "
-            f"audio {warm.meta['total_duration']:.3f} s, wall {time.monotonic() - t0:.3f} s")
-        for w in wrappers:
-            w.launches = 0
-        per_request = []
-        for label, script in requests:
-            request = _request(script, os.path.join(tmp, f"{len(per_request)}.wav"))
-            chunks = request["chunks"]
-            before = [w.launches for w in wrappers]
+    wrappers = _wrappers()
+    prefills = [0]
+    real_prefill = rt_mod.prefill
+
+    def counted_prefill(*a, **k):
+        prefills[0] += 1
+        return real_prefill(*a, **k)
+
+    rt_mod.prefill = counted_prefill
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
             t0 = time.monotonic()
-            res = run_tts_pipeline(request, engine=engine)
-            wall = time.monotonic() - t0
-            wav, sr = read_wav(res.out_path)
-            meta = res.meta
-            gap = int(24000 * 0.25)
-            expect = round(sum(meta["durations"]) * 24000) + gap * (len(chunks) - 1)
-            ok = (sr == 24000 and len(wav) == expect and len(wav) > 0
-                  and bool(torch.isfinite(torch.from_numpy(wav)).all())
-                  and abs(len(wav) / sr - meta["total_duration"]) < 1e-9
-                  and all(round(dur * 24000) % rt.cfg.samples_per_token == 0
-                          for dur in meta["durations"]))
-            bm = meta["backend_meta"]
-            launches = [w.launches - b0 for w, b0 in zip(wrappers, before)]
-            log(f"main path [{label}]: {len(chunks)} chunks, prompt bucket {bm['prompt_bucket']}, "
-                f"decode bucket {bm['decode_bucket']}, audio {meta['total_duration']:.3f} s, "
-                f"wall {wall:.3f} s, RTF {meta['total_duration'] / wall:.3f}x, wav ok={ok}, "
-                f"launches B1/B5/B6 = {launches}")
-            if not ok:
-                failures.append(f"{label}: WAV check failed (len {len(wav)}, expected {expect})")
-            per_request.append({"label": label, "prompt_bucket": bm["prompt_bucket"],
-                                "launches": launches})
+            engine = ChatterboxEngine(device=dev, assets=os.path.join(tmp, "assets"))
+            rt = engine.runtime()
+            torch.cuda.synchronize()
+            lm = rt.cfg.lm
+            log(f"main path [{label}]: full-width runtime built in {time.monotonic() - t0:.2f} s "
+                f"(random weights, seed 7; T3 {rt.cfg.n_layers} layers x d_model "
+                f"{rt.cfg.d_model}; kv_quant={lm.kv_quant} decode_kernel={lm.decode_kernel} "
+                f"dense_kernel={lm.dense_kernel})")
+            t0 = time.monotonic()
+            warm = run_tts_pipeline(_request(BENCH_SCRIPT, os.path.join(tmp, "warm.wav")),
+                                    engine=engine)
+            log(f"main path [{label}] warm-up (bench script, first call: CUDA/cuBLAS/cuDNN "
+                f"set-up): audio {warm.meta['total_duration']:.3f} s, "
+                f"wall {time.monotonic() - t0:.3f} s")
+            for w in wrappers.values():
+                w.launches = 0
+            prefills[0] = 0
+            per_request = []
+            for req_label, script in requests:
+                request = _request(script, os.path.join(tmp, f"{len(per_request)}.wav"))
+                chunks = request["chunks"]
+                before = {k: w.launches for k, w in wrappers.items()}
+                t0 = time.monotonic()
+                res = run_tts_pipeline(request, engine=engine)
+                wall = time.monotonic() - t0
+                wav, sr = read_wav(res.out_path)
+                meta = res.meta
+                gap = int(24000 * 0.25)
+                expect = round(sum(meta["durations"]) * 24000) + gap * (len(chunks) - 1)
+                ok = (sr == 24000 and len(wav) == expect and len(wav) > 0
+                      and bool(torch.isfinite(torch.from_numpy(wav)).all())
+                      and abs(len(wav) / sr - meta["total_duration"]) < 1e-9
+                      and all(round(dur * 24000) % rt.cfg.samples_per_token == 0
+                              for dur in meta["durations"]))
+                bm = meta["backend_meta"]
+                launches = {k: w.launches - before[k] for k, w in wrappers.items()}
+                log(f"main path [{label}, {req_label}]: {len(chunks)} chunks, prompt bucket "
+                    f"{bm['prompt_bucket']}, decode bucket {bm['decode_bucket']}, audio "
+                    f"{meta['total_duration']:.3f} s, wall {wall:.3f} s, RTF "
+                    f"{meta['total_duration'] / wall:.3f}x, wav ok={ok}, launches {launches}")
+                if not ok:
+                    failures.append(f"{label} {req_label}: WAV check failed (len {len(wav)}, "
+                                    f"expected {expect})")
+                per_request.append({"prompt_bucket": bm["prompt_bucket"], "launches": launches})
+            counts = {k: w.launches for k, w in wrappers.items()}
+            n_prefill = prefills[0]
+            windows = breakdown(rt, dev, label)
+    finally:
+        rt_mod.prefill = real_prefill
+
+    def profile():
+        set_env(env)
+        windows()
+
+    steps = counts["B5"]   # one KV append per decode step
+    log(f"main path [{label}]: {steps} decode steps, {n_prefill} prefills, launches {counts}")
+    if len(requests) > 1:
         if per_request[1]["prompt_bucket"] != 512:
             failures.append("the long request did not reach the 512 prompt bucket")
-        if per_request[1]["launches"][2] == 0:
+        if per_request[1]["launches"]["B6"] == 0:
             failures.append("no flash launch in the 512-bucket request")
-        counts = {w.__name__: w.launches for w in wrappers}
-        for name, n in counts.items():
-            if n == 0:
-                failures.append(f"{name} was never launched on the main path")
-        breakdown(rt, dev)
-    return counts
+    want = {"B1": lm.n_layers * steps, "B5": steps}
+    if lm.dense_kernel:
+        want.update(B2=lm.n_layers * steps, B3=steps, B4=steps + n_prefill)
+    else:
+        want.update(B2=0, B3=0, B4=0)
+    for k, n in want.items():
+        if counts[k] != n:
+            failures.append(f"[{label}] {k} launched {counts[k]} times, the path needs {n}")
+    for k in KERNEL_NAMES:
+        if k in want and want[k] == 0:
+            continue
+        if counts[k] == 0:
+            failures.append(f"[{label}] {k} was never launched on the main path")
+    return counts, profile
 
 
-def _profiled(label: str, fn) -> None:
-    """Run ``fn`` under torch.profiler (device activity only) and print the
-    device's busy share of the wall time and the kernels that fill it."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.monotonic()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.monotonic() - t0
+def _device_rows(prof) -> list:
+    """(device µs, count, name) of each device operation a profile saw."""
     rows = []
     for e in prof.key_averages():
         dt = getattr(e, "self_device_time_total", None)
@@ -408,23 +742,41 @@ def _profiled(label: str, fn) -> None:
             dt = getattr(e, "self_cuda_time_total", 0.0)
         if dt and e.device_type == torch.autograd.DeviceType.CUDA:
             rows.append((dt, e.count, e.key))
+    return rows
+
+
+def _profiled(label: str, fn) -> int:
+    """Run ``fn`` under torch.profiler (device activity only), print the
+    device's busy share of the wall time and the kernels that fill it, and
+    return the number of device operations (0 if the profiler saw none)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    rows = _device_rows(prof)
     busy = sum(r[0] for r in rows) / 1e6
     if busy <= 0:
         log(f"breakdown [{label}]: device time not measured (profiler saw none)")
-        return
+        return 0
+    n_ops = sum(r[1] for r in rows)
     log(f"breakdown [{label}]: wall {wall:.3f} s (profiler on), device busy "
-        f"{busy:.3f} s = {busy / wall:.1%}, idle {1 - busy / wall:.1%}")
+        f"{busy:.3f} s = {busy / wall:.1%}, idle {1 - busy / wall:.1%}, {n_ops} device operations")
     for dt, n, key in sorted(rows, reverse=True)[:8]:
         log(f"  {dt / 1e3:10.3f} ms  {n:7d} launches  {key[:90]}")
+    return n_ops
 
 
-def breakdown(rt, dev) -> None:
+def breakdown(rt, dev, label: str):
     """Where one bench request's time goes: host wall time of the decode
-    (prefill + loop) and of stage 2; then torch.profiler over a window of
-    the same work (prefill + 32 decode steps, and one stage-2 call) for
-    the device's busy share and the kernels that fill it. The window is
-    short because the profiler's post-processing grows with the number of
-    launches (~2,000 a decode step)."""
+    (prefill + loop) and of stage 2, measured now; and a function that
+    runs torch.profiler over windows of the same work (prefill alone,
+    prefill + 32 decode steps, and one stage-2 call) for the device's busy
+    share, the kernels that fill it and the device operations per decode
+    step. The windows are short because the profiler's post-processing
+    grows with the number of launches."""
     from vocalie_tts_tpu_torch.models.common.token2wav import draw_stage2_noise
 
     texts = [_SENT] * 8
@@ -445,10 +797,19 @@ def breakdown(rt, dev) -> None:
     t_gen = time.monotonic()
     stage2(toks, tl)
     t_end = time.monotonic()
-    log(f"breakdown [bench request]: decode (prefill + {n_dec} steps) {t_gen - t0:.3f} s "
-        f"= {(t_gen - t0) / n_dec * 1e3:.2f} ms/step, stage 2 {t_end - t_gen:.3f} s")
-    _profiled("prefill + 32 decode steps", lambda: decode(32))
-    _profiled(f"stage 2 ({toks.shape[1]} tokens x {toks.shape[0]} rows)", lambda: stage2(toks, tl))
+    log(f"breakdown [{label}, bench request]: decode (prefill + {n_dec} steps) "
+        f"{t_gen - t0:.3f} s = {(t_gen - t0) / n_dec * 1e3:.2f} ms/step, "
+        f"stage 2 {t_end - t_gen:.3f} s")
+
+    def windows():
+        n0 = _profiled(f"{label}, prefill alone", lambda: decode(0))
+        n32 = _profiled(f"{label}, prefill + 32 decode steps", lambda: decode(32))
+        if n0 and n32:
+            log(f"breakdown [{label}]: {(n32 - n0) / 32:.1f} device operations per decode step")
+        _profiled(f"{label}, stage 2 ({toks.shape[1]} tokens x {toks.shape[0]} rows)",
+                  lambda: stage2(toks, tl))
+
+    return windows
 
 
 def main() -> int:
@@ -460,8 +821,7 @@ def main() -> int:
     except ImportError as e:
         print(f"chip_smoke: the port's package is not importable here: {e}", file=sys.stderr)
         return 2
-    for k, v in SLICE_ENV.items():
-        os.environ[k] = v
+    set_env(DEFAULT_ENV)
     dev = torch.device("cuda:0")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
 
@@ -473,25 +833,33 @@ def main() -> int:
             log("  " + line.strip())
 
     failures: list = []
-    kernels = [check_decode_attention(dev, failures), check_cache_append(dev, failures),
-               check_flash_attention(dev, failures)]
+    kernels = [check_decode_attention(dev, failures), *check_dense(dev, failures),
+               check_cache_append(dev, failures), check_flash_attention(dev, failures)]
+    count_dense_kernels(kernels, failures)
     if failures:
         raise SystemExit("kernel checks failed: " + "; ".join(failures))
-    # the tiny model runs in f32 and is held against the CPU's f32
+    # the small models run in f32 and are held against the CPU's f32
     # products, so TF32 is off for this phase only (cuDNN's default is on);
     # the main path runs with PyTorch's defaults, as a caller gets them
     tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     small_reference(dev, failures)
+    small_reference_dense(dev, failures)
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
     if failures:
         raise SystemExit("small-input reference failed: " + "; ".join(failures))
-    counts = main_path(dev, failures)
+    requests = [("bench 8-chunk", BENCH_SCRIPT), ("512-bucket prompt", LONG_SCRIPT)]
+    counts, profile = drive_path(dev, failures, "default int8 config", DEFAULT_ENV, requests)
+    counts1, profile1 = drive_path(dev, failures, "slice-1 config", SLICE1_ENV, requests[:1])
     if failures:
         raise SystemExit("main path failed: " + "; ".join(failures))
-    for entry, name in zip(kernels, ("decode_attention_stacked", "cache_append_stacked",
-                                     "flash_attention")):
-        entry["launches"] = counts[name]
+    # torch.profiler last: everything above is timed without it
+    profile()
+    profile1()
+    for entry, key in zip(kernels, ("B1", "B3", "B2", "B4", "B5", "B6")):
+        entry["launches"] = counts[key]
+        if counts1[key]:
+            entry["launches_slice1_config"] = counts1[key]
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
@@ -506,4 +874,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(_count_kernels_child() if sys.argv[1:] == ["--count-kernels"] else main())

@@ -1,0 +1,197 @@
+"""The port's decode step with the dense kernels on (``dense_kernel``: B3
+norm+qkv, B2 layer tail + next qkv, B4 lm_head) against the JAX reference,
+on the config of ``tests/test_decode_dense.py:213-216`` (d_model 128, two
+layers, two heads, d_head 64, d_ff 256, f32) with the int8 KV cache, the
+decode-attention kernel and int8 fused weights bridged from ``init_params``.
+JAX runs its Pallas kernels in interpret mode, the port its plain versions.
+
+Also the fault this slice repairs: under ``bench.py``'s env
+(``VOCALIE_KV_INT8=1 VOCALIE_WEIGHT_INT8=1``, ``VOCALIE_DENSE_KERNEL``
+unset) the JAX package turns the dense kernels on; the port turned them
+off and ran ``_qdot``, so the two gave different logits.
+
+Tolerances: logits atol = rtol = 2e-3, as for slice 1 (the JAX package's
+own bound for its decode-step kernels, ``tests/test_decode_step_fused.py``);
+the int8 cache bytes the steps append are equal.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from vocalie_tts_tpu.models.common import transformer as jt
+from vocalie_tts_tpu_torch.bridge import tree_to_torch
+from vocalie_tts_tpu_torch.models.common import transformer as pt
+
+DIMS = dict(vocab_size=96, d_model=128, n_layers=2, n_heads=2, n_kv_heads=2, d_head=64,
+            d_ff=256, max_seq_len=256)
+DENSE = dict(kv_quant=True, decode_kernel=True, dense_kernel=True)
+CACHE_LEN = 256
+
+
+def _params(**dims):
+    jcfg = jt.TransformerConfig(**{**DIMS, **dims}, dtype=jnp.float32)
+    raw = jax.device_get(jt.init_params(jax.random.PRNGKey(0), jcfg))
+    jparams = jt.fuse_decode_weights(jt.quantize_weights_int8(raw))
+    pparams = pt.fuse_decode_weights(pt.quantize_weights_int8(tree_to_torch(raw)))
+    return jparams, pparams
+
+
+@pytest.fixture(scope="module")
+def params():
+    return _params()
+
+
+def _configs(flags, **dims):
+    return (jt.TransformerConfig(**{**DIMS, **dims}, **flags, dtype=jnp.float32),
+            pt.TransformerConfig(**{**DIMS, **dims}, **flags, dtype=torch.float32))
+
+
+def _run(jcfg, jparams, pcfg, pparams, *, b=4, n_steps=8, seed=1):
+    """Prefill logits, then teacher-forced decode logits, on both sides →
+    (list of (jax, port) logits, jax cache, port cache)."""
+    s = 32
+    rng = np.random.default_rng(seed)
+    emb = (rng.standard_normal((b, s, jcfg.d_model)) * 0.5).astype(np.float32)
+    lens = np.asarray([32, 20, 3, 11][:b], np.int32)
+    toks = rng.integers(0, jcfg.vocab_size, (n_steps, b)).astype(np.int32)
+    jl, jcache = jax.jit(
+        lambda p, e, l: jt.prefill(p, jcfg, jnp.zeros(e.shape[:2], jnp.int32), l,
+                                   inputs_embeds=e, cache_len=CACHE_LEN)
+    )(jparams, jnp.asarray(emb), jnp.asarray(lens))
+    pl, pcache = pt.prefill(pparams, pcfg, None, torch.from_numpy(lens),
+                            inputs_embeds=torch.from_numpy(emb), cache_len=CACHE_LEN)
+    out = [(np.asarray(jl), pl.numpy())]
+    jstep = jax.jit(lambda p, t, c: jt.decode_step(p, jcfg, t, c))
+    for i in range(n_steps):
+        jl, jcache = jstep(jparams, jnp.asarray(toks[i]), jcache)
+        pl, pcache = pt.decode_step(pparams, pcfg, torch.from_numpy(toks[i]).long(), pcache)
+        out.append((np.asarray(jl), pl.numpy()))
+    return out, jcache, pcache
+
+
+def _assert_logits(pairs):
+    for i, (ref, got) in enumerate(pairs):
+        np.testing.assert_allclose(got, ref, atol=2e-3, rtol=2e-3,
+                                   err_msg="prefill" if i == 0 else f"step {i - 1}")
+
+
+def _assert_appended_cache(jcache, pcache, n_steps, prompt_pad=32):
+    """The decode slots of the int8 cache: JAX's lane-packed k|v against
+    the port's split k and v, values and bf16 scales equal."""
+    sl = slice(prompt_pad, prompt_pad + n_steps)
+    jk = np.asarray(jcache.k)[:, :, :, sl]
+    d = pcache.k.shape[-1]
+    assert np.array_equal(pcache.k[:, :, :, sl].numpy(), jk[..., :d])
+    assert np.array_equal(pcache.v[:, :, :, sl].numpy(), jk[..., d:])
+    for name in ("k_scale", "v_scale"):
+        ref = np.asarray(getattr(jcache, name))[:, :, :, sl].view(np.int16)
+        assert np.array_equal(getattr(pcache, name)[:, :, :, sl].view(torch.int16).numpy(), ref)
+
+
+def test_dense_prefill_and_teacher_forced_decode(params):
+    """Prefill's last-position logits through B4; each step through B3, B2
+    per layer and B4; then the k/v the steps appended (B5)."""
+    jcfg, pcfg = _configs(DENSE)
+    assert jcfg.kv_packed
+    pairs, jcache, pcache = _run(jcfg, params[0], pcfg, params[1], n_steps=12)
+    _assert_logits(pairs)
+    assert pcache.n_decoded == 12 == int(jcache.n_decoded)
+    _assert_appended_cache(jcache, pcache, 12)
+
+
+def test_dense_path_differs_from_qdot(params):
+    """The dense path is not the ``_qdot`` one: the activations' int8
+    quantization moves the logits by more than the tolerance above."""
+    jcfg, pcfg = _configs(DENSE)
+    pairs, _, _ = _run(jcfg, params[0], pcfg, params[1], n_steps=2)
+    qpairs, _, _ = _run(jcfg, params[0], dataclasses.replace(pcfg, dense_kernel=False),
+                        params[1], n_steps=2)
+    assert all(np.abs(got - ref).max() > 2e-3 + 2e-3 * np.abs(ref).max()
+               for (ref, _), (_, got) in zip(pairs[1:], qpairs[1:]))
+
+
+def test_dense_batch_one_without_fused_step(params, monkeypatch):
+    """Batch 1 with ``VOCALIE_FUSED_STEP=0``: the JAX package keeps the
+    megatail path (the whole-step kernel B7 needs the knob on)."""
+    monkeypatch.setenv("VOCALIE_FUSED_STEP", "0")
+    jcfg, pcfg = _configs(DENSE)
+    pairs, _, _ = _run(jcfg, params[0], pcfg, params[1], b=1, n_steps=3)
+    _assert_logits(pairs)
+
+
+def test_dense_without_fused_tail_raises():
+    """d_ff 192 (not a 128-multiple): the JAX package runs B4 for the
+    fused qkv and the o-projection and ``_qdot`` for the MLP, a dispatch
+    the port does not carry. Prefill (B4 for the head, as in JAX) still
+    matches; the decode step raises instead of running another path."""
+    jparams, pparams = _params(d_ff=192)
+    jcfg, pcfg = _configs(DENSE, d_ff=192)
+    pairs, _, pcache = _run(jcfg, jparams, pcfg, pparams, n_steps=0)
+    _assert_logits(pairs)
+    with pytest.raises(NotImplementedError, match="d_ff=192"):
+        pt.decode_step(pparams, pcfg, torch.zeros(4, dtype=torch.long), pcache)
+
+
+def test_dense_at_tiny_width_takes_qdot(monkeypatch):
+    """d_model 64 is not eligible: both packages take ``_qdot`` with the
+    flag on, and no dense kernel runs on the port's side."""
+    dims = dict(d_model=64, d_ff=128, n_heads=2, n_kv_heads=1, d_head=32)
+    jparams, pparams = _params(**dims)
+    jcfg, pcfg = _configs(DENSE, **dims)
+    calls = []
+    for name in ("dense_int8_stacked", "qkv_norm_int8_stacked", "tail_swiglu_qkv_int8_stacked"):
+        fn = getattr(pt, name)
+        monkeypatch.setattr(pt, name, lambda *a, _fn=fn, **k: calls.append(1) or _fn(*a, **k))
+    pairs, _, _ = _run(jcfg, jparams, pcfg, pparams, n_steps=3)
+    _assert_logits(pairs)
+    assert not calls
+
+
+@pytest.mark.parametrize("env,kernel", [
+    ({"VOCALIE_MEGATAIL": "0"}, "B8"),
+    ({"VOCALIE_MEGALAYER": "1"}, "B12"),
+    ({}, "B7"),
+])
+def test_dense_knobs_without_a_port_raise(params, monkeypatch, env, kernel):
+    """Where the JAX package would run a kernel the port does not have,
+    the port raises instead of running another path (``{}`` at batch 1:
+    the whole-step kernel)."""
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    _, pcfg = _configs(DENSE)
+    b = 1 if kernel == "B7" else 2
+    cache = pt.StackedKVCache.create(2, b, 2, CACHE_LEN, 64, "cpu")
+    with pytest.raises(NotImplementedError, match=kernel):
+        pt.decode_step(params[1], pcfg, torch.zeros(b, dtype=torch.long), cache)
+
+
+@pytest.mark.parametrize("env,expect", [
+    ({"VOCALIE_KV_INT8": "1", "VOCALIE_WEIGHT_INT8": "1"}, True),   # bench.py
+    ({"VOCALIE_KV_INT8": "1", "VOCALIE_WEIGHT_INT8": "1", "VOCALIE_DENSE_KERNEL": "0"}, False),
+    ({"VOCALIE_KV_INT8": "1", "VOCALIE_DENSE_KERNEL": "1"}, True),
+    ({"VOCALIE_KV_INT8": "1"}, False),
+])
+def test_runtime_env_sets_dense_kernel_as_jax(params, monkeypatch, env, expect):
+    """``apply_runtime_env`` in both packages under the same env, then the
+    teacher-forced logits of the d_model-128 model under the configs it
+    gives. Under bench.py's env the port used to leave the dense kernels
+    off while the JAX package turned them on."""
+    from vocalie_tts_tpu.models.common.ar_runtime import apply_runtime_env as jax_env
+    from vocalie_tts_tpu_torch.models.common.ar_runtime import apply_runtime_env as port_env
+
+    for k in ("VOCALIE_KV_INT8", "VOCALIE_WEIGHT_INT8", "VOCALIE_DENSE_KERNEL",
+              "VOCALIE_DECODE_KERNEL"):
+        monkeypatch.delenv(k, raising=False)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    jcfg, pcfg = _configs({})
+    jcfg, pcfg = jax_env(jcfg), port_env(pcfg)
+    assert jcfg.dense_kernel is pcfg.dense_kernel is expect
+    assert jcfg.decode_kernel is pcfg.decode_kernel is True
+    pairs, _, _ = _run(jcfg, params[0], pcfg, params[1], n_steps=3)
+    _assert_logits(pairs)

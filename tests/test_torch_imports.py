@@ -79,9 +79,22 @@ def test_entry_points_refuse_cpu_fallback(tmp_path, monkeypatch):
 
 
 def test_dense_kernel_env_names_the_next_slice(monkeypatch):
+    """``VOCALIE_DENSE_KERNEL=1`` forces the dense kernels, as in the JAX
+    package (they are ported); a knob whose kernel a later slice brings
+    names it (``VOCALIE_MEGATAIL=0`` needs B8, the next one)."""
+    import dataclasses
+
     from vocalie_tts_tpu_torch.models.chatterbox.runtime import SCALES
+    from vocalie_tts_tpu_torch.models.common import transformer as tr
     from vocalie_tts_tpu_torch.models.common.ar_runtime import apply_runtime_env
 
     monkeypatch.setenv("VOCALIE_DENSE_KERNEL", "1")
-    with pytest.raises(NotImplementedError, match="next slice"):
-        apply_runtime_env(SCALES["tiny"])
+    cfg = apply_runtime_env(SCALES["tiny"]).lm
+    assert cfg.dense_kernel is True
+    cfg = dataclasses.replace(cfg, d_model=128, n_heads=2, n_kv_heads=2, d_head=64, d_ff=256)
+    layers = {name: {"q": torch.zeros(shape, dtype=torch.int8)} for name, shape in (
+        ("wqkv", (2, 128, 384)), ("wo", (2, 128, 128)),
+        ("w_gateup", (2, 128, 512)), ("w_down", (2, 256, 128)))}
+    monkeypatch.setenv("VOCALIE_MEGATAIL", "0")
+    with pytest.raises(NotImplementedError, match="B8"):
+        tr._dense_dispatch(layers, cfg, 2, 256)

@@ -1,9 +1,10 @@
 """The port's CUDA kernels (B1 int8 decode attention, B5 KV-cache append,
-B6 flash attention) against their plain PyTorch versions on the GPU, at
-the edge shapes the main path does not reach: GQA, head dims other than
-64, ragged and fully masked rows, valid lengths off the 128-slot grid,
-f32 as well as bf16. ``chip_smoke.py`` holds the kernels at the main
-path's shapes.
+B6 flash attention, the dense decode kernels B2/B3/B4) against their plain
+PyTorch versions on the GPU, at the edge shapes the main path does not
+reach: GQA, head dims other than 64, ragged and fully masked rows, valid
+lengths off the 128-slot grid, f32 as well as bf16, batch 1 and 17, zero
+rows, the last layer's clamped next-qkv, d_ff in one and in two tiles.
+``chip_smoke.py`` holds the kernels at the main path's shapes.
 
 These tests need an NVIDIA GPU (a CUDA kernel has no CPU mode) and skip
 without one. They import neither JAX nor the JAX package, so they run on
@@ -19,7 +20,11 @@ of other than 128 slots lands well outside it
 atol 1e-4 (f32 throughout, only the summation order differs); in bf16
 |diff| <= 1e-2 + 1e-2·|ref| (bf16 output, one step is 2^-8 of the
 value; p rounds to bf16 against a running max in the kernel, the row
-max in the plain version).
+max in the plain version). B2/B3/B4 within 1e-5 · max|ref|: the kernels
+repeat their plain versions' rounding step for step (exact int32 products,
+the variance summed in double, IEEE divides, the same f32 epilogue order),
+so an output moves only if an int8 activation sits on a .5 tie that
+another expf reaches from the other side; such a flip moves it by ~1e-3.
 """
 
 import math
@@ -31,6 +36,14 @@ from vocalie_tts_tpu_torch.ops.cache_update import cache_append_plain, cache_app
 from vocalie_tts_tpu_torch.ops.decode_attention import (
     decode_attention_plain,
     decode_attention_stacked,
+)
+from vocalie_tts_tpu_torch.ops.decode_dense import (
+    dense_int8_plain,
+    dense_int8_stacked,
+    qkv_norm_int8_plain,
+    qkv_norm_int8_stacked,
+    tail_swiglu_qkv_int8_plain,
+    tail_swiglu_qkv_int8_stacked,
 )
 from vocalie_tts_tpu_torch.ops.flash_attention import attention_plain, flash_attention
 
@@ -169,3 +182,101 @@ def test_flash_attention_kernel_rejects_bad_inputs(dev):
                         q[..., :48].contiguous())
     with pytest.raises(ValueError, match="kv_lens"):
         flash_attention(q, q, q, kv_lens=torch.zeros(1, dtype=torch.int64, device=dev))
+
+
+# ── B2, B3, B4 ──────────────────────────────────────────────────────────
+
+
+def _int8_weights(gen, dev, L, d_in, d_out):
+    q = torch.randint(-127, 128, (L, d_in, d_out), generator=gen, device=dev, dtype=torch.int8)
+    s = ((torch.rand((L, 1, d_out), generator=gen, device=dev) + 0.5) / 127) * d_in ** -0.5
+    return q, s
+
+
+def _close(got, ref):
+    err = (got - ref).abs().max().item()
+    assert torch.isfinite(got).all() and err <= 1e-5 * ref.abs().max().item(), err
+
+
+@pytest.mark.parametrize("b,d_in,d_out,dtype,zero_row", [
+    (1, 1024, 1152, torch.bfloat16, None),   # the lm_head at batch 1
+    (17, 256, 384, torch.float32, 16),       # two row passes, a zero row
+    (16, 1024, 1152, torch.bfloat16, 3),
+    (5, 96, 128, torch.float32, None),       # K a multiple of 32 only
+])
+def test_dense_int8_kernel(dev, b, d_in, d_out, dtype, zero_row):
+    gen = _gen(dev, b + d_in)
+    x = torch.randn((b, d_in), generator=gen, device=dev).to(dtype)
+    if zero_row is not None:
+        x[zero_row] = 0
+    w, s = _int8_weights(gen, dev, 2, d_in, d_out)
+    before = dense_int8_stacked.launches
+    got = dense_int8_stacked(x, w, s, 1)
+    ref = dense_int8_plain(x, w, s, 1)
+    torch.cuda.synchronize()
+    assert dense_int8_stacked.launches == before + 1
+    _close(got, ref)
+    if zero_row is not None:
+        assert (got[zero_row] == 0).all()
+
+
+@pytest.mark.parametrize("b,d,dq,dtype,zero_row,layer", [
+    (1, 1024, 3072, torch.bfloat16, None, 0),
+    (17, 128, 384, torch.float32, 0, 1),
+    (16, 1024, 3072, torch.bfloat16, 7, 1),
+])
+def test_qkv_norm_int8_kernel(dev, b, d, dq, dtype, zero_row, layer):
+    gen = _gen(dev, b + d + 1)
+    x = (torch.randn((b, d), generator=gen, device=dev) * 3).to(dtype)
+    if zero_row is not None:
+        x[zero_row] = 0
+    nw = 1 + 0.1 * torch.randn((2, d), generator=gen, device=dev)
+    w, s = _int8_weights(gen, dev, 2, d, dq)
+    got = qkv_norm_int8_stacked(x, nw, w, s, layer, eps=1e-5)
+    ref = qkv_norm_int8_plain(x, nw, w, s, layer, eps=1e-5)
+    torch.cuda.synchronize()
+    _close(got, ref)
+    if zero_row is not None:
+        assert (got[zero_row] == 0).all()
+
+
+@pytest.mark.parametrize("b,L,d,F,Q,layer,dtype", [
+    (16, 3, 1024, 4096, 3072, 1, torch.bfloat16),   # the T3 layer: d_ff in two tiles
+    (1, 2, 1024, 4096, 3072, 1, torch.bfloat16),    # batch 1, last layer (clamped next)
+    (17, 3, 128, 256, 384, 2, torch.float32),       # one tile, last layer, two row passes
+    (4, 2, 512, 8192, 1536, 0, torch.float32),      # two 4096 tiles
+])
+def test_tail_swiglu_qkv_int8_kernel(dev, b, L, d, F, Q, layer, dtype):
+    gen = _gen(dev, b + d + F)
+    attn = torch.randn((b, d), generator=gen, device=dev) * 0.3
+    attn[0] = 0   # a zero row: its o-projection is 0, x2 = x
+    x = torch.randn((b, d), generator=gen, device=dev).to(dtype)
+    wo, wos = _int8_weights(gen, dev, L, d, d)
+    mw = 1 + 0.1 * torch.randn((L, d), generator=gen, device=dev)
+    wgu, sgu = _int8_weights(gen, dev, L, d, 2 * F)
+    wd, sd = _int8_weights(gen, dev, L, F, d)
+    nw = 1 + 0.1 * torch.randn((L, d), generator=gen, device=dev)
+    wq, sq = _int8_weights(gen, dev, L, d, Q)
+    args = (attn, x, wo, wos, mw, wgu, sgu, wd, sd, nw, wq, sq, layer)
+    before = tail_swiglu_qkv_int8_stacked.launches
+    x_out, qkv = tail_swiglu_qkv_int8_stacked(*args, eps=1e-5)
+    rx, rq = tail_swiglu_qkv_int8_plain(*args, eps=1e-5)
+    torch.cuda.synchronize()
+    assert tail_swiglu_qkv_int8_stacked.launches == before + 1
+    assert x_out.shape == (b, d) and qkv.shape == (b, Q)
+    _close(x_out, rx)
+    _close(qkv, rq)
+
+
+def test_dense_kernels_reject_bad_inputs(dev):
+    x = torch.zeros((2, 256), device=dev)
+    w = torch.zeros((1, 256, 384), dtype=torch.int8, device=dev)
+    s = torch.ones((1, 1, 384), device=dev)
+    with pytest.raises(ValueError, match="s_all"):
+        dense_int8_stacked(x, w, s.double(), 0)
+    with pytest.raises(ValueError, match="layer"):
+        dense_int8_stacked(x, w, s, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        dense_int8_stacked(torch.zeros((256, 2), device=dev).t(), w, s, 0)
+    with pytest.raises(ValueError, match="K % 32"):
+        dense_int8_stacked(x[:, :200].contiguous(), w[:, :200].contiguous(), s, 0)

@@ -1,11 +1,25 @@
-"""The whole slice at the tiny scale: the JAX ``ChatterboxRuntime`` and
-the port's, on the same weights (saved once in the ``.npz`` format and
-loaded by both), in the slice's configuration (int8 KV cache, int8
-weights, the decode-attention and cache-append kernels, dense kernels
-off — ``VOCALIE_DENSE_KERNEL=0`` on both sides).
+"""The whole port at the tiny scale: the JAX ``ChatterboxRuntime`` and the
+port's, on the same weights (saved once in the ``.npz`` format and loaded
+by both), in two configurations:
+
+- ``slice1``: int8 KV cache, int8 weights, the decode-attention and
+  cache-append kernels, dense kernels off (``VOCALIE_DENSE_KERNEL=0`` on
+  both sides), at the ``tiny`` T3 width;
+- ``slice2``: the JAX package's default int8 serving configuration
+  (``VOCALIE_DENSE_KERNEL`` unset, so the dense kernels B2-B4 are on), on a
+  ``tiny`` T3 widened (test side only, in both packages' ``SCALES``) to
+  d_model 128, 2 heads, d_ff 256 so that the dense path is eligible.
 
 - Greedy decoding (temperature 0) with CFG and the repetition penalty:
-  token ids and lengths must be equal.
+  token ids and lengths must be equal. With the dense kernels on, the
+  activations are quantized to int8 per row, and the two libraries round
+  a norm or an exp differently in the last ulp; an element on a .5 tie
+  can then round the other way, and with random weights the logits hold
+  near-ties. Where the port's argmax leaves JAX's, the test replays JAX
+  teacher-forced on the same tokens and shows that the port's pick was
+  within the logit tolerance (2e-3 + 2e-3 * |max|) of JAX's top logit at
+  that step (the ``tests/test_decode_dense.py:271-274`` pattern); tokens
+  are then compared up to that step. ``slice1`` must have no such step.
 - Stage 2 on the JAX tokens, with JAX's noise handed to the port: int16
   PCM within 33 LSB (1e-3 of full scale, the stage-2 tolerance).
 - ``run_tts_pipeline`` on a 3-chunk ``[[CHUNK]]`` script: chunk count,
@@ -30,24 +44,31 @@ ENV = {
     "VOCALIE_MODEL_SCALE": "tiny",
     "VOCALIE_KV_INT8": "1",
     "VOCALIE_WEIGHT_INT8": "1",
-    "VOCALIE_DENSE_KERNEL": "0",
     "VOCALIE_ALLOW_RANDOM_WEIGHTS": "1",
 }
+CONFIGS = {"slice1": {"VOCALIE_DENSE_KERNEL": "0"}, "slice2": {}}
+WIDE = dict(d_model=128, n_heads=2, n_kv_heads=2, d_ff=256)
 
 
-@pytest.fixture(scope="module")
-def runtimes(tmp_path_factory):
+@pytest.fixture(scope="module", params=sorted(CONFIGS))
+def runtimes(request, tmp_path_factory):
     from vocalie_tts_tpu.models.chatterbox.model import init_t3, init_token_decoder
     from vocalie_tts_tpu.models.chatterbox.runtime import SCALES as JAX_SCALES
     from vocalie_tts_tpu.models.chatterbox.runtime import ChatterboxRuntime as JaxRuntime
     from vocalie_tts_tpu.models.common.weights import save_params
+    from vocalie_tts_tpu_torch.models.chatterbox.runtime import SCALES
     from vocalie_tts_tpu_torch.models.chatterbox.runtime import ChatterboxRuntime
 
+    dense = request.param == "slice2"
     assets = tmp_path_factory.mktemp("assets")
     with pytest.MonkeyPatch.context() as mp:
-        for k, v in ENV.items():
+        mp.delenv("VOCALIE_DENSE_KERNEL", raising=False)
+        for k, v in {**ENV, **CONFIGS[request.param]}.items():
             mp.setenv(k, v)
         mp.setenv("VOCALIE_ASSETS_DIR", str(assets))
+        if dense:
+            mp.setitem(JAX_SCALES, "tiny", dataclasses.replace(JAX_SCALES["tiny"], **WIDE))
+            mp.setitem(SCALES, "tiny", dataclasses.replace(SCALES["tiny"], **WIDE))
         cfg = JAX_SCALES["tiny"]
         wdir = assets / "chatterbox" / "weights"
         save_params(wdir, "t3", init_t3(jax.random.PRNGKey(1), cfg),
@@ -56,7 +77,8 @@ def runtimes(tmp_path_factory):
                     meta={"family": "chatterbox", "stage": "s3gen"})
         jrt = JaxRuntime.create(assets / "chatterbox")
         prt = ChatterboxRuntime.create(assets / "chatterbox", device="cpu")
-        assert jrt.cfg.lm.dense_kernel is False and jrt.cfg.lm.decode_kernel is True
+        assert jrt.cfg.lm.dense_kernel is dense and jrt.cfg.lm.decode_kernel is True
+        assert prt.cfg.lm.dense_kernel is dense and prt.cfg.lm.d_model == cfg.d_model
         yield jrt, prt, mp
 
 
@@ -83,14 +105,69 @@ def _port_generate(prt, texts, **kw):
     return toks.numpy(), lengths.numpy()
 
 
-def test_greedy_tokens_match(runtimes):
+GREEDY = dict(temperature=0.0, cfg_weight=0.6, repetition_penalty=1.35)
+
+
+def _jax_replay(jrt, texts, tokens, n_steps):
+    """JAX's logits after CFG and the repetition penalty at steps
+    0..n_steps-1, fed ``tokens`` (teacher forcing) → [n_steps, b, vocab]."""
+    from vocalie_tts_tpu.models.chatterbox.model import speech_logit_bias
+    from vocalie_tts_tpu.models.common import transformer as jtr
+    from vocalie_tts_tpu.ops.sampling import apply_repetition_penalty, cfg_combine
+
+    cfg = jrt.cfg
+    t3, embeds, lens, (_, _, _, cache_len) = jrt._prepare_batch(
+        texts, mode="fr_finetune", lang="fr", voice_ref_path=None, exaggeration=0.5,
+        cfg_weight=GREEDY["cfg_weight"])
+    _, cache = jtr.prefill(t3["lm"], cfg.lm, jnp.zeros(embeds.shape[:2], jnp.int32), lens,
+                           inputs_embeds=embeds, cache_len=cache_len)
+    step = jax.jit(lambda p, t, c: jtr.decode_step(p, cfg.lm, t, c))
+    bias = speech_logit_bias(cfg)[None]
+    b, vocab = tokens.shape[0], cfg.lm.vocab_size
+    counts = jnp.zeros((b, vocab), jnp.int32)
+    tok = np.full((b,), cfg.bos_speech, np.int32)
+    out = []
+    for i in range(n_steps):
+        logits, cache = step(t3["lm"], jnp.asarray(np.concatenate([tok, tok])), cache)
+        logits = cfg_combine(logits[:b] + bias, logits[b:] + bias, GREEDY["cfg_weight"])
+        out.append(np.asarray(apply_repetition_penalty(logits, counts,
+                                                       GREEDY["repetition_penalty"])))
+        tok = tokens[:, i]
+        counts = counts + jax.nn.one_hot(tok, vocab, dtype=jnp.int32)
+    return np.stack(out)
+
+
+@pytest.fixture(scope="module")
+def greedy(runtimes):
+    """Both sides' greedy tokens and lengths, and ``flips``: row → the
+    first step where the port's token differs from JAX's."""
     jrt, prt, _ = runtimes
-    kw = dict(temperature=0.0, cfg_weight=0.6, repetition_penalty=1.35)
-    jt, jl = _jax_generate(jrt, _texts(), **kw)
-    pt, pl = _port_generate(prt, _texts(), **kw)
-    np.testing.assert_array_equal(pl, jl)
-    np.testing.assert_array_equal(pt, jt)
+    jt, jl = _jax_generate(jrt, _texts(), **GREEDY)
+    pt, pl = _port_generate(prt, _texts(), **GREEDY)
+    flips = {r: int(np.argmax(jt[r] != pt[r])) for r in range(jt.shape[0])
+             if (jt[r] != pt[r]).any()}
+    return jt, jl, pt, pl, flips
+
+
+def test_greedy_tokens_match(runtimes, greedy):
+    jrt, prt, _ = runtimes
+    jt, jl, pt, pl, flips = greedy
     assert (jl > 0).all()
+    if not prt.cfg.lm.dense_kernel:
+        assert not flips, f"tokens differ from JAX's at (row, step) {flips}"
+    if flips:
+        ref = _jax_replay(jrt, _texts(), jt, max(flips.values()) + 1)
+        for r, s in flips.items():
+            a = ref[s, r]
+            top = a.max()
+            assert a[pt[r, s]] >= top - (2e-3 + 2e-3 * abs(top)), (
+                f"row {r} step {s}: the port picked {pt[r, s]} ({a[pt[r, s]]}), "
+                f"JAX {jt[r, s]} ({top})")
+    for r in range(jt.shape[0]):
+        s = flips.get(r, jt.shape[1])
+        np.testing.assert_array_equal(pt[r, :s], jt[r, :s], err_msg=f"row {r}")
+        if r not in flips:
+            assert pl[r] == jl[r], f"row {r}"
 
 
 def jax_stage2_noise(cfg, key, b, n_tok):
@@ -125,7 +202,7 @@ def test_stage2_pcm_on_jax_tokens(runtimes):
     assert np.abs(out.astype(np.int32) - ref.astype(np.int32)).max() <= 33
 
 
-def test_run_tts_pipeline_matches(runtimes, tmp_path):
+def test_run_tts_pipeline_matches(runtimes, greedy, tmp_path):
     from vocalie_tts_tpu.engines import get_backend
     from vocalie_tts_tpu.io.wavio import read_wav
     from vocalie_tts_tpu.pipeline import run_tts_pipeline as jax_pipeline
@@ -159,8 +236,14 @@ def test_run_tts_pipeline_matches(runtimes, tmp_path):
     jm, pm = jres.meta, pres.meta
     assert pm["chunks"] == jm["chunks"] == 3
     assert pm.keys() == jm.keys()
-    assert pm["durations"] == jm["durations"]
-    assert pm["total_duration"] == jm["total_duration"]
+    # a chunk whose greedy tokens left JAX's at a shown near-tie
+    # (test_greedy_tokens_match) may end at another length
+    flipped = set(greedy[4])
+    assert [d for i, d in enumerate(pm["durations"]) if i not in flipped] == \
+        [d for i, d in enumerate(jm["durations"]) if i not in flipped]
+    same_length = not flipped & set(range(pm["chunks"]))
+    if same_length:
+        assert pm["total_duration"] == jm["total_duration"]
     for key in ("retries", "sr", "inter_chunk_gap_ms", "inter_chunk_gap_applied",
                 "backend_id", "num_subunits"):
         assert pm[key] == jm[key], key
@@ -170,5 +253,7 @@ def test_run_tts_pipeline_matches(runtimes, tmp_path):
     assert pm["perf"].keys() == jm["perf"].keys()
     jwav, jsr = read_wav(jres.out_path)
     pwav, psr = read_wav(pres.out_path)
-    assert psr == jsr == 24000 and len(pwav) == len(jwav)
+    assert psr == jsr == 24000 and len(pwav) == round(pm["total_duration"] * 24000)
+    if same_length:
+        assert len(pwav) == len(jwav)
     assert np.isfinite(pwav).all()

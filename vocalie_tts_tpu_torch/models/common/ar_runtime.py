@@ -15,26 +15,26 @@ from vocalie_tts_tpu_torch.utils.env import bool_env, tri_env
 
 
 def apply_runtime_env(cfg):
-    """Apply the decode-path env knobs to a family config dataclass.
+    """Apply the decode-path env knobs to a family config dataclass, as
+    ``vocalie_tts_tpu/models/common/ar_runtime.py:29-54`` does:
 
     - ``VOCALIE_KV_INT8=1``: int8 KV cache;
     - ``VOCALIE_DECODE_KERNEL``: decode-attention kernel, on by default
       with the int8 cache (``=0`` opts out);
-    - ``VOCALIE_DENSE_KERNEL``: the int8-native dense decode kernels are
-      not ported yet — they stay off, and ``=1`` raises.
+    - ``VOCALIE_DENSE_KERNEL``: the int8-native dense decode kernels, on
+      by default with ``VOCALIE_WEIGHT_INT8=1`` (``=0`` opts out, ``=1``
+      forces the flag, inert without int8 weights).
     """
-    if tri_env("VOCALIE_DENSE_KERNEL") is True:
-        raise NotImplementedError(
-            "VOCALIE_DENSE_KERNEL=1 needs the dense decode kernels B2-B4, "
-            "which the next slice of the port brings; set VOCALIE_DENSE_KERNEL=0"
-        )
     kv_int8 = bool_env("VOCALIE_KV_INT8")
     if kv_int8:
         cfg = dataclasses.replace(cfg, kv_quant=True)
     kernel_env = tri_env("VOCALIE_DECODE_KERNEL")
     if kernel_env is True or (kv_int8 and kernel_env is not False):
         cfg = dataclasses.replace(cfg, decode_kernel=True)
-    return dataclasses.replace(cfg, dense_kernel=False)
+    dense_env = tri_env("VOCALIE_DENSE_KERNEL")
+    if dense_env is True or (bool_env("VOCALIE_WEIGHT_INT8") and dense_env is not False):
+        cfg = dataclasses.replace(cfg, dense_kernel=True)
+    return cfg
 
 
 def maybe_quantize_lm(bundle: Dict, key: str = "lm") -> Dict:

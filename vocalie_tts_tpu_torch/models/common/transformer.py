@@ -8,12 +8,20 @@ loop is a Python loop over that axis. ``prefill`` and ``decode_step``
 take the runtime's weights, with q/k/v and gate/up concatenated by
 ``fuse_decode_weights`` (``ar_runtime.maybe_quantize_lm``).
 
-This slice ports the Chatterbox-class serving path: RMSNorm, RoPE, GQA,
-SwiGLU, the int8 KV cache read by the decode-attention kernel (B1) and
-appended by the cache-update kernel (B5), and flash attention (B6) in
-prefill at prompt buckets >= 512. The int8-native dense decode kernels
-(``dense_kernel``) and the other family variants (LayerNorm/GELU,
-biases, qk-norm, learned positions) are not ported yet.
+The port serves the Chatterbox-class path: RMSNorm, RoPE, GQA, SwiGLU,
+the int8 KV cache read by the decode-attention kernel (B1) and appended
+by the cache-update kernel (B5), flash attention (B6) in prefill at
+prompt buckets >= 512, and, with ``dense_kernel`` (the JAX package's
+default with int8 weights), the int8-native dense decode kernels: the
+layer-0 norm+qkv (B3), the fused layer tail + next qkv (B2) and the int8
+lm_head (B4, also for prefill's last-position logits). Where the shapes
+are not eligible (``_dense_dispatch``: d_model or the qkv width not a
+128-multiple), the JAX package takes the ``_qdot`` path, and so does the
+port: that is the reference's own dispatch on shapes. Eligible shapes
+whose d_ff is not a 128-multiple (B4 for qkv and o, ``_qdot`` for the
+MLP in the JAX package) raise: no family the port serves has them. The
+other family variants (LayerNorm/GELU, biases, qk-norm, learned
+positions) are not ported yet.
 
 The KV cache is a mutable object: ``decode_step`` writes the step's k/v
 into it IN PLACE and returns it (the JAX version returns a new cache).
@@ -29,8 +37,14 @@ import torch
 import torch.nn.functional as F
 
 from vocalie_tts_tpu_torch.ops.cache_update import cache_append_stacked
+from vocalie_tts_tpu_torch.ops.decode_dense import (
+    dense_int8_stacked,
+    qkv_norm_int8_stacked,
+    tail_swiglu_qkv_int8_stacked,
+)
 from vocalie_tts_tpu_torch.ops.decode_attention import decode_attention_stacked
 from vocalie_tts_tpu_torch.ops.flash_attention import flash_attention, reference_attention
+from vocalie_tts_tpu_torch.utils.env import bool_env
 
 Params = Dict[str, Any]
 
@@ -55,7 +69,9 @@ class TransformerConfig:
     #: decode attention through the int8 kernel (B1) and the in-place
     #: cache append (B5)
     decode_kernel: bool = False
-    #: int8-native dense decode kernels (B2-B4) — not ported yet
+    #: int8-native dense decode kernels: B3 norm+qkv, B2 layer tail + next
+    #: qkv, B4 lm_head; inert without int8 weights or on ineligible shapes
+    #: (see ``_dense_dispatch``)
     dense_kernel: bool = False
     dtype: torch.dtype = torch.bfloat16
 
@@ -69,13 +85,10 @@ class TransformerConfig:
 
 
 def check_supported(cfg: TransformerConfig) -> None:
-    """Refuse configurations this slice does not port, instead of
-    running something other than what the JAX package would run."""
-    if cfg.dense_kernel:
-        raise NotImplementedError(
-            "VOCALIE_DENSE_KERNEL=1 (the int8-native dense decode kernels "
-            "B2-B4) is ported in the next slice; run with VOCALIE_DENSE_KERNEL=0"
-        )
+    """Refuse configurations the port does not carry, instead of running
+    something other than what the JAX package would run. The dense
+    path's knobs are refused in ``_dense_dispatch``, where the shapes say
+    whether the JAX package would take it."""
     if not (cfg.kv_quant and cfg.decode_kernel):
         raise NotImplementedError(
             "the port serves the int8 KV cache with the decode-attention "
@@ -163,11 +176,18 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(b, s, h * d)
 
 
+def _127(like: torch.Tensor) -> torch.Tensor:
+    """127 as a tensor divisor: PyTorch's CUDA divide by a Python number
+    multiplies by its rounded reciprocal, an ulp away from JAX's divide."""
+    return torch.full_like(like, 127.0)
+
+
 def _quantize_kv(t: torch.Tensor):
     """[..., d] → (int8 values, bf16 scales [...]) with per-vector amax;
     the bf16-rounded scale is what divides the values (round half even)."""
     tf = t.float()
-    scale = torch.clamp(tf.abs().amax(-1) / 127.0, min=1e-8).to(torch.bfloat16)
+    amax = tf.abs().amax(-1)
+    scale = torch.clamp(amax / _127(amax), min=1e-8).to(torch.bfloat16)
     q = torch.clamp(torch.round(tf / scale[..., None].float()), -127, 127).to(torch.int8)
     return q, scale
 
@@ -180,7 +200,8 @@ _QUANT_KEYS = {"lm_head", "cond_proj", "wq", "wk", "wv", "wo", "w_gate", "w_up",
 def _quantize_dense(w: torch.Tensor) -> Dict[str, torch.Tensor]:
     """[..., d_in, d_out] → {"q": int8, "s": f32 [..., 1, d_out]}."""
     wf = w.float()
-    s = torch.clamp(wf.abs().amax(-2, keepdim=True) / 127.0, min=1e-8)
+    amax = wf.abs().amax(-2, keepdim=True)
+    s = torch.clamp(amax / _127(amax), min=1e-8)
     q = torch.clamp(torch.round(wf / s), -127, 127).to(torch.int8)
     return {"q": q, "s": s}
 
@@ -242,9 +263,62 @@ def _qdot(x: torch.Tensor, w, f32_out: bool = False) -> torch.Tensor:
 
 
 def _lm_head_logits(x2d: torch.Tensor, params: Params, cfg: TransformerConfig) -> torch.Tensor:
-    """[b, d_model] → [b, vocab] f32 logits (the ``_qdot`` branch)."""
-    logits = _qdot(x2d, params["lm_head"], f32_out=True)
+    """[b, d_model] → [b, vocab] f32 logits: the int8 head padded to a
+    128-multiple through B4 under ``dense_kernel``, else ``_qdot``."""
+    w = params["lm_head"]
+    if (_is_i8(w) and cfg.dense_kernel and w["q"].shape[-1] % 128 == 0
+            and x2d.shape[-1] % 128 == 0):
+        logits = dense_int8_stacked(x2d, w["q"][None], w["s"][None], 0)
+    else:
+        logits = _qdot(x2d, w, f32_out=True)
     return logits[..., : cfg.vocab_size]
+
+
+def _is_i8(w) -> bool:
+    return isinstance(w, dict) and "q" in w
+
+
+def _dense_dispatch(layers: Params, cfg: TransformerConfig, batch: int, max_len: int) -> bool:
+    """Whether ``decode_step`` takes the megatail path (B3 prologue, then
+    B2 per layer): the JAX ``decode_step``'s choice of dense kernels from
+    the config and the shapes (``transformer.py:778-857``), for the port's
+    family (rms, SwiGLU, no biases, RoPE, the int8 cache and decode
+    kernel). Raises where the JAX package would run a dispatch or a kernel
+    the port lacks."""
+    dense = (cfg.dense_kernel and _is_i8(layers.get("wqkv")) and _is_i8(layers.get("wo"))
+             and layers["wqkv"]["q"].shape[2] % 128 == 0 and cfg.d_model % 128 == 0)
+    if not dense:
+        return False
+    if not (_is_i8(layers.get("w_gateup")) and _is_i8(layers.get("w_down"))
+            and cfg.d_ff % 128 == 0):
+        raise NotImplementedError(
+            f"with the dense kernels on and d_ff={cfg.d_ff} (not a multiple of 128) or "
+            "float MLP weights, the JAX package runs dense_int8_stacked for the qkv and "
+            "o-projections and _qdot for the MLP; the port has not ported that dispatch "
+            "(no family it serves takes it); set VOCALIE_DENSE_KERNEL=0"
+        )
+    if not bool_env("VOCALIE_MEGATAIL", True):
+        raise NotImplementedError(
+            "VOCALIE_MEGATAIL=0 runs tail_swiglu_int8_stacked + qkv_norm_int8_stacked "
+            "per layer (kernel B8), which the port does not have yet; unset it"
+        )
+    packed = 2 * cfg.d_head == 128   # the JAX cache's lane-packed k|v
+    # at batch 1 the JAX generate programs install the head-stacked qkv
+    # (maybe_head_stack_qkv) that sends decode_step to the whole-step kernel
+    if (batch == 1 and cfg.n_heads == cfg.n_kv_heads and packed and max_len % 128 == 0
+            and bool_env("VOCALIE_FUSED_STEP", True)):
+        raise NotImplementedError(
+            "at batch 1 the JAX package runs the whole decode step as one kernel "
+            "(decode_step_fused_packed, kernel B7), which the port does not have "
+            "yet; set VOCALIE_FUSED_STEP=0 or VOCALIE_DENSE_KERNEL=0"
+        )
+    if ((packed or cfg.d_head % 128 == 0) and max_len % 128 == 0
+            and bool_env("VOCALIE_MEGALAYER")):
+        raise NotImplementedError(
+            "VOCALIE_MEGALAYER=1 runs layer_swiglu_qkv_int8_stacked (kernel B12), "
+            "which the port does not have yet; unset it"
+        )
+    return True
 
 
 def _layer(layers: Params, l: int) -> Params:
@@ -256,14 +330,14 @@ def _layer(layers: Params, l: int) -> Params:
 def _block_qkv(layer: Params, x: torch.Tensor, cfg: TransformerConfig, cos, sin):
     h = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
     qkv = _qdot(h, layer["wqkv"])
+    return _finish_qkv(cfg, qkv, cos, sin)
+
+
+def _finish_qkv(cfg: TransformerConfig, qkv, cos, sin):
+    """Split of the fused projection, head split + RoPE."""
     q = qkv[..., : cfg.q_dim]
     k = qkv[..., cfg.q_dim : cfg.q_dim + cfg.kv_dim]
     v = qkv[..., cfg.q_dim + cfg.kv_dim :]
-    return _finish_qkv(cfg, q, k, v, cos, sin)
-
-
-def _finish_qkv(cfg: TransformerConfig, q, k, v, cos, sin):
-    """Head split + RoPE (post-projection)."""
     q = _split_heads(q, cfg.n_heads, cfg.d_head)
     k = _split_heads(k, cfg.n_kv_heads, cfg.d_head)
     v = _split_heads(v, cfg.n_kv_heads, cfg.d_head)
@@ -271,7 +345,8 @@ def _finish_qkv(cfg: TransformerConfig, q, k, v, cos, sin):
 
 
 def _block_tail(layer: Params, x: torch.Tensor, attn: torch.Tensor, cfg: TransformerConfig):
-    o = _qdot(_merge_heads(attn), layer["wo"])
+    merged = _merge_heads(attn)
+    o = _qdot(merged, layer["wo"])
     x = x + o.to(x.dtype)
     h2 = rms_norm(x, layer["mlp_norm"], cfg.norm_eps)
     gu = _qdot(h2, layer["w_gateup"], f32_out=True)
@@ -336,7 +411,12 @@ def decode_step(
     """One AR step: (logits [b, vocab] f32, cache). The cache stays
     read-only through the layer loop (the current token's k/v merge
     inside the attention kernel); the step's k/v of all layers are then
-    quantized and appended in place by ONE kernel launch."""
+    quantized and appended in place by ONE kernel launch.
+
+    With the dense path's megatail (``_dense_dispatch``), layer 0's raw
+    qkv comes from B3 and each layer's B2 returns the layer output and
+    the next layer's raw qkv, carried through the loop; the last layer's
+    (computed from its own weights, the clamped index) is dropped."""
     check_supported(cfg)
     b = token.shape[0]
     x = params["tok_emb"][token][:, None, :]  # [b, 1, d_model]
@@ -349,11 +429,19 @@ def decode_step(
     bias2d = torch.where(attend, 0.0, MASK_VALUE).to(torch.float32)
     sm_scale = 1.0 / math.sqrt(cfg.d_head)
     group = cfg.n_heads // cfg.n_kv_heads
+    lw = params["layers"]
+    megatail = _dense_dispatch(lw, cfg, b, cache.max_len)
+    if megatail:
+        qkv_raw = qkv_norm_int8_stacked(x[:, 0], lw["attn_norm"], lw["wqkv"]["q"],
+                                        lw["wqkv"]["s"], 0, eps=cfg.norm_eps)
 
     k_news, v_news = [], []
     for l in range(cfg.n_layers):
-        layer = _layer(params["layers"], l)
-        q, k_new, v_new = _block_qkv(layer, x, cfg, cos, sin)
+        layer = _layer(lw, l)
+        if megatail:
+            q, k_new, v_new = _finish_qkv(cfg, qkv_raw[:, None, :].to(x.dtype), cos, sin)
+        else:
+            q, k_new, v_new = _block_qkv(layer, x, cfg, cos, sin)
         kn = k_new[:, :, 0, :].float().contiguous()  # [b, kv, d]
         vn = v_new[:, :, 0, :].float().contiguous()
         qg = q.reshape(b, cfg.n_kv_heads, group, cfg.d_head).float().contiguous()
@@ -361,8 +449,19 @@ def decode_step(
             qg, cache.k, cache.v, bias2d, l, cache.k_scale, cache.v_scale, kn, vn,
             valid_len=write_pos, sm_scale=sm_scale,
         )
-        attn = attn.reshape(b, cfg.n_heads, 1, cfg.d_head).to(x.dtype)
-        x = _block_tail(layer, x, attn, cfg)
+        if megatail:
+            # the f32 attention output goes in as it is (no cast to x.dtype)
+            x_out, qkv_raw = tail_swiglu_qkv_int8_stacked(
+                attn.reshape(b, cfg.q_dim), x[:, 0],
+                lw["wo"]["q"], lw["wo"]["s"], lw["mlp_norm"],
+                lw["w_gateup"]["q"], lw["w_gateup"]["s"],
+                lw["w_down"]["q"], lw["w_down"]["s"],
+                lw["attn_norm"], lw["wqkv"]["q"], lw["wqkv"]["s"], l, eps=cfg.norm_eps,
+            )
+            x = x_out[:, None, :].to(x.dtype)
+        else:
+            attn = attn.reshape(b, cfg.n_heads, 1, cfg.d_head).to(x.dtype)
+            x = _block_tail(layer, x, attn, cfg)
         k_news.append(kn)
         v_news.append(vn)
     return _decode_step_finish(params, cfg, cache, x, torch.stack(k_news), torch.stack(v_news),

@@ -24,7 +24,7 @@ from pathlib import Path
 from typing import Dict, List, Sequence
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("decode_attention.cu", "cache_update.cu", "flash_attention.cu")
+SOURCES = ("decode_attention.cu", "cache_update.cu", "flash_attention.cu", "decode_dense.cu")
 FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
@@ -106,11 +106,14 @@ def build_log() -> str:
     return "\n".join(_log)
 
 
-def kernel(name: str, argtypes: Sequence) -> ctypes._CFuncPtr:
+def kernel(name: str, argtypes: Sequence, restype=ctypes.c_int) -> ctypes._CFuncPtr:
     """The C entry point ``name`` of the kernel library, building and
-    loading the library at first use. Every entry point returns a
-    ``cudaError_t`` as int (0 on success)."""
+    loading the library at first use. Launching entry points return a
+    ``cudaError_t`` as int (0 on success); ``restype`` is for the others."""
     global _lib
+    fn = _fns.get(name)   # the hot path: no lock once the entry point is bound
+    if fn is not None:
+        return fn
     with _lock:
         fn = _fns.get(name)
         if fn is not None:
@@ -119,7 +122,7 @@ def kernel(name: str, argtypes: Sequence) -> ctypes._CFuncPtr:
             _lib = ctypes.CDLL(str(build()))
         fn = getattr(_lib, name)
         fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
+        fn.restype = restype
         _fns[name] = fn
         return fn
 

@@ -41,7 +41,10 @@ def decode_attention_plain(q, k_all, v_all, bias, layer: int, k_scale, v_scale,
     BC = b * kv
     f32 = torch.float32
     qf = q.reshape(BC, g, d).to(f32)
-    qs = torch.clamp(qf.abs().amax(-1, keepdim=True) / 127.0, min=1e-8)
+    # tensor divisors: PyTorch's CUDA divide by a Python number multiplies
+    # by its rounded reciprocal, an ulp away from the kernel's divide
+    qa = qf.abs().amax(-1, keepdim=True)
+    qs = torch.clamp(qa / torch.full_like(qa, 127.0), min=1e-8)
     qq = torch.round(qf / qs)            # int values, exact in f32
     k = k_all[layer].reshape(BC, T, d)
     v = v_all[layer].reshape(BC, T, d)
@@ -63,7 +66,8 @@ def decode_attention_plain(q, k_all, v_all, bias, layer: int, k_scale, v_scale,
         p = torch.exp(s - m_new)
         lsum = lsum * corr + p.sum(-1, keepdim=True)
         p = p * vs[:, None, sl]
-        ps = torch.clamp(p.amax(-1, keepdim=True) / 127.0, min=1e-20)
+        pa = p.amax(-1, keepdim=True)
+        ps = torch.clamp(pa / torch.full_like(pa, 127.0), min=1e-20)
         p8 = torch.round(p / ps)
         o = torch.matmul(p8, v[:, sl].to(f32))
         acc = acc * corr + o * ps

@@ -1,0 +1,295 @@
+"""int8-native dense decode-step kernels (B2, B3, B4) and their plain versions.
+
+Counterpart of ``vocalie_tts_tpu/ops/decode_dense.py`` on the functions the
+Chatterbox-class serving path runs with ``dense_kernel`` on:
+
+- ``dense_int8_stacked`` (B4): per-row int8 x, ``(x_i8 · W[l])_i32 · xs · s``
+  (the 128-padded int8 lm_head);
+- ``qkv_norm_int8_stacked`` (B3): f32 RMSNorm, then the same product with
+  the fused qkv weights (the layer-0 prologue of each decode step);
+- ``tail_swiglu_qkv_int8_stacked`` (B2): the whole layer tail (o-proj →
+  residual → RMSNorm → SwiGLU → down-proj → residual) and the NEXT layer's
+  RMSNorm + qkv, ``qkv_next`` read from layer ``min(l + 1, L - 1)``.
+
+Weights keep the JAX layout: stacked ``[L, d_in, d_out]`` int8 with f32
+scales ``[L, 1, d_out]``, norm weights ``[L, d_model]``, and a layer index.
+
+Activations are quantized per row, ``s = max(amax / 127, 1e-8)`` and
+``round(x / s)`` half to even (a divide, no clip). The SwiGLU hidden is
+quantized per (row, d_ff tile), with the tile ``pick_tile(d_ff, 6 MiB,
+2 · d_model)``: the JAX kernel's block with ``VOCALIE_TILE_MB`` unset. The
+port does not read that knob; the block follows from the shapes.
+
+On a CUDA tensor each wrapper launches ``csrc/decode_dense.cu`` (a short
+sequence of kernels from one C entry point; ``launches`` counts calls of
+the entry point); on a CPU tensor it runs the plain version, which takes
+the integer products exactly in float64 (|sum| <= 4096 · 127² < 2**53).
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+
+from vocalie_tts_tpu_torch.ops import _build
+
+#: the JAX kernels' per-block weight budget with VOCALIE_TILE_MB unset
+TILE_BUDGET = 6 * 1024 * 1024
+
+_F32, _BF16 = 1, 2
+_DENSE_ARGTYPES = ([_build.P, _build.I, _build.P, _build.I, _build.F, _build.P, _build.P]
+                   + [_build.I] * 4 + [_build.P, _build.P, _build.LL, _build.P])
+_TAIL_ARGTYPES = ([_build.P, _build.P, _build.I] + [_build.P] * 10
+                  + [_build.I] * 9 + [_build.F] + [_build.P] * 3 + [_build.LL, _build.P])
+
+
+def pick_tile(n: int, budget: int, bytes_per_col: int) -> int:
+    """Largest 128-multiple dividing ``n`` within ``budget`` bytes of
+    ``bytes_per_col``-byte columns (0 if none): the JAX ``_pick_tile``
+    without its ``VOCALIE_TILE_MB`` override."""
+    cap = min(n, budget // max(bytes_per_col, 1)) // 128 * 128
+    for t in range(cap, 0, -128):
+        if n % t == 0:
+            return t
+    return 0
+
+
+def _quantize_rows(x: torch.Tensor):
+    """[b, d] f32 → (integer-valued f32 [b, d], f32 scales [b, 1]). The
+    divisor 127 is a tensor: PyTorch's CUDA divide by a Python number
+    multiplies by its rounded reciprocal, an ulp away from the divide that
+    JAX and the kernel take."""
+    a = x.abs().amax(-1, keepdim=True)
+    s = torch.clamp(a / torch.full_like(a, 127.0), min=1e-8)
+    return torch.round(x / s), s
+
+
+def _rms_rows(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    """f32 RMSNorm over the last dim, with no cast before quantizing. The
+    mean of the squares is taken in float64 and rounded to f32 once, and
+    1 / sqrt is two IEEE steps, as in the CUDA kernel: the two then round
+    alike in any summation order (JAX sums in f32, an ulp away)."""
+    xd = x.double()
+    var = torch.mean(xd * xd, dim=-1, keepdim=True).float()
+    return x * (1.0 / torch.sqrt(var + eps)) * w.float()
+
+
+def _int_dot(q: torch.Tensor, w_i8: torch.Tensor) -> torch.Tensor:
+    """Integer-valued q · int8 W, exact (float64), cast to f32 as JAX's
+    ``astype`` does."""
+    return torch.matmul(q.double(), w_i8.double()).float()
+
+
+# ── plain versions ──────────────────────────────────────────────────────
+
+
+def dense_int8_plain(x, w_all, s_all, layer: int):
+    q, xs = _quantize_rows(x.float())
+    return _int_dot(q, w_all[layer]) * xs * s_all[layer]
+
+
+def qkv_norm_int8_plain(x, nw_all, w_all, s_all, layer: int, *, eps: float):
+    q, hs = _quantize_rows(_rms_rows(x.float(), nw_all[layer], eps))
+    return _int_dot(q, w_all[layer]) * hs * s_all[layer]
+
+
+def tail_swiglu_qkv_int8_plain(attn, x, wo_all, wos_all, mw_all, wgu_all, sgu_all,
+                               wd_all, sd_all, nw_all, wq_all, sq_all, layer: int, *,
+                               eps: float, tile: int | None = None):
+    """``tile``: the d_ff block the hidden is quantized over (default: the
+    JAX kernel's, ``pick_tile(d_ff, 6 MiB, 2 · d_model)``)."""
+    L, d_ff = wq_all.shape[0], wd_all.shape[1]
+    tile = tile or pick_tile(d_ff, TILE_BUDGET, 2 * x.shape[1])
+    a, as_ = _quantize_rows(attn.float())
+    x2 = x.float() + _int_dot(a, wo_all[layer]) * as_ * wos_all[layer]
+    h, hs = _quantize_rows(_rms_rows(x2, mw_all[layer], eps))
+    gu = _int_dot(h, wgu_all[layer]) * hs * sgu_all[layer]
+    gate = gu[:, :d_ff]
+    hidden = gate * torch.sigmoid(gate) * gu[:, d_ff:]
+    acc = None
+    for t in range(d_ff // tile):
+        cols = slice(t * tile, (t + 1) * tile)
+        hq, ts = _quantize_rows(hidden[:, cols])
+        part = _int_dot(hq, wd_all[layer][cols]) * ts
+        acc = part if acc is None else acc + part
+    x_out = x2 + acc * sd_all[layer]
+    nxt = min(layer + 1, L - 1)
+    qkv = qkv_norm_int8_plain(x_out, nw_all, wq_all, sq_all, nxt, eps=eps)
+    return x_out, qkv
+
+
+# ── wrappers ────────────────────────────────────────────────────────────
+
+
+def _kind(t: torch.Tensor, name: str) -> int:
+    if t.dtype == torch.float32:
+        return _F32
+    if t.dtype == torch.bfloat16:
+        return _BF16
+    raise ValueError(f"{name}: expected float32 or bfloat16, got {t.dtype}")
+
+
+def _check(dev, layer: int, L: int, *specs):
+    """Device, dtype, shape and contiguity of each (name, tensor, dtypes,
+    shape) on a CUDA call; the layer index inside the stack."""
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    if not 0 <= int(layer) < L:
+        raise ValueError(f"layer {layer} outside 0..{L - 1}")
+    for name, t, dtypes, shape in specs:
+        if t.device != dev or t.dtype not in dtypes or tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name}: expected {dtypes} {tuple(shape)} on {dev}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+_ACT = (torch.float32, torch.bfloat16)
+_I8 = (torch.int8,)
+_FL = (torch.float32,)
+
+
+# the workspace sizes, asked of the library once per shape: a decode step
+# calls the tail 30 times and is bound by host time
+
+
+@functools.lru_cache(maxsize=None)
+def _dense_ws_bytes(b: int, K: int, N: int) -> int:
+    return _build.kernel("vt_dense_workspace", [_build.I] * 3, restype=_build.LL)(b, K, N)
+
+
+@functools.lru_cache(maxsize=None)
+def _tail_ws_bytes(b: int, d_attn: int, d: int, d_ff: int, tile: int, Q: int) -> int:
+    return _build.kernel("vt_tail_workspace", [_build.I] * 6, restype=_build.LL)(
+        b, d_attn, d, d_ff, tile, Q)
+
+
+def _workspace(nbytes: int, dev) -> torch.Tensor:
+    if nbytes < 0:
+        raise ValueError("shapes the dense kernels do not take (K % 32, N % 4)")
+    return torch.empty((max(int(nbytes), 1),), dtype=torch.uint8, device=dev)
+
+
+def _launch_dense(x, nw_all, eps, w_all, s_all, layer):
+    b, K = x.shape
+    L, _, N = w_all.shape
+    ws = _workspace(_dense_ws_bytes(b, K, N), x.device)
+    out = torch.empty((b, N), dtype=torch.float32, device=x.device)
+    fn = _build.kernel("vt_dense_int8", _DENSE_ARGTYPES)
+    rc = fn(x.data_ptr(), _kind(x, "x"),
+            None if nw_all is None else nw_all.data_ptr(),
+            0 if nw_all is None else _kind(nw_all, "nw_all"), float(eps),
+            w_all.data_ptr(), s_all.data_ptr(), int(layer), b, K, N,
+            out.data_ptr(), ws.data_ptr(), ws.numel(), _build.stream_ptr(x))
+    _build.check(rc, "vt_dense_int8")
+    return out
+
+
+def dense_int8_stacked(
+    x: torch.Tensor,       # [b, d_in] bf16/f32 activations
+    w_all: torch.Tensor,   # [L, d_in, d_out] int8
+    s_all: torch.Tensor,   # [L, 1, d_out] f32 per-channel scales
+    layer: int,
+) -> torch.Tensor:
+    """x · W[layer] with int8 × int8 products → [b, d_out] f32."""
+    b, d_in = x.shape
+    L, _, d_out = w_all.shape
+    if pick_tile(d_out, TILE_BUDGET, d_in) == 0:
+        raise ValueError(f"d_out={d_out} has no 128-multiple tile")
+    if x.device.type == "cpu":
+        return dense_int8_plain(x, w_all, s_all, layer)
+    _check(x.device, layer, L, ("x", x, _ACT, (b, d_in)),
+           ("w_all", w_all, _I8, (L, d_in, d_out)), ("s_all", s_all, _FL, (L, 1, d_out)))
+    dense_int8_stacked.launches += 1
+    return _launch_dense(x, None, 0.0, w_all, s_all, layer)
+
+
+def qkv_norm_int8_stacked(
+    x: torch.Tensor,       # [b, d_model] raw residual stream
+    nw_all: torch.Tensor,  # [L, d_model] attn-norm weights
+    w_all: torch.Tensor,   # [L, d_model, d_out] int8 (fused qkv)
+    s_all: torch.Tensor,   # [L, 1, d_out] f32
+    layer: int,
+    *,
+    eps: float,
+) -> torch.Tensor:
+    """rms_norm(x) · Wqkv[layer] → [b, d_out] f32."""
+    b, d_in = x.shape
+    L, _, d_out = w_all.shape
+    if pick_tile(d_out, TILE_BUDGET, d_in) == 0:
+        raise ValueError(f"d_out={d_out} has no 128-multiple tile")
+    if x.device.type == "cpu":
+        return qkv_norm_int8_plain(x, nw_all, w_all, s_all, layer, eps=eps)
+    _check(x.device, layer, L, ("x", x, _ACT, (b, d_in)), ("nw_all", nw_all, _ACT, (L, d_in)),
+           ("w_all", w_all, _I8, (L, d_in, d_out)), ("s_all", s_all, _FL, (L, 1, d_out)))
+    qkv_norm_int8_stacked.launches += 1
+    return _launch_dense(x, nw_all, eps, w_all, s_all, layer)
+
+
+def tail_swiglu_qkv_int8_stacked(
+    attn: torch.Tensor,     # [b, n_heads*d_head] f32 merged attention output
+    x: torch.Tensor,        # [b, d_model] residual stream INTO the block
+    wo_all: torch.Tensor,   # [L, n_heads*d_head, d_model] int8
+    wos_all: torch.Tensor,  # [L, 1, d_model] f32
+    mw_all: torch.Tensor,   # [L, d_model] mlp-norm weights
+    wgu_all: torch.Tensor,  # [L, d_model, 2*d_ff] int8 ([gate | up])
+    sgu_all: torch.Tensor,  # [L, 1, 2*d_ff] f32
+    wd_all: torch.Tensor,   # [L, d_ff, d_model] int8
+    sd_all: torch.Tensor,   # [L, 1, d_model] f32
+    nw_all: torch.Tensor,   # [L, d_model] attn-norm weights (the next layer's)
+    wq_all: torch.Tensor,   # [L, d_model, d_qkv] int8 fused qkv
+    sq_all: torch.Tensor,   # [L, 1, d_qkv] f32
+    layer: int,
+    *,
+    eps: float,
+):
+    """Layer tail + the next layer's norm + qkv →
+    ``(x_out [b, d_model] f32, qkv_next [b, d_qkv] f32)``."""
+    b, d = x.shape
+    d_attn = attn.shape[1]
+    L, _, Q = wq_all.shape
+    d_ff = wd_all.shape[1]
+    if wgu_all.shape[2] != 2 * d_ff:
+        raise ValueError("wgu_all must be the fused [gate | up] concat")
+    tile = pick_tile(d_ff, TILE_BUDGET, 2 * d)
+    if tile == 0 or pick_tile(Q, TILE_BUDGET, d) == 0:
+        raise ValueError(f"d_ff={d_ff}/d_qkv={Q} has no 128-multiple tile")
+    if x.device.type == "cpu":
+        return tail_swiglu_qkv_int8_plain(attn, x, wo_all, wos_all, mw_all, wgu_all, sgu_all,
+                                          wd_all, sd_all, nw_all, wq_all, sq_all, layer, eps=eps)
+    _check(x.device, layer, L,
+           ("attn", attn, _FL, (b, d_attn)), ("x", x, _ACT, (b, d)),
+           ("wo_all", wo_all, _I8, (L, d_attn, d)), ("wos_all", wos_all, _FL, (L, 1, d)),
+           ("mw_all", mw_all, (nw_all.dtype,), (L, d)),
+           ("wgu_all", wgu_all, _I8, (L, d, 2 * d_ff)),
+           ("sgu_all", sgu_all, _FL, (L, 1, 2 * d_ff)),
+           ("wd_all", wd_all, _I8, (L, d_ff, d)), ("sd_all", sd_all, _FL, (L, 1, d)),
+           ("nw_all", nw_all, _ACT, (L, d)),
+           ("wq_all", wq_all, _I8, (L, d, Q)), ("sq_all", sq_all, _FL, (L, 1, Q)))
+    ws = _workspace(_tail_ws_bytes(b, d_attn, d, d_ff, tile, Q), x.device)
+    x_out = torch.empty((b, d), dtype=torch.float32, device=x.device)
+    qkv = torch.empty((b, Q), dtype=torch.float32, device=x.device)
+    fn = _build.kernel("vt_tail_swiglu_qkv_int8", _TAIL_ARGTYPES)
+    tail_swiglu_qkv_int8_stacked.launches += 1
+    rc = fn(attn.data_ptr(), x.data_ptr(), _kind(x, "x"),
+            wo_all.data_ptr(), wos_all.data_ptr(), mw_all.data_ptr(),
+            wgu_all.data_ptr(), sgu_all.data_ptr(), wd_all.data_ptr(), sd_all.data_ptr(),
+            nw_all.data_ptr(), wq_all.data_ptr(), sq_all.data_ptr(), _kind(nw_all, "nw_all"),
+            int(layer), L, b, d_attn, d, d_ff, tile, Q, float(eps),
+            x_out.data_ptr(), qkv.data_ptr(), ws.data_ptr(), ws.numel(), _build.stream_ptr(x))
+    _build.check(rc, "vt_tail_swiglu_qkv_int8")
+    return x_out, qkv
+
+
+#: launches of the CUDA entry points (the plain versions are not counted)
+dense_int8_stacked.launches = 0
+qkv_norm_int8_stacked.launches = 0
+tail_swiglu_qkv_int8_stacked.launches = 0
+
+__all__ = [
+    "dense_int8_stacked", "dense_int8_plain",
+    "qkv_norm_int8_stacked", "qkv_norm_int8_plain",
+    "tail_swiglu_qkv_int8_stacked", "tail_swiglu_qkv_int8_plain",
+    "pick_tile", "TILE_BUDGET",
+]
