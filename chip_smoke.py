@@ -6,16 +6,17 @@ Phases (any failure exits non-zero before the final line is printed):
 
 1. build the port's CUDA kernels from ``vocalie_tts_tpu_torch/csrc`` with
    nvcc for sm_90a (one nvcc per source, all started together);
-2. for each kernel of the voice-over path -- B1 int8 decode attention,
-   B5 KV-cache append, B6 flash attention, and the dense decode kernels
-   B3 norm+qkv, B2 layer tail + next qkv, B4 int8 lm_head -- at the shapes
-   the path gives it: hold the kernel against its plain PyTorch version on
-   the card, time kernel, plain version and (where one exists) the one
-   PyTorch call that computes the same function (for B2-B4 there is none;
-   the slice-1 ops that do the same work are timed as a yardstick, and a
-   child process counts the CUDA kernels one call issues with
-   torch.profiler), and compute the least time the card could take (bytes
-   over 3.35 TB/s or operations over the peak rate);
+2. for each kernel of the voice-over and streaming paths -- B1 int8
+   decode attention, B5 KV-cache append, B6 flash attention, the dense
+   decode kernels B3 norm+qkv, B2 layer tail + next qkv, B4 int8 lm_head,
+   and B7, the whole decode step at batch 1 as one cooperative launch --
+   at the shapes the path gives it: hold the kernel against its plain
+   PyTorch version on the card, time kernel, plain version and (where one
+   exists) the one PyTorch call that computes the same function (for B2-B4
+   and B7 there is none; the ops the port runs otherwise for the same work
+   are timed as a yardstick, and a child process counts the CUDA kernels
+   one call issues with torch.profiler), and compute the least time the
+   card could take (bytes over 3.35 TB/s or operations over the peak rate);
 3. small-input references: the tiny-scale model on the GPU (kernels)
    against the same weights on the CPU (plain versions) -- teacher-forced
    decode logits and stage-2 PCM on shared noise; then a d_model-128
@@ -31,7 +32,15 @@ Phases (any failure exits non-zero before the final line is printed):
    just before it and read just after, must have moved, and must fit the
    path (B2 = 30 x decode steps, B3 = decode steps, B4 = decode steps +
    prefills); audio seconds, wall seconds, the real-time factor and
-   ms/step are printed;
+   ms/step are printed; then the CosyVoice-class paths at full width
+   (random weights from a seed), each driven with the counters at 0 just
+   before it: the streaming request of ``scripts/bench_streaming.py``
+   (``CosyVoiceEngine.synthesize_stream``, instruct mode, sampled from the
+   runtime's seeded generator; B3 + B7 + B5 + B4 every step, B1 = B2 = 0),
+   the same request with ``VOCALIE_FUSED_STEP=0`` (B3 + 24 x (B1 + B2)),
+   and ``run_tts_pipeline`` with ``tts_backend: "cosyvoice"`` on the
+   8-chunk bench script (b = 8: B1-B6); first-packet ms, sustained RTF,
+   windows and decode ms/step are printed;
 5. torch.profiler, only now, so that nothing above is timed in a process
    where it has been on: short windows of each configuration show where
    the time goes.
@@ -278,6 +287,160 @@ def check_flash_attention(dev, failures):
 DENSE_TOL = 1e-5
 
 
+# ── B7: the whole decode step at batch 1 ─────────────────────────────────
+
+B7_NAME = "B7 decode_step_fused"
+
+
+def stream_layout() -> dict:
+    """The streaming request's prompt: its length, its prompt and decode
+    buckets and its cache length, found as ``CosyVoiceRuntime.
+    synthesize_streaming`` finds them (the byte frontend, no weights)."""
+    from vocalie_tts_tpu_torch.models.common.ar_runtime import pad_token_batch
+    from vocalie_tts_tpu_torch.models.cosyvoice.model import TOKENS_PER_SECOND
+    from vocalie_tts_tpu_torch.models.cosyvoice.runtime import (
+        DECODE_BUCKETS,
+        PROMPT_BUCKETS,
+        SCALES,
+    )
+    from vocalie_tts_tpu_torch.ops.kv_cache import pick_bucket, round_cache_len
+    from vocalie_tts_tpu_torch.text.duration import estimate_duration
+    from vocalie_tts_tpu_torch.text.frontend import build_prompt_ids, load_frontend
+
+    with tempfile.TemporaryDirectory() as tmp:
+        fe = load_frontend(tmp, style="raw", text_vocab=SCALES["full"].text_vocab)
+    parts = build_prompt_ids(fe, STREAM_TEXT, preamble=COSY_INSTRUCT)
+    _tok, lengths, prompt_bucket, _ = pad_token_batch(
+        [parts], prompt_buckets=PROMPT_BUCKETS, batch_buckets=(1,), extra_positions=2)
+    est = int(estimate_duration(STREAM_TEXT) * TOKENS_PER_SECOND * 1.8) + 8
+    decode_bucket = pick_bucket(est, DECODE_BUCKETS)
+    return {"prompt_len": int(lengths[0]), "prompt_bucket": prompt_bucket,
+            "decode_bucket": decode_bucket,
+            "cache_len": round_cache_len(prompt_bucket + decode_bucket)}
+
+
+def _b7_inputs(dev):
+    """B7's inputs as the streaming request gives them halfway through its
+    decode, from a seed: the full CosyVoice LM's shapes (random int8
+    weights, f32 norm weights, non-zero bf16 q/k/v biases as the model
+    stores them) over the request's own cache (random int8 k/v), whose mask
+    lets through the prompt and the tokens decoded so far. Also one call of
+    the wrapper."""
+    import types
+
+    from vocalie_tts_tpu_torch.models.cosyvoice.runtime import SCALES
+    from vocalie_tts_tpu_torch.ops import decode_step as ds
+
+    lm = SCALES["full"].lm
+    L, H, d, D, F = lm.n_layers, lm.n_heads, lm.d_head, lm.d_model, lm.d_ff
+    lay = stream_layout()
+    T, n_dec = lay["cache_len"], lay["decode_bucket"] // 2
+    pos = torch.arange(T, device=dev)
+    keep = (pos < lay["prompt_len"]) | ((pos >= lay["prompt_bucket"])
+                                       & (pos < lay["prompt_bucket"] + n_dec))
+    valid = int(keep.sum())
+    gen = torch.Generator(device=dev).manual_seed(8)
+
+    def weights(d_in, d_out):
+        q = torch.randint(-127, 128, (L, d_in, d_out), generator=gen, device=dev,
+                          dtype=torch.int8)
+        return q, (torch.rand((L, 1, d_out), generator=gen, device=dev) + 0.5) / 127 * d_in ** -0.5
+
+    q0 = torch.randn((H, 1, d), generator=gen, device=dev)
+    kn0, vn0 = (torch.randn((H, d), generator=gen, device=dev) for _ in range(2))
+    x = torch.randn((1, D), generator=gen, device=dev) * 0.5
+    k, v = (torch.randint(-127, 128, (L, 1, H, T, d), generator=gen, device=dev,
+                          dtype=torch.int8) for _ in range(2))
+    ks, vs = (((torch.rand((L, 1, H, T), generator=gen, device=dev) + 0.5) / 127)
+              .to(torch.bfloat16) for _ in range(2))
+    bias = torch.where(keep, 0.0, NEG).float()[None]
+    wo, wos = weights(H * d, D)
+    mw = 1 + 0.1 * torch.randn((L, D), generator=gen, device=dev)
+    wgu, sgu = weights(D, 2 * F)
+    wd, sd = weights(F, D)
+    nw = 1 + 0.1 * torch.randn((L, D), generator=gen, device=dev)
+    wq, sq = weights(D, 3 * H * d)
+    bq = (0.5 * torch.randn((L, 3 * H * d), generator=gen, device=dev)).to(lm.dtype)
+    ang = float(lay["prompt_len"] + n_dec) / (
+        lm.rope_theta ** (torch.arange(0, d, 2, device=dev).float() / d))
+    c, sn = torch.cos(ang)[None], torch.sin(ang)[None]
+    args = (q0, kn0, vn0, x, k, v, ks, vs, bias, wo, wos, mw, wgu, sgu, wd, sd, nw, wq, sq, bq,
+            torch.cat([c, c], -1), torch.cat([-sn, sn], -1))
+    kw = dict(sm_scale=d ** -0.5, eps=lm.norm_eps)
+    call = lambda: ds.decode_step_fused_packed(*args, **kw)  # noqa: E731
+    return types.SimpleNamespace(**locals())
+
+
+def check_decode_step(dev, failures):
+    """B7 at the streaming request's inputs (``_b7_inputs``) against its
+    plain version (1e-5 x max|ref| on each output, as B2-B4: the plain
+    version takes the kernel's steps); its time against its bound and the
+    plain version, and the ops the port runs for the same step with
+    ``VOCALIE_FUSED_STEP=0``: B3 + L x (B1 + B2) at batch 1 (their glue left
+    out). Returns the ``kernels`` entry; its ``path_inputs`` are what phase
+    4 holds the streaming request's own B7 calls to."""
+    from vocalie_tts_tpu_torch.ops import decode_dense as dd
+    from vocalie_tts_tpu_torch.ops import decode_step as ds
+    from vocalie_tts_tpu_torch.ops.decode_attention import decode_attention_stacked
+
+    t = _b7_inputs(dev)
+    L, H, d, D, F, T, valid = t.L, t.H, t.d, t.D, t.F, t.T, t.valid
+    got = t.call()
+    ref = ds.decode_step_fused_plain(*t.args, **t.kw)
+    torch.cuda.synchronize()
+    errs = [(g - r).abs().max().item() for g, r in zip(got, ref)]
+    worst = max(e / (DENSE_TOL * r.abs().max().item()) for e, r in zip(errs, ref))
+    ms = cuda_ms(lambda i: t.call(), 50)
+    plain_ms = cuda_ms(lambda i: ds.decode_step_fused_plain(*t.args, **t.kw), 3, warmup=1)
+    xb = t.x.to(torch.bfloat16)
+    attn = torch.randn((1, H * d), device=dev) * 0.3
+    q1 = t.q0.reshape(1, H, 1, d).contiguous()
+    kn1, vn1 = t.kn0[None].contiguous(), t.vn0[None].contiguous()
+    kc, vc = t.k, t.v        # [L, 1, H, T, d]: the b = 1 cache B1 reads
+    tail = (attn, xb, t.wo, t.wos, t.mw, t.wgu, t.sgu, t.wd, t.sd, t.nw, t.wq, t.sq)
+
+    write_pos = t.lay["prompt_bucket"] + t.n_dec
+
+    def megatail_ops(i):
+        dd.qkv_norm_int8_stacked(xb, t.nw, t.wq, t.sq, 0, eps=t.kw["eps"])
+        for l in range(L):
+            decode_attention_stacked(q1, kc, vc, t.bias, l, t.ks, t.vs, kn1, vn1,
+                                     valid_len=write_pos, sm_scale=d ** -0.5)
+            dd.tail_swiglu_qkv_int8_stacked(*tail, l, eps=t.kw["eps"])
+
+    step0_ms = cuda_ms(megatail_ops, 10)
+    Q = 3 * H * d
+    # each input read once, each output written once; of the cache, only
+    # the valid slots (a masked slot's probability is exactly 0)
+    w_bytes = L * (D * Q + H * d * D + D * 2 * F + F * D)
+    vec_bytes = L * (4 * (Q + D + 2 * F + D) + 4 * 2 * D + Q * t.bq.element_size())
+    kv_bytes = 2 * L * H * valid * (d + 2)
+    io_bytes = T * 4 + (Q + D + 2 * d) * 4 + (D + 2 * L * H * d) * 4
+    n_bytes = w_bytes + vec_bytes + kv_bytes + io_bytes
+    n_ops = 2 * L * (D * Q + H * d * D + D * 2 * F + F * D + 2 * H * valid * d)
+    bms, by = bound_ms(n_bytes, n_ops, PEAK_INT8_OPS)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    most = ds.max_resident_blocks(H, d, D, F, T)
+    log(f"{B7_NAME}: max_abs_err={max(errs):.3e} (x_out/kn/vn {errs[0]:.3e}/{errs[1]:.3e}/"
+        f"{errs[2]:.3e}), worst |diff| / ({DENSE_TOL} x max|ref|) = {worst:.3f} (must be <= 1); "
+        f"kernel {ms:.6f} ms (one cooperative block per SM: {sms}, of at most {most} resident), "
+        f"plain {plain_ms:.6f} ms, B3 + {L} x (B1 + B2) {step0_ms:.6f} ms, bound {bms:.6f} ms "
+        f"({by}, {n_bytes / 1e6:.1f} MB: weights {w_bytes / 1e6:.1f}, the {valid} valid cache "
+        f"slots' k/v and scales {kv_bytes / 1e6:.1f})")
+    if not worst <= 1.0:
+        failures.append(f"B7 differs from its plain version: worst ratio {worst}")
+    return {"name": B7_NAME, "route": "cuda", "source": "vocalie_tts_tpu_torch/csrc/decode_step.cu",
+            "replaces": "vocalie_tts_tpu/ops/decode_step.py:245",
+            "max_abs_err": max(errs), "tolerance": f"{DENSE_TOL} x max|ref| per output",
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": None,
+            "fused_step0_ops_ms": step0_ms, "cuda_kernels_per_call": None,
+            "path_inputs": {"cache_len": T, "valid_slots": valid, "bqkv": str(t.bq.dtype),
+                            "norm": str(t.mw.dtype)},
+            "shape": f"L {L}, d_model {D}, {H} heads x {d}, d_ff {F}, cache {T} int8 (valid "
+                     f"{valid}: prompt {t.lay['prompt_len']} of {t.lay['prompt_bucket']} + "
+                     f"{t.n_dec} decoded), {t.bq.dtype} q/k/v bias, batch 1"}
+
+
 def kernels_per_call(fn) -> dict:
     """The CUDA kernels one call of ``fn`` issues, by name, as
     torch.profiler sees them (empty if it saw none)."""
@@ -291,7 +454,7 @@ def kernels_per_call(fn) -> dict:
 
 
 def count_dense_kernels(kernels, failures) -> None:
-    """Record in each B2-B4 entry the CUDA kernels one call of its wrapper
+    """Record in each B2-B4 and B7 entry the CUDA kernels one call of its wrapper
     issues at the main path's shapes, as torch.profiler counts them in a
     child process (``--count-kernels``). The profiler is never on in this
     process, which times everything before phase 5; in a fresh process it
@@ -305,7 +468,7 @@ def count_dense_kernels(kernels, failures) -> None:
         failures.append(f"the kernel-count child failed (rc {proc.returncode}): "
                         f"{proc.stderr.strip()[-2000:]}")
     for entry in kernels:
-        if entry["name"] not in DENSE_LINES:
+        if entry["name"] not in counted:
             continue
         per_call = counted.get(entry["name"], {})
         n_kernels = sum(per_call.values()) or None
@@ -316,10 +479,10 @@ def count_dense_kernels(kernels, failures) -> None:
 
 
 def _count_kernels_child() -> int:
-    """``--count-kernels``: one profiled call of each of B2-B4 (after one
+    """``--count-kernels``: one profiled call of each of B2-B4 and B7 (after one
     unprofiled call that loads the library), printed as one JSON line."""
     dev = torch.device("cuda:0")
-    calls = _dense_inputs(dev).calls
+    calls = {**_dense_inputs(dev).calls, B7_NAME: _b7_inputs(dev).call}
     out = {}
     for name, call in calls.items():
         call()
@@ -533,7 +696,6 @@ def small_reference_dense(dev, failures):
     1e-2; a wrong kernel or path moves most rows at every step. So (b)
     fails if more than a quarter of the (step, row) logit rows are outside
     2e-3 + 2e-3|ref|."""
-    from vocalie_tts_tpu_torch.models.chatterbox.model import init_transformer
     from vocalie_tts_tpu_torch.models.common import transformer as tr
     from vocalie_tts_tpu_torch.ops import decode_dense as dd
 
@@ -542,7 +704,7 @@ def small_reference_dense(dev, failures):
                                decode_kernel=True, dense_kernel=True, dtype=torch.float32)
     gen = torch.Generator(device=dev).manual_seed(12)
     params = tr.fuse_decode_weights(tr.quantize_weights_int8(
-        init_transformer(cfg, generator=gen, device=dev)))
+        tr.init_params(cfg, generator=gen, device=dev)))
     cpu_params = _to(params, "cpu")
     g = torch.Generator().manual_seed(13)
     b, s, n_steps = 4, 32, 12
@@ -733,6 +895,242 @@ def drive_path(dev, failures, label: str, env: dict, requests, scale: str = "ful
     return counts, profile
 
 
+# ── phase 4: the CosyVoice-class paths ───────────────────────────────────
+
+#: scripts/bench_streaming.py's request: its French text, instruct mode
+STREAM_TEXT = (
+    "Bienvenue dans cette démonstration de synthèse vocale en continu. "
+    "Chaque fenêtre de jetons est convertie en audio dès qu'elle est "
+    "prête, pour une écoute immédiate pendant que la suite se calcule."
+)
+COSY_INSTRUCT = "Parle clairement."
+#: the whole-step kernel off: batch 1 takes B3 + B1 + B2 per layer
+FUSED_STEP0_ENV = {**DEFAULT_ENV, "VOCALIE_FUSED_STEP": "0"}
+
+
+def _cosy_wrappers() -> dict:
+    from vocalie_tts_tpu_torch.ops.decode_step import decode_step_fused_packed
+
+    return {**_wrappers(), "B7": decode_step_fused_packed}
+
+
+def _cosy_decode(rt, n_steps: int, window: int = 48) -> None:
+    """The streaming request's LM work alone: prefill, then ``n_steps``
+    decode steps in windows (sampled), synchronized."""
+    from vocalie_tts_tpu_torch.models.common.ar_runtime import pad_token_batch
+    from vocalie_tts_tpu_torch.models.cosyvoice.model import build_prompt_embeds
+    from vocalie_tts_tpu_torch.models.cosyvoice.runtime import PROMPT_BUCKETS
+
+    cfg, dev = rt.cfg, rt.device
+    bundle = rt.params["lm_bundle"]
+    parts = rt._prompt_ids(STREAM_TEXT, "instruct", COSY_INSTRUCT, "")
+    tokens, lengths, _pb, _ = pad_token_batch([parts], prompt_buckets=PROMPT_BUCKETS,
+                                              batch_buckets=(1,), extra_positions=2)
+    spk = torch.zeros((1, cfg.speaker_dim), device=dev)
+    embeds = build_prompt_embeds(bundle, cfg, torch.from_numpy(tokens).to(dev), spk)
+    with torch.no_grad():
+        cache = rt._stream_prefill(bundle["lm"], embeds, torch.from_numpy(lengths).to(dev),
+                                   cache_len=stream_layout()["cache_len"])
+        prev = torch.full((1,), cfg.bos_speech, dtype=torch.int64, device=dev)
+        done = torch.zeros((1,), dtype=torch.bool, device=dev)
+        left = n_steps
+        while left > 0:
+            w = min(window, left)
+            _t, _n, prev, done, cache = rt._stream_window(
+                bundle["lm"], cache, prev, done, window=w, eos_token_id=cfg.eos_speech,
+                temperature=0.8, top_k=50, generator=rt._gen)
+            left -= w
+    torch.cuda.synchronize()
+
+
+def _held_to_phase2(stream, b7_inputs: dict, failures) -> None:
+    """Run ``stream`` (the streaming request's warm-up) with B7's inputs
+    recorded at every step, and check that phase 2 held the kernel to
+    inputs of the same kind: the request's cache length, its bias and norm
+    dtypes, and a valid-slot count within the range its steps reach."""
+    from vocalie_tts_tpu_torch.models.common import transformer as tr
+
+    real_b7, seen = tr.decode_step_fused_packed, []
+
+    def recording_b7(*a, **k):
+        bias = "none" if a[19] is None else str(a[19].dtype)
+        seen.append((a[4].shape[3], bias, str(a[16].dtype), (a[8] == 0).sum()))
+        return real_b7(*a, **k)
+
+    tr.decode_step_fused_packed = recording_b7
+    try:
+        stream()
+    finally:
+        tr.decode_step_fused_packed = real_b7
+    if not seen:
+        failures.append("cosyvoice streaming: no B7 call to compare with phase 2's inputs")
+        return
+    kinds = {s[:3] for s in seen}
+    valid = [int(s[3]) for s in seen]
+    want = (b7_inputs["cache_len"], b7_inputs["bqkv"], b7_inputs["norm"])
+    log(f"cosyvoice [streaming, default]: B7's inputs on the path: (cache, q/k/v bias, norm) "
+        f"{sorted(kinds)}, valid slots {min(valid)}-{max(valid)} over {len(seen)} steps; phase 2 "
+        f"held it to {want}, {b7_inputs['valid_slots']} valid slots")
+    if kinds != {want} or not min(valid) <= b7_inputs["valid_slots"] <= max(valid):
+        failures.append(f"phase 2 held B7 to inputs the streaming path does not give it: "
+                        f"{want}, {b7_inputs['valid_slots']} valid, against {sorted(kinds)}, "
+                        f"{min(valid)}-{max(valid)}")
+
+
+def drive_cosyvoice(dev, failures, b7_inputs: dict, scale: str = "full"):
+    """The CosyVoice-class paths at full width: (a) the streaming request,
+    default config; (b) the same with ``VOCALIE_FUSED_STEP=0``; (c)
+    ``run_tts_pipeline`` on the 8-chunk bench script. Each is warmed up,
+    then driven with every launch counter at 0 just before it and read just
+    after; (a)'s warm-up also checks that phase 2 gave B7 the path's kind of
+    inputs (``b7_inputs``). Returns the counts by path and a function that
+    runs the profiled windows (kept for after every timed phase)."""
+    import numpy as np
+
+    from vocalie_tts_tpu_torch.engines.cosyvoice import CosyVoiceEngine
+    from vocalie_tts_tpu_torch.io.wavio import read_wav
+    from vocalie_tts_tpu_torch.pipeline import run_tts_pipeline
+
+    set_env(DEFAULT_ENV)
+    os.environ["VOCALIE_MODEL_SCALE"] = scale
+    os.environ["VOCALIE_ALLOW_RANDOM_WEIGHTS"] = "1"
+    wrappers = _cosy_wrappers()
+    counts, profiles = {}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.monotonic()
+        engine = CosyVoiceEngine(device=dev, assets=os.path.join(tmp, "assets"))
+        rt = engine.runtime()
+        torch.cuda.synchronize()
+        lm = rt.cfg.lm
+        log(f"cosyvoice: full-width runtime built in {time.monotonic() - t0:.2f} s (random "
+            f"weights, seed 31; LM {lm.n_layers} layers x d_model {lm.d_model}, q/k/v bias "
+            f"{lm.attn_bias}; kv_quant={lm.kv_quant} decode_kernel={lm.decode_kernel} "
+            f"dense_kernel={lm.dense_kernel})")
+
+        def stream():
+            t0 = time.monotonic()
+            first, audio_s, n_pk, ok = None, 0.0, 0, True
+            for pcm, sr in engine.synthesize_stream(STREAM_TEXT, engine_id="cosyvoice_instruct",
+                                                    instruct_text=COSY_INSTRUCT):
+                if first is None:
+                    first = (time.monotonic() - t0) * 1e3
+                ok = ok and sr == 24000 and len(pcm) > 0 and bool(np.isfinite(pcm).all()) \
+                    and float(np.abs(pcm).max()) <= 1.0 \
+                    and len(pcm) % rt.cfg.samples_per_token == 0
+                audio_s += len(pcm) / sr
+                n_pk += 1
+            return first, audio_s, time.monotonic() - t0, n_pk, ok
+
+        for label, env in (("streaming, default", DEFAULT_ENV),
+                           ("streaming, VOCALIE_FUSED_STEP=0", FUSED_STEP0_ENV)):
+            set_env(env)
+            if env is DEFAULT_ENV:
+                _held_to_phase2(stream, b7_inputs, failures)   # also the warm-up
+            else:
+                stream()   # warm-up
+            for w in wrappers.values():
+                w.launches = 0
+            first, audio_s, wall, n_pk, ok = stream()
+            c = {k: w.launches for k, w in wrappers.items()}
+            steps = c["B5"]
+            t0 = time.monotonic()
+            _cosy_decode(rt, 0)
+            t1 = time.monotonic()
+            _cosy_decode(rt, 320)
+            t2 = time.monotonic()
+            decode_ms = ((t2 - t1) - (t1 - t0)) / 320 * 1e3
+            log(f"cosyvoice [{label}]: first packet {first:.1f} ms, audio {audio_s:.3f} s, wall "
+                f"{wall:.3f} s, sustained RTF {audio_s / wall:.3f}x, {n_pk} windows, {steps} "
+                f"decode steps, audio ok={ok}, launches {c}; decode alone (prefill "
+                f"{(t1 - t0) * 1e3:.1f} ms, then 320 steps) {decode_ms:.3f} ms/step")
+            if not ok or n_pk == 0:
+                failures.append(f"cosyvoice [{label}]: a packet failed its check")
+            if env is DEFAULT_ENV:
+                # one sustained window's stage 2 (48 tokens: CFM + HiFT + int16)
+                toks = torch.randint(0, rt.cfg.speech_vocab, (1, 48), device=dev)
+                nv = torch.full((1,), 48, dtype=torch.int32, device=dev)
+                spk = torch.zeros((1, rt.cfg.speaker_dim), device=dev)
+
+                def stage2():
+                    rt.stage2_pcm16(toks, nv, spk, rt._stage2_noise(1, 48))
+                    torch.cuda.synchronize()
+
+                stage2()
+                t0 = time.monotonic()
+                stage2()
+                log(f"cosyvoice [{label}]: one 48-token window's stage 2 "
+                    f"{(time.monotonic() - t0) * 1e3:.1f} ms (host clock, synchronized)")
+                profiles.append(lambda: _profiled("cosyvoice streaming, one 48-token window's "
+                                                  "stage 2", stage2))
+            fused = env is DEFAULT_ENV
+            want = {"B3": steps, "B4": steps + 1, "B7": steps if fused else 0,
+                    "B1": 0 if fused else lm.n_layers * steps,
+                    "B2": 0 if fused else lm.n_layers * steps}
+            for k, n in want.items():
+                if c[k] != n:
+                    failures.append(f"cosyvoice [{label}] {k} launched {c[k]} times, the path "
+                                    f"needs {n}")
+            if steps == 0:
+                failures.append(f"cosyvoice [{label}]: no decode step ran")
+            counts[label] = c
+
+            def windows(label=label, env=env):
+                set_env(env)
+                n0 = _profiled(f"cosyvoice {label}, prefill alone", lambda: _cosy_decode(rt, 0))
+                n32 = _profiled(f"cosyvoice {label}, prefill + 32 decode steps",
+                                lambda: _cosy_decode(rt, 32, window=32))
+                if n0 and n32:
+                    log(f"breakdown [cosyvoice {label}]: {(n32 - n0) / 32:.1f} device operations "
+                        "per decode step")
+
+            profiles.append(windows)
+
+        set_env(DEFAULT_ENV)
+        request = {**_request(BENCH_SCRIPT, os.path.join(tmp, "cosy.wav")),
+                   "tts_backend": "cosyvoice",
+                   "engine_params": {"engine_id": "cosyvoice_instruct",
+                                     "instruct_text": COSY_INSTRUCT}}
+        run_tts_pipeline({**request, "out_path": os.path.join(tmp, "warm.wav")}, engine=engine)
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.monotonic()
+        res = run_tts_pipeline(request, engine=engine)
+        wall = time.monotonic() - t0
+        c = {k: w.launches for k, w in wrappers.items()}
+        wav, sr = read_wav(res.out_path)
+        meta, chunks = res.meta, request["chunks"]
+        expect = round(sum(meta["durations"]) * 24000) + int(24000 * 0.25) * (len(chunks) - 1)
+        ok = (sr == 24000 and len(wav) == expect and len(wav) > 0
+              and bool(np.isfinite(wav).all())
+              and all(round(dur * 24000) % rt.cfg.samples_per_token == 0
+                      for dur in meta["durations"]))
+        steps = c["B5"]
+        bm = meta["backend_meta"]
+        log(f"cosyvoice [offline, bench 8-chunk]: {len(chunks)} chunks, prompt bucket "
+            f"{bm['prompt_bucket']}, decode bucket {bm['decode_bucket']}, audio "
+            f"{meta['total_duration']:.3f} s, wall {wall:.3f} s, RTF "
+            f"{meta['total_duration'] / wall:.3f}x, {steps} decode steps, wav ok={ok}, "
+            f"launches {c}")
+        if not ok:
+            failures.append(f"cosyvoice offline: WAV check failed (len {len(wav)}, expected "
+                            f"{expect})")
+        want = {"B1": lm.n_layers * steps, "B2": lm.n_layers * steps, "B3": steps,
+                "B4": steps + 1, "B7": 0}
+        for k, n in want.items():
+            if c[k] != n:
+                failures.append(f"cosyvoice offline {k} launched {c[k]} times, the path needs {n}")
+        for k in ("B1", "B2", "B3", "B4", "B5", "B6"):
+            if c[k] == 0:
+                failures.append(f"cosyvoice offline: {k} was never launched")
+        counts["offline"] = c
+
+    def profile():
+        for windows in profiles:
+            windows()
+
+    return counts, profile
+
+
 def _device_rows(prof) -> list:
     """(device µs, count, name) of each device operation a profile saw."""
     rows = []
@@ -834,7 +1232,8 @@ def main() -> int:
 
     failures: list = []
     kernels = [check_decode_attention(dev, failures), *check_dense(dev, failures),
-               check_cache_append(dev, failures), check_flash_attention(dev, failures)]
+               check_cache_append(dev, failures), check_flash_attention(dev, failures),
+               check_decode_step(dev, failures)]
     count_dense_kernels(kernels, failures)
     if failures:
         raise SystemExit("kernel checks failed: " + "; ".join(failures))
@@ -851,15 +1250,21 @@ def main() -> int:
     requests = [("bench 8-chunk", BENCH_SCRIPT), ("512-bucket prompt", LONG_SCRIPT)]
     counts, profile = drive_path(dev, failures, "default int8 config", DEFAULT_ENV, requests)
     counts1, profile1 = drive_path(dev, failures, "slice-1 config", SLICE1_ENV, requests[:1])
+    cosy, profile_cosy = drive_cosyvoice(dev, failures, kernels[-1]["path_inputs"])
     if failures:
         raise SystemExit("main path failed: " + "; ".join(failures))
     # torch.profiler last: everything above is timed without it
     profile()
     profile1()
-    for entry, key in zip(kernels, ("B1", "B3", "B2", "B4", "B5", "B6")):
-        entry["launches"] = counts[key]
-        if counts1[key]:
+    profile_cosy()
+    for entry, key in zip(kernels, ("B1", "B3", "B2", "B4", "B5", "B6", "B7")):
+        # B1-B6: the Chatterbox default path's counts; B7: the streaming path's
+        entry["launches"] = cosy["streaming, default"]["B7"] if key == "B7" else counts[key]
+        if counts1.get(key):
             entry["launches_slice1_config"] = counts1[key]
+        for path, c in cosy.items():
+            if c.get(key):
+                entry[f"launches_cosyvoice_{path}"] = c[key]
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)

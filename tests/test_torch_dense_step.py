@@ -159,13 +159,23 @@ def test_dense_at_tiny_width_takes_qdot(monkeypatch):
 ])
 def test_dense_knobs_without_a_port_raise(params, monkeypatch, env, kernel):
     """Where the JAX package would run a kernel the port does not have,
-    the port raises instead of running another path (``{}`` at batch 1:
-    the whole-step kernel)."""
+    the port raises instead of running another path. ``{}`` at batch 1 is
+    the whole-step kernel B7, which the port has now: the step runs it
+    instead of raising (``tests/test_torch_decode_step.py`` holds it
+    against JAX)."""
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     _, pcfg = _configs(DENSE)
     b = 1 if kernel == "B7" else 2
     cache = pt.StackedKVCache.create(2, b, 2, CACHE_LEN, 64, "cpu")
+    if kernel == "B7":
+        calls = []
+        real = pt.decode_step_fused_packed
+        monkeypatch.setattr(pt, "decode_step_fused_packed",
+                            lambda *a, **k: calls.append(1) or real(*a, **k))
+        logits, _ = pt.decode_step(params[1], pcfg, torch.zeros(b, dtype=torch.long), cache)
+        assert calls == [1] and torch.isfinite(logits).all()
+        return
     with pytest.raises(NotImplementedError, match=kernel):
         pt.decode_step(params[1], pcfg, torch.zeros(b, dtype=torch.long), cache)
 

@@ -98,3 +98,52 @@ def test_dense_kernel_env_names_the_next_slice(monkeypatch):
     monkeypatch.setenv("VOCALIE_MEGATAIL", "0")
     with pytest.raises(NotImplementedError, match="B8"):
         tr._dense_dispatch(layers, cfg, 2, 256)
+
+
+#: the modules the CosyVoice slice added
+SLICE3_MODULES = (
+    "vocalie_tts_tpu_torch.ops.decode_step",
+    "vocalie_tts_tpu_torch.engines.base",
+    "vocalie_tts_tpu_torch.engines.cosyvoice",
+    "vocalie_tts_tpu_torch.models.cosyvoice.model",
+    "vocalie_tts_tpu_torch.models.cosyvoice.runtime",
+)
+
+
+@pytest.mark.parametrize("module", SLICE3_MODULES)
+def test_slice3_module_imports_alone(module):
+    """Each new module imports on its own with JAX, the JAX package and
+    Triton blocked, loads no kernel library and touches no GPU."""
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'jaxlib', 'triton', 'vocalie_tts_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        f"import importlib; importlib.import_module({module!r})\n"
+        "import torch\n"
+        "from vocalie_tts_tpu_torch.ops import _build\n"
+        "assert _build._lib is None and not torch.cuda.is_initialized()\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr[-2000:]
+
+
+def test_cosyvoice_entry_points_refuse_cpu_fallback(tmp_path, monkeypatch):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid here")
+    from vocalie_tts_tpu_torch.engines.cosyvoice import CosyVoiceEngine
+    from vocalie_tts_tpu_torch.models.cosyvoice.runtime import CosyVoiceRuntime
+    from vocalie_tts_tpu_torch.pipeline import run_tts_pipeline
+
+    monkeypatch.setenv("VOCALIE_MODEL_SCALE", "tiny")
+    monkeypatch.setenv("VOCALIE_KV_INT8", "1")
+    monkeypatch.setenv("VOCALIE_ALLOW_RANDOM_WEIGHTS", "1")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        CosyVoiceRuntime.create(tmp_path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        CosyVoiceEngine()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_tts_pipeline({"tts_backend": "cosyvoice", "script": "Bonjour à tous.",
+                          "out_path": str(tmp_path / "x.wav")})
+    assert not (tmp_path / "x.wav").exists()

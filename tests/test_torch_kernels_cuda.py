@@ -1,9 +1,13 @@
 """The port's CUDA kernels (B1 int8 decode attention, B5 KV-cache append,
-B6 flash attention, the dense decode kernels B2/B3/B4) against their plain
-PyTorch versions on the GPU, at the edge shapes the main path does not
-reach: GQA, head dims other than 64, ragged and fully masked rows, valid
-lengths off the 128-slot grid, f32 as well as bf16, batch 1 and 17, zero
-rows, the last layer's clamped next-qkv, d_ff in one and in two tiles.
+B6 flash attention, the dense decode kernels B2/B3/B4, the whole-step
+kernel B7) against their plain PyTorch versions on the GPU, at the edge
+shapes the main path does not reach: GQA, head dims other than 64, ragged
+and fully masked rows, valid lengths off the 128-slot grid, f32 as well as
+bf16, batch 1 and 17, zero rows, the last layer's clamped next-qkv, d_ff in
+one and in two tiles; for B7 caches of 128 and 640 slots, a fully masked
+tail and a fully masked cache, q/k/v biases off, in f32 and in bf16, 1 and
+3 layers, and a cooperative grid forced past what the card keeps resident
+(refused).
 ``chip_smoke.py`` holds the kernels at the main path's shapes.
 
 These tests need an NVIDIA GPU (a CUDA kernel has no CPU mode) and skip
@@ -25,6 +29,9 @@ repeat their plain versions' rounding step for step (exact int32 products,
 the variance summed in double, IEEE divides, the same f32 epilogue order),
 so an output moves only if an int8 activation sits on a .5 tie that
 another expf reaches from the other side; such a flip moves it by ~1e-3.
+B7 within 1e-5 · max|ref| on each output, for the same reason: the plain
+version takes the kernel's steps (the softmax sum, the variance and the
+current token's score in float64, rounded once).
 """
 
 import math
@@ -44,6 +51,11 @@ from vocalie_tts_tpu_torch.ops.decode_dense import (
     qkv_norm_int8_stacked,
     tail_swiglu_qkv_int8_plain,
     tail_swiglu_qkv_int8_stacked,
+)
+from vocalie_tts_tpu_torch.ops.decode_step import (
+    decode_step_fused_packed,
+    decode_step_fused_plain,
+    max_resident_blocks,
 )
 from vocalie_tts_tpu_torch.ops.flash_attention import attention_plain, flash_attention
 
@@ -280,3 +292,68 @@ def test_dense_kernels_reject_bad_inputs(dev):
         dense_int8_stacked(torch.zeros((256, 2), device=dev).t(), w, s, 0)
     with pytest.raises(ValueError, match="K % 32"):
         dense_int8_stacked(x[:, :200].contiguous(), w[:, :200].contiguous(), s, 0)
+
+
+# ── B7 ──────────────────────────────────────────────────────────────────
+
+
+def _b7_args(dev, seed, L, H, d, D, F, T, valid, bias_dtype, norm_dtype=torch.float32):
+    gen = _gen(dev, seed)
+    q0 = torch.randn((H, 1, d), generator=gen, device=dev)
+    kn0, vn0 = (torch.randn((H, d), generator=gen, device=dev) for _ in range(2))
+    x = torch.randn((1, D), generator=gen, device=dev) * 0.5
+    k, v = (torch.randint(-127, 128, (L, 1, H, T, d), generator=gen, device=dev,
+                          dtype=torch.int8) for _ in range(2))
+    ks, vs = (((torch.rand((L, 1, H, T), generator=gen, device=dev) + 0.5) / 127)
+              .to(torch.bfloat16) for _ in range(2))
+    bias = torch.where(torch.arange(T, device=dev) < valid, 0.0, NEG).float()[None]
+    wo, wos = _int8_weights(gen, dev, L, H * d, D)
+    mw = (1 + 0.1 * torch.randn((L, D), generator=gen, device=dev)).to(norm_dtype)
+    wgu, sgu = _int8_weights(gen, dev, L, D, 2 * F)
+    wd, sd = _int8_weights(gen, dev, L, F, D)
+    nw = (1 + 0.1 * torch.randn((L, D), generator=gen, device=dev)).to(norm_dtype)
+    wq, sq = _int8_weights(gen, dev, L, D, 3 * H * d)
+    bq = ((0.5 * torch.randn((L, 3 * H * d), generator=gen, device=dev)).to(bias_dtype)
+          if bias_dtype is not None else None)
+    ang = (valid + 7) / (10000.0 ** (torch.arange(0, d, 2, device=dev).float() / d))
+    c, s = torch.cos(ang)[None], torch.sin(ang)[None]
+    return (q0, kn0, vn0, x, k, v, ks, vs, bias, wo, wos, mw, wgu, sgu, wd, sd, nw, wq, sq, bq,
+            torch.cat([c, c], -1), torch.cat([-s, s], -1))
+
+
+F32, BF16 = torch.float32, torch.bfloat16
+
+
+@pytest.mark.parametrize("L,H,d,D,F,T,valid,bias_dtype,norm_dtype", [
+    (3, 4, 64, 256, 512, 128, 45, F32, F32),          # the CPU test's shapes
+    (1, 4, 64, 256, 512, 640, 300, None, F32),        # one layer, masked tail
+    (3, 16, 64, 1024, 4096, 640, 133, F32, BF16),     # full width, bf16 norms
+    (3, 16, 64, 1024, 4096, 640, 383, BF16, F32),     # the streaming request's kind: bf16 bias
+    (3, 2, 128, 256, 384, 128, 0, F32, F32),          # d 128, the whole cache masked
+    (1, 8, 32, 512, 1024, 256, 256, None, F32),       # d 32, no slot masked
+])
+def test_decode_step_kernel(dev, L, H, d, D, F, T, valid, bias_dtype, norm_dtype):
+    args = _b7_args(dev, L + H + T + valid, L, H, d, D, F, T, valid, bias_dtype, norm_dtype)
+    kw = dict(sm_scale=d ** -0.5, eps=1e-5)
+    before = decode_step_fused_packed.launches
+    got = decode_step_fused_packed(*args, **kw)
+    ref = decode_step_fused_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert decode_step_fused_packed.launches == before + 1
+    assert got[0].shape == (1, D) and got[1].shape == got[2].shape == (L, H, d)
+    for g, r in zip(got, ref):
+        _close(g, r)
+
+
+def test_decode_step_kernel_refuses_a_grid_past_residency(dev):
+    """A cooperative grid larger than the card keeps resident is refused
+    (cudaErrorCooperativeLaunchTooLarge): the wrapper raises, no fallback."""
+    L, H, d, D, F, T = 1, 4, 64, 256, 512, 128
+    args = _b7_args(dev, 5, L, H, d, D, F, T, 40, F32)
+    most = max_resident_blocks(H, d, D, F, T)
+    assert most >= torch.cuda.get_device_properties(dev).multi_processor_count
+    ok = decode_step_fused_packed(*args, sm_scale=0.125, eps=1e-5, grid=most)
+    _close(ok[0], decode_step_fused_plain(*args, sm_scale=0.125, eps=1e-5)[0])
+    with pytest.raises(RuntimeError, match="decode_step"):
+        decode_step_fused_packed(*args, sm_scale=0.125, eps=1e-5, grid=most + 1)
+    torch.cuda.synchronize()

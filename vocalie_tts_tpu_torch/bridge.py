@@ -34,4 +34,17 @@ def tree_to_torch(tree: Any, device="cpu") -> Any:
     return to_torch(tree, device)
 
 
-__all__ = ["to_torch", "tree_to_torch"]
+def cosyvoice_bundle(lm_bundle: Any, decoder: Any, device="cpu") -> Any:
+    """The CosyVoice runtime's params from the JAX trees of
+    ``init_cosyvoice_lm`` (``lm`` with its q/k/v biases ``bq``/``bk``/``bv``,
+    ``text_emb``, ``spk_cond``) and ``init_cfm_decoder`` (``t2w``), before
+    any runtime transform: ``{"lm_bundle": ..., "decoder": {"t2w": ...}}``.
+    The decoder's ``speaker`` encoder is skipped: the port has no speaker
+    encoder yet, and without a voice reference the JAX runtime does not run
+    it either (zero speaker embeddings)."""
+    lm = {k: lm_bundle[k] for k in ("lm", "text_emb", "spk_cond")}
+    return {"lm_bundle": tree_to_torch(lm, device),
+            "decoder": {"t2w": tree_to_torch(decoder["t2w"], device)}}
+
+
+__all__ = ["to_torch", "tree_to_torch", "cosyvoice_bundle"]

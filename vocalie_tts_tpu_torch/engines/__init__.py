@@ -1,3 +1,10 @@
-"""Engines of the port. No registry: callers construct the engine they
-want (the JAX package registers engines by id on import, and a port
-subclass sharing that registry would replace the JAX engine)."""
+"""Engines of the port, by backend id. ``ENGINES`` is the port's own map:
+the JAX package registers its engines by id on import, and a port engine
+sharing that registry would replace the JAX one."""
+
+from vocalie_tts_tpu_torch.engines.chatterbox import ChatterboxEngine
+from vocalie_tts_tpu_torch.engines.cosyvoice import CosyVoiceEngine
+
+ENGINES = {"chatterbox": ChatterboxEngine, "cosyvoice": CosyVoiceEngine}
+
+__all__ = ["ENGINES", "ChatterboxEngine", "CosyVoiceEngine"]

@@ -10,15 +10,9 @@ and no checkpoint is there.
 
 from __future__ import annotations
 
-import os
-import threading
-from pathlib import Path
 from typing import Any, Dict, List, Optional
 
-import torch
-
-from vocalie_tts_tpu_torch.device import resolve_device
-from vocalie_tts_tpu_torch.utils.env import bool_env
+from vocalie_tts_tpu_torch.engines.base import ResidentEngine
 
 #: BCP-47 → model language code (copy of the JAX catalog's map)
 CHATTERBOX_LANGUAGE_MAP: Dict[str, str] = {
@@ -33,51 +27,20 @@ CHATTERBOX_LANGUAGE_MAP: Dict[str, str] = {
 }
 
 
-def assets_dir(engine_id: str = "chatterbox") -> Path:
-    env = os.environ.get("VOCALIE_ASSETS_DIR")
-    base = Path(env).expanduser() if env else Path(__file__).resolve().parents[2] / ".assets"
-    return base / engine_id
-
-
-class ChatterboxEngine:
+class ChatterboxEngine(ResidentEngine):
     id = "chatterbox"
     supports_inter_chunk_gap = True
     native_sr = 24000
 
-    def __init__(self, device: str | torch.device = "cuda", assets: Optional[Path] = None) -> None:
-        self.device = resolve_device(device)
-        self.assets = Path(assets) if assets is not None else assets_dir(self.id)
-        self._runtime = None
-        self._lock = threading.Lock()
+    def _create_runtime(self):
+        from vocalie_tts_tpu_torch.models.chatterbox.runtime import ChatterboxRuntime
 
-    def is_available(self) -> bool:
-        weights = self.assets / "weights"
-        installed = weights.is_dir() and any(weights.iterdir())
-        return installed or bool_env("VOCALIE_ALLOW_RANDOM_WEIGHTS")
-
-    def unavailable_reason(self) -> Optional[str]:
-        if self.is_available():
-            return None
-        return (f"Poids absents pour 'chatterbox' (attendus sous {self.assets / 'weights'}); "
-                "installez le backend ou exportez VOCALIE_ALLOW_RANDOM_WEIGHTS=1.")
+        return ChatterboxRuntime.create(self.assets, device=self.device)
 
     def map_language(self, bcp47: Optional[str]) -> str:
         if not bcp47:
             return "fr"
         return CHATTERBOX_LANGUAGE_MAP.get(bcp47, bcp47.split("-")[0])
-
-    def runtime(self):
-        with self._lock:
-            if self._runtime is None:
-                if not self.is_available():
-                    raise RuntimeError(self.unavailable_reason())
-                from vocalie_tts_tpu_torch.models.chatterbox.runtime import ChatterboxRuntime
-
-                self._runtime = ChatterboxRuntime.create(self.assets, device=self.device)
-            return self._runtime
-
-    def warmup(self) -> None:
-        self.runtime().warmup()
 
     def synthesize_batch(self, texts, *, voice_ref_path: Optional[str] = None,
                          lang: Optional[str] = None, progress_cb=None,
@@ -102,6 +65,4 @@ class ChatterboxEngine:
                 for audio, sr, meta in results]
 
 
-ENGINES = {"chatterbox": ChatterboxEngine}
-
-__all__ = ["ChatterboxEngine", "CHATTERBOX_LANGUAGE_MAP", "ENGINES", "assets_dir"]
+__all__ = ["ChatterboxEngine", "CHATTERBOX_LANGUAGE_MAP"]

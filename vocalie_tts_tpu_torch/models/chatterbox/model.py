@@ -25,7 +25,7 @@ from vocalie_tts_tpu_torch.models.common.token2wav import (
     t2w_scale_configs,
     token2wav,
 )
-from vocalie_tts_tpu_torch.models.common.transformer import TransformerConfig
+from vocalie_tts_tpu_torch.models.common.transformer import TransformerConfig, _normal, init_params
 from vocalie_tts_tpu_torch.text.frontend import BYTE_VOCAB_SIZE
 
 Params = Dict[str, Any]
@@ -89,41 +89,11 @@ class T3Config:
         return self.t2w.samples_per_token
 
 
-def _normal(shape, scale, dtype, generator, device):
-    return (torch.randn(shape, generator=generator, device=device) * scale).to(dtype)
-
-
-def init_transformer(cfg: TransformerConfig, *, generator=None, device="cpu") -> Params:
-    """Random stacked transformer params with the JAX ``init_params``
-    tree, shapes and scales (rms/swiglu/rope, no biases)."""
-    L, dt = cfg.n_layers, cfg.dtype
-
-    def stacked(d_in, d_out):
-        return _normal((L, d_in, d_out), d_in ** -0.5, dt, generator, device)
-
-    return {
-        "tok_emb": _normal((cfg.vocab_size, cfg.d_model), 0.02, dt, generator, device),
-        "final_norm": torch.ones((cfg.d_model,), device=device),
-        "lm_head": _normal((cfg.d_model, cfg.vocab_size), cfg.d_model ** -0.5, dt, generator, device),
-        "layers": {
-            "attn_norm": torch.ones((L, cfg.d_model), device=device),
-            "wq": stacked(cfg.d_model, cfg.q_dim),
-            "wk": stacked(cfg.d_model, cfg.kv_dim),
-            "wv": stacked(cfg.d_model, cfg.kv_dim),
-            "wo": stacked(cfg.q_dim, cfg.d_model),
-            "mlp_norm": torch.ones((L, cfg.d_model), device=device),
-            "w_gate": stacked(cfg.d_model, cfg.d_ff),
-            "w_up": stacked(cfg.d_model, cfg.d_ff),
-            "w_down": stacked(cfg.d_ff, cfg.d_model),
-        },
-    }
-
-
 def init_t3(cfg: T3Config, *, generator=None, device="cpu") -> Params:
     """Stage-1 params (the part the FR fine-tune overlays)."""
     dt = cfg.dtype
     return {
-        "lm": init_transformer(cfg.lm, generator=generator, device=device),
+        "lm": init_params(cfg.lm, generator=generator, device=device),
         "text_emb": _normal((cfg.text_vocab, cfg.d_model), 0.02, dt, generator, device),
         "spk_cond": _normal((cfg.speaker_dim, cfg.d_model), cfg.speaker_dim ** -0.5, dt,
                             generator, device),
@@ -174,7 +144,6 @@ __all__ = [
     "SPEECH_VOCAB",
     "TOKENS_PER_SECOND",
     "XVECTOR_DIM",
-    "init_transformer",
     "init_t3",
     "init_token_decoder",
     "build_prompt_embeds",

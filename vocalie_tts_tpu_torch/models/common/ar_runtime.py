@@ -1,16 +1,19 @@
 """Shared pieces of the AR runtimes (counterpart of the parts of
-``vocalie_tts_tpu/models/common/ar_runtime.py`` the Chatterbox-class
-path uses): the decode-path env knobs, the runtime weight transforms
-and the int16 PCM wire format."""
+``vocalie_tts_tpu/models/common/ar_runtime.py`` the Chatterbox- and
+CosyVoice-class paths use): the decode-path env knobs, the runtime weight
+transforms, prompt padding and the two-table prompt embedding, the
+streaming prefill and window functions, the speaker-embedding cache and
+the int16 PCM wire format."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from vocalie_tts_tpu_torch.ops.kv_cache import pick_bucket
 from vocalie_tts_tpu_torch.utils.env import bool_env, tri_env
 
 
@@ -54,6 +57,105 @@ def maybe_quantize_lm(bundle: Dict, key: str = "lm") -> Dict:
     return {**bundle, key: fuse_decode_weights(lm)}
 
 
+def pad_token_batch(
+    seqs: List[List[int]],
+    *,
+    prompt_buckets: Tuple[int, ...],
+    batch_buckets: Tuple[int, ...],
+    extra_positions: int = 0,
+    pad_id: int = 0,
+) -> Tuple[np.ndarray, np.ndarray, int, int]:
+    """Pad ragged token lists into a (batch_bucket, prompt_bucket) grid;
+    ``extra_positions`` reserves room for slots the caller adds. Returns
+    (tokens, lengths, prompt_bucket, batch_bucket), lengths including the
+    extra positions."""
+    max_len = max((len(s) for s in seqs), default=0) + extra_positions
+    prompt_bucket = pick_bucket(max_len, prompt_buckets)
+    batch_bucket = pick_bucket(len(seqs), batch_buckets)
+    room = prompt_bucket - extra_positions
+    tokens = np.full((batch_bucket, room), pad_id, np.int32)
+    lengths = np.full((batch_bucket,), extra_positions, np.int32)
+    for i, s in enumerate(seqs):
+        s = s[:room]
+        tokens[i, : len(s)] = s
+        lengths[i] = len(s) + extra_positions
+    return tokens, lengths, prompt_bucket, batch_bucket
+
+
+def embed_mixed_prompt(text_emb: torch.Tensor, tok_emb: torch.Tensor, tokens: torch.Tensor,
+                       text_vocab: int) -> torch.Tensor:
+    """Prompt-space embedding over two tables: ids below ``text_vocab``
+    index ``text_emb``, the rest index the LM-core ``tok_emb`` at
+    ``id - text_vocab`` (speech tokens spliced into a prompt, BOS)."""
+    tokens = tokens.long()
+    is_text = tokens < text_vocab
+    text_rows = text_emb[torch.clamp(tokens, max=text_vocab - 1)]
+    core_rows = tok_emb[torch.clamp(tokens - text_vocab, 0, tok_emb.shape[0] - 1)]
+    return torch.where(is_text[..., None], text_rows, core_rows.to(text_rows.dtype))
+
+
+def biased_step(lm_cfg, logit_bias: Optional[torch.Tensor] = None):
+    """``step(lm, tok, cache)`` → ``(logits + logit_bias, cache)``: one
+    decode step as the decode loops take it, with the vocabulary mask."""
+    from vocalie_tts_tpu_torch.models.common.transformer import decode_step
+
+    def step(lm, tok, cache):
+        logits, cache = decode_step(lm, lm_cfg, tok, cache)
+        if logit_bias is not None:
+            logits = logits + logit_bias[None, :]
+        return logits, cache
+
+    return step
+
+
+def make_streaming_fns(lm_cfg, logit_bias: Optional[torch.Tensor] = None):
+    """(prefill_fn, window_fn) for incremental window decode:
+
+    - ``prefill_fn(lm, embeds, prompt_lengths, *, cache_len)`` → cache;
+    - ``window_fn(lm, cache, prev_token, done, *, window, eos_token_id,
+      temperature, top_k=0, top_p=1.0, generator=None)`` →
+      ``(tokens, n_valid, next_token, done, cache)``, with no host read.
+    """
+    from vocalie_tts_tpu_torch.models.common.transformer import prefill
+    from vocalie_tts_tpu_torch.ops.generate import GenerateConfig, generate_window
+
+    step = biased_step(lm_cfg, logit_bias)
+
+    @torch.no_grad()
+    def prefill_fn(lm, embeds, prompt_lengths, *, cache_len: int):
+        _logits, cache = prefill(lm, lm_cfg, None, prompt_lengths, inputs_embeds=embeds,
+                                 cache_len=cache_len)
+        return cache
+
+    @torch.no_grad()
+    def window_fn(lm, cache, prev_token, done, *, window: int, eos_token_id: int,
+                  temperature: float, top_k: int = 0, top_p: float = 1.0, generator=None):
+        gen = GenerateConfig(max_new_tokens=window, eos_token_id=eos_token_id,
+                             temperature=temperature, top_k=top_k, top_p=top_p,
+                             vocab_size=lm_cfg.vocab_size)
+        return generate_window(lm, step, cache, prev_token, done, gen, window=window,
+                               generator=generator)
+
+    return prefill_fn, window_fn
+
+
+class SpeakerEmbedCache:
+    """Speaker embeddings per reference voice. Without a reference the
+    JAX cache returns zeros, and so does this one; a reference needs the
+    speaker encoder, which the port does not have yet, so it raises."""
+
+    def __init__(self, dim: int):
+        self._dim = dim
+
+    def get(self, voice_ref_path: Optional[str]) -> np.ndarray:
+        if not voice_ref_path:
+            return np.zeros((self._dim,), np.float32)
+        raise NotImplementedError(
+            "voice references (voice cloning, cross-lingual) need the speaker encoders and "
+            "the S3 speech tokenizer, which the port does not have yet"
+        )
+
+
 def to_pcm16_wire(audio: torch.Tensor) -> torch.Tensor:
     """Device-side int16 PCM: the output file's precision, half the bytes
     of f32 on the way to the host."""
@@ -68,4 +170,5 @@ def from_pcm16_wire(arr) -> np.ndarray:
     return a.astype(np.float32)
 
 
-__all__ = ["apply_runtime_env", "maybe_quantize_lm", "to_pcm16_wire", "from_pcm16_wire"]
+__all__ = ["apply_runtime_env", "maybe_quantize_lm", "pad_token_batch", "embed_mixed_prompt",
+           "biased_step", "make_streaming_fns", "SpeakerEmbedCache", "to_pcm16_wire", "from_pcm16_wire"]

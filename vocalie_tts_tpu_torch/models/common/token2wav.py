@@ -156,11 +156,20 @@ def token2mel(p: Params, cfg: TokenToWavConfig, tokens: torch.Tensor,
 
 
 @torch.no_grad()
+def mel2wav(p: Params, cfg: TokenToWavConfig, mel: torch.Tensor,
+            rand_ini: Optional[torch.Tensor] = None,
+            source_normal: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """mel [b, frames, n_mels] → waveform; without the source noise HiFT's
+    source is deterministic (the JAX ``mel2wav`` with ``rng=None``)."""
+    return apply_hift(p["hift"], cfg.hift, mel, rand_ini, source_normal)
+
+
+@torch.no_grad()
 def token2wav(p: Params, cfg: TokenToWavConfig, tokens: torch.Tensor,
               token_mask: torch.Tensor, spk_emb: torch.Tensor, noise: Stage2Noise) -> torch.Tensor:
     """tokens → waveform [b, n · samples_per_token]."""
     mel, _ = token2mel(p, cfg, tokens, token_mask, spk_emb, noise.z)
-    return apply_hift(p["hift"], cfg.hift, mel, noise.rand_ini, noise.source_normal)
+    return mel2wav(p, cfg, mel, noise.rand_ini, noise.source_normal)
 
 
 __all__ = [
@@ -172,5 +181,6 @@ __all__ = [
     "t2w_scale_configs",
     "init_token2wav",
     "token2mel",
+    "mel2wav",
     "token2wav",
 ]

@@ -8,20 +8,24 @@ loop is a Python loop over that axis. ``prefill`` and ``decode_step``
 take the runtime's weights, with q/k/v and gate/up concatenated by
 ``fuse_decode_weights`` (``ar_runtime.maybe_quantize_lm``).
 
-The port serves the Chatterbox-class path: RMSNorm, RoPE, GQA, SwiGLU,
+The port serves the Chatterbox- and CosyVoice-class paths: RMSNorm,
+RoPE, GQA, SwiGLU, optional q/k/v biases (``attn_bias``, Qwen2-style),
 the int8 KV cache read by the decode-attention kernel (B1) and appended
 by the cache-update kernel (B5), flash attention (B6) in prefill at
 prompt buckets >= 512, and, with ``dense_kernel`` (the JAX package's
 default with int8 weights), the int8-native dense decode kernels: the
 layer-0 norm+qkv (B3), the fused layer tail + next qkv (B2) and the int8
-lm_head (B4, also for prefill's last-position logits). Where the shapes
-are not eligible (``_dense_dispatch``: d_model or the qkv width not a
-128-multiple), the JAX package takes the ``_qdot`` path, and so does the
-port: that is the reference's own dispatch on shapes. Eligible shapes
-whose d_ff is not a 128-multiple (B4 for qkv and o, ``_qdot`` for the
-MLP in the JAX package) raise: no family the port serves has them. The
-other family variants (LayerNorm/GELU, biases, qk-norm, learned
-positions) are not ported yet.
+lm_head (B4, also for prefill's last-position logits). At batch 1 with
+MHA and d_head 64 the whole step after the layer-0 prologue is one
+kernel (B7, ``ops/decode_step.py``), as in the JAX package unless
+``VOCALIE_FUSED_STEP=0``. Where the shapes are not eligible
+(``_dense_dispatch``: d_model or the qkv width not a 128-multiple), the
+JAX package takes the ``_qdot`` path, and so does the port: that is the
+reference's own dispatch on shapes. Eligible shapes whose d_ff is not a
+128-multiple (B4 for qkv and o, ``_qdot`` for the MLP in the JAX
+package) raise: no family the port serves has them. The other family
+variants (LayerNorm/GELU, o/MLP biases, qk-norm, learned positions) are
+not ported yet.
 
 The KV cache is a mutable object: ``decode_step`` writes the step's k/v
 into it IN PLACE and returns it (the JAX version returns a new cache).
@@ -43,6 +47,7 @@ from vocalie_tts_tpu_torch.ops.decode_dense import (
     tail_swiglu_qkv_int8_stacked,
 )
 from vocalie_tts_tpu_torch.ops.decode_attention import decode_attention_stacked
+from vocalie_tts_tpu_torch.ops.decode_step import decode_step_fused_packed
 from vocalie_tts_tpu_torch.ops.flash_attention import flash_attention, reference_attention
 from vocalie_tts_tpu_torch.utils.env import bool_env
 
@@ -73,6 +78,8 @@ class TransformerConfig:
     #: qkv, B4 lm_head; inert without int8 weights or on ineligible shapes
     #: (see ``_dense_dispatch``)
     dense_kernel: bool = False
+    #: additive q/k/v projection biases (the Qwen2 backbone of CosyVoice)
+    attn_bias: bool = False
     dtype: torch.dtype = torch.bfloat16
 
     @property
@@ -138,6 +145,45 @@ class StackedKVCache:
         in_prompt = pos < self.prompt_lengths[:, None]
         in_decode = (pos >= self.prompt_pad) & (pos < self.prompt_pad + self.n_decoded)
         return in_prompt | in_decode
+
+
+# ── init ────────────────────────────────────────────────────────────────
+
+
+def _normal(shape, scale, dtype, generator, device):
+    return (torch.randn(shape, generator=generator, device=device) * scale).to(dtype)
+
+
+def init_params(cfg: TransformerConfig, *, generator=None, device="cpu") -> Params:
+    """Random stacked transformer params with the JAX ``init_params``
+    tree, shapes and scales (rms/swiglu/rope; q/k/v biases at zero when
+    ``cfg.attn_bias``)."""
+    L, dt = cfg.n_layers, cfg.dtype
+
+    def stacked(d_in, d_out):
+        return _normal((L, d_in, d_out), d_in ** -0.5, dt, generator, device)
+
+    params = {
+        "tok_emb": _normal((cfg.vocab_size, cfg.d_model), 0.02, dt, generator, device),
+        "final_norm": torch.ones((cfg.d_model,), device=device),
+        "lm_head": _normal((cfg.d_model, cfg.vocab_size), cfg.d_model ** -0.5, dt, generator,
+                           device),
+        "layers": {
+            "attn_norm": torch.ones((L, cfg.d_model), device=device),
+            "wq": stacked(cfg.d_model, cfg.q_dim),
+            "wk": stacked(cfg.d_model, cfg.kv_dim),
+            "wv": stacked(cfg.d_model, cfg.kv_dim),
+            "wo": stacked(cfg.q_dim, cfg.d_model),
+            "mlp_norm": torch.ones((L, cfg.d_model), device=device),
+            "w_gate": stacked(cfg.d_model, cfg.d_ff),
+            "w_up": stacked(cfg.d_model, cfg.d_ff),
+            "w_down": stacked(cfg.d_ff, cfg.d_model),
+        },
+    }
+    if cfg.attn_bias:
+        for name, width in (("bq", cfg.q_dim), ("bk", cfg.kv_dim), ("bv", cfg.kv_dim)):
+            params["layers"][name] = torch.zeros((L, width), dtype=dt, device=device)
+    return params
 
 
 # ── building blocks ─────────────────────────────────────────────────────
@@ -207,8 +253,9 @@ def _quantize_dense(w: torch.Tensor) -> Dict[str, torch.Tensor]:
 
 
 def quantize_weights_int8(params: Params) -> Params:
-    """Matmul weights int8 with per-output-channel scales; embeddings and
-    norms keep their dtype. ``_qdot`` dispatches on the leaf type."""
+    """Matmul weights int8 with per-output-channel scales; embeddings,
+    norms and q/k/v biases keep their dtype. ``_qdot`` dispatches on the
+    leaf type."""
     out = dict(params)
     for key in ("lm_head", "cond_proj"):
         if key in out:
@@ -222,9 +269,10 @@ def quantize_weights_int8(params: Params) -> Params:
 
 
 def fuse_decode_weights(params: Params) -> Params:
-    """Concatenate q/k/v (and gate/up) along the output channel, and pad
-    an int8 lm_head to a 128-multiple width (zero weights, unit scales;
-    logits are sliced back to the vocabulary)."""
+    """Concatenate q/k/v (their biases into ``bqkv``, and gate/up) along
+    the output channel, and pad an int8 lm_head to a 128-multiple width
+    (zero weights, unit scales; logits are sliced back to the
+    vocabulary)."""
     layers = dict(params["layers"])
 
     def cat(names):
@@ -235,6 +283,8 @@ def fuse_decode_weights(params: Params) -> Params:
         return torch.cat(vals, dim=-1)
 
     layers["wqkv"] = cat(["wq", "wk", "wv"])
+    if "bq" in layers:
+        layers["bqkv"] = cat(["bq", "bk", "bv"])
     layers["w_gateup"] = cat(["w_gate", "w_up"])
     out = {**params, "layers": layers}
     lm = out.get("lm_head")
@@ -278,17 +328,24 @@ def _is_i8(w) -> bool:
     return isinstance(w, dict) and "q" in w
 
 
-def _dense_dispatch(layers: Params, cfg: TransformerConfig, batch: int, max_len: int) -> bool:
-    """Whether ``decode_step`` takes the megatail path (B3 prologue, then
-    B2 per layer): the JAX ``decode_step``'s choice of dense kernels from
-    the config and the shapes (``transformer.py:778-857``), for the port's
-    family (rms, SwiGLU, no biases, RoPE, the int8 cache and decode
-    kernel). Raises where the JAX package would run a dispatch or a kernel
-    the port lacks."""
+#: the decode step's three paths (``_dense_dispatch``)
+QDOT, MEGATAIL, FUSED_STEP = "qdot", "megatail", "fused_step"
+
+
+def _dense_dispatch(layers: Params, cfg: TransformerConfig, batch: int, max_len: int) -> str:
+    """Which path ``decode_step`` takes: ``_qdot`` per layer; the megatail
+    (B3 prologue, then B2 per layer); or, at batch 1, the whole step after
+    the B3 prologue as one kernel (B7). The JAX ``decode_step``'s choice
+    from the config and the shapes (``transformer.py:778-857``; the B7
+    conditions of ``maybe_head_stack_qkv``, ``:422-464``, which the JAX
+    generate programs apply at batch 1), for the port's family (rms,
+    SwiGLU, RoPE, no qk-norm, the int8 cache and decode kernel). Raises
+    where the JAX package would run a dispatch or a kernel the port
+    lacks."""
     dense = (cfg.dense_kernel and _is_i8(layers.get("wqkv")) and _is_i8(layers.get("wo"))
              and layers["wqkv"]["q"].shape[2] % 128 == 0 and cfg.d_model % 128 == 0)
     if not dense:
-        return False
+        return QDOT
     if not (_is_i8(layers.get("w_gateup")) and _is_i8(layers.get("w_down"))
             and cfg.d_ff % 128 == 0):
         raise NotImplementedError(
@@ -307,18 +364,14 @@ def _dense_dispatch(layers: Params, cfg: TransformerConfig, batch: int, max_len:
     # (maybe_head_stack_qkv) that sends decode_step to the whole-step kernel
     if (batch == 1 and cfg.n_heads == cfg.n_kv_heads and packed and max_len % 128 == 0
             and bool_env("VOCALIE_FUSED_STEP", True)):
-        raise NotImplementedError(
-            "at batch 1 the JAX package runs the whole decode step as one kernel "
-            "(decode_step_fused_packed, kernel B7), which the port does not have "
-            "yet; set VOCALIE_FUSED_STEP=0 or VOCALIE_DENSE_KERNEL=0"
-        )
+        return FUSED_STEP
     if ((packed or cfg.d_head % 128 == 0) and max_len % 128 == 0
             and bool_env("VOCALIE_MEGALAYER")):
         raise NotImplementedError(
             "VOCALIE_MEGALAYER=1 runs layer_swiglu_qkv_int8_stacked (kernel B12), "
             "which the port does not have yet; unset it"
         )
-    return True
+    return MEGATAIL
 
 
 def _layer(layers: Params, l: int) -> Params:
@@ -329,8 +382,15 @@ def _layer(layers: Params, l: int) -> Params:
 
 def _block_qkv(layer: Params, x: torch.Tensor, cfg: TransformerConfig, cos, sin):
     h = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
-    qkv = _qdot(h, layer["wqkv"])
-    return _finish_qkv(cfg, qkv, cos, sin)
+    return _finish_qkv(cfg, _add_qkv_bias(cfg, _qdot(h, layer["wqkv"]), layer.get("bqkv")),
+                       cos, sin)
+
+
+def _add_qkv_bias(cfg: TransformerConfig, qkv: torch.Tensor, bqkv) -> torch.Tensor:
+    """``qkv + bqkv`` (one layer's bias) in qkv's dtype, as the JAX package
+    adds it after the projection (and after the cast to the activation
+    dtype)."""
+    return qkv + bqkv.to(qkv.dtype) if cfg.attn_bias else qkv
 
 
 def _finish_qkv(cfg: TransformerConfig, qkv, cos, sin):
@@ -416,7 +476,9 @@ def decode_step(
     With the dense path's megatail (``_dense_dispatch``), layer 0's raw
     qkv comes from B3 and each layer's B2 returns the layer output and
     the next layer's raw qkv, carried through the loop; the last layer's
-    (computed from its own weights, the clamped index) is dropped."""
+    (computed from its own weights, the clamped index) is dropped. With
+    the fused step, layer 0's q/k/v come from B3 and every layer runs in
+    B7 (``_fused_step``)."""
     check_supported(cfg)
     b = token.shape[0]
     x = params["tok_emb"][token][:, None, :]  # [b, 1, d_model]
@@ -430,16 +492,20 @@ def decode_step(
     sm_scale = 1.0 / math.sqrt(cfg.d_head)
     group = cfg.n_heads // cfg.n_kv_heads
     lw = params["layers"]
-    megatail = _dense_dispatch(lw, cfg, b, cache.max_len)
-    if megatail:
+    path = _dense_dispatch(lw, cfg, b, cache.max_len)
+    if path != QDOT:
         qkv_raw = qkv_norm_int8_stacked(x[:, 0], lw["attn_norm"], lw["wqkv"]["q"],
                                         lw["wqkv"]["s"], 0, eps=cfg.norm_eps)
+    if path == FUSED_STEP:
+        return _fused_step(params, cfg, cache, x, qkv_raw, cos, sin, bias2d, write_pos, sm_scale)
+    megatail = path == MEGATAIL
 
     k_news, v_news = [], []
     for l in range(cfg.n_layers):
         layer = _layer(lw, l)
         if megatail:
-            q, k_new, v_new = _finish_qkv(cfg, qkv_raw[:, None, :].to(x.dtype), cos, sin)
+            qkv = _add_qkv_bias(cfg, qkv_raw[:, None, :].to(x.dtype), layer.get("bqkv"))
+            q, k_new, v_new = _finish_qkv(cfg, qkv, cos, sin)
         else:
             q, k_new, v_new = _block_qkv(layer, x, cfg, cos, sin)
         kn = k_new[:, :, 0, :].float().contiguous()  # [b, kv, d]
@@ -468,6 +534,35 @@ def decode_step(
                                write_pos)
 
 
+def _fused_step(params, cfg, cache, x, qkv_raw, cos, sin, bias2d, write_pos, sm_scale):
+    """The batch-1 step through B7 (JAX ``transformer.py:858-904``): layer
+    0's q/k/v from the B3 prologue (cast to the activation dtype, plus the
+    bias, RoPE), then every layer in one kernel on the f32 residual. The
+    kernel's row l is layer l + 1's k/v: the layer-0 k/v is prepended and
+    the last row (a successor that does not exist) dropped."""
+    lw = params["layers"]
+    qkv0 = _add_qkv_bias(cfg, qkv_raw[:, None, :].to(x.dtype),
+                         lw["bqkv"][0] if cfg.attn_bias else None)
+    q0, k0, v0 = _finish_qkv(cfg, qkv0, cos, sin)           # [1, H, 1, d]
+    c, s = cos[:, 0].float(), sin[:, 0].float()             # [1, d / 2]
+    cos_f, sin_f = torch.cat([c, c], -1), torch.cat([-s, s], -1)
+    kn0 = k0[0, :, 0].float().contiguous()                  # [H, d]
+    vn0 = v0[0, :, 0].float().contiguous()
+    x_fin, kn_nxt, vn_nxt = decode_step_fused_packed(
+        q0[0].float().contiguous(), kn0, vn0, x[:, 0].float().contiguous(),
+        cache.k, cache.v, cache.k_scale, cache.v_scale, bias2d,
+        lw["wo"]["q"], lw["wo"]["s"], lw["mlp_norm"],
+        lw["w_gateup"]["q"], lw["w_gateup"]["s"], lw["w_down"]["q"], lw["w_down"]["s"],
+        lw["attn_norm"], lw["wqkv"]["q"], lw["wqkv"]["s"],
+        lw["bqkv"] if cfg.attn_bias else None, cos_f, sin_f,
+        sm_scale=sm_scale, eps=cfg.norm_eps,
+    )
+    x = x_fin[:, None, :].to(x.dtype)
+    k_news = torch.cat([kn0[None], kn_nxt[:-1]])[:, None]   # [L, 1, H, d]
+    v_news = torch.cat([vn0[None], vn_nxt[:-1]])[:, None]
+    return _decode_step_finish(params, cfg, cache, x, k_news, v_news, write_pos)
+
+
 def _decode_step_finish(params, cfg, cache, x, k_news, v_news, write_pos):
     """Quantize the step's [L, b, kv, d] k/v, append them in place at
     ``write_pos`` (one kernel launch for all layers), final norm + head."""
@@ -485,6 +580,7 @@ __all__ = [
     "StackedKVCache",
     "MASK_VALUE",
     "check_supported",
+    "init_params",
     "rms_norm",
     "rope_angles",
     "apply_rope",

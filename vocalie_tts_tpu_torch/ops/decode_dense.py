@@ -55,13 +55,13 @@ def pick_tile(n: int, budget: int, bytes_per_col: int) -> int:
     return 0
 
 
-def _quantize_rows(x: torch.Tensor):
-    """[b, d] f32 → (integer-valued f32 [b, d], f32 scales [b, 1]). The
-    divisor 127 is a tensor: PyTorch's CUDA divide by a Python number
-    multiplies by its rounded reciprocal, an ulp away from the divide that
-    JAX and the kernel take."""
+def _quantize_rows(x: torch.Tensor, floor: float = 1e-8):
+    """[b, d] f32 → (integer-valued f32 [b, d], f32 scales [b, 1], at least
+    ``floor``). The divisor 127 is a tensor: PyTorch's CUDA divide by a
+    Python number multiplies by its rounded reciprocal, an ulp away from the
+    divide that JAX and the kernel take."""
     a = x.abs().amax(-1, keepdim=True)
-    s = torch.clamp(a / torch.full_like(a, 127.0), min=1e-8)
+    s = torch.clamp(a / torch.full_like(a, 127.0), min=floor)
     return torch.round(x / s), s
 
 

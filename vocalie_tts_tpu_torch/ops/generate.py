@@ -1,5 +1,6 @@
-"""Autoregressive decode loop (counterpart of
-``vocalie_tts_tpu/ops/generate.py::generate_tokens``).
+"""Autoregressive decode loops (counterparts of
+``vocalie_tts_tpu/ops/generate.py::generate_tokens`` and
+``generate_window``).
 
 Same semantics as the JAX ``while_loop``: a CFG-doubled batch
 ``[cond; uncond]`` through one cache, EOS freezing of finished rows,
@@ -82,4 +83,43 @@ def generate_tokens(
     return out.to(torch.int32), lengths
 
 
-__all__ = ["GenerateConfig", "generate_tokens"]
+def generate_window(
+    params,
+    decode_step: Callable,      # (params, token [B] int64, cache) -> (logits [B, V], cache)
+    cache,
+    prev_token: torch.Tensor,   # [batch] — last emitted (or BOS) token
+    done: torch.Tensor,         # [batch] bool — rows already finished
+    gen: GenerateConfig,
+    *,
+    window: int,
+    generator: Optional[torch.Generator] = None,
+):
+    """Decode exactly ``window`` tokens (masked once a row hits EOS): the
+    streaming building block. Every step stays on the device (no host
+    read), so a caller can queue the next window before reading this one.
+    Returns ``(tokens [batch, window] int32, n_valid [batch] int32,
+    next_prev_token, done, cache)``."""
+    use_cfg = bool(gen.cfg_weight and gen.cfg_weight > 0.0)
+    batch = int(prev_token.shape[0])
+    eos = torch.full((batch,), gen.eos_token_id, dtype=torch.int64, device=prev_token.device)
+    tok = prev_token.to(torch.int64)
+    toks, valid = [], []
+    for _ in range(window):
+        step_tok = torch.cat([tok, tok]) if use_cfg else tok
+        logits, cache = decode_step(params, step_tok, cache)
+        if use_cfg:
+            logits = cfg_combine(logits[:batch], logits[batch:], gen.cfg_weight)
+        nxt = sample_logits(logits, temperature=gen.temperature, top_k=gen.top_k,
+                            top_p=gen.top_p, generator=generator)
+        is_eos = nxt == gen.eos_token_id
+        nxt = torch.where(done, eos, nxt)
+        valid.append(~done & ~is_eos)
+        done = done | is_eos
+        toks.append(nxt)
+        tok = nxt
+    tokens = torch.stack(toks, 1).to(torch.int32)
+    n_valid = torch.stack(valid, 1).sum(1, dtype=torch.int32)
+    return tokens, n_valid, tok, done, cache
+
+
+__all__ = ["GenerateConfig", "generate_tokens", "generate_window"]

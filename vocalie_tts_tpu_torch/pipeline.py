@@ -3,9 +3,9 @@
 request dict and meta).
 
 Per-chunk clean render, short-text padding, resample to the target rate,
-inter-chunk gap with crossfades. The engine is passed in (the port keeps
-no global engine registry); without one, a new engine is built on
-``device`` — the GPU unless the caller asks for the CPU.
+inter-chunk gap with crossfades. The engine is passed in, or built from
+the port's own ``engines.ENGINES`` by ``tts_backend`` (``chatterbox``,
+``cosyvoice``) on ``device`` — the GPU unless the caller asks for the CPU.
 """
 
 from __future__ import annotations
@@ -57,7 +57,7 @@ def run_tts_pipeline(request: dict, progress_cb=None, *, engine=None,
     t_start = time.monotonic()
     backend_id = request.get("tts_backend")
     if engine is None:
-        from vocalie_tts_tpu_torch.engines.chatterbox import ENGINES
+        from vocalie_tts_tpu_torch.engines import ENGINES
 
         cls = ENGINES.get(backend_id)
         if cls is None:

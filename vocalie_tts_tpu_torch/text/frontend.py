@@ -1,5 +1,6 @@
-"""Byte frontend for the Chatterbox-class LM (copy of the JAX package's
-``ByteFrontend`` and its byte ids from ``text/phonemes.py``).
+"""Byte frontend for the Chatterbox- and CosyVoice-class LMs (copy of the
+JAX package's ``ByteFrontend``, ``build_prompt_ids`` and its byte ids from
+``text/phonemes.py``).
 
 A published ``tokenizer.json`` staged beside converted weights is not
 handled by the port yet: :func:`load_frontend` refuses it instead of
@@ -13,6 +14,9 @@ from typing import List, Optional
 
 BYTE_VOCAB_SIZE = 256 + 4
 BYTE_PAD, BYTE_BOS, BYTE_EOS, BYTE_SEP = 256, 257, 258, 259
+#: the JAX package's encode styles of published tokenizers (Chatterbox's
+#: voice BPE, CosyVoice's raw byte-level BPE); the byte frontend takes both
+STYLES = ("voicebpe", "raw")
 
 
 def text_to_byte_ids(text: str, *, add_bos: bool = True, add_eos: bool = True) -> List[int]:
@@ -42,7 +46,25 @@ class ByteFrontend:
         return [BYTE_SEP]
 
 
-def load_frontend(assets_dir: str | Path, *, text_vocab: int) -> ByteFrontend:
+def build_prompt_ids(frontend, text: str, *, preamble: str = "",
+                     lang: Optional[str] = None) -> List[int]:
+    """Standard two-segment prompt: [BOS?] preamble [SEP] text (empty
+    preamble → [BOS?] text)."""
+    ids: List[int] = list(frontend.bos_ids)
+    if preamble:
+        ids += frontend.encode(preamble, lang)
+        ids += frontend.sep_ids
+    ids += frontend.encode(text, lang)
+    return ids
+
+
+def load_frontend(assets_dir: str | Path, *, text_vocab: int,
+                  style: str = "voicebpe") -> ByteFrontend:
+    """The byte frontend; ``style`` names the encode style a published
+    tokenizer would take (``STYLES``), which the byte ids do not depend
+    on."""
+    if style not in STYLES:
+        raise ValueError(f"unknown frontend style {style!r} (choose from {STYLES})")
     for cand in (Path(assets_dir) / "tokenizer.json",
                  Path(assets_dir) / "weights" / "tokenizer.json"):
         if cand.exists():
@@ -58,4 +80,5 @@ def load_frontend(assets_dir: str | Path, *, text_vocab: int) -> ByteFrontend:
     return ByteFrontend()
 
 
-__all__ = ["BYTE_VOCAB_SIZE", "BYTE_BOS", "ByteFrontend", "load_frontend", "text_to_byte_ids"]
+__all__ = ["BYTE_VOCAB_SIZE", "BYTE_BOS", "STYLES", "ByteFrontend", "build_prompt_ids",
+           "load_frontend", "text_to_byte_ids"]
