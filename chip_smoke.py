@@ -6,14 +6,15 @@ Phases (any failure exits non-zero before the final line is printed):
 
 1. build the port's CUDA kernels from ``vocalie_tts_tpu_torch/csrc`` with
    nvcc for sm_90a (one nvcc per source, all started together);
-2. for each kernel of the voice-over and streaming paths -- B1 int8
-   decode attention, B5 KV-cache append, B6 flash attention, the dense
+2. for each kernel of the voice-over, streaming and studio paths -- B1
+   int8 decode attention, B5 KV-cache append, B6 flash attention, the dense
    decode kernels B3 norm+qkv, B2 layer tail + next qkv, B4 int8 lm_head,
-   and B7, the whole decode step at batch 1 as one cooperative launch --
-   at the shapes the path gives it: hold the kernel against its plain
+   B7, the whole decode step at batch 1 as one cooperative launch, and B13,
+   the fused GroupNorm of the AudioSR UNet and VAE -- at the shapes the path
+   gives it: hold the kernel against its plain
    PyTorch version on the card, time kernel, plain version and (where one
-   exists) the one PyTorch call that computes the same function (for B2-B4
-   and B7 there is none; the ops the port runs otherwise for the same work
+   exists) the one PyTorch call that computes the same function
+   (``F.group_norm`` + add + SiLU for B13; for B2-B4 and B7 there is none; the ops the port runs otherwise for the same work
    are timed as a yardstick, and a child process counts the CUDA kernels
    one call issues with torch.profiler), and compute the least time the
    card could take (bytes over 3.35 TB/s or operations over the peak rate);
@@ -22,6 +23,7 @@ Phases (any failure exits non-zero before the final line is printed):
    decode logits and stage-2 PCM on shared noise; then a d_model-128
    transformer with the dense kernels on, the GPU kernels against the same
    GPU step through the dense kernels' plain versions, and against the CPU;
+   then the tiny AudioSR (f32) ``enhance_audio`` on the GPU against the CPU;
 4. the main path: ``run_tts_pipeline`` at the full Chatterbox T3 width
    (random weights from a seed), in the JAX package's default int8 serving
    configuration (``VOCALIE_KV_INT8=1 VOCALIE_WEIGHT_INT8=1``, the dense
@@ -40,10 +42,17 @@ Phases (any failure exits non-zero before the final line is printed):
    the same request with ``VOCALIE_FUSED_STEP=0`` (B3 + 24 x (B1 + B2)),
    and ``run_tts_pipeline`` with ``tts_backend: "cosyvoice"`` on the
    8-chunk bench script (b = 8: B1-B6); first-packet ms, sustained RTF,
-   windows and decode ms/step are printed;
+   windows and decode ms/step are printed; then the AudioSR studio pass at
+   full width (random weights from a seed; bf16, int8 UNet convs, device
+   stitch): ``AudioSRRuntime.enhance_file`` on the Chatterbox bench
+   request's WAV at bench.py's settings (100 DDIM steps, guidance 2.5, seed
+   42, chunk 32768, overlap 1024), with ``VOCALIE_GN_PALLAS=1`` (B13 =
+   dispatches x (41 x steps + the VAE's 42 norms)) and with the knob unset
+   (B13 = 0); studio wall, studio RTF and bench.py's headline (VO audio s
+   / (VO wall + studio wall)) are printed for both;
 5. torch.profiler, only now, so that nothing above is timed in a process
    where it has been on: short windows of each configuration show where
-   the time goes.
+   the time goes, the studio pass's one UNet call included.
 
 The second-to-last lines are a JSON ``kernels`` line and the card's name
 and power limit; the last line is ``{"ok": true, "device": {...}}``.
@@ -54,6 +63,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -453,8 +463,15 @@ def kernels_per_call(fn) -> dict:
     return {key: n for _, n, key in _device_rows(prof)}
 
 
+def _kernel_name(key: str) -> str:
+    """A profiler key without its return type, namespace and parameters:
+    ``void (anonymous namespace)::gn_stats<8, true>(...)`` → ``gn_stats<8, true>``."""
+    key = key.removeprefix("void ").replace("(anonymous namespace)::", "")
+    return key.split("(")[0]
+
+
 def count_dense_kernels(kernels, failures) -> None:
-    """Record in each B2-B4 and B7 entry the CUDA kernels one call of its wrapper
+    """Record in each B2-B4, B7 and B13 entry the CUDA kernels one call of its wrapper
     issues at the main path's shapes, as torch.profiler counts them in a
     child process (``--count-kernels``). The profiler is never on in this
     process, which times everything before phase 5; in a fresh process it
@@ -472,17 +489,18 @@ def count_dense_kernels(kernels, failures) -> None:
             continue
         per_call = counted.get(entry["name"], {})
         n_kernels = sum(per_call.values()) or None
-        listed = ", ".join(f"{k.split('(')[0]} x{n}" for k, n in sorted(per_call.items()))
+        listed = ", ".join(f"{_kernel_name(k)} x{n}" for k, n in sorted(per_call.items()))
         entry["cuda_kernels_per_call"] = n_kernels
         log(f"{entry['name']}: CUDA kernels per call (profiled): "
             + (f"{n_kernels} ({listed})" if n_kernels else "not measured (profiler saw none)"))
 
 
 def _count_kernels_child() -> int:
-    """``--count-kernels``: one profiled call of each of B2-B4 and B7 (after one
-    unprofiled call that loads the library), printed as one JSON line."""
+    """``--count-kernels``: one profiled call of each of B2-B4, B7 and B13 (after
+    one unprofiled call that loads the library), printed as one JSON line."""
     dev = torch.device("cuda:0")
-    calls = {**_dense_inputs(dev).calls, B7_NAME: _b7_inputs(dev).call}
+    calls = {**_dense_inputs(dev).calls, B7_NAME: _b7_inputs(dev).call,
+             B13_NAME: _gn_case(dev, GN_CASES[0]).call}
     out = {}
     for name, call in calls.items():
         call()
@@ -621,6 +639,103 @@ def check_dense(dev, failures, L: int = 30):
     return out
 
 
+# ── B13: fused GroupNorm, at the studio pass's shapes ────────────────────
+
+B13_NAME = "B13 group_norm_fused"
+PEAK_F32_FLOPS = 67e12          # H100 SXM f32 outside the tensor cores
+#: B13's calls on the studio path (full scale, bf16):
+#: (label, shape, eps, FiLM row, SiLU)
+GN_CASES = (
+    ("UNet level-0 ResBlock out_norm, FiLM row + SiLU", (128, 16, 32, 128), 1e-5, True, True),
+    ("UNet level-2 skip-concat in_norm", (128, 4, 8, 1024), 1e-5, False, True),
+    ("VAE level-0 norm, the largest", (64, 64, 128, 64), 1e-6, False, True),
+    ("UNet level-1 skip-concat in_norm, C/G = 12", (128, 8, 16, 384), 1e-5, False, True),
+)
+
+
+def _gn_case(dev, case):
+    """B13's inputs for one ``GN_CASES`` entry, from a seed, and one call of
+    the wrapper."""
+    import types
+
+    from vocalie_tts_tpu_torch.models.common.unet2d import n_groups
+    from vocalie_tts_tpu_torch.ops.groupnorm import group_norm_fused
+
+    label, shape, eps, pre, silu = case
+    c = shape[-1]
+    groups = n_groups(c)
+    gen = torch.Generator(device=dev).manual_seed(sum(shape))
+    x = (torch.randn(shape, generator=gen, device=dev) * 2 + 0.5).to(torch.bfloat16)
+    g = 1 + 0.2 * torch.randn((c,), generator=gen, device=dev)
+    b = 0.1 * torch.randn((c,), generator=gen, device=dev)
+    e = ((0.3 * torch.randn((shape[0], c), generator=gen, device=dev)).to(torch.bfloat16)
+         if pre else None)
+    call = lambda: group_norm_fused(x, g, b, groups=groups, eps=eps, silu=silu,  # noqa: E731
+                                    pre_add=e)
+    return types.SimpleNamespace(**locals())
+
+
+def check_group_norm(dev, failures):
+    """B13 at each ``GN_CASES`` shape against its plain version (one bf16 ulp
+    of the plain value + 1e-5: the f32 moments are summed in another order,
+    then both round once); its time against its bound (x read once, y
+    written once, over 3.35 TB/s), the plain version and the one PyTorch
+    call that computes the same function: ``F.group_norm`` with the same
+    add and SiLU, on the same channels-last tensor seen as NCHW."""
+    import torch.nn.functional as F
+
+    from vocalie_tts_tpu_torch.ops.groupnorm import group_norm_fused_plain
+
+    out = []
+    for case in GN_CASES:
+        t = _gn_case(dev, case)
+        bsz, c = t.shape[0], t.c
+        x3 = t.x.reshape(bsz, -1, c)
+        row = t.e if t.e is not None else torch.zeros((bsz, c), dtype=torch.bfloat16, device=dev)
+
+        def plain(i=0, t=t, x3=x3, row=row):
+            return group_norm_fused_plain(x3, row, t.g, t.b, groups=t.groups, eps=t.eps,
+                                          silu=t.silu)
+
+        got = t.call()
+        ref = plain().reshape(t.shape)
+        torch.cuda.synchronize()
+        diff = (got.float() - ref.float()).abs()
+        ulp = torch.exp2(torch.floor(torch.log2(ref.float().abs().clamp(min=2.0 ** -126))) - 7)
+        worst = (diff / (ulp + 1e-5)).max().item()
+        g16, b16 = t.g.to(torch.bfloat16), t.b.to(torch.bfloat16)
+        xn = t.x.permute(0, 3, 1, 2)
+        en = t.e[:, :, None, None] if t.e is not None else None
+
+        def library(i, t=t, xn=xn, en=en, g16=g16, b16=b16):
+            y = F.group_norm(xn + en if en is not None else xn, t.groups, g16, b16, t.eps)
+            return F.silu(y) if t.silu else y
+
+        ms = cuda_ms(lambda i: t.call(), 200)
+        plain_ms = cuda_ms(plain, 20)
+        lib_ms = cuda_ms(library, 200)
+        n = t.x.numel()
+        n_bytes = 2 * n * 2 + (bsz * c * 2 if t.e is not None else 0) + 2 * c * 4
+        bms, by = bound_ms(n_bytes, 10 * n, PEAK_F32_FLOPS)
+        log(f"B13 group_norm [{t.label}] x{list(t.shape)} bf16, G {t.groups}, eps {t.eps}: "
+            f"max_abs_err={diff.max().item():.3e}, worst |diff| / (ulp + 1e-5) = {worst:.3f} "
+            f"(must be <= 1); kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, F.group_norm + add "
+            f"+ SiLU {lib_ms:.6f} ms, bound {bms:.6f} ms ({by}, {n_bytes / 1e6:.1f} MB)")
+        if not worst <= 1.0:
+            failures.append(f"B13 [{t.label}] differs from its plain version: worst ratio {worst}")
+        out.append({"label": t.label, "shape": f"x{list(t.shape)} bf16, G {t.groups}, eps {t.eps}"
+                    f"{', FiLM row' if t.e is not None else ''}{', SiLU' if t.silu else ''}",
+                    "max_abs_err": diff.max().item(), "worst_ratio": worst, "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": lib_ms})
+    main = out[0]
+    return {"name": B13_NAME, "route": "cuda", "source": "vocalie_tts_tpu_torch/csrc/groupnorm.cu",
+            "replaces": "vocalie_tts_tpu/ops/groupnorm.py:104",
+            **{k: main[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms", "shape")},
+            "tolerance": "one bf16 ulp of the plain value + 1e-5", "cuda_kernels_per_call": None,
+            "library": "F.group_norm + the same add and SiLU", "cases": out[1:]}
+
+
 # ── phase 3: small-input reference (GPU kernels vs CPU plain) ───────────
 
 
@@ -754,6 +869,56 @@ def small_reference_dense(dev, failures):
         failures.append(f"dense reference: {outside} logit rows differ from the CPU")
 
 
+def _redraw_zero_convs(tree, gen) -> None:
+    """Give every all-zero conv weight (the LDM convention zero-initializes
+    each ResBlock's and the UNet's output conv) uniform fan-in weights, in
+    place, so that a reference through the UNet does not reduce to its
+    skips."""
+    if isinstance(tree, dict):
+        w = tree.get("w")
+        if isinstance(w, torch.Tensor) and w.ndim == 4 and not w.any():
+            bound = 1.0 / math.sqrt(w[..., 0].numel())
+            w.copy_((torch.rand(w.shape, generator=gen, device=w.device) * 2 - 1) * bound)
+        for v in tree.values():
+            _redraw_zero_convs(v, gen)
+    elif isinstance(tree, list):
+        for v in tree:
+            _redraw_zero_convs(v, gen)
+
+
+def small_reference_audiosr(dev, failures):
+    """The tiny AudioSR (f32: no int8, no B13) on the GPU against the same
+    weights on the CPU: ``enhance_audio`` of a three-window input, 3 DDIM
+    steps, the same noise on both sides. Tolerance 1e-3 of the output's
+    peak: f32 throughout, the GPU's convolutions sum in another order, and
+    the DDIM update amplifies that by the guidance scale."""
+    import numpy as np
+
+    from vocalie_tts_tpu_torch.models.audiosr.runtime import AudioSRRuntime
+
+    os.environ["VOCALIE_MODEL_SCALE"] = "tiny"
+    with tempfile.TemporaryDirectory() as tmp:
+        rt = AudioSRRuntime.create(tmp, force_init=True, device=dev, seed=13)
+    _redraw_zero_convs(rt.params, torch.Generator(device=dev).manual_seed(14))
+    cpu = AudioSRRuntime(_to(rt.params, "cpu"), rt.cfg, rt.weights_dir, torch.device("cpu"))
+
+    def noise(shape, seed):
+        return torch.randn(shape, generator=torch.Generator().manual_seed(int(seed)))
+
+    rt._draw_noise = lambda shape, seed: noise(shape, seed).to(dev)
+    cpu._draw_noise = noise
+    audio = (0.2 * np.random.default_rng(15).standard_normal(80_000)).astype(np.float32)
+    kw = dict(ddim_steps=3, guidance_scale=2.5, seed=4)
+    got = rt.enhance_audio(audio, 48000, **kw)
+    want = cpu.enhance_audio(audio, 48000, **kw)
+    peak = float(np.abs(want).max())
+    err = float(np.abs(got - want).max())
+    log(f"small reference: tiny AudioSR enhance_audio (3 windows, 3 DDIM steps, f32), GPU vs "
+        f"CPU: max |diff| = {err:.3e}, output peak {peak:.3e} (tolerance 1e-3 x peak)")
+    if not (peak > 0 and err <= 1e-3 * peak and got.shape == want.shape):
+        failures.append(f"tiny AudioSR differs: {err} against peak {peak}")
+
+
 # ── phase 4: the main path ───────────────────────────────────────────────
 
 
@@ -791,13 +956,16 @@ def _wrappers():
                                    cache_append_stacked, flash_attention)))
 
 
-def drive_path(dev, failures, label: str, env: dict, requests, scale: str = "full"):
+def drive_path(dev, failures, label: str, env: dict, requests, scale: str = "full",
+               keep: dict | None = None):
     """Build the full-width runtime under ``env``, warm it up on the bench
     script, set every launch counter to 0, run ``requests`` through
     ``run_tts_pipeline``, read the counters, and time the bench request's
     decode and stage 2. Returns the counters by kernel and a function that
     runs the profiled windows of ``breakdown`` (kept for after every timed
-    phase)."""
+    phase). With ``keep`` (``{"dir": ...}``), the first request's WAV is
+    copied there and its audio and wall seconds recorded (the studio pass
+    enhances it)."""
     from vocalie_tts_tpu_torch.engines.chatterbox import ChatterboxEngine
     from vocalie_tts_tpu_torch.io.wavio import read_wav
     from vocalie_tts_tpu_torch.models.chatterbox import runtime as rt_mod
@@ -862,6 +1030,9 @@ def drive_path(dev, failures, label: str, env: dict, requests, scale: str = "ful
                     failures.append(f"{label} {req_label}: WAV check failed (len {len(wav)}, "
                                     f"expected {expect})")
                 per_request.append({"prompt_bucket": bm["prompt_bucket"], "launches": launches})
+                if keep is not None and len(per_request) == 1:
+                    keep["wav"] = shutil.copy(res.out_path, os.path.join(keep["dir"], "vo.wav"))
+                    keep.update(audio_s=meta["total_duration"], wall_s=wall, label=label)
             counts = {k: w.launches for k, w in wrappers.items()}
             n_prefill = prefills[0]
             windows = breakdown(rt, dev, label)
@@ -1131,6 +1302,148 @@ def drive_cosyvoice(dev, failures, b7_inputs: dict, scale: str = "full"):
     return counts, profile
 
 
+# ── phase 4: the AudioSR studio pass ─────────────────────────────────────
+
+#: bench.py's studio request (bench.py:224-247, :296-303)
+STUDIO = dict(ddim_steps=100, guidance_scale=2.5, seed=42, chunk_size=32768, overlap=1024)
+
+
+def studio_dispatches(n: int, chunk: int, overlap: int, buckets) -> list:
+    """The window-count bucket of each batched dispatch for ``n`` samples
+    at 48 kHz: windows every ``chunk - overlap`` samples until one reaches
+    the end, taken in the largest bucket that the remaining windows fill."""
+    hop = chunk - overlap
+    n_windows = 1 if n <= chunk else 1 + -(-(n - chunk) // hop)
+    out, row = [], 0
+    while row < n_windows:
+        bucket = next((b for b in buckets if n_windows - row <= b), buckets[-1])
+        out.append(bucket)
+        row += min(bucket, n_windows - row)
+    return out
+
+
+def norms_per_dispatch(cfg, ddim_steps: int) -> int:
+    """``_norm_act`` calls of one dispatch, from the config: two per UNet
+    ResBlock, one per attention block and the output norm, every DDIM step;
+    the VAE's encoder and decoder (two per ResNet block, one for the
+    bottleneck attention, one output norm) once."""
+    from vocalie_tts_tpu_torch.models.common.unet2d import _plan
+
+    inp, outp, _ = _plan(cfg.unet)
+    n_res = sum("res" in m for m in inp + outp) + 2
+    n_attn = sum("attn" in m for m in inp + outp) + 1
+    unet = 2 * n_res + n_attn + 1
+    levels, r = len(cfg.vae_mult), cfg.vae_res_blocks
+    enc = 2 * (levels * r + 2) + 1 + 1
+    dec = 2 * (levels * (r + 1) + 2) + 1 + 1
+    return unet * ddim_steps + enc + dec
+
+
+#: the studio knob settings: the slice's path, then the yardstick
+GN_SETTINGS = (("VOCALIE_GN_PALLAS=1", "1"), ("knob unset", None))
+
+
+def _set_gn(knob) -> None:
+    if knob is None:
+        os.environ.pop("VOCALIE_GN_PALLAS", None)
+    else:
+        os.environ["VOCALIE_GN_PALLAS"] = knob
+
+
+def drive_audiosr(dev, failures, vo: dict, scale: str = "full", steps: int = 100):
+    """The AudioSR studio pass at full width (random weights from seed 5;
+    bf16 VAE and UNet, int8 UNet convs, device stitch) on the Chatterbox
+    bench request's WAV, through ``AudioSRRuntime.enhance_file`` at
+    bench.py's settings, with ``VOCALIE_GN_PALLAS=1`` (B13 on every norm)
+    and with the knob unset (B13 never launched). Each is warmed up on the
+    same file at 2 DDIM steps, then driven with B13's counter at 0 just
+    before it and read just after. Returns the results by setting and a
+    function that runs the profiled windows (one UNet call at the 64-window
+    dispatch's CFG batch), kept for after every timed phase."""
+    import numpy as np
+
+    from vocalie_tts_tpu_torch.io.wavio import read_wav
+    from vocalie_tts_tpu_torch.models.audiosr.model import latent_shape
+    from vocalie_tts_tpu_torch.models.audiosr.runtime import (
+        WINDOW_COUNT_BUCKETS,
+        AudioSRRuntime,
+    )
+    from vocalie_tts_tpu_torch.models.common.unet2d import apply_unet2d
+    from vocalie_tts_tpu_torch.ops.groupnorm import group_norm_fused
+
+    set_env(DEFAULT_ENV)
+    os.environ["VOCALIE_MODEL_SCALE"] = scale
+    os.environ["VOCALIE_ALLOW_RANDOM_WEIGHTS"] = "1"
+    request = {**STUDIO, "ddim_steps": steps}
+    wav, sr_in = read_wav(vo["wav"])
+    n48 = len(wav) * 48000 // sr_in
+    dispatches = studio_dispatches(n48, STUDIO["chunk_size"], STUDIO["overlap"],
+                                   WINDOW_COUNT_BUCKETS)
+    results = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.monotonic()
+        rt = AudioSRRuntime.create(os.path.join(tmp, "assets"), device=dev)
+        torch.cuda.synchronize()
+        cfg = rt.cfg
+        per = norms_per_dispatch(cfg, steps)
+        log(f"studio: full-width AudioSR runtime built in {time.monotonic() - t0:.2f} s (random "
+            f"weights, seed 5; {cfg.dtype}, UNet {cfg.unet_channels} x {cfg.unet_mult}, int8 convs "
+            f"{'w_q' in rt.params['unet']['input_blocks'][1]['res']['in_conv']}); input "
+            f"{vo['wav'].rsplit('/', 1)[-1]} {len(wav) / sr_in:.3f} s at {sr_in} Hz -> {n48} "
+            f"samples at 48 kHz, dispatches of {dispatches} windows, {per} norms a dispatch")
+        for i, (label, knob) in enumerate(GN_SETTINGS):
+            _set_gn(knob)
+            out_path = os.path.join(tmp, f"studio_{i}.wav")
+            t0 = time.monotonic()
+            rt.enhance_file(input_path=vo["wav"], output_path=out_path,
+                            **{**STUDIO, "ddim_steps": 2})
+            warm = time.monotonic() - t0
+            group_norm_fused.launches = 0
+            t0 = time.monotonic()
+            rt.enhance_file(input_path=vo["wav"], output_path=out_path, **request)
+            wall = time.monotonic() - t0
+            launched = group_norm_fused.launches
+            out, sr = read_wav(out_path)
+            audio_s = len(out) / sr
+            ok = (sr == 48000 and len(out) == n48 and bool(np.isfinite(out).all())
+                  and int(np.count_nonzero(out)) > 0)
+            want = len(dispatches) * per if knob else 0
+            headline = vo["audio_s"] / (vo["wall_s"] + wall)
+            log(f"studio [{label}]: warm-up (2 DDIM steps) {warm:.3f} s; enhance_file "
+                f"{steps} steps: audio {audio_s:.3f} s, wall {wall:.3f} s, studio "
+                f"RTF {audio_s / wall:.3f}x, wav ok={ok} (48 kHz, {len(out)} samples, "
+                f"{int(np.count_nonzero(out))} non-zero, peak {float(np.abs(out).max()):.6f}), "
+                f"B13 launches {launched} (the path needs {want})")
+            log(f"headline [{label}]: audio_rtf_60s_fr_vo_chatterbox_plus_audiosr_studio = VO "
+                f"audio {vo['audio_s']:.3f} s / (VO wall {vo['wall_s']:.3f} s [{vo['label']}] + "
+                f"studio wall {wall:.3f} s) = {headline:.3f}x")
+            if not ok:
+                failures.append(f"studio [{label}]: WAV check failed (sr {sr}, len {len(out)}, "
+                                f"expected {n48})")
+            if launched != want:
+                failures.append(f"studio [{label}]: B13 launched {launched} times, the path "
+                                f"needs {want}")
+            results[label] = {"audio_s": audio_s, "wall_s": wall, "rtf": audio_s / wall,
+                              "headline_rtf": headline, "launches": launched}
+
+    lat = (*latent_shape(cfg, 2 * dispatches[0], STUDIO["chunk_size"])[:3],
+           cfg.unet.in_channels)
+    gen = torch.Generator(device=dev).manual_seed(16)
+    x = torch.randn(lat, generator=gen, device=dev).to(cfg.dtype)
+    t = torch.full((lat[0],), 500.0, device=dev)
+
+    def profile():
+        set_env(DEFAULT_ENV)
+        for label, knob in GN_SETTINGS:
+            _set_gn(knob)
+            apply_unet2d(rt.params["unet"], cfg.unet, x, t)
+            _profiled(f"studio, one UNet call x{list(lat)} [{label}]",
+                      lambda: apply_unet2d(rt.params["unet"], cfg.unet, x, t))
+        _set_gn(None)
+
+    return results, profile
+
+
 def _device_rows(prof) -> list:
     """(device µs, count, name) of each device operation a profile saw."""
     rows = []
@@ -1231,9 +1544,10 @@ def main() -> int:
             log("  " + line.strip())
 
     failures: list = []
+    t_start = time.monotonic()
     kernels = [check_decode_attention(dev, failures), *check_dense(dev, failures),
                check_cache_append(dev, failures), check_flash_attention(dev, failures),
-               check_decode_step(dev, failures)]
+               check_decode_step(dev, failures), check_group_norm(dev, failures)]
     count_dense_kernels(kernels, failures)
     if failures:
         raise SystemExit("kernel checks failed: " + "; ".join(failures))
@@ -1244,19 +1558,30 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     small_reference(dev, failures)
     small_reference_dense(dev, failures)
+    small_reference_audiosr(dev, failures)
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
     if failures:
         raise SystemExit("small-input reference failed: " + "; ".join(failures))
     requests = [("bench 8-chunk", BENCH_SCRIPT), ("512-bucket prompt", LONG_SCRIPT)]
-    counts, profile = drive_path(dev, failures, "default int8 config", DEFAULT_ENV, requests)
-    counts1, profile1 = drive_path(dev, failures, "slice-1 config", SLICE1_ENV, requests[:1])
-    cosy, profile_cosy = drive_cosyvoice(dev, failures, kernels[-1]["path_inputs"])
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    vo = {"dir": work}
+    try:
+        counts, profile = drive_path(dev, failures, "default int8 config", DEFAULT_ENV, requests,
+                                     keep=vo)
+        counts1, profile1 = drive_path(dev, failures, "slice-1 config", SLICE1_ENV, requests[:1])
+        cosy, profile_cosy = drive_cosyvoice(dev, failures, kernels[-2]["path_inputs"])
+        studio, profile_studio = drive_audiosr(dev, failures, vo)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     if failures:
         raise SystemExit("main path failed: " + "; ".join(failures))
     # torch.profiler last: everything above is timed without it
     profile()
     profile1()
     profile_cosy()
+    profile_studio()
+    kernels[-1]["launches"] = studio[GN_SETTINGS[0][0]]["launches"]
+    kernels[-1]["launches_knob_unset"] = studio[GN_SETTINGS[1][0]]["launches"]
     for entry, key in zip(kernels, ("B1", "B3", "B2", "B4", "B5", "B6", "B7")):
         # B1-B6: the Chatterbox default path's counts; B7: the streaming path's
         entry["launches"] = cosy["streaming, default"]["B7"] if key == "B7" else counts[key]
@@ -1270,6 +1595,7 @@ def main() -> int:
                          capture_output=True, text=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip() \
         else f"nvidia-smi failed: {smi.stderr.strip()}"
+    log(f"chip_smoke: phases 2-5 took {time.monotonic() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -147,3 +147,35 @@ def test_cosyvoice_entry_points_refuse_cpu_fallback(tmp_path, monkeypatch):
         run_tts_pipeline({"tts_backend": "cosyvoice", "script": "Bonjour à tous.",
                           "out_path": str(tmp_path / "x.wav")})
     assert not (tmp_path / "x.wav").exists()
+
+
+#: the modules the AudioSR slice added
+SLICE4_MODULES = (
+    "vocalie_tts_tpu_torch.ops.groupnorm",
+    "vocalie_tts_tpu_torch.models.common.audio",
+    "vocalie_tts_tpu_torch.models.common.unet2d",
+    "vocalie_tts_tpu_torch.models.common.vocoder",
+    "vocalie_tts_tpu_torch.models.audiosr.vae",
+    "vocalie_tts_tpu_torch.models.audiosr.model",
+    "vocalie_tts_tpu_torch.models.audiosr.runtime",
+)
+
+
+@pytest.mark.parametrize("module", SLICE4_MODULES)
+def test_slice4_module_imports_alone(module):
+    """Each module of the AudioSR slice imports on its own with JAX, the
+    JAX package and Triton blocked, loads no kernel library and touches no
+    GPU."""
+    test_slice3_module_imports_alone(module)
+
+
+def test_audiosr_runtime_refuses_cpu_fallback(tmp_path, monkeypatch):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid here")
+    from vocalie_tts_tpu_torch.models.audiosr.runtime import AudioSRRuntime
+
+    monkeypatch.setenv("VOCALIE_MODEL_SCALE", "tiny")
+    monkeypatch.setenv("VOCALIE_ALLOW_RANDOM_WEIGHTS", "1")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        AudioSRRuntime.create(tmp_path)
+    assert AudioSRRuntime.create(tmp_path, device="cpu").device.type == "cpu"

@@ -7,7 +7,10 @@ bf16, batch 1 and 17, zero rows, the last layer's clamped next-qkv, d_ff in
 one and in two tiles; for B7 caches of 128 and 640 slots, a fully masked
 tail and a fully masked cache, q/k/v biases off, in f32 and in bf16, 1 and
 3 layers, and a cooperative grid forced past what the card keeps resident
-(refused).
+(refused); for B13 (fused GroupNorm) C/G of 2, 3, 4, 8, 12 and 32, C not a
+multiple of 8, the VAE's large spatial size at eps 1e-6, batch 1, with and
+without the FiLM row and SiLU; and the int8 products of the UNet's convs
+(``torch._int_mm``, exact against the CPU).
 ``chip_smoke.py`` holds the kernels at the main path's shapes.
 
 These tests need an NVIDIA GPU (a CUDA kernel has no CPU mode) and skip
@@ -31,7 +34,9 @@ so an output moves only if an int8 activation sits on a .5 tie that
 another expf reaches from the other side; such a flip moves it by ~1e-3.
 B7 within 1e-5 · max|ref| on each output, for the same reason: the plain
 version takes the kernel's steps (the softmax sum, the variance and the
-current token's score in float64, rounded once).
+current token's score in float64, rounded once). B13 within one bf16 ulp of
+the plain value plus 1e-5: the f32 moments are summed in another order, and
+both round the f32 result to bf16 once.
 """
 
 import math
@@ -357,3 +362,93 @@ def test_decode_step_kernel_refuses_a_grid_past_residency(dev):
     with pytest.raises(RuntimeError, match="decode_step"):
         decode_step_fused_packed(*args, sm_scale=0.125, eps=1e-5, grid=most + 1)
     torch.cuda.synchronize()
+
+
+# ── B13 ─────────────────────────────────────────────────────────────────
+
+
+def _gn_close(got, ref):
+    """One bf16 ulp of the plain value plus 1e-5: the kernel and the plain
+    version sum the f32 moments in another order, then both round once."""
+    g, r = got.float(), ref.float()
+    ulp = torch.exp2(torch.floor(torch.log2(r.abs().clamp(min=2.0 ** -126))) - 7)
+    excess = ((g - r).abs() - ulp - 1e-5).max().item()
+    assert excess <= 0, f"worst excess {excess:.3e}"
+
+
+@pytest.mark.parametrize("shape,groups,eps", [
+    ((128, 16, 32, 128), 32, 1e-5),    # UNet level 0, C/G 4
+    ((6, 4, 8, 1024), 32, 1e-5),       # level-2 skip concat, C/G 32
+    ((3, 8, 16, 256), 32, 1e-5),       # C/G 8
+    ((2, 64, 128, 64), 32, 1e-6),      # the VAE's level 0: C/G 2, large spatial, eps 1e-6
+    ((1, 16, 32, 384), 32, 1e-5),      # batch of 1, C/G 12
+    ((5, 7, 9, 96), 32, 1e-5),         # C/G 3, odd spatial
+    ((3, 5, 36), 12, 1e-5),            # C % 8 = 4: 4-wide vectors
+    ((4, 3, 30), 10, 1e-6),            # C % 4 = 2: 2-wide vectors
+    ((2, 11, 15), 5, 1e-5),            # C odd: scalar loads
+])
+@pytest.mark.parametrize("pre_add,silu", [(False, False), (True, True), (True, False),
+                                          (False, True)])
+def test_group_norm_kernel(dev, shape, groups, eps, pre_add, silu):
+    from vocalie_tts_tpu_torch.ops.groupnorm import group_norm_fused, group_norm_fused_plain
+
+    gen = _gen(dev, sum(shape) + groups)
+    c = shape[-1]
+    x = (torch.randn(shape, generator=gen, device=dev) * 2 + 0.5).to(BF16)
+    g = 1 + 0.2 * torch.randn((c,), generator=gen, device=dev)
+    b = 0.1 * torch.randn((c,), generator=gen, device=dev)
+    e = (0.3 * torch.randn((shape[0], c), generator=gen, device=dev)).to(BF16) if pre_add else None
+    before = group_norm_fused.launches
+    got = group_norm_fused(x, g, b, groups=groups, eps=eps, silu=silu, pre_add=e)
+    row = e if e is not None else torch.zeros((shape[0], c), dtype=BF16, device=dev)
+    ref = group_norm_fused_plain(x.reshape(shape[0], -1, c), row, g, b, groups=groups, eps=eps,
+                                 silu=silu).reshape(shape)
+    torch.cuda.synchronize()
+    assert group_norm_fused.launches == before + 1
+    assert got.dtype == BF16 and got.shape == x.shape
+    _gn_close(got, ref)
+
+
+def test_group_norm_kernel_rejects_bad_inputs(dev):
+    from vocalie_tts_tpu_torch.ops.groupnorm import group_norm_fused
+
+    x = torch.zeros((2, 4, 64), dtype=BF16, device=dev)
+    g, b = torch.ones(64, device=dev), torch.zeros(64, device=dev)
+    with pytest.raises(ValueError, match="bf16"):
+        group_norm_fused(x.float(), g, b, groups=32)
+    with pytest.raises(ValueError, match="contiguous"):
+        group_norm_fused(torch.zeros((2, 64, 4), dtype=BF16, device=dev).transpose(1, 2), g, b,
+                         groups=32)
+    with pytest.raises(ValueError, match="pre_add"):
+        group_norm_fused(x, g, b, groups=32, pre_add=torch.zeros((2, 64), device=dev))
+
+
+@pytest.mark.parametrize("m,k,n", [(65536 // 64, 1152, 128), (17, 24, 16), (5, 12, 20),
+                                   (300, 9 * 1536, 512)])
+def test_int8_matmul_exact_on_the_card(dev, m, k, n):
+    """The UNet's int8 convs sum s8 x s8 in int32 through torch._int_mm
+    (with zero padding to its M > 16, K % 8, N % 8 rules): equal to the
+    CPU's integer product."""
+    from vocalie_tts_tpu_torch.models.common.unet2d import _int8_matmul
+
+    gen = torch.Generator().manual_seed(m + k + n)
+    a = torch.randint(-127, 128, (m, k), generator=gen, dtype=torch.int8)
+    w = torch.randint(-127, 128, (k, n), generator=gen, dtype=torch.int8)
+    got = _int8_matmul(a.to(dev), w.to(dev)).cpu()
+    assert got.dtype == torch.int32 and torch.equal(got, a.int() @ w.int())
+
+
+def test_int8_conv_gpu_equals_cpu(dev):
+    """``_conv2d_int8`` on the card equals the CPU on the same inputs, bf16
+    in and out (the scales divide and multiply in f32 the same way)."""
+    from vocalie_tts_tpu_torch.models.common.unet2d import conv2d, conv_quantize_int8
+
+    gen = torch.Generator().manual_seed(3)
+    p = conv_quantize_int8({"w": torch.randn((3, 3, 64, 96), generator=gen) * 0.05,
+                            "b": torch.randn((96,), generator=gen) * 0.1})
+    x = torch.randn((4, 16, 32, 64), generator=gen).to(BF16)
+    for stride, padding in ((1, "SAME"), (2, ((1, 1), (1, 1)))):
+        want = conv2d(p, x, stride=stride, padding=padding)
+        got = conv2d({k: v.to(dev) for k, v in p.items()}, x.to(dev), stride=stride,
+                     padding=padding).cpu()
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16))

@@ -4,8 +4,11 @@ Takes the JAX tree after ``jax.device_get`` (numpy leaves) and returns
 the same tree with torch tensors: keys unchanged, the stacked ``[L, …]``
 layer axis and the ``x @ W`` layout kept, int8 ``{"q","s"}`` leaves kept
 int8 with their scales, bfloat16 leaves (numpy ``ml_dtypes``) kept
-bfloat16. Conv kernels keep the JAX ``[kernel, c_in, c_out]`` layout;
-the modules that use them re-lay them out internally.
+bfloat16. Conv kernels keep the JAX ``[kernel, c_in, c_out]`` / HWIO
+``[k, k, c_in, c_out]`` layout; the modules that use them re-lay them out
+internally. The AudioSR tree (``init_audiosr``: lists of blocks, HWIO
+convs, int8 ``{"w_q", "w_s", "b"}`` conv leaves after
+``quantize_unet_convs``) goes across with ``tree_to_torch`` as it is.
 """
 
 from __future__ import annotations

@@ -6,6 +6,7 @@ with ``device="cpu"``; a missing GPU is an error, never a silent CPU run.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -21,4 +22,17 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     return dev
 
 
-__all__ = ["resolve_device"]
+def div_const(a: torch.Tensor, n: float) -> torch.Tensor:
+    """``a / n`` for a constant ``n`` as the JAX package's jitted code
+    computes it: XLA rewrites an f32 division by a constant into a multiply
+    by the f32 reciprocal, and divides bf16 (computed in f32) exactly. The
+    reciprocal is rounded to f32 on the host, so the multiply is the same
+    on every device; the bf16 case divides by a 0-dim tensor on ``a``'s
+    device, since PyTorch's CUDA divide by a Python number would multiply
+    by a reciprocal there too."""
+    if a.dtype == torch.float32:
+        return a * float(np.float32(1.0) / np.float32(n))
+    return a / torch.full((), float(n), dtype=a.dtype, device=a.device)
+
+
+__all__ = ["resolve_device", "div_const"]

@@ -1,6 +1,6 @@
 """1-D convolution building blocks (counterpart of the parts of
-``vocalie_tts_tpu/models/common/convnets.py`` that HiFT, the conformer
-and the CFM decoder use).
+``vocalie_tts_tpu/models/common/convnets.py`` that HiFT, the conformer,
+the CFM decoder and the HiFi-GAN vocoder use).
 
 The public layout is the JAX package's: activations ``[batch, time,
 channels]``, conv kernels ``[kernel, c_in, c_out]``. The re-layout to
@@ -11,7 +11,7 @@ inside these functions only.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -76,4 +76,27 @@ def layer_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     return ((xf - mean) * torch.rsqrt(var + eps) * gamma + beta).to(x.dtype)
 
 
-__all__ = ["conv1d_init", "conv1d", "conv1d_transpose", "leaky_relu", "layer_norm"]
+# ── HiFi-GAN-style residual block (multi-receptive-field) ───────────────
+
+
+def resblock_init(channels: int, kernel: int, dilations: Sequence[int], *,
+                  generator: Optional[torch.Generator] = None, device="cpu",
+                  dtype=torch.float32) -> Params:
+    # dilations are static config, passed to resblock_apply
+    kw = dict(generator=generator, device=device, dtype=dtype)
+    return {
+        "convs1": [conv1d_init(kernel, channels, channels, **kw) for _ in dilations],
+        "convs2": [conv1d_init(kernel, channels, channels, **kw) for _ in dilations],
+    }
+
+
+def resblock_apply(params: Params, x: torch.Tensor, dilations: Sequence[int]) -> torch.Tensor:
+    for c1, c2, dil in zip(params["convs1"], params["convs2"], dilations):
+        h = conv1d(c1, leaky_relu(x), dilation=int(dil))
+        h = conv1d(c2, leaky_relu(h), dilation=1)
+        x = x + h
+    return x
+
+
+__all__ = ["conv1d_init", "conv1d", "conv1d_transpose", "leaky_relu", "layer_norm",
+           "resblock_init", "resblock_apply"]

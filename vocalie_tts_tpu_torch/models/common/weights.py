@@ -4,7 +4,7 @@
 Keys are the param tree's paths joined by "/" (dict keys, list
 indices); bfloat16 leaves are stored widened to f32 and cast back to the
 template's dtype on load, so a checkpoint saved by the JAX package loads
-here. (Saving belongs to the fine-tune path, not ported yet.)
+here, and one saved here loads there.
 """
 
 from __future__ import annotations
@@ -57,6 +57,34 @@ def load_params(weights_dir: Path, name: str, template: Any, device="cpu") -> An
     return _unflatten_like(template, values)
 
 
+def save_params(weights_dir: Path, name: str, params: Any, meta: Dict | None = None) -> Path:
+    """Write ``<weights_dir>/<name>.npz`` and its ``meta.json`` entry. int8
+    and fused trees are runtime views of a full-precision tree and are
+    refused, as the JAX package refuses them."""
+    flat = {}
+    for key, leaf in _flatten(params):
+        if "wqkv" in key or "w_gateup" in key:
+            raise RuntimeError(f"refusing to save fused decode weights ({key})")
+        if leaf.dtype == torch.int8:
+            raise RuntimeError(f"refusing to save int8-quantized weights ({key})")
+        t = leaf.detach().cpu()
+        flat[key] = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    weights_dir = Path(weights_dir)
+    weights_dir.mkdir(parents=True, exist_ok=True)
+    path = weights_dir / f"{name}.npz"
+    np.savez(path, **flat)
+    meta_path = weights_dir / _META_NAME
+    all_meta = {}
+    if meta_path.exists():
+        try:
+            all_meta = json.loads(meta_path.read_text(encoding="utf-8"))
+        except json.JSONDecodeError:
+            all_meta = {}
+    all_meta[name] = dict(meta or {})
+    meta_path.write_text(json.dumps(all_meta, indent=2) + "\n", encoding="utf-8")
+    return path
+
+
 def checkpoint_exists(weights_dir: Path, name: str) -> bool:
     return (Path(weights_dir) / f"{name}.npz").exists()
 
@@ -73,4 +101,4 @@ def load_meta(weights_dir: Path, name: str) -> Dict:
     return dict(entry) if isinstance(entry, dict) else {}
 
 
-__all__ = ["load_params", "checkpoint_exists", "load_meta"]
+__all__ = ["load_params", "save_params", "checkpoint_exists", "load_meta"]
