@@ -9,12 +9,13 @@ Phases (any failure exits non-zero before the final line is printed):
 2. for each kernel of the voice-over, streaming and studio paths -- B1
    int8 decode attention, B5 KV-cache append, B6 flash attention, the dense
    decode kernels B3 norm+qkv, B2 layer tail + next qkv, B4 int8 lm_head,
-   B7, the whole decode step at batch 1 as one cooperative launch, and B13,
-   the fused GroupNorm of the AudioSR UNet and VAE -- at the shapes the path
-   gives it: hold the kernel against its plain
+   B7, the whole decode step at batch 1 as one cooperative launch, B13,
+   the fused GroupNorm of the AudioSR UNet and VAE, and the GPT-2 (XTTS)
+   decode kernels B9a LayerNorm+qkv, B9b GELU layer tail + next qkv and B9c
+   the tail alone -- at the shapes the path gives it: hold the kernel against its plain
    PyTorch version on the card, time kernel, plain version and (where one
    exists) the one PyTorch call that computes the same function
-   (``F.group_norm`` + add + SiLU for B13; for B2-B4 and B7 there is none; the ops the port runs otherwise for the same work
+   (``F.group_norm`` + add + SiLU for B13; for B2-B4, B7 and B9 there is none; the ops the port runs otherwise for the same work
    are timed as a yardstick, and a child process counts the CUDA kernels
    one call issues with torch.profiler), and compute the least time the
    card could take (bytes over 3.35 TB/s or operations over the peak rate);
@@ -24,6 +25,8 @@ Phases (any failure exits non-zero before the final line is printed):
    transformer with the dense kernels on, the GPU kernels against the same
    GPU step through the dense kernels' plain versions, and against the CPU;
    then the tiny AudioSR (f32) ``enhance_audio`` on the GPU against the CPU;
+   then a d_model-128 XTTS GPT-2 (B9a, B9b, B4) the same two ways, and its
+   stage-2 PCM against the CPU's;
 4. the main path: ``run_tts_pipeline`` at the full Chatterbox T3 width
    (random weights from a seed), in the JAX package's default int8 serving
    configuration (``VOCALIE_KV_INT8=1 VOCALIE_WEIGHT_INT8=1``, the dense
@@ -49,10 +52,17 @@ Phases (any failure exits non-zero before the final line is printed):
    42, chunk 32768, overlap 1024), with ``VOCALIE_GN_PALLAS=1`` (B13 =
    dispatches x (41 x steps + the VAE's 42 norms)) and with the knob unset
    (B13 = 0); studio wall, studio RTF and bench.py's headline (VO audio s
-   / (VO wall + studio wall)) are printed for both;
+   / (VO wall + studio wall)) are printed for both; then the XTTS-class
+   voice clone at full width (random weights from a seed):
+   ``run_tts_pipeline`` with ``tts_backend: "xtts"`` and a 3 s reference on
+   ``scripts/bench_engine.py``'s 8-chunk request in the default config (B9a
+   + 24 x (B1 + B9b) + B5 + B4 a step), with ``VOCALIE_MEGATAIL=0`` (24 x
+   (B9a + B1 + B9c)), and one long chunk at batch 1 (544 prompt bucket:
+   causal B6 in prefill; B7 never); RTF, wall and decode ms/step each;
 5. torch.profiler, only now, so that nothing above is timed in a process
    where it has been on: short windows of each configuration show where
-   the time goes, the studio pass's one UNet call included.
+   the time goes, the studio pass's one UNet call and the XTTS decode
+   windows included.
 
 The second-to-last lines are a JSON ``kernels`` line and the card's name
 and power limit; the last line is ``{"ok": true, "device": {...}}``.
@@ -471,7 +481,7 @@ def _kernel_name(key: str) -> str:
 
 
 def count_dense_kernels(kernels, failures) -> None:
-    """Record in each B2-B4, B7 and B13 entry the CUDA kernels one call of its wrapper
+    """Record in each B2-B4, B7, B9a-c and B13 entry the CUDA kernels one call of its wrapper
     issues at the main path's shapes, as torch.profiler counts them in a
     child process (``--count-kernels``). The profiler is never on in this
     process, which times everything before phase 5; in a fresh process it
@@ -496,11 +506,11 @@ def count_dense_kernels(kernels, failures) -> None:
 
 
 def _count_kernels_child() -> int:
-    """``--count-kernels``: one profiled call of each of B2-B4, B7 and B13 (after
+    """``--count-kernels``: one profiled call of each of B2-B4, B7, B9a-c and B13 (after
     one unprofiled call that loads the library), printed as one JSON line."""
     dev = torch.device("cuda:0")
     calls = {**_dense_inputs(dev).calls, B7_NAME: _b7_inputs(dev).call,
-             B13_NAME: _gn_case(dev, GN_CASES[0]).call}
+             B13_NAME: _gn_case(dev, GN_CASES[0]).call, **_gelu_inputs(dev).calls}
     out = {}
     for name, call in calls.items():
         call()
@@ -509,29 +519,35 @@ def _count_kernels_child() -> int:
     return 0
 
 
-def _dense_entry(name, *, got, ref, ms, plain_ms, slice1_ms, n_bytes, n_ops,
-                 shape, failures):
+def _dense_entry(name, *, got, ref, ms, plain_ms, ops_ms, n_bytes, n_ops, shape, failures,
+                 ops_key="slice1_ops_ms"):
+    """The ``kernels`` entry of a dense kernel; ``ops_ms`` is the time of the
+    ops the port runs otherwise for the same work (``ops_key``: the slice-1
+    path's for B2-B4, the ``_qdot`` path's for B9)."""
     errs = [(g - r).abs().max().item() for g, r in zip(got, ref)]
     worst = max(e / (DENSE_TOL * r.abs().max().item()) for e, r in zip(errs, ref))
     err = max(errs)
+    exact = all(torch.equal(g, r) for g, r in zip(got, ref))
     bms, by = bound_ms(n_bytes, n_ops, PEAK_INT8_OPS)
-    log(f"{name}: max_abs_err={err:.3e}, worst |diff| / ({DENSE_TOL} x max|ref|) = {worst:.3f} "
-        f"(must be <= 1); kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, slice-1 ops "
-        f"{slice1_ms:.6f} ms, bound {bms:.6f} ms ({by})")
+    log(f"{name}: max_abs_err={err:.3e} (bit-equal: {exact}), worst |diff| / ({DENSE_TOL} x "
+        f"max|ref|) = {worst:.3f} (must be <= 1); kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
+        f"{ops_key.removesuffix('_ms').replace('_', ' ')} {ops_ms:.6f} ms, bound {bms:.6f} ms "
+        f"({by}, {n_bytes / 1e6:.2f} MB)")
     if not worst <= 1.0:
         failures.append(f"{name} differs from its plain version: worst ratio {worst}")
     return {"name": name, "route": "cuda",
             "source": "vocalie_tts_tpu_torch/csrc/decode_dense.cu",
             "replaces": f"vocalie_tts_tpu/ops/decode_dense.py:{DENSE_LINES[name]}",
-            "max_abs_err": err, "tolerance": f"{DENSE_TOL} x max|ref|", "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": None,
-            "slice1_ops_ms": slice1_ms, "cuda_kernels_per_call": None, "shape": shape}
+            "max_abs_err": err, "bit_equal": exact, "tolerance": f"{DENSE_TOL} x max|ref|",
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": None,
+            ops_key: ops_ms, "cuda_kernels_per_call": None, "shape": shape}
 
 
 #: the dense kernels' names in the ``kernels`` line and the lines of the
 #: JAX functions they replace in vocalie_tts_tpu/ops/decode_dense.py
 DENSE_LINES = {"B3 qkv_norm_int8": 269, "B2 tail_swiglu_qkv_int8": 519,
-               "B4 dense_int8 (lm_head)": 116}
+               "B4 dense_int8 (lm_head)": 116, "B9a qkv_lnorm_int8": 652,
+               "B9b tail_gelu_qkv_int8": 985, "B9c tail_gelu_int8": 752}
 
 
 def _dense_inputs(dev, L: int = 30):
@@ -595,7 +611,7 @@ def check_dense(dev, failures, L: int = 30):
         "B3 qkv_norm_int8", got=got, ref=ref,
         ms=cuda_ms(lambda i: dd.qkv_norm_int8_stacked(x, nw, wq, sq, i % L, eps=eps), 300),
         plain_ms=cuda_ms(lambda i: dd.qkv_norm_int8_plain(x, nw, wq, sq, i % L, eps=eps), 20),
-        slice1_ms=cuda_ms(lambda i: tr._qdot(tr.rms_norm(x, nw[i % L], eps),
+        ops_ms=cuda_ms(lambda i: tr._qdot(tr.rms_norm(x, nw[i % L], eps),
                                              i8(wq, sq, i % L)), 100),
         n_bytes=b * d * 2 + d * 4 + d * Q + Q * 4 + b * Q * 4, n_ops=2 * b * d * Q,
         shape=f"x[{b},{d}] bf16, W[{L},{d},{Q}] int8", failures=failures))
@@ -619,7 +635,7 @@ def check_dense(dev, failures, L: int = 30):
         "B2 tail_swiglu_qkv_int8", got=got, ref=ref,
         ms=cuda_ms(lambda i: dd.tail_swiglu_qkv_int8_stacked(*args, i % L, eps=eps), 300),
         plain_ms=cuda_ms(lambda i: dd.tail_swiglu_qkv_int8_plain(*args, i % L, eps=eps), 20),
-        slice1_ms=cuda_ms(slice1_tail, 100),
+        ops_ms=cuda_ms(slice1_tail, 100),
         n_bytes=(b * d * 4 + b * d * 2 + d * d + d * 2 * F + F * d + d * Q
                  + 4 * (d + d + 2 * F + d + d + Q) + b * d * 4 + b * Q * 4),
         n_ops=2 * b * (d * d + d * 2 * F + F * d + d * Q),
@@ -633,9 +649,132 @@ def check_dense(dev, failures, L: int = 30):
         "B4 dense_int8 (lm_head)", got=got, ref=ref,
         ms=cuda_ms(lambda i: dd.dense_int8_stacked(x, wh, sh, i % L), 300),
         plain_ms=cuda_ms(lambda i: dd.dense_int8_plain(x, wh, sh, i % L), 20),
-        slice1_ms=cuda_ms(lambda i: tr._qdot(x, i8(wh, sh, i % L), f32_out=True), 100),
+        ops_ms=cuda_ms(lambda i: tr._qdot(x, i8(wh, sh, i % L), f32_out=True), 100),
         n_bytes=b * d * 2 + d * N + N * 4 + b * N * 4, n_ops=2 * b * d * N,
         shape=f"x[{b},{d}] bf16, W[1,{d},{N}] int8", failures=failures))
+    return out
+
+
+# ── B9a-c: the GPT-2 dense decode kernels, at the XTTS layer ─────────────
+
+
+def _gelu_inputs(dev, L: int = 24):
+    """The inputs of B9a, B9b and B9c at the decode shapes of the XTTS bench
+    request (b = 8 chunks; the full XTTS layer: d_model 1024, d_ff 4096, the
+    fused qkv 3072; bf16 residual stream and o/fc/proj biases, f32 LayerNorm
+    parameters, as the model stores them), from a seed, and one call of each
+    wrapper by its entry's name."""
+    import types
+
+    from vocalie_tts_tpu_torch.ops import decode_dense as dd
+
+    b, d, F, Q, eps = 8, 1024, 4096, 3072, 1e-5
+    gen = torch.Generator(device=dev).manual_seed(9)
+
+    def weights(d_in, d_out):
+        q = torch.randint(-127, 128, (L, d_in, d_out), generator=gen, device=dev,
+                          dtype=torch.int8)
+        return q, (torch.rand((L, 1, d_out), generator=gen, device=dev) + 0.5) / 127 * d_in ** -0.5
+
+    def vec(n, base=0.0, dtype=torch.float32):
+        return (base + 0.1 * torch.randn((L, n), generator=gen, device=dev)).to(dtype)
+
+    x = torch.randn((b, d), generator=gen, device=dev).to(torch.bfloat16)
+    attn = torch.randn((b, d), generator=gen, device=dev) * 0.3
+    wo, wos = weights(d, d)
+    wu, su = weights(d, F)
+    wd, sd = weights(F, d)
+    wq, sq = weights(d, Q)
+    bo, bu, bd = (vec(n, dtype=torch.bfloat16) for n in (d, F, d))
+    lg, lb, ng, nb = vec(d, 1.0), vec(d), vec(d, 1.0), vec(d)
+    tail = (attn, x, wo, wos, bo, lg, lb, wu, su, bu, wd, sd, bd)
+    nxt = (ng, nb, wq, sq)
+    calls = {"B9a qkv_lnorm_int8": lambda: dd.qkv_lnorm_int8_stacked(x, ng, nb, wq, sq, 1, eps=eps),
+             "B9b tail_gelu_qkv_int8": lambda: dd.tail_gelu_qkv_int8_stacked(*tail, *nxt, 1,
+                                                                             eps=eps),
+             "B9c tail_gelu_int8": lambda: dd.tail_gelu_int8_stacked(*tail, 1, eps=eps)}
+    return types.SimpleNamespace(**locals())
+
+
+def check_dense_gelu(dev, failures, L: int = 24):
+    """B9a, B9b and B9c at the XTTS decode shapes against their plain
+    versions (``DENSE_TOL``: the kernels repeat the plain versions' steps,
+    the tanh-GELU with ``tanhf`` on both sides). Each timed call reads
+    another layer of 24, as the decode step does (the 302 MB of int8 layer
+    weights are far larger than the 50 MB L2). The ops the port runs for the
+    same work without the dense kernels (the ``_qdot`` path: the f32
+    LayerNorm, the int8-weight products in bf16 / f32, the tanh-GELU) are
+    timed as the yardstick: no PyTorch call quantizes activations."""
+    from vocalie_tts_tpu_torch.models.common import transformer as tr
+    from vocalie_tts_tpu_torch.ops import decode_dense as dd
+
+    t = _gelu_inputs(dev, L)
+    b, d, F, Q, eps = t.b, t.d, t.F, t.Q, t.eps
+    cfg = tr.TransformerConfig(vocab_size=1026, d_model=d, n_layers=L, n_heads=16, n_kv_heads=16,
+                               d_head=64, d_ff=F, norm_eps=eps, norm_type="layer",
+                               mlp_type="gelu", bias=True)
+
+    def i8(w, s, l):
+        return {"q": w[l], "s": s[l]}
+
+    def qdot_qkv(l, x):
+        return tr._qdot(tr._norm(x, cfg, t.ng[l], t.nb[l]), i8(t.wq, t.sq, l))
+
+    attn_heads = t.attn.to(torch.bfloat16).reshape(b, 16, 1, 64)
+
+    def qdot_tail(l):
+        layer = {"wo": i8(t.wo, t.wos, l), "bo": t.bo[l], "mlp_norm": t.lg[l],
+                 "mlp_norm_b": t.lb[l], "w_up": i8(t.wu, t.su, l), "b_up": t.bu[l],
+                 "w_down": i8(t.wd, t.sd, l), "b_down": t.bd[l]}
+        return tr._block_tail(layer, t.x[:, None], attn_heads, cfg)
+
+    vec_bytes = 4 * 4 * d + 2 * (d + F + d)          # LayerNorm gains/biases, bf16 biases
+    tail_w = d * d + d * F + F * d
+    tail_scales = 4 * (d + F + d)
+    out = []
+    got = [dd.qkv_lnorm_int8_stacked(t.x, t.ng, t.nb, t.wq, t.sq, 0, eps=eps)]
+    ref = [dd.qkv_lnorm_int8_plain(t.x, t.ng, t.nb, t.wq, t.sq, 0, eps=eps)]
+    torch.cuda.synchronize()
+    out.append(_dense_entry(
+        "B9a qkv_lnorm_int8", got=got, ref=ref,
+        ms=cuda_ms(lambda i: dd.qkv_lnorm_int8_stacked(t.x, t.ng, t.nb, t.wq, t.sq, i % L,
+                                                       eps=eps), 300),
+        plain_ms=cuda_ms(lambda i: dd.qkv_lnorm_int8_plain(t.x, t.ng, t.nb, t.wq, t.sq, i % L,
+                                                           eps=eps), 20),
+        ops_ms=cuda_ms(lambda i: qdot_qkv(i % L, t.x), 100), ops_key="qdot_ops_ms",
+        n_bytes=b * d * 2 + 2 * d * 4 + d * Q + Q * 4 + b * Q * 4, n_ops=2 * b * d * Q,
+        shape=f"x[{b},{d}] bf16, LayerNorm f32, W[{L},{d},{Q}] int8", failures=failures))
+    # B9b at a middle layer and at the last one (its next qkv clamped to it)
+    got, ref = [], []
+    for layer in (L // 2, L - 1):
+        got += dd.tail_gelu_qkv_int8_stacked(*t.tail, *t.nxt, layer, eps=eps)
+        ref += dd.tail_gelu_qkv_int8_plain(*t.tail, *t.nxt, layer, eps=eps)
+    torch.cuda.synchronize()
+    out.append(_dense_entry(
+        "B9b tail_gelu_qkv_int8", got=got, ref=ref,
+        ms=cuda_ms(lambda i: dd.tail_gelu_qkv_int8_stacked(*t.tail, *t.nxt, i % L, eps=eps), 300),
+        plain_ms=cuda_ms(lambda i: dd.tail_gelu_qkv_int8_plain(*t.tail, *t.nxt, i % L, eps=eps),
+                         20),
+        ops_ms=cuda_ms(lambda i: qdot_qkv(min(i % L + 1, L - 1), qdot_tail(i % L)[:, 0]), 100),
+        ops_key="qdot_ops_ms",
+        n_bytes=(b * d * 4 + b * d * 2 + tail_w + d * Q + tail_scales + Q * 4 + vec_bytes
+                 + b * d * 4 + b * Q * 4),
+        n_ops=2 * b * (tail_w + d * Q),
+        shape=f"attn[{b},{d}] f32, x[{b},{d}] bf16, bf16 biases, d_ff {F} in tiles of "
+              f"{dd.pick_tile(F, dd.TILE_BUDGET, 2 * d)}, qkv {Q}, {L} layers (layers "
+              f"{L // 2} and {L - 1} checked)", failures=failures))
+    got = [dd.tail_gelu_int8_stacked(*t.tail, L // 2, eps=eps)]
+    ref = [dd.tail_gelu_int8_plain(*t.tail, L // 2, eps=eps)]
+    torch.cuda.synchronize()
+    out.append(_dense_entry(
+        "B9c tail_gelu_int8", got=got, ref=ref,
+        ms=cuda_ms(lambda i: dd.tail_gelu_int8_stacked(*t.tail, i % L, eps=eps), 300),
+        plain_ms=cuda_ms(lambda i: dd.tail_gelu_int8_plain(*t.tail, i % L, eps=eps), 20),
+        ops_ms=cuda_ms(lambda i: qdot_tail(i % L), 100), ops_key="qdot_ops_ms",
+        n_bytes=b * d * 4 + b * d * 2 + tail_w + tail_scales + vec_bytes - 2 * 4 * d + b * d * 4,
+        n_ops=2 * b * tail_w,
+        shape=f"attn[{b},{d}] f32, x[{b},{d}] bf16, bf16 biases, d_ff {F} in tiles of "
+              f"{dd.pick_tile(F, dd.TILE_BUDGET, 2 * d)}, {L} layers", failures=failures))
     return out
 
 
@@ -867,6 +1006,102 @@ def small_reference_dense(dev, failures):
         failures.append(f"dense reference: kernels differ from plain versions by {worst_plain}")
     if outside * 4 > ratios.numel():
         failures.append(f"dense reference: {outside} logit rows differ from the CPU")
+
+
+#: the XTTS width of phase 3: the GPT-2 dense path is eligible (d_model and
+#: the qkv width 128-multiples, the 1026 vocabulary padded to 1152 for B4)
+XTTS_SMALL = dict(d_model=128, n_layers=2, n_heads=2, n_kv_heads=2, d_ff=256, max_seq_len=512,
+                  speaker_dim=64, dtype=torch.float32)
+
+
+def small_reference_xtts(dev, failures):
+    """A d_model-128 XTTS (2 layers, 2 heads of 64, d_ff 256, vocab 1026,
+    f32) in the default int8 serving env, random weights from a seed, on
+    the GPU through B9a + B9b per layer and B4, against (a) the same GPU
+    steps through the kernels' plain versions (``DENSE_TOL`` at every
+    step), and (b) the same weights on the CPU: prefill + 12 teacher-forced
+    decode steps on the prompt ``build_prompt_embeds`` makes, logits within
+    2e-3 + 2e-3|ref|. On (b) an int8 activation on a .5 tie rounds the other
+    way under another tanh or summation order and moves one row's logits at
+    one step by up to a few 1e-2 (a tie in the prompt's k/v moves the rest of
+    its row), while a wrong kernel or path moves most rows at every step:
+    (b) fails if more than a quarter of the (step, row) logit rows are
+    outside. Then stage 2 on shared tokens, GPU against CPU: PCM within 33
+    LSB."""
+    from vocalie_tts_tpu_torch.models.common import transformer as tr
+    from vocalie_tts_tpu_torch.models.xtts import runtime as xrt
+    from vocalie_tts_tpu_torch.models.xtts.model import XTTSConfig, build_prompt_embeds
+    from vocalie_tts_tpu_torch.ops import decode_dense as dd
+
+    set_env(DEFAULT_ENV)
+    os.environ["VOCALIE_MODEL_SCALE"] = "d128"
+    xrt.SCALES["d128"] = XTTSConfig(**XTTS_SMALL)
+    with tempfile.TemporaryDirectory() as tmp:
+        rt = _audible(xrt.XTTSRuntime.create(tmp, force_init=True, device=dev, seed=17))
+    cfg = rt.cfg.lm
+    assert cfg.dense_kernel and cfg.kv_quant and cfg.decode_kernel
+    cpu = xrt.XTTSRuntime(_to(rt.params, "cpu"), rt.cfg, rt.weights_dir, torch.device("cpu"))
+    g = torch.Generator().manual_seed(18)
+    b, n_steps = 4, 12
+    text = torch.randint(0, 260, (b, 40), generator=g)
+    spk = torch.nn.functional.normalize(torch.randn((b, 64), generator=g), dim=-1)
+    lens = torch.tensor([73, 50, 34, 61], dtype=torch.int32)
+    toks = torch.randint(0, 1024, (n_steps, b), generator=g)
+
+    def run(r, d):
+        with torch.no_grad():
+            emb = build_prompt_embeds(r.params["gpt"], r.cfg, text.to(d), spk.to(d))
+            lm = r.params["gpt"]["lm"]
+            logits, cache = tr.prefill(lm, cfg, None, lens.to(d), inputs_embeds=emb,
+                                       cache_len=256)
+            steps = [logits.cpu()]
+            for i in range(n_steps):
+                logits, cache = tr.decode_step(lm, cfg, toks[i].to(d), cache)
+                steps.append(logits.cpu())
+        return steps
+
+    wrappers = (dd.qkv_lnorm_int8_stacked, dd.tail_gelu_qkv_int8_stacked, dd.dense_int8_stacked)
+    before = [w.launches for w in wrappers]
+    kernel = run(rt, dev)
+    launched = [w.launches - b0 for w, b0 in zip(wrappers, before)]
+    kept = (tr.qkv_lnorm_int8_stacked, tr.tail_gelu_qkv_int8_stacked, tr.dense_int8_stacked)
+    tr.qkv_lnorm_int8_stacked = dd.qkv_lnorm_int8_plain
+    tr.tail_gelu_qkv_int8_stacked = dd.tail_gelu_qkv_int8_plain
+    tr.dense_int8_stacked = dd.dense_int8_plain
+    try:
+        plain = run(rt, dev)
+    finally:
+        (tr.qkv_lnorm_int8_stacked, tr.tail_gelu_qkv_int8_stacked, tr.dense_int8_stacked) = kept
+    on_cpu = run(cpu, torch.device("cpu"))
+    want = [n_steps, cfg.n_layers * n_steps, n_steps + 1]
+    worst_plain = max(((a - c).abs().max() / (DENSE_TOL * c.abs().max())).item()
+                      for a, c in zip(kernel, plain))
+    ratios = torch.stack([((a - c).abs() / (2e-3 + 2e-3 * c.abs())).amax(-1)
+                          for a, c in zip(kernel, on_cpu)])
+    outside = int((ratios > 1).sum())
+    log(f"small reference, XTTS d_model 128 (prefill + {n_steps} teacher-forced steps): launches "
+        f"B9a/B9b/B4 = {launched} (expected {want}); GPU kernels vs GPU plain versions: worst "
+        f"|diff| / ({DENSE_TOL} x max|ref|) = {worst_plain:.3f} (must be <= 1); GPU vs CPU: worst "
+        f"|diff| / (2e-3 + 2e-3|ref|) = {ratios.max().item():.3f}, {outside} of {ratios.numel()} "
+        "(step, row) logit rows outside it (at most a quarter)")
+    if launched != want:
+        failures.append(f"XTTS reference launches {launched} != {want}")
+    if not worst_plain <= 1.0:
+        failures.append(f"XTTS reference: kernels differ from plain versions by {worst_plain}")
+    if outside * 4 > ratios.numel():
+        failures.append(f"XTTS reference: {outside} logit rows differ from the CPU")
+    vq = torch.randint(0, 1024, (3, 60), generator=g)
+    n = torch.tensor([60, 41, 7])
+    pcm_gpu = rt.stage2_pcm16(vq.to(dev), n.to(dev), spk[:3].to(dev)).cpu()
+    pcm_cpu = cpu.stage2_pcm16(vq, n, spk[:3])
+    lsb = (pcm_gpu.int() - pcm_cpu.int()).abs().max().item()
+    peak = pcm_cpu.int().abs().max().item()
+    log(f"small reference: XTTS stage 2 (60 tokens x 3 rows, HiFi-GAN 512 channels), GPU vs CPU: "
+        f"max |diff| = {lsb} LSB of int16 (tolerance 33 = 1e-3 of full scale), CPU peak {peak}")
+    if not lsb <= 33:
+        failures.append(f"XTTS stage-2 PCM differs by {lsb} LSB")
+    if peak <= 33:
+        failures.append(f"XTTS stage-2 PCM is silent (peak {peak} LSB)")
 
 
 def _redraw_zero_convs(tree, gen) -> None:
@@ -1302,6 +1537,193 @@ def drive_cosyvoice(dev, failures, b7_inputs: dict, scale: str = "full"):
     return counts, profile
 
 
+# ── phase 4: the XTTS-class voice clone ──────────────────────────────────
+
+#: scripts/bench_engine.py's request: its sentence, 8 chunks, its engine
+#: params and its 3 s tone reference (bench_engine.py:33-36, :39, :66-77)
+XTTS_SENT = (
+    "La synthèse vocale sur accélérateur dédié transforme le flux de "
+    "production des livres audio et des documentaires en français."
+)
+XTTS_PARAMS = {"language": "fr", "temperature": 0.65}
+#: BASELINE #2, "single chunk": LONG_CHUNK as the one marked chunk of its
+#: request (> 250 text bytes: its prompt takes the 544 bucket)
+XTTS_LONG = LONG_CHUNK + "\n[[CHUNK]]"
+MEGATAIL0_ENV = {**DEFAULT_ENV, "VOCALIE_MEGATAIL": "0"}
+#: The init draws stage 2's VQ embedding at std 0.02, which renders a
+#: waveform of peak ~5e-6 of full scale: under one int16 step, so every
+#: random-weight WAV would be all zeros. The smoke multiplies that table
+#: (still drawn from the seed) by this gain, so that the PCM checks see
+#: sound: the chain up to the vocoder's final tanh is linear in it.
+XTTS_VQ_GAIN = 1e4
+
+
+def _audible(rt):
+    rt.params["decoder"]["tok_emb"].mul_(XTTS_VQ_GAIN)
+    return rt
+
+
+def _xtts_wrappers() -> dict:
+    from vocalie_tts_tpu_torch.ops import decode_dense as dd
+
+    return {**_cosy_wrappers(), "B9a": dd.qkv_lnorm_int8_stacked,
+            "B9b": dd.tail_gelu_qkv_int8_stacked, "B9c": dd.tail_gelu_int8_stacked}
+
+
+def _write_tone_ref(path: str) -> str:
+    import numpy as np
+
+    from vocalie_tts_tpu_torch.io.wavio import write_wav
+
+    t = np.arange(3 * 24000) / 24000.0
+    ref = (0.2 * np.sin(2 * np.pi * 180 * t) * (0.6 + 0.4 * np.sin(2 * np.pi * 3 * t)))
+    write_wav(path, ref.astype(np.float32), 24000)
+    return path
+
+
+def _xtts_decode(rt, texts, spk, n_steps: int) -> None:
+    """A request's LM work alone (``spk``: its speaker embedding): prompt,
+    prefill, then ``n_steps`` sampled decode steps, synchronized."""
+    import numpy as np
+
+    from vocalie_tts_tpu_torch.models.xtts.model import BOS_VQ, EOS_VQ, build_prompt_embeds
+    from vocalie_tts_tpu_torch.ops.kv_cache import round_cache_len
+
+    dev = rt.device
+    tokens, lengths, pb, bb, db = rt._prepare_prompt(texts, "fr")
+    spk = torch.from_numpy(np.tile(spk[None], (bb, 1))).to(dev)
+    with torch.no_grad():
+        embeds = build_prompt_embeds(rt.params["gpt"], rt.cfg, torch.from_numpy(tokens).to(dev),
+                                     spk)
+    rt._generate(rt.params["gpt"]["lm"], embeds, torch.from_numpy(lengths).to(dev),
+                 cache_len=round_cache_len(pb + db), max_new=n_steps, eos_token_id=EOS_VQ,
+                 temperature=0.65, top_k=50, top_p=0.85, repetition_penalty=2.0,
+                 first_token=BOS_VQ, generator=rt._gen)
+    torch.cuda.synchronize()
+
+
+def drive_xtts(dev, failures, scale: str = "full"):
+    """The XTTS-class voice clone at full width (random weights from seed
+    23), through ``run_tts_pipeline`` with ``tts_backend: "xtts"`` and a 3 s
+    reference: (a) bench_engine.py's 8-chunk request in the default int8
+    env (B9a + 24 x (B1 + B9b) + B5 + B4 a step); (b) the same with
+    ``VOCALIE_MEGATAIL=0`` (24 x (B9a + B1 + B9c)); (c) one long chunk at
+    batch 1 (BASELINE #2), whose prompt takes the 544 bucket, so prefill
+    runs causal B6, and which must not reach B7. Each is warmed up, then
+    driven with every launch counter at 0 just before it and read just
+    after. Returns the counts by request and a function that runs the
+    profiled decode windows (kept for after every timed phase)."""
+    import numpy as np
+
+    from vocalie_tts_tpu_torch.engines.xtts import XTTSEngine
+    from vocalie_tts_tpu_torch.io.wavio import read_wav
+    from vocalie_tts_tpu_torch.pipeline import run_tts_pipeline
+
+    set_env(DEFAULT_ENV)
+    os.environ["VOCALIE_MODEL_SCALE"] = scale
+    os.environ["VOCALIE_ALLOW_RANDOM_WEIGHTS"] = "1"
+    wrappers = _xtts_wrappers()
+    bench = "\n[[CHUNK]]\n".join([XTTS_SENT] * 8)
+    counts, profiles = {}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        ref = _write_tone_ref(os.path.join(tmp, "bench_ref.wav"))
+        t0 = time.monotonic()
+        engine = XTTSEngine(device=dev, assets=os.path.join(tmp, "assets"))
+        rt = _audible(engine.runtime())
+        spk = rt._spk_cache.get(ref)
+        torch.cuda.synchronize()
+        lm = rt.cfg.lm
+        log(f"xtts: full-width runtime built in {time.monotonic() - t0:.2f} s (random weights, "
+            f"seed 23; GPT {lm.n_layers} layers x d_model {lm.d_model}, d_ff {lm.d_ff}, "
+            f"{lm.norm_type} norm, {lm.mlp_type}, {lm.pos_type} positions; kv_quant={lm.kv_quant} "
+            f"decode_kernel={lm.decode_kernel} dense_kernel={lm.dense_kernel})")
+        for label, env, script in (("bench 8-chunk, default", DEFAULT_ENV, bench),
+                                   ("bench 8-chunk, VOCALIE_MEGATAIL=0", MEGATAIL0_ENV, bench),
+                                   ("one chunk at batch 1, 544 bucket", DEFAULT_ENV, XTTS_LONG)):
+            set_env(env)
+            request = {**_request(script, os.path.join(tmp, "x.wav")), "tts_backend": "xtts",
+                       "voice_ref_path": ref, "engine_params": XTTS_PARAMS}
+            t0 = time.monotonic()
+            run_tts_pipeline({**request, "out_path": os.path.join(tmp, "warm.wav")},
+                             engine=engine)
+            warm = time.monotonic() - t0
+            for w in wrappers.values():
+                w.launches = 0
+            t0 = time.monotonic()
+            res = run_tts_pipeline(request, engine=engine)
+            wall = time.monotonic() - t0
+            c = {k: w.launches for k, w in wrappers.items()}
+            # the same request once more, for the spread of the host-clock wall
+            t0 = time.monotonic()
+            run_tts_pipeline({**request, "out_path": os.path.join(tmp, "again.wav")},
+                             engine=engine)
+            wall2 = time.monotonic() - t0
+            wav, sr = read_wav(res.out_path)
+            meta, chunks = res.meta, request["chunks"]
+            expect = round(sum(meta["durations"]) * 24000) + int(24000 * 0.25) * (len(chunks) - 1)
+            ok = (sr == 24000 and len(wav) == expect and len(wav) > 0
+                  and bool(np.isfinite(wav).all()) and int(np.count_nonzero(wav)) > 0
+                  and all(round(dur * 24000) % 1024 == 0 for dur in meta["durations"]))
+            steps = c["B5"]
+            bm = meta["backend_meta"]
+            texts = [XTTS_SENT] * 8 if script == bench else [LONG_CHUNK]
+            _xtts_decode(rt, texts, spk, 0)
+            t1 = time.monotonic()
+            _xtts_decode(rt, texts, spk, 0)
+            t2 = time.monotonic()
+            n0 = wrappers["B5"].launches
+            _xtts_decode(rt, texts, spk, bm["decode_bucket"])
+            t3 = time.monotonic()
+            n_dec = max(wrappers["B5"].launches - n0, 1)   # one KV append per step
+            decode_ms = ((t3 - t2) - (t2 - t1)) / n_dec * 1e3
+            log(f"xtts [{label}]: warm-up {warm:.3f} s; {len(chunks)} chunks, prompt bucket "
+                f"{bm['prompt_bucket']}, decode bucket {bm['decode_bucket']}, audio "
+                f"{meta['total_duration']:.3f} s, wall {wall:.3f} s, RTF "
+                f"{meta['total_duration'] / wall:.3f}x (the request again: wall {wall2:.3f} s), "
+                f"{steps} decode steps, wav ok={ok} "
+                f"({len(wav)} samples, {int(np.count_nonzero(wav))} non-zero, peak "
+                f"{float(np.abs(wav).max()):.6f}), launches {c}; decode alone (prefill "
+                f"{(t2 - t1) * 1e3:.1f} ms, then {n_dec} steps) "
+                f"{decode_ms:.3f} ms/step")
+            if not ok:
+                failures.append(f"xtts [{label}]: WAV check failed (len {len(wav)}, expected "
+                                f"{expect})")
+            L = lm.n_layers
+            if env is MEGATAIL0_ENV:
+                want = {"B9a": L * steps, "B9c": L * steps, "B9b": 0}
+            else:
+                want = {"B9a": steps, "B9b": L * steps, "B9c": 0}
+            want.update(B1=L * steps, B4=steps + 1, B7=0, B2=0, B3=0)
+            if script == XTTS_LONG and bm["prompt_bucket"] != 544:
+                failures.append(f"xtts [{label}]: prompt bucket {bm['prompt_bucket']}, not 544")
+            if script == XTTS_LONG and c["B6"] == 0:
+                failures.append(f"xtts [{label}]: no flash launch in the 544-bucket prefill")
+            for k, n in want.items():
+                if c[k] != n:
+                    failures.append(f"xtts [{label}] {k} launched {c[k]} times, the path needs {n}")
+            if steps == 0:
+                failures.append(f"xtts [{label}]: no decode step ran")
+            counts[label] = c
+
+            def windows(label=label, env=env, texts=texts):
+                set_env(env)
+                n0 = _profiled(f"xtts {label}, prefill alone",
+                               lambda: _xtts_decode(rt, texts, spk, 0))
+                n32 = _profiled(f"xtts {label}, prefill + 32 decode steps",
+                                lambda: _xtts_decode(rt, texts, spk, 32))
+                if n0 and n32:
+                    log(f"breakdown [xtts {label}]: {(n32 - n0) / 32:.1f} device operations per "
+                        "decode step")
+
+            profiles.append(windows)
+
+    def profile():
+        for windows in profiles:
+            windows()
+
+    return counts, profile
+
+
 # ── phase 4: the AudioSR studio pass ─────────────────────────────────────
 
 #: bench.py's studio request (bench.py:224-247, :296-303)
@@ -1547,7 +1969,9 @@ def main() -> int:
     t_start = time.monotonic()
     kernels = [check_decode_attention(dev, failures), *check_dense(dev, failures),
                check_cache_append(dev, failures), check_flash_attention(dev, failures),
-               check_decode_step(dev, failures), check_group_norm(dev, failures)]
+               check_decode_step(dev, failures), check_group_norm(dev, failures),
+               *check_dense_gelu(dev, failures)]
+    by_key = {k["name"].split()[0]: k for k in kernels}
     count_dense_kernels(kernels, failures)
     if failures:
         raise SystemExit("kernel checks failed: " + "; ".join(failures))
@@ -1559,6 +1983,7 @@ def main() -> int:
     small_reference(dev, failures)
     small_reference_dense(dev, failures)
     small_reference_audiosr(dev, failures)
+    small_reference_xtts(dev, failures)
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
     if failures:
         raise SystemExit("small-input reference failed: " + "; ".join(failures))
@@ -1569,8 +1994,9 @@ def main() -> int:
         counts, profile = drive_path(dev, failures, "default int8 config", DEFAULT_ENV, requests,
                                      keep=vo)
         counts1, profile1 = drive_path(dev, failures, "slice-1 config", SLICE1_ENV, requests[:1])
-        cosy, profile_cosy = drive_cosyvoice(dev, failures, kernels[-2]["path_inputs"])
+        cosy, profile_cosy = drive_cosyvoice(dev, failures, by_key["B7"]["path_inputs"])
         studio, profile_studio = drive_audiosr(dev, failures, vo)
+        xtts, profile_xtts = drive_xtts(dev, failures)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     if failures:
@@ -1580,16 +2006,25 @@ def main() -> int:
     profile1()
     profile_cosy()
     profile_studio()
-    kernels[-1]["launches"] = studio[GN_SETTINGS[0][0]]["launches"]
-    kernels[-1]["launches_knob_unset"] = studio[GN_SETTINGS[1][0]]["launches"]
-    for entry, key in zip(kernels, ("B1", "B3", "B2", "B4", "B5", "B6", "B7")):
-        # B1-B6: the Chatterbox default path's counts; B7: the streaming path's
-        entry["launches"] = cosy["streaming, default"]["B7"] if key == "B7" else counts[key]
+    profile_xtts()
+    by_key["B13"]["launches"] = studio[GN_SETTINGS[0][0]]["launches"]
+    by_key["B13"]["launches_knob_unset"] = studio[GN_SETTINGS[1][0]]["launches"]
+    # B1-B6: the Chatterbox default path's counts; B7: the streaming path's;
+    # B9a-b: the XTTS default bench request's, B9c: its VOCALIE_MEGATAIL=0 run
+    main_counts = {**counts, "B7": cosy["streaming, default"]["B7"],
+                   "B9a": xtts["bench 8-chunk, default"]["B9a"],
+                   "B9b": xtts["bench 8-chunk, default"]["B9b"],
+                   "B9c": xtts["bench 8-chunk, VOCALIE_MEGATAIL=0"]["B9c"]}
+    for key, entry in by_key.items():
+        if key == "B13":
+            continue
+        entry["launches"] = main_counts[key]
         if counts1.get(key):
             entry["launches_slice1_config"] = counts1[key]
-        for path, c in cosy.items():
-            if c.get(key):
-                entry[f"launches_cosyvoice_{path}"] = c[key]
+        for group, per_path in (("cosyvoice", cosy), ("xtts", xtts)):
+            for path, c in per_path.items():
+                if c.get(key):
+                    entry[f"launches_{group}_{path}"] = c[key]
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)

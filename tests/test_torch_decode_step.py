@@ -59,7 +59,7 @@ def _int8_params(jcfg, pcfg, attn_bias):
         for name in ("bq", "bk", "bv"):
             layers[name] = (0.5 * rng.standard_normal(layers[name].shape)).astype(np.float32)
     raw = {**raw, "layers": layers}
-    jparams = jt.fuse_decode_weights(jt.quantize_weights_int8(raw))
+    jparams = jt.fuse_decode_weights(jax.device_get(jax.jit(jt.quantize_weights_int8)(raw)))
     pparams = pt.fuse_decode_weights(pt.quantize_weights_int8(tree_to_torch(raw)))
     assert ("bqkv" in pparams["layers"]) is attn_bias
     return jparams, pparams

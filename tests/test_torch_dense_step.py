@@ -36,7 +36,7 @@ CACHE_LEN = 256
 def _params(**dims):
     jcfg = jt.TransformerConfig(**{**DIMS, **dims}, dtype=jnp.float32)
     raw = jax.device_get(jt.init_params(jax.random.PRNGKey(0), jcfg))
-    jparams = jt.fuse_decode_weights(jt.quantize_weights_int8(raw))
+    jparams = jt.fuse_decode_weights(jax.device_get(jax.jit(jt.quantize_weights_int8)(raw)))
     pparams = pt.fuse_decode_weights(pt.quantize_weights_int8(tree_to_torch(raw)))
     return jparams, pparams
 

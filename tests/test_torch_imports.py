@@ -81,7 +81,8 @@ def test_entry_points_refuse_cpu_fallback(tmp_path, monkeypatch):
 def test_dense_kernel_env_names_the_next_slice(monkeypatch):
     """``VOCALIE_DENSE_KERNEL=1`` forces the dense kernels, as in the JAX
     package (they are ported); a knob whose kernel a later slice brings
-    names it (``VOCALIE_MEGATAIL=0`` needs B8, the next one)."""
+    names it (``VOCALIE_MEGATAIL=0`` needs B8, the next one, for SwiGLU;
+    GPT-2 takes B9c there, see ``tests/test_torch_xtts.py``)."""
     import dataclasses
 
     from vocalie_tts_tpu_torch.models.chatterbox.runtime import SCALES
@@ -179,3 +180,42 @@ def test_audiosr_runtime_refuses_cpu_fallback(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         AudioSRRuntime.create(tmp_path)
     assert AudioSRRuntime.create(tmp_path, device="cpu").device.type == "cpu"
+
+
+#: the modules the XTTS slice added
+SLICE5_MODULES = (
+    "vocalie_tts_tpu_torch.io.refs",
+    "vocalie_tts_tpu_torch.models.common.speaker",
+    "vocalie_tts_tpu_torch.models.xtts.model",
+    "vocalie_tts_tpu_torch.models.xtts.runtime",
+    "vocalie_tts_tpu_torch.engines.xtts",
+)
+
+
+@pytest.mark.parametrize("module", SLICE5_MODULES)
+def test_slice5_module_imports_alone(module):
+    """Each module of the XTTS slice imports on its own with JAX, the JAX
+    package and Triton blocked, loads no kernel library and touches no
+    GPU."""
+    test_slice3_module_imports_alone(module)
+
+
+def test_xtts_entry_points_refuse_cpu_fallback(tmp_path, monkeypatch):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid here")
+    from vocalie_tts_tpu_torch.engines.xtts import XTTSEngine
+    from vocalie_tts_tpu_torch.models.xtts.runtime import XTTSRuntime
+    from vocalie_tts_tpu_torch.pipeline import run_tts_pipeline
+
+    monkeypatch.setenv("VOCALIE_MODEL_SCALE", "tiny")
+    monkeypatch.setenv("VOCALIE_KV_INT8", "1")
+    monkeypatch.setenv("VOCALIE_ALLOW_RANDOM_WEIGHTS", "1")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        XTTSRuntime.create(tmp_path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        XTTSEngine()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_tts_pipeline({"tts_backend": "xtts", "script": "Bonjour à tous.",
+                          "voice_ref_path": str(tmp_path / "ref.wav"),
+                          "out_path": str(tmp_path / "x.wav")})
+    assert not (tmp_path / "x.wav").exists()

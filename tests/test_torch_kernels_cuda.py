@@ -1,10 +1,11 @@
 """The port's CUDA kernels (B1 int8 decode attention, B5 KV-cache append,
-B6 flash attention, the dense decode kernels B2/B3/B4, the whole-step
-kernel B7) against their plain PyTorch versions on the GPU, at the edge
+B6 flash attention, the dense decode kernels B2/B3/B4 and their GPT-2
+siblings B9a/B9b/B9c, the whole-step kernel B7) against their plain PyTorch versions on the GPU, at the edge
 shapes the main path does not reach: GQA, head dims other than 64, ragged
 and fully masked rows, valid lengths off the 128-slot grid, f32 as well as
 bf16, batch 1 and 17, zero rows, the last layer's clamped next-qkv, d_ff in
-one and in two tiles; for B7 caches of 128 and 640 slots, a fully masked
+one and in two tiles; for B9 bf16 and f32 biases and residuals, a
+constant row (LayerNorm to its bias), the XTTS layer and batch 1; for B7 caches of 128 and 640 slots, a fully masked
 tail and a fully masked cache, q/k/v biases off, in f32 and in bf16, 1 and
 3 layers, and a cooperative grid forced past what the card keeps resident
 (refused); for B13 (fused GroupNorm) C/G of 2, 3, 4, 8, 12 and 32, C not a
@@ -32,6 +33,8 @@ repeat their plain versions' rounding step for step (exact int32 products,
 the variance summed in double, IEEE divides, the same f32 epilogue order),
 so an output moves only if an int8 activation sits on a .5 tie that
 another expf reaches from the other side; such a flip moves it by ~1e-3.
+B9a-c likewise (the LayerNorm's moments in double, the tanh-GELU as the
+same IEEE steps with ``tanhf``, which PyTorch's CUDA tanh also calls).
 B7 within 1e-5 · max|ref| on each output, for the same reason: the plain
 version takes the kernel's steps (the softmax sum, the variance and the
 current token's score in float64, rounded once). B13 within one bf16 ulp of
@@ -52,8 +55,14 @@ from vocalie_tts_tpu_torch.ops.decode_attention import (
 from vocalie_tts_tpu_torch.ops.decode_dense import (
     dense_int8_plain,
     dense_int8_stacked,
+    qkv_lnorm_int8_plain,
+    qkv_lnorm_int8_stacked,
     qkv_norm_int8_plain,
     qkv_norm_int8_stacked,
+    tail_gelu_int8_plain,
+    tail_gelu_int8_stacked,
+    tail_gelu_qkv_int8_plain,
+    tail_gelu_qkv_int8_stacked,
     tail_swiglu_qkv_int8_plain,
     tail_swiglu_qkv_int8_stacked,
 )
@@ -297,6 +306,86 @@ def test_dense_kernels_reject_bad_inputs(dev):
         dense_int8_stacked(torch.zeros((256, 2), device=dev).t(), w, s, 0)
     with pytest.raises(ValueError, match="K % 32"):
         dense_int8_stacked(x[:, :200].contiguous(), w[:, :200].contiguous(), s, 0)
+
+
+# ── B9a, B9b, B9c ───────────────────────────────────────────────────────
+
+
+@pytest.mark.parametrize("b,d,dq,dtype,const_row,layer", [
+    (1, 1024, 3072, torch.bfloat16, None, 0),    # the XTTS prologue at batch 1
+    (8, 1024, 3072, torch.bfloat16, 5, 23),      # the XTTS batch, last layer
+    (17, 128, 384, torch.float32, 0, 1),         # two row passes
+])
+def test_qkv_lnorm_int8_kernel(dev, b, d, dq, dtype, const_row, layer):
+    gen = _gen(dev, b + d + 2)
+    L = layer + 1
+    x = (torch.randn((b, d), generator=gen, device=dev) * 3 + 0.5).to(dtype)
+    if const_row is not None:
+        x[const_row] = 2.0   # LayerNorm gives the bias alone
+    g = 1 + 0.1 * torch.randn((L, d), generator=gen, device=dev)
+    nb = 0.1 * torch.randn((L, d), generator=gen, device=dev)
+    w, s = _int8_weights(gen, dev, L, d, dq)
+    before = qkv_lnorm_int8_stacked.launches
+    got = qkv_lnorm_int8_stacked(x, g, nb, w, s, layer, eps=1e-5)
+    ref = qkv_lnorm_int8_plain(x, g, nb, w, s, layer, eps=1e-5)
+    torch.cuda.synchronize()
+    assert qkv_lnorm_int8_stacked.launches == before + 1
+    _close(got, ref)
+
+
+def _gelu_tail_args(dev, b, L, d, F, Q, dtype, bias_dtype):
+    gen = _gen(dev, b + d + F + Q)
+    attn = torch.randn((b, d), generator=gen, device=dev) * 0.3
+    attn[0] = 0   # a zero row: its o-projection is the bias alone
+    x = torch.randn((b, d), generator=gen, device=dev).to(dtype)
+
+    def vec(n, base=0.0):
+        return base + 0.1 * torch.randn((L, n), generator=gen, device=dev)
+
+    wo, wos = _int8_weights(gen, dev, L, d, d)
+    wu, su = _int8_weights(gen, dev, L, d, F)
+    wd, sd = _int8_weights(gen, dev, L, F, d)
+    wq, sq = _int8_weights(gen, dev, L, d, Q)
+    tail = (attn, x, wo, wos, vec(d).to(bias_dtype), vec(d, 1.0), vec(d), wu, su,
+            vec(F).to(bias_dtype), wd, sd, vec(d).to(bias_dtype))
+    return tail, (vec(d, 1.0), vec(d), wq, sq)
+
+
+@pytest.mark.parametrize("b,L,d,F,Q,layer,dtype,bias_dtype", [
+    (8, 3, 1024, 4096, 3072, 2, torch.bfloat16, torch.bfloat16),  # XTTS: two tiles, clamped
+    (1, 2, 1024, 4096, 3072, 0, torch.bfloat16, torch.bfloat16),  # batch 1
+    (17, 3, 128, 256, 384, 1, torch.float32, torch.float32),      # one tile, two row passes
+    (4, 2, 512, 8192, 1536, 1, torch.float32, torch.bfloat16),    # two 4096 tiles
+])
+def test_tail_gelu_int8_kernels(dev, b, L, d, F, Q, layer, dtype, bias_dtype):
+    """B9b and B9c on the same inputs; B9b's x_out is B9c's."""
+    tail, nxt = _gelu_tail_args(dev, b, L, d, F, Q, dtype, bias_dtype)
+    before = (tail_gelu_qkv_int8_stacked.launches, tail_gelu_int8_stacked.launches)
+    x_out, qkv = tail_gelu_qkv_int8_stacked(*tail, *nxt, layer, eps=1e-5)
+    x_c = tail_gelu_int8_stacked(*tail, layer, eps=1e-5)
+    rx, rq = tail_gelu_qkv_int8_plain(*tail, *nxt, layer, eps=1e-5)
+    rc = tail_gelu_int8_plain(*tail, layer, eps=1e-5)
+    torch.cuda.synchronize()
+    assert (tail_gelu_qkv_int8_stacked.launches, tail_gelu_int8_stacked.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert x_out.shape == x_c.shape == (b, d) and qkv.shape == (b, Q)
+    _close(x_out, rx)
+    _close(qkv, rq)
+    _close(x_c, rc)
+    assert torch.equal(x_out, x_c)
+
+
+def test_gelu_kernels_reject_bad_inputs(dev):
+    tail, nxt = _gelu_tail_args(dev, 2, 2, 128, 256, 384, torch.float32, torch.float32)
+    bad = list(tail)
+    bad[4] = bad[4].double()
+    with pytest.raises(ValueError, match="bo_all"):
+        tail_gelu_int8_stacked(*bad, 0, eps=1e-5)
+    with pytest.raises(ValueError, match="layer"):
+        tail_gelu_qkv_int8_stacked(*tail, *nxt, 2, eps=1e-5)
+    with pytest.raises(ValueError, match="nb_all"):
+        qkv_lnorm_int8_stacked(tail[1], nxt[0], nxt[1].to(torch.bfloat16), nxt[2], nxt[3], 0,
+                               eps=1e-5)
 
 
 # ── B7 ──────────────────────────────────────────────────────────────────

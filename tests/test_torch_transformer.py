@@ -5,7 +5,10 @@ version on the port's), int8 weights (q/k/v and gate/up fused on the
 port's side; fused and not on the JAX side), dense kernels off. Params come from the JAX ``init_t3`` and cross through ``bridge``.
 
 Tolerances:
-- int8 weight quantization: exact (same f32 division and rounding);
+- int8 weight quantization: exact, against ``jax.jit(quantize_weights_int8)``,
+  the form the JAX runtimes serve (XLA scales by the f32 reciprocal of 127;
+  ``test_runtime_quantizer_matches_jitted_jax`` holds the runtimes'
+  transform at the T3 width);
 - prefill / teacher-forced decode logits: atol = rtol = 2e-3, the JAX
   package's own bound for its decode-step kernels
   (tests/test_decode_step_fused.py);
@@ -44,7 +47,7 @@ def models(request):
     jcfg = dataclasses.replace(JAX_SCALES["tiny"], **SLICE)
     pcfg = dataclasses.replace(SCALES["tiny"], **SLICE)
     raw = jax.device_get(init_t3(jax.random.PRNGKey(0), jcfg)["lm"])
-    jparams = jt.quantize_weights_int8(raw)
+    jparams = jax.device_get(jax.jit(jt.quantize_weights_int8)(raw))
     exact = pt.quantize_weights_int8(tree_to_torch(raw))
     pparams = pt.fuse_decode_weights(exact)
     if request.param == "fused":
@@ -69,6 +72,29 @@ def test_int8_quantize_and_fuse_match_exactly(models):
         got = pl[key].float().numpy() if pl[key].dtype == torch.bfloat16 else pl[key].numpy()
         assert got.dtype == np.asarray(ref).dtype or pl[key].dtype == torch.bfloat16, key
         assert np.array_equal(got, np.asarray(ref, got.dtype)), key
+
+
+def test_runtime_quantizer_matches_jitted_jax(monkeypatch):
+    """The runtimes' int8 transform (``maybe_quantize_lm`` under
+    ``VOCALIE_WEIGHT_INT8=1``: quantize, then fuse) against the JAX
+    runtimes' own, which runs inside one ``jax.jit``
+    (``weights.materialize_bundle``), byte for byte, on a sub-stack of the
+    T3 q/k/v weights ([4, 1024, 1024] each → a fused [4, 1024, 3072]). A
+    true division of ``amax`` by 127 gives other scales here (the eager
+    JAX form)."""
+    from vocalie_tts_tpu.models.common.ar_runtime import maybe_quantize_lm as jax_mq
+    from vocalie_tts_tpu_torch.models.common.ar_runtime import maybe_quantize_lm
+
+    monkeypatch.setenv("VOCALIE_WEIGHT_INT8", "1")
+    monkeypatch.delenv("VOCALIE_FUSE_QKV", raising=False)
+    rng = np.random.default_rng(23)
+    layers = {k: (rng.standard_normal((4, 1024, 1024)) / 32).astype(jnp.bfloat16)
+              for k in ("wq", "wk", "wv")}
+    ref = jax.device_get(jax.jit(jax_mq)({"lm": {"layers": layers}}))["lm"]["layers"]["wqkv"]
+    got = maybe_quantize_lm({"lm": {"layers": tree_to_torch(layers)}})["lm"]["layers"]["wqkv"]
+    assert got["q"].shape == (4, 1024, 3072)
+    assert np.array_equal(got["s"].numpy().view(np.int32), np.asarray(ref["s"]).view(np.int32))
+    assert np.array_equal(got["q"].numpy(), np.asarray(ref["q"]))
 
 
 def _embeds(seed, b, s, d):

@@ -50,4 +50,12 @@ def cosyvoice_bundle(lm_bundle: Any, decoder: Any, device="cpu") -> Any:
             "decoder": {"t2w": tree_to_torch(decoder["t2w"], device)}}
 
 
-__all__ = ["to_torch", "tree_to_torch", "cosyvoice_bundle"]
+def xtts_bundle(gpt: Any, decoder: Any, device="cpu") -> Any:
+    """The XTTS runtime's params from the JAX trees of ``init_xtts`` (``lm``
+    with its GPT-2 leaves, ``text_emb``, ``text_pos``, ``cond_proj``,
+    ``cond_bias``) and ``init_vq_decoder`` (stage 2 and the speaker
+    encoder), before any runtime transform: ``{"gpt": ..., "decoder": ...}``."""
+    return {"gpt": tree_to_torch(gpt, device), "decoder": tree_to_torch(decoder, device)}
+
+
+__all__ = ["to_torch", "tree_to_torch", "cosyvoice_bundle", "xtts_bundle"]

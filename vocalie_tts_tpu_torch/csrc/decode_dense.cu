@@ -1,11 +1,16 @@
 // int8-native dense decode-step kernels: B4 (one int8 product), B3 (RMSNorm
-// + the fused int8 qkv product) and B2 (the whole SwiGLU layer tail + the
-// NEXT layer's RMSNorm and qkv product).
+// + the fused int8 qkv product), B2 (the whole SwiGLU layer tail + the NEXT
+// layer's RMSNorm and qkv product), and their GPT-2 (XTTS) siblings: B9a
+// (LayerNorm + qkv), B9b (the GELU layer tail + the next layer's LayerNorm
+// and qkv) and B9c (the GELU tail alone).
 //
 // Replaces, in vocalie_tts_tpu/ops/decode_dense.py:
 //   B4 dense_int8_stacked             (def :116, pallas_call :143)
 //   B3 qkv_norm_int8_stacked          (def :269, pallas_call :302)
 //   B2 tail_swiglu_qkv_int8_stacked   (def :519, pallas_call :611)
+//   B9a qkv_lnorm_int8_stacked        (def :652, pallas_call :686)
+//   B9c tail_gelu_int8_stacked        (def :752, pallas_call :811)
+//   B9b tail_gelu_qkv_int8_stacked    (def :985, pallas_call :1084)
 // The math is theirs, step for step:
 //   * activations are quantized per row: s = max(max|x| / 127, 1e-8),
 //     q = round_half_even(x / s) (an IEEE divide, no clip);
@@ -19,14 +24,24 @@
 //   * the SwiGLU hidden silu(g) * u is quantized per (row, d_ff TILE), not per
 //     row: the down-projection sums one f32 part per tile,
 //     acc = d_0 + d_1 + ..., d_t = float(y_t) * s_t, then x2 + acc * s_down;
-//   * the next layer's qkv reads layer min(l + 1, L - 1).
+//   * the next layer's qkv reads layer min(l + 1, L - 1);
+//   * LayerNorm (B9): mean, then the mean of the squared centred values,
+//     each summed in double and rounded to f32 once, then
+//     ((x - mean) * (1 / sqrt(var + eps))) * g + b;
+//   * the GELU tail (B9): o = y * s_a * s_o + bo, x2 = x + o;
+//     u = y * s_h * s_u + bu; h = tanh-GELU(u) as jax.nn.gelu spells it,
+//     u * (0.5 * (1 + tanhf(sqrt(2/pi) * (u + 0.044715 * (u * u) * u))));
+//     h quantized per (row, d_ff tile) as for SwiGLU; out = (x2 + acc * s_d)
+//     + bd. Every f32 step is an explicit IEEE intrinsic, so nvcc contracts
+//     nothing into an FMA and the plain PyTorch version rounds alike.
 // Weights keep the JAX layout [L, K, N] (N contiguous); the layer is an
 // offset into the stacked array, nothing is copied.
 //
 // Bound: bytes. At the decode shapes (b = 16) every weight byte is used for
 // 16 multiply-adds, far below the ~590 int8 operations per byte at which
 // Hopper's tensor cores become the limit. B2 at full width reads 16.8 MB of
-// int8 weights per call, B3 3.1 MB, B4 (the lm_head) 1.2 MB.
+// int8 weights per call, B3 3.1 MB, B4 (the lm_head) 1.2 MB; at the XTTS
+// layer (b = 8) B9b reads 12.6 MB, B9c 9.4 MB, B9a 3.1 MB.
 //
 // Design (first, simple version). The TPU ran each of these as one
 // sequential grid carrying scratch from step to step; GPU blocks run in no
@@ -45,8 +60,13 @@
 //                int32 partial per (row, column);
 //   gemv_finish  sums the partials of each K tile (int32, exact), then the
 //                f32 epilogue above;
-//   swiglu_quant one block per (row, d_ff tile): silu(g) * u, amax, int8.
-// B4 and B3 are 3 launches, B2 is 12. No tensor cores, no TMA.
+//   swiglu_quant one block per (row, d_ff tile): silu(g) * u, amax, int8;
+//   ln_quant     one block per row: LayerNorm, amax, int8 + scale;
+//   gelu_quant   one block per (row, d_ff tile): tanh-GELU, amax, int8.
+// The finish takes an optional bias, added before the residual (the
+// o-projection, the fc) or after it (the down-projection), as JAX orders
+// them. B4, B3 and B9a are 3 launches, B2 and B9b 12, B9c 9. No tensor
+// cores, no TMA.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -219,6 +239,8 @@ __global__ void __launch_bounds__(FIN_THREADS) gemv_finish_kernel(
     const int* __restrict__ part, int splits_per_tile, int n_tiles,
     const float* __restrict__ xs,                  // [b, n_tiles] activation scales
     const float* __restrict__ s,                   // [N] weight scales
+    const void* __restrict__ bias, int bias_kind,  // [N] or null
+    int bias_last,                                 // add the bias after the residual
     const void* __restrict__ resid, int resid_kind,  // [b, N] or null
     float* __restrict__ out, int b, int N) {       // [b, N]
   const long long i = (long long)blockIdx.x * FIN_THREADS + threadIdx.x;
@@ -234,7 +256,9 @@ __global__ void __launch_bounds__(FIN_THREADS) gemv_finish_kernel(
     acc = t == 0 ? dt : __fadd_rn(acc, dt);
   }
   float v = __fmul_rn(acc, s[n]);
+  if (bias_kind != KIND_NONE && !bias_last) v = __fadd_rn(v, load_f(bias, bias_kind, n));
   if (resid_kind != KIND_NONE) v = __fadd_rn(load_f(resid, resid_kind, i), v);
+  if (bias_kind != KIND_NONE && bias_last) v = __fadd_rn(v, load_f(bias, bias_kind, n));
   out[i] = v;
 }
 
@@ -261,6 +285,74 @@ __global__ void __launch_bounds__(QUANT_THREADS) swiglu_quant_kernel(
     const float gv = g[c];
     const float h = __fmul_rn(__fmul_rn(gv, __frcp_rn(__fadd_rn(1.0f, expf(-gv)))), u[c]);
     qo[c] = (int8_t)__float2int_rn(__fdiv_rn(h, s));
+  }
+  if (threadIdx.x == 0) hs[r * n_tiles + t] = s;
+}
+
+// ── LayerNorm + per-row quantization (B9) ────────────────────────────────
+
+__global__ void __launch_bounds__(QUANT_THREADS) ln_quant_kernel(
+    const void* __restrict__ x, int x_kind,      // [b, d]
+    const void* __restrict__ g, const void* __restrict__ bb, int n_kind,  // [d] gain, bias
+    float eps, int d,
+    int8_t* __restrict__ q,                      // [b, d]
+    float* __restrict__ qs) {                    // [b]
+  __shared__ float red[QUANT_THREADS / 32];
+  __shared__ double red_d[QUANT_THREADS / 32];
+  const long long base = (long long)blockIdx.x * d;
+  double sum = 0.0;
+  for (int i = threadIdx.x; i < d; i += QUANT_THREADS) sum += (double)load_f(x, x_kind, base + i);
+  const float mean = (float)(block_sum<QUANT_THREADS>(sum, red_d) / (double)d);
+  double ss = 0.0;
+  for (int i = threadIdx.x; i < d; i += QUANT_THREADS) {
+    const double c = (double)__fsub_rn(load_f(x, x_kind, base + i), mean);
+    ss += c * c;
+  }
+  const float var = (float)(block_sum<QUANT_THREADS>(ss, red_d) / (double)d);
+  const float inv = __frcp_rn(__fsqrt_rn(__fadd_rn(var, eps)));
+  // the normed value is recomputed in each pass (same ops, same bits)
+  float amax = 0.0f;
+  for (int i = threadIdx.x; i < d; i += QUANT_THREADS) {
+    const float c = __fsub_rn(load_f(x, x_kind, base + i), mean);
+    const float h = __fadd_rn(__fmul_rn(__fmul_rn(c, inv), load_f(g, n_kind, i)),
+                              load_f(bb, n_kind, i));
+    amax = fmaxf(amax, fabsf(h));
+  }
+  const float s = quant_scale(block_max<QUANT_THREADS>(amax, red));
+  for (int i = threadIdx.x; i < d; i += QUANT_THREADS) {
+    const float c = __fsub_rn(load_f(x, x_kind, base + i), mean);
+    const float h = __fadd_rn(__fmul_rn(__fmul_rn(c, inv), load_f(g, n_kind, i)),
+                              load_f(bb, n_kind, i));
+    q[base + i] = (int8_t)__float2int_rn(__fdiv_rn(h, s));
+  }
+  if (threadIdx.x == 0) qs[blockIdx.x] = s;
+}
+
+// ── tanh-GELU hidden, quantized per (row, d_ff tile) (B9) ────────────────
+
+#define GELU_C 0x1.988454p-1f   // float32(sqrt(2 / pi)), as JAX rounds it
+#define GELU_A 0x1.6e4e26p-5f   // float32(0.044715)
+
+__device__ __forceinline__ float gelu_tanh(float u) {
+  const float u3 = __fmul_rn(__fmul_rn(u, u), u);
+  const float t = tanhf(__fmul_rn(GELU_C, __fadd_rn(u, __fmul_rn(GELU_A, u3))));
+  return __fmul_rn(u, __fmul_rn(0.5f, __fadd_rn(1.0f, t)));
+}
+
+__global__ void __launch_bounds__(QUANT_THREADS) gelu_quant_kernel(
+    const float* __restrict__ u,      // [b, F]
+    int F, int tile,
+    int8_t* __restrict__ hq,          // [b, F]
+    float* __restrict__ hs) {         // [b, F / tile]
+  __shared__ float red[QUANT_THREADS / 32];
+  const int t = blockIdx.x, r = blockIdx.y, n_tiles = gridDim.x;
+  const float* ut = u + (long long)r * F + (long long)t * tile;
+  float amax = 0.0f;
+  for (int c = threadIdx.x; c < tile; c += QUANT_THREADS) amax = fmaxf(amax, fabsf(gelu_tanh(ut[c])));
+  const float s = quant_scale(block_max<QUANT_THREADS>(amax, red));
+  int8_t* qo = hq + (long long)r * F + (long long)t * tile;
+  for (int c = threadIdx.x; c < tile; c += QUANT_THREADS) {
+    qo[c] = (int8_t)__float2int_rn(__fdiv_rn(gelu_tanh(ut[c]), s));
   }
   if (threadIdx.x == 0) hs[r * n_tiles + t] = s;
 }
@@ -299,9 +391,18 @@ struct Carver {
   }
 };
 
+// the finish's optional bias: added before the residual or, with last = 1,
+// after it
+struct Bias {
+  const void* p;
+  int kind;
+  int last;
+};
+static const Bias NO_BIAS = {nullptr, KIND_NONE, 0};
+
 static int launch_gemv(cudaStream_t st, const int8_t* a8, const float* xs, int n_tiles, int b,
-                       int K, const int8_t* w, const float* s, int N, const void* resid,
-                       int resid_kind, float* out, int* part) {
+                       int K, const int8_t* w, const float* s, int N, Bias bias,
+                       const void* resid, int resid_kind, float* out, int* part) {
   const int kt = K / n_tiles;
   const int kb = pick_kb(kt, K, N);
   if (kb == 0) return (int)cudaErrorInvalidValue;
@@ -311,19 +412,24 @@ static int launch_gemv(cudaStream_t st, const int8_t* a8, const float* xs, int n
   if (e != cudaSuccess) return (int)e;
   const long long bn = (long long)b * N;
   gemv_finish_kernel<<<(unsigned)((bn + FIN_THREADS - 1) / FIN_THREADS), FIN_THREADS, 0, st>>>(
-      part, kt / kb, n_tiles, xs, s, resid, resid_kind, out, b, N);
+      part, kt / kb, n_tiles, xs, s, bias.p, bias.kind, bias.last, resid, resid_kind, out, b, N);
   return (int)cudaGetLastError();
 }
 
-// normquant(x) . W + epilogue: 3 launches
-static int launch_dense(cudaStream_t st, const void* x, int x_kind, const void* nw, int nw_kind,
-                        float eps, int b, int K, const int8_t* w, const float* s, int N,
-                        const void* resid, int resid_kind, float* out, int8_t* q8, float* xs,
-                        int* part) {
-  norm_quant_kernel<<<b, QUANT_THREADS, 0, st>>>(x, x_kind, nw, nw_kind, eps, K, q8, xs);
+// normquant(x) . W + epilogue: 3 launches. The norm: none (nw null), RMS
+// (nw), or LayerNorm (nw the gain, nb the bias).
+static int launch_dense(cudaStream_t st, const void* x, int x_kind, const void* nw,
+                        const void* nb, int nw_kind, float eps, int b, int K, const int8_t* w,
+                        const float* s, int N, Bias bias, const void* resid, int resid_kind,
+                        float* out, int8_t* q8, float* xs, int* part) {
+  if (nb != nullptr) {
+    ln_quant_kernel<<<b, QUANT_THREADS, 0, st>>>(x, x_kind, nw, nb, nw_kind, eps, K, q8, xs);
+  } else {
+    norm_quant_kernel<<<b, QUANT_THREADS, 0, st>>>(x, x_kind, nw, nw_kind, eps, K, q8, xs);
+  }
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  return launch_gemv(st, q8, xs, 1, b, K, w, s, N, resid, resid_kind, out, part);
+  return launch_gemv(st, q8, xs, 1, b, K, w, s, N, bias, resid, resid_kind, out, part);
 }
 
 static bool shapes_ok(int b, int K, int N) {
@@ -352,10 +458,33 @@ extern "C" int vt_dense_int8(const void* x, int x_kind, const void* nw_all, int 
   const void* nw = nw_kind == KIND_NONE
                        ? nullptr
                        : reinterpret_cast<const char*>(nw_all) + (long long)layer * K * esz;
-  return launch_dense((cudaStream_t)stream, x, x_kind, nw, nw_kind, eps, b, K,
+  return launch_dense((cudaStream_t)stream, x, x_kind, nw, nullptr, nw_kind, eps, b, K,
                       reinterpret_cast<const int8_t*>(w_all) + (long long)layer * K * N,
                       reinterpret_cast<const float*>(s_all) + (long long)layer * N, N,
-                      nullptr, KIND_NONE, reinterpret_cast<float*>(out), q8, xs, part);
+                      NO_BIAS, nullptr, KIND_NONE, reinterpret_cast<float*>(out), q8, xs, part);
+}
+
+// B9a: out = the layer's int8 product of the LayerNormed rows of x (gain
+// g_all[layer], bias b_all[layer]), [b, N] f32. Workspace: vt_dense_workspace.
+extern "C" int vt_qkv_lnorm_int8(const void* x, int x_kind, const void* g_all,
+                                 const void* b_all, int norm_kind, float eps, const void* w_all,
+                                 const void* s_all, int layer, int b, int K, int N, void* out,
+                                 void* ws, long long ws_bytes, void* stream) {
+  if (!shapes_ok(b, K, N) || norm_kind == KIND_NONE ||
+      ws_bytes < vt_dense_workspace(b, K, N)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  Carver c{reinterpret_cast<char*>(ws)};
+  int8_t* q8 = c.take<int8_t>((long long)b * K);
+  float* xs = c.take<float>((long long)b * 4);
+  int* part = c.take<int>(part_bytes(b, K, K, N));
+  const long long off = (long long)layer * K * (norm_kind == KIND_BF16 ? 2 : 4);
+  return launch_dense((cudaStream_t)stream, x, x_kind,
+                      reinterpret_cast<const char*>(g_all) + off,
+                      reinterpret_cast<const char*>(b_all) + off, norm_kind, eps, b, K,
+                      reinterpret_cast<const int8_t*>(w_all) + (long long)layer * K * N,
+                      reinterpret_cast<const float*>(s_all) + (long long)layer * N, N,
+                      NO_BIAS, nullptr, KIND_NONE, reinterpret_cast<float*>(out), q8, xs, part);
 }
 
 static bool tail_ok(int b, int d_attn, int d, int F, int tile, int Q) {
@@ -415,14 +544,15 @@ extern "C" int vt_tail_swiglu_qkv_int8(
   // o-projection + residual
   w8 = reinterpret_cast<const int8_t*>(wo) + (long long)layer * d_attn * d;
   sc = reinterpret_cast<const float*>(wos) + (long long)layer * d;
-  int rc = launch_dense(st, attn, KIND_F32, nullptr, KIND_NONE, eps, b, d_attn, w8, sc, d, x,
-                        x_kind, x2, q8, xs, part);
+  int rc = launch_dense(st, attn, KIND_F32, nullptr, nullptr, KIND_NONE, eps, b, d_attn, w8, sc,
+                        d, NO_BIAS, x, x_kind, x2, q8, xs, part);
   if (rc) return rc;
   // mlp norm + gate | up
   w8 = reinterpret_cast<const int8_t*>(wgu) + (long long)layer * d * 2 * F;
   sc = reinterpret_cast<const float*>(sgu) + (long long)layer * 2 * F;
   rc = launch_dense(st, x2, KIND_F32, reinterpret_cast<const char*>(mw) + (long long)layer * d * esz,
-                    norm_kind, eps, b, d, w8, sc, 2 * F, nullptr, KIND_NONE, gu, q8, xs, part);
+                    nullptr, norm_kind, eps, b, d, w8, sc, 2 * F, NO_BIAS, nullptr, KIND_NONE, gu,
+                    q8, xs, part);
   if (rc) return rc;
   // silu(g) * u, quantized per (row, tile)
   swiglu_quant_kernel<<<dim3(n_tiles, b), QUANT_THREADS, 0, st>>>(gu, F, tile, hq, hs);
@@ -431,14 +561,115 @@ extern "C" int vt_tail_swiglu_qkv_int8(
   // down-projection, one f32 part per tile, + residual
   w8 = reinterpret_cast<const int8_t*>(wd) + (long long)layer * F * d;
   sc = reinterpret_cast<const float*>(sd) + (long long)layer * d;
-  rc = launch_gemv(st, hq, hs, n_tiles, b, F, w8, sc, d, x2, KIND_F32,
+  rc = launch_gemv(st, hq, hs, n_tiles, b, F, w8, sc, d, NO_BIAS, x2, KIND_F32,
                    reinterpret_cast<float*>(x_out), part);
   if (rc) return rc;
   // the next layer's norm + qkv
   w8 = reinterpret_cast<const int8_t*>(wq) + (long long)nxt * d * Q;
   sc = reinterpret_cast<const float*>(sq) + (long long)nxt * Q;
   return launch_dense(st, x_out, KIND_F32,
-                      reinterpret_cast<const char*>(nw) + (long long)nxt * d * esz, norm_kind, eps,
-                      b, d, w8, sc, Q, nullptr, KIND_NONE, reinterpret_cast<float*>(qkv_out), q8,
-                      xs, part);
+                      reinterpret_cast<const char*>(nw) + (long long)nxt * d * esz, nullptr,
+                      norm_kind, eps, b, d, w8, sc, Q, NO_BIAS, nullptr, KIND_NONE,
+                      reinterpret_cast<float*>(qkv_out), q8, xs, part);
+}
+
+// ── B9b / B9c: the GPT-2 layer tail ──────────────────────────────────────
+
+static bool gelu_ok(int b, int d_attn, int d, int F, int tile, int Q) {
+  return shapes_ok(b, d_attn, d) && shapes_ok(b, d, F) && (Q == 0 || shapes_ok(b, d, Q)) &&
+         tile >= 32 && tile % 32 == 0 && F % tile == 0;
+}
+
+// Q = 0: B9c (no next-layer qkv)
+extern "C" long long vt_tail_gelu_workspace(int b, int d_attn, int d, int F, int tile, int Q) {
+  if (!gelu_ok(b, d_attn, d, F, tile, Q)) return -1;
+  const int mx = d_attn > d ? d_attn : d;
+  long long part = part_bytes(b, d_attn, d_attn, d);
+  const long long p2 = part_bytes(b, d, d, F);
+  const long long p3 = part_bytes(b, F, tile, d);
+  const long long p4 = Q ? part_bytes(b, d, d, Q) : 0;
+  if (part < 0 || p2 < 0 || p3 < 0 || p4 < 0) return -1;
+  if (p2 > part) part = p2;
+  if (p3 > part) part = p3;
+  if (p4 > part) part = p4;
+  return align256((long long)b * mx) + align256((long long)b * 4) +       // q8, its scales
+         align256((long long)b * d * 4) +                                 // x2
+         align256((long long)b * F * 4) +                                 // u
+         align256((long long)b * F) + align256((long long)b * (F / tile) * 4) +  // hidden int8
+         part;
+}
+
+// B9c (wq == null, Q = 0) and B9b:
+//   x2   = x + (q(attn) . Wo[l] (* scales) + bo[l])
+//   u    = q(ln(x2, lg[l], lb[l])) . Wu[l] (* scales) + bu[l]
+//   out  = (x2 + sum_t q_t(gelu(u)) . Wd[l] (* scales)) + bd[l]
+//   qkv  = q(ln(out, ng[nxt], nb[nxt])) . Wq[nxt],  nxt = min(l + 1, L - 1)
+// bias_kind is the dtype of bo / bu / bd, norm_kind that of the LayerNorm
+// gains and biases.
+extern "C" int vt_tail_gelu_int8(
+    const void* attn, const void* x, int x_kind,
+    const void* wo, const void* wos, const void* bo, const void* lg, const void* lb,
+    const void* wu, const void* su, const void* bu, const void* wd, const void* sd,
+    const void* bd, int bias_kind, const void* ng, const void* nb, const void* wq,
+    const void* sq, int norm_kind, int layer, int L, int b, int d_attn, int d, int F, int tile,
+    int Q, float eps, void* x_out, void* qkv_out, void* ws, long long ws_bytes, void* stream) {
+  if (!gelu_ok(b, d_attn, d, F, tile, Q) || layer < 0 || layer >= L ||
+      bias_kind == KIND_NONE || norm_kind == KIND_NONE || (Q != 0) != (wq != nullptr) ||
+      ws_bytes < vt_tail_gelu_workspace(b, d_attn, d, F, tile, Q)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t st = (cudaStream_t)stream;
+  const int mx = d_attn > d ? d_attn : d;
+  const int n_tiles = F / tile;
+  const int nxt = layer + 1 < L ? layer + 1 : L - 1;
+  const int nsz = norm_kind == KIND_BF16 ? 2 : 4;
+  const int bsz = bias_kind == KIND_BF16 ? 2 : 4;
+  const char* bo_c = reinterpret_cast<const char*>(bo);
+  const char* bu_c = reinterpret_cast<const char*>(bu);
+  const char* bd_c = reinterpret_cast<const char*>(bd);
+  Carver c{reinterpret_cast<char*>(ws)};
+  int8_t* q8 = c.take<int8_t>((long long)b * mx);
+  float* xs = c.take<float>((long long)b * 4);
+  float* x2 = c.take<float>((long long)b * d * 4);
+  float* u = c.take<float>((long long)b * F * 4);
+  int8_t* hq = c.take<int8_t>((long long)b * F);
+  float* hs = c.take<float>((long long)b * n_tiles * 4);
+  int* part = reinterpret_cast<int*>(c.p);
+  const int8_t* w8;
+  const float* sc;
+
+  // o-projection + bias, + residual
+  w8 = reinterpret_cast<const int8_t*>(wo) + (long long)layer * d_attn * d;
+  sc = reinterpret_cast<const float*>(wos) + (long long)layer * d;
+  int rc = launch_dense(st, attn, KIND_F32, nullptr, nullptr, KIND_NONE, eps, b, d_attn, w8, sc,
+                        d, Bias{bo_c + (long long)layer * d * bsz, bias_kind, 0}, x, x_kind, x2,
+                        q8, xs, part);
+  if (rc) return rc;
+  // mlp LayerNorm + fc + bias
+  w8 = reinterpret_cast<const int8_t*>(wu) + (long long)layer * d * F;
+  sc = reinterpret_cast<const float*>(su) + (long long)layer * F;
+  rc = launch_dense(st, x2, KIND_F32, reinterpret_cast<const char*>(lg) + (long long)layer * d * nsz,
+                    reinterpret_cast<const char*>(lb) + (long long)layer * d * nsz, norm_kind, eps,
+                    b, d, w8, sc, F, Bias{bu_c + (long long)layer * F * bsz, bias_kind, 0},
+                    nullptr, KIND_NONE, u, q8, xs, part);
+  if (rc) return rc;
+  // tanh-GELU, quantized per (row, tile)
+  gelu_quant_kernel<<<dim3(n_tiles, b), QUANT_THREADS, 0, st>>>(u, F, tile, hq, hs);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  // down-projection, one f32 part per tile, + residual, + bias
+  w8 = reinterpret_cast<const int8_t*>(wd) + (long long)layer * F * d;
+  sc = reinterpret_cast<const float*>(sd) + (long long)layer * d;
+  rc = launch_gemv(st, hq, hs, n_tiles, b, F, w8, sc, d,
+                   Bias{bd_c + (long long)layer * d * bsz, bias_kind, 1}, x2, KIND_F32,
+                   reinterpret_cast<float*>(x_out), part);
+  if (rc || Q == 0) return rc;
+  // the next layer's LayerNorm + qkv
+  w8 = reinterpret_cast<const int8_t*>(wq) + (long long)nxt * d * Q;
+  sc = reinterpret_cast<const float*>(sq) + (long long)nxt * Q;
+  return launch_dense(st, x_out, KIND_F32,
+                      reinterpret_cast<const char*>(ng) + (long long)nxt * d * nsz,
+                      reinterpret_cast<const char*>(nb) + (long long)nxt * d * nsz, norm_kind, eps,
+                      b, d, w8, sc, Q, NO_BIAS, nullptr, KIND_NONE,
+                      reinterpret_cast<float*>(qkv_out), q8, xs, part);
 }

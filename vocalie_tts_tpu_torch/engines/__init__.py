@@ -4,7 +4,8 @@ sharing that registry would replace the JAX one."""
 
 from vocalie_tts_tpu_torch.engines.chatterbox import ChatterboxEngine
 from vocalie_tts_tpu_torch.engines.cosyvoice import CosyVoiceEngine
+from vocalie_tts_tpu_torch.engines.xtts import XTTSEngine
 
-ENGINES = {"chatterbox": ChatterboxEngine, "cosyvoice": CosyVoiceEngine}
+ENGINES = {"chatterbox": ChatterboxEngine, "cosyvoice": CosyVoiceEngine, "xtts": XTTSEngine}
 
-__all__ = ["ENGINES", "ChatterboxEngine", "CosyVoiceEngine"]
+__all__ = ["ENGINES", "ChatterboxEngine", "CosyVoiceEngine", "XTTSEngine"]

@@ -21,6 +21,11 @@ from vocalie_tts_tpu_torch.device import resolve_device
 from vocalie_tts_tpu_torch.utils.env import bool_env
 
 
+class EngineUnavailableError(RuntimeError):
+    """The request cannot run on this engine as given (the JAX engines'
+    ``EngineUnavailableError``)."""
+
+
 def assets_dir(engine_id: str) -> Path:
     env = os.environ.get("VOCALIE_ASSETS_DIR")
     base = Path(env).expanduser() if env else Path(__file__).resolve().parents[2] / ".assets"
@@ -65,4 +70,4 @@ class ResidentEngine:
         self.runtime().warmup()
 
 
-__all__ = ["ResidentEngine", "assets_dir"]
+__all__ = ["ResidentEngine", "EngineUnavailableError", "assets_dir"]

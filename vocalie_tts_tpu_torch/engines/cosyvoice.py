@@ -13,7 +13,7 @@ from __future__ import annotations
 
 from typing import Any, Dict, List, Optional
 
-from vocalie_tts_tpu_torch.engines.base import ResidentEngine
+from vocalie_tts_tpu_torch.engines.base import EngineUnavailableError, ResidentEngine
 
 COSYVOICE_DEFAULT_MODELS = {
     "clone": "FunAudioLLM/Fun-CosyVoice3-0.5B-2512",
@@ -51,11 +51,6 @@ INSTRUCT_CHOICES = [
 ]
 
 _MODES = {"instruct", "clone", "cross_lingual"}
-
-
-class EngineUnavailableError(RuntimeError):
-    """The request cannot run on this engine as given (the JAX engine's
-    ``EngineUnavailableError``)."""
 
 
 def _coerce_bool(value, default: bool) -> bool:

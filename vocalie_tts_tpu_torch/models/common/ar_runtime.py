@@ -1,14 +1,15 @@
 """Shared pieces of the AR runtimes (counterpart of the parts of
-``vocalie_tts_tpu/models/common/ar_runtime.py`` the Chatterbox- and
-CosyVoice-class paths use): the decode-path env knobs, the runtime weight
-transforms, prompt padding and the two-table prompt embedding, the
-streaming prefill and window functions, the speaker-embedding cache and
-the int16 PCM wire format."""
+``vocalie_tts_tpu/models/common/ar_runtime.py`` the Chatterbox-, CosyVoice-
+and XTTS-class paths use): the decode-path env knobs, the runtime weight
+transforms, prompt padding and the two-table prompt embedding, the generate
+(prefill + decode loop) and streaming functions, the speaker-embedding
+cache and the int16 PCM wire format."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+import os
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -108,6 +109,34 @@ def biased_step(lm_cfg, logit_bias: Optional[torch.Tensor] = None):
     return step
 
 
+def make_generate_fn(lm_cfg, logit_bias: Optional[torch.Tensor] = None):
+    """The prefill + decode-loop program of an AR LM (JAX
+    ``make_generate_fn``, ``ar_runtime.py:103-153``, without CFG):
+    ``fn(lm, embeds, prompt_lengths, *, cache_len, max_new, eos_token_id,
+    temperature, top_k=0, top_p=1.0, repetition_penalty=1.0, first_token=0,
+    generator=None)`` → ``(tokens [b, max_new] int32, lengths [b] int32)``."""
+    from vocalie_tts_tpu_torch.models.common.transformer import prefill
+    from vocalie_tts_tpu_torch.ops.generate import GenerateConfig, generate_tokens
+
+    step = biased_step(lm_cfg, logit_bias)
+
+    @torch.no_grad()
+    def generate(lm, embeds, prompt_lengths, *, cache_len: int, max_new: int, eos_token_id: int,
+                 temperature: float, top_k: int = 0, top_p: float = 1.0,
+                 repetition_penalty: float = 1.0, first_token: int = 0, generator=None):
+        _logits, cache = prefill(lm, lm_cfg, None, prompt_lengths, inputs_embeds=embeds,
+                                 cache_len=cache_len)
+        first = torch.full((embeds.shape[0],), first_token, dtype=torch.int64,
+                           device=embeds.device)
+        gen = GenerateConfig(max_new_tokens=max_new, eos_token_id=eos_token_id,
+                             temperature=temperature, top_k=top_k, top_p=top_p,
+                             repetition_penalty=repetition_penalty,
+                             vocab_size=lm_cfg.vocab_size)
+        return generate_tokens(lm, step, cache, first, gen, generator=generator)
+
+    return generate
+
+
 def make_streaming_fns(lm_cfg, logit_bias: Optional[torch.Tensor] = None):
     """(prefill_fn, window_fn) for incremental window decode:
 
@@ -140,20 +169,34 @@ def make_streaming_fns(lm_cfg, logit_bias: Optional[torch.Tensor] = None):
 
 
 class SpeakerEmbedCache:
-    """Speaker embeddings per reference voice. Without a reference the
-    JAX cache returns zeros, and so does this one; a reference needs the
-    speaker encoder, which the port does not have yet, so it raises."""
+    """Speaker embeddings per reference voice, keyed by (path, mtime). No
+    reference gives zeros, as in the JAX cache. A reference is loaded with
+    ``normalize_ref_audio`` (mono, 24 kHz, -20 dBFS) and embedded by
+    ``embed_fn(audio, sr)``; a runtime that passes no ``embed_fn`` lacks
+    what its references need (CosyVoice: the S3 speech tokenizer), and a
+    reference raises."""
 
-    def __init__(self, dim: int):
+    def __init__(self, dim: int,
+                 embed_fn: Optional[Callable[[np.ndarray, int], np.ndarray]] = None):
         self._dim = dim
+        self._embed_fn = embed_fn
+        self._cache: Dict[str, np.ndarray] = {}
 
     def get(self, voice_ref_path: Optional[str]) -> np.ndarray:
         if not voice_ref_path:
             return np.zeros((self._dim,), np.float32)
-        raise NotImplementedError(
-            "voice references (voice cloning, cross-lingual) need the speaker encoders and "
-            "the S3 speech tokenizer, which the port does not have yet"
-        )
+        if self._embed_fn is None:
+            raise NotImplementedError(
+                "voice references (voice cloning, cross-lingual) here need the speaker encoders "
+                "and the S3 speech tokenizer, which the port does not have yet"
+            )
+        key = f"{voice_ref_path}:{os.path.getmtime(voice_ref_path)}"
+        if key not in self._cache:
+            from vocalie_tts_tpu_torch.io.refs import normalize_ref_audio
+
+            audio, sr = normalize_ref_audio(voice_ref_path)
+            self._cache[key] = np.asarray(self._embed_fn(audio, sr))
+        return self._cache[key]
 
 
 def to_pcm16_wire(audio: torch.Tensor) -> torch.Tensor:
@@ -171,4 +214,4 @@ def from_pcm16_wire(arr) -> np.ndarray:
 
 
 __all__ = ["apply_runtime_env", "maybe_quantize_lm", "pad_token_batch", "embed_mixed_prompt",
-           "biased_step", "make_streaming_fns", "SpeakerEmbedCache", "to_pcm16_wire", "from_pcm16_wire"]
+           "biased_step", "make_generate_fn", "make_streaming_fns", "SpeakerEmbedCache", "to_pcm16_wire", "from_pcm16_wire"]

@@ -8,24 +8,24 @@ loop is a Python loop over that axis. ``prefill`` and ``decode_step``
 take the runtime's weights, with q/k/v and gate/up concatenated by
 ``fuse_decode_weights`` (``ar_runtime.maybe_quantize_lm``).
 
-The port serves the Chatterbox- and CosyVoice-class paths: RMSNorm,
-RoPE, GQA, SwiGLU, optional q/k/v biases (``attn_bias``, Qwen2-style),
-the int8 KV cache read by the decode-attention kernel (B1) and appended
-by the cache-update kernel (B5), flash attention (B6) in prefill at
-prompt buckets >= 512, and, with ``dense_kernel`` (the JAX package's
-default with int8 weights), the int8-native dense decode kernels: the
-layer-0 norm+qkv (B3), the fused layer tail + next qkv (B2) and the int8
-lm_head (B4, also for prefill's last-position logits). At batch 1 with
-MHA and d_head 64 the whole step after the layer-0 prologue is one
-kernel (B7, ``ops/decode_step.py``), as in the JAX package unless
-``VOCALIE_FUSED_STEP=0``. Where the shapes are not eligible
-(``_dense_dispatch``: d_model or the qkv width not a 128-multiple), the
-JAX package takes the ``_qdot`` path, and so does the port: that is the
-reference's own dispatch on shapes. Eligible shapes whose d_ff is not a
-128-multiple (B4 for qkv and o, ``_qdot`` for the MLP in the JAX
-package) raise: no family the port serves has them. The other family
-variants (LayerNorm/GELU, o/MLP biases, qk-norm, learned positions) are
-not ported yet.
+Two families: the Chatterbox/CosyVoice one (RMSNorm, RoPE, GQA, SwiGLU,
+optional q/k/v biases, ``attn_bias``) and the GPT-2 one of XTTS
+(``norm_type="layer"``: LayerNorm with bias; ``mlp_type="gelu"``: fc →
+tanh-GELU → proj; ``bias``: o-proj and MLP biases; ``pos_type="learned"``:
+an absolute position table, no RoPE; ``head_bias``: a bias on the head).
+Both run the int8 KV cache read by the decode-attention kernel (B1) and
+appended by the cache-update kernel (B5), flash attention (B6) in
+prefill at prompt buckets >= 512, and, with ``dense_kernel`` (the JAX
+package's default with int8 weights), the int8-native dense decode
+kernels of ``_dense_dispatch``: for SwiGLU the layer-0 norm+qkv (B3),
+the fused layer tail + next qkv (B2) or, at batch 1, the whole step (B7);
+for GPT-2 the layer-0 LayerNorm+qkv (B9a) and the GELU tail + next qkv
+(B9b), or with ``VOCALIE_MEGATAIL=0`` B9a and the tail alone (B9c) per
+layer; the int8 lm_head (B4, also for prefill's last-position logits)
+for both. Where the shapes are not eligible (d_model or the qkv width
+not a 128-multiple), the JAX package takes the ``_qdot`` path, and so
+does the port. Dispatches the port does not carry raise (see
+``_dense_dispatch``).
 
 The KV cache is a mutable object: ``decode_step`` writes the step's k/v
 into it IN PLACE and returns it (the JAX version returns a new cache).
@@ -41,9 +41,14 @@ import torch
 import torch.nn.functional as F
 
 from vocalie_tts_tpu_torch.ops.cache_update import cache_append_stacked
+from vocalie_tts_tpu_torch.device import div_const
 from vocalie_tts_tpu_torch.ops.decode_dense import (
     dense_int8_stacked,
+    gelu_tanh,
+    qkv_lnorm_int8_stacked,
     qkv_norm_int8_stacked,
+    tail_gelu_int8_stacked,
+    tail_gelu_qkv_int8_stacked,
     tail_swiglu_qkv_int8_stacked,
 )
 from vocalie_tts_tpu_torch.ops.decode_attention import decode_attention_stacked
@@ -80,6 +85,23 @@ class TransformerConfig:
     dense_kernel: bool = False
     #: additive q/k/v projection biases (the Qwen2 backbone of CosyVoice)
     attn_bias: bool = False
+    # ── the GPT-2 variant (the XTTS GPT), JAX ``transformer.py:71-91`` ──
+    #: "rms" or "layer" (LayerNorm with bias)
+    norm_type: str = "rms"
+    #: "swiglu" (gate · up) or "gelu" (fc → tanh-GELU → proj)
+    mlp_type: str = "swiglu"
+    #: biases on the o-projection and the MLP
+    bias: bool = False
+    #: "rope" or "learned" (absolute table; caller-built prompt embeds
+    #: carry their own positions, decode steps look the table up)
+    pos_type: str = "rope"
+    #: decode position: "absolute" (prompt + decoded) or
+    #: "decode_relative" (n_decoded + 1: XTTS mel positions)
+    pos_index: str = "absolute"
+    #: learned position table length (0 → max_seq_len)
+    pos_len: int = 0
+    #: a bias on the LM head, added after the vocabulary slice
+    head_bias: bool = False
     dtype: torch.dtype = torch.bfloat16
 
     @property
@@ -156,8 +178,8 @@ def _normal(shape, scale, dtype, generator, device):
 
 def init_params(cfg: TransformerConfig, *, generator=None, device="cpu") -> Params:
     """Random stacked transformer params with the JAX ``init_params``
-    tree, shapes and scales (rms/swiglu/rope; q/k/v biases at zero when
-    ``cfg.attn_bias``)."""
+    tree, shapes and scales (``transformer.py:208-257``): biases at zero,
+    LayerNorm biases at zero, the learned position table at 0.01."""
     L, dt = cfg.n_layers, cfg.dtype
 
     def stacked(d_in, d_out):
@@ -175,11 +197,25 @@ def init_params(cfg: TransformerConfig, *, generator=None, device="cpu") -> Para
             "wv": stacked(cfg.d_model, cfg.kv_dim),
             "wo": stacked(cfg.q_dim, cfg.d_model),
             "mlp_norm": torch.ones((L, cfg.d_model), device=device),
-            "w_gate": stacked(cfg.d_model, cfg.d_ff),
             "w_up": stacked(cfg.d_model, cfg.d_ff),
             "w_down": stacked(cfg.d_ff, cfg.d_model),
         },
     }
+    layers = params["layers"]
+    if cfg.mlp_type == "swiglu":
+        layers["w_gate"] = stacked(cfg.d_model, cfg.d_ff)
+    if cfg.head_bias:
+        params["lm_head_b"] = torch.zeros((cfg.vocab_size,), device=device)
+    if cfg.norm_type == "layer":
+        params["final_norm_b"] = torch.zeros((cfg.d_model,), device=device)
+        layers["attn_norm_b"] = torch.zeros((L, cfg.d_model), device=device)
+        layers["mlp_norm_b"] = torch.zeros((L, cfg.d_model), device=device)
+    if cfg.bias:
+        for name, width in (("bo", cfg.d_model), ("b_up", cfg.d_ff), ("b_down", cfg.d_model)):
+            layers[name] = torch.zeros((L, width), dtype=dt, device=device)
+    if cfg.pos_type == "learned":
+        params["pos_emb"] = _normal((cfg.pos_len or cfg.max_seq_len, cfg.d_model), 0.01, dt,
+                                    generator, device)
     if cfg.attn_bias:
         for name, width in (("bq", cfg.q_dim), ("bk", cfg.kv_dim), ("bv", cfg.kv_dim)):
             params["layers"][name] = torch.zeros((L, width), dtype=dt, device=device)
@@ -193,6 +229,18 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     xf = x.float()
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * weight).to(x.dtype)
+
+
+def _norm(x: torch.Tensor, cfg: TransformerConfig, weight: torch.Tensor,
+          bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """rms or layer norm per ``cfg.norm_type`` (LayerNorm in f32 with the
+    population variance and its bias, cast back)."""
+    if cfg.norm_type == "rms":
+        return rms_norm(x, weight, cfg.norm_eps)
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    var = xf.var(-1, keepdim=True, correction=0)
+    return ((xf - mean) * torch.rsqrt(var + cfg.norm_eps) * weight + bias).to(x.dtype)
 
 
 def rope_angles(positions: torch.Tensor, d_head: int, theta: float):
@@ -244,10 +292,14 @@ _QUANT_KEYS = {"lm_head", "cond_proj", "wq", "wk", "wv", "wo", "w_gate", "w_up",
 
 
 def _quantize_dense(w: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """[..., d_in, d_out] → {"q": int8, "s": f32 [..., 1, d_out]}."""
+    """[..., d_in, d_out] → {"q": int8, "s": f32 [..., 1, d_out]}, as the JAX
+    runtimes serve it: they quantize inside one ``jax.jit``
+    (``materialize_bundle``, ``materialize_params``), where XLA turns
+    ``amax / 127`` into a multiply by the f32 reciprocal (``div_const``);
+    ``wf / s`` stays a divide there and here."""
     wf = w.float()
     amax = wf.abs().amax(-2, keepdim=True)
-    s = torch.clamp(amax / _127(amax), min=1e-8)
+    s = torch.clamp(div_const(amax, 127.0), min=1e-8)
     q = torch.clamp(torch.round(wf / s), -127, 127).to(torch.int8)
     return {"q": q, "s": s}
 
@@ -285,7 +337,8 @@ def fuse_decode_weights(params: Params) -> Params:
     layers["wqkv"] = cat(["wq", "wk", "wv"])
     if "bq" in layers:
         layers["bqkv"] = cat(["bq", "bk", "bv"])
-    layers["w_gateup"] = cat(["w_gate", "w_up"])
+    if "w_gate" in layers:
+        layers["w_gateup"] = cat(["w_gate", "w_up"])
     out = {**params, "layers": layers}
     lm = out.get("lm_head")
     if isinstance(lm, dict):
@@ -295,6 +348,32 @@ def fuse_decode_weights(params: Params) -> Params:
                 "q": F.pad(lm["q"], (0, pad)),
                 "s": F.pad(lm["s"], (0, pad), value=1.0),
             }
+    return out
+
+
+def unfuse_decode_weights(params: Params, cfg: TransformerConfig) -> Params:
+    """The inverse of ``fuse_decode_weights`` (a pure concatenation), for
+    saving the canonical unfused tree."""
+    layers = dict(params["layers"])
+
+    def split(v, names, sizes):
+        lo = 0
+        for name, n in zip(names, sizes):
+            layers[name] = ({"q": v["q"][..., lo:lo + n], "s": v["s"][..., lo:lo + n]}
+                            if isinstance(v, dict) else v[..., lo:lo + n])
+            lo += n
+
+    qkv = (cfg.q_dim, cfg.kv_dim, cfg.kv_dim)
+    if "wqkv" in layers:
+        split(layers.pop("wqkv"), ("wq", "wk", "wv"), qkv)
+    if "bqkv" in layers:
+        split(layers.pop("bqkv"), ("bq", "bk", "bv"), qkv)
+    if "w_gateup" in layers:
+        split(layers.pop("w_gateup"), ("w_gate", "w_up"), (cfg.d_ff, cfg.d_ff))
+    out = {**params, "layers": layers}
+    lm = out.get("lm_head")
+    if isinstance(lm, dict) and lm["q"].shape[-1] != cfg.vocab_size:
+        out["lm_head"] = {k: v[..., : cfg.vocab_size] for k, v in lm.items()}
     return out
 
 
@@ -321,40 +400,58 @@ def _lm_head_logits(x2d: torch.Tensor, params: Params, cfg: TransformerConfig) -
         logits = dense_int8_stacked(x2d, w["q"][None], w["s"][None], 0)
     else:
         logits = _qdot(x2d, w, f32_out=True)
-    return logits[..., : cfg.vocab_size]
+    logits = logits[..., : cfg.vocab_size]
+    if "lm_head_b" in params:
+        logits = logits + params["lm_head_b"].to(logits.dtype)
+    return logits
 
 
 def _is_i8(w) -> bool:
     return isinstance(w, dict) and "q" in w
 
 
-#: the decode step's three paths (``_dense_dispatch``)
+#: the decode step's paths (``_dense_dispatch``)
 QDOT, MEGATAIL, FUSED_STEP = "qdot", "megatail", "fused_step"
+MEGATAIL_GELU, TAIL_GELU = "megatail_gelu", "tail_gelu"
 
 
 def _dense_dispatch(layers: Params, cfg: TransformerConfig, batch: int, max_len: int) -> str:
-    """Which path ``decode_step`` takes: ``_qdot`` per layer; the megatail
-    (B3 prologue, then B2 per layer); or, at batch 1, the whole step after
-    the B3 prologue as one kernel (B7). The JAX ``decode_step``'s choice
-    from the config and the shapes (``transformer.py:778-857``; the B7
-    conditions of ``maybe_head_stack_qkv``, ``:422-464``, which the JAX
-    generate programs apply at batch 1), for the port's family (rms,
-    SwiGLU, RoPE, no qk-norm, the int8 cache and decode kernel). Raises
-    where the JAX package would run a dispatch or a kernel the port
-    lacks."""
+    """Which path ``decode_step`` takes: ``_qdot`` per layer; for SwiGLU the
+    megatail (B3 prologue, then B2 per layer) or, at batch 1, the whole
+    step after the B3 prologue as one kernel (B7); for GPT-2 the GELU
+    megatail (B9a prologue, then B9b per layer) or, with
+    ``VOCALIE_MEGATAIL=0``, B9a and B9c per layer. The JAX ``decode_step``'s
+    choice from the config and the shapes (``transformer.py:778-857``; the
+    B7 conditions of ``maybe_head_stack_qkv``, ``:422-464``, which the JAX
+    generate programs apply at batch 1, for the SwiGLU family only), with
+    the int8 cache and decode kernel and no qk-norm. Raises where the JAX
+    package would run a dispatch or a kernel the port lacks."""
     dense = (cfg.dense_kernel and _is_i8(layers.get("wqkv")) and _is_i8(layers.get("wo"))
              and layers["wqkv"]["q"].shape[2] % 128 == 0 and cfg.d_model % 128 == 0)
     if not dense:
         return QDOT
+    mega = bool_env("VOCALIE_MEGATAIL", True)
+    if cfg.mlp_type == "gelu":
+        if not (cfg.bias and _is_i8(layers.get("w_up")) and _is_i8(layers.get("w_down"))
+                and cfg.d_ff % 128 == 0 and cfg.norm_type == "layer"):
+            raise NotImplementedError(
+                f"with the dense kernels on, a GELU MLP with bias={cfg.bias}, "
+                f"norm_type={cfg.norm_type!r}, d_ff={cfg.d_ff} or float MLP weights takes "
+                "dense_int8_stacked for the qkv and o-projections and _qdot or "
+                "mlp_gelu_int8_stacked (kernel B9d) for the MLP in the JAX package; the port "
+                "has not ported that dispatch; set VOCALIE_DENSE_KERNEL=0"
+            )
+        return MEGATAIL_GELU if mega else TAIL_GELU
     if not (_is_i8(layers.get("w_gateup")) and _is_i8(layers.get("w_down"))
-            and cfg.d_ff % 128 == 0):
+            and cfg.d_ff % 128 == 0 and cfg.norm_type == "rms" and not cfg.bias):
         raise NotImplementedError(
-            f"with the dense kernels on and d_ff={cfg.d_ff} (not a multiple of 128) or "
-            "float MLP weights, the JAX package runs dense_int8_stacked for the qkv and "
-            "o-projections and _qdot for the MLP; the port has not ported that dispatch "
-            "(no family it serves takes it); set VOCALIE_DENSE_KERNEL=0"
+            f"with the dense kernels on and d_ff={cfg.d_ff} (not a multiple of 128), "
+            "float MLP weights, a LayerNorm or biases, the JAX package runs "
+            "dense_int8_stacked for the qkv and o-projections and _qdot or "
+            "mlp_swiglu_int8_stacked (kernel B8) for the MLP; the port has not ported that "
+            "dispatch (no family it serves takes it); set VOCALIE_DENSE_KERNEL=0"
         )
-    if not bool_env("VOCALIE_MEGATAIL", True):
+    if not mega:
         raise NotImplementedError(
             "VOCALIE_MEGATAIL=0 runs tail_swiglu_int8_stacked + qkv_norm_int8_stacked "
             "per layer (kernel B8), which the port does not have yet; unset it"
@@ -363,7 +460,7 @@ def _dense_dispatch(layers: Params, cfg: TransformerConfig, batch: int, max_len:
     # at batch 1 the JAX generate programs install the head-stacked qkv
     # (maybe_head_stack_qkv) that sends decode_step to the whole-step kernel
     if (batch == 1 and cfg.n_heads == cfg.n_kv_heads and packed and max_len % 128 == 0
-            and bool_env("VOCALIE_FUSED_STEP", True)):
+            and cfg.pos_type == "rope" and bool_env("VOCALIE_FUSED_STEP", True)):
         return FUSED_STEP
     if ((packed or cfg.d_head % 128 == 0) and max_len % 128 == 0
             and bool_env("VOCALIE_MEGALAYER")):
@@ -381,7 +478,7 @@ def _layer(layers: Params, l: int) -> Params:
 
 
 def _block_qkv(layer: Params, x: torch.Tensor, cfg: TransformerConfig, cos, sin):
-    h = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
+    h = _norm(x, cfg, layer["attn_norm"], layer.get("attn_norm_b"))
     return _finish_qkv(cfg, _add_qkv_bias(cfg, _qdot(h, layer["wqkv"]), layer.get("bqkv")),
                        cos, sin)
 
@@ -394,25 +491,38 @@ def _add_qkv_bias(cfg: TransformerConfig, qkv: torch.Tensor, bqkv) -> torch.Tens
 
 
 def _finish_qkv(cfg: TransformerConfig, qkv, cos, sin):
-    """Split of the fused projection, head split + RoPE."""
+    """Split of the fused projection, head split + RoPE (none for learned
+    positions)."""
     q = qkv[..., : cfg.q_dim]
     k = qkv[..., cfg.q_dim : cfg.q_dim + cfg.kv_dim]
     v = qkv[..., cfg.q_dim + cfg.kv_dim :]
     q = _split_heads(q, cfg.n_heads, cfg.d_head)
     k = _split_heads(k, cfg.n_kv_heads, cfg.d_head)
     v = _split_heads(v, cfg.n_kv_heads, cfg.d_head)
+    if cfg.pos_type != "rope":
+        return q, k, v
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
 def _block_tail(layer: Params, x: torch.Tensor, attn: torch.Tensor, cfg: TransformerConfig):
     merged = _merge_heads(attn)
     o = _qdot(merged, layer["wo"])
+    if cfg.bias:
+        o = o + layer["bo"].to(o.dtype)
     x = x + o.to(x.dtype)
-    h2 = rms_norm(x, layer["mlp_norm"], cfg.norm_eps)
-    gu = _qdot(h2, layer["w_gateup"], f32_out=True)
-    gate, up = gu[..., : cfg.d_ff], gu[..., cfg.d_ff :]
-    hidden = (F.silu(gate) * up).to(x.dtype)
+    h2 = _norm(x, cfg, layer["mlp_norm"], layer.get("mlp_norm_b"))
+    if cfg.mlp_type == "swiglu":
+        gu = _qdot(h2, layer["w_gateup"], f32_out=True)
+        gate, up = gu[..., : cfg.d_ff], gu[..., cfg.d_ff :]
+        hidden = (F.silu(gate) * up).to(x.dtype)
+    else:   # GPT-2: fc → tanh-GELU → proj
+        up = _qdot(h2, layer["w_up"], f32_out=True)
+        if cfg.bias:
+            up = up + layer["b_up"].to(up.dtype)
+        hidden = gelu_tanh(up).to(x.dtype)
     mlp = _qdot(hidden, layer["w_down"], f32_out=True)
+    if cfg.bias:
+        mlp = mlp + layer["b_down"].to(mlp.dtype)
     return x + mlp.to(x.dtype)
 
 
@@ -430,13 +540,20 @@ def prefill(
 ) -> Tuple[torch.Tensor, StackedKVCache]:
     """Encode the prompt, fill a fresh int8 cache, return last-position
     logits. Attention runs the flash kernel at seq >= 512 and the naive
-    f32 softmax below (the JAX package's split: no kernel there)."""
+    f32 softmax below (the JAX package's split: no kernel there). With
+    learned positions, caller-built ``inputs_embeds`` carry their own
+    positions (XTTS adds its text and mel tables); token prompts get the
+    table's first ``s`` rows."""
     check_supported(cfg)
     x = params["tok_emb"][tokens] if inputs_embeds is None else inputs_embeds
     b, s = x.shape[:2]
     dev = x.device
-    positions = torch.arange(s, device=dev)[None, :].expand(b, s)
-    cos, sin = rope_angles(positions, cfg.d_head, cfg.rope_theta)
+    cos = sin = None
+    if cfg.pos_type == "rope":
+        positions = torch.arange(s, device=dev)[None, :].expand(b, s)
+        cos, sin = rope_angles(positions, cfg.d_head, cfg.rope_theta)
+    elif inputs_embeds is None:
+        x = x + params["pos_emb"][:s][None].to(x.dtype)
     attn_fn = flash_attention if s >= 512 else reference_attention
 
     cache = StackedKVCache.create(cfg.n_layers, b, cfg.n_kv_heads,
@@ -455,7 +572,7 @@ def prefill(
     cache.prompt_lengths = lengths.to(device=dev, dtype=torch.int32)
     cache.prompt_pad = s
 
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    x = _norm(x, cfg, params["final_norm"], params.get("final_norm_b"))
     last_idx = torch.clamp(cache.prompt_lengths.long() - 1, 0, s - 1)
     x_last = x[torch.arange(b, device=dev), last_idx]
     return _lm_head_logits(x_last, params, cfg), cache
@@ -474,16 +591,24 @@ def decode_step(
     quantized and appended in place by ONE kernel launch.
 
     With the dense path's megatail (``_dense_dispatch``), layer 0's raw
-    qkv comes from B3 and each layer's B2 returns the layer output and
-    the next layer's raw qkv, carried through the loop; the last layer's
-    (computed from its own weights, the clamped index) is dropped. With
-    the fused step, layer 0's q/k/v come from B3 and every layer runs in
-    B7 (``_fused_step``)."""
+    qkv comes from B3 (B9a for GPT-2) and each layer's B2 (B9b) returns
+    the layer output and the next layer's raw qkv, carried through the
+    loop; the last layer's (computed from its own weights, the clamped
+    index) is dropped. Without the megatail, GPT-2 takes B9a and B9c in
+    every layer. With the fused step, layer 0's q/k/v come from B3 and
+    every layer runs in B7 (``_fused_step``). Learned positions add the
+    table's row ``n_decoded + 1`` (``decode_relative``) or the row's
+    length (``absolute``) to the token embedding."""
     check_supported(cfg)
     b = token.shape[0]
     x = params["tok_emb"][token][:, None, :]  # [b, 1, d_model]
-    positions = cache.length[:, None]
-    cos, sin = rope_angles(positions, cfg.d_head, cfg.rope_theta)
+    cos = sin = None
+    if cfg.pos_type == "rope":
+        cos, sin = rope_angles(cache.length[:, None], cfg.d_head, cfg.rope_theta)
+    else:
+        pos = (torch.full((b,), cache.n_decoded + 1, device=x.device)
+               if cfg.pos_index == "decode_relative" else cache.length.long())
+        x = x + params["pos_emb"][pos][:, None, :].to(x.dtype)
     write_pos = cache.prompt_pad + cache.n_decoded
     if write_pos >= cache.max_len:
         raise ValueError(f"KV cache full ({cache.max_len} slots)")
@@ -493,17 +618,22 @@ def decode_step(
     group = cfg.n_heads // cfg.n_kv_heads
     lw = params["layers"]
     path = _dense_dispatch(lw, cfg, b, cache.max_len)
-    if path != QDOT:
+    if path in (MEGATAIL, FUSED_STEP):
         qkv_raw = qkv_norm_int8_stacked(x[:, 0], lw["attn_norm"], lw["wqkv"]["q"],
                                         lw["wqkv"]["s"], 0, eps=cfg.norm_eps)
     if path == FUSED_STEP:
         return _fused_step(params, cfg, cache, x, qkv_raw, cos, sin, bias2d, write_pos, sm_scale)
-    megatail = path == MEGATAIL
+    gelu = path in (MEGATAIL_GELU, TAIL_GELU)
+    if path == MEGATAIL_GELU:
+        qkv_raw = _qkv_lnorm(x, lw, cfg, 0)
+    megatail = path in (MEGATAIL, MEGATAIL_GELU)
 
     k_news, v_news = [], []
     for l in range(cfg.n_layers):
         layer = _layer(lw, l)
-        if megatail:
+        if path == TAIL_GELU:
+            qkv_raw = _qkv_lnorm(x, lw, cfg, l)
+        if path != QDOT:
             qkv = _add_qkv_bias(cfg, qkv_raw[:, None, :].to(x.dtype), layer.get("bqkv"))
             q, k_new, v_new = _finish_qkv(cfg, qkv, cos, sin)
         else:
@@ -515,7 +645,19 @@ def decode_step(
             qg, cache.k, cache.v, bias2d, l, cache.k_scale, cache.v_scale, kn, vn,
             valid_len=write_pos, sm_scale=sm_scale,
         )
-        if megatail:
+        if gelu:
+            # the f32 attention output goes in as it is (no cast to x.dtype)
+            tail = (attn.reshape(b, cfg.q_dim), x[:, 0], lw["wo"]["q"], lw["wo"]["s"], lw["bo"],
+                    lw["mlp_norm"], lw["mlp_norm_b"], lw["w_up"]["q"], lw["w_up"]["s"],
+                    lw["b_up"], lw["w_down"]["q"], lw["w_down"]["s"], lw["b_down"])
+            if megatail:
+                x_out, qkv_raw = tail_gelu_qkv_int8_stacked(
+                    *tail, lw["attn_norm"], lw["attn_norm_b"], lw["wqkv"]["q"],
+                    lw["wqkv"]["s"], l, eps=cfg.norm_eps)
+            else:
+                x_out = tail_gelu_int8_stacked(*tail, l, eps=cfg.norm_eps)
+            x = x_out[:, None, :].to(x.dtype)
+        elif megatail:
             # the f32 attention output goes in as it is (no cast to x.dtype)
             x_out, qkv_raw = tail_swiglu_qkv_int8_stacked(
                 attn.reshape(b, cfg.q_dim), x[:, 0],
@@ -532,6 +674,12 @@ def decode_step(
         v_news.append(vn)
     return _decode_step_finish(params, cfg, cache, x, torch.stack(k_news), torch.stack(v_news),
                                write_pos)
+
+
+def _qkv_lnorm(x, lw, cfg, l):
+    """B9a: LayerNorm + the fused int8 qkv of layer ``l`` → [b, d_qkv] f32."""
+    return qkv_lnorm_int8_stacked(x[:, 0], lw["attn_norm"], lw["attn_norm_b"], lw["wqkv"]["q"],
+                                  lw["wqkv"]["s"], l, eps=cfg.norm_eps)
 
 
 def _fused_step(params, cfg, cache, x, qkv_raw, cos, sin, bias2d, write_pos, sm_scale):
@@ -571,7 +719,7 @@ def _decode_step_finish(params, cfg, cache, x, k_news, v_news, write_pos):
     cache_append_stacked(cache.k, cache.v, cache.k_scale, cache.v_scale,
                          k_q, v_q, k_s, v_s, write_pos)
     cache.n_decoded += 1
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    x = _norm(x, cfg, params["final_norm"], params.get("final_norm_b"))
     return _lm_head_logits(x[:, 0], params, cfg), cache
 
 
@@ -586,6 +734,7 @@ __all__ = [
     "apply_rope",
     "quantize_weights_int8",
     "fuse_decode_weights",
+    "unfuse_decode_weights",
     "prefill",
     "decode_step",
 ]

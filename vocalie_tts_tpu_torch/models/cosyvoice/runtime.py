@@ -37,15 +37,15 @@ from vocalie_tts_tpu_torch.device import resolve_device
 from vocalie_tts_tpu_torch.models.common.ar_runtime import (
     SpeakerEmbedCache,
     apply_runtime_env,
-    biased_step,
     from_pcm16_wire,
+    make_generate_fn,
     make_streaming_fns,
     maybe_quantize_lm,
     pad_token_batch,
     to_pcm16_wire,
 )
 from vocalie_tts_tpu_torch.models.common.token2wav import Stage2Noise
-from vocalie_tts_tpu_torch.models.common.transformer import check_supported, prefill
+from vocalie_tts_tpu_torch.models.common.transformer import check_supported
 from vocalie_tts_tpu_torch.models.common.weights import checkpoint_exists, load_meta, load_params
 from vocalie_tts_tpu_torch.models.cosyvoice.model import (
     TOKENS_PER_SECOND,
@@ -57,7 +57,6 @@ from vocalie_tts_tpu_torch.models.cosyvoice.model import (
     speech_logit_bias,
     tokens_to_mel,
 )
-from vocalie_tts_tpu_torch.ops.generate import GenerateConfig, generate_tokens
 from vocalie_tts_tpu_torch.ops.kv_cache import pick_bucket, round_cache_len
 from vocalie_tts_tpu_torch.text.duration import estimate_duration
 from vocalie_tts_tpu_torch.text.frontend import build_prompt_ids, load_frontend
@@ -104,7 +103,7 @@ class CosyVoiceRuntime:
                                        text_vocab=cfg.text_vocab)
         self._gen = torch.Generator(device=device).manual_seed(seed)
         self._logit_bias = speech_logit_bias(cfg, device)
-        self._step = biased_step(cfg.lm, self._logit_bias)
+        self._generate = make_generate_fn(cfg.lm, self._logit_bias)
         self._stream_prefill, self._stream_window = make_streaming_fns(cfg.lm, self._logit_bias)
         self._spk_cache = SpeakerEmbedCache(cfg.speaker_dim)
 
@@ -299,19 +298,6 @@ class CosyVoiceRuntime:
 
     # ── internals ───────────────────────────────────────────────────────
 
-    @torch.no_grad()
-    def generate(self, lm, embeds, prompt_lengths, *, cache_len: int, max_new: int,
-                 temperature: float, top_k: int):
-        """Prefill + decode loop → (tokens [b, max_new] int32, lengths [b])."""
-        cfg = self.cfg
-        _logits, cache = prefill(lm, cfg.lm, None, prompt_lengths, inputs_embeds=embeds,
-                                 cache_len=cache_len)
-        first = torch.full((embeds.shape[0],), cfg.bos_speech, dtype=torch.int64,
-                           device=self.device)
-        gen = GenerateConfig(max_new_tokens=max_new, eos_token_id=cfg.eos_speech,
-                             temperature=temperature, top_k=top_k, vocab_size=cfg.lm.vocab_size)
-        return generate_tokens(lm, self._step, cache, first, gen, generator=self._gen)
-
     def _lm_tokens(self, texts, *, mode="instruct", instruct_text="", prompt_text="",
                    voice_ref_path=None, temperature=0.8, top_k=50):
         cfg, dev = self.cfg, self.device
@@ -326,9 +312,10 @@ class CosyVoiceRuntime:
         decode_bucket = pick_bucket(est_tokens, DECODE_BUCKETS)
         cache_len = round_cache_len(prompt_bucket + decode_bucket)
         embeds = build_prompt_embeds(bundle, cfg, torch.from_numpy(tokens).to(dev), spk_b)
-        out_tokens, tok_lengths = self.generate(
+        out_tokens, tok_lengths = self._generate(
             bundle["lm"], embeds, torch.from_numpy(lengths).to(dev), cache_len=cache_len,
-            max_new=decode_bucket, temperature=float(temperature), top_k=int(top_k))
+            max_new=decode_bucket, eos_token_id=cfg.eos_speech, temperature=float(temperature),
+            top_k=int(top_k), first_token=cfg.bos_speech, generator=self._gen)
         meta = {"engine": "cosyvoice", "mode": mode, "prompt_bucket": prompt_bucket,
                 "decode_bucket": decode_bucket}
         return out_tokens, tok_lengths, spk_b, meta

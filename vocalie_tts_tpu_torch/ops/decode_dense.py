@@ -1,7 +1,9 @@
-"""int8-native dense decode-step kernels (B2, B3, B4) and their plain versions.
+"""int8-native dense decode-step kernels (B2, B3, B4, B9a-c) and their plain
+versions.
 
 Counterpart of ``vocalie_tts_tpu/ops/decode_dense.py`` on the functions the
-Chatterbox-class serving path runs with ``dense_kernel`` on:
+serving paths run with ``dense_kernel`` on. The SwiGLU family (Chatterbox,
+CosyVoice):
 
 - ``dense_int8_stacked`` (B4): per-row int8 x, ``(x_i8 · W[l])_i32 · xs · s``
   (the 128-padded int8 lm_head);
@@ -11,12 +13,24 @@ Chatterbox-class serving path runs with ``dense_kernel`` on:
   residual → RMSNorm → SwiGLU → down-proj → residual) and the NEXT layer's
   RMSNorm + qkv, ``qkv_next`` read from layer ``min(l + 1, L - 1)``.
 
+The GPT-2 family (XTTS):
+
+- ``qkv_lnorm_int8_stacked`` (B9a): f32 LayerNorm (gain, bias), then the
+  fused qkv product (the layer-0 prologue; every layer with
+  ``VOCALIE_MEGATAIL=0``);
+- ``tail_gelu_qkv_int8_stacked`` (B9b): o-proj + bias → residual →
+  LayerNorm → fc + bias → tanh-GELU → proj + bias → residual, then the
+  next layer's LayerNorm + qkv (layer ``min(l + 1, L - 1)``);
+- ``tail_gelu_int8_stacked`` (B9c): B9b without the next-qkv phase.
+
+The q/k/v biases stay the caller's add, after these kernels.
+
 Weights keep the JAX layout: stacked ``[L, d_in, d_out]`` int8 with f32
 scales ``[L, 1, d_out]``, norm weights ``[L, d_model]``, and a layer index.
 
 Activations are quantized per row, ``s = max(amax / 127, 1e-8)`` and
-``round(x / s)`` half to even (a divide, no clip). The SwiGLU hidden is
-quantized per (row, d_ff tile), with the tile ``pick_tile(d_ff, 6 MiB,
+``round(x / s)`` half to even (a divide, no clip). The SwiGLU and GELU
+hiddens are quantized per (row, d_ff tile), with the tile ``pick_tile(d_ff, 6 MiB,
 2 · d_model)``: the JAX kernel's block with ``VOCALIE_TILE_MB`` unset. The
 port does not read that knob; the block follows from the shapes.
 
@@ -30,6 +44,7 @@ from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 
 from vocalie_tts_tpu_torch.ops import _build
@@ -41,6 +56,10 @@ _F32, _BF16 = 1, 2
 _DENSE_ARGTYPES = ([_build.P, _build.I, _build.P, _build.I, _build.F, _build.P, _build.P]
                    + [_build.I] * 4 + [_build.P, _build.P, _build.LL, _build.P])
 _TAIL_ARGTYPES = ([_build.P, _build.P, _build.I] + [_build.P] * 10
+                  + [_build.I] * 9 + [_build.F] + [_build.P] * 3 + [_build.LL, _build.P])
+_LNORM_ARGTYPES = ([_build.P, _build.I, _build.P, _build.P, _build.I, _build.F, _build.P, _build.P]
+                   + [_build.I] * 4 + [_build.P, _build.P, _build.LL, _build.P])
+_GELU_ARGTYPES = ([_build.P, _build.P, _build.I] + [_build.P] * 11 + [_build.I] + [_build.P] * 4
                   + [_build.I] * 9 + [_build.F] + [_build.P] * 3 + [_build.LL, _build.P])
 
 
@@ -75,6 +94,33 @@ def _rms_rows(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     return x * (1.0 / torch.sqrt(var + eps)) * w.float()
 
 
+def _ln_rows(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor, eps: float) -> torch.Tensor:
+    """f32 LayerNorm over the last dim, ``(x - mean) * (1 / sqrt(var + eps))
+    * g + b`` op by op (the JAX kernels' ``_ln_rows``, with rsqrt as two
+    IEEE steps). The mean and the variance (the mean of the squared
+    centred values) are summed in float64 and rounded to f32 once, as in
+    the CUDA kernel: the two then round alike in any summation order."""
+    mean = x.double().mean(-1, keepdim=True).float()
+    xc = x - mean
+    xcd = xc.double()
+    var = torch.mean(xcd * xcd, dim=-1, keepdim=True).float()
+    return xc * (1.0 / torch.sqrt(var + eps)) * g.float() + b.float()
+
+
+#: the tanh-GELU constants as JAX rounds them to f32
+_GELU_C = float(np.float32(np.sqrt(2.0 / np.pi)))
+_GELU_A = float(np.float32(0.044715))
+
+
+def gelu_tanh(u: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu(u, approximate=True)`` as JAX spells it, op by op in
+    f32: ``u * (0.5 * (1 + tanh(sqrt(2 / pi) * (u + 0.044715 * u**3))))``
+    with ``u**3 = (u * u) * u``. The CUDA kernel takes the same steps with
+    ``tanhf``, which is PyTorch's CUDA tanh too."""
+    inner = u + _GELU_A * (u * u * u)
+    return u * (0.5 * (1.0 + torch.tanh(_GELU_C * inner)))
+
+
 def _int_dot(q: torch.Tensor, w_i8: torch.Tensor) -> torch.Tensor:
     """Integer-valued q · int8 W, exact (float64), cast to f32 as JAX's
     ``astype`` does."""
@@ -107,16 +153,53 @@ def tail_swiglu_qkv_int8_plain(attn, x, wo_all, wos_all, mw_all, wgu_all, sgu_al
     gu = _int_dot(h, wgu_all[layer]) * hs * sgu_all[layer]
     gate = gu[:, :d_ff]
     hidden = gate * torch.sigmoid(gate) * gu[:, d_ff:]
-    acc = None
-    for t in range(d_ff // tile):
-        cols = slice(t * tile, (t + 1) * tile)
-        hq, ts = _quantize_rows(hidden[:, cols])
-        part = _int_dot(hq, wd_all[layer][cols]) * ts
-        acc = part if acc is None else acc + part
-    x_out = x2 + acc * sd_all[layer]
+    x_out = x2 + _tiled_down(hidden, wd_all[layer], tile) * sd_all[layer]
     nxt = min(layer + 1, L - 1)
     qkv = qkv_norm_int8_plain(x_out, nw_all, wq_all, sq_all, nxt, eps=eps)
     return x_out, qkv
+
+
+def qkv_lnorm_int8_plain(x, ng_all, nb_all, w_all, s_all, layer: int, *, eps: float):
+    q, hs = _quantize_rows(_ln_rows(x.float(), ng_all[layer], nb_all[layer], eps))
+    return _int_dot(q, w_all[layer]) * hs * s_all[layer]
+
+
+def _tiled_down(hidden, wd, tile):
+    """sum over d_ff tiles t of (int8 hidden_t · Wd_t) · s_t, in tile order:
+    the hidden is quantized per (row, tile)."""
+    acc = None
+    for t in range(hidden.shape[1] // tile):
+        cols = slice(t * tile, (t + 1) * tile)
+        hq, ts = _quantize_rows(hidden[:, cols])
+        part = _int_dot(hq, wd[cols]) * ts
+        acc = part if acc is None else acc + part
+    return acc
+
+
+def tail_gelu_int8_plain(attn, x, wo_all, wos_all, bo_all, lg_all, lb_all, wu_all, su_all,
+                         bu_all, wd_all, sd_all, bd_all, layer: int, *, eps: float,
+                         tile: int | None = None):
+    """B9c. ``tile``: the d_ff block the hidden is quantized over (default:
+    the JAX kernel's, ``pick_tile(d_ff, 6 MiB, 2 · d_model)``)."""
+    l, d_ff = layer, wd_all.shape[1]
+    tile = tile or pick_tile(d_ff, TILE_BUDGET, 2 * x.shape[1])
+    a, as_ = _quantize_rows(attn.float())
+    o = _int_dot(a, wo_all[l]) * as_ * wos_all[l] + bo_all[l].float()
+    x2 = x.float() + o
+    h, hs = _quantize_rows(_ln_rows(x2, lg_all[l], lb_all[l], eps))
+    u = _int_dot(h, wu_all[l]) * hs * su_all[l] + bu_all[l].float()
+    return x2 + _tiled_down(gelu_tanh(u), wd_all[l], tile) * sd_all[l] + bd_all[l].float()
+
+
+def tail_gelu_qkv_int8_plain(attn, x, wo_all, wos_all, bo_all, lg_all, lb_all, wu_all, su_all,
+                             bu_all, wd_all, sd_all, bd_all, ng_all, nb_all, wq_all, sq_all,
+                             layer: int, *, eps: float, tile: int | None = None):
+    """B9b: B9c, then the next layer's LayerNorm + qkv."""
+    x_out = tail_gelu_int8_plain(attn, x, wo_all, wos_all, bo_all, lg_all, lb_all, wu_all,
+                                 su_all, bu_all, wd_all, sd_all, bd_all, layer, eps=eps,
+                                 tile=tile)
+    nxt = min(layer + 1, wq_all.shape[0] - 1)
+    return x_out, qkv_lnorm_int8_plain(x_out, ng_all, nb_all, wq_all, sq_all, nxt, eps=eps)
 
 
 # ── wrappers ────────────────────────────────────────────────────────────
@@ -282,14 +365,154 @@ def tail_swiglu_qkv_int8_stacked(
     return x_out, qkv
 
 
+def qkv_lnorm_int8_stacked(
+    x: torch.Tensor,       # [b, d_model] raw residual stream
+    ng_all: torch.Tensor,  # [L, d_model] LayerNorm gains
+    nb_all: torch.Tensor,  # [L, d_model] LayerNorm biases
+    w_all: torch.Tensor,   # [L, d_model, d_out] int8 (fused qkv)
+    s_all: torch.Tensor,   # [L, 1, d_out] f32
+    layer: int,
+    *,
+    eps: float,
+) -> torch.Tensor:
+    """layer_norm(x) · Wqkv[layer] → [b, d_out] f32 (B9a)."""
+    b, d_in = x.shape
+    L, _, d_out = w_all.shape
+    if pick_tile(d_out, TILE_BUDGET, d_in) == 0:
+        raise ValueError(f"d_out={d_out} has no 128-multiple tile")
+    if x.device.type == "cpu":
+        return qkv_lnorm_int8_plain(x, ng_all, nb_all, w_all, s_all, layer, eps=eps)
+    _check(x.device, layer, L, ("x", x, _ACT, (b, d_in)), ("ng_all", ng_all, _ACT, (L, d_in)),
+           ("nb_all", nb_all, (ng_all.dtype,), (L, d_in)),
+           ("w_all", w_all, _I8, (L, d_in, d_out)), ("s_all", s_all, _FL, (L, 1, d_out)))
+    ws = _workspace(_dense_ws_bytes(b, d_in, d_out), x.device)
+    out = torch.empty((b, d_out), dtype=torch.float32, device=x.device)
+    fn = _build.kernel("vt_qkv_lnorm_int8", _LNORM_ARGTYPES)
+    qkv_lnorm_int8_stacked.launches += 1
+    rc = fn(x.data_ptr(), _kind(x, "x"), ng_all.data_ptr(), nb_all.data_ptr(),
+            _kind(ng_all, "ng_all"), float(eps), w_all.data_ptr(), s_all.data_ptr(), int(layer),
+            b, d_in, d_out, out.data_ptr(), ws.data_ptr(), ws.numel(), _build.stream_ptr(x))
+    _build.check(rc, "vt_qkv_lnorm_int8")
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _gelu_ws_bytes(b: int, d_attn: int, d: int, d_ff: int, tile: int, Q: int) -> int:
+    return _build.kernel("vt_tail_gelu_workspace", [_build.I] * 6, restype=_build.LL)(
+        b, d_attn, d, d_ff, tile, Q)
+
+
+def _gelu_tile(d: int, d_ff: int, Q: int) -> int:
+    """The d_ff tile of B9b / B9c; raises where the JAX kernels have none."""
+    tile = pick_tile(d_ff, TILE_BUDGET, 2 * d)
+    if tile == 0 or (Q and pick_tile(Q, TILE_BUDGET, d) == 0):
+        raise ValueError(f"d_ff={d_ff}/d_qkv={Q} has no 128-multiple tile")
+    return tile
+
+
+def _tail_gelu(attn, x, wo_all, wos_all, bo_all, lg_all, lb_all, wu_all, su_all, bu_all,
+               wd_all, sd_all, bd_all, nxt, layer, eps, tile):
+    """Checks and launches B9b (``nxt`` = (ng_all, nb_all, wq_all, sq_all))
+    or B9c (``nxt`` None) → ``(x_out, qkv_next or None)``."""
+    b, d = x.shape
+    d_attn = attn.shape[1]
+    L, _, d_ff = wu_all.shape
+    Q = 0 if nxt is None else nxt[2].shape[2]
+    specs = [("attn", attn, _FL, (b, d_attn)), ("x", x, _ACT, (b, d)),
+             ("wo_all", wo_all, _I8, (L, d_attn, d)), ("wos_all", wos_all, _FL, (L, 1, d)),
+             ("bo_all", bo_all, _ACT, (L, d)), ("lg_all", lg_all, _ACT, (L, d)),
+             ("lb_all", lb_all, (lg_all.dtype,), (L, d)),
+             ("wu_all", wu_all, _I8, (L, d, d_ff)), ("su_all", su_all, _FL, (L, 1, d_ff)),
+             ("bu_all", bu_all, (bo_all.dtype,), (L, d_ff)),
+             ("wd_all", wd_all, _I8, (L, d_ff, d)), ("sd_all", sd_all, _FL, (L, 1, d)),
+             ("bd_all", bd_all, (bo_all.dtype,), (L, d))]
+    if nxt is not None:
+        ng_all, nb_all, wq_all, sq_all = nxt
+        specs += [("ng_all", ng_all, (lg_all.dtype,), (L, d)),
+                  ("nb_all", nb_all, (lg_all.dtype,), (L, d)),
+                  ("wq_all", wq_all, _I8, (L, d, Q)), ("sq_all", sq_all, _FL, (L, 1, Q))]
+    _check(x.device, layer, L, *specs)
+    ws = _workspace(_gelu_ws_bytes(b, d_attn, d, d_ff, tile, Q), x.device)
+    x_out = torch.empty((b, d), dtype=torch.float32, device=x.device)
+    qkv = torch.empty((b, Q), dtype=torch.float32, device=x.device) if Q else None
+    ptrs = [None] * 4 if nxt is None else [t.data_ptr() for t in nxt]
+    fn = _build.kernel("vt_tail_gelu_int8", _GELU_ARGTYPES)
+    (tail_gelu_int8_stacked if nxt is None else tail_gelu_qkv_int8_stacked).launches += 1
+    rc = fn(attn.data_ptr(), x.data_ptr(), _kind(x, "x"),
+            wo_all.data_ptr(), wos_all.data_ptr(), bo_all.data_ptr(), lg_all.data_ptr(),
+            lb_all.data_ptr(), wu_all.data_ptr(), su_all.data_ptr(), bu_all.data_ptr(),
+            wd_all.data_ptr(), sd_all.data_ptr(), bd_all.data_ptr(), _kind(bo_all, "bo_all"),
+            *ptrs, _kind(lg_all, "lg_all"), int(layer), L, b, d_attn, d, d_ff, tile, Q,
+            float(eps), x_out.data_ptr(), None if qkv is None else qkv.data_ptr(),
+            ws.data_ptr(), ws.numel(), _build.stream_ptr(x))
+    _build.check(rc, "vt_tail_gelu_int8")
+    return x_out, qkv
+
+
+def tail_gelu_int8_stacked(
+    attn: torch.Tensor,     # [b, n_heads*d_head] f32 merged attention output
+    x: torch.Tensor,        # [b, d_model] residual stream INTO the block
+    wo_all: torch.Tensor,   # [L, n_heads*d_head, d_model] int8
+    wos_all: torch.Tensor,  # [L, 1, d_model] f32
+    bo_all: torch.Tensor,   # [L, d_model] o-proj bias
+    lg_all: torch.Tensor,   # [L, d_model] mlp LayerNorm gains
+    lb_all: torch.Tensor,   # [L, d_model] mlp LayerNorm biases
+    wu_all: torch.Tensor,   # [L, d_model, d_ff] int8
+    su_all: torch.Tensor,   # [L, 1, d_ff] f32
+    bu_all: torch.Tensor,   # [L, d_ff] fc bias
+    wd_all: torch.Tensor,   # [L, d_ff, d_model] int8
+    sd_all: torch.Tensor,   # [L, 1, d_model] f32
+    bd_all: torch.Tensor,   # [L, d_model] proj bias
+    layer: int,
+    *,
+    eps: float,
+) -> torch.Tensor:
+    """The GPT-2 layer tail (B9c) → x_out [b, d_model] f32."""
+    args = (attn, x, wo_all, wos_all, bo_all, lg_all, lb_all, wu_all, su_all, bu_all, wd_all,
+            sd_all, bd_all)
+    tile = _gelu_tile(x.shape[1], wd_all.shape[1], 0)
+    if x.device.type == "cpu":
+        return tail_gelu_int8_plain(*args, layer, eps=eps, tile=tile)
+    return _tail_gelu(*args, None, layer, eps, tile)[0]
+
+
+def tail_gelu_qkv_int8_stacked(
+    attn, x, wo_all, wos_all, bo_all, lg_all, lb_all, wu_all, su_all, bu_all, wd_all, sd_all,
+    bd_all,
+    ng_all: torch.Tensor,   # [L, d_model] attn LayerNorm gains (the next layer's)
+    nb_all: torch.Tensor,   # [L, d_model] attn LayerNorm biases
+    wq_all: torch.Tensor,   # [L, d_model, d_qkv] int8 fused qkv
+    sq_all: torch.Tensor,   # [L, 1, d_qkv] f32
+    layer: int,
+    *,
+    eps: float,
+):
+    """The GPT-2 layer tail + the next layer's LayerNorm + qkv (B9b) →
+    ``(x_out [b, d_model] f32, qkv_next [b, d_qkv] f32)``; the tail's
+    arguments as ``tail_gelu_int8_stacked``'s."""
+    args = (attn, x, wo_all, wos_all, bo_all, lg_all, lb_all, wu_all, su_all, bu_all, wd_all,
+            sd_all, bd_all)
+    tile = _gelu_tile(x.shape[1], wd_all.shape[1], wq_all.shape[2])
+    if x.device.type == "cpu":
+        return tail_gelu_qkv_int8_plain(*args, ng_all, nb_all, wq_all, sq_all, layer, eps=eps,
+                                        tile=tile)
+    return _tail_gelu(*args, (ng_all, nb_all, wq_all, sq_all), layer, eps, tile)
+
+
 #: launches of the CUDA entry points (the plain versions are not counted)
 dense_int8_stacked.launches = 0
 qkv_norm_int8_stacked.launches = 0
 tail_swiglu_qkv_int8_stacked.launches = 0
+qkv_lnorm_int8_stacked.launches = 0
+tail_gelu_int8_stacked.launches = 0
+tail_gelu_qkv_int8_stacked.launches = 0
 
 __all__ = [
     "dense_int8_stacked", "dense_int8_plain",
     "qkv_norm_int8_stacked", "qkv_norm_int8_plain",
     "tail_swiglu_qkv_int8_stacked", "tail_swiglu_qkv_int8_plain",
-    "pick_tile", "TILE_BUDGET",
+    "qkv_lnorm_int8_stacked", "qkv_lnorm_int8_plain",
+    "tail_gelu_int8_stacked", "tail_gelu_int8_plain",
+    "tail_gelu_qkv_int8_stacked", "tail_gelu_qkv_int8_plain",
+    "gelu_tanh", "pick_tile", "TILE_BUDGET",
 ]

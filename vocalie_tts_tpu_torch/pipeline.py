@@ -5,7 +5,8 @@ request dict and meta).
 Per-chunk clean render, short-text padding, resample to the target rate,
 inter-chunk gap with crossfades. The engine is passed in, or built from
 the port's own ``engines.ENGINES`` by ``tts_backend`` (``chatterbox``,
-``cosyvoice``) on ``device`` — the GPU unless the caller asks for the CPU.
+``cosyvoice``, ``xtts``: the voice clone, which needs ``voice_ref_path``) on
+``device`` — the GPU unless the caller asks for the CPU.
 """
 
 from __future__ import annotations
