@@ -12,7 +12,10 @@ Phases (any failure exits non-zero before the final line is printed):
    B7, the whole decode step at batch 1 as one cooperative launch, B13,
    the fused GroupNorm of the AudioSR UNet and VAE, and the GPT-2 (XTTS)
    decode kernels B9a LayerNorm+qkv, B9b GELU layer tail + next qkv and B9c
-   the tail alone -- at the shapes the path gives it: hold the kernel against its plain
+   the tail alone, and the unfused SwiGLU tail B8a and MLP B8b of the Qwen3
+   path -- at the shapes the path gives it (B1-B6 also at the Qwen3 shapes:
+   d_model 2048, 16 q / 8 kv heads of 128, d_ff 8192, b = 8; B6 at
+   [8, 16, 512, 128] causal with 8 kv heads): hold the kernel against its plain
    PyTorch version on the card, time kernel, plain version and (where one
    exists) the one PyTorch call that computes the same function
    (``F.group_norm`` + add + SiLU for B13; for B2-B4, B7 and B9 there is none; the ops the port runs otherwise for the same work
@@ -26,7 +29,12 @@ Phases (any failure exits non-zero before the final line is printed):
    GPU step through the dense kernels' plain versions, and against the CPU;
    then the tiny AudioSR (f32) ``enhance_audio`` on the GPU against the CPU;
    then a d_model-128 XTTS GPT-2 (B9a, B9b, B4) the same two ways, and its
-   stage-2 PCM against the CPU's;
+   stage-2 PCM against the CPU's; then a d_model-256 Qwen3 LM (2 q heads, 1
+   kv head of 128, qk-norm): a 512-position prefill (B6) GPU vs CPU, the
+   dense decode with ``VOCALIE_MEGATAIL`` unset (B3 + B2) and 0 (B3 + B8a)
+   the same two ways, its stage 2 GPU vs CPU; and a d_model-128 SwiGLU
+   transformer with biases (B4 for the qkv and o-projections, B8b for the
+   MLP: the dispatch no served family reaches) the same two ways;
 4. the main path: ``run_tts_pipeline`` at the full Chatterbox T3 width
    (random weights from a seed), in the JAX package's default int8 serving
    configuration (``VOCALIE_KV_INT8=1 VOCALIE_WEIGHT_INT8=1``, the dense
@@ -59,10 +67,18 @@ Phases (any failure exits non-zero before the final line is printed):
    + 24 x (B1 + B9b) + B5 + B4 a step), with ``VOCALIE_MEGATAIL=0`` (24 x
    (B9a + B1 + B9c)), and one long chunk at batch 1 (544 prompt bucket:
    causal B6 in prefill; B7 never); RTF, wall and decode ms/step each;
+   then the Qwen3-class LLM-TTS at full width (1.7B, random weights from a
+   seed): ``run_tts_pipeline`` with ``tts_backend: "qwen3"`` on
+   ``scripts/bench_engine.py``'s 8-chunk request (its 3 s reference makes it
+   voice_clone) in the default config (B3 + 28 x (B1 + B2) + B5 + B4 a
+   step) and with ``VOCALIE_MEGATAIL=0`` (28 x (B3 + B1 + B8a)), an explicit
+   voice_clone with a transcript, one chunk of > 509 bytes at batch 1 in
+   custom_voice (the 512 bucket: 28 B6 in prefill; B7 never) and a
+   voice_design chunk; RTF, wall and decode ms/step each;
 5. torch.profiler, only now, so that nothing above is timed in a process
    where it has been on: short windows of each configuration show where
-   the time goes, the studio pass's one UNet call and the XTTS decode
-   windows included.
+   the time goes, the studio pass's one UNet call and the XTTS and Qwen3
+   decode windows included.
 
 The second-to-last lines are a JSON ``kernels`` line and the card's name
 and power limit; the last line is ``{"ok": true, "device": {...}}``.
@@ -148,18 +164,22 @@ def bound_ms(n_bytes: float, n_ops: float, peak_ops: float):
 # ── phase 2: kernels against their plain versions ───────────────────────
 
 
-def check_decode_attention(dev, failures):
+#: B1's and B5's decode shapes: the Chatterbox voice-over (b = 16: 8
+#: chunks, CFG-doubled; 16 kv heads of 64; 30 layers; cache 640 = 256 + 320
+#: buckets) and the Qwen3 bench request (b = 8; 8 kv heads of 128 for 16 q
+#: heads; 28 layers; cache 512 = 256 + 192 buckets, rounded), mid-decode
+T3_ATTN = dict(L=30, b=16, kv=16, g=1, d=64, T=640, prompt_pad=256, n_dec=160, seed=1)
+QWEN3_ATTN = dict(L=28, b=8, kv=8, g=2, d=128, T=512, prompt_pad=256, n_dec=96, seed=11)
+
+
+def _b1_case(dev, failures, *, L, b, kv, g, d, T, prompt_pad, n_dec, seed, label):
     from vocalie_tts_tpu_torch.ops.decode_attention import (
         decode_attention_plain,
         decode_attention_stacked,
     )
 
-    # the voice-over path: b = 16 (8 chunks, CFG-doubled), 16 kv heads,
-    # d_head 64, 30 layers, cache 640 (256 + 320 buckets), mid-decode
-    L, b, kv, g, d, T = 30, 16, 16, 1, 64, 640
-    prompt_pad, n_dec = 256, 160
     valid_len = prompt_pad + n_dec
-    gen = torch.Generator(device=dev).manual_seed(1)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn((b, kv, g, d), generator=gen, device=dev)
     k = torch.randint(-127, 128, (L, b, kv, T, d), generator=gen, device=dev, dtype=torch.int8)
     v = torch.randint(-127, 128, (L, b, kv, T, d), generator=gen, device=dev, dtype=torch.int8)
@@ -182,12 +202,8 @@ def check_decode_attention(dev, failures):
     # sum order) moves an output by ~1e-4, while a p block other than 128
     # slots moves it by > 2e-3 (tests/test_torch_decode_attention.py)
     tol = 5e-4
-    log(f"B1 decode_attention: max_abs_err={err:.3e} (tolerance {tol}: a few int8 steps of p "
-        "rounded the other way; a wrong p block size is > 2e-3)")
-    if not err <= tol:
-        failures.append(f"B1 max_abs_err {err} > {tol}")
     # each call reads another layer, as the decode step does (the whole
-    # cache, 630 MB, is far larger than the 50 MB L2)
+    # cache, 0.3-0.6 GB, is far larger than the 50 MB L2)
     ms = cuda_ms(lambda i: decode_attention_stacked(
         q, k, v, bias, i % L, ks, vs, kn, vn, valid_len=valid_len, sm_scale=sm), 300)
     plain_ms = cuda_ms(lambda i: decode_attention_plain(
@@ -196,19 +212,29 @@ def check_decode_attention(dev, failures):
                + b * kv * d * 4 * 2 + 2 * b * kv * g * d * 4)
     n_ops = 2 * 2 * valid_len * b * kv * g * d
     bms, by = bound_ms(n_bytes, n_ops, PEAK_INT8_OPS)
+    log(f"B1 decode_attention [{label}]: max_abs_err={err:.3e} (tolerance {tol}: a few int8 "
+        f"steps of p rounded the other way; a wrong p block size is > 2e-3); kernel {ms:.6f} ms, "
+        f"plain {plain_ms:.6f} ms, bound {bms:.6f} ms ({by})")
+    if not err <= tol:
+        failures.append(f"B1 [{label}] max_abs_err {err} > {tol}")
+    return {"max_abs_err": err, "tolerance": tol, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by, "library_ms": None,
+            "shape": f"{label}: q[{b},{kv},{g},{d}] cache[{L},{b},{kv},{T},{d}] int8 "
+                     f"valid_len={valid_len}"}
+
+
+def check_decode_attention(dev, failures):
+    main = _b1_case(dev, failures, **T3_ATTN, label="voice-over")
     return {"name": "B1 decode_attention_int8", "route": "cuda",
             "source": "vocalie_tts_tpu_torch/csrc/decode_attention.cu",
-            "replaces": "vocalie_tts_tpu/ops/decode_attention.py:565",
-            "max_abs_err": err, "tolerance": tol, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bms, "bound_by": by, "library_ms": None,
-            "shape": f"q[{b},{kv},{g},{d}] cache[{L},{b},{kv},{T},{d}] int8 valid_len={valid_len}"}
+            "replaces": "vocalie_tts_tpu/ops/decode_attention.py:565", **main,
+            "qwen3_shape": _b1_case(dev, failures, **QWEN3_ATTN, label="qwen3")}
 
 
-def check_cache_append(dev, failures):
+def _b5_case(dev, failures, *, L, b, kv, d, T, pos, seed, label):
     from vocalie_tts_tpu_torch.ops.cache_update import cache_append_plain, cache_append_stacked
 
-    L, b, kv, d, T, pos = 30, 16, 16, 64, 640, 416
-    gen = torch.Generator(device=dev).manual_seed(2)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     k = torch.randint(-127, 128, (L, b, kv, T, d), generator=gen, device=dev, dtype=torch.int8)
     v = torch.randint(-127, 128, (L, b, kv, T, d), generator=gen, device=dev, dtype=torch.int8)
     ks = torch.rand((L, b, kv, T), generator=gen, device=dev).to(torch.bfloat16)
@@ -225,29 +251,39 @@ def check_cache_append(dev, failures):
                             r.view(torch.uint8) if r.dtype == torch.int8 else r.view(torch.int16))
                 for a, r in zip(got, ref))
     err = 0.0 if exact else float("inf")
-    log(f"B5 cache_append: byte-exact={exact} (tolerance: byte-exact)")
-    if not exact:
-        failures.append("B5 differs from its plain version")
     ms = cuda_ms(lambda i: cache_append_stacked(k, v, ks, vs, kn, vn, ksn, vsn, i % T), 300)
     plain_ms = cuda_ms(lambda i: cache_append_plain(k, v, ks, vs, kn, vn, ksn, vsn, i % T), 100)
     rows = L * b * kv
     bms, by = bound_ms(2 * rows * (2 * d + 2 * 2), 0, PEAK_INT8_OPS)
+    log(f"B5 cache_append [{label}]: byte-exact={exact} (tolerance: byte-exact); kernel "
+        f"{ms:.6f} ms, plain {plain_ms:.6f} ms, bound {bms:.6f} ms ({by})")
+    if not exact:
+        failures.append(f"B5 [{label}] differs from its plain version")
+    return {"max_abs_err": err, "tolerance": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by, "library_ms": None,
+            "shape": f"{label}: new[{L},{b},{kv},{d}] int8 into cache[{L},{b},{kv},{T},{d}]"}
+
+
+def check_cache_append(dev, failures):
+    main = _b5_case(dev, failures, L=30, b=16, kv=16, d=64, T=640, pos=416, seed=2,
+                    label="voice-over")
     return {"name": "B5 cache_append", "route": "cuda",
             "source": "vocalie_tts_tpu_torch/csrc/cache_update.cu",
-            "replaces": "vocalie_tts_tpu/ops/cache_update.py:84",
-            "max_abs_err": err, "tolerance": 0.0, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bms, "bound_by": by, "library_ms": None,
-            "shape": f"new[{L},{b},{kv},{d}] int8 into cache[{L},{b},{kv},{T},{d}]"}
+            "replaces": "vocalie_tts_tpu/ops/cache_update.py:84", **main,
+            "qwen3_shape": _b5_case(dev, failures, L=28, b=8, kv=8, d=128, T=512, pos=352,
+                                    seed=12, label="qwen3")}
 
 
-def _flash_case(dev, failures, *, b, h, s, d, causal, kv_lens_lo, seed, label):
+def _flash_case(dev, failures, *, b, h, s, d, causal, kv_lens_lo, seed, label, hk=None):
     import torch.nn.functional as F
 
     from vocalie_tts_tpu_torch.ops.flash_attention import attention_plain, flash_attention
 
+    hk = hk or h
     gen = torch.Generator(device=dev).manual_seed(seed)
-    q, k, v = (torch.randn((b, h, s, d), generator=gen, device=dev).to(torch.bfloat16)
-               for _ in range(3))
+    q = torch.randn((b, h, s, d), generator=gen, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn((b, hk, s, d), generator=gen, device=dev).to(torch.bfloat16)
+            for _ in range(2))
     lens = None
     if kv_lens_lo is not None:
         lens = torch.randint(kv_lens_lo, s + 1, (b,), generator=gen, device=dev,
@@ -266,23 +302,28 @@ def _flash_case(dev, failures, *, b, h, s, d, causal, kv_lens_lo, seed, label):
         failures.append(f"B6 [{label}] differs: worst ratio {worst}")
     ms = cuda_ms(lambda i: flash_attention(q, k, v, causal=causal, kv_lens=lens), 50)
     plain_ms = cuda_ms(lambda i: attention_plain(q, k, v, causal=causal, kv_lens=lens), 10)
+    gqa = {"enable_gqa": True} if hk != h else {}
     if lens is not None:
         keep = torch.arange(s, device=dev)[None, :] < lens[:, None]
         mask = keep[:, None, None, :]
-        lib_ms = cuda_ms(lambda i: F.scaled_dot_product_attention(q, k, v, attn_mask=mask), 50)
-        kv_rows = h * lens.sum().item()
-        pairs = s * kv_rows
+        lib_ms = cuda_ms(lambda i: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                                  **gqa), 50)
+        kv_rows = hk * lens.sum().item()
+        pairs = s * h * lens.sum().item()
         # q read and o written in full; k and v only up to each row's kv_len
         n_bytes = 2 * b * h * s * d * 2 + 2 * kv_rows * d * 2 + 4 * b
     else:
-        lib_ms = cuda_ms(lambda i: F.scaled_dot_product_attention(q, k, v, is_causal=causal), 50)
+        lib_ms = cuda_ms(lambda i: F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                                                  **gqa), 50)
         pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
-        n_bytes = 4 * b * h * s * d * 2
+        n_bytes = 2 * b * h * s * d * 2 + 2 * b * hk * s * d * 2
     n_ops = 4 * d * pairs
     bms, by = bound_ms(n_bytes, n_ops, PEAK_BF16_FLOPS)
+    log(f"B6 flash_attention [{label}]: kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, SDPA "
+        f"{lib_ms:.6f} ms, bound {bms:.6f} ms ({by})")
     return {"max_abs_err": err, "tolerance": "atol 1e-2 + rtol 1e-2", "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
-            "shape": f"{label}: q/k/v[{b},{h},{s},{d}] bf16"}
+            "shape": f"{label}: q[{b},{h},{s},{d}] k/v[{b},{hk},{s},{d}] bf16"}
 
 
 def check_flash_attention(dev, failures):
@@ -292,10 +333,13 @@ def check_flash_attention(dev, failures):
     # prefill at the 512 prompt bucket
     pre = _flash_case(dev, failures, b=16, h=16, s=512, d=64, causal=True, kv_lens_lo=None,
                       seed=4, label="prefill causal")
+    # the Qwen3 prefill at the 512 bucket: d_head 128, 16 q heads on 8 kv heads
+    q3 = _flash_case(dev, failures, b=8, h=16, hk=8, s=512, d=128, causal=True, kv_lens_lo=None,
+                     seed=5, label="qwen3 prefill causal GQA d128")
     return {"name": "B6 flash_attention", "route": "cuda",
             "source": "vocalie_tts_tpu_torch/csrc/flash_attention.cu",
             "replaces": "vocalie_tts_tpu/ops/flash_attention.py:226",
-            **cfm, "prefill_causal": pre}
+            **cfm, "prefill_causal": pre, "qwen3_shape": q3}
 
 
 #: B2-B4 against their plain versions: the kernels repeat the plain
@@ -481,7 +525,7 @@ def _kernel_name(key: str) -> str:
 
 
 def count_dense_kernels(kernels, failures) -> None:
-    """Record in each B2-B4, B7, B9a-c and B13 entry the CUDA kernels one call of its wrapper
+    """Record in each B2-B4, B7, B8a-b, B9a-c and B13 entry the CUDA kernels one call of its wrapper
     issues at the main path's shapes, as torch.profiler counts them in a
     child process (``--count-kernels``). The profiler is never on in this
     process, which times everything before phase 5; in a fresh process it
@@ -506,10 +550,12 @@ def count_dense_kernels(kernels, failures) -> None:
 
 
 def _count_kernels_child() -> int:
-    """``--count-kernels``: one profiled call of each of B2-B4, B7, B9a-c and B13 (after
+    """``--count-kernels``: one profiled call of each of B2-B4, B7, B8a-b, B9a-c and B13 (after
     one unprofiled call that loads the library), printed as one JSON line."""
     dev = torch.device("cuda:0")
-    calls = {**_dense_inputs(dev).calls, B7_NAME: _b7_inputs(dev).call,
+    t3 = {k: c for k, c in _dense_inputs(dev).calls.items() if k not in B8_NAMES}
+    q3 = {k: c for k, c in _dense_inputs(dev, QWEN3_DENSE).calls.items() if k in B8_NAMES}
+    calls = {**t3, **q3, B7_NAME: _b7_inputs(dev).call,
              B13_NAME: _gn_case(dev, GN_CASES[0]).call, **_gelu_inputs(dev).calls}
     out = {}
     for name, call in calls.items():
@@ -546,20 +592,29 @@ def _dense_entry(name, *, got, ref, ms, plain_ms, ops_ms, n_bytes, n_ops, shape,
 #: the dense kernels' names in the ``kernels`` line and the lines of the
 #: JAX functions they replace in vocalie_tts_tpu/ops/decode_dense.py
 DENSE_LINES = {"B3 qkv_norm_int8": 269, "B2 tail_swiglu_qkv_int8": 519,
-               "B4 dense_int8 (lm_head)": 116, "B9a qkv_lnorm_int8": 652,
+               "B4 dense_int8 (lm_head)": 116, "B8a tail_swiglu_int8": 368,
+               "B8b mlp_swiglu_int8": 190, "B9a qkv_lnorm_int8": 652,
                "B9b tail_gelu_qkv_int8": 985, "B9c tail_gelu_int8": 752}
+B8_NAMES = ("B8a tail_swiglu_int8", "B8b mlp_swiglu_int8")
+#: the SwiGLU dense kernels' decode shapes: the Chatterbox T3 voice-over
+#: (b = 16: 8 chunks, CFG-doubled; the 1026-token head padded to 1152) and
+#: the Qwen3 bench request (b = 8; GQA qkv 16 x 128 + 2 x 8 x 128; d_ff 8192
+#: in eight tiles of 1024; the 2050-token head padded to 2176)
+T3_DENSE = dict(L=30, b=16, d=1024, F=4096, Q=3072, N=1152, heads=16, d_head=64, eps=1e-5,
+                seed=6, label="voice-over")
+QWEN3_DENSE = dict(L=28, b=8, d=2048, F=8192, Q=4096, N=2176, heads=16, d_head=128, eps=1e-6,
+                   seed=16, label="qwen3")
 
 
-def _dense_inputs(dev, L: int = 30):
-    """The inputs of B3, B2 and B4 at the decode shapes of the main path
-    (b = 16: 8 chunks, CFG-doubled; T3 full width; the 128-padded head),
-    from a seed, and one call of each wrapper by its entry's name."""
+def _dense_inputs(dev, shape=T3_DENSE):
+    """The inputs of B3, B2, B4, B8a and B8b at ``shape`` (stacked over its
+    layers), from a seed, and one call of each wrapper by its entry's name."""
     import types
 
     from vocalie_tts_tpu_torch.ops import decode_dense as dd
 
-    b, d, F, Q, N, eps = 16, 1024, 4096, 3072, 1152, 1e-5
-    gen = torch.Generator(device=dev).manual_seed(6)
+    L, b, d, F, Q, N, eps = (shape[k] for k in ("L", "b", "d", "F", "Q", "N", "eps"))
+    gen = torch.Generator(device=dev).manual_seed(shape["seed"])
 
     def weights(d_in, d_out, n=L):
         q = torch.randint(-127, 128, (n, d_in, d_out), generator=gen, device=dev,
@@ -576,45 +631,58 @@ def _dense_inputs(dev, L: int = 30):
     wgu, sgu = weights(d, 2 * F)
     wd, sd = weights(F, d)
     wh, sh = weights(d, N)
-    args = (attn, x, wo, wos, mw, wgu, sgu, wd, sd, nw, wq, sq)
+    tail = (attn, x, wo, wos, mw, wgu, sgu, wd, sd)
+    args = tail + (nw, wq, sq)
     calls = {"B3 qkv_norm_int8": lambda: dd.qkv_norm_int8_stacked(x, nw, wq, sq, 1, eps=eps),
              "B2 tail_swiglu_qkv_int8": lambda: dd.tail_swiglu_qkv_int8_stacked(*args, 1, eps=eps),
-             "B4 dense_int8 (lm_head)": lambda: dd.dense_int8_stacked(x, wh, sh, 1)}
+             "B4 dense_int8 (lm_head)": lambda: dd.dense_int8_stacked(x, wh, sh, 1),
+             "B8a tail_swiglu_int8": lambda: dd.tail_swiglu_int8_stacked(*tail, 1, eps=eps),
+             "B8b mlp_swiglu_int8": lambda: dd.mlp_swiglu_int8_stacked(x, wgu, sgu, wd, sd, 1)}
     return types.SimpleNamespace(**locals())
 
 
-def check_dense(dev, failures, L: int = 30):
-    """B3, B2 and B4 at the decode shapes of the main path. Each timed call
-    reads another layer of 30, as the decode step does (the 0.5 GB of int8
-    weights are far larger than the 50 MB L2); the head is timed over 30
-    copies for the same reason."""
+def check_dense(dev, failures, shape=T3_DENSE):
+    """B3, B2 and B4 (and at the Qwen3 shape B8a and B8b) at the decode
+    shapes of a main path. Each timed call reads another layer, as the
+    decode step does (the 0.5-1.8 GB of int8 weights are far larger than
+    the 50 MB L2); the head is timed over as many copies for the same
+    reason. The yardstick (``slice1_ops_ms``) is the ops the port runs for
+    the same work with the dense kernels off (``_qdot``, the f32 norm and
+    SwiGLU): no PyTorch call quantizes activations."""
     from vocalie_tts_tpu_torch.models.common import transformer as tr
     from vocalie_tts_tpu_torch.ops import decode_dense as dd
 
-    t = _dense_inputs(dev, L)
-    b, d, F, Q, N, eps = t.b, t.d, t.F, t.Q, t.N, t.eps
-    x, attn, nw, mw, args = t.x, t.attn, t.nw, t.mw, t.args
+    t = _dense_inputs(dev, shape)
+    L, b, d, F, Q, N, eps, label = t.L, t.b, t.d, t.F, t.Q, t.N, t.eps, shape["label"]
+    x, attn, nw, mw, args, tail = t.x, t.attn, t.nw, t.mw, t.args, t.tail
     wq, sq, wo, wos, wgu, sgu, wd, sd, wh, sh = (t.wq, t.sq, t.wo, t.wos, t.wgu, t.sgu, t.wd,
                                                   t.sd, t.wh, t.sh)
-    cfg = tr.TransformerConfig(vocab_size=1026, d_model=d, n_layers=L, n_heads=16, n_kv_heads=16,
-                               d_head=64, d_ff=F)
+    heads, d_head = shape["heads"], shape["d_head"]
+    cfg = tr.TransformerConfig(vocab_size=N, d_model=d, n_layers=L, n_heads=heads,
+                               n_kv_heads=heads, d_head=d_head, d_ff=F, norm_eps=eps)
+    tile = dd.pick_tile(F, dd.TILE_BUDGET, 2 * d)
 
     def i8(w, s, l):
         return {"q": w[l], "s": s[l]}
+
+    def entry(name, **kw):
+        e = _dense_entry(name, failures=failures, **kw)
+        e["shape"] = f"{label}: {e['shape']}"
+        return e
 
     out = []
     # B3: the layer-0 norm + qkv prologue
     got = [dd.qkv_norm_int8_stacked(x, nw, wq, sq, 0, eps=eps)]
     ref = [dd.qkv_norm_int8_plain(x, nw, wq, sq, 0, eps=eps)]
     torch.cuda.synchronize()
-    out.append(_dense_entry(
+    out.append(entry(
         "B3 qkv_norm_int8", got=got, ref=ref,
         ms=cuda_ms(lambda i: dd.qkv_norm_int8_stacked(x, nw, wq, sq, i % L, eps=eps), 300),
         plain_ms=cuda_ms(lambda i: dd.qkv_norm_int8_plain(x, nw, wq, sq, i % L, eps=eps), 20),
         ops_ms=cuda_ms(lambda i: tr._qdot(tr.rms_norm(x, nw[i % L], eps),
                                              i8(wq, sq, i % L)), 100),
         n_bytes=b * d * 2 + d * 4 + d * Q + Q * 4 + b * Q * 4, n_ops=2 * b * d * Q,
-        shape=f"x[{b},{d}] bf16, W[{L},{d},{Q}] int8", failures=failures))
+        shape=f"x[{b},{d}] bf16, W[{L},{d},{Q}] int8"))
     # B2: the layer tail + the next layer's norm + qkv, at a middle layer
     # and at the last one (next qkv clamped to it)
     got, ref = [], []
@@ -622,36 +690,73 @@ def check_dense(dev, failures, L: int = 30):
         got += dd.tail_swiglu_qkv_int8_stacked(*args, layer, eps=eps)
         ref += dd.tail_swiglu_qkv_int8_plain(*args, layer, eps=eps)
     torch.cuda.synchronize()
-    attn_heads = attn.to(torch.bfloat16).reshape(b, 16, 1, 64)
+    attn_heads = attn.to(torch.bfloat16).reshape(b, heads, 1, d_head)
 
     def slice1_tail(i):
         l = i % L
         layer = {"wo": i8(wo, wos, l), "mlp_norm": mw[l], "w_gateup": i8(wgu, sgu, l),
                  "w_down": i8(wd, sd, l)}
-        y = tr._block_tail(layer, x[:, None], attn_heads, cfg)
+        return tr._block_tail(layer, x[:, None], attn_heads, cfg)
+
+    def slice1_qkv(y, l):
         return tr._qdot(tr.rms_norm(y, nw[min(l + 1, L - 1)], eps), i8(wq, sq, min(l + 1, L - 1)))
 
-    out.append(_dense_entry(
+    tail_w = d * d + d * 2 * F + F * d
+    tail_bytes = b * d * 4 + b * d * 2 + tail_w + 4 * (d + d + 2 * F + d) + b * d * 4
+    out.append(entry(
         "B2 tail_swiglu_qkv_int8", got=got, ref=ref,
         ms=cuda_ms(lambda i: dd.tail_swiglu_qkv_int8_stacked(*args, i % L, eps=eps), 300),
         plain_ms=cuda_ms(lambda i: dd.tail_swiglu_qkv_int8_plain(*args, i % L, eps=eps), 20),
-        ops_ms=cuda_ms(slice1_tail, 100),
-        n_bytes=(b * d * 4 + b * d * 2 + d * d + d * 2 * F + F * d + d * Q
-                 + 4 * (d + d + 2 * F + d + d + Q) + b * d * 4 + b * Q * 4),
-        n_ops=2 * b * (d * d + d * 2 * F + F * d + d * Q),
-        shape=f"attn[{b},{d}] f32, x[{b},{d}] bf16, d_ff {F} in tiles of "
-              f"{dd.pick_tile(F, dd.TILE_BUDGET, 2 * d)}, qkv {Q}, {L} layers", failures=failures))
-    # B4: the 128-padded int8 lm_head (1026 -> 1152 columns)
+        ops_ms=cuda_ms(lambda i: slice1_qkv(slice1_tail(i), i % L), 100),
+        n_bytes=tail_bytes + d * Q + 4 * (d + Q) + b * Q * 4,
+        n_ops=2 * b * (tail_w + d * Q),
+        shape=f"attn[{b},{d}] f32, x[{b},{d}] bf16, d_ff {F} in tiles of {tile}, qkv {Q}, "
+              f"{L} layers"))
+    # B4: the 128-padded int8 lm_head
     got = [dd.dense_int8_stacked(x, wh[:1], sh[:1], 0)]
     ref = [dd.dense_int8_plain(x, wh[:1], sh[:1], 0)]
     torch.cuda.synchronize()
-    out.append(_dense_entry(
+    out.append(entry(
         "B4 dense_int8 (lm_head)", got=got, ref=ref,
         ms=cuda_ms(lambda i: dd.dense_int8_stacked(x, wh, sh, i % L), 300),
         plain_ms=cuda_ms(lambda i: dd.dense_int8_plain(x, wh, sh, i % L), 20),
         ops_ms=cuda_ms(lambda i: tr._qdot(x, i8(wh, sh, i % L), f32_out=True), 100),
         n_bytes=b * d * 2 + d * N + N * 4 + b * N * 4, n_ops=2 * b * d * N,
-        shape=f"x[{b},{d}] bf16, W[1,{d},{N}] int8", failures=failures))
+        shape=f"x[{b},{d}] bf16, W[1,{d},{N}] int8"))
+    if shape is not QWEN3_DENSE:
+        return out
+    # B8a: the tail alone (VOCALIE_MEGATAIL=0), at a middle and the last layer
+    got, ref = [], []
+    for layer in (L // 2, L - 1):
+        got.append(dd.tail_swiglu_int8_stacked(*tail, layer, eps=eps))
+        ref.append(dd.tail_swiglu_int8_plain(*tail, layer, eps=eps))
+    torch.cuda.synchronize()
+    out.append(entry(
+        "B8a tail_swiglu_int8", got=got, ref=ref,
+        ms=cuda_ms(lambda i: dd.tail_swiglu_int8_stacked(*tail, i % L, eps=eps), 300),
+        plain_ms=cuda_ms(lambda i: dd.tail_swiglu_int8_plain(*tail, i % L, eps=eps), 20),
+        ops_ms=cuda_ms(slice1_tail, 100), n_bytes=tail_bytes, n_ops=2 * b * tail_w,
+        shape=f"attn[{b},{d}] f32, x[{b},{d}] bf16, d_ff {F} in tiles of {tile}, {L} layers "
+              f"(layers {L // 2} and {L - 1} checked)"))
+
+    # B8b: the MLP alone on post-norm bf16 rows (the DENSE_FNS path)
+    def slice1_mlp(i):
+        l = i % L
+        gu = tr._qdot(x, i8(wgu, sgu, l), f32_out=True)
+        hidden = (torch.nn.functional.silu(gu[:, :F]) * gu[:, F:]).to(x.dtype)
+        return tr._qdot(hidden, i8(wd, sd, l), f32_out=True)
+
+    got = [dd.mlp_swiglu_int8_stacked(x, wgu, sgu, wd, sd, L - 1)]
+    ref = [dd.mlp_swiglu_int8_plain(x, wgu, sgu, wd, sd, L - 1)]
+    torch.cuda.synchronize()
+    mlp_w = d * 2 * F + F * d
+    out.append(entry(
+        "B8b mlp_swiglu_int8", got=got, ref=ref,
+        ms=cuda_ms(lambda i: dd.mlp_swiglu_int8_stacked(x, wgu, sgu, wd, sd, i % L), 300),
+        plain_ms=cuda_ms(lambda i: dd.mlp_swiglu_int8_plain(x, wgu, sgu, wd, sd, i % L), 20),
+        ops_ms=cuda_ms(slice1_mlp, 100),
+        n_bytes=b * d * 2 + mlp_w + 4 * (2 * F + d) + b * d * 4, n_ops=2 * b * mlp_w,
+        shape=f"x[{b},{d}] bf16 post-norm, d_ff {F} in tiles of {tile}, {L} layers"))
     return out
 
 
@@ -1006,6 +1111,171 @@ def small_reference_dense(dev, failures):
         failures.append(f"dense reference: kernels differ from plain versions by {worst_plain}")
     if outside * 4 > ratios.numel():
         failures.append(f"dense reference: {outside} logit rows differ from the CPU")
+
+
+def _dense_reference(dev, failures, label, cfg, params, swaps, want, *, n_steps=12, seed=13):
+    """Prefill (32 positions, 4 rows) + ``n_steps`` teacher-forced decode
+    steps of a transformer with the dense kernels on: on the GPU through
+    the kernels (``swaps``: name in ``transformer`` → (wrapper, plain
+    version); their launches must equal ``want``), against (a) the same GPU
+    steps through the plain versions -- the kernels repeat their rounding,
+    so ``DENSE_TOL`` holds at every step -- and (b) the same weights on the
+    CPU. On (b), an int8 activation on a .5 tie can round the other way
+    under another exp, norm or cos and move one row's logits at one step by
+    up to a few 1e-2; a wrong kernel or path moves most rows at every step.
+    So (b) fails if more than a quarter of the (step, row) logit rows are
+    outside 2e-3 + 2e-3|ref|."""
+    from vocalie_tts_tpu_torch.models.common import transformer as tr
+
+    cpu_params = _to(params, "cpu")
+    g = torch.Generator().manual_seed(seed)
+    b, s = 4, 32
+    emb = torch.randn((b, s, cfg.d_model), generator=g) * 0.5
+    lens = torch.tensor([32, 20, 3, 11], dtype=torch.int32)
+    toks = torch.randint(0, min(cfg.vocab_size, 2048), (n_steps, b), generator=g)
+
+    def run(p, d):
+        logits, cache = tr.prefill(p, cfg, None, lens.to(d), inputs_embeds=emb.to(d),
+                                   cache_len=256)
+        steps = [logits.cpu()]
+        for i in range(n_steps):
+            logits, cache = tr.decode_step(p, cfg, toks[i].to(d), cache)
+            steps.append(logits.cpu())
+        return steps
+
+    before = {n: w.launches for n, (w, _) in swaps.items()}
+    kernel = run(params, dev)
+    launched = {n: w.launches - before[n] for n, (w, _) in swaps.items()}
+    kept = {n: getattr(tr, n) for n in swaps}
+    for n, (_, plain) in swaps.items():
+        setattr(tr, n, plain)
+    try:
+        plain = run(params, dev)
+    finally:
+        for n, fn in kept.items():
+            setattr(tr, n, fn)
+    on_cpu = run(cpu_params, torch.device("cpu"))
+    worst_plain = max(((a - c).abs().max() / (DENSE_TOL * c.abs().max())).item()
+                      for a, c in zip(kernel, plain))
+    ratios = torch.stack([((a - c).abs() / (2e-3 + 2e-3 * c.abs())).amax(-1)
+                          for a, c in zip(kernel, on_cpu)])
+    outside = int((ratios > 1).sum())
+    log(f"small reference, {label} (prefill + {n_steps} teacher-forced steps): launches "
+        f"{launched} (expected {want}); GPU kernels vs GPU plain versions: worst |diff| / "
+        f"({DENSE_TOL} x max|ref|) = {worst_plain:.3f} (must be <= 1); GPU vs CPU: worst "
+        f"|diff| / (2e-3 + 2e-3|ref|) = {ratios.max().item():.3f}, {outside} of {ratios.numel()} "
+        "(step, row) logit rows outside it (at most a quarter)")
+    if launched != want:
+        failures.append(f"{label} reference launches {launched} != {want}")
+    if not worst_plain <= 1.0:
+        failures.append(f"{label} reference: kernels differ from plain versions by {worst_plain}")
+    if outside * 4 > ratios.numel():
+        failures.append(f"{label} reference: {outside} logit rows differ from the CPU")
+    return launched
+
+
+#: phase 3's Qwen3 width: d_model 256, 2 q heads and 1 kv head of 128 (the
+#: full model's head width, GQA, the unpacked cache), d_ff 512, 2 layers
+QWEN3_SMALL = dict(d_model=256, n_layers=2, n_heads=2, n_kv_heads=1, d_ff=512, max_seq_len=1024,
+                   dtype=torch.float32)
+#: stage 2's codec embedding gain (see XTTS_VQ_GAIN): the init's table
+#: renders a waveform under one int16 step
+QWEN3_CODEC_GAIN = 1e4
+
+
+def _audible_codec(rt):
+    rt.params["decoder"]["tok_emb"].mul_(QWEN3_CODEC_GAIN)
+    return rt
+
+
+def small_reference_qwen3(dev, failures):
+    """The Qwen3 LM at ``QWEN3_SMALL`` (f32, int8 weights, the default int8
+    serving env, random weights from a seed, q/k norm weights away from 1):
+    prefill over a 512-position prompt (B6 at d_head 128, group 2) on the
+    GPU against the CPU, logits within 2e-3 + 2e-3|ref|; the dense decode
+    reference (``_dense_reference``) with ``VOCALIE_MEGATAIL`` unset (B3 +
+    L x B2 + B4 a step) and 0 (L x (B3 + B8a) + B4); stage 2 on shared tokens,
+    GPU against CPU, PCM within 33 LSB. Then a d_model-128 SwiGLU transformer
+    with biases (no family has one; the JAX dispatch then runs B4 for the
+    qkv and o-projections and B8b for the MLP): L x B8b and 1 + 2L B4 a step.
+    Returns the launches of B8b (the kernel no served path reaches)."""
+    from vocalie_tts_tpu_torch.models.common import transformer as tr
+    from vocalie_tts_tpu_torch.models.lmtts import runtime as lrt
+    from vocalie_tts_tpu_torch.models.lmtts.model import LMTTSConfig
+    from vocalie_tts_tpu_torch.ops import decode_dense as dd
+    from vocalie_tts_tpu_torch.ops.flash_attention import flash_attention
+
+    set_env(DEFAULT_ENV)
+    os.environ["VOCALIE_MODEL_SCALE"] = "d256"
+    lrt.SCALES["d256"] = LMTTSConfig(**QWEN3_SMALL)
+    with tempfile.TemporaryDirectory() as tmp:
+        rt = _audible_codec(lrt.LMTTSRuntime.create(tmp, force_init=True, device=dev, seed=19))
+    cfg = rt.cfg.lm
+    lm = rt.params["lm_bundle"]["lm"]
+    gen = torch.Generator(device=dev).manual_seed(20)
+    for name in ("q_norm", "k_norm", "attn_norm", "mlp_norm"):
+        lm["layers"][name].copy_(1 + 0.2 * torch.randn(lm["layers"][name].shape, generator=gen,
+                                                       device=dev))
+    cpu_lm = _to(lm, "cpu")
+    g = torch.Generator().manual_seed(21)
+    emb = torch.randn((2, 512, cfg.d_model), generator=g) * 0.5
+    lens = torch.tensor([512, 300], dtype=torch.int32)
+    n0 = flash_attention.launches
+    got, _ = tr.prefill(lm, cfg, None, lens.to(dev), inputs_embeds=emb.to(dev), cache_len=640)
+    n_flash = flash_attention.launches - n0
+    ref, _ = tr.prefill(cpu_lm, cfg, None, lens, inputs_embeds=emb, cache_len=640)
+    worst = ((got.cpu() - ref).abs() / (2e-3 + 2e-3 * ref.abs())).max().item()
+    log(f"small reference, Qwen3 d_model 256 prefill over 512 positions: B6 launches {n_flash} "
+        f"(expected {cfg.n_layers}); GPU vs CPU worst |diff| / (2e-3 + 2e-3|ref|) = {worst:.3f} "
+        "(must be <= 1)")
+    if n_flash != cfg.n_layers or not worst <= 1.0:
+        failures.append(f"Qwen3 512-position prefill: B6 x{n_flash}, worst ratio {worst}")
+    swaps = {"qkv_norm_int8_stacked": (dd.qkv_norm_int8_stacked, dd.qkv_norm_int8_plain),
+             "tail_swiglu_qkv_int8_stacked": (dd.tail_swiglu_qkv_int8_stacked,
+                                              dd.tail_swiglu_qkv_int8_plain),
+             "tail_swiglu_int8_stacked": (dd.tail_swiglu_int8_stacked,
+                                          dd.tail_swiglu_int8_plain),
+             "dense_int8_stacked": (dd.dense_int8_stacked, dd.dense_int8_plain)}
+    n, L = 12, cfg.n_layers
+    _dense_reference(dev, failures, "Qwen3 d_model 256, default", cfg, lm, swaps,
+                     {"qkv_norm_int8_stacked": n, "tail_swiglu_qkv_int8_stacked": L * n,
+                      "tail_swiglu_int8_stacked": 0, "dense_int8_stacked": n + 1})
+    set_env(MEGATAIL0_ENV)
+    _dense_reference(dev, failures, "Qwen3 d_model 256, VOCALIE_MEGATAIL=0", cfg, lm, swaps,
+                     {"qkv_norm_int8_stacked": L * n, "tail_swiglu_qkv_int8_stacked": 0,
+                      "tail_swiglu_int8_stacked": L * n, "dense_int8_stacked": n + 1})
+    set_env(DEFAULT_ENV)
+    cpu = lrt.LMTTSRuntime(_to(rt.params, "cpu"), rt.cfg, rt.weights_dir, torch.device("cpu"))
+    codes = torch.randint(0, 2048, (3, 40), generator=g)
+    n_tok = torch.tensor([40, 27, 5])
+    pcm_gpu = rt.stage2_pcm16(codes.to(dev), n_tok.to(dev)).cpu()
+    pcm_cpu = cpu.stage2_pcm16(codes, n_tok)
+    lsb = (pcm_gpu.int() - pcm_cpu.int()).abs().max().item()
+    peak = pcm_cpu.int().abs().max().item()
+    log(f"small reference: Qwen3 stage 2 (40 tokens x 3 rows, codec decoder x8, HiFi-GAN 512 "
+        f"channels, hop 240), GPU vs CPU: max |diff| = {lsb} LSB of int16 (tolerance 33), CPU "
+        f"peak {peak}")
+    if not lsb <= 33 or peak <= 33:
+        failures.append(f"Qwen3 stage-2 PCM: {lsb} LSB off, peak {peak}")
+
+    bcfg = tr.TransformerConfig(vocab_size=96, d_model=128, n_layers=2, n_heads=2, n_kv_heads=2,
+                                d_head=64, d_ff=256, max_seq_len=256, kv_quant=True,
+                                decode_kernel=True, dense_kernel=True, bias=True, attn_bias=True,
+                                dtype=torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(22)
+    raw = tr.init_params(bcfg, generator=gen, device=dev)
+    for name in ("bq", "bk", "bv", "bo", "b_up", "b_down"):
+        raw["layers"][name] = 0.2 * torch.randn(raw["layers"][name].shape, generator=gen,
+                                                device=dev)
+    bparams = tr.fuse_decode_weights(tr.quantize_weights_int8(raw))
+    assert tr._dense_dispatch(bparams["layers"], bcfg, 4, 256) == tr.DENSE_FNS
+    launched = _dense_reference(
+        dev, failures, "biased SwiGLU d_model 128 (B4 + B8b)", bcfg, bparams,
+        {"mlp_swiglu_int8_stacked": (dd.mlp_swiglu_int8_stacked, dd.mlp_swiglu_int8_plain),
+         "dense_int8_stacked": (dd.dense_int8_stacked, dd.dense_int8_plain)},
+        {"mlp_swiglu_int8_stacked": bcfg.n_layers * n,
+         "dense_int8_stacked": 1 + n * (1 + 2 * bcfg.n_layers)})
+    return launched["mlp_swiglu_int8_stacked"]
 
 
 #: the XTTS width of phase 3: the GPT-2 dense path is eligible (d_model and
@@ -1724,6 +1994,181 @@ def drive_xtts(dev, failures, scale: str = "full"):
     return counts, profile
 
 
+# ── phase 4: the Qwen3-class LLM-TTS ─────────────────────────────────────
+
+#: scripts/bench_engine.py's qwen3 request: its sentence (XTTS_SENT) x 8,
+#: its engine params and its 3 s tone reference, which the engine's mode
+#: resolution turns into voice_clone (a reference, ``qwen3_mode`` unset)
+QWEN3_PARAMS = {"language": "fr"}
+#: an explicit voice_clone with the reference's transcript prepended
+QWEN3_CLONE = {"qwen3_mode": "voice_clone", "x_vector_only_mode": False,
+               "ref_text": "Une voix de référence pour le clonage."}
+#: one chunk of > 509 text bytes at batch 1: its prompt takes the 512 bucket
+#: (the speaker, language and BOS slots make 3 more), so prefill runs B6
+QWEN3_LONG = " ".join([LONG_CHUNK] * 2) + "\n[[CHUNK]]"
+QWEN3_DESIGN = {"qwen3_mode": "voice_design", "instruct": "Voix grave, posée et chaleureuse."}
+
+
+def _qwen3_wrappers() -> dict:
+    from vocalie_tts_tpu_torch.ops import decode_dense as dd
+
+    return {**_cosy_wrappers(), "B8a": dd.tail_swiglu_int8_stacked,
+            "B8b": dd.mlp_swiglu_int8_stacked}
+
+
+def _qwen3_decode(rt, texts, n_steps: int, spk) -> None:
+    """A request's LM work alone (``spk``: its speaker vector): prompt,
+    prefill, then ``n_steps`` sampled decode steps, synchronized."""
+    from vocalie_tts_tpu_torch.ops.kv_cache import round_cache_len
+
+    tokens, lengths, pb, _, db = rt.prepare(texts, mode="custom_voice", instruct="", ref_text="",
+                                            x_vector_only=True)
+    embeds = rt.prompt_embeds(tokens, spk, "French")
+    rt._generate(rt.params["lm_bundle"]["lm"], embeds, torch.from_numpy(lengths).to(rt.device),
+                 cache_len=round_cache_len(pb + db), max_new=n_steps, eos_token_id=rt.cfg.eos_audio,
+                 temperature=0.8, top_k=50, first_token=rt.cfg.bos_audio, generator=rt._gen)
+    torch.cuda.synchronize()
+
+
+def drive_qwen3(dev, failures, scale: str = "full"):
+    """The Qwen3-class LLM-TTS at full width (1.7B, random weights from seed
+    11; stage 2's codec embedding raised by ``QWEN3_CODEC_GAIN``) through
+    ``run_tts_pipeline`` with ``tts_backend: "qwen3"``: (a) bench_engine.py's
+    8-chunk request (voice_clone from its 3 s reference) in the default int8
+    env (B3 + 28 x (B1 + B2) + B5 + B4 a step) and (b) with
+    ``VOCALIE_MEGATAIL=0`` (28 x (B3 + B1 + B8a)); (c) an explicit voice_clone
+    with the reference's transcript; (d) one chunk of > 509 bytes at batch 1
+    in custom_voice (the 512 bucket: B6 in prefill; never B7); (e) a
+    voice_design request. Each is warmed up, then driven with every launch
+    counter at 0 just before it and read just after, then timed once more.
+    Returns the counts by request and a function that runs the profiled
+    decode windows (kept for after every timed phase)."""
+    import numpy as np
+
+    from vocalie_tts_tpu_torch.engines.qwen3 import Qwen3Engine
+    from vocalie_tts_tpu_torch.io.wavio import read_wav
+    from vocalie_tts_tpu_torch.models.common.weights import _flatten
+    from vocalie_tts_tpu_torch.pipeline import run_tts_pipeline
+    from vocalie_tts_tpu_torch.text import render_clean_text_from_segments
+
+    set_env(DEFAULT_ENV)
+    os.environ["VOCALIE_MODEL_SCALE"] = scale
+    os.environ["VOCALIE_ALLOW_RANDOM_WEIGHTS"] = "1"
+    wrappers = _qwen3_wrappers()
+    bench = "\n[[CHUNK]]\n".join([XTTS_SENT] * 8)
+    counts, profiles = {}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        ref = _write_tone_ref(os.path.join(tmp, "bench_ref.wav"))
+        t0 = time.monotonic()
+        engine = Qwen3Engine(device=dev, assets=os.path.join(tmp, "assets"))
+        rt = _audible_codec(engine.runtime())
+        torch.cuda.synchronize()
+        lm = rt.cfg.lm
+        n_params = sum(v.numel() for _, v in _flatten(rt.params["lm_bundle"]))
+        log(f"qwen3: full-width runtime built in {time.monotonic() - t0:.2f} s (random weights, "
+            f"seed 11; LM {lm.n_layers} layers x d_model {lm.d_model}, {lm.n_heads} q / "
+            f"{lm.n_kv_heads} kv heads of {lm.d_head}, d_ff {lm.d_ff}, qk_norm={lm.qk_norm}, "
+            f"vocab {lm.vocab_size}; {n_params / 1e9:.3f} G LM-bundle parameters; kv_quant="
+            f"{lm.kv_quant} decode_kernel={lm.decode_kernel} dense_kernel={lm.dense_kernel})")
+        runs = (("bench 8-chunk voice_clone, default", DEFAULT_ENV, bench, QWEN3_PARAMS, ref),
+                ("bench 8-chunk voice_clone, VOCALIE_MEGATAIL=0", MEGATAIL0_ENV, bench,
+                 QWEN3_PARAMS, ref),
+                ("voice_clone with transcript, 8 chunks", DEFAULT_ENV, bench, QWEN3_CLONE, ref),
+                ("one chunk at batch 1, 512 bucket, custom_voice", DEFAULT_ENV, QWEN3_LONG,
+                 {"qwen3_mode": "custom_voice", "speaker": "Vivian"}, None),
+                ("voice_design, one chunk", DEFAULT_ENV, XTTS_SENT + "\n[[CHUNK]]", QWEN3_DESIGN,
+                 None))
+        for label, env, script, params, voice in runs:
+            set_env(env)
+            request = {**_request(script, os.path.join(tmp, "q.wav")), "tts_backend": "qwen3",
+                       "voice_ref_path": voice, "engine_params": params}
+            t0 = time.monotonic()
+            run_tts_pipeline({**request, "out_path": os.path.join(tmp, "warm.wav")},
+                             engine=engine)
+            warm = time.monotonic() - t0
+            for w in wrappers.values():
+                w.launches = 0
+            t0 = time.monotonic()
+            res = run_tts_pipeline(request, engine=engine)
+            wall = time.monotonic() - t0
+            c = {k: w.launches for k, w in wrappers.items()}
+            t0 = time.monotonic()
+            run_tts_pipeline({**request, "out_path": os.path.join(tmp, "again.wav")},
+                             engine=engine)
+            wall2 = time.monotonic() - t0
+            wav, sr = read_wav(res.out_path)
+            meta, chunks = res.meta, request["chunks"]
+            bm = meta["backend_meta"]
+            expect = round(sum(meta["durations"]) * 24000) + int(24000 * 0.25) * (len(chunks) - 1)
+            ok = (sr == 24000 and len(wav) == expect and len(wav) > 0
+                  and bool(np.isfinite(wav).all()) and int(np.count_nonzero(wav)) > 0
+                  and all(round(dur * 24000) % 1920 == 0 for dur in meta["durations"]))
+            steps = c["B5"]
+            texts = [render_clean_text_from_segments(ch.segments) for ch in chunks]
+            mode = bm["qwen3_mode"]
+            spk = rt.speaker_embedding(mode, "Vivian", voice)
+            _qwen3_decode(rt, texts, 0, spk)
+            t1 = time.monotonic()
+            _qwen3_decode(rt, texts, 0, spk)
+            t2 = time.monotonic()
+            n0 = wrappers["B5"].launches
+            _qwen3_decode(rt, texts, bm["decode_bucket"], spk)
+            t3 = time.monotonic()
+            n_dec = max(wrappers["B5"].launches - n0, 1)   # one KV append per step
+            decode_ms = ((t3 - t2) - (t2 - t1)) / n_dec * 1e3
+            log(f"qwen3 [{label}]: warm-up {warm:.3f} s; {len(chunks)} chunks, mode {mode}, "
+                f"prompt bucket {bm['prompt_bucket']}, decode bucket {bm['decode_bucket']}, audio "
+                f"{meta['total_duration']:.3f} s, wall {wall:.3f} s, RTF "
+                f"{meta['total_duration'] / wall:.3f}x (the request again: wall {wall2:.3f} s), "
+                f"{steps} decode steps, wav ok={ok} ({len(wav)} samples, "
+                f"{int(np.count_nonzero(wav))} non-zero, peak {float(np.abs(wav).max()):.6f}), "
+                f"launches {c}; decode alone (prefill {(t2 - t1) * 1e3:.1f} ms, then {n_dec} "
+                f"steps) {decode_ms:.3f} ms/step")
+            if not ok:
+                failures.append(f"qwen3 [{label}]: WAV check failed (len {len(wav)}, expected "
+                                f"{expect})")
+            L = lm.n_layers
+            if env is MEGATAIL0_ENV:
+                want = {"B3": L * steps, "B8a": L * steps, "B2": 0}
+            else:
+                want = {"B3": steps, "B2": L * steps, "B8a": 0}
+            want.update(B1=L * steps, B4=steps + 1, B7=0, B8b=0)
+            if script == QWEN3_LONG:
+                if bm["prompt_bucket"] != 512:
+                    failures.append(f"qwen3 [{label}]: prompt bucket {bm['prompt_bucket']}, not 512")
+                if c["B6"] != L:
+                    failures.append(f"qwen3 [{label}]: B6 launched {c['B6']} times in the "
+                                    f"512-bucket prefill, expected {L}")
+            if label.startswith("bench") and mode != "voice_clone":
+                failures.append(f"qwen3 [{label}]: resolved to {mode}, not voice_clone")
+            for k, n in want.items():
+                if c[k] != n:
+                    failures.append(f"qwen3 [{label}] {k} launched {c[k]} times, the path needs {n}")
+            if steps == 0:
+                failures.append(f"qwen3 [{label}]: no decode step ran")
+            counts[label] = {**c, "steps": steps, "rtf": meta["total_duration"] / wall,
+                             "wall_s": wall, "wall2_s": wall2, "decode_ms_per_step": decode_ms}
+
+            def windows(label=label, env=env, texts=texts, spk=spk):
+                set_env(env)
+                n0 = _profiled(f"qwen3 {label}, prefill alone",
+                               lambda: _qwen3_decode(rt, texts, 0, spk))
+                n32 = _profiled(f"qwen3 {label}, prefill + 32 decode steps",
+                                lambda: _qwen3_decode(rt, texts, 32, spk))
+                if n0 and n32:
+                    log(f"breakdown [qwen3 {label}]: {(n32 - n0) / 32:.1f} device operations per "
+                        "decode step")
+
+            if label.startswith("bench") or script == QWEN3_LONG:
+                profiles.append(windows)
+
+    def profile():
+        for windows in profiles:
+            windows()
+
+    return counts, profile
+
+
 # ── phase 4: the AudioSR studio pass ─────────────────────────────────────
 
 #: bench.py's studio request (bench.py:224-247, :296-303)
@@ -1967,10 +2412,16 @@ def main() -> int:
 
     failures: list = []
     t_start = time.monotonic()
-    kernels = [check_decode_attention(dev, failures), *check_dense(dev, failures),
-               check_cache_append(dev, failures), check_flash_attention(dev, failures),
-               check_decode_step(dev, failures), check_group_norm(dev, failures),
-               *check_dense_gelu(dev, failures)]
+    dense = check_dense(dev, failures)
+    dense_q3 = check_dense(dev, failures, QWEN3_DENSE)
+    for entry, q3 in zip(dense, dense_q3):
+        entry["qwen3_shape"] = {k: q3[k] for k in ("max_abs_err", "bit_equal", "ms", "plain_ms",
+                                                   "bound_ms", "bound_by", "slice1_ops_ms",
+                                                   "shape")}
+    kernels = [check_decode_attention(dev, failures), *dense, check_cache_append(dev, failures),
+               check_flash_attention(dev, failures), check_decode_step(dev, failures),
+               check_group_norm(dev, failures), *check_dense_gelu(dev, failures),
+               *dense_q3[3:]]
     by_key = {k["name"].split()[0]: k for k in kernels}
     count_dense_kernels(kernels, failures)
     if failures:
@@ -1984,6 +2435,7 @@ def main() -> int:
     small_reference_dense(dev, failures)
     small_reference_audiosr(dev, failures)
     small_reference_xtts(dev, failures)
+    b8b_launches = small_reference_qwen3(dev, failures)
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
     if failures:
         raise SystemExit("small-input reference failed: " + "; ".join(failures))
@@ -1997,6 +2449,7 @@ def main() -> int:
         cosy, profile_cosy = drive_cosyvoice(dev, failures, by_key["B7"]["path_inputs"])
         studio, profile_studio = drive_audiosr(dev, failures, vo)
         xtts, profile_xtts = drive_xtts(dev, failures)
+        qwen3, profile_qwen3 = drive_qwen3(dev, failures)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     if failures:
@@ -2007,21 +2460,27 @@ def main() -> int:
     profile_cosy()
     profile_studio()
     profile_xtts()
+    profile_qwen3()
     by_key["B13"]["launches"] = studio[GN_SETTINGS[0][0]]["launches"]
     by_key["B13"]["launches_knob_unset"] = studio[GN_SETTINGS[1][0]]["launches"]
     # B1-B6: the Chatterbox default path's counts; B7: the streaming path's;
-    # B9a-b: the XTTS default bench request's, B9c: its VOCALIE_MEGATAIL=0 run
+    # B9a-b: the XTTS default bench request's, B9c: its VOCALIE_MEGATAIL=0 run;
+    # B8a: the Qwen3 bench request's VOCALIE_MEGATAIL=0 run; B8b: phase 3's
+    # biased-SwiGLU reference (no served family reaches it)
     main_counts = {**counts, "B7": cosy["streaming, default"]["B7"],
                    "B9a": xtts["bench 8-chunk, default"]["B9a"],
                    "B9b": xtts["bench 8-chunk, default"]["B9b"],
-                   "B9c": xtts["bench 8-chunk, VOCALIE_MEGATAIL=0"]["B9c"]}
+                   "B9c": xtts["bench 8-chunk, VOCALIE_MEGATAIL=0"]["B9c"],
+                   "B8a": qwen3["bench 8-chunk voice_clone, VOCALIE_MEGATAIL=0"]["B8a"],
+                   "B8b": b8b_launches}
+    by_key["B8b"]["launches_path"] = "phase 3: the biased-SwiGLU d_model-128 reference"
     for key, entry in by_key.items():
         if key == "B13":
             continue
         entry["launches"] = main_counts[key]
         if counts1.get(key):
             entry["launches_slice1_config"] = counts1[key]
-        for group, per_path in (("cosyvoice", cosy), ("xtts", xtts)):
+        for group, per_path in (("cosyvoice", cosy), ("xtts", xtts), ("qwen3", qwen3)):
             for path, c in per_path.items():
                 if c.get(key):
                     entry[f"launches_{group}_{path}"] = c[key]

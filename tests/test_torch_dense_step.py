@@ -80,6 +80,19 @@ def _assert_logits(pairs):
                                    err_msg="prefill" if i == 0 else f"step {i - 1}")
 
 
+def _assert_logits_up_to_ties(pairs):
+    """Prefill within 2e-3 + 2e-3 · |ref|; of the decode steps' (step, row)
+    logit rows at most a quarter outside it. Where the port computes a
+    norm before B4 in PyTorch (the ``DENSE_FNS`` path), its f32 mean and
+    rsqrt differ from JAX's in the last ulp, and an int8 activation within
+    an ulp of a .5 tie rounds the other way, moving one row at one step by
+    ~1e-2 (ROADMAP C); a wrong path moves every row at every step."""
+    (ref, got), *steps = pairs
+    np.testing.assert_allclose(got, ref, atol=2e-3, rtol=2e-3, err_msg="prefill")
+    out = [(np.abs(g - r) > 2e-3 + 2e-3 * np.abs(r)).any(-1) for r, g in steps]
+    assert np.sum(out) * 4 <= np.size(out), out
+
+
 def _assert_appended_cache(jcache, pcache, n_steps, prompt_pad=32):
     """The decode slots of the int8 cache: JAX's lane-packed k|v against
     the port's split k and v, values and bf16 scales equal."""
@@ -124,17 +137,67 @@ def test_dense_batch_one_without_fused_step(params, monkeypatch):
     _assert_logits(pairs)
 
 
-def test_dense_without_fused_tail_raises():
+def test_dense_without_fused_tail_raises(monkeypatch):
     """d_ff 192 (not a 128-multiple): the JAX package runs B4 for the
-    fused qkv and the o-projection and ``_qdot`` for the MLP, a dispatch
-    the port does not carry. Prefill (B4 for the head, as in JAX) still
-    matches; the decode step raises instead of running another path."""
+    fused qkv and the o-projection and ``_qdot`` for the MLP
+    (``_make_dense_fns``). The port carries that dispatch now (it used to
+    raise): prefill and the teacher-forced steps match up to ties, through
+    B4 and never B8b."""
     jparams, pparams = _params(d_ff=192)
     jcfg, pcfg = _configs(DENSE, d_ff=192)
-    pairs, _, pcache = _run(jcfg, jparams, pcfg, pparams, n_steps=0)
+    calls = {"dense": 0, "mlp": 0}
+    dense, mlp = pt.dense_int8_stacked, pt.mlp_swiglu_int8_stacked
+    monkeypatch.setattr(pt, "dense_int8_stacked",
+                        lambda *a, **k: calls.__setitem__("dense", calls["dense"] + 1)
+                        or dense(*a, **k))
+    monkeypatch.setattr(pt, "mlp_swiglu_int8_stacked",
+                        lambda *a, **k: calls.__setitem__("mlp", calls["mlp"] + 1) or mlp(*a, **k))
+    assert pt._dense_dispatch(pparams["layers"], pcfg, 4, CACHE_LEN) == pt.DENSE_FNS
+    pairs, _, _ = _run(jcfg, jparams, pcfg, pparams, n_steps=3)
+    _assert_logits_up_to_ties(pairs)
+    # per step: the head, and qkv + o per layer; prefill: the head
+    assert calls == {"dense": 1 + 3 * (1 + 2 * pcfg.n_layers), "mlp": 0}
+
+
+def test_biased_swiglu_takes_b4_and_b8b(monkeypatch):
+    """SwiGLU with biases (non-zero here) has no fused tail: the JAX package
+    runs B4 for the qkv and o-projections and B8b for the MLP, which adds no
+    ``b_down`` (``transformer.py:593-595``). Teacher-forced logits within
+    2e-3 up to ties (``_assert_logits_up_to_ties``)."""
+    dims = dict(bias=True, attn_bias=True)
+    jcfg, pcfg = _configs(DENSE, **dims)
+    raw = jax.device_get(jt.init_params(jax.random.PRNGKey(0), jcfg))
+    rng = np.random.default_rng(61)
+    for name in ("bq", "bk", "bv", "bo", "b_up", "b_down"):
+        raw["layers"][name] = (0.2 * rng.standard_normal(raw["layers"][name].shape)).astype(
+            np.float32)
+    jparams = jt.fuse_decode_weights(jax.device_get(jax.jit(jt.quantize_weights_int8)(raw)))
+    pparams = pt.fuse_decode_weights(pt.quantize_weights_int8(tree_to_torch(raw)))
+    calls = []
+    mlp = pt.mlp_swiglu_int8_stacked
+    monkeypatch.setattr(pt, "mlp_swiglu_int8_stacked",
+                        lambda *a, **k: calls.append(1) or mlp(*a, **k))
+    assert pt._dense_dispatch(pparams["layers"], pcfg, 4, CACHE_LEN) == pt.DENSE_FNS
+    pairs, _, _ = _run(jcfg, jparams, pcfg, pparams, n_steps=4)
+    _assert_logits_up_to_ties(pairs)
+    assert len(calls) == 4 * pcfg.n_layers
+
+
+def test_qk_norm_at_batch_one_skips_the_fused_step(monkeypatch):
+    """The whole-step kernel B7 has no q/k norm: the JAX dispatch requires
+    ``not cfg.qk_norm`` (``transformer.py:854``). A packed (d_head 64)
+    qk-norm model at batch 1 takes the megatail, and matches JAX."""
+    jparams, pparams = _params(qk_norm=True)
+    jcfg, pcfg = _configs(DENSE, qk_norm=True)
+    monkeypatch.delenv("VOCALIE_FUSED_STEP", raising=False)
+    monkeypatch.delenv("VOCALIE_MEGATAIL", raising=False)
+    calls = []
+    monkeypatch.setattr(pt, "decode_step_fused_packed", lambda *a, **k: calls.append(1))
+    assert 2 * pcfg.d_head == 128
+    assert pt._dense_dispatch(pparams["layers"], pcfg, 1, CACHE_LEN) == pt.MEGATAIL
+    pairs, _, _ = _run(jcfg, jparams, pcfg, pparams, b=1, n_steps=3)
     _assert_logits(pairs)
-    with pytest.raises(NotImplementedError, match="d_ff=192"):
-        pt.decode_step(pparams, pcfg, torch.zeros(4, dtype=torch.long), pcache)
+    assert not calls
 
 
 def test_dense_at_tiny_width_takes_qdot(monkeypatch):
@@ -159,22 +222,24 @@ def test_dense_at_tiny_width_takes_qdot(monkeypatch):
 ])
 def test_dense_knobs_without_a_port_raise(params, monkeypatch, env, kernel):
     """Where the JAX package would run a kernel the port does not have,
-    the port raises instead of running another path. ``{}`` at batch 1 is
-    the whole-step kernel B7, which the port has now: the step runs it
-    instead of raising (``tests/test_torch_decode_step.py`` holds it
-    against JAX)."""
+    the port raises instead of running another path (B12). ``{}`` at batch
+    1 is the whole-step kernel B7 and ``VOCALIE_MEGATAIL=0`` the tail B8a
+    (with B3 per layer), which the port has now: the step runs them instead
+    of raising (``tests/test_torch_decode_step.py`` and
+    ``tests/test_torch_qwen3.py`` hold them against JAX)."""
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     _, pcfg = _configs(DENSE)
     b = 1 if kernel == "B7" else 2
     cache = pt.StackedKVCache.create(2, b, 2, CACHE_LEN, 64, "cpu")
-    if kernel == "B7":
+    if kernel in ("B7", "B8"):
+        name = "decode_step_fused_packed" if kernel == "B7" else "tail_swiglu_int8_stacked"
         calls = []
-        real = pt.decode_step_fused_packed
-        monkeypatch.setattr(pt, "decode_step_fused_packed",
-                            lambda *a, **k: calls.append(1) or real(*a, **k))
+        real = getattr(pt, name)
+        monkeypatch.setattr(pt, name, lambda *a, **k: calls.append(1) or real(*a, **k))
         logits, _ = pt.decode_step(params[1], pcfg, torch.zeros(b, dtype=torch.long), cache)
-        assert calls == [1] and torch.isfinite(logits).all()
+        assert calls == [1] * (1 if kernel == "B7" else pcfg.n_layers)
+        assert torch.isfinite(logits).all()
         return
     with pytest.raises(NotImplementedError, match=kernel):
         pt.decode_step(params[1], pcfg, torch.zeros(b, dtype=torch.long), cache)

@@ -1,6 +1,7 @@
 """Kernel B6 (flash attention forward): the port's plain version against
 ``flash_attention`` run in Pallas interpret mode — causal at s=512,
-non-causal with ragged ``kv_lens`` at T=320, and GQA.
+non-causal with ragged ``kv_lens`` at T=320, and GQA, also at the Qwen3
+prefill's head width (d 128, group 2, causal at the 512 bucket).
 
 Tolerance: atol 1e-4 in f32 (both sides accumulate the softmax in f32;
 only the summation order differs).
@@ -27,6 +28,7 @@ def _qkv(seed, b, h, hk, s_q, s_k, d):
     ("ragged_kv_lens_320", 3, 2, 2, 320, 64, False, (320, 200, 17)),
     ("gqa_causal", 2, 4, 2, 128, 32, True, None),
     ("gqa_kv_lens", 2, 4, 1, 256, 16, False, (256, 100)),
+    ("gqa_d128_causal_512", 1, 4, 2, 512, 128, True, None),
 ])
 def test_flash_attention_matches_jax(name, b, h, hk, s, d, causal, lens):
     q, k, v = _qkv(s + h, b, h, hk, s, s, d)

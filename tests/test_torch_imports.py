@@ -80,9 +80,10 @@ def test_entry_points_refuse_cpu_fallback(tmp_path, monkeypatch):
 
 def test_dense_kernel_env_names_the_next_slice(monkeypatch):
     """``VOCALIE_DENSE_KERNEL=1`` forces the dense kernels, as in the JAX
-    package (they are ported); a knob whose kernel a later slice brings
-    names it (``VOCALIE_MEGATAIL=0`` needs B8, the next one, for SwiGLU;
-    GPT-2 takes B9c there, see ``tests/test_torch_xtts.py``)."""
+    package (they are ported); ``VOCALIE_MEGATAIL=0`` takes the SwiGLU tail
+    B8a (ported with the Qwen3 slice; GPT-2 takes B9c there, see
+    ``tests/test_torch_xtts.py``); a knob whose kernel a later slice brings
+    names it (``VOCALIE_MEGALAYER=1`` needs B12, the next one)."""
     import dataclasses
 
     from vocalie_tts_tpu_torch.models.chatterbox.runtime import SCALES
@@ -97,7 +98,10 @@ def test_dense_kernel_env_names_the_next_slice(monkeypatch):
         ("wqkv", (2, 128, 384)), ("wo", (2, 128, 128)),
         ("w_gateup", (2, 128, 512)), ("w_down", (2, 256, 128)))}
     monkeypatch.setenv("VOCALIE_MEGATAIL", "0")
-    with pytest.raises(NotImplementedError, match="B8"):
+    assert tr._dense_dispatch(layers, cfg, 2, 256) == tr.TAIL
+    monkeypatch.delenv("VOCALIE_MEGATAIL")
+    monkeypatch.setenv("VOCALIE_MEGALAYER", "1")
+    with pytest.raises(NotImplementedError, match="B12"):
         tr._dense_dispatch(layers, cfg, 2, 256)
 
 
@@ -180,6 +184,42 @@ def test_audiosr_runtime_refuses_cpu_fallback(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         AudioSRRuntime.create(tmp_path)
     assert AudioSRRuntime.create(tmp_path, device="cpu").device.type == "cpu"
+
+
+#: the modules the Qwen3 slice added
+SLICE6_MODULES = (
+    "vocalie_tts_tpu_torch.models.lmtts.model",
+    "vocalie_tts_tpu_torch.models.lmtts.runtime",
+    "vocalie_tts_tpu_torch.engines.qwen3",
+)
+
+
+@pytest.mark.parametrize("module", SLICE6_MODULES)
+def test_slice6_module_imports_alone(module):
+    """Each module of the Qwen3 slice imports on its own with JAX, the JAX
+    package and Triton blocked, loads no kernel library and touches no
+    GPU."""
+    test_slice3_module_imports_alone(module)
+
+
+def test_qwen3_entry_points_refuse_cpu_fallback(tmp_path, monkeypatch):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid here")
+    from vocalie_tts_tpu_torch.engines.qwen3 import Qwen3Engine
+    from vocalie_tts_tpu_torch.models.lmtts.runtime import LMTTSRuntime
+    from vocalie_tts_tpu_torch.pipeline import run_tts_pipeline
+
+    monkeypatch.setenv("VOCALIE_MODEL_SCALE", "tiny")
+    monkeypatch.setenv("VOCALIE_KV_INT8", "1")
+    monkeypatch.setenv("VOCALIE_ALLOW_RANDOM_WEIGHTS", "1")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LMTTSRuntime.create(tmp_path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Qwen3Engine()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_tts_pipeline({"tts_backend": "qwen3", "script": "Bonjour à tous.",
+                          "out_path": str(tmp_path / "x.wav")})
+    assert not (tmp_path / "x.wav").exists()
 
 
 #: the modules the XTTS slice added

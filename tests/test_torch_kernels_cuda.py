@@ -1,10 +1,12 @@
 """The port's CUDA kernels (B1 int8 decode attention, B5 KV-cache append,
-B6 flash attention, the dense decode kernels B2/B3/B4 and their GPT-2
-siblings B9a/B9b/B9c, the whole-step kernel B7) against their plain PyTorch versions on the GPU, at the edge
+B6 flash attention, the dense decode kernels B2/B3/B4, the unfused SwiGLU
+tail and MLP B8a/B8b and the GPT-2 siblings B9a/B9b/B9c, the whole-step
+kernel B7) against their plain PyTorch versions on the GPU, at the edge
 shapes the main path does not reach: GQA, head dims other than 64, ragged
 and fully masked rows, valid lengths off the 128-slot grid, f32 as well as
 bf16, batch 1 and 17, zero rows, the last layer's clamped next-qkv, d_ff in
-one and in two tiles; for B9 bf16 and f32 biases and residuals, a
+one and in two tiles, the Qwen3 layer (d_model 2048, d_ff 8192 in eight
+tiles) for B8a/B8b and B6 at d_head 128 with GQA; for B9 bf16 and f32 biases and residuals, a
 constant row (LayerNorm to its bias), the XTTS layer and batch 1; for B7 caches of 128 and 640 slots, a fully masked
 tail and a fully masked cache, q/k/v biases off, in f32 and in bf16, 1 and
 3 layers, and a cooperative grid forced past what the card keeps resident
@@ -33,7 +35,7 @@ repeat their plain versions' rounding step for step (exact int32 products,
 the variance summed in double, IEEE divides, the same f32 epilogue order),
 so an output moves only if an int8 activation sits on a .5 tie that
 another expf reaches from the other side; such a flip moves it by ~1e-3.
-B9a-c likewise (the LayerNorm's moments in double, the tanh-GELU as the
+B8a/B8b and B9a-c likewise (the LayerNorm's moments in double, the tanh-GELU as the
 same IEEE steps with ``tanhf``, which PyTorch's CUDA tanh also calls).
 B7 within 1e-5 · max|ref| on each output, for the same reason: the plain
 version takes the kernel's steps (the softmax sum, the variance and the
@@ -63,6 +65,10 @@ from vocalie_tts_tpu_torch.ops.decode_dense import (
     tail_gelu_int8_stacked,
     tail_gelu_qkv_int8_plain,
     tail_gelu_qkv_int8_stacked,
+    mlp_swiglu_int8_plain,
+    mlp_swiglu_int8_stacked,
+    tail_swiglu_int8_plain,
+    tail_swiglu_int8_stacked,
     tail_swiglu_qkv_int8_plain,
     tail_swiglu_qkv_int8_stacked,
 )
@@ -177,6 +183,8 @@ def test_cache_append_kernel_is_byte_exact(dev, L, b, kv, T, d, pos):
     (2, 4, 2, 100, 100, 32, True, None),           # GQA, s off the 64-row tile
     (2, 4, 1, 256, 256, 16, False, (256, 0)),      # GQA 4:1, one fully masked row
     (2, 2, 2, 70, 130, 8, True, (130, 33)),        # s_q != s_k, causal and kv_lens
+    (2, 16, 8, 512, 512, 128, True, None),         # the Qwen3 prefill at d_head 128
+    (3, 4, 2, 200, 200, 128, False, (200, 77, 0)),  # d 128, ragged, a fully masked row
 ])
 def test_flash_attention_kernel(dev, dtype, b, h, hk, s_q, s_k, d, causal, lens):
     gen = _gen(dev, s_q + d + h)
@@ -292,6 +300,61 @@ def test_tail_swiglu_qkv_int8_kernel(dev, b, L, d, F, Q, layer, dtype):
     assert x_out.shape == (b, d) and qkv.shape == (b, Q)
     _close(x_out, rx)
     _close(qkv, rq)
+
+
+def _swiglu_args(dev, b, L, d, F, dtype):
+    gen = _gen(dev, b + d + F + 5)
+    attn = torch.randn((b, d), generator=gen, device=dev) * 0.3
+    x = torch.randn((b, d), generator=gen, device=dev).to(dtype)
+    wo, wos = _int8_weights(gen, dev, L, d, d)
+    mw = 1 + 0.1 * torch.randn((L, d), generator=gen, device=dev)
+    wgu, sgu = _int8_weights(gen, dev, L, d, 2 * F)
+    wd, sd = _int8_weights(gen, dev, L, F, d)
+    return attn, x, wo, wos, mw, wgu, sgu, wd, sd
+
+
+@pytest.mark.parametrize("b,L,d,F,layer,dtype", [
+    (8, 2, 2048, 8192, 1, torch.bfloat16),    # the Qwen3 layer: d_ff in eight 1024 tiles
+    (1, 2, 2048, 8192, 0, torch.bfloat16),    # batch 1
+    (17, 3, 128, 256, 2, torch.float32),      # one tile, two row passes
+])
+def test_tail_swiglu_int8_kernel(dev, b, L, d, F, layer, dtype):
+    """B8a against its plain version, and bit-equal to B2's first output."""
+    args = _swiglu_args(dev, b, L, d, F, dtype)
+    gen = _gen(dev, 3)
+    nw = 1 + 0.1 * torch.randn((L, d), generator=gen, device=dev)
+    wq, sq = _int8_weights(gen, dev, L, d, 384)
+    before = tail_swiglu_int8_stacked.launches
+    got = tail_swiglu_int8_stacked(*args, layer, eps=1e-6)
+    ref = tail_swiglu_int8_plain(*args, layer, eps=1e-6)
+    b2, _ = tail_swiglu_qkv_int8_stacked(*args, nw, wq, sq, layer, eps=1e-6)
+    torch.cuda.synchronize()
+    assert tail_swiglu_int8_stacked.launches == before + 1
+    assert got.shape == (b, d) and got.dtype == torch.float32
+    _close(got, ref)
+    assert torch.equal(got, b2)
+
+
+@pytest.mark.parametrize("b,L,d,F,layer,dtype,zero_row", [
+    (8, 2, 2048, 8192, 1, torch.bfloat16, None),   # the Qwen3 layer
+    (17, 3, 128, 256, 2, torch.float32, 5),        # one tile, two row passes, a zero row
+    (4, 2, 512, 8192, 0, torch.float32, None),     # two 4096 tiles
+])
+def test_mlp_swiglu_int8_kernel(dev, b, L, d, F, layer, dtype, zero_row):
+    gen = _gen(dev, b + d + F + 7)
+    x = torch.randn((b, d), generator=gen, device=dev).to(dtype)
+    if zero_row is not None:
+        x[zero_row] = 0
+    wgu, sgu = _int8_weights(gen, dev, L, d, 2 * F)
+    wd, sd = _int8_weights(gen, dev, L, F, d)
+    before = mlp_swiglu_int8_stacked.launches
+    got = mlp_swiglu_int8_stacked(x, wgu, sgu, wd, sd, layer)
+    ref = mlp_swiglu_int8_plain(x, wgu, sgu, wd, sd, layer)
+    torch.cuda.synchronize()
+    assert mlp_swiglu_int8_stacked.launches == before + 1
+    _close(got, ref)
+    if zero_row is not None:
+        assert (got[zero_row] == 0).all()
 
 
 def test_dense_kernels_reject_bad_inputs(dev):

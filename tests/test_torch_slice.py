@@ -1,6 +1,9 @@
 """The whole port at the tiny scale: the JAX ``ChatterboxRuntime`` and the
 port's, on the same weights (saved once in the ``.npz`` format and loaded
-by both), in two configurations:
+by both), in two configurations, one file each so that ``--dist loadfile``
+runs them on two workers (this file: ``slice1``;
+``tests/test_torch_slice2.py`` imports these tests with its own
+``runtimes`` fixture: ``slice2``):
 
 - ``slice1``: int8 KV cache, int8 weights, the decode-attention and
   cache-append kernels, dense kernels off (``VOCALIE_DENSE_KERNEL=0`` on
@@ -25,6 +28,10 @@ by both), in two configurations:
 - ``run_tts_pipeline`` on a 3-chunk ``[[CHUNK]]`` script: chunk count,
   per-chunk token lengths and durations, WAV length and meta keys agree
   (the sample values are covered by the stage-2 comparison).
+
+JAX's generate program is remembered per input where it decodes greedily
+(which reads no key), so the greedy, stage-2 and pipeline tests share one
+JAX decode of the script.
 """
 
 import dataclasses
@@ -50,8 +57,26 @@ CONFIGS = {"slice1": {"VOCALIE_DENSE_KERNEL": "0"}, "slice2": {}}
 WIDE = dict(d_model=128, n_heads=2, n_kv_heads=2, d_ff=256)
 
 
-@pytest.fixture(scope="module", params=sorted(CONFIGS))
-def runtimes(request, tmp_path_factory):
+def _memo_generate(jrt):
+    """Remember JAX's generate program per input where it decodes greedily
+    (temperature <= 0 reads no key)."""
+    real, memo = jrt._generate, {}
+
+    def generate(t3, embeds, lens, key, **kw):
+        if kw["temperature"] > 0:
+            return real(t3, embeds, lens, key, **kw)
+        tag = (np.asarray(embeds).tobytes(), np.asarray(lens).tobytes(),
+               tuple(sorted(kw.items())))
+        if tag not in memo:
+            memo[tag] = jax.device_get(real(t3, embeds, lens, key, **kw))
+        return memo[tag]
+
+    jrt._generate = generate
+
+
+def make_runtimes(config, tmp_path_factory):
+    """(JAX runtime, port runtime, the env's MonkeyPatch) for one of
+    ``CONFIGS``, yielded while the env holds."""
     from vocalie_tts_tpu.models.chatterbox.model import init_t3, init_token_decoder
     from vocalie_tts_tpu.models.chatterbox.runtime import SCALES as JAX_SCALES
     from vocalie_tts_tpu.models.chatterbox.runtime import ChatterboxRuntime as JaxRuntime
@@ -59,11 +84,11 @@ def runtimes(request, tmp_path_factory):
     from vocalie_tts_tpu_torch.models.chatterbox.runtime import SCALES
     from vocalie_tts_tpu_torch.models.chatterbox.runtime import ChatterboxRuntime
 
-    dense = request.param == "slice2"
+    dense = config == "slice2"
     assets = tmp_path_factory.mktemp("assets")
     with pytest.MonkeyPatch.context() as mp:
         mp.delenv("VOCALIE_DENSE_KERNEL", raising=False)
-        for k, v in {**ENV, **CONFIGS[request.param]}.items():
+        for k, v in {**ENV, **CONFIGS[config]}.items():
             mp.setenv(k, v)
         mp.setenv("VOCALIE_ASSETS_DIR", str(assets))
         if dense:
@@ -79,7 +104,13 @@ def runtimes(request, tmp_path_factory):
         prt = ChatterboxRuntime.create(assets / "chatterbox", device="cpu")
         assert jrt.cfg.lm.dense_kernel is dense and jrt.cfg.lm.decode_kernel is True
         assert prt.cfg.lm.dense_kernel is dense and prt.cfg.lm.d_model == cfg.d_model
+        _memo_generate(jrt)
         yield jrt, prt, mp
+
+
+@pytest.fixture(scope="module", params=["slice1"])
+def runtimes(request, tmp_path_factory):
+    yield from make_runtimes(request.param, tmp_path_factory)
 
 
 def _texts():
@@ -187,10 +218,9 @@ def jax_stage2_noise(cfg, key, b, n_tok):
     )
 
 
-def test_stage2_pcm_on_jax_tokens(runtimes):
+def test_stage2_pcm_on_jax_tokens(runtimes, greedy):
     jrt, prt, _ = runtimes
-    toks, lens = _jax_generate(jrt, _texts(), temperature=0.0, cfg_weight=0.6,
-                               repetition_penalty=1.35)
+    toks, lens = greedy[:2]
     key = jax.random.PRNGKey(5)
     b = toks.shape[0]
     ref = np.asarray(jrt._stage2(jrt.params["decoder"], tokens=jnp.asarray(toks),

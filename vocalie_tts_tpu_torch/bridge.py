@@ -58,4 +58,14 @@ def xtts_bundle(gpt: Any, decoder: Any, device="cpu") -> Any:
     return {"gpt": tree_to_torch(gpt, device), "decoder": tree_to_torch(decoder, device)}
 
 
-__all__ = ["to_torch", "tree_to_torch", "cosyvoice_bundle", "xtts_bundle"]
+def lmtts_bundle(lm_bundle: Any, decoder: Any, device="cpu") -> Any:
+    """The Qwen3-class runtime's params from the JAX trees of ``init_lmtts``
+    (``lm`` with its per-head ``q_norm`` / ``k_norm`` leaves, ``text_emb``,
+    ``speaker_table``, ``spk_cond``, ``lang_cond``) and ``init_codec_decoder``
+    (``tok_emb``, ``up1``, ``up2``, ``mel_out``, ``vocoder``, ``speaker``),
+    before any runtime transform: ``{"lm_bundle": ..., "decoder": ...}``."""
+    return {"lm_bundle": tree_to_torch(lm_bundle, device),
+            "decoder": tree_to_torch(decoder, device)}
+
+
+__all__ = ["to_torch", "tree_to_torch", "cosyvoice_bundle", "xtts_bundle", "lmtts_bundle"]

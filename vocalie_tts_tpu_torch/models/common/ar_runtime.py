@@ -44,12 +44,20 @@ def apply_runtime_env(cfg):
 def maybe_quantize_lm(bundle: Dict, key: str = "lm") -> Dict:
     """Runtime weight transforms of the transformer inside a bundle:
     ``VOCALIE_WEIGHT_INT8=1`` (int8 weights, per-channel scales), then
-    fused q/k/v and gate/up, the only layout the port's forward takes."""
+    fused q/k/v and gate/up, the only layout the port's forward takes.
+    ``VOCALIE_FUSE_QKV=0`` (the JAX package's unfused layout, which with
+    int8 weights also turns its dense decode kernels off) raises."""
     from vocalie_tts_tpu_torch.models.common.transformer import (
         fuse_decode_weights,
         quantize_weights_int8,
     )
 
+    if not bool_env("VOCALIE_FUSE_QKV", True):
+        raise NotImplementedError(
+            "VOCALIE_FUSE_QKV=0 keeps q/k/v and gate/up unfused in the JAX package, where the "
+            "decode step then takes _qdot on unquantized activations; the port serves the "
+            "fused layout only; unset it"
+        )
     if key not in bundle:
         return bundle
     lm = bundle[key]

@@ -7,8 +7,9 @@ with classifier-free guidance as one doubled batch per step.
 
 The transformer blocks' self-attention runs the flash-attention kernel
 (B6), non-causal with per-row ``kv_lens``, when the mel length is >= 256
-(the JAX package's size split); the plain softmax with a -1e9 key bias
-runs below that.
+(the JAX package's size split) and ``VOCALIE_CFM_FLASH`` is unset or
+``1``; the plain softmax with a -1e9 key bias runs below that length or
+with the knob set to anything else, as in JAX ``cfm.py:215-216``.
 
 The ODE start noise ``z`` is an explicit input (or drawn from an explicit
 ``torch.Generator``), so tests can feed both frameworks the same noise.
@@ -18,6 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -108,7 +110,7 @@ def _xf_block(p: Params, cfg: CFMDecoderConfig, x: torch.Tensor,
         return torch.matmul(h, w.to(h.dtype)).reshape(b, t, nh, hd).transpose(1, 2).contiguous()
 
     q, k, v = heads(p["to_q"]), heads(p["to_k"]), heads(p["to_v"])
-    if t >= 256:
+    if t >= 256 and os.environ.get("VOCALIE_CFM_FLASH", "1") == "1":
         o4 = flash_attention(q, k, v, causal=False, sm_scale=sm, kv_lens=kv_lens)
         o = o4.to(x.dtype).transpose(1, 2).reshape(b, t, nh * hd)
     else:

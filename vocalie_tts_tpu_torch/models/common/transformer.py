@@ -8,8 +8,9 @@ loop is a Python loop over that axis. ``prefill`` and ``decode_step``
 take the runtime's weights, with q/k/v and gate/up concatenated by
 ``fuse_decode_weights`` (``ar_runtime.maybe_quantize_lm``).
 
-Two families: the Chatterbox/CosyVoice one (RMSNorm, RoPE, GQA, SwiGLU,
-optional q/k/v biases, ``attn_bias``) and the GPT-2 one of XTTS
+Two families: the Chatterbox/CosyVoice/Qwen3 one (RMSNorm, RoPE, GQA,
+SwiGLU, optional q/k/v biases, ``attn_bias``, optional per-head q/k
+RMSNorm, ``qk_norm``) and the GPT-2 one of XTTS
 (``norm_type="layer"``: LayerNorm with bias; ``mlp_type="gelu"``: fc →
 tanh-GELU → proj; ``bias``: o-proj and MLP biases; ``pos_type="learned"``:
 an absolute position table, no RoPE; ``head_bias``: a bias on the head).
@@ -18,11 +19,14 @@ appended by the cache-update kernel (B5), flash attention (B6) in
 prefill at prompt buckets >= 512, and, with ``dense_kernel`` (the JAX
 package's default with int8 weights), the int8-native dense decode
 kernels of ``_dense_dispatch``: for SwiGLU the layer-0 norm+qkv (B3),
-the fused layer tail + next qkv (B2) or, at batch 1, the whole step (B7);
-for GPT-2 the layer-0 LayerNorm+qkv (B9a) and the GELU tail + next qkv
-(B9b), or with ``VOCALIE_MEGATAIL=0`` B9a and the tail alone (B9c) per
-layer; the int8 lm_head (B4, also for prefill's last-position logits)
-for both. Where the shapes are not eligible (d_model or the qkv width
+the fused layer tail + next qkv (B2), with ``VOCALIE_MEGATAIL=0`` B3 and
+the tail alone (B8a) per layer, or, at batch 1 without qk-norm, the whole
+step (B7); for GPT-2 the layer-0 LayerNorm+qkv (B9a) and the GELU tail +
+next qkv (B9b), or with ``VOCALIE_MEGATAIL=0`` B9a and the tail alone (B9c)
+per layer; where no fused tail applies (SwiGLU with biases or a
+LayerNorm), B4 for the qkv and o-projections and the int8 SwiGLU MLP
+(B8b); the int8 lm_head (B4, also for prefill's last-position logits) for
+all. Where the shapes are not eligible (d_model or the qkv width
 not a 128-multiple), the JAX package takes the ``_qdot`` path, and so
 does the port. Dispatches the port does not carry raise (see
 ``_dense_dispatch``).
@@ -45,10 +49,12 @@ from vocalie_tts_tpu_torch.device import div_const
 from vocalie_tts_tpu_torch.ops.decode_dense import (
     dense_int8_stacked,
     gelu_tanh,
+    mlp_swiglu_int8_stacked,
     qkv_lnorm_int8_stacked,
     qkv_norm_int8_stacked,
     tail_gelu_int8_stacked,
     tail_gelu_qkv_int8_stacked,
+    tail_swiglu_int8_stacked,
     tail_swiglu_qkv_int8_stacked,
 )
 from vocalie_tts_tpu_torch.ops.decode_attention import decode_attention_stacked
@@ -102,6 +108,9 @@ class TransformerConfig:
     pos_len: int = 0
     #: a bias on the LM head, added after the vocabulary slice
     head_bias: bool = False
+    #: per-head RMSNorm on q and k over d_head, before RoPE (the Qwen3
+    #: backbone; ``q_norm`` / ``k_norm`` leaves ``[L, d_head]`` f32)
+    qk_norm: bool = False
     dtype: torch.dtype = torch.bfloat16
 
     @property
@@ -219,6 +228,9 @@ def init_params(cfg: TransformerConfig, *, generator=None, device="cpu") -> Para
     if cfg.attn_bias:
         for name, width in (("bq", cfg.q_dim), ("bk", cfg.kv_dim), ("bv", cfg.kv_dim)):
             params["layers"][name] = torch.zeros((L, width), dtype=dt, device=device)
+    if cfg.qk_norm:
+        layers["q_norm"] = torch.ones((L, cfg.d_head), device=device)
+        layers["k_norm"] = torch.ones((L, cfg.d_head), device=device)
     return params
 
 
@@ -411,56 +423,51 @@ def _is_i8(w) -> bool:
 
 
 #: the decode step's paths (``_dense_dispatch``)
-QDOT, MEGATAIL, FUSED_STEP = "qdot", "megatail", "fused_step"
-MEGATAIL_GELU, TAIL_GELU = "megatail_gelu", "tail_gelu"
+QDOT, MEGATAIL, TAIL, FUSED_STEP = "qdot", "megatail", "tail", "fused_step"
+MEGATAIL_GELU, TAIL_GELU, DENSE_FNS = "megatail_gelu", "tail_gelu", "dense_fns"
 
 
 def _dense_dispatch(layers: Params, cfg: TransformerConfig, batch: int, max_len: int) -> str:
     """Which path ``decode_step`` takes: ``_qdot`` per layer; for SwiGLU the
-    megatail (B3 prologue, then B2 per layer) or, at batch 1, the whole
-    step after the B3 prologue as one kernel (B7); for GPT-2 the GELU
-    megatail (B9a prologue, then B9b per layer) or, with
-    ``VOCALIE_MEGATAIL=0``, B9a and B9c per layer. The JAX ``decode_step``'s
-    choice from the config and the shapes (``transformer.py:778-857``; the
-    B7 conditions of ``maybe_head_stack_qkv``, ``:422-464``, which the JAX
-    generate programs apply at batch 1, for the SwiGLU family only), with
-    the int8 cache and decode kernel and no qk-norm. Raises where the JAX
-    package would run a dispatch or a kernel the port lacks."""
+    megatail (B3 prologue, then B2 per layer), with ``VOCALIE_MEGATAIL=0``
+    B3 and the tail alone (B8a) per layer, or, at batch 1, the whole step
+    after the B3 prologue as one kernel (B7); for GPT-2 the GELU megatail
+    (B9a prologue, then B9b per layer) or, with ``VOCALIE_MEGATAIL=0``, B9a
+    and B9c per layer; where no fused tail applies (SwiGLU with biases or a
+    LayerNorm, a d_ff that is not a 128-multiple, a GELU MLP without
+    biases), B4 for the qkv and o-projections and the int8 SwiGLU MLP
+    (B8b) or ``_qdot`` for the MLP. The JAX ``decode_step``'s choice from
+    the config and the shapes (``transformer.py:778-857``; the B7
+    conditions of ``maybe_head_stack_qkv``, ``:422-464``, which the JAX
+    generate programs apply at batch 1, for the SwiGLU family without
+    qk-norm only), with the int8 cache and decode kernel. Raises where the
+    JAX package would run a kernel the port lacks."""
     dense = (cfg.dense_kernel and _is_i8(layers.get("wqkv")) and _is_i8(layers.get("wo"))
              and layers["wqkv"]["q"].shape[2] % 128 == 0 and cfg.d_model % 128 == 0)
     if not dense:
         return QDOT
     mega = bool_env("VOCALIE_MEGATAIL", True)
-    if cfg.mlp_type == "gelu":
-        if not (cfg.bias and _is_i8(layers.get("w_up")) and _is_i8(layers.get("w_down"))
-                and cfg.d_ff % 128 == 0 and cfg.norm_type == "layer"):
+    mlp_i8 = _is_i8(layers.get("w_down")) and cfg.d_ff % 128 == 0
+    if cfg.mlp_type == "gelu" and cfg.bias and mlp_i8 and _is_i8(layers.get("w_up")):
+        if cfg.norm_type != "layer":
             raise NotImplementedError(
-                f"with the dense kernels on, a GELU MLP with bias={cfg.bias}, "
-                f"norm_type={cfg.norm_type!r}, d_ff={cfg.d_ff} or float MLP weights takes "
-                "dense_int8_stacked for the qkv and o-projections and _qdot or "
+                f"with the dense kernels on, a GELU MLP with bias and norm_type="
+                f"{cfg.norm_type!r} takes dense_int8_stacked for the qkv and o-projections and "
                 "mlp_gelu_int8_stacked (kernel B9d) for the MLP in the JAX package; the port "
-                "has not ported that dispatch; set VOCALIE_DENSE_KERNEL=0"
+                "does not have B9d yet; set VOCALIE_DENSE_KERNEL=0"
             )
         return MEGATAIL_GELU if mega else TAIL_GELU
-    if not (_is_i8(layers.get("w_gateup")) and _is_i8(layers.get("w_down"))
-            and cfg.d_ff % 128 == 0 and cfg.norm_type == "rms" and not cfg.bias):
-        raise NotImplementedError(
-            f"with the dense kernels on and d_ff={cfg.d_ff} (not a multiple of 128), "
-            "float MLP weights, a LayerNorm or biases, the JAX package runs "
-            "dense_int8_stacked for the qkv and o-projections and _qdot or "
-            "mlp_swiglu_int8_stacked (kernel B8) for the MLP; the port has not ported that "
-            "dispatch (no family it serves takes it); set VOCALIE_DENSE_KERNEL=0"
-        )
+    if not (cfg.mlp_type == "swiglu" and mlp_i8 and _is_i8(layers.get("w_gateup"))
+            and cfg.norm_type == "rms" and not cfg.bias):
+        return DENSE_FNS
     if not mega:
-        raise NotImplementedError(
-            "VOCALIE_MEGATAIL=0 runs tail_swiglu_int8_stacked + qkv_norm_int8_stacked "
-            "per layer (kernel B8), which the port does not have yet; unset it"
-        )
+        return TAIL
     packed = 2 * cfg.d_head == 128   # the JAX cache's lane-packed k|v
     # at batch 1 the JAX generate programs install the head-stacked qkv
     # (maybe_head_stack_qkv) that sends decode_step to the whole-step kernel
     if (batch == 1 and cfg.n_heads == cfg.n_kv_heads and packed and max_len % 128 == 0
-            and cfg.pos_type == "rope" and bool_env("VOCALIE_FUSED_STEP", True)):
+            and cfg.pos_type == "rope" and not cfg.qk_norm
+            and bool_env("VOCALIE_FUSED_STEP", True)):
         return FUSED_STEP
     if ((packed or cfg.d_head % 128 == 0) and max_len % 128 == 0
             and bool_env("VOCALIE_MEGALAYER")):
@@ -477,10 +484,13 @@ def _layer(layers: Params, l: int) -> Params:
             for k, v in layers.items()}
 
 
-def _block_qkv(layer: Params, x: torch.Tensor, cfg: TransformerConfig, cos, sin):
+def _block_qkv(layer: Params, x: torch.Tensor, cfg: TransformerConfig, cos, sin, qkv_dot=None):
+    """Norm, the fused qkv projection (``_qdot``, or ``qkv_dot``: B4 in the
+    decode step's ``DENSE_FNS`` path, cast to the activation dtype), the
+    bias, then ``_finish_qkv``."""
     h = _norm(x, cfg, layer["attn_norm"], layer.get("attn_norm_b"))
-    return _finish_qkv(cfg, _add_qkv_bias(cfg, _qdot(h, layer["wqkv"]), layer.get("bqkv")),
-                       cos, sin)
+    qkv = qkv_dot(h) if qkv_dot is not None else _qdot(h, layer["wqkv"])
+    return _finish_qkv(cfg, _add_qkv_bias(cfg, qkv, layer.get("bqkv")), cos, sin, layer)
 
 
 def _add_qkv_bias(cfg: TransformerConfig, qkv: torch.Tensor, bqkv) -> torch.Tensor:
@@ -490,27 +500,38 @@ def _add_qkv_bias(cfg: TransformerConfig, qkv: torch.Tensor, bqkv) -> torch.Tens
     return qkv + bqkv.to(qkv.dtype) if cfg.attn_bias else qkv
 
 
-def _finish_qkv(cfg: TransformerConfig, qkv, cos, sin):
-    """Split of the fused projection, head split + RoPE (none for learned
-    positions)."""
+def _finish_qkv(cfg: TransformerConfig, qkv, cos, sin, layer: Optional[Params] = None):
+    """Split of the fused projection, head split, the per-head q/k RMSNorm
+    (``qk_norm``: f32 over d_head, cast back to q's dtype, before RoPE, as
+    JAX ``transformer.py:577-580``; ``layer`` holds ``q_norm`` /
+    ``k_norm``), then RoPE (none for learned positions)."""
     q = qkv[..., : cfg.q_dim]
     k = qkv[..., cfg.q_dim : cfg.q_dim + cfg.kv_dim]
     v = qkv[..., cfg.q_dim + cfg.kv_dim :]
     q = _split_heads(q, cfg.n_heads, cfg.d_head)
     k = _split_heads(k, cfg.n_kv_heads, cfg.d_head)
     v = _split_heads(v, cfg.n_kv_heads, cfg.d_head)
+    if cfg.qk_norm:
+        q = rms_norm(q, layer["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, layer["k_norm"], cfg.norm_eps)
     if cfg.pos_type != "rope":
         return q, k, v
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
-def _block_tail(layer: Params, x: torch.Tensor, attn: torch.Tensor, cfg: TransformerConfig):
+def _block_tail(layer: Params, x: torch.Tensor, attn: torch.Tensor, cfg: TransformerConfig,
+                o_dot=None, mlp_fn=None):
+    """o-projection (``_qdot``, or ``o_dot``: B4), bias, residual, norm,
+    MLP, residual. ``mlp_fn`` (B8b) replaces the whole MLP and, as in
+    JAX, adds no ``b_down``."""
     merged = _merge_heads(attn)
-    o = _qdot(merged, layer["wo"])
+    o = o_dot(merged) if o_dot is not None else _qdot(merged, layer["wo"])
     if cfg.bias:
         o = o + layer["bo"].to(o.dtype)
     x = x + o.to(x.dtype)
     h2 = _norm(x, cfg, layer["mlp_norm"], layer.get("mlp_norm_b"))
+    if mlp_fn is not None:
+        return x + mlp_fn(h2).to(x.dtype)
     if cfg.mlp_type == "swiglu":
         gu = _qdot(h2, layer["w_gateup"], f32_out=True)
         gate, up = gu[..., : cfg.d_ff], gu[..., cfg.d_ff :]
@@ -524,6 +545,25 @@ def _block_tail(layer: Params, x: torch.Tensor, attn: torch.Tensor, cfg: Transfo
     if cfg.bias:
         mlp = mlp + layer["b_down"].to(mlp.dtype)
     return x + mlp.to(x.dtype)
+
+
+def _dense_fns(lw: Params, cfg: TransformerConfig, l: int):
+    """The ``DENSE_FNS`` path's callbacks for layer ``l`` (JAX
+    ``_make_dense_fns``, ``transformer.py:906-935``): B4 for the fused qkv
+    and the o-projection (f32 out, cast to the input's dtype), and B8b for
+    a SwiGLU MLP with int8 weights and a 128-multiple d_ff (else None:
+    ``_qdot``)."""
+
+    def b4(w):
+        return lambda h: dense_int8_stacked(h[:, 0], w["q"], w["s"], l)[:, None, :].to(h.dtype)
+
+    mlp_fn = None
+    if (cfg.mlp_type == "swiglu" and _is_i8(lw.get("w_gateup")) and _is_i8(lw.get("w_down"))
+            and cfg.d_ff % 128 == 0):
+        def mlp_fn(h2):
+            return mlp_swiglu_int8_stacked(h2[:, 0], lw["w_gateup"]["q"], lw["w_gateup"]["s"],
+                                           lw["w_down"]["q"], lw["w_down"]["s"], l)[:, None, :]
+    return b4(lw["wqkv"]), b4(lw["wo"]), mlp_fn
 
 
 # ── forward passes ──────────────────────────────────────────────────────
@@ -594,11 +634,13 @@ def decode_step(
     qkv comes from B3 (B9a for GPT-2) and each layer's B2 (B9b) returns
     the layer output and the next layer's raw qkv, carried through the
     loop; the last layer's (computed from its own weights, the clamped
-    index) is dropped. Without the megatail, GPT-2 takes B9a and B9c in
-    every layer. With the fused step, layer 0's q/k/v come from B3 and
-    every layer runs in B7 (``_fused_step``). Learned positions add the
-    table's row ``n_decoded + 1`` (``decode_relative``) or the row's
-    length (``absolute``) to the token embedding."""
+    index) is dropped. Without the megatail, every layer takes B3 and B8a
+    (GPT-2: B9a and B9c). With the fused step, layer 0's q/k/v come from
+    B3 and every layer runs in B7 (``_fused_step``). The ``DENSE_FNS``
+    path runs B4 for the qkv and o-projections and B8b (or ``_qdot``) for
+    the MLP. Learned positions add the table's row ``n_decoded + 1``
+    (``decode_relative``) or the row's length (``absolute``) to the token
+    embedding."""
     check_supported(cfg)
     b = token.shape[0]
     x = params["tok_emb"][token][:, None, :]  # [b, 1, d_model]
@@ -631,13 +673,20 @@ def decode_step(
     k_news, v_news = [], []
     for l in range(cfg.n_layers):
         layer = _layer(lw, l)
+        o_dot = mlp_fn = None
         if path == TAIL_GELU:
             qkv_raw = _qkv_lnorm(x, lw, cfg, l)
-        if path != QDOT:
-            qkv = _add_qkv_bias(cfg, qkv_raw[:, None, :].to(x.dtype), layer.get("bqkv"))
-            q, k_new, v_new = _finish_qkv(cfg, qkv, cos, sin)
+        elif path == TAIL:
+            qkv_raw = qkv_norm_int8_stacked(x[:, 0], lw["attn_norm"], lw["wqkv"]["q"],
+                                            lw["wqkv"]["s"], l, eps=cfg.norm_eps)
+        if path in (QDOT, DENSE_FNS):
+            qkv_dot = None
+            if path == DENSE_FNS:
+                qkv_dot, o_dot, mlp_fn = _dense_fns(lw, cfg, l)
+            q, k_new, v_new = _block_qkv(layer, x, cfg, cos, sin, qkv_dot)
         else:
-            q, k_new, v_new = _block_qkv(layer, x, cfg, cos, sin)
+            qkv = _add_qkv_bias(cfg, qkv_raw[:, None, :].to(x.dtype), layer.get("bqkv"))
+            q, k_new, v_new = _finish_qkv(cfg, qkv, cos, sin, layer)
         kn = k_new[:, :, 0, :].float().contiguous()  # [b, kv, d]
         vn = v_new[:, :, 0, :].float().contiguous()
         qg = q.reshape(b, cfg.n_kv_heads, group, cfg.d_head).float().contiguous()
@@ -657,19 +706,21 @@ def decode_step(
             else:
                 x_out = tail_gelu_int8_stacked(*tail, l, eps=cfg.norm_eps)
             x = x_out[:, None, :].to(x.dtype)
-        elif megatail:
+        elif path in (MEGATAIL, TAIL):
             # the f32 attention output goes in as it is (no cast to x.dtype)
-            x_out, qkv_raw = tail_swiglu_qkv_int8_stacked(
-                attn.reshape(b, cfg.q_dim), x[:, 0],
-                lw["wo"]["q"], lw["wo"]["s"], lw["mlp_norm"],
-                lw["w_gateup"]["q"], lw["w_gateup"]["s"],
-                lw["w_down"]["q"], lw["w_down"]["s"],
-                lw["attn_norm"], lw["wqkv"]["q"], lw["wqkv"]["s"], l, eps=cfg.norm_eps,
-            )
+            tail = (attn.reshape(b, cfg.q_dim), x[:, 0], lw["wo"]["q"], lw["wo"]["s"],
+                    lw["mlp_norm"], lw["w_gateup"]["q"], lw["w_gateup"]["s"],
+                    lw["w_down"]["q"], lw["w_down"]["s"])
+            if megatail:
+                x_out, qkv_raw = tail_swiglu_qkv_int8_stacked(
+                    *tail, lw["attn_norm"], lw["wqkv"]["q"], lw["wqkv"]["s"], l,
+                    eps=cfg.norm_eps)
+            else:
+                x_out = tail_swiglu_int8_stacked(*tail, l, eps=cfg.norm_eps)
             x = x_out[:, None, :].to(x.dtype)
         else:
             attn = attn.reshape(b, cfg.n_heads, 1, cfg.d_head).to(x.dtype)
-            x = _block_tail(layer, x, attn, cfg)
+            x = _block_tail(layer, x, attn, cfg, o_dot, mlp_fn)
         k_news.append(kn)
         v_news.append(vn)
     return _decode_step_finish(params, cfg, cache, x, torch.stack(k_news), torch.stack(v_news),

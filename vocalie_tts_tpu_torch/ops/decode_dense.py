@@ -1,17 +1,23 @@
-"""int8-native dense decode-step kernels (B2, B3, B4, B9a-c) and their plain
-versions.
+"""int8-native dense decode-step kernels (B2, B3, B4, B8a-b, B9a-c) and their
+plain versions.
 
 Counterpart of ``vocalie_tts_tpu/ops/decode_dense.py`` on the functions the
 serving paths run with ``dense_kernel`` on. The SwiGLU family (Chatterbox,
-CosyVoice):
+CosyVoice, Qwen3):
 
 - ``dense_int8_stacked`` (B4): per-row int8 x, ``(x_i8 · W[l])_i32 · xs · s``
-  (the 128-padded int8 lm_head);
+  (the 128-padded int8 lm_head; the qkv and o-projections where no fused
+  tail applies);
 - ``qkv_norm_int8_stacked`` (B3): f32 RMSNorm, then the same product with
-  the fused qkv weights (the layer-0 prologue of each decode step);
+  the fused qkv weights (the layer-0 prologue of each decode step; every
+  layer with ``VOCALIE_MEGATAIL=0``);
 - ``tail_swiglu_qkv_int8_stacked`` (B2): the whole layer tail (o-proj →
   residual → RMSNorm → SwiGLU → down-proj → residual) and the NEXT layer's
-  RMSNorm + qkv, ``qkv_next`` read from layer ``min(l + 1, L - 1)``.
+  RMSNorm + qkv, ``qkv_next`` read from layer ``min(l + 1, L - 1)``;
+- ``tail_swiglu_int8_stacked`` (B8a): B2 without the next-qkv phase
+  (``VOCALIE_MEGATAIL=0``);
+- ``mlp_swiglu_int8_stacked`` (B8b): the int8 SwiGLU MLP alone on the
+  post-norm activations, no residual (SwiGLU with biases or a LayerNorm).
 
 The GPT-2 family (XTTS):
 
@@ -30,19 +36,21 @@ scales ``[L, 1, d_out]``, norm weights ``[L, d_model]``, and a layer index.
 
 Activations are quantized per row, ``s = max(amax / 127, 1e-8)`` and
 ``round(x / s)`` half to even (a divide, no clip). The SwiGLU and GELU
-hiddens are quantized per (row, d_ff tile), with the tile ``pick_tile(d_ff, 6 MiB,
-2 · d_model)``: the JAX kernel's block with ``VOCALIE_TILE_MB`` unset. The
-port does not read that knob; the block follows from the shapes.
+hiddens are quantized per (row, d_ff tile), with the tile ``pick_tile(d_ff,
+6 MiB, 2 · d_model)``: the JAX kernel's block. ``VOCALIE_TILE_MB`` overrides
+the 6 MiB budget as in JAX ``_pick_tile`` (read at each call), and a budget
+below one 128-column tile raises as it does there.
 
 On a CUDA tensor each wrapper launches ``csrc/decode_dense.cu`` (a short
 sequence of kernels from one C entry point; ``launches`` counts calls of
 the entry point); on a CPU tensor it runs the plain version, which takes
-the integer products exactly in float64 (|sum| <= 4096 · 127² < 2**53).
+the integer products exactly in float64 (|sum| <= 8192 · 127² < 2**53).
 """
 
 from __future__ import annotations
 
 import functools
+import os
 
 import numpy as np
 import torch
@@ -59,14 +67,28 @@ _TAIL_ARGTYPES = ([_build.P, _build.P, _build.I] + [_build.P] * 10
                   + [_build.I] * 9 + [_build.F] + [_build.P] * 3 + [_build.LL, _build.P])
 _LNORM_ARGTYPES = ([_build.P, _build.I, _build.P, _build.P, _build.I, _build.F, _build.P, _build.P]
                    + [_build.I] * 4 + [_build.P, _build.P, _build.LL, _build.P])
+_MLP_ARGTYPES = ([_build.P, _build.I] + [_build.P] * 4 + [_build.I] * 6
+                 + [_build.P, _build.P, _build.LL, _build.P])
 _GELU_ARGTYPES = ([_build.P, _build.P, _build.I] + [_build.P] * 11 + [_build.I] + [_build.P] * 4
                   + [_build.I] * 9 + [_build.F] + [_build.P] * 3 + [_build.LL, _build.P])
 
 
 def pick_tile(n: int, budget: int, bytes_per_col: int) -> int:
     """Largest 128-multiple dividing ``n`` within ``budget`` bytes of
-    ``bytes_per_col``-byte columns (0 if none): the JAX ``_pick_tile``
-    without its ``VOCALIE_TILE_MB`` override."""
+    ``bytes_per_col``-byte columns (0 if none): the JAX ``_pick_tile``.
+    ``VOCALIE_TILE_MB`` (MiB) replaces ``budget``; below one 128-column
+    tile it raises, as in JAX."""
+    mb = os.environ.get("VOCALIE_TILE_MB")
+    if mb:
+        override = int(float(mb) * 1024 * 1024)
+        floor = bytes_per_col * 128
+        if override < floor:
+            raise ValueError(
+                f"VOCALIE_TILE_MB={mb} is below the minimum one-tile budget "
+                f"({floor / 1024 / 1024:.2f} MB = 128 cols x {bytes_per_col} bytes/col for this "
+                "layer); raise it or unset the knob"
+            )
+        budget = override
     cap = min(n, budget // max(bytes_per_col, 1)) // 128 * 128
     for t in range(cap, 0, -128):
         if n % t == 0:
@@ -140,23 +162,47 @@ def qkv_norm_int8_plain(x, nw_all, w_all, s_all, layer: int, *, eps: float):
     return _int_dot(q, w_all[layer]) * hs * s_all[layer]
 
 
-def tail_swiglu_qkv_int8_plain(attn, x, wo_all, wos_all, mw_all, wgu_all, sgu_all,
-                               wd_all, sd_all, nw_all, wq_all, sq_all, layer: int, *,
-                               eps: float, tile: int | None = None):
-    """``tile``: the d_ff block the hidden is quantized over (default: the
-    JAX kernel's, ``pick_tile(d_ff, 6 MiB, 2 · d_model)``)."""
-    L, d_ff = wq_all.shape[0], wd_all.shape[1]
+def tail_swiglu_int8_plain(attn, x, wo_all, wos_all, mw_all, wgu_all, sgu_all, wd_all, sd_all,
+                           layer: int, *, eps: float, tile: int | None = None):
+    """B8a. ``tile``: the d_ff block the hidden is quantized over (default:
+    the JAX kernel's, ``pick_tile(d_ff, 6 MiB, 2 · d_model)``)."""
+    d_ff = wd_all.shape[1]
     tile = tile or pick_tile(d_ff, TILE_BUDGET, 2 * x.shape[1])
     a, as_ = _quantize_rows(attn.float())
     x2 = x.float() + _int_dot(a, wo_all[layer]) * as_ * wos_all[layer]
     h, hs = _quantize_rows(_rms_rows(x2, mw_all[layer], eps))
-    gu = _int_dot(h, wgu_all[layer]) * hs * sgu_all[layer]
+    return x2 + _swiglu_down(h, hs, wgu_all[layer], sgu_all[layer], wd_all[layer], tile) \
+        * sd_all[layer]
+
+
+def _swiglu_down(h, hs, wgu, sgu, wd, tile):
+    """The int8 SwiGLU of one layer on quantized rows ``h`` (scales ``hs``):
+    gate | up, ``silu(g) · u``, the down-projection summed over d_ff tiles
+    (before the down scales)."""
+    d_ff = wd.shape[0]
+    gu = _int_dot(h, wgu) * hs * sgu
     gate = gu[:, :d_ff]
-    hidden = gate * torch.sigmoid(gate) * gu[:, d_ff:]
-    x_out = x2 + _tiled_down(hidden, wd_all[layer], tile) * sd_all[layer]
-    nxt = min(layer + 1, L - 1)
+    return _tiled_down(gate * torch.sigmoid(gate) * gu[:, d_ff:], wd, tile)
+
+
+def tail_swiglu_qkv_int8_plain(attn, x, wo_all, wos_all, mw_all, wgu_all, sgu_all,
+                               wd_all, sd_all, nw_all, wq_all, sq_all, layer: int, *,
+                               eps: float, tile: int | None = None):
+    """B2: B8a, then the next layer's norm + qkv."""
+    x_out = tail_swiglu_int8_plain(attn, x, wo_all, wos_all, mw_all, wgu_all, sgu_all, wd_all,
+                                   sd_all, layer, eps=eps, tile=tile)
+    nxt = min(layer + 1, wq_all.shape[0] - 1)
     qkv = qkv_norm_int8_plain(x_out, nw_all, wq_all, sq_all, nxt, eps=eps)
     return x_out, qkv
+
+
+def mlp_swiglu_int8_plain(x, wgu_all, sgu_all, wd_all, sd_all, layer: int, *,
+                          tile: int | None = None):
+    """B8b: the int8 SwiGLU MLP on post-norm rows, no residual."""
+    tile = tile or pick_tile(wd_all.shape[1], TILE_BUDGET, 2 * x.shape[1])
+    h, hs = _quantize_rows(x.float())
+    return _swiglu_down(h, hs, wgu_all[layer], sgu_all[layer], wd_all[layer], tile) \
+        * sd_all[layer]
 
 
 def qkv_lnorm_int8_plain(x, ng_all, nb_all, w_all, s_all, layer: int, *, eps: float):
@@ -310,6 +356,51 @@ def qkv_norm_int8_stacked(
     return _launch_dense(x, nw_all, eps, w_all, s_all, layer)
 
 
+def _ff_tile(d: int, d_ff: int, Q: int) -> int:
+    """The d_ff tile of B2, B8a-b and B9b-c; raises where the JAX kernels have
+    none."""
+    tile = pick_tile(d_ff, TILE_BUDGET, 2 * d)
+    if tile == 0 or (Q and pick_tile(Q, TILE_BUDGET, d) == 0):
+        raise ValueError(f"d_ff={d_ff}/d_qkv={Q} has no 128-multiple tile")
+    return tile
+
+
+def _tail_swiglu(attn, x, wo_all, wos_all, mw_all, wgu_all, sgu_all, wd_all, sd_all, nxt,
+                 layer, eps, tile):
+    """Checks and launches B2 (``nxt`` = (nw_all, wq_all, sq_all)) or B8a
+    (``nxt`` None) → ``(x_out, qkv_next or None)``."""
+    b, d = x.shape
+    d_attn = attn.shape[1]
+    L, d_ff = wd_all.shape[0], wd_all.shape[1]
+    Q = 0 if nxt is None else nxt[1].shape[2]
+    specs = [("attn", attn, _FL, (b, d_attn)), ("x", x, _ACT, (b, d)),
+             ("wo_all", wo_all, _I8, (L, d_attn, d)), ("wos_all", wos_all, _FL, (L, 1, d)),
+             ("mw_all", mw_all, _ACT, (L, d)),
+             ("wgu_all", wgu_all, _I8, (L, d, 2 * d_ff)),
+             ("sgu_all", sgu_all, _FL, (L, 1, 2 * d_ff)),
+             ("wd_all", wd_all, _I8, (L, d_ff, d)), ("sd_all", sd_all, _FL, (L, 1, d))]
+    if nxt is not None:
+        nw_all, wq_all, sq_all = nxt
+        specs += [("nw_all", nw_all, (mw_all.dtype,), (L, d)),
+                  ("wq_all", wq_all, _I8, (L, d, Q)), ("sq_all", sq_all, _FL, (L, 1, Q))]
+    _check(x.device, layer, L, *specs)
+    ws = _workspace(_tail_ws_bytes(b, d_attn, d, d_ff, tile, Q), x.device)
+    x_out = torch.empty((b, d), dtype=torch.float32, device=x.device)
+    qkv = torch.empty((b, Q), dtype=torch.float32, device=x.device) if Q else None
+    ptrs = [None] * 3 if nxt is None else [t.data_ptr() for t in nxt]
+    fn = _build.kernel("vt_tail_swiglu_qkv_int8", _TAIL_ARGTYPES)
+    (tail_swiglu_int8_stacked if nxt is None else tail_swiglu_qkv_int8_stacked).launches += 1
+    rc = fn(attn.data_ptr(), x.data_ptr(), _kind(x, "x"),
+            wo_all.data_ptr(), wos_all.data_ptr(), mw_all.data_ptr(),
+            wgu_all.data_ptr(), sgu_all.data_ptr(), wd_all.data_ptr(), sd_all.data_ptr(),
+            *ptrs, _kind(mw_all, "mw_all"),
+            int(layer), L, b, d_attn, d, d_ff, tile, Q, float(eps),
+            x_out.data_ptr(), None if qkv is None else qkv.data_ptr(), ws.data_ptr(),
+            ws.numel(), _build.stream_ptr(x))
+    _build.check(rc, "vt_tail_swiglu_qkv_int8")
+    return x_out, qkv
+
+
 def tail_swiglu_qkv_int8_stacked(
     attn: torch.Tensor,     # [b, n_heads*d_head] f32 merged attention output
     x: torch.Tensor,        # [b, d_model] residual stream INTO the block
@@ -327,42 +418,66 @@ def tail_swiglu_qkv_int8_stacked(
     *,
     eps: float,
 ):
-    """Layer tail + the next layer's norm + qkv →
+    """Layer tail + the next layer's norm + qkv (B2) →
     ``(x_out [b, d_model] f32, qkv_next [b, d_qkv] f32)``."""
+    args = (attn, x, wo_all, wos_all, mw_all, wgu_all, sgu_all, wd_all, sd_all)
+    if wgu_all.shape[2] != 2 * wd_all.shape[1]:
+        raise ValueError("wgu_all must be the fused [gate | up] concat")
+    tile = _ff_tile(x.shape[1], wd_all.shape[1], wq_all.shape[2])
+    if x.device.type == "cpu":
+        return tail_swiglu_qkv_int8_plain(*args, nw_all, wq_all, sq_all, layer, eps=eps,
+                                          tile=tile)
+    return _tail_swiglu(*args, (nw_all, wq_all, sq_all), layer, eps, tile)
+
+
+def tail_swiglu_int8_stacked(attn, x, wo_all, wos_all, mw_all, wgu_all, sgu_all, wd_all, sd_all,
+                             layer: int, *, eps: float) -> torch.Tensor:
+    """The SwiGLU layer tail alone (B8a) → x_out [b, d_model] f32; the
+    arguments as ``tail_swiglu_qkv_int8_stacked``'s first nine."""
+    args = (attn, x, wo_all, wos_all, mw_all, wgu_all, sgu_all, wd_all, sd_all)
+    if wgu_all.shape[2] != 2 * wd_all.shape[1]:
+        raise ValueError("wgu_all must be the fused [gate | up] concat")
+    tile = _ff_tile(x.shape[1], wd_all.shape[1], 0)
+    if x.device.type == "cpu":
+        return tail_swiglu_int8_plain(*args, layer, eps=eps, tile=tile)
+    return _tail_swiglu(*args, None, layer, eps, tile)[0]
+
+
+@functools.lru_cache(maxsize=None)
+def _mlp_ws_bytes(b: int, d: int, d_ff: int, tile: int) -> int:
+    return _build.kernel("vt_mlp_swiglu_workspace", [_build.I] * 4, restype=_build.LL)(
+        b, d, d_ff, tile)
+
+
+def mlp_swiglu_int8_stacked(
+    x: torch.Tensor,        # [b, d_model] post-norm activations
+    wgu_all: torch.Tensor,  # [L, d_model, 2*d_ff] int8 ([gate | up])
+    sgu_all: torch.Tensor,  # [L, 1, 2*d_ff] f32
+    wd_all: torch.Tensor,   # [L, d_ff, d_model] int8
+    sd_all: torch.Tensor,   # [L, 1, d_model] f32
+    layer: int,
+) -> torch.Tensor:
+    """silu(x·Wg)·(x·Wu)·Wd of layer ``layer`` (B8b) → [b, d_model] f32."""
     b, d = x.shape
-    d_attn = attn.shape[1]
-    L, _, Q = wq_all.shape
-    d_ff = wd_all.shape[1]
+    L, d_ff = wd_all.shape[0], wd_all.shape[1]
     if wgu_all.shape[2] != 2 * d_ff:
         raise ValueError("wgu_all must be the fused [gate | up] concat")
-    tile = pick_tile(d_ff, TILE_BUDGET, 2 * d)
-    if tile == 0 or pick_tile(Q, TILE_BUDGET, d) == 0:
-        raise ValueError(f"d_ff={d_ff}/d_qkv={Q} has no 128-multiple tile")
+    tile = _ff_tile(d, d_ff, 0)
     if x.device.type == "cpu":
-        return tail_swiglu_qkv_int8_plain(attn, x, wo_all, wos_all, mw_all, wgu_all, sgu_all,
-                                          wd_all, sd_all, nw_all, wq_all, sq_all, layer, eps=eps)
-    _check(x.device, layer, L,
-           ("attn", attn, _FL, (b, d_attn)), ("x", x, _ACT, (b, d)),
-           ("wo_all", wo_all, _I8, (L, d_attn, d)), ("wos_all", wos_all, _FL, (L, 1, d)),
-           ("mw_all", mw_all, (nw_all.dtype,), (L, d)),
+        return mlp_swiglu_int8_plain(x, wgu_all, sgu_all, wd_all, sd_all, layer, tile=tile)
+    _check(x.device, layer, L, ("x", x, _ACT, (b, d)),
            ("wgu_all", wgu_all, _I8, (L, d, 2 * d_ff)),
            ("sgu_all", sgu_all, _FL, (L, 1, 2 * d_ff)),
-           ("wd_all", wd_all, _I8, (L, d_ff, d)), ("sd_all", sd_all, _FL, (L, 1, d)),
-           ("nw_all", nw_all, _ACT, (L, d)),
-           ("wq_all", wq_all, _I8, (L, d, Q)), ("sq_all", sq_all, _FL, (L, 1, Q)))
-    ws = _workspace(_tail_ws_bytes(b, d_attn, d, d_ff, tile, Q), x.device)
-    x_out = torch.empty((b, d), dtype=torch.float32, device=x.device)
-    qkv = torch.empty((b, Q), dtype=torch.float32, device=x.device)
-    fn = _build.kernel("vt_tail_swiglu_qkv_int8", _TAIL_ARGTYPES)
-    tail_swiglu_qkv_int8_stacked.launches += 1
-    rc = fn(attn.data_ptr(), x.data_ptr(), _kind(x, "x"),
-            wo_all.data_ptr(), wos_all.data_ptr(), mw_all.data_ptr(),
-            wgu_all.data_ptr(), sgu_all.data_ptr(), wd_all.data_ptr(), sd_all.data_ptr(),
-            nw_all.data_ptr(), wq_all.data_ptr(), sq_all.data_ptr(), _kind(nw_all, "nw_all"),
-            int(layer), L, b, d_attn, d, d_ff, tile, Q, float(eps),
-            x_out.data_ptr(), qkv.data_ptr(), ws.data_ptr(), ws.numel(), _build.stream_ptr(x))
-    _build.check(rc, "vt_tail_swiglu_qkv_int8")
-    return x_out, qkv
+           ("wd_all", wd_all, _I8, (L, d_ff, d)), ("sd_all", sd_all, _FL, (L, 1, d)))
+    ws = _workspace(_mlp_ws_bytes(b, d, d_ff, tile), x.device)
+    out = torch.empty((b, d), dtype=torch.float32, device=x.device)
+    fn = _build.kernel("vt_mlp_swiglu_int8", _MLP_ARGTYPES)
+    mlp_swiglu_int8_stacked.launches += 1
+    rc = fn(x.data_ptr(), _kind(x, "x"), wgu_all.data_ptr(), sgu_all.data_ptr(),
+            wd_all.data_ptr(), sd_all.data_ptr(), int(layer), L, b, d, d_ff, tile,
+            out.data_ptr(), ws.data_ptr(), ws.numel(), _build.stream_ptr(x))
+    _build.check(rc, "vt_mlp_swiglu_int8")
+    return out
 
 
 def qkv_lnorm_int8_stacked(
@@ -400,14 +515,6 @@ def qkv_lnorm_int8_stacked(
 def _gelu_ws_bytes(b: int, d_attn: int, d: int, d_ff: int, tile: int, Q: int) -> int:
     return _build.kernel("vt_tail_gelu_workspace", [_build.I] * 6, restype=_build.LL)(
         b, d_attn, d, d_ff, tile, Q)
-
-
-def _gelu_tile(d: int, d_ff: int, Q: int) -> int:
-    """The d_ff tile of B9b / B9c; raises where the JAX kernels have none."""
-    tile = pick_tile(d_ff, TILE_BUDGET, 2 * d)
-    if tile == 0 or (Q and pick_tile(Q, TILE_BUDGET, d) == 0):
-        raise ValueError(f"d_ff={d_ff}/d_qkv={Q} has no 128-multiple tile")
-    return tile
 
 
 def _tail_gelu(attn, x, wo_all, wos_all, bo_all, lg_all, lb_all, wu_all, su_all, bu_all,
@@ -470,7 +577,7 @@ def tail_gelu_int8_stacked(
     """The GPT-2 layer tail (B9c) → x_out [b, d_model] f32."""
     args = (attn, x, wo_all, wos_all, bo_all, lg_all, lb_all, wu_all, su_all, bu_all, wd_all,
             sd_all, bd_all)
-    tile = _gelu_tile(x.shape[1], wd_all.shape[1], 0)
+    tile = _ff_tile(x.shape[1], wd_all.shape[1], 0)
     if x.device.type == "cpu":
         return tail_gelu_int8_plain(*args, layer, eps=eps, tile=tile)
     return _tail_gelu(*args, None, layer, eps, tile)[0]
@@ -492,7 +599,7 @@ def tail_gelu_qkv_int8_stacked(
     arguments as ``tail_gelu_int8_stacked``'s."""
     args = (attn, x, wo_all, wos_all, bo_all, lg_all, lb_all, wu_all, su_all, bu_all, wd_all,
             sd_all, bd_all)
-    tile = _gelu_tile(x.shape[1], wd_all.shape[1], wq_all.shape[2])
+    tile = _ff_tile(x.shape[1], wd_all.shape[1], wq_all.shape[2])
     if x.device.type == "cpu":
         return tail_gelu_qkv_int8_plain(*args, ng_all, nb_all, wq_all, sq_all, layer, eps=eps,
                                         tile=tile)
@@ -503,6 +610,8 @@ def tail_gelu_qkv_int8_stacked(
 dense_int8_stacked.launches = 0
 qkv_norm_int8_stacked.launches = 0
 tail_swiglu_qkv_int8_stacked.launches = 0
+tail_swiglu_int8_stacked.launches = 0
+mlp_swiglu_int8_stacked.launches = 0
 qkv_lnorm_int8_stacked.launches = 0
 tail_gelu_int8_stacked.launches = 0
 tail_gelu_qkv_int8_stacked.launches = 0
@@ -511,6 +620,8 @@ __all__ = [
     "dense_int8_stacked", "dense_int8_plain",
     "qkv_norm_int8_stacked", "qkv_norm_int8_plain",
     "tail_swiglu_qkv_int8_stacked", "tail_swiglu_qkv_int8_plain",
+    "tail_swiglu_int8_stacked", "tail_swiglu_int8_plain",
+    "mlp_swiglu_int8_stacked", "mlp_swiglu_int8_plain",
     "qkv_lnorm_int8_stacked", "qkv_lnorm_int8_plain",
     "tail_gelu_int8_stacked", "tail_gelu_int8_plain",
     "tail_gelu_qkv_int8_stacked", "tail_gelu_qkv_int8_plain",

@@ -3,9 +3,10 @@
 Counterpart of ``vocalie_tts_tpu/ops/flash_attention.py::flash_attention``
 (forward only): ``[b, h, s, d]`` attention, causal (start-aligned, query
 i sees keys <= i) or masked per batch row by ``kv_lens``, with GQA when
-k/v carry fewer heads. :func:`reference_attention` is the counterpart of
-that module's ``reference_attention`` (the XLA softmax that prefill runs
-below 512 positions).
+k/v carry fewer heads, at head dims 8, 16, 32, 64 and 128.
+:func:`reference_attention` is the counterpart of that module's
+``reference_attention`` (the XLA softmax that prefill runs below 512
+positions).
 
 On a CUDA tensor the wrapper launches ``csrc/flash_attention.cu``; on a
 CPU tensor it runs :func:`attention_plain`. A row with no valid key
@@ -98,8 +99,8 @@ def flash_attention(
         raise ValueError(f"unsupported device {q.device}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"kernel takes float32 or bfloat16 q/k/v, got {q.dtype}/{k.dtype}/{v.dtype}")
-    if d not in (8, 16, 32, 64):
-        raise ValueError(f"kernel takes head dims 8, 16, 32 or 64, got {d}")
+    if d not in (8, 16, 32, 64, 128):
+        raise ValueError(f"kernel takes head dims 8, 16, 32, 64 or 128, got {d}")
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous tensor on {q.device}")

@@ -5,7 +5,8 @@ request dict and meta).
 Per-chunk clean render, short-text padding, resample to the target rate,
 inter-chunk gap with crossfades. The engine is passed in, or built from
 the port's own ``engines.ENGINES`` by ``tts_backend`` (``chatterbox``,
-``cosyvoice``, ``xtts``: the voice clone, which needs ``voice_ref_path``) on
+``cosyvoice``, ``xtts``: the voice clone, which needs ``voice_ref_path``,
+``qwen3``: its three modes, a ``voice_ref_path`` taking voice_clone) on
 ``device`` — the GPU unless the caller asks for the CPU.
 """
 
