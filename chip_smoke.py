@@ -12,8 +12,10 @@ Phases (any failure exits non-zero before the final line is printed):
    B7, the whole decode step at batch 1 as one cooperative launch, B13,
    the fused GroupNorm of the AudioSR UNet and VAE, and the GPT-2 (XTTS)
    decode kernels B9a LayerNorm+qkv, B9b GELU layer tail + next qkv and B9c
-   the tail alone, and the unfused SwiGLU tail B8a and MLP B8b of the Qwen3
-   path -- at the shapes the path gives it (B1-B6 also at the Qwen3 shapes:
+   the tail alone, the unfused SwiGLU tail B8a and MLP B8b of the Qwen3
+   path, and B12, the whole SwiGLU decode layer as one cooperative launch
+   (``VOCALIE_MEGALAYER=1``; at the T3 and the Qwen3 layer, beside the B1 +
+   B2 pair on the same inputs) -- at the shapes the path gives it (B1-B6 also at the Qwen3 shapes:
    d_model 2048, 16 q / 8 kv heads of 128, d_ff 8192, b = 8; B6 at
    [8, 16, 512, 128] causal with 8 kv heads): hold the kernel against its plain
    PyTorch version on the card, time kernel, plain version and (where one
@@ -34,14 +36,20 @@ Phases (any failure exits non-zero before the final line is printed):
    dense decode with ``VOCALIE_MEGATAIL`` unset (B3 + B2) and 0 (B3 + B8a)
    the same two ways, its stage 2 GPU vs CPU; and a d_model-128 SwiGLU
    transformer with biases (B4 for the qkv and o-projections, B8b for the
-   MLP: the dispatch no served family reaches) the same two ways;
+   MLP: the dispatch no served family reaches) the same two ways; and with
+   ``VOCALIE_MEGALAYER=1`` (B3 + L x B12 + B4 a step) the d_model-128 model
+   (d_head 64) and the Qwen3 d_model-256 LM (d_head 128, GQA) the same two
+   ways;
 4. the main path: ``run_tts_pipeline`` at the full Chatterbox T3 width
    (random weights from a seed), in the JAX package's default int8 serving
    configuration (``VOCALIE_KV_INT8=1 VOCALIE_WEIGHT_INT8=1``, the dense
    kernels on) for the 8-chunk bench script and for a request whose chunk
    takes the 512 prompt bucket (causal flash attention in prefill); then
    the slice-1 configuration (``VOCALIE_DENSE_KERNEL=0``) on the bench
-   script. Every WAV is checked; each path's launch counters are set to 0
+   script, and the default config with ``VOCALIE_MEGALAYER=1`` on the bench
+   script (B3 + 30 x B12 a step, B1 = B2 = 0; timed once more after its
+   counted run). Every WAV is checked; each path's launch counters are set
+   to 0
    just before it and read just after, must have moved, and must fit the
    path (B2 = 30 x decode steps, B3 = decode steps, B4 = decode steps +
    prefills); audio seconds, wall seconds, the real-time factor and
@@ -52,7 +60,8 @@ Phases (any failure exits non-zero before the final line is printed):
    runtime's seeded generator; B3 + B7 + B5 + B4 every step, B1 = B2 = 0),
    the same request with ``VOCALIE_FUSED_STEP=0`` (B3 + 24 x (B1 + B2)),
    and ``run_tts_pipeline`` with ``tts_backend: "cosyvoice"`` on the
-   8-chunk bench script (b = 8: B1-B6); first-packet ms, sustained RTF,
+   8-chunk bench script (b = 8: B1-B6), also with ``VOCALIE_MEGALAYER=1``
+   (24 x B12 a step); first-packet ms, sustained RTF,
    windows and decode ms/step are printed; then the AudioSR studio pass at
    full width (random weights from a seed; bf16, int8 UNet convs, device
    stitch): ``AudioSRRuntime.enhance_file`` on the Chatterbox bench
@@ -74,11 +83,14 @@ Phases (any failure exits non-zero before the final line is printed):
    step) and with ``VOCALIE_MEGATAIL=0`` (28 x (B3 + B1 + B8a)), an explicit
    voice_clone with a transcript, one chunk of > 509 bytes at batch 1 in
    custom_voice (the 512 bucket: 28 B6 in prefill; B7 never) and a
-   voice_design chunk; RTF, wall and decode ms/step each;
+   voice_design chunk, then the bench request and the batch-1 chunk with
+   ``VOCALIE_MEGALAYER=1`` (B3 + 28 x B12 a step); RTF, wall and decode
+   ms/step each;
 5. torch.profiler, only now, so that nothing above is timed in a process
    where it has been on: short windows of each configuration show where
    the time goes, the studio pass's one UNet call and the XTTS and Qwen3
-   decode windows included.
+   decode windows included, the Chatterbox and Qwen3 bench requests with
+   ``VOCALIE_MEGALAYER=1`` beside their default config.
 
 The second-to-last lines are a JSON ``kernels`` line and the card's name
 and power limit; the last line is ``{"ok": true, "device": {...}}``.
@@ -106,6 +118,8 @@ NEG = -0.7 * float(torch.finfo(torch.float32).max)
 DEFAULT_ENV = {"VOCALIE_KV_INT8": "1", "VOCALIE_WEIGHT_INT8": "1"}
 #: slice 1's configuration: the dense decode kernels off
 SLICE1_ENV = {**DEFAULT_ENV, "VOCALIE_DENSE_KERNEL": "0"}
+#: the whole decode layer as one launch (B12), on every SwiGLU family
+MEGALAYER_ENV = {**DEFAULT_ENV, "VOCALIE_MEGALAYER": "1"}
 #: knobs that change the decode path; cleared before each configuration
 PATH_KNOBS = ("VOCALIE_KV_INT8", "VOCALIE_WEIGHT_INT8", "VOCALIE_DENSE_KERNEL",
               "VOCALIE_DECODE_KERNEL", "VOCALIE_MEGATAIL", "VOCALIE_MEGALAYER",
@@ -505,6 +519,126 @@ def check_decode_step(dev, failures):
                      f"{t.n_dec} decoded), {t.bq.dtype} q/k/v bias, batch 1"}
 
 
+# ── B12: the whole SwiGLU decode layer in one launch ─────────────────────
+
+B12_NAME = "B12 layer_swiglu_qkv_int8"
+
+
+def _b12_inputs(dev, attn=T3_ATTN, dense=None):
+    """B12's inputs at a main path's layer, from a seed: B1's cache and mask
+    (``attn``) and the dense kernels' layer weights (``dense``, the
+    matching ``*_DENSE``), q/k/v f32 and the residual bf16-valued f32 as
+    the decode step hands them over. Also one call of the wrapper."""
+    import types
+
+    from vocalie_tts_tpu_torch.ops import decode_layer as dl
+
+    dense = dense or (T3_DENSE if attn is T3_ATTN else QWEN3_DENSE)
+    L, b, kv, g, d, T = (attn[k] for k in ("L", "b", "kv", "g", "d", "T"))
+    D, F, Q, eps = (dense[k] for k in ("d", "F", "Q", "eps"))
+    H, valid_len = kv * g, attn["prompt_pad"] + attn["n_dec"]
+    gen = torch.Generator(device=dev).manual_seed(attn["seed"] + 100)
+
+    def weights(d_in, d_out):
+        q = torch.randint(-127, 128, (L, d_in, d_out), generator=gen, device=dev,
+                          dtype=torch.int8)
+        return q, (torch.rand((L, 1, d_out), generator=gen, device=dev) + 0.5) / 127 * d_in ** -0.5
+
+    q = torch.randn((b, kv, g, d), generator=gen, device=dev)
+    x = torch.randn((b, D), generator=gen, device=dev).to(torch.bfloat16).float()
+    k, v = (torch.randint(-127, 128, (L, b, kv, T, d), generator=gen, device=dev,
+                          dtype=torch.int8) for _ in range(2))
+    ks, vs = (((torch.rand((L, b, kv, T), generator=gen, device=dev) + 0.5) / 127)
+              .to(torch.bfloat16) for _ in range(2))
+    kn, vn = (torch.randn((b, kv, d), generator=gen, device=dev) for _ in range(2))
+    lens = torch.randint(1, attn["prompt_pad"] + 1, (b,), generator=gen, device=dev)
+    pos = torch.arange(T, device=dev)[None, :]
+    bias = torch.where((pos < lens[:, None]) | ((pos >= attn["prompt_pad"]) & (pos < valid_len)),
+                       0.0, NEG).float()
+    wo, wos = weights(H * d, D)
+    mw = 1 + 0.1 * torch.randn((L, D), generator=gen, device=dev)
+    wgu, sgu = weights(D, 2 * F)
+    wd, sd = weights(F, D)
+    nw = 1 + 0.1 * torch.randn((L, D), generator=gen, device=dev)
+    wq, sq = weights(D, Q)
+    head = (q, x, k, v, ks, vs, bias, kn, vn)
+    tail = (wo, wos, mw, wgu, sgu, wd, sd, nw, wq, sq)
+    kw = dict(sm_scale=d ** -0.5, eps=eps)
+    call = lambda: dl.layer_swiglu_qkv_int8_stacked(*head, 1, valid_len, *tail, **kw)  # noqa: E731
+    return types.SimpleNamespace(**locals())
+
+
+def _b12_case(dev, failures, attn, label, dense=None):
+    """B12 at one layer shape against its plain version (at a middle and at
+    the last layer: the clamped next qkv), DENSE_TOL x max|ref| on each
+    output; times: the kernel, its plain version, and the B1 + B2 pair the
+    port runs for the same layer without the knob, on the same inputs (no
+    PyTorch call computes B12: none quantizes activations)."""
+    from vocalie_tts_tpu_torch.ops import decode_dense as dd
+    from vocalie_tts_tpu_torch.ops import decode_layer as dl
+    from vocalie_tts_tpu_torch.ops.decode_attention import decode_attention_stacked
+
+    t = _b12_inputs(dev, attn, dense)
+    L, b, kv, g, d, D, F, Q, H, valid = t.L, t.b, t.kv, t.g, t.d, t.D, t.F, t.Q, t.H, t.valid_len
+    got, ref = [], []
+    for layer in (L // 2, L - 1):
+        got += dl.layer_swiglu_qkv_int8_stacked(*t.head, layer, valid, *t.tail, **t.kw)
+        ref += dl.layer_swiglu_qkv_int8_plain(*t.head, layer, valid, *t.tail, **t.kw)
+    torch.cuda.synchronize()
+    errs = [(a - r).abs().max().item() for a, r in zip(got, ref)]
+    worst = max(e / (DENSE_TOL * r.abs().max().item()) for e, r in zip(errs, ref))
+    exact = all(torch.equal(a, r) for a, r in zip(got, ref))
+    # each timed call reads another layer, as the decode loop does
+    ms = cuda_ms(lambda i: dl.layer_swiglu_qkv_int8_stacked(*t.head, i % L, valid, *t.tail,
+                                                            **t.kw), 100)
+    plain_ms = cuda_ms(lambda i: dl.layer_swiglu_qkv_int8_plain(*t.head, i % L, valid, *t.tail,
+                                                                **t.kw), 5, warmup=1)
+    wo, wos, mw, wgu, sgu, wd, sd, nw, wq, sq = t.tail
+
+    def pair(i):
+        l = i % L
+        attn = decode_attention_stacked(t.q, t.k, t.v, t.bias, l, t.ks, t.vs, t.kn, t.vn,
+                                        valid_len=valid, sm_scale=t.kw["sm_scale"])
+        dd.tail_swiglu_qkv_int8_stacked(attn.reshape(b, H * d), t.x, wo, wos, mw, wgu, sgu, wd,
+                                        sd, nw, wq, sq, l, eps=t.kw["eps"])
+
+    pair_ms = cuda_ms(pair, 100)
+    # each input read once, each output written once; of the cache, only
+    # the valid slots (a masked slot's probability is exactly 0)
+    w_bytes = H * d * D + D * 2 * F + F * D + D * Q
+    vec_bytes = 4 * (D + 2 * F + D + Q) + 4 * 2 * D
+    kv_bytes = valid * b * kv * (2 * d + 2 * 2) + valid * b * 4
+    io_bytes = 4 * (b * H * d + b * D + 2 * b * kv * d) + 4 * (b * D + b * Q)
+    n_bytes = w_bytes + vec_bytes + kv_bytes + io_bytes
+    n_ops = 2 * b * w_bytes + 2 * 2 * valid * b * H * d
+    bms, by = bound_ms(n_bytes, n_ops, PEAK_INT8_OPS)
+    shape = (f"{label}: q[{b},{kv},{g},{d}] cache[{L},{b},{kv},{t.T},{d}] int8 valid_len={valid}, "
+             f"d_model {D}, d_ff {F} in tiles of {dd.pick_tile(F, dd.TILE_BUDGET, 2 * D)}, qkv "
+             f"{Q}, layers {L // 2} and {L - 1} checked")
+    log(f"{B12_NAME} [{label}]: max_abs_err={max(errs):.3e} (bit-equal: {exact}), worst |diff| / "
+        f"({DENSE_TOL} x max|ref|) = {worst:.3f} (must be <= 1); kernel {ms:.6f} ms (one "
+        f"cooperative launch), plain {plain_ms:.6f} ms, B1 + B2 pair {pair_ms:.6f} ms, bound "
+        f"{bms:.6f} ms ({by}, {n_bytes / 1e6:.2f} MB: weights {w_bytes / 1e6:.2f}, the valid "
+        f"slots' k/v, scales and bias {kv_bytes / 1e6:.2f}); {shape}")
+    if not worst <= 1.0:
+        failures.append(f"{B12_NAME} [{label}] differs from its plain version: worst ratio {worst}")
+    return {"max_abs_err": max(errs), "bit_equal": exact, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by, "b1_b2_pair_ms": pair_ms, "shape": shape}
+
+
+def check_decode_layer(dev, failures):
+    """B12 at the Chatterbox T3 layer (b = 16, 16 heads of 64, cache 640
+    part-filled, as B1's case) and at the Qwen3 layer (b = 8, 16 q and 8 kv
+    heads of 128, cache 512) → the ``kernels`` entry."""
+    main = _b12_case(dev, failures, T3_ATTN, "voice-over")
+    q3 = _b12_case(dev, failures, QWEN3_ATTN, "qwen3")
+    return {"name": B12_NAME, "route": "cuda",
+            "source": "vocalie_tts_tpu_torch/csrc/decode_layer.cu",
+            "replaces": "vocalie_tts_tpu/ops/decode_layer.py:314",
+            "tolerance": f"{DENSE_TOL} x max|ref| per output", "library_ms": None,
+            "cuda_kernels_per_call": None, **main, "qwen3_shape": q3}
+
+
 def kernels_per_call(fn) -> dict:
     """The CUDA kernels one call of ``fn`` issues, by name, as
     torch.profiler sees them (empty if it saw none)."""
@@ -555,7 +689,7 @@ def _count_kernels_child() -> int:
     dev = torch.device("cuda:0")
     t3 = {k: c for k, c in _dense_inputs(dev).calls.items() if k not in B8_NAMES}
     q3 = {k: c for k, c in _dense_inputs(dev, QWEN3_DENSE).calls.items() if k in B8_NAMES}
-    calls = {**t3, **q3, B7_NAME: _b7_inputs(dev).call,
+    calls = {**t3, **q3, B7_NAME: _b7_inputs(dev).call, B12_NAME: _b12_inputs(dev).call,
              B13_NAME: _gn_case(dev, GN_CASES[0]).call, **_gelu_inputs(dev).calls}
     out = {}
     for name, call in calls.items():
@@ -1111,6 +1245,28 @@ def small_reference_dense(dev, failures):
         failures.append(f"dense reference: kernels differ from plain versions by {worst_plain}")
     if outside * 4 > ratios.numel():
         failures.append(f"dense reference: {outside} logit rows differ from the CPU")
+    # the same model with the whole layer as one launch (B12)
+    set_env(MEGALAYER_ENV)
+    try:
+        _dense_reference(dev, failures, "d_model 128, d_head 64, VOCALIE_MEGALAYER=1", cfg, params,
+                         _megalayer_swaps(), {"qkv_norm_int8_stacked": n_steps,
+                                              "layer_swiglu_qkv_int8_stacked":
+                                                  cfg.n_layers * n_steps,
+                                              "dense_int8_stacked": n_steps + 1})
+    finally:
+        set_env(DEFAULT_ENV)
+
+
+def _megalayer_swaps() -> dict:
+    """``_dense_reference``'s swaps for the ``VOCALIE_MEGALAYER=1`` step: the
+    B3 prologue, B12 per layer, the B4 head."""
+    from vocalie_tts_tpu_torch.ops import decode_dense as dd
+    from vocalie_tts_tpu_torch.ops import decode_layer as dl
+
+    return {"qkv_norm_int8_stacked": (dd.qkv_norm_int8_stacked, dd.qkv_norm_int8_plain),
+            "layer_swiglu_qkv_int8_stacked": (dl.layer_swiglu_qkv_int8_stacked,
+                                              dl.layer_swiglu_qkv_int8_plain),
+            "dense_int8_stacked": (dd.dense_int8_stacked, dd.dense_int8_plain)}
 
 
 def _dense_reference(dev, failures, label, cfg, params, swaps, want, *, n_steps=12, seed=13):
@@ -1244,6 +1400,11 @@ def small_reference_qwen3(dev, failures):
     _dense_reference(dev, failures, "Qwen3 d_model 256, VOCALIE_MEGATAIL=0", cfg, lm, swaps,
                      {"qkv_norm_int8_stacked": L * n, "tail_swiglu_qkv_int8_stacked": 0,
                       "tail_swiglu_int8_stacked": L * n, "dense_int8_stacked": n + 1})
+    set_env(MEGALAYER_ENV)
+    _dense_reference(dev, failures, "Qwen3 d_model 256, d_head 128 GQA, VOCALIE_MEGALAYER=1", cfg,
+                     lm, _megalayer_swaps(),
+                     {"qkv_norm_int8_stacked": n, "layer_swiglu_qkv_int8_stacked": L * n,
+                      "dense_int8_stacked": n + 1})
     set_env(DEFAULT_ENV)
     cpu = lrt.LMTTSRuntime(_to(rt.params, "cpu"), rt.cfg, rt.weights_dir, torch.device("cpu"))
     codes = torch.randint(0, 2048, (3, 40), generator=g)
@@ -1454,19 +1615,22 @@ def _wrappers():
         qkv_norm_int8_stacked,
         tail_swiglu_qkv_int8_stacked,
     )
+    from vocalie_tts_tpu_torch.ops.decode_layer import layer_swiglu_qkv_int8_stacked
     from vocalie_tts_tpu_torch.ops.flash_attention import flash_attention
 
-    return dict(zip(KERNEL_NAMES, (decode_attention_stacked, tail_swiglu_qkv_int8_stacked,
-                                   qkv_norm_int8_stacked, dense_int8_stacked,
-                                   cache_append_stacked, flash_attention)))
+    return {**dict(zip(KERNEL_NAMES, (decode_attention_stacked, tail_swiglu_qkv_int8_stacked,
+                                      qkv_norm_int8_stacked, dense_int8_stacked,
+                                      cache_append_stacked, flash_attention))),
+            "B12": layer_swiglu_qkv_int8_stacked}
 
 
 def drive_path(dev, failures, label: str, env: dict, requests, scale: str = "full",
-               keep: dict | None = None):
+               keep: dict | None = None, again: bool = False):
     """Build the full-width runtime under ``env``, warm it up on the bench
     script, set every launch counter to 0, run ``requests`` through
-    ``run_tts_pipeline``, read the counters, and time the bench request's
-    decode and stage 2. Returns the counters by kernel and a function that
+    ``run_tts_pipeline``, read the counters (with ``again``, time each
+    request once more), and time the bench request's decode and stage 2.
+    Returns the counters by kernel and a function that
     runs the profiled windows of ``breakdown`` (kept for after every timed
     phase). With ``keep`` (``{"dir": ...}``), the first request's WAV is
     copied there and its audio and wall seconds recorded (the studio pass
@@ -1540,6 +1704,13 @@ def drive_path(dev, failures, label: str, env: dict, requests, scale: str = "ful
                     keep.update(audio_s=meta["total_duration"], wall_s=wall, label=label)
             counts = {k: w.launches for k, w in wrappers.items()}
             n_prefill = prefills[0]
+            for req_label, script in requests if again else ():
+                t0 = time.monotonic()
+                again = run_tts_pipeline(_request(script, os.path.join(tmp, "again.wav")),
+                                         engine=engine)
+                wall = time.monotonic() - t0
+                log(f"main path [{label}, {req_label}] again: wall {wall:.3f} s, RTF "
+                    f"{again.meta['total_duration'] / wall:.3f}x")
             windows = breakdown(rt, dev, label)
     finally:
         rt_mod.prefill = real_prefill
@@ -1555,9 +1726,11 @@ def drive_path(dev, failures, label: str, env: dict, requests, scale: str = "ful
             failures.append("the long request did not reach the 512 prompt bucket")
         if per_request[1]["launches"]["B6"] == 0:
             failures.append("no flash launch in the 512-bucket request")
-    want = {"B1": lm.n_layers * steps, "B5": steps}
+    mega = env.get("VOCALIE_MEGALAYER") == "1"
+    want = {"B1": 0 if mega else lm.n_layers * steps, "B5": steps,
+            "B12": lm.n_layers * steps if mega else 0}
     if lm.dense_kernel:
-        want.update(B2=lm.n_layers * steps, B3=steps, B4=steps + n_prefill)
+        want.update(B2=0 if mega else lm.n_layers * steps, B3=steps, B4=steps + n_prefill)
     else:
         want.update(B2=0, B3=0, B4=0)
     for k, n in want.items():
@@ -1656,7 +1829,8 @@ def _held_to_phase2(stream, b7_inputs: dict, failures) -> None:
 def drive_cosyvoice(dev, failures, b7_inputs: dict, scale: str = "full"):
     """The CosyVoice-class paths at full width: (a) the streaming request,
     default config; (b) the same with ``VOCALIE_FUSED_STEP=0``; (c)
-    ``run_tts_pipeline`` on the 8-chunk bench script. Each is warmed up,
+    ``run_tts_pipeline`` on the 8-chunk bench script, default config and
+    (d) with ``VOCALIE_MEGALAYER=1`` (``_cosy_offline``). Each is warmed up,
     then driven with every launch counter at 0 just before it and read just
     after; (a)'s warm-up also checks that phase 2 gave B7 the path's kind of
     inputs (``b7_inputs``). Returns the counts by path and a function that
@@ -1664,8 +1838,6 @@ def drive_cosyvoice(dev, failures, b7_inputs: dict, scale: str = "full"):
     import numpy as np
 
     from vocalie_tts_tpu_torch.engines.cosyvoice import CosyVoiceEngine
-    from vocalie_tts_tpu_torch.io.wavio import read_wav
-    from vocalie_tts_tpu_torch.pipeline import run_tts_pipeline
 
     set_env(DEFAULT_ENV)
     os.environ["VOCALIE_MODEL_SCALE"] = scale
@@ -1761,50 +1933,74 @@ def drive_cosyvoice(dev, failures, b7_inputs: dict, scale: str = "full"):
 
             profiles.append(windows)
 
-        set_env(DEFAULT_ENV)
         request = {**_request(BENCH_SCRIPT, os.path.join(tmp, "cosy.wav")),
                    "tts_backend": "cosyvoice",
                    "engine_params": {"engine_id": "cosyvoice_instruct",
                                      "instruct_text": COSY_INSTRUCT}}
-        run_tts_pipeline({**request, "out_path": os.path.join(tmp, "warm.wav")}, engine=engine)
-        for w in wrappers.values():
-            w.launches = 0
-        t0 = time.monotonic()
-        res = run_tts_pipeline(request, engine=engine)
-        wall = time.monotonic() - t0
-        c = {k: w.launches for k, w in wrappers.items()}
-        wav, sr = read_wav(res.out_path)
-        meta, chunks = res.meta, request["chunks"]
-        expect = round(sum(meta["durations"]) * 24000) + int(24000 * 0.25) * (len(chunks) - 1)
-        ok = (sr == 24000 and len(wav) == expect and len(wav) > 0
-              and bool(np.isfinite(wav).all())
-              and all(round(dur * 24000) % rt.cfg.samples_per_token == 0
-                      for dur in meta["durations"]))
-        steps = c["B5"]
-        bm = meta["backend_meta"]
-        log(f"cosyvoice [offline, bench 8-chunk]: {len(chunks)} chunks, prompt bucket "
-            f"{bm['prompt_bucket']}, decode bucket {bm['decode_bucket']}, audio "
-            f"{meta['total_duration']:.3f} s, wall {wall:.3f} s, RTF "
-            f"{meta['total_duration'] / wall:.3f}x, {steps} decode steps, wav ok={ok}, "
-            f"launches {c}")
-        if not ok:
-            failures.append(f"cosyvoice offline: WAV check failed (len {len(wav)}, expected "
-                            f"{expect})")
-        want = {"B1": lm.n_layers * steps, "B2": lm.n_layers * steps, "B3": steps,
-                "B4": steps + 1, "B7": 0}
-        for k, n in want.items():
-            if c[k] != n:
-                failures.append(f"cosyvoice offline {k} launched {c[k]} times, the path needs {n}")
-        for k in ("B1", "B2", "B3", "B4", "B5", "B6"):
-            if c[k] == 0:
-                failures.append(f"cosyvoice offline: {k} was never launched")
-        counts["offline"] = c
+        for label, env in (("offline", DEFAULT_ENV),
+                           ("offline, VOCALIE_MEGALAYER=1", MEGALAYER_ENV)):
+            set_env(env)
+            counts[label] = _cosy_offline(engine, rt, request, tmp, label, env, wrappers,
+                                          failures)
+        set_env(DEFAULT_ENV)
 
     def profile():
         for windows in profiles:
             windows()
 
     return counts, profile
+
+
+def _cosy_offline(engine, rt, request, tmp, label, env, wrappers, failures) -> dict:
+    """The offline bench request through ``run_tts_pipeline`` under ``env``:
+    warmed up, driven with the launch counters at 0, read, timed once more;
+    its WAV and launch counts checked (``VOCALIE_MEGALAYER=1``: L x B12 a
+    step instead of L x (B1 + B2)). Returns the counts."""
+    import numpy as np
+
+    from vocalie_tts_tpu_torch.io.wavio import read_wav
+    from vocalie_tts_tpu_torch.pipeline import run_tts_pipeline
+
+    lm = rt.cfg.lm
+    run_tts_pipeline({**request, "out_path": os.path.join(tmp, "warm.wav")}, engine=engine)
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.monotonic()
+    res = run_tts_pipeline(request, engine=engine)
+    wall = time.monotonic() - t0
+    c = {k: w.launches for k, w in wrappers.items()}
+    t0 = time.monotonic()
+    run_tts_pipeline({**request, "out_path": os.path.join(tmp, "again.wav")}, engine=engine)
+    wall2 = time.monotonic() - t0
+    wav, sr = read_wav(res.out_path)
+    meta, chunks = res.meta, request["chunks"]
+    expect = round(sum(meta["durations"]) * 24000) + int(24000 * 0.25) * (len(chunks) - 1)
+    ok = (sr == 24000 and len(wav) == expect and len(wav) > 0
+          and bool(np.isfinite(wav).all())
+          and all(round(dur * 24000) % rt.cfg.samples_per_token == 0
+                  for dur in meta["durations"]))
+    steps = c["B5"]
+    bm = meta["backend_meta"]
+    log(f"cosyvoice [{label}, bench 8-chunk]: {len(chunks)} chunks, prompt bucket "
+        f"{bm['prompt_bucket']}, decode bucket {bm['decode_bucket']}, audio "
+        f"{meta['total_duration']:.3f} s, wall {wall:.3f} s, RTF "
+        f"{meta['total_duration'] / wall:.3f}x (the request again: wall {wall2:.3f} s), "
+        f"{steps} decode steps, wav ok={ok}, launches {c}")
+    if not ok:
+        failures.append(f"cosyvoice {label}: WAV check failed (len {len(wav)}, expected "
+                        f"{expect})")
+    mega = env is MEGALAYER_ENV
+    L = lm.n_layers
+    want = {"B1": 0 if mega else L * steps, "B2": 0 if mega else L * steps, "B3": steps,
+            "B4": steps + 1, "B7": 0, "B12": L * steps if mega else 0}
+    for k, n in want.items():
+        if c[k] != n:
+            failures.append(f"cosyvoice {label} {k} launched {c[k]} times, the path needs {n}")
+    for k in (("B12",) if mega else ("B1", "B2")) + ("B3", "B4", "B5", "B6"):
+        if c[k] == 0:
+            failures.append(f"cosyvoice {label}: {k} was never launched")
+    return {**c, "steps": steps, "rtf": meta["total_duration"] / wall, "wall_s": wall,
+            "wall2_s": wall2}
 
 
 # ── phase 4: the XTTS-class voice clone ──────────────────────────────────
@@ -2039,7 +2235,8 @@ def drive_qwen3(dev, failures, scale: str = "full"):
     ``VOCALIE_MEGATAIL=0`` (28 x (B3 + B1 + B8a)); (c) an explicit voice_clone
     with the reference's transcript; (d) one chunk of > 509 bytes at batch 1
     in custom_voice (the 512 bucket: B6 in prefill; never B7); (e) a
-    voice_design request. Each is warmed up, then driven with every launch
+    voice_design request; (a) and (d) again with ``VOCALIE_MEGALAYER=1``
+    (B3 + 28 x B12 + B5 + B4 a step, B1 = B2 = 0). Each is warmed up, then driven with every launch
     counter at 0 just before it and read just after, then timed once more.
     Returns the counts by request and a function that runs the profiled
     decode windows (kept for after every timed phase)."""
@@ -2077,6 +2274,11 @@ def drive_qwen3(dev, failures, scale: str = "full"):
                 ("one chunk at batch 1, 512 bucket, custom_voice", DEFAULT_ENV, QWEN3_LONG,
                  {"qwen3_mode": "custom_voice", "speaker": "Vivian"}, None),
                 ("voice_design, one chunk", DEFAULT_ENV, XTTS_SENT + "\n[[CHUNK]]", QWEN3_DESIGN,
+                 None),
+                ("bench 8-chunk voice_clone, VOCALIE_MEGALAYER=1", MEGALAYER_ENV, bench,
+                 QWEN3_PARAMS, ref),
+                ("one chunk at batch 1, 512 bucket, custom_voice, VOCALIE_MEGALAYER=1",
+                 MEGALAYER_ENV, QWEN3_LONG, {"qwen3_mode": "custom_voice", "speaker": "Vivian"},
                  None))
         for label, env, script, params, voice in runs:
             set_env(env)
@@ -2129,10 +2331,12 @@ def drive_qwen3(dev, failures, scale: str = "full"):
                                 f"{expect})")
             L = lm.n_layers
             if env is MEGATAIL0_ENV:
-                want = {"B3": L * steps, "B8a": L * steps, "B2": 0}
+                want = {"B3": L * steps, "B8a": L * steps, "B2": 0, "B1": L * steps, "B12": 0}
+            elif env is MEGALAYER_ENV:
+                want = {"B3": steps, "B12": L * steps, "B1": 0, "B2": 0, "B8a": 0}
             else:
-                want = {"B3": steps, "B2": L * steps, "B8a": 0}
-            want.update(B1=L * steps, B4=steps + 1, B7=0, B8b=0)
+                want = {"B3": steps, "B2": L * steps, "B8a": 0, "B1": L * steps, "B12": 0}
+            want.update(B4=steps + 1, B7=0, B8b=0)
             if script == QWEN3_LONG:
                 if bm["prompt_bucket"] != 512:
                     failures.append(f"qwen3 [{label}]: prompt bucket {bm['prompt_bucket']}, not 512")
@@ -2159,7 +2363,7 @@ def drive_qwen3(dev, failures, scale: str = "full"):
                     log(f"breakdown [qwen3 {label}]: {(n32 - n0) / 32:.1f} device operations per "
                         "decode step")
 
-            if label.startswith("bench") or script == QWEN3_LONG:
+            if label.startswith("bench") or (script == QWEN3_LONG and env is DEFAULT_ENV):
                 profiles.append(windows)
 
     def profile():
@@ -2421,7 +2625,7 @@ def main() -> int:
     kernels = [check_decode_attention(dev, failures), *dense, check_cache_append(dev, failures),
                check_flash_attention(dev, failures), check_decode_step(dev, failures),
                check_group_norm(dev, failures), *check_dense_gelu(dev, failures),
-               *dense_q3[3:]]
+               *dense_q3[3:], check_decode_layer(dev, failures)]
     by_key = {k["name"].split()[0]: k for k in kernels}
     count_dense_kernels(kernels, failures)
     if failures:
@@ -2446,6 +2650,8 @@ def main() -> int:
         counts, profile = drive_path(dev, failures, "default int8 config", DEFAULT_ENV, requests,
                                      keep=vo)
         counts1, profile1 = drive_path(dev, failures, "slice-1 config", SLICE1_ENV, requests[:1])
+        counts12, profile12 = drive_path(dev, failures, "VOCALIE_MEGALAYER=1", MEGALAYER_ENV,
+                                         requests[:1], again=True)
         cosy, profile_cosy = drive_cosyvoice(dev, failures, by_key["B7"]["path_inputs"])
         studio, profile_studio = drive_audiosr(dev, failures, vo)
         xtts, profile_xtts = drive_xtts(dev, failures)
@@ -2457,6 +2663,7 @@ def main() -> int:
     # torch.profiler last: everything above is timed without it
     profile()
     profile1()
+    profile12()
     profile_cosy()
     profile_studio()
     profile_xtts()
@@ -2466,8 +2673,9 @@ def main() -> int:
     # B1-B6: the Chatterbox default path's counts; B7: the streaming path's;
     # B9a-b: the XTTS default bench request's, B9c: its VOCALIE_MEGATAIL=0 run;
     # B8a: the Qwen3 bench request's VOCALIE_MEGATAIL=0 run; B8b: phase 3's
-    # biased-SwiGLU reference (no served family reaches it)
-    main_counts = {**counts, "B7": cosy["streaming, default"]["B7"],
+    # biased-SwiGLU reference (no served family reaches it); B12: the
+    # Chatterbox bench request's VOCALIE_MEGALAYER=1 run
+    main_counts = {**counts, "B12": counts12["B12"], "B7": cosy["streaming, default"]["B7"],
                    "B9a": xtts["bench 8-chunk, default"]["B9a"],
                    "B9b": xtts["bench 8-chunk, default"]["B9b"],
                    "B9c": xtts["bench 8-chunk, VOCALIE_MEGATAIL=0"]["B9c"],
@@ -2480,6 +2688,8 @@ def main() -> int:
         entry["launches"] = main_counts[key]
         if counts1.get(key):
             entry["launches_slice1_config"] = counts1[key]
+        if counts12.get(key) and key != "B12":
+            entry["launches_megalayer_config"] = counts12[key]
         for group, per_path in (("cosyvoice", cosy), ("xtts", xtts), ("qwen3", qwen3)):
             for path, c in per_path.items():
                 if c.get(key):

@@ -13,6 +13,17 @@ off and ran ``_qdot``, so the two gave different logits.
 Tolerances: logits atol = rtol = 2e-3, as for slice 1 (the JAX package's
 own bound for its decode-step kernels, ``tests/test_decode_step_fused.py``);
 the int8 cache bytes the steps append are equal.
+
+``VOCALIE_MEGALAYER=1`` (the whole layer as one launch, B12) on three tiny
+family-like configs: Chatterbox-like (the d_model-128 model above, d_head
+64, lane-packed on the JAX side), CosyVoice-like (the same with non-zero
+q/k/v biases) and Qwen3-like (2 q heads and 1 kv head of 128, q/k norm).
+Logits within 2e-3 + 2e-3 · |ref|; the appended cache's layer 0 equal
+byte for byte (its k/v come from the B3 prologue on both sides), the other
+layers' scales equal and their int8 values equal except where the port's
+unquantized k/v sits on a .5 tie (off by one step, as in
+``tests/test_torch_transformer.py``): they come from B12's next qkv, whose
+f32 sums the port takes in another order.
 """
 
 import dataclasses
@@ -51,26 +62,64 @@ def _configs(flags, **dims):
             pt.TransformerConfig(**{**DIMS, **dims}, **flags, dtype=torch.float32))
 
 
-def _run(jcfg, jparams, pcfg, pparams, *, b=4, n_steps=8, seed=1):
+#: JAX decode-step programs shared by the tests of this file, by config and
+#: the knobs JAX reads while it traces
+_JITTED = {}
+
+
+def _jax_step(jcfg, env):
+    key = (jcfg, tuple(sorted(env.items())))
+    if key not in _JITTED:
+        _JITTED[key] = jax.jit(lambda p, t, c: jt.decode_step(p, jcfg, t, c))
+    return _JITTED[key]
+
+
+def _jax_prefill(jcfg):
+    key = ("prefill", jcfg)
+    if key not in _JITTED:
+        _JITTED[key] = jax.jit(lambda p, e, l: jt.prefill(
+            p, jcfg, jnp.zeros(e.shape[:2], jnp.int32), l, inputs_embeds=e, cache_len=CACHE_LEN))
+    return _JITTED[key]
+
+
+def _run(jcfg, jparams, pcfg, pparams, *, b=4, n_steps=8, seed=1, jax_step=None, raw=None,
+         jax_prompt=False):
     """Prefill logits, then teacher-forced decode logits, on both sides →
-    (list of (jax, port) logits, jax cache, port cache)."""
+    (list of (jax, port) logits, jax cache, port cache). ``jax_step``: a
+    shared jitted JAX step (the env must be as when it was traced);
+    ``raw``: a list that receives the port's unquantized [L, b, kv, d] k and
+    v of each step; ``jax_prompt``: the port decodes from JAX's int8 prompt
+    cache (a prompt value on a .5 tie may round apart in the two prefills,
+    ``tests/test_torch_transformer.py``), as ``tests/test_torch_qwen3.py``
+    does."""
     s = 32
     rng = np.random.default_rng(seed)
     emb = (rng.standard_normal((b, s, jcfg.d_model)) * 0.5).astype(np.float32)
     lens = np.asarray([32, 20, 3, 11][:b], np.int32)
     toks = rng.integers(0, jcfg.vocab_size, (n_steps, b)).astype(np.int32)
-    jl, jcache = jax.jit(
-        lambda p, e, l: jt.prefill(p, jcfg, jnp.zeros(e.shape[:2], jnp.int32), l,
-                                   inputs_embeds=e, cache_len=CACHE_LEN)
-    )(jparams, jnp.asarray(emb), jnp.asarray(lens))
+    jl, jcache = _jax_prefill(jcfg)(jparams, jnp.asarray(emb), jnp.asarray(lens))
     pl, pcache = pt.prefill(pparams, pcfg, None, torch.from_numpy(lens),
                             inputs_embeds=torch.from_numpy(emb), cache_len=CACHE_LEN)
     out = [(np.asarray(jl), pl.numpy())]
-    jstep = jax.jit(lambda p, t, c: jt.decode_step(p, jcfg, t, c))
-    for i in range(n_steps):
-        jl, jcache = jstep(jparams, jnp.asarray(toks[i]), jcache)
-        pl, pcache = pt.decode_step(pparams, pcfg, torch.from_numpy(toks[i]).long(), pcache)
-        out.append((np.asarray(jl), pl.numpy()))
+    if jax_prompt:
+        d = pcache.k.shape[-1]
+        jk = np.asarray(jcache.k)
+        jv = jk[..., d:] if jcache.v is None else np.asarray(jcache.v)
+        for name, val in (("k", jk[..., :d]), ("v", jv)):
+            getattr(pcache, name).copy_(torch.from_numpy(np.array(val)))
+            getattr(pcache, name + "_scale").copy_(torch.from_numpy(np.array(
+                getattr(jcache, name + "_scale").astype(jnp.float32))).to(torch.bfloat16))
+    jstep = jax_step or jax.jit(lambda p, t, c: jt.decode_step(p, jcfg, t, c))
+    quantize_kv = pt._quantize_kv
+    if raw is not None:
+        pt._quantize_kv = lambda t: raw.append(t.clone()) or quantize_kv(t)
+    try:
+        for i in range(n_steps):
+            jl, jcache = jstep(jparams, jnp.asarray(toks[i]), jcache)
+            pl, pcache = pt.decode_step(pparams, pcfg, torch.from_numpy(toks[i]).long(), pcache)
+            out.append((np.asarray(jl), pl.numpy()))
+    finally:
+        pt._quantize_kv = quantize_kv
     return out, jcache, pcache
 
 
@@ -221,28 +270,140 @@ def test_dense_at_tiny_width_takes_qdot(monkeypatch):
     ({}, "B7"),
 ])
 def test_dense_knobs_without_a_port_raise(params, monkeypatch, env, kernel):
-    """Where the JAX package would run a kernel the port does not have,
-    the port raises instead of running another path (B12). ``{}`` at batch
-    1 is the whole-step kernel B7 and ``VOCALIE_MEGATAIL=0`` the tail B8a
-    (with B3 per layer), which the port has now: the step runs them instead
-    of raising (``tests/test_torch_decode_step.py`` and
-    ``tests/test_torch_qwen3.py`` hold them against JAX)."""
+    """Each knob that once named a kernel the port lacked now runs it:
+    ``{}`` at batch 1 the whole-step kernel B7, ``VOCALIE_MEGATAIL=0`` the
+    tail B8a (with B3 per layer), ``VOCALIE_MEGALAYER=1`` the whole layer
+    B12 (with the B3 prologue), each counted on one step
+    (``tests/test_torch_decode_step.py`` and ``tests/test_torch_qwen3.py``
+    hold B7 and B8a against JAX); B12's teacher-forced logits match JAX's
+    here too (``test_megalayer_teacher_forced_decode`` holds three
+    families)."""
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    _, pcfg = _configs(DENSE)
+    jcfg, pcfg = _configs(DENSE)
     b = 1 if kernel == "B7" else 2
     cache = pt.StackedKVCache.create(2, b, 2, CACHE_LEN, 64, "cpu")
-    if kernel in ("B7", "B8"):
-        name = "decode_step_fused_packed" if kernel == "B7" else "tail_swiglu_int8_stacked"
-        calls = []
-        real = getattr(pt, name)
-        monkeypatch.setattr(pt, name, lambda *a, **k: calls.append(1) or real(*a, **k))
-        logits, _ = pt.decode_step(params[1], pcfg, torch.zeros(b, dtype=torch.long), cache)
-        assert calls == [1] * (1 if kernel == "B7" else pcfg.n_layers)
-        assert torch.isfinite(logits).all()
-        return
-    with pytest.raises(NotImplementedError, match=kernel):
-        pt.decode_step(params[1], pcfg, torch.zeros(b, dtype=torch.long), cache)
+    name = {"B7": "decode_step_fused_packed", "B8": "tail_swiglu_int8_stacked",
+            "B12": "layer_swiglu_qkv_int8_stacked"}[kernel]
+    calls = []
+    real = getattr(pt, name)
+    monkeypatch.setattr(pt, name, lambda *a, **k: calls.append(1) or real(*a, **k))
+    logits, _ = pt.decode_step(params[1], pcfg, torch.zeros(b, dtype=torch.long), cache)
+    assert calls == [1] * (1 if kernel == "B7" else pcfg.n_layers)
+    assert torch.isfinite(logits).all()
+    if kernel == "B12":
+        pairs, _, _ = _run(jcfg, params[0], pcfg, params[1], b=2, n_steps=3,
+                           jax_step=_jax_step(jcfg, env))
+        _assert_logits(pairs)
+        assert len(calls) == 4 * pcfg.n_layers
+
+
+#: the megalayer's family-like configs: ``DIMS`` plus these
+FAMILIES = {
+    "chatterbox": {},
+    "cosyvoice": dict(attn_bias=True),
+    "qwen3": dict(n_heads=2, n_kv_heads=1, d_head=128, qk_norm=True, norm_eps=1e-6),
+}
+MEGALAYER_ENV = {"VOCALIE_MEGALAYER": "1"}
+_FAMILY = {}
+
+
+def _family(name):
+    """(jax cfg, port cfg, jax params, port params) of a family-like config,
+    with q/k/v biases and norm weights (q/k norm too) drawn from a numpy
+    seed, so that none is inert."""
+    if name not in _FAMILY:
+        jcfg, pcfg = _configs(DENSE, **FAMILIES[name])
+        raw = jax.device_get(jt.init_params(jax.random.PRNGKey(3), jcfg))
+        rng = np.random.default_rng(71)
+        layers = raw["layers"]
+        for n in ("bq", "bk", "bv"):
+            if n in layers:
+                layers[n] = (0.2 * rng.standard_normal(layers[n].shape)).astype(np.float32)
+        for n in ("attn_norm", "mlp_norm", "q_norm", "k_norm"):
+            if n in layers:
+                layers[n] = (1 + 0.2 * rng.standard_normal(layers[n].shape)).astype(np.float32)
+        jparams = jt.fuse_decode_weights(jax.device_get(jax.jit(jt.quantize_weights_int8)(raw)))
+        pparams = pt.fuse_decode_weights(pt.quantize_weights_int8(tree_to_torch(raw)))
+        _FAMILY[name] = (jcfg, pcfg, jparams, pparams)
+    return _FAMILY[name]
+
+
+def _megalayer_env(monkeypatch, **extra):
+    for k in ("VOCALIE_MEGATAIL", "VOCALIE_FUSED_STEP", "VOCALIE_TILE_MB"):
+        monkeypatch.delenv(k, raising=False)
+    for k, v in {**MEGALAYER_ENV, **extra}.items():
+        monkeypatch.setenv(k, v)
+
+
+def _count_b12(monkeypatch):
+    calls = []
+    real = pt.layer_swiglu_qkv_int8_stacked
+    monkeypatch.setattr(pt, "layer_swiglu_qkv_int8_stacked",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    return calls
+
+
+def _assert_appended_cache_up_to_ties(jcache, pcache, raw, prompt_pad=32):
+    """The decode slots of the int8 cache: bf16 scales equal; layer 0's
+    int8 values equal; the later layers' equal except where the port's
+    unquantized value (``raw``: its k and v of each step, [L, b, kv, d])
+    sits on a .5 tie, one step off."""
+    n = len(raw) // 2
+    sl = slice(prompt_pad, prompt_pad + n)
+    d = pcache.k.shape[-1]
+    jk = np.asarray(jcache.k)[:, :, :, sl]
+    jv = jk[..., d:] if jcache.v is None else np.asarray(jcache.v)[:, :, :, sl]
+    for name, ref, unq in (("k", jk[..., :d], raw[0::2]), ("v", jv, raw[1::2])):
+        scale = getattr(pcache, name + "_scale")[:, :, :, sl]
+        jscale = np.asarray(getattr(jcache, name + "_scale"))[:, :, :, sl]
+        assert np.array_equal(scale.view(torch.int16).numpy(), jscale.view(np.int16)), name
+        got = getattr(pcache, name)[:, :, :, sl].numpy()
+        assert np.array_equal(got[0], ref[0]), f"layer 0 {name}"
+        bad = got != ref
+        if not bad.any():
+            continue
+        assert np.all(np.abs(got[bad].astype(int) - ref[bad].astype(int)) == 1), name
+        x = (torch.stack(unq, 3) / scale.float()[..., None]).numpy()[bad]
+        assert np.all(np.abs(np.abs(x - np.trunc(x)) - 0.5) < 1e-3), f"{name}: {x}"
+
+
+@pytest.mark.parametrize("family", sorted(FAMILIES))
+def test_megalayer_teacher_forced_decode(monkeypatch, family):
+    """``VOCALIE_MEGALAYER=1``: prefill, then 6 teacher-forced steps through
+    the B3 prologue, B12 per layer and B4, against JAX's step with its
+    Pallas kernels in interpret mode; B12's launches counted."""
+    _megalayer_env(monkeypatch)
+    jcfg, pcfg, jparams, pparams = _family(family)
+    assert pt._dense_dispatch(pparams["layers"], pcfg, 4, CACHE_LEN) == pt.MEGALAYER
+    calls, raw, n = _count_b12(monkeypatch), [], 6
+    pairs, jcache, pcache = _run(jcfg, jparams, pcfg, pparams, n_steps=n,
+                                 jax_step=_jax_step(jcfg, MEGALAYER_ENV), raw=raw,
+                                 jax_prompt=True)
+    _assert_logits(pairs)
+    assert len(calls) == n * pcfg.n_layers
+    _assert_appended_cache_up_to_ties(jcache, pcache, raw)
+
+
+def test_megalayer_dispatch_at_batch_one(monkeypatch):
+    """With the knob at batch 1: the CosyVoice-like model takes the whole
+    step (B7 comes first, as JAX's fused step returns before the layer
+    scan), the Qwen3-like one B12 (q/k norm rules B7 out), and its steps
+    match JAX's; ``VOCALIE_MEGATAIL=0`` with the knob set takes the tail
+    (B12 needs the megatail)."""
+    _megalayer_env(monkeypatch)
+    cosy, qwen3 = _family("cosyvoice"), _family("qwen3")
+    assert pt._dense_dispatch(cosy[3]["layers"], cosy[1], 1, CACHE_LEN) == pt.FUSED_STEP
+    assert pt._dense_dispatch(qwen3[3]["layers"], qwen3[1], 1, CACHE_LEN) == pt.MEGALAYER
+    jcfg, pcfg, jparams, pparams = qwen3
+    calls = _count_b12(monkeypatch)
+    pairs, _, _ = _run(jcfg, jparams, pcfg, pparams, b=1, n_steps=3,
+                       jax_step=_jax_step(jcfg, MEGALAYER_ENV), jax_prompt=True)
+    _assert_logits(pairs)
+    assert len(calls) == 3 * pcfg.n_layers
+    monkeypatch.setenv("VOCALIE_MEGATAIL", "0")
+    for fam in (cosy, qwen3):
+        assert pt._dense_dispatch(fam[3]["layers"], fam[1], 4, CACHE_LEN) == pt.TAIL
 
 
 @pytest.mark.parametrize("env,expect", [

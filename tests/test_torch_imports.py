@@ -82,8 +82,10 @@ def test_dense_kernel_env_names_the_next_slice(monkeypatch):
     """``VOCALIE_DENSE_KERNEL=1`` forces the dense kernels, as in the JAX
     package (they are ported); ``VOCALIE_MEGATAIL=0`` takes the SwiGLU tail
     B8a (ported with the Qwen3 slice; GPT-2 takes B9c there, see
-    ``tests/test_torch_xtts.py``); a knob whose kernel a later slice brings
-    names it (``VOCALIE_MEGALAYER=1`` needs B12, the next one)."""
+    ``tests/test_torch_xtts.py``); ``VOCALIE_MEGALAYER=1`` takes the whole
+    layer B12 (ported with slice 7; ``tests/test_torch_dense_step.py`` holds
+    it against JAX). The one dense dispatch still without a kernel, a GELU
+    MLP with bias and RMSNorm, names B9d."""
     import dataclasses
 
     from vocalie_tts_tpu_torch.models.chatterbox.runtime import SCALES
@@ -101,8 +103,11 @@ def test_dense_kernel_env_names_the_next_slice(monkeypatch):
     assert tr._dense_dispatch(layers, cfg, 2, 256) == tr.TAIL
     monkeypatch.delenv("VOCALIE_MEGATAIL")
     monkeypatch.setenv("VOCALIE_MEGALAYER", "1")
-    with pytest.raises(NotImplementedError, match="B12"):
-        tr._dense_dispatch(layers, cfg, 2, 256)
+    assert tr._dense_dispatch(layers, cfg, 2, 256) == tr.MEGALAYER
+    gelu = dataclasses.replace(cfg, mlp_type="gelu", bias=True)
+    layers["w_up"] = {"q": torch.zeros((2, 128, 256), dtype=torch.int8)}
+    with pytest.raises(NotImplementedError, match="B9d"):
+        tr._dense_dispatch(layers, gelu, 2, 256)
 
 
 #: the modules the CosyVoice slice added
@@ -220,6 +225,17 @@ def test_qwen3_entry_points_refuse_cpu_fallback(tmp_path, monkeypatch):
         run_tts_pipeline({"tts_backend": "qwen3", "script": "Bonjour à tous.",
                           "out_path": str(tmp_path / "x.wav")})
     assert not (tmp_path / "x.wav").exists()
+
+
+#: the module the whole-layer slice (B12) added
+SLICE7_MODULES = ("vocalie_tts_tpu_torch.ops.decode_layer",)
+
+
+@pytest.mark.parametrize("module", SLICE7_MODULES)
+def test_slice7_module_imports_alone(module):
+    """B12's module imports on its own with JAX, the JAX package and Triton
+    blocked, loads no kernel library and touches no GPU."""
+    test_slice3_module_imports_alone(module)
 
 
 #: the modules the XTTS slice added

@@ -10,7 +10,11 @@ tiles) for B8a/B8b and B6 at d_head 128 with GQA; for B9 bf16 and f32 biases and
 constant row (LayerNorm to its bias), the XTTS layer and batch 1; for B7 caches of 128 and 640 slots, a fully masked
 tail and a fully masked cache, q/k/v biases off, in f32 and in bf16, 1 and
 3 layers, and a cooperative grid forced past what the card keeps resident
-(refused); for B13 (fused GroupNorm) C/G of 2, 3, 4, 8, 12 and 32, C not a
+(refused); for B12 (the whole decode layer, one cooperative launch) the T3
+and Qwen3 layers, GQA up to g 8, d_head 32 to 128, batch 1 to 16, a row
+with every cached slot masked, the last layer, valid_len on a block
+boundary and equal to T, bf16 norms, d_ff in one and several tiles, a grid
+past residency and b > 16 (refused); for B13 (fused GroupNorm) C/G of 2, 3, 4, 8, 12 and 32, C not a
 multiple of 8, the VAE's large spatial size at eps 1e-6, batch 1, with and
 without the FiLM row and SiLU; and the int8 products of the UNet's convs
 (``torch._int_mm``, exact against the CPU).
@@ -37,9 +41,9 @@ so an output moves only if an int8 activation sits on a .5 tie that
 another expf reaches from the other side; such a flip moves it by ~1e-3.
 B8a/B8b and B9a-c likewise (the LayerNorm's moments in double, the tanh-GELU as the
 same IEEE steps with ``tanhf``, which PyTorch's CUDA tanh also calls).
-B7 within 1e-5 · max|ref| on each output, for the same reason: the plain
-version takes the kernel's steps (the softmax sum, the variance and the
-current token's score in float64, rounded once). B13 within one bf16 ulp of
+B7 and B12 within 1e-5 · max|ref| on each output, for the same reason: the
+plain version takes the kernel's steps (the softmax sums, the variance and
+the current token's score in float64, rounded once). B13 within one bf16 ulp of
 the plain value plus 1e-5: the f32 moments are summed in another order, and
 both round the f32 result to bf16 once.
 """
@@ -72,6 +76,11 @@ from vocalie_tts_tpu_torch.ops.decode_dense import (
     tail_swiglu_qkv_int8_plain,
     tail_swiglu_qkv_int8_stacked,
 )
+from vocalie_tts_tpu_torch.ops.decode_layer import (
+    layer_swiglu_qkv_int8_plain,
+    layer_swiglu_qkv_int8_stacked,
+)
+from vocalie_tts_tpu_torch.ops.decode_layer import max_resident_blocks as b12_max_blocks
 from vocalie_tts_tpu_torch.ops.decode_step import (
     decode_step_fused_packed,
     decode_step_fused_plain,
@@ -513,6 +522,83 @@ def test_decode_step_kernel_refuses_a_grid_past_residency(dev):
     _close(ok[0], decode_step_fused_plain(*args, sm_scale=0.125, eps=1e-5)[0])
     with pytest.raises(RuntimeError, match="decode_step"):
         decode_step_fused_packed(*args, sm_scale=0.125, eps=1e-5, grid=most + 1)
+    torch.cuda.synchronize()
+
+
+# ── B12 ─────────────────────────────────────────────────────────────────
+
+
+def _b12_args(dev, seed, L, b, kv, g, d, T, D, F, prompt_pad, n_dec, norm_dtype=F32,
+              masked_row=False):
+    """B12's positional arguments (with ``layer`` left out) and its
+    valid_len: the B1 case's cache and mask, random int8 weights."""
+    gen = _gen(dev, seed)
+    H = kv * g
+    q = torch.randn((b, kv, g, d), generator=gen, device=dev)
+    x = torch.randn((b, D), generator=gen, device=dev)
+    k, v = (torch.randint(-127, 128, (L, b, kv, T, d), generator=gen, device=dev,
+                          dtype=torch.int8) for _ in range(2))
+    ks, vs = (((torch.rand((L, b, kv, T), generator=gen, device=dev) + 0.5) / 127)
+              .to(torch.bfloat16) for _ in range(2))
+    kn, vn = (torch.randn((b, kv, d), generator=gen, device=dev) for _ in range(2))
+    lens = torch.randint(1, prompt_pad + 1, (b,), generator=gen, device=dev)
+    pos = torch.arange(T, device=dev)[None, :]
+    valid_len = prompt_pad + n_dec
+    valid = (pos < lens[:, None]) | ((pos >= prompt_pad) & (pos < valid_len))
+    if masked_row:
+        valid[0] = False       # only the current token is left to row 0
+    bias = torch.where(valid, 0.0, NEG).float()
+    wo, wos = _int8_weights(gen, dev, L, H * d, D)
+    mw = (1 + 0.1 * torch.randn((L, D), generator=gen, device=dev)).to(norm_dtype)
+    wgu, sgu = _int8_weights(gen, dev, L, D, 2 * F)
+    wd, sd = _int8_weights(gen, dev, L, F, D)
+    nw = (1 + 0.1 * torch.randn((L, D), generator=gen, device=dev)).to(norm_dtype)
+    wq, sq = _int8_weights(gen, dev, L, D, (H + 2 * kv) * d)
+    return ((q, x, k, v, ks, vs, bias, kn, vn), valid_len,
+            (wo, wos, mw, wgu, sgu, wd, sd, nw, wq, sq))
+
+
+@pytest.mark.parametrize("L,b,kv,g,d,T,D,F,prompt_pad,n_dec,layer,norm_dtype,masked_row", [
+    (2, 4, 2, 1, 64, 384, 256, 512, 100, 28, 0, F32, False),     # packed-like, valid 128
+    (2, 4, 1, 2, 128, 384, 256, 512, 200, 57, 1, F32, False),    # GQA d 128, last layer
+    (2, 16, 16, 1, 64, 640, 1024, 4096, 256, 160, 1, F32, True),  # the T3 layer, a masked row
+    (2, 8, 8, 2, 128, 512, 2048, 8192, 256, 96, 0, BF16, False),  # the Qwen3 layer, bf16 norms
+    (1, 1, 2, 8, 32, 128, 128, 384, 3, 2, 0, F32, False),        # b 1, g 8, d 32, K slices of 128
+    (2, 3, 4, 1, 64, 256, 384, 768, 200, 56, 1, F32, False),     # valid_len == T, d_model 384
+])
+def test_decode_layer_kernel(dev, L, b, kv, g, d, T, D, F, prompt_pad, n_dec, layer, norm_dtype,
+                             masked_row):
+    head, valid_len, tail = _b12_args(dev, T + D + layer, L, b, kv, g, d, T, D, F, prompt_pad,
+                                      n_dec, norm_dtype, masked_row)
+    kw = dict(sm_scale=d ** -0.5, eps=1e-6)
+    before = layer_swiglu_qkv_int8_stacked.launches
+    got = layer_swiglu_qkv_int8_stacked(*head, layer, valid_len, *tail, **kw)
+    ref = layer_swiglu_qkv_int8_plain(*head, layer, valid_len, *tail, **kw)
+    torch.cuda.synchronize()
+    assert layer_swiglu_qkv_int8_stacked.launches == before + 1
+    assert got[0].shape == (b, D) and got[1].shape == (b, (kv * g + 2 * kv) * d)
+    for g_, r in zip(got, ref):
+        _close(g_, r)
+
+
+def test_decode_layer_kernel_refuses_bad_inputs(dev):
+    """A grid past residency (cudaErrorCooperativeLaunchTooLarge), b > 16
+    and a wrong dtype are refused: the wrapper raises, no fallback."""
+    head, valid_len, tail = _b12_args(dev, 9, 1, 2, 2, 1, 64, 128, 256, 512, 40, 8)
+    kw = dict(sm_scale=0.125, eps=1e-5)
+    most = b12_max_blocks(2, 256, 512, 512)
+    assert most >= torch.cuda.get_device_properties(dev).multi_processor_count
+    ok = layer_swiglu_qkv_int8_stacked(*head, 0, valid_len, *tail, **kw, grid=most)
+    _close(ok[0], layer_swiglu_qkv_int8_plain(*head, 0, valid_len, *tail, **kw)[0])
+    with pytest.raises(RuntimeError, match="decode_layer"):
+        layer_swiglu_qkv_int8_stacked(*head, 0, valid_len, *tail, **kw, grid=most + 1)
+    big, valid_len, tail17 = _b12_args(dev, 10, 1, 17, 2, 1, 64, 128, 128, 256, 40, 8)
+    with pytest.raises(ValueError, match="b <= 16"):
+        layer_swiglu_qkv_int8_stacked(*big, 0, valid_len, *tail17, **kw)
+    bad = list(head)
+    bad[1] = bad[1].to(torch.bfloat16)
+    with pytest.raises(ValueError, match="x"):
+        layer_swiglu_qkv_int8_stacked(*bad, 0, valid_len, *tail, **kw)
     torch.cuda.synchronize()
 
 

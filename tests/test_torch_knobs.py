@@ -7,7 +7,10 @@ raise.
   carried. B2 at d_model 256, d_ff 1024 takes one tile of 1024 by default
   and two of 512 at 0.25 MiB; the port matches JAX within B2's tolerance
   (x 1e-5 · max|x|, qkv 1e-4 · max|qkv|) both ways, the two tiles move x
-  past that, and a budget below one 128-column tile raises in both.
+  past that, and a budget below one 128-column tile raises in both. B12
+  (the whole layer, ``VOCALIE_MEGALAYER=1``) quantizes its hidden over the
+  same tile and moves with it alike (its tolerance: 1e-5 · max|ref| on both
+  outputs).
 - ``VOCALIE_CFM_FLASH=0`` (the CFM self-attention as the XLA softmax,
   ``cfm.py:215-216``): carried. A CFM transformer block at 288 mel frames
   within the stage-2 tolerance (atol 1e-3), with no flash launch on the
@@ -79,6 +82,58 @@ def test_tile_mb_is_carried(fresh_jax, monkeypatch):
     for rx, rq, gx, gq in ((rx1, rq1, gx1, gq1), (rx2, rq2, gx2, gq2)):
         assert _rel(gx, rx) < 1e-5 and _rel(gq, rq) < 1e-4
     assert _rel(rx2, rx1) > 1e-5 and _rel(gx2, gx1) > 1e-5
+
+
+def _b12_inputs(seed, L=2, b=4, kv=2, d=64, T=256, D=256, F=1024):
+    """B12's arguments at the d_model-256, d_ff-1024 layer (packed d_head
+    64 on the JAX side) → (jax args, port args, kwargs)."""
+    rng = np.random.RandomState(seed)
+    q = rng.randn(b, kv, 1, d).astype(np.float32)
+    x = rng.randn(b, D).astype(np.float32)
+    k, v = (rng.randint(-127, 128, (L, b, kv, T, d)).astype(np.int8) for _ in range(2))
+    ks, vs = (torch.from_numpy((rng.rand(L, b, kv, T) + 0.5).astype(np.float32) / 127)
+              .to(torch.bfloat16) for _ in range(2))
+    bias = np.where(np.arange(T)[None] < rng.randint(1, 150, (b, 1)), 0.0, -1e30).astype(
+        np.float32)
+    kn, vn = (rng.randn(b, kv, d).astype(np.float32) for _ in range(2))
+    wo, wos = _quant_cols(rng, kv * d, D, L)
+    mw = (1.0 + 0.1 * rng.randn(L, D)).astype(np.float32)
+    gu, sgu = _quant_cols(rng, D, 2 * F, L)
+    wd, sd = _quant_cols(rng, F, D, L)
+    nw = (1.0 + 0.1 * rng.randn(L, D)).astype(np.float32)
+    wq, sq = _quant_cols(rng, D, 3 * kv * d, L)
+    tail = [wo, wos, mw, gu, sgu, wd, sd, nw, wq, sq]
+    jax_args = [jnp.asarray(q), jnp.asarray(x), jnp.asarray(np.concatenate([k, v], -1)), None,
+                jnp.asarray(ks.float().numpy()).astype(jnp.bfloat16),
+                jnp.asarray(vs.float().numpy()).astype(jnp.bfloat16), jnp.asarray(bias),
+                jnp.asarray(kn), jnp.asarray(vn), 1, 150, *map(jnp.asarray, tail)]
+    port_args = [*map(torch.from_numpy, (q, x, k, v)), ks, vs,
+                 *map(torch.from_numpy, (bias, kn, vn)), 1, 150, *map(torch.from_numpy, tail)]
+    return jax_args, port_args, dict(sm_scale=d ** -0.5, eps=EPS)
+
+
+def test_tile_mb_moves_b12(fresh_jax, monkeypatch):
+    """B12 at d_model 256, d_ff 1024: one hidden tile of 1024 by default,
+    two of 512 at 0.25 MiB, as B2; the port's plain B12 matches the JAX
+    kernel (interpret mode) both ways, and the two tiles move x_out past
+    the tolerance in both packages."""
+    from vocalie_tts_tpu.ops import decode_layer as jl
+    from vocalie_tts_tpu_torch.ops import decode_layer as pl
+
+    jargs, pargs, kw = _b12_inputs(54)
+    outs = []
+    for mb in (None, "0.25"):
+        jax.clear_caches()
+        if mb:
+            monkeypatch.setenv("VOCALIE_TILE_MB", mb)
+        else:
+            monkeypatch.delenv("VOCALIE_TILE_MB", raising=False)
+        assert pd.pick_tile(1024, pd.TILE_BUDGET, 2 * 256) == (512 if mb else 1024)
+        rx, rq = jl.layer_swiglu_qkv_int8_stacked(*jargs, **kw, packed=True)
+        gx, gq = pl.layer_swiglu_qkv_int8_stacked(*pargs, **kw)
+        assert _rel(gx.numpy(), rx) < 1e-5 and _rel(gq.numpy(), rq) < 1e-5
+        outs.append((np.asarray(rx), gx.numpy()))
+    assert _rel(outs[1][0], outs[0][0]) > 1e-5 and _rel(outs[1][1], outs[0][1]) > 1e-5
 
 
 def test_tile_mb_below_one_tile_raises(fresh_jax, monkeypatch):

@@ -24,8 +24,10 @@ kernels in interpret mode, the port its plain versions.
   tolerance of its top (the near-tie rule of ``tests/test_torch_slice.py``).
   Stage 2 on JAX's tokens within 33 LSB of int16; ``run_tts_pipeline`` on
   a 3-chunk script with ``tts_backend: "qwen3"``.
-- The refusals: ``VOCALIE_MEGALAYER=1`` (B12, reached at d_head 128) and
-  ``VOCALIE_SERVE_MESH``.
+- ``VOCALIE_MEGALAYER=1`` (B12, reached at d_head 128): teacher-forced
+  decode against JAX's megalayer step, and one greedy custom_voice chunk
+  through ``run_tts_pipeline`` with tokens equal to JAX's (near-tie rule).
+- The refusal of ``VOCALIE_SERVE_MESH``.
 """
 
 import dataclasses
@@ -175,19 +177,16 @@ def test_prefill_at_the_512_bucket(qwen3_lm, monkeypatch):
     _check_prompt_cache(jcache, pcache, jraw, s)
 
 
-@pytest.mark.parametrize("mega", ["1", "0"])
-@pytest.mark.parametrize("b", [2, 1])
-def test_teacher_forced_decode(qwen3_lm, monkeypatch, mega, b):
-    """6 teacher-forced steps from JAX's prompt cache on both sides; the
-    kernels each dispatch takes, counted."""
-    monkeypatch.setenv("VOCALIE_MEGATAIL", mega)
-    for k in ("VOCALIE_FUSED_STEP", "VOCALIE_MEGALAYER", "VOCALIE_TILE_MB"):
-        monkeypatch.delenv(k, raising=False)
+def _teacher_forced(qwen3_lm, monkeypatch, b, mega, n_steps=6):
+    """``n_steps`` teacher-forced steps from JAX's prompt cache on both
+    sides (``mega``: the JAX program's key), logits within 2e-3 + 2e-3 ·
+    |ref| → (kernel calls, jax cache, port cache, appended slots)."""
     jcfg, jparams, pcfg, pparams = qwen3_lm
     calls = _count(monkeypatch, ("qkv_norm_int8_stacked", "tail_swiglu_qkv_int8_stacked",
                                  "tail_swiglu_int8_stacked", "decode_step_fused_packed",
-                                 "mlp_swiglu_int8_stacked", "dense_int8_stacked"))
-    s, n_steps = 40, 6
+                                 "mlp_swiglu_int8_stacked", "dense_int8_stacked",
+                                 "layer_swiglu_qkv_int8_stacked"))
+    s = 40
     rng = np.random.default_rng(34)
     emb = (rng.standard_normal((b, s, 256)) * 0.5).astype(np.float32)
     lens = np.asarray([40, 23][:b], np.int32)
@@ -204,14 +203,25 @@ def test_teacher_forced_decode(qwen3_lm, monkeypatch, mega, b):
         pl, pcache = pt.decode_step(pparams, pcfg, torch.from_numpy(toks[i]).long(), pcache)
         np.testing.assert_allclose(pl.numpy(), np.asarray(jl), atol=2e-3, rtol=2e-3,
                                    err_msg=f"step {i}")
-    L = pcfg.n_layers
+    return calls, jcache, pcache, slice(s, s + n_steps)
+
+
+@pytest.mark.parametrize("mega", ["1", "0"])
+@pytest.mark.parametrize("b", [2, 1])
+def test_teacher_forced_decode(qwen3_lm, monkeypatch, mega, b):
+    """6 teacher-forced steps from JAX's prompt cache on both sides; the
+    kernels each dispatch takes, counted."""
+    monkeypatch.setenv("VOCALIE_MEGATAIL", mega)
+    for k in ("VOCALIE_FUSED_STEP", "VOCALIE_MEGALAYER", "VOCALIE_TILE_MB"):
+        monkeypatch.delenv(k, raising=False)
+    n_steps, L = 6, qwen3_lm[2].n_layers
+    calls, jcache, pcache, sl = _teacher_forced(qwen3_lm, monkeypatch, b, mega, n_steps)
     want = {"qkv_norm_int8_stacked": n_steps if mega == "1" else L * n_steps,
             "tail_swiglu_qkv_int8_stacked": L * n_steps if mega == "1" else 0,
             "tail_swiglu_int8_stacked": 0 if mega == "1" else L * n_steps,
             "decode_step_fused_packed": 0, "mlp_swiglu_int8_stacked": 0,
-            "dense_int8_stacked": n_steps + 1}
+            "dense_int8_stacked": n_steps + 1, "layer_swiglu_qkv_int8_stacked": 0}
     assert calls == want
-    sl = slice(s, s + n_steps)
     for name in ("k", "v", "k_scale", "v_scale"):
         ref = np.asarray(getattr(jcache, name))[:, :, :, sl]
         got = getattr(pcache, name)[:, :, :, sl]
@@ -222,13 +232,30 @@ def test_teacher_forced_decode(qwen3_lm, monkeypatch, mega, b):
 
 def test_megalayer_is_refused(qwen3_lm, monkeypatch):
     """d_head 128 passes the JAX megalayer's ``d_head % 128 == 0``
-    (``transformer.py:837``): ``VOCALIE_MEGALAYER=1`` would run B12 there."""
+    (``transformer.py:837``): ``VOCALIE_MEGALAYER=1`` runs B12 there, which
+    the port once refused. 6 teacher-forced steps at batch 2 from JAX's
+    prompt cache: B3 + L x B12 + B4 a step, logits within 2e-3 + 2e-3 ·
+    |ref| of JAX's, the appended bf16 scales equal, layer 0's int8 k/v
+    equal (the B3 prologue's) and the later layers' at most one step off
+    (batch 1: ``tests/test_torch_dense_step.py``)."""
     monkeypatch.setenv("VOCALIE_MEGALAYER", "1")
-    monkeypatch.delenv("VOCALIE_MEGATAIL", raising=False)
-    _, _, pcfg, pparams = qwen3_lm
-    cache = pt.StackedKVCache.create(2, 2, 1, 128, 128, "cpu")
-    with pytest.raises(NotImplementedError, match="B12"):
-        pt.decode_step(pparams, pcfg, torch.zeros(2, dtype=torch.long), cache)
+    for k in ("VOCALIE_MEGATAIL", "VOCALIE_FUSED_STEP", "VOCALIE_TILE_MB"):
+        monkeypatch.delenv(k, raising=False)
+    n_steps, L = 6, qwen3_lm[2].n_layers
+    calls, jcache, pcache, sl = _teacher_forced(qwen3_lm, monkeypatch, 2, "megalayer", n_steps)
+    assert calls == {"qkv_norm_int8_stacked": n_steps, "layer_swiglu_qkv_int8_stacked": L * n_steps,
+                     "tail_swiglu_qkv_int8_stacked": 0, "tail_swiglu_int8_stacked": 0,
+                     "decode_step_fused_packed": 0, "mlp_swiglu_int8_stacked": 0,
+                     "dense_int8_stacked": n_steps + 1}
+    for name in ("k", "v", "k_scale", "v_scale"):
+        ref = np.asarray(getattr(jcache, name))[:, :, :, sl]
+        got = getattr(pcache, name)[:, :, :, sl]
+        if got.dtype == torch.bfloat16:
+            got, ref = got.view(torch.int16), ref.view(np.int16)
+        assert np.array_equal(got.numpy()[0], ref[0]), name
+        bad = got.numpy() != ref
+        assert name in ("k", "v") or not bad.any(), name
+        assert np.all(np.abs(got.numpy()[bad].astype(int) - ref[bad].astype(int)) == 1), name
 
 
 # ── the runtime ──────────────────────────────────────────────────────────
@@ -372,16 +399,18 @@ def _jax_replay(jrt, embeds, lengths, cache_len, tokens, n_steps):
     return np.stack(out)
 
 
-def _greedy(jrt, prt, kw, texts):
+def _greedy(jrt, prt, kw, texts, run=None):
     """Both sides' greedy tokens for ``texts`` in one mode, the port's
-    through ``synthesize_batch``; ``flips``: row → the first step where the
-    port leaves JAX, each a shown near-tie."""
+    through ``synthesize_batch`` (or ``run(texts, **kw)``, which must reach
+    it once); ``flips``: row → the first step where the port leaves JAX,
+    each a shown near-tie."""
     jtok, jlen, embeds, lengths, cache_len = _jax_tokens(jrt, texts, kw)
     seen = []
     real = prt.stage2_pcm16
     prt.stage2_pcm16 = lambda t, n: seen.append((t.numpy(), n.numpy())) or real(t, n)
     try:
-        results = prt.synthesize_batch(texts, language="French", temperature=0.0, **kw)
+        results = (run or (lambda t, **k: prt.synthesize_batch(t, language="French",
+                                                                temperature=0.0, **k)))(texts, **kw)
     finally:
         del prt.stage2_pcm16
     (ptok, plen), = seen
@@ -442,6 +471,46 @@ def test_greedy_tokens_match_without_megatail(runtimes, monkeypatch):
     calls = _count(monkeypatch, ("tail_swiglu_int8_stacked", "tail_swiglu_qkv_int8_stacked"))
     _greedy(jrt, prt, MODES["custom_voice"], SHORT)
     assert calls["tail_swiglu_int8_stacked"] > 0 and calls["tail_swiglu_qkv_int8_stacked"] == 0
+
+
+def test_megalayer_pipeline_tokens_match(runtimes, monkeypatch, tmp_path):
+    """``run_tts_pipeline`` with ``VOCALIE_MEGALAYER=1``, one short
+    custom_voice chunk, greedy: the port's tokens (B3 + L x B12 + B5 + B4 a
+    step) equal JAX's under the same knob (a new JAX generate program: the
+    knob is read while it traces), up to shown near-ties."""
+    from vocalie_tts_tpu.models.common.ar_runtime import make_generate_fn
+    from vocalie_tts_tpu.models.lmtts.model import codec_logit_bias
+    from vocalie_tts_tpu_torch.engines.qwen3 import Qwen3Engine
+    from vocalie_tts_tpu_torch.pipeline import pad_short_text, run_tts_pipeline
+    from vocalie_tts_tpu_torch.text import parse_manual_chunks
+
+    jrt, prt, *_ = runtimes
+    monkeypatch.setenv("VOCALIE_MEGALAYER", "1")
+    monkeypatch.setattr(jrt, "_generate", make_generate_fn(jrt.cfg.lm, codec_logit_bias(jrt.cfg)))
+    calls = _count(monkeypatch, ("layer_swiglu_qkv_int8_stacked", "tail_swiglu_qkv_int8_stacked"))
+    seen, real = [], prt.synthesize_batch
+
+    def pipeline(texts, **kw):
+        engine = Qwen3Engine(device="cpu")
+        engine._runtime = prt
+        prt.synthesize_batch = lambda t, **k: seen.append((t, k)) or real(
+            t, **{**k, "temperature": 0.0})
+        try:
+            script = SHORT[0] + "\n[[CHUNK]]"
+            res = run_tts_pipeline({"tts_backend": "qwen3", "script": script,
+                                    "chunks": parse_manual_chunks(script)[0], "lang": "fr-FR",
+                                    "target_sr": 24000, "out_path": str(tmp_path / "mega.wav"),
+                                    "engine_params": {"qwen3_mode": "custom_voice",
+                                                      "speaker": "Serena"}}, engine=engine)
+        finally:
+            del prt.synthesize_batch
+        assert res.meta["chunks"] == 1 and seen[0][0] == texts
+        return [(np.zeros(1), 24000, {})]
+
+    # the pipeline pads a short chunk by repeating it (``pad_short_text``)
+    _greedy(jrt, prt, MODES["custom_voice"], [pad_short_text(SHORT[0])[0]], run=pipeline)
+    assert calls["layer_swiglu_qkv_int8_stacked"] > 0 and calls["tail_swiglu_qkv_int8_stacked"] == 0
+    assert calls["layer_swiglu_qkv_int8_stacked"] % prt.cfg.lm.n_layers == 0
 
 
 def test_speaker_embedding_matches_jax(runtimes, ref_wav):

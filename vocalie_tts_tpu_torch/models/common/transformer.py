@@ -20,16 +20,18 @@ prefill at prompt buckets >= 512, and, with ``dense_kernel`` (the JAX
 package's default with int8 weights), the int8-native dense decode
 kernels of ``_dense_dispatch``: for SwiGLU the layer-0 norm+qkv (B3),
 the fused layer tail + next qkv (B2), with ``VOCALIE_MEGATAIL=0`` B3 and
-the tail alone (B8a) per layer, or, at batch 1 without qk-norm, the whole
-step (B7); for GPT-2 the layer-0 LayerNorm+qkv (B9a) and the GELU tail +
-next qkv (B9b), or with ``VOCALIE_MEGATAIL=0`` B9a and the tail alone (B9c)
-per layer; where no fused tail applies (SwiGLU with biases or a
-LayerNorm), B4 for the qkv and o-projections and the int8 SwiGLU MLP
-(B8b); the int8 lm_head (B4, also for prefill's last-position logits) for
-all. Where the shapes are not eligible (d_model or the qkv width
-not a 128-multiple), the JAX package takes the ``_qdot`` path, and so
-does the port. Dispatches the port does not carry raise (see
-``_dense_dispatch``).
+the tail alone (B8a) per layer, with ``VOCALIE_MEGALAYER=1`` the whole
+layer (attention, o-projection, tail, next qkv) as one launch (B12), or,
+at batch 1 without qk-norm, the whole step (B7); for GPT-2 the layer-0
+LayerNorm+qkv (B9a) and the GELU tail + next qkv (B9b), or with
+``VOCALIE_MEGATAIL=0`` B9a and the tail alone (B9c) per layer; where no
+fused tail applies (SwiGLU with biases or a LayerNorm), B4 for the qkv
+and o-projections and the int8 SwiGLU MLP (B8b); the int8 lm_head (B4,
+also for prefill's last-position logits) for all. Where the shapes are
+not eligible (d_model or the qkv width not a 128-multiple), the JAX
+package takes the ``_qdot`` path, and so does the port. The one dispatch
+the port does not carry (a GELU MLP with bias and RMSNorm, B9d) raises
+(see ``_dense_dispatch``).
 
 The KV cache is a mutable object: ``decode_step`` writes the step's k/v
 into it IN PLACE and returns it (the JAX version returns a new cache).
@@ -58,6 +60,7 @@ from vocalie_tts_tpu_torch.ops.decode_dense import (
     tail_swiglu_qkv_int8_stacked,
 )
 from vocalie_tts_tpu_torch.ops.decode_attention import decode_attention_stacked
+from vocalie_tts_tpu_torch.ops.decode_layer import layer_swiglu_qkv_int8_stacked
 from vocalie_tts_tpu_torch.ops.decode_step import decode_step_fused_packed
 from vocalie_tts_tpu_torch.ops.flash_attention import flash_attention, reference_attention
 from vocalie_tts_tpu_torch.utils.env import bool_env
@@ -424,6 +427,7 @@ def _is_i8(w) -> bool:
 
 #: the decode step's paths (``_dense_dispatch``)
 QDOT, MEGATAIL, TAIL, FUSED_STEP = "qdot", "megatail", "tail", "fused_step"
+MEGALAYER = "megalayer"
 MEGATAIL_GELU, TAIL_GELU, DENSE_FNS = "megatail_gelu", "tail_gelu", "dense_fns"
 
 
@@ -431,7 +435,10 @@ def _dense_dispatch(layers: Params, cfg: TransformerConfig, batch: int, max_len:
     """Which path ``decode_step`` takes: ``_qdot`` per layer; for SwiGLU the
     megatail (B3 prologue, then B2 per layer), with ``VOCALIE_MEGATAIL=0``
     B3 and the tail alone (B8a) per layer, or, at batch 1, the whole step
-    after the B3 prologue as one kernel (B7); for GPT-2 the GELU megatail
+    after the B3 prologue as one kernel (B7), or, with
+    ``VOCALIE_MEGALAYER=1`` and the megatail on, the B3 prologue and then
+    one launch per layer (B12) on a lane-packable (d_head 64) or d_head-128
+    cache of a 128-multiple length; for GPT-2 the GELU megatail
     (B9a prologue, then B9b per layer) or, with ``VOCALIE_MEGATAIL=0``, B9a
     and B9c per layer; where no fused tail applies (SwiGLU with biases or a
     LayerNorm, a d_ff that is not a 128-multiple, a GELU MLP without
@@ -440,8 +447,9 @@ def _dense_dispatch(layers: Params, cfg: TransformerConfig, batch: int, max_len:
     the config and the shapes (``transformer.py:778-857``; the B7
     conditions of ``maybe_head_stack_qkv``, ``:422-464``, which the JAX
     generate programs apply at batch 1, for the SwiGLU family without
-    qk-norm only), with the int8 cache and decode kernel. Raises where the
-    JAX package would run a kernel the port lacks."""
+    qk-norm only; B7 goes before B12, as the JAX fused step returns before
+    the layer scan), with the int8 cache and decode kernel. Raises where
+    the JAX package would run a kernel the port lacks (B9d)."""
     dense = (cfg.dense_kernel and _is_i8(layers.get("wqkv")) and _is_i8(layers.get("wo"))
              and layers["wqkv"]["q"].shape[2] % 128 == 0 and cfg.d_model % 128 == 0)
     if not dense:
@@ -471,10 +479,7 @@ def _dense_dispatch(layers: Params, cfg: TransformerConfig, batch: int, max_len:
         return FUSED_STEP
     if ((packed or cfg.d_head % 128 == 0) and max_len % 128 == 0
             and bool_env("VOCALIE_MEGALAYER")):
-        raise NotImplementedError(
-            "VOCALIE_MEGALAYER=1 runs layer_swiglu_qkv_int8_stacked (kernel B12), "
-            "which the port does not have yet; unset it"
-        )
+        return MEGALAYER
     return MEGATAIL
 
 
@@ -636,7 +641,11 @@ def decode_step(
     loop; the last layer's (computed from its own weights, the clamped
     index) is dropped. Without the megatail, every layer takes B3 and B8a
     (GPT-2: B9a and B9c). With the fused step, layer 0's q/k/v come from
-    B3 and every layer runs in B7 (``_fused_step``). The ``DENSE_FNS``
+    B3 and every layer runs in B7 (``_fused_step``). With the megalayer,
+    layer 0's raw qkv comes from B3 and each layer's B12 takes the q/k/v
+    of its raw qkv (bias, q/k norm, RoPE applied here) and returns the layer
+    output, cast to the activation dtype every layer as JAX does, and the
+    next layer's raw qkv. The ``DENSE_FNS``
     path runs B4 for the qkv and o-projections and B8b (or ``_qdot``) for
     the MLP. Learned positions add the table's row ``n_decoded + 1``
     (``decode_relative``) or the row's length (``absolute``) to the token
@@ -660,7 +669,7 @@ def decode_step(
     group = cfg.n_heads // cfg.n_kv_heads
     lw = params["layers"]
     path = _dense_dispatch(lw, cfg, b, cache.max_len)
-    if path in (MEGATAIL, FUSED_STEP):
+    if path in (MEGATAIL, FUSED_STEP, MEGALAYER):
         qkv_raw = qkv_norm_int8_stacked(x[:, 0], lw["attn_norm"], lw["wqkv"]["q"],
                                         lw["wqkv"]["s"], 0, eps=cfg.norm_eps)
     if path == FUSED_STEP:
@@ -690,6 +699,17 @@ def decode_step(
         kn = k_new[:, :, 0, :].float().contiguous()  # [b, kv, d]
         vn = v_new[:, :, 0, :].float().contiguous()
         qg = q.reshape(b, cfg.n_kv_heads, group, cfg.d_head).float().contiguous()
+        if path == MEGALAYER:
+            x_out, qkv_raw = layer_swiglu_qkv_int8_stacked(
+                qg, x[:, 0].float().contiguous(), cache.k, cache.v, cache.k_scale, cache.v_scale,
+                bias2d, kn, vn, l, write_pos, lw["wo"]["q"], lw["wo"]["s"], lw["mlp_norm"],
+                lw["w_gateup"]["q"], lw["w_gateup"]["s"], lw["w_down"]["q"], lw["w_down"]["s"],
+                lw["attn_norm"], lw["wqkv"]["q"], lw["wqkv"]["s"], sm_scale=sm_scale,
+                eps=cfg.norm_eps)
+            x = x_out[:, None, :].to(x.dtype)
+            k_news.append(kn)
+            v_news.append(vn)
+            continue
         attn = decode_attention_stacked(
             qg, cache.k, cache.v, bias2d, l, cache.k_scale, cache.v_scale, kn, vn,
             valid_len=write_pos, sm_scale=sm_scale,

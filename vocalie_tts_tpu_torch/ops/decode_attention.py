@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from vocalie_tts_tpu_torch.ops import _build
+from vocalie_tts_tpu_torch.ops.decode_dense import _quantize_rows
 
 #: slots per T block — the probabilities are re-quantized per block, so
 #: this must equal the JAX kernel's 128 for the numbers to match
@@ -34,18 +35,18 @@ def n_valid_blocks(valid_len: int, T: int) -> int:
 
 
 def decode_attention_plain(q, k_all, v_all, bias, layer: int, k_scale, v_scale,
-                           k_new, v_new, valid_len: int, sm_scale: float):
-    """The JAX kernel's math in PyTorch ops (see module doc)."""
+                           k_new, v_new, valid_len: int, sm_scale: float,
+                           sum_dtype: torch.dtype = torch.float32):
+    """The JAX kernel's math in PyTorch ops (see module doc). ``sum_dtype``
+    float64 sums each block's probabilities and the current token's score
+    in double, rounded to f32 once, as the whole-layer kernel (B12) does:
+    then any summation order gives the same f32."""
     b, kv, g, d = q.shape
     T = k_all.shape[3]
     BC = b * kv
     f32 = torch.float32
     qf = q.reshape(BC, g, d).to(f32)
-    # tensor divisors: PyTorch's CUDA divide by a Python number multiplies
-    # by its rounded reciprocal, an ulp away from the kernel's divide
-    qa = qf.abs().amax(-1, keepdim=True)
-    qs = torch.clamp(qa / torch.full_like(qa, 127.0), min=1e-8)
-    qq = torch.round(qf / qs)            # int values, exact in f32
+    qq, qs = _quantize_rows(qf)          # int values, exact in f32
     k = k_all[layer].reshape(BC, T, d)
     v = v_all[layer].reshape(BC, T, d)
     ks = k_scale[layer].reshape(BC, T).to(f32)
@@ -64,17 +65,15 @@ def decode_attention_plain(q, k_all, v_all, bias, layer: int, k_scale, v_scale,
         m_new = torch.maximum(m, s.amax(-1, keepdim=True))
         corr = torch.exp(m - m_new)
         p = torch.exp(s - m_new)
-        lsum = lsum * corr + p.sum(-1, keepdim=True)
+        lsum = lsum * corr + p.to(sum_dtype).sum(-1, keepdim=True).float()
         p = p * vs[:, None, sl]
-        pa = p.amax(-1, keepdim=True)
-        ps = torch.clamp(pa / torch.full_like(pa, 127.0), min=1e-20)
-        p8 = torch.round(p / ps)
+        p8, ps = _quantize_rows(p, floor=1e-20)   # p >= 0
         o = torch.matmul(p8, v[:, sl].to(f32))
         acc = acc * corr + o * ps
         m = m_new
     kn = k_new.reshape(BC, 1, d).to(f32)
     vn = v_new.reshape(BC, 1, d).to(f32)
-    s_new = (qf * kn).sum(-1, keepdim=True) * sm_scale
+    s_new = (qf.to(sum_dtype) * kn.to(sum_dtype)).sum(-1, keepdim=True).float() * sm_scale
     m_fin = torch.maximum(m, s_new)
     corr = torch.exp(m - m_fin)
     p_new = torch.exp(s_new - m_fin)
