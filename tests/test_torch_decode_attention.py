@@ -74,7 +74,7 @@ def test_decode_attention_matches_jax(branch, L, b, kv, g, T, d, prompt_pad, n_d
     out = decode_attention_stacked(
         *(to_torch(np.asarray(a)) for a in (q, k, v, bias)), layer,
         *(to_torch(np.asarray(a)) for a in (ks, vs, kn, vn)),
-        valid_len=valid_len, sm_scale=sm,
+        valid_len=valid_len, sm_scale=sm, int8_dots=True,
     ).numpy()
     assert out.shape == ref.shape == (b, kv, g, d)
     np.testing.assert_allclose(out, ref, atol=5e-4, rtol=0)
@@ -101,8 +101,10 @@ def test_decode_attention_skips_blocks_past_valid_len():
     """Garbage past the valid blocks must not leak into the result."""
     q, k, v, ks, vs, bias, kn, vn = _case(1, 1, 2, 2, 1, 256, 16, 60, 4)
     args = [to_torch(np.asarray(a)) for a in (q, k, v, bias, ks, vs, kn, vn)]
-    base = decode_attention_stacked(*args[:4], 0, *args[4:], valid_len=64, sm_scale=0.25)
+    base = decode_attention_stacked(*args[:4], 0, *args[4:], valid_len=64, sm_scale=0.25,
+                                    int8_dots=True)
     args[1][..., 128:, :] = 127
     args[3][:, 128:] = 0.0  # even unmasked, a skipped block is never read
-    again = decode_attention_stacked(*args[:4], 0, *args[4:], valid_len=64, sm_scale=0.25)
+    again = decode_attention_stacked(*args[:4], 0, *args[4:], valid_len=64, sm_scale=0.25,
+                                    int8_dots=True)
     assert torch.equal(base, again)

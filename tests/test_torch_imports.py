@@ -84,8 +84,9 @@ def test_dense_kernel_env_names_the_next_slice(monkeypatch):
     B8a (ported with the Qwen3 slice; GPT-2 takes B9c there, see
     ``tests/test_torch_xtts.py``); ``VOCALIE_MEGALAYER=1`` takes the whole
     layer B12 (ported with slice 7; ``tests/test_torch_dense_step.py`` holds
-    it against JAX). The one dense dispatch still without a kernel, a GELU
-    MLP with bias and RMSNorm, names B9d."""
+    it against JAX; it reads the int8 cache, so a bf16 cache takes the
+    megatail). The one dense dispatch still without a kernel, a GELU MLP
+    with bias and RMSNorm, names B9d."""
     import dataclasses
 
     from vocalie_tts_tpu_torch.models.chatterbox.runtime import SCALES
@@ -93,8 +94,9 @@ def test_dense_kernel_env_names_the_next_slice(monkeypatch):
     from vocalie_tts_tpu_torch.models.common.ar_runtime import apply_runtime_env
 
     monkeypatch.setenv("VOCALIE_DENSE_KERNEL", "1")
+    monkeypatch.setenv("VOCALIE_KV_INT8", "1")
     cfg = apply_runtime_env(SCALES["tiny"]).lm
-    assert cfg.dense_kernel is True
+    assert cfg.dense_kernel is True and cfg.kv_quant and cfg.decode_kernel
     cfg = dataclasses.replace(cfg, d_model=128, n_heads=2, n_kv_heads=2, d_head=64, d_ff=256)
     layers = {name: {"q": torch.zeros(shape, dtype=torch.int8)} for name, shape in (
         ("wqkv", (2, 128, 384)), ("wo", (2, 128, 128)),
@@ -104,6 +106,9 @@ def test_dense_kernel_env_names_the_next_slice(monkeypatch):
     monkeypatch.delenv("VOCALIE_MEGATAIL")
     monkeypatch.setenv("VOCALIE_MEGALAYER", "1")
     assert tr._dense_dispatch(layers, cfg, 2, 256) == tr.MEGALAYER
+    # B12 reads the int8 cache: on a bf16 cache the megatail runs, as in JAX
+    assert tr._dense_dispatch(layers, dataclasses.replace(cfg, kv_quant=False), 2,
+                              256) == tr.MEGATAIL
     gelu = dataclasses.replace(cfg, mlp_type="gelu", bias=True)
     layers["w_up"] = {"q": torch.zeros((2, 128, 256), dtype=torch.int8)}
     with pytest.raises(NotImplementedError, match="B9d"):
@@ -118,25 +123,76 @@ SLICE3_MODULES = (
     "vocalie_tts_tpu_torch.models.cosyvoice.model",
     "vocalie_tts_tpu_torch.models.cosyvoice.runtime",
 )
+#: the modules the AudioSR slice added
+SLICE4_MODULES = (
+    "vocalie_tts_tpu_torch.ops.groupnorm",
+    "vocalie_tts_tpu_torch.models.common.audio",
+    "vocalie_tts_tpu_torch.models.common.unet2d",
+    "vocalie_tts_tpu_torch.models.common.vocoder",
+    "vocalie_tts_tpu_torch.models.audiosr.vae",
+    "vocalie_tts_tpu_torch.models.audiosr.model",
+    "vocalie_tts_tpu_torch.models.audiosr.runtime",
+)
+#: the modules the XTTS slice added
+SLICE5_MODULES = (
+    "vocalie_tts_tpu_torch.io.refs",
+    "vocalie_tts_tpu_torch.models.common.speaker",
+    "vocalie_tts_tpu_torch.models.xtts.model",
+    "vocalie_tts_tpu_torch.models.xtts.runtime",
+    "vocalie_tts_tpu_torch.engines.xtts",
+)
+#: the modules the Qwen3 slice added
+SLICE6_MODULES = (
+    "vocalie_tts_tpu_torch.models.lmtts.model",
+    "vocalie_tts_tpu_torch.models.lmtts.runtime",
+    "vocalie_tts_tpu_torch.engines.qwen3",
+)
+#: the module the whole-layer slice (B12) added
+SLICE7_MODULES = ("vocalie_tts_tpu_torch.ops.decode_layer",)
+
+#: one child interpreter imports each module alone: it blocks JAX, the JAX
+#: package and Triton, imports torch once, and for each module drops every
+#: ``vocalie_tts_tpu_torch`` module before importing it, then checks that no
+#: kernel library was loaded and no GPU touched
+_ALONE = """
+import json, sys, importlib, traceback
+for m in ('jax', 'jaxlib', 'triton', 'vocalie_tts_tpu'):
+    sys.modules[m] = None
+import torch
+out = {}
+for module in json.loads(sys.argv[1]):
+    for name in [n for n in sys.modules if n.split('.')[0] == 'vocalie_tts_tpu_torch']:
+        del sys.modules[name]
+    try:
+        importlib.import_module(module)
+        from vocalie_tts_tpu_torch.ops import _build
+        assert _build._lib is None and not torch.cuda.is_initialized()
+        out[module] = 'ok'
+    except BaseException:
+        out[module] = traceback.format_exc()[-2000:]
+print(json.dumps(out))
+"""
+
+
+@pytest.fixture(scope="module")
+def alone():
+    """Each listed module's outcome (``"ok"`` or its traceback), imported
+    alone in one child interpreter."""
+    import json
+
+    modules = (SLICE3_MODULES + SLICE4_MODULES + SLICE5_MODULES + SLICE6_MODULES
+               + SLICE7_MODULES)
+    out = subprocess.run([sys.executable, "-c", _ALONE, json.dumps(modules)], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    return json.loads(out.stdout.strip().splitlines()[-1])
 
 
 @pytest.mark.parametrize("module", SLICE3_MODULES)
-def test_slice3_module_imports_alone(module):
+def test_slice3_module_imports_alone(alone, module):
     """Each new module imports on its own with JAX, the JAX package and
     Triton blocked, loads no kernel library and touches no GPU."""
-    code = (
-        "import sys\n"
-        "for m in ('jax', 'jaxlib', 'triton', 'vocalie_tts_tpu'):\n"
-        "    sys.modules[m] = None\n"
-        f"import importlib; importlib.import_module({module!r})\n"
-        "import torch\n"
-        "from vocalie_tts_tpu_torch.ops import _build\n"
-        "assert _build._lib is None and not torch.cuda.is_initialized()\n"
-        "print('ok')\n"
-    )
-    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
-                         text=True, timeout=300)
-    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr[-2000:]
+    assert alone[module] == "ok", alone[module]
 
 
 def test_cosyvoice_entry_points_refuse_cpu_fallback(tmp_path, monkeypatch):
@@ -159,24 +215,12 @@ def test_cosyvoice_entry_points_refuse_cpu_fallback(tmp_path, monkeypatch):
     assert not (tmp_path / "x.wav").exists()
 
 
-#: the modules the AudioSR slice added
-SLICE4_MODULES = (
-    "vocalie_tts_tpu_torch.ops.groupnorm",
-    "vocalie_tts_tpu_torch.models.common.audio",
-    "vocalie_tts_tpu_torch.models.common.unet2d",
-    "vocalie_tts_tpu_torch.models.common.vocoder",
-    "vocalie_tts_tpu_torch.models.audiosr.vae",
-    "vocalie_tts_tpu_torch.models.audiosr.model",
-    "vocalie_tts_tpu_torch.models.audiosr.runtime",
-)
-
-
 @pytest.mark.parametrize("module", SLICE4_MODULES)
-def test_slice4_module_imports_alone(module):
+def test_slice4_module_imports_alone(alone, module):
     """Each module of the AudioSR slice imports on its own with JAX, the
     JAX package and Triton blocked, loads no kernel library and touches no
     GPU."""
-    test_slice3_module_imports_alone(module)
+    test_slice3_module_imports_alone(alone, module)
 
 
 def test_audiosr_runtime_refuses_cpu_fallback(tmp_path, monkeypatch):
@@ -191,20 +235,12 @@ def test_audiosr_runtime_refuses_cpu_fallback(tmp_path, monkeypatch):
     assert AudioSRRuntime.create(tmp_path, device="cpu").device.type == "cpu"
 
 
-#: the modules the Qwen3 slice added
-SLICE6_MODULES = (
-    "vocalie_tts_tpu_torch.models.lmtts.model",
-    "vocalie_tts_tpu_torch.models.lmtts.runtime",
-    "vocalie_tts_tpu_torch.engines.qwen3",
-)
-
-
 @pytest.mark.parametrize("module", SLICE6_MODULES)
-def test_slice6_module_imports_alone(module):
+def test_slice6_module_imports_alone(alone, module):
     """Each module of the Qwen3 slice imports on its own with JAX, the JAX
     package and Triton blocked, loads no kernel library and touches no
     GPU."""
-    test_slice3_module_imports_alone(module)
+    test_slice3_module_imports_alone(alone, module)
 
 
 def test_qwen3_entry_points_refuse_cpu_fallback(tmp_path, monkeypatch):
@@ -227,33 +263,19 @@ def test_qwen3_entry_points_refuse_cpu_fallback(tmp_path, monkeypatch):
     assert not (tmp_path / "x.wav").exists()
 
 
-#: the module the whole-layer slice (B12) added
-SLICE7_MODULES = ("vocalie_tts_tpu_torch.ops.decode_layer",)
-
-
 @pytest.mark.parametrize("module", SLICE7_MODULES)
-def test_slice7_module_imports_alone(module):
+def test_slice7_module_imports_alone(alone, module):
     """B12's module imports on its own with JAX, the JAX package and Triton
     blocked, loads no kernel library and touches no GPU."""
-    test_slice3_module_imports_alone(module)
-
-
-#: the modules the XTTS slice added
-SLICE5_MODULES = (
-    "vocalie_tts_tpu_torch.io.refs",
-    "vocalie_tts_tpu_torch.models.common.speaker",
-    "vocalie_tts_tpu_torch.models.xtts.model",
-    "vocalie_tts_tpu_torch.models.xtts.runtime",
-    "vocalie_tts_tpu_torch.engines.xtts",
-)
+    test_slice3_module_imports_alone(alone, module)
 
 
 @pytest.mark.parametrize("module", SLICE5_MODULES)
-def test_slice5_module_imports_alone(module):
+def test_slice5_module_imports_alone(alone, module):
     """Each module of the XTTS slice imports on its own with JAX, the JAX
     package and Triton blocked, loads no kernel library and touches no
     GPU."""
-    test_slice3_module_imports_alone(module)
+    test_slice3_module_imports_alone(alone, module)
 
 
 def test_xtts_entry_points_refuse_cpu_fallback(tmp_path, monkeypatch):

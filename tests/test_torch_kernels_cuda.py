@@ -53,10 +53,21 @@ import math
 import pytest
 import torch
 
-from vocalie_tts_tpu_torch.ops.cache_update import cache_append_plain, cache_append_stacked
+from vocalie_tts_tpu_torch.ops.cache_update import (
+    cache_append_kv_plain,
+    cache_append_kv_stacked,
+    cache_append_plain,
+    cache_append_stacked,
+)
 from vocalie_tts_tpu_torch.ops.decode_attention import (
+    decode_attention,
+    decode_attention_dequant_plain,
+    decode_attention_dequant_stacked,
+    decode_attention_float_plain,
+    decode_attention_float_stacked,
+    decode_attention_int8_stacked,
     decode_attention_plain,
-    decode_attention_stacked,
+    decode_attention_plain_b10,
 )
 from vocalie_tts_tpu_torch.ops.decode_dense import (
     dense_int8_plain,
@@ -129,12 +140,12 @@ def test_decode_attention_kernel(dev, L, b, kv, g, T, d, prompt_pad, n_dec, laye
     valid = (pos < lens[:, None]) | ((pos >= prompt_pad) & (pos < valid_len))
     bias = torch.where(valid, 0.0, NEG).float()
     sm = 1.0 / math.sqrt(d)
-    before = decode_attention_stacked.launches
-    out = decode_attention_stacked(q, k, v, bias, layer, ks, vs, kn, vn,
+    before = decode_attention_int8_stacked.launches
+    out = decode_attention_int8_stacked(q, k, v, bias, layer, ks, vs, kn, vn,
                                    valid_len=valid_len, sm_scale=sm)
     ref = decode_attention_plain(q, k, v, bias, layer, ks, vs, kn, vn, valid_len, sm)
     torch.cuda.synchronize()
-    assert decode_attention_stacked.launches == before + 1
+    assert decode_attention_int8_stacked.launches == before + 1
     assert torch.allclose(out, ref, atol=5e-4, rtol=0), (out - ref).abs().max().item()
 
 
@@ -147,12 +158,12 @@ def test_decode_attention_kernel_rejects_bad_inputs(dev):
     kn = torch.zeros((b, kv, d), device=dev)
     args = dict(valid_len=4, sm_scale=0.125)
     with pytest.raises(ValueError, match="k_scale"):
-        decode_attention_stacked(q, k, k, bias, 0, s.float(), s, kn, kn, **args)
+        decode_attention_int8_stacked(q, k, k, bias, 0, s.float(), s, kn, kn, **args)
     with pytest.raises(ValueError, match="contiguous"):
-        decode_attention_stacked(q, k, k, torch.zeros((T, b), device=dev).t(), 0, s, s, kn, kn,
-                                 **args)
+        decode_attention_int8_stacked(q, k, k, torch.zeros((T, b), device=dev).t(), 0, s, s, kn,
+                                      kn, **args)
     with pytest.raises(ValueError, match="layer"):
-        decode_attention_stacked(q, k, k, bias, 1, s, s, kn, kn, **args)
+        decode_attention_int8_stacked(q, k, k, bias, 1, s, s, kn, kn, **args)
 
 
 # ── B5 ──────────────────────────────────────────────────────────────────
@@ -180,6 +191,147 @@ def test_cache_append_kernel_is_byte_exact(dev, L, b, kv, T, d, pos):
     for a, r in zip(got, ref):
         bits = torch.uint8 if a.dtype == torch.int8 else torch.int16
         assert torch.equal(a.view(bits), r.view(bits))
+
+
+# ── K1, K2, B10: the f32 decode attention; K4: the append without scales ──
+
+
+def _f32_attn_inputs(dev, L, b, kv, g, T, d, prompt_pad, n_dec, cache, seed, masked_row=False):
+    gen = _gen(dev, seed)
+    q = torch.randn((b, kv, g, d), generator=gen, device=dev)
+    if cache == torch.int8:
+        k, v = (torch.randint(-127, 128, (L, b, kv, T, d), generator=gen, device=dev,
+                              dtype=torch.int8) for _ in range(2))
+        ks, vs = (((torch.rand((L, b, kv, T), generator=gen, device=dev) + 0.5) / 127)
+                  .to(torch.bfloat16) for _ in range(2))
+    else:
+        k, v = (torch.randn((L, b, kv, T, d), generator=gen, device=dev).to(cache)
+                for _ in range(2))
+        ks = vs = None
+    kn, vn = (torch.randn((b, kv, d), generator=gen, device=dev) for _ in range(2))
+    lens = torch.randint(1, prompt_pad + 1, (b,), generator=gen, device=dev)
+    pos = torch.arange(T, device=dev)[None, :]
+    valid = (pos < lens[:, None]) | ((pos >= prompt_pad) & (pos < prompt_pad + n_dec))
+    if masked_row:
+        valid[0] = False
+    bias = torch.where(valid, 0.0, NEG).float()
+    return q, k, v, ks, vs, bias, kn, vn
+
+
+@pytest.mark.parametrize("cache", [torch.bfloat16, torch.float32, torch.int8],
+                         ids=["bf16", "f32", "int8"])
+@pytest.mark.parametrize("L,b,kv,g,T,d,prompt_pad,n_dec,layer,with_new,masked_row", [
+    (30, 16, 16, 1, 640, 64, 256, 160, 7, True, False),    # the T3 layer
+    (2, 8, 8, 2, 512, 128, 256, 96, 1, True, False),       # the Qwen3 layer, GQA
+    (2, 3, 2, 8, 200, 16, 100, 37, 0, True, True),         # g 8, d 16, T off the grid
+    (1, 1, 4, 1, 640, 64, 300, 83, 0, True, False),        # batch 1
+    (1, 2, 2, 4, 256, 32, 200, 56, 0, True, False),        # valid_len == T
+    (2, 2, 2, 2, 300, 64, 150, 20, 1, False, True),        # no current token: every slot
+])
+def test_f32_decode_attention_kernels(dev, cache, L, b, kv, g, T, d, prompt_pad, n_dec, layer,
+                                      with_new, masked_row):
+    """K1 (bf16/f32 cache) and K2 (int8 + scales) against their plain
+    versions, atol 1e-4 (f32 throughout; the kernel's running max and
+    summation order differ from the two-pass plain version)."""
+    q, k, v, ks, vs, bias, kn, vn = _f32_attn_inputs(dev, L, b, kv, g, T, d, prompt_pad, n_dec,
+                                                     cache, T + d + g, masked_row)
+    kn, vn = (kn, vn) if with_new else (None, None)
+    valid_len = prompt_pad + n_dec
+    sm = 1.0 / math.sqrt(d)
+    if cache == torch.int8:
+        fn = decode_attention_dequant_stacked
+        before = fn.launches
+        out = fn(q, k, v, bias, layer, ks, vs, kn, vn, valid_len=valid_len, sm_scale=sm)
+        ref = decode_attention_dequant_plain(q, k, v, bias, layer, ks, vs, kn, vn, valid_len,
+                                             sm_scale=sm)
+    else:
+        fn = decode_attention_float_stacked
+        before = fn.launches
+        out = fn(q, k, v, bias, layer, kn, vn, valid_len=valid_len, sm_scale=sm)
+        ref = decode_attention_float_plain(q, k, v, bias, layer, kn, vn, valid_len, sm_scale=sm)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert torch.allclose(out, ref, atol=1e-4, rtol=0), (out - ref).abs().max().item()
+
+
+@pytest.mark.parametrize("cache,scale", [(torch.bfloat16, None), (torch.float32, None),
+                                         (torch.int8, torch.bfloat16),
+                                         (torch.int8, torch.float32)],
+                         ids=["bf16", "f32", "int8-bf16-scales", "int8-f32-scales"])
+@pytest.mark.parametrize("b,kv,g,T,d,masked_row", [(16, 16, 1, 640, 64, False),
+                                                   (2, 2, 2, 320, 128, True),
+                                                   (1, 3, 8, 130, 16, False)])
+def test_b10_decode_attention_kernel(dev, cache, scale, b, kv, g, T, d, masked_row):
+    q, k, v, ks, vs, bias, _, _ = _f32_attn_inputs(dev, 1, b, kv, g, T, d, T // 2, T // 4,
+                                                   cache, T + g, masked_row)
+    k, v = k[0], v[0]
+    if ks is not None:
+        ks, vs = ks[0].to(scale), vs[0].to(scale)
+    before = decode_attention.launches
+    out = decode_attention(q, k, v, bias, ks, vs, sm_scale=d ** -0.5)
+    ref = decode_attention_plain_b10(q, k, v, bias, ks, vs, sm_scale=d ** -0.5)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 1
+    assert torch.allclose(out, ref, atol=1e-4, rtol=0), (out - ref).abs().max().item()
+
+
+def test_f32_decode_attention_rejects_bad_inputs(dev):
+    """Refused inputs raise before the launch, and a refused call is not
+    counted as one."""
+    q, k, v, ks, vs, bias, kn, vn = _f32_attn_inputs(dev, 1, 2, 2, 1, 128, 64, 64, 8,
+                                                     torch.bfloat16, 1)
+    wrappers = (decode_attention_float_stacked, decode_attention_dequant_stacked,
+                decode_attention)
+    before = [w.launches for w in wrappers]
+    with pytest.raises(ValueError, match="k_all"):
+        decode_attention_float_stacked(q, k.to(torch.float16), v, bias, 0, kn, vn, sm_scale=0.1)
+    with pytest.raises(ValueError, match="v_all"):
+        decode_attention_float_stacked(q, k, v.float(), bias, 0, kn, vn, sm_scale=0.1)
+    with pytest.raises(ValueError, match="layer"):
+        decode_attention_float_stacked(q, k, v, bias, 1, kn, vn, sm_scale=0.1)
+    with pytest.raises(ValueError, match="scale"):
+        decode_attention(q, k[0].to(torch.int8), v[0].to(torch.int8), bias, sm_scale=0.1)
+    sc = torch.ones((1, 2, 2, 128), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="k_scale"):
+        decode_attention_dequant_stacked(q, k.to(torch.int8), v.to(torch.int8), bias, 0,
+                                         sc[..., :64].contiguous(), sc, kn, vn, sm_scale=0.1)
+    with pytest.raises(ValueError, match="k_all"):
+        decode_attention(q, k[0].to(torch.float16), v[0].to(torch.float16), bias, sm_scale=0.1)
+    assert [w.launches for w in wrappers] == before
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("L,b,kv,T,d,pos", [
+    (30, 16, 16, 640, 64, 416),
+    (2, 3, 2, 256, 16, 0),
+    (1, 1, 1, 128, 128, 127),
+    (2, 1, 3, 136, 8, 70),
+])
+def test_cache_append_kv_kernel_is_byte_exact(dev, dtype, L, b, kv, T, d, pos):
+    gen = _gen(dev, pos + d)
+    k, v = (torch.randn((L, b, kv, T, d), generator=gen, device=dev).to(dtype)
+            for _ in range(2))
+    kn, vn = (torch.randn((L, b, kv, d), generator=gen, device=dev).to(dtype) for _ in range(2))
+    before = cache_append_kv_stacked.launches
+    got = cache_append_kv_stacked(k.clone(), v.clone(), kn, vn, pos)
+    ref = cache_append_kv_plain(k.clone(), v.clone(), kn, vn, pos)
+    torch.cuda.synchronize()
+    assert cache_append_kv_stacked.launches == before + 1
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    for a, r in zip(got, ref):
+        assert torch.equal(a.view(bits), r.view(bits))
+
+
+def test_cache_append_kv_rejects_bad_inputs(dev):
+    k = torch.zeros((1, 1, 1, 128, 16), device=dev, dtype=torch.bfloat16)
+    kn = torch.zeros((1, 1, 1, 16), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="bf16 or f32"):
+        cache_append_kv_stacked(k.to(torch.int8), k.to(torch.int8), kn.to(torch.int8),
+                                kn.to(torch.int8), 3)
+    with pytest.raises(ValueError, match="k_new"):
+        cache_append_kv_stacked(k, k.clone(), kn.float(), kn, 3)
+    with pytest.raises(ValueError, match="position"):
+        cache_append_kv_stacked(k, k.clone(), kn, kn, 128)
 
 
 # ── B6 ──────────────────────────────────────────────────────────────────

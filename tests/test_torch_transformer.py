@@ -170,14 +170,24 @@ def test_decode_steps_teacher_forced(models):
 
 
 def test_unported_configs_raise(models):
-    """The bf16 cache / XLA decode branch is refused. ``dense_kernel`` is
-    ported: at this width (d_model 64) it is not eligible and the port
-    takes ``_qdot``, as JAX does (tests/test_torch_dense_step.py holds the
-    dense path and its refused knobs)."""
+    """The one decode-attention branch the port lacks is refused: JAX's
+    non-T-blocked int8 kernel, which an int8 cache of other than a
+    128-multiple length takes with the decode kernel on; the step raises
+    before it writes anything. The XLA branch (the decode kernel off) on
+    the same cache runs, and so does the dense flag at this width (d_model
+    64 is not eligible: ``_qdot``, as in JAX; tests/test_torch_dense_step.py
+    holds the dense path, tests/test_torch_noenv.py the cache and attention
+    branches against JAX)."""
     _, _, pcfg, pparams, _ = models
-    logits, _ = pt.prefill(pparams, dataclasses.replace(pcfg, dense_kernel=True), None,
-                           torch.tensor([3]), inputs_embeds=torch.zeros(1, 4, pcfg.d_model))
+    emb, lens, tok = torch.zeros(1, 4, pcfg.d_model), torch.tensor([3]), torch.tensor([1])
+    logits, _ = pt.prefill(pparams, dataclasses.replace(pcfg, dense_kernel=True), None, lens,
+                           inputs_embeds=emb)
     assert logits.shape == (1, pcfg.vocab_size)
-    with pytest.raises(NotImplementedError):
-        pt.prefill(pparams, dataclasses.replace(pcfg, decode_kernel=False), None,
-                   torch.tensor([3]), inputs_embeds=torch.zeros(1, 4, pcfg.d_model))
+    xla = dataclasses.replace(pcfg, decode_kernel=False)
+    _, cache = pt.prefill(pparams, xla, None, lens, inputs_embeds=emb, cache_len=192)
+    logits, _ = pt.decode_step(pparams, xla, tok, cache)
+    assert torch.isfinite(logits).all() and cache.n_decoded == 1
+    _, cache = pt.prefill(pparams, pcfg, None, lens, inputs_embeds=emb, cache_len=192)
+    with pytest.raises(NotImplementedError, match="non-T-blocked"):
+        pt.decode_step(pparams, pcfg, tok, cache)
+    assert cache.n_decoded == 0

@@ -1,5 +1,6 @@
 // In-place append of one decode step's int8 k/v and their bf16 scales
-// into the stacked KV cache, for all layers at once.
+// into the stacked KV cache, for all layers at once (B5); below it, the
+// same for a cache without scales (K4).
 //
 // Replaces: vocalie_tts_tpu/ops/cache_update.py::cache_append_stacked
 // (the split k/v + scales branch, _write_kv_scales_kernel). The TPU
@@ -51,5 +52,57 @@ extern "C" int vt_cache_append(
       (const int8_t*)k_new, (const int8_t*)v_new,
       (const __nv_bfloat16*)ks_new, (const __nv_bfloat16*)vs_new,
       rows, T, d, pos);
+  return (int)cudaGetLastError();
+}
+
+
+// ---------------------------------------------------------------------------
+// K4: in-place append of one decode step's k/v into a stacked cache without
+// scales (bf16 or f32), for all layers at once.
+//
+// Replaces: vocalie_tts_tpu/ops/cache_update.py::cache_append_stacked on
+// its split no-scale branch (_write_kv_kernel, :58; pallas_call :191), which
+// the decode step takes for a bf16 cache when the decode or the dense
+// kernels are on. As B5, it writes exactly the new slot (the TPU kernel's
+// 8-row read-modify-write window is a Mosaic store rule).
+//
+// Bound: bytes. It reads the new rows and writes them once:
+// L*b*kv*d elements of k and of v each way, ~1 MB at the Chatterbox shape
+// (30*16*16 rows, d 64, bf16): launch latency is what it costs.
+//
+// Design: the rows are copied as bytes, 4 at a time where a row's width
+// allows it (every bf16 or f32 row of an even d), one thread per word.
+
+__global__ void cache_append_kv_kernel(
+    uint8_t* __restrict__ k_cache, uint8_t* __restrict__ v_cache,       // [rows, T, row_bytes]
+    const uint8_t* __restrict__ k_new, const uint8_t* __restrict__ v_new, // [rows, row_bytes]
+    long long rows, int T, int row_bytes, int pos, int word) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const int per_row = row_bytes / word;
+  if (i >= rows * per_row) return;
+  const long long r = i / per_row;
+  const int e = (int)(i - r * per_row) * word;
+  const long long src = r * row_bytes + e;
+  const long long dst = (r * T + pos) * row_bytes + e;
+  if (word == 4) {
+    *reinterpret_cast<uint32_t*>(k_cache + dst) = *reinterpret_cast<const uint32_t*>(k_new + src);
+    *reinterpret_cast<uint32_t*>(v_cache + dst) = *reinterpret_cast<const uint32_t*>(v_new + src);
+  } else {
+    k_cache[dst] = k_new[src];
+    v_cache[dst] = v_new[src];
+  }
+}
+
+extern "C" int vt_cache_append_kv(
+    void* k_cache, void* v_cache, const void* k_new, const void* v_new,
+    long long rows, int T, int row_bytes, int pos, void* stream) {
+  if (rows < 1 || row_bytes < 1 || pos < 0 || pos >= T) return (int)cudaErrorInvalidValue;
+  const int word = row_bytes % 4 == 0 ? 4 : 1;
+  const int threads = 256;
+  const long long total = rows * (row_bytes / word);
+  const unsigned int blocks = (unsigned int)((total + threads - 1) / threads);
+  cache_append_kv_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      (uint8_t*)k_cache, (uint8_t*)v_cache, (const uint8_t*)k_new, (const uint8_t*)v_new,
+      rows, T, row_bytes, pos, word);
   return (int)cudaGetLastError();
 }

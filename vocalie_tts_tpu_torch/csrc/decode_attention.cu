@@ -1,5 +1,7 @@
-// q_len == 1 decode attention over one layer of the stacked int8 KV cache,
-// read in place, with the current token's k/v merged unquantized.
+// q_len == 1 decode attention over one layer of the stacked KV cache, read
+// in place, with the current token's k/v merged unquantized: the int8
+// T-blocked kernel (B1) first, then the f32 kernel of K1, K2 and B10 (see
+// its own note below).
 //
 // Replaces: vocalie_tts_tpu/ops/decode_attention.py::decode_attention_stacked
 // on its int8 T-blocked branches (_kernel_stacked_int8dots_packed_tblk and
@@ -32,6 +34,7 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <math.h>
 #include <stdint.h>
 
 #define TBLK 128
@@ -197,4 +200,260 @@ extern "C" int vt_decode_attention_int8(
       (const float*)bias, (const float*)k_new, (const float*)v_new, (float*)out,
       BC, kv, T, d, g, layer, n_blk, sm_scale);
   return (int)cudaGetLastError();
+}
+
+
+// ---------------------------------------------------------------------------
+// The f32 kernel: decode attention with every product in f32.
+//
+// Replaces three Pallas kernels of vocalie_tts_tpu/ops/decode_attention.py
+// that share _attend_chunk's math (:150-176):
+//   * K1: decode_attention_stacked's bf16 branch, _kernel_stacked_plain[_new]
+//     (:538, :554), over a bf16 or f32 cache (mode PLAIN);
+//   * K2: its f32-dequant branch, _kernel_stacked_quant[_new] (:512, :530),
+//     over the int8 cache: scores times sm_scale * ks, v times vs before the
+//     PV product (mode DEQUANT);
+//   * B10: decode_attention (:85; _kernel_quant :49, _kernel_plain :67), one
+//     unstacked layer without a current token: scores times sm_scale, then
+//     ks; p times vs after its sum (mode B10; PLAIN without scales).
+// The math: s = q.k in f32, times the score factor, plus the [b, T] bias;
+// softmax over the slots and, where given, the current token's score
+// s_new = sum(q * k_new) * sm_scale; o = p.v + p_new * v_new; o / max(l, 1e-30).
+// JAX takes the max over all slots first; here it is a running max over
+// 128-slot chunks, rescaled (the same result up to f32 rounding).
+//
+// With the current token merged, the wrapper passes the number of slots to
+// read (the valid length): past it every slot is masked, its probability
+// is exactly 0 and its score is below the current token's, so skipping it
+// changes nothing. Without one, every slot is read.
+//
+// Bound: bytes. Each (row, kv head) reads its slots' k and v once (2 or 4
+// bytes an element, int8 plus two scales for K2/B10) and the bias row.
+//
+// Design (first, simple version): one block of 128 threads per
+// (row, kv head). Thread t owns slot t of the current 128-slot chunk and
+// computes its g scores from its k row (16-byte loads); block-wide max/sum
+// reductions run the online softmax; the probabilities go to shared memory
+// and each thread accumulates up to 8 of the g*d outputs, reading the v
+// rows coalesced. No tensor cores, no split over T.
+
+#define ACC_PER_THREAD (MAX_G * MAX_D / NTHREADS)
+
+enum { MODE_PLAIN = 0, MODE_DEQUANT = 1, MODE_B10 = 2 };
+
+template <typename T> struct Vec16;  // 16 bytes of a cache row as floats
+template <> struct Vec16<float> {
+  static constexpr int N = 4;
+  __device__ __forceinline__ static void load(const float* p, float* f) {
+    const float4 u = *reinterpret_cast<const float4*>(p);
+    f[0] = u.x; f[1] = u.y; f[2] = u.z; f[3] = u.w;
+  }
+};
+template <> struct Vec16<__nv_bfloat16> {
+  static constexpr int N = 8;
+  __device__ __forceinline__ static void load(const __nv_bfloat16* p, float* f) {
+    const uint4 u = *reinterpret_cast<const uint4*>(p);
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 x = __bfloat1622float2(h[i]);
+      f[2 * i] = x.x;
+      f[2 * i + 1] = x.y;
+    }
+  }
+};
+template <> struct Vec16<int8_t> {
+  static constexpr int N = 16;
+  __device__ __forceinline__ static void load(const int8_t* p, float* f) {
+    const int4 u = *reinterpret_cast<const int4*>(p);
+    const int8_t* b = reinterpret_cast<const int8_t*>(&u);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) f[i] = (float)b[i];
+  }
+};
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(int8_t x) { return (float)x; }
+
+template <typename CT, typename ST, int MODE>
+__global__ void __launch_bounds__(NTHREADS) attend_f32_kernel(
+    const float* __restrict__ q,        // [BC, g, d]
+    const CT* __restrict__ k_all,       // [L * BC, T, d]; this layer's rows start at row0
+    const CT* __restrict__ v_all,
+    const ST* __restrict__ ks_all,      // [L * BC, T] (MODE != PLAIN)
+    const ST* __restrict__ vs_all,
+    const float* __restrict__ bias,     // [b, T]
+    const float* __restrict__ k_new,    // [BC, d] or null
+    const float* __restrict__ v_new,
+    float* __restrict__ out,            // [BC, g, d]
+    long long row0, int kv, int T, int d, int g, int n_slots, float sm_scale) {
+  __shared__ float q_s[MAX_G * MAX_D];
+  __shared__ float p_s[MAX_G * TBLK];
+  __shared__ float vs_s[TBLK];
+  __shared__ float m_s[MAX_G], l_s[MAX_G], corr_s[MAX_G], snew_s[MAX_G];
+  __shared__ float red[NWARPS];
+
+  const int bc = blockIdx.x;
+  const int row = bc / kv;
+  const int tid = threadIdx.x;
+  const int gd = g * d;
+  for (int i = tid; i < gd; i += NTHREADS) q_s[i] = q[(long long)bc * gd + i];
+  if (tid < g) {
+    m_s[tid] = -INFINITY;
+    l_s[tid] = 0.0f;
+  }
+  float acc[ACC_PER_THREAD];
+#pragma unroll
+  for (int i = 0; i < ACC_PER_THREAD; ++i) acc[i] = 0.0f;
+  __syncthreads();
+
+  const long long lrow = row0 + bc;
+  const CT* kb = k_all + lrow * T * d;
+  const CT* vb = v_all + lrow * T * d;
+  const float* brow = bias + (long long)row * T;
+  constexpr int VN = Vec16<CT>::N;
+
+  for (int c0 = 0; c0 < n_slots; c0 += TBLK) {
+    const int t = c0 + tid;
+    const bool live = t < n_slots;
+    float s[MAX_G];
+#pragma unroll
+    for (int gi = 0; gi < MAX_G; ++gi) s[gi] = 0.0f;
+    float vsc = 1.0f;
+    if (live) {
+      const CT* kr = kb + (long long)t * d;
+      for (int d0 = 0; d0 < d; d0 += VN) {
+        float kx[VN];
+        Vec16<CT>::load(kr + d0, kx);
+#pragma unroll
+        for (int j = 0; j < VN; ++j) {
+#pragma unroll
+          for (int gi = 0; gi < MAX_G; ++gi) {
+            if (gi < g) s[gi] = fmaf(q_s[gi * d + d0 + j], kx[j], s[gi]);
+          }
+        }
+      }
+      const float bb = brow[t];
+      float ksc = 1.0f;
+      if (MODE != MODE_PLAIN) {
+        ksc = to_f32(ks_all[lrow * T + t]);
+        vsc = to_f32(vs_all[lrow * T + t]);
+      }
+#pragma unroll
+      for (int gi = 0; gi < MAX_G; ++gi) {
+        if (MODE == MODE_PLAIN) s[gi] = __fadd_rn(__fmul_rn(s[gi], sm_scale), bb);
+        if (MODE == MODE_DEQUANT) s[gi] = __fadd_rn(__fmul_rn(s[gi], __fmul_rn(sm_scale, ksc)), bb);
+        if (MODE == MODE_B10) s[gi] = __fadd_rn(__fmul_rn(__fmul_rn(s[gi], sm_scale), ksc), bb);
+      }
+    }
+    if (MODE == MODE_DEQUANT) vs_s[tid] = vsc;
+    for (int gi = 0; gi < g; ++gi) {
+      float sv = -INFINITY;
+#pragma unroll
+      for (int gj = 0; gj < MAX_G; ++gj) {
+        if (gj == gi && live) sv = s[gj];
+      }
+      const float m_prev = m_s[gi];
+      const float m_new = fmaxf(m_prev, block_max(sv, red));
+      const float corr = m_prev == -INFINITY ? 0.0f : expf(m_prev - m_new);
+      const float p = live ? expf(sv - m_new) : 0.0f;
+      const float psum = block_sum(p, red);
+      p_s[gi * TBLK + tid] = MODE == MODE_B10 ? __fmul_rn(p, vsc) : p;
+      if (tid == 0) {
+        m_s[gi] = m_new;
+        l_s[gi] = __fadd_rn(__fmul_rn(l_s[gi], corr), psum);
+        corr_s[gi] = corr;
+      }
+    }
+    __syncthreads();
+    const int cnt = min(TBLK, n_slots - c0);
+#pragma unroll
+    for (int i = 0; i < ACC_PER_THREAD; ++i) {
+      const int o = tid + i * NTHREADS;
+      if (o < gd) {
+        const int gi = o / d, dd = o - gi * d;
+        const float* pg = p_s + gi * TBLK;
+        const CT* vcol = vb + (long long)c0 * d + dd;
+        float sum = 0.0f;
+        for (int j = 0; j < cnt; ++j) {
+          float vx = to_f32(vcol[(long long)j * d]);
+          if (MODE == MODE_DEQUANT) vx = __fmul_rn(vx, vs_s[j]);
+          sum = fmaf(pg[j], vx, sum);
+        }
+        acc[i] = __fadd_rn(__fmul_rn(acc[i], corr_s[gi]), sum);
+      }
+    }
+    __syncthreads();
+  }
+
+  // merge the current token's k/v (f32)
+  if (k_new != nullptr) {
+    if (tid < g) {
+      float sn = 0.0f;
+      for (int dd = 0; dd < d; ++dd) sn = fmaf(q_s[tid * d + dd], k_new[(long long)bc * d + dd], sn);
+      snew_s[tid] = __fmul_rn(sn, sm_scale);
+    }
+    __syncthreads();
+  }
+  float* ob = out + (long long)bc * gd;
+#pragma unroll
+  for (int i = 0; i < ACC_PER_THREAD; ++i) {
+    const int o = tid + i * NTHREADS;
+    if (o < gd) {
+      const int gi = o / d, dd = o - gi * d;
+      float l = l_s[gi], a = acc[i];
+      if (k_new != nullptr) {
+        const float m_prev = m_s[gi], s_new = snew_s[gi];
+        const float m_fin = fmaxf(m_prev, s_new);
+        const float corr = expf(m_prev - m_fin);
+        const float p_new = expf(s_new - m_fin);
+        l = __fadd_rn(__fmul_rn(l, corr), p_new);
+        a = __fadd_rn(__fmul_rn(a, corr), __fmul_rn(p_new, v_new[(long long)bc * d + dd]));
+      }
+      ob[o] = a / fmaxf(l, 1e-30f);
+    }
+  }
+}
+
+template <typename CT, typename ST, int MODE>
+static int launch_attend_f32(const void* q, const void* k_all, const void* v_all,
+                             const void* ks, const void* vs, const void* bias,
+                             const void* k_new, const void* v_new, void* out,
+                             long long row0, int BC, int kv, int T, int d, int g, int n_slots,
+                             float sm_scale, cudaStream_t stream) {
+  attend_f32_kernel<CT, ST, MODE><<<BC, NTHREADS, 0, stream>>>(
+      (const float*)q, (const CT*)k_all, (const CT*)v_all, (const ST*)ks, (const ST*)vs,
+      (const float*)bias, (const float*)k_new, (const float*)v_new, (float*)out,
+      row0, kv, T, d, g, n_slots, sm_scale);
+  return (int)cudaGetLastError();
+}
+
+// cache: 0 f32, 1 bf16, 2 int8; scale: 0 none, 1 bf16, 2 f32;
+// mode: 0 PLAIN (float cache, no scales), 1 DEQUANT, 2 B10 (int8 + scales)
+extern "C" int vt_attend_f32(
+    const void* q, const void* k_all, const void* v_all, const void* k_scale,
+    const void* v_scale, const void* bias, const void* k_new, const void* v_new, void* out,
+    int cache, int scale, int mode, long long row0, int b, int kv, int g, int d, int T,
+    int n_slots, float sm_scale, void* stream) {
+  if (g < 1 || g > MAX_G || d < 16 || d > MAX_D || d % 16 != 0 || n_slots < 1 || n_slots > T ||
+      (k_new == nullptr) != (v_new == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int BC = b * kv;
+  cudaStream_t st = (cudaStream_t)stream;
+#define VT_ATTEND(CT, ST, MODE) \
+  launch_attend_f32<CT, ST, MODE>(q, k_all, v_all, k_scale, v_scale, bias, k_new, v_new, out, \
+                                  row0, BC, kv, T, d, g, n_slots, sm_scale, st)
+  if (mode == MODE_PLAIN && scale == 0) {
+    if (cache == 0) return VT_ATTEND(float, float, MODE_PLAIN);
+    if (cache == 1) return VT_ATTEND(__nv_bfloat16, float, MODE_PLAIN);
+  } else if (cache == 2 && mode == MODE_DEQUANT && scale == 1) {
+    return VT_ATTEND(int8_t, __nv_bfloat16, MODE_DEQUANT);
+  } else if (cache == 2 && mode == MODE_B10) {
+    if (scale == 1) return VT_ATTEND(int8_t, __nv_bfloat16, MODE_B10);
+    if (scale == 2) return VT_ATTEND(int8_t, float, MODE_B10);
+  }
+#undef VT_ATTEND
+  return (int)cudaErrorInvalidValue;
 }

@@ -42,7 +42,7 @@ from vocalie_tts_tpu_torch.models.common.ar_runtime import (
     to_pcm16_wire,
 )
 from vocalie_tts_tpu_torch.models.common.token2wav import Stage2Noise, draw_stage2_noise
-from vocalie_tts_tpu_torch.models.common.transformer import check_supported, decode_step, prefill
+from vocalie_tts_tpu_torch.models.common.transformer import decode_step, prefill
 from vocalie_tts_tpu_torch.models.common.weights import checkpoint_exists, load_meta, load_params
 from vocalie_tts_tpu_torch.ops.generate import GenerateConfig, generate_tokens
 from vocalie_tts_tpu_torch.ops.kv_cache import pick_bucket, round_cache_len
@@ -89,7 +89,6 @@ class ChatterboxRuntime:
         ``seed`` where a checkpoint is absent or ``force_init``."""
         dev = resolve_device(device)
         cfg = apply_runtime_env(SCALES[_scale_from_env()])
-        check_supported(cfg.lm)
         weights_dir = Path(assets_dir) / "weights"
         if not force_init:
             meta = load_meta(weights_dir, "t3")

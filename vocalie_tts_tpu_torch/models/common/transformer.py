@@ -14,11 +14,18 @@ RMSNorm, ``qk_norm``) and the GPT-2 one of XTTS
 (``norm_type="layer"``: LayerNorm with bias; ``mlp_type="gelu"``: fc →
 tanh-GELU → proj; ``bias``: o-proj and MLP biases; ``pos_type="learned"``:
 an absolute position table, no RoPE; ``head_bias``: a bias on the head).
-Both run the int8 KV cache read by the decode-attention kernel (B1) and
-appended by the cache-update kernel (B5), flash attention (B6) in
-prefill at prompt buckets >= 512, and, with ``dense_kernel`` (the JAX
-package's default with int8 weights), the int8-native dense decode
-kernels of ``_dense_dispatch``: for SwiGLU the layer-0 norm+qkv (B3),
+Both run every KV cache and decode attention that the JAX package's
+``apply_runtime_env`` can give: the ``cfg.dtype`` cache without scales
+(the default), attended in plain PyTorch (JAX's XLA branch) or, with
+``decode_kernel``, by the f32 decode-attention kernel (K1), and appended
+by slice assignment or, with the decode or dense kernels on, by the
+no-scale cache-update kernel (K4); or the int8 cache (``kv_quant``) with
+its scales, attended in plain PyTorch or by the int8 decode-attention
+kernel (B1) and appended by slice assignment or the cache-update kernel
+(B5). Prefill runs flash attention (B6) at prompt buckets >= 512, and,
+with ``dense_kernel`` (the JAX package's default with int8 weights), the
+decode step runs the int8-native dense decode kernels of
+``_dense_dispatch``: for SwiGLU the layer-0 norm+qkv (B3),
 the fused layer tail + next qkv (B2), with ``VOCALIE_MEGATAIL=0`` B3 and
 the tail alone (B8a) per layer, with ``VOCALIE_MEGALAYER=1`` the whole
 layer (attention, o-projection, tail, next qkv) as one launch (B12), or,
@@ -46,7 +53,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from vocalie_tts_tpu_torch.ops.cache_update import cache_append_stacked
+from vocalie_tts_tpu_torch.ops.cache_update import cache_append_kv_stacked, cache_append_stacked
 from vocalie_tts_tpu_torch.device import div_const
 from vocalie_tts_tpu_torch.ops.decode_dense import (
     dense_int8_stacked,
@@ -84,9 +91,10 @@ class TransformerConfig:
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
     #: int8 KV cache with per-(layer, row, head, position) bf16 scales
+    #: (else the cache holds ``dtype`` and no scales)
     kv_quant: bool = False
-    #: decode attention through the int8 kernel (B1) and the in-place
-    #: cache append (B5)
+    #: decode attention through a kernel (B1 on the int8 cache, K1 on
+    #: the float cache) and the in-place cache append (B5, K4)
     decode_kernel: bool = False
     #: int8-native dense decode kernels: B3 norm+qkv, B2 layer tail + next
     #: qkv, B4 lm_head; inert without int8 weights or on ineligible shapes
@@ -125,42 +133,37 @@ class TransformerConfig:
         return self.n_kv_heads * self.d_head
 
 
-def check_supported(cfg: TransformerConfig) -> None:
-    """Refuse configurations the port does not carry, instead of running
-    something other than what the JAX package would run. The dense
-    path's knobs are refused in ``_dense_dispatch``, where the shapes say
-    whether the JAX package would take it."""
-    if not (cfg.kv_quant and cfg.decode_kernel):
-        raise NotImplementedError(
-            "the port serves the int8 KV cache with the decode-attention "
-            "kernel only (VOCALIE_KV_INT8=1, VOCALIE_DECODE_KERNEL unset or 1)"
-        )
-
-
 @dataclasses.dataclass
 class StackedKVCache:
-    """All layers' int8 caches stacked on a leading [n_layers] axis, k and
-    v split. Positions [0, prompt_pad) hold the padded prompt; decode
-    tokens land at the uniform slot ``prompt_pad + n_decoded``. Per-row
-    validity comes from ``prompt_lengths``; RoPE uses logical positions.
-    ``n_decoded`` and ``prompt_pad`` are host integers."""
+    """All layers' caches stacked on a leading [n_layers] axis, k and v
+    split: int8 with bf16 scales (``kv_quant``), or the config's dtype
+    without scales (JAX ``StackedKVCache.create``, :142-175). Positions
+    [0, prompt_pad) hold the padded prompt; decode tokens land at the
+    uniform slot ``prompt_pad + n_decoded``. Per-row validity comes from
+    ``prompt_lengths``; RoPE uses logical positions. ``n_decoded`` and
+    ``prompt_pad`` are host integers."""
 
-    k: torch.Tensor        # [L, b, kv, T, d] int8
-    v: torch.Tensor        # [L, b, kv, T, d] int8
-    k_scale: torch.Tensor  # [L, b, kv, T] bf16
-    v_scale: torch.Tensor  # [L, b, kv, T] bf16
+    k: torch.Tensor        # [L, b, kv, T, d] int8, or the config's dtype
+    v: torch.Tensor        # [L, b, kv, T, d]
+    k_scale: Optional[torch.Tensor]  # [L, b, kv, T] bf16 (int8 cache), else None
+    v_scale: Optional[torch.Tensor]
     prompt_lengths: torch.Tensor  # [b] int32
     n_decoded: int = 0
     prompt_pad: int = 0
 
     @classmethod
-    def create(cls, n_layers, batch, kv_heads, max_len, head_dim, device) -> "StackedKVCache":
+    def create(cls, n_layers, batch, kv_heads, max_len, head_dim, device,
+               dtype: torch.dtype = torch.bfloat16, quantized: bool = True) -> "StackedKVCache":
         shape = (n_layers, batch, kv_heads, max_len, head_dim)
+        vals = torch.int8 if quantized else dtype
+        scales = ((torch.zeros(shape[:-1], dtype=torch.bfloat16, device=device),
+                   torch.zeros(shape[:-1], dtype=torch.bfloat16, device=device))
+                  if quantized else (None, None))
         return cls(
-            k=torch.zeros(shape, dtype=torch.int8, device=device),
-            v=torch.zeros(shape, dtype=torch.int8, device=device),
-            k_scale=torch.zeros(shape[:-1], dtype=torch.bfloat16, device=device),
-            v_scale=torch.zeros(shape[:-1], dtype=torch.bfloat16, device=device),
+            k=torch.zeros(shape, dtype=vals, device=device),
+            v=torch.zeros(shape, dtype=vals, device=device),
+            k_scale=scales[0],
+            v_scale=scales[1],
             prompt_lengths=torch.zeros((batch,), dtype=torch.int32, device=device),
         )
 
@@ -448,8 +451,11 @@ def _dense_dispatch(layers: Params, cfg: TransformerConfig, batch: int, max_len:
     conditions of ``maybe_head_stack_qkv``, ``:422-464``, which the JAX
     generate programs apply at batch 1, for the SwiGLU family without
     qk-norm only; B7 goes before B12, as the JAX fused step returns before
-    the layer scan), with the int8 cache and decode kernel. Raises where
-    the JAX package would run a kernel the port lacks (B9d)."""
+    the layer scan). B7 and B12 also need the int8 cache and the decode
+    kernel, as in JAX (``kv_packed`` :116, ``maybe_head_stack_qkv``
+    :441-442, ``use_megalayer`` :833-841, ``use_fused_step`` :847-857): with
+    a bf16 cache or ``VOCALIE_DECODE_KERNEL=0`` the megatail runs instead.
+    Raises where the JAX package would run a kernel the port lacks (B9d)."""
     dense = (cfg.dense_kernel and _is_i8(layers.get("wqkv")) and _is_i8(layers.get("wo"))
              and layers["wqkv"]["q"].shape[2] % 128 == 0 and cfg.d_model % 128 == 0)
     if not dense:
@@ -470,14 +476,15 @@ def _dense_dispatch(layers: Params, cfg: TransformerConfig, batch: int, max_len:
         return DENSE_FNS
     if not mega:
         return TAIL
-    packed = 2 * cfg.d_head == 128   # the JAX cache's lane-packed k|v
+    int8_attn = cfg.decode_kernel and cfg.kv_quant
+    packed = int8_attn and 2 * cfg.d_head == 128   # the JAX cache's lane-packed k|v
     # at batch 1 the JAX generate programs install the head-stacked qkv
     # (maybe_head_stack_qkv) that sends decode_step to the whole-step kernel
     if (batch == 1 and cfg.n_heads == cfg.n_kv_heads and packed and max_len % 128 == 0
             and cfg.pos_type == "rope" and not cfg.qk_norm
             and bool_env("VOCALIE_FUSED_STEP", True)):
         return FUSED_STEP
-    if ((packed or cfg.d_head % 128 == 0) and max_len % 128 == 0
+    if (int8_attn and (packed or cfg.d_head % 128 == 0) and max_len % 128 == 0
             and bool_env("VOCALIE_MEGALAYER")):
         return MEGALAYER
     return MEGATAIL
@@ -583,13 +590,13 @@ def prefill(
     inputs_embeds: Optional[torch.Tensor] = None,
     cache_len: Optional[int] = None,
 ) -> Tuple[torch.Tensor, StackedKVCache]:
-    """Encode the prompt, fill a fresh int8 cache, return last-position
-    logits. Attention runs the flash kernel at seq >= 512 and the naive
-    f32 softmax below (the JAX package's split: no kernel there). With
-    learned positions, caller-built ``inputs_embeds`` carry their own
-    positions (XTTS adds its text and mel tables); token prompts get the
-    table's first ``s`` rows."""
-    check_supported(cfg)
+    """Encode the prompt, fill a fresh cache (int8 with scales under
+    ``kv_quant``, else k/v in the cache's dtype: JAX :672-695), return
+    last-position logits. Attention runs the flash kernel at seq >= 512 and
+    the naive f32 softmax below (the JAX package's split: no kernel
+    there). With learned positions, caller-built ``inputs_embeds`` carry
+    their own positions (XTTS adds its text and mel tables); token prompts
+    get the table's first ``s`` rows."""
     x = params["tok_emb"][tokens] if inputs_embeds is None else inputs_embeds
     b, s = x.shape[:2]
     dev = x.device
@@ -601,19 +608,23 @@ def prefill(
         x = x + params["pos_emb"][:s][None].to(x.dtype)
     attn_fn = flash_attention if s >= 512 else reference_attention
 
-    cache = StackedKVCache.create(cfg.n_layers, b, cfg.n_kv_heads,
-                                  cache_len or cfg.max_seq_len, cfg.d_head, dev)
+    cache = StackedKVCache.create(cfg.n_layers, b, cfg.n_kv_heads, cache_len or cfg.max_seq_len,
+                                  cfg.d_head, dev, dtype=cfg.dtype, quantized=cfg.kv_quant)
     for l in range(cfg.n_layers):
         layer = _layer(params["layers"], l)
         q, k, v = _block_qkv(layer, x, cfg, cos, sin)
         attn = attn_fn(q.contiguous(), k.contiguous(), v.contiguous(), causal=True)
         x = _block_tail(layer, x, attn, cfg)
-        k_q, k_s = _quantize_kv(k)
-        v_q, v_s = _quantize_kv(v)
-        cache.k[l, :, :, :s] = k_q
-        cache.v[l, :, :, :s] = v_q
-        cache.k_scale[l, :, :, :s] = k_s
-        cache.v_scale[l, :, :, :s] = v_s
+        if cfg.kv_quant:
+            k_q, k_s = _quantize_kv(k)
+            v_q, v_s = _quantize_kv(v)
+            cache.k[l, :, :, :s] = k_q
+            cache.v[l, :, :, :s] = v_q
+            cache.k_scale[l, :, :, :s] = k_s
+            cache.v_scale[l, :, :, :s] = v_s
+        else:
+            cache.k[l, :, :, :s] = k.to(cache.k.dtype)
+            cache.v[l, :, :, :s] = v.to(cache.v.dtype)
     cache.prompt_lengths = lengths.to(device=dev, dtype=torch.int32)
     cache.prompt_pad = s
 
@@ -649,8 +660,15 @@ def decode_step(
     path runs B4 for the qkv and o-projections and B8b (or ``_qdot``) for
     the MLP. Learned positions add the table's row ``n_decoded + 1``
     (``decode_relative``) or the row's length (``absolute``) to the token
-    embedding."""
-    check_supported(cfg)
+    embedding.
+
+    Attention per layer: with ``decode_kernel`` a kernel reads the cache in
+    place (``decode_attention_stacked``: B1 on the int8 cache, K1 on the
+    float cache); without, JAX's XLA branch in plain PyTorch
+    (``_xla_attention``). The append: ``_decode_step_finish``. What the JAX
+    package would run and the port lacks raises where the path is chosen:
+    the int8 decode attention over a cache that is not a 128-multiple
+    (``decode_attention_stacked``) and B9d (``_dense_dispatch``)."""
     b = token.shape[0]
     x = params["tok_emb"][token][:, None, :]  # [b, 1, d_model]
     cos = sin = None
@@ -710,10 +728,13 @@ def decode_step(
             k_news.append(kn)
             v_news.append(vn)
             continue
-        attn = decode_attention_stacked(
-            qg, cache.k, cache.v, bias2d, l, cache.k_scale, cache.v_scale, kn, vn,
-            valid_len=write_pos, sm_scale=sm_scale,
-        )
+        if cfg.decode_kernel:
+            attn = decode_attention_stacked(
+                qg, cache.k, cache.v, bias2d, l, cache.k_scale, cache.v_scale, kn, vn,
+                valid_len=write_pos, sm_scale=sm_scale, int8_dots=cfg.kv_quant,
+            )
+        else:
+            attn = _xla_attention(cache, l, q, k_new, v_new, bias2d, sm_scale)
         if gelu:
             # the f32 attention output goes in as it is (no cast to x.dtype)
             tail = (attn.reshape(b, cfg.q_dim), x[:, 0], lw["wo"]["q"], lw["wo"]["s"], lw["bo"],
@@ -745,6 +766,36 @@ def decode_step(
         v_news.append(vn)
     return _decode_step_finish(params, cfg, cache, x, torch.stack(k_news), torch.stack(v_news),
                                write_pos)
+
+
+def _xla_attention(cache, l, q, k_new, v_new, bias2d, sm_scale):
+    """JAX's XLA decode-attention branch (``transformer.py:1028-1059``) in
+    plain PyTorch, on layer ``l``: both products take f32 sums of operands
+    in the activation dtype (q ``[b, H, 1, d]`` and the current token's k/v
+    ``[b, kv, 1, d]`` come in it; the cache is cast to it), as JAX's
+    ``preferred_element_type``; the int8 cache's scales fold into the
+    scores and the probabilities; p is cast to the activation dtype before
+    the PV product; the current token's column merges flash-style in f32.
+    The f32 products run without TF32 (PyTorch's CUDA matmul default).
+    Returns ``[b, kv, g, d]`` f32."""
+    f32 = torch.float32
+    b, H, _, d = q.shape
+    kv = k_new.shape[1]
+    dt = q.dtype
+    qg = q.reshape(b, kv, H // kv, d).to(f32)
+    s = torch.matmul(qg, cache.k[l].to(dt).to(f32).transpose(-1, -2)) * sm_scale
+    if cache.k_scale is not None:
+        s = s * cache.k_scale[l][:, :, None, :].to(f32)
+    s = s + bias2d[:, None, None, :]
+    s_new = (qg * k_new[:, :, 0].to(f32)[:, :, None, :]).sum(-1, keepdim=True) * sm_scale
+    m = torch.maximum(s.amax(-1, keepdim=True), s_new)
+    p = torch.exp(s - m)
+    p_new = torch.exp(s_new - m)
+    denom = p.sum(-1, keepdim=True) + p_new
+    if cache.v_scale is not None:
+        p = p * cache.v_scale[l][:, :, None, :].to(f32)
+    attn = torch.matmul(p.to(dt).to(f32), cache.v[l].to(dt).to(f32))
+    return (attn + p_new * v_new[:, :, 0].to(f32)[:, :, None, :]) / denom
 
 
 def _qkv_lnorm(x, lw, cfg, l):
@@ -783,22 +834,44 @@ def _fused_step(params, cfg, cache, x, qkv_raw, cos, sin, bias2d, write_pos, sm_
 
 
 def _decode_step_finish(params, cfg, cache, x, k_news, v_news, write_pos):
-    """Quantize the step's [L, b, kv, d] k/v, append them in place at
-    ``write_pos`` (one kernel launch for all layers), final norm + head."""
-    k_q, k_s = _quantize_kv(k_news)
-    v_q, v_s = _quantize_kv(v_news)
-    cache_append_stacked(cache.k, cache.v, cache.k_scale, cache.v_scale,
-                         k_q, v_q, k_s, v_s, write_pos)
+    """Append the step's [L, b, kv, d] k/v in place at ``write_pos`` (JAX
+    :1148-1220): quantized with their scales on the int8 cache, cast to the
+    cache's dtype otherwise; with the decode or dense kernels on, one kernel
+    launch for all layers (B5 with scales, K4 without), else JAX's
+    ``dynamic_update_slice`` as slice assignment. Then final norm + head."""
+    pallas_write = cfg.decode_kernel or cfg.dense_kernel
+    if cfg.kv_quant:
+        k_q, k_s = _quantize_kv(k_news)
+        v_q, v_s = _quantize_kv(v_news)
+        if pallas_write:
+            cache_append_stacked(cache.k, cache.v, cache.k_scale, cache.v_scale,
+                                 k_q, v_q, k_s, v_s, write_pos)
+        else:
+            for arr, new in ((cache.k, k_q), (cache.v, v_q), (cache.k_scale, k_s),
+                             (cache.v_scale, v_s)):
+                arr[:, :, :, write_pos] = new
+    else:
+        k_c, v_c = k_news.to(cache.k.dtype), v_news.to(cache.v.dtype)
+        if pallas_write:
+            cache_append_kv_stacked(cache.k, cache.v, k_c, v_c, write_pos)
+        else:
+            cache.k[:, :, :, write_pos] = k_c
+            cache.v[:, :, :, write_pos] = v_c
     cache.n_decoded += 1
+    decode_step.steps += 1
     x = _norm(x, cfg, params["final_norm"], params.get("final_norm_b"))
     return _lm_head_logits(x[:, 0], params, cfg), cache
 
+
+#: decode steps run, every path's counted where it ends (read beside the
+#: kernels' launch counters: a path without an append kernel has no launch
+#: to count its steps by)
+decode_step.steps = 0
 
 __all__ = [
     "TransformerConfig",
     "StackedKVCache",
     "MASK_VALUE",
-    "check_supported",
     "init_params",
     "rms_norm",
     "rope_angles",

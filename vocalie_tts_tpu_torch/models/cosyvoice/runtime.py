@@ -45,7 +45,6 @@ from vocalie_tts_tpu_torch.models.common.ar_runtime import (
     to_pcm16_wire,
 )
 from vocalie_tts_tpu_torch.models.common.token2wav import Stage2Noise
-from vocalie_tts_tpu_torch.models.common.transformer import check_supported
 from vocalie_tts_tpu_torch.models.common.weights import checkpoint_exists, load_meta, load_params
 from vocalie_tts_tpu_torch.models.cosyvoice.model import (
     TOKENS_PER_SECOND,
@@ -118,7 +117,6 @@ class CosyVoiceRuntime:
         is absent or ``force_init``."""
         dev = resolve_device(device)
         cfg = apply_runtime_env(SCALES[os.environ.get("VOCALIE_MODEL_SCALE", "full")])
-        check_supported(cfg.lm)
         weights_dir = Path(assets_dir) / "weights"
         if not force_init:
             meta = load_meta(weights_dir, "lm")

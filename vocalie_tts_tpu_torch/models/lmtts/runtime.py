@@ -42,7 +42,7 @@ from vocalie_tts_tpu_torch.models.common.ar_runtime import (
     to_pcm16_wire,
 )
 from vocalie_tts_tpu_torch.models.common.speaker import embed_reference_audio
-from vocalie_tts_tpu_torch.models.common.transformer import check_supported, unfuse_decode_weights
+from vocalie_tts_tpu_torch.models.common.transformer import unfuse_decode_weights
 from vocalie_tts_tpu_torch.models.common.weights import (
     checkpoint_exists,
     load_meta,
@@ -117,7 +117,6 @@ class LMTTSRuntime:
 
         dev = resolve_device(device)
         cfg = apply_runtime_env(SCALES[os.environ.get("VOCALIE_MODEL_SCALE", "full")])
-        check_supported(cfg.lm)
         if os.environ.get("VOCALIE_SERVE_MESH", "").strip():
             raise NotImplementedError(
                 "VOCALIE_SERVE_MESH serves the LM over a dp x tp mesh with the decode kernels "

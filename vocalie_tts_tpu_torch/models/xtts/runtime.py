@@ -43,7 +43,7 @@ from vocalie_tts_tpu_torch.models.common.ar_runtime import (
     to_pcm16_wire,
 )
 from vocalie_tts_tpu_torch.models.common.speaker import embed_reference_audio
-from vocalie_tts_tpu_torch.models.common.transformer import check_supported, unfuse_decode_weights
+from vocalie_tts_tpu_torch.models.common.transformer import unfuse_decode_weights
 from vocalie_tts_tpu_torch.models.common.weights import (
     checkpoint_exists,
     load_meta,
@@ -123,7 +123,6 @@ class XTTSRuntime:
         ``seed`` where a checkpoint is absent or ``force_init``."""
         dev = resolve_device(device)
         cfg = apply_runtime_env(SCALES[os.environ.get("VOCALIE_MODEL_SCALE", "full")])
-        check_supported(cfg.lm)
         weights_dir = Path(assets_dir) / "weights"
         if not force_init:
             _refuse_published(Path(assets_dir), weights_dir, cfg)

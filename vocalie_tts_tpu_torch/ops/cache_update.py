@@ -1,12 +1,16 @@
-"""In-place decode-step KV-cache append (kernel B5) and its plain version.
+"""In-place decode-step KV-cache append and its plain versions: the int8
+cache with its scales (kernel B5) and a cache without scales (K4).
 
 Counterpart of ``vocalie_tts_tpu/ops/cache_update.py::cache_append_stacked``
-on the split k/v + scales branch. The cache is UPDATED IN PLACE: the
-four cache tensors passed in are written at slot ``pos`` and returned.
+on its split branches: with scales (``_write_kv_scales_kernel``, B5:
+:func:`cache_append_stacked`) and without (``_write_kv_kernel``, K4, the
+bf16 or f32 cache: :func:`cache_append_kv_stacked`). The JAX packed branches
+are not copied: the port keeps k and v split. The cache is UPDATED IN
+PLACE: the cache tensors passed in are written at slot ``pos`` and
+returned.
 
-On a CUDA tensor the wrapper launches ``csrc/cache_update.cu``; on a
-CPU tensor it runs :func:`cache_append_plain`. The two write the same
-bytes.
+On a CUDA tensor each wrapper launches ``csrc/cache_update.cu``; on a CPU
+tensor it runs its plain version. The two write the same bytes.
 """
 
 from __future__ import annotations
@@ -76,7 +80,55 @@ def cache_append_stacked(
     return k_all, v_all, k_scale, v_scale
 
 
-#: launches of the CUDA kernel (the plain version is not counted)
-cache_append_stacked.launches = 0
+_KV_ARGTYPES = [_build.P] * 4 + [_build.LL, _build.I, _build.I, _build.I, _build.P]
 
-__all__ = ["cache_append_stacked", "cache_append_plain"]
+
+def cache_append_kv_plain(k_all, v_all, k_new, v_new, pos: int):
+    k_all[:, :, :, pos, :] = k_new
+    v_all[:, :, :, pos, :] = v_new
+    return k_all, v_all
+
+
+def cache_append_kv_stacked(
+    k_all: torch.Tensor,     # [L, b, kv, T, d] bf16 or f32 — written in place
+    v_all: torch.Tensor,
+    k_new: torch.Tensor,     # [L, b, kv, d] the cache's dtype
+    v_new: torch.Tensor,
+    pos: int,
+):
+    """K4: write one step's k/v at slot ``pos`` of every layer of a cache
+    without scales. Returns ``(k_all, v_all)`` (the same tensors)."""
+    L, b, kv, T, d = k_all.shape
+    if not 0 <= int(pos) < T:
+        raise ValueError(f"write position {pos} outside the cache length {T}")
+    if k_all.device.type == "cpu":
+        return cache_append_kv_plain(k_all, v_all, k_new, v_new, int(pos))
+    if k_all.device.type != "cuda":
+        raise ValueError(f"unsupported device {k_all.device}")
+    if k_all.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"k_all: expected a bf16 or f32 cache, got {k_all.dtype}")
+    for name, t, shape in (("k_all", k_all, (L, b, kv, T, d)), ("v_all", v_all, (L, b, kv, T, d)),
+                           ("k_new", k_new, (L, b, kv, d)), ("v_new", v_new, (L, b, kv, d))):
+        if t.device != k_all.device or t.dtype != k_all.dtype or tuple(t.shape) != shape:
+            raise ValueError(
+                f"{name}: expected {k_all.dtype} {shape} on {k_all.device}, got "
+                f"{t.dtype} {tuple(t.shape)} on {t.device}"
+            )
+        if not t.is_contiguous() or t.data_ptr() % 4:
+            raise ValueError(f"{name} must be contiguous and 4-byte aligned")
+    fn = _build.kernel("vt_cache_append_kv", _KV_ARGTYPES)
+    cache_append_kv_stacked.launches += 1
+    rc = fn(
+        k_all.data_ptr(), v_all.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+        L * b * kv, T, d * k_all.element_size(), int(pos), _build.stream_ptr(k_all),
+    )
+    _build.check(rc, "vt_cache_append_kv")
+    return k_all, v_all
+
+
+#: launches of the CUDA kernels (the plain versions are not counted)
+cache_append_stacked.launches = 0
+cache_append_kv_stacked.launches = 0
+
+__all__ = ["cache_append_stacked", "cache_append_plain", "cache_append_kv_stacked",
+           "cache_append_kv_plain"]

@@ -1,21 +1,35 @@
-"""q_len == 1 decode attention over the stacked int8 KV cache (kernel B1)
-and its plain version.
+"""q_len == 1 decode attention over the KV cache: the int8 T-blocked
+kernel (B1), its f32 branches over a bf16/f32 cache (K1) and over the
+int8 cache dequantized (K2), the single-layer kernel (B10), and their plain
+versions.
 
-Counterpart of ``vocalie_tts_tpu/ops/decode_attention.py::
-decode_attention_stacked(..., int8_dots=True, valid_len=...)`` — the
-int8 T-blocked branches (``_kernel_stacked_int8dots_packed_tblk`` /
-``_kernel_stacked_int8dots_tblk``), whose numbers are identical. The
-port keeps k and v split (``[L, b, kv, T, d]`` int8 each, bf16 scales
-``[L, b, kv, T]``); the TPU's lane-packed k|v is not copied.
+Counterpart of ``vocalie_tts_tpu/ops/decode_attention.py``:
 
+- :func:`decode_attention_stacked` takes JAX's branch choice
+  (``decode_attention_stacked`` :565-854): ``int8_dots`` → the int8 kernel
+  (:func:`decode_attention_int8_stacked`, B1: the T-blocked branches
+  ``_kernel_stacked_int8dots_packed_tblk`` / ``_kernel_stacked_int8dots_tblk``,
+  whose numbers are identical; the non-T-blocked ``_kernel_stacked_int8dots``,
+  which JAX runs for a cache that is not a 128-multiple or without
+  ``k_new`` / ``valid_len``, is not ported and raises); scales without
+  ``int8_dots`` → the f32-dequant branch (:func:`decode_attention_dequant_stacked`,
+  K2: ``_kernel_stacked_quant[_new]``); no scales → the float-cache branch
+  (:func:`decode_attention_float_stacked`, K1: ``_kernel_stacked_plain[_new]``);
+- :func:`decode_attention` is B10 (``decode_attention`` :85: one unstacked
+  layer, no current token, ``_kernel_quant`` / ``_kernel_plain``).
+
+The port keeps k and v split (``[L, b, kv, T, d]`` each; the int8 cache's
+bf16 scales ``[L, b, kv, T]``); the TPU's lane-packed k|v is not copied.
 The cache is read in place and never written here: the current token's
 k/v (``k_new``/``v_new``) join the softmax in f32 at the end.
 
-On a CUDA tensor the wrapper launches ``csrc/decode_attention.cu``; on a
-CPU tensor it runs :func:`decode_attention_plain`.
+On a CUDA tensor each wrapper launches ``csrc/decode_attention.cu``; on a
+CPU tensor it runs its plain version.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -82,7 +96,7 @@ def decode_attention_plain(q, k_all, v_all, bias, layer: int, k_scale, v_scale,
     return (o / torch.clamp(l_fin, min=1e-30)).reshape(b, kv, g, d)
 
 
-def decode_attention_stacked(
+def decode_attention_int8_stacked(
     q: torch.Tensor,          # [b, kv, g, d] f32
     k_all: torch.Tensor,      # [L, b, kv, T, d] int8
     v_all: torch.Tensor,      # [L, b, kv, T, d] int8
@@ -96,7 +110,8 @@ def decode_attention_stacked(
     valid_len: int,           # cached slots in use (blocks past it are skipped)
     sm_scale: float,
 ) -> torch.Tensor:
-    """Attention output ``[b, kv, g, d]`` f32 for layer ``layer``."""
+    """B1: attention output ``[b, kv, g, d]`` f32 for layer ``layer`` of the
+    int8 cache, q and p re-quantized to int8 per 128-slot block."""
     L, b, kv, T, d = k_all.shape
     g = q.shape[2]
     if T % TBLK:
@@ -129,7 +144,7 @@ def decode_attention_stacked(
             raise ValueError(f"{name} must be contiguous")
     out = torch.empty((b, kv, g, d), dtype=torch.float32, device=q.device)
     fn = _build.kernel("vt_decode_attention_int8", _ARGTYPES)
-    decode_attention_stacked.launches += 1
+    decode_attention_int8_stacked.launches += 1
     rc = fn(
         q.data_ptr(), k_all.data_ptr(), v_all.data_ptr(),
         k_scale.data_ptr(), v_scale.data_ptr(), bias.data_ptr(),
@@ -142,6 +157,260 @@ def decode_attention_stacked(
 
 
 #: launches of the CUDA kernel (the plain version is not counted)
-decode_attention_stacked.launches = 0
+decode_attention_int8_stacked.launches = 0
 
-__all__ = ["decode_attention_stacked", "decode_attention_plain", "n_valid_blocks", "TBLK"]
+
+
+# ── the f32 branches: K1 (float cache), K2 (int8 cache dequantized), B10 ──
+
+#: the f32 kernel's modes: no scales (K1, B10 plain), the stacked
+#: dequantizing branch (K2: ``s · (sm_scale · ks)``, ``v · vs``), B10's
+#: ``_kernel_quant`` (``(s · sm_scale) · ks``, ``p · vs``)
+_MODE = {"plain": 0, "dequant": 1, "b10": 2}
+_CACHE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_SCALE_CODE = {None: 0, torch.bfloat16: 1, torch.float32: 2}
+_F32_ARGTYPES = [_build.P] * 9 + [_build.I] * 3 + [_build.LL] + [_build.I] * 6 + [_build.F,
+                                                                                  _build.P]
+
+
+def _attend_plain(q, k, v, bias, factors, sm_scale, k_new=None, v_new=None, p_scale=None):
+    """JAX's ``_attend_chunk`` (:150-176) over ``[b, kv, ...]``: q ``[b, kv,
+    g, d]`` f32, k/v ``[b, kv, T, d]`` (dequantized f32 for K2), bias ``[b,
+    T]``; the scores are multiplied by each of ``factors`` in turn
+    (``sm_scale``, ``sm_scale · ks`` as ``[b, kv, 1, T]``, or B10's
+    ``sm_scale`` then ``ks``); ``p_scale`` (B10's ``vs``) multiplies p after
+    its sum, before the PV product. Returns ``[b, kv, g, d]`` f32."""
+    f32 = torch.float32
+    s = torch.matmul(q, k.to(f32).transpose(-1, -2))           # [b, kv, g, T]
+    for f in factors:
+        s = s * f
+    s = s + bias.to(f32)[:, None, None, :]
+    m = s.amax(-1, keepdim=True)
+    if k_new is not None:
+        s_new = (q * k_new.to(f32)[:, :, None, :]).sum(-1, keepdim=True) * sm_scale
+        m = torch.maximum(m, s_new)
+    p = torch.exp(s - m)
+    lsum = p.sum(-1, keepdim=True)
+    if p_scale is not None:
+        p = p * p_scale
+    o = torch.matmul(p, v.to(f32))
+    if k_new is not None:
+        p_new = torch.exp(s_new - m)
+        lsum = lsum + p_new
+        o = o + p_new * v_new.to(f32)[:, :, None, :]
+    return o / torch.clamp(lsum, min=1e-30)
+
+
+def _n_slots(T: int, k_new, valid_len) -> int:
+    """Slots the f32 branches read. With the current token merged (``k_new``)
+    a masked slot's probability is exactly 0 and its score is below the
+    current token's, so the slots at and past ``valid_len`` (all masked in
+    the decode step) add nothing and are skipped; otherwise every slot is
+    read (with every slot masked, the softmax spreads over all of them)."""
+    if k_new is None or valid_len is None:
+        return T
+    return min(max(int(valid_len), 1), T)
+
+
+def decode_attention_float_plain(q, k_all, v_all, bias, layer: int, k_new=None, v_new=None,
+                                 valid_len=None, *, sm_scale: float):
+    """K1's plain version: JAX ``_kernel_stacked_plain[_new]`` on a bf16 or
+    f32 cache."""
+    n = _n_slots(k_all.shape[3], k_new, valid_len)
+    return _attend_plain(q.float(), k_all[layer][:, :, :n], v_all[layer][:, :, :n],
+                         bias[:, :n], (sm_scale,), sm_scale, k_new, v_new)
+
+
+def decode_attention_dequant_plain(q, k_all, v_all, bias, layer: int, k_scale, v_scale,
+                                   k_new=None, v_new=None, valid_len=None, *, sm_scale: float):
+    """K2's plain version: JAX ``_kernel_stacked_quant[_new]``, v
+    dequantized by its scales and ``sm_scale · ks`` on the scores."""
+    n = _n_slots(k_all.shape[3], k_new, valid_len)
+    ks = k_scale[layer][:, :, :n].float()
+    vs = v_scale[layer][:, :, :n].float()
+    v = v_all[layer][:, :, :n].float() * vs[..., None]
+    return _attend_plain(q.float(), k_all[layer][:, :, :n], v, bias[:, :n],
+                         (sm_scale * ks[:, :, None, :],), sm_scale, k_new, v_new)
+
+
+def decode_attention_plain_b10(q, k_cache, v_cache, bias, k_scale=None, v_scale=None, *,
+                               sm_scale: float):
+    """B10's plain version: JAX ``_kernel_quant`` (``(s · sm_scale) · ks``,
+    p times ``vs`` after its sum) or ``_kernel_plain``."""
+    if k_scale is None:
+        return _attend_plain(q.float(), k_cache, v_cache, bias, (sm_scale,), sm_scale)
+    return _attend_plain(q.float(), k_cache, v_cache, bias,
+                         (sm_scale, k_scale.float()[:, :, None, :]), sm_scale,
+                         p_scale=v_scale.float()[:, :, None, :])
+
+
+def _launch_f32(wrapper, mode: str, q, k_all, v_all, bias, layer: int, k_scale, v_scale, k_new,
+                v_new, n_slots: int, sm_scale: float) -> torch.Tensor:
+    """Check the inputs of the f32 kernel and launch it on ``k_all``'s layer
+    ``layer`` (``[L, b, kv, T, d]``), counting the launch on ``wrapper``."""
+    L, b, kv, T, d = k_all.shape
+    g = q.shape[2]
+    if not (1 <= g <= 8 and d % 16 == 0 and 16 <= d <= 128):
+        raise ValueError(f"kernel takes 1 <= g <= 8 and d in 16..128 step 16, got g={g} d={d}")
+    if not 0 <= int(layer) < L:
+        raise ValueError(f"layer {layer} outside 0..{L - 1}")
+    cache_types = (torch.int8,) if mode != "plain" else (torch.bfloat16, torch.float32)
+    if k_all.dtype not in cache_types:
+        raise ValueError(f"k_all: expected {cache_types}, got {k_all.dtype}")
+    scale_types = (torch.bfloat16,) if mode == "dequant" else (torch.bfloat16, torch.float32)
+    checks = [("q", q, (torch.float32,), (b, kv, g, d)),
+              ("k_all", k_all, cache_types, (L, b, kv, T, d)),
+              ("v_all", v_all, (k_all.dtype,), (L, b, kv, T, d)),
+              ("bias", bias, (torch.float32,), (b, T))]
+    if mode != "plain":
+        checks += [("k_scale", k_scale, scale_types, (L, b, kv, T)),
+                   ("v_scale", v_scale, (k_scale.dtype,), (L, b, kv, T))]
+    if k_new is not None:
+        checks += [("k_new", k_new, (torch.float32,), (b, kv, d)),
+                   ("v_new", v_new, (torch.float32,), (b, kv, d))]
+    for name, t, dtypes, shape in checks:
+        if t.device != q.device or t.dtype not in dtypes or tuple(t.shape) != shape:
+            raise ValueError(
+                f"{name}: expected {dtypes} {shape} on {q.device}, got "
+                f"{t.dtype} {tuple(t.shape)} on {t.device}"
+            )
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    out = torch.empty((b, kv, g, d), dtype=torch.float32, device=q.device)
+    fn = _build.kernel("vt_attend_f32", _F32_ARGTYPES)
+    ptr = lambda t: 0 if t is None else t.data_ptr()   # noqa: E731
+    wrapper.launches += 1
+    rc = fn(
+        q.data_ptr(), k_all.data_ptr(), v_all.data_ptr(), ptr(k_scale), ptr(v_scale),
+        bias.data_ptr(), ptr(k_new), ptr(v_new), out.data_ptr(),
+        _CACHE_CODE[k_all.dtype], _SCALE_CODE[None if k_scale is None else k_scale.dtype],
+        _MODE[mode], int(layer) * b * kv, b, kv, g, d, T, int(n_slots), float(sm_scale),
+        _build.stream_ptr(q),
+    )
+    _build.check(rc, "vt_attend_f32")
+    return out
+
+
+def _on(t: torch.Tensor) -> str:
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {t.device}")
+    return t.device.type
+
+
+def decode_attention_float_stacked(
+    q: torch.Tensor,          # [b, kv, g, d] f32
+    k_all: torch.Tensor,      # [L, b, kv, T, d] bf16 or f32
+    v_all: torch.Tensor,
+    bias: torch.Tensor,       # [b, T] f32 additive mask
+    layer: int,
+    k_new: Optional[torch.Tensor] = None,   # [b, kv, d] f32 — current token's k
+    v_new: Optional[torch.Tensor] = None,
+    *,
+    valid_len: Optional[int] = None,   # with k_new: slots at and past it are masked
+    sm_scale: float,
+) -> torch.Tensor:
+    """K1: attention output ``[b, kv, g, d]`` f32 for layer ``layer`` of a
+    bf16 or f32 cache, every product in f32."""
+    if _on(q) == "cpu":
+        return decode_attention_float_plain(q, k_all, v_all, bias, layer, k_new, v_new,
+                                            valid_len, sm_scale=sm_scale)
+    return _launch_f32(decode_attention_float_stacked, "plain", q, k_all, v_all, bias, layer,
+                       None, None, k_new, v_new, _n_slots(k_all.shape[3], k_new, valid_len),
+                       sm_scale)
+
+
+def decode_attention_dequant_stacked(
+    q: torch.Tensor,          # [b, kv, g, d] f32
+    k_all: torch.Tensor,      # [L, b, kv, T, d] int8
+    v_all: torch.Tensor,
+    bias: torch.Tensor,       # [b, T] f32 additive mask
+    layer: int,
+    k_scale: torch.Tensor,    # [L, b, kv, T] bf16
+    v_scale: torch.Tensor,
+    k_new: Optional[torch.Tensor] = None,
+    v_new: Optional[torch.Tensor] = None,
+    *,
+    valid_len: Optional[int] = None,
+    sm_scale: float,
+) -> torch.Tensor:
+    """K2: the int8 cache dequantized to f32 (no int8 products)."""
+    if _on(q) == "cpu":
+        return decode_attention_dequant_plain(q, k_all, v_all, bias, layer, k_scale, v_scale,
+                                              k_new, v_new, valid_len, sm_scale=sm_scale)
+    return _launch_f32(decode_attention_dequant_stacked, "dequant", q, k_all, v_all, bias, layer,
+                       k_scale, v_scale, k_new, v_new, _n_slots(k_all.shape[3], k_new, valid_len),
+                       sm_scale)
+
+
+def decode_attention(
+    q: torch.Tensor,          # [b, kv, g, d] f32
+    k_cache: torch.Tensor,    # [b, kv, T, d] bf16, f32 or int8
+    v_cache: torch.Tensor,
+    bias: torch.Tensor,       # [b, T] f32 additive mask
+    k_scale: Optional[torch.Tensor] = None,   # [b, kv, T] bf16 or f32 (int8 cache)
+    v_scale: Optional[torch.Tensor] = None,
+    *,
+    sm_scale: float,
+) -> torch.Tensor:
+    """B10: softmax(q·Kᵀ·sm_scale (· ks) + bias)·V (p · vs) per (row, kv
+    head) over one unstacked layer → ``[b, kv, g, d]`` f32."""
+    if (k_scale is None) != (v_scale is None) or (k_scale is None) == (k_cache.dtype == torch.int8):
+        raise ValueError("an int8 cache takes k_scale and v_scale; a float cache takes neither")
+    if _on(q) == "cpu":
+        return decode_attention_plain_b10(q, k_cache, v_cache, bias, k_scale, v_scale,
+                                          sm_scale=sm_scale)
+    scales = (None, None) if k_scale is None else (k_scale[None], v_scale[None])
+    return _launch_f32(decode_attention, "plain" if k_scale is None else "b10", q, k_cache[None],
+                       v_cache[None], bias, 0, *scales, None, None, k_cache.shape[2], sm_scale)
+
+
+def decode_attention_stacked(
+    q: torch.Tensor,          # [b, kv, g, d] f32
+    k_all: torch.Tensor,      # [L, b, kv, T, d] bf16/f32, or int8 with scales
+    v_all: torch.Tensor,
+    bias: torch.Tensor,       # [b, T] f32 additive mask
+    layer: int,
+    k_scale: Optional[torch.Tensor] = None,   # [L, b, kv, T] bf16 (int8 cache)
+    v_scale: Optional[torch.Tensor] = None,
+    k_new: Optional[torch.Tensor] = None,     # [b, kv, d] f32 — current token's k
+    v_new: Optional[torch.Tensor] = None,
+    *,
+    valid_len: Optional[int] = None,
+    sm_scale: float,
+    int8_dots: bool = False,
+) -> torch.Tensor:
+    """JAX ``decode_attention_stacked``'s branch choice (:601-602, :719-834):
+    ``int8_dots`` → B1 (the T-blocked branch: needs the scales, ``k_new``,
+    ``valid_len`` and a 128-multiple cache; JAX's non-T-blocked int8 branch
+    is not ported and raises); scales → K2; none → K1."""
+    quant = k_scale is not None
+    if int8_dots:
+        if not quant:
+            raise ValueError("int8_dots requires the int8-quantized cache")
+        if k_new is None or valid_len is None or k_all.shape[3] % TBLK:
+            raise NotImplementedError(
+                "the int8 decode attention without k_new/valid_len or over a cache that is not a "
+                "multiple of 128 slots is JAX's non-T-blocked branch (_kernel_stacked_int8dots), "
+                "which the port does not have; round the cache length to 128"
+            )
+        return decode_attention_int8_stacked(q, k_all, v_all, bias, layer, k_scale, v_scale,
+                                             k_new, v_new, valid_len=valid_len,
+                                             sm_scale=sm_scale)
+    if quant:
+        return decode_attention_dequant_stacked(q, k_all, v_all, bias, layer, k_scale, v_scale,
+                                                k_new, v_new, valid_len=valid_len,
+                                                sm_scale=sm_scale)
+    return decode_attention_float_stacked(q, k_all, v_all, bias, layer, k_new, v_new,
+                                          valid_len=valid_len, sm_scale=sm_scale)
+
+
+#: launches of each CUDA kernel (the plain versions are not counted)
+decode_attention_float_stacked.launches = 0
+decode_attention_dequant_stacked.launches = 0
+decode_attention.launches = 0
+
+__all__ = ["decode_attention_stacked", "decode_attention_int8_stacked",
+           "decode_attention_float_stacked", "decode_attention_dequant_stacked",
+           "decode_attention", "decode_attention_plain", "decode_attention_float_plain",
+           "decode_attention_dequant_plain", "decode_attention_plain_b10", "n_valid_blocks",
+           "TBLK"]
