@@ -22,7 +22,11 @@ Phases (any failure exits non-zero before the final line is printed):
    attention (both on no served path; B10 on one T3 layer, bf16 and int8),
    against SDPA where one call computes the same attention, and K4, the
    cache append without scales (at the T3 bf16 cache, against the slice
-   assignment) -- at the shapes the path gives it (B1-B6 also at the Qwen3 shapes:
+   assignment), and the training path's B6t (B6 writing the logsumexp),
+   B11b (the flash backward's dQ, with di) and B11a (its dK/dV) at the T3
+   fine-tune's [8, 16, 128, 64] and [8, 16, 512, 64] bf16 causal, GQA at d
+   128 and a ragged non-causal [2, 4, 200, 64], against SDPA's forward and
+   its backward alone under autograd -- at the shapes the path gives it (B1-B6 also at the Qwen3 shapes:
    d_model 2048, 16 q / 8 kv heads of 128, d_ff 8192, b = 8; B6 at
    [8, 16, 512, 128] causal with 8 kv heads): hold the kernel against its plain
    PyTorch version on the card, time kernel, plain version and (where one
@@ -49,7 +53,9 @@ Phases (any failure exits non-zero before the final line is printed):
    ways; and the no-env rows (bf16 weights; the tiny T3 and the Qwen3
    d_model-256 LM, f32 caches) built with no env (the XLA attention branch,
    slice assignment) and with ``VOCALIE_DECODE_KERNEL=1`` (K1 + K4), GPU vs
-   CPU, and the no-env T3's stage 2;
+   CPU, and the no-env T3's stage 2; and two ``use_flash=True`` train steps
+   of the tiny T3 train view (f32), GPU kernels against the CPU's plain
+   versions: losses and each leaf's gradient;
 4. the main path: ``run_tts_pipeline`` at the full Chatterbox T3 width
    (random weights from a seed), in the JAX package's default int8 serving
    configuration (``VOCALIE_KV_INT8=1 VOCALIE_WEIGHT_INT8=1``, the dense
@@ -103,6 +109,15 @@ Phases (any failure exits non-zero before the final line is printed):
    ``VOCALIE_MEGALAYER=1`` (B3 + 28 x B12 a step), and the batch-1 chunk with
    ``VOCALIE_DECODE_KERNEL=1`` on a bf16-weight runtime of its own (28 x K1 +
    K4 a step, d_head 128, group 2); RTF, wall and decode ms/step each;
+   then the T3 fine-tune trainer at full width (bf16, 506 M parameters):
+   a force-init runtime's ``save_weights``, ``finetune_overlay`` (8 steps,
+   batch 8, seq_len 128; the XLA attention as in JAX: B6t = B11a = B11b =
+   0), its overlay served in ``fr_finetune`` mode by a fresh runtime in the
+   default int8 env (WAV check), and ``make_train_step`` with
+   ``use_flash=True`` (30 x (B6t + B11b + B11a) a step) and without, from
+   one state and batch at seq_len 128 and 512: losses within 1e-2 of each
+   other, each leaf's gradient difference, ms per step, tokens/s, peak
+   memory and the FLOP bound;
    To keep the run's time, each runtime is warmed up by its first request
    only, and three Qwen3 requests of earlier slices (the voice clone with a
    transcript, voice design, the batch-1 chunk with ``VOCALIE_MEGALAYER=1``)
@@ -112,7 +127,8 @@ Phases (any failure exits non-zero before the final line is printed):
    where it has been on: short windows of each configuration show where
    the time goes, the studio pass's one UNet call and the XTTS and Qwen3
    decode windows included, the Chatterbox and Qwen3 bench requests with
-   ``VOCALIE_MEGALAYER=1`` beside their default config.
+   ``VOCALIE_MEGALAYER=1`` beside their default config, and one flash train
+   step at 8 x 128 and at 8 x 512.
 
 The second-to-last lines are a JSON ``kernels`` line and the card's name
 and power limit; the last line is ``{"ok": true, "device": {...}}``.
@@ -939,7 +955,7 @@ def _count_kernels_child() -> int:
     q3 = {k: c for k, c in _dense_inputs(dev, QWEN3_DENSE).calls.items() if k in B8_NAMES}
     calls = {**t3, **q3, B7_NAME: _b7_inputs(dev).call, B12_NAME: _b12_inputs(dev).call,
              B13_NAME: _gn_case(dev, GN_CASES[0]).call, **_gelu_inputs(dev).calls,
-             **_f32_calls(dev)}
+             **_f32_calls(dev), **_flash_train_calls(dev)}
     out = {}
     for name, call in calls.items():
         call()
@@ -1951,6 +1967,8 @@ def _request(script: str, out_path: str) -> dict:
 
 #: the kernels of the voice-over path, by the names of PERF.md's table
 KERNEL_NAMES = ("B1", "B2", "B3", "B4", "B5", "B6")
+#: the training path's kernels, held to 0 on every serving path
+TRAIN_ZERO = {"B6t": 0, "B11a": 0, "B11b": 0}
 
 
 class DecodeSteps:
@@ -1990,14 +2008,17 @@ def _wrappers():
         tail_swiglu_qkv_int8_stacked,
     )
     from vocalie_tts_tpu_torch.ops.decode_layer import layer_swiglu_qkv_int8_stacked
-    from vocalie_tts_tpu_torch.ops.flash_attention import flash_attention
+    from vocalie_tts_tpu_torch.ops import flash_attention_bwd as fb
+    from vocalie_tts_tpu_torch.ops.flash_attention import flash_attention, flash_attention_lse
 
     return {**dict(zip(KERNEL_NAMES, (decode_attention_int8_stacked, tail_swiglu_qkv_int8_stacked,
                                       qkv_norm_int8_stacked, dense_int8_stacked,
                                       cache_append_stacked, flash_attention))),
             "B12": layer_swiglu_qkv_int8_stacked, "K1": decode_attention_float_stacked,
             "K2": decode_attention_dequant_stacked, "B10": decode_attention,
-            "K4": cache_append_kv_stacked, "steps": DecodeSteps()}
+            "K4": cache_append_kv_stacked, "B6t": flash_attention_lse,
+            "B11a": fb.flash_attention_bwd_dkv, "B11b": fb.flash_attention_bwd_dq,
+            "steps": DecodeSteps()}
 
 
 def path_wants(lm, env: dict, steps: int) -> dict:
@@ -2008,7 +2029,8 @@ def path_wants(lm, env: dict, steps: int) -> dict:
     kernel, else plain PyTorch; B12 in place of B1 + B2 with
     ``VOCALIE_MEGALAYER=1`` on the int8 cache with the decode kernel; the
     append through B5 (int8) or K4 (bf16) with the decode or dense kernels
-    on, else slice assignment. K2 and B10 are on no served path: 0."""
+    on, else slice assignment. K2 and B10 are on no served path, B6t and
+    B11 on the training path alone: 0."""
     L = lm.n_layers
     int8_attn = lm.kv_quant and lm.decode_kernel
     mega = int8_attn and lm.dense_kernel and env.get("VOCALIE_MEGALAYER") == "1"
@@ -2020,7 +2042,7 @@ def path_wants(lm, env: dict, steps: int) -> dict:
             "B3": steps if lm.dense_kernel else 0,
             "B4": steps if lm.dense_kernel else 0,
             "B5": append if lm.kv_quant else 0, "K4": 0 if lm.kv_quant else append,
-            "K2": 0, "B10": 0}
+            "K2": 0, "B10": 0, **TRAIN_ZERO}
 
 
 def drive_path(dev, failures, label: str, env: dict, requests, scale: str = "full",
@@ -2038,7 +2060,6 @@ def drive_path(dev, failures, label: str, env: dict, requests, scale: str = "ful
     CUDA and cuBLAS; ``again`` gives the second timing) and no profiled
     stage-2 window (stage 2 runs the same in every decode configuration)."""
     from vocalie_tts_tpu_torch.engines.chatterbox import ChatterboxEngine
-    from vocalie_tts_tpu_torch.io.wavio import read_wav
     from vocalie_tts_tpu_torch.models.chatterbox import runtime as rt_mod
     from vocalie_tts_tpu_torch.pipeline import run_tts_pipeline
 
@@ -2083,15 +2104,8 @@ def drive_path(dev, failures, label: str, env: dict, requests, scale: str = "ful
                 t0 = time.monotonic()
                 res = run_tts_pipeline(request, engine=engine)
                 wall = time.monotonic() - t0
-                wav, sr = read_wav(res.out_path)
                 meta = res.meta
-                gap = int(24000 * 0.25)
-                expect = round(sum(meta["durations"]) * 24000) + gap * (len(chunks) - 1)
-                ok = (sr == 24000 and len(wav) == expect and len(wav) > 0
-                      and bool(torch.isfinite(torch.from_numpy(wav)).all())
-                      and abs(len(wav) / sr - meta["total_duration"]) < 1e-9
-                      and all(round(dur * 24000) % rt.cfg.samples_per_token == 0
-                              for dur in meta["durations"]))
+                ok, n_wav, expect = _wav_ok(res, rt, len(chunks))
                 bm = meta["backend_meta"]
                 launches = {k: w.launches - before[k] for k, w in wrappers.items()}
                 log(f"main path [{label}, {req_label}]: {len(chunks)} chunks, prompt bucket "
@@ -2099,7 +2113,7 @@ def drive_path(dev, failures, label: str, env: dict, requests, scale: str = "ful
                     f"{meta['total_duration']:.3f} s, wall {wall:.3f} s, RTF "
                     f"{meta['total_duration'] / wall:.3f}x, wav ok={ok}, launches {launches}")
                 if not ok:
-                    failures.append(f"{label} {req_label}: WAV check failed (len {len(wav)}, "
+                    failures.append(f"{label} {req_label}: WAV check failed (len {n_wav}, "
                                     f"expected {expect})")
                 per_request.append({"prompt_bucket": bm["prompt_bucket"], "launches": launches})
                 if keep is not None and len(per_request) == 1:
@@ -2319,7 +2333,7 @@ def drive_cosyvoice(dev, failures, b7_inputs: dict, scale: str = "full"):
             fused = env is DEFAULT_ENV
             want = {"B3": steps, "B4": steps + 1, "B7": steps if fused else 0,
                     "B1": 0 if fused else lm.n_layers * steps,
-                    "B2": 0 if fused else lm.n_layers * steps, "K2": 0, "B10": 0}
+                    "B2": 0 if fused else lm.n_layers * steps, "K2": 0, "B10": 0, **TRAIN_ZERO}
             for k, n in want.items():
                 if c[k] != n:
                     failures.append(f"cosyvoice [{label}] {k} launched {c[k]} times, the path "
@@ -2467,7 +2481,8 @@ def _cosy_offline(engine, rt, request, tmp, label, env, wrappers, failures) -> d
     mega = env is MEGALAYER_ENV
     L = lm.n_layers
     want = {"B1": 0 if mega else L * steps, "B2": 0 if mega else L * steps, "B3": steps,
-            "B4": steps + 1, "B7": 0, "B12": L * steps if mega else 0, "K2": 0, "B10": 0}
+            "B4": steps + 1, "B7": 0, "B12": L * steps if mega else 0, "K2": 0, "B10": 0,
+            **TRAIN_ZERO}
     for k, n in want.items():
         if c[k] != n:
             failures.append(f"cosyvoice {label} {k} launched {c[k]} times, the path needs {n}")
@@ -2637,7 +2652,7 @@ def drive_xtts(dev, failures, scale: str = "full"):
                 want = {"B9a": L * steps, "B9c": L * steps, "B9b": 0}
             else:
                 want = {"B9a": steps, "B9b": L * steps, "B9c": 0}
-            want.update(B1=L * steps, B4=steps + 1, B7=0, B2=0, B3=0, K2=0, B10=0)
+            want.update(B1=L * steps, B4=steps + 1, B7=0, B2=0, B3=0, K2=0, B10=0, **TRAIN_ZERO)
             if script == XTTS_LONG and bm["prompt_bucket"] != 544:
                 failures.append(f"xtts [{label}]: prompt bucket {bm['prompt_bucket']}, not 544")
             if script == XTTS_LONG and c["B6"] == 0:
@@ -2738,7 +2753,7 @@ def drive_qwen3(dev, failures, scale: str = "full"):
 
     from vocalie_tts_tpu_torch.engines.qwen3 import Qwen3Engine
     from vocalie_tts_tpu_torch.io.wavio import read_wav
-    from vocalie_tts_tpu_torch.models.common.weights import _flatten
+    from vocalie_tts_tpu_torch.models.common.weights import tree_items
     from vocalie_tts_tpu_torch.pipeline import run_tts_pipeline
     from vocalie_tts_tpu_torch.text import render_clean_text_from_segments
 
@@ -2755,7 +2770,7 @@ def drive_qwen3(dev, failures, scale: str = "full"):
         rt = _audible_codec(engine.runtime())
         torch.cuda.synchronize()
         lm = rt.cfg.lm
-        n_params = sum(v.numel() for _, v in _flatten(rt.params["lm_bundle"]))
+        n_params = sum(v.numel() for _, v in tree_items(rt.params["lm_bundle"]))
         log(f"qwen3: full-width runtime built in {time.monotonic() - t0:.2f} s (random weights, "
             f"seed 11; LM {lm.n_layers} layers x d_model {lm.d_model}, {lm.n_heads} q / "
             f"{lm.n_kv_heads} kv heads of {lm.d_head}, d_ff {lm.d_ff}, qk_norm={lm.qk_norm}, "
@@ -3112,6 +3127,444 @@ def breakdown(rt, dev, label: str, stage2_window: bool = True):
     return windows
 
 
+# ── the training path (slice 9): B6t, B11a, B11b; phases 2-5 ─────────────
+
+B6T_NAME = "B6t flash_attention_lse (training forward)"
+B11A_NAME = "B11a flash_attention_bwd_dkv"
+B11B_NAME = "B11b flash_attention_bwd_dq"
+#: phase 2's shapes: the finetune default [8, 16, 128, 64] bf16 causal (the
+#: main entry), seq 512 (several tiles), GQA at d 128, a ragged non-causal case
+TRAIN_SHAPES = (
+    ("finetune default", dict(b=8, h=16, hk=16, s=128, d=64, causal=True)),
+    ("seq 512", dict(b=8, h=16, hk=16, s=512, d=64, causal=True)),
+    ("GQA d128", dict(b=8, h=16, hk=8, s=512, d=128, causal=True)),
+    ("ragged non-causal", dict(b=2, h=4, hk=4, s=200, d=64, causal=False)),
+)
+#: tolerances against the plain versions (bf16): B6t's output per element
+#: within B6T_TOL + B6T_TOL·|ref|, as B6's (p rounds to bf16 against a
+#: running max in the kernel, the row max in the plain version; measured
+#: max |diff| <= 7.8e-3); B11's outputs, max |diff| as a share of max |ref|
+#: (measured <= 3.3e-3; B11b rounds ds to bf16, where an f32-ulp change can
+#: flip a step); B6t's lse within LSE_TOL + LSE_TOL·|ref| (measured <= 1.8e-7
+#: relative)
+B6T_TOL = 1e-2
+TRAIN_TOL = {"B11a": 5e-3, "B11b": 5e-3}
+LSE_TOL = 1e-6
+
+
+def _train_attn_inputs(dev, b, h, hk, s, d, causal, seed=31):
+    gen = torch.Generator(device=dev).manual_seed(seed + s + d)
+    q = torch.randn((b, h, s, d), generator=gen, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn((b, hk, s, d), generator=gen, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    do = torch.randn((b, h, s, d), generator=gen, device=dev).to(torch.bfloat16)
+    return q, k, v, do
+
+
+def _flash_train_calls(dev) -> dict:
+    """One call each of B6t, B11b and B11a at the finetune default shape,
+    for the kernel-count child."""
+    from vocalie_tts_tpu_torch.ops import flash_attention_bwd as fb
+    from vocalie_tts_tpu_torch.ops.flash_attention import flash_attention_lse
+
+    shp = TRAIN_SHAPES[0][1]
+    q, k, v, do = _train_attn_inputs(dev, **shp)
+    o, lse = flash_attention_lse(q, k, v)
+    _, di = fb.flash_attention_bwd_dq(q, k, v, o, lse, do, causal=True, sm_scale=0.125)
+    return {B6T_NAME: lambda: flash_attention_lse(q, k, v),
+            B11B_NAME: lambda: fb.flash_attention_bwd_dq(q, k, v, o, lse, do, causal=True,
+                                                         sm_scale=0.125),
+            B11A_NAME: lambda: fb.flash_attention_bwd_dkv(q, k, v, do, lse, di, causal=True,
+                                                          sm_scale=0.125)}
+
+
+def _rel_err(got, ref) -> float:
+    return (got.float() - ref.float()).abs().max().item() / ref.float().abs().max().item()
+
+
+def _flash_train_case(dev, failures, label, b, h, hk, s, d, causal):
+    """B6t, B11b and B11a at one shape: each against its plain version on the
+    same inputs, timed beside its plain version, SDPA (forward; backward
+    alone under autograd) and its bound → {name: case dict}."""
+    import torch.nn.functional as F
+
+    from vocalie_tts_tpu_torch.ops import flash_attention_bwd as fb
+    from vocalie_tts_tpu_torch.ops.flash_attention import attention_plain_lse, flash_attention_lse
+
+    q, k, v, do = _train_attn_inputs(dev, b, h, hk, s, d, causal)
+    sm = 1.0 / math.sqrt(d)
+    kw = dict(causal=causal, sm_scale=sm)
+    out, lse = flash_attention_lse(q, k, v, causal=causal)
+    ref_out, ref_lse = attention_plain_lse(q, k, v, causal=causal)
+    dq, di = fb.flash_attention_bwd_dq(q, k, v, ref_out, ref_lse, do, **kw)
+    ref_dq, ref_di = fb.flash_attention_bwd_dq_plain(q, k, v, ref_out, ref_lse, do, **kw)
+    dk, dv = fb.flash_attention_bwd_dkv(q, k, v, do, ref_lse, ref_di, **kw)
+    ref_dk, ref_dv = fb.flash_attention_bwd_dkv_plain(q, k, v, do, ref_lse, ref_di, **kw)
+    torch.cuda.synchronize()
+    lse_worst = ((lse - ref_lse).abs() / (LSE_TOL + LSE_TOL * ref_lse.abs())).max().item()
+    out_worst = ((out.float() - ref_out.float()).abs()
+                 / (B6T_TOL + B6T_TOL * ref_out.float().abs())).max().item()
+    errs = {B6T_NAME: [_rel_err(out, ref_out)], B11B_NAME: [_rel_err(dq, ref_dq),
+                                                            _rel_err(di, ref_di)],
+            B11A_NAME: [_rel_err(dk, ref_dk), _rel_err(dv, ref_dv)]}
+    abs_errs = {B6T_NAME: (out.float() - ref_out.float()).abs().max().item(),
+                B11B_NAME: (dq.float() - ref_dq.float()).abs().max().item(),
+                B11A_NAME: max((dk.float() - ref_dk.float()).abs().max().item(),
+                               (dv.float() - ref_dv.float()).abs().max().item())}
+    if not lse_worst <= 1.0:
+        failures.append(f"{B6T_NAME} [{label}] lse differs: worst ratio {lse_worst}")
+    if not out_worst <= 1.0:
+        failures.append(f"{B6T_NAME} [{label}] output differs: worst ratio {out_worst}")
+    for name in (B11B_NAME, B11A_NAME):
+        if not max(errs[name]) <= TRAIN_TOL[name.split()[0]]:
+            failures.append(f"{name} [{label}] differs from its plain version: {errs[name]}")
+
+    gqa = {"enable_gqa": True} if hk != h else {}
+    calls = {
+        B6T_NAME: (lambda i: flash_attention_lse(q, k, v, causal=causal),
+                   lambda i: attention_plain_lse(q, k, v, causal=causal)),
+        B11B_NAME: (lambda i: fb.flash_attention_bwd_dq(q, k, v, ref_out, ref_lse, do, **kw),
+                    lambda i: fb.flash_attention_bwd_dq_plain(q, k, v, ref_out, ref_lse, do, **kw)),
+        B11A_NAME: (lambda i: fb.flash_attention_bwd_dkv(q, k, v, do, ref_lse, ref_di, **kw),
+                    lambda i: fb.flash_attention_bwd_dkv_plain(q, k, v, do, ref_lse, ref_di,
+                                                               **kw)),
+    }
+    sdpa_fwd = cuda_ms(lambda i: F.scaled_dot_product_attention(q, k, v, is_causal=causal, **gqa),
+                       30)
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    o_lib = F.scaled_dot_product_attention(*leaves, is_causal=causal, **gqa)
+    sdpa_bwd = cuda_ms(lambda i: torch.autograd.grad(o_lib, leaves, do, retain_graph=True), 30)
+    pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
+    qb, kb, rows = b * h * s * d * 2, b * hk * s * d * 2, b * h * s * 4
+    bounds = {B6T_NAME: (2 * qb + 2 * kb + rows, 4 * d * pairs),
+              B11B_NAME: (4 * qb + 2 * kb + 2 * rows, 6 * d * pairs),
+              B11A_NAME: (2 * qb + 4 * kb + 2 * rows, 8 * d * pairs)}
+    shape = f"{label}: q[{b},{h},{s},{d}] k/v[{b},{hk},{s},{d}] bf16, causal={causal}"
+    cases = {}
+    for name, (kernel, plain) in calls.items():
+        ms = cuda_ms(kernel, 20)
+        plain_ms = cuda_ms(plain, 5)
+        lib = sdpa_fwd if name == B6T_NAME else sdpa_bwd
+        bms, by = bound_ms(*bounds[name], PEAK_BF16_FLOPS)
+        if name == B6T_NAME:
+            tol = f"atol {B6T_TOL} + rtol {B6T_TOL}"
+            check = (f"worst |diff| / ({B6T_TOL} + {B6T_TOL}|ref|) = {out_worst:.3f} (must be "
+                     f"<= 1), max |diff| / max|ref| = {max(errs[name]):.3e}, lse worst |diff| / "
+                     f"({LSE_TOL} + {LSE_TOL}|ref|) = {lse_worst:.3f} (must be <= 1)")
+        else:
+            tol = f"{TRAIN_TOL[name.split()[0]]} x max|ref|"
+            check = f"max |diff| / max|ref| = {max(errs[name]):.3e} (tolerance {tol})"
+        log(f"{name} [{label}]: {check}; kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, SDPA "
+            f"{'forward' if name == B6T_NAME else 'backward alone'} {lib:.6f} ms, bound "
+            f"{bms:.6f} ms ({by}: {bounds[name][0] / 1e6:.1f} MB, {bounds[name][1] / 1e9:.2f} GFLOP)")
+        cases[name] = {"max_abs_err": abs_errs[name], "max_rel_err": max(errs[name]),
+                       "tolerance": tol, "ms": ms, "plain_ms": plain_ms,
+                       "bound_ms": bms, "bound_by": by, "library_ms": lib, "shape": shape}
+        if name == B6T_NAME:
+            cases[name]["worst_ratio"] = out_worst
+            cases[name]["lse_worst_ratio"] = lse_worst
+            cases[name]["lse_tolerance"] = f"{LSE_TOL} + {LSE_TOL} x |ref|"
+    return cases
+
+
+def check_flash_train(dev, failures):
+    """B6t, B11a and B11b at TRAIN_SHAPES → their ``kernels`` entries (the
+    main numbers at the finetune default shape, the others under
+    ``other_shapes``)."""
+    per_shape = [_flash_train_case(dev, failures, label, **shp) for label, shp in TRAIN_SHAPES]
+    fwd, bwd = "vocalie_tts_tpu_torch/csrc/flash_attention.cu", \
+        "vocalie_tts_tpu_torch/csrc/flash_attention_bwd.cu"
+    meta = {B6T_NAME: (fwd, "vocalie_tts_tpu/ops/flash_attention.py:289",
+                       "F.scaled_dot_product_attention forward"),
+            B11A_NAME: (bwd, "vocalie_tts_tpu/ops/flash_attention_bwd.py:55",
+                        "F.scaled_dot_product_attention backward alone (dq, dk and dv together)"),
+            B11B_NAME: (bwd, "vocalie_tts_tpu/ops/flash_attention_bwd.py:104",
+                        "F.scaled_dot_product_attention backward alone (dq, dk and dv together)")}
+    return [_entry(name, src, replaces, per_shape[0][name], library_call=lib,
+                   other_shapes=[c[name] for c in per_shape[1:]])
+            for name, (src, replaces, lib) in meta.items()]
+
+
+def _train_wrappers() -> dict:
+    from vocalie_tts_tpu_torch.ops import flash_attention_bwd as fb
+    from vocalie_tts_tpu_torch.ops.flash_attention import flash_attention, flash_attention_lse
+
+    return {"B6t": flash_attention_lse, "B11a": fb.flash_attention_bwd_dkv,
+            "B11b": fb.flash_attention_bwd_dq, "B6": flash_attention}
+
+
+def _train_view(cfg, dev, seed):
+    """The T3 train view (``to_train_view`` of a seeded ``init_t3``) and its
+    training config."""
+    import dataclasses
+
+    from vocalie_tts_tpu_torch.models.chatterbox.model import init_t3
+    from vocalie_tts_tpu_torch.training.finetune_fr import to_train_view
+
+    t3 = init_t3(cfg, generator=torch.Generator(device=dev).manual_seed(seed), device=dev)
+    train_cfg = dataclasses.replace(cfg.lm, vocab_size=cfg.text_vocab + cfg.speech_vocab + 2)
+    return to_train_view(t3, cfg), train_cfg
+
+
+def _train_batch(n, batch, seq_len, dev, seed=42):
+    """``[n, batch, seq_len]`` tokens and targets from the synthetic corpus,
+    drawn as ``finetune_overlay`` draws them."""
+    import numpy as np
+
+    from vocalie_tts_tpu_torch.training.finetune_fr import example_to_tokens, synthetic_dataset
+
+    pairs = [example_to_tokens(e["text"], e["speech_tokens"], seq_len)
+             for e in synthetic_dataset(512)]
+    idx = np.random.RandomState(seed).randint(0, len(pairs), (n, batch))
+    toks = np.stack([p[0] for p in pairs])[idx]
+    tgts = np.stack([p[1] for p in pairs])[idx]
+    return torch.from_numpy(toks).to(dev), torch.from_numpy(tgts).to(dev)
+
+
+def small_reference_train(dev, failures):
+    """The tiny T3 train view (f32), two ``use_flash=True`` train steps on
+    the GPU (B6t, B11b, B11a: 2 layers x 1 each a step) against the same
+    steps on the CPU (plain versions): the losses (1e-5 relative) and each
+    leaf's gradient (1e-4 x max|g|: f32 on both sides, only the summation
+    orders differ) at both steps."""
+    from vocalie_tts_tpu_torch.models.chatterbox.runtime import SCALES
+    from vocalie_tts_tpu_torch.models.common.weights import tree_items
+    from vocalie_tts_tpu_torch.parallel import train
+
+    cfg = SCALES["tiny"]
+    lm, train_cfg = _train_view(cfg, torch.device("cpu"), 21)
+    toks, tgts = _train_batch(2, 4, 64, "cpu")
+    wrappers = _train_wrappers()
+    runs = {}
+    for name, d in (("gpu", dev), ("cpu", torch.device("cpu"))):
+        opt = train.make_optimizer(1e-4)
+        state = train.create_train_state(_to(lm, d), opt)
+        step = train.make_train_step(train_cfg, opt, use_flash=True)
+        before = {k: w.launches for k, w in wrappers.items()}
+        out = []
+        for i in range(2):
+            loss, grads = train.value_and_grad(state.params, train_cfg, toks[i].to(d),
+                                               tgts[i].to(d), use_flash=True)
+            state, step_loss = step(state, toks[i].to(d), tgts[i].to(d))
+            out.append((float(loss), float(step_loss), _to(grads, "cpu")))
+        runs[name] = out
+        launched = {k: w.launches - before[k] for k, w in wrappers.items()}
+        want = cfg.n_layers * 4 if name == "gpu" else 0   # 2 steps, value_and_grad + step
+        if any(launched[k] != want for k in ("B6t", "B11a", "B11b")) or launched["B6"]:
+            failures.append(f"tiny train steps on the {name}: launches {launched}, want "
+                            f"{want} of B6t, B11a, B11b and no B6")
+    worst_loss, worst_grad = 0.0, 0.0
+    for (lg, sg, gg), (lc, sc, gc) in zip(runs["gpu"], runs["cpu"]):
+        worst_loss = max(worst_loss, abs(lg - lc) / abs(lc), abs(sg - sc) / abs(sc))
+        for key, a in tree_items(gg):
+            c = dict(tree_items(gc))[key]
+            worst_grad = max(worst_grad, (a - c).abs().max().item() / (1e-4 * c.abs().max().item()))
+    log(f"small reference: tiny T3 train view (f32), two use_flash=True train steps, GPU kernels "
+        f"vs CPU plain: losses {[round(r[0], 6) for r in runs['gpu']]} vs "
+        f"{[round(r[0], 6) for r in runs['cpu']]}, worst relative loss diff {worst_loss:.2e} "
+        f"(tolerance 1e-5), worst grad |diff| / (1e-4 x max|g|) per leaf = {worst_grad:.3f} "
+        "(must be <= 1)")
+    if not (worst_loss <= 1e-5 and worst_grad <= 1.0):
+        failures.append(f"tiny train steps differ: loss {worst_loss}, grads {worst_grad}")
+
+
+def _wav_ok(res, rt, n_chunks: int) -> tuple:
+    """(ok, samples, expected samples) of a ``run_tts_pipeline`` result's WAV
+    for a request of ``n_chunks`` chunks: one duration a chunk, finite, of
+    the chunks' summed duration plus the 250 ms gaps between the request's
+    chunks, each chunk a whole number of tokens."""
+    from vocalie_tts_tpu_torch.io.wavio import read_wav
+
+    wav, sr = read_wav(res.out_path)
+    meta = res.meta
+    gap = int(24000 * 0.25)
+    expect = round(sum(meta["durations"]) * 24000) + gap * (n_chunks - 1)
+    ok = (sr == 24000 and len(wav) == expect and len(wav) > 0
+          and len(meta["durations"]) == n_chunks
+          and bool(torch.isfinite(torch.from_numpy(wav)).all())
+          and abs(len(wav) / sr - meta["total_duration"]) < 1e-9
+          and all(round(dur * 24000) % rt.cfg.samples_per_token == 0
+                  for dur in meta["durations"]))
+    return ok, len(wav), expect
+
+
+#: the full-width train step with the flash kernels against the XLA
+#: attention's, from one state and batch (bf16 activations: the two
+#: attentions round their bf16 outputs and the residual stream apart): the
+#: loss, relative (measured 4.7e-4 at seq 128, 1.1e-4 at seq 512), and each
+#: leaf's max |flash - XLA| / max|g| (measured 8.2e-3 to 3.2e-2), each
+#: limit about 3x the largest reading
+TRAIN_LOSS_TOL = 1.5e-3
+TRAIN_GRAD_TOL = 0.1
+
+
+def _time_steps(step, state, toks, tgts, n: int) -> tuple:
+    """ms per step over ``n`` chained steps (host clock, synchronized) and
+    the last state."""
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for i in range(n):
+        state, loss = step(state, toks[i % toks.shape[0]], tgts[i % tgts.shape[0]])
+    torch.cuda.synchronize()
+    return (time.monotonic() - t0) / n * 1e3, state, float(loss)
+
+
+def drive_training(dev, failures, scale: str = "full"):
+    """Phase 4's training path at the full T3 width (bf16): (a) a base
+    ``t3`` saved by a force-init runtime, then ``finetune_overlay`` (8 steps,
+    batch 8, seq_len 128) with no env: the XLA attention, as in JAX, so no
+    B6t/B11 launch; every loss finite, the overlay differs from the base;
+    (b) a fresh runtime in the default int8 env serves one chunk in
+    ``fr_finetune`` mode from that overlay (the WAV check); (c) the train
+    step with ``use_flash=True`` and without, from one state and batch, at
+    seq_len 128 and 512: 30 x B6t + 30 x B11b + 30 x B11a a flash step, 0
+    without; the losses within TRAIN_LOSS_TOL, each leaf's grad within
+    TRAIN_GRAD_TOL; ms per step, tokens/s, peak memory and the FLOP bound.
+    Returns the flash step's launches and a function for phase 5's profiled
+    steps."""
+    import numpy as np
+
+    from vocalie_tts_tpu_torch.engines.chatterbox import ChatterboxEngine
+    from vocalie_tts_tpu_torch.models.chatterbox.runtime import SCALES, ChatterboxRuntime
+    from vocalie_tts_tpu_torch.models.common.weights import tree_items
+    from vocalie_tts_tpu_torch.parallel import train
+    from vocalie_tts_tpu_torch.pipeline import run_tts_pipeline
+    from vocalie_tts_tpu_torch.text import chunk_script
+    from vocalie_tts_tpu_torch.training.finetune_fr import finetune_overlay
+
+    wrappers = _train_wrappers()
+    os.environ["VOCALIE_MODEL_SCALE"] = scale
+    os.environ["VOCALIE_ALLOW_RANDOM_WEIGHTS"] = "1"
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        set_env(NOENV_ENV)
+        t0 = time.monotonic()
+        ChatterboxRuntime.create(tmp, force_init=True, device=dev).save_weights()
+        log(f"training [a]: full-width base t3 + s3gen saved in {time.monotonic() - t0:.1f} s")
+        torch.cuda.empty_cache()
+        losses = []
+
+        def grab(line):
+            log(f"training [a] finetune_overlay: {line}")
+            losses.append(float(line.rsplit(" ", 1)[1]))
+
+        for w in wrappers.values():
+            w.launches = 0
+        t0 = time.monotonic()
+        res = finetune_overlay(assets_dir=tmp, steps=8, batch_size=8, seq_len=128, log_every=1,
+                               log=grab, device=dev)
+        wall = time.monotonic() - t0
+        launched = {k: w.launches for k, w in wrappers.items()}
+        weights = os.path.join(tmp, "weights")
+        base, fr = np.load(os.path.join(weights, "t3.npz")), np.load(os.path.join(weights,
+                                                                                 "t3_fr.npz"))
+        moved = {key: float(np.abs(fr[key] - base[key]).max())
+                 for key in ("lm/layers/wq", "lm/layers/w_down", "lm/tok_emb", "text_emb")}
+        log(f"training [a]: finetune_overlay (8 steps, batch 8, seq_len 128, lr 1e-4, XLA "
+            f"attention) {wall:.1f} s with loading and saving; losses {losses}; first "
+            f"{res['first_loss']:.4f}, final {res['final_loss']:.4f}; launches {launched} "
+            f"(must be 0); overlay - base, max |diff| per leaf: {moved}")
+        if any(launched.values()):
+            failures.append(f"finetune_overlay launched kernels: {launched}")
+        if len(losses) != 8 or not all(math.isfinite(x) for x in losses):
+            failures.append(f"finetune_overlay losses {losses}")
+        if not any(v > 0 for v in moved.values()):
+            failures.append("the saved overlay equals the base")
+        del base, fr
+
+        set_env(DEFAULT_ENV)
+        t0 = time.monotonic()
+        engine = ChatterboxEngine(device=dev, assets=tmp)
+        rt = engine.runtime()
+        same = torch.equal(rt.params["t3_fr"]["lm"]["layers"]["wqkv"]["q"],
+                           rt.params["t3"]["lm"]["layers"]["wqkv"]["q"])
+        request = _request(_SENT, os.path.join(tmp, "fr.wav"))
+        request["chunks"] = list(chunk_script(_SENT))   # the pipeline's own chunking
+        res = run_tts_pipeline(request, engine=engine)
+        ok, n, expect = _wav_ok(res, rt, len(request["chunks"]))
+        log(f"training [b]: the overlay served in fr_finetune mode (default int8 env): runtime + "
+            f"request {time.monotonic() - t0:.1f} s, audio {res.meta['total_duration']:.3f} s, "
+            f"wav ok={ok} ({n} samples, expected {expect}); overlay int8 qkv equals the "
+            f"base's: {same} (must be False)")
+        if not ok or same:
+            failures.append(f"serving the overlay: wav ok={ok}, overlay equals base={same}")
+        del engine, rt
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    set_env(NOENV_ENV)
+    cfg = SCALES[scale]
+    lm, train_cfg = _train_view(cfg, dev, 23)
+    n_params = sum(t.numel() for _, t in tree_items(lm))
+    card = torch.cuda.get_device_name(0)
+    counts = {}
+    profiled = []
+    for seq in (128, 512):
+        toks, tgts = _train_batch(4, 8, seq, dev, seed=seq)
+        opt = train.make_optimizer()
+        state = train.create_train_state(lm, opt)
+        steps = {flash: train.make_train_step(train_cfg, opt, use_flash=flash)
+                 for flash in (True, False)}
+        grads, losses, launched = {}, {}, {}
+        for flash in (True, False):
+            for w in wrappers.values():
+                w.launches = 0
+            losses[flash], grads[flash] = train.value_and_grad(state.params, train_cfg, toks[0],
+                                                               tgts[0], use_flash=flash)
+            torch.cuda.synchronize()
+            launched[flash] = {k: w.launches for k, w in wrappers.items()}
+        for w in wrappers.values():
+            w.launches = 0
+        steps[True](state, toks[0], tgts[0])
+        torch.cuda.synchronize()
+        per_step = {k: w.launches for k, w in wrappers.items()}
+        want = {"B6t": cfg.n_layers, "B11a": cfg.n_layers, "B11b": cfg.n_layers, "B6": 0}
+        if per_step != want or any(launched[False].values()) or launched[True] != want:
+            failures.append(f"train step at seq {seq}: flash step launches {per_step}, flash "
+                            f"grads {launched[True]}, XLA grads {launched[False]}; want {want} "
+                            "a flash step, 0 without")
+        if seq == 128:
+            counts = per_step
+        rel = abs(float(losses[True]) - float(losses[False])) / abs(float(losses[False]))
+        log(f"training [c] seq {seq}: loss flash {float(losses[True]):.6f}, XLA "
+            f"{float(losses[False]):.6f}, relative diff {rel:.2e} (tolerance {TRAIN_LOSS_TOL}); "
+            f"flash step launches {per_step}, XLA step {launched[False]}")
+        if not rel <= TRAIN_LOSS_TOL:
+            failures.append(f"train step at seq {seq}: flash loss differs from XLA's by {rel}")
+        xla = dict(tree_items(grads[False]))
+        for key, g in tree_items(grads[True]):
+            r = xla[key].float()
+            gd = (g.float() - r).abs().max().item() / r.abs().max().item()
+            log(f"  grad {key}: max |flash - XLA| / max|g| = {gd:.3e} (tolerance "
+                f"{TRAIN_GRAD_TOL})")
+            if not gd <= TRAIN_GRAD_TOL:
+                failures.append(f"train step at seq {seq}: grad {key} differs from XLA's by {gd}")
+        del grads
+        for flash in (True, False):
+            _time_steps(steps[flash], state, toks, tgts, 2)   # warm-up
+            held = torch.cuda.memory_allocated() / 2 ** 30
+            torch.cuda.reset_peak_memory_stats()
+            ms, _, last = _time_steps(steps[flash], state, toks, tgts, 5)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            flops = 6 * n_params * 8 * seq
+            log(f"training [c] seq {seq}, {'flash (B6t + B11)' if flash else 'XLA attention'}: "
+                f"{ms:.2f} ms per train step, {8 * seq / ms * 1e3:.0f} tokens/s, peak memory "
+                f"{peak:.2f} GiB ({peak - held:.2f} GiB above the {held:.2f} GiB allocated before "
+                f"the steps: the train state and what earlier phases hold), bound "
+                f"{flops / PEAK_BF16_FLOPS * 1e3:.3f} ms "
+                f"(6 x {n_params / 1e6:.1f} M parameters x {8 * seq} tokens = "
+                f"{flops / 1e12:.2f} TFLOP at the bf16 dense peak), last loss {last:.4f}; {card}")
+        profiled.append((seq, steps[True], state, toks[0], tgts[0]))
+
+    def profile():
+        for seq, step, state, tok, tgt in profiled:
+            n = _profiled(f"flash train step, 8 x {seq}", lambda: step(state, tok, tgt))
+            log(f"breakdown [flash train step, 8 x {seq}]: {n} device operations a step")
+
+    return counts, profile
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3145,7 +3598,7 @@ def main() -> int:
                check_flash_attention(dev, failures), check_decode_step(dev, failures),
                check_group_norm(dev, failures), *check_dense_gelu(dev, failures),
                *dense_q3[3:], check_decode_layer(dev, failures), *f32_attn,
-               check_cache_append_kv(dev, failures)]
+               check_cache_append_kv(dev, failures), *check_flash_train(dev, failures)]
     by_key = {k["name"].split()[0]: k for k in kernels}
     count_dense_kernels(kernels, failures)
     if failures:
@@ -3161,6 +3614,7 @@ def main() -> int:
     small_reference_xtts(dev, failures)
     b8b_launches = small_reference_qwen3(dev, failures)
     small_reference_noenv(dev, failures)
+    small_reference_train(dev, failures)
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
     if failures:
         raise SystemExit("small-input reference failed: " + "; ".join(failures))
@@ -3186,6 +3640,7 @@ def main() -> int:
         studio, profile_studio = drive_audiosr(dev, failures, vo)
         xtts, profile_xtts = drive_xtts(dev, failures)
         qwen3, profile_qwen3 = drive_qwen3(dev, failures)
+        train_counts, profile_train = drive_training(dev, failures)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     if failures:
@@ -3201,6 +3656,7 @@ def main() -> int:
     profile_studio()
     profile_xtts()
     profile_qwen3()
+    profile_train()
     by_key["B13"]["launches"] = studio[GN_SETTINGS[0][0]]["launches"]
     by_key["B13"]["launches_knob_unset"] = studio[GN_SETTINGS[1][0]]["launches"]
     # B1-B6: the Chatterbox default path's counts; B7: the streaming path's;
@@ -3210,13 +3666,18 @@ def main() -> int:
     # Chatterbox bench request's VOCALIE_MEGALAYER=1 run; K1 and K4: its
     # VOCALIE_DECODE_KERNEL=1 run; K2 and B10 (on no served path): the
     # Chatterbox default path's counts, measured (every path above fails if
-    # either is launched)
+    # either is launched); B6t, B11a and B11b: one full-width flash train step
     main_counts = {**counts, "B12": counts12["B12"], "B7": cosy["streaming, default"]["B7"],
                    "B9a": xtts["bench 8-chunk, default"]["B9a"],
                    "B9b": xtts["bench 8-chunk, default"]["B9b"],
                    "B9c": xtts["bench 8-chunk, VOCALIE_MEGATAIL=0"]["B9c"],
                    "B8a": qwen3["bench 8-chunk voice_clone, VOCALIE_MEGATAIL=0"]["B8a"],
-                   "B8b": b8b_launches, "K1": counts_dk["K1"], "K4": counts_dk["K4"]}
+                   "B8b": b8b_launches, "K1": counts_dk["K1"], "K4": counts_dk["K4"],
+                   **{k: train_counts[k] for k in ("B6t", "B11a", "B11b")}}
+    for key in ("B6t", "B11a", "B11b"):
+        by_key[key]["launches_path"] = ("one full-width use_flash=True train step at 8 x 128 "
+                                        "(30 layers); finetune_overlay launches 0 (the XLA "
+                                        "attention, as in JAX)")
     by_key["B8b"]["launches_path"] = "phase 3: the biased-SwiGLU d_model-128 reference"
     for key, entry in by_key.items():
         if key == "B13":

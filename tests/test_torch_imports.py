@@ -149,6 +149,12 @@ SLICE6_MODULES = (
 )
 #: the module the whole-layer slice (B12) added
 SLICE7_MODULES = ("vocalie_tts_tpu_torch.ops.decode_layer",)
+#: the modules the training slice (B6t, B11) added
+SLICE9_MODULES = (
+    "vocalie_tts_tpu_torch.ops.flash_attention_bwd",
+    "vocalie_tts_tpu_torch.parallel.train",
+    "vocalie_tts_tpu_torch.training.finetune_fr",
+)
 
 #: one child interpreter imports each module alone: it blocks JAX, the JAX
 #: package and Triton, imports torch once, and for each module drops every
@@ -181,7 +187,7 @@ def alone():
     import json
 
     modules = (SLICE3_MODULES + SLICE4_MODULES + SLICE5_MODULES + SLICE6_MODULES
-               + SLICE7_MODULES)
+               + SLICE7_MODULES + SLICE9_MODULES)
     out = subprocess.run([sys.executable, "-c", _ALONE, json.dumps(modules)], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
@@ -267,6 +273,14 @@ def test_qwen3_entry_points_refuse_cpu_fallback(tmp_path, monkeypatch):
 def test_slice7_module_imports_alone(alone, module):
     """B12's module imports on its own with JAX, the JAX package and Triton
     blocked, loads no kernel library and touches no GPU."""
+    test_slice3_module_imports_alone(alone, module)
+
+
+@pytest.mark.parametrize("module", SLICE9_MODULES)
+def test_slice9_module_imports_alone(alone, module):
+    """Each module of the training slice imports on its own with JAX, the JAX
+    package and Triton blocked, loads no kernel library and touches no
+    GPU."""
     test_slice3_module_imports_alone(alone, module)
 
 

@@ -1,5 +1,6 @@
 """The port's CUDA kernels (B1 int8 decode attention, B5 KV-cache append,
-B6 flash attention, the dense decode kernels B2/B3/B4, the unfused SwiGLU
+B6 flash attention, the training path's B6 with its logsumexp (B6t) and the
+flash-attention backward B11 (B11b dQ, B11a dK/dV), the dense decode kernels B2/B3/B4, the unfused SwiGLU
 tail and MLP B8a/B8b and the GPT-2 siblings B9a/B9b/B9c, the whole-step
 kernel B7) against their plain PyTorch versions on the GPU, at the edge
 shapes the main path does not reach: GQA, head dims other than 64, ragged
@@ -377,6 +378,120 @@ def test_flash_attention_kernel_rejects_bad_inputs(dev):
                         q[..., :48].contiguous())
     with pytest.raises(ValueError, match="kv_lens"):
         flash_attention(q, q, q, kv_lens=torch.zeros(1, dtype=torch.int64, device=dev))
+
+
+# ── B6t, B11a, B11b (the training path) ─────────────────────────────────
+
+
+#: the phase-2 shapes of chip_smoke.py (the T3 fine-tune's [8, 16, 128, 64]
+#: and [8, 16, 512, 64], GQA at d 128, a ragged non-causal case) and edges:
+#: f32, d 16 with GQA 4:1, s off every tile, s_q != s_k
+TRAIN_CASES = [
+    (8, 16, 16, 128, 128, 64, True),
+    (8, 16, 16, 512, 512, 64, True),
+    (8, 16, 8, 512, 512, 128, True),
+    (2, 4, 4, 200, 200, 64, False),
+    (2, 4, 1, 100, 100, 16, True),
+    (3, 4, 2, 77, 77, 32, False),
+    (1, 2, 2, 70, 130, 8, True),
+]
+
+
+def _train_inputs(dev, dtype, b, h, hk, s_q, s_k, d):
+    gen = _gen(dev, s_q + 3 * d + h + hk)
+    q = torch.randn((b, h, s_q, d), generator=gen, device=dev).to(dtype)
+    k, v = (torch.randn((b, hk, s_k, d), generator=gen, device=dev).to(dtype)
+            for _ in range(2))
+    do = torch.randn((b, h, s_q, d), generator=gen, device=dev).to(dtype)
+    return q, k, v, do
+
+
+def _within(got, ref, frac):
+    """|got - ref| <= frac * max|ref| (f32 1e-4: only the summation order
+    differs; bf16 1e-2: the outputs are bf16, and B11b rounds ds to bf16
+    before its dQ product, where an f32-ulp change of ds can flip a step)."""
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= frac * ref.float().abs().max().item(), (err, ref.float().abs().max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,h,hk,s_q,s_k,d,causal", TRAIN_CASES)
+def test_flash_train_kernels(dev, dtype, b, h, hk, s_q, s_k, d, causal):
+    """B6t (out and lse), B11b (dq and di) and B11a (dk and dv) each against
+    its plain version on the same inputs; lse within 1e-5 + 1e-5·|ref|."""
+    from vocalie_tts_tpu_torch.ops.flash_attention import attention_plain_lse, flash_attention_lse
+    from vocalie_tts_tpu_torch.ops import flash_attention_bwd as fb
+
+    q, k, v, do = _train_inputs(dev, dtype, b, h, hk, s_q, s_k, d)
+    before = (flash_attention_lse.launches, fb.flash_attention_bwd_dq.launches,
+              fb.flash_attention_bwd_dkv.launches)
+    out, lse = flash_attention_lse(q, k, v, causal=causal)
+    ref_out, ref_lse = attention_plain_lse(q, k, v, causal=causal)
+    sm = 1.0 / math.sqrt(d)
+    dq, di = fb.flash_attention_bwd_dq(q, k, v, ref_out, ref_lse, do, causal=causal, sm_scale=sm)
+    ref_dq, ref_di = fb.flash_attention_bwd_dq_plain(q, k, v, ref_out, ref_lse, do,
+                                                     causal=causal, sm_scale=sm)
+    dk, dv = fb.flash_attention_bwd_dkv(q, k, v, do, ref_lse, ref_di, causal=causal, sm_scale=sm)
+    ref_dk, ref_dv = fb.flash_attention_bwd_dkv_plain(q, k, v, do, ref_lse, ref_di,
+                                                      causal=causal, sm_scale=sm)
+    torch.cuda.synchronize()
+    assert (flash_attention_lse.launches, fb.flash_attention_bwd_dq.launches,
+            fb.flash_attention_bwd_dkv.launches) == tuple(n + 1 for n in before)
+    rows_with_keys = torch.isfinite(ref_lse)
+    assert torch.equal(torch.isfinite(lse), rows_with_keys)
+    assert torch.all((lse - ref_lse).abs()[rows_with_keys]
+                     <= 1e-5 + 1e-5 * ref_lse.abs()[rows_with_keys])
+    diff = (out.float() - ref_out.float()).abs()
+    if dtype == torch.float32:
+        assert diff.max().item() <= 1e-4
+    else:
+        assert torch.all(diff <= 1e-2 + 1e-2 * ref_out.float().abs())
+    frac = 1e-4 if dtype == torch.float32 else 1e-2
+    _within(di, ref_di, 1e-5)
+    for got, ref in ((dq, ref_dq), (dk, ref_dk), (dv, ref_dv)):
+        assert got.dtype == dtype and torch.all(torch.isfinite(got))
+        _within(got, ref, frac)
+
+
+@pytest.mark.parametrize("hk", [4, 2])
+def test_flash_attention_trainable_on_the_card(dev, hk):
+    """The autograd path launches B6t once forward and B11b, B11a once
+    backward, and its gradients equal the CPU's plain ones (f32)."""
+    from vocalie_tts_tpu_torch.ops.flash_attention import flash_attention_lse, flash_attention_trainable
+    from vocalie_tts_tpu_torch.ops import flash_attention_bwd as fb
+
+    q, k, v, do = _train_inputs(dev, torch.float32, 2, 4, hk, 100, 100, 64)
+    grads = []
+    for device in (dev, torch.device("cpu")):
+        leaves = [t.detach().to(device).requires_grad_(True) for t in (q, k, v)]
+        before = (flash_attention_lse.launches, fb.flash_attention_bwd_dq.launches,
+                  fb.flash_attention_bwd_dkv.launches)
+        out = flash_attention_trainable(*leaves)
+        out.backward(do.to(device).transpose(2, 3).contiguous().transpose(2, 3))  # not contiguous
+        launched = tuple(a - b for a, b in zip((flash_attention_lse.launches,
+                                                 fb.flash_attention_bwd_dq.launches,
+                                                 fb.flash_attention_bwd_dkv.launches), before))
+        assert launched == ((1, 1, 1) if device.type == "cuda" else (0, 0, 0))
+        grads.append([out.detach().cpu()] + [t.grad.cpu() for t in leaves])
+    for got, ref in zip(*grads):
+        _within(got, ref, 1e-4)
+
+
+def test_flash_train_kernels_reject_bad_inputs(dev):
+    from vocalie_tts_tpu_torch.ops import flash_attention_bwd as fb
+
+    q = torch.zeros((1, 2, 8, 64), device=dev)
+    lse = torch.zeros((1, 2, 8), device=dev)
+    kw = dict(causal=True, sm_scale=0.125)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fb.flash_attention_bwd_dq(q.half(), q.half(), q.half(), q.half(), lse, q.half(), **kw)
+    with pytest.raises(ValueError, match="lse"):
+        fb.flash_attention_bwd_dq(q, q, q, q, lse.double(), q, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        fb.flash_attention_bwd_dkv(q, q, q, q.transpose(2, 3).contiguous().transpose(2, 3), lse,
+                                   lse, **kw)
+    with pytest.raises(ValueError, match="di"):
+        fb.flash_attention_bwd_dkv(q, q, q, q, lse, lse[:, :1].contiguous(), **kw)
 
 
 # ── B2, B3, B4 ──────────────────────────────────────────────────────────

@@ -617,15 +617,15 @@ def test_bridge_and_save(runtimes, tmp_path, monkeypatch):
     into the same tree."""
     from vocalie_tts_tpu_torch.bridge import lmtts_bundle
     from vocalie_tts_tpu_torch.models.common.ar_runtime import maybe_quantize_lm
-    from vocalie_tts_tpu_torch.models.common.weights import _flatten
+    from vocalie_tts_tpu_torch.models.common.weights import tree_items
     from vocalie_tts_tpu_torch.models.lmtts.runtime import LMTTSRuntime
 
     _, prt, (bundle, dec), assets, _ = runtimes
     b = lmtts_bundle(bundle, dec)
     monkeypatch.setenv("VOCALIE_WEIGHT_INT8", "1")
-    want = dict(_flatten({"lm_bundle": maybe_quantize_lm(b["lm_bundle"]),
+    want = dict(tree_items({"lm_bundle": maybe_quantize_lm(b["lm_bundle"]),
                           "decoder": b["decoder"]}))
-    got = dict(_flatten(prt.params))
+    got = dict(tree_items(prt.params))
     assert got.keys() == want.keys() and "lm_bundle/lm/layers/k_norm" in got
     for k, v in want.items():
         assert got[k].dtype == v.dtype and torch.equal(got[k], v), k
@@ -635,8 +635,8 @@ def test_bridge_and_save(runtimes, tmp_path, monkeypatch):
     rt = LMTTSRuntime.create(assets, device="cpu")
     rt.weights_dir = tmp_path / "weights"
     rt.save_weights()
-    want = dict(_flatten(rt.params))
-    got = dict(_flatten(LMTTSRuntime.create(tmp_path, device="cpu").params))
+    want = dict(tree_items(rt.params))
+    got = dict(tree_items(LMTTSRuntime.create(tmp_path, device="cpu").params))
     assert got.keys() == want.keys()
     for k, v in want.items():
         assert torch.equal(got[k], v), k

@@ -447,14 +447,14 @@ def test_bridge_and_save(runtimes):
     int8 tree as the JAX runtime does."""
     from vocalie_tts_tpu_torch.bridge import xtts_bundle
     from vocalie_tts_tpu_torch.models.common.ar_runtime import maybe_quantize_lm
-    from vocalie_tts_tpu_torch.models.common.weights import _flatten
+    from vocalie_tts_tpu_torch.models.common.weights import tree_items
 
     _, prt, (gpt, dec), _ = runtimes
     b = xtts_bundle(gpt, dec)
     with pytest.MonkeyPatch.context() as mp:
         mp.setenv("VOCALIE_WEIGHT_INT8", "1")
-        want = dict(_flatten({"gpt": maybe_quantize_lm(b["gpt"]), "decoder": b["decoder"]}))
-    got = dict(_flatten(prt.params))
+        want = dict(tree_items({"gpt": maybe_quantize_lm(b["gpt"]), "decoder": b["decoder"]}))
+    got = dict(tree_items(prt.params))
     assert got.keys() == want.keys() and "gpt/lm/layers/wqkv/q" in got
     for k, v in want.items():
         assert got[k].dtype == v.dtype and torch.equal(got[k], v), k
@@ -466,7 +466,7 @@ def test_save_weights_round_trip(runtimes, tmp_path, monkeypatch):
     """With float weights (``VOCALIE_WEIGHT_INT8`` unset) ``save_weights``
     writes the unfused LM; a runtime created from what it wrote holds the
     same tree as the one that wrote it."""
-    from vocalie_tts_tpu_torch.models.common.weights import _flatten
+    from vocalie_tts_tpu_torch.models.common.weights import tree_items
     from vocalie_tts_tpu_torch.models.xtts.runtime import XTTSRuntime
 
     _, _, _, assets = runtimes
@@ -477,8 +477,8 @@ def test_save_weights_round_trip(runtimes, tmp_path, monkeypatch):
     assert "wqkv" in rt.params["gpt"]["lm"]["layers"]
     rt.weights_dir = tmp_path / "weights"
     rt.save_weights()
-    want = dict(_flatten(rt.params))
-    got = dict(_flatten(XTTSRuntime.create(tmp_path, device="cpu").params))
+    want = dict(tree_items(rt.params))
+    got = dict(tree_items(XTTSRuntime.create(tmp_path, device="cpu").params))
     assert got.keys() == want.keys()
     for k, v in want.items():
         assert torch.equal(got[k], v), k

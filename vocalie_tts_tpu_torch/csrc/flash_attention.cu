@@ -13,6 +13,12 @@
 // Not copied: the TPU's whole-row CFM tiles (block_q = block_k = T padded)
 // and the jnp.repeat of k/v heads for GQA -- the kv head is indexed.
 //
+// With a non-null ``lse`` (f32 [b, h, s_q]) the kernel also writes each
+// row's logsumexp, m + log(max(l, 1e-30)) as _attention_kernel's _store
+// (flash_attention.py:103), which the training path's backward (B11,
+// flash_attention_bwd.cu) reads: _fa_fwd -> _flash_attention_padded. A row
+// with no valid key gets -inf. Serving passes null and writes nothing more.
+//
 // Bound: bytes at both main-path shapes. At the CFM shape (b=16, h=8,
 // T=640, d=64, bf16) q, k, v and o move ~42 MB (~12.5 us at 3.35 TB/s)
 // against at most 13 GFLOP of q.k and p.v (less with ragged kv_lens; at
@@ -59,6 +65,7 @@ __global__ void __launch_bounds__(BQ * SPLIT) flash_fwd_kernel(
     const T* __restrict__ k,        // [b, hk, s_k, D]
     const T* __restrict__ v,        // [b, hk, s_k, D]
     T* __restrict__ out,            // [b, h, s_q, D]
+    float* __restrict__ lse,        // [b, h, s_q] or null
     const int* __restrict__ kv_lens,  // [b] or null
     int h, int hk, int s_q, int s_k, int causal, float sm_scale) {
   constexpr int NT = BQ * SPLIT;
@@ -147,45 +154,50 @@ __global__ void __launch_bounds__(BQ * SPLIT) flash_fwd_kernel(
     T* orow = out + ((long long)bh * s_q + r) * D + part;
 #pragma unroll
     for (int dd = 0; dd < DS; ++dd) orow[dd * SPLIT] = from_f<T>(acc[dd] * linv);
+    if (lse != nullptr && part == 0) lse[(long long)bh * s_q + r] = m + logf(fmaxf(l, 1e-30f));
   }
 }
 
 template <typename T, int D>
-static int launch(const void* q, const void* k, const void* v, void* out, const int* kv_lens,
+static int launch(const void* q, const void* k, const void* v, void* out, float* lse,
+                  const int* kv_lens,
                   int b, int h, int hk, int s_q, int s_k, int causal, float sm_scale,
                   cudaStream_t stream) {
   constexpr int SPLIT = D > 64 ? 4 : 1;
   dim3 grid((s_q + BQ - 1) / BQ, b * h);
   flash_fwd_kernel<T, D, SPLIT><<<grid, BQ * SPLIT, 0, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)out, kv_lens, h, hk, s_q, s_k, causal, sm_scale);
+      (const T*)q, (const T*)k, (const T*)v, (T*)out, lse, kv_lens, h, hk, s_q, s_k, causal,
+      sm_scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-static int dispatch_d(const void* q, const void* k, const void* v, void* out, const int* kv_lens,
+static int dispatch_d(const void* q, const void* k, const void* v, void* out, float* lse,
+                      const int* kv_lens,
                       int b, int h, int hk, int s_q, int s_k, int d, int causal, float sm_scale,
                       cudaStream_t stream) {
   switch (d) {
-    case 8: return launch<T, 8>(q, k, v, out, kv_lens, b, h, hk, s_q, s_k, causal, sm_scale, stream);
-    case 16: return launch<T, 16>(q, k, v, out, kv_lens, b, h, hk, s_q, s_k, causal, sm_scale, stream);
-    case 32: return launch<T, 32>(q, k, v, out, kv_lens, b, h, hk, s_q, s_k, causal, sm_scale, stream);
-    case 64: return launch<T, 64>(q, k, v, out, kv_lens, b, h, hk, s_q, s_k, causal, sm_scale, stream);
-    case 128: return launch<T, 128>(q, k, v, out, kv_lens, b, h, hk, s_q, s_k, causal, sm_scale, stream);
+    case 8: return launch<T, 8>(q, k, v, out, lse, kv_lens, b, h, hk, s_q, s_k, causal, sm_scale, stream);
+    case 16: return launch<T, 16>(q, k, v, out, lse, kv_lens, b, h, hk, s_q, s_k, causal, sm_scale, stream);
+    case 32: return launch<T, 32>(q, k, v, out, lse, kv_lens, b, h, hk, s_q, s_k, causal, sm_scale, stream);
+    case 64: return launch<T, 64>(q, k, v, out, lse, kv_lens, b, h, hk, s_q, s_k, causal, sm_scale, stream);
+    case 128: return launch<T, 128>(q, k, v, out, lse, kv_lens, b, h, hk, s_q, s_k, causal, sm_scale, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// dtype: 0 = float32, 1 = bfloat16
+// dtype: 0 = float32, 1 = bfloat16; lse: f32 [b, h, s_q] or null
 extern "C" int vt_flash_attention_fwd(
-    const void* q, const void* k, const void* v, void* out, const void* kv_lens,
+    const void* q, const void* k, const void* v, void* out, void* lse, const void* kv_lens,
     int b, int h, int hk, int s_q, int s_k, int d, int causal, float sm_scale,
     int dtype, void* stream) {
   if (hk < 1 || h % hk != 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   const int* lens = (const int*)kv_lens;
+  float* ls = (float*)lse;
   if (dtype == 0)
-    return dispatch_d<float>(q, k, v, out, lens, b, h, hk, s_q, s_k, d, causal, sm_scale, st);
+    return dispatch_d<float>(q, k, v, out, ls, lens, b, h, hk, s_q, s_k, d, causal, sm_scale, st);
   if (dtype == 1)
-    return dispatch_d<__nv_bfloat16>(q, k, v, out, lens, b, h, hk, s_q, s_k, d, causal, sm_scale, st);
+    return dispatch_d<__nv_bfloat16>(q, k, v, out, ls, lens, b, h, hk, s_q, s_k, d, causal, sm_scale, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -42,8 +42,18 @@ from vocalie_tts_tpu_torch.models.common.ar_runtime import (
     to_pcm16_wire,
 )
 from vocalie_tts_tpu_torch.models.common.token2wav import Stage2Noise, draw_stage2_noise
-from vocalie_tts_tpu_torch.models.common.transformer import decode_step, prefill
-from vocalie_tts_tpu_torch.models.common.weights import checkpoint_exists, load_meta, load_params
+from vocalie_tts_tpu_torch.models.common.transformer import (
+    decode_step,
+    prefill,
+    unfuse_decode_weights,
+)
+from vocalie_tts_tpu_torch.models.common.weights import (
+    check_saveable,
+    checkpoint_exists,
+    load_meta,
+    load_params,
+    save_params,
+)
 from vocalie_tts_tpu_torch.ops.generate import GenerateConfig, generate_tokens
 from vocalie_tts_tpu_torch.ops.kv_cache import pick_bucket, round_cache_len
 from vocalie_tts_tpu_torch.text.duration import estimate_duration
@@ -114,6 +124,20 @@ class ChatterboxRuntime:
         else:
             params["t3_fr"] = params["t3"]
         return cls(params, cfg, weights_dir, dev, seed=seed)
+
+    def save_weights(self) -> None:
+        """Write ``t3`` (the LM unfused, with the vocabularies in its meta)
+        and ``s3gen`` in the JAX package's format (JAX ``save_weights``);
+        int8 weights are refused, as in JAX."""
+        check_saveable(self.params)
+        t3 = self.params["t3"]
+        save_params(self.weights_dir, "t3",
+                    {**t3, "lm": unfuse_decode_weights(t3["lm"], self.cfg.lm)},
+                    meta={"family": "chatterbox", "stage": "t3",
+                          "text_vocab": self.cfg.text_vocab,
+                          "speech_vocab": self.cfg.speech_vocab})
+        save_params(self.weights_dir, "s3gen", self.params["decoder"],
+                    meta={"family": "chatterbox", "stage": "s3gen"})
 
     def warmup(self) -> None:
         self.synthesize("Bonjour, préchauffage du moteur.", mode="fr_finetune")

@@ -6,7 +6,9 @@ layers stacked on a leading ``[n_layers]`` axis, ``x @ W`` layout,
 int8 weights as ``{"q": int8, "s": f32 [..., 1, d_out]}``. The layer
 loop is a Python loop over that axis. ``prefill`` and ``decode_step``
 take the runtime's weights, with q/k/v and gate/up concatenated by
-``fuse_decode_weights`` (``ar_runtime.maybe_quantize_lm``).
+``fuse_decode_weights`` (``ar_runtime.maybe_quantize_lm``), under
+``torch.no_grad``; ``forward_all_logits`` (the trainer's forward, under
+autograd) takes the unfused tree of ``init_params``.
 
 Two families: the Chatterbox/CosyVoice/Qwen3 one (RMSNorm, RoPE, GQA,
 SwiGLU, optional q/k/v biases, ``attn_bias``, optional per-head q/k
@@ -69,7 +71,11 @@ from vocalie_tts_tpu_torch.ops.decode_dense import (
 from vocalie_tts_tpu_torch.ops.decode_attention import decode_attention_stacked
 from vocalie_tts_tpu_torch.ops.decode_layer import layer_swiglu_qkv_int8_stacked
 from vocalie_tts_tpu_torch.ops.decode_step import decode_step_fused_packed
-from vocalie_tts_tpu_torch.ops.flash_attention import flash_attention, reference_attention
+from vocalie_tts_tpu_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_trainable,
+    reference_attention,
+)
 from vocalie_tts_tpu_torch.utils.env import bool_env
 
 Params = Dict[str, Any]
@@ -497,12 +503,20 @@ def _layer(layers: Params, l: int) -> Params:
 
 
 def _block_qkv(layer: Params, x: torch.Tensor, cfg: TransformerConfig, cos, sin, qkv_dot=None):
-    """Norm, the fused qkv projection (``_qdot``, or ``qkv_dot``: B4 in the
-    decode step's ``DENSE_FNS`` path, cast to the activation dtype), the
-    bias, then ``_finish_qkv``."""
+    """Norm, the qkv projection (``qkv_dot``: B4 in the decode step's
+    ``DENSE_FNS`` path, cast to the activation dtype; else ``_qdot`` of the
+    fused ``wqkv`` the runtimes serve, or of the unfused ``wq``/``wk``/``wv``
+    of the training tree, JAX :563-575), the bias, then the heads."""
     h = _norm(x, cfg, layer["attn_norm"], layer.get("attn_norm_b"))
-    qkv = qkv_dot(h) if qkv_dot is not None else _qdot(h, layer["wqkv"])
-    return _finish_qkv(cfg, _add_qkv_bias(cfg, qkv, layer.get("bqkv")), cos, sin, layer)
+    if qkv_dot is not None or "wqkv" in layer:
+        qkv = qkv_dot(h) if qkv_dot is not None else _qdot(h, layer["wqkv"])
+        return _finish_qkv(cfg, _add_qkv_bias(cfg, qkv, layer.get("bqkv")), cos, sin, layer)
+    q, k, v = _qdot(h, layer["wq"]), _qdot(h, layer["wk"]), _qdot(h, layer["wv"])
+    if cfg.attn_bias:
+        q = q + layer["bq"].to(q.dtype)
+        k = k + layer["bk"].to(k.dtype)
+        v = v + layer["bv"].to(v.dtype)
+    return _heads_qkv(cfg, q, k, v, cos, sin, layer)
 
 
 def _add_qkv_bias(cfg: TransformerConfig, qkv: torch.Tensor, bqkv) -> torch.Tensor:
@@ -513,13 +527,18 @@ def _add_qkv_bias(cfg: TransformerConfig, qkv: torch.Tensor, bqkv) -> torch.Tens
 
 
 def _finish_qkv(cfg: TransformerConfig, qkv, cos, sin, layer: Optional[Params] = None):
-    """Split of the fused projection, head split, the per-head q/k RMSNorm
-    (``qk_norm``: f32 over d_head, cast back to q's dtype, before RoPE, as
-    JAX ``transformer.py:577-580``; ``layer`` holds ``q_norm`` /
-    ``k_norm``), then RoPE (none for learned positions)."""
+    """Split of the fused projection, then ``_heads_qkv``."""
     q = qkv[..., : cfg.q_dim]
     k = qkv[..., cfg.q_dim : cfg.q_dim + cfg.kv_dim]
     v = qkv[..., cfg.q_dim + cfg.kv_dim :]
+    return _heads_qkv(cfg, q, k, v, cos, sin, layer)
+
+
+def _heads_qkv(cfg: TransformerConfig, q, k, v, cos, sin, layer: Optional[Params] = None):
+    """Head split, the per-head q/k RMSNorm (``qk_norm``: f32 over d_head,
+    cast back to q's dtype, before RoPE, as JAX ``transformer.py:577-580``;
+    ``layer`` holds ``q_norm`` / ``k_norm``), then RoPE (none for learned
+    positions)."""
     q = _split_heads(q, cfg.n_heads, cfg.d_head)
     k = _split_heads(k, cfg.n_kv_heads, cfg.d_head)
     v = _split_heads(v, cfg.n_kv_heads, cfg.d_head)
@@ -534,7 +553,8 @@ def _finish_qkv(cfg: TransformerConfig, qkv, cos, sin, layer: Optional[Params] =
 def _block_tail(layer: Params, x: torch.Tensor, attn: torch.Tensor, cfg: TransformerConfig,
                 o_dot=None, mlp_fn=None):
     """o-projection (``_qdot``, or ``o_dot``: B4), bias, residual, norm,
-    MLP, residual. ``mlp_fn`` (B8b) replaces the whole MLP and, as in
+    MLP (a fused ``w_gateup`` or, in the training tree, ``w_gate`` and
+    ``w_up``), residual. ``mlp_fn`` (B8b) replaces the whole MLP and, as in
     JAX, adds no ``b_down``."""
     merged = _merge_heads(attn)
     o = o_dot(merged) if o_dot is not None else _qdot(merged, layer["wo"])
@@ -544,10 +564,14 @@ def _block_tail(layer: Params, x: torch.Tensor, attn: torch.Tensor, cfg: Transfo
     h2 = _norm(x, cfg, layer["mlp_norm"], layer.get("mlp_norm_b"))
     if mlp_fn is not None:
         return x + mlp_fn(h2).to(x.dtype)
-    if cfg.mlp_type == "swiglu":
+    if cfg.mlp_type == "swiglu" and "w_gateup" in layer:   # the runtimes' fused tree
         gu = _qdot(h2, layer["w_gateup"], f32_out=True)
         gate, up = gu[..., : cfg.d_ff], gu[..., cfg.d_ff :]
         hidden = (F.silu(gate) * up).to(x.dtype)
+    elif cfg.mlp_type == "swiglu":   # the training tree (JAX :601-606)
+        gate = F.silu(_qdot(h2, layer["w_gate"], f32_out=True))
+        up = _qdot(h2, layer["w_up"], f32_out=True)
+        hidden = (gate * up).to(x.dtype)
     else:   # GPT-2: fc → tanh-GELU → proj
         up = _qdot(h2, layer["w_up"], f32_out=True)
         if cfg.bias:
@@ -868,6 +892,47 @@ def _decode_step_finish(params, cfg, cache, x, k_news, v_news, write_pos):
 #: to count its steps by)
 decode_step.steps = 0
 
+
+def forward_all_logits(params: Params, cfg: TransformerConfig, tokens: torch.Tensor, *,
+                       use_flash: bool = False, mesh=None) -> torch.Tensor:
+    """Causal forward returning f32 logits at EVERY position (the training
+    path, JAX :1229-1276), under autograd. Attention is
+    :func:`reference_attention` (the f32 softmax, differentiated by
+    autograd), or with ``use_flash`` the flash kernel with its kernel
+    backward (``flash_attention_trainable``: B6t forward, B11 backward).
+    ``params`` is the unfused tree (``init_params``); the stacked layer
+    leaves are unbound once, so each gets its gradient in one stack."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "a mesh runs the flash kernel under shard_map over dp x tp in the JAX package; the "
+            "port trains on one GPU until torch.distributed is ported (ROADMAP A8)"
+        )
+    b, s = tokens.shape
+    x = params["tok_emb"][tokens]
+    cos = sin = None
+    if cfg.pos_type == "rope":
+        positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
+        cos, sin = rope_angles(positions, cfg.d_head, cfg.rope_theta)
+    else:
+        x = x + params["pos_emb"][:s][None].to(x.dtype)
+
+    def attn_fn(q, k, v):
+        if use_flash:
+            return flash_attention_trainable(q.contiguous(), k.contiguous(), v.contiguous(), True)
+        return reference_attention(q, k, v, causal=True)
+
+    per_layer = {k: v.unbind(0) for k, v in params["layers"].items()}
+    for l in range(cfg.n_layers):
+        layer = {k: v[l] for k, v in per_layer.items()}
+        q, k, v = _block_qkv(layer, x, cfg, cos, sin)
+        x = _block_tail(layer, x, attn_fn(q, k, v), cfg)
+    x = _norm(x, cfg, params["final_norm"], params.get("final_norm_b"))
+    logits = _qdot(x, params["lm_head"], f32_out=True)
+    if "lm_head_b" in params:
+        logits = logits + params["lm_head_b"].to(logits.dtype)
+    return logits
+
+
 __all__ = [
     "TransformerConfig",
     "StackedKVCache",
@@ -881,4 +946,5 @@ __all__ = [
     "unfuse_decode_weights",
     "prefill",
     "decode_step",
+    "forward_all_logits",
 ]

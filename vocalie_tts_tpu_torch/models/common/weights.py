@@ -19,13 +19,15 @@ import torch
 _META_NAME = "meta.json"
 
 
-def _flatten(tree: Any, prefix: str = "") -> Iterator[Tuple[str, Any]]:
+def tree_items(tree: Any, prefix: str = "") -> Iterator[Tuple[str, Any]]:
+    """``(path, leaf)`` of nested dicts and lists, depth first in order;
+    paths join the keys and indices with "/" (the checkpoints' keys)."""
     if isinstance(tree, dict):
         for k, v in tree.items():
-            yield from _flatten(v, f"{prefix}{k}/")
+            yield from tree_items(v, f"{prefix}{k}/")
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
-            yield from _flatten(v, f"{prefix}{i}/")
+            yield from tree_items(v, f"{prefix}{i}/")
     else:
         yield prefix[:-1], tree
 
@@ -44,7 +46,7 @@ def load_params(weights_dir: Path, name: str, template: Any, device="cpu") -> An
     path = Path(weights_dir) / f"{name}.npz"
     data = np.load(path)
     values = {}
-    for key, leaf in _flatten(template):
+    for key, leaf in tree_items(template):
         if key not in data.files:
             raise ValueError(f"checkpoint {path} is missing key {key!r}")
         raw = data[key]
@@ -62,7 +64,7 @@ def save_params(weights_dir: Path, name: str, params: Any, meta: Dict | None = N
     and fused trees are runtime views of a full-precision tree and are
     refused, as the JAX package refuses them."""
     flat = {}
-    for key, leaf in _flatten(params):
+    for key, leaf in tree_items(params):
         if "wqkv" in key or "w_gateup" in key:
             raise RuntimeError(f"refusing to save fused decode weights ({key})")
         if leaf.dtype == torch.int8:
@@ -85,6 +87,15 @@ def save_params(weights_dir: Path, name: str, params: Any, meta: Dict | None = N
     return path
 
 
+def check_saveable(tree: Any) -> None:
+    """int8 weight trees are a runtime-only form: refused before anything is
+    written, as in JAX."""
+    for _key, leaf in tree_items(tree):
+        if isinstance(leaf, torch.Tensor) and leaf.dtype == torch.int8:
+            raise RuntimeError("refusing to save int8-quantized weights; unset "
+                               "VOCALIE_WEIGHT_INT8 and re-create the runtime to save")
+
+
 def checkpoint_exists(weights_dir: Path, name: str) -> bool:
     return (Path(weights_dir) / f"{name}.npz").exists()
 
@@ -101,4 +112,11 @@ def load_meta(weights_dir: Path, name: str) -> Dict:
     return dict(entry) if isinstance(entry, dict) else {}
 
 
-__all__ = ["load_params", "save_params", "checkpoint_exists", "load_meta"]
+__all__ = [
+    "tree_items",
+    "load_params",
+    "save_params",
+    "check_saveable",
+    "checkpoint_exists",
+    "load_meta",
+]

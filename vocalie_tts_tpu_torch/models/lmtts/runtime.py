@@ -44,6 +44,7 @@ from vocalie_tts_tpu_torch.models.common.ar_runtime import (
 from vocalie_tts_tpu_torch.models.common.speaker import embed_reference_audio
 from vocalie_tts_tpu_torch.models.common.transformer import unfuse_decode_weights
 from vocalie_tts_tpu_torch.models.common.weights import (
+    check_saveable,
     checkpoint_exists,
     load_meta,
     load_params,
@@ -76,19 +77,6 @@ SCALES: Dict[str, LMTTSConfig] = {
     "tiny": LMTTSConfig(d_model=64, n_layers=2, n_heads=4, n_kv_heads=2, d_ff=128,
                         max_seq_len=512, dtype=torch.float32),
 }
-
-
-def _check_saveable(tree) -> None:
-    """int8 weight trees are a runtime-only form: refused, as in JAX."""
-    if isinstance(tree, dict):
-        for v in tree.values():
-            _check_saveable(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            _check_saveable(v)
-    elif isinstance(tree, torch.Tensor) and tree.dtype == torch.int8:
-        raise RuntimeError("refusing to save int8-quantized weights; unset VOCALIE_WEIGHT_INT8 "
-                           "and re-create the runtime to save")
 
 
 class LMTTSRuntime:
@@ -142,7 +130,7 @@ class LMTTSRuntime:
     def save_weights(self) -> None:
         """Write ``lm`` (the LM unfused, with the vocabularies in its meta)
         and ``codec_decoder``; int8 weights are refused, as in JAX."""
-        _check_saveable(self.params)
+        check_saveable(self.params)
         bundle = self.params["lm_bundle"]
         save_params(self.weights_dir, "lm",
                     {**bundle, "lm": unfuse_decode_weights(bundle["lm"], self.cfg.lm)},
