@@ -26,7 +26,14 @@ Phases (any failure exits non-zero before the final line is printed):
    B11b (the flash backward's dQ, with di) and B11a (its dK/dV) at the T3
    fine-tune's [8, 16, 128, 64] and [8, 16, 512, 64] bf16 causal, GQA at d
    128 and a ragged non-causal [2, 4, 200, 64], against SDPA's forward and
-   its backward alone under autograd -- at the shapes the path gives it (B1-B6 also at the Qwen3 shapes:
+   its backward alone under autograd, and slice 10's: B1w, the int8 decode
+   attention with one softmax over the whole row (at the T3 cache of 600
+   slots with and without the current token, and [28,8,8,520,128] at g 2;
+   B1 on the same slots of a 640-slot cache timed beside it), B9d, the int8
+   GELU MLP alone (the XTTS layer, f32 and bf16 rows, against the ``_qdot``
+   ops), and K5, the one-array append without scales (one bf16
+   [30,16,16,640,128] array at three positions, byte-exact) -- at the
+   shapes the path gives it (B1-B6 also at the Qwen3 shapes:
    d_model 2048, 16 q / 8 kv heads of 128, d_ff 8192, b = 8; B6 at
    [8, 16, 512, 128] causal with 8 kv heads): hold the kernel against its plain
    PyTorch version on the card, time kernel, plain version and (where one
@@ -55,7 +62,9 @@ Phases (any failure exits non-zero before the final line is printed):
    slice assignment) and with ``VOCALIE_DECODE_KERNEL=1`` (K1 + K4), GPU vs
    CPU, and the no-env T3's stage 2; and two ``use_flash=True`` train steps
    of the tiny T3 train view (f32), GPU kernels against the CPU's plain
-   versions: losses and each leaf's gradient;
+   versions: losses and each leaf's gradient; the tiny T3 also at
+   ``cache_len`` 200 (B1w in place of B1), and a d_model-128 GELU MLP with
+   biases under RMSNorm (B4 + B9d) GPU vs GPU plain and vs CPU;
 4. the main path: ``run_tts_pipeline`` at the full Chatterbox T3 width
    (random weights from a seed), in the JAX package's default int8 serving
    configuration (``VOCALIE_KV_INT8=1 VOCALIE_WEIGHT_INT8=1``, the dense
@@ -117,7 +126,15 @@ Phases (any failure exits non-zero before the final line is printed):
    ``use_flash=True`` (30 x (B6t + B11b + B11a) a step) and without, from
    one state and batch at seq_len 128 and 512: losses within 1e-2 of each
    other, each leaf's gradient difference, ms per step, tokens/s, peak
-   memory and the FLOP bound;
+   memory and the FLOP bound; and slice 10's rows: (a) the T3 LM at full
+   width in the default int8 config, batch 16, ``prefill`` at the 512
+   bucket with ``cache_len`` 600 (a length no runtime makes) and 80 greedy
+   steps through ``generate_tokens`` (B1w = 30 x steps, B1 = B12 = B7 = 0),
+   against the same loop at ``cache_len`` 640 (B1 = 30 x steps); (b) the
+   XTTS GPT widths with RMSNorm (a GELU MLP with biases under RMSNorm, int8
+   weights and cache), batch 8, a 544-bucket prompt and 64 steps (B9d = 24
+   x steps, B4 for qkv, o and the head, B1, B5); every earlier path holds
+   B1w = B9d = K5 = 0;
    To keep the run's time, each runtime is warmed up by its first request
    only, and three Qwen3 requests of earlier slices (the voice clone with a
    transcript, voice design, the batch-1 chunk with ``VOCALIE_MEGALAYER=1``)
@@ -127,8 +144,9 @@ Phases (any failure exits non-zero before the final line is printed):
    where it has been on: short windows of each configuration show where
    the time goes, the studio pass's one UNet call and the XTTS and Qwen3
    decode windows included, the Chatterbox and Qwen3 bench requests with
-   ``VOCALIE_MEGALAYER=1`` beside their default config, and one flash train
-   step at 8 x 128 and at 8 x 512.
+   ``VOCALIE_MEGALAYER=1`` beside their default config, slice 10's two
+   rows (prefill alone and prefill + 16 steps, at 600 and 640 slots), and
+   one flash train step at 8 x 128 and at 8 x 512.
 
 The second-to-last lines are a JSON ``kernels`` line and the card's name
 and power limit; the last line is ``{"ok": true, "device": {...}}``.
@@ -922,7 +940,8 @@ def _kernel_name(key: str) -> str:
 
 
 def count_dense_kernels(kernels, failures) -> None:
-    """Record in each B2-B4, B7, B8a-b, B9a-c, B12, B13, K1, K2, B10 and K4 entry the CUDA kernels one call of its wrapper
+    """Record in each B2-B4, B7, B8a-b, B9a-d, B12, B13, K1, K2, B10, K4,
+    B1w and K5 entry the CUDA kernels one call of its wrapper
     issues at the main path's shapes, as torch.profiler counts them in a
     child process (``--count-kernels``). The profiler is never on in this
     process, which times everything before phase 5; in a fresh process it
@@ -947,15 +966,15 @@ def count_dense_kernels(kernels, failures) -> None:
 
 
 def _count_kernels_child() -> int:
-    """``--count-kernels``: one profiled call of each of B2-B4, B7, B8a-b, B9a-c, B12, B13, K1,
-    K2, B10 and K4 (after
+    """``--count-kernels``: one profiled call of each of B2-B4, B7, B8a-b, B9a-d, B12, B13, K1,
+    K2, B10, K4, B1w and K5 (after
     one unprofiled call that loads the library), printed as one JSON line."""
     dev = torch.device("cuda:0")
     t3 = {k: c for k, c in _dense_inputs(dev).calls.items() if k not in B8_NAMES}
     q3 = {k: c for k, c in _dense_inputs(dev, QWEN3_DENSE).calls.items() if k in B8_NAMES}
     calls = {**t3, **q3, B7_NAME: _b7_inputs(dev).call, B12_NAME: _b12_inputs(dev).call,
              B13_NAME: _gn_case(dev, GN_CASES[0]).call, **_gelu_inputs(dev).calls,
-             **_f32_calls(dev), **_flash_train_calls(dev)}
+             **_f32_calls(dev), **_flash_train_calls(dev), **_slice10_calls(dev)}
     out = {}
     for name, call in calls.items():
         call()
@@ -1013,7 +1032,8 @@ def _dense_entry(name, *, got, ref, ms, plain_ms, ops_ms, n_bytes, n_ops, shape,
 DENSE_LINES = {"B3 qkv_norm_int8": 269, "B2 tail_swiglu_qkv_int8": 519,
                "B4 dense_int8 (lm_head)": 116, "B8a tail_swiglu_int8": 368,
                "B8b mlp_swiglu_int8": 190, "B9a qkv_lnorm_int8": 652,
-               "B9b tail_gelu_qkv_int8": 985, "B9c tail_gelu_int8": 752}
+               "B9b tail_gelu_qkv_int8": 985, "B9c tail_gelu_int8": 752,
+               "B9d mlp_gelu_int8": 862}
 B8_NAMES = ("B8a tail_swiglu_int8", "B8b mlp_swiglu_int8")
 #: the SwiGLU dense kernels' decode shapes: the Chatterbox T3 voice-over
 #: (b = 16: 8 chunks, CFG-doubled; the 1026-token head padded to 1152) and
@@ -1416,6 +1436,7 @@ def small_reference(dev, failures):
     from vocalie_tts_tpu_torch.models.chatterbox.runtime import SCALES, ChatterboxRuntime
     from vocalie_tts_tpu_torch.models.common import transformer as tr
     from vocalie_tts_tpu_torch.models.common.token2wav import draw_stage2_noise
+    from vocalie_tts_tpu_torch.ops import decode_attention as da
 
     os.environ["VOCALIE_MODEL_SCALE"] = "tiny"
     with tempfile.TemporaryDirectory() as tmp:
@@ -1430,23 +1451,33 @@ def small_reference(dev, failures):
     emb = torch.randn((b, s, cfg.d_model), generator=gen) * 0.5
     lens = torch.tensor([64, 40, 3, 21], dtype=torch.int32)
     toks = torch.randint(0, cfg.vocab_size, (12, b), generator=gen)
-    worst = 0.0
-    caches = {}
-    for name, r, d in (("gpu", rt, dev), ("cpu", cpu, torch.device("cpu"))):
-        lm = r.params["t3"]["lm"]
-        logits, cache = tr.prefill(lm, cfg, None, lens.to(d), inputs_embeds=emb.to(d),
-                                   cache_len=256)
-        steps = [logits.cpu()]
-        for i in range(toks.shape[0]):
-            logits, cache = tr.decode_step(lm, cfg, toks[i].to(d), cache)
-            steps.append(logits.cpu())
-        caches[name] = steps
-    for a, c in zip(caches["gpu"], caches["cpu"]):
-        worst = max(worst, ((a - c).abs() / (2e-3 + 2e-3 * c.abs())).max().item())
-    log(f"small reference: tiny T3 prefill + 12 teacher-forced decode steps, GPU kernels vs "
-        f"CPU plain: worst |diff| / (2e-3 + 2e-3|ref|) = {worst:.3f} (must be <= 1)")
-    if not worst <= 1.0:
-        failures.append(f"tiny decode logits differ: {worst}")
+    # cache_len 256 takes B1 (T-blocked); 200, not a 128-multiple, B1w
+    attn = (da.decode_attention_int8_stacked, da.decode_attention_int8_whole_stacked)
+    for cache_len, want in ((256, (24, 0)), (200, (0, 24))):
+        worst = 0.0
+        caches = {}
+        for name, r, d in (("gpu", rt, dev), ("cpu", cpu, torch.device("cpu"))):
+            lm = r.params["t3"]["lm"]
+            before = [w.launches for w in attn]
+            logits, cache = tr.prefill(lm, cfg, None, lens.to(d), inputs_embeds=emb.to(d),
+                                       cache_len=cache_len)
+            steps = [logits.cpu()]
+            for i in range(toks.shape[0]):
+                logits, cache = tr.decode_step(lm, cfg, toks[i].to(d), cache)
+                steps.append(logits.cpu())
+            caches[name] = steps
+            if name == "gpu":
+                launched = tuple(w.launches - n for w, n in zip(attn, before))
+        for a, c in zip(caches["gpu"], caches["cpu"]):
+            worst = max(worst, ((a - c).abs() / (2e-3 + 2e-3 * c.abs())).max().item())
+        log(f"small reference: tiny T3 prefill + 12 teacher-forced decode steps at cache_len "
+            f"{cache_len}, GPU kernels vs CPU plain: worst |diff| / (2e-3 + 2e-3|ref|) = "
+            f"{worst:.3f} (must be <= 1); B1/B1w launches {launched} (expected {want})")
+        if not worst <= 1.0:
+            failures.append(f"tiny decode logits differ at cache_len {cache_len}: {worst}")
+        if launched != want:
+            failures.append(f"tiny decode at cache_len {cache_len}: B1/B1w launches {launched} "
+                            f"!= {want}")
 
     n_tok = 140  # 280 mel frames: the CFM blocks take the flash kernel
     gtok = torch.randint(0, rt.cfg.speech_vocab, (3, n_tok), generator=gen)
@@ -1969,6 +2000,10 @@ def _request(script: str, out_path: str) -> dict:
 KERNEL_NAMES = ("B1", "B2", "B3", "B4", "B5", "B6")
 #: the training path's kernels, held to 0 on every serving path
 TRAIN_ZERO = {"B6t": 0, "B11a": 0, "B11b": 0}
+#: slice 10's kernels, held to 0 on every serving path of the runtimes: they
+#: round their caches to 128-multiples (B1w), no family has a GELU MLP under
+#: RMSNorm (B9d), and K5 is for JAX's one-array API alone
+SLICE10_ZERO = {"B1w": 0, "B9d": 0, "K5": 0}
 
 
 class DecodeSteps:
@@ -1993,6 +2028,7 @@ class DecodeSteps:
 
 def _wrappers():
     from vocalie_tts_tpu_torch.ops.cache_update import (
+        cache_append_k_stacked,
         cache_append_kv_stacked,
         cache_append_stacked,
     )
@@ -2001,9 +2037,11 @@ def _wrappers():
         decode_attention_dequant_stacked,
         decode_attention_float_stacked,
         decode_attention_int8_stacked,
+        decode_attention_int8_whole_stacked,
     )
     from vocalie_tts_tpu_torch.ops.decode_dense import (
         dense_int8_stacked,
+        mlp_gelu_int8_stacked,
         qkv_norm_int8_stacked,
         tail_swiglu_qkv_int8_stacked,
     )
@@ -2018,7 +2056,8 @@ def _wrappers():
             "K2": decode_attention_dequant_stacked, "B10": decode_attention,
             "K4": cache_append_kv_stacked, "B6t": flash_attention_lse,
             "B11a": fb.flash_attention_bwd_dkv, "B11b": fb.flash_attention_bwd_dq,
-            "steps": DecodeSteps()}
+            "B1w": decode_attention_int8_whole_stacked, "B9d": mlp_gelu_int8_stacked,
+            "K5": cache_append_k_stacked, "steps": DecodeSteps()}
 
 
 def path_wants(lm, env: dict, steps: int) -> dict:
@@ -2042,7 +2081,7 @@ def path_wants(lm, env: dict, steps: int) -> dict:
             "B3": steps if lm.dense_kernel else 0,
             "B4": steps if lm.dense_kernel else 0,
             "B5": append if lm.kv_quant else 0, "K4": 0 if lm.kv_quant else append,
-            "K2": 0, "B10": 0, **TRAIN_ZERO}
+            "K2": 0, "B10": 0, **TRAIN_ZERO, **SLICE10_ZERO}
 
 
 def drive_path(dev, failures, label: str, env: dict, requests, scale: str = "full",
@@ -2333,7 +2372,8 @@ def drive_cosyvoice(dev, failures, b7_inputs: dict, scale: str = "full"):
             fused = env is DEFAULT_ENV
             want = {"B3": steps, "B4": steps + 1, "B7": steps if fused else 0,
                     "B1": 0 if fused else lm.n_layers * steps,
-                    "B2": 0 if fused else lm.n_layers * steps, "K2": 0, "B10": 0, **TRAIN_ZERO}
+                    "B2": 0 if fused else lm.n_layers * steps, "K2": 0, "B10": 0, **TRAIN_ZERO,
+                    **SLICE10_ZERO}
             for k, n in want.items():
                 if c[k] != n:
                     failures.append(f"cosyvoice [{label}] {k} launched {c[k]} times, the path "
@@ -2482,7 +2522,7 @@ def _cosy_offline(engine, rt, request, tmp, label, env, wrappers, failures) -> d
     L = lm.n_layers
     want = {"B1": 0 if mega else L * steps, "B2": 0 if mega else L * steps, "B3": steps,
             "B4": steps + 1, "B7": 0, "B12": L * steps if mega else 0, "K2": 0, "B10": 0,
-            **TRAIN_ZERO}
+            **TRAIN_ZERO, **SLICE10_ZERO}
     for k, n in want.items():
         if c[k] != n:
             failures.append(f"cosyvoice {label} {k} launched {c[k]} times, the path needs {n}")
@@ -2652,7 +2692,8 @@ def drive_xtts(dev, failures, scale: str = "full"):
                 want = {"B9a": L * steps, "B9c": L * steps, "B9b": 0}
             else:
                 want = {"B9a": steps, "B9b": L * steps, "B9c": 0}
-            want.update(B1=L * steps, B4=steps + 1, B7=0, B2=0, B3=0, K2=0, B10=0, **TRAIN_ZERO)
+            want.update(B1=L * steps, B4=steps + 1, B7=0, B2=0, B3=0, K2=0, B10=0, **TRAIN_ZERO,
+                        **SLICE10_ZERO)
             if script == XTTS_LONG and bm["prompt_bucket"] != 544:
                 failures.append(f"xtts [{label}]: prompt bucket {bm['prompt_bucket']}, not 544")
             if script == XTTS_LONG and c["B6"] == 0:
@@ -2868,7 +2909,7 @@ def drive_qwen3(dev, failures, scale: str = "full"):
                 want = {**path_wants(lm, env, steps), "B8a": 0}
                 if lm.dense_kernel:
                     want["B4"] = steps + 1
-            want.update(B7=0, B8b=0)
+            want.update(B7=0, B8b=0, **SLICE10_ZERO)
             if script == QWEN3_LONG:
                 if bm["prompt_bucket"] != 512:
                     failures.append(f"qwen3 [{label}]: prompt bucket {bm['prompt_bucket']}, not 512")
@@ -3565,6 +3606,383 @@ def drive_training(dev, failures, scale: str = "full"):
     return counts, profile
 
 
+# ── slice 10: B1w, B9d and K5; the unrounded cache and the GELU MLP under RMSNorm ──
+
+B1W_NAME = "B1w decode_attention_int8_whole"
+B9D_NAME = "B9d mlp_gelu_int8"
+K5_NAME = "K5 cache_append_k (one array, no scales)"
+#: B1w's shapes: the T3 voice-over's cache at phase 4 (a)'s unrounded
+#: length (cache_len 600: the 512 prompt bucket + 80 steps; 552 slots in use
+#: mid-run) and the Qwen3 decode shape at 520 slots
+T3_WHOLE = dict(L=30, b=16, kv=16, g=1, d=64, T=600, prompt_pad=512, n_dec=40, seed=21)
+QWEN3_WHOLE = dict(L=28, b=8, kv=8, g=2, d=128, T=520, prompt_pad=256, n_dec=96, seed=22)
+#: K5's array: the T3 cache's k|v width (2 x 64) at 640 slots, bf16
+K5_SHAPE = dict(L=30, b=16, kv=16, T=640, D=128)
+
+
+def _whole_inputs(dev, *, L, b, kv, g, d, T, prompt_pad, n_dec, seed):
+    """B1w's (and, with T rounded up to 128, B1's) inputs from a seed."""
+    import types
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    valid = prompt_pad + n_dec
+    q = torch.randn((b, kv, g, d), generator=gen, device=dev)
+    k, v = (torch.randint(-127, 128, (L, b, kv, T, d), generator=gen, device=dev,
+                          dtype=torch.int8) for _ in range(2))
+    ks, vs = (((torch.rand((L, b, kv, T), generator=gen, device=dev) + 0.5) / 127)
+              .to(torch.bfloat16) for _ in range(2))
+    kn, vn = (torch.randn((b, kv, d), generator=gen, device=dev) for _ in range(2))
+    lens = torch.randint(1, prompt_pad + 1, (b,), generator=gen, device=dev)
+    pos = torch.arange(T, device=dev)[None, :]
+    bias = torch.where((pos < lens[:, None]) | ((pos >= prompt_pad) & (pos < valid)), 0.0,
+                       NEG).float()
+    return types.SimpleNamespace(q=q, k=k, v=v, ks=ks, vs=vs, kn=kn, vn=vn, bias=bias,
+                                 valid=valid, L=L, b=b, kv=kv, g=g, d=d, T=T,
+                                 sm=1.0 / math.sqrt(d))
+
+
+def _whole_case(dev, failures, attn, label, with_new=True):
+    """B1w against its plain version (atol 5e-4, B1's), timed over the
+    layers; B1 (T-blocked) timed on the same slots of a cache rounded up to
+    a 128-multiple, the kernel the port runs for a runtime's rounded cache."""
+    from vocalie_tts_tpu_torch.ops import decode_attention as da
+
+    t = _whole_inputs(dev, **attn)
+    new = (t.kn, t.vn) if with_new else (None, None)
+    vl = t.valid if with_new else None
+    out = da.decode_attention_int8_whole_stacked(t.q, t.k, t.v, t.bias, 7, t.ks, t.vs, *new,
+                                                 valid_len=vl, sm_scale=t.sm)
+    ref = da.decode_attention_whole_plain(t.q, t.k, t.v, t.bias, 7, t.ks, t.vs, *new, vl,
+                                          sm_scale=t.sm)
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    tol = 5e-4
+    ms = cuda_ms(lambda i: da.decode_attention_int8_whole_stacked(
+        t.q, t.k, t.v, t.bias, i % t.L, t.ks, t.vs, *new, valid_len=vl, sm_scale=t.sm), 300)
+    plain_ms = cuda_ms(lambda i: da.decode_attention_whole_plain(
+        t.q, t.k, t.v, t.bias, i % t.L, t.ks, t.vs, *new, vl, sm_scale=t.sm), 20)
+    T128 = -(-t.T // 128) * 128
+    pad = T128 - t.T
+    k1, v1 = (torch.nn.functional.pad(a, (0, 0, 0, pad)) for a in (t.k, t.v))
+    ks1, vs1 = (torch.nn.functional.pad(a, (0, pad)) for a in (t.ks, t.vs))
+    bias1 = torch.nn.functional.pad(t.bias, (0, pad), value=NEG)
+    b1_ms = cuda_ms(lambda i: da.decode_attention_int8_stacked(
+        t.q, k1, v1, bias1, i % t.L, ks1, vs1, t.kn, t.vn, valid_len=t.valid, sm_scale=t.sm), 300)
+    del k1, v1
+    n = t.valid if with_new else t.T
+    n_bytes = (n * t.b * t.kv * (2 * t.d + 2 * 2) + n * t.b * 4
+               + 2 * t.b * t.kv * t.g * t.d * 4 + (2 * t.b * t.kv * t.d * 4 if with_new else 0))
+    n_ops = 2 * 2 * n * t.b * t.kv * t.g * t.d
+    bms, by = bound_ms(n_bytes, n_ops, PEAK_INT8_OPS)
+    log(f"{B1W_NAME} [{label}]: max_abs_err={err:.3e} (tolerance {tol}, B1's); kernel "
+        f"{ms:.6f} ms, plain {plain_ms:.6f} ms, B1 (T-blocked) on a {T128}-slot cache "
+        f"{b1_ms:.6f} ms, bound {bms:.6f} ms ({by}, {n} slots read)")
+    if not err <= tol:
+        failures.append(f"B1w [{label}] max_abs_err {err} > {tol}")
+    return {"max_abs_err": err, "tolerance": tol, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bms, "bound_by": by, "library_ms": None,
+            "b1_tblocked_ms": b1_ms,
+            "shape": f"{label}: q[{t.b},{t.kv},{t.g},{t.d}] cache[{t.L},{t.b},{t.kv},{t.T},"
+                     f"{t.d}] int8, " + (f"valid_len={t.valid}" if with_new else
+                                         "no current token: all T read")}
+
+
+def check_whole_attention(dev, failures):
+    """B1w at the T3 unrounded cache with the current token (the path's
+    call) and without it, and at the Qwen3 shape → its ``kernels`` entry."""
+    main = _whole_case(dev, failures, T3_WHOLE, "unrounded T3 cache")
+    return _entry(B1W_NAME, "vocalie_tts_tpu_torch/csrc/decode_attention.cu",
+                  "vocalie_tts_tpu/ops/decode_attention.py:190", main,
+                  no_new_shape=_whole_case(dev, failures, T3_WHOLE, "T3, no k_new/valid_len",
+                                           with_new=False),
+                  qwen3_shape=_whole_case(dev, failures, QWEN3_WHOLE, "qwen3, 520 slots"),
+                  library_call="none (no PyTorch call attends over an int8 cache with scales); "
+                               "b1_tblocked_ms: B1 on the same slots of a 640-slot cache")
+
+
+def check_mlp_gelu(dev, failures, L: int = 24):
+    """B9d at the XTTS layer (b 8, d_model 1024, d_ff 4096 in two tiles of
+    2048, bf16 fc bias) with f32 and bf16 rows against its plain version
+    (``DENSE_TOL``), timed on bf16 rows over the layers; the ``_qdot`` ops
+    the port runs for the same MLP without the dense kernels as the
+    yardstick."""
+    from vocalie_tts_tpu_torch.models.common import transformer as tr
+    from vocalie_tts_tpu_torch.ops import decode_dense as dd
+
+    t = _gelu_inputs(dev, L)
+    b, d, F = t.b, t.d, t.F
+    args = (t.wu, t.su, t.bu, t.wd, t.sd)
+    got = [dd.mlp_gelu_int8_stacked(x, *args, layer) for x in (t.x.float(), t.x)
+           for layer in (0, L - 1)]
+    ref = [dd.mlp_gelu_int8_plain(x, *args, layer) for x in (t.x.float(), t.x)
+           for layer in (0, L - 1)]
+    torch.cuda.synchronize()
+
+    def qdot_mlp(l):
+        up = tr._qdot(t.x, {"q": t.wu[l], "s": t.su[l]}, f32_out=True) + t.bu[l].float()
+        return tr._qdot(dd.gelu_tanh(up).to(t.x.dtype), {"q": t.wd[l], "s": t.sd[l]},
+                        f32_out=True)
+
+    return _dense_entry(
+        B9D_NAME, got=got, ref=ref,
+        ms=cuda_ms(lambda i: dd.mlp_gelu_int8_stacked(t.x, *args, i % L), 300),
+        plain_ms=cuda_ms(lambda i: dd.mlp_gelu_int8_plain(t.x, *args, i % L), 20),
+        ops_ms=cuda_ms(lambda i: qdot_mlp(i % L), 100), ops_key="qdot_ops_ms",
+        n_bytes=b * d * 2 + 2 * d * F + 4 * (F + d) + 2 * F + b * d * 4,
+        n_ops=2 * b * 2 * d * F,
+        shape=f"x[{b},{d}] bf16 (and f32), bf16 fc bias, d_ff {F} in tiles of "
+              f"{dd.pick_tile(F, dd.TILE_BUDGET, 2 * d)}, {L} layers (layers 0 and {L - 1} "
+              "checked)", failures=failures)
+
+
+def check_cache_append_k(dev, failures):
+    """K5 on one bf16 array of the T3 k|v width ([30,16,16,640,128]) at
+    three positions against its plain version (byte-equal); the library
+    yardstick is the slice assignment (which the plain version also is)."""
+    from vocalie_tts_tpu_torch.ops.cache_update import cache_append_k_plain, cache_append_kv_stacked
+
+    L, b, kv, T, D = K5_SHAPE.values()
+    gen = torch.Generator(device=dev).manual_seed(23)
+    k = torch.randn((L, b, kv, T, D), generator=gen, device=dev).to(torch.bfloat16)
+    kn = torch.randn((L, b, kv, D), generator=gen, device=dev).to(torch.bfloat16)
+    exact = True
+    for pos in (0, T * 2 // 3, T - 1):
+        got = cache_append_kv_stacked(k.clone(), None, kn, None, pos)
+        ref = cache_append_k_plain(k.clone(), kn, pos)
+        torch.cuda.synchronize()
+        exact = exact and torch.equal(got.view(torch.int16), ref.view(torch.int16))
+        del got, ref
+    ms = cuda_ms(lambda i: cache_append_kv_stacked(k, None, kn, None, i % T), 300)
+    plain_ms = cuda_ms(lambda i: cache_append_k_plain(k, kn, i % T), 100)
+
+    def assign(i):
+        k[:, :, :, i % T] = kn
+
+    lib_ms = cuda_ms(assign, 100)
+    bms, by = bound_ms(2 * L * b * kv * D * 2, 0, PEAK_BF16_FLOPS)
+    log(f"{K5_NAME}: byte-exact={exact} at positions 0, {T * 2 // 3}, {T - 1} (tolerance: "
+        "byte-exact); "
+        f"kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, slice assignment {lib_ms:.6f} ms, bound "
+        f"{bms:.6f} ms ({by})")
+    if not exact:
+        failures.append("K5 differs from its plain version")
+    main = {"max_abs_err": 0.0 if exact else float("inf"), "tolerance": 0.0, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
+            "shape": f"new[{L},{b},{kv},{D}] bf16 into one array [{L},{b},{kv},{T},{D}]"}
+    return _entry(K5_NAME, "vocalie_tts_tpu_torch/csrc/cache_update.cu",
+                  "vocalie_tts_tpu/ops/cache_update.py:135", main,
+                  launches_path="no served path: only JAX's one-array API reaches it (the "
+                                "port's caches are split); launches counted on the Chatterbox "
+                                "default path, every phase-4 path held to 0",
+                  library_call="k_all[:, :, :, pos] = k_new")
+
+
+def _slice10_calls(dev) -> dict:
+    """One call each of B1w, B9d and K5 at their phase-2 shapes, for the
+    kernel-count child."""
+    from vocalie_tts_tpu_torch.ops import decode_attention as da
+    from vocalie_tts_tpu_torch.ops import decode_dense as dd
+    from vocalie_tts_tpu_torch.ops.cache_update import cache_append_kv_stacked
+
+    t = _whole_inputs(dev, **T3_WHOLE)
+    g = _gelu_inputs(dev, 2)
+    k = torch.zeros((30, 16, 16, 640, 128), dtype=torch.bfloat16, device=dev)
+    kn = torch.zeros((30, 16, 16, 128), dtype=torch.bfloat16, device=dev)
+    return {
+        B1W_NAME: lambda: da.decode_attention_int8_whole_stacked(
+            t.q, t.k, t.v, t.bias, 7, t.ks, t.vs, t.kn, t.vn, valid_len=t.valid, sm_scale=t.sm),
+        B9D_NAME: lambda: dd.mlp_gelu_int8_stacked(g.x, g.wu, g.su, g.bu, g.wd, g.sd, 1),
+        K5_NAME: lambda: cache_append_kv_stacked(k, None, kn, None, 417),
+    }
+
+
+def small_reference_gelu_rms(dev, failures):
+    """A d_model-128 GELU MLP with biases under RMSNorm (2 layers, 2 heads of
+    64, d_ff 256, f32, int8 weights and cache, non-zero biases; no family
+    has it): the dense kernels take B4 for the qkv and o-projections and the
+    head and B9d for the MLP, GPU kernels against the GPU plain versions and
+    against the CPU (``_dense_reference``). Returns B9d's launches."""
+    from vocalie_tts_tpu_torch.models.common import transformer as tr
+    from vocalie_tts_tpu_torch.ops import decode_dense as dd
+
+    cfg = tr.TransformerConfig(vocab_size=96, d_model=128, n_layers=2, n_heads=2, n_kv_heads=2,
+                               d_head=64, d_ff=256, max_seq_len=256, kv_quant=True,
+                               decode_kernel=True, dense_kernel=True, mlp_type="gelu",
+                               bias=True, norm_type="rms", dtype=torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(24)
+    raw = tr.init_params(cfg, generator=gen, device=dev)
+    for name in ("bo", "b_up", "b_down"):
+        raw["layers"][name] = 0.2 * torch.randn(raw["layers"][name].shape, generator=gen,
+                                                device=dev)
+    params = tr.fuse_decode_weights(tr.quantize_weights_int8(raw))
+    n = 12
+    swaps = {"dense_int8_stacked": (dd.dense_int8_stacked, dd.dense_int8_plain),
+             "mlp_gelu_int8_stacked": (dd.mlp_gelu_int8_stacked, dd.mlp_gelu_int8_plain)}
+    launched = _dense_reference(dev, failures, "GELU + bias + RMSNorm, d_model 128", cfg, params,
+                                swaps, {"dense_int8_stacked": 1 + n * (1 + 2 * cfg.n_layers),
+                                        "mlp_gelu_int8_stacked": n * cfg.n_layers}, n_steps=n)
+    return launched["mlp_gelu_int8_stacked"]
+
+
+def _decode_loop(params, cfg, embeds, lens, cache_len, steps, cfg_weight, tokens=None):
+    """``prefill`` + ``steps`` greedy steps through ``generate_tokens`` (no
+    EOS, so every step runs) → (prefill s, decode s, tokens)."""
+    from vocalie_tts_tpu_torch.models.common import transformer as tr
+    from vocalie_tts_tpu_torch.ops.generate import GenerateConfig, generate_tokens
+
+    t0 = time.monotonic()
+    logits, cache = tr.prefill(params, cfg, tokens, lens, inputs_embeds=embeds,
+                               cache_len=cache_len)
+    torch.cuda.synchronize()
+    t1 = time.monotonic()
+    b = lens.shape[0] // 2 if cfg_weight > 0 else lens.shape[0]
+    first = torch.argmax(logits[:b], -1)
+    gen = GenerateConfig(max_new_tokens=steps, eos_token_id=-1, temperature=0.0,
+                         cfg_weight=cfg_weight, vocab_size=cfg.vocab_size)
+    toks, _ = generate_tokens(params, lambda p, t, c: tr.decode_step(p, cfg, t, c), cache, first,
+                              gen)
+    torch.cuda.synchronize()
+    return t1 - t0, time.monotonic() - t1, toks
+
+
+def _counted_loops(label, wrappers, runs, vocab, failures):
+    """Each run (name, fn, want) with every counter at 0 just before it and
+    read just after; the counts must equal ``want`` and the tokens lie in
+    the vocabulary. Returns the counts by run."""
+    out = {}
+    for name, fn, want in runs:
+        for w in wrappers.values():
+            w.launches = 0
+        t_pre, t_dec, toks = fn()
+        c = {k: w.launches for k, w in wrappers.items()}
+        steps = c["steps"]
+        ok = bool(((toks >= 0) & (toks < vocab)).all())
+        log(f"phase 4 [{label}, {name}]: prefill {t_pre:.3f} s, {steps} decode steps in "
+            f"{t_dec:.3f} s = {t_dec / max(steps, 1) * 1e3:.3f} ms/step, tokens in range={ok}, "
+            f"launches {c}")
+        if not ok:
+            failures.append(f"[{label}, {name}] tokens out of range")
+        for k, n in want.items():
+            if c[k] != n:
+                failures.append(f"[{label}, {name}] {k} launched {c[k]} times, the path needs {n}")
+        out[name] = c
+    return out
+
+
+def drive_unrounded(dev, failures, scale: str = "full", steps: int = 80):
+    """Phase 4 (a): the Chatterbox T3 LM at full width (random weights from
+    a seed) in the default int8 config, batch 16 (8 chunks, CFG-doubled),
+    ``prefill`` at the 512 prompt bucket with ``cache_len`` 600 -- a length
+    no runtime makes (they round to 128) -- then ``steps`` greedy steps
+    through ``generate_tokens``: B1w = 30 x steps, B1 = B12 = B7 = 0; the
+    same loop at ``cache_len`` 640 in the same run (B1 = 30 x steps). Each
+    timed twice, in turns. Returns the counts by run and the function that
+    profiles both (prefill alone, prefill + 16 steps)."""
+    from vocalie_tts_tpu_torch.models.chatterbox.runtime import SCALES
+    from vocalie_tts_tpu_torch.models.common import transformer as tr
+    from vocalie_tts_tpu_torch.models.common.ar_runtime import apply_runtime_env, maybe_quantize_lm
+
+    set_env(DEFAULT_ENV)
+    cfg = apply_runtime_env(SCALES[scale]).lm
+    gen = torch.Generator(device=dev).manual_seed(25)
+    params = maybe_quantize_lm({"lm": tr.init_params(cfg, generator=gen, device=dev)})["lm"]
+    b, s = 16, 512 if scale == "full" else 64
+    embeds = (torch.randn((b, s, cfg.d_model), generator=gen, device=dev) * 0.5).to(cfg.dtype)
+    lens = torch.randint(s // 4, s + 1, (b,), generator=gen, device=dev).to(torch.int32)
+    lens[0] = s
+    lens = torch.cat([lens[:8], lens[:8]])   # cond | uncond rows share their prompt lengths
+    wrappers = _wrappers()
+    L = cfg.n_layers
+    lens_600 = ((600, 640) if scale == "full"
+                else ((s + steps + 8) // 8 * 8, -(-(s + steps) // 128) * 128))
+
+    def loop(cache_len, n=steps):
+        return lambda: _decode_loop(params, cfg, embeds, lens, cache_len, n, 0.6)
+
+    loop(lens_600[0], 4)()   # load and warm up
+    base = {**{k: 0 for k in wrappers}, "B2": L * steps, "B3": steps, "B4": steps + 1,
+            "B5": steps, "B6": L if s >= 512 else 0, "steps": steps}
+    counts = _counted_loops("unrounded T3 cache", wrappers, [
+        (f"cache_len {lens_600[0]}", loop(lens_600[0]), {**base, "B1w": L * steps}),
+        (f"cache_len {lens_600[1]}", loop(lens_600[1]), {**base, "B1": L * steps}),
+    ], cfg.vocab_size, failures)
+    for cache_len in (lens_600[1], lens_600[0]):
+        _, t_dec, _ = loop(cache_len)()
+        log(f"phase 4 [unrounded T3 cache, cache_len {cache_len}] again: "
+            f"{t_dec / steps * 1e3:.3f} ms/step")
+
+    def profile():
+        set_env(DEFAULT_ENV)
+        n = min(16, steps)
+        for cache_len in lens_600:
+            label = f"T3 cache_len {cache_len}"
+            n0 = _profiled(f"{label}, prefill alone", loop(cache_len, 0))
+            n16 = _profiled(f"{label}, prefill + {n} decode steps", loop(cache_len, n))
+            if n0 and n16:
+                log(f"breakdown [{label}]: {(n16 - n0) / n:.1f} device operations per decode "
+                    "step")
+
+    return counts, profile
+
+
+def drive_gelu_rms(dev, failures, scale: str = "full", steps: int = 64):
+    """Phase 4 (b): the XTTS GPT LM's widths (24 layers, d_model 1024, d_ff
+    4096, 16 heads of 64, biases, learned positions) with RMSNorm in place of
+    LayerNorm -- the config JAX's decode step gives B4 + B9d -- int8
+    weights and cache, dense and decode kernels, random weights and biases
+    from a seed; batch 8, a 544-bucket token prompt (flash prefill), ``steps``
+    greedy steps through ``generate_tokens``: B9d = 24 x steps, B4 = steps x
+    (1 + 2 x 24) + 1, B1 = 24 x steps, B5 = steps, B9a-c = B2 = B3 = 0.
+    Timed twice. Returns the counts by run and the profile function."""
+    import dataclasses
+
+    from vocalie_tts_tpu_torch.models.common import transformer as tr
+    from vocalie_tts_tpu_torch.models.common.ar_runtime import maybe_quantize_lm
+    from vocalie_tts_tpu_torch.models.xtts.runtime import SCALES
+
+    set_env(DEFAULT_ENV)
+    xcfg = dataclasses.replace(SCALES[scale], kv_quant=True, decode_kernel=True,
+                               dense_kernel=True)
+    cfg = dataclasses.replace(xcfg.lm, norm_type="rms")
+    gen = torch.Generator(device=dev).manual_seed(26)
+    raw = tr.init_params(cfg, generator=gen, device=dev)
+    for name in ("bq", "bk", "bv", "bo", "b_up", "b_down"):
+        raw["layers"][name] = (0.02 * torch.randn(raw["layers"][name].shape, generator=gen,
+                                                  device=dev)).to(cfg.dtype)
+    params = maybe_quantize_lm({"lm": raw})["lm"]
+    b, s = 8, 544 if scale == "full" else 96
+    toks = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device=dev)
+    lens = torch.randint(s // 4, s + 1, (b,), generator=gen, device=dev).to(torch.int32)
+    lens[0] = s
+    cache_len = -(-(s + steps) // 128) * 128
+    wrappers = {**_xtts_wrappers(), **_qwen3_wrappers()}
+    L = cfg.n_layers
+    assert tr._dense_dispatch(params["layers"], cfg, b, cache_len) == tr.DENSE_FNS
+
+    def loop(n=steps):
+        return lambda: _decode_loop(params, cfg, None, lens, cache_len, n, 0.0, tokens=toks)
+
+    loop(4)()   # load and warm up
+    want = {**{k: 0 for k in wrappers}, "B9d": L * steps, "B4": steps * (1 + 2 * L) + 1,
+            "B1": L * steps, "B5": steps, "B6": L if s >= 512 else 0, "steps": steps}
+    counts = _counted_loops("GELU MLP under RMSNorm", wrappers,
+                            [(f"{s} prompt, cache_len {cache_len}", loop(), want)],
+                            cfg.vocab_size, failures)
+    _, t_dec, _ = loop()()
+    log(f"phase 4 [GELU MLP under RMSNorm] again: {t_dec / steps * 1e3:.3f} ms/step")
+
+    def profile():
+        set_env(DEFAULT_ENV)
+        n = min(16, steps)
+        n0 = _profiled("GELU MLP under RMSNorm, prefill alone", loop(0))
+        n16 = _profiled(f"GELU MLP under RMSNorm, prefill + {n} decode steps", loop(n))
+        if n0 and n16:
+            log(f"breakdown [GELU MLP under RMSNorm]: {(n16 - n0) / n:.1f} device operations "
+                "per decode step")
+
+    return counts, profile
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3598,7 +4016,9 @@ def main() -> int:
                check_flash_attention(dev, failures), check_decode_step(dev, failures),
                check_group_norm(dev, failures), *check_dense_gelu(dev, failures),
                *dense_q3[3:], check_decode_layer(dev, failures), *f32_attn,
-               check_cache_append_kv(dev, failures), *check_flash_train(dev, failures)]
+               check_cache_append_kv(dev, failures), *check_flash_train(dev, failures),
+               check_whole_attention(dev, failures), check_mlp_gelu(dev, failures),
+               check_cache_append_k(dev, failures)]
     by_key = {k["name"].split()[0]: k for k in kernels}
     count_dense_kernels(kernels, failures)
     if failures:
@@ -3615,6 +4035,7 @@ def main() -> int:
     b8b_launches = small_reference_qwen3(dev, failures)
     small_reference_noenv(dev, failures)
     small_reference_train(dev, failures)
+    b9d_small = small_reference_gelu_rms(dev, failures)
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
     if failures:
         raise SystemExit("small-input reference failed: " + "; ".join(failures))
@@ -3640,6 +4061,8 @@ def main() -> int:
         studio, profile_studio = drive_audiosr(dev, failures, vo)
         xtts, profile_xtts = drive_xtts(dev, failures)
         qwen3, profile_qwen3 = drive_qwen3(dev, failures)
+        unrounded, profile_unrounded = drive_unrounded(dev, failures)
+        gelu_rms, profile_gelu_rms = drive_gelu_rms(dev, failures)
         train_counts, profile_train = drive_training(dev, failures)
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -3656,6 +4079,8 @@ def main() -> int:
     profile_studio()
     profile_xtts()
     profile_qwen3()
+    profile_unrounded()
+    profile_gelu_rms()
     profile_train()
     by_key["B13"]["launches"] = studio[GN_SETTINGS[0][0]]["launches"]
     by_key["B13"]["launches_knob_unset"] = studio[GN_SETTINGS[1][0]]["launches"]
@@ -3666,8 +4091,12 @@ def main() -> int:
     # Chatterbox bench request's VOCALIE_MEGALAYER=1 run; K1 and K4: its
     # VOCALIE_DECODE_KERNEL=1 run; K2 and B10 (on no served path): the
     # Chatterbox default path's counts, measured (every path above fails if
-    # either is launched); B6t, B11a and B11b: one full-width flash train step
+    # either is launched); B6t, B11a and B11b: one full-width flash train step;
+    # B1w: phase 4 (a), the T3 at cache_len 600; B9d: phase 4 (b); K5 (on no
+    # served path): the Chatterbox default path's counts, measured
     main_counts = {**counts, "B12": counts12["B12"], "B7": cosy["streaming, default"]["B7"],
+                   "B1w": unrounded["cache_len 600"]["B1w"],
+                   "B9d": next(iter(gelu_rms.values()))["B9d"],
                    "B9a": xtts["bench 8-chunk, default"]["B9a"],
                    "B9b": xtts["bench 8-chunk, default"]["B9b"],
                    "B9c": xtts["bench 8-chunk, VOCALIE_MEGATAIL=0"]["B9c"],
@@ -3679,6 +4108,12 @@ def main() -> int:
                                         "(30 layers); finetune_overlay launches 0 (the XLA "
                                         "attention, as in JAX)")
     by_key["B8b"]["launches_path"] = "phase 3: the biased-SwiGLU d_model-128 reference"
+    by_key["B1w"]["launches_path"] = ("phase 4 (a): the full-width T3 LM at cache_len 600, 80 "
+                                      "steps; every runtime path held to 0 (they round their "
+                                      "caches to 128-multiples)")
+    by_key["B9d"]["launches_path"] = ("phase 4 (b): the XTTS GPT widths with RMSNorm, 64 steps; "
+                                      f"phase 3's d_model-128 reference: {b9d_small}; every "
+                                      "family's path held to 0")
     for key, entry in by_key.items():
         if key == "B13":
             continue
@@ -3689,7 +4124,8 @@ def main() -> int:
             entry["launches_megalayer_config"] = counts12[key]
         if counts_w8.get(key):
             entry["launches_weight_int8_config"] = counts_w8[key]
-        for group, per_path in (("cosyvoice", cosy), ("xtts", xtts), ("qwen3", qwen3)):
+        for group, per_path in (("cosyvoice", cosy), ("xtts", xtts), ("qwen3", qwen3),
+                                ("t3", unrounded), ("gelu_rms", gelu_rms)):
             for path, c in per_path.items():
                 if c.get(key):
                     entry[f"launches_{group}_{path}"] = c[key]

@@ -155,11 +155,17 @@ def test_b10_matches_jax(cache, g, d):
 
 def test_dispatch_refuses_the_int8_branch_it_lacks():
     """``int8_dots`` over a cache that is not a 128-multiple is JAX's
-    non-T-blocked int8 branch: not ported, refused."""
+    non-T-blocked int8 branch (``_kernel_stacked_int8dots_new``). The port
+    used to refuse it; it now takes the whole-row kernel's plain version
+    (B1w) and matches JAX within B1's atol 5e-4
+    (``tests/test_torch_decode_attention_whole.py`` holds the other cases)."""
     q, k, v, ks, vs, bias, kn, vn = _attn_case(5, 1, 1, 1, 1, 200, 16, 100, 8, "int8")
-    with pytest.raises(NotImplementedError, match="non-T-blocked"):
-        pda.decode_attention_stacked(_t(q), _t(k), _t(v), _t(bias), 0, _t(ks), _t(vs), _t(kn),
-                                     _t(vn), valid_len=108, sm_scale=0.25, int8_dots=True)
+    ref = jax_attn(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(bias),
+                   jnp.asarray(0), ks, vs, jnp.asarray(kn), jnp.asarray(vn),
+                   valid_len=jnp.asarray(108, jnp.int32), sm_scale=0.25, int8_dots=True)
+    got = pda.decode_attention_stacked(_t(q), _t(k), _t(v), _t(bias), 0, _t(ks), _t(vs), _t(kn),
+                                       _t(vn), valid_len=108, sm_scale=0.25, int8_dots=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=5e-4, rtol=0)
 
 
 # ── K4: the append without scales ────────────────────────────────────────

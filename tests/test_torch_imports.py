@@ -85,8 +85,9 @@ def test_dense_kernel_env_names_the_next_slice(monkeypatch):
     ``tests/test_torch_xtts.py``); ``VOCALIE_MEGALAYER=1`` takes the whole
     layer B12 (ported with slice 7; ``tests/test_torch_dense_step.py`` holds
     it against JAX; it reads the int8 cache, so a bf16 cache takes the
-    megatail). The one dense dispatch still without a kernel, a GELU MLP
-    with bias and RMSNorm, names B9d."""
+    megatail). A GELU MLP with bias and RMSNorm, once refused, takes the
+    ``DENSE_FNS`` path with B9d (``tests/test_torch_mlp_gelu.py`` holds it
+    against JAX)."""
     import dataclasses
 
     from vocalie_tts_tpu_torch.models.chatterbox.runtime import SCALES
@@ -109,10 +110,11 @@ def test_dense_kernel_env_names_the_next_slice(monkeypatch):
     # B12 reads the int8 cache: on a bf16 cache the megatail runs, as in JAX
     assert tr._dense_dispatch(layers, dataclasses.replace(cfg, kv_quant=False), 2,
                               256) == tr.MEGATAIL
+    # a GELU MLP with biases under RMSNorm: B4 for qkv and o, B9d for the
+    # MLP (JAX transformer.py:792-799, :922-941), which the port now has
     gelu = dataclasses.replace(cfg, mlp_type="gelu", bias=True)
     layers["w_up"] = {"q": torch.zeros((2, 128, 256), dtype=torch.int8)}
-    with pytest.raises(NotImplementedError, match="B9d"):
-        tr._dense_dispatch(layers, gelu, 2, 256)
+    assert tr._dense_dispatch(layers, gelu, 2, 256) == tr.DENSE_FNS
 
 
 #: the modules the CosyVoice slice added

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels (B1 int8 decode attention, B5 KV-cache append,
+"""The port's CUDA kernels (B1 int8 decode attention and B1w, its whole-row
+branch, B5 KV-cache append and K5, the one-array append without scales,
 B6 flash attention, the training path's B6 with its logsumexp (B6t) and the
 flash-attention backward B11 (B11b dQ, B11a dK/dV), the dense decode kernels B2/B3/B4, the unfused SwiGLU
 tail and MLP B8a/B8b and the GPT-2 siblings B9a/B9b/B9c, the whole-step
@@ -6,7 +7,11 @@ kernel B7) against their plain PyTorch versions on the GPU, at the edge
 shapes the main path does not reach: GQA, head dims other than 64, ragged
 and fully masked rows, valid lengths off the 128-slot grid, f32 as well as
 bf16, batch 1 and 17, zero rows, the last layer's clamped next-qkv, d_ff in
-one and in two tiles, the Qwen3 layer (d_model 2048, d_ff 8192 in eight
+one and in two tiles, for B1w caches that are not 128-multiples (600, 520,
+40, 8) with and without the current token, GQA up to g 8, a fully masked
+row and scores past the shared-memory limit (a global workspace), for B9d
+(the int8 GELU MLP alone) the XTTS width with f32 and bf16 rows and bf16
+biases, and for K5 int8 and bf16 arrays, the Qwen3 layer (d_model 2048, d_ff 8192 in eight
 tiles) for B8a/B8b and B6 at d_head 128 with GQA; for B9 bf16 and f32 biases and residuals, a
 constant row (LayerNorm to its bias), the XTTS layer and batch 1; for B7 caches of 128 and 640 slots, a fully masked
 tail and a fully masked cache, q/k/v biases off, in f32 and in bf16, 1 and
@@ -27,7 +32,7 @@ a machine that has only PyTorch:
 
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
 
-Tolerances: B5 byte-exact. B1 atol 5e-4 on unit-scale inputs: both
+Tolerances: B5 and K5 byte-exact. B1 and B1w atol 5e-4 on unit-scale inputs: both
 sides re-quantize q and p to int8, and a value on a rounding boundary
 may round the other way under another exp/summation order; a p block
 of other than 128 slots lands well outside it
@@ -40,7 +45,7 @@ repeat their plain versions' rounding step for step (exact int32 products,
 the variance summed in double, IEEE divides, the same f32 epilogue order),
 so an output moves only if an int8 activation sits on a .5 tie that
 another expf reaches from the other side; such a flip moves it by ~1e-3.
-B8a/B8b and B9a-c likewise (the LayerNorm's moments in double, the tanh-GELU as the
+B8a/B8b and B9a-d likewise (the LayerNorm's moments in double, the tanh-GELU as the
 same IEEE steps with ``tanhf``, which PyTorch's CUDA tanh also calls).
 B7 and B12 within 1e-5 · max|ref| on each output, for the same reason: the
 plain version takes the kernel's steps (the softmax sums, the variance and
@@ -55,6 +60,8 @@ import pytest
 import torch
 
 from vocalie_tts_tpu_torch.ops.cache_update import (
+    cache_append_k_plain,
+    cache_append_k_stacked,
     cache_append_kv_plain,
     cache_append_kv_stacked,
     cache_append_plain,
@@ -67,12 +74,16 @@ from vocalie_tts_tpu_torch.ops.decode_attention import (
     decode_attention_float_plain,
     decode_attention_float_stacked,
     decode_attention_int8_stacked,
+    decode_attention_int8_whole_stacked,
     decode_attention_plain,
     decode_attention_plain_b10,
+    decode_attention_whole_plain,
 )
 from vocalie_tts_tpu_torch.ops.decode_dense import (
     dense_int8_plain,
     dense_int8_stacked,
+    mlp_gelu_int8_plain,
+    mlp_gelu_int8_stacked,
     qkv_lnorm_int8_plain,
     qkv_lnorm_int8_stacked,
     qkv_norm_int8_plain,
@@ -165,6 +176,65 @@ def test_decode_attention_kernel_rejects_bad_inputs(dev):
                                       kn, **args)
     with pytest.raises(ValueError, match="layer"):
         decode_attention_int8_stacked(q, k, k, bias, 1, s, s, kn, kn, **args)
+
+
+# ── B1w ─────────────────────────────────────────────────────────────────
+
+
+@pytest.mark.parametrize("L,b,kv,g,T,d,prompt_pad,n_dec,layer,with_new,masked_row", [
+    (30, 16, 16, 1, 600, 64, 512, 50, 7, True, False),    # the T3 at cache_len 600
+    (28, 8, 8, 2, 520, 128, 256, 96, 27, True, False),    # the Qwen3 shape, last layer
+    (2, 3, 2, 4, 40, 16, 24, 9, 1, True, True),           # a short cache, a masked prompt
+    (1, 2, 1, 8, 8, 32, 4, 3, 0, True, False),            # T 8, g 8
+    (2, 2, 2, 1, 256, 64, 100, 20, 1, False, True),       # no current token: all T read
+    (1, 1, 1, 8, 7000, 64, 6000, 900, 0, True, False),    # g*T*4 > 200 KB: the workspace
+])
+def test_decode_attention_whole_kernel(dev, L, b, kv, g, T, d, prompt_pad, n_dec, layer,
+                                       with_new, masked_row):
+    gen = _gen(dev, T + d + g)
+    q = torch.randn((b, kv, g, d), generator=gen, device=dev)
+    k, v = (torch.randint(-127, 128, (L, b, kv, T, d), generator=gen, device=dev,
+                          dtype=torch.int8) for _ in range(2))
+    ks, vs = (((torch.rand((L, b, kv, T), generator=gen, device=dev) + 0.5) / 127)
+              .to(torch.bfloat16) for _ in range(2))
+    kn, vn = (torch.randn((b, kv, d), generator=gen, device=dev) for _ in range(2))
+    lens = torch.randint(1, prompt_pad + 1, (b,), generator=gen, device=dev)
+    pos = torch.arange(T, device=dev)[None, :]
+    valid_len = prompt_pad + n_dec
+    valid = (pos < lens[:, None]) | ((pos >= prompt_pad) & (pos < valid_len))
+    if masked_row:
+        valid[-1] = False
+    bias = torch.where(valid, 0.0, NEG).float()
+    new = (kn, vn) if with_new else (None, None)
+    vl = valid_len if with_new else None
+    sm = 1.0 / math.sqrt(d)
+    before = decode_attention_int8_whole_stacked.launches
+    out = decode_attention_int8_whole_stacked(q, k, v, bias, layer, ks, vs, *new, valid_len=vl,
+                                              sm_scale=sm)
+    ref = decode_attention_whole_plain(q, k, v, bias, layer, ks, vs, *new, vl, sm_scale=sm)
+    torch.cuda.synchronize()
+    assert decode_attention_int8_whole_stacked.launches == before + 1
+    assert torch.isfinite(out).all()
+    assert torch.allclose(out, ref, atol=5e-4, rtol=0), (out - ref).abs().max().item()
+
+
+def test_decode_attention_whole_kernel_rejects_bad_inputs(dev):
+    L, b, kv, g, T, d = 1, 2, 2, 1, 200, 64
+    q = torch.zeros((b, kv, g, d), device=dev)
+    k = torch.zeros((L, b, kv, T, d), dtype=torch.int8, device=dev)
+    s = torch.ones((L, b, kv, T), dtype=torch.bfloat16, device=dev)
+    bias = torch.zeros((b, T), device=dev)
+    kn = torch.zeros((b, kv, d), device=dev)
+    args = dict(valid_len=4, sm_scale=0.125)
+    with pytest.raises(ValueError, match="v_scale"):
+        decode_attention_int8_whole_stacked(q, k, k, bias, 0, s, s.float(), kn, kn, **args)
+    with pytest.raises(ValueError, match="together"):
+        decode_attention_int8_whole_stacked(q, k, k, bias, 0, s, s, kn, None, **args)
+    with pytest.raises(ValueError, match="g <= 8"):
+        decode_attention_int8_whole_stacked(q[..., :24].contiguous(), k[..., :24].contiguous(),
+                                            k[..., :24].contiguous(), bias, 0, s, s,
+                                            kn[..., :24].contiguous(), kn[..., :24].contiguous(),
+                                            **args)
 
 
 # ── B5 ──────────────────────────────────────────────────────────────────
@@ -333,6 +403,30 @@ def test_cache_append_kv_rejects_bad_inputs(dev):
         cache_append_kv_stacked(k, k.clone(), kn.float(), kn, 3)
     with pytest.raises(ValueError, match="position"):
         cache_append_kv_stacked(k, k.clone(), kn, kn, 128)
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.bfloat16], ids=["int8", "bf16"])
+@pytest.mark.parametrize("L,b,kv,T,D,pos", [
+    (30, 16, 16, 640, 128, 416),   # the T3 k|v width
+    (2, 3, 2, 136, 24, 135),       # rows of 24 bytes (int8) and 48 (bf16)
+    (1, 1, 1, 8, 3, 0),            # 3-byte int8 rows: byte copies
+])
+def test_cache_append_k_kernel_is_byte_exact(dev, dtype, L, b, kv, T, D, pos):
+    gen = _gen(dev, pos + D + 1)
+    if dtype == torch.int8:
+        k = torch.randint(-127, 128, (L, b, kv, T, D), generator=gen, device=dev, dtype=dtype)
+        kn = torch.randint(-127, 128, (L, b, kv, D), generator=gen, device=dev, dtype=dtype)
+    else:
+        k = torch.randn((L, b, kv, T, D), generator=gen, device=dev).to(dtype)
+        kn = torch.randn((L, b, kv, D), generator=gen, device=dev).to(dtype)
+    before = cache_append_k_stacked.launches, cache_append_kv_stacked.launches
+    got = cache_append_kv_stacked(k.clone(), None, kn, None, pos)
+    ref = cache_append_k_plain(k.clone(), kn, pos)
+    torch.cuda.synchronize()
+    assert (cache_append_k_stacked.launches, cache_append_kv_stacked.launches) == (
+        before[0] + 1, before[1])
+    bits = torch.uint8 if dtype == torch.int8 else torch.int16
+    assert torch.equal(got.view(bits), ref.view(bits))
 
 
 # ── B6 ──────────────────────────────────────────────────────────────────
@@ -714,6 +808,27 @@ def test_tail_gelu_int8_kernels(dev, b, L, d, F, Q, layer, dtype, bias_dtype):
     assert torch.equal(x_out, x_c)
 
 
+@pytest.mark.parametrize("b,L,d,F,layer,dtype,bias_dtype,zero_row", [
+    (8, 3, 1024, 4096, 2, torch.float32, torch.float32, None),   # the XTTS width: two tiles
+    (8, 2, 1024, 4096, 0, torch.bfloat16, torch.bfloat16, 3),    # bf16 rows, a zero row
+    (17, 2, 128, 256, 1, torch.float32, torch.bfloat16, None),   # one tile, two row passes
+])
+def test_mlp_gelu_int8_kernel(dev, b, L, d, F, layer, dtype, bias_dtype, zero_row):
+    gen = _gen(dev, b + d + F + 11)
+    x = torch.randn((b, d), generator=gen, device=dev).to(dtype)
+    if zero_row is not None:
+        x[zero_row] = 0   # the hidden is gelu(bu) alone
+    wu, su = _int8_weights(gen, dev, L, d, F)
+    wd, sd = _int8_weights(gen, dev, L, F, d)
+    bu = (0.1 * torch.randn((L, F), generator=gen, device=dev)).to(bias_dtype)
+    before = mlp_gelu_int8_stacked.launches
+    got = mlp_gelu_int8_stacked(x, wu, su, bu, wd, sd, layer)
+    ref = mlp_gelu_int8_plain(x, wu, su, bu, wd, sd, layer)
+    torch.cuda.synchronize()
+    assert mlp_gelu_int8_stacked.launches == before + 1
+    _close(got, ref)
+
+
 def test_gelu_kernels_reject_bad_inputs(dev):
     tail, nxt = _gelu_tail_args(dev, 2, 2, 128, 256, 384, torch.float32, torch.float32)
     bad = list(tail)
@@ -725,6 +840,8 @@ def test_gelu_kernels_reject_bad_inputs(dev):
     with pytest.raises(ValueError, match="nb_all"):
         qkv_lnorm_int8_stacked(tail[1], nxt[0], nxt[1].to(torch.bfloat16), nxt[2], nxt[3], 0,
                                eps=1e-5)
+    with pytest.raises(ValueError, match="bu_all"):
+        mlp_gelu_int8_stacked(tail[1], tail[7], tail[8], tail[9].double(), tail[10], tail[11], 0)
 
 
 # ── B7 ──────────────────────────────────────────────────────────────────

@@ -170,15 +170,17 @@ def test_decode_steps_teacher_forced(models):
 
 
 def test_unported_configs_raise(models):
-    """The one decode-attention branch the port lacks is refused: JAX's
+    """The decode-attention branch the port once refused now runs: JAX's
     non-T-blocked int8 kernel, which an int8 cache of other than a
-    128-multiple length takes with the decode kernel on; the step raises
-    before it writes anything. The XLA branch (the decode kernel off) on
-    the same cache runs, and so does the dense flag at this width (d_model
-    64 is not eligible: ``_qdot``, as in JAX; tests/test_torch_dense_step.py
-    holds the dense path, tests/test_torch_noenv.py the cache and attention
-    branches against JAX)."""
-    _, _, pcfg, pparams, _ = models
+    128-multiple length takes with the decode kernel on (B1w). Prefill
+    with ``cache_len`` 192, then 3 teacher-forced steps, against JAX's:
+    logits within 2e-3 + 2e-3 · |ref| and the cache as ``_check_cache``
+    holds it. The XLA branch (the decode kernel off) on the same cache runs
+    too, and so does the dense flag at this width (d_model 64 is not
+    eligible: ``_qdot``, as in JAX; tests/test_torch_dense_step.py holds the
+    dense path, tests/test_torch_noenv.py the cache and attention branches
+    against JAX)."""
+    jcfg, jparams, pcfg, pparams, _ = models
     emb, lens, tok = torch.zeros(1, 4, pcfg.d_model), torch.tensor([3]), torch.tensor([1])
     logits, _ = pt.prefill(pparams, dataclasses.replace(pcfg, dense_kernel=True), None, lens,
                            inputs_embeds=emb)
@@ -187,7 +189,31 @@ def test_unported_configs_raise(models):
     _, cache = pt.prefill(pparams, xla, None, lens, inputs_embeds=emb, cache_len=192)
     logits, _ = pt.decode_step(pparams, xla, tok, cache)
     assert torch.isfinite(logits).all() and cache.n_decoded == 1
-    _, cache = pt.prefill(pparams, pcfg, None, lens, inputs_embeds=emb, cache_len=192)
-    with pytest.raises(NotImplementedError, match="non-T-blocked"):
-        pt.decode_step(pparams, pcfg, tok, cache)
-    assert cache.n_decoded == 0
+
+    b, s, n_steps = 2, 40, 3
+    emb = _embeds(3, b, s, jcfg.d_model)
+    lens = np.asarray([40, 17], np.int32)
+    toks = np.random.default_rng(4).integers(0, jcfg.vocab_size, (n_steps, b)).astype(np.int32)
+
+    @jax.jit
+    def jax_run(p, e, l):
+        logits, cache = jt.prefill(p, jcfg, jnp.zeros(e.shape[:2], jnp.int32), l,
+                                   inputs_embeds=e, cache_len=192)
+        out = [logits]
+        for i in range(n_steps):
+            logits, cache = jt.decode_step(p, jcfg, jnp.asarray(toks[i]), cache)
+            out.append(logits)
+        return out, cache
+
+    jlogits, jcache = jax_run(jparams, jnp.asarray(emb), jnp.asarray(lens))
+    plogits, pcache = pt.prefill(pparams, pcfg, None, torch.from_numpy(lens),
+                                 inputs_embeds=torch.from_numpy(emb), cache_len=192)
+    got = [plogits]
+    for i in range(n_steps):
+        plogits, pcache = pt.decode_step(pparams, pcfg, torch.from_numpy(toks[i]).long(), pcache)
+        got.append(plogits)
+    for i, (ref, g) in enumerate(zip(jlogits, got)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(ref), atol=2e-3, rtol=2e-3,
+                                   err_msg=f"logits {i}")
+    assert pcache.max_len == 192 and pcache.n_decoded == n_steps
+    _check_cache(jcache, pcache)

@@ -28,6 +28,9 @@
   JAX's tokens within 33 LSB of int16, and ``run_tts_pipeline`` with
   ``tts_backend: "xtts"``. The vocoder is narrowed to 64 base channels on
   both sides (test side only) to keep the CPU time down.
+- The GPT-2 transformer with RMSNorm in place of LayerNorm (the dense
+  kernels' B4 + B9d dispatch): prefill and teacher-forced logits against
+  JAX's up to the dense path's ties.
 - The refusals: a published bundle at the LM's width, a ``tokenizer.json``,
   a request without a reference or with one under 3 s.
 """
@@ -217,14 +220,47 @@ def test_gpt2_token_prefill_adds_positions(gpt2):
     np.testing.assert_allclose(pl.numpy(), np.asarray(jl), atol=2e-3, rtol=2e-3)
 
 
-def test_gpt2_unported_dispatch_raises(gpt2):
+def test_gpt2_unported_dispatch_raises(gpt2, monkeypatch):
     """A GELU MLP with RMSNorm takes B4 for qkv/o and B9d for the MLP in the
-    JAX package (``transformer.py:792-799, :932-941``): refused."""
-    _, _, pcfg, pparams = gpt2
-    cfg = dataclasses.replace(pcfg, norm_type="rms")
-    cache = pt.StackedKVCache.create(2, 1, 2, 128, 64, "cpu")
-    with pytest.raises(NotImplementedError, match="B9d"):
-        pt.decode_step(pparams, cfg, torch.zeros(1, dtype=torch.long), cache)
+    JAX package (``transformer.py:792-799, :922-941``). The port used to
+    refuse it; now the RMS GPT-2 config decodes and matches JAX: prefill
+    logits within 2e-3 + 2e-3 · |ref|, then 3 teacher-forced steps from
+    JAX's prompt cache within it up to the dense path's ties
+    (``tests/test_torch_dense_step.py::_assert_logits_up_to_ties``), through
+    B4 and B9d alone."""
+    from test_torch_dense_step import _assert_logits_up_to_ties
+
+    monkeypatch.delenv("VOCALIE_TILE_MB", raising=False)
+    jcfg, jparams, pcfg, pparams = gpt2
+    jcfg, pcfg = (dataclasses.replace(c, norm_type="rms") for c in (jcfg, pcfg))
+    calls = _count(monkeypatch, ("dense_int8_stacked", "mlp_gelu_int8_stacked",
+                                 "qkv_lnorm_int8_stacked", "tail_gelu_qkv_int8_stacked"))
+    b, s, n_steps = 2, 40, 3
+    rng = np.random.default_rng(9)
+    emb = (rng.standard_normal((b, s, 128)) * 0.5).astype(np.float32)
+    lens = np.asarray([40, 23], np.int32)
+    toks = rng.integers(0, 1024, (n_steps, b)).astype(np.int32)
+    jl, jcache = jax.jit(lambda p, e, l: jt.prefill(p, jcfg, jnp.zeros(e.shape[:2], jnp.int32),
+                                                    l, inputs_embeds=e, cache_len=128)
+                         )(jparams, jnp.asarray(emb), jnp.asarray(lens))
+    pl, pcache = pt.prefill(pparams, pcfg, None, torch.from_numpy(lens),
+                            inputs_embeds=torch.from_numpy(emb), cache_len=128)
+    pairs = [(np.asarray(jl), pl.numpy())]
+    jk = torch.from_numpy(np.array(jcache.k))
+    pcache.k, pcache.v = jk[..., :64].contiguous(), jk[..., 64:].contiguous()
+    for name in ("k_scale", "v_scale"):
+        getattr(pcache, name).copy_(torch.from_numpy(np.array(getattr(jcache, name).astype(
+            jnp.float32))).to(torch.bfloat16))
+    jstep = jax.jit(lambda p, t, c: jt.decode_step(p, jcfg, t, c))
+    for i in range(n_steps):
+        jl, jcache = jstep(jparams, jnp.asarray(toks[i]), jcache)
+        pl, pcache = pt.decode_step(pparams, pcfg, torch.from_numpy(toks[i]).long(), pcache)
+        pairs.append((np.asarray(jl), pl.numpy()))
+    _assert_logits_up_to_ties(pairs)
+    L = pcfg.n_layers
+    assert calls == {"dense_int8_stacked": 1 + n_steps * (1 + 2 * L),
+                     "mlp_gelu_int8_stacked": n_steps * L,
+                     "qkv_lnorm_int8_stacked": 0, "tail_gelu_qkv_int8_stacked": 0}
 
 
 # ── the model pieces and the tiny runtime ────────────────────────────────

@@ -1,6 +1,6 @@
 // In-place append of one decode step's int8 k/v and their bf16 scales
 // into the stacked KV cache, for all layers at once (B5); below it, the
-// same for a cache without scales (K4).
+// same for a cache without scales, k and v (K4) or one array (K5).
 //
 // Replaces: vocalie_tts_tpu/ops/cache_update.py::cache_append_stacked
 // (the split k/v + scales branch, _write_kv_scales_kernel). The TPU
@@ -57,17 +57,21 @@ extern "C" int vt_cache_append(
 
 
 // ---------------------------------------------------------------------------
-// K4: in-place append of one decode step's k/v into a stacked cache without
-// scales (bf16 or f32), for all layers at once.
+// K4 and K5: in-place append of one decode step's rows into a stacked cache
+// without scales, for all layers at once: k and v (K4, a bf16 or f32 cache)
+// or one array (K5, v null: any dtype, the lane-packed k|v of JAX's API).
 //
 // Replaces: vocalie_tts_tpu/ops/cache_update.py::cache_append_stacked on
-// its split no-scale branch (_write_kv_kernel, :58; pallas_call :191), which
-// the decode step takes for a bf16 cache when the decode or the dense
-// kernels are on. As B5, it writes exactly the new slot (the TPU kernel's
-// 8-row read-modify-write window is a Mosaic store rule).
+// its no-scale branches: the split one (_write_kv_kernel, :58; pallas_call
+// :191), which the decode step takes for a bf16 cache when the decode or
+// the dense kernels are on, and the one-array one (_write_k_kernel, :63;
+// pallas_call :135), which JAX's packed cache without scales takes (the
+// port keeps its caches split, so only JAX's API reaches it). As B5, it
+// writes exactly the new slot (the TPU kernel's 8-row read-modify-write
+// window is a Mosaic store rule).
 //
 // Bound: bytes. It reads the new rows and writes them once:
-// L*b*kv*d elements of k and of v each way, ~1 MB at the Chatterbox shape
+// L*b*kv rows of k (and of v) each way, ~1 MB at the Chatterbox shape
 // (30*16*16 rows, d 64, bf16): launch latency is what it costs.
 //
 // Design: the rows are copied as bytes, 4 at a time where a row's width
@@ -86,17 +90,23 @@ __global__ void cache_append_kv_kernel(
   const long long dst = (r * T + pos) * row_bytes + e;
   if (word == 4) {
     *reinterpret_cast<uint32_t*>(k_cache + dst) = *reinterpret_cast<const uint32_t*>(k_new + src);
-    *reinterpret_cast<uint32_t*>(v_cache + dst) = *reinterpret_cast<const uint32_t*>(v_new + src);
+    if (v_cache != nullptr) {
+      *reinterpret_cast<uint32_t*>(v_cache + dst) = *reinterpret_cast<const uint32_t*>(v_new + src);
+    }
   } else {
     k_cache[dst] = k_new[src];
-    v_cache[dst] = v_new[src];
+    if (v_cache != nullptr) v_cache[dst] = v_new[src];
   }
 }
 
+// v_cache == v_new == null: one array (K5)
 extern "C" int vt_cache_append_kv(
     void* k_cache, void* v_cache, const void* k_new, const void* v_new,
     long long rows, int T, int row_bytes, int pos, void* stream) {
-  if (rows < 1 || row_bytes < 1 || pos < 0 || pos >= T) return (int)cudaErrorInvalidValue;
+  if (rows < 1 || row_bytes < 1 || pos < 0 || pos >= T ||
+      (v_cache == nullptr) != (v_new == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
   const int word = row_bytes % 4 == 0 ? 4 : 1;
   const int threads = 256;
   const long long total = rows * (row_bytes / word);

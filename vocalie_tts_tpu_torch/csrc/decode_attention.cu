@@ -1,7 +1,7 @@
 // q_len == 1 decode attention over one layer of the stacked KV cache, read
 // in place, with the current token's k/v merged unquantized: the int8
-// T-blocked kernel (B1) first, then the f32 kernel of K1, K2 and B10 (see
-// its own note below).
+// T-blocked kernel (B1) first, then the int8 whole-row kernel (B1w) and the
+// f32 kernel of K1, K2 and B10 (see their own notes below).
 //
 // Replaces: vocalie_tts_tpu/ops/decode_attention.py::decode_attention_stacked
 // on its int8 T-blocked branches (_kernel_stacked_int8dots_packed_tblk and
@@ -199,6 +199,264 @@ extern "C" int vt_decode_attention_int8(
       (const __nv_bfloat16*)k_scale, (const __nv_bfloat16*)v_scale,
       (const float*)bias, (const float*)k_new, (const float*)v_new, (float*)out,
       BC, kv, T, d, g, layer, n_blk, sm_scale);
+  return (int)cudaGetLastError();
+}
+
+
+// ---------------------------------------------------------------------------
+// B1w: the int8 decode attention with ONE softmax over the whole cache row.
+//
+// Replaces: vocalie_tts_tpu/ops/decode_attention.py::decode_attention_stacked
+// on its non-T-blocked int8 branches, _kernel_stacked_int8dots[_new] (:190,
+// :260; pallas_call :844) and, over the lane-packed cache,
+// _kernel_stacked_int8dots_packed (:268; pallas_call :808), which JAX takes
+// for an int8 cache whose length is not a 128-multiple, or without k_new or
+// valid_len. The packed kernel's selector matmuls are exact, so over the
+// split cache it is this function too. The math, step for step:
+//   * q is quantized once per (row, head, group member), as in B1;
+//   * s = (float(q8 . k) * (qs * sm_scale)) * ks + bias for every slot read;
+//   * ONE max over those slots; with k_new, the current token's exact score
+//     s_new = sum(q * k_new) * sm_scale joins the max BEFORE exp;
+//   * p = exp(s - m), l = sum(p) (before the v scales);
+//   * p * vs is re-quantized to int8 with ONE scale over the whole row,
+//     ps = max(max(p * vs) / 127, 1e-20) -- not one per 128-slot block;
+//   * o = float(p8 . v) * ps; with k_new, p_new = exp(s_new - m) adds
+//     p_new * v_new to o and p_new to l; out = o / max(l, 1e-30).
+// Slots read (n_slots, from the wrapper): with k_new and valid_len, the
+// first max(valid_len, 1) -- a slot at or past valid_len is masked in the
+// decode step, so its p is exactly 0, its score is below s_new, and skipping
+// it changes nothing; otherwise all T (a fully masked row then spreads its
+// softmax over every slot, as in JAX).
+//
+// Bound: bytes, as B1: each (row, kv head) reads its slots' k and v rows
+// (d int8 each), two bf16 scales and the 4-byte bias.
+//
+// Design (first, simple version): one block of 128 threads per (row, kv
+// head). Because p's scale spans the whole row, every score is kept until
+// the row's max and p-max are known: the g x T scores live in dynamic
+// shared memory (g*T*4 bytes, 2.4 KB for the T3 at T 600) or, past what a
+// block holds, in a global workspace the wrapper allocates; they are
+// computed once and never recomputed. Pass 1: thread t owns slots t,
+// t + 128, ...: int8 dots with __dp4a, scores stored, block max. Pass 2:
+// p, l and the p-max. Pass 3: each thread quantizes its own slots in place.
+// PV: each thread owns 4 output columns (one int32 word of a v row) over a
+// slice of the slots, sums p8 * v in int32 (exact in any order), and the
+// slices meet in shared memory through integer atomics. No tensor cores,
+// no TMA.
+
+#define WHOLE_SMEM_MAX (200 * 1024)   // scores in shared memory up to this size
+
+__global__ void __launch_bounds__(NTHREADS) decode_attention_int8_whole_kernel(
+    const float* __restrict__ q,                  // [BC, g, d]
+    const int8_t* __restrict__ k_all,             // [L, BC, T, d]
+    const int8_t* __restrict__ v_all,             // [L, BC, T, d]
+    const __nv_bfloat16* __restrict__ ks_all,     // [L, BC, T]
+    const __nv_bfloat16* __restrict__ vs_all,     // [L, BC, T]
+    const float* __restrict__ bias,               // [b, T]
+    const float* __restrict__ k_new,              // [BC, d] or null
+    const float* __restrict__ v_new,              // [BC, d] or null
+    float* __restrict__ out,                      // [BC, g, d]
+    float* __restrict__ ws,                       // [BC, g, T] scores, or null
+    int BC, int kv, int T, int d, int g, int layer, int n, float sm_scale) {
+  extern __shared__ float sc_dyn[];
+  __shared__ __align__(16) int8_t q8_s[MAX_G * MAX_D];
+  __shared__ int o_s[MAX_G * MAX_D];
+  __shared__ float qs_s[MAX_G], m_s[MAX_G], l_s[MAX_G], ps_s[MAX_G], snew_s[MAX_G];
+  __shared__ float red[NWARPS];
+
+  const int bc = blockIdx.x;
+  const int row = bc / kv;
+  const int tid = threadIdx.x;
+  const bool with_new = k_new != nullptr;
+  const float* qb = q + (long long)bc * g * d;
+  float* sc = ws != nullptr ? ws + (long long)bc * g * T : sc_dyn;   // [g, T]
+
+  // quantize q once per group member
+  for (int gi = 0; gi < g; ++gi) {
+    const float a = tid < d ? fabsf(qb[gi * d + tid]) : 0.0f;
+    const float qs = fmaxf(block_max(a, red) / 127.0f, 1e-8f);
+    if (tid < d) q8_s[gi * d + tid] = (int8_t)__float2int_rn(qb[gi * d + tid] / qs);
+    if (tid == 0) qs_s[gi] = qs;
+  }
+  for (int o = tid; o < g * d; o += NTHREADS) o_s[o] = 0;
+  if (with_new && tid < g) {   // the current token's score, unquantized
+    const float* knb = k_new + (long long)bc * d;
+    float s = 0.0f;
+    for (int dd = 0; dd < d; ++dd) s = __fadd_rn(s, __fmul_rn(qb[tid * d + dd], knb[dd]));
+    snew_s[tid] = __fmul_rn(s, sm_scale);
+  }
+  __syncthreads();
+
+  const long long lrow = (long long)layer * BC + bc;
+  const int8_t* kb = k_all + lrow * T * d;
+  const int8_t* vb = v_all + lrow * T * d;
+  const __nv_bfloat16* ksb = ks_all + lrow * T;
+  const __nv_bfloat16* vsb = vs_all + lrow * T;
+  const float* brow = bias + (long long)row * T;
+
+  // pass 1: scores and their max
+  float mloc[MAX_G];
+#pragma unroll
+  for (int gi = 0; gi < MAX_G; ++gi) mloc[gi] = -INFINITY;
+  for (int t = tid; t < n; t += NTHREADS) {
+    const int4* kr = reinterpret_cast<const int4*>(kb + (long long)t * d);
+    int dot[MAX_G];
+#pragma unroll
+    for (int gi = 0; gi < MAX_G; ++gi) dot[gi] = 0;
+    for (int w = 0; w < d / 16; ++w) {
+      const int4 kk = kr[w];
+#pragma unroll
+      for (int gi = 0; gi < MAX_G; ++gi) {
+        if (gi < g) {
+          const int4 qq = reinterpret_cast<const int4*>(q8_s + gi * d)[w];
+          dot[gi] = __dp4a(kk.x, qq.x, dot[gi]);
+          dot[gi] = __dp4a(kk.y, qq.y, dot[gi]);
+          dot[gi] = __dp4a(kk.z, qq.z, dot[gi]);
+          dot[gi] = __dp4a(kk.w, qq.w, dot[gi]);
+        }
+      }
+    }
+    const float ksc = __bfloat162float(ksb[t]);
+    const float bb = brow[t];
+#pragma unroll
+    for (int gi = 0; gi < MAX_G; ++gi) {
+      if (gi < g) {
+        float s = __fmul_rn((float)dot[gi], __fmul_rn(qs_s[gi], sm_scale));
+        s = __fadd_rn(__fmul_rn(s, ksc), bb);
+        sc[gi * T + t] = s;
+        mloc[gi] = fmaxf(mloc[gi], s);
+      }
+    }
+  }
+#pragma unroll
+  for (int gi = 0; gi < MAX_G; ++gi) {
+    if (gi < g) {
+      float m = block_max(mloc[gi], red);
+      if (with_new) m = fmaxf(m, snew_s[gi]);
+      if (tid == 0) m_s[gi] = m;
+    }
+  }
+  __syncthreads();
+
+  // pass 2: p, its sum, p * vs and its max
+  float lloc[MAX_G], ploc[MAX_G];
+#pragma unroll
+  for (int gi = 0; gi < MAX_G; ++gi) lloc[gi] = ploc[gi] = 0.0f;
+  for (int t = tid; t < n; t += NTHREADS) {
+    const float vsc = __bfloat162float(vsb[t]);
+#pragma unroll
+    for (int gi = 0; gi < MAX_G; ++gi) {
+      if (gi < g) {
+        const float p = expf(sc[gi * T + t] - m_s[gi]);
+        lloc[gi] = __fadd_rn(lloc[gi], p);
+        const float pv = __fmul_rn(p, vsc);   // fold the v scales in before quantizing
+        sc[gi * T + t] = pv;
+        ploc[gi] = fmaxf(ploc[gi], pv);
+      }
+    }
+  }
+#pragma unroll
+  for (int gi = 0; gi < MAX_G; ++gi) {
+    if (gi < g) {
+      const float l = block_sum(lloc[gi], red);
+      const float pa = block_max(ploc[gi], red);
+      if (tid == 0) {
+        l_s[gi] = l;
+        ps_s[gi] = fmaxf(pa / 127.0f, 1e-20f);
+      }
+    }
+  }
+  __syncthreads();
+
+  // pass 3: p quantized with the row's one scale, in place (own slots only;
+  // the int8 values are kept as exact floats)
+  for (int t = tid; t < n; t += NTHREADS) {
+    for (int gi = 0; gi < g; ++gi) {
+      sc[gi * T + t] = (float)__float2int_rn(sc[gi * T + t] / ps_s[gi]);
+    }
+  }
+  __syncthreads();
+
+  // PV: thread (slice, word) sums p8 * v over its slots for 4 columns
+  const int nw = d / 4;
+  const int slices = NTHREADS / nw;
+  const int w = tid % nw, sl = tid / nw;
+  if (sl < slices) {
+    int acc[MAX_G][4];
+#pragma unroll
+    for (int gi = 0; gi < MAX_G; ++gi) acc[gi][0] = acc[gi][1] = acc[gi][2] = acc[gi][3] = 0;
+    const int* vw = reinterpret_cast<const int*>(vb);
+    for (int t = sl; t < n; t += slices) {
+      const int vv = __ldg(vw + (long long)t * nw + w);
+      const int v0 = (int)(int8_t)(vv & 0xff), v1 = (int)(int8_t)((vv >> 8) & 0xff);
+      const int v2 = (int)(int8_t)((vv >> 16) & 0xff), v3 = (int)(int8_t)((vv >> 24) & 0xff);
+#pragma unroll
+      for (int gi = 0; gi < MAX_G; ++gi) {
+        if (gi < g) {
+          const int p = __float2int_rz(sc[gi * T + t]);
+          acc[gi][0] += p * v0;
+          acc[gi][1] += p * v1;
+          acc[gi][2] += p * v2;
+          acc[gi][3] += p * v3;
+        }
+      }
+    }
+#pragma unroll
+    for (int gi = 0; gi < MAX_G; ++gi) {
+      if (gi < g) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) atomicAdd(&o_s[gi * d + 4 * w + j], acc[gi][j]);
+      }
+    }
+  }
+  __syncthreads();
+
+  // o * ps, the current token merged exactly, then / max(l, 1e-30)
+  float* ob = out + (long long)bc * g * d;
+  for (int o = tid; o < g * d; o += NTHREADS) {
+    const int gi = o / d, dd = o - gi * d;
+    float val = __fmul_rn(__int2float_rn(o_s[o]), ps_s[gi]);
+    float l = l_s[gi];
+    if (with_new) {
+      const float p_new = expf(snew_s[gi] - m_s[gi]);
+      l = __fadd_rn(l, p_new);
+      val = __fadd_rn(val, __fmul_rn(p_new, v_new[(long long)bc * d + dd]));
+    }
+    ob[o] = val / fmaxf(l, 1e-30f);
+  }
+}
+
+// Bytes of global workspace B1w needs for its scores: 0 where a block's
+// shared memory holds them.
+extern "C" long long vt_attn_whole_workspace(int b, int kv, int g, int T) {
+  const long long row = (long long)g * T * 4;
+  return row <= WHOLE_SMEM_MAX ? 0 : (long long)b * kv * row;
+}
+
+extern "C" int vt_decode_attention_int8_whole(
+    const void* q, const void* k_all, const void* v_all,
+    const void* k_scale, const void* v_scale, const void* bias,
+    const void* k_new, const void* v_new, void* out, void* ws, long long ws_bytes,
+    int b, int kv, int g, int d, int T, int layer, int n_slots,
+    float sm_scale, void* stream) {
+  if (g < 1 || g > MAX_G || d < 16 || d > MAX_D || d % 16 != 0 || n_slots < 1 || n_slots > T ||
+      (k_new == nullptr) != (v_new == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const long long need = vt_attn_whole_workspace(b, kv, g, T);
+  if (need > 0 && (ws == nullptr || ws_bytes < need)) return (int)cudaErrorInvalidValue;
+  const int smem = need > 0 ? 0 : g * T * 4;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        decode_attention_int8_whole_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        WHOLE_SMEM_MAX);
+    if (e != cudaSuccess) return (int)e;
+  }
+  decode_attention_int8_whole_kernel<<<b * kv, NTHREADS, smem, (cudaStream_t)stream>>>(
+      (const float*)q, (const int8_t*)k_all, (const int8_t*)v_all,
+      (const __nv_bfloat16*)k_scale, (const __nv_bfloat16*)v_scale,
+      (const float*)bias, (const float*)k_new, (const float*)v_new, (float*)out,
+      need > 0 ? (float*)ws : nullptr, b * kv, kv, T, d, g, layer, n_slots, sm_scale);
   return (int)cudaGetLastError();
 }
 

@@ -2,8 +2,8 @@
 // + the fused int8 qkv product), B2 (the whole SwiGLU layer tail + the NEXT
 // layer's RMSNorm and qkv product), B8a (the SwiGLU tail alone), B8b (the
 // int8 SwiGLU MLP alone), and their GPT-2 (XTTS) siblings: B9a (LayerNorm +
-// qkv), B9b (the GELU layer tail + the next layer's LayerNorm and qkv) and
-// B9c (the GELU tail alone).
+// qkv), B9b (the GELU layer tail + the next layer's LayerNorm and qkv), B9c
+// (the GELU tail alone) and B9d (the int8 GELU MLP alone).
 //
 // Replaces, in vocalie_tts_tpu/ops/decode_dense.py:
 //   B4 dense_int8_stacked             (def :116, pallas_call :143)
@@ -14,6 +14,7 @@
 //   B9a qkv_lnorm_int8_stacked        (def :652, pallas_call :686)
 //   B9c tail_gelu_int8_stacked        (def :752, pallas_call :811)
 //   B9b tail_gelu_qkv_int8_stacked    (def :985, pallas_call :1084)
+//   B9d mlp_gelu_int8_stacked         (def :862, pallas_call :898)
 // The math is theirs, step for step:
 //   * activations are quantized per row: s = max(max|x| / 127, 1e-8),
 //     q = round_half_even(x / s) (an IEEE divide, no clip);
@@ -70,7 +71,8 @@
 //   gelu_quant   one block per (row, d_ff tile): tanh-GELU, amax, int8.
 // The finish takes an optional bias, added before the residual (the
 // o-projection, the fc) or after it (the down-projection), as JAX orders
-// them. B4, B3 and B9a are 3 launches, B2 and B9b 12, B8a and B9c 9, B8b 6.
+// them. B4, B3 and B9a are 3 launches, B2 and B9b 12, B8a and B9c 9, B8b
+// and B9d 6.
 // No tensor cores, no TMA.
 
 #include <cuda_runtime.h>
@@ -735,4 +737,59 @@ extern "C" int vt_tail_gelu_int8(
                       reinterpret_cast<const char*>(nb) + (long long)nxt * d * nsz, norm_kind, eps,
                       b, d, w8, sc, Q, NO_BIAS, nullptr, KIND_NONE,
                       reinterpret_cast<float*>(qkv_out), q8, xs, part);
+}
+
+// ── B9d: the int8 GELU MLP alone ─────────────────────────────────────────
+
+extern "C" long long vt_mlp_gelu_workspace(int b, int d, int F, int tile) {
+  if (!gelu_ok(b, d, d, F, tile, 0)) return -1;
+  long long part = part_bytes(b, d, d, F);
+  const long long p2 = part_bytes(b, F, tile, d);
+  if (part < 0 || p2 < 0) return -1;
+  if (p2 > part) part = p2;
+  return align256((long long)b * d) + align256((long long)b * 4) +          // q8, its scales
+         align256((long long)b * F * 4) +                                 // u
+         align256((long long)b * F) + align256((long long)b * (F / tile) * 4) +  // hidden int8
+         part;
+}
+
+// B9d (the MLP that JAX's decode step gives a GELU MLP with biases under
+// RMSNorm): out = sum_t q_t(gelu(u)) . Wd[l] (* scales), with
+// u = q(x) . Wu[l] (* scales) + bu[l]; x are the post-norm rows; no
+// residual, and the proj bias is the caller's add. bias_kind is bu's dtype.
+extern "C" int vt_mlp_gelu_int8(const void* x, int x_kind, const void* wu, const void* su,
+                                const void* bu, int bias_kind, const void* wd, const void* sd,
+                                int layer, int L, int b, int d, int F, int tile, void* out,
+                                void* ws, long long ws_bytes, void* stream) {
+  if (!gelu_ok(b, d, d, F, tile, 0) || layer < 0 || layer >= L || bias_kind == KIND_NONE ||
+      ws_bytes < vt_mlp_gelu_workspace(b, d, F, tile)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t st = (cudaStream_t)stream;
+  const int n_tiles = F / tile;
+  const int bsz = bias_kind == KIND_BF16 ? 2 : 4;
+  Carver c{reinterpret_cast<char*>(ws)};
+  int8_t* q8 = c.take<int8_t>((long long)b * d);
+  float* xs = c.take<float>((long long)b * 4);
+  float* u = c.take<float>((long long)b * F * 4);
+  int8_t* hq = c.take<int8_t>((long long)b * F);
+  float* hs = c.take<float>((long long)b * n_tiles * 4);
+  int* part = reinterpret_cast<int*>(c.p);
+  // fc of the row-quantized x, + bias
+  int rc = launch_dense(st, x, x_kind, nullptr, nullptr, KIND_NONE, 0.0f, b, d,
+                        reinterpret_cast<const int8_t*>(wu) + (long long)layer * d * F,
+                        reinterpret_cast<const float*>(su) + (long long)layer * F, F,
+                        Bias{reinterpret_cast<const char*>(bu) + (long long)layer * F * bsz,
+                             bias_kind, 0},
+                        nullptr, KIND_NONE, u, q8, xs, part);
+  if (rc) return rc;
+  // tanh-GELU, quantized per (row, tile)
+  gelu_quant_kernel<<<dim3(n_tiles, b), QUANT_THREADS, 0, st>>>(u, F, tile, hq, hs);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  // down-projection, one f32 part per tile
+  return launch_gemv(st, hq, hs, n_tiles, b, F,
+                     reinterpret_cast<const int8_t*>(wd) + (long long)layer * F * d,
+                     reinterpret_cast<const float*>(sd) + (long long)layer * d, d, NO_BIAS,
+                     nullptr, KIND_NONE, reinterpret_cast<float*>(out), part);
 }

@@ -23,7 +23,8 @@ Both run every KV cache and decode attention that the JAX package's
 by slice assignment or, with the decode or dense kernels on, by the
 no-scale cache-update kernel (K4); or the int8 cache (``kv_quant``) with
 its scales, attended in plain PyTorch or by the int8 decode-attention
-kernel (B1) and appended by slice assignment or the cache-update kernel
+kernels (B1 over a 128-multiple cache, B1w, the whole-row branch, over any
+other length) and appended by slice assignment or the cache-update kernel
 (B5). Prefill runs flash attention (B6) at prompt buckets >= 512, and,
 with ``dense_kernel`` (the JAX package's default with int8 weights), the
 decode step runs the int8-native dense decode kernels of
@@ -34,13 +35,12 @@ layer (attention, o-projection, tail, next qkv) as one launch (B12), or,
 at batch 1 without qk-norm, the whole step (B7); for GPT-2 the layer-0
 LayerNorm+qkv (B9a) and the GELU tail + next qkv (B9b), or with
 ``VOCALIE_MEGATAIL=0`` B9a and the tail alone (B9c) per layer; where no
-fused tail applies (SwiGLU with biases or a LayerNorm), B4 for the qkv
-and o-projections and the int8 SwiGLU MLP (B8b); the int8 lm_head (B4,
-also for prefill's last-position logits) for all. Where the shapes are
-not eligible (d_model or the qkv width not a 128-multiple), the JAX
-package takes the ``_qdot`` path, and so does the port. The one dispatch
-the port does not carry (a GELU MLP with bias and RMSNorm, B9d) raises
-(see ``_dense_dispatch``).
+fused tail applies (SwiGLU with biases or a LayerNorm; a GELU MLP with
+biases under RMSNorm), B4 for the qkv and o-projections and the int8
+SwiGLU MLP (B8b) or the int8 GELU MLP (B9d); the int8 lm_head (B4, also
+for prefill's last-position logits) for all. Where the shapes are not
+eligible (d_model or the qkv width not a 128-multiple), the JAX package
+takes the ``_qdot`` path, and so does the port.
 
 The KV cache is a mutable object: ``decode_step`` writes the step's k/v
 into it IN PLACE and returns it (the JAX version returns a new cache).
@@ -60,6 +60,7 @@ from vocalie_tts_tpu_torch.device import div_const
 from vocalie_tts_tpu_torch.ops.decode_dense import (
     dense_int8_stacked,
     gelu_tanh,
+    mlp_gelu_int8_stacked,
     mlp_swiglu_int8_stacked,
     qkv_lnorm_int8_stacked,
     qkv_norm_int8_stacked,
@@ -450,9 +451,10 @@ def _dense_dispatch(layers: Params, cfg: TransformerConfig, batch: int, max_len:
     cache of a 128-multiple length; for GPT-2 the GELU megatail
     (B9a prologue, then B9b per layer) or, with ``VOCALIE_MEGATAIL=0``, B9a
     and B9c per layer; where no fused tail applies (SwiGLU with biases or a
-    LayerNorm, a d_ff that is not a 128-multiple, a GELU MLP without
-    biases), B4 for the qkv and o-projections and the int8 SwiGLU MLP
-    (B8b) or ``_qdot`` for the MLP. The JAX ``decode_step``'s choice from
+    LayerNorm, a GELU MLP with biases under RMSNorm, a d_ff that is not a
+    128-multiple, a GELU MLP without biases), B4 for the qkv and
+    o-projections and the int8 SwiGLU MLP (B8b), the int8 GELU MLP (B9d) or
+    ``_qdot`` for the MLP. The JAX ``decode_step``'s choice from
     the config and the shapes (``transformer.py:778-857``; the B7
     conditions of ``maybe_head_stack_qkv``, ``:422-464``, which the JAX
     generate programs apply at batch 1, for the SwiGLU family without
@@ -460,22 +462,15 @@ def _dense_dispatch(layers: Params, cfg: TransformerConfig, batch: int, max_len:
     the layer scan). B7 and B12 also need the int8 cache and the decode
     kernel, as in JAX (``kv_packed`` :116, ``maybe_head_stack_qkv``
     :441-442, ``use_megalayer`` :833-841, ``use_fused_step`` :847-857): with
-    a bf16 cache or ``VOCALIE_DECODE_KERNEL=0`` the megatail runs instead.
-    Raises where the JAX package would run a kernel the port lacks (B9d)."""
+    a bf16 cache or ``VOCALIE_DECODE_KERNEL=0`` the megatail runs instead."""
     dense = (cfg.dense_kernel and _is_i8(layers.get("wqkv")) and _is_i8(layers.get("wo"))
              and layers["wqkv"]["q"].shape[2] % 128 == 0 and cfg.d_model % 128 == 0)
     if not dense:
         return QDOT
     mega = bool_env("VOCALIE_MEGATAIL", True)
     mlp_i8 = _is_i8(layers.get("w_down")) and cfg.d_ff % 128 == 0
-    if cfg.mlp_type == "gelu" and cfg.bias and mlp_i8 and _is_i8(layers.get("w_up")):
-        if cfg.norm_type != "layer":
-            raise NotImplementedError(
-                f"with the dense kernels on, a GELU MLP with bias and norm_type="
-                f"{cfg.norm_type!r} takes dense_int8_stacked for the qkv and o-projections and "
-                "mlp_gelu_int8_stacked (kernel B9d) for the MLP in the JAX package; the port "
-                "does not have B9d yet; set VOCALIE_DENSE_KERNEL=0"
-            )
+    if (cfg.mlp_type == "gelu" and cfg.bias and mlp_i8 and _is_i8(layers.get("w_up"))
+            and cfg.norm_type == "layer"):
         return MEGATAIL_GELU if mega else TAIL_GELU
     if not (cfg.mlp_type == "swiglu" and mlp_i8 and _is_i8(layers.get("w_gateup"))
             and cfg.norm_type == "rms" and not cfg.bias):
@@ -586,19 +581,25 @@ def _block_tail(layer: Params, x: torch.Tensor, attn: torch.Tensor, cfg: Transfo
 def _dense_fns(lw: Params, cfg: TransformerConfig, l: int):
     """The ``DENSE_FNS`` path's callbacks for layer ``l`` (JAX
     ``_make_dense_fns``, ``transformer.py:906-935``): B4 for the fused qkv
-    and the o-projection (f32 out, cast to the input's dtype), and B8b for
-    a SwiGLU MLP with int8 weights and a 128-multiple d_ff (else None:
-    ``_qdot``)."""
+    and the o-projection (f32 out, cast to the input's dtype); for the MLP,
+    with int8 weights and a 128-multiple d_ff, B8b for SwiGLU and, for a
+    GELU MLP with biases, B9d plus the proj bias (JAX :922-931); else None:
+    ``_qdot``."""
 
     def b4(w):
         return lambda h: dense_int8_stacked(h[:, 0], w["q"], w["s"], l)[:, None, :].to(h.dtype)
 
     mlp_fn = None
-    if (cfg.mlp_type == "swiglu" and _is_i8(lw.get("w_gateup")) and _is_i8(lw.get("w_down"))
-            and cfg.d_ff % 128 == 0):
+    mlp_i8 = _is_i8(lw.get("w_down")) and cfg.d_ff % 128 == 0
+    if cfg.mlp_type == "swiglu" and mlp_i8 and _is_i8(lw.get("w_gateup")):
         def mlp_fn(h2):
             return mlp_swiglu_int8_stacked(h2[:, 0], lw["w_gateup"]["q"], lw["w_gateup"]["s"],
                                            lw["w_down"]["q"], lw["w_down"]["s"], l)[:, None, :]
+    elif cfg.mlp_type == "gelu" and cfg.bias and mlp_i8 and _is_i8(lw.get("w_up")):
+        def mlp_fn(h2):
+            y = mlp_gelu_int8_stacked(h2[:, 0], lw["w_up"]["q"], lw["w_up"]["s"], lw["b_up"],
+                                      lw["w_down"]["q"], lw["w_down"]["s"], l)
+            return (y + lw["b_down"][l].to(y.dtype))[:, None, :]
     return b4(lw["wqkv"]), b4(lw["wo"]), mlp_fn
 
 
@@ -681,18 +682,16 @@ def decode_step(
     of its raw qkv (bias, q/k norm, RoPE applied here) and returns the layer
     output, cast to the activation dtype every layer as JAX does, and the
     next layer's raw qkv. The ``DENSE_FNS``
-    path runs B4 for the qkv and o-projections and B8b (or ``_qdot``) for
-    the MLP. Learned positions add the table's row ``n_decoded + 1``
+    path runs B4 for the qkv and o-projections and B8b, B9d (or ``_qdot``)
+    for the MLP. Learned positions add the table's row ``n_decoded + 1``
     (``decode_relative``) or the row's length (``absolute``) to the token
     embedding.
 
     Attention per layer: with ``decode_kernel`` a kernel reads the cache in
-    place (``decode_attention_stacked``: B1 on the int8 cache, K1 on the
-    float cache); without, JAX's XLA branch in plain PyTorch
-    (``_xla_attention``). The append: ``_decode_step_finish``. What the JAX
-    package would run and the port lacks raises where the path is chosen:
-    the int8 decode attention over a cache that is not a 128-multiple
-    (``decode_attention_stacked``) and B9d (``_dense_dispatch``)."""
+    place (``decode_attention_stacked``: B1 on an int8 cache of a
+    128-multiple length, B1w on any other, K1 on the float cache); without,
+    JAX's XLA branch in plain PyTorch (``_xla_attention``). The append:
+    ``_decode_step_finish``."""
     b = token.shape[0]
     x = params["tok_emb"][token][:, None, :]  # [b, 1, d_model]
     cos = sin = None

@@ -1,13 +1,18 @@
 """In-place decode-step KV-cache append and its plain versions: the int8
-cache with its scales (kernel B5) and a cache without scales (K4).
+cache with its scales (kernel B5), a cache without scales (K4), and one
+array without scales (K5).
 
-Counterpart of ``vocalie_tts_tpu/ops/cache_update.py::cache_append_stacked``
-on its split branches: with scales (``_write_kv_scales_kernel``, B5:
-:func:`cache_append_stacked`) and without (``_write_kv_kernel``, K4, the
-bf16 or f32 cache: :func:`cache_append_kv_stacked`). The JAX packed branches
-are not copied: the port keeps k and v split. The cache is UPDATED IN
-PLACE: the cache tensors passed in are written at slot ``pos`` and
-returned.
+Counterpart of ``vocalie_tts_tpu/ops/cache_update.py::cache_append_stacked``:
+the split branch with scales (``_write_kv_scales_kernel``, B5:
+:func:`cache_append_stacked`), the split branch without (``_write_kv_kernel``,
+K4, the bf16 or f32 cache: :func:`cache_append_kv_stacked`), and the
+one-array branch without scales (``_write_k_kernel``, K5:
+``cache_append_kv_stacked(k_all, None, k_new, None, pos)``, JAX's argument
+order for that call, or :func:`cache_append_k_stacked`). The port's caches
+stay split, so only that API reaches K5; JAX's one-array branch with scales
+is not copied. The cache length must be a multiple of 8, as JAX requires.
+The cache is UPDATED IN PLACE: the cache tensors passed in are written at
+slot ``pos`` and returned.
 
 On a CUDA tensor each wrapper launches ``csrc/cache_update.cu``; on a CPU
 tensor it runs its plain version. The two write the same bytes.
@@ -15,11 +20,20 @@ tensor it runs its plain version. The two write the same bytes.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from vocalie_tts_tpu_torch.ops import _build
 
 _ARGTYPES = [_build.P] * 8 + [_build.LL, _build.I, _build.I, _build.I, _build.P]
+
+
+def _check_slot(T: int, pos: int) -> None:
+    if T % 8:
+        raise ValueError(f"cache length {T} must be a multiple of 8")
+    if not 0 <= int(pos) < T:
+        raise ValueError(f"write position {pos} outside the cache length {T}")
 
 
 def cache_append_plain(k_all, v_all, k_scale, v_scale, k_new, v_new, ks_new, vs_new, pos: int):
@@ -44,8 +58,7 @@ def cache_append_stacked(
     """Write one step's k/v and scales at slot ``pos`` of every layer.
     Returns ``(k_all, v_all, k_scale, v_scale)`` (the same tensors)."""
     L, b, kv, T, d = k_all.shape
-    if not 0 <= int(pos) < T:
-        raise ValueError(f"write position {pos} outside the cache length {T}")
+    _check_slot(T, pos)
     if k_all.device.type == "cpu":
         return cache_append_plain(
             k_all, v_all, k_scale, v_scale, k_new, v_new, ks_new, vs_new, int(pos)
@@ -89,26 +102,21 @@ def cache_append_kv_plain(k_all, v_all, k_new, v_new, pos: int):
     return k_all, v_all
 
 
-def cache_append_kv_stacked(
-    k_all: torch.Tensor,     # [L, b, kv, T, d] bf16 or f32 — written in place
-    v_all: torch.Tensor,
-    k_new: torch.Tensor,     # [L, b, kv, d] the cache's dtype
-    v_new: torch.Tensor,
-    pos: int,
-):
-    """K4: write one step's k/v at slot ``pos`` of every layer of a cache
-    without scales. Returns ``(k_all, v_all)`` (the same tensors)."""
+def cache_append_k_plain(k_all, k_new, pos: int):
+    k_all[:, :, :, pos, :] = k_new
+    return k_all
+
+
+def _launch_kv(wrapper, k_all, v_all, k_new, v_new, pos: int) -> None:
+    """Check the arrays of K4 (k and v) or K5 (``v_all`` None) and launch the
+    kernel, counting the launch on ``wrapper``."""
     L, b, kv, T, d = k_all.shape
-    if not 0 <= int(pos) < T:
-        raise ValueError(f"write position {pos} outside the cache length {T}")
-    if k_all.device.type == "cpu":
-        return cache_append_kv_plain(k_all, v_all, k_new, v_new, int(pos))
     if k_all.device.type != "cuda":
         raise ValueError(f"unsupported device {k_all.device}")
-    if k_all.dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"k_all: expected a bf16 or f32 cache, got {k_all.dtype}")
-    for name, t, shape in (("k_all", k_all, (L, b, kv, T, d)), ("v_all", v_all, (L, b, kv, T, d)),
-                           ("k_new", k_new, (L, b, kv, d)), ("v_new", v_new, (L, b, kv, d))):
+    arrays = [("k_all", k_all, (L, b, kv, T, d)), ("k_new", k_new, (L, b, kv, d))]
+    if v_all is not None:
+        arrays += [("v_all", v_all, (L, b, kv, T, d)), ("v_new", v_new, (L, b, kv, d))]
+    for name, t, shape in arrays:
         if t.device != k_all.device or t.dtype != k_all.dtype or tuple(t.shape) != shape:
             raise ValueError(
                 f"{name}: expected {k_all.dtype} {shape} on {k_all.device}, got "
@@ -117,18 +125,58 @@ def cache_append_kv_stacked(
         if not t.is_contiguous() or t.data_ptr() % 4:
             raise ValueError(f"{name} must be contiguous and 4-byte aligned")
     fn = _build.kernel("vt_cache_append_kv", _KV_ARGTYPES)
-    cache_append_kv_stacked.launches += 1
+    ptr = lambda t: None if t is None else t.data_ptr()   # noqa: E731
+    wrapper.launches += 1
     rc = fn(
-        k_all.data_ptr(), v_all.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+        k_all.data_ptr(), ptr(v_all), k_new.data_ptr(), ptr(v_new),
         L * b * kv, T, d * k_all.element_size(), int(pos), _build.stream_ptr(k_all),
     )
     _build.check(rc, "vt_cache_append_kv")
+
+
+def cache_append_k_stacked(
+    k_all: torch.Tensor,     # [L, b, kv, T, D] any dtype — written in place
+    k_new: torch.Tensor,     # [L, b, kv, D] the cache's dtype
+    pos: int,
+) -> torch.Tensor:
+    """K5: write one step's rows at slot ``pos`` of every layer of ONE
+    stacked array without scales (JAX's one-array branch). Returns
+    ``k_all`` (the same tensor)."""
+    _check_slot(k_all.shape[3], pos)
+    if k_all.device.type == "cpu":
+        return cache_append_k_plain(k_all, k_new, int(pos))
+    _launch_kv(cache_append_k_stacked, k_all, None, k_new, None, pos)
+    return k_all
+
+
+def cache_append_kv_stacked(
+    k_all: torch.Tensor,     # [L, b, kv, T, d] bf16 or f32 — written in place
+    v_all: Optional[torch.Tensor],   # None: one array (K5)
+    k_new: torch.Tensor,     # [L, b, kv, d] the cache's dtype
+    v_new: Optional[torch.Tensor],
+    pos: int,
+):
+    """K4: write one step's k/v at slot ``pos`` of every layer of a cache
+    without scales. Returns ``(k_all, v_all)`` (the same tensors); with
+    ``v_all`` and ``v_new`` None, K5 on ``k_all`` alone, returning it, as
+    JAX's ``cache_append_stacked(k, None, k_new, None, pos)``."""
+    if v_all is None or v_new is None:
+        if v_all is not None or v_new is not None:
+            raise ValueError("one-array append: v_all and v_new are both None")
+        return cache_append_k_stacked(k_all, k_new, pos)
+    _check_slot(k_all.shape[3], pos)
+    if k_all.device.type == "cpu":
+        return cache_append_kv_plain(k_all, v_all, k_new, v_new, int(pos))
+    if k_all.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"k_all: expected a bf16 or f32 cache, got {k_all.dtype}")
+    _launch_kv(cache_append_kv_stacked, k_all, v_all, k_new, v_new, pos)
     return k_all, v_all
 
 
 #: launches of the CUDA kernels (the plain versions are not counted)
 cache_append_stacked.launches = 0
 cache_append_kv_stacked.launches = 0
+cache_append_k_stacked.launches = 0
 
 __all__ = ["cache_append_stacked", "cache_append_plain", "cache_append_kv_stacked",
-           "cache_append_kv_plain"]
+           "cache_append_kv_plain", "cache_append_k_stacked", "cache_append_k_plain"]

@@ -1,27 +1,31 @@
 """q_len == 1 decode attention over the KV cache: the int8 T-blocked
-kernel (B1), its f32 branches over a bf16/f32 cache (K1) and over the
-int8 cache dequantized (K2), the single-layer kernel (B10), and their plain
-versions.
+kernel (B1), the int8 whole-row kernel (B1w), the f32 branches over a
+bf16/f32 cache (K1) and over the int8 cache dequantized (K2), the
+single-layer kernel (B10), and their plain versions.
 
 Counterpart of ``vocalie_tts_tpu/ops/decode_attention.py``:
 
 - :func:`decode_attention_stacked` takes JAX's branch choice
-  (``decode_attention_stacked`` :565-854): ``int8_dots`` → the int8 kernel
-  (:func:`decode_attention_int8_stacked`, B1: the T-blocked branches
-  ``_kernel_stacked_int8dots_packed_tblk`` / ``_kernel_stacked_int8dots_tblk``,
-  whose numbers are identical; the non-T-blocked ``_kernel_stacked_int8dots``,
-  which JAX runs for a cache that is not a 128-multiple or without
-  ``k_new`` / ``valid_len``, is not ported and raises); scales without
-  ``int8_dots`` → the f32-dequant branch (:func:`decode_attention_dequant_stacked`,
-  K2: ``_kernel_stacked_quant[_new]``); no scales → the float-cache branch
-  (:func:`decode_attention_float_stacked`, K1: ``_kernel_stacked_plain[_new]``);
+  (``decode_attention_stacked`` :565-854): ``int8_dots`` with ``k_new``,
+  ``valid_len`` and a 128-multiple cache → the T-blocked int8 kernel
+  (:func:`decode_attention_int8_stacked`, B1: ``_kernel_stacked_int8dots_packed_tblk``
+  / ``_kernel_stacked_int8dots_tblk``, whose numbers are identical);
+  ``int8_dots`` otherwise (a cache that is not a 128-multiple, or no
+  ``k_new`` / ``valid_len``) → the whole-row int8 kernel
+  (:func:`decode_attention_int8_whole_stacked`, B1w:
+  ``_kernel_stacked_int8dots[_new]`` and ``_kernel_stacked_int8dots_packed``,
+  whose selector matmuls are exact, so over the split cache they are one
+  function); scales without ``int8_dots`` → the f32-dequant branch
+  (:func:`decode_attention_dequant_stacked`, K2: ``_kernel_stacked_quant[_new]``);
+  no scales → the float-cache branch (:func:`decode_attention_float_stacked`,
+  K1: ``_kernel_stacked_plain[_new]``);
 - :func:`decode_attention` is B10 (``decode_attention`` :85: one unstacked
   layer, no current token, ``_kernel_quant`` / ``_kernel_plain``).
 
 The port keeps k and v split (``[L, b, kv, T, d]`` each; the int8 cache's
 bf16 scales ``[L, b, kv, T]``); the TPU's lane-packed k|v is not copied.
 The cache is read in place and never written here: the current token's
-k/v (``k_new``/``v_new``) join the softmax in f32 at the end.
+k/v (``k_new``/``v_new``) join the softmax in f32.
 
 On a CUDA tensor each wrapper launches ``csrc/decode_attention.cu``; on a
 CPU tensor it runs its plain version.
@@ -29,12 +33,13 @@ CPU tensor it runs its plain version.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 
 from vocalie_tts_tpu_torch.ops import _build
-from vocalie_tts_tpu_torch.ops.decode_dense import _quantize_rows
+from vocalie_tts_tpu_torch.ops.decode_dense import _int_dot, _quantize_rows
 
 #: slots per T block — the probabilities are re-quantized per block, so
 #: this must equal the JAX kernel's 128 for the numbers to match
@@ -159,6 +164,119 @@ def decode_attention_int8_stacked(
 #: launches of the CUDA kernel (the plain version is not counted)
 decode_attention_int8_stacked.launches = 0
 
+
+
+# ── B1w: the int8 whole-row branch ──
+
+_WHOLE_ARGTYPES = ([_build.P] * 10 + [_build.LL] + [_build.I] * 7 + [_build.F, _build.P])
+
+
+def decode_attention_whole_plain(q, k_all, v_all, bias, layer: int, k_scale, v_scale,
+                                 k_new=None, v_new=None, valid_len=None, *, sm_scale: float):
+    """B1w's plain version: JAX ``_kernel_stacked_int8dots[_new]`` (:190-265)
+    over the slots ``_n_slots`` reads: q quantized per row, the int8 scores
+    times ``qs · sm_scale`` and ``ks`` plus the bias, ONE max (with the
+    current token's exact score in it), ``l`` summed before the v scales,
+    p · vs quantized with one scale over the row, the int8 PV product times
+    ``ps``, the current token added exactly, ``/ max(l, 1e-30)``."""
+    b, kv, g, d = q.shape
+    T = k_all.shape[3]
+    n = _n_slots(T, k_new, valid_len)
+    BC = b * kv
+    f32 = torch.float32
+    qf = q.reshape(BC, g, d).to(f32)
+    qq, qs = _quantize_rows(qf)
+    k = k_all[layer].reshape(BC, T, d)[:, :n]
+    v = v_all[layer].reshape(BC, T, d)[:, :n]
+    ks = k_scale[layer].reshape(BC, T)[:, :n].to(f32)
+    vs = v_scale[layer].reshape(BC, T)[:, :n].to(f32)
+    bias_m = bias.to(f32)[:, None, :n].expand(b, kv, n).reshape(BC, n)
+    s = _int_dot(qq, k.transpose(1, 2)) * (qs * sm_scale)
+    s = s * ks[:, None, :] + bias_m[:, None, :]
+    m = s.amax(-1, keepdim=True)
+    if k_new is not None:
+        s_new = (qf * k_new.reshape(BC, 1, d).to(f32)).sum(-1, keepdim=True) * sm_scale
+        m = torch.maximum(m, s_new)
+    p = torch.exp(s - m)
+    lsum = p.sum(-1, keepdim=True)
+    p8, ps = _quantize_rows(p * vs[:, None, :], floor=1e-20)   # p >= 0
+    o = _int_dot(p8, v) * ps
+    if k_new is not None:
+        p_new = torch.exp(s_new - m)
+        lsum = lsum + p_new
+        o = o + p_new * v_new.reshape(BC, 1, d).to(f32)
+    return (o / torch.clamp(lsum, min=1e-30)).reshape(b, kv, g, d)
+
+
+@functools.lru_cache(maxsize=None)
+def _whole_ws_bytes(b: int, kv: int, g: int, T: int) -> int:
+    return _build.kernel("vt_attn_whole_workspace", [_build.I] * 4, restype=_build.LL)(
+        b, kv, g, T)
+
+
+def decode_attention_int8_whole_stacked(
+    q: torch.Tensor,          # [b, kv, g, d] f32
+    k_all: torch.Tensor,      # [L, b, kv, T, d] int8
+    v_all: torch.Tensor,
+    bias: torch.Tensor,       # [b, T] f32 additive mask
+    layer: int,
+    k_scale: torch.Tensor,    # [L, b, kv, T] bf16
+    v_scale: torch.Tensor,
+    k_new: Optional[torch.Tensor] = None,   # [b, kv, d] f32 — current token's k
+    v_new: Optional[torch.Tensor] = None,
+    *,
+    valid_len: Optional[int] = None,   # with k_new: slots at and past it are masked
+    sm_scale: float,
+) -> torch.Tensor:
+    """B1w: attention output ``[b, kv, g, d]`` f32 for layer ``layer`` of the
+    int8 cache, one softmax and one p scale over the whole row (any T)."""
+    L, b, kv, T, d = k_all.shape
+    g = q.shape[2]
+    if (k_new is None) != (v_new is None):
+        raise ValueError("k_new and v_new go together")
+    if _on(q) == "cpu":
+        return decode_attention_whole_plain(q, k_all, v_all, bias, layer, k_scale, v_scale,
+                                            k_new, v_new, valid_len, sm_scale=sm_scale)
+    if not (1 <= g <= 8 and d % 16 == 0 and 16 <= d <= 128):
+        raise ValueError(f"kernel takes 1 <= g <= 8 and d in 16..128 step 16, got g={g} d={d}")
+    if not 0 <= int(layer) < L:
+        raise ValueError(f"layer {layer} outside 0..{L - 1}")
+    checks = [("q", q, torch.float32, (b, kv, g, d)),
+              ("k_all", k_all, torch.int8, (L, b, kv, T, d)),
+              ("v_all", v_all, torch.int8, (L, b, kv, T, d)),
+              ("bias", bias, torch.float32, (b, T)),
+              ("k_scale", k_scale, torch.bfloat16, (L, b, kv, T)),
+              ("v_scale", v_scale, torch.bfloat16, (L, b, kv, T))]
+    if k_new is not None:
+        checks += [("k_new", k_new, torch.float32, (b, kv, d)),
+                   ("v_new", v_new, torch.float32, (b, kv, d))]
+    for name, t, dtype, shape in checks:
+        if t.device != q.device or t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(
+                f"{name}: expected {dtype} {shape} on {q.device}, got "
+                f"{t.dtype} {tuple(t.shape)} on {t.device}"
+            )
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    need = _whole_ws_bytes(b, kv, g, T)
+    ws = torch.empty((max(need, 1),), dtype=torch.uint8, device=q.device)
+    out = torch.empty((b, kv, g, d), dtype=torch.float32, device=q.device)
+    fn = _build.kernel("vt_decode_attention_int8_whole", _WHOLE_ARGTYPES)
+    ptr = lambda t: 0 if t is None else t.data_ptr()   # noqa: E731
+    decode_attention_int8_whole_stacked.launches += 1
+    rc = fn(
+        q.data_ptr(), k_all.data_ptr(), v_all.data_ptr(),
+        k_scale.data_ptr(), v_scale.data_ptr(), bias.data_ptr(),
+        ptr(k_new), ptr(v_new), out.data_ptr(), ws.data_ptr(), ws.numel(),
+        b, kv, g, d, T, int(layer), _n_slots(T, k_new, valid_len), float(sm_scale),
+        _build.stream_ptr(q),
+    )
+    _build.check(rc, "vt_decode_attention_int8_whole")
+    return out
+
+
+#: launches of the CUDA kernel (the plain version is not counted)
+decode_attention_int8_whole_stacked.launches = 0
 
 
 # ── the f32 branches: K1 (float cache), K2 (int8 cache dequantized), B10 ──
@@ -379,23 +497,21 @@ def decode_attention_stacked(
     sm_scale: float,
     int8_dots: bool = False,
 ) -> torch.Tensor:
-    """JAX ``decode_attention_stacked``'s branch choice (:601-602, :719-834):
-    ``int8_dots`` → B1 (the T-blocked branch: needs the scales, ``k_new``,
-    ``valid_len`` and a 128-multiple cache; JAX's non-T-blocked int8 branch
-    is not ported and raises); scales → K2; none → K1."""
+    """JAX ``decode_attention_stacked``'s branch choice (:601-602, :704-854):
+    ``int8_dots`` → B1 where JAX takes a T-blocked branch (the scales,
+    ``k_new``, ``valid_len`` and a 128-multiple cache), else B1w (the
+    whole-row branch); scales → K2; none → K1."""
     quant = k_scale is not None
     if int8_dots:
         if not quant:
             raise ValueError("int8_dots requires the int8-quantized cache")
-        if k_new is None or valid_len is None or k_all.shape[3] % TBLK:
-            raise NotImplementedError(
-                "the int8 decode attention without k_new/valid_len or over a cache that is not a "
-                "multiple of 128 slots is JAX's non-T-blocked branch (_kernel_stacked_int8dots), "
-                "which the port does not have; round the cache length to 128"
-            )
-        return decode_attention_int8_stacked(q, k_all, v_all, bias, layer, k_scale, v_scale,
-                                             k_new, v_new, valid_len=valid_len,
-                                             sm_scale=sm_scale)
+        if k_new is not None and valid_len is not None and k_all.shape[3] % TBLK == 0:
+            return decode_attention_int8_stacked(q, k_all, v_all, bias, layer, k_scale, v_scale,
+                                                 k_new, v_new, valid_len=valid_len,
+                                                 sm_scale=sm_scale)
+        return decode_attention_int8_whole_stacked(q, k_all, v_all, bias, layer, k_scale,
+                                                   v_scale, k_new, v_new, valid_len=valid_len,
+                                                   sm_scale=sm_scale)
     if quant:
         return decode_attention_dequant_stacked(q, k_all, v_all, bias, layer, k_scale, v_scale,
                                                 k_new, v_new, valid_len=valid_len,
@@ -410,6 +526,7 @@ decode_attention_dequant_stacked.launches = 0
 decode_attention.launches = 0
 
 __all__ = ["decode_attention_stacked", "decode_attention_int8_stacked",
+           "decode_attention_int8_whole_stacked", "decode_attention_whole_plain",
            "decode_attention_float_stacked", "decode_attention_dequant_stacked",
            "decode_attention", "decode_attention_plain", "decode_attention_float_plain",
            "decode_attention_dequant_plain", "decode_attention_plain_b10", "n_valid_blocks",

@@ -27,7 +27,10 @@ The GPT-2 family (XTTS):
 - ``tail_gelu_qkv_int8_stacked`` (B9b): o-proj + bias → residual →
   LayerNorm → fc + bias → tanh-GELU → proj + bias → residual, then the
   next layer's LayerNorm + qkv (layer ``min(l + 1, L - 1)``);
-- ``tail_gelu_int8_stacked`` (B9c): B9b without the next-qkv phase.
+- ``tail_gelu_int8_stacked`` (B9c): B9b without the next-qkv phase;
+- ``mlp_gelu_int8_stacked`` (B9d): fc + bias → tanh-GELU → proj on the
+  post-norm activations, no residual, no proj bias (a GELU MLP with biases
+  under RMSNorm, which JAX's decode step runs with B4 for the projections).
 
 The q/k/v biases stay the caller's add, after these kernels.
 
@@ -235,6 +238,18 @@ def tail_gelu_int8_plain(attn, x, wo_all, wos_all, bo_all, lg_all, lb_all, wu_al
     h, hs = _quantize_rows(_ln_rows(x2, lg_all[l], lb_all[l], eps))
     u = _int_dot(h, wu_all[l]) * hs * su_all[l] + bu_all[l].float()
     return x2 + _tiled_down(gelu_tanh(u), wd_all[l], tile) * sd_all[l] + bd_all[l].float()
+
+
+def mlp_gelu_int8_plain(x, wu_all, su_all, bu_all, wd_all, sd_all, layer: int, *,
+                        tile: int | None = None):
+    """B9d: ``(x_i8 · Wu) · xs · su + bu`` → tanh-GELU → the hidden
+    quantized per d_ff tile → the down-projection summed over tiles, times
+    ``sd`` (JAX ``_mlp_gelu_kernel``); the proj bias is the caller's."""
+    l = layer
+    tile = tile or pick_tile(wd_all.shape[1], TILE_BUDGET, 2 * x.shape[1])
+    h, hs = _quantize_rows(x.float())
+    u = _int_dot(h, wu_all[l]) * hs * su_all[l] + bu_all[l].float()
+    return _tiled_down(gelu_tanh(u), wd_all[l], tile) * sd_all[l]
 
 
 def tail_gelu_qkv_int8_plain(attn, x, wo_all, wos_all, bo_all, lg_all, lb_all, wu_all, su_all,
@@ -606,6 +621,48 @@ def tail_gelu_qkv_int8_stacked(
     return _tail_gelu(*args, (ng_all, nb_all, wq_all, sq_all), layer, eps, tile)
 
 
+@functools.lru_cache(maxsize=None)
+def _mlp_gelu_ws_bytes(b: int, d: int, d_ff: int, tile: int) -> int:
+    return _build.kernel("vt_mlp_gelu_workspace", [_build.I] * 4, restype=_build.LL)(
+        b, d, d_ff, tile)
+
+
+_MLP_GELU_ARGTYPES = ([_build.P, _build.I] + [_build.P] * 3 + [_build.I] + [_build.P] * 2
+                      + [_build.I] * 6 + [_build.P, _build.P, _build.LL, _build.P])
+
+
+def mlp_gelu_int8_stacked(
+    x: torch.Tensor,        # [b, d_model] post-norm activations
+    wu_all: torch.Tensor,   # [L, d_model, d_ff] int8
+    su_all: torch.Tensor,   # [L, 1, d_ff] f32
+    bu_all: torch.Tensor,   # [L, d_ff] fc bias
+    wd_all: torch.Tensor,   # [L, d_ff, d_model] int8
+    sd_all: torch.Tensor,   # [L, 1, d_model] f32
+    layer: int,
+) -> torch.Tensor:
+    """gelu(x·Wu + bu)·Wd of layer ``layer`` (B9d) → [b, d_model] f32; the
+    proj bias is the caller's add."""
+    b, d = x.shape
+    L, _, d_ff = wu_all.shape
+    tile = _ff_tile(d, d_ff, 0)
+    if x.device.type == "cpu":
+        return mlp_gelu_int8_plain(x, wu_all, su_all, bu_all, wd_all, sd_all, layer, tile=tile)
+    _check(x.device, layer, L, ("x", x, _ACT, (b, d)),
+           ("wu_all", wu_all, _I8, (L, d, d_ff)), ("su_all", su_all, _FL, (L, 1, d_ff)),
+           ("bu_all", bu_all, _ACT, (L, d_ff)),
+           ("wd_all", wd_all, _I8, (L, d_ff, d)), ("sd_all", sd_all, _FL, (L, 1, d)))
+    ws = _workspace(_mlp_gelu_ws_bytes(b, d, d_ff, tile), x.device)
+    out = torch.empty((b, d), dtype=torch.float32, device=x.device)
+    fn = _build.kernel("vt_mlp_gelu_int8", _MLP_GELU_ARGTYPES)
+    mlp_gelu_int8_stacked.launches += 1
+    rc = fn(x.data_ptr(), _kind(x, "x"), wu_all.data_ptr(), su_all.data_ptr(),
+            bu_all.data_ptr(), _kind(bu_all, "bu_all"), wd_all.data_ptr(), sd_all.data_ptr(),
+            int(layer), L, b, d, d_ff, tile, out.data_ptr(), ws.data_ptr(), ws.numel(),
+            _build.stream_ptr(x))
+    _build.check(rc, "vt_mlp_gelu_int8")
+    return out
+
+
 #: launches of the CUDA entry points (the plain versions are not counted)
 dense_int8_stacked.launches = 0
 qkv_norm_int8_stacked.launches = 0
@@ -615,6 +672,7 @@ mlp_swiglu_int8_stacked.launches = 0
 qkv_lnorm_int8_stacked.launches = 0
 tail_gelu_int8_stacked.launches = 0
 tail_gelu_qkv_int8_stacked.launches = 0
+mlp_gelu_int8_stacked.launches = 0
 
 __all__ = [
     "dense_int8_stacked", "dense_int8_plain",
@@ -625,5 +683,6 @@ __all__ = [
     "qkv_lnorm_int8_stacked", "qkv_lnorm_int8_plain",
     "tail_gelu_int8_stacked", "tail_gelu_int8_plain",
     "tail_gelu_qkv_int8_stacked", "tail_gelu_qkv_int8_plain",
+    "mlp_gelu_int8_stacked", "mlp_gelu_int8_plain",
     "gelu_tanh", "pick_tile", "TILE_BUDGET",
 ]
