@@ -35,7 +35,9 @@ Phases (any failure exits non-zero before the final line is printed):
    [30,16,16,640,128] array at three positions, byte-exact) -- at the
    shapes the path gives it (B1-B6 also at the Qwen3 shapes:
    d_model 2048, 16 q / 8 kv heads of 128, d_ff 8192, b = 8; B6 at
-   [8, 16, 512, 128] causal with 8 kv heads): hold the kernel against its plain
+   [8, 16, 512, 128] causal with 8 kv heads, and at the one-chunk batch-1
+   prefill [1, 16, 512, 128]; B6 and B6t print their TFLOP/s: bf16 at d 64
+   and 128 runs the tensor-core body): hold the kernel against its plain
    PyTorch version on the card, time kernel, plain version and (where one
    exists) the one PyTorch call that computes the same function
    (``F.group_norm`` + add + SiLU for B13; for B2-B4, B7 and B9 there is none; the ops the port runs otherwise for the same work
@@ -64,7 +66,11 @@ Phases (any failure exits non-zero before the final line is printed):
    of the tiny T3 train view (f32), GPU kernels against the CPU's plain
    versions: losses and each leaf's gradient; the tiny T3 also at
    ``cache_len`` 200 (B1w in place of B1), and a d_model-128 GELU MLP with
-   biases under RMSNorm (B4 + B9d) GPU vs GPU plain and vs CPU;
+   biases under RMSNorm (B4 + B9d) GPU vs GPU plain and vs CPU, where every
+   logit row outside the CPU's gate must trace to a tie: the first int8
+   activation (or bf16 cache scale) of that row on which a GPU run through
+   every plain version and the CPU run round apart lies within a few ulps
+   of its tie on both;
 4. the main path: ``run_tts_pipeline`` at the full Chatterbox T3 width
    (random weights from a seed), in the JAX package's default int8 serving
    configuration (``VOCALIE_KV_INT8=1 VOCALIE_WEIGHT_INT8=1``, the dense
@@ -81,7 +87,8 @@ Phases (any failure exits non-zero before the final line is printed):
    to 0
    just before it and read just after, must have moved, and must fit the
    path (B2 = 30 x decode steps, B3 = decode steps, B4 = decode steps +
-   prefills); audio seconds, wall seconds, the real-time factor and
+   prefills; on every path the tensor-core body's launches equal B6's and
+   B6t's); audio seconds, wall seconds, the real-time factor and
    ms/step are printed; then the CosyVoice-class paths at full width
    (random weights from a seed), each driven with the counters at 0 just
    before it: the streaming request of ``scripts/bench_streaming.py``
@@ -614,10 +621,12 @@ def _flash_case(dev, failures, *, b, h, s, d, causal, kv_lens_lo, seed, label, h
         n_bytes = 2 * b * h * s * d * 2 + 2 * b * hk * s * d * 2
     n_ops = 4 * d * pairs
     bms, by = bound_ms(n_bytes, n_ops, PEAK_BF16_FLOPS)
-    log(f"B6 flash_attention [{label}]: kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, SDPA "
+    tflops = n_ops / (ms * 1e-3) / 1e12
+    log(f"B6 flash_attention [{label}]: kernel {ms:.6f} ms ({tflops:.1f} TFLOP/s, "
+        f"{n_ops / 1e9:.2f} GFLOP, {n_bytes / 1e6:.1f} MB), plain {plain_ms:.6f} ms, SDPA "
         f"{lib_ms:.6f} ms, bound {bms:.6f} ms ({by})")
     return {"max_abs_err": err, "tolerance": "atol 1e-2 + rtol 1e-2", "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
+            "bound_ms": bms, "bound_by": by, "library_ms": lib_ms, "tflops": tflops,
             "shape": f"{label}: q[{b},{h},{s},{d}] k/v[{b},{hk},{s},{d}] bf16"}
 
 
@@ -631,10 +640,14 @@ def check_flash_attention(dev, failures):
     # the Qwen3 prefill at the 512 bucket: d_head 128, 16 q heads on 8 kv heads
     q3 = _flash_case(dev, failures, b=8, h=16, hk=8, s=512, d=128, causal=True, kv_lens_lo=None,
                      seed=5, label="qwen3 prefill causal GQA d128")
+    # the Qwen3 one-chunk request at batch 1 (the 512 bucket): 128 blocks of
+    # 64 rows for 132 SMs; its 6 MB stay in the L2 (timed warm)
+    q3b1 = _flash_case(dev, failures, b=1, h=16, hk=8, s=512, d=128, causal=True,
+                       kv_lens_lo=None, seed=6, label="qwen3 batch-1 prefill causal GQA d128")
     return {"name": "B6 flash_attention", "route": "cuda",
             "source": "vocalie_tts_tpu_torch/csrc/flash_attention.cu",
             "replaces": "vocalie_tts_tpu/ops/flash_attention.py:226",
-            **cfm, "prefill_causal": pre, "qwen3_shape": q3}
+            **cfm, "prefill_causal": pre, "qwen3_shape": q3, "qwen3_batch1_shape": q3b1}
 
 
 #: B2-B4 against their plain versions: the kernels repeat the plain
@@ -1506,6 +1519,7 @@ def small_reference_dense(dev, failures):
     fails if more than a quarter of the (step, row) logit rows are outside
     2e-3 + 2e-3|ref|."""
     from vocalie_tts_tpu_torch.models.common import transformer as tr
+    from vocalie_tts_tpu_torch.ops import decode_attention as da
     from vocalie_tts_tpu_torch.ops import decode_dense as dd
 
     cfg = tr.TransformerConfig(vocab_size=96, d_model=128, n_layers=2, n_heads=2, n_kv_heads=2,
@@ -1585,7 +1599,117 @@ def _megalayer_swaps() -> dict:
             "dense_int8_stacked": (dd.dense_int8_stacked, dd.dense_int8_plain)}
 
 
-def _dense_reference(dev, failures, label, cfg, params, swaps, want, *, n_steps=12, seed=13):
+#: a rounding whose pre-round value lies within TIE_ULPS f32 ulps of its tie
+#: (a .5 for int8, the midpoint of two bf16 values for a cache scale) on
+#: both devices is a tie: the GPU's and the CPU's f32 sums, means, rsqrt,
+#: exp and tanh round apart by a few ulps, so such a value may round either
+#: way; a wrong path or product (a TF32 GEMM: ~1e-3 relative) moves
+#: pre-round values by thousands of ulps
+TIE_ULPS = 64
+
+
+class _RoundTrace:
+    """Every int8 and bf16 rounding of one run, in call order: (decode step,
+    kind, the pre-round value, the rounded value), on the CPU. ``int``: each
+    ``torch.round`` (the int8 quantizers of the plain versions and of the
+    cache); ``bf16``: the int8 cache's scales, ``amax / 127`` rounded to
+    bf16 (``transformer._quantize_kv``), recorded before its values."""
+
+    def __init__(self):
+        self.calls: list = []
+        self.step = 0
+
+    def __enter__(self):
+        from vocalie_tts_tpu_torch.models.common import transformer as tr
+
+        self._round, self._quantize_kv = torch.round, tr._quantize_kv
+
+        def traced(x, *a, **k):
+            out = self._round(x, *a, **k)
+            self.calls.append((self.step, "int", x.detach().float().cpu(),
+                               out.detach().float().cpu()))
+            return out
+
+        def traced_kv(t):
+            amax = t.float().abs().amax(-1)
+            s32 = torch.clamp(amax / tr._127(amax), min=1e-8)
+            self.calls.append((self.step, "bf16", s32.cpu(), s32.to(torch.bfloat16).float().cpu()))
+            return self._quantize_kv(t)
+
+        torch.round, tr._quantize_kv = traced, traced_kv
+        return self
+
+    def __exit__(self, *exc):
+        from vocalie_tts_tpu_torch.models.common import transformer as tr
+
+        torch.round, tr._quantize_kv = self._round, self._quantize_kv
+
+
+def _row_of(t: torch.Tensor, r: int, b: int) -> torch.Tensor:
+    """Batch row ``r`` of a traced tensor: along its first dim whose size is
+    a multiple of ``b`` (b-major: the appended k/v lead with their layers,
+    B1's q and p merge (row, kv head))."""
+    for dim, n in enumerate(t.shape):
+        if n % b == 0:
+            grp = n // b
+            return t.narrow(dim, r * grp, grp)
+    return t
+
+
+def _ulps_from_tie(x: torch.Tensor, kind: str) -> torch.Tensor:
+    """Distance of f32 values from the rounding's tie, in f32 ulps of each
+    value: from the nearest .5 (``int``), from the midpoint of two bf16
+    neighbours (``bf16``: the low 16 bits at 0x8000)."""
+    import numpy as np
+
+    a = np.abs(x.numpy().astype(np.float32))
+    if kind == "bf16":
+        low = a.view(np.uint32).astype(np.int64) & 0xFFFF
+        return torch.from_numpy(np.abs(low - 0x8000).astype(np.float64))
+    frac = a.astype(np.float64) - np.floor(a.astype(np.float64))
+    return torch.from_numpy(np.abs(frac - 0.5) / np.spacing(a).astype(np.float64))
+
+
+def _trace_ties(outside, gpu, cpu, b: int, failures, label: str) -> None:
+    """For each (step, row) outside the gate, the first rounding of that row
+    where the GPU and the CPU runs differ (at or before that step), and its
+    pre-round values' distance from the tie in ulps on both devices. Fails
+    unless every such row traces to a tie (within ``TIE_ULPS``)."""
+    if len(gpu) != len(cpu) or any(g[2].shape != c[2].shape for g, c in zip(gpu, cpu)):
+        failures.append(f"{label}: the GPU and CPU runs round different tensors "
+                        f"({len(gpu)} against {len(cpu)} calls)")
+        return
+    first = {}
+    for r in sorted({row for _, row in outside}):
+        for i, ((step, kind, xg, qg), (_, _, xc, qc)) in enumerate(zip(gpu, cpu)):
+            rg, rc = _row_of(qg, r, b), _row_of(qc, r, b)
+            if torch.equal(rg, rc):
+                continue
+            moved = rg != rc
+            vg, vc = _row_of(xg, r, b)[moved], _row_of(xc, r, b)[moved]
+            ulps = torch.maximum(_ulps_from_tie(vg, kind), _ulps_from_tie(vc, kind))
+            first[r] = (step, i, kind, tuple(qg.shape), vg, vc, ulps)
+            break
+    for step, r in outside:
+        if r not in first or first[r][0] > step:
+            log(f"  {label}: row {r}, step {step}: no rounding differs before it")
+            failures.append(f"{label}: logit row {r} at step {step} leaves the gate with no "
+                            "differing rounding before it")
+            continue
+        t0, i, kind, shape, vg, vc, ulps = first[r]
+        tie = bool(ulps.max() <= TIE_ULPS)
+        what = "int8 activation" if kind == "int" else "bf16 cache scale"
+        log(f"  {label}: row {r}, step {step}: first differing {what} at step {t0} (rounding "
+            f"#{i}, {list(shape)}): {vg.numel()} value(s), pre-round GPU {vg[:4].tolist()} CPU "
+            f"{vc[:4].tolist()}, distance from the tie {ulps.max().item():.1f} ulps -> "
+            f"{'a tie' if tie else 'NOT a tie'}")
+        if not tie:
+            failures.append(f"{label}: logit row {r} at step {step} traces to a {what} "
+                            f"{ulps.max().item():.1f} ulps from its tie (not a tie)")
+
+
+def _dense_reference(dev, failures, label, cfg, params, swaps, want, *, n_steps=12, seed=13,
+                     tie_swaps=None):
     """Prefill (32 positions, 4 rows) + ``n_steps`` teacher-forced decode
     steps of a transformer with the dense kernels on: on the GPU through
     the kernels (``swaps``: name in ``transformer`` → (wrapper, plain
@@ -1596,7 +1720,11 @@ def _dense_reference(dev, failures, label, cfg, params, swaps, want, *, n_steps=
     under another exp, norm or cos and move one row's logits at one step by
     up to a few 1e-2; a wrong kernel or path moves most rows at every step.
     So (b) fails if more than a quarter of the (step, row) logit rows are
-    outside 2e-3 + 2e-3|ref|."""
+    outside 2e-3 + 2e-3|ref| -- or, with ``tie_swaps`` ((module, name) →
+    plain version: the kernels the plain-version run still launches), if
+    any row outside it does not trace to a tie: the GPU run through every
+    plain version and the CPU run, their int8 roundings traced
+    (``_trace_ties``)."""
     from vocalie_tts_tpu_torch.models.common import transformer as tr
 
     cpu_params = _to(params, "cpu")
@@ -1606,11 +1734,13 @@ def _dense_reference(dev, failures, label, cfg, params, swaps, want, *, n_steps=
     lens = torch.tensor([32, 20, 3, 11], dtype=torch.int32)
     toks = torch.randint(0, min(cfg.vocab_size, 2048), (n_steps, b), generator=g)
 
-    def run(p, d):
+    def run(p, d, trace=None):
         logits, cache = tr.prefill(p, cfg, None, lens.to(d), inputs_embeds=emb.to(d),
                                    cache_len=256)
         steps = [logits.cpu()]
         for i in range(n_steps):
+            if trace is not None:
+                trace.step = i + 1
             logits, cache = tr.decode_step(p, cfg, toks[i].to(d), cache)
             steps.append(logits.cpu())
         return steps
@@ -1632,17 +1762,35 @@ def _dense_reference(dev, failures, label, cfg, params, swaps, want, *, n_steps=
     ratios = torch.stack([((a - c).abs() / (2e-3 + 2e-3 * c.abs())).amax(-1)
                           for a, c in zip(kernel, on_cpu)])
     outside = int((ratios > 1).sum())
+    rule = ("each traced to a tie" if tie_swaps is not None else "at most a quarter")
     log(f"small reference, {label} (prefill + {n_steps} teacher-forced steps): launches "
         f"{launched} (expected {want}); GPU kernels vs GPU plain versions: worst |diff| / "
         f"({DENSE_TOL} x max|ref|) = {worst_plain:.3f} (must be <= 1); GPU vs CPU: worst "
         f"|diff| / (2e-3 + 2e-3|ref|) = {ratios.max().item():.3f}, {outside} of {ratios.numel()} "
-        "(step, row) logit rows outside it (at most a quarter)")
+        f"(step, row) logit rows outside it ({rule})")
     if launched != want:
         failures.append(f"{label} reference launches {launched} != {want}")
     if not worst_plain <= 1.0:
         failures.append(f"{label} reference: kernels differ from plain versions by {worst_plain}")
-    if outside * 4 > ratios.numel():
-        failures.append(f"{label} reference: {outside} logit rows differ from the CPU")
+    if tie_swaps is None:
+        if outside * 4 > ratios.numel():
+            failures.append(f"{label} reference: {outside} logit rows differ from the CPU")
+        return launched
+    kept = {key: getattr(*key) for key in tie_swaps}
+    for (mod, name), plain_fn in tie_swaps.items():
+        setattr(mod, name, plain_fn)
+    try:
+        with _RoundTrace() as gpu_trace:
+            run(params, dev, gpu_trace)
+    finally:
+        for (mod, name), fn in kept.items():
+            setattr(mod, name, fn)
+    with _RoundTrace() as cpu_trace:
+        run(cpu_params, torch.device("cpu"), cpu_trace)
+    rows = [(int(t), int(r)) for t, r in (ratios > 1).nonzero().tolist()]
+    log(f"  {label}: {len(gpu_trace.calls)} roundings traced on each device; rows outside "
+        f"the gate (step, row): {rows}")
+    _trace_ties(rows, gpu_trace.calls, cpu_trace.calls, b, failures, label)
     return launched
 
 
@@ -2026,6 +2174,36 @@ class DecodeSteps:
         self._step.steps = n
 
 
+class TcLaunches:
+    """The launches of a flash wrapper (B6, B6t) that took the tensor-core
+    body (its ``tc_launches``), under the launch counters' attribute, so
+    that they are reset and read with them. Not a kernel of its own."""
+
+    def __init__(self, wrapper):
+        self._wrapper = wrapper
+
+    @property
+    def launches(self) -> int:
+        return self._wrapper.tc_launches
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        self._wrapper.tc_launches = n
+
+
+#: each flash wrapper's key → the key of its tensor-core launches
+TC_KEYS = {"B6": "B6tc", "B6t": "B6t_tc"}
+
+
+def check_tc(label: str, c: dict, failures) -> None:
+    """Every B6 and B6t launch of a full-width path took the tensor-core body
+    (bf16 at d 64 or 128): its count equals the wrapper's."""
+    for key, tc in TC_KEYS.items():
+        if tc in c and c[tc] != c[key]:
+            failures.append(f"[{label}] {tc} (the tensor-core body) launched {c[tc]} times, "
+                            f"{key} {c[key]}")
+
+
 def _wrappers():
     from vocalie_tts_tpu_torch.ops.cache_update import (
         cache_append_k_stacked,
@@ -2057,7 +2235,8 @@ def _wrappers():
             "K4": cache_append_kv_stacked, "B6t": flash_attention_lse,
             "B11a": fb.flash_attention_bwd_dkv, "B11b": fb.flash_attention_bwd_dq,
             "B1w": decode_attention_int8_whole_stacked, "B9d": mlp_gelu_int8_stacked,
-            "K5": cache_append_k_stacked, "steps": DecodeSteps()}
+            "K5": cache_append_k_stacked, "B6tc": TcLaunches(flash_attention),
+            "B6t_tc": TcLaunches(flash_attention_lse), "steps": DecodeSteps()}
 
 
 def path_wants(lm, env: dict, steps: int) -> dict:
@@ -2194,6 +2373,7 @@ def drive_path(dev, failures, label: str, env: dict, requests, scale: str = "ful
     for k, n in want.items():
         if counts[k] != n:
             failures.append(f"[{label}] {k} launched {counts[k]} times, the path needs {n}")
+    check_tc(label, counts, failures)
     for k in KERNEL_NAMES:
         if k in want and want[k] == 0:
             continue
@@ -2378,6 +2558,7 @@ def drive_cosyvoice(dev, failures, b7_inputs: dict, scale: str = "full"):
                 if c[k] != n:
                     failures.append(f"cosyvoice [{label}] {k} launched {c[k]} times, the path "
                                     f"needs {n}")
+            check_tc(f"cosyvoice {label}", c, failures)
             if steps == 0:
                 failures.append(f"cosyvoice [{label}]: no decode step ran")
             counts[label] = c
@@ -2465,6 +2646,7 @@ def _cosy_stream_noenv(dev, failures, tmp, wrappers, profiles) -> dict:
     for k in ("B1", "B2", "B3", "B4", "B5", "B7", "B12", "K1", "K2", "B10", "K4"):
         if c[k] != 0:
             failures.append(f"cosyvoice [{label}] {k} launched {c[k]} times, the path needs 0")
+    check_tc(f"cosyvoice {label}", c, failures)
 
     def windows():
         set_env(NOENV_ENV)
@@ -2526,6 +2708,7 @@ def _cosy_offline(engine, rt, request, tmp, label, env, wrappers, failures) -> d
     for k, n in want.items():
         if c[k] != n:
             failures.append(f"cosyvoice {label} {k} launched {c[k]} times, the path needs {n}")
+    check_tc(f"cosyvoice {label}", c, failures)
     for k in (("B12",) if mega else ("B1", "B2")) + ("B3", "B4", "B5", "B6"):
         if c[k] == 0:
             failures.append(f"cosyvoice {label}: {k} was never launched")
@@ -2701,6 +2884,7 @@ def drive_xtts(dev, failures, scale: str = "full"):
             for k, n in want.items():
                 if c[k] != n:
                     failures.append(f"xtts [{label}] {k} launched {c[k]} times, the path needs {n}")
+            check_tc(f"xtts {label}", c, failures)
             if steps == 0:
                 failures.append(f"xtts [{label}]: no decode step ran")
             counts[label] = c
@@ -2921,6 +3105,7 @@ def drive_qwen3(dev, failures, scale: str = "full"):
             for k, n in want.items():
                 if c[k] != n:
                     failures.append(f"qwen3 [{label}] {k} launched {c[k]} times, the path needs {n}")
+            check_tc(f"qwen3 {label}", c, failures)
             if steps == 0:
                 failures.append(f"qwen3 [{label}]: no decode step ran")
             counts[label] = {**c, "steps": steps, "rtf": meta["total_duration"] / wall,
@@ -3295,12 +3480,15 @@ def _flash_train_case(dev, failures, label, b, h, hk, s, d, causal):
         else:
             tol = f"{TRAIN_TOL[name.split()[0]]} x max|ref|"
             check = f"max |diff| / max|ref| = {max(errs[name]):.3e} (tolerance {tol})"
-        log(f"{name} [{label}]: {check}; kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, SDPA "
-            f"{'forward' if name == B6T_NAME else 'backward alone'} {lib:.6f} ms, bound "
-            f"{bms:.6f} ms ({by}: {bounds[name][0] / 1e6:.1f} MB, {bounds[name][1] / 1e9:.2f} GFLOP)")
+        tflops = bounds[name][1] / (ms * 1e-3) / 1e12
+        log(f"{name} [{label}]: {check}; kernel {ms:.6f} ms ({tflops:.1f} TFLOP/s), plain "
+            f"{plain_ms:.6f} ms, SDPA {'forward' if name == B6T_NAME else 'backward alone'} "
+            f"{lib:.6f} ms, bound {bms:.6f} ms ({by}: {bounds[name][0] / 1e6:.1f} MB, "
+            f"{bounds[name][1] / 1e9:.2f} GFLOP)")
         cases[name] = {"max_abs_err": abs_errs[name], "max_rel_err": max(errs[name]),
                        "tolerance": tol, "ms": ms, "plain_ms": plain_ms,
-                       "bound_ms": bms, "bound_by": by, "library_ms": lib, "shape": shape}
+                       "bound_ms": bms, "bound_by": by, "library_ms": lib, "tflops": tflops,
+                       "shape": shape}
         if name == B6T_NAME:
             cases[name]["worst_ratio"] = out_worst
             cases[name]["lse_worst_ratio"] = lse_worst
@@ -3331,7 +3519,8 @@ def _train_wrappers() -> dict:
     from vocalie_tts_tpu_torch.ops.flash_attention import flash_attention, flash_attention_lse
 
     return {"B6t": flash_attention_lse, "B11a": fb.flash_attention_bwd_dkv,
-            "B11b": fb.flash_attention_bwd_dq, "B6": flash_attention}
+            "B11b": fb.flash_attention_bwd_dq, "B6": flash_attention,
+            "B6t_tc": TcLaunches(flash_attention_lse), "B6tc": TcLaunches(flash_attention)}
 
 
 def _train_view(cfg, dev, seed):
@@ -3560,7 +3749,8 @@ def drive_training(dev, failures, scale: str = "full"):
         steps[True](state, toks[0], tgts[0])
         torch.cuda.synchronize()
         per_step = {k: w.launches for k, w in wrappers.items()}
-        want = {"B6t": cfg.n_layers, "B11a": cfg.n_layers, "B11b": cfg.n_layers, "B6": 0}
+        want = {"B6t": cfg.n_layers, "B11a": cfg.n_layers, "B11b": cfg.n_layers, "B6": 0,
+                "B6t_tc": cfg.n_layers, "B6tc": 0}
         if per_step != want or any(launched[False].values()) or launched[True] != want:
             failures.append(f"train step at seq {seq}: flash step launches {per_step}, flash "
                             f"grads {launched[True]}, XLA grads {launched[False]}; want {want} "
@@ -3803,6 +3993,7 @@ def small_reference_gelu_rms(dev, failures):
     head and B9d for the MLP, GPU kernels against the GPU plain versions and
     against the CPU (``_dense_reference``). Returns B9d's launches."""
     from vocalie_tts_tpu_torch.models.common import transformer as tr
+    from vocalie_tts_tpu_torch.ops import decode_attention as da
     from vocalie_tts_tpu_torch.ops import decode_dense as dd
 
     cfg = tr.TransformerConfig(vocab_size=96, d_model=128, n_layers=2, n_heads=2, n_kv_heads=2,
@@ -3818,9 +4009,14 @@ def small_reference_gelu_rms(dev, failures):
     n = 12
     swaps = {"dense_int8_stacked": (dd.dense_int8_stacked, dd.dense_int8_plain),
              "mlp_gelu_int8_stacked": (dd.mlp_gelu_int8_stacked, dd.mlp_gelu_int8_plain)}
+    # the tie trace's GPU run: B4 and B9d as above, and B1 (whose int8 q and
+    # p roundings happen inside its kernel) through its plain version too
+    ties = {(tr, name): plain for name, (_, plain) in swaps.items()}
+    ties[(da, "decode_attention_int8_stacked")] = da.decode_attention_plain
     launched = _dense_reference(dev, failures, "GELU + bias + RMSNorm, d_model 128", cfg, params,
                                 swaps, {"dense_int8_stacked": 1 + n * (1 + 2 * cfg.n_layers),
-                                        "mlp_gelu_int8_stacked": n * cfg.n_layers}, n_steps=n)
+                                        "mlp_gelu_int8_stacked": n * cfg.n_layers}, n_steps=n,
+                                tie_swaps=ties)
     return launched["mlp_gelu_int8_stacked"]
 
 
@@ -3865,6 +4061,7 @@ def _counted_loops(label, wrappers, runs, vocab, failures):
         for k, n in want.items():
             if c[k] != n:
                 failures.append(f"[{label}, {name}] {k} launched {c[k]} times, the path needs {n}")
+        check_tc(f"{label}, {name}", c, failures)
         out[name] = c
     return out
 
@@ -3901,7 +4098,8 @@ def drive_unrounded(dev, failures, scale: str = "full", steps: int = 80):
 
     loop(lens_600[0], 4)()   # load and warm up
     base = {**{k: 0 for k in wrappers}, "B2": L * steps, "B3": steps, "B4": steps + 1,
-            "B5": steps, "B6": L if s >= 512 else 0, "steps": steps}
+            "B5": steps, "B6": L if s >= 512 else 0, "B6tc": L if s >= 512 else 0,
+            "steps": steps}
     counts = _counted_loops("unrounded T3 cache", wrappers, [
         (f"cache_len {lens_600[0]}", loop(lens_600[0]), {**base, "B1w": L * steps}),
         (f"cache_len {lens_600[1]}", loop(lens_600[1]), {**base, "B1": L * steps}),
@@ -3964,7 +4162,8 @@ def drive_gelu_rms(dev, failures, scale: str = "full", steps: int = 64):
 
     loop(4)()   # load and warm up
     want = {**{k: 0 for k in wrappers}, "B9d": L * steps, "B4": steps * (1 + 2 * L) + 1,
-            "B1": L * steps, "B5": steps, "B6": L if s >= 512 else 0, "steps": steps}
+            "B1": L * steps, "B5": steps, "B6": L if s >= 512 else 0,
+            "B6tc": L if s >= 512 else 0, "steps": steps}
     counts = _counted_loops("GELU MLP under RMSNorm", wrappers,
                             [(f"{s} prompt, cache_len {cache_len}", loop(), want)],
                             cfg.vocab_size, failures)
@@ -4000,7 +4199,8 @@ def main() -> int:
     lib = _build.build()
     log(f"kernels built in {time.monotonic() - t0:.1f} s -> {lib.name}")
     for line in _build.build_log().splitlines():
-        if "registers" in line or "spill" in line or "rc " in line or "error" in line.lower():
+        if ("registers" in line or "spill" in line or "rc " in line or "error" in line.lower()
+                or "warning" in line.lower()):
             log("  " + line.strip())
 
     failures: list = []
@@ -4114,6 +4314,9 @@ def main() -> int:
     by_key["B9d"]["launches_path"] = ("phase 4 (b): the XTTS GPT widths with RMSNorm, 64 steps; "
                                       f"phase 3's d_model-128 reference: {b9d_small}; every "
                                       "family's path held to 0")
+    # of those, the launches the tensor-core body took (bf16 at d 64 and 128)
+    by_key["B6"]["tc_launches"] = counts["B6tc"]
+    by_key["B6t"]["tc_launches"] = train_counts["B6t_tc"]
     for key, entry in by_key.items():
         if key == "B13":
             continue

@@ -441,18 +441,34 @@ def test_cache_append_k_kernel_is_byte_exact(dev, dtype, L, b, kv, T, D, pos):
     (2, 2, 2, 70, 130, 8, True, (130, 33)),        # s_q != s_k, causal and kv_lens
     (2, 16, 8, 512, 512, 128, True, None),         # the Qwen3 prefill at d_head 128
     (3, 4, 2, 200, 200, 128, False, (200, 77, 0)),  # d 128, ragged, a fully masked row
+    # the tensor-core body's edges (bf16, d 64 and 128): s off the 64-row
+    # and 64-key tiles, GQA groups 2 and 4, kv_lens below one tile and 0,
+    # causal with s_q != s_k both ways
+    (2, 2, 2, 100, 100, 64, True, None),
+    (2, 4, 2, 130, 190, 128, False, (190, 50)),
+    (2, 8, 2, 96, 96, 64, True, None),
+    (2, 4, 1, 128, 128, 128, False, (0, 30)),
+    (2, 2, 2, 70, 130, 64, True, (130, 33)),
+    (1, 4, 2, 200, 100, 128, True, None),
 ])
-def test_flash_attention_kernel(dev, dtype, b, h, hk, s_q, s_k, d, causal, lens):
+@pytest.mark.parametrize("gain", [1.0, 30.0], ids=["x1", "x30"])
+def test_flash_attention_kernel(dev, dtype, b, h, hk, s_q, s_k, d, causal, lens, gain):
+    """B6 against its plain version; ``gain`` scales q, so that at x30 the
+    row max moves from key tile to key tile. bf16 at d 64 and 128 takes the
+    tensor-core body (``tc_launches`` rises), every other call the CUDA-core
+    one."""
     gen = _gen(dev, s_q + d + h)
-    q = torch.randn((b, h, s_q, d), generator=gen, device=dev).to(dtype)
+    q = (torch.randn((b, h, s_q, d), generator=gen, device=dev) * gain).to(dtype)
     k, v = (torch.randn((b, hk, s_k, d), generator=gen, device=dev).to(dtype)
             for _ in range(2))
     kv_lens = None if lens is None else torch.tensor(lens, dtype=torch.int32, device=dev)
-    before = flash_attention.launches
+    before = flash_attention.launches, flash_attention.tc_launches
     out = flash_attention(q, k, v, causal=causal, kv_lens=kv_lens)
     ref = attention_plain(q, k, v, causal=causal, kv_lens=kv_lens)
     torch.cuda.synchronize()
-    assert flash_attention.launches == before + 1
+    tc = int(dtype == torch.bfloat16 and d in (64, 128))
+    assert (flash_attention.launches, flash_attention.tc_launches) == (before[0] + 1,
+                                                                       before[1] + tc)
     assert out.dtype == dtype and torch.all(torch.isfinite(out))
     diff = (out.float() - ref.float()).abs()
     if dtype == torch.float32:
@@ -545,6 +561,50 @@ def test_flash_train_kernels(dev, dtype, b, h, hk, s_q, s_k, d, causal):
     for got, ref in ((dq, ref_dq), (dk, ref_dk), (dv, ref_dv)):
         assert got.dtype == dtype and torch.all(torch.isfinite(got))
         _within(got, ref, frac)
+
+
+#: B6t's tensor-core edges (bf16, d 64 and 128): s off the tiles, GQA 2 and 4,
+#: causal with s_q != s_k both ways, non-causal
+TC_LSE_CASES = [
+    (2, 2, 2, 100, 100, 64, True),
+    (2, 4, 2, 130, 130, 128, True),
+    (2, 8, 2, 96, 160, 64, False),
+    (1, 4, 1, 200, 100, 128, True),
+    (1, 4, 2, 70, 130, 64, True),
+]
+
+
+@pytest.mark.parametrize("gain", [1.0, 30.0], ids=["x1", "x30"])
+@pytest.mark.parametrize("b,h,hk,s_q,s_k,d,causal", TC_LSE_CASES)
+def test_flash_lse_tensor_core_body(dev, b, h, hk, s_q, s_k, d, causal, gain):
+    """B6t on the tensor-core body against its plain version at phase 2's
+    gates: out within 1e-2 + 1e-2·|ref|, lse within 1e-6 + 1e-6·|ref| with
+    the absolute term in units of the scores, which q's ``gain`` scales (x30:
+    the row max moves between key tiles; an early causal row's lse is one
+    score, whose f32 sum of 128 products of ~30 rounds apart by ~1e-5 in any
+    two summation orders). One launch, counted by ``tc_launches``; f32 and d
+    32 leave that count flat."""
+    from vocalie_tts_tpu_torch.ops.flash_attention import attention_plain_lse, flash_attention_lse
+
+    q, k, v, _ = _train_inputs(dev, torch.bfloat16, b, h, hk, s_q, s_k, d)
+    q = (q.float() * gain).to(torch.bfloat16)
+    before = flash_attention_lse.launches, flash_attention_lse.tc_launches
+    out, lse = flash_attention_lse(q, k, v, causal=causal)
+    ref_out, ref_lse = attention_plain_lse(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert (flash_attention_lse.launches, flash_attention_lse.tc_launches) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.equal(torch.isfinite(lse), torch.isfinite(ref_lse))
+    ok = torch.isfinite(ref_lse)
+    tol = 1e-6 * gain + 1e-6 * ref_lse.abs()[ok]
+    assert torch.all((lse - ref_lse).abs()[ok] <= tol), \
+        ((lse - ref_lse).abs()[ok] / tol).max().item()
+    assert torch.all((out.float() - ref_out.float()).abs() <= 1e-2 + 1e-2 * ref_out.float().abs())
+    for dtype, dd in ((torch.float32, d), (torch.bfloat16, 32)):
+        qs, ks, vs, _ = _train_inputs(dev, dtype, b, h, hk, s_q, s_k, dd)
+        n = flash_attention_lse.tc_launches
+        flash_attention_lse(qs, ks, vs, causal=causal)
+        assert flash_attention_lse.tc_launches == n
 
 
 @pytest.mark.parametrize("hk", [4, 2])

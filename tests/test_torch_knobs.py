@@ -1,4 +1,4 @@
-"""Three knobs the JAX package reads and the port used to ignore, each set
+"""Four knobs the JAX package reads and the port used to ignore, each set
 in both packages: the port must compute what JAX computes under it, or
 raise.
 
@@ -17,6 +17,8 @@ raise.
   port.
 - ``VOCALIE_FUSE_QKV=0`` (unfused q/k/v and gate/up, and with int8 weights
   no dense kernels, ``ar_runtime.py:79-82``): the port raises.
+- ``VOCALIE_STREAM_FUSED=0`` (CosyVoice streaming's unfused window
+  programs, ``cosyvoice/runtime.py:481, :499-514``): the port raises.
 
 JAX reads the first two while it traces, so its caches are cleared around
 each case.
@@ -190,3 +192,26 @@ def test_fuse_qkv_off_raises(monkeypatch):
     with pytest.raises(NotImplementedError, match="VOCALIE_FUSE_QKV"):
         maybe_quantize_lm({"lm": {"layers": {k: torch.from_numpy(v) for k, v in layers.items()},
                                   "lm_head": torch.ones(128, 96)}})
+
+
+@pytest.mark.parametrize("value,refused", [("0", True), ("false", True), ("1", False),
+                                           (None, False)])
+def test_stream_fused_off_raises(monkeypatch, value, refused):
+    """JAX's ``synthesize_streaming`` reads ``VOCALIE_STREAM_FUSED``; the
+    port's refuses ``=0`` before it touches the runtime, and passes the knob
+    unset or on (the stand-in runtime then fails on its first attribute)."""
+    import inspect
+
+    from vocalie_tts_tpu.models.cosyvoice.runtime import CosyVoiceRuntime as JaxRuntime
+    from vocalie_tts_tpu_torch.models.cosyvoice.runtime import CosyVoiceRuntime
+
+    assert 'bool_env("VOCALIE_STREAM_FUSED", True)' in inspect.getsource(
+        JaxRuntime.synthesize_streaming)
+    if value is None:
+        monkeypatch.delenv("VOCALIE_STREAM_FUSED", raising=False)
+    else:
+        monkeypatch.setenv("VOCALIE_STREAM_FUSED", value)
+    packets = CosyVoiceRuntime.synthesize_streaming(object(), "Bonjour.")
+    with pytest.raises(NotImplementedError if refused else AttributeError,
+                       match="VOCALIE_STREAM_FUSED" if refused else "cfg"):
+        next(packets)

@@ -3,7 +3,8 @@
 //
 // Replaces: vocalie_tts_tpu/ops/flash_attention.py::flash_attention (its
 // forward, _attention_kernel via _flash_attention_padded). Its numbers:
-//   * scores q.k in f32, times sm_scale;
+//   * scores q.k in f32 (bf16 products with an f32 accumulator for bf16
+//     inputs, preferred_element_type=f32), times sm_scale after the product;
 //   * keys at or past the row's kv_len, and (causal) keys after the query
 //     position, are left out; the TPU adds -0.7*f32max to them, which
 //     gives them a probability of exactly 0 wherever a row has a valid key;
@@ -19,31 +20,355 @@
 // flash_attention_bwd.cu) reads: _fa_fwd -> _flash_attention_padded. A row
 // with no valid key gets -inf. Serving passes null and writes nothing more.
 //
-// Bound: bytes at both main-path shapes. At the CFM shape (b=16, h=8,
-// T=640, d=64, bf16) q, k, v and o move ~42 MB (~12.5 us at 3.35 TB/s)
-// against at most 13 GFLOP of q.k and p.v (less with ragged kv_lens; at
-// most ~13.6 us at the bf16 tensor-core rate);
-// at prefill (b=16, h=16, s=512, causal) ~67 MB against ~9 GFLOP; at the
-// Qwen3 prefill (b=8, h=16, hk=8, s=512, d=128, causal) ~50 MB against ~9
-// GFLOP. This
-// first kernel does its products on the CUDA cores in f32 (67 TFLOP/s),
-// which alone puts it an order of magnitude above that bound.
+// Bound: bytes at every main-path shape. At the CFM shape (b=16, h=8,
+// T=640, d=64, bf16, ragged kv_lens) q, k, v and o move ~36 MB (0.0108 ms
+// at 3.35 TB/s); at the T3 prefill (b=16, h=16, s=512, d=64, causal) ~67 MB
+// (0.0200 ms); at the Qwen3 prefill (b=8, h=16, hk=8, s=512, d=128, causal)
+// ~50 MB (0.0150 ms); B6t's [8,16,512,64] ~34 MB (0.0101 ms). Their q.k and
+// p.v are 9-13 GFLOP, 9-14 us at 989 TFLOP/s on the bf16 tensor cores and
+// ~150-200 us at 67 TFLOP/s on the f32 CUDA cores: off the tensor cores
+// the products, not the bytes, set the time.
 //
-// Design (first, simple version, no tensor cores): one block per (b*h,
-// 64-query tile); each query row is owned by SPLIT adjacent threads of one
-// warp (SPLIT = 1 for d <= 64, 4 for d = 128), each holding D / SPLIT of q
-// and of the accumulator in registers (lane p of a row owns dims p, p +
-// SPLIT, ..., so the row's lanes read neighbouring shared-memory words) (a whole d = 128 row in one thread
-// would need ~256 registers and spill). The block walks 32-key tiles that
-// it stages in shared memory (as f32). A score is each thread's partial
-// q.k summed over the row's SPLIT lanes by a shuffle butterfly (every lane
-// gets the same bits); lane 0 of the row writes it to a shared row, then the
-// tile's max, exp and p.v follow, each lane on its own slice of d.
+// Two bodies, chosen by dtype and d (ops/flash_attention.py ``flash_body``
+// makes the same choice):
+//
+// (1) bf16 at d 64 and 128 -- every full-width path -- flash_fwd_tc_kernel,
+// both products on the Hopper tensor cores (wgmma.mma_async, sm_90a):
+//   * one block = one warpgroup (128 threads) owns 64 query rows of one
+//     (batch, head); thread t holds rows 16*warp + lane/4 and that + 8, as
+//     the wgmma accumulator lays them out. 64-row tiles give the Qwen3
+//     batch-1 prefill [1,16,512,128] 128 blocks for 132 SMs (128-row tiles
+//     would give 64); the heaviest causal tiles are issued first. GQA
+//     indexes the kv head; the two q heads of a kv head run in two blocks
+//     that read its K/V through L2 (no per-kv-head packing).
+//   * S = Q.K^T: wgmma m64n64k16, A = the Q tile and B = the K tile, both
+//     from shared memory (K-major), f32 accumulator, D/16 steps; then
+//     S *= sm_scale as JAX, the masks, and the online softmax on the
+//     accumulator fragments: the row max and row sum over the 4 lanes of
+//     a quad by shuffles, alpha rescales O in registers. exp is exp2f of
+//     s*log2(e) - m*log2(e) (one FMA: log2(e) folded into the exponent).
+//     A row whose running max is still -inf takes 0 as its exponent base,
+//     so exp(-inf - -inf) never makes a NaN.
+//   * P is rounded to bf16 in registers and fed to O += P.V as wgmma's
+//     register A operand (the accumulator of columns 16j..16j+15 is the A
+//     fragment of k-slice j); B = the V tile, MN-major from shared memory,
+//     one m64n64k16 per 64-column panel of d and 16 keys. The scores never
+//     go through shared memory.
+//   * K/V tiles of 64 keys, bf16 in shared memory in 64-column panels of
+//     128-byte rows with the 128-byte swizzle that wgmma's descriptors
+//     read; a ring of 2 stages filled by cp.async (16 bytes a thread, keys
+//     at or past kv_len zero-filled), so tile j+1 loads while tile j
+//     multiplies; Q is loaded once per block. Dynamic shared memory: 41 KB
+//     at d 64, 81 KB at d 128 (cudaFuncSetAttribute, checked).
+//   * Causal tiles strictly above the diagonal are skipped; the tiles that
+//     reach past kv_len or the diagonal are masked element by element.
+//
+// (2) f32, and bf16 at d 8, 16, 32 (the tiny test configurations and the
+// f32 CFM of the small t2w scale, none on a full-width path) --
+// flash_fwd_kernel, products on the CUDA cores in f32: one block per
+// (b*h, 64-query tile); each query row is owned by SPLIT adjacent threads
+// of one warp (SPLIT = 1 for d <= 64, 4 for d = 128), each holding D /
+// SPLIT of q and of the accumulator in registers (lane p of a row owns
+// dims p, p + SPLIT, ..., so the row's lanes read neighbouring
+// shared-memory words). The block walks 32-key tiles that it stages in
+// shared memory (as f32). A score is each thread's partial q.k summed over
+// the row's SPLIT lanes by a shuffle butterfly (every lane gets the same
+// bits); lane 0 of the row writes it to a shared row, then the tile's max,
+// exp and p.v follow, each lane on its own slice of d.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+// ── (1) the tensor-core body: bf16, d 64 and 128 ──────────────────────────
+
+namespace tc {
+
+constexpr int BM = 64;                 // query rows of a block: one warpgroup's wgmma M
+constexpr int BN = 64;                 // keys of a tile
+constexpr int THREADS = 128;           // one warpgroup
+constexpr int PANEL = 64 * 128;        // bytes of 64 rows x 64 bf16 columns (128-byte rows)
+constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16 bytes global -> shared, asynchronous; zero-filled (nothing read) when !ok
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(ok ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// A [64 rows, D] bf16 tile (row stride D) -> D/64 panels of [64][64] at dst,
+// each 64-column row 128 bytes with the 128-byte swizzle (16-byte chunk c of
+// row r at chunk c ^ (r % 8)), the layout wgmma's descriptors read below.
+// Rows at or past ``rows`` are zero-filled.
+template <int D>
+__device__ __forceinline__ void load_tile(uint32_t dst, const __nv_bfloat16* src, int rows,
+                                          int tid) {
+  constexpr int ROW_CHUNKS = D / 8;
+#pragma unroll
+  for (int i = 0; i < 64 * ROW_CHUNKS / THREADS; ++i) {
+    const int c = i * THREADS + tid;
+    const int r = c / ROW_CHUNKS, col = c % ROW_CHUNKS;
+    const int panel = col >> 3, ch = col & 7;
+    const bool ok = r < rows;
+    cp_async16(dst + panel * PANEL + r * 128 + ((ch ^ (r & 7)) << 4),
+               src + (long long)(ok ? r : 0) * D + col * 8, ok);
+  }
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled panel: start address
+// >> 4, 8-row groups 1024 bytes apart (the stride field; the leading field is
+// given the same value: no operand here spans two 64-column atoms of the
+// swizzle, where it would be read), layout 1 = 128-byte swizzle.
+__device__ __forceinline__ uint64_t desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(1024 >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keep the compiler from moving accumulator reads and writes across the
+// asynchronous wgmma
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+// d[64 x 64] (+)= A[64 x 16] . B[16 x 64], A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+// d[64 x 64] += A[64 x 16] . B[16 x 64], A (bf16 pairs) in registers, B
+// MN-major in shared memory (trans-b = 1)
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&t);
+}
+
+template <int D>
+constexpr int smem_bytes() { return (1 + 2 * 2) * (D / 64) * PANEL + 1024; }
+
+template <int D>
+__global__ void __launch_bounds__(THREADS) flash_fwd_tc_kernel(
+    const __nv_bfloat16* __restrict__ q,   // [b, h, s_q, D]
+    const __nv_bfloat16* __restrict__ k,   // [b, hk, s_k, D]
+    const __nv_bfloat16* __restrict__ v,   // [b, hk, s_k, D]
+    __nv_bfloat16* __restrict__ out,       // [b, h, s_q, D]
+    float* __restrict__ lse,               // [b, h, s_q] or null
+    const int* __restrict__ kv_lens,       // [b] or null
+    int h, int hk, int s_q, int s_k, int causal, float sm_scale) {
+  constexpr int NP = D / 64;               // 64-column panels of d
+  constexpr int TILE = NP * PANEL;         // bytes of one 64-row tile
+  extern __shared__ uint8_t smem_raw[];
+  // the swizzle is a function of the address: panels on 1024-byte boundaries
+  const uint32_t base = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q_s = base;
+  // stage st: K at base + TILE (1 + 2 st), V at base + TILE (2 + 2 st)
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int bh = blockIdx.y;
+  const int bi = bh / h, hi = bh - bi * h, hkv = hi / (h / hk);
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BM;    // the longest causal rows first
+  int kv_len = s_k;
+  if (kv_lens != nullptr) kv_len = min(max(kv_lens[bi], 0), s_k);
+  const int q_last = min(q0 + BM, s_q) - 1;
+  const int k_end = causal ? min(kv_len, q_last + 1) : kv_len;   // keys any row here sees
+  const int n_tiles = (k_end + BN - 1) / BN;
+
+  const __nv_bfloat16* kb = k + (long long)(bi * hk + hkv) * s_k * D;
+  const __nv_bfloat16* vb = v + (long long)(bi * hk + hkv) * s_k * D;
+  auto load_kv = [&](int j) {
+    const uint32_t st = base + TILE * (1 + 2 * (j & 1));
+    load_tile<D>(st, kb + (long long)j * BN * D, kv_len - j * BN, tid);
+    load_tile<D>(st + TILE, vb + (long long)j * BN * D, kv_len - j * BN, tid);
+  };
+  // groups: {Q, tile 0}, {tile 1}, then one per tile j + 2 (some empty), so
+  // that at tile j every group but the newest holds what tile j needs
+  load_tile<D>(q_s, q + ((long long)bh * s_q + q0) * D, s_q - q0, tid);
+  if (n_tiles > 0) load_kv(0);
+  cp_async_commit();
+  if (n_tiles > 1) load_kv(1);
+  cp_async_commit();
+
+  float o[NP][32];
+#pragma unroll
+  for (int p = 0; p < NP; ++p)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[p][i] = 0.0f;
+  float m[2] = {-INFINITY, -INFINITY};   // rows r0 and r0 + 8
+  float l[2] = {0.0f, 0.0f};             // this thread's part of the row sums
+  const int r0 = q0 + warp * 16 + (lane >> 2);
+  const int cq = 2 * (lane & 3);         // the first of this thread's column pair
+
+  for (int j = 0; j < n_tiles; ++j) {
+    cp_async_wait<1>();
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");   // cp.async -> wgmma
+    __syncthreads();
+    const uint32_t k_s = base + TILE * (1 + 2 * (j & 1));
+    const uint32_t v_s = k_s + TILE;
+    const int k0 = j * BN;
+
+    float s[32];
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk >> 2) * PANEL + (kk & 3) * 32;   // 16 columns of d
+      wgmma_ss(s, desc(q_s + off), desc(k_s + off), kk > 0);
+    }
+    wg_commit();
+    wg_wait_all();
+    fence_regs(s);
+
+    // s[4c + e]: row r0 + 8 (e >> 1), key k0 + 8c + cq + (e & 1)
+    const bool edge = k0 + BN > kv_len || (causal && k0 + BN - 1 > q0);
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      float x = s[i] * sm_scale;
+      if (edge) {
+        const int col = k0 + (i >> 2) * 8 + cq + (i & 1);
+        const int row = r0 + ((i >> 1) & 1) * 8;
+        if (col >= kv_len || (causal && col > row)) x = -INFINITY;
+      }
+      s[i] = x;
+      mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x);
+    }
+    float alpha[2], mb[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      const bool none = m_new == -INFINITY;                 // no valid key yet
+      alpha[r] = none ? 1.0f : exp2f((m[r] - m_new) * LOG2E);
+      mb[r] = none ? 0.0f : m_new * LOG2E;
+      m[r] = m_new;
+    }
+    // p = exp(s - m) in f32 for the row sums; bf16 pairs for P.V, laid out
+    // as wgmma's A fragment: k-slice c / 2, registers 2 (c & 1) + row half
+    uint32_t pa[4][4];
+    float ps[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const float p0 = exp2f(fmaf(s[4 * c + 0], LOG2E, -mb[0]));
+      const float p1 = exp2f(fmaf(s[4 * c + 1], LOG2E, -mb[0]));
+      const float p2 = exp2f(fmaf(s[4 * c + 2], LOG2E, -mb[1]));
+      const float p3 = exp2f(fmaf(s[4 * c + 3], LOG2E, -mb[1]));
+      ps[0] += p0 + p1;
+      ps[1] += p2 + p3;
+      pa[c >> 1][(c & 1) * 2 + 0] = pack_bf16(p0, p1);
+      pa[c >> 1][(c & 1) * 2 + 1] = pack_bf16(p2, p3);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = alpha[r] * l[r] + ps[r];
+#pragma unroll
+    for (int p = 0; p < NP; ++p) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[p][i] *= alpha[(i >> 1) & 1];
+      fence_regs(o[p]);
+    }
+    wg_fence();
+#pragma unroll
+    for (int p = 0; p < NP; ++p)
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)   // 16 keys: two 8-row groups of the V panel
+        wgmma_rs(o[p], pa[kk], desc(v_s + p * PANEL + kk * 2048));
+    wg_commit();
+    wg_wait_all();
+#pragma unroll
+    for (int p = 0; p < NP; ++p) fence_regs(o[p]);
+    __syncthreads();                      // every warp is done with this stage
+    if (j + 2 < n_tiles) load_kv(j + 2);
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int row = r0 + 8 * r;
+    if (row >= s_q) continue;
+    const float linv = (l[r] == 0.0f) ? 1.0f : 1.0f / l[r];
+    __nv_bfloat16* orow = out + ((long long)bh * s_q + row) * D + cq;
+#pragma unroll
+    for (int p = 0; p < NP; ++p)
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+        *reinterpret_cast<__nv_bfloat162*>(orow + p * 64 + 8 * c) = __floats2bfloat162_rn(
+            o[p][4 * c + 2 * r] * linv, o[p][4 * c + 2 * r + 1] * linv);
+    if (lse != nullptr && (lane & 3) == 0)
+      lse[(long long)bh * s_q + row] = m[r] + logf(fmaxf(l[r], 1e-30f));
+  }
+}
+
+template <int D>
+static int launch(const void* q, const void* k, const void* v, void* out, float* lse,
+                  const int* kv_lens, int b, int h, int hk, int s_q, int s_k, int causal,
+                  float sm_scale, cudaStream_t stream) {
+  constexpr int smem = smem_bytes<D>();
+  // above 48 KB only as dynamic shared memory, once allowed; set once
+  static const cudaError_t allowed = cudaFuncSetAttribute(
+      flash_fwd_tc_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (allowed != cudaSuccess) return (int)allowed;
+  dim3 grid((s_q + BM - 1) / BM, b * h);
+  flash_fwd_tc_kernel<D><<<grid, THREADS, smem, stream>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k, (const __nv_bfloat16*)v,
+      (__nv_bfloat16*)out, lse, kv_lens, h, hk, s_q, s_k, causal, sm_scale);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
+
+// ── (2) the CUDA-core body: f32, and bf16 at d 8, 16, 32 ──────────────────
 
 #define BQ 64
 #define BK 32
@@ -159,7 +484,7 @@ __global__ void __launch_bounds__(BQ * SPLIT) flash_fwd_kernel(
 }
 
 template <typename T, int D>
-static int launch(const void* q, const void* k, const void* v, void* out, float* lse,
+static int launch_simt(const void* q, const void* k, const void* v, void* out, float* lse,
                   const int* kv_lens,
                   int b, int h, int hk, int s_q, int s_k, int causal, float sm_scale,
                   cudaStream_t stream) {
@@ -177,16 +502,21 @@ static int dispatch_d(const void* q, const void* k, const void* v, void* out, fl
                       int b, int h, int hk, int s_q, int s_k, int d, int causal, float sm_scale,
                       cudaStream_t stream) {
   switch (d) {
-    case 8: return launch<T, 8>(q, k, v, out, lse, kv_lens, b, h, hk, s_q, s_k, causal, sm_scale, stream);
-    case 16: return launch<T, 16>(q, k, v, out, lse, kv_lens, b, h, hk, s_q, s_k, causal, sm_scale, stream);
-    case 32: return launch<T, 32>(q, k, v, out, lse, kv_lens, b, h, hk, s_q, s_k, causal, sm_scale, stream);
-    case 64: return launch<T, 64>(q, k, v, out, lse, kv_lens, b, h, hk, s_q, s_k, causal, sm_scale, stream);
-    case 128: return launch<T, 128>(q, k, v, out, lse, kv_lens, b, h, hk, s_q, s_k, causal, sm_scale, stream);
-    default: return (int)cudaErrorInvalidValue;
+    case 8: return launch_simt<T, 8>(q, k, v, out, lse, kv_lens, b, h, hk, s_q, s_k, causal, sm_scale, stream);
+    case 16: return launch_simt<T, 16>(q, k, v, out, lse, kv_lens, b, h, hk, s_q, s_k, causal, sm_scale, stream);
+    case 32: return launch_simt<T, 32>(q, k, v, out, lse, kv_lens, b, h, hk, s_q, s_k, causal, sm_scale, stream);
+    default: break;
   }
+  // bf16 at d 64 and 128 takes the tensor-core body (vt_flash_attention_fwd)
+  if constexpr (std::is_same<T, float>::value) {
+    if (d == 64) return launch_simt<T, 64>(q, k, v, out, lse, kv_lens, b, h, hk, s_q, s_k, causal, sm_scale, stream);
+    if (d == 128) return launch_simt<T, 128>(q, k, v, out, lse, kv_lens, b, h, hk, s_q, s_k, causal, sm_scale, stream);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
-// dtype: 0 = float32, 1 = bfloat16; lse: f32 [b, h, s_q] or null
+// dtype: 0 = float32, 1 = bfloat16; lse: f32 [b, h, s_q] or null. bf16 at d 64
+// and 128 takes the tensor-core body, everything else the CUDA-core one.
 extern "C" int vt_flash_attention_fwd(
     const void* q, const void* k, const void* v, void* out, void* lse, const void* kv_lens,
     int b, int h, int hk, int s_q, int s_k, int d, int causal, float sm_scale,
@@ -197,6 +527,10 @@ extern "C" int vt_flash_attention_fwd(
   float* ls = (float*)lse;
   if (dtype == 0)
     return dispatch_d<float>(q, k, v, out, ls, lens, b, h, hk, s_q, s_k, d, causal, sm_scale, st);
+  if (dtype == 1 && d == 64)
+    return tc::launch<64>(q, k, v, out, ls, lens, b, h, hk, s_q, s_k, causal, sm_scale, st);
+  if (dtype == 1 && d == 128)
+    return tc::launch<128>(q, k, v, out, ls, lens, b, h, hk, s_q, s_k, causal, sm_scale, st);
   if (dtype == 1)
     return dispatch_d<__nv_bfloat16>(q, k, v, out, ls, lens, b, h, hk, s_q, s_k, d, causal, sm_scale, st);
   return (int)cudaErrorInvalidValue;

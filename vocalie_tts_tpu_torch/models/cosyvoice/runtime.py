@@ -13,6 +13,8 @@ on the card ahead of the read, so the card decodes window N+1 while the
 host yields window N. The first window is 8 tokens (first-packet latency),
 later ones ``VOCALIE_STREAM_WINDOW`` (default 48). At batch 1 every decode
 step is the B3 prologue + the whole-step kernel B7 + B5 + B4.
+``VOCALIE_STREAM_FUSED=0`` (the JAX package's unfused window programs, kept
+there for bisection) raises: the port has one streaming dispatch.
 
 Random numbers come from the runtime's ``torch.Generator``: sampling, and
 the CFM start noise drawn by :meth:`CosyVoiceRuntime._stage2_noise` (the
@@ -59,6 +61,7 @@ from vocalie_tts_tpu_torch.models.cosyvoice.model import (
 from vocalie_tts_tpu_torch.ops.kv_cache import pick_bucket, round_cache_len
 from vocalie_tts_tpu_torch.text.duration import estimate_duration
 from vocalie_tts_tpu_torch.text.frontend import build_prompt_ids, load_frontend
+from vocalie_tts_tpu_torch.utils.env import bool_env
 
 PROMPT_BUCKETS = (64, 128, 256, 512)
 DECODE_BUCKETS = (64, 128, 256, 320)
@@ -240,6 +243,12 @@ class CosyVoiceRuntime:
     ) -> Iterator[Tuple[np.ndarray, int]]:
         """Yield (audio_window, sr) packets: prefill → [decode W tokens →
         CFM → vocoder → yield]*; the first packet waits for one window."""
+        if not bool_env("VOCALIE_STREAM_FUSED", True):
+            raise NotImplementedError(
+                "VOCALIE_STREAM_FUSED=0 runs the JAX package's unfused window programs (decode, "
+                "tokens-to-mel and mel-to-audio dispatched apart, each with its own rng split); "
+                "the port has one streaming dispatch; unset it"
+            )
         cfg, dev = self.cfg, self.device
         spk = torch.from_numpy(self._spk_cache.get(voice_ref_path)[None]).to(dev)
         bundle = self.params["lm_bundle"]

@@ -16,6 +16,13 @@ each row's logsumexp (``_fa_fwd``), the backward is B11
 On a CUDA tensor the wrappers launch ``csrc/flash_attention.cu``; on a
 CPU tensor they run :func:`attention_plain` / :func:`attention_plain_lse`.
 A row with no valid key returns zeros (and a logsumexp of -inf).
+
+The kernel has two bodies, chosen by :func:`flash_body` from the dtype and
+the head dim: bf16 at d 64 and 128 (every full-width path) runs on the
+tensor cores (``"tc"``: wgmma, bf16 K/V tiles loaded by cp.async), every
+other call on the CUDA cores in f32 (``"simt"``). Each wrapper counts its
+launches (``launches``) and, of those, the tensor-core body's
+(``tc_launches``).
 """
 
 from __future__ import annotations
@@ -29,6 +36,15 @@ from vocalie_tts_tpu_torch.ops import _build
 
 _ARGTYPES = [_build.P] * 6 + [_build.I] * 7 + [_build.F, _build.I, _build.P]
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: the head dims the tensor-core body takes (bf16 only)
+TC_HEAD_DIMS = (64, 128)
+
+
+def flash_body(dtype: torch.dtype, d: int) -> str:
+    """The kernel body a launch takes: ``"tc"`` (tensor cores) for bf16 at
+    d 64 and 128, else ``"simt"`` (f32 on the CUDA cores); the choice
+    ``vt_flash_attention_fwd`` makes."""
+    return "tc" if dtype == torch.bfloat16 and d in TC_HEAD_DIMS else "simt"
 
 
 def _valid_keys(b, s_q, s_k, causal, kv_lens, device):
@@ -149,11 +165,15 @@ def flash_attention(
         return attention_plain(q, k, v, causal=causal, sm_scale=sm_scale, kv_lens=kv_lens)
     out = _launch(q, k, v, causal, sm_scale, kv_lens, None)
     flash_attention.launches += 1
+    if flash_body(q.dtype, q.shape[-1]) == "tc":
+        flash_attention.tc_launches += 1
     return out
 
 
-#: launches of the CUDA kernel (the plain version is not counted)
+#: launches of the CUDA kernel (the plain version is not counted), and of
+#: those the tensor-core body's
 flash_attention.launches = 0
+flash_attention.tc_launches = 0
 
 
 def flash_attention_lse(q, k, v, *, causal: bool = True, sm_scale: Optional[float] = None):
@@ -167,11 +187,15 @@ def flash_attention_lse(q, k, v, *, causal: bool = True, sm_scale: Optional[floa
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     out = _launch(q, k, v, causal, sm_scale, None, lse)
     flash_attention_lse.launches += 1
+    if flash_body(q.dtype, q.shape[-1]) == "tc":
+        flash_attention_lse.tc_launches += 1
     return out, lse
 
 
-#: launches of the CUDA kernel with the logsumexp (B6t)
+#: launches of the CUDA kernel with the logsumexp (B6t), and of those the
+#: tensor-core body's
 flash_attention_lse.launches = 0
+flash_attention_lse.tc_launches = 0
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -206,5 +230,5 @@ def flash_attention_trainable(q, k, v, causal: bool = True,
     return _FlashAttention.apply(q, k, v, bool(causal), float(sm_scale))
 
 
-__all__ = ["flash_attention", "flash_attention_lse", "flash_attention_trainable",
+__all__ = ["flash_attention", "flash_attention_lse", "flash_attention_trainable", "flash_body",
            "attention_plain", "attention_plain_lse", "reference_attention"]
