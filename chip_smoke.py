@@ -2147,7 +2147,7 @@ def _request(script: str, out_path: str) -> dict:
 #: the kernels of the voice-over path, by the names of PERF.md's table
 KERNEL_NAMES = ("B1", "B2", "B3", "B4", "B5", "B6")
 #: the training path's kernels, held to 0 on every serving path
-TRAIN_ZERO = {"B6t": 0, "B11a": 0, "B11b": 0}
+TRAIN_ZERO = {"B6t": 0, "B11a": 0, "B11b": 0, "B11a_tc": 0, "B11b_tc": 0}
 #: slice 10's kernels, held to 0 on every serving path of the runtimes: they
 #: round their caches to 128-multiples (B1w), no family has a GELU MLP under
 #: RMSNorm (B9d), and K5 is for JAX's one-array API alone
@@ -2175,9 +2175,10 @@ class DecodeSteps:
 
 
 class TcLaunches:
-    """The launches of a flash wrapper (B6, B6t) that took the tensor-core
-    body (its ``tc_launches``), under the launch counters' attribute, so
-    that they are reset and read with them. Not a kernel of its own."""
+    """The launches of a flash wrapper (B6, B6t, B11a, B11b) that took the
+    tensor-core body (its ``tc_launches``), under the launch counters'
+    attribute, so that they are reset and read with them. Not a kernel of its
+    own."""
 
     def __init__(self, wrapper):
         self._wrapper = wrapper
@@ -2192,12 +2193,12 @@ class TcLaunches:
 
 
 #: each flash wrapper's key → the key of its tensor-core launches
-TC_KEYS = {"B6": "B6tc", "B6t": "B6t_tc"}
+TC_KEYS = {"B6": "B6tc", "B6t": "B6t_tc", "B11a": "B11a_tc", "B11b": "B11b_tc"}
 
 
 def check_tc(label: str, c: dict, failures) -> None:
-    """Every B6 and B6t launch of a full-width path took the tensor-core body
-    (bf16 at d 64 or 128): its count equals the wrapper's."""
+    """Every B6, B6t, B11a and B11b launch of a full-width path took the
+    tensor-core body (bf16 at d 64 or 128): its count equals the wrapper's."""
     for key, tc in TC_KEYS.items():
         if tc in c and c[tc] != c[key]:
             failures.append(f"[{label}] {tc} (the tensor-core body) launched {c[tc]} times, "
@@ -2236,7 +2237,9 @@ def _wrappers():
             "B11a": fb.flash_attention_bwd_dkv, "B11b": fb.flash_attention_bwd_dq,
             "B1w": decode_attention_int8_whole_stacked, "B9d": mlp_gelu_int8_stacked,
             "K5": cache_append_k_stacked, "B6tc": TcLaunches(flash_attention),
-            "B6t_tc": TcLaunches(flash_attention_lse), "steps": DecodeSteps()}
+            "B6t_tc": TcLaunches(flash_attention_lse),
+            "B11a_tc": TcLaunches(fb.flash_attention_bwd_dkv),
+            "B11b_tc": TcLaunches(fb.flash_attention_bwd_dq), "steps": DecodeSteps()}
 
 
 def path_wants(lm, env: dict, steps: int) -> dict:
@@ -3408,6 +3411,14 @@ def _rel_err(got, ref) -> float:
     return (got.float() - ref.float()).abs().max().item() / ref.float().abs().max().item()
 
 
+def _top_steps(got, ref) -> float:
+    """max |got - ref| in bf16 steps of max|ref|'s binade: 1 where two bf16
+    outputs differ by one rounding step at the largest values, which alone
+    gives 2^-8 to 2^-7 of max|ref|."""
+    top = ref.float().abs().max().item()
+    return (got.float() - ref.float()).abs().max().item() / 2.0 ** (math.floor(math.log2(top)) - 7)
+
+
 def _flash_train_case(dev, failures, label, b, h, hk, s, d, causal):
     """B6t, B11b and B11a at one shape: each against its plain version on the
     same inputs, timed beside its plain version, SDPA (forward; backward
@@ -3437,6 +3448,8 @@ def _flash_train_case(dev, failures, label, b, h, hk, s, d, causal):
                 B11B_NAME: (dq.float() - ref_dq.float()).abs().max().item(),
                 B11A_NAME: max((dk.float() - ref_dk.float()).abs().max().item(),
                                (dv.float() - ref_dv.float()).abs().max().item())}
+    steps = {B11B_NAME: _top_steps(dq, ref_dq),
+             B11A_NAME: max(_top_steps(dk, ref_dk), _top_steps(dv, ref_dv))}
     if not lse_worst <= 1.0:
         failures.append(f"{B6T_NAME} [{label}] lse differs: worst ratio {lse_worst}")
     if not out_worst <= 1.0:
@@ -3479,7 +3492,8 @@ def _flash_train_case(dev, failures, label, b, h, hk, s, d, causal):
                      f"({LSE_TOL} + {LSE_TOL}|ref|) = {lse_worst:.3f} (must be <= 1)")
         else:
             tol = f"{TRAIN_TOL[name.split()[0]]} x max|ref|"
-            check = f"max |diff| / max|ref| = {max(errs[name]):.3e} (tolerance {tol})"
+            check = (f"max |diff| / max|ref| = {max(errs[name]):.3e} (tolerance {tol}), "
+                     f"{steps[name]:.3f} bf16 steps of max|ref|'s binade")
         tflops = bounds[name][1] / (ms * 1e-3) / 1e12
         log(f"{name} [{label}]: {check}; kernel {ms:.6f} ms ({tflops:.1f} TFLOP/s), plain "
             f"{plain_ms:.6f} ms, SDPA {'forward' if name == B6T_NAME else 'backward alone'} "
@@ -3493,6 +3507,9 @@ def _flash_train_case(dev, failures, label, b, h, hk, s, d, causal):
             cases[name]["worst_ratio"] = out_worst
             cases[name]["lse_worst_ratio"] = lse_worst
             cases[name]["lse_tolerance"] = f"{LSE_TOL} + {LSE_TOL} x |ref|"
+    pair = cases[B11A_NAME]["ms"] + cases[B11B_NAME]["ms"]
+    log(f"B11a + B11b [{label}]: {pair:.6f} ms, SDPA backward alone {sdpa_bwd:.6f} ms, "
+        f"{pair / sdpa_bwd:.3f}x")
     return cases
 
 
@@ -3520,7 +3537,9 @@ def _train_wrappers() -> dict:
 
     return {"B6t": flash_attention_lse, "B11a": fb.flash_attention_bwd_dkv,
             "B11b": fb.flash_attention_bwd_dq, "B6": flash_attention,
-            "B6t_tc": TcLaunches(flash_attention_lse), "B6tc": TcLaunches(flash_attention)}
+            "B6t_tc": TcLaunches(flash_attention_lse), "B6tc": TcLaunches(flash_attention),
+            "B11a_tc": TcLaunches(fb.flash_attention_bwd_dkv),
+            "B11b_tc": TcLaunches(fb.flash_attention_bwd_dq)}
 
 
 def _train_view(cfg, dev, seed):
@@ -3580,9 +3599,10 @@ def small_reference_train(dev, failures):
         runs[name] = out
         launched = {k: w.launches - before[k] for k, w in wrappers.items()}
         want = cfg.n_layers * 4 if name == "gpu" else 0   # 2 steps, value_and_grad + step
-        if any(launched[k] != want for k in ("B6t", "B11a", "B11b")) or launched["B6"]:
+        if any(launched[k] != want for k in ("B6t", "B11a", "B11b")) \
+                or any(launched[k] for k in ("B6", "B6tc", "B6t_tc", "B11a_tc", "B11b_tc")):
             failures.append(f"tiny train steps on the {name}: launches {launched}, want "
-                            f"{want} of B6t, B11a, B11b and no B6")
+                            f"{want} of B6t, B11a, B11b (the f32 CUDA-core bodies) and no B6")
     worst_loss, worst_grad = 0.0, 0.0
     for (lg, sg, gg), (lc, sc, gc) in zip(runs["gpu"], runs["cpu"]):
         worst_loss = max(worst_loss, abs(lg - lc) / abs(lc), abs(sg - sc) / abs(sc))
@@ -3750,7 +3770,8 @@ def drive_training(dev, failures, scale: str = "full"):
         torch.cuda.synchronize()
         per_step = {k: w.launches for k, w in wrappers.items()}
         want = {"B6t": cfg.n_layers, "B11a": cfg.n_layers, "B11b": cfg.n_layers, "B6": 0,
-                "B6t_tc": cfg.n_layers, "B6tc": 0}
+                "B6t_tc": cfg.n_layers, "B6tc": 0, "B11a_tc": cfg.n_layers,
+                "B11b_tc": cfg.n_layers}
         if per_step != want or any(launched[False].values()) or launched[True] != want:
             failures.append(f"train step at seq {seq}: flash step launches {per_step}, flash "
                             f"grads {launched[True]}, XLA grads {launched[False]}; want {want} "
@@ -4199,7 +4220,9 @@ def main() -> int:
     lib = _build.build()
     log(f"kernels built in {time.monotonic() - t0:.1f} s -> {lib.name}")
     for line in _build.build_log().splitlines():
-        if ("registers" in line or "spill" in line or "rc " in line or "error" in line.lower()
+        if "Compiling entry function" in line:   # the kernel the next lines describe
+            log("  " + line.split("'")[1][:72])
+        elif ("registers" in line or "spill" in line or "rc " in line or "error" in line.lower()
                 or "warning" in line.lower()):
             log("  " + line.strip())
 
@@ -4317,6 +4340,8 @@ def main() -> int:
     # of those, the launches the tensor-core body took (bf16 at d 64 and 128)
     by_key["B6"]["tc_launches"] = counts["B6tc"]
     by_key["B6t"]["tc_launches"] = train_counts["B6t_tc"]
+    by_key["B11a"]["tc_launches"] = train_counts["B11a_tc"]
+    by_key["B11b"]["tc_launches"] = train_counts["B11b_tc"]
     for key, entry in by_key.items():
         if key == "B13":
             continue

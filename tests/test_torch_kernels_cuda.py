@@ -488,6 +488,10 @@ def test_flash_attention_kernel_rejects_bad_inputs(dev):
                         q[..., :48].contiguous())
     with pytest.raises(ValueError, match="kv_lens"):
         flash_attention(q, q, q, kv_lens=torch.zeros(1, dtype=torch.int64, device=dev))
+    qb = q.bfloat16()
+    off = torch.zeros(qb.numel() + 1, dtype=torch.bfloat16, device=dev)[1:].view(qb.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention(qb, off, qb)
 
 
 # ── B6t, B11a, B11b (the training path) ─────────────────────────────────
@@ -495,7 +499,9 @@ def test_flash_attention_kernel_rejects_bad_inputs(dev):
 
 #: the phase-2 shapes of chip_smoke.py (the T3 fine-tune's [8, 16, 128, 64]
 #: and [8, 16, 512, 64], GQA at d 128, a ragged non-causal case) and edges:
-#: f32, d 16 with GQA 4:1, s off every tile, s_q != s_k
+#: f32, d 16 with GQA 4:1, s off every tile, s_q != s_k; at d 64 (B11's
+#: tensor-core body in bf16) s_q != s_k causal, s off every 64-row tile
+#: non-causal, GQA 4:1
 TRAIN_CASES = [
     (8, 16, 16, 128, 128, 64, True),
     (8, 16, 16, 512, 512, 64, True),
@@ -504,6 +510,9 @@ TRAIN_CASES = [
     (2, 4, 1, 100, 100, 16, True),
     (3, 4, 2, 77, 77, 32, False),
     (1, 2, 2, 70, 130, 8, True),
+    (1, 2, 2, 70, 130, 64, True),
+    (3, 4, 2, 77, 77, 64, False),
+    (2, 8, 2, 150, 150, 64, True),
 ]
 
 
@@ -528,13 +537,16 @@ def _within(got, ref, frac):
 @pytest.mark.parametrize("b,h,hk,s_q,s_k,d,causal", TRAIN_CASES)
 def test_flash_train_kernels(dev, dtype, b, h, hk, s_q, s_k, d, causal):
     """B6t (out and lse), B11b (dq and di) and B11a (dk and dv) each against
-    its plain version on the same inputs; lse within 1e-5 + 1e-5·|ref|."""
+    its plain version on the same inputs; lse within 1e-5 + 1e-5·|ref|. B11b
+    and B11a count one tensor-core launch each exactly where
+    ``flash_bwd_body`` says "tc", never for f32 or d <= 32."""
     from vocalie_tts_tpu_torch.ops.flash_attention import attention_plain_lse, flash_attention_lse
     from vocalie_tts_tpu_torch.ops import flash_attention_bwd as fb
 
     q, k, v, do = _train_inputs(dev, dtype, b, h, hk, s_q, s_k, d)
     before = (flash_attention_lse.launches, fb.flash_attention_bwd_dq.launches,
               fb.flash_attention_bwd_dkv.launches)
+    tc_before = (fb.flash_attention_bwd_dq.tc_launches, fb.flash_attention_bwd_dkv.tc_launches)
     out, lse = flash_attention_lse(q, k, v, causal=causal)
     ref_out, ref_lse = attention_plain_lse(q, k, v, causal=causal)
     sm = 1.0 / math.sqrt(d)
@@ -547,6 +559,11 @@ def test_flash_train_kernels(dev, dtype, b, h, hk, s_q, s_k, d, causal):
     torch.cuda.synchronize()
     assert (flash_attention_lse.launches, fb.flash_attention_bwd_dq.launches,
             fb.flash_attention_bwd_dkv.launches) == tuple(n + 1 for n in before)
+    tc = int(fb.flash_bwd_body(dtype, d) == "tc")
+    if dtype == torch.float32 or d <= 32:
+        assert not tc
+    assert (fb.flash_attention_bwd_dq.tc_launches,
+            fb.flash_attention_bwd_dkv.tc_launches) == tuple(n + tc for n in tc_before)
     rows_with_keys = torch.isfinite(ref_lse)
     assert torch.equal(torch.isfinite(lse), rows_with_keys)
     assert torch.all((lse - ref_lse).abs()[rows_with_keys]
@@ -646,6 +663,15 @@ def test_flash_train_kernels_reject_bad_inputs(dev):
                                    lse, **kw)
     with pytest.raises(ValueError, match="di"):
         fb.flash_attention_bwd_dkv(q, q, q, q, lse, lse[:, :1].contiguous(), **kw)
+    # the tensor-core body loads 16-byte chunks: a contiguous bf16 view that
+    # starts one element into its storage is refused
+    qb = q.bfloat16()
+    off = torch.zeros(qb.numel() + 1, dtype=torch.bfloat16, device=dev)[1:].view(qb.shape)
+    assert off.is_contiguous() and off.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte"):
+        fb.flash_attention_bwd_dq(qb, qb, qb, qb, lse, off, **kw)
+    with pytest.raises(ValueError, match="16-byte"):
+        fb.flash_attention_bwd_dkv(off, qb, qb, qb, lse, lse, **kw)
 
 
 # ── B2, B3, B4 ──────────────────────────────────────────────────────────

@@ -33,7 +33,8 @@
 // makes the same choice):
 //
 // (1) bf16 at d 64 and 128 -- every full-width path -- flash_fwd_tc_kernel,
-// both products on the Hopper tensor cores (wgmma.mma_async, sm_90a):
+// both products on the Hopper tensor cores (wgmma.mma_async, sm_90a; the
+// building blocks are wgmma.cuh's, which B11's tensor-core bodies share):
 //   * one block = one warpgroup (128 threads) owns 64 query rows of one
 //     (batch, head); thread t holds rows 16*warp + lane/4 and that + 8, as
 //     the wgmma accumulator lays them out. 64-row tiles give the Qwen3
@@ -83,115 +84,14 @@
 
 #include <type_traits>
 
+#include "wgmma.cuh"
+
 // ── (1) the tensor-core body: bf16, d 64 and 128 ──────────────────────────
 
 namespace tc {
 
 constexpr int BM = 64;                 // query rows of a block: one warpgroup's wgmma M
 constexpr int BN = 64;                 // keys of a tile
-constexpr int THREADS = 128;           // one warpgroup
-constexpr int PANEL = 64 * 128;        // bytes of 64 rows x 64 bf16 columns (128-byte rows)
-constexpr float LOG2E = 1.4426950408889634f;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// 16 bytes global -> shared, asynchronous; zero-filled (nothing read) when !ok
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dst), "l"(src), "r"(ok ? 16 : 0) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-// A [64 rows, D] bf16 tile (row stride D) -> D/64 panels of [64][64] at dst,
-// each 64-column row 128 bytes with the 128-byte swizzle (16-byte chunk c of
-// row r at chunk c ^ (r % 8)), the layout wgmma's descriptors read below.
-// Rows at or past ``rows`` are zero-filled.
-template <int D>
-__device__ __forceinline__ void load_tile(uint32_t dst, const __nv_bfloat16* src, int rows,
-                                          int tid) {
-  constexpr int ROW_CHUNKS = D / 8;
-#pragma unroll
-  for (int i = 0; i < 64 * ROW_CHUNKS / THREADS; ++i) {
-    const int c = i * THREADS + tid;
-    const int r = c / ROW_CHUNKS, col = c % ROW_CHUNKS;
-    const int panel = col >> 3, ch = col & 7;
-    const bool ok = r < rows;
-    cp_async16(dst + panel * PANEL + r * 128 + ((ch ^ (r & 7)) << 4),
-               src + (long long)(ok ? r : 0) * D + col * 8, ok);
-  }
-}
-
-// wgmma shared-memory descriptor of a 128-byte-swizzled panel: start address
-// >> 4, 8-row groups 1024 bytes apart (the stride field; the leading field is
-// given the same value: no operand here spans two 64-column atoms of the
-// swizzle, where it would be read), layout 1 = 128-byte swizzle.
-__device__ __forceinline__ uint64_t desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(1024 >> 4) << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wg_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// keep the compiler from moving accumulator reads and writes across the
-// asynchronous wgmma
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
-}
-
-// d[64 x 64] (+)= A[64 x 16] . B[16 x 64], A and B K-major in shared memory
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(acc));
-}
-
-// d[64 x 64] += A[64 x 16] . B[16 x 64], A (bf16 pairs) in registers, B
-// MN-major in shared memory (trans-b = 1)
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&t);
-}
 
 template <int D>
 constexpr int smem_bytes() { return (1 + 2 * 2) * (D / 64) * PANEL + 1024; }
@@ -250,7 +150,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_tc_kernel(
 
   for (int j = 0; j < n_tiles; ++j) {
     cp_async_wait<1>();
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");   // cp.async -> wgmma
+    fence_async_smem();
     __syncthreads();
     const uint32_t k_s = base + TILE * (1 + 2 * (j & 1));
     const uint32_t v_s = k_s + TILE;
@@ -259,10 +159,8 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_tc_kernel(
     float s[32];
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t off = (kk >> 2) * PANEL + (kk & 3) * 32;   // 16 columns of d
-      wgmma_ss(s, desc(q_s + off), desc(k_s + off), kk > 0);
-    }
+    for (int kk = 0; kk < D / 16; ++kk)   // 16 columns of d
+      wgmma_ss(s, desc(q_s + k_major(kk)), desc(k_s + k_major(kk)), kk > 0);
     wg_commit();
     wg_wait_all();
     fence_regs(s);
@@ -293,20 +191,17 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_tc_kernel(
       m[r] = m_new;
     }
     // p = exp(s - m) in f32 for the row sums; bf16 pairs for P.V, laid out
-    // as wgmma's A fragment: k-slice c / 2, registers 2 (c & 1) + row half
-    uint32_t pa[4][4];
+    // as wgmma's A fragment
     float ps[2] = {0.0f, 0.0f};
 #pragma unroll
     for (int c = 0; c < 8; ++c) {
-      const float p0 = exp2f(fmaf(s[4 * c + 0], LOG2E, -mb[0]));
-      const float p1 = exp2f(fmaf(s[4 * c + 1], LOG2E, -mb[0]));
-      const float p2 = exp2f(fmaf(s[4 * c + 2], LOG2E, -mb[1]));
-      const float p3 = exp2f(fmaf(s[4 * c + 3], LOG2E, -mb[1]));
-      ps[0] += p0 + p1;
-      ps[1] += p2 + p3;
-      pa[c >> 1][(c & 1) * 2 + 0] = pack_bf16(p0, p1);
-      pa[c >> 1][(c & 1) * 2 + 1] = pack_bf16(p2, p3);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[4 * c + e] = exp2f(fmaf(s[4 * c + e], LOG2E, -mb[e >> 1]));
+      ps[0] += s[4 * c + 0] + s[4 * c + 1];
+      ps[1] += s[4 * c + 2] + s[4 * c + 3];
     }
+    uint32_t pa[4][4];
+    acc_to_a(s, pa);
 #pragma unroll
     for (int r = 0; r < 2; ++r) l[r] = alpha[r] * l[r] + ps[r];
 #pragma unroll
@@ -320,7 +215,7 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_tc_kernel(
     for (int p = 0; p < NP; ++p)
 #pragma unroll
       for (int kk = 0; kk < BN / 16; ++kk)   // 16 keys: two 8-row groups of the V panel
-        wgmma_rs(o[p], pa[kk], desc(v_s + p * PANEL + kk * 2048));
+        wgmma_rs(o[p], pa[kk], desc(v_s + mn_major(p, kk)));
     wg_commit();
     wg_wait_all();
 #pragma unroll

@@ -130,6 +130,9 @@ def _launch(q, k, v, causal, sm_scale, kv_lens, lse):
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device != q.device or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous tensor on {q.device}")
+    if flash_body(q.dtype, d) == "tc" and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("the tensor-core body loads q, k and v in 16-byte chunks: their data "
+                         "must start on a 16-byte boundary")
     lens_ptr = 0
     if kv_lens is not None:
         if kv_lens.dtype != torch.int32 or tuple(kv_lens.shape) != (b,) \

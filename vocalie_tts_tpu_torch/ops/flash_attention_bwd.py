@@ -18,7 +18,23 @@ rounds each q head's and sums the group in the input dtype).
 
 On CUDA tensors :func:`flash_attention_bwd` launches B11b, which also
 writes ``di`` (JAX computes it outside its kernels), then B11a, from
-``csrc/flash_attention_bwd.cu``; on CPU tensors it runs the plain versions.
+``csrc/flash_attention_bwd.cu`` (replacing the JAX module's ``_dq_kernel``
+and ``_dkv_kernel``); on CPU tensors it runs the plain versions. The two
+kernels keep JAX's iteration orders: no atomics, every sum in one fixed
+order.
+
+Each kernel has two bodies, chosen by :func:`flash_bwd_body` from the
+dtype and the head dim. bf16 at d 64 (the trainer's) and 128 runs on the
+tensor cores (``"tc"``: wgmma with f32 accumulators, bf16 tiles loaded by
+cp.async); there dQ takes ds rounded to bf16 as JAX does, and dV and dK
+take p and ds each as two bf16 parts, ``hi = bf16(x)`` and ``lo = bf16(x −
+hi)``, which keep 16 significand bits where one bf16 rounding would move
+them several times further from JAX's f32 rule
+(``tests/test_torch_flash_attention_bwd.py`` emulates both). Every other
+call runs on the CUDA cores in f32 (``"simt"``). The work is bound by
+bytes (~51 MB a kernel at ``[8, 16, 512, 64]``); off the tensor cores the
+products set the time. Each wrapper counts its launches (``launches``)
+and, of those, the tensor-core body's (``tc_launches``).
 """
 
 from __future__ import annotations
@@ -33,8 +49,17 @@ from vocalie_tts_tpu_torch.ops.flash_attention import _DTYPES, _valid_keys
 #: the additive mask of the TPU kernel (-0.7 * f32 max), before exp(s - lse)
 _MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 _ARGTYPES = [_build.P] * 8 + [_build.I] * 7 + [_build.F, _build.I, _build.P]
+#: the head dims the tensor-core bodies take (bf16 only)
+TC_HEAD_DIMS = (64, 128)
 
 Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def flash_bwd_body(dtype: torch.dtype, d: int) -> str:
+    """The body B11a and B11b take: ``"tc"`` (tensor cores) for bf16 at the
+    head dims of :data:`TC_HEAD_DIMS`, else ``"simt"`` (f32 on the CUDA
+    cores); the choice ``csrc/flash_attention_bwd.cu``'s dispatch makes."""
+    return "tc" if dtype == torch.bfloat16 and d in TC_HEAD_DIMS else "simt"
 
 
 def _p_ds(q, k, v, lse, do, di, causal, sm_scale):
@@ -103,6 +128,9 @@ def _check(q, k, v, rows, lse):
         raise ValueError(f"o and dO must have q's shape {tuple(q.shape)}")
     if lse.dtype != torch.float32 or tuple(lse.shape) != (b, h, s_q):
         raise ValueError(f"lse must be float32 [{b}, {h}, {s_q}]")
+    if flash_bwd_body(q.dtype, d) == "tc" and any(t.data_ptr() % 16 for t in (q, k, v, *rows)):
+        raise ValueError("the tensor-core body loads q, k, v, o and dO in 16-byte chunks: "
+                         "their data must start on a 16-byte boundary")
 
 
 def _dims(q, k):
@@ -124,6 +152,8 @@ def flash_attention_bwd_dq(q, k, v, o, lse, do, *, causal: bool, sm_scale: float
             float(sm_scale), _DTYPES[q.dtype], _build.stream_ptr(q))
     _build.check(rc, "vt_flash_attention_bwd_dq")
     flash_attention_bwd_dq.launches += 1
+    if flash_bwd_body(q.dtype, q.shape[-1]) == "tc":
+        flash_attention_bwd_dq.tc_launches += 1
     return dq, di
 
 
@@ -144,12 +174,17 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, di, *, causal: bool, sm_scale: flo
             float(sm_scale), _DTYPES[q.dtype], _build.stream_ptr(q))
     _build.check(rc, "vt_flash_attention_bwd_dkv")
     flash_attention_bwd_dkv.launches += 1
+    if flash_bwd_body(q.dtype, q.shape[-1]) == "tc":
+        flash_attention_bwd_dkv.tc_launches += 1
     return dk, dv
 
 
-#: launches of each CUDA kernel (the plain versions are not counted)
+#: launches of each CUDA kernel (the plain versions are not counted), and of
+#: those the tensor-core body's
 flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dq.tc_launches = 0
 flash_attention_bwd_dkv.launches = 0
+flash_attention_bwd_dkv.tc_launches = 0
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool, sm_scale: float) -> Grads:
@@ -162,4 +197,4 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool, sm_scale: float) -
 
 __all__ = ["flash_attention_bwd", "flash_attention_bwd_plain", "flash_attention_bwd_dq",
            "flash_attention_bwd_dkv", "flash_attention_bwd_dq_plain",
-           "flash_attention_bwd_dkv_plain"]
+           "flash_attention_bwd_dkv_plain", "flash_bwd_body"]
