@@ -17,10 +17,12 @@ Phases (any failure exits non-zero before the final line is printed):
    (``VOCALIE_MEGALAYER=1``; at the T3 and the Qwen3 layer, beside the B1 +
    B2 pair on the same inputs), and the kernels of the JAX package's no-env
    configurations: K1, the f32 decode attention over a bf16 cache
-   (``VOCALIE_DECODE_KERNEL=1``; at the T3 and Qwen3 decode shapes), K2, its
-   int8-cache dequantizing branch, and B10, the single-layer decode
-   attention (both on no served path; B10 on one T3 layer, bf16 and int8),
-   against SDPA where one call computes the same attention, and K4, the
+   (``VOCALIE_DECODE_KERNEL=1``; at the T3 and Qwen3 decode shapes and the
+   Qwen3 batch-1 decode), K2, its int8-cache dequantizing branch, and B10,
+   the single-layer decode attention (both on no served path; B10 on one
+   T3 layer, bf16 and int8), against SDPA where one call computes the same
+   attention, each timed eager and as a CUDA graph of its 300 calls
+   replayed under CUDA events (``graph_ms``: the host taken out), and K4, the
    cache append without scales (at the T3 bf16 cache, against the slice
    assignment), and the training path's B6t (B6 writing the logsumexp),
    B11b (the flash backward's dQ, with di) and B11a (its dK/dV) at the T3
@@ -245,6 +247,34 @@ def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int = 300, replays: int = 3) -> float:
+    """Mean device time of ``fn(i)`` for ``i < iters``, the calls captured
+    once in a CUDA graph and replayed ``replays`` times under CUDA events:
+    the host's issue rate taken out of a kernel of a few microseconds."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):   # warm-up off the capture, as PyTorch asks
+        for i in range(3):
+            fn(i)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fn(i)
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (iters * replays)
+    del graph
+    return ms
+
+
 def bound_ms(n_bytes: float, n_ops: float, peak_ops: float):
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_ops = n_ops / peak_ops * 1e3
@@ -260,6 +290,9 @@ def bound_ms(n_bytes: float, n_ops: float, peak_ops: float):
 #: heads; 28 layers; cache 512 = 256 + 192 buckets, rounded), mid-decode
 T3_ATTN = dict(L=30, b=16, kv=16, g=1, d=64, T=640, prompt_pad=256, n_dec=160, seed=1)
 QWEN3_ATTN = dict(L=28, b=8, kv=8, g=2, d=128, T=512, prompt_pad=256, n_dec=96, seed=11)
+#: the Qwen3 batch-1 chunk's decode (``VOCALIE_DECODE_KERNEL=1`` serves it
+#: through K1): 8 (row, kv head) pairs
+QWEN3_B1_ATTN = {**QWEN3_ATTN, "b": 1}
 
 
 def _b1_case(dev, failures, *, L, b, kv, g, d, T, prompt_pad, n_dec, seed, label):
@@ -403,11 +436,12 @@ def _f32_attn_inputs(dev, attn, cache):
                                  kn=kn, vn=vn, bias=bias, valid=valid_len, sm=d ** -0.5)
 
 
-def _sdpa_ms(t, layers, with_new: bool) -> float:
+def _sdpa_ms(t, layers, with_new: bool) -> tuple:
     """``F.scaled_dot_product_attention`` over the bf16 cache's valid slots
     with the current token's k/v appended (``with_new``) or over every slot,
     the bias as its mask: the one PyTorch call for the same attention
-    (prepared per layer outside the timed call; its own bf16 kernel)."""
+    (prepared per layer outside the timed call; its own bf16 kernel).
+    Returns its eager and its graph-timed ms."""
     import torch.nn.functional as F
 
     n = t.valid if with_new else t.T
@@ -422,9 +456,10 @@ def _sdpa_ms(t, layers, with_new: bool) -> float:
             v = torch.cat([v, t.vn[:, :, None].to(bf)], 2)
             mask = torch.cat([mask, torch.zeros_like(mask[:, :1])], 1)
         prepared.append((k, v, mask[:, None, None].to(bf)))
-    return cuda_ms(lambda i: F.scaled_dot_product_attention(
+    call = lambda i: F.scaled_dot_product_attention(  # noqa: E731
         q, prepared[i % len(prepared)][0], prepared[i % len(prepared)][1],
-        attn_mask=prepared[i % len(prepared)][2], enable_gqa=t.g > 1), 300)
+        attn_mask=prepared[i % len(prepared)][2], enable_gqa=t.g > 1)
+    return cuda_ms(call, 300), graph_ms(call)
 
 
 def _attn_bytes(t, n, elem, scales: bool, with_new: bool) -> int:
@@ -451,22 +486,52 @@ def _k1_k2_case(dev, failures, attn, cache, label):
     torch.cuda.synchronize()
     err = (out - ref).abs().max().item()
     ms = cuda_ms(lambda i: call(i % t.L), 300)
+    g_ms = graph_ms(lambda i: call(i % t.L))
     plain_ms = cuda_ms(lambda i: plain(t.q, t.k, t.v, t.bias, i % t.L, *scales, t.kn, t.vn,
                                        t.valid, sm_scale=t.sm), 20)
-    lib_ms = None if quant else _sdpa_ms(t, range(8), with_new=True)
+    lib_ms, lib_graph_ms = (None, None) if quant else _sdpa_ms(t, range(8), with_new=True)
     n_bytes = _attn_bytes(t, t.valid, 1 if quant else 2, quant, True)
     n_ops = 2 * 2 * t.valid * t.b * t.kv * t.g * t.d
     bms, by = bound_ms(n_bytes, n_ops, PEAK_INT8_OPS if quant else PEAK_BF16_FLOPS)
     shape = (f"{label}: q[{t.b},{t.kv},{t.g},{t.d}] cache[{t.L},{t.b},{t.kv},{t.T},{t.d}] "
              f"{str(cache).removeprefix('torch.')} valid_len={t.valid}")
-    log(f"{K2_NAME if quant else K1_NAME} [{label}]: max_abs_err={err:.3e} (tolerance "
-        f"{F32_ATTN_TOL}); kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
-        + ("" if quant else f"SDPA over the valid slots + the current token {lib_ms:.6f} ms, ")
-        + f"bound {bms:.6f} ms ({by}); {shape}")
+    return _f32_row(failures, K2_NAME if quant else K1_NAME, label, err, ms, g_ms, plain_ms,
+                    lib_ms, lib_graph_ms, "SDPA over the valid slots + the current token",
+                    n_bytes, bms, by, _splits(t, "dequant" if quant else "plain", t.valid),
+                    shape)
+
+
+def _splits(t, mode, n_slots):
+    """The blocks per (row, kv head) the kernel's split takes, and how many
+    clusters of that size the card keeps resident (None for a tree without
+    the split)."""
+    from vocalie_tts_tpu_torch.ops import decode_attention as da
+
+    if not hasattr(da, "f32_splits"):
+        return None
+    s = da.f32_splits(t.k, t.ks, mode, t.b, t.kv, t.g, n_slots)
+    resident = da.resident_clusters(*da.f32_codes(t.k, t.ks, mode, t.g), s) if s > 1 else None
+    return {"splits": s, "resident_clusters": resident, "clusters": t.b * t.kv}
+
+
+def _f32_row(failures, name, label, err, ms, g_ms, plain_ms, lib_ms, lib_graph_ms, lib_what,
+             n_bytes, bms, by, splits, shape) -> dict:
+    """Log one K1/K2/B10 row, gate its error, and return its dict: eager
+    and graph-timed ms, GB/s on the graph time against 3.35 TB/s, SDPA's
+    eager and graph ms where it computes the same attention."""
+    gbs = n_bytes / (g_ms * 1e-3) / 1e9
+    log(f"{name} [{label}]: max_abs_err={err:.3e} (tolerance {F32_ATTN_TOL}); kernel {ms:.6f} "
+        f"ms eager, {g_ms:.6f} ms graph ({gbs:.1f} GB/s, {gbs / PEAK_BYTES_PER_S * 1e9:.1%} of "
+        f"3.35 TB/s), plain {plain_ms:.6f} ms, "
+        + ("" if lib_ms is None else f"{lib_what} {lib_ms:.6f} ms eager, {lib_graph_ms:.6f} ms "
+                                     f"graph (kernel / SDPA graph {g_ms / lib_graph_ms:.3f}), ")
+        + f"bound {bms:.6f} ms ({by}); splits {splits}; {shape}")
     if not err <= F32_ATTN_TOL:
-        failures.append(f"{'K2' if quant else 'K1'} [{label}] max_abs_err {err} > {F32_ATTN_TOL}")
-    return {"max_abs_err": err, "tolerance": F32_ATTN_TOL, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bms, "bound_by": by, "library_ms": lib_ms, "shape": shape}
+        failures.append(f"{name.split()[0]} [{label}] max_abs_err {err} > {F32_ATTN_TOL}")
+    return {"max_abs_err": err, "tolerance": F32_ATTN_TOL, "ms": ms, "graph_ms": g_ms,
+            "gb_per_s_graph": gbs, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": lib_ms, "library_graph_ms": lib_graph_ms, "splits": splits,
+            "shape": shape}
 
 
 def _b10_case(dev, failures, cache, label):
@@ -485,22 +550,18 @@ def _b10_case(dev, failures, cache, label):
     torch.cuda.synchronize()
     err = (out - ref).abs().max().item()
     ms = cuda_ms(lambda i: call(i % t.L), 300)
+    g_ms = graph_ms(lambda i: call(i % t.L))
     plain_ms = cuda_ms(lambda i: da.decode_attention_plain_b10(
         t.q, t.k[i % t.L], t.v[i % t.L], t.bias, *scales(i % t.L), sm_scale=t.sm), 20)
-    lib_ms = None if quant else _sdpa_ms(t, range(t.L), with_new=False)
+    lib_ms, lib_graph_ms = (None, None) if quant else _sdpa_ms(t, range(t.L), with_new=False)
     n_bytes = _attn_bytes(t, t.T, 1 if quant else 2, quant, False)
     bms, by = bound_ms(n_bytes, 2 * 2 * t.T * t.b * t.kv * t.g * t.d,
                        PEAK_INT8_OPS if quant else PEAK_BF16_FLOPS)
     shape = (f"{label}: q[{t.b},{t.kv},{t.g},{t.d}] one layer [{t.b},{t.kv},{t.T},{t.d}] "
              f"{str(cache).removeprefix('torch.')}, every slot")
-    log(f"{B10_NAME} [{label}]: max_abs_err={err:.3e} (tolerance {F32_ATTN_TOL}); kernel "
-        f"{ms:.6f} ms, plain {plain_ms:.6f} ms, "
-        + ("" if quant else f"SDPA over the layer {lib_ms:.6f} ms, ")
-        + f"bound {bms:.6f} ms ({by}); {shape}")
-    if not err <= F32_ATTN_TOL:
-        failures.append(f"B10 [{label}] max_abs_err {err} > {F32_ATTN_TOL}")
-    return {"max_abs_err": err, "tolerance": F32_ATTN_TOL, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bms, "bound_by": by, "library_ms": lib_ms, "shape": shape}
+    return _f32_row(failures, B10_NAME, label, err, ms, g_ms, plain_ms, lib_ms, lib_graph_ms,
+                    "SDPA over the layer", n_bytes, bms, by,
+                    _splits(t, "b10" if quant else "plain", t.T), shape)
 
 
 def _entry(name, source, replaces, main, **extra):
@@ -510,17 +571,19 @@ def _entry(name, source, replaces, main, **extra):
 
 
 def check_f32_attention(dev, failures):
-    """K1 at the T3 and Qwen3 decode shapes (bf16 caches), K2 at the T3 int8
-    shape, B10 on one T3 layer, bf16 and int8 → their ``kernels`` entries."""
+    """K1 at the T3 and Qwen3 decode shapes and the Qwen3 batch-1 decode
+    (bf16 caches), K2 at the T3 int8 shape, B10 on one T3 layer, bf16 and
+    int8 → their ``kernels`` entries; each timed eager and as a CUDA graph."""
     src = "vocalie_tts_tpu_torch/csrc/decode_attention.cu"
     k1 = _k1_k2_case(dev, failures, T3_ATTN, torch.bfloat16, "voice-over")
     k1_q3 = _k1_k2_case(dev, failures, QWEN3_ATTN, torch.bfloat16, "qwen3")
+    k1_q3b1 = _k1_k2_case(dev, failures, QWEN3_B1_ATTN, torch.bfloat16, "qwen3 batch 1")
     k2 = _k1_k2_case(dev, failures, T3_ATTN, torch.int8, "voice-over")
     b10 = _b10_case(dev, failures, torch.bfloat16, "T3 layer, bf16")
     b10_i8 = _b10_case(dev, failures, torch.int8, "T3 layer, int8")
     return [
         _entry(K1_NAME, src, "vocalie_tts_tpu/ops/decode_attention.py:554", k1,
-               qwen3_shape=k1_q3,
+               qwen3_shape=k1_q3, qwen3_batch1_shape=k1_q3b1,
                library_call="F.scaled_dot_product_attention (bf16) over the valid slots and the "
                             "current token"),
         _entry(K2_NAME, src, "vocalie_tts_tpu/ops/decode_attention.py:530", k2,
@@ -4371,5 +4434,118 @@ def main() -> int:
     return 0
 
 
+def sweep_f32_splits(dev) -> dict:
+    """Each K1 and B10 row of phase 2 graph-timed at every split count the
+    kernel takes (1-16 blocks a pair, at least 16 slots a block), beside the
+    clusters of that size the card keeps resident: the measurement
+    ``attend_splits``' one-wave rule rests on."""
+    from vocalie_tts_tpu_torch.ops import decode_attention as da
+
+    rows = [("K1 voice-over", T3_ATTN, torch.bfloat16, "plain"),
+            ("K1 qwen3", QWEN3_ATTN, torch.bfloat16, "plain"),
+            ("K1 qwen3 batch 1", QWEN3_B1_ATTN, torch.bfloat16, "plain"),
+            ("B10 T3 layer, bf16", {**T3_ATTN, "L": 8}, torch.bfloat16, "plain"),
+            ("B10 T3 layer, int8", {**T3_ATTN, "L": 8}, torch.int8, "b10")]
+    rule = da.f32_splits
+    out = {}
+    try:
+        for label, attn, cache, mode in rows:
+            t = _f32_attn_inputs(dev, attn, cache)
+            if label.startswith("K1"):
+                n = t.valid
+                call = lambda i, t=t: da.decode_attention_float_stacked(  # noqa: E731
+                    t.q, t.k, t.v, t.bias, i % t.L, t.kn, t.vn, valid_len=t.valid, sm_scale=t.sm)
+            else:
+                n = t.T
+                call = lambda i, t=t, q8=cache == torch.int8: da.decode_attention(  # noqa: E731
+                    t.q, t.k[i % t.L], t.v[i % t.L], t.bias, *((t.ks[i % t.L], t.vs[i % t.L])
+                                                                if q8 else (None, None)),
+                    sm_scale=t.sm)
+            codes = da.f32_codes(t.k, t.ks, mode, t.g)
+            chosen = rule(t.k, t.ks, mode, t.b, t.kv, t.g, n)
+            res = {}
+            for s in (1, 2, 4, 8, 16):
+                if s > 1 and s * da.SPLIT_MIN_SLOTS > n:
+                    break
+                da.f32_splits = lambda *a, s=s: s
+                res[s] = {"graph_ms": graph_ms(call),
+                          "resident_clusters": da.resident_clusters(*codes, s)}
+            da.f32_splits = rule
+            log(f"split sweep [{label}]: {t.b * t.kv} clusters, attend_splits {chosen}; "
+                + "; ".join(f"{s}: {r['graph_ms']:.6f} ms ({r['resident_clusters']} resident)"
+                            for s, r in res.items()))
+            out[label] = {"chosen": chosen, "by_splits": res}
+    finally:
+        da.f32_splits = rule
+    return out
+
+
+def time_qwen3_decode_kernel(dev, reps: int = 6) -> list:
+    """The Qwen3 batch-1 chunk's decode with ``VOCALIE_DECODE_KERNEL=1``
+    (28 x K1 + K4 a step on a bf16-weight runtime, seed 11), timed as phase
+    4 times it (192 sampled steps less the prefill, ms/step), ``reps`` times
+    in one process after a warm-up. Copied into an unpacked parent commit
+    and run there, it times that commit on the same request, so that two
+    versions are compared within one call."""
+    from vocalie_tts_tpu_torch.engines.qwen3 import Qwen3Engine
+    from vocalie_tts_tpu_torch.text import render_clean_text_from_segments
+
+    set_env(DECODE_KERNEL_ENV)
+    os.environ["VOCALIE_MODEL_SCALE"] = "full"
+    os.environ["VOCALIE_ALLOW_RANDOM_WEIGHTS"] = "1"
+    steps = _qwen3_wrappers()["steps"]
+    out = []
+    with tempfile.TemporaryDirectory() as tmp:
+        rt = Qwen3Engine(device=dev, assets=os.path.join(tmp, "assets")).runtime()
+        texts = [render_clean_text_from_segments(ch.segments)
+                 for ch in _request(QWEN3_LONG, os.path.join(tmp, "q.wav"))["chunks"]]
+        spk = rt.speaker_embedding("custom_voice", "Vivian", None)
+        _qwen3_decode(rt, texts, 192, spk)
+        for _ in range(reps):
+            t1 = time.monotonic()
+            _qwen3_decode(rt, texts, 0, spk)
+            t2 = time.monotonic()
+            n0 = steps.launches
+            _qwen3_decode(rt, texts, 192, spk)
+            t3 = time.monotonic()
+            out.append(((t3 - t2) - (t2 - t1)) / max(steps.launches - n0, 1) * 1e3)
+    log("qwen3 one chunk at batch 1, VOCALIE_DECODE_KERNEL=1, decode alone: "
+        + ", ".join(f"{ms:.3f}" for ms in out) + " ms/step")
+    return out
+
+
+def _f32_attention_only() -> int:
+    """``--f32-attention [--sweep]``: build the kernels and run phase 2's
+    K1, K2 and B10 rows alone (with ``--sweep``, also every split count:
+    ``sweep_f32_splits``), then print them as one JSON line. Copied into an
+    unpacked copy of another commit and run there (without ``--sweep``), it
+    times that commit's kernels on the same rows."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    from vocalie_tts_tpu_torch.ops import _build
+
+    log(f"kernels built -> {_build.build().name}")
+    failures: list = []
+    entries = check_f32_attention(torch.device("cuda:0"), failures)
+    sweep = sweep_f32_splits(torch.device("cuda:0")) if "--sweep" in sys.argv else None
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    print(smi.stdout.strip(), flush=True)
+    print(json.dumps({"kernels": entries, "sweep": sweep, "failures": failures}), flush=True)
+    return 1 if failures else 0
+
+
+def _qwen3_decode_kernel_only() -> int:
+    """``--qwen3-decode-kernel``: ``time_qwen3_decode_kernel`` alone."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    time_qwen3_decode_kernel(torch.device("cuda:0"))
+    return 0
+
+
 if __name__ == "__main__":
-    sys.exit(_count_kernels_child() if sys.argv[1:] == ["--count-kernels"] else main())
+    modes = {"--count-kernels": _count_kernels_child, "--f32-attention": _f32_attention_only,
+             "--qwen3-decode-kernel": _qwen3_decode_kernel_only}
+    sys.exit(modes[sys.argv[1]]() if sys.argv[1:2] and sys.argv[1] in modes else main())

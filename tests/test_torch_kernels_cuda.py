@@ -20,7 +20,11 @@ tail and a fully masked cache, q/k/v biases off, in f32 and in bf16, 1 and
 and Qwen3 layers, GQA up to g 8, d_head 32 to 128, batch 1 to 16, a row
 with every cached slot masked, the last layer, valid_len on a block
 boundary and equal to T, bf16 norms, d_ff in one and several tiles, a grid
-past residency and b > 16 (refused); for B13 (fused GroupNorm) C/G of 2, 3, 4, 8, 12 and 32, C not a
+past residency and b > 16 (refused); for K1, K2 and B10 (the f32 decode
+attention, split over a thread-block cluster) f32, bf16 and int8 caches, g
+up to 8, d 16 to 128, a fully masked row, the Qwen3 batch-1 decode (16
+blocks a pair), a last block of 2 slots and a cache short enough for one
+block; for B13 (fused GroupNorm) C/G of 2, 3, 4, 8, 12 and 32, C not a
 multiple of 8, the VAE's large spatial size at eps 1e-6, batch 1, with and
 without the FiLM row and SiLU; and the int8 products of the UNet's convs
 (``torch._int_mm``, exact against the CPU).
@@ -298,6 +302,9 @@ def _f32_attn_inputs(dev, L, b, kv, g, T, d, prompt_pad, n_dec, cache, seed, mas
     (1, 1, 4, 1, 640, 64, 300, 83, 0, True, False),        # batch 1
     (1, 2, 2, 4, 256, 32, 200, 56, 0, True, False),        # valid_len == T
     (2, 2, 2, 2, 300, 64, 150, 20, 1, False, True),        # no current token: every slot
+    (1, 1, 8, 2, 512, 128, 256, 96, 0, True, False),       # Qwen3 batch 1: 16 blocks a pair
+    (1, 1, 2, 1, 320, 64, 200, 57, 0, True, False),        # 257 slots in 16: the last block 2
+    (1, 2, 2, 1, 128, 64, 10, 10, 0, True, True),          # 20 slots: one block (splits 1)
 ])
 def test_f32_decode_attention_kernels(dev, cache, L, b, kv, g, T, d, prompt_pad, n_dec, layer,
                                       with_new, masked_row):
@@ -331,7 +338,9 @@ def test_f32_decode_attention_kernels(dev, cache, L, b, kv, g, T, d, prompt_pad,
                          ids=["bf16", "f32", "int8-bf16-scales", "int8-f32-scales"])
 @pytest.mark.parametrize("b,kv,g,T,d,masked_row", [(16, 16, 1, 640, 64, False),
                                                    (2, 2, 2, 320, 128, True),
-                                                   (1, 3, 8, 130, 16, False)])
+                                                   (1, 3, 8, 130, 16, False),
+                                                   (1, 8, 2, 512, 128, False),
+                                                   (2, 1, 1, 24, 16, True)])
 def test_b10_decode_attention_kernel(dev, cache, scale, b, kv, g, T, d, masked_row):
     q, k, v, ks, vs, bias, _, _ = _f32_attn_inputs(dev, 1, b, kv, g, T, d, T // 2, T // 4,
                                                    cache, T + g, masked_row)

@@ -461,24 +461,28 @@ extern "C" int vt_decode_attention_int8_whole(
 }
 
 
+
 // ---------------------------------------------------------------------------
-// The f32 kernel: decode attention with every product in f32.
+// The f32 kernel: decode attention with every product in f32, one cache row
+// split over the blocks of a thread-block cluster.
 //
 // Replaces three Pallas kernels of vocalie_tts_tpu/ops/decode_attention.py
 // that share _attend_chunk's math (:150-176):
 //   * K1: decode_attention_stacked's bf16 branch, _kernel_stacked_plain[_new]
-//     (:538, :554), over a bf16 or f32 cache (mode PLAIN);
-//   * K2: its f32-dequant branch, _kernel_stacked_quant[_new] (:512, :530),
-//     over the int8 cache: scores times sm_scale * ks, v times vs before the
-//     PV product (mode DEQUANT);
-//   * B10: decode_attention (:85; _kernel_quant :49, _kernel_plain :67), one
-//     unstacked layer without a current token: scores times sm_scale, then
-//     ks; p times vs after its sum (mode B10; PLAIN without scales).
+//     (:538, :554; pallas_call :844), over a bf16 or f32 cache (mode PLAIN);
+//   * K2: its f32-dequant branch, _kernel_stacked_quant[_new] (:512, :530;
+//     :844), over the int8 cache: scores times sm_scale * ks, v times vs
+//     before the PV product (mode DEQUANT);
+//   * B10: decode_attention (:85; _kernel_quant :49, _kernel_plain :67;
+//     pallas_call :126), one unstacked layer without a current token:
+//     scores times sm_scale, then ks; p times vs after its sum (mode B10;
+//     PLAIN without scales).
 // The math: s = q.k in f32, times the score factor, plus the [b, T] bias;
 // softmax over the slots and, where given, the current token's score
 // s_new = sum(q * k_new) * sm_scale; o = p.v + p_new * v_new; o / max(l, 1e-30).
-// JAX takes the max over all slots first; here it is a running max over
-// 128-slot chunks, rescaled (the same result up to f32 rounding).
+// JAX takes the max over all slots first; here each lane group keeps a
+// running max, and the partial softmaxes are merged with rescaling (the
+// same result up to f32 rounding; every merge maps exp(-inf - -inf) to 0).
 //
 // With the current token merged, the wrapper passes the number of slots to
 // read (the valid length): past it every slot is masked, its probability
@@ -486,56 +490,106 @@ extern "C" int vt_decode_attention_int8_whole(
 // changes nothing. Without one, every slot is read.
 //
 // Bound: bytes. Each (row, kv head) reads its slots' k and v once (2 or 4
-// bytes an element, int8 plus two scales for K2/B10) and the bias row.
+// bytes an element; int8 plus two scales for K2/B10) and the bias row. One
+// query row per q head makes 0.5-2 operations a byte: the tensor cores do
+// not help; moving the bytes at the card's rate is the whole game.
 //
-// Design (first, simple version): one block of 128 threads per
-// (row, kv head). Thread t owns slot t of the current 128-slot chunk and
-// computes its g scores from its k row (16-byte loads); block-wide max/sum
-// reductions run the online softmax; the probabilities go to shared memory
-// and each thread accumulates up to 8 of the g*d outputs, reading the v
-// rows coalesced. No tensor cores, no split over T.
+// Design: split over the slots, merged inside the one launch.
+//   * Each (row, kv head) gets a cluster of `splits` blocks (ops/
+//     decode_attention.py attend_splits: doubled while the pairs have fewer
+//     than 2 blocks per SM, every block keeps at least 16 slots, at most 16
+//     blocks, and all the clusters stay resident at once: a second wave of
+//     clusters cost more than the extra blocks gained, e.g. the Qwen3 cache
+//     at 8 blocks a pair, 64 clusters where the H100 keeps 62). Block r
+//     takes slots [r * chunk, min((r + 1) * chunk, n_slots)), chunk =
+//     ceil(n_slots / splits); a range past n_slots is empty (m = -inf,
+//     l = 0, acc = 0).
+//   * Inside a block (4 warps), a lane holds E consecutive elements of a row
+//     (16 bytes where g allows: E = min(16 / elem, 32 / G), G = g rounded
+//     up to a power of two, so that q and the accumulators take at most 64
+//     registers); a group of LG lanes (d / E rounded up to a power of two)
+//     covers one row, so one warp load covers 32 / LG whole, contiguous
+//     rows. q stays in registers in the lane's own columns; a score is the
+//     group's partial dots reduced by __shfl_xor_sync; each lane adds p.v
+//     over the same columns of V, so the PV product never leaves registers.
+//   * Bytes in flight: a lane loads its k and v slices of ATT_UNROLL rows
+//     (and their bias and scales) before it uses the first, 4 KB a warp.
+//     Register loads were taken over a cp.async ring: ~16 resident warps x
+//     4 KB an SM is several times what the card's bandwidth-latency product
+//     needs, and 8 rows a pass (ATT_UNROLL 8) measured no faster.
+//   * Each lane group runs the online softmax over its rows (one max and
+//     one rescale per ATT_UNROLL rows); at the end of the range the groups
+//     merge by an xor butterfly and the warps in order through shared
+//     memory. After cluster.sync() the blocks share out the outputs: each
+//     reads every rank's (m, l, acc) for its slice from the ranks' shared
+//     memory (distributed shared memory), merges them in rank order,
+//     ATT_MERGE ranks a round trip, merges the current token last, divides
+//     and writes out. A second cluster.sync() keeps every block's shared
+//     memory alive until the others have read it. No atomics, no global
+//     scratch, no second pass: the sum is deterministic.
+//   * Launched by cudaLaunchKernelEx with a cluster dimension attribute
+//     (1-16; past 8 after cudaFuncAttributeNonPortableClusterSizeAllowed).
+// ptxas (sm_90a, CUDA 12.8; chip_smoke.py's build log): 0 spill bytes in
+// all 20 instantiations; bf16 cache G 1 80 registers, G 2 104 (the served
+// K1 shapes), int8 + bf16 scales G 1 107, f32 cache G 1 64; G 8 168.
 
-#define ACC_PER_THREAD (MAX_G * MAX_D / NTHREADS)
+#include <cooperative_groups.h>
+
+namespace cg = cooperative_groups;
+
+#define ATT_THREADS 128
+#define ATT_WARPS (ATT_THREADS / 32)
+#define ATT_UNROLL 4          // rows a lane group loads before it uses the first
+#define ATT_MAX_SPLITS 16     // blocks a cluster (16 is a non-portable size)
+#define ATT_MERGE 4           // ranks rank 0 reads in one round trip
 
 enum { MODE_PLAIN = 0, MODE_DEQUANT = 1, MODE_B10 = 2 };
 
-template <typename T> struct Vec16;  // 16 bytes of a cache row as floats
-template <> struct Vec16<float> {
-  static constexpr int N = 4;
-  __device__ __forceinline__ static void load(const float* p, float* f) {
-    const float4 u = *reinterpret_cast<const float4*>(p);
-    f[0] = u.x; f[1] = u.y; f[2] = u.z; f[3] = u.w;
-  }
-};
-template <> struct Vec16<__nv_bfloat16> {
-  static constexpr int N = 8;
-  __device__ __forceinline__ static void load(const __nv_bfloat16* p, float* f) {
-    const uint4 u = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 x = __bfloat1622float2(h[i]);
-      f[2 * i] = x.x;
-      f[2 * i + 1] = x.y;
+// A lane's slice of a cache row: E elements of CT, kept as 32-bit words
+// until used (4, 8 or 16 bytes, one load; the wider ones stream past L1
+// and ask L2 to fetch the 256-byte line: a warp reads whole rows).
+template <typename CT, int E>
+struct Slice {
+  static constexpr int BYTES = E * (int)sizeof(CT);
+  static constexpr int W = BYTES / 4;
+  uint32_t w[W];
+  __device__ __forceinline__ void load(const CT* p) {
+    if constexpr (BYTES == 16) {
+      asm volatile("ld.global.nc.L1::no_allocate.L2::256B.v4.u32 {%0, %1, %2, %3}, [%4];"
+                   : "=r"(w[0]), "=r"(w[1]), "=r"(w[2]), "=r"(w[3]) : "l"(p));
+    } else if constexpr (BYTES == 8) {
+      asm volatile("ld.global.nc.L1::no_allocate.L2::256B.v2.u32 {%0, %1}, [%2];"
+                   : "=r"(w[0]), "=r"(w[1]) : "l"(p));
+    } else {
+      w[0] = __ldg(reinterpret_cast<const unsigned int*>(p));
     }
   }
-};
-template <> struct Vec16<int8_t> {
-  static constexpr int N = 16;
-  __device__ __forceinline__ static void load(const int8_t* p, float* f) {
-    const int4 u = *reinterpret_cast<const int4*>(p);
-    const int8_t* b = reinterpret_cast<const int8_t*>(&u);
+  __device__ __forceinline__ void zero() {
 #pragma unroll
-    for (int i = 0; i < 16; ++i) f[i] = (float)b[i];
+    for (int i = 0; i < W; ++i) w[i] = 0u;
+  }
+  // element j as f32 (j is a constant after unrolling)
+  __device__ __forceinline__ float at(int j) const {
+    if constexpr (sizeof(CT) == 4) {
+      return __uint_as_float(w[j]);
+    } else if constexpr (sizeof(CT) == 2) {   // bf16: element 2i is word i's low half
+      return __uint_as_float((j & 1) ? (w[j >> 1] & 0xffff0000u) : (w[j >> 1] << 16));
+    } else {                                  // int8, sign-extended
+      return (float)((int)(w[j >> 2] << (24 - 8 * (j & 3))) >> 24);
+    }
   }
 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_f32(int8_t x) { return (float)x; }
 
-template <typename CT, typename ST, int MODE>
-__global__ void __launch_bounds__(NTHREADS) attend_f32_kernel(
+// exp(m - m_ref), 0 for an empty state (m = -inf), whatever m_ref is
+__device__ __forceinline__ float rescale(float m, float m_ref) {
+  return m == -INFINITY ? 0.0f : expf(m - m_ref);
+}
+
+template <typename CT, typename ST, int MODE, int G>
+__global__ void __launch_bounds__(ATT_THREADS) attend_split_kernel(
     const float* __restrict__ q,        // [BC, g, d]
     const CT* __restrict__ k_all,       // [L * BC, T, d]; this layer's rows start at row0
     const CT* __restrict__ v_all,
@@ -545,173 +599,366 @@ __global__ void __launch_bounds__(NTHREADS) attend_f32_kernel(
     const float* __restrict__ k_new,    // [BC, d] or null
     const float* __restrict__ v_new,
     float* __restrict__ out,            // [BC, g, d]
-    long long row0, int kv, int T, int d, int g, int n_slots, float sm_scale) {
-  __shared__ float q_s[MAX_G * MAX_D];
-  __shared__ float p_s[MAX_G * TBLK];
-  __shared__ float vs_s[TBLK];
-  __shared__ float m_s[MAX_G], l_s[MAX_G], corr_s[MAX_G], snew_s[MAX_G];
-  __shared__ float red[NWARPS];
+    long long row0, int kv, int T, int d, int g, int n_slots, int splits, float sm_scale) {
+  constexpr int VN = 16 / (int)sizeof(CT);
+  constexpr int E = VN < 32 / G ? VN : 32 / G;
+  constexpr int U = ATT_UNROLL;
+  __shared__ float wm[ATT_WARPS][G], wl[ATT_WARPS][G];
+  __shared__ __align__(16) float wacc[ATT_WARPS][G * MAX_D];
+  __shared__ float bm[G], bl[G];
+  __shared__ __align__(16) float bacc[G * MAX_D];
+  __shared__ float snew_s[G];
 
-  const int bc = blockIdx.x;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int bc = blockIdx.x / splits;
   const int row = bc / kv;
-  const int tid = threadIdx.x;
-  const int gd = g * d;
-  for (int i = tid; i < gd; i += NTHREADS) q_s[i] = q[(long long)bc * gd + i];
-  if (tid < g) {
-    m_s[tid] = -INFINITY;
-    l_s[tid] = 0.0f;
-  }
-  float acc[ACC_PER_THREAD];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  int lg = 1;
+  while (lg * E < d) lg <<= 1;             // lanes a row, a power of two
+  const int lig = lane & (lg - 1), grp = lane / lg, rpw = 32 / lg;
+  const int col0 = lig * E;
+  const bool colv = col0 < d;              // lanes past d (d / E not a power of two) idle
+
+  const int chunk = (n_slots + splits - 1) / splits;
+  const int lo = rank * chunk;
+  const int hi = min(lo + chunk, n_slots);
+
+  // q in registers, the lane's own columns (zero past g and d)
+  float qr[G][E];
+  const float* qb = q + (long long)bc * g * d;
 #pragma unroll
-  for (int i = 0; i < ACC_PER_THREAD; ++i) acc[i] = 0.0f;
-  __syncthreads();
+  for (int gi = 0; gi < G; ++gi) {
+#pragma unroll
+    for (int j = 0; j < E; j += 4) {
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (gi < g && colv) x = *reinterpret_cast<const float4*>(qb + gi * d + col0 + j);
+      qr[gi][j] = x.x; qr[gi][j + 1] = x.y; qr[gi][j + 2] = x.z; qr[gi][j + 3] = x.w;
+    }
+  }
+
+  // the current token's score, unquantized (warp 0 of every rank; every
+  // lane group computes it, lane 0 keeps it)
+  if (k_new != nullptr && warp == 0) {
+    float kn[E];
+#pragma unroll
+    for (int j = 0; j < E; j += 4) {
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (colv) x = *reinterpret_cast<const float4*>(k_new + (long long)bc * d + col0 + j);
+      kn[j] = x.x; kn[j + 1] = x.y; kn[j + 2] = x.z; kn[j + 3] = x.w;
+    }
+#pragma unroll
+    for (int gi = 0; gi < G; ++gi) {
+      float a = 0.0f;
+#pragma unroll
+      for (int j = 0; j < E; ++j) a = fmaf(qr[gi][j], kn[j], a);
+      for (int o = 1; o < lg; o <<= 1) a += __shfl_xor_sync(0xffffffffu, a, o);
+      if (lane == 0) snew_s[gi] = __fmul_rn(a, sm_scale);
+    }
+  }
 
   const long long lrow = row0 + bc;
   const CT* kb = k_all + lrow * T * d;
   const CT* vb = v_all + lrow * T * d;
   const float* brow = bias + (long long)row * T;
-  constexpr int VN = Vec16<CT>::N;
 
-  for (int c0 = 0; c0 < n_slots; c0 += TBLK) {
-    const int t = c0 + tid;
-    const bool live = t < n_slots;
-    float s[MAX_G];
+  float m[G], l[G], acc[G][E];
 #pragma unroll
-    for (int gi = 0; gi < MAX_G; ++gi) s[gi] = 0.0f;
-    float vsc = 1.0f;
-    if (live) {
-      const CT* kr = kb + (long long)t * d;
-      for (int d0 = 0; d0 < d; d0 += VN) {
-        float kx[VN];
-        Vec16<CT>::load(kr + d0, kx);
+  for (int gi = 0; gi < G; ++gi) {
+    m[gi] = -INFINITY;
+    l[gi] = 0.0f;
 #pragma unroll
-        for (int j = 0; j < VN; ++j) {
+    for (int j = 0; j < E; ++j) acc[gi][j] = 0.0f;
+  }
+
+  // a warp takes rpw * U rows a pass: load u covers rows base + u * rpw ..
+  // + rpw - 1 (contiguous bytes); lane group grp takes row base + u * rpw + grp
+  const int step = rpw * U;
+  for (int base = lo + warp * step; base < hi; base += step * ATT_WARPS) {
+    Slice<CT, E> kr[U], vr[U];
+    float bb[U], ksc[U], vsc[U];
+    bool live[U];
 #pragma unroll
-          for (int gi = 0; gi < MAX_G; ++gi) {
-            if (gi < g) s[gi] = fmaf(q_s[gi * d + d0 + j], kx[j], s[gi]);
+    for (int u = 0; u < U; ++u) {
+      const int t = base + u * rpw + grp;
+      live[u] = t < hi;
+      if (live[u] && colv) {
+        kr[u].load(kb + (long long)t * d + col0);
+        vr[u].load(vb + (long long)t * d + col0);
+      } else {
+        kr[u].zero();
+        vr[u].zero();
+      }
+      bb[u] = live[u] ? __ldg(brow + t) : 0.0f;
+      ksc[u] = vsc[u] = 1.0f;
+      if (MODE != MODE_PLAIN && live[u]) {
+        ksc[u] = to_f32(ks_all[lrow * T + t]);
+        vsc[u] = to_f32(vs_all[lrow * T + t]);
+      }
+    }
+    float s[U][G];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+#pragma unroll
+      for (int gi = 0; gi < G; ++gi) {
+        float a = 0.0f;
+#pragma unroll
+        for (int j = 0; j < E; ++j) a = fmaf(qr[gi][j], kr[u].at(j), a);
+        s[u][gi] = a;
+      }
+    }
+    for (int o = 1; o < lg; o <<= 1) {
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+#pragma unroll
+        for (int gi = 0; gi < G; ++gi) s[u][gi] += __shfl_xor_sync(0xffffffffu, s[u][gi], o);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+#pragma unroll
+      for (int gi = 0; gi < G; ++gi) {
+        float x = s[u][gi];
+        if (MODE == MODE_PLAIN) x = __fadd_rn(__fmul_rn(x, sm_scale), bb[u]);
+        if (MODE == MODE_DEQUANT) x = __fadd_rn(__fmul_rn(x, __fmul_rn(sm_scale, ksc[u])), bb[u]);
+        if (MODE == MODE_B10) x = __fadd_rn(__fmul_rn(__fmul_rn(x, sm_scale), ksc[u]), bb[u]);
+        s[u][gi] = live[u] ? x : -INFINITY;
+      }
+    }
+    // one max and one rescale per U rows; s becomes p
+#pragma unroll
+    for (int gi = 0; gi < G; ++gi) {
+      float mx = m[gi];
+#pragma unroll
+      for (int u = 0; u < U; ++u) mx = fmaxf(mx, s[u][gi]);
+      const float corr = mx == -INFINITY ? 1.0f : rescale(m[gi], mx);
+      float psum = 0.0f;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        s[u][gi] = live[u] ? expf(s[u][gi] - mx) : 0.0f;
+        psum = __fadd_rn(psum, s[u][gi]);
+      }
+      l[gi] = __fadd_rn(__fmul_rn(l[gi], corr), psum);
+      m[gi] = mx;
+#pragma unroll
+      for (int j = 0; j < E; ++j) acc[gi][j] = __fmul_rn(acc[gi][j], corr);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      float vf[E];
+#pragma unroll
+      for (int j = 0; j < E; ++j) {
+        vf[j] = vr[u].at(j);
+        if (MODE == MODE_DEQUANT) vf[j] = __fmul_rn(vf[j], vsc[u]);
+      }
+#pragma unroll
+      for (int gi = 0; gi < G; ++gi) {
+        const float pv = MODE == MODE_B10 ? __fmul_rn(s[u][gi], vsc[u]) : s[u][gi];
+#pragma unroll
+        for (int j = 0; j < E; ++j) acc[gi][j] = fmaf(pv, vf[j], acc[gi][j]);
+      }
+    }
+  }
+
+  // the lane groups of a warp merge by an xor butterfly: group 0 ends with
+  // the warp's state
+  for (int o = lg; o < 32; o <<= 1) {
+#pragma unroll
+    for (int gi = 0; gi < G; ++gi) {
+      const float mo = __shfl_xor_sync(0xffffffffu, m[gi], o);
+      const float lo_ = __shfl_xor_sync(0xffffffffu, l[gi], o);
+      const float mn = fmaxf(m[gi], mo);
+      const float ca = rescale(m[gi], mn), cb = rescale(mo, mn);
+      l[gi] = __fadd_rn(__fmul_rn(l[gi], ca), __fmul_rn(lo_, cb));
+#pragma unroll
+      for (int j = 0; j < E; ++j) {
+        const float ao = __shfl_xor_sync(0xffffffffu, acc[gi][j], o);
+        acc[gi][j] = __fadd_rn(__fmul_rn(acc[gi][j], ca), __fmul_rn(ao, cb));
+      }
+      m[gi] = mn;
+    }
+  }
+  if (grp == 0) {
+#pragma unroll
+    for (int gi = 0; gi < G; ++gi) {
+      if (lig == 0) {
+        wm[warp][gi] = m[gi];
+        wl[warp][gi] = l[gi];
+      }
+      if (colv) {
+#pragma unroll
+        for (int j = 0; j < E; ++j) wacc[warp][gi * d + col0 + j] = acc[gi][j];
+      }
+    }
+  }
+  __syncthreads();
+  // the block's state: its warps merged in order
+  for (int e = tid; e < G * d; e += ATT_THREADS) {
+    const int gi = e / d;
+    float M = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < ATT_WARPS; ++w) M = fmaxf(M, wm[w][gi]);
+    float L = 0.0f, A = 0.0f;
+#pragma unroll
+    for (int w = 0; w < ATT_WARPS; ++w) {
+      const float c = rescale(wm[w][gi], M);
+      L = fmaf(c, wl[w][gi], L);
+      A = fmaf(c, wacc[w][e], A);
+    }
+    bacc[e] = A;
+    if (e - gi * d == 0) {
+      bm[gi] = M;
+      bl[gi] = L;
+    }
+  }
+  cluster.sync();   // every rank's state is written
+
+  {   // the ranks merged in order, then the current token
+    // The cluster's blocks share the outputs out: rank r takes a slice of
+    // the g * d elements and, for each, runs a merge over ATT_MERGE ranks
+    // at a time, their (m, l, acc) read together from distributed shared
+    // memory (one round trip), so no one SM carries all the remote reads.
+    const int per = (g * d + splits - 1) / splits;
+    const int e_hi = min((rank + 1) * per, g * d);
+    float* ob = out + (long long)bc * g * d;
+    for (int e = rank * per + tid; e < e_hi; e += ATT_THREADS) {
+      const int gi = e / d;
+      float M = -INFINITY, A = 0.0f, L = 0.0f;
+      for (int r0 = 0; r0 < splits; r0 += ATT_MERGE) {
+        float mr[ATT_MERGE], lr[ATT_MERGE], ar[ATT_MERGE];
+#pragma unroll
+        for (int j = 0; j < ATT_MERGE; ++j) {
+          mr[j] = -INFINITY;
+          lr[j] = ar[j] = 0.0f;
+          if (r0 + j < splits) {
+            mr[j] = cluster.map_shared_rank(bm, r0 + j)[gi];
+            lr[j] = cluster.map_shared_rank(bl, r0 + j)[gi];
+            ar[j] = cluster.map_shared_rank(bacc, r0 + j)[e];
           }
         }
-      }
-      const float bb = brow[t];
-      float ksc = 1.0f;
-      if (MODE != MODE_PLAIN) {
-        ksc = to_f32(ks_all[lrow * T + t]);
-        vsc = to_f32(vs_all[lrow * T + t]);
-      }
+        float mn = M;
 #pragma unroll
-      for (int gi = 0; gi < MAX_G; ++gi) {
-        if (MODE == MODE_PLAIN) s[gi] = __fadd_rn(__fmul_rn(s[gi], sm_scale), bb);
-        if (MODE == MODE_DEQUANT) s[gi] = __fadd_rn(__fmul_rn(s[gi], __fmul_rn(sm_scale, ksc)), bb);
-        if (MODE == MODE_B10) s[gi] = __fadd_rn(__fmul_rn(__fmul_rn(s[gi], sm_scale), ksc), bb);
-      }
-    }
-    if (MODE == MODE_DEQUANT) vs_s[tid] = vsc;
-    for (int gi = 0; gi < g; ++gi) {
-      float sv = -INFINITY;
+        for (int j = 0; j < ATT_MERGE; ++j) mn = fmaxf(mn, mr[j]);
+        const float c = rescale(M, mn);
+        A = __fmul_rn(A, c);
+        L = __fmul_rn(L, c);
 #pragma unroll
-      for (int gj = 0; gj < MAX_G; ++gj) {
-        if (gj == gi && live) sv = s[gj];
-      }
-      const float m_prev = m_s[gi];
-      const float m_new = fmaxf(m_prev, block_max(sv, red));
-      const float corr = m_prev == -INFINITY ? 0.0f : expf(m_prev - m_new);
-      const float p = live ? expf(sv - m_new) : 0.0f;
-      const float psum = block_sum(p, red);
-      p_s[gi * TBLK + tid] = MODE == MODE_B10 ? __fmul_rn(p, vsc) : p;
-      if (tid == 0) {
-        m_s[gi] = m_new;
-        l_s[gi] = __fadd_rn(__fmul_rn(l_s[gi], corr), psum);
-        corr_s[gi] = corr;
-      }
-    }
-    __syncthreads();
-    const int cnt = min(TBLK, n_slots - c0);
-#pragma unroll
-    for (int i = 0; i < ACC_PER_THREAD; ++i) {
-      const int o = tid + i * NTHREADS;
-      if (o < gd) {
-        const int gi = o / d, dd = o - gi * d;
-        const float* pg = p_s + gi * TBLK;
-        const CT* vcol = vb + (long long)c0 * d + dd;
-        float sum = 0.0f;
-        for (int j = 0; j < cnt; ++j) {
-          float vx = to_f32(vcol[(long long)j * d]);
-          if (MODE == MODE_DEQUANT) vx = __fmul_rn(vx, vs_s[j]);
-          sum = fmaf(pg[j], vx, sum);
+        for (int j = 0; j < ATT_MERGE; ++j) {
+          const float w = rescale(mr[j], mn);
+          A = fmaf(w, ar[j], A);
+          L = fmaf(w, lr[j], L);
         }
-        acc[i] = __fadd_rn(__fmul_rn(acc[i], corr_s[gi]), sum);
+        M = mn;
       }
-    }
-    __syncthreads();
-  }
-
-  // merge the current token's k/v (f32)
-  if (k_new != nullptr) {
-    if (tid < g) {
-      float sn = 0.0f;
-      for (int dd = 0; dd < d; ++dd) sn = fmaf(q_s[tid * d + dd], k_new[(long long)bc * d + dd], sn);
-      snew_s[tid] = __fmul_rn(sn, sm_scale);
-    }
-    __syncthreads();
-  }
-  float* ob = out + (long long)bc * gd;
-#pragma unroll
-  for (int i = 0; i < ACC_PER_THREAD; ++i) {
-    const int o = tid + i * NTHREADS;
-    if (o < gd) {
-      const int gi = o / d, dd = o - gi * d;
-      float l = l_s[gi], a = acc[i];
       if (k_new != nullptr) {
-        const float m_prev = m_s[gi], s_new = snew_s[gi];
-        const float m_fin = fmaxf(m_prev, s_new);
-        const float corr = expf(m_prev - m_fin);
-        const float p_new = expf(s_new - m_fin);
-        l = __fadd_rn(__fmul_rn(l, corr), p_new);
-        a = __fadd_rn(__fmul_rn(a, corr), __fmul_rn(p_new, v_new[(long long)bc * d + dd]));
+        const float s_new = snew_s[gi];
+        const float m_fin = fmaxf(M, s_new);
+        const float c = expf(M - m_fin), p_new = expf(s_new - m_fin);
+        A = fmaf(p_new, v_new[(long long)bc * d + (e - gi * d)], __fmul_rn(A, c));
+        L = __fadd_rn(__fmul_rn(L, c), p_new);
       }
-      ob[o] = a / fmaxf(l, 1e-30f);
+      ob[e] = A / fmaxf(L, 1e-30f);
     }
   }
+  cluster.sync();   // no block leaves before the others have read its shared memory
 }
 
-template <typename CT, typename ST, int MODE>
-static int launch_attend_f32(const void* q, const void* k_all, const void* v_all,
-                             const void* ks, const void* vs, const void* bias,
-                             const void* k_new, const void* v_new, void* out,
-                             long long row0, int BC, int kv, int T, int d, int g, int n_slots,
-                             float sm_scale, cudaStream_t stream) {
-  attend_f32_kernel<CT, ST, MODE><<<BC, NTHREADS, 0, stream>>>(
-      (const float*)q, (const CT*)k_all, (const CT*)v_all, (const ST*)ks, (const ST*)vs,
-      (const float*)bias, (const float*)k_new, (const float*)v_new, (float*)out,
-      row0, kv, T, d, g, n_slots, sm_scale);
+// Launches the split kernel; with `clusters` set, stores instead how many
+// clusters of `splits` blocks the card keeps resident at once
+// (cudaOccupancyMaxActiveClusters), which attend_splits reads.
+template <typename CT, typename ST, int MODE, int G>
+static int launch_attend(const void* q, const void* k_all, const void* v_all, const void* ks,
+                         const void* vs, const void* bias, const void* k_new, const void* v_new,
+                         void* out, long long row0, int BC, int kv, int T, int d, int g,
+                         int n_slots, int splits, float sm_scale, cudaStream_t stream,
+                         int* clusters) {
+  void (*kern)(const float*, const CT*, const CT*, const ST*, const ST*, const float*,
+               const float*, const float*, float*, long long, int, int, int, int, int, int,
+               float) = attend_split_kernel<CT, ST, MODE, G>;
+  if (splits > 8) {
+    static bool wide = false;   // set once per instantiation
+    if (!wide) {
+      const cudaError_t e =
+          cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+      if (e != cudaSuccess) return (int)e;
+      wide = true;
+    }
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(BC * splits), 1, 1);
+  cfg.blockDim = dim3(ATT_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (clusters != nullptr) return (int)cudaOccupancyMaxActiveClusters(clusters, kern, &cfg);
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, kern, (const float*)q, (const CT*)k_all, (const CT*)v_all, (const ST*)ks,
+      (const ST*)vs, (const float*)bias, (const float*)k_new, (const float*)v_new, (float*)out,
+      row0, kv, T, d, g, n_slots, splits, sm_scale);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
+// The instantiation the codes and g select (G = g rounded up to a power of
+// two), launched or queried as launch_attend says.
+static int dispatch_attend(const void* q, const void* k_all, const void* v_all,
+                           const void* k_scale, const void* v_scale, const void* bias,
+                           const void* k_new, const void* v_new, void* out, int cache, int scale,
+                           int mode, long long row0, int BC, int kv, int g, int d, int T,
+                           int n_slots, int splits, float sm_scale, cudaStream_t st,
+                           int* clusters) {
+#define VT_ATTEND(CT, ST, MODE, G)                                                           \
+  launch_attend<CT, ST, MODE, G>(q, k_all, v_all, k_scale, v_scale, bias, k_new, v_new, out, \
+                                 row0, BC, kv, T, d, g, n_slots, splits, sm_scale, st,       \
+                                 clusters)
+#define VT_ATTEND_G(CT, ST, MODE)                                           \
+  (g <= 1 ? VT_ATTEND(CT, ST, MODE, 1) : g <= 2 ? VT_ATTEND(CT, ST, MODE, 2) \
+   : g <= 4 ? VT_ATTEND(CT, ST, MODE, 4) : VT_ATTEND(CT, ST, MODE, 8))
+  if (mode == MODE_PLAIN && scale == 0) {
+    if (cache == 0) return VT_ATTEND_G(float, float, MODE_PLAIN);
+    if (cache == 1) return VT_ATTEND_G(__nv_bfloat16, float, MODE_PLAIN);
+  } else if (cache == 2 && mode == MODE_DEQUANT && scale == 1) {
+    return VT_ATTEND_G(int8_t, __nv_bfloat16, MODE_DEQUANT);
+  } else if (cache == 2 && mode == MODE_B10) {
+    if (scale == 1) return VT_ATTEND_G(int8_t, __nv_bfloat16, MODE_B10);
+    if (scale == 2) return VT_ATTEND_G(int8_t, float, MODE_B10);
+  }
+#undef VT_ATTEND_G
+#undef VT_ATTEND
+  return (int)cudaErrorInvalidValue;
+}
+
 // cache: 0 f32, 1 bf16, 2 int8; scale: 0 none, 1 bf16, 2 f32;
-// mode: 0 PLAIN (float cache, no scales), 1 DEQUANT, 2 B10 (int8 + scales)
+// mode: 0 PLAIN (float cache, no scales), 1 DEQUANT, 2 B10 (int8 + scales);
+// splits: the cluster's blocks per (row, kv head), 1..16 (attend_splits)
 extern "C" int vt_attend_f32(
     const void* q, const void* k_all, const void* v_all, const void* k_scale,
     const void* v_scale, const void* bias, const void* k_new, const void* v_new, void* out,
     int cache, int scale, int mode, long long row0, int b, int kv, int g, int d, int T,
-    int n_slots, float sm_scale, void* stream) {
+    int n_slots, int splits, float sm_scale, void* stream) {
   if (g < 1 || g > MAX_G || d < 16 || d > MAX_D || d % 16 != 0 || n_slots < 1 || n_slots > T ||
-      (k_new == nullptr) != (v_new == nullptr)) {
+      splits < 1 || splits > ATT_MAX_SPLITS || (k_new == nullptr) != (v_new == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
-  const int BC = b * kv;
-  cudaStream_t st = (cudaStream_t)stream;
-#define VT_ATTEND(CT, ST, MODE) \
-  launch_attend_f32<CT, ST, MODE>(q, k_all, v_all, k_scale, v_scale, bias, k_new, v_new, out, \
-                                  row0, BC, kv, T, d, g, n_slots, sm_scale, st)
-  if (mode == MODE_PLAIN && scale == 0) {
-    if (cache == 0) return VT_ATTEND(float, float, MODE_PLAIN);
-    if (cache == 1) return VT_ATTEND(__nv_bfloat16, float, MODE_PLAIN);
-  } else if (cache == 2 && mode == MODE_DEQUANT && scale == 1) {
-    return VT_ATTEND(int8_t, __nv_bfloat16, MODE_DEQUANT);
-  } else if (cache == 2 && mode == MODE_B10) {
-    if (scale == 1) return VT_ATTEND(int8_t, __nv_bfloat16, MODE_B10);
-    if (scale == 2) return VT_ATTEND(int8_t, float, MODE_B10);
+  return dispatch_attend(q, k_all, v_all, k_scale, v_scale, bias, k_new, v_new, out, cache,
+                         scale, mode, row0, b * kv, kv, g, d, T, n_slots, splits, sm_scale,
+                         (cudaStream_t)stream, nullptr);
+}
+
+// Clusters of `splits` blocks the card keeps resident at once for the
+// instantiation vt_attend_f32 would launch with these codes and g.
+extern "C" int vt_attend_clusters(int cache, int scale, int mode, int g, int splits,
+                                  int* clusters) {
+  if (g < 1 || g > MAX_G || splits < 1 || splits > ATT_MAX_SPLITS || clusters == nullptr) {
+    return (int)cudaErrorInvalidValue;
   }
-#undef VT_ATTEND
-  return (int)cudaErrorInvalidValue;
+  return dispatch_attend(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                         nullptr, cache, scale, mode, 0, 1, 1, g, 16, 16, 1, splits, 1.0f,
+                         nullptr, clusters);
 }

@@ -29,10 +29,19 @@ k/v (``k_new``/``v_new``) join the softmax in f32.
 
 On a CUDA tensor each wrapper launches ``csrc/decode_attention.cu``; on a
 CPU tensor it runs its plain version.
+
+K1, K2 and B10 share one CUDA body, split over the cache: each (row, kv
+head) gets a thread-block cluster of :func:`attend_splits` blocks, block r
+takes the slots :func:`attend_ranges` gives it and runs an online softmax
+over them in f32; in the same launch the blocks then share out the
+outputs, and each merges every block's partial softmax for its outputs,
+read through distributed shared memory in rank order, then the current
+token.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import Optional
 
@@ -287,8 +296,70 @@ decode_attention_int8_whole_stacked.launches = 0
 _MODE = {"plain": 0, "dequant": 1, "b10": 2}
 _CACHE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _SCALE_CODE = {None: 0, torch.bfloat16: 1, torch.float32: 2}
-_F32_ARGTYPES = [_build.P] * 9 + [_build.I] * 3 + [_build.LL] + [_build.I] * 6 + [_build.F,
+_F32_ARGTYPES = [_build.P] * 9 + [_build.I] * 3 + [_build.LL] + [_build.I] * 7 + [_build.F,
                                                                                   _build.P]
+#: blocks the split aims for (two per SM of the H100's 132), the fewest
+#: slots a block of the split takes, and the largest cluster (16 is
+#: non-portable; the kernel's ATT_MAX_SPLITS)
+SPLIT_TARGET_BLOCKS = 264
+SPLIT_MIN_SLOTS = 16
+SPLIT_MAX = 16
+
+
+def attend_splits(bc: int, n_slots: int, resident=None) -> int:
+    """Blocks per (row, kv head) of the f32 kernel, a power of two: doubled
+    while the ``bc`` pairs have fewer than :data:`SPLIT_TARGET_BLOCKS`
+    blocks, every block keeps at least :data:`SPLIT_MIN_SLOTS` of the
+    ``n_slots`` slots, the count stays at most :data:`SPLIT_MAX`, and (given
+    ``resident(splits)``, the clusters of that size the card keeps resident
+    at once) all ``bc`` clusters still run in one wave: a second wave costs
+    more than the extra blocks gain."""
+    s = 1
+    while (bc * s < SPLIT_TARGET_BLOCKS and 2 * s <= SPLIT_MAX
+           and 2 * s * SPLIT_MIN_SLOTS <= n_slots
+           and (resident is None or bc <= resident(2 * s))):
+        s *= 2
+    return s
+
+
+@functools.lru_cache(maxsize=None)
+def resident_clusters(cache: int, scale: int, mode: int, g: int, splits: int) -> int:
+    """Clusters of ``splits`` blocks the card keeps resident at once for the
+    kernel these codes select (``cudaOccupancyMaxActiveClusters``)."""
+    n = ctypes.c_int(0)
+    rc = _build.kernel("vt_attend_clusters", [_build.I] * 5 + [_build.P])(
+        cache, scale, mode, g, splits, ctypes.byref(n))
+    _build.check(rc, "vt_attend_clusters")
+    return n.value
+
+
+def f32_codes(k_all: torch.Tensor, k_scale, mode: str, g: int) -> tuple:
+    """The C entry's codes for this cache, its scales and ``mode``, and g:
+    the key of the kernel instantiation :func:`resident_clusters` asks
+    about."""
+    return (_CACHE_CODE[k_all.dtype], _SCALE_CODE[None if k_scale is None else k_scale.dtype],
+            _MODE[mode], g)
+
+
+@functools.lru_cache(maxsize=4096)
+def _card_splits(codes: tuple, bc: int, n_slots: int) -> int:
+    return attend_splits(bc, n_slots, lambda s: resident_clusters(*codes, s))
+
+
+def f32_splits(k_all: torch.Tensor, k_scale, mode: str, b: int, kv: int, g: int,
+               n_slots: int) -> int:
+    """The split the f32 kernel takes for this cache, mode and shape on the
+    card (:func:`attend_splits` with the card's resident clusters)."""
+    return _card_splits(f32_codes(k_all, k_scale, mode, g), b * kv, n_slots)
+
+
+def attend_ranges(n_slots: int, splits: int) -> list:
+    """The slots ``[lo, hi)`` block r of the split reads, as the kernel
+    cuts them: ``ceil(n_slots / splits)`` each, the last ones short or
+    empty."""
+    chunk = -(-int(n_slots) // splits)
+    return [(min(r * chunk, n_slots), min((r + 1) * chunk, n_slots)) for r in range(splits)]
+
 
 
 def _attend_plain(q, k, v, bias, factors, sm_scale, k_new=None, v_new=None, p_scale=None):
@@ -397,13 +468,13 @@ def _launch_f32(wrapper, mode: str, q, k_all, v_all, bias, layer: int, k_scale, 
     out = torch.empty((b, kv, g, d), dtype=torch.float32, device=q.device)
     fn = _build.kernel("vt_attend_f32", _F32_ARGTYPES)
     ptr = lambda t: 0 if t is None else t.data_ptr()   # noqa: E731
+    codes = f32_codes(k_all, k_scale, mode, g)
     wrapper.launches += 1
     rc = fn(
         q.data_ptr(), k_all.data_ptr(), v_all.data_ptr(), ptr(k_scale), ptr(v_scale),
-        bias.data_ptr(), ptr(k_new), ptr(v_new), out.data_ptr(),
-        _CACHE_CODE[k_all.dtype], _SCALE_CODE[None if k_scale is None else k_scale.dtype],
-        _MODE[mode], int(layer) * b * kv, b, kv, g, d, T, int(n_slots), float(sm_scale),
-        _build.stream_ptr(q),
+        bias.data_ptr(), ptr(k_new), ptr(v_new), out.data_ptr(), *codes[:3],
+        int(layer) * b * kv, b, kv, g, d, T, int(n_slots),
+        _card_splits(codes, b * kv, int(n_slots)), float(sm_scale), _build.stream_ptr(q),
     )
     _build.check(rc, "vt_attend_f32")
     return out
@@ -529,5 +600,6 @@ __all__ = ["decode_attention_stacked", "decode_attention_int8_stacked",
            "decode_attention_int8_whole_stacked", "decode_attention_whole_plain",
            "decode_attention_float_stacked", "decode_attention_dequant_stacked",
            "decode_attention", "decode_attention_plain", "decode_attention_float_plain",
-           "decode_attention_dequant_plain", "decode_attention_plain_b10", "n_valid_blocks",
+           "decode_attention_dequant_plain", "decode_attention_plain_b10", "attend_splits",
+           "attend_ranges", "f32_codes", "f32_splits", "resident_clusters", "n_valid_blocks",
            "TBLK"]
