@@ -45,7 +45,17 @@ Phases (any failure exits non-zero before the final line is printed):
    (``F.group_norm`` + add + SiLU for B13; for B2-B4, B7 and B9 there is none; the ops the port runs otherwise for the same work
    are timed as a yardstick, and a child process counts the CUDA kernels
    one call issues with torch.profiler), and compute the least time the
-   card could take (bytes over 3.35 TB/s or operations over the peak rate);
+   card could take (bytes over 3.35 TB/s or operations over the peak rate).
+   Every kernel row and its yardstick is timed eager and as a CUDA graph of
+   its calls (``timed``: ``cuda_ms`` and ``try_graph_ms``; a launch the
+   capture refuses is logged and keeps its eager time), and K4 and K5 also
+   print their wrapper's host µs a call. B2 and B8a (one cooperative launch
+   on the int8 tensor cores, ``csrc/tail_swiglu.cu``) must be bit-equal to
+   their plain versions at layers 0, L/2 and L - 1, B8a to B2's first
+   output, and must issue one CUDA kernel a call; their launch plan is
+   printed. ``python3 chip_smoke.py --tail-rows`` runs the dense rows, K4
+   and K5 alone (copied into an unpacked parent commit, it times that
+   commit's kernels);
 3. small-input references: the tiny-scale model on the GPU (kernels)
    against the same weights on the CPU (plain versions) -- teacher-forced
    decode logits and stage-2 PCM on shared noise; then a d_model-128
@@ -275,6 +285,27 @@ def graph_ms(fn, iters: int = 300, replays: int = 3) -> float:
     return ms
 
 
+def try_graph_ms(fn, label: str, iters: int = 300):
+    """``graph_ms(fn, iters)``, or None where the calls cannot be captured in
+    a CUDA graph (the reason is logged; the row keeps its eager time)."""
+    try:
+        return graph_ms(fn, iters)
+    except Exception as e:   # a launch the capture refuses
+        torch.cuda.set_stream(torch.cuda.default_stream())
+        torch.cuda.synchronize()
+        log(f"{label}: not graph-timed (the capture failed: {str(e).splitlines()[0][:200]})")
+        return None
+
+
+def timed(fn, iters: int, label: str, graph_iters: int = 300) -> tuple:
+    """``fn(i)``'s eager ms (``cuda_ms``) and graph ms (``try_graph_ms``)."""
+    return cuda_ms(fn, iters), try_graph_ms(fn, label, graph_iters)
+
+
+def fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.6f}"
+
+
 def bound_ms(n_bytes: float, n_ops: float, peak_ops: float):
     t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
     t_ops = n_ops / peak_ops * 1e3
@@ -327,8 +358,9 @@ def _b1_case(dev, failures, *, L, b, kv, g, d, T, prompt_pad, n_dec, seed, label
     tol = 5e-4
     # each call reads another layer, as the decode step does (the whole
     # cache, 0.3-0.6 GB, is far larger than the 50 MB L2)
-    ms = cuda_ms(lambda i: decode_attention_int8_stacked(
-        q, k, v, bias, i % L, ks, vs, kn, vn, valid_len=valid_len, sm_scale=sm), 300)
+    ms, g_ms = timed(lambda i: decode_attention_int8_stacked(
+        q, k, v, bias, i % L, ks, vs, kn, vn, valid_len=valid_len, sm_scale=sm), 300,
+        f"B1 [{label}]")
     plain_ms = cuda_ms(lambda i: decode_attention_plain(
         q, k, v, bias, i % L, ks, vs, kn, vn, valid_len, sm), 20)
     n_bytes = (valid_len * b * kv * (2 * d + 2 * 2) + valid_len * b * 4
@@ -336,11 +368,11 @@ def _b1_case(dev, failures, *, L, b, kv, g, d, T, prompt_pad, n_dec, seed, label
     n_ops = 2 * 2 * valid_len * b * kv * g * d
     bms, by = bound_ms(n_bytes, n_ops, PEAK_INT8_OPS)
     log(f"B1 decode_attention [{label}]: max_abs_err={err:.3e} (tolerance {tol}: a few int8 "
-        f"steps of p rounded the other way; a wrong p block size is > 2e-3); kernel {ms:.6f} ms, "
-        f"plain {plain_ms:.6f} ms, bound {bms:.6f} ms ({by})")
+        f"steps of p rounded the other way; a wrong p block size is > 2e-3); kernel {ms:.6f} ms "
+        f"eager, {fmt_ms(g_ms)} ms graph, plain {plain_ms:.6f} ms, bound {bms:.6f} ms ({by})")
     if not err <= tol:
         failures.append(f"B1 [{label}] max_abs_err {err} > {tol}")
-    return {"max_abs_err": err, "tolerance": tol, "ms": ms, "plain_ms": plain_ms,
+    return {"max_abs_err": err, "tolerance": tol, "ms": ms, "graph_ms": g_ms, "plain_ms": plain_ms,
             "bound_ms": bms, "bound_by": by, "library_ms": None,
             "shape": f"{label}: q[{b},{kv},{g},{d}] cache[{L},{b},{kv},{T},{d}] int8 "
                      f"valid_len={valid_len}"}
@@ -374,15 +406,17 @@ def _b5_case(dev, failures, *, L, b, kv, d, T, pos, seed, label):
                             r.view(torch.uint8) if r.dtype == torch.int8 else r.view(torch.int16))
                 for a, r in zip(got, ref))
     err = 0.0 if exact else float("inf")
-    ms = cuda_ms(lambda i: cache_append_stacked(k, v, ks, vs, kn, vn, ksn, vsn, i % T), 300)
+    ms, g_ms = timed(lambda i: cache_append_stacked(k, v, ks, vs, kn, vn, ksn, vsn, i % T), 300,
+                     f"B5 [{label}]")
     plain_ms = cuda_ms(lambda i: cache_append_plain(k, v, ks, vs, kn, vn, ksn, vsn, i % T), 100)
     rows = L * b * kv
     bms, by = bound_ms(2 * rows * (2 * d + 2 * 2), 0, PEAK_INT8_OPS)
     log(f"B5 cache_append [{label}]: byte-exact={exact} (tolerance: byte-exact); kernel "
-        f"{ms:.6f} ms, plain {plain_ms:.6f} ms, bound {bms:.6f} ms ({by})")
+        f"{ms:.6f} ms eager, {fmt_ms(g_ms)} ms graph, plain {plain_ms:.6f} ms, bound {bms:.6f} ms "
+        f"({by})")
     if not exact:
         failures.append(f"B5 [{label}] differs from its plain version")
-    return {"max_abs_err": err, "tolerance": 0.0, "ms": ms, "plain_ms": plain_ms,
+    return {"max_abs_err": err, "tolerance": 0.0, "ms": ms, "graph_ms": g_ms, "plain_ms": plain_ms,
             "bound_ms": bms, "bound_by": by, "library_ms": None,
             "shape": f"{label}: new[{L},{b},{kv},{d}] int8 into cache[{L},{b},{kv},{T},{d}]"}
 
@@ -616,27 +650,70 @@ def check_cache_append_kv(dev, failures):
     ref = cache_append_kv_plain(k.clone(), v.clone(), kn, vn, pos)
     torch.cuda.synchronize()
     exact = all(torch.equal(a.view(torch.int16), r.view(torch.int16)) for a, r in zip(got, ref))
-    ms = cuda_ms(lambda i: cache_append_kv_stacked(k, v, kn, vn, i % T), 300)
+    ms, g_ms = timed(lambda i: cache_append_kv_stacked(k, v, kn, vn, i % T), 300, "K4")
     plain_ms = cuda_ms(lambda i: cache_append_kv_plain(k, v, kn, vn, i % T), 100)
 
     def assign(i):
         k[:, :, :, i % T] = kn
         v[:, :, :, i % T] = vn
 
-    lib_ms = cuda_ms(assign, 100)
+    lib_ms, lib_g_ms = timed(assign, 100, "K4's slice assignment")
     rows = L * b * kv
     bms, by = bound_ms(2 * 2 * rows * d * 2, 0, PEAK_BF16_FLOPS)
-    log(f"{K4_NAME}: byte-exact={exact} (tolerance: byte-exact); kernel {ms:.6f} ms, plain "
-        f"{plain_ms:.6f} ms, slice assignment of k and v {lib_ms:.6f} ms, bound {bms:.6f} ms "
-        f"({by})")
-    if not exact:
-        failures.append("K4 differs from its plain version")
-    main = {"max_abs_err": 0.0 if exact else float("inf"), "tolerance": 0.0, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
-            "shape": f"new[{L},{b},{kv},{d}] bf16 into cache[{L},{b},{kv},{T},{d}]"}
+    main = _append_row(K4_NAME, exact, ms, g_ms, plain_ms, lib_ms, lib_g_ms, bms, by,
+                       "slice assignment of k and v", _host_us(lambda i: cache_append_kv_stacked(
+                           k, v, kn, vn, i % T)), failures)
+    main["shape"] = f"new[{L},{b},{kv},{d}] bf16 into cache[{L},{b},{kv},{T},{d}]"
     return _entry(K4_NAME, "vocalie_tts_tpu_torch/csrc/cache_update.cu",
                   "vocalie_tts_tpu/ops/cache_update.py:191", main,
                   library_call="k_all[:, :, :, pos] = k_new; v_all[:, :, :, pos] = v_new")
+
+
+def _host_us(fn, n: int = 300) -> float:
+    """The host's µs a call of ``fn(i)``: ``n`` calls issued back to back
+    after a warm-up, timed on the host clock up to the last issue (the card
+    runs behind; each call here is far shorter on the card than on the
+    host)."""
+    fn(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n):
+        fn(i)
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / n * 1e6
+
+
+def _wrapper_host_us(call) -> tuple:
+    """The host's µs a call of a kernel wrapper ``call(i)`` (``_host_us``):
+    whole, and with the kernel library's entry points stubbed to return at
+    once (the wrapper's Python alone, before the C call; the rest is ctypes
+    and the launch itself)."""
+    from vocalie_tts_tpu_torch.ops import _build
+
+    whole = _host_us(call)
+    real = _build.kernel
+    _build.kernel = lambda *a, **k: (lambda *args: 0)
+    try:
+        python = _host_us(call)
+    finally:
+        _build.kernel = real
+    return whole, python
+
+
+def _append_row(name, exact, ms, g_ms, plain_ms, lib_ms, lib_g_ms, bms, by, lib_what, host_us,
+                failures) -> dict:
+    """Log one K4/K5 row (eager and graph ms beside the slice assignment's,
+    the wrapper's host µs a call), gate it byte-exact, and return its dict."""
+    log(f"{name}: byte-exact={exact} (tolerance: byte-exact); kernel {ms:.6f} ms eager, "
+        f"{fmt_ms(g_ms)} ms graph, plain {plain_ms:.6f} ms, {lib_what} {lib_ms:.6f} ms eager, "
+        f"{fmt_ms(lib_g_ms)} ms graph, bound {bms:.6f} ms ({by}); wrapper host time "
+        f"{host_us:.2f} us a call")
+    if not exact:
+        failures.append(f"{name.split()[0]} differs from its plain version")
+    return {"max_abs_err": 0.0 if exact else float("inf"), "tolerance": 0.0, "ms": ms,
+            "graph_ms": g_ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": lib_ms, "library_graph_ms": lib_g_ms, "host_us": host_us}
 
 
 def _flash_case(dev, failures, *, b, h, s, d, causal, kv_lens_lo, seed, label, hk=None):
@@ -665,31 +742,34 @@ def _flash_case(dev, failures, *, b, h, s, d, causal, kv_lens_lo, seed, label, h
         "p is rounded to bf16 against a running max in the kernel, the row max in the plain version)")
     if not worst <= 1.0:
         failures.append(f"B6 [{label}] differs: worst ratio {worst}")
-    ms = cuda_ms(lambda i: flash_attention(q, k, v, causal=causal, kv_lens=lens), 50)
+    ms, g_ms = timed(lambda i: flash_attention(q, k, v, causal=causal, kv_lens=lens), 50,
+                     f"B6 [{label}]", 100)
     plain_ms = cuda_ms(lambda i: attention_plain(q, k, v, causal=causal, kv_lens=lens), 10)
     gqa = {"enable_gqa": True} if hk != h else {}
     if lens is not None:
         keep = torch.arange(s, device=dev)[None, :] < lens[:, None]
         mask = keep[:, None, None, :]
-        lib_ms = cuda_ms(lambda i: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
-                                                                  **gqa), 50)
+        lib_ms, lib_g_ms = timed(lambda i: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, **gqa), 50, f"SDPA [{label}]", 100)
         kv_rows = hk * lens.sum().item()
         pairs = s * h * lens.sum().item()
         # q read and o written in full; k and v only up to each row's kv_len
         n_bytes = 2 * b * h * s * d * 2 + 2 * kv_rows * d * 2 + 4 * b
     else:
-        lib_ms = cuda_ms(lambda i: F.scaled_dot_product_attention(q, k, v, is_causal=causal,
-                                                                  **gqa), 50)
+        lib_ms, lib_g_ms = timed(lambda i: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, **gqa), 50, f"SDPA [{label}]", 100)
         pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
         n_bytes = 2 * b * h * s * d * 2 + 2 * b * hk * s * d * 2
     n_ops = 4 * d * pairs
     bms, by = bound_ms(n_bytes, n_ops, PEAK_BF16_FLOPS)
     tflops = n_ops / (ms * 1e-3) / 1e12
-    log(f"B6 flash_attention [{label}]: kernel {ms:.6f} ms ({tflops:.1f} TFLOP/s, "
-        f"{n_ops / 1e9:.2f} GFLOP, {n_bytes / 1e6:.1f} MB), plain {plain_ms:.6f} ms, SDPA "
-        f"{lib_ms:.6f} ms, bound {bms:.6f} ms ({by})")
-    return {"max_abs_err": err, "tolerance": "atol 1e-2 + rtol 1e-2", "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bms, "bound_by": by, "library_ms": lib_ms, "tflops": tflops,
+    log(f"B6 flash_attention [{label}]: kernel {ms:.6f} ms eager ({tflops:.1f} TFLOP/s, "
+        f"{n_ops / 1e9:.2f} GFLOP, {n_bytes / 1e6:.1f} MB), {fmt_ms(g_ms)} ms graph, plain "
+        f"{plain_ms:.6f} ms, SDPA {lib_ms:.6f} ms eager, {fmt_ms(lib_g_ms)} ms graph, bound "
+        f"{bms:.6f} ms ({by})")
+    return {"max_abs_err": err, "tolerance": "atol 1e-2 + rtol 1e-2", "ms": ms, "graph_ms": g_ms,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
+            "library_graph_ms": lib_g_ms, "tflops": tflops,
             "shape": f"{label}: q[{b},{h},{s},{d}] k/v[{b},{hk},{s},{d}] bf16"}
 
 
@@ -825,7 +905,7 @@ def check_decode_step(dev, failures):
     torch.cuda.synchronize()
     errs = [(g - r).abs().max().item() for g, r in zip(got, ref)]
     worst = max(e / (DENSE_TOL * r.abs().max().item()) for e, r in zip(errs, ref))
-    ms = cuda_ms(lambda i: t.call(), 50)
+    ms, g_ms = timed(lambda i: t.call(), 50, B7_NAME, 50)
     plain_ms = cuda_ms(lambda i: ds.decode_step_fused_plain(*t.args, **t.kw), 3, warmup=1)
     xb = t.x.to(torch.bfloat16)
     attn = torch.randn((1, H * d), device=dev) * 0.3
@@ -843,7 +923,7 @@ def check_decode_step(dev, failures):
                                           valid_len=write_pos, sm_scale=d ** -0.5)
             dd.tail_swiglu_qkv_int8_stacked(*tail, l, eps=t.kw["eps"])
 
-    step0_ms = cuda_ms(megatail_ops, 10)
+    step0_ms, step0_g_ms = timed(megatail_ops, 10, "B7's yardstick B3 + L x (B1 + B2)", 10)
     Q = 3 * H * d
     # each input read once, each output written once; of the cache, only
     # the valid slots (a masked slot's probability is exactly 0)
@@ -858,8 +938,9 @@ def check_decode_step(dev, failures):
     most = ds.max_resident_blocks(H, d, D, F, T)
     log(f"{B7_NAME}: max_abs_err={max(errs):.3e} (x_out/kn/vn {errs[0]:.3e}/{errs[1]:.3e}/"
         f"{errs[2]:.3e}), worst |diff| / ({DENSE_TOL} x max|ref|) = {worst:.3f} (must be <= 1); "
-        f"kernel {ms:.6f} ms (one cooperative block per SM: {sms}, of at most {most} resident), "
-        f"plain {plain_ms:.6f} ms, B3 + {L} x (B1 + B2) {step0_ms:.6f} ms, bound {bms:.6f} ms "
+        f"kernel {ms:.6f} ms eager, {fmt_ms(g_ms)} ms graph (one cooperative block per SM: "
+        f"{sms}, of at most {most} resident), plain {plain_ms:.6f} ms, B3 + {L} x (B1 + B2) "
+        f"{step0_ms:.6f} ms eager, {fmt_ms(step0_g_ms)} ms graph, bound {bms:.6f} ms "
         f"({by}, {n_bytes / 1e6:.1f} MB: weights {w_bytes / 1e6:.1f}, the {valid} valid cache "
         f"slots' k/v and scales {kv_bytes / 1e6:.1f})")
     if not worst <= 1.0:
@@ -867,8 +948,9 @@ def check_decode_step(dev, failures):
     return {"name": B7_NAME, "route": "cuda", "source": "vocalie_tts_tpu_torch/csrc/decode_step.cu",
             "replaces": "vocalie_tts_tpu/ops/decode_step.py:245",
             "max_abs_err": max(errs), "tolerance": f"{DENSE_TOL} x max|ref| per output",
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": None,
-            "fused_step0_ops_ms": step0_ms, "cuda_kernels_per_call": None,
+            "ms": ms, "graph_ms": g_ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": None, "fused_step0_ops_ms": step0_ms,
+            "fused_step0_ops_graph_ms": step0_g_ms, "cuda_kernels_per_call": None,
             "path_inputs": {"cache_len": T, "valid_slots": valid, "bqkv": str(t.bq.dtype),
                             "norm": str(t.mw.dtype)},
             "shape": f"L {L}, d_model {D}, {H} heads x {d}, d_ff {F}, cache {T} int8 (valid "
@@ -946,8 +1028,9 @@ def _b12_case(dev, failures, attn, label, dense=None):
     worst = max(e / (DENSE_TOL * r.abs().max().item()) for e, r in zip(errs, ref))
     exact = all(torch.equal(a, r) for a, r in zip(got, ref))
     # each timed call reads another layer, as the decode loop does
-    ms = cuda_ms(lambda i: dl.layer_swiglu_qkv_int8_stacked(*t.head, i % L, valid, *t.tail,
-                                                            **t.kw), 100)
+    ms, g_ms = timed(lambda i: dl.layer_swiglu_qkv_int8_stacked(*t.head, i % L, valid, *t.tail,
+                                                                **t.kw), 100,
+                     f"{B12_NAME} [{label}]")
     plain_ms = cuda_ms(lambda i: dl.layer_swiglu_qkv_int8_plain(*t.head, i % L, valid, *t.tail,
                                                                 **t.kw), 5, warmup=1)
     wo, wos, mw, wgu, sgu, wd, sd, nw, wq, sq = t.tail
@@ -959,7 +1042,7 @@ def _b12_case(dev, failures, attn, label, dense=None):
         dd.tail_swiglu_qkv_int8_stacked(attn.reshape(b, H * d), t.x, wo, wos, mw, wgu, sgu, wd,
                                         sd, nw, wq, sq, l, eps=t.kw["eps"])
 
-    pair_ms = cuda_ms(pair, 100)
+    pair_ms, pair_g_ms = timed(pair, 100, f"B1 + B2 pair [{label}]")
     # each input read once, each output written once; of the cache, only
     # the valid slots (a masked slot's probability is exactly 0)
     w_bytes = H * d * D + D * 2 * F + F * D + D * Q
@@ -973,14 +1056,16 @@ def _b12_case(dev, failures, attn, label, dense=None):
              f"d_model {D}, d_ff {F} in tiles of {dd.pick_tile(F, dd.TILE_BUDGET, 2 * D)}, qkv "
              f"{Q}, layers {L // 2} and {L - 1} checked")
     log(f"{B12_NAME} [{label}]: max_abs_err={max(errs):.3e} (bit-equal: {exact}), worst |diff| / "
-        f"({DENSE_TOL} x max|ref|) = {worst:.3f} (must be <= 1); kernel {ms:.6f} ms (one "
-        f"cooperative launch), plain {plain_ms:.6f} ms, B1 + B2 pair {pair_ms:.6f} ms, bound "
+        f"({DENSE_TOL} x max|ref|) = {worst:.3f} (must be <= 1); kernel {ms:.6f} ms eager, "
+        f"{fmt_ms(g_ms)} ms graph (one cooperative launch), plain {plain_ms:.6f} ms, B1 + B2 pair "
+        f"{pair_ms:.6f} ms eager, {fmt_ms(pair_g_ms)} ms graph, bound "
         f"{bms:.6f} ms ({by}, {n_bytes / 1e6:.2f} MB: weights {w_bytes / 1e6:.2f}, the valid "
         f"slots' k/v, scales and bias {kv_bytes / 1e6:.2f}); {shape}")
     if not worst <= 1.0:
         failures.append(f"{B12_NAME} [{label}] differs from its plain version: worst ratio {worst}")
-    return {"max_abs_err": max(errs), "bit_equal": exact, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bms, "bound_by": by, "b1_b2_pair_ms": pair_ms, "shape": shape}
+    return {"max_abs_err": max(errs), "bit_equal": exact, "ms": ms, "graph_ms": g_ms,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "b1_b2_pair_ms": pair_ms,
+            "b1_b2_pair_graph_ms": pair_g_ms, "shape": shape}
 
 
 def check_decode_layer(dev, failures):
@@ -1039,6 +1124,8 @@ def count_dense_kernels(kernels, failures) -> None:
         entry["cuda_kernels_per_call"] = n_kernels
         log(f"{entry['name']}: CUDA kernels per call (profiled): "
             + (f"{n_kernels} ({listed})" if n_kernels else "not measured (profiler saw none)"))
+        if entry["name"] in TAIL_NAMES and n_kernels != 1:
+            failures.append(f"{entry['name']}: {n_kernels} CUDA kernels a call, not 1")
 
 
 def _count_kernels_child() -> int:
@@ -1080,27 +1167,39 @@ def _f32_calls(dev) -> dict:
 
 
 def _dense_entry(name, *, got, ref, ms, plain_ms, ops_ms, n_bytes, n_ops, shape, failures,
-                 ops_key="slice1_ops_ms"):
+                 ops_key="slice1_ops_ms", g_ms=None, ops_g_ms=None, host=None):
     """The ``kernels`` entry of a dense kernel; ``ops_ms`` is the time of the
     ops the port runs otherwise for the same work (``ops_key``: the slice-1
-    path's for B2-B4, the ``_qdot`` path's for B9)."""
+    path's for B2-B4, the ``_qdot`` path's for B9); ``g_ms`` and
+    ``ops_g_ms`` the same two graph-timed; ``host`` the wrapper's host µs a
+    call (``_wrapper_host_us``). B2 and B8a (one launch,
+    ``csrc/tail_swiglu.cu``) must be bit-equal to their plain versions."""
     errs = [(g - r).abs().max().item() for g, r in zip(got, ref)]
     worst = max(e / (DENSE_TOL * r.abs().max().item()) for e, r in zip(errs, ref))
     err = max(errs)
     exact = all(torch.equal(g, r) for g, r in zip(got, ref))
     bms, by = bound_ms(n_bytes, n_ops, PEAK_INT8_OPS)
+    ops_what = ops_key.removesuffix('_ms').replace('_', ' ')
     log(f"{name}: max_abs_err={err:.3e} (bit-equal: {exact}), worst |diff| / ({DENSE_TOL} x "
-        f"max|ref|) = {worst:.3f} (must be <= 1); kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, "
-        f"{ops_key.removesuffix('_ms').replace('_', ' ')} {ops_ms:.6f} ms, bound {bms:.6f} ms "
-        f"({by}, {n_bytes / 1e6:.2f} MB)")
+        f"max|ref|) = {worst:.3f} (must be <= 1); kernel {ms:.6f} ms eager, {fmt_ms(g_ms)} ms "
+        f"graph (eager - graph {fmt_ms(None if g_ms is None else ms - g_ms)} ms), plain "
+        f"{plain_ms:.6f} ms, {ops_what} {ops_ms:.6f} ms eager, {fmt_ms(ops_g_ms)} ms graph, bound "
+        f"{bms:.6f} ms ({by}, {n_bytes / 1e6:.2f} MB)" + ("" if host is None else
+        f"; wrapper host time {host[0]:.2f} us a call, {host[1]:.2f} us of it before the C call"))
     if not worst <= 1.0:
         failures.append(f"{name} differs from its plain version: worst ratio {worst}")
+    if name in TAIL_NAMES and not exact:
+        failures.append(f"{name} is not bit-equal to its plain version (max_abs_err {err})")
     return {"name": name, "route": "cuda",
-            "source": "vocalie_tts_tpu_torch/csrc/decode_dense.cu",
+            "source": "vocalie_tts_tpu_torch/csrc/" + ("tail_swiglu.cu" if name in TAIL_NAMES
+                                                       else "decode_dense.cu"),
             "replaces": f"vocalie_tts_tpu/ops/decode_dense.py:{DENSE_LINES[name]}",
-            "max_abs_err": err, "bit_equal": exact, "tolerance": f"{DENSE_TOL} x max|ref|",
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": None,
-            ops_key: ops_ms, "cuda_kernels_per_call": None, "shape": shape}
+            "max_abs_err": err, "bit_equal": exact, "tolerance": f"{DENSE_TOL} x max|ref|"
+            + ("; bit-equal" if name in TAIL_NAMES else ""),
+            "ms": ms, "graph_ms": g_ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+            "library_ms": None, ops_key: ops_ms, ops_key.removesuffix("_ms") + "_graph_ms": ops_g_ms,
+            "cuda_kernels_per_call": None, "shape": shape,
+            **({} if host is None else {"host_us": host[0], "host_python_us": host[1]})}
 
 
 #: the dense kernels' names in the ``kernels`` line and the lines of the
@@ -1111,6 +1210,9 @@ DENSE_LINES = {"B3 qkv_norm_int8": 269, "B2 tail_swiglu_qkv_int8": 519,
                "B9b tail_gelu_qkv_int8": 985, "B9c tail_gelu_int8": 752,
                "B9d mlp_gelu_int8": 862}
 B8_NAMES = ("B8a tail_swiglu_int8", "B8b mlp_swiglu_int8")
+#: B2 and B8a: one cooperative launch (csrc/tail_swiglu.cu), bit-equal to
+#: their plain versions; one CUDA kernel a call
+TAIL_NAMES = ("B2 tail_swiglu_qkv_int8", "B8a tail_swiglu_int8")
 #: the SwiGLU dense kernels' decode shapes: the Chatterbox T3 voice-over
 #: (b = 16: 8 chunks, CFG-doubled; the 1026-token head padded to 1152) and
 #: the Qwen3 bench request (b = 8; GQA qkv 16 x 128 + 2 x 8 x 128; d_ff 8192
@@ -1156,6 +1258,25 @@ def _dense_inputs(dev, shape=T3_DENSE):
     return types.SimpleNamespace(**locals())
 
 
+def _tail_plan_note(dev, shape: dict, qkv: bool) -> dict:
+    """B2's (``qkv``) or B8a's launch plan at a phase-2 shape, logged:
+    blocks, tile rows, ring depth, shared bytes and the largest block's
+    weight bytes."""
+    from vocalie_tts_tpu_torch.ops import decode_dense as dd
+
+    b, d, F = shape["b"], shape["d"], shape["F"]
+    Q = shape["Q"] if qkv else 0
+    tile = dd.pick_tile(F, dd.TILE_BUDGET, 2 * d)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    p = dd.tail_plan(b, d, d, F, tile, Q, sms)
+    loads = [sum(dd.tail_item_rows(k, d, d, F) * dd.SLAB for k, _ in its) for its in p.items]
+    note = {"grid": p.grid, "kc": p.kc, "stages": p.stages, "smem": p.smem,
+            "ring_holds_all": p.ring_holds_all, "max_block_weight_bytes": max(loads),
+            "mean_block_weight_bytes": sum(loads) / len(loads)}
+    log(f"{'B2' if Q else 'B8a'} plan at b {b}, d {d}, d_ff {F}, qkv {Q}: {note}")
+    return note
+
+
 def check_dense(dev, failures, shape=T3_DENSE):
     """B3, B2 and B4 (and at the Qwen3 shape B8a and B8b) at the decode
     shapes of a main path. Each timed call reads another layer, as the
@@ -1190,18 +1311,20 @@ def check_dense(dev, failures, shape=T3_DENSE):
     got = [dd.qkv_norm_int8_stacked(x, nw, wq, sq, 0, eps=eps)]
     ref = [dd.qkv_norm_int8_plain(x, nw, wq, sq, 0, eps=eps)]
     torch.cuda.synchronize()
+    ms, g_ms = timed(lambda i: dd.qkv_norm_int8_stacked(x, nw, wq, sq, i % L, eps=eps), 300,
+                     f"B3 [{label}]")
+    ops_ms, ops_g_ms = timed(lambda i: tr._qdot(tr.rms_norm(x, nw[i % L], eps),
+                                                i8(wq, sq, i % L)), 100, f"B3 yardstick [{label}]")
     out.append(entry(
-        "B3 qkv_norm_int8", got=got, ref=ref,
-        ms=cuda_ms(lambda i: dd.qkv_norm_int8_stacked(x, nw, wq, sq, i % L, eps=eps), 300),
+        "B3 qkv_norm_int8", got=got, ref=ref, ms=ms, g_ms=g_ms,
         plain_ms=cuda_ms(lambda i: dd.qkv_norm_int8_plain(x, nw, wq, sq, i % L, eps=eps), 20),
-        ops_ms=cuda_ms(lambda i: tr._qdot(tr.rms_norm(x, nw[i % L], eps),
-                                             i8(wq, sq, i % L)), 100),
+        ops_ms=ops_ms, ops_g_ms=ops_g_ms,
         n_bytes=b * d * 2 + d * 4 + d * Q + Q * 4 + b * Q * 4, n_ops=2 * b * d * Q,
         shape=f"x[{b},{d}] bf16, W[{L},{d},{Q}] int8"))
     # B2: the layer tail + the next layer's norm + qkv, at a middle layer
     # and at the last one (next qkv clamped to it)
     got, ref = [], []
-    for layer in (L // 2, L - 1):
+    for layer in (0, L // 2, L - 1):
         got += dd.tail_swiglu_qkv_int8_stacked(*args, layer, eps=eps)
         ref += dd.tail_swiglu_qkv_int8_plain(*args, layer, eps=eps)
     torch.cuda.synchronize()
@@ -1218,41 +1341,57 @@ def check_dense(dev, failures, shape=T3_DENSE):
 
     tail_w = d * d + d * 2 * F + F * d
     tail_bytes = b * d * 4 + b * d * 2 + tail_w + 4 * (d + d + 2 * F + d) + b * d * 4
+    ms, g_ms = timed(lambda i: dd.tail_swiglu_qkv_int8_stacked(*args, i % L, eps=eps), 300,
+                     f"B2 [{label}]")
+    ops_ms, ops_g_ms = timed(lambda i: slice1_qkv(slice1_tail(i), i % L), 100,
+                             f"B2 yardstick [{label}]")
     out.append(entry(
-        "B2 tail_swiglu_qkv_int8", got=got, ref=ref,
-        ms=cuda_ms(lambda i: dd.tail_swiglu_qkv_int8_stacked(*args, i % L, eps=eps), 300),
+        "B2 tail_swiglu_qkv_int8", got=got, ref=ref, ms=ms, g_ms=g_ms,
+        host=_wrapper_host_us(lambda i: dd.tail_swiglu_qkv_int8_stacked(*args, i % L, eps=eps)),
         plain_ms=cuda_ms(lambda i: dd.tail_swiglu_qkv_int8_plain(*args, i % L, eps=eps), 20),
-        ops_ms=cuda_ms(lambda i: slice1_qkv(slice1_tail(i), i % L), 100),
+        ops_ms=ops_ms, ops_g_ms=ops_g_ms,
         n_bytes=tail_bytes + d * Q + 4 * (d + Q) + b * Q * 4,
         n_ops=2 * b * (tail_w + d * Q),
         shape=f"attn[{b},{d}] f32, x[{b},{d}] bf16, d_ff {F} in tiles of {tile}, qkv {Q}, "
-              f"{L} layers"))
+              f"{L} layers (layers 0, {L // 2} and {L - 1} checked)"))
     # B4: the 128-padded int8 lm_head
     got = [dd.dense_int8_stacked(x, wh[:1], sh[:1], 0)]
     ref = [dd.dense_int8_plain(x, wh[:1], sh[:1], 0)]
     torch.cuda.synchronize()
+    ms, g_ms = timed(lambda i: dd.dense_int8_stacked(x, wh, sh, i % L), 300, f"B4 [{label}]")
+    ops_ms, ops_g_ms = timed(lambda i: tr._qdot(x, i8(wh, sh, i % L), f32_out=True), 100,
+                             f"B4 yardstick [{label}]")
     out.append(entry(
-        "B4 dense_int8 (lm_head)", got=got, ref=ref,
-        ms=cuda_ms(lambda i: dd.dense_int8_stacked(x, wh, sh, i % L), 300),
+        "B4 dense_int8 (lm_head)", got=got, ref=ref, ms=ms, g_ms=g_ms,
         plain_ms=cuda_ms(lambda i: dd.dense_int8_plain(x, wh, sh, i % L), 20),
-        ops_ms=cuda_ms(lambda i: tr._qdot(x, i8(wh, sh, i % L), f32_out=True), 100),
+        ops_ms=ops_ms, ops_g_ms=ops_g_ms,
         n_bytes=b * d * 2 + d * N + N * 4 + b * N * 4, n_ops=2 * b * d * N,
         shape=f"x[{b},{d}] bf16, W[1,{d},{N}] int8"))
     if shape is not QWEN3_DENSE:
         return out
     # B8a: the tail alone (VOCALIE_MEGATAIL=0), at a middle and the last layer
     got, ref = [], []
-    for layer in (L // 2, L - 1):
+    for layer in (0, L // 2, L - 1):
         got.append(dd.tail_swiglu_int8_stacked(*tail, layer, eps=eps))
         ref.append(dd.tail_swiglu_int8_plain(*tail, layer, eps=eps))
     torch.cuda.synchronize()
+    b2_first = [dd.tail_swiglu_qkv_int8_stacked(*args, layer, eps=eps)[0]
+                for layer in (0, L // 2, L - 1)]
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, c) for a, c in zip(got, b2_first))
+    log(f"B8a [{label}]: equal to B2's first output at layers 0, {L // 2}, {L - 1}: {same}")
+    if not same:
+        failures.append(f"B8a [{label}] differs from B2's first output")
+    ms, g_ms = timed(lambda i: dd.tail_swiglu_int8_stacked(*tail, i % L, eps=eps), 300,
+                     f"B8a [{label}]")
+    ops_ms, ops_g_ms = timed(slice1_tail, 100, f"B8a yardstick [{label}]")
     out.append(entry(
-        "B8a tail_swiglu_int8", got=got, ref=ref,
-        ms=cuda_ms(lambda i: dd.tail_swiglu_int8_stacked(*tail, i % L, eps=eps), 300),
+        "B8a tail_swiglu_int8", got=got, ref=ref, ms=ms, g_ms=g_ms,
+        host=_wrapper_host_us(lambda i: dd.tail_swiglu_int8_stacked(*tail, i % L, eps=eps)),
         plain_ms=cuda_ms(lambda i: dd.tail_swiglu_int8_plain(*tail, i % L, eps=eps), 20),
-        ops_ms=cuda_ms(slice1_tail, 100), n_bytes=tail_bytes, n_ops=2 * b * tail_w,
+        ops_ms=ops_ms, ops_g_ms=ops_g_ms, n_bytes=tail_bytes, n_ops=2 * b * tail_w,
         shape=f"attn[{b},{d}] f32, x[{b},{d}] bf16, d_ff {F} in tiles of {tile}, {L} layers "
-              f"(layers {L // 2} and {L - 1} checked)"))
+              f"(layers 0, {L // 2} and {L - 1} checked)"))
 
     # B8b: the MLP alone on post-norm bf16 rows (the DENSE_FNS path)
     def slice1_mlp(i):
@@ -1265,11 +1404,13 @@ def check_dense(dev, failures, shape=T3_DENSE):
     ref = [dd.mlp_swiglu_int8_plain(x, wgu, sgu, wd, sd, L - 1)]
     torch.cuda.synchronize()
     mlp_w = d * 2 * F + F * d
+    ms, g_ms = timed(lambda i: dd.mlp_swiglu_int8_stacked(x, wgu, sgu, wd, sd, i % L), 300,
+                     f"B8b [{label}]")
+    ops_ms, ops_g_ms = timed(slice1_mlp, 100, f"B8b yardstick [{label}]")
     out.append(entry(
-        "B8b mlp_swiglu_int8", got=got, ref=ref,
-        ms=cuda_ms(lambda i: dd.mlp_swiglu_int8_stacked(x, wgu, sgu, wd, sd, i % L), 300),
+        "B8b mlp_swiglu_int8", got=got, ref=ref, ms=ms, g_ms=g_ms,
         plain_ms=cuda_ms(lambda i: dd.mlp_swiglu_int8_plain(x, wgu, sgu, wd, sd, i % L), 20),
-        ops_ms=cuda_ms(slice1_mlp, 100),
+        ops_ms=ops_ms, ops_g_ms=ops_g_ms,
         n_bytes=b * d * 2 + mlp_w + 4 * (2 * F + d) + b * d * 4, n_ops=2 * b * mlp_w,
         shape=f"x[{b},{d}] bf16 post-norm, d_ff {F} in tiles of {tile}, {L} layers"))
     return out
@@ -1355,13 +1496,14 @@ def check_dense_gelu(dev, failures, L: int = 24):
     got = [dd.qkv_lnorm_int8_stacked(t.x, t.ng, t.nb, t.wq, t.sq, 0, eps=eps)]
     ref = [dd.qkv_lnorm_int8_plain(t.x, t.ng, t.nb, t.wq, t.sq, 0, eps=eps)]
     torch.cuda.synchronize()
+    ms, g_ms = timed(lambda i: dd.qkv_lnorm_int8_stacked(t.x, t.ng, t.nb, t.wq, t.sq, i % L,
+                                                         eps=eps), 300, "B9a")
+    ops_ms, ops_g_ms = timed(lambda i: qdot_qkv(i % L, t.x), 100, "B9a yardstick")
     out.append(_dense_entry(
-        "B9a qkv_lnorm_int8", got=got, ref=ref,
-        ms=cuda_ms(lambda i: dd.qkv_lnorm_int8_stacked(t.x, t.ng, t.nb, t.wq, t.sq, i % L,
-                                                       eps=eps), 300),
+        "B9a qkv_lnorm_int8", got=got, ref=ref, ms=ms, g_ms=g_ms,
         plain_ms=cuda_ms(lambda i: dd.qkv_lnorm_int8_plain(t.x, t.ng, t.nb, t.wq, t.sq, i % L,
                                                            eps=eps), 20),
-        ops_ms=cuda_ms(lambda i: qdot_qkv(i % L, t.x), 100), ops_key="qdot_ops_ms",
+        ops_ms=ops_ms, ops_g_ms=ops_g_ms, ops_key="qdot_ops_ms",
         n_bytes=b * d * 2 + 2 * d * 4 + d * Q + Q * 4 + b * Q * 4, n_ops=2 * b * d * Q,
         shape=f"x[{b},{d}] bf16, LayerNorm f32, W[{L},{d},{Q}] int8", failures=failures))
     # B9b at a middle layer and at the last one (its next qkv clamped to it)
@@ -1370,13 +1512,15 @@ def check_dense_gelu(dev, failures, L: int = 24):
         got += dd.tail_gelu_qkv_int8_stacked(*t.tail, *t.nxt, layer, eps=eps)
         ref += dd.tail_gelu_qkv_int8_plain(*t.tail, *t.nxt, layer, eps=eps)
     torch.cuda.synchronize()
+    ms, g_ms = timed(lambda i: dd.tail_gelu_qkv_int8_stacked(*t.tail, *t.nxt, i % L, eps=eps),
+                     300, "B9b")
+    ops_ms, ops_g_ms = timed(lambda i: qdot_qkv(min(i % L + 1, L - 1), qdot_tail(i % L)[:, 0]),
+                             100, "B9b yardstick")
     out.append(_dense_entry(
-        "B9b tail_gelu_qkv_int8", got=got, ref=ref,
-        ms=cuda_ms(lambda i: dd.tail_gelu_qkv_int8_stacked(*t.tail, *t.nxt, i % L, eps=eps), 300),
+        "B9b tail_gelu_qkv_int8", got=got, ref=ref, ms=ms, g_ms=g_ms,
         plain_ms=cuda_ms(lambda i: dd.tail_gelu_qkv_int8_plain(*t.tail, *t.nxt, i % L, eps=eps),
                          20),
-        ops_ms=cuda_ms(lambda i: qdot_qkv(min(i % L + 1, L - 1), qdot_tail(i % L)[:, 0]), 100),
-        ops_key="qdot_ops_ms",
+        ops_ms=ops_ms, ops_g_ms=ops_g_ms, ops_key="qdot_ops_ms",
         n_bytes=(b * d * 4 + b * d * 2 + tail_w + d * Q + tail_scales + Q * 4 + vec_bytes
                  + b * d * 4 + b * Q * 4),
         n_ops=2 * b * (tail_w + d * Q),
@@ -1386,11 +1530,12 @@ def check_dense_gelu(dev, failures, L: int = 24):
     got = [dd.tail_gelu_int8_stacked(*t.tail, L // 2, eps=eps)]
     ref = [dd.tail_gelu_int8_plain(*t.tail, L // 2, eps=eps)]
     torch.cuda.synchronize()
+    ms, g_ms = timed(lambda i: dd.tail_gelu_int8_stacked(*t.tail, i % L, eps=eps), 300, "B9c")
+    ops_ms, ops_g_ms = timed(lambda i: qdot_tail(i % L), 100, "B9c yardstick")
     out.append(_dense_entry(
-        "B9c tail_gelu_int8", got=got, ref=ref,
-        ms=cuda_ms(lambda i: dd.tail_gelu_int8_stacked(*t.tail, i % L, eps=eps), 300),
+        "B9c tail_gelu_int8", got=got, ref=ref, ms=ms, g_ms=g_ms,
         plain_ms=cuda_ms(lambda i: dd.tail_gelu_int8_plain(*t.tail, i % L, eps=eps), 20),
-        ops_ms=cuda_ms(lambda i: qdot_tail(i % L), 100), ops_key="qdot_ops_ms",
+        ops_ms=ops_ms, ops_g_ms=ops_g_ms, ops_key="qdot_ops_ms",
         n_bytes=b * d * 4 + b * d * 2 + tail_w + tail_scales + vec_bytes - 2 * 4 * d + b * d * 4,
         n_ops=2 * b * tail_w,
         shape=f"attn[{b},{d}] f32, x[{b},{d}] bf16, bf16 biases, d_ff {F} in tiles of "
@@ -1470,27 +1615,29 @@ def check_group_norm(dev, failures):
             y = F.group_norm(xn + en if en is not None else xn, t.groups, g16, b16, t.eps)
             return F.silu(y) if t.silu else y
 
-        ms = cuda_ms(lambda i: t.call(), 200)
+        ms, g_ms = timed(lambda i, t=t: t.call(), 200, f"B13 [{t.label}]")
         plain_ms = cuda_ms(plain, 20)
-        lib_ms = cuda_ms(library, 200)
+        lib_ms, lib_g_ms = timed(library, 200, f"F.group_norm [{t.label}]")
         n = t.x.numel()
         n_bytes = 2 * n * 2 + (bsz * c * 2 if t.e is not None else 0) + 2 * c * 4
         bms, by = bound_ms(n_bytes, 10 * n, PEAK_F32_FLOPS)
         log(f"B13 group_norm [{t.label}] x{list(t.shape)} bf16, G {t.groups}, eps {t.eps}: "
             f"max_abs_err={diff.max().item():.3e}, worst |diff| / (ulp + 1e-5) = {worst:.3f} "
-            f"(must be <= 1); kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, F.group_norm + add "
-            f"+ SiLU {lib_ms:.6f} ms, bound {bms:.6f} ms ({by}, {n_bytes / 1e6:.1f} MB)")
+            f"(must be <= 1); kernel {ms:.6f} ms eager, {fmt_ms(g_ms)} ms graph, plain "
+            f"{plain_ms:.6f} ms, F.group_norm + add + SiLU {lib_ms:.6f} ms eager, "
+            f"{fmt_ms(lib_g_ms)} ms graph, bound {bms:.6f} ms ({by}, {n_bytes / 1e6:.1f} MB)")
         if not worst <= 1.0:
             failures.append(f"B13 [{t.label}] differs from its plain version: worst ratio {worst}")
         out.append({"label": t.label, "shape": f"x{list(t.shape)} bf16, G {t.groups}, eps {t.eps}"
                     f"{', FiLM row' if t.e is not None else ''}{', SiLU' if t.silu else ''}",
                     "max_abs_err": diff.max().item(), "worst_ratio": worst, "ms": ms,
-                    "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": lib_ms})
+                    "graph_ms": g_ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                    "library_ms": lib_ms, "library_graph_ms": lib_g_ms})
     main = out[0]
     return {"name": B13_NAME, "route": "cuda", "source": "vocalie_tts_tpu_torch/csrc/groupnorm.cu",
             "replaces": "vocalie_tts_tpu/ops/groupnorm.py:104",
-            **{k: main[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                                    "library_ms", "shape")},
+            **{k: main[k] for k in ("max_abs_err", "ms", "graph_ms", "plain_ms", "bound_ms",
+                                    "bound_by", "library_ms", "library_graph_ms", "shape")},
             "tolerance": "one bf16 ulp of the plain value + 1e-5", "cuda_kernels_per_call": None,
             "library": "F.group_norm + the same add and SiLU", "cases": out[1:]}
 
@@ -3931,8 +4078,9 @@ def _whole_case(dev, failures, attn, label, with_new=True):
     torch.cuda.synchronize()
     err = (out - ref).abs().max().item()
     tol = 5e-4
-    ms = cuda_ms(lambda i: da.decode_attention_int8_whole_stacked(
-        t.q, t.k, t.v, t.bias, i % t.L, t.ks, t.vs, *new, valid_len=vl, sm_scale=t.sm), 300)
+    ms, g_ms = timed(lambda i: da.decode_attention_int8_whole_stacked(
+        t.q, t.k, t.v, t.bias, i % t.L, t.ks, t.vs, *new, valid_len=vl, sm_scale=t.sm), 300,
+        f"{B1W_NAME} [{label}]")
     plain_ms = cuda_ms(lambda i: da.decode_attention_whole_plain(
         t.q, t.k, t.v, t.bias, i % t.L, t.ks, t.vs, *new, vl, sm_scale=t.sm), 20)
     T128 = -(-t.T // 128) * 128
@@ -3940,8 +4088,9 @@ def _whole_case(dev, failures, attn, label, with_new=True):
     k1, v1 = (torch.nn.functional.pad(a, (0, 0, 0, pad)) for a in (t.k, t.v))
     ks1, vs1 = (torch.nn.functional.pad(a, (0, pad)) for a in (t.ks, t.vs))
     bias1 = torch.nn.functional.pad(t.bias, (0, pad), value=NEG)
-    b1_ms = cuda_ms(lambda i: da.decode_attention_int8_stacked(
-        t.q, k1, v1, bias1, i % t.L, ks1, vs1, t.kn, t.vn, valid_len=t.valid, sm_scale=t.sm), 300)
+    b1_ms, b1_g_ms = timed(lambda i: da.decode_attention_int8_stacked(
+        t.q, k1, v1, bias1, i % t.L, ks1, vs1, t.kn, t.vn, valid_len=t.valid, sm_scale=t.sm), 300,
+        f"B1 on a {T128}-slot cache [{label}]")
     del k1, v1
     n = t.valid if with_new else t.T
     n_bytes = (n * t.b * t.kv * (2 * t.d + 2 * 2) + n * t.b * 4
@@ -3949,13 +4098,14 @@ def _whole_case(dev, failures, attn, label, with_new=True):
     n_ops = 2 * 2 * n * t.b * t.kv * t.g * t.d
     bms, by = bound_ms(n_bytes, n_ops, PEAK_INT8_OPS)
     log(f"{B1W_NAME} [{label}]: max_abs_err={err:.3e} (tolerance {tol}, B1's); kernel "
-        f"{ms:.6f} ms, plain {plain_ms:.6f} ms, B1 (T-blocked) on a {T128}-slot cache "
-        f"{b1_ms:.6f} ms, bound {bms:.6f} ms ({by}, {n} slots read)")
+        f"{ms:.6f} ms eager, {fmt_ms(g_ms)} ms graph, plain {plain_ms:.6f} ms, B1 (T-blocked) on "
+        f"a {T128}-slot cache {b1_ms:.6f} ms eager, {fmt_ms(b1_g_ms)} ms graph, bound "
+        f"{bms:.6f} ms ({by}, {n} slots read)")
     if not err <= tol:
         failures.append(f"B1w [{label}] max_abs_err {err} > {tol}")
-    return {"max_abs_err": err, "tolerance": tol, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bms, "bound_by": by, "library_ms": None,
-            "b1_tblocked_ms": b1_ms,
+    return {"max_abs_err": err, "tolerance": tol, "ms": ms, "graph_ms": g_ms,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": None,
+            "b1_tblocked_ms": b1_ms, "b1_tblocked_graph_ms": b1_g_ms,
             "shape": f"{label}: q[{t.b},{t.kv},{t.g},{t.d}] cache[{t.L},{t.b},{t.kv},{t.T},"
                      f"{t.d}] int8, " + (f"valid_len={t.valid}" if with_new else
                                          "no current token: all T read")}
@@ -3997,11 +4147,12 @@ def check_mlp_gelu(dev, failures, L: int = 24):
         return tr._qdot(dd.gelu_tanh(up).to(t.x.dtype), {"q": t.wd[l], "s": t.sd[l]},
                         f32_out=True)
 
+    ms, g_ms = timed(lambda i: dd.mlp_gelu_int8_stacked(t.x, *args, i % L), 300, "B9d")
+    ops_ms, ops_g_ms = timed(lambda i: qdot_mlp(i % L), 100, "B9d yardstick")
     return _dense_entry(
-        B9D_NAME, got=got, ref=ref,
-        ms=cuda_ms(lambda i: dd.mlp_gelu_int8_stacked(t.x, *args, i % L), 300),
+        B9D_NAME, got=got, ref=ref, ms=ms, g_ms=g_ms,
         plain_ms=cuda_ms(lambda i: dd.mlp_gelu_int8_plain(t.x, *args, i % L), 20),
-        ops_ms=cuda_ms(lambda i: qdot_mlp(i % L), 100), ops_key="qdot_ops_ms",
+        ops_ms=ops_ms, ops_g_ms=ops_g_ms, ops_key="qdot_ops_ms",
         n_bytes=b * d * 2 + 2 * d * F + 4 * (F + d) + 2 * F + b * d * 4,
         n_ops=2 * b * 2 * d * F,
         shape=f"x[{b},{d}] bf16 (and f32), bf16 fc bias, d_ff {F} in tiles of "
@@ -4026,23 +4177,19 @@ def check_cache_append_k(dev, failures):
         torch.cuda.synchronize()
         exact = exact and torch.equal(got.view(torch.int16), ref.view(torch.int16))
         del got, ref
-    ms = cuda_ms(lambda i: cache_append_kv_stacked(k, None, kn, None, i % T), 300)
+    ms, g_ms = timed(lambda i: cache_append_kv_stacked(k, None, kn, None, i % T), 300, "K5")
     plain_ms = cuda_ms(lambda i: cache_append_k_plain(k, kn, i % T), 100)
 
     def assign(i):
         k[:, :, :, i % T] = kn
 
-    lib_ms = cuda_ms(assign, 100)
+    lib_ms, lib_g_ms = timed(assign, 100, "K5's slice assignment")
     bms, by = bound_ms(2 * L * b * kv * D * 2, 0, PEAK_BF16_FLOPS)
-    log(f"{K5_NAME}: byte-exact={exact} at positions 0, {T * 2 // 3}, {T - 1} (tolerance: "
-        "byte-exact); "
-        f"kernel {ms:.6f} ms, plain {plain_ms:.6f} ms, slice assignment {lib_ms:.6f} ms, bound "
-        f"{bms:.6f} ms ({by})")
-    if not exact:
-        failures.append("K5 differs from its plain version")
-    main = {"max_abs_err": 0.0 if exact else float("inf"), "tolerance": 0.0, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": lib_ms,
-            "shape": f"new[{L},{b},{kv},{D}] bf16 into one array [{L},{b},{kv},{T},{D}]"}
+    log(f"{K5_NAME}: checked at positions 0, {T * 2 // 3}, {T - 1}")
+    main = _append_row(K5_NAME, exact, ms, g_ms, plain_ms, lib_ms, lib_g_ms, bms, by,
+                       "slice assignment", _host_us(lambda i: cache_append_kv_stacked(
+                           k, None, kn, None, i % T)), failures)
+    main["shape"] = f"new[{L},{b},{kv},{D}] bf16 into one array [{L},{b},{kv},{T},{D}]"
     return _entry(K5_NAME, "vocalie_tts_tpu_torch/csrc/cache_update.cu",
                   "vocalie_tts_tpu/ops/cache_update.py:135", main,
                   launches_path="no served path: only JAX's one-array API reaches it (the "
@@ -4293,10 +4440,15 @@ def main() -> int:
     t_start = time.monotonic()
     dense = check_dense(dev, failures)
     dense_q3 = check_dense(dev, failures, QWEN3_DENSE)
+    for rows, shape in ((dense, T3_DENSE), (dense_q3, QWEN3_DENSE)):
+        for entry in rows:
+            if entry["name"] in TAIL_NAMES:
+                entry["plan"] = _tail_plan_note(dev, shape, entry["name"] == TAIL_NAMES[0])
     for entry, q3 in zip(dense, dense_q3):
-        entry["qwen3_shape"] = {k: q3[k] for k in ("max_abs_err", "bit_equal", "ms", "plain_ms",
-                                                   "bound_ms", "bound_by", "slice1_ops_ms",
-                                                   "shape")}
+        entry["qwen3_shape"] = {k: q3.get(k) for k in (
+            "max_abs_err", "bit_equal", "ms", "graph_ms", "plain_ms", "bound_ms", "bound_by",
+            "slice1_ops_ms", "slice1_ops_graph_ms", "plan", "host_us", "host_python_us",
+            "shape")}
     f32_attn = check_f32_attention(dev, failures)
     kernels = [check_decode_attention(dev, failures), *dense, check_cache_append(dev, failures),
                check_flash_attention(dev, failures), check_decode_step(dev, failures),
@@ -4514,6 +4666,109 @@ def time_qwen3_decode_kernel(dev, reps: int = 6) -> list:
     return out
 
 
+def time_decode_steps(dev, reps: int = 3, scale: str = "full") -> dict:
+    """The default decode step (int8 cache and weights: B3 + L x (B1 + B2)
+    + B5 + B4) of the Chatterbox bench request (T3, 8 chunks CFG-doubled,
+    b 16, seed 7) and of the Qwen3 bench request (voice_clone, b 8, seed
+    11), and each again with ``VOCALIE_MEGALAYER=1`` (B12 in place of B1 +
+    B2) on the same runtime, timed as phase 4 times them: decode alone, the
+    request's prefill and sampled steps less its prefill alone, ms/step;
+    ``reps`` times each, alternating the two envs, after a warm-up. Copied
+    into an unpacked parent commit and run there, it times that commit on
+    the same requests, so that two versions are compared within one call."""
+    from vocalie_tts_tpu_torch.engines.chatterbox import ChatterboxEngine
+    from vocalie_tts_tpu_torch.engines.qwen3 import Qwen3Engine
+    from vocalie_tts_tpu_torch.text import render_clean_text_from_segments
+
+    set_env(DEFAULT_ENV)
+    os.environ["VOCALIE_MODEL_SCALE"] = scale
+    os.environ["VOCALIE_ALLOW_RANDOM_WEIGHTS"] = "1"
+    steps = _wrappers()["steps"]
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        rt = ChatterboxEngine(device=dev, assets=os.path.join(tmp, "assets")).runtime()
+        kw = dict(mode="fr_finetune", lang="fr", exaggeration=0.5, cfg_weight=0.6)
+        t3, embeds, lens, (_, _, n_dec, cache_len) = rt._prepare_batch([_SENT] * 8, **kw)
+
+        def chatterbox(n):
+            rt.generate(t3, embeds, lens, cache_len=cache_len, max_new=n, temperature=0.5,
+                        cfg_weight=0.6, repetition_penalty=1.35)
+            torch.cuda.synchronize()
+
+        out["chatterbox"] = _time_decode(chatterbox, n_dec, steps, reps)
+        rt = Qwen3Engine(device=dev, assets=os.path.join(tmp, "q3")).runtime()
+        ref = _write_tone_ref(os.path.join(tmp, "bench_ref.wav"))
+        bench = "\n[[CHUNK]]\n".join([XTTS_SENT] * 8)
+        chunks = _request(bench, os.path.join(tmp, "q.wav"))["chunks"]
+        texts = [render_clean_text_from_segments(ch.segments) for ch in chunks]
+        spk = rt.speaker_embedding("voice_clone", "Vivian", ref)
+        out["qwen3"] = _time_decode(lambda n: _qwen3_decode(rt, texts, n, spk), 192, steps, reps)
+    set_env(DEFAULT_ENV)
+    for family, rows in out.items():
+        for env, ms in rows.items():
+            log(f"decode steps [{family}, {env}]: " + ", ".join(f"{m:.3f}" for m in ms)
+                + " ms/step")
+    return out
+
+
+def _time_decode(decode, n_steps: int, steps, reps: int) -> dict:
+    """``decode(n)`` (prefill, then ``n`` sampled steps, synchronized) timed
+    as decode alone, ms/step, under the default env and
+    ``VOCALIE_MEGALAYER=1`` in turn, ``reps`` times each."""
+    out = {"default": [], "VOCALIE_MEGALAYER=1": []}
+    for env in (DEFAULT_ENV, MEGALAYER_ENV):
+        set_env(env)
+        decode(n_steps)   # warm-up: each path's first launches
+    for _ in range(reps):
+        for label, env in (("default", DEFAULT_ENV), ("VOCALIE_MEGALAYER=1", MEGALAYER_ENV)):
+            set_env(env)
+            t1 = time.monotonic()
+            decode(0)
+            t2 = time.monotonic()
+            n0 = steps.launches
+            decode(n_steps)
+            t3 = time.monotonic()
+            out[label].append(((t3 - t2) - (t2 - t1)) / max(steps.launches - n0, 1) * 1e3)
+    return out
+
+
+def _decode_steps_only() -> int:
+    """``--decode-steps``: B2 at the T3 and Qwen3 shapes and B8a at the Qwen3
+    shape (eager, graph, the wrapper's host µs whole and before the C call),
+    then ``time_decode_steps``, printed as one JSON line."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    from vocalie_tts_tpu_torch.ops import _build
+    from vocalie_tts_tpu_torch.ops import decode_dense as dd
+
+    log(f"kernels built -> {_build.build().name}")
+    dev = torch.device("cuda:0")
+    rows = []
+    for shape, names in ((T3_DENSE, TAIL_NAMES[:1]), (QWEN3_DENSE, TAIL_NAMES)):
+        t = _dense_inputs(dev, shape)
+        calls = {TAIL_NAMES[0]: lambda i, t=t: dd.tail_swiglu_qkv_int8_stacked(
+                     *t.args, i % t.L, eps=t.eps),
+                 TAIL_NAMES[1]: lambda i, t=t: dd.tail_swiglu_int8_stacked(
+                     *t.tail, i % t.L, eps=t.eps)}
+        for name in names:
+            call = calls[name]
+            ms, g_ms = timed(call, 300, f"{name} [{shape['label']}]")
+            host, python = _wrapper_host_us(call)
+            log(f"{name} [{shape['label']}]: {ms:.6f} ms eager, {fmt_ms(g_ms)} ms graph, "
+                f"wrapper host time {host:.2f} us a call, {python:.2f} us of it before the C "
+                "call")
+            rows.append({"name": name, "shape": shape["label"], "ms": ms, "graph_ms": g_ms,
+                         "host_us": host, "host_python_us": python})
+        del t
+    decode = time_decode_steps(dev)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    print(smi.stdout.strip(), flush=True)
+    print(json.dumps({"rows": rows, "decode_ms_per_step": decode}), flush=True)
+    return 0
+
+
 def _f32_attention_only() -> int:
     """``--f32-attention [--sweep]``: build the kernels and run phase 2's
     K1, K2 and B10 rows alone (with ``--sweep``, also every split count:
@@ -4536,6 +4791,42 @@ def _f32_attention_only() -> int:
     return 1 if failures else 0
 
 
+def _tail_rows_only() -> int:
+    """``--tail-rows``: build the kernels and run phase 2's dense rows at the
+    T3 and Qwen3 shapes (B3, B2, B4; B8a, B8b) and the K4 and K5 rows, each
+    eager and graph-timed, then count one B2 call's and one B8a call's CUDA
+    kernels with torch.profiler (after every timing), and print the rows as
+    one JSON line. Copied into an unpacked copy of another commit and run
+    there, it times that commit's kernels on the same rows; a failed gate is
+    printed, not fatal (the old B2 body is not one kernel)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    from vocalie_tts_tpu_torch.ops import _build
+
+    log(f"kernels built -> {_build.build().name}")
+    for line in _build.build_log().splitlines():
+        if "tail_swiglu" in line or ("registers" in line and "tail" in line):
+            log("  " + line.strip()[:160])
+    dev = torch.device("cuda:0")
+    failures: list = []
+    rows = check_dense(dev, failures) + check_dense(dev, failures, QWEN3_DENSE)
+    rows += [check_cache_append_kv(dev, failures), check_cache_append_k(dev, failures)]
+    t3 = _dense_inputs(dev).calls
+    q3 = _dense_inputs(dev, QWEN3_DENSE).calls
+    for name, call in ((TAIL_NAMES[0], t3[TAIL_NAMES[0]]), (TAIL_NAMES[1], q3[TAIL_NAMES[1]])):
+        call()
+        per_call = kernels_per_call(call)
+        log(f"{name}: CUDA kernels per call (profiled): {sum(per_call.values())} ("
+            + ", ".join(f"{_kernel_name(k)} x{n}" for k, n in sorted(per_call.items())) + ")")
+        rows.append({"name": name, "cuda_kernels_per_call": sum(per_call.values())})
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    print(smi.stdout.strip(), flush=True)
+    print(json.dumps({"rows": rows, "failures": failures}), flush=True)
+    return 0
+
+
 def _qwen3_decode_kernel_only() -> int:
     """``--qwen3-decode-kernel``: ``time_qwen3_decode_kernel`` alone."""
     if not torch.cuda.is_available():
@@ -4547,5 +4838,6 @@ def _qwen3_decode_kernel_only() -> int:
 
 if __name__ == "__main__":
     modes = {"--count-kernels": _count_kernels_child, "--f32-attention": _f32_attention_only,
-             "--qwen3-decode-kernel": _qwen3_decode_kernel_only}
+             "--qwen3-decode-kernel": _qwen3_decode_kernel_only, "--tail-rows": _tail_rows_only,
+             "--decode-steps": _decode_steps_only}
     sys.exit(modes[sys.argv[1]]() if sys.argv[1:2] and sys.argv[1] in modes else main())

@@ -63,7 +63,10 @@ import math
 import pytest
 import torch
 
+from vocalie_tts_tpu_torch.ops import _build
 from vocalie_tts_tpu_torch.ops.cache_update import (
+    _KV_ARGTYPES,
+    append_word,
     cache_append_k_plain,
     cache_append_k_stacked,
     cache_append_kv_plain,
@@ -438,6 +441,64 @@ def test_cache_append_k_kernel_is_byte_exact(dev, dtype, L, b, kv, T, D, pos):
     assert torch.equal(got.view(bits), ref.view(bits))
 
 
+def _offset(t, elems):
+    """A contiguous copy of ``t`` whose data starts ``elems`` elements past a
+    fresh allocation (aligned to the element only)."""
+    flat = torch.empty((t.numel() + elems,), dtype=t.dtype, device=t.device)
+    out = flat[elems:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("dtype,d,misalign,word", [
+    (torch.bfloat16, 64, 0, 16),    # K4's rows at the T3 cache: 128 bytes
+    (torch.float32, 8, 0, 16),      # 32 bytes
+    (torch.bfloat16, 6, 0, 4),      # 12 bytes
+    (torch.float32, 3, 0, 4),       # 12 bytes
+    (torch.bfloat16, 3, 0, 1),      # 6 bytes
+    (torch.bfloat16, 64, 2, 4),     # 16-byte rows, the new rows 4-byte aligned only
+    (torch.bfloat16, 64, 1, 1),     # 2-byte aligned new rows
+])
+@pytest.mark.parametrize("pos", [0, 135])
+def test_cache_append_kv_words_are_byte_exact(dev, dtype, d, misalign, word, pos):
+    """K4 (k and v) and K5 (one array) in 16-, 4- and 1-byte words, at the
+    first and the last slot, byte for byte against the slice assignment."""
+    L, b, kv, T = 2, 3, 2, 136
+    gen = _gen(dev, d + pos + misalign)
+    k, v = (torch.randn((L, b, kv, T, d), generator=gen, device=dev).to(dtype)
+            for _ in range(2))
+    kn, vn = (_offset(torch.randn((L, b, kv, d), generator=gen, device=dev).to(dtype), misalign)
+              for _ in range(2))
+    row = d * k.element_size()
+    assert append_word(row, k.data_ptr(), v.data_ptr(), kn.data_ptr(), vn.data_ptr()) == word
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    got = cache_append_kv_stacked(k.clone(), v.clone(), kn, vn, pos)
+    ref = cache_append_kv_plain(k.clone(), v.clone(), kn, vn, pos)
+    got1 = cache_append_kv_stacked(k.clone(), None, kn, None, pos)
+    ref1 = cache_append_k_plain(k.clone(), kn, pos)
+    torch.cuda.synchronize()
+    for a, r in zip(got + (got1,), ref + (ref1,)):
+        assert torch.equal(a.view(bits), r.view(bits))
+
+
+def test_cache_append_kv_refuses_a_misaligned_word(dev):
+    """The C entry refuses a 16-byte word on a row pointer that is not
+    16-byte aligned, and a word the row's width is not a multiple of; b = 0
+    rows are refused too. Nothing is written."""
+    k = torch.zeros((1, 2, 2, 8, 64), dtype=torch.bfloat16, device=dev)
+    kn = _offset(torch.ones((1, 2, 2, 64), dtype=torch.bfloat16, device=dev), 2)
+    fn = _build.kernel("vt_cache_append_kv", _KV_ARGTYPES)
+    stream = _build.stream_ptr(k)
+    assert fn(k.data_ptr(), None, kn.data_ptr(), None, 4, 8, 128, 3, 16, stream) != 0
+    assert fn(k.data_ptr(), None, kn.data_ptr(), None, 4, 8, 6, 3, 4, stream) != 0
+    assert fn(k.data_ptr(), None, kn.data_ptr(), None, 0, 8, 128, 3, 4, stream) != 0
+    torch.cuda.synchronize()
+    assert not k.any()
+    assert fn(k.data_ptr(), None, kn.data_ptr(), None, 4, 8, 128, 3, 4, stream) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(k[:, :, :, 3], kn) and int((k != 0).sum()) == kn.numel()
+
+
 # ── B6 ──────────────────────────────────────────────────────────────────
 
 
@@ -798,6 +859,136 @@ def test_tail_swiglu_int8_kernel(dev, b, L, d, F, layer, dtype):
     assert got.shape == (b, d) and got.dtype == torch.float32
     _close(got, ref)
     assert torch.equal(got, b2)
+
+
+#: B2/B8a's one-launch body at the T3 and Qwen3 widths: (d_model = d_attn,
+#: d_ff, d_qkv, eps); three layers, so that 0, L/2 and L - 1 are 0, 1, 2
+TAIL_WIDTHS = {"t3": (1024, 4096, 3072, 1e-5), "qwen3": (2048, 8192, 4096, 1e-6)}
+_TAIL_WEIGHTS: dict = {}
+
+
+def _tail_weights(dev, width, L=3):
+    if width not in _TAIL_WEIGHTS:
+        d, F, Q, _ = TAIL_WIDTHS[width]
+        gen = _gen(dev, d + F)
+        wo, wos = _int8_weights(gen, dev, L, d, d)
+        mw = 1 + 0.1 * torch.randn((L, d), generator=gen, device=dev)
+        wgu, sgu = _int8_weights(gen, dev, L, d, 2 * F)
+        wd, sd = _int8_weights(gen, dev, L, F, d)
+        nw = 1 + 0.1 * torch.randn((L, d), generator=gen, device=dev)
+        wq, sq = _int8_weights(gen, dev, L, d, Q)
+        _TAIL_WEIGHTS.clear()   # one width's weights at a time (the Qwen3 layers are 0.2 GB)
+        _TAIL_WEIGHTS[width] = (wo, wos, mw, wgu, sgu, wd, sd, nw, wq, sq)
+    return _TAIL_WEIGHTS[width]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("layer", [0, 1, 2])
+@pytest.mark.parametrize("b", [1, 8, 16, 17])
+@pytest.mark.parametrize("width", list(TAIL_WIDTHS))
+def test_tail_swiglu_one_launch_is_bit_equal(dev, width, b, layer, dtype):
+    """B2 and B8a (one cooperative launch on the int8 tensor cores) against
+    their plain versions, bit for bit, with a zero attention row; B8a equals
+    B2's first output."""
+    d, F, Q, eps = TAIL_WIDTHS[width]
+    wo, wos, mw, wgu, sgu, wd, sd, nw, wq, sq = _tail_weights(dev, width)
+    gen = _gen(dev, 100 * b + layer)
+    attn = torch.randn((b, d), generator=gen, device=dev) * 0.3
+    attn[b // 2] = 0
+    x = torch.randn((b, d), generator=gen, device=dev).to(dtype)
+    mw_, nw_ = (mw, nw) if dtype == torch.float32 else (mw.to(dtype), nw.to(dtype))
+    tail = (attn, x, wo, wos, mw_, wgu, sgu, wd, sd)
+    before = tail_swiglu_qkv_int8_stacked.launches, tail_swiglu_int8_stacked.launches
+    x_out, qkv = tail_swiglu_qkv_int8_stacked(*tail, nw_, wq, sq, layer, eps=eps)
+    x8 = tail_swiglu_int8_stacked(*tail, layer, eps=eps)
+    rx, rq = tail_swiglu_qkv_int8_plain(*tail, nw_, wq, sq, layer, eps=eps)
+    torch.cuda.synchronize()
+    assert (tail_swiglu_qkv_int8_stacked.launches, tail_swiglu_int8_stacked.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert x_out.shape == (b, d) and qkv.shape == (b, Q)
+    assert torch.equal(x_out, rx), (x_out - rx).abs().max().item()
+    assert torch.equal(qkv, rq), (qkv - rq).abs().max().item()
+    assert torch.equal(x8, x_out)
+
+
+def test_tail_swiglu_is_one_cuda_kernel_a_call(dev):
+    """torch.profiler sees one CUDA kernel for a B2 call and one for a B8a
+    call (the old body issued 12 and 9)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    d, F, Q, eps = TAIL_WIDTHS["t3"]
+    wo, wos, mw, wgu, sgu, wd, sd, nw, wq, sq = _tail_weights(dev, "t3")
+    gen = _gen(dev, 7)
+    attn = torch.randn((16, d), generator=gen, device=dev)
+    x = torch.randn((16, d), generator=gen, device=dev).to(torch.bfloat16)
+    tail = (attn, x, wo, wos, mw, wgu, sgu, wd, sd)
+    calls = [lambda: tail_swiglu_qkv_int8_stacked(*tail, nw, wq, sq, 1, eps=eps),
+             lambda: tail_swiglu_int8_stacked(*tail, 1, eps=eps)]
+    for call in calls:
+        call()   # builds, plans and uploads the item table outside the profile
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                   and "memcpy" not in e.name.lower() and "memset" not in e.name.lower()]
+        assert [e.name for e in kernels if "tail_swiglu_kernel" in e.name] and len(kernels) == 1, [
+            e.name for e in kernels]
+
+
+def test_tail_swiglu_refuses_bad_inputs(dev):
+    d, F, Q, eps = TAIL_WIDTHS["t3"]
+    wo, wos, mw, wgu, sgu, wd, sd, nw, wq, sq = _tail_weights(dev, "t3")
+    x = torch.zeros((4, d), device=dev)
+    attn = torch.zeros((4 * d + 1,), device=dev)[1:].view(4, d)   # 4-byte aligned only
+    with pytest.raises(ValueError, match="16-byte"):
+        tail_swiglu_qkv_int8_stacked(attn, x, wo, wos, mw, wgu, sgu, wd, sd, nw, wq, sq, 0,
+                                     eps=eps)
+    empty = torch.zeros((0, d), device=dev)
+    with pytest.raises(ValueError, match="rows"):
+        tail_swiglu_int8_stacked(empty, empty, wo, wos, mw, wgu, sgu, wd, sd, 0, eps=eps)
+    big = torch.zeros((33, d), device=dev)
+    with pytest.raises(ValueError, match="rows"):
+        tail_swiglu_qkv_int8_stacked(big, big, wo, wos, mw, wgu, sgu, wd, sd, nw, wq, sq, 0,
+                                     eps=eps)
+
+
+@pytest.mark.parametrize("megatail", [True, False], ids=["B2", "B8a"])
+def test_untaken_tail_batches_take_dense_fns_on_the_card(dev, monkeypatch, megatail):
+    """33 rows of the T3 layer, which B2/B8a do not take: on the card
+    ``_dense_dispatch`` sends the step to ``DENSE_FNS`` (at 32 rows it keeps
+    the megatail or the tail), whose B4 (qkv, o) and B8b (the MLP) run the
+    33 rows and agree with their plain versions."""
+    from vocalie_tts_tpu_torch.models.common import transformer as tr
+
+    d, F, Q, eps = TAIL_WIDTHS["t3"]
+    wo, wos, mw, wgu, sgu, wd, sd, nw, wq, sq = _tail_weights(dev, "t3")
+    monkeypatch.delenv("VOCALIE_MEGALAYER", raising=False)
+    monkeypatch.setenv("VOCALIE_MEGATAIL", "1" if megatail else "0")
+    cfg = tr.TransformerConfig(vocab_size=1152, d_model=d, n_layers=3, n_heads=16,
+                               n_kv_heads=16, d_head=64, d_ff=F, norm_eps=eps, kv_quant=True,
+                               decode_kernel=True, dense_kernel=True)
+    layers = {"wqkv": {"q": wq, "s": sq}, "wo": {"q": wo, "s": wos},
+              "w_gateup": {"q": wgu, "s": sgu}, "w_down": {"q": wd, "s": sd}}
+    assert tr._dense_dispatch(layers, cfg, 32, 640) == (tr.MEGATAIL if megatail else tr.TAIL)
+    assert tr._dense_dispatch(layers, cfg, 33, 640) == tr.DENSE_FNS
+    qkv_dot, o_dot, mlp_fn = tr._dense_fns(layers, cfg, 2)
+    x = torch.randn((33, 1, d), generator=_gen(dev, 33), device=dev).to(torch.bfloat16)
+    for dot, w, s in ((qkv_dot, wq, sq), (o_dot, wo, wos)):
+        got = dot(x)[:, 0]
+        ref = dense_int8_plain(x[:, 0], w, s, 2)
+        torch.cuda.synchronize()
+        # the path casts B4's f32 output to the activations' bf16: within
+        # that rounding (2^-8 of the value) of the plain version, plus B4's
+        # own 1e-5 of max|ref|
+        err = (got.float() - ref).abs()
+        assert got.shape == ref.shape and torch.isfinite(got).all()
+        assert (err <= ref.abs() * 2 ** -8 + 1e-5 * ref.abs().max()).all(), err.max().item()
+    got = mlp_fn(x)[:, 0]
+    ref = mlp_swiglu_int8_plain(x[:, 0], wgu, sgu, wd, sd, 2)
+    torch.cuda.synchronize()
+    assert got.shape == (33, d)
+    _close(got, ref)
 
 
 @pytest.mark.parametrize("b,L,d,F,layer,dtype,zero_row", [

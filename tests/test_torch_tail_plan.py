@@ -1,0 +1,195 @@
+"""The launch plans of the port's one-launch SwiGLU layer tail (B2, B8a:
+``csrc/tail_swiglu.cu``) and the word choice of its cache appends without
+scales (K4, K5: ``csrc/cache_update.cu``), as pure functions of the shapes:
+the CUDA bodies run only on the card (``tests/test_torch_kernels_cuda.py``
+and ``chip_smoke.py`` hold them against their plain versions there), and
+what they are told to do is decided here in Python.
+
+``tail_plan`` at the T3 layer (d_model 1024, d_ff 4096 in tiles of 2048,
+qkv 3072), the Qwen3 layer (d_model 2048, d_ff 8192 in tiles of 1024, qkv
+4096) and the tiny models' (d_model 64, d_ff 128, qkv 128), with the
+next-layer qkv (B2) and without (B8a), at b = 1, 8, 16 and 17, on a card of
+132 SMs (the H100): every output column of every product is owned by
+exactly one block, every weight row of every product is streamed exactly
+once, the shared bytes stay within the 232,448 a Hopper block may use, and
+the ring holds every tile of the call where the call's weights fit beside
+the activations (the T3 layer: ~127 KB an SM) and is a ring of stages where
+they do not (the Qwen3 layer: ~470 KB an SM). ``tail_takes`` says which
+shapes the body takes on such a card, and ``_dense_dispatch`` sends the
+others to ``DENSE_FNS`` (B4 + B8b), which take any batch and width.
+"""
+
+import dataclasses
+
+import pytest
+import torch
+
+from vocalie_tts_tpu_torch.ops.cache_update import append_word
+from vocalie_tts_tpu_torch.ops.decode_dense import (
+    SLAB,
+    SMEM_MAX,
+    TAIL_MAX_STAGES,
+    pick_tile,
+    tail_item_rows,
+    tail_plan,
+    tail_stream,
+    tail_takes,
+    TILE_BUDGET,
+)
+
+H100_SMS = 132
+
+#: (label, d_attn, d_model, d_ff, d_qkv)
+WIDTHS = [("t3", 1024, 1024, 4096, 3072), ("qwen3", 2048, 2048, 8192, 4096),
+          ("tiny", 64, 64, 128, 128)]
+
+
+def _plan(width, b, with_qkv):
+    _, d_attn, d, d_ff, Q = width
+    tile = pick_tile(d_ff, TILE_BUDGET, 2 * d)
+    Q = Q if with_qkv else 0
+    return tail_plan(b, d_attn, d, d_ff, tile, Q, H100_SMS), (d_attn, d, d_ff, tile, Q)
+
+
+@pytest.mark.parametrize("with_qkv", [True, False], ids=["B2", "B8a"])
+@pytest.mark.parametrize("b", [1, 8, 16, 17])
+@pytest.mark.parametrize("width", WIDTHS, ids=[w[0] for w in WIDTHS])
+def test_tail_plan_owns_every_column_and_streams_every_row_once(width, b, with_qkv):
+    plan, (d_attn, d, d_ff, tile, Q) = _plan(width, b, with_qkv)
+    n_cols = (d, 2 * d_ff, d, Q)
+    k_rows = (d_attn, d, d_ff, d)
+    # columns: each (product, slab) item owned by exactly one block
+    owned = [(p, s) for its in plan.items for p, s in its]
+    assert len(owned) == len(set(owned))
+    assert sorted(owned) == [(p, s) for p in range(4) for s in range(n_cols[p] // SLAB // (
+        2 if p == 1 else 1))]
+    # rows: each (product, 32-column slab, kc-row tile) streamed exactly once
+    tiles = []
+    for blk in range(plan.grid):
+        stream = tail_stream(plan, blk, d_attn, d, d_ff)
+        assert len(stream) == plan.tiles[blk]
+        assert [p for p, _, _ in stream] == sorted(p for p, _, _ in stream), "product order"
+        tiles += stream
+    assert len(tiles) == len(set(tiles))
+    assert sorted(tiles) == sorted((p, c, r) for p in range(4)
+                                   for c in range(0, n_cols[p], SLAB)
+                                   for r in range(0, k_rows[p], plan.kc))
+    # a tile lies in one d_ff tile of the down-projection (its int32 sum is
+    # scaled per tile), and an item's columns in one d_ff tile of the hidden
+    assert tile % plan.kc == 0 and d_attn % plan.kc == 0 and d % plan.kc == 0
+    assert all(SLAB * s // tile == (SLAB * s + SLAB - 1) // tile
+               for its in plan.items for p, s in its if p == 1)
+    # the table the kernel reads: grid + 1 offsets, then the items
+    table = plan.table()
+    assert table[:plan.grid + 1] == [sum(len(i) for i in plan.items[:k])
+                                     for k in range(plan.grid + 1)]
+    assert len(table) == plan.grid + 1 + len(owned)
+    assert plan.grid <= H100_SMS
+
+
+@pytest.mark.parametrize("b", [1, 8, 16, 17])
+@pytest.mark.parametrize("width", WIDTHS, ids=[w[0] for w in WIDTHS])
+def test_tail_plan_shared_bytes_and_ring_depth(width, b):
+    plan, (d_attn, d, d_ff, tile, Q) = _plan(width, b, True)
+    assert plan.smem <= SMEM_MAX
+    stage = plan.kc * SLAB
+    # the ring is what is left after the activations and the sums, in stages
+    fixed = plan.smem - plan.stages * stage
+    assert b * (max(d_attn, d, d_ff) + 16) <= fixed
+    assert 1 <= plan.stages <= TAIL_MAX_STAGES
+    biggest = max(plan.tiles)
+    per_sm = sum(tail_item_rows(p, d_attn, d, d_ff) * SLAB
+                 for its in plan.items for p, _ in its) / plan.grid
+    if width[0] == "qwen3":
+        # ~470 KB of weights an SM: a ring of as many stages as fit, refilled
+        assert per_sm > SMEM_MAX and not plan.ring_holds_all
+        assert plan.stages < biggest
+        assert fixed + (plan.stages + 1) * stage > SMEM_MAX
+    else:
+        # the ring holds every tile of the block at once
+        assert plan.ring_holds_all and plan.stages == biggest
+    if width[0] == "t3":
+        assert per_sm < 128 * 1024 and plan.kc == 1024 and plan.grid == H100_SMS
+        # the blocks' weight bytes: dealt largest first, none above 128 KB
+        loads = [sum(tail_item_rows(p, d_attn, d, d_ff) * SLAB for p, _ in its)
+                 for its in plan.items]
+        assert max(loads) <= 128 * 1024
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(b=33), "rows"),
+    (dict(b=0), "rows"),
+    (dict(d=1000), "d_model"),
+    (dict(d=4096, d_attn=4096), "norm rows"),
+    (dict(Q=100), "d_qkv"),
+    (dict(b=32, d_ff=16384, tile=1024, d=2048, d_attn=2048), "shared memory"),
+])
+def test_tail_plan_refuses_what_the_body_does_not_take(kw, match):
+    args = dict(b=16, d_attn=1024, d=1024, d_ff=4096, tile=2048, Q=3072, sms=H100_SMS)
+    args.update(kw)
+    with pytest.raises(ValueError, match=match):
+        tail_plan(**args)
+
+
+@pytest.mark.parametrize("b,d,d_ff,Q,takes", [
+    (16, 1024, 4096, 3072, True),     # the T3 layer
+    (32, 1024, 4096, 3072, True),     # its most rows
+    (33, 1024, 4096, 3072, False),    # a batch past 32 rows
+    (33, 1024, 4096, 0, False),       # B8a alike
+    (16, 2048, 8192, 4096, True),     # the Qwen3 layer at its CFG batch
+    (24, 2048, 8192, 4096, False),    # its hidden rows leave no room for a ring
+    (8, 4096, 16384, 12288, False),   # normed rows past 2048
+])
+def test_tail_takes_what_tail_plan_plans(b, d, d_ff, Q, takes):
+    tile = pick_tile(d_ff, TILE_BUDGET, 2 * d)
+    assert tail_takes(b, d, d, d_ff, Q, H100_SMS) is takes
+    if not takes:
+        with pytest.raises(ValueError):
+            tail_plan(b, d, d, d_ff, tile, Q, H100_SMS)
+    # off a card the plain version takes any shape
+    assert tail_takes(b, d, d, d_ff, Q, None) is True
+
+
+@pytest.mark.parametrize("megatail", [True, False], ids=["B2", "B8a"])
+def test_dispatch_sends_untaken_tail_shapes_to_dense_fns(monkeypatch, megatail):
+    """On a card (``card_sms`` answering 132), the T3 layer at 32 rows takes
+    the megatail (or, with ``VOCALIE_MEGATAIL=0``, the tail) and at 33 rows
+    ``DENSE_FNS``; off a card (the plain versions) 33 rows keep the JAX
+    package's path."""
+    from vocalie_tts_tpu_torch.models.chatterbox.runtime import SCALES
+    from vocalie_tts_tpu_torch.models.common import transformer as tr
+    from vocalie_tts_tpu_torch.models.common.ar_runtime import apply_runtime_env
+
+    monkeypatch.setenv("VOCALIE_DENSE_KERNEL", "1")
+    monkeypatch.setenv("VOCALIE_KV_INT8", "1")
+    monkeypatch.delenv("VOCALIE_MEGALAYER", raising=False)
+    if megatail:
+        monkeypatch.delenv("VOCALIE_MEGATAIL", raising=False)
+    else:
+        monkeypatch.setenv("VOCALIE_MEGATAIL", "0")
+    cfg = dataclasses.replace(apply_runtime_env(SCALES["tiny"]).lm, d_model=1024, n_heads=16,
+                              n_kv_heads=16, d_head=64, d_ff=4096)
+    zero = torch.zeros((), dtype=torch.int8)
+    layers = {name: {"q": zero.expand(shape)} for name, shape in (
+        ("wqkv", (2, 1024, 3072)), ("wo", (2, 1024, 1024)),
+        ("w_gateup", (2, 1024, 8192)), ("w_down", (2, 4096, 1024)))}
+    path = tr.MEGATAIL if megatail else tr.TAIL
+    assert tr._dense_dispatch(layers, cfg, 33, 640) == path
+    monkeypatch.setattr(tr, "card_sms", lambda device: H100_SMS)
+    assert tr._dense_dispatch(layers, cfg, 32, 640) == path
+    assert tr._dense_dispatch(layers, cfg, 33, 640) == tr.DENSE_FNS
+
+
+@pytest.mark.parametrize("row_bytes,ptrs,word", [
+    (128, (0, 256, 1024, 4096), 16),       # K4's bf16 rows of d 64
+    (256, (0, 512), 16),                   # K5's bf16 k|v rows of 128
+    (32, (0, 64), 16),                     # f32 rows of d 8
+    (64, (0, 64), 16),                     # int8 rows of d 64
+    (24, (0, 48), 4),                      # int8 rows of 24: not a 16-multiple
+    (48, (0, 8, 1024, 16), 4),             # bf16 rows of 24: one pointer 8-aligned
+    (128, (0, 2, 1024, 16), 1),            # a 2-aligned pointer
+    (3, (0, 16), 1),                       # 3-byte int8 rows
+    (4, (0, 4), 4),                        # bf16 rows of 2
+])
+def test_append_word_by_row_width_and_alignment(row_bytes, ptrs, word):
+    assert append_word(row_bytes, *ptrs) == word

@@ -72,47 +72,80 @@ extern "C" int vt_cache_append(
 //
 // Bound: bytes. It reads the new rows and writes them once:
 // L*b*kv rows of k (and of v) each way, ~1 MB at the Chatterbox shape
-// (30*16*16 rows, d 64, bf16): launch latency is what it costs.
+// (30*16*16 rows, d 64, bf16), 2 MB for K5's [30,16,16,128] bf16 k|v.
 //
-// Design: the rows are copied as bytes, 4 at a time where a row's width
-// allows it (every bf16 or f32 row of an even d), one thread per word.
+// Design: each row is copied in words of `word` bytes, chosen by the
+// caller (ops/cache_update.py append_word): 16 where the row's bytes are a
+// multiple of 16 and every pointer is 16-byte aligned (every bf16 or f32
+// row of d >= 8, the int8 rows of d 64 and 128), else 4, else 1. A grid of
+// a few blocks an SM strides over the words (one 16-byte load and store a
+// thread and step); the stores stay cached, since the next step's attention
+// reads the slot.
 
+template <typename V>
 __global__ void cache_append_kv_kernel(
     uint8_t* __restrict__ k_cache, uint8_t* __restrict__ v_cache,       // [rows, T, row_bytes]
     const uint8_t* __restrict__ k_new, const uint8_t* __restrict__ v_new, // [rows, row_bytes]
-    long long rows, int T, int row_bytes, int pos, int word) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const int per_row = row_bytes / word;
-  if (i >= rows * per_row) return;
-  const long long r = i / per_row;
-  const int e = (int)(i - r * per_row) * word;
-  const long long src = r * row_bytes + e;
-  const long long dst = (r * T + pos) * row_bytes + e;
-  if (word == 4) {
-    *reinterpret_cast<uint32_t*>(k_cache + dst) = *reinterpret_cast<const uint32_t*>(k_new + src);
-    if (v_cache != nullptr) {
-      *reinterpret_cast<uint32_t*>(v_cache + dst) = *reinterpret_cast<const uint32_t*>(v_new + src);
-    }
-  } else {
-    k_cache[dst] = k_new[src];
-    if (v_cache != nullptr) v_cache[dst] = v_new[src];
+    long long rows, int T, int per_row, int pos) {
+  V* kc = reinterpret_cast<V*>(k_cache);
+  V* vc = reinterpret_cast<V*>(v_cache);
+  const V* kn = reinterpret_cast<const V*>(k_new);
+  const V* vn = reinterpret_cast<const V*>(v_new);
+  const long long total = rows * per_row;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < total;
+       i += (long long)gridDim.x * blockDim.x) {
+    const long long r = i / per_row;
+    const long long dst = (r * T + pos) * per_row + (i - r * per_row);
+    kc[dst] = __ldg(kn + i);
+    if (vc != nullptr) vc[dst] = __ldg(vn + i);
   }
 }
 
-// v_cache == v_new == null: one array (K5)
+static int sm_count() {
+  static int n[64];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  int& c = n[dev & 63];
+  if (c == 0 && cudaDeviceGetAttribute(&c, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess) {
+    c = 0;
+  }
+  return c;
+}
+
+// v_cache == v_new == null: one array (K5). word: 16, 4 or 1; a row width or
+// a pointer that is not a multiple of it is refused.
 extern "C" int vt_cache_append_kv(
     void* k_cache, void* v_cache, const void* k_new, const void* v_new,
-    long long rows, int T, int row_bytes, int pos, void* stream) {
+    long long rows, int T, int row_bytes, int pos, int word, void* stream) {
   if (rows < 1 || row_bytes < 1 || pos < 0 || pos >= T ||
-      (v_cache == nullptr) != (v_new == nullptr)) {
+      (v_cache == nullptr) != (v_new == nullptr) || (word != 16 && word != 4 && word != 1) ||
+      row_bytes % word != 0) {
     return (int)cudaErrorInvalidValue;
   }
-  const int word = row_bytes % 4 == 0 ? 4 : 1;
+  const void* ptrs[4] = {k_cache, v_cache, k_new, v_new};
+  for (const void* p : ptrs) {
+    if ((uintptr_t)p % word != 0) return (int)cudaErrorMisalignedAddress;
+  }
   const int threads = 256;
-  const long long total = rows * (row_bytes / word);
-  const unsigned int blocks = (unsigned int)((total + threads - 1) / threads);
-  cache_append_kv_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (uint8_t*)k_cache, (uint8_t*)v_cache, (const uint8_t*)k_new, (const uint8_t*)v_new,
-      rows, T, row_bytes, pos, word);
+  const int per_row = row_bytes / word;
+  const long long total = rows * per_row;
+  long long blocks = (total + threads - 1) / threads;
+  const int sms = sm_count();
+  if (sms > 0 && blocks > 4LL * sms) blocks = 4LL * sms;
+  cudaStream_t st = (cudaStream_t)stream;
+  uint8_t* kc = (uint8_t*)k_cache;
+  uint8_t* vc = (uint8_t*)v_cache;
+  const uint8_t* kn = (const uint8_t*)k_new;
+  const uint8_t* vn = (const uint8_t*)v_new;
+  if (word == 16) {
+    cache_append_kv_kernel<uint4><<<(unsigned)blocks, threads, 0, st>>>(kc, vc, kn, vn, rows, T,
+                                                                        per_row, pos);
+  } else if (word == 4) {
+    cache_append_kv_kernel<uint32_t><<<(unsigned)blocks, threads, 0, st>>>(kc, vc, kn, vn, rows,
+                                                                           T, per_row, pos);
+  } else {
+    cache_append_kv_kernel<uint8_t><<<(unsigned)blocks, threads, 0, st>>>(kc, vc, kn, vn, rows, T,
+                                                                          per_row, pos);
+  }
   return (int)cudaGetLastError();
 }

@@ -1,15 +1,13 @@
 // int8-native dense decode-step kernels: B4 (one int8 product), B3 (RMSNorm
-// + the fused int8 qkv product), B2 (the whole SwiGLU layer tail + the NEXT
-// layer's RMSNorm and qkv product), B8a (the SwiGLU tail alone), B8b (the
-// int8 SwiGLU MLP alone), and their GPT-2 (XTTS) siblings: B9a (LayerNorm +
-// qkv), B9b (the GELU layer tail + the next layer's LayerNorm and qkv), B9c
-// (the GELU tail alone) and B9d (the int8 GELU MLP alone).
+// + the fused int8 qkv product), B8b (the int8 SwiGLU MLP alone), and their
+// GPT-2 (XTTS) siblings: B9a (LayerNorm + qkv), B9b (the GELU layer tail +
+// the next layer's LayerNorm and qkv), B9c (the GELU tail alone) and B9d
+// (the int8 GELU MLP alone). B2 and B8a (the SwiGLU layer tail) are one
+// tensor-core launch of their own, in tail_swiglu.cu.
 //
 // Replaces, in vocalie_tts_tpu/ops/decode_dense.py:
 //   B4 dense_int8_stacked             (def :116, pallas_call :143)
 //   B3 qkv_norm_int8_stacked          (def :269, pallas_call :302)
-//   B2 tail_swiglu_qkv_int8_stacked   (def :519, pallas_call :611)
-//   B8a tail_swiglu_int8_stacked      (def :368, pallas_call :428)
 //   B8b mlp_swiglu_int8_stacked       (def :190, pallas_call :234)
 //   B9a qkv_lnorm_int8_stacked        (def :652, pallas_call :686)
 //   B9c tail_gelu_int8_stacked        (def :752, pallas_call :811)
@@ -43,15 +41,14 @@
 //
 // Bound: bytes. At the decode shapes (b = 16) every weight byte is used for
 // 16 multiply-adds, far below the ~590 int8 operations per byte at which
-// Hopper's tensor cores become the limit. B2 at full width reads 16.8 MB of
-// int8 weights per call, B3 3.1 MB, B4 (the lm_head) 1.2 MB; at the XTTS
-// layer (b = 8) B9b reads 12.6 MB, B9c 9.4 MB, B9a 3.1 MB; at the Qwen3
-// layer (d_model 2048, d_ff 8192, qkv 4096, b = 8) B2 reads 62.9 MB, B8a
-// 54.5 MB, B8b 50.3 MB, B3 8.4 MB.
+// Hopper's tensor cores become the limit. B3 at full width reads 3.1 MB of
+// int8 weights per call, B4 (the lm_head) 1.2 MB; at the XTTS layer (b = 8)
+// B9b reads 12.6 MB, B9c 9.4 MB, B9a 3.1 MB; at the Qwen3 layer (d_model
+// 2048, d_ff 8192, qkv 4096, b = 8) B8b 50.3 MB, B3 8.4 MB.
 //
 // Design (first, simple version). The TPU ran each of these as one
 // sequential grid carrying scratch from step to step; GPU blocks run in no
-// order, and B2 needs four reductions across a whole row (the norm after the
+// order, and B9b needs four reductions across a whole row (the norm after the
 // o-projection, the hidden's per-tile amax, the sum over tiles with the norm
 // after it, the next qkv). So each entry point is a short sequence of
 // kernels on the caller's stream, with intermediates in a workspace the
@@ -71,8 +68,7 @@
 //   gelu_quant   one block per (row, d_ff tile): tanh-GELU, amax, int8.
 // The finish takes an optional bias, added before the residual (the
 // o-projection, the fc) or after it (the down-projection), as JAX orders
-// them. B4, B3 and B9a are 3 launches, B2 and B9b 12, B8a and B9c 9, B8b
-// and B9d 6.
+// them. B4, B3 and B9a are 3 launches, B9b 12, B9c 9, B8b and B9d 6.
 // No tensor cores, no TMA.
 
 #include <cuda_runtime.h>
@@ -492,95 +488,6 @@ extern "C" int vt_qkv_lnorm_int8(const void* x, int x_kind, const void* g_all,
                       reinterpret_cast<const int8_t*>(w_all) + (long long)layer * K * N,
                       reinterpret_cast<const float*>(s_all) + (long long)layer * N, N,
                       NO_BIAS, nullptr, KIND_NONE, reinterpret_cast<float*>(out), q8, xs, part);
-}
-
-static bool tail_ok(int b, int d_attn, int d, int F, int tile, int Q) {
-  return shapes_ok(b, d_attn, d) && shapes_ok(b, d, 2 * F) && (Q == 0 || shapes_ok(b, d, Q)) &&
-         tile >= 32 && tile % 32 == 0 && F % tile == 0;
-}
-
-// Q = 0: B8a (no next-layer qkv)
-extern "C" long long vt_tail_workspace(int b, int d_attn, int d, int F, int tile, int Q) {
-  if (!tail_ok(b, d_attn, d, F, tile, Q)) return -1;
-  const int mx = d_attn > d ? d_attn : d;
-  long long part = part_bytes(b, d_attn, d_attn, d);
-  const long long p2 = part_bytes(b, d, d, 2 * F);
-  const long long p3 = part_bytes(b, F, tile, d);
-  const long long p4 = Q ? part_bytes(b, d, d, Q) : 0;
-  if (part < 0 || p2 < 0 || p3 < 0 || p4 < 0) return -1;
-  if (p2 > part) part = p2;
-  if (p3 > part) part = p3;
-  if (p4 > part) part = p4;
-  return align256((long long)b * mx) + align256((long long)b * 4) +       // q8, its scales
-         align256((long long)b * d * 4) +                                 // x2
-         align256((long long)b * 2 * F * 4) +                             // gate | up
-         align256((long long)b * F) + align256((long long)b * (F / tile) * 4) +  // hidden int8
-         part;
-}
-
-// B8a (nw == wq == sq == null, Q = 0) and B2: the decode layer tail and
-// (B2) the next layer's norm + qkv.
-//   x2   = x + q(attn) . Wo[l] (* scales)
-//   gu   = q(rms(x2, mw[l])) . Wgu[l]
-//   out  = x2 + sum_t q_t(silu(g) * u) . Wd[l] (* scales)
-//   qkv  = q(rms(out, nw[nxt])) . Wq[nxt],  nxt = min(l + 1, L - 1)
-extern "C" int vt_tail_swiglu_qkv_int8(
-    const void* attn, const void* x, int x_kind,
-    const void* wo, const void* wos, const void* mw, const void* wgu, const void* sgu,
-    const void* wd, const void* sd, const void* nw, const void* wq, const void* sq, int norm_kind,
-    int layer, int L, int b, int d_attn, int d, int F, int tile, int Q, float eps,
-    void* x_out, void* qkv_out, void* ws, long long ws_bytes, void* stream) {
-  if (!tail_ok(b, d_attn, d, F, tile, Q) || layer < 0 || layer >= L ||
-      norm_kind == KIND_NONE || (Q != 0) != (wq != nullptr) ||
-      ws_bytes < vt_tail_workspace(b, d_attn, d, F, tile, Q)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  cudaStream_t st = (cudaStream_t)stream;
-  const int mx = d_attn > d ? d_attn : d;
-  const int n_tiles = F / tile;
-  const int nxt = layer + 1 < L ? layer + 1 : L - 1;
-  const int esz = norm_kind == KIND_BF16 ? 2 : 4;
-  Carver c{reinterpret_cast<char*>(ws)};
-  int8_t* q8 = c.take<int8_t>((long long)b * mx);
-  float* xs = c.take<float>((long long)b * 4);
-  float* x2 = c.take<float>((long long)b * d * 4);
-  float* gu = c.take<float>((long long)b * 2 * F * 4);
-  int8_t* hq = c.take<int8_t>((long long)b * F);
-  float* hs = c.take<float>((long long)b * n_tiles * 4);
-  int* part = reinterpret_cast<int*>(c.p);
-  const int8_t* w8;
-  const float* sc;
-
-  // o-projection + residual
-  w8 = reinterpret_cast<const int8_t*>(wo) + (long long)layer * d_attn * d;
-  sc = reinterpret_cast<const float*>(wos) + (long long)layer * d;
-  int rc = launch_dense(st, attn, KIND_F32, nullptr, nullptr, KIND_NONE, eps, b, d_attn, w8, sc,
-                        d, NO_BIAS, x, x_kind, x2, q8, xs, part);
-  if (rc) return rc;
-  // mlp norm + gate | up
-  w8 = reinterpret_cast<const int8_t*>(wgu) + (long long)layer * d * 2 * F;
-  sc = reinterpret_cast<const float*>(sgu) + (long long)layer * 2 * F;
-  rc = launch_dense(st, x2, KIND_F32, reinterpret_cast<const char*>(mw) + (long long)layer * d * esz,
-                    nullptr, norm_kind, eps, b, d, w8, sc, 2 * F, NO_BIAS, nullptr, KIND_NONE, gu,
-                    q8, xs, part);
-  if (rc) return rc;
-  // silu(g) * u, quantized per (row, tile)
-  swiglu_quant_kernel<<<dim3(n_tiles, b), QUANT_THREADS, 0, st>>>(gu, F, tile, hq, hs);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  // down-projection, one f32 part per tile, + residual
-  w8 = reinterpret_cast<const int8_t*>(wd) + (long long)layer * F * d;
-  sc = reinterpret_cast<const float*>(sd) + (long long)layer * d;
-  rc = launch_gemv(st, hq, hs, n_tiles, b, F, w8, sc, d, NO_BIAS, x2, KIND_F32,
-                   reinterpret_cast<float*>(x_out), part);
-  if (rc || Q == 0) return rc;
-  // the next layer's norm + qkv
-  w8 = reinterpret_cast<const int8_t*>(wq) + (long long)nxt * d * Q;
-  sc = reinterpret_cast<const float*>(sq) + (long long)nxt * Q;
-  return launch_dense(st, x_out, KIND_F32,
-                      reinterpret_cast<const char*>(nw) + (long long)nxt * d * esz, nullptr,
-                      norm_kind, eps, b, d, w8, sc, Q, NO_BIAS, nullptr, KIND_NONE,
-                      reinterpret_cast<float*>(qkv_out), q8, xs, part);
 }
 
 // ── B8b: the int8 SwiGLU MLP alone ───────────────────────────────────────

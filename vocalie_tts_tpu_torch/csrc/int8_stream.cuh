@@ -1,0 +1,346 @@
+// Building blocks of the int8 decode products on Hopper's tensor cores
+// (sm_90a), for persistent kernels that stream [K, N] int8 weights (N
+// contiguous, the JAX layout) through shared memory while the activations
+// (a few rows) stay there:
+//   * the weight-tile stream: a tile is KC rows of a 32-column slab (32 bytes
+//     a row, the 32-byte sector the card reads), requested by TMA boxes that
+//     complete on the stage's mbarrier;
+//   * the int8 tile product: mma.sync m16n8k32 (s8 x s8 -> s32) with the
+//     activation rows as A (zero past the batch) and the slab as B; B's
+//     fragment wants four consecutive k of one column in a register, so each
+//     lane transposes two 4 x 4 byte blocks (__byte_perm) and the slab's 32
+//     columns are spread over four n8 tiles (column 4 g + j is column g of
+//     tile j);
+//   * the row norm and the quantizer: a row over one or more warps, held in
+//     registers (d <= 128 * MAX_VEC), RMSNorm with the mean of the squares
+//     summed in double and rounded to f32 once, then the per-row int8 with
+//     s = max(amax / 127, 1e-8) and q = round_half_even(x / s) (the IEEE
+//     divide's rounding, from a multiply where no tie is near).
+// Included by tail_swiglu.cu (B2, B8a).
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace i8s {
+
+constexpr int SLAB = 32;         // columns (bytes) of a weight slab row
+constexpr int MAX_VEC = 8;       // float4s a lane holds of a normed row's part
+constexpr int MAX_STAGES = 16;   // ring depth at most
+constexpr int BOX_ROWS = 256;    // rows of a TMA box (the most a box dimension takes)
+constexpr int RED_ROW = SLAB + 1;  // words a row of the int32 sums (no bank conflicts)
+constexpr int QUANT_SCRATCH = 32 * 8 + 32 * 4;   // quant_rows' shared bytes
+
+enum { KIND_NONE = 0, KIND_F32 = 1, KIND_BF16 = 2 };
+
+__device__ __forceinline__ float load_f(const void* p, int kind, long long i) {
+  return kind == KIND_BF16 ? __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(p)[i])
+                           : reinterpret_cast<const float*>(p)[i];
+}
+
+__device__ __forceinline__ float quant_scale(float amax) {
+  return fmaxf(__fdiv_rn(amax, 127.0f), 1e-8f);
+}
+
+__device__ __forceinline__ int quant(float v, float s) { return __float2int_rn(__fdiv_rn(v, s)); }
+
+// quant(v, s) from v * r, r = 1 / s rounded: |v / s| <= 127.00001, so v * r
+// is within 2^-16 and the rounded divide within 2^-17 of v / s; the two
+// round to the same integer unless v * r lies within 2^-14 of a half
+// integer (near_tie), where the divide is taken. Bit-equal to quant.
+__device__ __forceinline__ bool near_tie(float y, float f) {
+  return fabsf(fabsf(__fsub_rn(y, f)) - 0.5f) < 0x1p-14f;
+}
+__device__ __forceinline__ int quant_fast(float v, float s, float r) {
+  const float y = __fmul_rn(v, r);
+  const float f = rintf(y);
+  return near_tie(y, f) ? quant(v, s) : (int)f;
+}
+// four values -> four int8 in a word, byte 0 the first
+__device__ __forceinline__ uint32_t quant4(const float4& v, float s, float r) {
+  return ((uint32_t)quant_fast(v.x, s, r) & 0xffu) |
+         (((uint32_t)quant_fast(v.y, s, r) & 0xffu) << 8) |
+         (((uint32_t)quant_fast(v.z, s, r) & 0xffu) << 16) |
+         ((uint32_t)quant_fast(v.w, s, r) << 24);
+}
+
+// 4 consecutive norm weights (f32, or bf16) from index i (a multiple of 4)
+__device__ __forceinline__ float4 load_f4(const void* p, int kind, int i) {
+  if (kind == KIND_BF16) {
+    const uint2 u = *reinterpret_cast<const uint2*>(reinterpret_cast<const __nv_bfloat16*>(p) + i);
+    return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                       __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+  }
+  return *reinterpret_cast<const float4*>(reinterpret_cast<const float*>(p) + i);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// ── the weight-tile stream ───────────────────────────────────────────────
+
+// the small inputs' 16-byte copies (generic proxy), waited for by group
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" :: "r"(dst), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Tiles come by TMA (cp.async.bulk.tensor): one thread asks for a box of R
+// rows x 32 bytes of a [L, K, N] int8 weight array (its tensor map encoded
+// once on the host, CU_TENSOR_MAP_SWIZZLE_32B), the copy engine gathers the
+// rows and completes a transaction count on the stage's mbarrier, and the
+// requesting threads go on at once. Within a 32-byte row the two 16-byte
+// chunks are swapped on rows whose bit 2 is set (the 32-byte swizzle), which
+// the fragment loads below undo.
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra WAIT;\n"
+      "DONE:\n"
+      "}\n" :: "r"(bar), "r"(parity) : "memory");
+}
+// box (col, row, layer) of the map into shared dst, completing on bar
+__device__ __forceinline__ void tma_load(uint32_t dst, const void* map, int col, int row,
+                                         int layer, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(layer), "r"(bar)
+      : "memory");
+}
+
+// ── the int8 tile product ────────────────────────────────────────────────
+
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, "
+      "{%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The 4 x 4 byte transpose: rows w[0..3] of 4 columns -> one word per
+// column holding its 4 rows, byte 0 the lowest row.
+__device__ __forceinline__ void transpose4(const uint32_t (&w)[4], uint32_t& c0, uint32_t& c1,
+                                           uint32_t& c2, uint32_t& c3) {
+  const uint32_t t0 = __byte_perm(w[0], w[1], 0x5140);
+  const uint32_t t1 = __byte_perm(w[0], w[1], 0x7362);
+  const uint32_t t2 = __byte_perm(w[2], w[3], 0x5140);
+  const uint32_t t3 = __byte_perm(w[2], w[3], 0x7362);
+  c0 = __byte_perm(t0, t2, 0x5410);
+  c1 = __byte_perm(t0, t2, 0x7632);
+  c2 = __byte_perm(t1, t3, 0x5410);
+  c3 = __byte_perm(t1, t3, 0x7632);
+}
+
+__device__ __forceinline__ uint32_t lds32(uint32_t addr) {
+  uint32_t v;
+  asm volatile("ld.shared.b32 %0, [%1];\n" : "=r"(v) : "r"(addr));
+  return v;
+}
+
+// acc[m][j] += act[16 m.., kact + ...] . tile for the tile's kc rows (tile
+// and act as shared addresses; the tile's rows 32 bytes, 32-byte swizzled;
+// act's rows at or past b are zero; its row stride lda a multiple of 16);
+// warp w of n takes the 32-row steps w, w + n, .... In a step at rows k0,
+// lane (g = lane / 4, t = lane % 4) loads the B fragments of n8 tile j,
+// column 4 g + j at rows k0 + 4 t .. + 3 and k0 + 16 + 4 t .. + 3 (the
+// lane's eight offsets are fixed: k0 is a multiple of 32), and the A
+// fragments of rows g and g + 8 at depth k0 + 4 t and k0 + 16 + 4 t.
+template <int MT>
+__device__ __forceinline__ void tile_mma(uint32_t tile, int kc, uint32_t act, int lda, int b,
+                                         int kact, int (&acc)[MT][4][4]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarp = blockDim.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  // rows 4 t + r: byte 32 row, chunk g / 4 swapped where bit 2 of the row,
+  // t's bit 0, is set, word g % 4
+  const uint32_t base = tile + 128 * t + 16 * ((g >> 2) ^ (t & 1)) + 4 * (g & 3);
+  uint32_t off[4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) off[r] = base + 32 * r;
+  const uint32_t arow = act + g * lda + kact + 4 * t;
+#pragma unroll 2
+  for (int s = warp; s < kc / 32; s += nwarp) {
+    uint32_t bf[4][2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      uint32_t w[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r) w[r] = lds32(off[r] + 1024 * s + 512 * h);
+      transpose4(w, bf[0][h], bf[1][h], bf[2][h], bf[3][h]);
+    }
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      const int r0 = 16 * m + g;
+      const uint32_t a0 = arow + 16 * m * lda + 32 * s;
+      uint32_t af[4];
+      af[0] = r0 < b ? lds32(a0) : 0u;
+      af[1] = r0 + 8 < b ? lds32(a0 + 8 * lda) : 0u;
+      af[2] = r0 < b ? lds32(a0 + 16) : 0u;
+      af[3] = r0 + 8 < b ? lds32(a0 + 8 * lda + 16) : 0u;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) mma_s8(acc[m][j], af, bf[j][0], bf[j][1]);
+    }
+  }
+}
+
+// The warps' int32 sums into red ([16 MT][RED_ROW], zero before; int32 adds
+// are exact in any order), then acc is zeroed. Lane (g, t) of tile j holds
+// rows g and g + 8 at columns 2 t and 2 t + 1 of the tile: slab columns 8 t +
+// j and 8 t + 4 + j. A row is RED_ROW = 33 words, so the 32 lanes of an add
+// (rows g, columns 8 t + j) fall in 32 banks.
+template <int MT>
+__device__ __forceinline__ void acc_to_red(int (&acc)[MT][4][4], int* red, int b) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+    const int r0 = 16 * m + g, r1 = r0 + 8;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (r0 < b) {
+        atomicAdd(&red[r0 * RED_ROW + 8 * t + j], acc[m][j][0]);
+        atomicAdd(&red[r0 * RED_ROW + 8 * t + 4 + j], acc[m][j][1]);
+      }
+      if (r1 < b) {
+        atomicAdd(&red[r1 * RED_ROW + 8 * t + j], acc[m][j][2]);
+        atomicAdd(&red[r1 * RED_ROW + 8 * t + 4 + j], acc[m][j][3]);
+      }
+      acc[m][j][0] = acc[m][j][1] = acc[m][j][2] = acc[m][j][3] = 0;
+    }
+  }
+}
+
+// ── the row norm and the quantizer ───────────────────────────────────────
+
+// Rows [0, b) of x ([b, d] f32; read through L2, so rows written earlier in
+// the launch are seen) -> int8 at act + r * lda, the scales at rs[r]; with w
+// (kind wkind), RMSNorm first: x * (1 / sqrt(mean(x * x) + eps)) * w, the
+// mean of the squares summed in double and rounded once. A row is split over
+// wpr warps (d / 4 divisible by wpr), each holding VEC float4 a lane of its
+// part in registers (all its loads in flight at once): the parts' double
+// sums are added in part order and their maxima met through shared memory
+// (scratch: QUANT_SCRATCH bytes), so every block gets the same bits. Rows go
+// nwarp / wpr at a time.
+template <int VEC>
+__device__ __forceinline__ void quant_rows_t(const float* x, int b, int d, const void* w,
+                                             int wkind, float eps, int8_t* act, int lda,
+                                             float* rs, int wpr, void* scratch) {
+  double* part_ss = reinterpret_cast<double*>(scratch);
+  float* part_max = reinterpret_cast<float*>(part_ss + 32);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarp = blockDim.x >> 5;
+  const int n4 = d >> 2, per = n4 / wpr;   // float4s of a part
+  const int p = warp % wpr, rows = nwarp / wpr;
+  for (int r0 = 0; r0 < b; r0 += rows) {
+    const int r = r0 + warp / wpr;
+    const bool live = warp / wpr < rows && r < b;
+    const float4* xp = reinterpret_cast<const float4*>(x + (long long)(live ? r : 0) * d) + p * per;
+    float4 v[VEC];
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      const int i = lane + 32 * j;
+      v[j] = live && i < per ? __ldcg(xp + i) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+    if (wkind != KIND_NONE) {
+      double ss = 0.0;
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) {
+        ss += (double)v[j].x * (double)v[j].x + (double)v[j].y * (double)v[j].y;
+        ss += (double)v[j].z * (double)v[j].z + (double)v[j].w * (double)v[j].w;
+      }
+      for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
+      if (lane == 0) part_ss[warp] = ss;
+      __syncthreads();
+      if (live) {
+        ss = part_ss[warp - p];
+        for (int q = 1; q < wpr; ++q) ss += part_ss[warp - p + q];
+        const float var = (float)(ss / (double)d);
+        const float inv = __frcp_rn(__fsqrt_rn(__fadd_rn(var, eps)));
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) {
+          const int i = lane + 32 * j;
+          if (i < per) {
+            const float4 wv = load_f4(w, wkind, 4 * (p * per + i));
+            v[j].x = __fmul_rn(__fmul_rn(v[j].x, inv), wv.x);
+            v[j].y = __fmul_rn(__fmul_rn(v[j].y, inv), wv.y);
+            v[j].z = __fmul_rn(__fmul_rn(v[j].z, inv), wv.z);
+            v[j].w = __fmul_rn(__fmul_rn(v[j].w, inv), wv.w);
+          }
+        }
+      }
+    }
+    float amax = 0.0f;
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) {
+      amax = fmaxf(amax, fmaxf(fmaxf(fabsf(v[j].x), fabsf(v[j].y)),
+                               fmaxf(fabsf(v[j].z), fabsf(v[j].w))));
+    }
+    for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+    if (lane == 0) part_max[warp] = amax;
+    __syncthreads();
+    if (live) {
+      for (int q = 0; q < wpr; ++q) amax = fmaxf(amax, part_max[warp - p + q]);
+      const float s = quant_scale(amax);
+      const float inv_s = __frcp_rn(s);
+      int8_t* dst = act + r * lda + 4 * p * per;
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) {
+        const int i = lane + 32 * j;
+        if (i < per) *reinterpret_cast<uint32_t*>(dst + 4 * i) = quant4(v[j], s, inv_s);
+      }
+      if (lane == 0 && p == 0) rs[r] = s;
+    }
+    __syncthreads();   // the parts are read before the next rows write them
+  }
+}
+
+// quant_rows_t with a row's part at most MAX_VEC float4 a lane and as many
+// warps a row as the block has to spare (a power of two, at least 32 float4
+// a part), the part's float4s a lane rounded up to a power of two (d % 4 ==
+// 0, d <= 128 MAX_VEC * nwarp). Not inlined: one copy of the code serves
+// every call (the instruction cache is small). Ends with __syncthreads().
+__device__ __noinline__ void quant_rows(const float* x, int b, int d, const void* w, int wkind,
+                                        float eps, int8_t* act, int lda, float* rs,
+                                        void* scratch) {
+  const int nwarp = blockDim.x >> 5, n4 = d >> 2;
+  int wpr = 1;
+  while (n4 / wpr > 32 * MAX_VEC ||
+         (2 * wpr * b <= nwarp && n4 % (2 * wpr) == 0 && n4 / (2 * wpr) >= 32)) {
+    wpr *= 2;
+  }
+  const int vec = (n4 / wpr + 31) / 32;
+  if (vec <= 1) {
+    quant_rows_t<1>(x, b, d, w, wkind, eps, act, lda, rs, wpr, scratch);
+  } else if (vec <= 2) {
+    quant_rows_t<2>(x, b, d, w, wkind, eps, act, lda, rs, wpr, scratch);
+  } else if (vec <= 4) {
+    quant_rows_t<4>(x, b, d, w, wkind, eps, act, lda, rs, wpr, scratch);
+  } else {
+    quant_rows_t<MAX_VEC>(x, b, d, w, wkind, eps, act, lda, rs, wpr, scratch);
+  }
+}
+
+}  // namespace i8s

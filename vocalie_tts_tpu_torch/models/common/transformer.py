@@ -58,6 +58,7 @@ import torch.nn.functional as F
 from vocalie_tts_tpu_torch.ops.cache_update import cache_append_kv_stacked, cache_append_stacked
 from vocalie_tts_tpu_torch.device import div_const
 from vocalie_tts_tpu_torch.ops.decode_dense import (
+    card_sms,
     dense_int8_stacked,
     gelu_tanh,
     mlp_gelu_int8_stacked,
@@ -68,6 +69,7 @@ from vocalie_tts_tpu_torch.ops.decode_dense import (
     tail_gelu_qkv_int8_stacked,
     tail_swiglu_int8_stacked,
     tail_swiglu_qkv_int8_stacked,
+    tail_takes,
 )
 from vocalie_tts_tpu_torch.ops.decode_attention import decode_attention_stacked
 from vocalie_tts_tpu_torch.ops.decode_layer import layer_swiglu_qkv_int8_stacked
@@ -454,7 +456,11 @@ def _dense_dispatch(layers: Params, cfg: TransformerConfig, batch: int, max_len:
     LayerNorm, a GELU MLP with biases under RMSNorm, a d_ff that is not a
     128-multiple, a GELU MLP without biases), B4 for the qkv and
     o-projections and the int8 SwiGLU MLP (B8b), the int8 GELU MLP (B9d) or
-    ``_qdot`` for the MLP. The JAX ``decode_step``'s choice from
+    ``_qdot`` for the MLP; on a card, a batch or width that the one-launch
+    B2/B8a body does not take (``tail_takes``: more than 32 rows, normed
+    rows wider than 2048, activations that leave no room for its weight
+    ring) also takes ``DENSE_FNS`` where the megatail or the tail would run.
+    The JAX ``decode_step``'s choice from
     the config and the shapes (``transformer.py:778-857``; the B7
     conditions of ``maybe_head_stack_qkv``, ``:422-464``, which the JAX
     generate programs apply at batch 1, for the SwiGLU family without
@@ -475,8 +481,10 @@ def _dense_dispatch(layers: Params, cfg: TransformerConfig, batch: int, max_len:
     if not (cfg.mlp_type == "swiglu" and mlp_i8 and _is_i8(layers.get("w_gateup"))
             and cfg.norm_type == "rms" and not cfg.bias):
         return DENSE_FNS
+    d_attn, d_ff = layers["wo"]["q"].shape[1], layers["w_down"]["q"].shape[1]
+    sms = card_sms(layers["wo"]["q"].device)
     if not mega:
-        return TAIL
+        return TAIL if tail_takes(batch, d_attn, cfg.d_model, d_ff, 0, sms) else DENSE_FNS
     int8_attn = cfg.decode_kernel and cfg.kv_quant
     packed = int8_attn and 2 * cfg.d_head == 128   # the JAX cache's lane-packed k|v
     # at batch 1 the JAX generate programs install the head-stacked qkv
@@ -488,6 +496,8 @@ def _dense_dispatch(layers: Params, cfg: TransformerConfig, batch: int, max_len:
     if (int8_attn and (packed or cfg.d_head % 128 == 0) and max_len % 128 == 0
             and bool_env("VOCALIE_MEGALAYER")):
         return MEGALAYER
+    if not tail_takes(batch, d_attn, cfg.d_model, d_ff, layers["wqkv"]["q"].shape[2], sms):
+        return DENSE_FNS
     return MEGATAIL
 
 

@@ -25,7 +25,8 @@ from typing import Dict, List, Sequence
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("decode_attention.cu", "cache_update.cu", "flash_attention.cu", "decode_dense.cu",
-           "decode_step.cu", "groupnorm.cu", "decode_layer.cu", "flash_attention_bwd.cu")
+           "decode_step.cu", "groupnorm.cu", "decode_layer.cu", "flash_attention_bwd.cu",
+           "tail_swiglu.cu")
 FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",

@@ -93,7 +93,7 @@ def cache_append_stacked(
     return k_all, v_all, k_scale, v_scale
 
 
-_KV_ARGTYPES = [_build.P] * 4 + [_build.LL, _build.I, _build.I, _build.I, _build.P]
+_KV_ARGTYPES = [_build.P] * 4 + [_build.LL, _build.I, _build.I, _build.I, _build.I, _build.P]
 
 
 def cache_append_kv_plain(k_all, v_all, k_new, v_new, pos: int):
@@ -107,30 +107,39 @@ def cache_append_k_plain(k_all, k_new, pos: int):
     return k_all
 
 
+def append_word(row_bytes: int, *ptrs: int) -> int:
+    """The word K4/K5 copy a row in: 16 bytes where the row's bytes are a
+    multiple of 16 and every pointer is 16-byte aligned, else 4 on the same
+    terms, else 1 (``vt_cache_append_kv`` refuses a word the row or a
+    pointer does not take)."""
+    for word in (16, 4):
+        if row_bytes % word == 0 and all(p % word == 0 for p in ptrs):
+            return word
+    return 1
+
+
 def _launch_kv(wrapper, k_all, v_all, k_new, v_new, pos: int) -> None:
     """Check the arrays of K4 (k and v) or K5 (``v_all`` None) and launch the
     kernel, counting the launch on ``wrapper``."""
-    L, b, kv, T, d = k_all.shape
-    if k_all.device.type != "cuda":
-        raise ValueError(f"unsupported device {k_all.device}")
-    arrays = [("k_all", k_all, (L, b, kv, T, d)), ("k_new", k_new, (L, b, kv, d))]
-    if v_all is not None:
-        arrays += [("v_all", v_all, (L, b, kv, T, d)), ("v_new", v_new, (L, b, kv, d))]
-    for name, t, shape in arrays:
-        if t.device != k_all.device or t.dtype != k_all.dtype or tuple(t.shape) != shape:
+    dev, dtype, shape = k_all.device, k_all.dtype, k_all.shape
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    new_shape = shape[:3] + shape[4:]
+    arrays = (k_all, k_new) if v_all is None else (k_all, k_new, v_all, v_new)
+    for name, t, want in zip(("k_all", "k_new", "v_all", "v_new"), arrays,
+                             (shape, new_shape, shape, new_shape)):
+        if t.shape != want or t.dtype != dtype or t.device != dev or not t.is_contiguous():
             raise ValueError(
-                f"{name}: expected {k_all.dtype} {shape} on {k_all.device}, got "
+                f"{name}: expected contiguous {dtype} {tuple(want)} on {dev}, got "
                 f"{t.dtype} {tuple(t.shape)} on {t.device}"
-            )
-        if not t.is_contiguous() or t.data_ptr() % 4:
-            raise ValueError(f"{name} must be contiguous and 4-byte aligned")
-    fn = _build.kernel("vt_cache_append_kv", _KV_ARGTYPES)
-    ptr = lambda t: None if t is None else t.data_ptr()   # noqa: E731
+                + ("" if t.is_contiguous() else " (not contiguous)"))
+    ptrs = [t.data_ptr() for t in arrays]
+    row_bytes = shape[4] * k_all.element_size()
     wrapper.launches += 1
-    rc = fn(
-        k_all.data_ptr(), ptr(v_all), k_new.data_ptr(), ptr(v_new),
-        L * b * kv, T, d * k_all.element_size(), int(pos), _build.stream_ptr(k_all),
-    )
+    rc = _build.kernel("vt_cache_append_kv", _KV_ARGTYPES)(
+        ptrs[0], None if v_all is None else ptrs[2], ptrs[1], None if v_all is None else ptrs[3],
+        shape[0] * shape[1] * shape[2], shape[3], row_bytes, int(pos),
+        append_word(row_bytes, *ptrs), _build.stream_ptr(k_all))
     _build.check(rc, "vt_cache_append_kv")
 
 
@@ -179,4 +188,5 @@ cache_append_kv_stacked.launches = 0
 cache_append_k_stacked.launches = 0
 
 __all__ = ["cache_append_stacked", "cache_append_plain", "cache_append_kv_stacked",
-           "cache_append_kv_plain", "cache_append_k_stacked", "cache_append_k_plain"]
+           "cache_append_kv_plain", "cache_append_k_stacked", "cache_append_k_plain",
+           "append_word"]

@@ -46,13 +46,17 @@ below one 128-column tile raises as it does there.
 
 On a CUDA tensor each wrapper launches ``csrc/decode_dense.cu`` (a short
 sequence of kernels from one C entry point; ``launches`` counts calls of
-the entry point); on a CPU tensor it runs the plain version, which takes
+the entry point), except B2 and B8a, which are one cooperative launch of
+``csrc/tail_swiglu.cu`` on the int8 tensor cores, planned per shape by
+:func:`tail_plan`; on a CPU tensor each runs the plain version, which takes
 the integer products exactly in float64 (|sum| <= 8192 · 127² < 2**53).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
+import heapq
 import os
 
 import numpy as np
@@ -66,8 +70,9 @@ TILE_BUDGET = 6 * 1024 * 1024
 _F32, _BF16 = 1, 2
 _DENSE_ARGTYPES = ([_build.P, _build.I, _build.P, _build.I, _build.F, _build.P, _build.P]
                    + [_build.I] * 4 + [_build.P, _build.P, _build.LL, _build.P])
-_TAIL_ARGTYPES = ([_build.P, _build.P, _build.I] + [_build.P] * 10
-                  + [_build.I] * 9 + [_build.F] + [_build.P] * 3 + [_build.LL, _build.P])
+_TAIL_ARGTYPES = ([_build.P, _build.P, _build.I] + [_build.P] * 10 + [_build.I] * 9
+                  + [_build.F] + [_build.P] * 3 + [_build.LL, _build.P] + [_build.I] * 7
+                  + [_build.P, _build.P])
 _LNORM_ARGTYPES = ([_build.P, _build.I, _build.P, _build.P, _build.I, _build.F, _build.P, _build.P]
                    + [_build.I] * 4 + [_build.P, _build.P, _build.LL, _build.P])
 _MLP_ARGTYPES = ([_build.P, _build.I] + [_build.P] * 4 + [_build.I] * 6
@@ -303,12 +308,6 @@ def _dense_ws_bytes(b: int, K: int, N: int) -> int:
     return _build.kernel("vt_dense_workspace", [_build.I] * 3, restype=_build.LL)(b, K, N)
 
 
-@functools.lru_cache(maxsize=None)
-def _tail_ws_bytes(b: int, d_attn: int, d: int, d_ff: int, tile: int, Q: int) -> int:
-    return _build.kernel("vt_tail_workspace", [_build.I] * 6, restype=_build.LL)(
-        b, d_attn, d, d_ff, tile, Q)
-
-
 def _workspace(nbytes: int, dev) -> torch.Tensor:
     if nbytes < 0:
         raise ValueError("shapes the dense kernels do not take (K % 32, N % 4)")
@@ -380,10 +379,212 @@ def _ff_tile(d: int, d_ff: int, Q: int) -> int:
     return tile
 
 
+#: B2/B8a's launch (``csrc/tail_swiglu.cu``): the columns of a weight slab
+#: (one item's width; 32 bytes a row), the tile rows at most, the ring depth
+#: at most, the shared bytes a block may use on Hopper, and the batch and
+#: the normed row width the body takes at most
+SLAB = 32
+TAIL_KC_MAX = 1024
+TAIL_MAX_STAGES = 16
+SMEM_MAX = 232448
+TAIL_MAX_B = 32
+TAIL_MAX_D = 2048
+
+
+@dataclasses.dataclass(frozen=True)
+class TailPlan:
+    """One B2/B8a launch at one shape: ``grid`` blocks (one an SM at most),
+    ``items[blk]`` the (product, slab) pairs block ``blk`` owns in its
+    stream's order (slab s of a product is its output columns [32 s, 32 s +
+    32); of gate | up, gate columns c and up columns d_ff + c), ``tiles[blk]``
+    the weight tiles of ``kc`` rows it streams, ``stages`` the ring depth,
+    ``max_gu`` and ``max_items`` the gate | up items and the items a block
+    holds at most, ``gu_blocks`` the blocks that hold a gate | up item,
+    ``smem`` the shared bytes of the launch (``vt_tail_swiglu_smem``'s),
+    and ``ring_holds_all`` whether the ring holds every tile of every block
+    at once (none is refilled)."""
+    grid: int
+    kc: int
+    stages: int
+    max_gu: int
+    max_items: int
+    gu_blocks: int
+    smem: int
+    items: tuple
+    tiles: tuple
+    ring_holds_all: bool
+
+    def table(self) -> list:
+        """The item table the kernel reads: ``grid + 1`` offsets, then each
+        block's items as ``product << 24 | slab``."""
+        offsets, codes = [0], []
+        for its in self.items:
+            codes += [p << 24 | s for p, s in its]
+            offsets.append(len(codes))
+        return offsets + codes
+
+
+def _align16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def tail_item_rows(p: int, d_attn: int, d: int, d_ff: int) -> int:
+    """The weight rows (K) of one item of product ``p`` (0 the o-projection,
+    1 gate | up, 2 the down-projection, 3 the qkv, in stream order); a
+    gate | up item streams its gate and its up slab, each ``d`` rows."""
+    return (d_attn, 2 * d, d_ff, d)[p]
+
+
+def tail_plan(b: int, d_attn: int, d: int, d_ff: int, tile: int, Q: int, sms: int,
+              smem_max: int = SMEM_MAX) -> TailPlan:
+    """B2's (``Q`` > 0) or B8a's (``Q`` = 0) launch plan, a pure function of
+    the shape and the card's SM count. The items (32-column slabs of the
+    four products, each over its full K) are dealt largest first to the
+    least loaded block (by weight bytes; ties to the lower block; an
+    o-projection item to the least loaded block without one, while there is
+    one), and each block streams its items in product order. A tile is ``kc`` rows of a
+    slab: the largest power of two up to 1024 dividing ``d_attn``, ``d`` and
+    ``tile`` that leaves room for two stages. The ring takes what shared memory leaves beside the int8
+    activations (``b`` rows of the widest K, + 16 bytes a row against bank
+    conflicts), the int32 sums, the items' hidden, the row scales, the MLP
+    norm's weights and each item's column scales and residual columns, up to
+    16 stages and no more than the largest block's tiles.
+    Raises ``ValueError`` for a shape the body does not take."""
+    if not 1 <= b <= TAIL_MAX_B:
+        raise ValueError(f"B2/B8a take 1 to {TAIL_MAX_B} rows, got b={b}")
+    for name, n in (("d_attn", d_attn), ("d_model", d), ("d_ff", d_ff), ("tile", tile)):
+        if n < SLAB or n % SLAB:
+            raise ValueError(f"B2/B8a need {name} a multiple of {SLAB}, got {n}")
+    if Q < 0 or Q % SLAB or d_ff % tile:
+        raise ValueError(f"B2/B8a need d_qkv a multiple of {SLAB} and whole d_ff tiles, got "
+                         f"d_qkv={Q}, d_ff={d_ff}, tile={tile}")
+    if max(d_attn, d) > TAIL_MAX_D:
+        raise ValueError(f"B2/B8a norm rows of at most {TAIL_MAX_D}, got d_attn={d_attn}, "
+                         f"d_model={d}")
+    slabs = (d // SLAB, d_ff // SLAB, d // SLAB, Q // SLAB)
+    work = sorted(((tail_item_rows(p, d_attn, d, d_ff) * SLAB, p, s)
+                   for p in range(4) for s in range(slabs[p])),
+                  key=lambda w: (-w[0], w[1], w[2]))
+    grid = min(sms, len(work))
+    heap = [(0, blk) for blk in range(grid)]
+    owned = [[] for _ in range(grid)]
+    for nbytes, p, s in work:
+        # an o-projection item goes to a block without one while any is left:
+        # its tiles are the only ones in flight before barrier 1
+        passed = []
+        load, blk = heapq.heappop(heap)
+        while p == 0 and heap and any(q == 0 for q, _ in owned[blk]):
+            passed.append((load, blk))
+            load, blk = heapq.heappop(heap)
+        if p == 0 and any(q == 0 for q, _ in owned[blk]) and passed:
+            passed.append((load, blk))
+            load, blk = passed.pop(0)
+        for entry in passed:
+            heapq.heappush(heap, entry)
+        owned[blk].append((p, s))
+        heapq.heappush(heap, (load + nbytes, blk))
+    items = tuple(tuple(sorted(its)) for its in owned)
+    max_gu = max(sum(p == 1 for p, _ in its) for its in items)
+    max_items = max(len(its) for its in items)
+    mt = 2 if b > 16 else 1
+    lda = max(d_attn, d, d_ff) + 16
+    fixed = (_align16(b * lda) + _align16(2 * 16 * mt * (SLAB + 1) * 4)
+             + _align16(max_gu * b * SLAB * 4)
+             + _align16(b * SLAB * 4) + _align16(4 * b * max(1, d_ff // tile)) + _align16(4 * d)
+             + max_items * (2 * SLAB * 4 + b * SLAB * 4) + 32 * 12 + 8 * TAIL_MAX_STAGES)
+    # the largest tile that divides the depths and leaves room for two stages
+    kc = TAIL_KC_MAX
+    while kc > SLAB and (d_attn % kc or d % kc or tile % kc
+                         or (smem_max - fixed) // (kc * SLAB) < 2):
+        kc //= 2
+    fit = (smem_max - fixed) // (kc * SLAB)
+    if fit < 2:
+        raise ValueError(f"B2/B8a at b={b}, d_ff={d_ff}: the activations leave no room for a "
+                         f"two-stage weight ring in {smem_max} bytes of shared memory")
+    tiles = tuple(sum(tail_item_rows(p, d_attn, d, d_ff) // kc for p, _ in its)
+                  for its in items)
+    stages = min(TAIL_MAX_STAGES, fit, max(tiles))
+    return TailPlan(grid=grid, kc=kc, stages=stages, max_gu=max_gu, max_items=max_items,
+                    gu_blocks=sum(any(p == 1 for p, _ in its) for its in items),
+                    smem=fixed + stages * kc * SLAB, items=items, tiles=tiles,
+                    ring_holds_all=stages >= max(tiles))
+
+
+def tail_stream(plan: TailPlan, blk: int, d_attn: int, d: int, d_ff: int) -> list:
+    """Block ``blk``'s weight tiles in the order its kernel requests them
+    (``tile_src`` in ``csrc/tail_swiglu.cu``): (product, first column, first
+    row) of each ``plan.kc``-row, 32-column tile; a gate | up item alternates
+    its gate and its up tiles."""
+    out = []
+    for p, s in plan.items[blk]:
+        c0 = SLAB * s
+        if p == 1:
+            for j in range(d // plan.kc):
+                out += [(1, c0, j * plan.kc), (1, d_ff + c0, j * plan.kc)]
+        else:
+            K = tail_item_rows(p, d_attn, d, d_ff)
+            out += [(p, c0, j * plan.kc) for j in range(K // plan.kc)]
+    return out
+
+
+def tail_workspace_bytes(b: int, d: int, d_ff: int, tile: int) -> int:
+    """B2/B8a's workspace: x2 [b, d] f32, the quantized hidden [b, d_ff]
+    int8, its amax [b, d_ff / tile] and a counter
+    (``vt_tail_swiglu_workspace``)."""
+    a256 = lambda n: (n + 255) // 256 * 256   # noqa: E731
+    return a256(b * d * 4) + a256(b * d_ff) + a256(b * (d_ff // tile) * 4) + 256
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(dev: int) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def card_sms(device: torch.device):
+    """The SM count of the card ``device`` lies on; None off a card."""
+    if device.type != "cuda":
+        return None
+    return _sm_count(device.index if device.index is not None else torch.cuda.current_device())
+
+
+@functools.lru_cache(maxsize=None)
+def _tail_fits(b: int, d_attn: int, d: int, d_ff: int, tile: int, Q: int, sms: int) -> bool:
+    try:
+        tail_plan(b, d_attn, d, d_ff, tile, Q, sms)
+    except ValueError:
+        return False
+    return True
+
+
+def tail_takes(b: int, d_attn: int, d: int, d_ff: int, Q: int, sms) -> bool:
+    """Whether B2 (``Q`` > 0) or B8a (``Q`` = 0) takes this shape: on a card
+    of ``sms`` SMs, where ``tail_plan`` has a plan for it (1 to 32 rows,
+    normed rows of at most 2048, the activations and a two-stage ring in
+    shared memory); off a card (``sms`` None) always, as the plain version
+    takes any shape. ``_dense_dispatch`` sends the rest to ``DENSE_FNS``."""
+    if sms is None:
+        return True
+    return _tail_fits(b, d_attn, d, d_ff, _ff_tile(d, d_ff, Q), Q, sms)
+
+
+@functools.lru_cache(maxsize=None)
+def _tail_launch(b: int, d_attn: int, d: int, d_ff: int, tile: int, Q: int, dev: int):
+    """The plan of a shape on card ``dev``, its item table on the card
+    (uploaded once) and the workspace bytes: a decode step calls B2 once a
+    layer and is bound by host time, so a call reads them from here and
+    runs no Python over the blocks."""
+    plan = tail_plan(b, d_attn, d, d_ff, tile, Q, _sm_count(dev))
+    table = torch.tensor(plan.table(), dtype=torch.int32, device=torch.device("cuda", dev))
+    return plan, table, tail_workspace_bytes(b, d, d_ff, tile)
+
+
 def _tail_swiglu(attn, x, wo_all, wos_all, mw_all, wgu_all, sgu_all, wd_all, sd_all, nxt,
-                 layer, eps, tile):
+                 layer, eps, tile, stamps=None):
     """Checks and launches B2 (``nxt`` = (nw_all, wq_all, sq_all)) or B8a
-    (``nxt`` None) → ``(x_out, qkv_next or None)``."""
+    (``nxt`` None) → ``(x_out, qkv_next or None)``. ``stamps``: None, or an
+    int64 CUDA tensor of ``grid * (12 + 64)`` the kernel fills with its
+    blocks' phase times and their first 64 tiles' arrival times
+    (``python3 -m vocalie_tts_tpu_torch.tools.tail_swiglu_trace``)."""
     b, d = x.shape
     d_attn = attn.shape[1]
     L, d_ff = wd_all.shape[0], wd_all.shape[1]
@@ -399,7 +600,13 @@ def _tail_swiglu(attn, x, wo_all, wos_all, mw_all, wgu_all, sgu_all, wd_all, sd_
         specs += [("nw_all", nw_all, (mw_all.dtype,), (L, d)),
                   ("wq_all", wq_all, _I8, (L, d, Q)), ("sq_all", sq_all, _FL, (L, 1, Q))]
     _check(x.device, layer, L, *specs)
-    ws = _workspace(_tail_ws_bytes(b, d_attn, d, d_ff, tile, Q), x.device)
+    if any(t.data_ptr() % 16 for t in (attn, x, wo_all, wos_all, mw_all, wgu_all, sgu_all, wd_all,
+                                       sd_all, *(nxt or ()))):
+        raise ValueError("B2/B8a read attn, x and the weights in 16-byte chunks: each must "
+                         "start on a 16-byte boundary")
+    dev = x.device.index if x.device.index is not None else torch.cuda.current_device()
+    plan, table, ws_bytes = _tail_launch(b, d_attn, d, d_ff, tile, Q, dev)
+    ws = _workspace(ws_bytes, x.device)
     x_out = torch.empty((b, d), dtype=torch.float32, device=x.device)
     qkv = torch.empty((b, Q), dtype=torch.float32, device=x.device) if Q else None
     ptrs = [None] * 3 if nxt is None else [t.data_ptr() for t in nxt]
@@ -411,7 +618,10 @@ def _tail_swiglu(attn, x, wo_all, wos_all, mw_all, wgu_all, sgu_all, wd_all, sd_
             *ptrs, _kind(mw_all, "mw_all"),
             int(layer), L, b, d_attn, d, d_ff, tile, Q, float(eps),
             x_out.data_ptr(), None if qkv is None else qkv.data_ptr(), ws.data_ptr(),
-            ws.numel(), _build.stream_ptr(x))
+            ws.numel(), table.data_ptr(), plan.grid, plan.kc, plan.stages, plan.max_gu,
+            plan.max_items, plan.gu_blocks, plan.smem,
+            None if stamps is None else stamps.data_ptr(),
+            _build.stream_ptr(x))
     _build.check(rc, "vt_tail_swiglu_qkv_int8")
     return x_out, qkv
 
@@ -684,5 +894,6 @@ __all__ = [
     "tail_gelu_int8_stacked", "tail_gelu_int8_plain",
     "tail_gelu_qkv_int8_stacked", "tail_gelu_qkv_int8_plain",
     "mlp_gelu_int8_stacked", "mlp_gelu_int8_plain",
-    "gelu_tanh", "pick_tile", "TILE_BUDGET",
+    "gelu_tanh", "pick_tile", "TILE_BUDGET", "TailPlan", "tail_plan", "tail_stream",
+    "tail_workspace_bytes",
 ]
