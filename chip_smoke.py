@@ -684,21 +684,25 @@ def _host_us(fn, n: int = 300) -> float:
     return (t1 - t0) / n * 1e6
 
 
-def _wrapper_host_us(call) -> tuple:
+def _wrapper_host_us(call, rounds: int = 5) -> tuple:
     """The host's µs a call of a kernel wrapper ``call(i)`` (``_host_us``):
     whole, and with the kernel library's entry points stubbed to return at
     once (the wrapper's Python alone, before the C call; the rest is ctypes
-    and the launch itself)."""
+    and the launch itself). Each is the least of ``rounds`` rounds, taken
+    in turn: the host's cores are shared, and a round that other work
+    slowed says nothing of the wrapper."""
     from vocalie_tts_tpu_torch.ops import _build
 
-    whole = _host_us(call)
     real = _build.kernel
-    _build.kernel = lambda *a, **k: (lambda *args: 0)
-    try:
-        python = _host_us(call)
-    finally:
-        _build.kernel = real
-    return whole, python
+    whole, python = [], []
+    for _ in range(rounds):
+        whole.append(_host_us(call))
+        _build.kernel = lambda *a, **k: (lambda *args: 0)
+        try:
+            python.append(_host_us(call))
+        finally:
+            _build.kernel = real
+    return min(whole), min(python)
 
 
 def _append_row(name, exact, ms, g_ms, plain_ms, lib_ms, lib_g_ms, bms, by, lib_what, host_us,
@@ -1124,7 +1128,7 @@ def count_dense_kernels(kernels, failures) -> None:
         entry["cuda_kernels_per_call"] = n_kernels
         log(f"{entry['name']}: CUDA kernels per call (profiled): "
             + (f"{n_kernels} ({listed})" if n_kernels else "not measured (profiler saw none)"))
-        if entry["name"] in TAIL_NAMES and n_kernels != 1:
+        if entry["name"] in ONE_KERNEL_NAMES and n_kernels != 1:
             failures.append(f"{entry['name']}: {n_kernels} CUDA kernels a call, not 1")
 
 
@@ -1190,9 +1194,10 @@ def _dense_entry(name, *, got, ref, ms, plain_ms, ops_ms, n_bytes, n_ops, shape,
         failures.append(f"{name} differs from its plain version: worst ratio {worst}")
     if name in TAIL_NAMES and not exact:
         failures.append(f"{name} is not bit-equal to its plain version (max_abs_err {err})")
+    source = ("tail_swiglu.cu" if name in TAIL_NAMES else
+              "tail_gelu.cu" if name == B9B_NAME else "decode_dense.cu")
     return {"name": name, "route": "cuda",
-            "source": "vocalie_tts_tpu_torch/csrc/" + ("tail_swiglu.cu" if name in TAIL_NAMES
-                                                       else "decode_dense.cu"),
+            "source": "vocalie_tts_tpu_torch/csrc/" + source,
             "replaces": f"vocalie_tts_tpu/ops/decode_dense.py:{DENSE_LINES[name]}",
             "max_abs_err": err, "bit_equal": exact, "tolerance": f"{DENSE_TOL} x max|ref|"
             + ("; bit-equal" if name in TAIL_NAMES else ""),
@@ -1213,6 +1218,11 @@ B8_NAMES = ("B8a tail_swiglu_int8", "B8b mlp_swiglu_int8")
 #: B2 and B8a: one cooperative launch (csrc/tail_swiglu.cu), bit-equal to
 #: their plain versions; one CUDA kernel a call
 TAIL_NAMES = ("B2 tail_swiglu_qkv_int8", "B8a tail_swiglu_int8")
+#: B9b: one cooperative launch (csrc/tail_gelu.cu), bit-equal to the old
+#: 12-kernel chain (which B9c still runs)
+B9B_NAME = "B9b tail_gelu_qkv_int8"
+#: the kernels that must be one CUDA kernel a call
+ONE_KERNEL_NAMES = TAIL_NAMES + (B9B_NAME, "B7 decode_step_fused")
 #: the SwiGLU dense kernels' decode shapes: the Chatterbox T3 voice-over
 #: (b = 16: 8 chunks, CFG-doubled; the 1026-token head padded to 1152) and
 #: the Qwen3 bench request (b = 8; GQA qkv 16 x 128 + 2 x 8 x 128; d_ff 8192
@@ -1506,18 +1516,30 @@ def check_dense_gelu(dev, failures, L: int = 24):
         ops_ms=ops_ms, ops_g_ms=ops_g_ms, ops_key="qdot_ops_ms",
         n_bytes=b * d * 2 + 2 * d * 4 + d * Q + Q * 4 + b * Q * 4, n_ops=2 * b * d * Q,
         shape=f"x[{b},{d}] bf16, LayerNorm f32, W[{L},{d},{Q}] int8", failures=failures))
-    # B9b at a middle layer and at the last one (its next qkv clamped to it)
-    got, ref = [], []
+    # B9b at a middle layer and at the last one (its next qkv clamped to it),
+    # against its plain version and, bit for bit, the old 12-kernel chain
+    tile = dd.pick_tile(F, dd.TILE_BUDGET, 2 * d)
+    got, ref, chain = [], [], []
     for layer in (L // 2, L - 1):
         got += dd.tail_gelu_qkv_int8_stacked(*t.tail, *t.nxt, layer, eps=eps)
         ref += dd.tail_gelu_qkv_int8_plain(*t.tail, *t.nxt, layer, eps=eps)
+        chain += dd._tail_gelu(*t.tail, t.nxt, layer, eps, tile, chain=True)
     torch.cuda.synchronize()
+    same = all(torch.equal(a, c) for a, c in zip(got, chain))
+    log(f"B9b: equal to the old chain at layers {L // 2}, {L - 1}: {same} (max |diff| "
+        f"{max((a - c).abs().max().item() for a, c in zip(got, chain)):.3e})")
+    if not same:
+        failures.append("B9b differs from the old chain (vt_tail_gelu_int8)")
     ms, g_ms = timed(lambda i: dd.tail_gelu_qkv_int8_stacked(*t.tail, *t.nxt, i % L, eps=eps),
                      300, "B9b")
+    old_ms, old_g_ms = timed(lambda i: dd._tail_gelu(*t.tail, t.nxt, i % L, eps, tile,
+                                                     chain=True), 300, "B9b, the old chain")
     ops_ms, ops_g_ms = timed(lambda i: qdot_qkv(min(i % L + 1, L - 1), qdot_tail(i % L)[:, 0]),
                              100, "B9b yardstick")
     out.append(_dense_entry(
-        "B9b tail_gelu_qkv_int8", got=got, ref=ref, ms=ms, g_ms=g_ms,
+        B9B_NAME, got=got, ref=ref, ms=ms, g_ms=g_ms,
+        host=_wrapper_host_us(lambda i: dd.tail_gelu_qkv_int8_stacked(*t.tail, *t.nxt, i % L,
+                                                                      eps=eps)),
         plain_ms=cuda_ms(lambda i: dd.tail_gelu_qkv_int8_plain(*t.tail, *t.nxt, i % L, eps=eps),
                          20),
         ops_ms=ops_ms, ops_g_ms=ops_g_ms, ops_key="qdot_ops_ms",
@@ -1527,6 +1549,9 @@ def check_dense_gelu(dev, failures, L: int = 24):
         shape=f"attn[{b},{d}] f32, x[{b},{d}] bf16, bf16 biases, d_ff {F} in tiles of "
               f"{dd.pick_tile(F, dd.TILE_BUDGET, 2 * d)}, qkv {Q}, {L} layers (layers "
               f"{L // 2} and {L - 1} checked)", failures=failures))
+    out[-1].update(equal_to_old_chain=same, earlier_ms=old_ms, earlier_graph_ms=old_g_ms,
+                   earlier="the old 12-kernel chain (vt_tail_gelu_int8), timed in this run")
+    log(f"B9b: the old chain {old_ms:.6f} ms eager, {fmt_ms(old_g_ms)} ms graph")
     got = [dd.tail_gelu_int8_stacked(*t.tail, L // 2, eps=eps)]
     ref = [dd.tail_gelu_int8_plain(*t.tail, L // 2, eps=eps)]
     torch.cuda.synchronize()
@@ -2643,6 +2668,24 @@ def _cosy_decode(rt, n_steps: int, window: int = 48) -> None:
     torch.cuda.synchronize()
 
 
+def _cosy_stream(engine, rt) -> tuple:
+    """The streaming request once: (first packet ms, audio s, wall s,
+    packets, every packet's check passed)."""
+    import numpy as np
+
+    t0 = time.monotonic()
+    first, audio_s, n_pk, ok = None, 0.0, 0, True
+    for pcm, sr in engine.synthesize_stream(STREAM_TEXT, engine_id="cosyvoice_instruct",
+                                            instruct_text=COSY_INSTRUCT):
+        if first is None:
+            first = (time.monotonic() - t0) * 1e3
+        ok = ok and sr == 24000 and len(pcm) > 0 and bool(np.isfinite(pcm).all()) \
+            and float(np.abs(pcm).max()) <= 1.0 and len(pcm) % rt.cfg.samples_per_token == 0
+        audio_s += len(pcm) / sr
+        n_pk += 1
+    return first, audio_s, time.monotonic() - t0, n_pk, ok
+
+
 def _held_to_phase2(stream, b7_inputs: dict, failures) -> None:
     """Run ``stream`` (the streaming request's warm-up) with B7's inputs
     recorded at every step, and check that phase 2 held the kernel to
@@ -2687,8 +2730,6 @@ def drive_cosyvoice(dev, failures, b7_inputs: dict, scale: str = "full"):
     after; (a)'s warm-up also checks that phase 2 gave B7 the path's kind of
     inputs (``b7_inputs``). Returns the counts by path and a function that
     runs the profiled windows (kept for after every timed phase)."""
-    import numpy as np
-
     from vocalie_tts_tpu_torch.engines.cosyvoice import CosyVoiceEngine
 
     set_env(DEFAULT_ENV)
@@ -2708,18 +2749,7 @@ def drive_cosyvoice(dev, failures, b7_inputs: dict, scale: str = "full"):
             f"dense_kernel={lm.dense_kernel})")
 
         def stream():
-            t0 = time.monotonic()
-            first, audio_s, n_pk, ok = None, 0.0, 0, True
-            for pcm, sr in engine.synthesize_stream(STREAM_TEXT, engine_id="cosyvoice_instruct",
-                                                    instruct_text=COSY_INSTRUCT):
-                if first is None:
-                    first = (time.monotonic() - t0) * 1e3
-                ok = ok and sr == 24000 and len(pcm) > 0 and bool(np.isfinite(pcm).all()) \
-                    and float(np.abs(pcm).max()) <= 1.0 \
-                    and len(pcm) % rt.cfg.samples_per_token == 0
-                audio_s += len(pcm) / sr
-                n_pk += 1
-            return first, audio_s, time.monotonic() - t0, n_pk, ok
+            return _cosy_stream(engine, rt)
 
         for label, env in (("streaming, default", DEFAULT_ENV),
                            ("streaming, VOCALIE_FUSED_STEP=0", FUSED_STEP0_ENV)):
@@ -2814,8 +2844,6 @@ def _cosy_stream_noenv(dev, failures, tmp, wrappers, profiles) -> dict:
     requests set up CUDA and cuBLAS), read, streamed once more;
     every packet checked; B1-B7, B12, K1 and K4 must not launch. Its
     profiled windows join ``profiles``."""
-    import numpy as np
-
     from vocalie_tts_tpu_torch.engines.cosyvoice import CosyVoiceEngine
 
     label = "streaming, no env"
@@ -2825,24 +2853,11 @@ def _cosy_stream_noenv(dev, failures, tmp, wrappers, profiles) -> dict:
     lm = rt.cfg.lm
     assert not (lm.kv_quant or lm.decode_kernel or lm.dense_kernel)
 
-    def stream():
-        t0 = time.monotonic()
-        first, audio_s, n_pk, ok = None, 0.0, 0, True
-        for pcm, sr in engine.synthesize_stream(STREAM_TEXT, engine_id="cosyvoice_instruct",
-                                                instruct_text=COSY_INSTRUCT):
-            if first is None:
-                first = (time.monotonic() - t0) * 1e3
-            ok = ok and sr == 24000 and len(pcm) > 0 and bool(np.isfinite(pcm).all()) \
-                and float(np.abs(pcm).max()) <= 1.0 and len(pcm) % rt.cfg.samples_per_token == 0
-            audio_s += len(pcm) / sr
-            n_pk += 1
-        return first, audio_s, time.monotonic() - t0, n_pk, ok
-
     for w in wrappers.values():
         w.launches = 0
-    first, audio_s, wall, n_pk, ok = stream()
+    first, audio_s, wall, n_pk, ok = _cosy_stream(engine, rt)
     c = {k: w.launches for k, w in wrappers.items()}
-    first2, _, wall2, _, ok2 = stream()
+    first2, _, wall2, _, ok2 = _cosy_stream(engine, rt)
     t0 = time.monotonic()
     _cosy_decode(rt, 0)
     t1 = time.monotonic()
@@ -4488,13 +4503,13 @@ def main() -> int:
         counts12, profile12 = drive_path(dev, failures, "VOCALIE_MEGALAYER=1", MEGALAYER_ENV,
                                          requests[:1], again=True, lean=True)
         # the JAX package's no-env configurations: bf16 cache and weights
-        _, profile0 = drive_path(dev, failures, "no env", NOENV_ENV, requests[:1], again=True,
+        _, profile0 = drive_path(dev, failures, "no env", NOENV_ENV, requests[:1],
                                  lean=True)
         counts_dk, profile_dk = drive_path(dev, failures, "VOCALIE_DECODE_KERNEL=1",
-                                           DECODE_KERNEL_ENV, requests[:1], again=True,
+                                           DECODE_KERNEL_ENV, requests[:1],
                                            lean=True)
         counts_w8, profile_w8 = drive_path(dev, failures, "VOCALIE_WEIGHT_INT8=1 alone",
-                                           WEIGHT_INT8_ENV, requests[:1], again=True, lean=True)
+                                           WEIGHT_INT8_ENV, requests[:1], lean=True)
         cosy, profile_cosy = drive_cosyvoice(dev, failures, by_key["B7"]["path_inputs"])
         studio, profile_studio = drive_audiosr(dev, failures, vo)
         xtts, profile_xtts = drive_xtts(dev, failures)
@@ -4732,6 +4747,96 @@ def _time_decode(decode, n_steps: int, steps, reps: int) -> dict:
     return out
 
 
+def time_stream_steps(dev, reps: int = 3, scale: str = "full") -> dict:
+    """The XTTS default decode step (bench_engine.py's 8-chunk request: B9a
+    + 24 x (B1 + B9b) + B5 + B4 a step) and the CosyVoice streaming request
+    (B3 + B7 + B5 + B4 a step; first packet, sustained RTF, decode alone),
+    ``reps`` times each after a warm-up, timed as phase 4 times them.
+    Copied into an unpacked parent commit and run there, it times that
+    commit on the same requests, so that two versions are compared within
+    one call."""
+    from vocalie_tts_tpu_torch.engines.cosyvoice import CosyVoiceEngine
+    from vocalie_tts_tpu_torch.engines.xtts import XTTSEngine
+    from vocalie_tts_tpu_torch.pipeline import run_tts_pipeline
+
+    set_env(DEFAULT_ENV)
+    os.environ["VOCALIE_MODEL_SCALE"] = scale
+    os.environ["VOCALIE_ALLOW_RANDOM_WEIGHTS"] = "1"
+    steps = _wrappers()["steps"]
+    out = {"xtts_decode_ms_per_step": [], "cosyvoice_decode_ms_per_step": [],
+           "cosyvoice_first_packet_ms": [], "cosyvoice_sustained_rtf": []}
+    with tempfile.TemporaryDirectory() as tmp:
+        ref = _write_tone_ref(os.path.join(tmp, "bench_ref.wav"))
+        engine = XTTSEngine(device=dev, assets=os.path.join(tmp, "assets"))
+        rt = _audible(engine.runtime())
+        spk = rt._spk_cache.get(ref)
+        bench = "\n[[CHUNK]]\n".join([XTTS_SENT] * 8)
+        request = {**_request(bench, os.path.join(tmp, "x.wav")), "tts_backend": "xtts",
+                   "voice_ref_path": ref, "engine_params": XTTS_PARAMS}
+        n_dec = run_tts_pipeline(request, engine=engine).meta["backend_meta"]["decode_bucket"]
+        texts = [XTTS_SENT] * 8
+        for _ in range(reps):
+            t1 = time.monotonic()
+            _xtts_decode(rt, texts, spk, 0)
+            t2 = time.monotonic()
+            n0 = steps.launches
+            _xtts_decode(rt, texts, spk, n_dec)
+            t3 = time.monotonic()
+            out["xtts_decode_ms_per_step"].append(
+                ((t3 - t2) - (t2 - t1)) / max(steps.launches - n0, 1) * 1e3)
+        del engine, rt
+        cosy = CosyVoiceEngine(device=dev, assets=os.path.join(tmp, "cosy"))
+        crt = cosy.runtime()
+        _cosy_stream(cosy, crt)   # warm-up
+        for _ in range(reps):
+            first, audio_s, wall, _n, _ok = _cosy_stream(cosy, crt)
+            out["cosyvoice_first_packet_ms"].append(first)
+            out["cosyvoice_sustained_rtf"].append(audio_s / wall)
+            t0 = time.monotonic()
+            _cosy_decode(crt, 0)
+            t1 = time.monotonic()
+            _cosy_decode(crt, 320)
+            t2 = time.monotonic()
+            out["cosyvoice_decode_ms_per_step"].append(((t2 - t1) - (t1 - t0)) / 320 * 1e3)
+    for key, vals in out.items():
+        log(f"{key}: " + ", ".join(f"{v:.3f}" for v in vals))
+    return out
+
+
+def _stream_steps_only() -> int:
+    """``--stream-steps``: B9b at the XTTS layer and B7 at the streaming
+    shape (eager, graph, the wrapper's host µs whole and before the C call),
+    then ``time_stream_steps``, printed as one JSON line."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    from vocalie_tts_tpu_torch.ops import _build
+    from vocalie_tts_tpu_torch.ops import decode_dense as dd
+
+    log(f"kernels built -> {_build.build().name}")
+    dev = torch.device("cuda:0")
+    rows = []
+    t = _gelu_inputs(dev)
+    b7 = _b7_inputs(dev)
+    for name, call, iters in (
+            (B9B_NAME, lambda i: dd.tail_gelu_qkv_int8_stacked(*t.tail, *t.nxt, i % t.L,
+                                                               eps=t.eps), 300),
+            ("B7 decode_step_fused", lambda i: b7.call(), 50)):
+        ms, g_ms = timed(call, iters, name, iters)
+        host, python = _wrapper_host_us(call)
+        log(f"{name}: {ms:.6f} ms eager, {fmt_ms(g_ms)} ms graph, wrapper host time "
+            f"{host:.2f} us a call, {python:.2f} us of it before the C call")
+        rows.append({"name": name, "ms": ms, "graph_ms": g_ms, "host_us": host,
+                     "host_python_us": python})
+    del t, b7
+    steps = time_stream_steps(dev)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    print(smi.stdout.strip(), flush=True)
+    print(json.dumps({"rows": rows, "steps": steps}), flush=True)
+    return 0
+
+
 def _decode_steps_only() -> int:
     """``--decode-steps``: B2 at the T3 and Qwen3 shapes and B8a at the Qwen3
     shape (eager, graph, the wrapper's host µs whole and before the C call),
@@ -4839,5 +4944,5 @@ def _qwen3_decode_kernel_only() -> int:
 if __name__ == "__main__":
     modes = {"--count-kernels": _count_kernels_child, "--f32-attention": _f32_attention_only,
              "--qwen3-decode-kernel": _qwen3_decode_kernel_only, "--tail-rows": _tail_rows_only,
-             "--decode-steps": _decode_steps_only}
+             "--decode-steps": _decode_steps_only, "--stream-steps": _stream_steps_only}
     sys.exit(modes[sys.argv[1]]() if sys.argv[1:2] and sys.argv[1] in modes else main())

@@ -15,8 +15,12 @@ biases, and for K5 int8 and bf16 arrays, the Qwen3 layer (d_model 2048, d_ff 819
 tiles) for B8a/B8b and B6 at d_head 128 with GQA; for B9 bf16 and f32 biases and residuals, a
 constant row (LayerNorm to its bias), the XTTS layer and batch 1; for B7 caches of 128 and 640 slots, a fully masked
 tail and a fully masked cache, q/k/v biases off, in f32 and in bf16, 1 and
-3 layers, and a cooperative grid forced past what the card keeps resident
-(refused); for B12 (the whole decode layer, one cooperative launch) the T3
+3 layers, the CosyVoice widths over 4 layers with valid lengths on and off
+the 128-slot grid (every layer's k/v rows), and a cooperative grid forced
+past what the card keeps resident (refused); for B9b's one-launch body
+(``csrc/tail_gelu.cu``) the XTTS layer at b 1, 8, 16 and 17 with bf16 and f32
+rows and biases, bit-equal to the old chain, one CUDA kernel a call, and a
+shape it does not take (33 rows) and B9c on the chain; for B12 (the whole decode layer, one cooperative launch) the T3
 and Qwen3 layers, GQA up to g 8, d_head 32 to 128, batch 1 to 16, a row
 with every cached slot masked, the last layer, valid_len on a block
 boundary and equal to T, bf16 norms, d_ff in one and several tiles, a grid
@@ -87,7 +91,12 @@ from vocalie_tts_tpu_torch.ops.decode_attention import (
     decode_attention_whole_plain,
 )
 from vocalie_tts_tpu_torch.ops.decode_dense import (
+    TILE_BUDGET,
+    _tail_gelu,
+    card_sms,
     dense_int8_plain,
+    gelu_takes,
+    pick_tile,
     dense_int8_stacked,
     mlp_gelu_int8_plain,
     mlp_gelu_int8_stacked,
@@ -1115,6 +1124,102 @@ def test_mlp_gelu_int8_kernel(dev, b, L, d, F, layer, dtype, bias_dtype, zero_ro
     _close(got, ref)
 
 
+#: B9b's one-launch body at the XTTS layer: d_model 1024, d_ff 4096 (two
+#: tiles of 2048), qkv 3072; three layers, so that the last one clamps
+_GELU_WEIGHTS: dict = {}
+
+
+def _gelu_one_args(dev, b, dtype, layer):
+    """B9b's arguments at the XTTS layer: rows and biases in ``dtype`` (bf16
+    or f32), f32 LayerNorm parameters, a zero attention row."""
+    L, d, F, Q = 3, 1024, 4096, 3072
+    if dtype not in _GELU_WEIGHTS:
+        gen = _gen(dev, 1024 + F)
+
+        def vec(n, base=0.0):
+            return base + 0.1 * torch.randn((L, n), generator=gen, device=dev)
+
+        wo, wos = _int8_weights(gen, dev, L, d, d)
+        wu, su = _int8_weights(gen, dev, L, d, F)
+        wd, sd = _int8_weights(gen, dev, L, F, d)
+        wq, sq = _int8_weights(gen, dev, L, d, Q)
+        _GELU_WEIGHTS[dtype] = ((wo, wos, vec(d).to(dtype), vec(d, 1.0), vec(d), wu, su,
+                                 vec(F).to(dtype), wd, sd, vec(d).to(dtype)),
+                                (vec(d, 1.0), vec(d), wq, sq))
+    w, nxt = _GELU_WEIGHTS[dtype]
+    gen = _gen(dev, 100 * b + layer)
+    attn = torch.randn((b, d), generator=gen, device=dev) * 0.3
+    attn[b // 2] = 0
+    x = torch.randn((b, d), generator=gen, device=dev).to(dtype)
+    return (attn, x, *w), nxt
+
+
+def _gelu_chain(tail, nxt, layer):
+    """B9b on the old 12-kernel chain (``vt_tail_gelu_int8``), as B9c runs."""
+    tile = pick_tile(tail[10].shape[1], TILE_BUDGET, 2 * tail[1].shape[1])
+    return _tail_gelu(*tail, nxt, layer, 1e-5, tile, chain=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("layer", [1, 2])
+@pytest.mark.parametrize("b", [1, 8, 16, 17])
+def test_tail_gelu_one_launch_equals_the_chain(dev, b, layer, dtype):
+    """B9b's one launch (``csrc/tail_gelu.cu``) against the old chain, bit
+    for bit, and within its gate against the plain version; rows and biases
+    in bf16 and in f32, the last layer's qkv clamped to it."""
+    tail, nxt = _gelu_one_args(dev, b, dtype, layer)
+    assert gelu_takes(b, 1024, 1024, 4096, 3072, card_sms(dev))
+    before = tail_gelu_qkv_int8_stacked.launches
+    x_out, qkv = tail_gelu_qkv_int8_stacked(*tail, *nxt, layer, eps=1e-5)
+    cx, cq = _gelu_chain(tail, nxt, layer)
+    rx, rq = tail_gelu_qkv_int8_plain(*tail, *nxt, layer, eps=1e-5)
+    torch.cuda.synchronize()
+    assert tail_gelu_qkv_int8_stacked.launches == before + 2
+    assert x_out.shape == (b, 1024) and qkv.shape == (b, 3072)
+    assert torch.equal(x_out, cx), (x_out - cx).abs().max().item()
+    assert torch.equal(qkv, cq), (qkv - cq).abs().max().item()
+    _close(x_out, rx)
+    _close(qkv, rq)
+
+
+def _cuda_kernels(call):
+    from torch.profiler import ProfilerActivity, profile
+
+    call()   # builds, plans and uploads the item table outside the profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+            and "memcpy" not in e.name.lower() and "memset" not in e.name.lower()]
+
+
+def test_tail_gelu_is_one_cuda_kernel_a_call(dev):
+    """torch.profiler sees one CUDA kernel for a B9b call at the XTTS layer
+    (the old chain launches 12: ``test_untaken_gelu_shapes_take_the_chain``)."""
+    tail, nxt = _gelu_one_args(dev, 8, torch.bfloat16, 1)
+    names = _cuda_kernels(lambda: tail_gelu_qkv_int8_stacked(*tail, *nxt, 1, eps=1e-5))
+    assert len(names) == 1 and "tail_gelu_kernel" in names[0], names
+
+
+def test_untaken_gelu_shapes_take_the_chain(dev):
+    """33 rows, which B9b's body does not take (``gelu_takes``): the wrapper
+    runs the old chain (12 CUDA kernels), which agrees with the plain
+    version; B9c (no next qkv) stays on the chain at every shape."""
+    tail, nxt = _gelu_tail_args(dev, 33, 2, 1024, 4096, 3072, torch.bfloat16, torch.bfloat16)
+    assert not gelu_takes(33, 1024, 1024, 4096, 3072, card_sms(dev))
+    names = _cuda_kernels(lambda: tail_gelu_qkv_int8_stacked(*tail, *nxt, 1, eps=1e-5))
+    assert len(names) == 12 and not any("tail_gelu_kernel" in n for n in names), names
+    x_out, qkv = tail_gelu_qkv_int8_stacked(*tail, *nxt, 1, eps=1e-5)
+    rx, rq = tail_gelu_qkv_int8_plain(*tail, *nxt, 1, eps=1e-5)
+    torch.cuda.synchronize()
+    _close(x_out, rx)
+    _close(qkv, rq)
+    small, _ = _gelu_tail_args(dev, 8, 2, 1024, 4096, 3072, torch.bfloat16, torch.bfloat16)
+    names = _cuda_kernels(lambda: tail_gelu_int8_stacked(*small, 1, eps=1e-5))
+    assert len(names) == 9 and not any("tail_gelu_kernel" in n for n in names), names
+
+
 def test_gelu_kernels_reject_bad_inputs(dev):
     tail, nxt = _gelu_tail_args(dev, 2, 2, 128, 256, 384, torch.float32, torch.float32)
     bad = list(tail)
@@ -1181,6 +1286,28 @@ def test_decode_step_kernel(dev, L, H, d, D, F, T, valid, bias_dtype, norm_dtype
         _close(g, r)
 
 
+@pytest.mark.parametrize("valid,bias_dtype,norm_dtype", [
+    (256, BF16, F32),     # a valid length on the 128-slot grid, bf16 q/k/v bias
+    (383, F32, BF16),     # off the grid (the streaming request's), f32 bias, bf16 norms
+    (640, None, F32),     # no slot masked, no q/k/v bias
+])
+def test_decode_step_kernel_at_full_width(dev, valid, bias_dtype, norm_dtype):
+    """B7 at the CosyVoice LM's widths (16 heads of 64, d_model 1024, d_ff
+    4096, a 640-slot cache: 4 splits a head) over 4 layers against its plain
+    version: x_out and every layer's k/v rows."""
+    L, H, d, D, F, T = 4, 16, 64, 1024, 4096, 640
+    args = _b7_args(dev, valid + 4, L, H, d, D, F, T, valid, bias_dtype, norm_dtype)
+    kw = dict(sm_scale=d ** -0.5, eps=1e-5)
+    got = decode_step_fused_packed(*args, **kw)
+    ref = decode_step_fused_plain(*args, **kw)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        _close(g, r)
+    for layer in range(L):
+        _close(got[1][layer], ref[1][layer])
+        _close(got[2][layer], ref[2][layer])
+
+
 def test_decode_step_kernel_refuses_a_grid_past_residency(dev):
     """A cooperative grid larger than the card keeps resident is refused
     (cudaErrorCooperativeLaunchTooLarge): the wrapper raises, no fallback."""
@@ -1193,6 +1320,34 @@ def test_decode_step_kernel_refuses_a_grid_past_residency(dev):
     with pytest.raises(RuntimeError, match="decode_step"):
         decode_step_fused_packed(*args, sm_scale=0.125, eps=1e-5, grid=most + 1)
     torch.cuda.synchronize()
+
+
+def test_one_launch_bodies_refuse_a_misaligned_input(dev):
+    """B9b's and B7's C entries refuse an input that does not start on a
+    16-byte boundary (their tiles and vectors come in 16-byte copies): the
+    wrappers raise, nothing is launched, and the next call runs."""
+    tail, nxt = _gelu_one_args(dev, 8, torch.float32, 1)
+    before = tail_gelu_qkv_int8_stacked.launches
+    with pytest.raises(RuntimeError, match="16-byte boundary"):
+        tail_gelu_qkv_int8_stacked(_offset(tail[0], 1), *tail[1:], *nxt, 1, eps=1e-5)
+    x_out, qkv = tail_gelu_qkv_int8_stacked(*tail, *nxt, 1, eps=1e-5)
+    rx, rq = tail_gelu_qkv_int8_plain(*tail, *nxt, 1, eps=1e-5)
+    torch.cuda.synchronize()
+    assert tail_gelu_qkv_int8_stacked.launches == before + 2
+    _close(x_out, rx)
+    _close(qkv, rq)
+    args = list(_b7_args(dev, 6, 1, 4, 64, 256, 512, 128, 40, F32))
+    kw = dict(sm_scale=0.125, eps=1e-5)
+    good = args[10]
+    args[10] = _offset(good, 1)   # wos_all, 4-byte aligned only
+    with pytest.raises(RuntimeError, match="16-byte boundary"):
+        decode_step_fused_packed(*args, **kw)
+    args[10] = good
+    got = decode_step_fused_packed(*args, **kw)
+    ref = decode_step_fused_plain(*args, **kw)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        _close(g, r)
 
 
 # ── B12 ─────────────────────────────────────────────────────────────────

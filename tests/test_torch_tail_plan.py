@@ -17,6 +17,14 @@ the activations (the T3 layer: ~127 KB an SM) and is a ring of stages where
 they do not (the Qwen3 layer: ~470 KB an SM). ``tail_takes`` says which
 shapes the body takes on such a card, and ``_dense_dispatch`` sends the
 others to ``DENSE_FNS`` (B4 + B8b), which take any batch and width.
+
+``tail_plan(..., mlp="gelu")`` is B9b's plan (``csrc/tail_gelu.cu``) at the
+XTTS layer (d_model 1024, d_ff 4096 in tiles of 2048, qkv 3072): the same
+ownership and streaming, the fc one slab an item, and the down-projection
+one item a (slab, d_ff tile), so that it spans 64 SMs instead of 32, each
+block streaming the later tiles' items before the tile-0 item that waits
+for them. ``gelu_takes`` says which shapes the one-launch body takes; the
+others, and B9c, run the old chain.
 """
 
 import dataclasses
@@ -24,11 +32,13 @@ import dataclasses
 import pytest
 import torch
 
+from vocalie_tts_tpu_torch.ops import _build
 from vocalie_tts_tpu_torch.ops.cache_update import append_word
 from vocalie_tts_tpu_torch.ops.decode_dense import (
     SLAB,
     SMEM_MAX,
     TAIL_MAX_STAGES,
+    gelu_takes,
     pick_tile,
     tail_item_rows,
     tail_plan,
@@ -150,6 +160,56 @@ def test_tail_takes_what_tail_plan_plans(b, d, d_ff, Q, takes):
     assert tail_takes(b, d, d, d_ff, Q, None) is True
 
 
+XTTS = (1024, 1024, 4096, 3072)   # d_attn, d_model, d_ff, d_qkv
+
+
+@pytest.mark.parametrize("b", [1, 8, 16, 17, 32])
+def test_gelu_plan_owns_every_column_and_streams_every_row_once(b):
+    d_attn, d, d_ff, Q = XTTS
+    tile = pick_tile(d_ff, TILE_BUDGET, 2 * d)
+    n_tiles = d_ff // tile
+    plan = tail_plan(b, d_attn, d, d_ff, tile, Q, H100_SMS, mlp="gelu")
+    assert (plan.mlp, plan.tile, n_tiles) == ("gelu", 2048, 2)
+    owned = [(p, s) for its in plan.items for p, s in its]
+    assert len(owned) == len(set(owned))
+    n_items = (d // SLAB, d_ff // SLAB, d // SLAB * n_tiles, Q // SLAB)
+    assert sorted(owned) == [(p, s) for p in range(4) for s in range(n_items[p])]
+    n_cols, k_rows = (d, d_ff, d, Q), (d_attn, d, d_ff, d)
+    tiles = []
+    for blk in range(plan.grid):
+        stream = tail_stream(plan, blk, d_attn, d, d_ff)
+        assert len(stream) == plan.tiles[blk]
+        tiles += stream
+        # a block's down items: the later d_ff tiles' parts before any tile-0 item
+        down_t = [n_tiles - 1 - s // (d // SLAB) for p, s in plan.items[blk] if p == 2]
+        assert down_t == sorted(down_t, reverse=True)
+    assert len(tiles) == len(set(tiles))
+    assert sorted(tiles) == sorted((p, c, r) for p in range(4)
+                                   for c in range(0, n_cols[p], SLAB)
+                                   for r in range(0, k_rows[p], plan.kc))
+    assert plan.smem <= SMEM_MAX and tile % plan.kc == 0
+    # the ring holds all of a block's tiles up to 17 rows (at 32 the activations take 131 KB)
+    assert plan.ring_holds_all or b > 17
+    # the down-projection spans 64 SMs (32 slabs x 2 tiles), not 32
+    assert sum(any(p == 2 for p, _ in its) for its in plan.items) == 64
+    assert plan.grid == H100_SMS
+
+
+@pytest.mark.parametrize("b,Q,sms,takes", [
+    (8, 3072, H100_SMS, True),     # the XTTS bench batch
+    (32, 3072, H100_SMS, True),    # the most rows
+    (33, 3072, H100_SMS, False),   # past 32 rows: the old chain
+    (8, 0, H100_SMS, False),       # B9c (no next qkv): the old chain
+    (8, 3072, None, False),        # off a card: the plain version
+])
+def test_gelu_takes_what_the_gelu_plan_plans(b, Q, sms, takes):
+    d_attn, d, d_ff, _ = XTTS
+    assert gelu_takes(b, d_attn, d, d_ff, Q, sms) is takes
+    if b > 32:
+        with pytest.raises(ValueError, match="rows"):
+            tail_plan(b, d_attn, d, d_ff, 2048, Q, H100_SMS, mlp="gelu")
+
+
 @pytest.mark.parametrize("megatail", [True, False], ids=["B2", "B8a"])
 def test_dispatch_sends_untaken_tail_shapes_to_dense_fns(monkeypatch, megatail):
     """On a card (``card_sms`` answering 132), the T3 layer at 32 rows takes
@@ -193,3 +253,18 @@ def test_dispatch_sends_untaken_tail_shapes_to_dense_fns(monkeypatch, megatail):
 ])
 def test_append_word_by_row_width_and_alignment(row_bytes, ptrs, word):
     assert append_word(row_bytes, *ptrs) == word
+
+
+@pytest.mark.parametrize("rc,hint", [
+    (716, "16-byte boundary"),   # cudaErrorMisalignedAddress: B2, B9b and B7 check their inputs
+    (1, None),                   # cudaErrorInvalidValue: the cudaError alone
+])
+def test_a_refused_launch_names_its_cause(rc, hint):
+    """The one-launch bodies' C entries check each input's 16-byte
+    alignment themselves; ``_build.check`` raises with the error and, for a
+    misaligned input, what it means."""
+    with pytest.raises(RuntimeError, match=f"vt_tail_gelu_qkv_int8 failed to launch: "
+                                           f"cudaError {rc}") as err:
+        _build.check(rc, "vt_tail_gelu_qkv_int8")
+    assert (hint in str(err.value)) if hint else str(err.value).endswith(f"cudaError {rc}")
+    _build.check(0, "vt_tail_gelu_qkv_int8")

@@ -13,10 +13,14 @@
 //     tile j);
 //   * the row norm and the quantizer: a row over one or more warps, held in
 //     registers (d <= 128 * MAX_VEC), RMSNorm with the mean of the squares
-//     summed in double and rounded to f32 once, then the per-row int8 with
-//     s = max(amax / 127, 1e-8) and q = round_half_even(x / s) (the IEEE
-//     divide's rounding, from a multiply where no tie is near).
-// Included by tail_swiglu.cu (B2, B8a).
+//     summed in double and rounded to f32 once, or LayerNorm with the mean
+//     and then the centred variance each summed so, then the per-row int8
+//     with s = max(amax / 127, 1e-8) and q = round_half_even(x / s) (the
+//     IEEE divide's rounding, from a multiply where no tie is near).
+//   * the layer-tail bodies' weight stream: a ring of mbarrier stages that
+//     a block refills with its items' tiles as it consumes them.
+// Included by tail_swiglu.cu (B2, B8a), tail_gelu.cu (B9b) and
+// decode_step.cu (B7).
 
 #pragma once
 
@@ -80,6 +84,13 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
 }
 
+// The warps that compute: the whole block's (NCON 0), or the first NCON
+// threads' in a block whose last warp only streams tiles (decode_step.cu).
+template <int NCON>
+__device__ __forceinline__ int block_warps() {
+  return NCON == 0 ? (int)(blockDim.x >> 5) : NCON / 32;
+}
+
 // ── the weight-tile stream ───────────────────────────────────────────────
 
 // the small inputs' 16-byte copies (generic proxy), waited for by group
@@ -92,6 +103,15 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+// 16-byte copies of n bytes (a multiple of 16) from global src to shared
+// dst by the computing threads (block_warps<NCON>)
+template <int NCON = 0>
+__device__ __forceinline__ void copy_async(uint32_t dst, const void* src, int n) {
+  const int nt = 32 * block_warps<NCON>();
+  for (int i = threadIdx.x; i < n / 16; i += nt) {
+    cp_async16(dst + 16 * i, reinterpret_cast<const char*>(src) + 16 * i);
+  }
 }
 
 // Tiles come by TMA (cp.async.bulk.tensor): one thread asks for a box of R
@@ -132,6 +152,14 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const void* map, int col,
       : "memory");
 }
 
+// n bytes (a multiple of 16, both addresses 16-byte aligned) of contiguous
+// global memory into shared dst by the copy engine, completing on bar
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, int n, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "l"(src), "r"(n), "r"(bar) : "memory");
+}
+
 // ── the int8 tile product ────────────────────────────────────────────────
 
 __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
@@ -162,49 +190,59 @@ __device__ __forceinline__ uint32_t lds32(uint32_t addr) {
   return v;
 }
 
-// acc[m][j] += act[16 m.., kact + ...] . tile for the tile's kc rows (tile
-// and act as shared addresses; the tile's rows 32 bytes, 32-byte swizzled;
-// act's rows at or past b are zero; its row stride lda a multiple of 16);
-// warp w of n takes the 32-row steps w, w + n, .... In a step at rows k0,
-// lane (g = lane / 4, t = lane % 4) loads the B fragments of n8 tile j,
-// column 4 g + j at rows k0 + 4 t .. + 3 and k0 + 16 + 4 t .. + 3 (the
-// lane's eight offsets are fixed: k0 is a multiple of 32), and the A
-// fragments of rows g and g + 8 at depth k0 + 4 t and k0 + 16 + 4 t.
+// acc[m][j] += act[16 m.., kact + 32 s ..] . rows 32 s .. 32 s + 31 of the
+// tile (one 32-row step; tile and act as shared addresses; the tile's rows
+// 32 bytes, 32-byte swizzled; act's rows at or past b are zero; its row
+// stride lda a multiple of 16). Lane (g = lane / 4, t = lane % 4) loads the B
+// fragments of n8 tile j, column 4 g + j, at rows 32 s + 4 t .. + 3 and 32 s
+// + 16 + 4 t .. + 3, and the A fragments of rows g and g + 8 at the same
+// depths. Load r of lane t reads row 4 t + (r + t) % 4, which spreads the
+// four t of a load over the 32 banks (rows 4 t + r would put them 128 bytes
+// apart, in the same 8 banks); the B fragment's four k then come rotated by
+// t, and so are the A fragment's bytes (one byte permute a word): a dot
+// product over the same four k in another order, exact in int32.
 template <int MT>
+__device__ __forceinline__ void mma_step(uint32_t tile, int s, uint32_t act, int lda, int b,
+                                         int kact, int (&acc)[MT][4][4]) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  // row 4 t + r: byte 32 row, chunk g / 4 swapped where bit 2 of the row,
+  // t's bit 0, is set, word g % 4
+  const uint32_t base = tile + 1024 * s + 128 * t + 16 * ((g >> 2) ^ (t & 1)) + 4 * (g & 3);
+  uint32_t bf[4][2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    uint32_t w[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) w[r] = lds32(base + 32 * ((r + t) & 3) + 512 * h);
+    transpose4(w, bf[0][h], bf[1][h], bf[2][h], bf[3][h]);
+  }
+  // byte i of an A word from byte (i + t) % 4
+  const uint32_t rot = (t & 3) | (((t + 1) & 3) << 4) | (((t + 2) & 3) << 8) |
+                       (((t + 3) & 3) << 12);
+  const uint32_t arow = act + g * lda + kact + 32 * s + 4 * t;
+#pragma unroll
+  for (int m = 0; m < MT; ++m) {
+    const int r0 = 16 * m + g;
+    const uint32_t a0 = arow + 16 * m * lda;
+    uint32_t af[4];
+    af[0] = r0 < b ? __byte_perm(lds32(a0), 0u, rot) : 0u;
+    af[1] = r0 + 8 < b ? __byte_perm(lds32(a0 + 8 * lda), 0u, rot) : 0u;
+    af[2] = r0 < b ? __byte_perm(lds32(a0 + 16), 0u, rot) : 0u;
+    af[3] = r0 + 8 < b ? __byte_perm(lds32(a0 + 8 * lda + 16), 0u, rot) : 0u;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) mma_s8(acc[m][j], af, bf[j][0], bf[j][1]);
+  }
+}
+
+// acc += act[.., kact ..] . tile over the tile's kc rows: warp w of n
+// (block_warps<NCON>) takes the 32-row steps w, w + n, ....
+template <int MT, int NCON = 0>
 __device__ __forceinline__ void tile_mma(uint32_t tile, int kc, uint32_t act, int lda, int b,
                                          int kact, int (&acc)[MT][4][4]) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarp = blockDim.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  // rows 4 t + r: byte 32 row, chunk g / 4 swapped where bit 2 of the row,
-  // t's bit 0, is set, word g % 4
-  const uint32_t base = tile + 128 * t + 16 * ((g >> 2) ^ (t & 1)) + 4 * (g & 3);
-  uint32_t off[4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) off[r] = base + 32 * r;
-  const uint32_t arow = act + g * lda + kact + 4 * t;
+  const int warp = threadIdx.x >> 5, nwarp = block_warps<NCON>();
 #pragma unroll 2
-  for (int s = warp; s < kc / 32; s += nwarp) {
-    uint32_t bf[4][2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      uint32_t w[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) w[r] = lds32(off[r] + 1024 * s + 512 * h);
-      transpose4(w, bf[0][h], bf[1][h], bf[2][h], bf[3][h]);
-    }
-#pragma unroll
-    for (int m = 0; m < MT; ++m) {
-      const int r0 = 16 * m + g;
-      const uint32_t a0 = arow + 16 * m * lda + 32 * s;
-      uint32_t af[4];
-      af[0] = r0 < b ? lds32(a0) : 0u;
-      af[1] = r0 + 8 < b ? lds32(a0 + 8 * lda) : 0u;
-      af[2] = r0 < b ? lds32(a0 + 16) : 0u;
-      af[3] = r0 + 8 < b ? lds32(a0 + 8 * lda + 16) : 0u;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) mma_s8(acc[m][j], af, bf[j][0], bf[j][1]);
-    }
-  }
+  for (int s = warp; s < kc / 32; s += nwarp) mma_step<MT>(tile, s, act, lda, b, kact, acc);
 }
 
 // The warps' int32 sums into red ([16 MT][RED_ROW], zero before; int32 adds
@@ -239,16 +277,18 @@ __device__ __forceinline__ void acc_to_red(int (&acc)[MT][4][4], int* red, int b
 // Rows [0, b) of x ([b, d] f32; read through L2, so rows written earlier in
 // the launch are seen) -> int8 at act + r * lda, the scales at rs[r]; with w
 // (kind wkind), RMSNorm first: x * (1 / sqrt(mean(x * x) + eps)) * w, the
-// mean of the squares summed in double and rounded once. A row is split over
-// wpr warps (d / 4 divisible by wpr), each holding VEC float4 a lane of its
-// part in registers (all its loads in flight at once): the parts' double
-// sums are added in part order and their maxima met through shared memory
-// (scratch: QUANT_SCRATCH bytes), so every block gets the same bits. Rows go
-// nwarp / wpr at a time.
-template <int VEC>
+// mean of the squares summed in double and rounded once; with LN, LayerNorm
+// instead: c = x - mean, ((c * (1 / sqrt(mean(c * c) + eps))) * w) + wb, the
+// mean and the variance each summed in double and rounded once. A row is
+// split over wpr warps (d / 4 divisible by wpr), each holding VEC float4 a
+// lane of its part in registers (all its loads in flight at once): the
+// parts' double sums are added in part order and their maxima met through
+// shared memory (scratch: QUANT_SCRATCH bytes), so every block gets the
+// same bits. Rows go nwarp / wpr at a time.
+template <int VEC, bool LN>
 __device__ __forceinline__ void quant_rows_t(const float* x, int b, int d, const void* w,
-                                             int wkind, float eps, int8_t* act, int lda,
-                                             float* rs, int wpr, void* scratch) {
+                                             const void* wb, int wkind, float eps, int8_t* act,
+                                             int lda, float* rs, int wpr, void* scratch) {
   double* part_ss = reinterpret_cast<double*>(scratch);
   float* part_max = reinterpret_cast<float*>(part_ss + 32);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarp = blockDim.x >> 5;
@@ -264,7 +304,54 @@ __device__ __forceinline__ void quant_rows_t(const float* x, int b, int d, const
       const int i = lane + 32 * j;
       v[j] = live && i < per ? __ldcg(xp + i) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     }
-    if (wkind != KIND_NONE) {
+    if (LN) {
+      double s1 = 0.0;
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) {
+        s1 += (double)v[j].x + (double)v[j].y;
+        s1 += (double)v[j].z + (double)v[j].w;
+      }
+      for (int o = 16; o > 0; o >>= 1) s1 += __shfl_xor_sync(0xffffffffu, s1, o);
+      if (lane == 0) part_ss[warp] = s1;
+      __syncthreads();
+      s1 = part_ss[warp - p];
+      for (int q = 1; q < wpr; ++q) s1 += part_ss[warp - p + q];
+      const float mean = (float)(s1 / (double)d);
+      double ss = 0.0;
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) {
+        if (lane + 32 * j < per) {   // the part's padding stays 0
+          v[j].x = __fsub_rn(v[j].x, mean);
+          v[j].y = __fsub_rn(v[j].y, mean);
+          v[j].z = __fsub_rn(v[j].z, mean);
+          v[j].w = __fsub_rn(v[j].w, mean);
+        }
+        ss += (double)v[j].x * (double)v[j].x + (double)v[j].y * (double)v[j].y;
+        ss += (double)v[j].z * (double)v[j].z + (double)v[j].w * (double)v[j].w;
+      }
+      for (int o = 16; o > 0; o >>= 1) ss += __shfl_xor_sync(0xffffffffu, ss, o);
+      __syncthreads();   // every warp has read the means' parts
+      if (lane == 0) part_ss[warp] = ss;
+      __syncthreads();
+      if (live) {
+        ss = part_ss[warp - p];
+        for (int q = 1; q < wpr; ++q) ss += part_ss[warp - p + q];
+        const float var = (float)(ss / (double)d);
+        const float inv = __frcp_rn(__fsqrt_rn(__fadd_rn(var, eps)));
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) {
+          const int i = lane + 32 * j;
+          if (i < per) {
+            const float4 gv = load_f4(w, wkind, 4 * (p * per + i));
+            const float4 bv = load_f4(wb, wkind, 4 * (p * per + i));
+            v[j].x = __fadd_rn(__fmul_rn(__fmul_rn(v[j].x, inv), gv.x), bv.x);
+            v[j].y = __fadd_rn(__fmul_rn(__fmul_rn(v[j].y, inv), gv.y), bv.y);
+            v[j].z = __fadd_rn(__fmul_rn(__fmul_rn(v[j].z, inv), gv.z), bv.z);
+            v[j].w = __fadd_rn(__fmul_rn(__fmul_rn(v[j].w, inv), gv.w), bv.w);
+          }
+        }
+      }
+    } else if (wkind != KIND_NONE) {
       double ss = 0.0;
 #pragma unroll
       for (int j = 0; j < VEC; ++j) {
@@ -295,6 +382,7 @@ __device__ __forceinline__ void quant_rows_t(const float* x, int b, int d, const
     float amax = 0.0f;
 #pragma unroll
     for (int j = 0; j < VEC; ++j) {
+      if (LN && lane + 32 * j >= per) continue;
       amax = fmaxf(amax, fmaxf(fmaxf(fabsf(v[j].x), fabsf(v[j].y)),
                                fmaxf(fabsf(v[j].z), fabsf(v[j].w))));
     }
@@ -317,30 +405,145 @@ __device__ __forceinline__ void quant_rows_t(const float* x, int b, int d, const
   }
 }
 
-// quant_rows_t with a row's part at most MAX_VEC float4 a lane and as many
-// warps a row as the block has to spare (a power of two, at least 32 float4
-// a part), the part's float4s a lane rounded up to a power of two (d % 4 ==
-// 0, d <= 128 MAX_VEC * nwarp). Not inlined: one copy of the code serves
-// every call (the instruction cache is small). Ends with __syncthreads().
-__device__ __noinline__ void quant_rows(const float* x, int b, int d, const void* w, int wkind,
-                                        float eps, int8_t* act, int lda, float* rs,
-                                        void* scratch) {
+// The warps a row and the float4s a lane: a row's part at most MAX_VEC
+// float4 a lane and as many warps a row as the block has to spare (a power
+// of two, at least 32 float4 a part), the part's float4s a lane rounded up
+// to a power of two (d % 4 == 0, d <= 128 MAX_VEC * nwarp).
+__device__ __forceinline__ int rows_split(int b, int d, int& vec) {
   const int nwarp = blockDim.x >> 5, n4 = d >> 2;
   int wpr = 1;
   while (n4 / wpr > 32 * MAX_VEC ||
          (2 * wpr * b <= nwarp && n4 % (2 * wpr) == 0 && n4 / (2 * wpr) >= 32)) {
     wpr *= 2;
   }
-  const int vec = (n4 / wpr + 31) / 32;
+  vec = (n4 / wpr + 31) / 32;
+  return wpr;
+}
+
+// quant_rows_t split by rows_split, RMSNorm (or none; with LN, LayerNorm:
+// gain w, bias wb). Not inlined: one copy of the code serves every call (the
+// instruction cache is small). Ends with __syncthreads().
+template <bool LN>
+static __device__ __noinline__ void quant_rows_n(const float* x, int b, int d, const void* w,
+                                                 const void* wb, int wkind, float eps,
+                                                 int8_t* act, int lda, float* rs, void* scratch) {
+  int vec;
+  const int wpr = rows_split(b, d, vec);
   if (vec <= 1) {
-    quant_rows_t<1>(x, b, d, w, wkind, eps, act, lda, rs, wpr, scratch);
+    quant_rows_t<1, LN>(x, b, d, w, wb, wkind, eps, act, lda, rs, wpr, scratch);
   } else if (vec <= 2) {
-    quant_rows_t<2>(x, b, d, w, wkind, eps, act, lda, rs, wpr, scratch);
+    quant_rows_t<2, LN>(x, b, d, w, wb, wkind, eps, act, lda, rs, wpr, scratch);
   } else if (vec <= 4) {
-    quant_rows_t<4>(x, b, d, w, wkind, eps, act, lda, rs, wpr, scratch);
+    quant_rows_t<4, LN>(x, b, d, w, wb, wkind, eps, act, lda, rs, wpr, scratch);
   } else {
-    quant_rows_t<MAX_VEC>(x, b, d, w, wkind, eps, act, lda, rs, wpr, scratch);
+    quant_rows_t<MAX_VEC, LN>(x, b, d, w, wb, wkind, eps, act, lda, rs, wpr, scratch);
   }
+}
+
+__device__ __forceinline__ void quant_rows(const float* x, int b, int d, const void* w, int wkind,
+                                           float eps, int8_t* act, int lda, float* rs,
+                                           void* scratch) {
+  quant_rows_n<false>(x, b, d, w, nullptr, wkind, eps, act, lda, rs, scratch);
+}
+
+__device__ __forceinline__ void quant_rows_ln(const float* x, int b, int d, const void* g,
+                                              const void* gb, int gkind, float eps, int8_t* act,
+                                              int lda, float* rs, void* scratch) {
+  quant_rows_n<true>(x, b, d, g, gb, gkind, eps, act, lda, rs, scratch);
+}
+
+// ── a layer-tail body's weight stream (tail_swiglu.cu, tail_gelu.cu) ─────
+
+constexpr int TAIL_STAMPS = 12;        // a block's phase points in a trace
+constexpr int TAIL_TILE_STAMPS = 64;   // then the clock as each of its first 64 tiles lands
+
+// threads a block: 16 warps for b <= 16, 8 for b <= 32 (twice the registers
+// for the second m16 tile)
+template <int MT>
+__host__ __device__ constexpr int threads() { return MT == 1 ? 512 : 256; }
+
+// A block's weight stream: its items in order, each item's tiles in order;
+// `next` counts the tiles consumed, `groups` the tiles requested, (pi, pj) is
+// the next tile to request; tiles of products past `cap` wait (the
+// o-projection's tiles go out alone). Stage s holds tiles s, s + stages, ...;
+// its mbarrier's phase n completes when tile s + n stages has landed. The
+// body's arguments `a` (stages, kc, stamps) and its tile_request(a, m, code,
+// j, dst, bar) and item_tiles(a, code), declared beside a's type, say what
+// an item's tiles are.
+struct TileRing {
+  const int* items;
+  int n_items, pi, pj, next, groups, cap;
+  uint32_t base, bars;
+};
+
+// Requests the stream's next tile into its stage, if it is due (thread 0
+// asks the copy engine; every thread keeps the same counts).
+template <class A, class M>
+__device__ __forceinline__ void request(const A& a, const M& m, TileRing& rg) {
+  if (rg.pi >= rg.n_items || (rg.items[rg.pi] >> 24) > rg.cap) return;
+  const int code = rg.items[rg.pi];
+  const int s = rg.groups % a.stages;
+  if (threadIdx.x == 0) tile_request(a, m, code, rg.pj, rg.base + s * a.kc * SLAB, rg.bars + 8 * s);
+  ++rg.groups;
+  if (++rg.pj == item_tiles(a, code)) {
+    rg.pj = 0;
+    ++rg.pi;
+  }
+}
+
+// Fills the ring: the stream's due tiles, up to `stages` ahead.
+template <class A, class M>
+__device__ __forceinline__ void fill(const A& a, const M& m, TileRing& rg) {
+  for (int g = rg.groups; rg.groups < rg.next + a.stages; g = rg.groups) {
+    request(a, m, rg);
+    if (rg.groups == g) break;
+  }
+}
+
+// The next tile, once it has landed.
+template <class A>
+__device__ __forceinline__ uint32_t wait_tile(const A& a, TileRing& rg) {
+  const int s = rg.next % a.stages;
+  mbar_wait(rg.bars + 8 * s, (rg.next / a.stages) & 1);
+  if (a.stamps != nullptr && threadIdx.x == 0 && rg.next < TAIL_TILE_STAMPS) {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    a.stamps[gridDim.x * TAIL_STAMPS + blockIdx.x * TAIL_TILE_STAMPS + rg.next] = t;
+  }
+  return rg.base + s * a.kc * SLAB;
+}
+
+// The tile is read by every warp: its stage takes the stream's next tile.
+template <class A, class M>
+__device__ __forceinline__ void release_tile(const A& a, const M& m, TileRing& rg) {
+  __syncthreads();
+  ++rg.next;
+  fill(a, m, rg);
+}
+
+// The small inputs (the block's only cp.async group) have landed.
+__device__ __forceinline__ void wait_first() {
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+// thread 0 of each block writes the card's ns clock for phase point i (a
+// trace of where a call's time goes; off when the pointer is null)
+template <class A>
+__device__ __forceinline__ void stamp(const A& a, int i) {
+  if (a.stamps != nullptr && threadIdx.x == 0) {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    a.stamps[blockIdx.x * TAIL_STAMPS + i] = t;
+  }
+}
+
+template <int MT>
+__device__ __forceinline__ void zero_acc(int (&acc)[MT][4][4]) {
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[m][j][0] = acc[m][j][1] = acc[m][j][2] = acc[m][j][3] = 0;
 }
 
 }  // namespace i8s

@@ -72,10 +72,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
-#include <cuda.h>   // CUtensorMap and the encoder's types; the encoder comes from the runtime
-#include <mutex>
-
 #include "int8_stream.cuh"
+#include "tensor_map.cuh"
 
 namespace cg = cooperative_groups;
 using namespace i8s;
@@ -85,8 +83,6 @@ namespace {
 constexpr int MAX_B = 32;
 constexpr int MAX_D = 2048;   // the widest normed row (quant_rows splits it over warps)
 constexpr int SMEM_MAX = 232448;
-constexpr int N_STAMPS = 12;
-constexpr int N_TILE_STAMPS = 64;   // then the clock as each of a block's first 64 tiles lands
 constexpr int VEC_BYTES = 2 * SLAB * 4;   // an item's column scales (gate and up for gate | up)
 constexpr int COL_ROW = SLAB * 4;         // bytes of one row of an item's residual columns
 
@@ -110,7 +106,7 @@ struct TailArgs {
   int8_t* hq;          // [b, F]
   unsigned* amax;      // [b, F / tile] float bits
   unsigned* normed;    // the blocks past the MLP norm
-  unsigned long long* stamps;  // [grid, N_STAMPS] %globaltimer at each phase point, or null
+  unsigned long long* stamps;  // [grid, TAIL_STAMPS] %globaltimer at each phase point, or null
   int x_kind, norm_kind, layer, nxt, b, d_attn, d, F, tile, Q;
   int kc, stages, lda, max_gu, max_items, gu_blocks;
   float eps;
@@ -182,94 +178,6 @@ __device__ __forceinline__ void tile_request(const TailArgs& a, const Maps& m, i
   for (int k = 0; k < a.kc; k += rows) tma_load(dst + k * SLAB, map, col, row + k, layer, bar);
 }
 
-// The block's weight stream: items in order, tiles in order; `next` counts
-// the tiles consumed, `groups` the tiles requested, (pi, pj) is the next tile
-// to request; tiles of products past `cap` wait (the o-projection's tiles go
-// out alone). Stage s holds tiles s, s + stages, ...; its mbarrier's phase n
-// completes when tile s + n stages has landed.
-struct Ring {
-  const int* items;
-  int n_items, pi, pj, next, groups, cap;
-  uint32_t base, bars;
-};
-
-// Requests the stream's next tile into its stage, if it is due (thread 0
-// asks the copy engine; every thread keeps the same counts).
-__device__ __forceinline__ void request(const TailArgs& a, const Maps& m, Ring& rg) {
-  if (rg.pi >= rg.n_items || (rg.items[rg.pi] >> 24) > rg.cap) return;
-  const int code = rg.items[rg.pi];
-  const int s = rg.groups % a.stages;
-  if (threadIdx.x == 0) tile_request(a, m, code, rg.pj, rg.base + s * a.kc * SLAB, rg.bars + 8 * s);
-  ++rg.groups;
-  if (++rg.pj == item_tiles(a, code)) {
-    rg.pj = 0;
-    ++rg.pi;
-  }
-}
-
-// Fills the ring: the stream's due tiles, up to `stages` ahead.
-__device__ __forceinline__ void fill(const TailArgs& a, const Maps& m, Ring& rg) {
-  for (int g = rg.groups; rg.groups < rg.next + a.stages; g = rg.groups) {
-    request(a, m, rg);
-    if (rg.groups == g) break;
-  }
-}
-
-// The next tile, once it has landed.
-__device__ __forceinline__ uint32_t wait_tile(const TailArgs& a, Ring& rg) {
-  const int s = rg.next % a.stages;
-  mbar_wait(rg.bars + 8 * s, (rg.next / a.stages) & 1);
-  if (a.stamps != nullptr && threadIdx.x == 0 && rg.next < N_TILE_STAMPS) {
-    unsigned long long t;
-    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-    a.stamps[gridDim.x * N_STAMPS + blockIdx.x * N_TILE_STAMPS + rg.next] = t;
-  }
-  return rg.base + s * a.kc * SLAB;
-}
-
-// The tile is read by every warp: its stage takes the stream's next tile.
-__device__ __forceinline__ void release_tile(const TailArgs& a, const Maps& m, Ring& rg) {
-  __syncthreads();
-  ++rg.next;
-  fill(a, m, rg);
-}
-
-// The small inputs (the block's only cp.async group) have landed.
-__device__ __forceinline__ void wait_first() {
-  cp_async_wait<0>();
-  __syncthreads();
-}
-
-// thread 0 of each block writes the card's ns clock for phase point i (a
-// trace of where a call's time goes; off when the pointer is null)
-__device__ __forceinline__ void stamp(const TailArgs& a, int i) {
-  if (a.stamps != nullptr && threadIdx.x == 0) {
-    unsigned long long t;
-    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-    a.stamps[blockIdx.x * N_STAMPS + i] = t;
-  }
-}
-
-template <int MT>
-__device__ __forceinline__ void zero_acc(int (&acc)[MT][4][4]) {
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[m][j][0] = acc[m][j][1] = acc[m][j][2] = acc[m][j][3] = 0;
-}
-
-// 16-byte copies of n bytes (a multiple of 16) from global src to shared dst
-__device__ __forceinline__ void copy_async(uint32_t dst, const void* src, int n) {
-  for (int i = threadIdx.x; i < n / 16; i += blockDim.x) {
-    cp_async16(dst + 16 * i, reinterpret_cast<const char*>(src) + 16 * i);
-  }
-}
-
-// threads a block: 16 warps for b <= 16, 8 for b <= 32 (twice the registers
-// for the second m16 tile)
-template <int MT>
-__host__ __device__ constexpr int threads() { return MT == 1 ? 512 : 256; }
-
 template <int MT>
 __global__ void __launch_bounds__(threads<MT>(), 1)
     tail_swiglu_kernel(TailArgs a, const __grid_constant__ Maps m) {
@@ -291,7 +199,7 @@ __global__ void __launch_bounds__(threads<MT>(), 1)
   stamp(a, 0);
 
   const int beg = a.plan[blockIdx.x];
-  Ring rg;
+  TileRing rg;
   rg.items = a.plan + gridDim.x + 1 + beg;
   rg.n_items = a.plan[blockIdx.x + 1] - beg;
   rg.pi = rg.pj = rg.next = rg.groups = rg.cap = 0;
@@ -537,66 +445,6 @@ bool shapes_ok(int b, int d_attn, int d, int F, int tile, int Q) {
 }
 
 }  // namespace
-
-// ── tensor maps, encoded once per weight array (cuTensorMapEncodeTiled,
-// looked up through the runtime's entry points: no -lcuda) ──
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-static EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) ==
-            cudaSuccess && q == cudaDriverEntryPointSuccess) {
-      fn = (EncodeTiled)p;
-    }
-  }
-  return fn;
-}
-
-struct MapKey {
-  const void* p;
-  int L, K, N, rows;
-};
-
-static std::mutex map_lock;
-static MapKey map_keys[64];
-static CUtensorMap map_vals[64];
-static int map_count = 0;
-
-// The map of a [L, K, N] int8 array at p, boxes of rows x 32 bytes, 32-byte
-// swizzle; 0 on success.
-static int weight_map(const void* p, int L, int K, int N, int rows, CUtensorMap* out) {
-  std::lock_guard<std::mutex> guard(map_lock);
-  const int n = map_count < 64 ? map_count : 64;
-  for (int i = 0; i < n; ++i) {
-    const MapKey& k = map_keys[i];
-    if (k.p == p && k.L == L && k.K == K && k.N == N && k.rows == rows) {
-      *out = map_vals[i];
-      return 0;
-    }
-  }
-  EncodeTiled enc = encoder();
-  if (enc == nullptr) return (int)cudaErrorNotSupported;
-  const cuuint64_t dims[3] = {(cuuint64_t)N, (cuuint64_t)K, (cuuint64_t)L};
-  const cuuint64_t strides[2] = {(cuuint64_t)N, (cuuint64_t)K * N};
-  const cuuint32_t box[3] = {(cuuint32_t)SLAB, (cuuint32_t)rows, 1};
-  const cuuint32_t estr[3] = {1, 1, 1};
-  const CUresult r = enc(out, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(p), dims,
-                         strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                         CU_TENSOR_MAP_SWIZZLE_32B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  if (r != CUDA_SUCCESS) return (int)cudaErrorInvalidValue;
-  const int slot = map_count++ % 64;
-  map_keys[slot] = MapKey{p, L, K, N, rows};
-  map_vals[slot] = *out;
-  return 0;
-}
 
 extern "C" long long vt_tail_swiglu_workspace(int b, int d, int F, int tile) {
   if (b < 1 || d < 1 || F < 1 || tile < 1 || F % tile) return -1;

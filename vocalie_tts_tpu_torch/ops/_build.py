@@ -26,7 +26,7 @@ from typing import Dict, List, Sequence
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("decode_attention.cu", "cache_update.cu", "flash_attention.cu", "decode_dense.cu",
            "decode_step.cu", "groupnorm.cu", "decode_layer.cu", "flash_attention_bwd.cu",
-           "tail_swiglu.cu")
+           "tail_swiglu.cu", "tail_gelu.cu")
 FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
@@ -129,9 +129,15 @@ def kernel(name: str, argtypes: Sequence, restype=ctypes.c_int) -> ctypes._CFunc
         return fn
 
 
+#: what an entry point's refusal means, where the cudaError alone says little
+_HINTS = {716: " (misaligned address: an input the kernel reads in 16-byte chunks does not "
+               "start on a 16-byte boundary)"}
+
+
 def check(rc: int, name: str) -> None:
     if rc != 0:
-        raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {rc}")
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: cudaError {rc}"
+                           + _HINTS.get(rc, ""))
 
 
 def stream_ptr(t) -> int:

@@ -47,8 +47,11 @@ below one 128-column tile raises as it does there.
 On a CUDA tensor each wrapper launches ``csrc/decode_dense.cu`` (a short
 sequence of kernels from one C entry point; ``launches`` counts calls of
 the entry point), except B2 and B8a, which are one cooperative launch of
-``csrc/tail_swiglu.cu`` on the int8 tensor cores, planned per shape by
-:func:`tail_plan`; on a CPU tensor each runs the plain version, which takes
+``csrc/tail_swiglu.cu`` on the int8 tensor cores, and B9b, one launch of
+``csrc/tail_gelu.cu`` (B2's body with the GELU MLP and the LayerNorms),
+each planned per shape by :func:`tail_plan`; a shape B9b's body does not
+take (:func:`gelu_takes`) runs the old chain of ``csrc/decode_dense.cu``,
+as B9c does. On a CPU tensor each runs the plain version, which takes
 the integer products exactly in float64 (|sum| <= 8192 · 127² < 2**53).
 """
 
@@ -79,6 +82,8 @@ _MLP_ARGTYPES = ([_build.P, _build.I] + [_build.P] * 4 + [_build.I] * 6
                  + [_build.P, _build.P, _build.LL, _build.P])
 _GELU_ARGTYPES = ([_build.P, _build.P, _build.I] + [_build.P] * 11 + [_build.I] + [_build.P] * 4
                   + [_build.I] * 9 + [_build.F] + [_build.P] * 3 + [_build.LL, _build.P])
+_GELU_ONE_ARGTYPES = (_GELU_ARGTYPES[:-1] + [_build.P] + [_build.I] * 7
+                      + [_build.P, _build.P])
 
 
 def pick_tile(n: int, budget: int, bytes_per_col: int) -> int:
@@ -402,7 +407,12 @@ class TailPlan:
     holds at most, ``gu_blocks`` the blocks that hold a gate | up item,
     ``smem`` the shared bytes of the launch (``vt_tail_swiglu_smem``'s),
     and ``ring_holds_all`` whether the ring holds every tile of every block
-    at once (none is refilled)."""
+    at once (none is refilled). ``mlp`` "gelu" is B9b's plan
+    (``csrc/tail_gelu.cu``): product 1 is the fc (one slab an item, not a
+    gate | up pair; ``max_gu`` and ``gu_blocks`` count fc items), and a
+    down-projection item is one d_ff ``tile`` of a slab, ``s = (n_tiles - 1
+    - t) · d / 32 + slab``, so that a block streams the later tiles' items
+    before the tile-0 item that waits for them."""
     grid: int
     kc: int
     stages: int
@@ -413,6 +423,8 @@ class TailPlan:
     items: tuple
     tiles: tuple
     ring_holds_all: bool
+    mlp: str = "swiglu"
+    tile: int = 0
 
     def table(self) -> list:
         """The item table the kernel reads: ``grid + 1`` offsets, then each
@@ -428,19 +440,36 @@ def _align16(n: int) -> int:
     return (n + 15) // 16 * 16
 
 
-def tail_item_rows(p: int, d_attn: int, d: int, d_ff: int) -> int:
+def tail_item_rows(p: int, d_attn: int, d: int, d_ff: int, mlp: str = "swiglu",
+                   tile: int = 0) -> int:
     """The weight rows (K) of one item of product ``p`` (0 the o-projection,
-    1 gate | up, 2 the down-projection, 3 the qkv, in stream order); a
-    gate | up item streams its gate and its up slab, each ``d`` rows."""
+    1 gate | up or, with ``mlp`` "gelu", the fc, 2 the down-projection, 3 the
+    qkv, in stream order); a gate | up item streams its gate and its up
+    slab, each ``d`` rows; a GELU down item one d_ff ``tile``."""
+    if mlp == "gelu":
+        return (d_attn, d, tile, d)[p]
     return (d_attn, 2 * d, d_ff, d)[p]
 
 
+def _fixed_smem(mlp, b, lda, d, d_ff, tile, max_gu, max_items):
+    """The shared bytes of a launch beside the ring: ``layout`` in
+    ``csrc/tail_swiglu.cu`` or ``csrc/tail_gelu.cu``."""
+    mt = 2 if b > 16 else 1
+    n_tiles = max(1, d_ff // tile)
+    red = _align16((2 if mlp == "swiglu" else 1) * 16 * mt * (SLAB + 1) * 4)
+    nvec = _align16(4 * d) * (1 if mlp == "swiglu" else 2)
+    return (_align16(b * lda) + red + _align16(max_gu * b * SLAB * 4) + _align16(b * SLAB * 4)
+            + _align16(4 * b * n_tiles) + nvec + max_items * (2 * SLAB * 4 + b * SLAB * 4)
+            + 32 * 12 + 8 * TAIL_MAX_STAGES)
+
+
 def tail_plan(b: int, d_attn: int, d: int, d_ff: int, tile: int, Q: int, sms: int,
-              smem_max: int = SMEM_MAX) -> TailPlan:
-    """B2's (``Q`` > 0) or B8a's (``Q`` = 0) launch plan, a pure function of
-    the shape and the card's SM count. The items (32-column slabs of the
-    four products, each over its full K) are dealt largest first to the
-    least loaded block (by weight bytes; ties to the lower block; an
+              smem_max: int = SMEM_MAX, mlp: str = "swiglu") -> TailPlan:
+    """B2's (``Q`` > 0) or B8a's (``Q`` = 0) launch plan, or with ``mlp``
+    "gelu" B9b's, a pure function of the shape and the card's SM count. The
+    items (32-column slabs of the four products, each over its full K; a
+    GELU down-projection item over one d_ff tile) are dealt largest first
+    to the least loaded block (by weight bytes; ties to the lower block; an
     o-projection item to the least loaded block without one, while there is
     one), and each block streams its items in product order. A tile is ``kc`` rows of a
     slab: the largest power of two up to 1024 dividing ``d_attn``, ``d`` and
@@ -450,19 +479,24 @@ def tail_plan(b: int, d_attn: int, d: int, d_ff: int, tile: int, Q: int, sms: in
     norm's weights and each item's column scales and residual columns, up to
     16 stages and no more than the largest block's tiles.
     Raises ``ValueError`` for a shape the body does not take."""
+    name = "B9b" if mlp == "gelu" else "B2/B8a"
     if not 1 <= b <= TAIL_MAX_B:
-        raise ValueError(f"B2/B8a take 1 to {TAIL_MAX_B} rows, got b={b}")
-    for name, n in (("d_attn", d_attn), ("d_model", d), ("d_ff", d_ff), ("tile", tile)):
+        raise ValueError(f"{name} take 1 to {TAIL_MAX_B} rows, got b={b}")
+    for what, n in (("d_attn", d_attn), ("d_model", d), ("d_ff", d_ff), ("tile", tile)):
         if n < SLAB or n % SLAB:
-            raise ValueError(f"B2/B8a need {name} a multiple of {SLAB}, got {n}")
+            raise ValueError(f"{name} need {what} a multiple of {SLAB}, got {n}")
     if Q < 0 or Q % SLAB or d_ff % tile:
-        raise ValueError(f"B2/B8a need d_qkv a multiple of {SLAB} and whole d_ff tiles, got "
+        raise ValueError(f"{name} need d_qkv a multiple of {SLAB} and whole d_ff tiles, got "
                          f"d_qkv={Q}, d_ff={d_ff}, tile={tile}")
     if max(d_attn, d) > TAIL_MAX_D:
-        raise ValueError(f"B2/B8a norm rows of at most {TAIL_MAX_D}, got d_attn={d_attn}, "
+        raise ValueError(f"{name} norm rows of at most {TAIL_MAX_D}, got d_attn={d_attn}, "
                          f"d_model={d}")
-    slabs = (d // SLAB, d_ff // SLAB, d // SLAB, Q // SLAB)
-    work = sorted(((tail_item_rows(p, d_attn, d, d_ff) * SLAB, p, s)
+    n_tiles = d_ff // tile
+    if mlp == "gelu":
+        slabs = (d // SLAB, d_ff // SLAB, d // SLAB * n_tiles, Q // SLAB)
+    else:
+        slabs = (d // SLAB, d_ff // SLAB, d // SLAB, Q // SLAB)
+    work = sorted(((tail_item_rows(p, d_attn, d, d_ff, mlp, tile) * SLAB, p, s)
                    for p in range(4) for s in range(slabs[p])),
                   key=lambda w: (-w[0], w[1], w[2]))
     grid = min(sms, len(work))
@@ -486,12 +520,8 @@ def tail_plan(b: int, d_attn: int, d: int, d_ff: int, tile: int, Q: int, sms: in
     items = tuple(tuple(sorted(its)) for its in owned)
     max_gu = max(sum(p == 1 for p, _ in its) for its in items)
     max_items = max(len(its) for its in items)
-    mt = 2 if b > 16 else 1
     lda = max(d_attn, d, d_ff) + 16
-    fixed = (_align16(b * lda) + _align16(2 * 16 * mt * (SLAB + 1) * 4)
-             + _align16(max_gu * b * SLAB * 4)
-             + _align16(b * SLAB * 4) + _align16(4 * b * max(1, d_ff // tile)) + _align16(4 * d)
-             + max_items * (2 * SLAB * 4 + b * SLAB * 4) + 32 * 12 + 8 * TAIL_MAX_STAGES)
+    fixed = _fixed_smem(mlp, b, lda, d, d_ff, tile, max_gu, max_items)
     # the largest tile that divides the depths and leaves room for two stages
     kc = TAIL_KC_MAX
     while kc > SLAB and (d_attn % kc or d % kc or tile % kc
@@ -499,31 +529,36 @@ def tail_plan(b: int, d_attn: int, d: int, d_ff: int, tile: int, Q: int, sms: in
         kc //= 2
     fit = (smem_max - fixed) // (kc * SLAB)
     if fit < 2:
-        raise ValueError(f"B2/B8a at b={b}, d_ff={d_ff}: the activations leave no room for a "
+        raise ValueError(f"{name} at b={b}, d_ff={d_ff}: the activations leave no room for a "
                          f"two-stage weight ring in {smem_max} bytes of shared memory")
-    tiles = tuple(sum(tail_item_rows(p, d_attn, d, d_ff) // kc for p, _ in its)
+    tiles = tuple(sum(tail_item_rows(p, d_attn, d, d_ff, mlp, tile) // kc for p, _ in its)
                   for its in items)
     stages = min(TAIL_MAX_STAGES, fit, max(tiles))
     return TailPlan(grid=grid, kc=kc, stages=stages, max_gu=max_gu, max_items=max_items,
                     gu_blocks=sum(any(p == 1 for p, _ in its) for its in items),
                     smem=fixed + stages * kc * SLAB, items=items, tiles=tiles,
-                    ring_holds_all=stages >= max(tiles))
+                    ring_holds_all=stages >= max(tiles), mlp=mlp, tile=tile)
 
 
 def tail_stream(plan: TailPlan, blk: int, d_attn: int, d: int, d_ff: int) -> list:
     """Block ``blk``'s weight tiles in the order its kernel requests them
-    (``tile_src`` in ``csrc/tail_swiglu.cu``): (product, first column, first
-    row) of each ``plan.kc``-row, 32-column tile; a gate | up item alternates
-    its gate and its up tiles."""
+    (``tile_request`` in ``csrc/tail_swiglu.cu`` and ``csrc/tail_gelu.cu``):
+    (product, first column, first row) of each ``plan.kc``-row, 32-column
+    tile; a gate | up item alternates its gate and its up tiles, a GELU down
+    item streams the rows of its d_ff tile."""
     out = []
+    n_slabs = d // SLAB
     for p, s in plan.items[blk]:
-        c0 = SLAB * s
-        if p == 1:
+        c0, r0 = SLAB * s, 0
+        if p == 1 and plan.mlp == "swiglu":
             for j in range(d // plan.kc):
                 out += [(1, c0, j * plan.kc), (1, d_ff + c0, j * plan.kc)]
-        else:
-            K = tail_item_rows(p, d_attn, d, d_ff)
-            out += [(p, c0, j * plan.kc) for j in range(K // plan.kc)]
+            continue
+        if p == 2 and plan.mlp == "gelu":
+            t = d_ff // plan.tile - 1 - s // n_slabs
+            c0, r0 = SLAB * (s % n_slabs), t * plan.tile
+        K = tail_item_rows(p, d_attn, d, d_ff, plan.mlp, plan.tile)
+        out += [(p, c0, r0 + j * plan.kc) for j in range(K // plan.kc)]
     return out
 
 
@@ -533,6 +568,16 @@ def tail_workspace_bytes(b: int, d: int, d_ff: int, tile: int) -> int:
     (``vt_tail_swiglu_workspace``)."""
     a256 = lambda n: (n + 255) // 256 * 256   # noqa: E731
     return a256(b * d * 4) + a256(b * d_ff) + a256(b * (d_ff // tile) * 4) + 256
+
+
+def gelu_workspace_bytes(b: int, d: int, d_ff: int, tile: int) -> int:
+    """B9b's workspace (``vt_tail_gelu_one_workspace``): x2, the quantized
+    hidden, its amax, a counter, the down-projection's f32 parts [n_tiles,
+    b, d] and their flags [n_tiles, d / 32]."""
+    a256 = lambda n: (n + 255) // 256 * 256   # noqa: E731
+    n_tiles = d_ff // tile
+    return (a256(b * d * 4) + a256(b * d_ff) + a256(b * n_tiles * 4) + 256
+            + a256(n_tiles * b * d * 4) + a256(n_tiles * (d // SLAB) * 4))
 
 
 @functools.lru_cache(maxsize=None)
@@ -548,9 +593,10 @@ def card_sms(device: torch.device):
 
 
 @functools.lru_cache(maxsize=None)
-def _tail_fits(b: int, d_attn: int, d: int, d_ff: int, tile: int, Q: int, sms: int) -> bool:
+def _tail_fits(b: int, d_attn: int, d: int, d_ff: int, tile: int, Q: int, sms: int,
+               mlp: str = "swiglu") -> bool:
     try:
-        tail_plan(b, d_attn, d, d_ff, tile, Q, sms)
+        tail_plan(b, d_attn, d, d_ff, tile, Q, sms, mlp=mlp)
     except ValueError:
         return False
     return True
@@ -567,15 +613,37 @@ def tail_takes(b: int, d_attn: int, d: int, d_ff: int, Q: int, sms) -> bool:
     return _tail_fits(b, d_attn, d, d_ff, _ff_tile(d, d_ff, Q), Q, sms)
 
 
+def gelu_takes(b: int, d_attn: int, d: int, d_ff: int, Q: int, sms) -> bool:
+    """Whether B9b's one-launch body takes this shape on a card of ``sms``
+    SMs (``tail_plan`` with ``mlp="gelu"`` has a plan: 1 to 32 rows, normed
+    rows of at most 2048, a two-stage ring beside the activations, and a
+    next-layer qkv); ``_tail_gelu`` runs the other shapes, and B9c, on the
+    old chain of ``csrc/decode_dense.cu``."""
+    return sms is not None and Q > 0 and _tail_fits(b, d_attn, d, d_ff, _ff_tile(d, d_ff, Q), Q,
+                                                    sms, "gelu")
+
+
 @functools.lru_cache(maxsize=None)
-def _tail_launch(b: int, d_attn: int, d: int, d_ff: int, tile: int, Q: int, dev: int):
+def _tail_launch(b: int, d_attn: int, d: int, d_ff: int, tile: int, Q: int, dev: int,
+                 mlp: str = "swiglu"):
     """The plan of a shape on card ``dev``, its item table on the card
-    (uploaded once) and the workspace bytes: a decode step calls B2 once a
-    layer and is bound by host time, so a call reads them from here and
-    runs no Python over the blocks."""
-    plan = tail_plan(b, d_attn, d, d_ff, tile, Q, _sm_count(dev))
+    (uploaded once) and the workspace bytes: a decode step calls B2 (or
+    B9b) once a layer and is bound by host time, so a call reads them from
+    here and runs no Python over the blocks."""
+    plan = tail_plan(b, d_attn, d, d_ff, tile, Q, _sm_count(dev), mlp=mlp)
     table = torch.tensor(plan.table(), dtype=torch.int32, device=torch.device("cuda", dev))
-    return plan, table, tail_workspace_bytes(b, d, d_ff, tile)
+    ws = (gelu_workspace_bytes if mlp == "gelu" else tail_workspace_bytes)(b, d, d_ff, tile)
+    return plan, table, ws
+
+
+@functools.lru_cache(maxsize=None)
+def _gelu_launch(b: int, d_attn: int, d: int, d_ff: int, tile: int, Q: int, dev: int):
+    """B9b's ``_tail_launch`` at a shape on card ``dev``, or None where its
+    one-launch body does not take the shape (``gelu_takes``): a call's one
+    cache lookup."""
+    if not gelu_takes(b, d_attn, d, d_ff, Q, _sm_count(dev)):
+        return None
+    return _tail_launch(b, d_attn, d, d_ff, tile, Q, dev, "gelu")
 
 
 def _tail_swiglu(attn, x, wo_all, wos_all, mw_all, wgu_all, sgu_all, wd_all, sd_all, nxt,
@@ -743,9 +811,15 @@ def _gelu_ws_bytes(b: int, d_attn: int, d: int, d_ff: int, tile: int, Q: int) ->
 
 
 def _tail_gelu(attn, x, wo_all, wos_all, bo_all, lg_all, lb_all, wu_all, su_all, bu_all,
-               wd_all, sd_all, bd_all, nxt, layer, eps, tile):
+               wd_all, sd_all, bd_all, nxt, layer, eps, tile, stamps=None, chain=False):
     """Checks and launches B9b (``nxt`` = (ng_all, nb_all, wq_all, sq_all))
-    or B9c (``nxt`` None) → ``(x_out, qkv_next or None)``."""
+    or B9c (``nxt`` None) → ``(x_out, qkv_next or None)``: B9b as one launch
+    of ``csrc/tail_gelu.cu`` where ``gelu_takes``, else (and B9c) the old
+    chain. The one-launch C entry checks the pointers' 16-byte alignment
+    itself (cudaError 716, raised by ``_build.check``). ``stamps``: None,
+    or an int64 CUDA tensor of ``grid * (12 + 64)`` the one-launch body
+    fills with its phase and tile times (as ``_tail_swiglu``'s). ``chain`` runs B9b on the old
+    chain whatever the shape (the yardstick of the one-launch body)."""
     b, d = x.shape
     d_attn = attn.shape[1]
     L, _, d_ff = wu_all.shape
@@ -764,20 +838,31 @@ def _tail_gelu(attn, x, wo_all, wos_all, bo_all, lg_all, lb_all, wu_all, su_all,
                   ("nb_all", nb_all, (lg_all.dtype,), (L, d)),
                   ("wq_all", wq_all, _I8, (L, d, Q)), ("sq_all", sq_all, _FL, (L, 1, Q))]
     _check(x.device, layer, L, *specs)
-    ws = _workspace(_gelu_ws_bytes(b, d_attn, d, d_ff, tile, Q), x.device)
+    dev = x.device.index if x.device.index is not None else torch.cuda.current_device()
+    launch = None if chain else _gelu_launch(b, d_attn, d, d_ff, tile, Q, dev)
     x_out = torch.empty((b, d), dtype=torch.float32, device=x.device)
     qkv = torch.empty((b, Q), dtype=torch.float32, device=x.device) if Q else None
     ptrs = [None] * 4 if nxt is None else [t.data_ptr() for t in nxt]
-    fn = _build.kernel("vt_tail_gelu_int8", _GELU_ARGTYPES)
-    (tail_gelu_int8_stacked if nxt is None else tail_gelu_qkv_int8_stacked).launches += 1
-    rc = fn(attn.data_ptr(), x.data_ptr(), _kind(x, "x"),
+    head = [attn.data_ptr(), x.data_ptr(), _kind(x, "x"),
             wo_all.data_ptr(), wos_all.data_ptr(), bo_all.data_ptr(), lg_all.data_ptr(),
             lb_all.data_ptr(), wu_all.data_ptr(), su_all.data_ptr(), bu_all.data_ptr(),
             wd_all.data_ptr(), sd_all.data_ptr(), bd_all.data_ptr(), _kind(bo_all, "bo_all"),
             *ptrs, _kind(lg_all, "lg_all"), int(layer), L, b, d_attn, d, d_ff, tile, Q,
-            float(eps), x_out.data_ptr(), None if qkv is None else qkv.data_ptr(),
-            ws.data_ptr(), ws.numel(), _build.stream_ptr(x))
-    _build.check(rc, "vt_tail_gelu_int8")
+            float(eps), x_out.data_ptr(), None if qkv is None else qkv.data_ptr()]
+    (tail_gelu_int8_stacked if nxt is None else tail_gelu_qkv_int8_stacked).launches += 1
+    if launch is None:
+        ws = _workspace(_gelu_ws_bytes(b, d_attn, d, d_ff, tile, Q), x.device)
+        fn = _build.kernel("vt_tail_gelu_int8", _GELU_ARGTYPES)
+        rc = fn(*head, ws.data_ptr(), ws.numel(), _build.stream_ptr(x))
+        _build.check(rc, "vt_tail_gelu_int8")
+        return x_out, qkv
+    plan, table, ws_bytes = launch
+    ws = _workspace(ws_bytes, x.device)
+    fn = _build.kernel("vt_tail_gelu_qkv_int8", _GELU_ONE_ARGTYPES)
+    rc = fn(*head, ws.data_ptr(), ws.numel(), table.data_ptr(), plan.grid, plan.kc,
+            plan.stages, plan.max_gu, plan.max_items, plan.gu_blocks, plan.smem,
+            None if stamps is None else stamps.data_ptr(), _build.stream_ptr(x))
+    _build.check(rc, "vt_tail_gelu_qkv_int8")
     return x_out, qkv
 
 
@@ -895,5 +980,5 @@ __all__ = [
     "tail_gelu_qkv_int8_stacked", "tail_gelu_qkv_int8_plain",
     "mlp_gelu_int8_stacked", "mlp_gelu_int8_plain",
     "gelu_tanh", "pick_tile", "TILE_BUDGET", "TailPlan", "tail_plan", "tail_stream",
-    "tail_workspace_bytes",
+    "tail_workspace_bytes", "gelu_workspace_bytes", "gelu_takes",
 ]
