@@ -326,13 +326,18 @@ QWEN3_ATTN = dict(L=28, b=8, kv=8, g=2, d=128, T=512, prompt_pad=256, n_dec=96, 
 QWEN3_B1_ATTN = {**QWEN3_ATTN, "b": 1}
 
 
-def _b1_case(dev, failures, *, L, b, kv, g, d, T, prompt_pad, n_dec, seed, label):
-    from vocalie_tts_tpu_torch.ops.decode_attention import (
-        decode_attention_int8_stacked,
-        decode_attention_plain,
-    )
+B1_NAME = "B1 decode_attention_int8"
 
-    valid_len = prompt_pad + n_dec
+
+def _b1_inputs(dev, *, L, b, kv, g, d, T, prompt_pad, n_dec, seed, bias_fn=None, valid_len=None,
+               **_):
+    """B1's inputs from a seed: unit-scale q and current token, int8 k/v,
+    bf16 scales near 1/127, each row's prompt (a random length of the
+    ``prompt_pad`` bucket) and the decoded slots unmasked; or, with
+    ``bias_fn``, the first ``valid_len`` slots biased by ``bias_fn(pos)``."""
+    import types
+
+    valid_len = valid_len or prompt_pad + n_dec
     gen = torch.Generator(device=dev).manual_seed(seed)
     q = torch.randn((b, kv, g, d), generator=gen, device=dev)
     k = torch.randint(-127, 128, (L, b, kv, T, d), generator=gen, device=dev, dtype=torch.int8)
@@ -341,12 +346,38 @@ def _b1_case(dev, failures, *, L, b, kv, g, d, T, prompt_pad, n_dec, seed, label
     vs = ((torch.rand((L, b, kv, T), generator=gen, device=dev) + 0.5) / 127).to(torch.bfloat16)
     kn = torch.randn((b, kv, d), generator=gen, device=dev)
     vn = torch.randn((b, kv, d), generator=gen, device=dev)
-    lens = torch.randint(1, prompt_pad + 1, (b,), generator=gen, device=dev)
     pos = torch.arange(T, device=dev)[None, :]
-    valid = (pos < lens[:, None]) | ((pos >= prompt_pad) & (pos < valid_len))
-    bias = torch.where(valid, 0.0, NEG).float()
+    if bias_fn is None:
+        lens = torch.randint(1, prompt_pad + 1, (b,), generator=gen, device=dev)
+        valid = (pos < lens[:, None]) | ((pos >= prompt_pad) & (pos < valid_len))
+        bias = torch.where(valid, 0.0, NEG).float()
+    else:
+        posf = pos.float().expand(b, T)
+        bias = torch.where(posf < valid_len, bias_fn(posf), torch.full_like(posf, NEG))
+    bias = bias.contiguous()
     sm = 1.0 / math.sqrt(d)
-    layer = 7
+    return types.SimpleNamespace(**locals())
+
+
+def _b1_splits(t) -> int | None:
+    """The split B1 takes for these inputs on the card (None for a tree
+    whose B1 does not split)."""
+    from vocalie_tts_tpu_torch.ops import decode_attention as da
+
+    plan = getattr(da, "card_int8_splits", None)
+    return plan(t.b * t.kv, da.n_valid_blocks(t.valid_len, t.T), t.g, t.d) if plan else None
+
+
+def _b1_case(dev, failures, *, L, b, kv, g, d, T, prompt_pad, n_dec, seed, label):
+    from vocalie_tts_tpu_torch.ops.decode_attention import (
+        decode_attention_int8_stacked,
+        decode_attention_plain,
+    )
+
+    t = _b1_inputs(dev, L=L, b=b, kv=kv, g=g, d=d, T=T, prompt_pad=prompt_pad, n_dec=n_dec,
+                   seed=seed)
+    valid_len, sm, layer = t.valid_len, t.sm, 7
+    q, k, v, bias, ks, vs, kn, vn = t.q, t.k, t.v, t.bias, t.ks, t.vs, t.kn, t.vn
     out = decode_attention_int8_stacked(q, k, v, bias, layer, ks, vs, kn, vn,
                                         valid_len=valid_len, sm_scale=sm)
     ref = decode_attention_plain(q, k, v, bias, layer, ks, vs, kn, vn, valid_len, sm)
@@ -367,23 +398,73 @@ def _b1_case(dev, failures, *, L, b, kv, g, d, T, prompt_pad, n_dec, seed, label
                + b * kv * d * 4 * 2 + 2 * b * kv * g * d * 4)
     n_ops = 2 * 2 * valid_len * b * kv * g * d
     bms, by = bound_ms(n_bytes, n_ops, PEAK_INT8_OPS)
+    splits = _b1_splits(t)
     log(f"B1 decode_attention [{label}]: max_abs_err={err:.3e} (tolerance {tol}: a few int8 "
-        f"steps of p rounded the other way; a wrong p block size is > 2e-3); kernel {ms:.6f} ms "
-        f"eager, {fmt_ms(g_ms)} ms graph, plain {plain_ms:.6f} ms, bound {bms:.6f} ms ({by})")
+        f"steps of p rounded the other way; a wrong p block size is > 2e-3); {splits} block(s) a "
+        f"(row, kv head); kernel {ms:.6f} ms eager, {fmt_ms(g_ms)} ms graph, plain "
+        f"{plain_ms:.6f} ms, bound {bms:.6f} ms ({by})")
     if not err <= tol:
         failures.append(f"B1 [{label}] max_abs_err {err} > {tol}")
     return {"max_abs_err": err, "tolerance": tol, "ms": ms, "graph_ms": g_ms, "plain_ms": plain_ms,
-            "bound_ms": bms, "bound_by": by, "library_ms": None,
+            "bound_ms": bms, "bound_by": by, "library_ms": None, "splits": splits,
             "shape": f"{label}: q[{b},{kv},{g},{d}] cache[{L},{b},{kv},{T},{d}] int8 "
                      f"valid_len={valid_len}"}
 
 
+#: B1's adversarial cases, each at the T3 and the Qwen3 head widths (2 rows
+#: x 2 kv heads, a cache of 640): scores that rise over the cache (every
+#: block's running max below the final one), a block 60 below the running
+#: max (its p under 1e-26: ps takes its 1e-20 floor), valid lengths just
+#: below, on and past a 128-slot boundary and at the cache's end, a single
+#: valid block
+B1_ADVERSARIAL = (
+    ("rising scores", dict(valid_len=600, bias_fn=lambda pos: 0.02 * pos)),
+    ("one block 60 below the running max",
+     dict(valid_len=600, bias_fn=lambda pos: torch.where((pos >= 128) & (pos < 256), -60.0,
+                                                         0.0))),
+    ("valid_len 127", dict(valid_len=127, bias_fn=torch.zeros_like)),
+    ("valid_len 128", dict(valid_len=128, bias_fn=torch.zeros_like)),
+    ("valid_len 129", dict(valid_len=129, bias_fn=torch.zeros_like)),
+    ("valid_len 640, the cache's end", dict(valid_len=640, bias_fn=torch.zeros_like)),
+    ("a single valid slot", dict(valid_len=1, bias_fn=torch.zeros_like)),
+)
+
+
+def _b1_adversarial(dev, failures) -> list:
+    """B1 against its plain version at each ``B1_ADVERSARIAL`` case (atol
+    5e-4, as the main shapes), at g 1 d 64 and g 2 d 128."""
+    from vocalie_tts_tpu_torch.ops.decode_attention import (
+        decode_attention_int8_stacked,
+        decode_attention_plain,
+    )
+
+    out = []
+    for width, (g, d) in (("T3 heads", (1, 64)), ("Qwen3 heads", (2, 128))):
+        for i, (label, kw) in enumerate(B1_ADVERSARIAL):
+            t = _b1_inputs(dev, L=2, b=2, kv=2, g=g, d=d, T=640, prompt_pad=0, n_dec=0,
+                           seed=40 + i, **kw)
+            args = (t.q, t.k, t.v, t.bias, 1, t.ks, t.vs, t.kn, t.vn)
+            got = decode_attention_int8_stacked(*args, valid_len=t.valid_len, sm_scale=t.sm)
+            ref = decode_attention_plain(*args, t.valid_len, t.sm)
+            torch.cuda.synchronize()
+            err = (got - ref).abs().max().item()
+            if not err <= 5e-4:
+                failures.append(f"B1 [{label}, {width}] max_abs_err {err} > 5e-4")
+            out.append({"label": f"{label}, {width}", "max_abs_err": err,
+                        "splits": _b1_splits(t)})
+    log("B1 adversarial cases (atol 5e-4): " + "; ".join(
+        f"{r['label']} {r['max_abs_err']:.3e} ({r['splits']} split(s))" for r in out))
+    return out
+
+
 def check_decode_attention(dev, failures):
     main = _b1_case(dev, failures, **T3_ATTN, label="voice-over")
-    return {"name": "B1 decode_attention_int8", "route": "cuda",
+    return {"name": B1_NAME, "route": "cuda",
             "source": "vocalie_tts_tpu_torch/csrc/decode_attention.cu",
             "replaces": "vocalie_tts_tpu/ops/decode_attention.py:565", **main,
-            "qwen3_shape": _b1_case(dev, failures, **QWEN3_ATTN, label="qwen3")}
+            "cuda_kernels_per_call": None,
+            "qwen3_shape": _b1_case(dev, failures, **QWEN3_ATTN, label="qwen3"),
+            "adversarial": _b1_adversarial(dev, failures)}
 
 
 def _b5_case(dev, failures, *, L, b, kv, d, T, pos, seed, label):
@@ -1112,42 +1193,81 @@ def count_dense_kernels(kernels, failures) -> None:
     process, which times everything before phase 5; in a fresh process it
     saw every kernel of a single call, while after other profiled windows
     it missed some."""
-    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--count-kernels"],
-                          capture_output=True, text=True, timeout=300)
-    lines = proc.stdout.strip().splitlines()
-    counted = json.loads(lines[-1]) if proc.returncode == 0 and lines else {}
-    if proc.returncode != 0:
-        failures.append(f"the kernel-count child failed (rc {proc.returncode}): "
-                        f"{proc.stderr.strip()[-2000:]}")
+    def child(names=()):
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--count-kernels",
+                               *names], capture_output=True, text=True, timeout=300)
+        lines = proc.stdout.strip().splitlines()
+        if proc.returncode != 0:
+            failures.append(f"the kernel-count child failed (rc {proc.returncode}): "
+                            f"{proc.stderr.strip()[-2000:]}")
+        return json.loads(lines[-1]) if proc.returncode == 0 and lines else {}
+
+    counted = child()
+    # a call of which the profiler saw no kernel at all is counted once more,
+    # alone in a fresh child: the profiler has missed the cooperative B7's
+    # one kernel in one child and seen it in each of the next three
+    unseen = [name for name, per_call in counted.items() if not per_call]
+    if unseen:
+        log(f"the profiler saw no CUDA kernel for {unseen}: counting them again in a fresh child")
+        counted.update(child(unseen))
     for entry in kernels:
-        if entry["name"] not in counted:
-            continue
-        per_call = counted.get(entry["name"], {})
-        n_kernels = sum(per_call.values()) or None
-        listed = ", ".join(f"{_kernel_name(k)} x{n}" for k, n in sorted(per_call.items()))
-        entry["cuda_kernels_per_call"] = n_kernels
-        log(f"{entry['name']}: CUDA kernels per call (profiled): "
-            + (f"{n_kernels} ({listed})" if n_kernels else "not measured (profiler saw none)"))
-        if entry["name"] in ONE_KERNEL_NAMES and n_kernels != 1:
-            failures.append(f"{entry['name']}: {n_kernels} CUDA kernels a call, not 1")
+        # B1's Qwen3 shape and B13's other studio shapes are counted under
+        # "<name> [<label>]" into their own dicts
+        targets = [(entry["name"], entry, entry["name"])]
+        if entry["name"] == B1_NAME:
+            targets.append((f"{B1_NAME} [qwen3]", entry["qwen3_shape"], B1_NAME))
+        for case in entry.get("cases", ()) if entry["name"] == B13_NAME else ():
+            targets.append((f"{B13_NAME} [{case['label']}]", case, B13_NAME))
+        for key, into, name in targets:
+            if key not in counted:
+                continue
+            per_call = counted.get(key, {})
+            n_kernels = sum(per_call.values()) or None
+            listed = ", ".join(f"{_kernel_name(k)} x{n}" for k, n in sorted(per_call.items()))
+            into["cuda_kernels_per_call"] = n_kernels
+            log(f"{key}: CUDA kernels per call (profiled): "
+                + (f"{n_kernels} ({listed})" if n_kernels else "not measured (profiler saw none)"))
+            if name in ONE_KERNEL_NAMES and n_kernels != 1:
+                failures.append(f"{key}: {n_kernels} CUDA kernels a call, not 1")
 
 
 def _count_kernels_child() -> int:
-    """``--count-kernels``: one profiled call of each of B2-B4, B7, B8a-b, B9a-d, B12, B13, K1,
-    K2, B10, K4, B1w and K5 (after
+    """``--count-kernels [name ...]``: one profiled call of each of B1-B4, B7, B8a-b, B9a-d,
+    B12, B13, K1, K2, B10, K4, B1w and K5 (or of the named ones alone; after
     one unprofiled call that loads the library), printed as one JSON line."""
     dev = torch.device("cuda:0")
     t3 = {k: c for k, c in _dense_inputs(dev).calls.items() if k not in B8_NAMES}
     q3 = {k: c for k, c in _dense_inputs(dev, QWEN3_DENSE).calls.items() if k in B8_NAMES}
     calls = {**t3, **q3, B7_NAME: _b7_inputs(dev).call, B12_NAME: _b12_inputs(dev).call,
-             B13_NAME: _gn_case(dev, GN_CASES[0]).call, **_gelu_inputs(dev).calls,
+             **_b1_b13_calls(dev), **_gelu_inputs(dev).calls,
              **_f32_calls(dev), **_flash_train_calls(dev), **_slice10_calls(dev)}
+    wanted = sys.argv[2:]
     out = {}
     for name, call in calls.items():
+        if wanted and name not in wanted:
+            continue
         call()
         out[name] = kernels_per_call(call)
     print(json.dumps(out), flush=True)
     return 0
+
+
+def _b1_b13_calls(dev) -> dict:
+    """One call each of B1 at the T3 and Qwen3 decode shapes and of B13 at
+    every studio shape, for the kernel-count child (keys as
+    ``count_dense_kernels`` reads them)."""
+    from vocalie_tts_tpu_torch.ops.decode_attention import decode_attention_int8_stacked
+
+    calls = {}
+    for key, attn in ((B1_NAME, T3_ATTN), (f"{B1_NAME} [qwen3]", QWEN3_ATTN)):
+        t = _b1_inputs(dev, **{**attn, "L": 8})
+        calls[key] = lambda t=t: decode_attention_int8_stacked(
+            t.q, t.k, t.v, t.bias, 7, t.ks, t.vs, t.kn, t.vn, valid_len=t.valid_len,
+            sm_scale=t.sm)
+    for i, case in enumerate(GN_CASES):
+        key = B13_NAME if i == 0 else f"{B13_NAME} [{case[0]}]"
+        calls[key] = _gn_case(dev, case).call
+    return calls
 
 
 def _f32_calls(dev) -> dict:
@@ -1221,8 +1341,10 @@ TAIL_NAMES = ("B2 tail_swiglu_qkv_int8", "B8a tail_swiglu_int8")
 #: B9b: one cooperative launch (csrc/tail_gelu.cu), bit-equal to the old
 #: 12-kernel chain (which B9c still runs)
 B9B_NAME = "B9b tail_gelu_qkv_int8"
-#: the kernels that must be one CUDA kernel a call
-ONE_KERNEL_NAMES = TAIL_NAMES + (B9B_NAME, "B7 decode_step_fused")
+#: the kernels that must be one CUDA kernel a call (B1 and B13 at each of
+#: their shapes: ``count_dense_kernels``)
+ONE_KERNEL_NAMES = TAIL_NAMES + (B9B_NAME, "B7 decode_step_fused", "B1 decode_attention_int8",
+                                 "B13 group_norm_fused")
 #: the SwiGLU dense kernels' decode shapes: the Chatterbox T3 voice-over
 #: (b = 16: 8 chunks, CFG-doubled; the 1026-token head padded to 1152) and
 #: the Qwen3 bench request (b = 8; GQA qkv 16 x 128 + 2 x 8 x 128; d_ff 8192
@@ -1606,14 +1728,17 @@ def _gn_case(dev, case):
 
 def check_group_norm(dev, failures):
     """B13 at each ``GN_CASES`` shape against its plain version (one bf16 ulp
-    of the plain value + 1e-5: the f32 moments are summed in another order,
-    then both round once); its time against its bound (x read once, y
+    of the plain value + 1e-5: the f32 moments are summed in another order
+    and the kernel's SiLU is a few f32 ulps off the IEEE steps, then both
+    round once), on the one-pass route; its time against its bound (x read once, y
     written once, over 3.35 TB/s), the plain version and the one PyTorch
     call that computes the same function: ``F.group_norm`` with the same
     add and SiLU, on the same channels-last tensor seen as NCHW."""
     import torch.nn.functional as F
 
     from vocalie_tts_tpu_torch.ops.groupnorm import group_norm_fused_plain
+
+    from vocalie_tts_tpu_torch.ops import groupnorm as gn
 
     out = []
     for case in GN_CASES:
@@ -1626,9 +1751,18 @@ def check_group_norm(dev, failures):
             return group_norm_fused_plain(x3, row, t.g, t.b, groups=t.groups, eps=t.eps,
                                           silu=t.silu)
 
+        two0 = getattr(gn.group_norm_fused, "two_pass_launches", None)
         got = t.call()
         ref = plain().reshape(t.shape)
         torch.cuda.synchronize()
+        # the route this shape takes: the one-pass plan (cluster, rows a
+        # block, pieces), or the two-pass route (a tree without the first)
+        plan = (gn.gn_plan(bsz, x3.shape[1], c, t.groups, gn._vec_width(c, x3),
+                           gn._sm_count(0)) if hasattr(gn, "gn_plan") else None)
+        route = ("two-pass" if two0 is None or gn.group_norm_fused.two_pass_launches > two0
+                 else "one-pass")
+        if two0 is not None and route != "one-pass":
+            failures.append(f"B13 [{t.label}] took the two-pass route")
         diff = (got.float() - ref.float()).abs()
         ulp = torch.exp2(torch.floor(torch.log2(ref.float().abs().clamp(min=2.0 ** -126))) - 7)
         worst = (diff / (ulp + 1e-5)).max().item()
@@ -1647,6 +1781,7 @@ def check_group_norm(dev, failures):
         n_bytes = 2 * n * 2 + (bsz * c * 2 if t.e is not None else 0) + 2 * c * 4
         bms, by = bound_ms(n_bytes, 10 * n, PEAK_F32_FLOPS)
         log(f"B13 group_norm [{t.label}] x{list(t.shape)} bf16, G {t.groups}, eps {t.eps}: "
+            f"{route} route (cluster, rows a block, pieces: {plan}); "
             f"max_abs_err={diff.max().item():.3e}, worst |diff| / (ulp + 1e-5) = {worst:.3f} "
             f"(must be <= 1); kernel {ms:.6f} ms eager, {fmt_ms(g_ms)} ms graph, plain "
             f"{plain_ms:.6f} ms, F.group_norm + add + SiLU {lib_ms:.6f} ms eager, "
@@ -1657,12 +1792,14 @@ def check_group_norm(dev, failures):
                     f"{', FiLM row' if t.e is not None else ''}{', SiLU' if t.silu else ''}",
                     "max_abs_err": diff.max().item(), "worst_ratio": worst, "ms": ms,
                     "graph_ms": g_ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-                    "library_ms": lib_ms, "library_graph_ms": lib_g_ms})
+                    "library_ms": lib_ms, "library_graph_ms": lib_g_ms, "gn_route": route,
+                    "plan": plan})
     main = out[0]
     return {"name": B13_NAME, "route": "cuda", "source": "vocalie_tts_tpu_torch/csrc/groupnorm.cu",
             "replaces": "vocalie_tts_tpu/ops/groupnorm.py:104",
             **{k: main[k] for k in ("max_abs_err", "ms", "graph_ms", "plain_ms", "bound_ms",
-                                    "bound_by", "library_ms", "library_graph_ms", "shape")},
+                                    "bound_by", "library_ms", "library_graph_ms", "shape",
+                                    "gn_route", "plan")},
             "tolerance": "one bf16 ulp of the plain value + 1e-5", "cuda_kernels_per_call": None,
             "library": "F.group_norm + the same add and SiLU", "cases": out[1:]}
 
@@ -3455,11 +3592,12 @@ def drive_audiosr(dev, failures, vo: dict, scale: str = "full", steps: int = 100
             rt.enhance_file(input_path=vo["wav"], output_path=out_path,
                             **{**STUDIO, "ddim_steps": 2})
             warm = time.monotonic() - t0
-            group_norm_fused.launches = 0
+            group_norm_fused.launches = group_norm_fused.two_pass_launches = 0
             t0 = time.monotonic()
             rt.enhance_file(input_path=vo["wav"], output_path=out_path, **request)
             wall = time.monotonic() - t0
             launched = group_norm_fused.launches
+            two_pass = group_norm_fused.two_pass_launches
             out, sr = read_wav(out_path)
             audio_s = len(out) / sr
             ok = (sr == 48000 and len(out) == n48 and bool(np.isfinite(out).all())
@@ -3470,7 +3608,8 @@ def drive_audiosr(dev, failures, vo: dict, scale: str = "full", steps: int = 100
                 f"{steps} steps: audio {audio_s:.3f} s, wall {wall:.3f} s, studio "
                 f"RTF {audio_s / wall:.3f}x, wav ok={ok} (48 kHz, {len(out)} samples, "
                 f"{int(np.count_nonzero(out))} non-zero, peak {float(np.abs(out).max()):.6f}), "
-                f"B13 launches {launched} (the path needs {want})")
+                f"B13 launches {launched} (the path needs {want}), {two_pass} of them on the "
+                "two-pass route (the path needs 0)")
             log(f"headline [{label}]: audio_rtf_60s_fr_vo_chatterbox_plus_audiosr_studio = VO "
                 f"audio {vo['audio_s']:.3f} s / (VO wall {vo['wall_s']:.3f} s [{vo['label']}] + "
                 f"studio wall {wall:.3f} s) = {headline:.3f}x")
@@ -3480,8 +3619,12 @@ def drive_audiosr(dev, failures, vo: dict, scale: str = "full", steps: int = 100
             if launched != want:
                 failures.append(f"studio [{label}]: B13 launched {launched} times, the path "
                                 f"needs {want}")
+            if two_pass:
+                failures.append(f"studio [{label}]: {two_pass} B13 launches took the two-pass "
+                                "route")
             results[label] = {"audio_s": audio_s, "wall_s": wall, "rtf": audio_s / wall,
-                              "headline_rtf": headline, "launches": launched}
+                              "headline_rtf": headline, "launches": launched,
+                              "two_pass_launches": two_pass}
 
     lat = (*latent_shape(cfg, 2 * dispatches[0], STUDIO["chunk_size"])[:3],
            cfg.unet.in_channels)
@@ -3530,6 +3673,8 @@ def _profiled(label: str, fn) -> int:
         log(f"breakdown [{label}]: device time not measured (profiler saw none)")
         return 0
     n_ops = sum(r[1] for r in rows)
+    _profiled.last = {"wall_s": wall, "busy_s": busy, "busy_share": busy / wall,
+                      "device_ops": n_ops}
     log(f"breakdown [{label}]: wall {wall:.3f} s (profiler on), device busy "
         f"{busy:.3f} s = {busy / wall:.1%}, idle {1 - busy / wall:.1%}, {n_ops} device operations")
     for dt, n, key in sorted(rows, reverse=True)[:8]:
@@ -4536,6 +4681,7 @@ def main() -> int:
     profile_gelu_rms()
     profile_train()
     by_key["B13"]["launches"] = studio[GN_SETTINGS[0][0]]["launches"]
+    by_key["B13"]["two_pass_launches"] = studio[GN_SETTINGS[0][0]]["two_pass_launches"]
     by_key["B13"]["launches_knob_unset"] = studio[GN_SETTINGS[1][0]]["launches"]
     # B1-B6: the Chatterbox default path's counts; B7: the streaming path's;
     # B9a-b: the XTTS default bench request's, B9c: its VOCALIE_MEGATAIL=0 run;
@@ -4932,6 +5078,178 @@ def _tail_rows_only() -> int:
     return 0
 
 
+def sweep_int8_splits(dev) -> dict:
+    """B1 at the T3 and Qwen3 decode shapes graph-timed at every split count
+    the valid blocks allow (``splits=``), beside the count ``int8_splits``
+    picks on this card."""
+    from vocalie_tts_tpu_torch.ops import decode_attention as da
+
+    out = {}
+    for label, attn in (("voice-over", T3_ATTN), ("qwen3", QWEN3_ATTN)):
+        t = _b1_inputs(dev, **attn)
+        n_blk = da.n_valid_blocks(t.valid_len, t.T)
+        row = {"planned": _b1_splits(t)}
+        for s in range(1, n_blk + 1):
+            row[s] = graph_ms(lambda i, s=s: da.decode_attention_int8_stacked(
+                t.q, t.k, t.v, t.bias, i % t.L, t.ks, t.vs, t.kn, t.vn, valid_len=t.valid_len,
+                sm_scale=t.sm, splits=s))
+        log(f"B1 [{label}] by split count (graph ms): "
+            + ", ".join(f"{k}: {v:.6f}" for k, v in row.items() if k != "planned")
+            + f"; planned {row['planned']}")
+        out[label] = row
+        del t
+    return out
+
+
+def _attn_gn_rows_only() -> int:
+    """``--attn-gn-rows [--sweep]``: build the kernels and run phase 2's B1
+    rows (the T3 and Qwen3 decode shapes, the adversarial cases) and B13
+    rows (the four studio shapes), eager and graph-timed, then count one
+    call's CUDA kernels of each at each shape with torch.profiler (after
+    every timing), and print the rows as one JSON line; with ``--sweep``,
+    also ``sweep_int8_splits``. Copied into an unpacked copy of another
+    commit and run there (without ``--sweep``), it times that commit's
+    kernels on the same rows; a failed gate is printed, not fatal (the old
+    B13 is two kernels)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    from vocalie_tts_tpu_torch.ops import _build
+
+    log(f"kernels built -> {_build.build().name}")
+    name = ""
+    for line in _build.build_log().splitlines():   # the two kernels' registers and spills
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif ("attend_int8" in name or "gn_one_pass" in name) and "registers" in line:
+            log(f"  {_kernel_name(name)[:60]}: {line.strip()}")
+    dev = torch.device("cuda:0")
+    failures: list = []
+    rows = [check_decode_attention(dev, failures), check_group_norm(dev, failures)]
+    sweep = sweep_int8_splits(dev) if "--sweep" in sys.argv else None
+    counts = {}
+    for key, call in _b1_b13_calls(dev).items():
+        call()
+        per_call = kernels_per_call(call)
+        counts[key] = sum(per_call.values())
+        log(f"{key}: CUDA kernels per call (profiled): {counts[key]} ("
+            + ", ".join(f"{_kernel_name(k)} x{n}" for k, n in sorted(per_call.items())) + ")")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    print(smi.stdout.strip(), flush=True)
+    print(json.dumps({"rows": rows, "cuda_kernels_per_call": counts, "sweep": sweep,
+                      "failures": failures}), flush=True)
+    return 0
+
+
+def _studio_input(path: str, seconds: float = 89.35) -> dict:
+    """A 24 kHz WAV of ``seconds`` (the Chatterbox bench request's length in
+    PERF.md's studio row; a tone under seeded noise), as ``drive_audiosr``'s
+    ``vo``: the studio's work depends on the length only."""
+    import numpy as np
+
+    from vocalie_tts_tpu_torch.io.wavio import write_wav
+
+    n = int(seconds * 24000)
+    t = np.arange(n) / 24000.0
+    rng = np.random.default_rng(3)
+    wav = 0.2 * np.sin(2 * np.pi * 180 * t) + 0.02 * rng.standard_normal(n)
+    write_wav(path, wav.astype(np.float32), 24000)
+    return {"wav": path, "audio_s": n / 24000, "wall_s": 0.0, "label": "a generated input"}
+
+
+def time_e2e(dev, reps: int = 3, scale: str = "full") -> dict:
+    """The two end-to-end rows B1 and B13 sit on, ``reps`` timings each
+    after a warm-up: the Chatterbox default decode (the bench request, 8
+    chunks CFG-doubled: B3 + 30 x (B1 + B2) + B5 + B4 a step; decode alone,
+    ms/step, as phase 4 times it) and one profiled window of its prefill +
+    32 steps (busy share, device operations a step); the studio pass
+    (``enhance_file`` at bench.py's settings with ``VOCALIE_GN_PALLAS=1``
+    on a generated input of the bench request's length: wall s) and one
+    profiled UNet call at its first dispatch's CFG batch. Copied into an
+    unpacked parent commit and run there, it times that commit on the same
+    work, so that two versions are compared within one call."""
+    from vocalie_tts_tpu_torch.engines.chatterbox import ChatterboxEngine
+    from vocalie_tts_tpu_torch.models.audiosr.model import latent_shape
+    from vocalie_tts_tpu_torch.models.audiosr.runtime import AudioSRRuntime
+    from vocalie_tts_tpu_torch.models.common.unet2d import apply_unet2d
+
+    set_env(DEFAULT_ENV)
+    os.environ["VOCALIE_MODEL_SCALE"] = scale
+    os.environ["VOCALIE_ALLOW_RANDOM_WEIGHTS"] = "1"
+    steps = _wrappers()["steps"]
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        rt = ChatterboxEngine(device=dev, assets=os.path.join(tmp, "assets")).runtime()
+        kw = dict(mode="fr_finetune", lang="fr", exaggeration=0.5, cfg_weight=0.6)
+        t3, embeds, lens, (_, _, n_dec, cache_len) = rt._prepare_batch([_SENT] * 8, **kw)
+
+        def decode(n):
+            rt.generate(t3, embeds, lens, cache_len=cache_len, max_new=n, temperature=0.5,
+                        cfg_weight=0.6, repetition_penalty=1.35)
+            torch.cuda.synchronize()
+
+        decode(n_dec)   # warm-up
+        ms = []
+        for _ in range(reps):
+            t1 = time.monotonic()
+            decode(0)
+            t2 = time.monotonic()
+            n0 = steps.launches
+            decode(n_dec)
+            t3_ = time.monotonic()
+            ms.append(((t3_ - t2) - (t2 - t1)) / max(steps.launches - n0, 1) * 1e3)
+        n0 = _profiled("Chatterbox default, prefill alone", lambda: decode(0))
+        n32 = _profiled("Chatterbox default, prefill + 32 decode steps", lambda: decode(32))
+        out["chatterbox_default"] = {"decode_ms_per_step": ms, **_profiled.last,
+                                     "ops_per_step": (n32 - n0) / 32 if n0 and n32 else None}
+        log("e2e [Chatterbox default]: decode " + ", ".join(f"{m:.3f}" for m in ms)
+            + f" ms/step; {out['chatterbox_default']['ops_per_step']} device operations a step")
+        del rt
+        torch.cuda.empty_cache()
+        vo = _studio_input(os.path.join(tmp, "vo.wav"))
+        srt = AudioSRRuntime.create(os.path.join(tmp, "sr"), device=dev)
+        _set_gn("1")
+        path = os.path.join(tmp, "studio.wav")
+        srt.enhance_file(input_path=vo["wav"], output_path=path, **{**STUDIO, "ddim_steps": 2})
+        walls = []
+        for _ in range(reps):
+            t0 = time.monotonic()
+            srt.enhance_file(input_path=vo["wav"], output_path=path, **STUDIO)
+            walls.append(time.monotonic() - t0)
+        cfg = srt.cfg
+        lat = (*latent_shape(cfg, 2 * 64, STUDIO["chunk_size"])[:3], cfg.unet.in_channels)
+        gen = torch.Generator(device=dev).manual_seed(16)
+        x = torch.randn(lat, generator=gen, device=dev).to(cfg.dtype)
+        tt = torch.full((lat[0],), 500.0, device=dev)
+        apply_unet2d(srt.params["unet"], cfg.unet, x, tt)
+        _profiled(f"studio, one UNet call x{list(lat)}",
+                  lambda: apply_unet2d(srt.params["unet"], cfg.unet, x, tt))
+        out["studio_gn_pallas"] = {"audio_in_s": vo["audio_s"], "wall_s": walls,
+                                   "unet_call": _profiled.last}
+        log("e2e [studio, VOCALIE_GN_PALLAS=1]: wall " + ", ".join(f"{w:.3f}" for w in walls)
+            + " s")
+        _set_gn(None)
+    set_env(DEFAULT_ENV)
+    return out
+
+
+def _e2e_ab_only() -> int:
+    """``--e2e-ab``: ``time_e2e``, printed as one JSON line."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    from vocalie_tts_tpu_torch.ops import _build
+
+    log(f"kernels built -> {_build.build().name}")
+    res = time_e2e(torch.device("cuda:0"))
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    print(smi.stdout.strip(), flush=True)
+    print(json.dumps(res), flush=True)
+    return 0
+
+
 def _qwen3_decode_kernel_only() -> int:
     """``--qwen3-decode-kernel``: ``time_qwen3_decode_kernel`` alone."""
     if not torch.cuda.is_available():
@@ -4944,5 +5262,6 @@ def _qwen3_decode_kernel_only() -> int:
 if __name__ == "__main__":
     modes = {"--count-kernels": _count_kernels_child, "--f32-attention": _f32_attention_only,
              "--qwen3-decode-kernel": _qwen3_decode_kernel_only, "--tail-rows": _tail_rows_only,
-             "--decode-steps": _decode_steps_only, "--stream-steps": _stream_steps_only}
+             "--decode-steps": _decode_steps_only, "--stream-steps": _stream_steps_only,
+             "--attn-gn-rows": _attn_gn_rows_only, "--e2e-ab": _e2e_ab_only}
     sys.exit(modes[sys.argv[1]]() if sys.argv[1:2] and sys.argv[1] in modes else main())

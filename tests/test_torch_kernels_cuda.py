@@ -28,9 +28,15 @@ past residency and b > 16 (refused); for K1, K2 and B10 (the f32 decode
 attention, split over a thread-block cluster) f32, bf16 and int8 caches, g
 up to 8, d 16 to 128, a fully masked row, the Qwen3 batch-1 decode (16
 blocks a pair), a last block of 2 slots and a cache short enough for one
-block; for B13 (fused GroupNorm) C/G of 2, 3, 4, 8, 12 and 32, C not a
-multiple of 8, the VAE's large spatial size at eps 1e-6, batch 1, with and
-without the FiLM row and SiLU; and the int8 products of the UNet's convs
+block; for B1's split over a cluster the T3 and Qwen3 decode shapes at
+every split count, scores that rise, fall, or leave a block 60 below the
+running max (the p-scale floor), valid lengths on and around 128-slot
+boundaries, one CUDA kernel a call and a refused split; for B13 (fused
+GroupNorm) C/G of 2, 3, 4, 8, 12 and 32, C not a multiple of 8, the VAE's
+large spatial size at eps 1e-6, batch 1, with and without the FiLM row and
+SiLU, the four studio shapes on the one-pass route (one CUDA kernel a
+call), rows past a cluster's shared memory on the two-pass route and a row
+of 16 blocks one an SM holds; and the int8 products of the UNet's convs
 (``torch._int_mm``, exact against the CPU).
 ``chip_smoke.py`` holds the kernels at the main path's shapes.
 
@@ -58,8 +64,9 @@ same IEEE steps with ``tanhf``, which PyTorch's CUDA tanh also calls).
 B7 and B12 within 1e-5 · max|ref| on each output, for the same reason: the
 plain version takes the kernel's steps (the softmax sums, the variance and
 the current token's score in float64, rounded once). B13 within one bf16 ulp of
-the plain value plus 1e-5: the f32 moments are summed in another order, and
-both round the f32 result to bf16 once.
+the plain value plus 1e-5: the f32 moments are summed in another order and
+the kernel's SiLU takes the card's fast exp and reciprocal (a few f32 ulps),
+and both round the f32 result to bf16 once.
 """
 
 import math
@@ -192,6 +199,113 @@ def test_decode_attention_kernel_rejects_bad_inputs(dev):
                                       kn, **args)
     with pytest.raises(ValueError, match="layer"):
         decode_attention_int8_stacked(q, k, k, bias, 1, s, s, kn, kn, **args)
+    off = torch.zeros((b * kv * g * d + 1,), device=dev)[1:].view(b, kv, g, d)
+    with pytest.raises(ValueError, match="16-byte aligned"):   # q is read 16 bytes at a time
+        decode_attention_int8_stacked(off, k, k, bias, 0, s, s, kn, kn, **args)
+
+
+def _b1_inputs(dev, seed, L, b, kv, g, T, d, valid_len, bias_fn=None):
+    """B1's inputs: unit-scale q and current token, int8 k/v, bf16 scales
+    near 1/127; the bias 0 on the first ``valid_len`` slots and masked past
+    them, or ``bias_fn(pos)`` there (the adversarial score profiles)."""
+    gen = _gen(dev, seed)
+    q = torch.randn((b, kv, g, d), generator=gen, device=dev)
+    k, v = (torch.randint(-127, 128, (L, b, kv, T, d), generator=gen, device=dev,
+                          dtype=torch.int8) for _ in range(2))
+    ks, vs = (((torch.rand((L, b, kv, T), generator=gen, device=dev) + 0.5) / 127)
+              .to(torch.bfloat16) for _ in range(2))
+    kn, vn = (torch.randn((b, kv, d), generator=gen, device=dev) for _ in range(2))
+    pos = torch.arange(T, device=dev, dtype=torch.float32)[None, :].expand(b, T)
+    live = bias_fn(pos) if bias_fn is not None else torch.zeros_like(pos)
+    bias = torch.where(pos < valid_len, live, torch.full_like(pos, NEG)).contiguous()
+    return q, k, v, bias, ks, vs, kn, vn
+
+
+def _b1_check(dev, args, layer, valid_len, d, splits=None):
+    q, k, v, bias, ks, vs, kn, vn = args
+    sm = 1.0 / math.sqrt(d)
+    before = decode_attention_int8_stacked.launches
+    out = decode_attention_int8_stacked(q, k, v, bias, layer, ks, vs, kn, vn,
+                                        valid_len=valid_len, sm_scale=sm, splits=splits)
+    ref = decode_attention_plain(q, k, v, bias, layer, ks, vs, kn, vn, valid_len, sm)
+    torch.cuda.synchronize()
+    assert decode_attention_int8_stacked.launches == before + 1
+    err = (out - ref).abs().max().item()
+    print(f"B1 valid_len {valid_len} splits {splits}: max |diff| {err:.3e}")
+    assert torch.allclose(out, ref, atol=5e-4, rtol=0), err
+
+
+#: the main path's two B1 shapes (chip_smoke.py T3_ATTN, QWEN3_ATTN; fewer
+#: layers): (b, kv, g, d, T, valid_len)
+B1_MAIN = {"t3": (16, 16, 1, 64, 640, 416), "qwen3": (8, 8, 2, 128, 512, 352)}
+
+
+@pytest.mark.parametrize("shape,splits", [(shape, s) for shape, n_blk in (("t3", 4), ("qwen3", 3))
+                                          for s in [None, *range(1, n_blk + 1)]])
+def test_decode_attention_kernel_at_the_main_shapes(dev, shape, splits):
+    """B1 at the T3 and Qwen3 decode shapes with the planned split and with
+    every split count the valid blocks allow (a rank of one block up to one
+    rank of every block)."""
+    b, kv, g, d, T, valid_len = B1_MAIN[shape]
+    _b1_check(dev, _b1_inputs(dev, 5, 3, b, kv, g, T, d, valid_len), 2, valid_len, d, splits)
+
+
+#: score profiles the sequential chain must meet block by block: scores that
+#: rise over the cache (every block's running max below the final one), a
+#: block 60 below the running max (its p under 1e-26, so ps takes its 1e-20
+#: floor and the block's p8 are 0), the same block first (its own max), and
+#: scores that fall (the first block holds the max)
+B1_PROFILES = {
+    "rising": lambda pos: 0.02 * pos,
+    "one_block_60_below": lambda pos: torch.where((pos >= 128) & (pos < 256), -60.0, 0.0),
+    "first_block_60_below": lambda pos: torch.where(pos < 128, -60.0, 0.0),
+    "falling": lambda pos: -0.02 * pos,
+}
+
+
+@pytest.mark.parametrize("splits", [None, 1, 2])
+@pytest.mark.parametrize("profile", list(B1_PROFILES))
+@pytest.mark.parametrize("g,d", [(1, 64), (2, 128)])
+def test_decode_attention_kernel_meets_the_chain(dev, g, d, profile, splits):
+    """Scores built so that a block quantizing p against any max but the
+    chain's running m_j lands outside the gate, over four 128-slot blocks,
+    split 1, 2 (two blocks a rank) and as planned (a block a rank)."""
+    T, valid_len = 512, 500
+    args = _b1_inputs(dev, 9 + g, 2, 2, 2, g, T, d, valid_len, B1_PROFILES[profile])
+    _b1_check(dev, args, 1, valid_len, d, splits)
+
+
+@pytest.mark.parametrize("valid_len", [1, 127, 128, 129, 383, 384, 640])
+@pytest.mark.parametrize("g,d", [(1, 64), (2, 128)])
+def test_decode_attention_kernel_at_block_edges(dev, g, d, valid_len):
+    """valid_len on, just below and just past a 128-slot boundary, a single
+    valid block (1, 127, 128) and the cache's end (640)."""
+    T = 640
+    _b1_check(dev, _b1_inputs(dev, valid_len + g, 2, 3, 2, g, T, d, valid_len), 0, valid_len, d)
+
+
+@pytest.mark.parametrize("shape", list(B1_MAIN))
+def test_decode_attention_kernel_is_one_cuda_kernel_a_call(dev, shape):
+    """torch.profiler sees one CUDA kernel for a B1 call at the main shapes,
+    and the planned split spreads the Qwen3 shape's 64 (row, kv head) pairs
+    over more than one block each."""
+    b, kv, g, d, T, valid_len = B1_MAIN[shape]
+    q, k, v, bias, ks, vs, kn, vn = _b1_inputs(dev, 3, 2, b, kv, g, T, d, valid_len)
+    names = _cuda_kernels(lambda: decode_attention_int8_stacked(
+        q, k, v, bias, 1, ks, vs, kn, vn, valid_len=valid_len, sm_scale=0.125))
+    assert len(names) == 1 and "attend_int8_tblk_kernel" in names[0], names
+    if shape == "qwen3":
+        from vocalie_tts_tpu_torch.ops.decode_attention import card_int8_splits
+
+        assert card_int8_splits(b * kv, -(-valid_len // 128), g, d) > 1
+
+
+def test_decode_attention_kernel_refuses_a_bad_split(dev):
+    b, kv, g, d, T, valid_len = 2, 2, 1, 64, 384, 300
+    args = _b1_inputs(dev, 1, 1, b, kv, g, T, d, valid_len)
+    for splits in (0, 4, 17):
+        with pytest.raises(ValueError, match="splits"):
+            _b1_check(dev, args, 0, valid_len, d, splits)
 
 
 # ── B1w ─────────────────────────────────────────────────────────────────
@@ -1432,7 +1546,8 @@ def test_decode_layer_kernel_refuses_bad_inputs(dev):
 
 def _gn_close(got, ref):
     """One bf16 ulp of the plain value plus 1e-5: the kernel and the plain
-    version sum the f32 moments in another order, then both round once."""
+    version sum the f32 moments in another order (and the kernel's SiLU is
+    a few f32 ulps off the IEEE steps), then both round once."""
     g, r = got.float(), ref.float()
     ulp = torch.exp2(torch.floor(torch.log2(r.abs().clamp(min=2.0 ** -126))) - 7)
     excess = ((g - r).abs() - ulp - 1e-5).max().item()
@@ -1484,6 +1599,85 @@ def test_group_norm_kernel_rejects_bad_inputs(dev):
                          groups=32)
     with pytest.raises(ValueError, match="pre_add"):
         group_norm_fused(x, g, b, groups=32, pre_add=torch.zeros((2, 64), device=dev))
+
+
+#: the studio path's B13 shapes (chip_smoke.py GN_CASES): (shape, eps)
+GN_STUDIO = {"unet_level0": ((128, 16, 32, 128), 1e-5), "unet_level2": ((128, 4, 8, 1024), 1e-5),
+             "vae_level0": ((64, 64, 128, 64), 1e-6), "unet_level1": ((128, 8, 16, 384), 1e-5)}
+
+
+def _gn_args(dev, shape, pre_add, seed=0):
+    gen = _gen(dev, sum(shape) + seed)
+    c = shape[-1]
+    x = (torch.randn(shape, generator=gen, device=dev) * 2 + 0.5).to(BF16)
+    g = 1 + 0.2 * torch.randn((c,), generator=gen, device=dev)
+    b = 0.1 * torch.randn((c,), generator=gen, device=dev)
+    e = (0.3 * torch.randn((shape[0], c), generator=gen, device=dev)).to(BF16) if pre_add else None
+    return x, g, b, e
+
+
+def _gn_route(dev, shape, eps, pre_add, silu, two_pass):
+    """One B13 call against its plain version; the route it took must be
+    the one-pass route, or the two-pass route where ``two_pass``."""
+    from vocalie_tts_tpu_torch.ops.groupnorm import group_norm_fused, group_norm_fused_plain
+
+    x, g, b, e = _gn_args(dev, shape, pre_add)
+    c = shape[-1]
+    before = group_norm_fused.launches, group_norm_fused.two_pass_launches
+    got = group_norm_fused(x, g, b, groups=32, eps=eps, silu=silu, pre_add=e)
+    row = e if e is not None else torch.zeros((shape[0], c), dtype=BF16, device=dev)
+    ref = group_norm_fused_plain(x.reshape(shape[0], -1, c), row, g, b, groups=32, eps=eps,
+                                 silu=silu).reshape(shape)
+    torch.cuda.synchronize()
+    assert (group_norm_fused.launches, group_norm_fused.two_pass_launches) == (
+        before[0] + 1, before[1] + int(two_pass))
+    _gn_close(got, ref)
+
+
+@pytest.mark.parametrize("pre_add,silu", [(False, False), (True, True), (True, False),
+                                          (False, True)])
+@pytest.mark.parametrize("case", list(GN_STUDIO))
+def test_group_norm_one_pass_at_the_studio_shapes(dev, case, pre_add, silu):
+    shape, eps = GN_STUDIO[case]
+    _gn_route(dev, shape, eps, pre_add, silu, two_pass=False)
+
+
+@pytest.mark.parametrize("shape,two_pass", [
+    ((1, 2048, 1024), True),    # 4 MB a row: past 16 blocks' shared memory
+    ((2, 32, 64, 1024), True),
+    ((1, 1536, 1024), False),   # 3 MB: 16 blocks of 192 KB, one an SM
+])
+@pytest.mark.parametrize("pre_add,silu", [(False, True), (True, False)])
+def test_group_norm_large_rows(dev, shape, two_pass, pre_add, silu):
+    """A row past what a cluster of 16 blocks holds takes the two-pass
+    route; one that 16 blocks of one an SM hold takes the one-pass route."""
+    from vocalie_tts_tpu_torch.ops.groupnorm import _sm_count, gn_plan
+
+    s = shape[1] * (shape[2] if len(shape) == 4 else 1)
+    assert (gn_plan(shape[0], s, shape[-1], 32, 8, _sm_count(0)) is None) == two_pass
+    _gn_route(dev, shape, 1e-5, pre_add, silu, two_pass)
+
+
+@pytest.mark.parametrize("case", list(GN_STUDIO))
+def test_group_norm_is_one_cuda_kernel_a_call(dev, case):
+    from vocalie_tts_tpu_torch.ops.groupnorm import group_norm_fused
+
+    shape, eps = GN_STUDIO[case]
+    x, g, b, e = _gn_args(dev, shape, True)
+    names = _cuda_kernels(lambda: group_norm_fused(x, g, b, groups=32, eps=eps, silu=True,
+                                                   pre_add=e))
+    assert len(names) == 1 and "gn_one_pass" in names[0], names
+
+
+def test_group_norm_one_pass_smem_matches_the_kernel(dev):
+    """The planner's shared-byte formula is the kernel's (``vt_group_norm_smem``)."""
+    from vocalie_tts_tpu_torch.ops.groupnorm import gn_one_pass_smem
+
+    fn = _build.kernel("vt_group_norm_smem", [_build.I] * 4, restype=_build.LL)
+    for rows, c, groups, vec in [(256, 128, 32, 8), (16, 1024, 32, 8), (745, 64, 32, 8),
+                                 (64, 384, 32, 8), (7, 36, 12, 4), (11, 15, 5, 1),
+                                 (1, 4096, 32, 8)]:
+        assert fn(rows, c, groups, vec) == gn_one_pass_smem(rows, c, groups, vec)
 
 
 @pytest.mark.parametrize("m,k,n", [(65536 // 64, 1152, 128), (17, 24, 16), (5, 12, 20),

@@ -1,36 +1,11 @@
 // q_len == 1 decode attention over one layer of the stacked KV cache, read
 // in place, with the current token's k/v merged unquantized: the int8
-// T-blocked kernel (B1) first, then the int8 whole-row kernel (B1w) and the
-// f32 kernel of K1, K2 and B10 (see their own notes below).
+// whole-row kernel (B1w) first, then the f32 kernel of K1, K2 and B10, then
+// the int8 T-blocked kernel (B1), which shares the f32 kernel's split over
+// a thread-block cluster (see their own notes below).
 //
-// Replaces: vocalie_tts_tpu/ops/decode_attention.py::decode_attention_stacked
-// on its int8 T-blocked branches (_kernel_stacked_int8dots_packed_tblk and
-// _kernel_stacked_int8dots_tblk, which compute the same numbers). The math
-// is theirs, step for step:
-//   * q is quantized once per (row, head, group member):
-//     qs = max(max|q| / 127, 1e-8), q8 = round_half_even(q / qs);
-//   * scores are int8 dot products in int32, scaled by qs * sm_scale, then
-//     by the per-slot k scale, plus the additive [b, T] bias;
-//   * online softmax over 128-slot blocks (running max starts at -1e30);
-//   * the probabilities, times the per-slot v scales, are re-quantized to
-//     int8 PER 128-SLOT BLOCK (ps = max(max p / 127, 1e-20)) -- so the
-//     block here must be 128 slots for the numbers to match;
-//   * only blocks below ceil(valid_len / 128) are read (at least one);
-//     slots inside them are still masked by the bias;
-//   * the current token's k/v join in f32 at the end, and the result is
-//     divided by max(l, 1e-30).
 // The TPU's lane-packed k|v layout is not copied: k and v are separate
-// [L, b, kv, T, d] int8 arrays.
-//
-// Bound: bytes. Each step reads, for every (row, kv head) and valid slot,
-// d int8 of k and of v, two bf16 scales and the 4-byte bias.
-//
-// Design (first, simple version): one block of 128 threads per
-// (row, kv head). Thread t owns slot t of the current 128-slot block: it
-// reads that slot's k row and computes its scores with __dp4a; block-wide
-// max/sum reductions run the online softmax; the v block is staged in
-// shared memory and the p.v products are summed by the threads that own
-// each output element. No tensor cores, no TMA, no split over T.
+// [L, b, kv, T, d] int8 arrays (bf16 scales [L, b, kv, T]) or float arrays.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -64,144 +39,6 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
   for (int i = 1; i < NWARPS; ++i) r += red[i];
   return r;
 }
-
-__global__ void __launch_bounds__(NTHREADS) decode_attention_int8_kernel(
-    const float* __restrict__ q,                  // [BC, g, d]
-    const int8_t* __restrict__ k_all,             // [L, BC, T, d]
-    const int8_t* __restrict__ v_all,             // [L, BC, T, d]
-    const __nv_bfloat16* __restrict__ ks_all,     // [L, BC, T]
-    const __nv_bfloat16* __restrict__ vs_all,     // [L, BC, T]
-    const float* __restrict__ bias,               // [b, T]
-    const float* __restrict__ k_new,              // [BC, d]
-    const float* __restrict__ v_new,              // [BC, d]
-    float* __restrict__ out,                      // [BC, g, d]
-    int BC, int kv, int T, int d, int g, int layer, int n_blk, float sm_scale) {
-  __shared__ __align__(16) int8_t q8_s[MAX_G * MAX_D];
-  __shared__ __align__(16) int8_t v_s[TBLK * MAX_D];
-  __shared__ int p_s[MAX_G * TBLK];
-  __shared__ float acc_s[MAX_G * MAX_D];
-  __shared__ float qs_s[MAX_G], m_s[MAX_G], l_s[MAX_G], corr_s[MAX_G], ps_s[MAX_G], snew_s[MAX_G];
-  __shared__ float red[NWARPS];
-
-  const int bc = blockIdx.x;
-  const int row = bc / kv;
-  const int tid = threadIdx.x;
-  const float* qb = q + (long long)bc * g * d;
-
-  // quantize q once per group member
-  for (int gi = 0; gi < g; ++gi) {
-    float a = tid < d ? fabsf(qb[gi * d + tid]) : 0.0f;
-    float qa = block_max(a, red);
-    float qs = fmaxf(qa / 127.0f, 1e-8f);
-    if (tid < d) q8_s[gi * d + tid] = (int8_t)__float2int_rn(qb[gi * d + tid] / qs);
-    if (tid == 0) {
-      qs_s[gi] = qs;
-      m_s[gi] = -1e30f;
-      l_s[gi] = 0.0f;
-    }
-  }
-  for (int o = tid; o < g * d; o += NTHREADS) acc_s[o] = 0.0f;
-  __syncthreads();
-
-  const long long lrow = (long long)layer * BC + bc;
-  const int8_t* kb = k_all + lrow * T * d;
-  const int8_t* vb = v_all + lrow * T * d;
-  const __nv_bfloat16* ksb = ks_all + lrow * T;
-  const __nv_bfloat16* vsb = vs_all + lrow * T;
-  const float* brow = bias + (long long)row * T;
-  const int dw = d / 4;
-
-  for (int blk = 0; blk < n_blk; ++blk) {
-    const int t = blk * TBLK + tid;
-    // stage this block's v rows (TBLK * d bytes, 16 bytes per load)
-    const int4* vsrc = reinterpret_cast<const int4*>(vb + (long long)blk * TBLK * d);
-    int4* vdst = reinterpret_cast<int4*>(v_s);
-    for (int i = tid; i < TBLK * d / 16; i += NTHREADS) vdst[i] = vsrc[i];
-
-    const float ksc = __bfloat162float(ksb[t]);
-    const float vsc = __bfloat162float(vsb[t]);
-    const float bb = brow[t];
-    const int* krow = reinterpret_cast<const int*>(kb + (long long)t * d);
-
-    for (int gi = 0; gi < g; ++gi) {
-      const int* qw = reinterpret_cast<const int*>(q8_s + gi * d);
-      int dot = 0;
-      for (int w = 0; w < dw; ++w) dot = __dp4a(krow[w], qw[w], dot);
-      float s = __fmul_rn((float)dot, __fmul_rn(qs_s[gi], sm_scale));
-      s = __fadd_rn(__fmul_rn(s, ksc), bb);
-      const float m_prev = m_s[gi];
-      const float m_new = fmaxf(m_prev, block_max(s, red));
-      const float corr = expf(m_prev - m_new);
-      float p = expf(s - m_new);
-      const float psum = block_sum(p, red);
-      p = __fmul_rn(p, vsc);  // fold the v scales in before quantizing
-      const float pa = block_max(p, red);
-      const float ps = fmaxf(pa / 127.0f, 1e-20f);
-      p_s[gi * TBLK + tid] = __float2int_rn(p / ps);
-      if (tid == 0) {
-        m_s[gi] = m_new;
-        l_s[gi] = __fadd_rn(__fmul_rn(l_s[gi], corr), psum);
-        corr_s[gi] = corr;
-        ps_s[gi] = ps;
-      }
-    }
-    __syncthreads();
-    for (int o = tid; o < g * d; o += NTHREADS) {
-      const int gi = o / d, dd = o - gi * d;
-      const int* pg = p_s + gi * TBLK;
-      int sum = 0;
-#pragma unroll 8
-      for (int j = 0; j < TBLK; ++j) sum += pg[j] * (int)v_s[j * d + dd];
-      acc_s[o] = __fadd_rn(__fmul_rn(acc_s[o], corr_s[gi]), __fmul_rn((float)sum, ps_s[gi]));
-    }
-    __syncthreads();
-  }
-
-  // merge the current token's k/v (unquantized, f32)
-  const float* knb = k_new + (long long)bc * d;
-  const float* vnb = v_new + (long long)bc * d;
-  if (tid < g) {
-    float s = 0.0f;
-    for (int dd = 0; dd < d; ++dd) s = __fadd_rn(s, __fmul_rn(qb[tid * d + dd], knb[dd]));
-    snew_s[tid] = __fmul_rn(s, sm_scale);
-  }
-  __syncthreads();
-  float* ob = out + (long long)bc * g * d;
-  for (int o = tid; o < g * d; o += NTHREADS) {
-    const int gi = o / d, dd = o - gi * d;
-    const float m_prev = m_s[gi];
-    const float s_new = snew_s[gi];
-    const float m_fin = fmaxf(m_prev, s_new);
-    const float corr = expf(m_prev - m_fin);
-    const float p_new = expf(s_new - m_fin);
-    const float l_fin = __fadd_rn(__fmul_rn(l_s[gi], corr), p_new);
-    const float val = __fadd_rn(__fmul_rn(acc_s[o], corr), __fmul_rn(p_new, vnb[dd]));
-    ob[o] = val / fmaxf(l_fin, 1e-30f);
-  }
-}
-
-extern "C" int vt_decode_attention_int8(
-    const void* q, const void* k_all, const void* v_all,
-    const void* k_scale, const void* v_scale, const void* bias,
-    const void* k_new, const void* v_new, void* out,
-    int b, int kv, int g, int d, int T, int layer, int valid_len,
-    float sm_scale, void* stream) {
-  if (g < 1 || g > MAX_G || d < 16 || d > MAX_D || d % 16 != 0 || T % TBLK != 0) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const int n_tblk = T / TBLK;
-  int n_blk = (valid_len + TBLK - 1) / TBLK;
-  if (n_blk < 1) n_blk = 1;
-  if (n_blk > n_tblk) n_blk = n_tblk;
-  const int BC = b * kv;
-  decode_attention_int8_kernel<<<BC, NTHREADS, 0, (cudaStream_t)stream>>>(
-      (const float*)q, (const int8_t*)k_all, (const int8_t*)v_all,
-      (const __nv_bfloat16*)k_scale, (const __nv_bfloat16*)v_scale,
-      (const float*)bias, (const float*)k_new, (const float*)v_new, (float*)out,
-      BC, kv, T, d, g, layer, n_blk, sm_scale);
-  return (int)cudaGetLastError();
-}
-
 
 // ---------------------------------------------------------------------------
 // B1w: the int8 decode attention with ONE softmax over the whole cache row.
@@ -961,4 +798,557 @@ extern "C" int vt_attend_clusters(int cache, int scale, int mode, int g, int spl
   return dispatch_attend(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
                          nullptr, cache, scale, mode, 0, 1, 1, g, 16, 16, 1, splits, 1.0f,
                          nullptr, clusters);
+}
+
+
+// ---------------------------------------------------------------------------
+// B1: the int8 T-blocked decode attention, split over a thread-block cluster.
+//
+// Replaces: vocalie_tts_tpu/ops/decode_attention.py::decode_attention_stacked
+// on its int8 T-blocked branches, _kernel_stacked_int8dots_packed_tblk
+// (:344; pallas_call :704) and _kernel_stacked_int8dots_tblk (:439;
+// pallas_call :780), which compute the same numbers (:466-494):
+//   * q is quantized once per (row, head, group member):
+//     qs = max(max|q| / 127, 1e-8), q8 = round_half_even(q / qs);
+//   * s = (float(q8 . k8) * (qs * sm_scale)) * ks + bias, the dot in int32;
+//   * for each 128-slot block j below ceil(valid_len / 128) (at least one):
+//     m_j = max(m_{j-1}, max s) from -1e30, corr = exp(m_{j-1} - m_j),
+//     p = exp(s - m_j), l = l * corr + sum p, pv = p * vs,
+//     ps = max(max pv / 127, 1e-20), p8 = round(pv / ps),
+//     acc = acc * corr + float(p8 . v8) * ps;
+//   * the current token's k/v join in f32 at the end, out = o / max(l, 1e-30).
+//
+// p8 is a rounding: one flip moves an output by ~|v| / 127, far past the
+// 5e-4 gate. So every block's p must be taken against the same running max
+// m_j, with the same IEEE steps and expf, as the sequential chain.
+//
+// Bound: bytes. Each (row, kv head) reads, for every slot of its valid
+// blocks, d int8 of k and of v, two bf16 scales and the 4-byte bias.
+//
+// Design: each (row, kv head) gets a cluster of `splits` blocks (ops/
+// decode_attention.py int8_splits: at most n_blk, every block a whole
+// number of 128-slot blocks, all clusters resident in one wave). Rank r
+// takes blocks [r * n_blk / splits, (r + 1) * n_blk / splits).
+//   0. Every load that depends on nothing goes first: q, the first block's
+//      k rows into registers (a lane holds E int8 of a row, 16 bytes where
+//      g allows; a group of LG lanes covers a row, so one warp load reads
+//      32 / LG whole rows, contiguous), each lane's own row's scales and
+//      bias, and the first block's v rows into a two-slot ring in shared
+//      memory by 16-byte cp.async, in flight through everything up to the
+//      p8 . v product; a later block's v rows are asked for when the chain
+//      reaches the block before it. Asking for more at once (every block's
+//      k in two register sets, two blocks of v; or k and v both through
+//      shared memory) ran slower at both main shapes: the bytes needed
+//      first then wait behind the others (PERF.md §6).
+//   1. Scores. q quantized in registers in the lane's own columns; a row's
+//      dot is the group's __dp4a partials, reduced by a transposing
+//      butterfly (LG - 1 shuffles a group member for LG rows, each lane
+//      ending with the whole dot of row lig of its group), scaled and
+//      biased by that lane into shared memory.
+//   2. Each block's max per group member, and the rank's max, published.
+//      cluster.sync(). Rank r's chain starts at the prefix max of ranks
+//      0..r-1 (read through distributed shared memory), so its m_j are the
+//      sequential chain's.
+//   3. The chain over the rank's own blocks: one warp per group member
+//      takes the block's 128 scores (4 a lane) for m_j, p, l and the p8;
+//      every lane group then adds p8 * v over its rows from shared memory
+//      in int32 (exact in any order), the groups meet by xor shuffles and
+//      the warps by shared integer atomics, and acc = acc * corr + o * ps.
+//   4. cluster.sync(). The ranks share the g * d outputs out; each output
+//      merges every rank's (m, l, acc) in rank order, c = exp(M - m_r),
+//      A = A * c + acc_r, L = L * c + l_r (for a rank of one block these
+//      are the chain's own steps, so acc is the chain's to the bit; only l
+//      sums its 128 p in another order), then the current token, divides
+//      and writes. A last cluster.sync() keeps the shared memory alive
+//      until every rank has read it.
+// With `stamps` set, thread 0 of every block writes the card's ns clock at
+// the I8_STAMPS phase points (ops/decode_attention.py INT8_STAMP_POINTS).
+
+#define I8_SMEM_MAX (160 * 1024)   // dynamic shared bytes a block may take
+#define I8_STAMPS 8
+
+// shared bytes of a rank with nbm blocks: the scores, v scales and block
+// maxima, and one or two 128-slot blocks of v (ops/decode_attention.py
+// int8_smem says the same)
+__host__ __device__ __forceinline__ int i8_bmax_words(int G, int nbm) {
+  return (nbm * G + 3) & ~3;   // the v rows after them start on 16 bytes
+}
+__host__ __device__ __forceinline__ int i8_smem_bytes(int G, int nbm, int d) {
+  return (G * nbm * TBLK + nbm * TBLK + i8_bmax_words(G, nbm)) * 4 +
+         (nbm > 1 ? 2 : 1) * TBLK * d;
+}
+
+__device__ __forceinline__ void i8_stamp(unsigned long long* stamps, int i) {
+  if (stamps != nullptr && threadIdx.x == 0) {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    stamps[blockIdx.x * I8_STAMPS + i] = t;
+  }
+}
+
+// 16-byte copies of one 128-slot block of v rows (TBLK * d bytes) into
+// shared dst by the block's threads, as one cp.async group
+__device__ __forceinline__ void i8_copy_v(int8_t* dst, const int8_t* src, int d) {
+  const uint32_t base = (uint32_t)__cvta_generic_to_shared(dst);
+  for (int i = threadIdx.x; i < TBLK * d / 16; i += ATT_THREADS) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                 :: "r"(base + 16 * i), "l"(src + 16 * i) : "memory");
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// int8 byte j of word w, sign-extended
+__device__ __forceinline__ int i8_byte(uint32_t w, int j) {
+  return (int)(w << (24 - 8 * j)) >> 24;
+}
+
+// A lane's share of one 128-slot block: its k slices (NU rows) and its own
+// row's k scale, bias and v scale.
+template <int E, int NU>
+struct I8Rows {
+  Slice<int8_t, E> k[NU];
+  float ksc, bias, vs;
+};
+
+template <int G, int LG>
+__global__ void __launch_bounds__(ATT_THREADS) attend_int8_tblk_kernel(
+    const float* __restrict__ q,                  // [BC, g, d]
+    const int8_t* __restrict__ k_all,             // [L * BC, T, d]; this layer's rows from row0
+    const int8_t* __restrict__ v_all,
+    const __nv_bfloat16* __restrict__ ks_all,     // [L * BC, T]
+    const __nv_bfloat16* __restrict__ vs_all,
+    const float* __restrict__ bias,               // [b, T]
+    const float* __restrict__ k_new,              // [BC, d]
+    const float* __restrict__ v_new,
+    float* __restrict__ out,                      // [BC, g, d]
+    unsigned long long* __restrict__ stamps,      // [grid, I8_STAMPS] or null
+    long long row0, int kv, int T, int d, int g, int n_blk, int splits, float sm_scale) {
+  constexpr int E = 16 < 32 / G ? 16 : 32 / G;   // int8 columns a lane holds
+  constexpr int EW = E / 4;
+  constexpr int RPW = 32 / LG;                    // rows a warp load covers
+  constexpr int NU = LG;                          // rows a lane group takes of a block
+  extern __shared__ __align__(16) float dyn[];    // sc [G][nbm * TBLK], vsc, bmax, v rows
+  __shared__ int p8s[G][TBLK];
+  __shared__ int osum[G * MAX_D];
+  __shared__ float acc_s[G * MAX_D];
+  __shared__ float rmax_s[G], m_s[G], l_s[G], corr_s[G], ps_s[G], snew_s[G];
+
+  i8_stamp(stamps, 0);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int bc = blockIdx.x / splits;
+  const int row = bc / kv;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int lig = lane & (LG - 1), grp = lane / LG;
+  const int col0 = lig * E;
+  const bool colv = col0 < d;              // lanes past d (d / E not a power of two) idle
+  const int gd = g * d;
+
+  const int nbm = (n_blk + splits - 1) / splits;
+  const int blo = rank * n_blk / splits, bhi = (rank + 1) * n_blk / splits;
+  const int nb = bhi - blo;
+  const int scs = nbm * TBLK;
+  float* sc = dyn;
+  float* vsc = dyn + G * scs;
+  float* bmax = vsc + scs;
+  int8_t* vbuf = reinterpret_cast<int8_t*>(bmax + i8_bmax_words(G, nbm));   // [2][TBLK * d]
+  const int vslot = TBLK * d;
+
+  const long long lrow = row0 + bc;
+  const int8_t* kb = k_all + lrow * T * d;
+  const int8_t* vb = v_all + lrow * T * d;
+  const __nv_bfloat16* ksb = ks_all + lrow * T;
+  const __nv_bfloat16* vsb = vs_all + lrow * T;
+  const float* brow = bias + (long long)row * T;
+  // row u of a lane group in a block: (u * ATT_WARPS + warp) * RPW + grp;
+  // one warp load covers the RPW rows of one u, contiguous. The lane's own
+  // row (whose score it writes) is u = lig.
+  const int own = (lig * ATT_WARPS + warp) * RPW + grp;
+
+  // 0. q and the current token's k, then the first block's k rows, own
+  // scales and bias, and its v rows, all in flight before any is used (a
+  // rank's later blocks' k rows are loaded as it reaches them)
+  const float* qb = q + (long long)bc * gd;
+  float4 qx[G][E / 4], knx[E / 4];
+#pragma unroll
+  for (int j = 0; j < E / 4; ++j) {
+    knx[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (colv) knx[j] = *reinterpret_cast<const float4*>(k_new + (long long)bc * d + col0 + 4 * j);
+#pragma unroll
+    for (int gi = 0; gi < G; ++gi) {
+      qx[gi][j] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (gi < g && colv) qx[gi][j] = *reinterpret_cast<const float4*>(qb + gi * d + col0 + 4 * j);
+    }
+  }
+  auto load = [&](I8Rows<E, NU>& r, int jb) {
+#pragma unroll
+    for (int u = 0; u < NU; ++u) {
+      const int t = jb * TBLK + (u * ATT_WARPS + warp) * RPW + grp;
+      if (colv) r.k[u].load(kb + (long long)t * d + col0);
+      else r.k[u].zero();
+    }
+    r.ksc = __bfloat162float(ksb[jb * TBLK + own]);
+    r.bias = __ldg(brow + jb * TBLK + own);
+    r.vs = __bfloat162float(vsb[jb * TBLK + own]);
+  };
+  I8Rows<E, NU> ra;
+  load(ra, blo);
+  i8_copy_v(vbuf, vb + (long long)blo * TBLK * d, d);
+
+  for (int e = tid; e < gd; e += ATT_THREADS) {
+    acc_s[e] = 0.0f;
+    osum[e] = 0;
+  }
+
+  // q quantized in registers, the lane's own columns; the current token's
+  // score from the unquantized q
+  uint32_t qw[G][EW];
+  float qss[G];
+  float kn[E];
+#pragma unroll
+  for (int j = 0; j < E / 4; ++j) {
+    kn[4 * j] = knx[j].x; kn[4 * j + 1] = knx[j].y; kn[4 * j + 2] = knx[j].z;
+    kn[4 * j + 3] = knx[j].w;
+  }
+#pragma unroll
+  for (int gi = 0; gi < G; ++gi) {
+    float x[E];
+#pragma unroll
+    for (int j = 0; j < E / 4; ++j) {
+      x[4 * j] = qx[gi][j].x; x[4 * j + 1] = qx[gi][j].y; x[4 * j + 2] = qx[gi][j].z;
+      x[4 * j + 3] = qx[gi][j].w;
+    }
+    float a = 0.0f, sn = 0.0f;
+#pragma unroll
+    for (int j = 0; j < E; ++j) {
+      a = fmaxf(a, fabsf(x[j]));
+      sn = fmaf(x[j], kn[j], sn);
+    }
+#pragma unroll
+    for (int o = 1; o < LG; o <<= 1) {
+      a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, o));
+      sn += __shfl_xor_sync(0xffffffffu, sn, o);
+    }
+    const float qs = fmaxf(a / 127.0f, 1e-8f);
+    qss[gi] = __fmul_rn(qs, sm_scale);
+#pragma unroll
+    for (int w = 0; w < EW; ++w) {
+      uint32_t word = 0u;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        word |= ((uint32_t)__float2int_rn(x[4 * w + i] / qs) & 0xffu) << (8 * i);
+      }
+      qw[gi][w] = word;
+    }
+    if (tid == 0 && gi < g) snew_s[gi] = __fmul_rn(sn, sm_scale);
+  }
+  i8_stamp(stamps, 1);
+
+  // 1. scores, v scales
+  auto score = [&](const I8Rows<E, NU>& r, int jl) {
+    vsc[jl * TBLK + own] = r.vs;
+#pragma unroll
+    for (int gi = 0; gi < G; ++gi) {
+      int dot[NU];
+#pragma unroll
+      for (int u = 0; u < NU; ++u) {
+        dot[u] = 0;
+#pragma unroll
+        for (int w = 0; w < EW; ++w) dot[u] = __dp4a((int)r.k[u].w[w], (int)qw[gi][w], dot[u]);
+      }
+      // transposing butterfly: after the stage of bit o a lane holds o
+      // partial rows, those whose bit o is its own; dot[0] ends as row lig's
+#pragma unroll
+      for (int o = NU / 2; o >= 1; o >>= 1) {
+        const bool up = (lig & o) != 0;
+#pragma unroll
+        for (int i = 0; i < o; ++i) {
+          const int send = up ? dot[i] : dot[i + o];
+          const int keep = up ? dot[i + o] : dot[i];
+          dot[i] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+        }
+      }
+      if (gi < g) {
+        sc[gi * scs + jl * TBLK + own] =
+            __fadd_rn(__fmul_rn(__fmul_rn((float)dot[0], qss[gi]), r.ksc), r.bias);
+      }
+    }
+  };
+  for (int jb = blo; jb < bhi; ++jb) {
+    if (jb > blo) load(ra, jb);
+    score(ra, jb - blo);
+  }
+  __syncthreads();
+
+  // 2. each block's max per group member, the rank's max, the prefix max
+  for (int pr = warp; pr < nb * g; pr += ATT_WARPS) {
+    const int jl = pr / g, gi = pr - jl * g;
+    const float* s = sc + gi * scs + jl * TBLK;
+    float mx = fmaxf(fmaxf(s[lane], s[lane + 32]), fmaxf(s[lane + 64], s[lane + 96]));
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+    if (lane == 0) bmax[jl * G + gi] = mx;
+  }
+  __syncthreads();
+  if (tid < g) {
+    float mx = -INFINITY;
+    for (int jl = 0; jl < nb; ++jl) mx = fmaxf(mx, bmax[jl * G + tid]);
+    rmax_s[tid] = mx;
+  }
+  i8_stamp(stamps, 2);
+  cluster.sync();   // every rank's max is written
+  i8_stamp(stamps, 3);
+  if (tid < g) {
+    float m0 = -1e30f;
+    for (int r = 0; r < rank; ++r) m0 = fmaxf(m0, cluster.map_shared_rank(rmax_s, r)[tid]);
+    m_s[tid] = m0;
+    l_s[tid] = 0.0f;
+  }
+  __syncthreads();
+
+  // 3. the chain over the rank's blocks
+  for (int jl = 0; jl < nb; ++jl) {
+    if (jl + 1 < nb) {   // the next block's v rows, into the other slot
+      i8_copy_v(vbuf + ((jl + 1) & 1) * vslot, vb + (long long)(blo + jl + 1) * TBLK * d, d);
+    }
+    for (int gi = warp; gi < g; gi += ATT_WARPS) {
+      const float mp = m_s[gi];
+      const float mj = fmaxf(mp, bmax[jl * G + gi]);
+      const float corr = expf(mp - mj);
+      const float* s = sc + gi * scs + jl * TBLK;
+      const float* vv = vsc + jl * TBLK;
+      float pv[4], psum = 0.0f, pmax = 0.0f;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float p = expf(s[lane + 32 * i] - mj);
+        psum = __fadd_rn(psum, p);
+        pv[i] = __fmul_rn(p, vv[lane + 32 * i]);   // fold the v scales in before quantizing
+        pmax = fmaxf(pmax, pv[i]);
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        psum = __fadd_rn(psum, __shfl_xor_sync(0xffffffffu, psum, o));
+        pmax = fmaxf(pmax, __shfl_xor_sync(0xffffffffu, pmax, o));
+      }
+      const float ps = fmaxf(pmax / 127.0f, 1e-20f);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) p8s[gi][lane + 32 * i] = __float2int_rn(pv[i] / ps);
+      if (lane == 0) {
+        m_s[gi] = mj;
+        l_s[gi] = __fadd_rn(__fmul_rn(l_s[gi], corr), psum);
+        corr_s[gi] = corr;
+        ps_s[gi] = ps;
+      }
+    }
+    if (jl + 1 < nb) {
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    }
+    __syncthreads();
+    if (jl == 0) i8_stamp(stamps, 4);
+    {   // p8 . v in int32 over the lane group's rows
+      const int8_t* vrow = vbuf + (jl & 1) * vslot;
+      int o[G][E];
+#pragma unroll
+      for (int gi = 0; gi < G; ++gi) {
+#pragma unroll
+        for (int j = 0; j < E; ++j) o[gi][j] = 0;
+      }
+#pragma unroll
+      for (int u = 0; u < NU; ++u) {
+        const int r = (u * ATT_WARPS + warp) * RPW + grp;
+        uint32_t vw[EW];
+#pragma unroll
+        for (int w = 0; w < EW; ++w) vw[w] = 0u;
+        if (colv) {
+          if constexpr (EW == 4) {
+            const uint4 x = *reinterpret_cast<const uint4*>(vrow + r * d + col0);
+            vw[0] = x.x; vw[1] = x.y; vw[2] = x.z; vw[3] = x.w;
+          } else if constexpr (EW == 2) {
+            const uint2 x = *reinterpret_cast<const uint2*>(vrow + r * d + col0);
+            vw[0] = x.x; vw[1] = x.y;
+          } else {
+            vw[0] = *reinterpret_cast<const uint32_t*>(vrow + r * d + col0);
+          }
+        }
+#pragma unroll
+        for (int gi = 0; gi < G; ++gi) {
+          const int pw = gi < g ? p8s[gi][r] : 0;
+#pragma unroll
+          for (int j = 0; j < E; ++j) o[gi][j] += pw * i8_byte(vw[j >> 2], j & 3);
+        }
+      }
+#pragma unroll
+      for (int off = LG; off < 32; off <<= 1) {
+#pragma unroll
+        for (int gi = 0; gi < G; ++gi) {
+#pragma unroll
+          for (int j = 0; j < E; ++j) o[gi][j] += __shfl_xor_sync(0xffffffffu, o[gi][j], off);
+        }
+      }
+      if (grp == 0 && colv) {
+#pragma unroll
+        for (int gi = 0; gi < G; ++gi) {
+          if (gi < g) {
+#pragma unroll
+            for (int j = 0; j < E; ++j) atomicAdd(&osum[gi * d + col0 + j], o[gi][j]);
+          }
+        }
+      }
+    }
+    __syncthreads();
+
+    for (int e = tid; e < gd; e += ATT_THREADS) {
+      const int gi = e / d;
+      acc_s[e] = __fadd_rn(__fmul_rn(acc_s[e], corr_s[gi]),
+                           __fmul_rn((float)osum[e], ps_s[gi]));
+      osum[e] = 0;
+    }
+    if (jl + 1 < nb) __syncthreads();   // after the last block, the cluster barrier
+  }
+  i8_stamp(stamps, 5);
+  cluster.sync();   // every rank's (m, l, acc) is written
+  i8_stamp(stamps, 6);
+
+  {   // 4. the ranks merged in order, then the current token
+    const int per = (gd + splits - 1) / splits;
+    const int e_hi = min((rank + 1) * per, gd);
+    float* ob = out + (long long)bc * gd;
+    for (int e = rank * per + tid; e < e_hi; e += ATT_THREADS) {
+      const int gi = e / d;
+      float M = -1e30f, A = 0.0f, L = 0.0f;
+      for (int r0 = 0; r0 < splits; r0 += ATT_MERGE) {
+        float mr[ATT_MERGE], lr[ATT_MERGE], ar[ATT_MERGE];
+#pragma unroll
+        for (int j = 0; j < ATT_MERGE; ++j) {
+          if (r0 + j < splits) {
+            mr[j] = cluster.map_shared_rank(m_s, r0 + j)[gi];
+            lr[j] = cluster.map_shared_rank(l_s, r0 + j)[gi];
+            ar[j] = cluster.map_shared_rank(acc_s, r0 + j)[e];
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < ATT_MERGE; ++j) {
+          if (r0 + j < splits) {
+            const float c = expf(M - mr[j]);
+            A = __fadd_rn(__fmul_rn(A, c), ar[j]);
+            L = __fadd_rn(__fmul_rn(L, c), lr[j]);
+            M = mr[j];
+          }
+        }
+      }
+      const float s_new = snew_s[gi];
+      const float m_fin = fmaxf(M, s_new);
+      const float c = expf(M - m_fin), p_new = expf(s_new - m_fin);
+      const float lf = __fadd_rn(__fmul_rn(L, c), p_new);
+      const float o = __fadd_rn(__fmul_rn(A, c),
+                                __fmul_rn(p_new, v_new[(long long)bc * d + (e - gi * d)]));
+      ob[e] = o / fmaxf(lf, 1e-30f);
+    }
+  }
+  i8_stamp(stamps, 7);
+  cluster.sync();   // no block leaves before the others have read its shared memory
+}
+
+// Launches B1 over clusters of `splits` blocks; with `clusters` set, stores
+// instead how many such clusters the card keeps resident at once.
+template <int G, int LG>
+static int launch_int8_tblk(const void* q, const void* k_all, const void* v_all, const void* ks,
+                            const void* vs, const void* bias, const void* k_new,
+                            const void* v_new, void* out, void* stamps, long long row0, int BC,
+                            int kv, int T, int d, int g, int n_blk, int splits, float sm_scale,
+                            cudaStream_t stream, int* clusters) {
+  void (*kern)(const float*, const int8_t*, const int8_t*, const __nv_bfloat16*,
+               const __nv_bfloat16*, const float*, const float*, const float*, float*,
+               unsigned long long*, long long, int, int, int, int, int, int, float) =
+      attend_int8_tblk_kernel<G, LG>;
+  static bool ready = false;   // set once per instantiation
+  if (!ready) {
+    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return (int)e;
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, I8_SMEM_MAX);
+    if (e != cudaSuccess) return (int)e;
+    ready = true;
+  }
+  const int smem = i8_smem_bytes(G, (n_blk + splits - 1) / splits, d);
+  if (smem > I8_SMEM_MAX) return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(BC * splits), 1, 1);
+  cfg.blockDim = dim3(ATT_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (clusters != nullptr) return (int)cudaOccupancyMaxActiveClusters(clusters, kern, &cfg);
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, kern, (const float*)q, (const int8_t*)k_all, (const int8_t*)v_all,
+      (const __nv_bfloat16*)ks, (const __nv_bfloat16*)vs, (const float*)bias,
+      (const float*)k_new, (const float*)v_new, (float*)out, (unsigned long long*)stamps, row0,
+      kv, T, d, g, n_blk, splits, sm_scale);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// The instantiation g and d select: G = g rounded up to a power of two, LG
+// the lanes a row (d / E rounded up to a power of two).
+static int dispatch_int8_tblk(const void* q, const void* k_all, const void* v_all,
+                              const void* ks, const void* vs, const void* bias,
+                              const void* k_new, const void* v_new, void* out, void* stamps,
+                              long long row0, int BC, int kv, int T, int d, int g, int n_blk,
+                              int splits, float sm_scale, cudaStream_t st, int* clusters) {
+#define VT_I8(G, LG)                                                                      \
+  launch_int8_tblk<G, LG>(q, k_all, v_all, ks, vs, bias, k_new, v_new, out, stamps, row0, \
+                          BC, kv, T, d, g, n_blk, splits, sm_scale, st, clusters)
+// d in 16..128: LG from 16 / E (d 16) to 128 / E (d 128)
+#define VT_I8_LG(G, L0) \
+  (d <= 16 ? VT_I8(G, L0) : d <= 32 ? VT_I8(G, 2 * L0) : d <= 64 ? VT_I8(G, 4 * L0) \
+   : VT_I8(G, 8 * L0))
+  if (g <= 1) return VT_I8_LG(1, 1);
+  if (g <= 2) return VT_I8_LG(2, 1);
+  if (g <= 4) return VT_I8_LG(4, 2);
+  return VT_I8_LG(8, 4);
+#undef VT_I8_LG
+#undef VT_I8
+}
+
+// B1 on layer `layer` of the int8 cache: the blocks below
+// ceil(valid_len / 128) (at least one), split over clusters of `splits`
+// blocks (1 <= splits <= that count, at most 16; int8_splits). stamps:
+// [b * kv * splits, I8_STAMPS] u64 or null.
+extern "C" int vt_decode_attention_int8(
+    const void* q, const void* k_all, const void* v_all,
+    const void* k_scale, const void* v_scale, const void* bias,
+    const void* k_new, const void* v_new, void* out, void* stamps,
+    int b, int kv, int g, int d, int T, int layer, int valid_len, int splits,
+    float sm_scale, void* stream) {
+  if (g < 1 || g > MAX_G || d < 16 || d > MAX_D || d % 16 != 0 || T % TBLK != 0 || T < TBLK ||
+      k_new == nullptr || v_new == nullptr) {
+    return (int)cudaErrorInvalidValue;
+  }
+  int n_blk = (valid_len + TBLK - 1) / TBLK;
+  if (n_blk < 1) n_blk = 1;
+  if (n_blk > T / TBLK) n_blk = T / TBLK;
+  if (splits < 1 || splits > n_blk || splits > ATT_MAX_SPLITS) return (int)cudaErrorInvalidValue;
+  const int BC = b * kv;
+  return dispatch_int8_tblk(q, k_all, v_all, k_scale, v_scale, bias, k_new, v_new, out, stamps,
+                            (long long)layer * BC, BC, kv, T, d, g, n_blk, splits, sm_scale,
+                            (cudaStream_t)stream, nullptr);
+}
+
+// Clusters of `splits` blocks the card keeps resident at once for B1 at
+// this g, d and count of valid blocks (their shared bytes set by all three).
+extern "C" int vt_attend_int8_clusters(int g, int d, int n_blk, int splits, int* clusters) {
+  if (g < 1 || g > MAX_G || d < 16 || d > MAX_D || d % 16 != 0 || n_blk < 1 || splits < 1 ||
+      splits > ATT_MAX_SPLITS || splits > n_blk || clusters == nullptr) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return dispatch_int8_tblk(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                            nullptr, nullptr, nullptr, 0, 1, 1, TBLK, d, g, n_blk, splits, 1.0f,
+                            nullptr, clusters);
 }

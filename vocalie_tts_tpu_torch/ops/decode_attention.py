@@ -37,6 +37,14 @@ over them in f32; in the same launch the blocks then share out the
 outputs, and each merges every block's partial softmax for its outputs,
 read through distributed shared memory in rank order, then the current
 token.
+
+B1 is split the same way, on 128-slot block boundaries: a cluster of
+:func:`int8_splits` blocks per (row, kv head), rank r taking the blocks
+:func:`int8_block_ranges` gives it. Each rank scores its blocks, the ranks
+publish their maxima, and each rank runs the sequential chain over its own
+blocks from the prefix max of the ranks before it, so every block's p is
+quantized against the running max the plain version uses; the ranks'
+states then merge in rank order.
 """
 
 from __future__ import annotations
@@ -54,12 +62,86 @@ from vocalie_tts_tpu_torch.ops.decode_dense import _int_dot, _quantize_rows
 #: this must equal the JAX kernel's 128 for the numbers to match
 TBLK = 128
 
-_ARGTYPES = [_build.P] * 9 + [_build.I] * 7 + [_build.F, _build.P]
+_ARGTYPES = [_build.P] * 10 + [_build.I] * 8 + [_build.F, _build.P]
+
+#: B1's split: blocks it aims for (two per SM of the H100's 132), the
+#: largest cluster (the kernel's ATT_MAX_SPLITS), and the dynamic shared
+#: bytes a block may take (the kernel's I8_SMEM_MAX)
+INT8_SPLIT_TARGET_BLOCKS = 264
+INT8_SPLIT_MAX = 16
+INT8_SMEM_MAX = 160 * 1024
+#: the phase points at which B1 writes the card's clock when given
+#: ``stamps`` (csrc I8_STAMPS): per block, in order
+INT8_STAMP_POINTS = ("start", "q quantized", "scores and maxima", "barrier 1 passed",
+                     "first block's p8 and v in", "chain done", "barrier 2 passed",
+                     "outputs written")
+INT8_STAMPS = len(INT8_STAMP_POINTS)
 
 
 def n_valid_blocks(valid_len: int, T: int) -> int:
     """Blocks the kernel reads: ceil(valid_len / 128), at least one."""
     return min(max(-(-int(valid_len) // TBLK), 1), T // TBLK)
+
+
+def int8_smem(g: int, d: int, n_blk: int, splits: int) -> int:
+    """B1's dynamic shared bytes a block, for the most blocks a rank takes:
+    the scores of its group members (g rounded up to a power of two), the v
+    scales, each block's maxima (a multiple of 4 words), and one 128-slot
+    block of v rows, or two where a rank takes more than one
+    (``csrc/decode_attention.cu`` ``i8_smem_bytes``)."""
+    G = 1 << (int(g) - 1).bit_length()
+    nbm = -(-int(n_blk) // splits)
+    bmax = -(-nbm * G // 4) * 4
+    return (G * nbm * TBLK + nbm * TBLK + bmax) * 4 + (2 if nbm > 1 else 1) * TBLK * d
+
+
+def int8_splits(bc: int, n_blk: int, g: int, d: int, resident=None) -> int:
+    """Blocks per (row, kv head) of B1: the fewest whose shared bytes fit
+    :data:`INT8_SMEM_MAX`, then one more while the ``bc`` pairs have fewer
+    than :data:`INT8_SPLIT_TARGET_BLOCKS` blocks, every rank keeps at least
+    one of the ``n_blk`` 128-slot blocks, the count stays at most
+    :data:`INT8_SPLIT_MAX` and (given ``resident(splits)``, the clusters of
+    that size the card keeps resident at once) all ``bc`` clusters still run
+    in one wave. Past two blocks an SM the ranks mostly wait on the same
+    bytes: the T3 shape ran slower at 3 and 4 ranks than at 2
+    (``chip_smoke.py --attn-gn-rows --sweep``). Raises ``ValueError`` where
+    no count fits."""
+    top = min(int(n_blk), INT8_SPLIT_MAX)
+    s = 1
+    while s <= top and int8_smem(g, d, n_blk, s) > INT8_SMEM_MAX:
+        s += 1
+    if s > top:
+        raise ValueError(f"{n_blk} blocks of scores do not fit {INT8_SPLIT_MAX} blocks' "
+                         "shared memory")
+    while (s < top and bc * s < INT8_SPLIT_TARGET_BLOCKS
+           and (resident is None or bc <= resident(s + 1))):
+        s += 1
+    return s
+
+
+def int8_block_ranges(n_blk: int, splits: int) -> list:
+    """The 128-slot blocks ``[lo, hi)`` rank r of B1's split takes, as the
+    kernel cuts them: ``r * n_blk // splits`` up to the next rank's start."""
+    return [(r * n_blk // splits, (r + 1) * n_blk // splits) for r in range(splits)]
+
+
+@functools.lru_cache(maxsize=None)
+def resident_int8_clusters(g: int, d: int, n_blk: int, splits: int) -> int:
+    """Clusters of ``splits`` blocks the card keeps resident at once for B1
+    at this g, d and count of valid blocks (``cudaOccupancyMaxActiveClusters``)."""
+    n = ctypes.c_int(0)
+    rc = _build.kernel("vt_attend_int8_clusters", [_build.I] * 4 + [_build.P])(
+        g, d, n_blk, splits, ctypes.byref(n))
+    _build.check(rc, "vt_attend_int8_clusters")
+    return n.value
+
+
+@functools.lru_cache(maxsize=4096)
+def card_int8_splits(bc: int, n_blk: int, g: int, d: int) -> int:
+    """The split B1 takes on the card for ``bc`` (row, kv head) pairs over
+    ``n_blk`` valid blocks (:func:`int8_splits` with the card's resident
+    clusters)."""
+    return int8_splits(bc, n_blk, g, d, lambda s: resident_int8_clusters(g, d, n_blk, s))
 
 
 def decode_attention_plain(q, k_all, v_all, bias, layer: int, k_scale, v_scale,
@@ -123,6 +205,8 @@ def decode_attention_int8_stacked(
     *,
     valid_len: int,           # cached slots in use (blocks past it are skipped)
     sm_scale: float,
+    splits: Optional[int] = None,   # on a card: force the cluster size (1..n_blk, <= 16)
+    stamps: Optional[torch.Tensor] = None,   # on a card: [b·kv·splits, INT8_STAMPS] int64 trace
 ) -> torch.Tensor:
     """B1: attention output ``[b, kv, g, d]`` f32 for layer ``layer`` of the
     int8 cache, q and p re-quantized to int8 per 128-slot block."""
@@ -154,8 +238,18 @@ def decode_attention_int8_stacked(
                 f"{name}: expected {dtype} {shape} on {q.device}, got "
                 f"{t.dtype} {tuple(t.shape)} on {t.device}"
             )
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    n_blk = n_valid_blocks(valid_len, T)
+    if splits is None:
+        splits = card_int8_splits(b * kv, n_blk, g, d)
+    elif (not 1 <= splits <= min(n_blk, INT8_SPLIT_MAX)
+          or int8_smem(g, d, n_blk, splits) > INT8_SMEM_MAX):
+        raise ValueError(f"splits={splits} outside 1..{min(n_blk, INT8_SPLIT_MAX)} for {n_blk} "
+                         "blocks, or a rank's scores past the shared memory")
+    if stamps is not None and (stamps.dtype != torch.int64 or stamps.device != q.device
+                               or stamps.numel() < b * kv * splits * INT8_STAMPS):
+        raise ValueError(f"stamps: int64 on {q.device}, {b * kv * splits * INT8_STAMPS} or more")
     out = torch.empty((b, kv, g, d), dtype=torch.float32, device=q.device)
     fn = _build.kernel("vt_decode_attention_int8", _ARGTYPES)
     decode_attention_int8_stacked.launches += 1
@@ -163,7 +257,8 @@ def decode_attention_int8_stacked(
         q.data_ptr(), k_all.data_ptr(), v_all.data_ptr(),
         k_scale.data_ptr(), v_scale.data_ptr(), bias.data_ptr(),
         k_new.data_ptr(), v_new.data_ptr(), out.data_ptr(),
-        b, kv, g, d, T, int(layer), int(valid_len), float(sm_scale),
+        stamps.data_ptr() if stamps is not None else None,
+        b, kv, g, d, T, int(layer), int(valid_len), int(splits), float(sm_scale),
         _build.stream_ptr(q),
     )
     _build.check(rc, "vt_decode_attention_int8")

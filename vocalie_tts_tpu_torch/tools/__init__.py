@@ -17,6 +17,11 @@ module from the repository's root:
 - ``python3 -m vocalie_tts_tpu_torch.tools.wrapper_host_ab PARENT_DIR``:
   the Python the B9b and B7 wrappers run before their C call, this tree's
   beside a parent commit's unpacked in ``PARENT_DIR``, in one process.
+- ``python3 -m vocalie_tts_tpu_torch.tools.attn_gn_trace``: where a call of
+  the int8 decode attention (B1, ``csrc/decode_attention.cu``, at every
+  split count) and of the one-pass GroupNorm (B13, ``csrc/groupnorm.cu``,
+  at the studio shapes) spends its time, phase by phase, from the card's
+  clock.
 
 ``chip_smoke.py`` remains the check of every kernel and path; these tools
 only explain a kernel's time.
