@@ -1128,6 +1128,17 @@ def _b12_case(dev, failures, attn, label, dense=None):
                                         sd, nw, wq, sq, l, eps=t.kw["eps"])
 
     pair_ms, pair_g_ms = timed(pair, 100, f"B1 + B2 pair [{label}]")
+    # and each alone, graph-timed on the same inputs: the sum B12 is held to
+    attn1 = decode_attention_int8_stacked(t.q, t.k, t.v, t.bias, 1, t.ks, t.vs, t.kn, t.vn,
+                                          valid_len=valid, sm_scale=t.kw["sm_scale"])
+    attn1 = attn1.reshape(b, H * d)
+    b1_g_ms = try_graph_ms(lambda i: decode_attention_int8_stacked(
+        t.q, t.k, t.v, t.bias, i % L, t.ks, t.vs, t.kn, t.vn, valid_len=valid,
+        sm_scale=t.kw["sm_scale"]), f"B1 [{label}]", 300)
+    b2_g_ms = try_graph_ms(lambda i: dd.tail_swiglu_qkv_int8_stacked(
+        attn1, t.x, wo, wos, mw, wgu, sgu, wd, sd, nw, wq, sq, i % L, eps=t.kw["eps"]),
+        f"B2 [{label}]", 300)
+    sum_g_ms = None if b1_g_ms is None or b2_g_ms is None else b1_g_ms + b2_g_ms
     # each input read once, each output written once; of the cache, only
     # the valid slots (a masked slot's probability is exactly 0)
     w_bytes = H * d * D + D * 2 * F + F * D + D * Q
@@ -1143,14 +1154,16 @@ def _b12_case(dev, failures, attn, label, dense=None):
     log(f"{B12_NAME} [{label}]: max_abs_err={max(errs):.3e} (bit-equal: {exact}), worst |diff| / "
         f"({DENSE_TOL} x max|ref|) = {worst:.3f} (must be <= 1); kernel {ms:.6f} ms eager, "
         f"{fmt_ms(g_ms)} ms graph (one cooperative launch), plain {plain_ms:.6f} ms, B1 + B2 pair "
-        f"{pair_ms:.6f} ms eager, {fmt_ms(pair_g_ms)} ms graph, bound "
+        f"{pair_ms:.6f} ms eager, {fmt_ms(pair_g_ms)} ms graph; graph alone B1 "
+        f"{fmt_ms(b1_g_ms)} + B2 {fmt_ms(b2_g_ms)} = {fmt_ms(sum_g_ms)} ms; bound "
         f"{bms:.6f} ms ({by}, {n_bytes / 1e6:.2f} MB: weights {w_bytes / 1e6:.2f}, the valid "
         f"slots' k/v, scales and bias {kv_bytes / 1e6:.2f}); {shape}")
     if not worst <= 1.0:
         failures.append(f"{B12_NAME} [{label}] differs from its plain version: worst ratio {worst}")
     return {"max_abs_err": max(errs), "bit_equal": exact, "ms": ms, "graph_ms": g_ms,
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "b1_b2_pair_ms": pair_ms,
-            "b1_b2_pair_graph_ms": pair_g_ms, "shape": shape}
+            "b1_b2_pair_graph_ms": pair_g_ms, "b1_graph_ms": b1_g_ms, "b2_graph_ms": b2_g_ms,
+            "b1_plus_b2_graph_ms": sum_g_ms, "shape": shape}
 
 
 def check_decode_layer(dev, failures):
@@ -1214,8 +1227,8 @@ def count_dense_kernels(kernels, failures) -> None:
         # B1's Qwen3 shape and B13's other studio shapes are counted under
         # "<name> [<label>]" into their own dicts
         targets = [(entry["name"], entry, entry["name"])]
-        if entry["name"] == B1_NAME:
-            targets.append((f"{B1_NAME} [qwen3]", entry["qwen3_shape"], B1_NAME))
+        if entry["name"] in (B1_NAME, B12_NAME):
+            targets.append((f"{entry['name']} [qwen3]", entry["qwen3_shape"], entry["name"]))
         for case in entry.get("cases", ()) if entry["name"] == B13_NAME else ():
             targets.append((f"{B13_NAME} [{case['label']}]", case, B13_NAME))
         for key, into, name in targets:
@@ -1239,6 +1252,7 @@ def _count_kernels_child() -> int:
     t3 = {k: c for k, c in _dense_inputs(dev).calls.items() if k not in B8_NAMES}
     q3 = {k: c for k, c in _dense_inputs(dev, QWEN3_DENSE).calls.items() if k in B8_NAMES}
     calls = {**t3, **q3, B7_NAME: _b7_inputs(dev).call, B12_NAME: _b12_inputs(dev).call,
+             f"{B12_NAME} [qwen3]": _b12_inputs(dev, QWEN3_ATTN).call,
              **_b1_b13_calls(dev), **_gelu_inputs(dev).calls,
              **_f32_calls(dev), **_flash_train_calls(dev), **_slice10_calls(dev)}
     wanted = sys.argv[2:]
@@ -1315,7 +1329,7 @@ def _dense_entry(name, *, got, ref, ms, plain_ms, ops_ms, n_bytes, n_ops, shape,
     if name in TAIL_NAMES and not exact:
         failures.append(f"{name} is not bit-equal to its plain version (max_abs_err {err})")
     source = ("tail_swiglu.cu" if name in TAIL_NAMES else
-              "tail_gelu.cu" if name == B9B_NAME else "decode_dense.cu")
+              "tail_gelu.cu" if name in (B9B_NAME, B9C_NAME) else "decode_dense.cu")
     return {"name": name, "route": "cuda",
             "source": "vocalie_tts_tpu_torch/csrc/" + source,
             "replaces": f"vocalie_tts_tpu/ops/decode_dense.py:{DENSE_LINES[name]}",
@@ -1338,13 +1352,16 @@ B8_NAMES = ("B8a tail_swiglu_int8", "B8b mlp_swiglu_int8")
 #: B2 and B8a: one cooperative launch (csrc/tail_swiglu.cu), bit-equal to
 #: their plain versions; one CUDA kernel a call
 TAIL_NAMES = ("B2 tail_swiglu_qkv_int8", "B8a tail_swiglu_int8")
-#: B9b: one cooperative launch (csrc/tail_gelu.cu), bit-equal to the old
-#: 12-kernel chain (which B9c still runs)
+#: B9b and B9c: one cooperative launch (csrc/tail_gelu.cu), bit-equal to
+#: the old 12- and 9-kernel chains (which still run the shapes the body
+#: does not take)
 B9B_NAME = "B9b tail_gelu_qkv_int8"
+B9C_NAME = "B9c tail_gelu_int8"
 #: the kernels that must be one CUDA kernel a call (B1 and B13 at each of
 #: their shapes: ``count_dense_kernels``)
-ONE_KERNEL_NAMES = TAIL_NAMES + (B9B_NAME, "B7 decode_step_fused", "B1 decode_attention_int8",
-                                 "B13 group_norm_fused")
+ONE_KERNEL_NAMES = TAIL_NAMES + (B9B_NAME, B9C_NAME, "B7 decode_step_fused",
+                                 "B1 decode_attention_int8", "B13 group_norm_fused",
+                                 "B12 layer_swiglu_qkv_int8")
 #: the SwiGLU dense kernels' decode shapes: the Chatterbox T3 voice-over
 #: (b = 16: 8 chunks, CFG-doubled; the 1026-token head padded to 1152) and
 #: the Qwen3 bench request (b = 8; GQA qkv 16 x 128 + 2 x 8 x 128; d_ff 8192
@@ -1674,20 +1691,54 @@ def check_dense_gelu(dev, failures, L: int = 24):
     out[-1].update(equal_to_old_chain=same, earlier_ms=old_ms, earlier_graph_ms=old_g_ms,
                    earlier="the old 12-kernel chain (vt_tail_gelu_int8), timed in this run")
     log(f"B9b: the old chain {old_ms:.6f} ms eager, {fmt_ms(old_g_ms)} ms graph")
-    got = [dd.tail_gelu_int8_stacked(*t.tail, L // 2, eps=eps)]
-    ref = [dd.tail_gelu_int8_plain(*t.tail, L // 2, eps=eps)]
-    torch.cuda.synchronize()
-    ms, g_ms = timed(lambda i: dd.tail_gelu_int8_stacked(*t.tail, i % L, eps=eps), 300, "B9c")
+    c = b9c_row(t, failures)
     ops_ms, ops_g_ms = timed(lambda i: qdot_tail(i % L), 100, "B9c yardstick")
     out.append(_dense_entry(
-        "B9c tail_gelu_int8", got=got, ref=ref, ms=ms, g_ms=g_ms,
+        B9C_NAME, got=c["got"], ref=c["ref"], ms=c["ms"], g_ms=c["graph_ms"],
         plain_ms=cuda_ms(lambda i: dd.tail_gelu_int8_plain(*t.tail, i % L, eps=eps), 20),
         ops_ms=ops_ms, ops_g_ms=ops_g_ms, ops_key="qdot_ops_ms",
-        n_bytes=b * d * 4 + b * d * 2 + tail_w + tail_scales + vec_bytes - 2 * 4 * d + b * d * 4,
-        n_ops=2 * b * tail_w,
-        shape=f"attn[{b},{d}] f32, x[{b},{d}] bf16, bf16 biases, d_ff {F} in tiles of "
-              f"{dd.pick_tile(F, dd.TILE_BUDGET, 2 * d)}, {L} layers", failures=failures))
+        n_bytes=c["n_bytes"], n_ops=c["n_ops"], shape=c["shape"], failures=failures))
+    out[-1].update({k: v for k, v in c.items() if k.startswith(("equal", "earlier"))})
     return out
+
+
+def b9c_row(t, failures) -> dict:
+    """B9c (``tail_gelu_int8_stacked``, the GELU tail without the next qkv:
+    the Q = 0 branch of ``csrc/tail_gelu.cu``) on ``_gelu_inputs`` at a
+    middle and at the last layer: bit-equal to the old 9-kernel chain
+    (``_tail_gelu(..., chain=True)``, which the one-launch body replaces)
+    and to its plain version's gate; both timed eager and graph-timed, each
+    call reading another layer."""
+    from vocalie_tts_tpu_torch.ops import decode_dense as dd
+
+    b, d, F, L, eps = t.b, t.d, t.F, t.L, t.eps
+    tile = dd.pick_tile(F, dd.TILE_BUDGET, 2 * d)
+    got, ref, chain = [], [], []
+    for layer in (L // 2, L - 1):
+        got.append(dd.tail_gelu_int8_stacked(*t.tail, layer, eps=eps))
+        ref.append(dd.tail_gelu_int8_plain(*t.tail, layer, eps=eps))
+        chain.append(dd._tail_gelu(*t.tail, None, layer, eps, tile, chain=True)[0])
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, c) for a, c in zip(got, chain))
+    log(f"B9c: equal to the old chain at layers {L // 2}, {L - 1}: {same} (max |diff| "
+        f"{max((a - c).abs().max().item() for a, c in zip(got, chain)):.3e})")
+    if not same:
+        failures.append("B9c differs from the old chain (vt_tail_gelu_int8)")
+    ms, g_ms = timed(lambda i: dd.tail_gelu_int8_stacked(*t.tail, i % L, eps=eps), 300, "B9c")
+    old_ms, old_g_ms = timed(lambda i: dd._tail_gelu(*t.tail, None, i % L, eps, tile,
+                                                     chain=True), 300, "B9c, the old chain")
+    log(f"B9c: {ms:.6f} ms eager, {fmt_ms(g_ms)} ms graph; the old chain {old_ms:.6f} ms eager, "
+        f"{fmt_ms(old_g_ms)} ms graph")
+    tail_w = d * d + d * F + F * d
+    vec_bytes = 2 * 4 * d + 2 * (d + F + d)          # LayerNorm gain/bias, bf16 biases
+    return {"got": got, "ref": ref, "ms": ms, "graph_ms": g_ms, "equal_to_old_chain": same,
+            "earlier_ms": old_ms, "earlier_graph_ms": old_g_ms,
+            "earlier": "the old 9-kernel chain (vt_tail_gelu_int8), timed in this run",
+            "n_bytes": (b * d * 4 + b * d * 2 + tail_w + 4 * (d + F + d) + vec_bytes
+                        + b * d * 4),
+            "n_ops": 2 * b * tail_w,
+            "shape": f"attn[{b},{d}] f32, x[{b},{d}] bf16, bf16 biases, d_ff {F} in tiles of "
+                     f"{tile}, {L} layers (layers {L // 2} and {L - 1} checked)"}
 
 
 # ── B13: fused GroupNorm, at the studio pass's shapes ────────────────────
@@ -4827,61 +4878,70 @@ def time_qwen3_decode_kernel(dev, reps: int = 6) -> list:
     return out
 
 
-def time_decode_steps(dev, reps: int = 3, scale: str = "full") -> dict:
-    """The default decode step (int8 cache and weights: B3 + L x (B1 + B2)
-    + B5 + B4) of the Chatterbox bench request (T3, 8 chunks CFG-doubled,
-    b 16, seed 7) and of the Qwen3 bench request (voice_clone, b 8, seed
-    11), and each again with ``VOCALIE_MEGALAYER=1`` (B12 in place of B1 +
-    B2) on the same runtime, timed as phase 4 times them: decode alone, the
-    request's prefill and sampled steps less its prefill alone, ms/step;
-    ``reps`` times each, alternating the two envs, after a warm-up. Copied
-    into an unpacked parent commit and run there, it times that commit on
-    the same requests, so that two versions are compared within one call."""
+def _chatterbox_decoder(dev, tmp: str):
+    """The Chatterbox bench request's decode (T3, 8 chunks CFG-doubled, b
+    16) on a runtime with its assets under ``tmp``: ``(decode, n_dec)``,
+    ``decode(n)`` running its prefill and ``n`` sampled steps, synchronized,
+    and the request's decode bucket."""
     from vocalie_tts_tpu_torch.engines.chatterbox import ChatterboxEngine
+
+    rt = ChatterboxEngine(device=dev, assets=os.path.join(tmp, "assets")).runtime()
+    kw = dict(mode="fr_finetune", lang="fr", exaggeration=0.5, cfg_weight=0.6)
+    t3, embeds, lens, (_, _, n_dec, cache_len) = rt._prepare_batch([_SENT] * 8, **kw)
+
+    def decode(n):
+        rt.generate(t3, embeds, lens, cache_len=cache_len, max_new=n, temperature=0.5,
+                    cfg_weight=0.6, repetition_penalty=1.35)
+        torch.cuda.synchronize()
+
+    return decode, n_dec
+
+
+def _qwen3_decoder(dev, tmp: str):
+    """The Qwen3 bench request's decode (voice_clone, b 8, seed 11), as
+    ``_chatterbox_decoder``'s: ``(decode, 192)``."""
     from vocalie_tts_tpu_torch.engines.qwen3 import Qwen3Engine
     from vocalie_tts_tpu_torch.text import render_clean_text_from_segments
 
-    set_env(DEFAULT_ENV)
-    os.environ["VOCALIE_MODEL_SCALE"] = scale
-    os.environ["VOCALIE_ALLOW_RANDOM_WEIGHTS"] = "1"
-    steps = _wrappers()["steps"]
-    out = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        rt = ChatterboxEngine(device=dev, assets=os.path.join(tmp, "assets")).runtime()
-        kw = dict(mode="fr_finetune", lang="fr", exaggeration=0.5, cfg_weight=0.6)
-        t3, embeds, lens, (_, _, n_dec, cache_len) = rt._prepare_batch([_SENT] * 8, **kw)
-
-        def chatterbox(n):
-            rt.generate(t3, embeds, lens, cache_len=cache_len, max_new=n, temperature=0.5,
-                        cfg_weight=0.6, repetition_penalty=1.35)
-            torch.cuda.synchronize()
-
-        out["chatterbox"] = _time_decode(chatterbox, n_dec, steps, reps)
-        rt = Qwen3Engine(device=dev, assets=os.path.join(tmp, "q3")).runtime()
-        ref = _write_tone_ref(os.path.join(tmp, "bench_ref.wav"))
-        bench = "\n[[CHUNK]]\n".join([XTTS_SENT] * 8)
-        chunks = _request(bench, os.path.join(tmp, "q.wav"))["chunks"]
-        texts = [render_clean_text_from_segments(ch.segments) for ch in chunks]
-        spk = rt.speaker_embedding("voice_clone", "Vivian", ref)
-        out["qwen3"] = _time_decode(lambda n: _qwen3_decode(rt, texts, n, spk), 192, steps, reps)
-    set_env(DEFAULT_ENV)
-    for family, rows in out.items():
-        for env, ms in rows.items():
-            log(f"decode steps [{family}, {env}]: " + ", ".join(f"{m:.3f}" for m in ms)
-                + " ms/step")
-    return out
+    rt = Qwen3Engine(device=dev, assets=os.path.join(tmp, "q3")).runtime()
+    ref = _write_tone_ref(os.path.join(tmp, "bench_ref.wav"))
+    bench = "\n[[CHUNK]]\n".join([XTTS_SENT] * 8)
+    chunks = _request(bench, os.path.join(tmp, "q.wav"))["chunks"]
+    texts = [render_clean_text_from_segments(ch.segments) for ch in chunks]
+    spk = rt.speaker_embedding("voice_clone", "Vivian", ref)
+    return (lambda n: _qwen3_decode(rt, texts, n, spk)), 192
 
 
-def _time_decode(decode, n_steps: int, steps, reps: int) -> dict:
+def _xtts_decoder(dev, tmp: str):
+    """The XTTS bench request's decode (bench_engine.py's 8 chunks, b 8), as
+    ``_chatterbox_decoder``'s: ``(decode, n_dec)``, the bucket from one
+    pipeline run of the request."""
+    from vocalie_tts_tpu_torch.engines.xtts import XTTSEngine
+    from vocalie_tts_tpu_torch.pipeline import run_tts_pipeline
+
+    ref = _write_tone_ref(os.path.join(tmp, "bench_ref.wav"))
+    engine = XTTSEngine(device=dev, assets=os.path.join(tmp, "xtts"))
+    rt = _audible(engine.runtime())
+    spk = rt._spk_cache.get(ref)
+    bench = "\n[[CHUNK]]\n".join([XTTS_SENT] * 8)
+    request = {**_request(bench, os.path.join(tmp, "x.wav")), "tts_backend": "xtts",
+               "voice_ref_path": ref, "engine_params": XTTS_PARAMS}
+    n_dec = run_tts_pipeline(request, engine=engine).meta["backend_meta"]["decode_bucket"]
+    return (lambda n: _xtts_decode(rt, [XTTS_SENT] * 8, spk, n)), n_dec
+
+
+def _time_decode(decode, n_steps: int, steps, reps: int, envs) -> dict:
     """``decode(n)`` (prefill, then ``n`` sampled steps, synchronized) timed
-    as decode alone, ms/step, under the default env and
-    ``VOCALIE_MEGALAYER=1`` in turn, ``reps`` times each."""
-    out = {"default": [], "VOCALIE_MEGALAYER=1": []}
-    for env in (DEFAULT_ENV, MEGALAYER_ENV):
+    as decode alone, ms/step: the request's prefill and steps less its
+    prefill alone, over the steps ``steps`` counted; under each ``(label,
+    env)`` of ``envs`` in turn, ``reps`` times each, after a warm-up under
+    each (its path's first launches)."""
+    out = {label: [] for label, _ in envs}
+    for _, env in envs:
         set_env(env)
-        decode(n_steps)   # warm-up: each path's first launches
+        decode(n_steps)
     for _ in range(reps):
-        for label, env in (("default", DEFAULT_ENV), ("VOCALIE_MEGALAYER=1", MEGALAYER_ENV)):
+        for label, env in envs:
             set_env(env)
             t1 = time.monotonic()
             decode(0)
@@ -4890,47 +4950,65 @@ def _time_decode(decode, n_steps: int, steps, reps: int) -> dict:
             decode(n_steps)
             t3 = time.monotonic()
             out[label].append(((t3 - t2) - (t2 - t1)) / max(steps.launches - n0, 1) * 1e3)
+    set_env(DEFAULT_ENV)
+    return out
+
+
+#: the decode paths ``time_decode_steps`` and ``time_stream_steps`` time on
+#: one runtime: the SwiGLU families' default (B1 + B2 a layer) and B12, and
+#: XTTS's default (B1 + B9b) and B9c
+SWIGLU_ENVS = (("default", DEFAULT_ENV), ("VOCALIE_MEGALAYER=1", MEGALAYER_ENV))
+XTTS_ENVS = (("default", DEFAULT_ENV), ("VOCALIE_MEGATAIL=0", MEGATAIL0_ENV))
+
+
+def time_decode_steps(dev, reps: int = 3, scale: str = "full") -> dict:
+    """The Chatterbox and Qwen3 bench requests' decode steps under
+    ``SWIGLU_ENVS`` (the default B3 + L x (B1 + B2) + B5 + B4 a step, and
+    ``VOCALIE_MEGALAYER=1``: B12 in place of B1 + B2) on one runtime each,
+    ``_time_decode``'s ms/step, the envs alternating. Copied into an
+    unpacked parent commit and run there, it times that commit on the same
+    requests, so that two versions are compared within one call."""
+    set_env(DEFAULT_ENV)
+    os.environ["VOCALIE_MODEL_SCALE"] = scale
+    os.environ["VOCALIE_ALLOW_RANDOM_WEIGHTS"] = "1"
+    steps = _wrappers()["steps"]
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for family, decoder in (("chatterbox", _chatterbox_decoder), ("qwen3", _qwen3_decoder)):
+            decode, n_dec = decoder(dev, tmp)
+            out[family] = _time_decode(decode, n_dec, steps, reps, SWIGLU_ENVS)
+            del decode
+            torch.cuda.empty_cache()
+    for family, rows in out.items():
+        for env, ms in rows.items():
+            log(f"decode steps [{family}, {env}]: " + ", ".join(f"{m:.3f}" for m in ms)
+                + " ms/step")
     return out
 
 
 def time_stream_steps(dev, reps: int = 3, scale: str = "full") -> dict:
-    """The XTTS default decode step (bench_engine.py's 8-chunk request: B9a
-    + 24 x (B1 + B9b) + B5 + B4 a step) and the CosyVoice streaming request
-    (B3 + B7 + B5 + B4 a step; first packet, sustained RTF, decode alone),
-    ``reps`` times each after a warm-up, timed as phase 4 times them.
-    Copied into an unpacked parent commit and run there, it times that
-    commit on the same requests, so that two versions are compared within
-    one call."""
+    """The XTTS bench request's decode step under ``XTTS_ENVS`` (the default
+    B9a + 24 x (B1 + B9b) + B5 + B4 a step, and ``VOCALIE_MEGATAIL=0``: B1 +
+    B9c a layer) on one runtime, ``_time_decode``'s ms/step, the envs
+    alternating; and the CosyVoice streaming request (B3 + B7 + B5 + B4 a
+    step; first packet, sustained RTF, decode alone), ``reps`` times each
+    after a warm-up. Copied into an unpacked parent commit and run there, it
+    times that commit on the same requests, so that two versions are
+    compared within one call."""
     from vocalie_tts_tpu_torch.engines.cosyvoice import CosyVoiceEngine
-    from vocalie_tts_tpu_torch.engines.xtts import XTTSEngine
-    from vocalie_tts_tpu_torch.pipeline import run_tts_pipeline
 
     set_env(DEFAULT_ENV)
     os.environ["VOCALIE_MODEL_SCALE"] = scale
     os.environ["VOCALIE_ALLOW_RANDOM_WEIGHTS"] = "1"
     steps = _wrappers()["steps"]
-    out = {"xtts_decode_ms_per_step": [], "cosyvoice_decode_ms_per_step": [],
-           "cosyvoice_first_packet_ms": [], "cosyvoice_sustained_rtf": []}
+    out = {"cosyvoice_decode_ms_per_step": [], "cosyvoice_first_packet_ms": [],
+           "cosyvoice_sustained_rtf": []}
     with tempfile.TemporaryDirectory() as tmp:
-        ref = _write_tone_ref(os.path.join(tmp, "bench_ref.wav"))
-        engine = XTTSEngine(device=dev, assets=os.path.join(tmp, "assets"))
-        rt = _audible(engine.runtime())
-        spk = rt._spk_cache.get(ref)
-        bench = "\n[[CHUNK]]\n".join([XTTS_SENT] * 8)
-        request = {**_request(bench, os.path.join(tmp, "x.wav")), "tts_backend": "xtts",
-                   "voice_ref_path": ref, "engine_params": XTTS_PARAMS}
-        n_dec = run_tts_pipeline(request, engine=engine).meta["backend_meta"]["decode_bucket"]
-        texts = [XTTS_SENT] * 8
-        for _ in range(reps):
-            t1 = time.monotonic()
-            _xtts_decode(rt, texts, spk, 0)
-            t2 = time.monotonic()
-            n0 = steps.launches
-            _xtts_decode(rt, texts, spk, n_dec)
-            t3 = time.monotonic()
-            out["xtts_decode_ms_per_step"].append(
-                ((t3 - t2) - (t2 - t1)) / max(steps.launches - n0, 1) * 1e3)
-        del engine, rt
+        decode, n_dec = _xtts_decoder(dev, tmp)
+        out = {f"xtts_decode_ms_per_step, {label}": ms for label, ms in
+               _time_decode(decode, n_dec, steps, reps, XTTS_ENVS).items()} | out
+        del decode
+        torch.cuda.empty_cache()
         cosy = CosyVoiceEngine(device=dev, assets=os.path.join(tmp, "cosy"))
         crt = cosy.runtime()
         _cosy_stream(cosy, crt)   # warm-up
@@ -5142,6 +5220,68 @@ def _attn_gn_rows_only() -> int:
     return 0
 
 
+def _layer_rows_only() -> int:
+    """``--layer-rows``: build the kernels and run phase 2's B12 rows (the T3
+    and Qwen3 layers, beside the B1 + B2 pair on the same inputs) and the
+    B9c row (beside the old chain), eager and graph-timed, then B9b at the
+    XTTS layer and B7 at the streaming shape (the other bodies on the same
+    weight stream, ``int8_stream.cuh`` ``tma_load_tile``) eager and
+    graph-timed, then count one call's CUDA kernels of B12 and B9c with
+    torch.profiler (after every timing), and print it all as one JSON line.
+    Copied into an unpacked copy of another commit and run there, it times
+    that commit's kernels on the same rows; a failed gate is printed, not
+    fatal (the old B9c is nine kernels). The decode steps these kernels run
+    on are timed by ``--decode-steps`` (``VOCALIE_MEGALAYER=1``) and
+    ``--stream-steps`` (``VOCALIE_MEGATAIL=0``)."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    from vocalie_tts_tpu_torch.ops import _build
+    from vocalie_tts_tpu_torch.ops import decode_dense as dd
+
+    log(f"kernels built -> {_build.build().name}")
+    name = ""
+    for line in _build.build_log().splitlines():   # the two kernels' registers and spills
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif ("decode_layer_kernel" in name or "tail_gelu_kernel" in name) and (
+                "registers" in line or "spill" in line):
+            log(f"  {_kernel_name(name)[:60]}: {line.strip()}")
+    dev = torch.device("cuda:0")
+    failures: list = []
+    b12 = check_decode_layer(dev, failures)
+    t = _gelu_inputs(dev)
+    b9c = {k: v for k, v in b9c_row(t, failures).items() if k not in ("got", "ref")}
+    b7 = _b7_inputs(dev)
+    stream = {}
+    for key, call, iters in (
+            (B9B_NAME, lambda i: dd.tail_gelu_qkv_int8_stacked(*t.tail, *t.nxt, i % t.L,
+                                                               eps=t.eps), 300),
+            ("B7 decode_step_fused", lambda i: b7.call(), 50)):
+        ms, g_ms = timed(call, iters, key, iters)
+        log(f"{key}: {ms:.6f} ms eager, {fmt_ms(g_ms)} ms graph")
+        stream[key] = {"ms": ms, "graph_ms": g_ms}
+    del b7
+    calls = {B12_NAME: _b12_inputs(dev).call, f"{B12_NAME} [qwen3]":
+             _b12_inputs(dev, QWEN3_ATTN).call, B9C_NAME: t.calls[B9C_NAME]}
+    counts = {}
+    for key, call in calls.items():
+        call()
+        # a call of which the profiler saw nothing is counted once more (it
+        # has missed one after other profiled windows: count_dense_kernels)
+        per_call = kernels_per_call(call) or kernels_per_call(call)
+        counts[key] = sum(per_call.values())
+        log(f"{key}: CUDA kernels per call (profiled): {counts[key]} ("
+            + ", ".join(f"{_kernel_name(k)} x{n}" for k, n in sorted(per_call.items())) + ")")
+    del calls, t
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    print(smi.stdout.strip(), flush=True)
+    print(json.dumps({"b12": b12, "b9c": b9c, "stream": stream, "cuda_kernels_per_call": counts,
+                      "failures": failures}), flush=True)
+    return 0
+
+
 def _studio_input(path: str, seconds: float = 89.35) -> dict:
     """A 24 kHz WAV of ``seconds`` (the Chatterbox bench request's length in
     PERF.md's studio row; a tone under seeded noise), as ``drive_audiosr``'s
@@ -5169,7 +5309,6 @@ def time_e2e(dev, reps: int = 3, scale: str = "full") -> dict:
     profiled UNet call at its first dispatch's CFG batch. Copied into an
     unpacked parent commit and run there, it times that commit on the same
     work, so that two versions are compared within one call."""
-    from vocalie_tts_tpu_torch.engines.chatterbox import ChatterboxEngine
     from vocalie_tts_tpu_torch.models.audiosr.model import latent_shape
     from vocalie_tts_tpu_torch.models.audiosr.runtime import AudioSRRuntime
     from vocalie_tts_tpu_torch.models.common.unet2d import apply_unet2d
@@ -5180,32 +5319,15 @@ def time_e2e(dev, reps: int = 3, scale: str = "full") -> dict:
     steps = _wrappers()["steps"]
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
-        rt = ChatterboxEngine(device=dev, assets=os.path.join(tmp, "assets")).runtime()
-        kw = dict(mode="fr_finetune", lang="fr", exaggeration=0.5, cfg_weight=0.6)
-        t3, embeds, lens, (_, _, n_dec, cache_len) = rt._prepare_batch([_SENT] * 8, **kw)
-
-        def decode(n):
-            rt.generate(t3, embeds, lens, cache_len=cache_len, max_new=n, temperature=0.5,
-                        cfg_weight=0.6, repetition_penalty=1.35)
-            torch.cuda.synchronize()
-
-        decode(n_dec)   # warm-up
-        ms = []
-        for _ in range(reps):
-            t1 = time.monotonic()
-            decode(0)
-            t2 = time.monotonic()
-            n0 = steps.launches
-            decode(n_dec)
-            t3_ = time.monotonic()
-            ms.append(((t3_ - t2) - (t2 - t1)) / max(steps.launches - n0, 1) * 1e3)
+        decode, n_dec = _chatterbox_decoder(dev, tmp)
+        ms = _time_decode(decode, n_dec, steps, reps, SWIGLU_ENVS[:1])["default"]
         n0 = _profiled("Chatterbox default, prefill alone", lambda: decode(0))
         n32 = _profiled("Chatterbox default, prefill + 32 decode steps", lambda: decode(32))
         out["chatterbox_default"] = {"decode_ms_per_step": ms, **_profiled.last,
                                      "ops_per_step": (n32 - n0) / 32 if n0 and n32 else None}
         log("e2e [Chatterbox default]: decode " + ", ".join(f"{m:.3f}" for m in ms)
             + f" ms/step; {out['chatterbox_default']['ops_per_step']} device operations a step")
-        del rt
+        del decode
         torch.cuda.empty_cache()
         vo = _studio_input(os.path.join(tmp, "vo.wav"))
         srt = AudioSRRuntime.create(os.path.join(tmp, "sr"), device=dev)
@@ -5263,5 +5385,6 @@ if __name__ == "__main__":
     modes = {"--count-kernels": _count_kernels_child, "--f32-attention": _f32_attention_only,
              "--qwen3-decode-kernel": _qwen3_decode_kernel_only, "--tail-rows": _tail_rows_only,
              "--decode-steps": _decode_steps_only, "--stream-steps": _stream_steps_only,
-             "--attn-gn-rows": _attn_gn_rows_only, "--e2e-ab": _e2e_ab_only}
+             "--attn-gn-rows": _attn_gn_rows_only, "--e2e-ab": _e2e_ab_only,
+             "--layer-rows": _layer_rows_only}
     sys.exit(modes[sys.argv[1]]() if sys.argv[1:2] and sys.argv[1] in modes else main())

@@ -69,6 +69,7 @@ the kernel's SiLU takes the card's fast exp and reciprocal (a few f32 ulps),
 and both round the f32 result to bf16 once.
 """
 
+import dataclasses
 import math
 
 import pytest
@@ -1296,6 +1297,13 @@ def test_tail_gelu_one_launch_equals_the_chain(dev, b, layer, dtype):
     _close(qkv, rq)
 
 
+def _profiled_kernels(call):
+    """``_cuda_kernels``, once more where the profiler saw no kernel at all:
+    after many profiled windows in one process it has missed a whole call
+    (chip_smoke.py counts such a call again in a fresh process)."""
+    return _cuda_kernels(call) or _cuda_kernels(call)
+
+
 def _cuda_kernels(call):
     from torch.profiler import ProfilerActivity, profile
 
@@ -1317,9 +1325,9 @@ def test_tail_gelu_is_one_cuda_kernel_a_call(dev):
 
 
 def test_untaken_gelu_shapes_take_the_chain(dev):
-    """33 rows, which B9b's body does not take (``gelu_takes``): the wrapper
-    runs the old chain (12 CUDA kernels), which agrees with the plain
-    version; B9c (no next qkv) stays on the chain at every shape."""
+    """33 rows, which the one-launch GELU body does not take
+    (``gelu_takes``): the wrapper runs the old chain (12 CUDA kernels for
+    B9b, 9 for B9c), which agrees with the plain version."""
     tail, nxt = _gelu_tail_args(dev, 33, 2, 1024, 4096, 3072, torch.bfloat16, torch.bfloat16)
     assert not gelu_takes(33, 1024, 1024, 4096, 3072, card_sms(dev))
     names = _cuda_kernels(lambda: tail_gelu_qkv_int8_stacked(*tail, *nxt, 1, eps=1e-5))
@@ -1329,9 +1337,55 @@ def test_untaken_gelu_shapes_take_the_chain(dev):
     torch.cuda.synchronize()
     _close(x_out, rx)
     _close(qkv, rq)
-    small, _ = _gelu_tail_args(dev, 8, 2, 1024, 4096, 3072, torch.bfloat16, torch.bfloat16)
-    names = _cuda_kernels(lambda: tail_gelu_int8_stacked(*small, 1, eps=1e-5))
+    assert not gelu_takes(33, 1024, 1024, 4096, 0, card_sms(dev))
+    names = _cuda_kernels(lambda: tail_gelu_int8_stacked(*tail, 1, eps=1e-5))
     assert len(names) == 9 and not any("tail_gelu_kernel" in n for n in names), names
+    _close(tail_gelu_int8_stacked(*tail, 1, eps=1e-5), tail_gelu_int8_plain(*tail, 1, eps=1e-5))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("layer", [1, 2])
+@pytest.mark.parametrize("b", [1, 8, 16, 17])
+def test_tail_gelu_alone_one_launch_equals_the_chain(dev, b, layer, dtype):
+    """B9c (the GELU tail without the next qkv) as the Q = 0 branch of the
+    one-launch body: bit-equal to the old 9-kernel chain, within its gate
+    against the plain version, and one CUDA kernel a call (counted through
+    ``_profiled_kernels``: the profiler once saw no kernel at all for this
+    case after the many profiled windows before it, while the launch
+    counter showed the call launched)."""
+    tail, _ = _gelu_one_args(dev, b, dtype, layer)
+    assert gelu_takes(b, 1024, 1024, 4096, 0, card_sms(dev))
+    before = tail_gelu_int8_stacked.launches
+    x_out = tail_gelu_int8_stacked(*tail, layer, eps=1e-5)
+    tile = pick_tile(4096, TILE_BUDGET, 2 * 1024)
+    cx, none = _tail_gelu(*tail, None, layer, 1e-5, tile, chain=True)
+    ref = tail_gelu_int8_plain(*tail, layer, eps=1e-5)
+    torch.cuda.synchronize()
+    assert tail_gelu_int8_stacked.launches == before + 2 and none is None
+    assert x_out.shape == (b, 1024)
+    assert torch.equal(x_out, cx), (x_out - cx).abs().max().item()
+    _close(x_out, ref)
+    before = tail_gelu_int8_stacked.launches
+    names = _profiled_kernels(lambda: tail_gelu_int8_stacked(*tail, layer, eps=1e-5))
+    assert tail_gelu_int8_stacked.launches > before
+    assert len(names) == 1 and "tail_gelu_kernel" in names[0], names
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("b", [8, 16, 17])
+def test_tail_gelu_alone_repeats_bit_equal(dev, b, dtype):
+    """50 B9c calls of the one-launch body a case, layers 1 and 2 in turn,
+    each bit-equal to the old chain's output at its layer: the Q = 0 branch
+    (no fourth grid barrier; the down-projection's parts meet through flags
+    that each call leaves at zero) gives the same bits every call."""
+    tile = pick_tile(4096, TILE_BUDGET, 2 * 1024)
+    args = {layer: _gelu_one_args(dev, b, dtype, layer)[0] for layer in (1, 2)}
+    want = {layer: _tail_gelu(*t, None, layer, 1e-5, tile, chain=True)[0]
+            for layer, t in args.items()}
+    got = [tail_gelu_int8_stacked(*args[1 + i % 2], 1 + i % 2, eps=1e-5) for i in range(50)]
+    torch.cuda.synchronize()
+    bad = [i for i, x in enumerate(got) if not torch.equal(x, want[1 + i % 2])]
+    assert not bad, f"calls {bad} differ from the chain"
 
 
 def test_gelu_kernels_reject_bad_inputs(dev):
@@ -1520,12 +1574,86 @@ def test_decode_layer_kernel(dev, L, b, kv, g, d, T, D, F, prompt_pad, n_dec, la
         _close(g_, r)
 
 
+@pytest.mark.parametrize("label,shape", [
+    ("t3", (3, 16, 16, 1, 64, 640, 1024, 4096, 256)),
+    ("qwen3", (3, 8, 8, 2, 128, 512, 2048, 8192, 256)),
+])
+@pytest.mark.parametrize("where,n_dec", [("first block", -200), ("across blocks", 97),
+                                         ("block boundary", 128)])
+def test_decode_layer_valid_len_cases(dev, label, shape, where, n_dec):
+    """B12 at the T3 and Qwen3 layers with valid_len in the first 128-slot
+    block (one item a pair), across blocks (its items' chains start at the
+    prefix max of the pair's earlier blocks, merged in block order) and on
+    a block boundary, at every layer (the last one's next qkv clamped):
+    within 1e-5 · max|ref| of the plain version,
+    and the pairs' flags left for the next call (every layer in a row)."""
+    L, b, kv, g, d, T, D, F, prompt_pad = shape
+    if n_dec < 0:
+        prompt_pad, n_dec = 40, 8          # valid_len 48: one block
+    head, valid_len, tail = _b12_args(dev, T + n_dec, L, b, kv, g, d, T, D, F, prompt_pad, n_dec)
+    kw = dict(sm_scale=d ** -0.5, eps=1e-6)
+    for layer in range(L):
+        got = layer_swiglu_qkv_int8_stacked(*head, layer, valid_len, *tail, **kw)
+        ref = layer_swiglu_qkv_int8_plain(*head, layer, valid_len, *tail, **kw)
+        torch.cuda.synchronize()
+        for g_, r in zip(got, ref):
+            _close(g_, r)
+
+
+@pytest.mark.parametrize("label,shape", [
+    ("t3", (2, 16, 16, 1, 64, 640, 1024, 4096, 256, 160)),
+    ("qwen3", (2, 8, 8, 2, 128, 512, 2048, 8192, 256, 96)),
+])
+def test_decode_layer_is_one_cuda_kernel_a_call(dev, label, shape):
+    """torch.profiler sees one CUDA kernel for a B12 call at the T3 and the
+    Qwen3 layer (the attention, the o-projection and the tail in one
+    cooperative launch)."""
+    L, b, kv, g, d, T, D, F, prompt_pad, n_dec = shape
+    head, valid_len, tail = _b12_args(dev, 5, L, b, kv, g, d, T, D, F, prompt_pad, n_dec)
+    kw = dict(sm_scale=d ** -0.5, eps=1e-6)
+    names = _profiled_kernels(lambda: layer_swiglu_qkv_int8_stacked(*head, 1, valid_len, *tail,
+                                                                     **kw))
+    assert len(names) == 1 and "decode_layer_kernel" in names[0], names
+
+
+def test_decode_layer_refuses_a_split_its_layout_does_not_hold(dev, monkeypatch):
+    """The C entry takes the attention's split and slot layout from the plan
+    (``layer_splits``, ``LayerPlan.slot`` and ``slot_end``) and refuses one
+    its own layout does not hold: a slot_end or a slot size that is not its
+    own, more warps than a block has, no slot. The wrapper raises; the
+    plan's own split then runs."""
+    from vocalie_tts_tpu_torch.ops import decode_layer as dl
+
+    head, valid_len, tail = _b12_args(dev, 12, 1, 2, 2, 1, 64, 128, 256, 512, 40, 8)
+    kw = dict(sm_scale=0.125, eps=1e-5)
+    real = dl._layer_launch
+    changes = (lambda p, s: (dataclasses.replace(p, slot_end=p.slot_end + 16), s),
+               lambda p, s: (dataclasses.replace(p, slot=p.slot - 16), s),
+               lambda p, s: (p, ((8, 4),) * len(s)),
+               lambda p, s: (p, ((0, 1),) * len(s)))
+    for change in changes:
+        def launch(*a, change=change):
+            plan, splits, table, ws = real(*a)
+            return (*change(plan, splits), table, ws)
+
+        monkeypatch.setattr(dl, "_layer_launch", launch)
+        with pytest.raises(RuntimeError, match="decode_layer"):
+            layer_swiglu_qkv_int8_stacked(*head, 0, valid_len, *tail, **kw)
+    monkeypatch.undo()
+    got = layer_swiglu_qkv_int8_stacked(*head, 0, valid_len, *tail, **kw)
+    ref = layer_swiglu_qkv_int8_plain(*head, 0, valid_len, *tail, **kw)
+    torch.cuda.synchronize()
+    for g_, r in zip(got, ref):
+        _close(g_, r)
+
+
 def test_decode_layer_kernel_refuses_bad_inputs(dev):
-    """A grid past residency (cudaErrorCooperativeLaunchTooLarge), b > 16
-    and a wrong dtype are refused: the wrapper raises, no fallback."""
+    """A grid past residency (cudaErrorCooperativeLaunchTooLarge), b > 16,
+    d_head 96 (a Wo tile holds no whole number of its heads) and a wrong
+    dtype are refused: the wrapper raises, no fallback."""
     head, valid_len, tail = _b12_args(dev, 9, 1, 2, 2, 1, 64, 128, 256, 512, 40, 8)
     kw = dict(sm_scale=0.125, eps=1e-5)
-    most = b12_max_blocks(2, 256, 512, 512)
+    most = b12_max_blocks(2, 2, 1, 64, 128, 256, 512, 384)
     assert most >= torch.cuda.get_device_properties(dev).multi_processor_count
     ok = layer_swiglu_qkv_int8_stacked(*head, 0, valid_len, *tail, **kw, grid=most)
     _close(ok[0], layer_swiglu_qkv_int8_plain(*head, 0, valid_len, *tail, **kw)[0])
@@ -1534,6 +1662,9 @@ def test_decode_layer_kernel_refuses_bad_inputs(dev):
     big, valid_len, tail17 = _b12_args(dev, 10, 1, 17, 2, 1, 64, 128, 128, 256, 40, 8)
     with pytest.raises(ValueError, match="b <= 16"):
         layer_swiglu_qkv_int8_stacked(*big, 0, valid_len, *tail17, **kw)
+    h96, valid_len96, tail96 = _b12_args(dev, 11, 1, 2, 4, 1, 96, 128, 256, 512, 40, 8)
+    with pytest.raises(ValueError, match="d_head"):
+        layer_swiglu_qkv_int8_stacked(*h96, 0, valid_len96, *tail96, **kw)
     bad = list(head)
     bad[1] = bad[1].to(torch.bfloat16)
     with pytest.raises(ValueError, match="x"):

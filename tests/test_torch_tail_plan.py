@@ -23,8 +23,9 @@ XTTS layer (d_model 1024, d_ff 4096 in tiles of 2048, qkv 3072): the same
 ownership and streaming, the fc one slab an item, and the down-projection
 one item a (slab, d_ff tile), so that it spans 64 SMs instead of 32, each
 block streaming the later tiles' items before the tile-0 item that waits
-for them. ``gelu_takes`` says which shapes the one-launch body takes; the
-others, and B9c, run the old chain.
+for them; with ``Q = 0`` it is B9c's (the same body without the next
+qkv). ``gelu_takes`` says which shapes the one-launch body takes; the
+others run the old chain.
 """
 
 import dataclasses
@@ -195,11 +196,36 @@ def test_gelu_plan_owns_every_column_and_streams_every_row_once(b):
     assert plan.grid == H100_SMS
 
 
+@pytest.mark.parametrize("b", [1, 8, 16, 17, 32])
+def test_gelu_plan_without_the_next_qkv(b):
+    """B9c's plan (``Q = 0``): B9b's at the XTTS widths without the qkv
+    slabs: the same tile, every o / fc / down column owned once and every
+    weight row streamed once, within the shared bytes, over every SM."""
+    d_attn, d, d_ff, Q = XTTS
+    tile = pick_tile(d_ff, TILE_BUDGET, 2 * d)
+    plan = tail_plan(b, d_attn, d, d_ff, tile, 0, H100_SMS, mlp="gelu")
+    assert (plan.mlp, plan.tile) == ("gelu", 2048) and tile % plan.kc == 0
+    # the same items as B9b's but the qkv slabs
+    with_qkv = tail_plan(b, d_attn, d, d_ff, tile, Q, H100_SMS, mlp="gelu")
+    assert sorted(it for its in with_qkv.items for it in its if it[0] < 3) == sorted(
+        it for its in plan.items for it in its)
+    owned = [(p, s) for its in plan.items for p, s in its]
+    n_items = (d // SLAB, d_ff // SLAB, d // SLAB * (d_ff // tile))
+    assert sorted(owned) == [(p, s) for p in range(3) for s in range(n_items[p])]
+    tiles = [t for blk in range(plan.grid) for t in tail_stream(plan, blk, d_attn, d, d_ff)]
+    assert sorted(tiles) == sorted((p, c, r) for p, (n, k) in enumerate(
+        ((d, d_attn), (d_ff, d), (d, d_ff))) for c in range(0, n, SLAB)
+        for r in range(0, k, plan.kc))
+    assert plan.smem <= SMEM_MAX and plan.grid == H100_SMS
+    assert sum(any(p == 2 for p, _ in its) for its in plan.items) == 64
+    assert gelu_takes(b, d_attn, d, d_ff, 0, H100_SMS)
+
+
 @pytest.mark.parametrize("b,Q,sms,takes", [
     (8, 3072, H100_SMS, True),     # the XTTS bench batch
     (32, 3072, H100_SMS, True),    # the most rows
     (33, 3072, H100_SMS, False),   # past 32 rows: the old chain
-    (8, 0, H100_SMS, False),       # B9c (no next qkv): the old chain
+    (8, 0, H100_SMS, True),        # B9c (no next qkv): the body's Q = 0 branch
     (8, 3072, None, False),        # off a card: the plain version
 ])
 def test_gelu_takes_what_the_gelu_plan_plans(b, Q, sms, takes):

@@ -196,8 +196,8 @@ __host__ __device__ inline Layout layout(int H, int d, int D, int F, int n, int 
   return o;
 }
 
-// The four weight arrays' tensor maps ([L, K, N] int8, boxes of BOX_ROWS x
-// 32 bytes), kernel parameters in constant space.
+// The four weight arrays' tensor maps (tensor_map.cuh tile_map: one
+// request a kc-row tile), kernel parameters in constant space.
 struct Maps {
   CUtensorMap wo, wgu, wd, wq;
 };
@@ -214,7 +214,8 @@ __device__ __forceinline__ int item_tiles(const StepArgs& a, int code) {
 
 // Requests tile j of an item of layer l into shared dst, completing on bar:
 // an attention split's k, v, k-scale and v-scale rows by bulk copies; a
-// weight tile (kc rows of 32 columns) by TMA boxes.
+// weight tile (kc rows of 32 columns) by one TMA request, not marked to
+// leave L2 first (marked, B7 ran ~1 % slower: PERF.md §6).
 __device__ __forceinline__ void tile_request(const StepArgs& a, const Maps& m, int code, int j,
                                              int l, uint32_t dst, uint32_t bar) {
   const int kind = code >> 24, idx = code & 0xffffff;
@@ -246,9 +247,7 @@ __device__ __forceinline__ void tile_request(const StepArgs& a, const Maps& m, i
       row = (j % per) * a.kc;
     }
   }
-  const int rows = a.kc < BOX_ROWS ? a.kc : BOX_ROWS;
-  mbar_expect_tx(bar, a.kc * SLAB);
-  for (int k = 0; k < a.kc; k += rows) tma_load(dst + k * SLAB, map, col, row + k, layer, bar);
+  tma_load_tile<false>(dst, map, col, row, a.kc, layer, bar);
 }
 
 // The block's stream: layer after layer, its items in order, their tiles in
@@ -1145,11 +1144,10 @@ extern "C" int vt_decode_step_fused(
   a.sm_scale = sm_scale;
   a.eps = eps;
   Maps maps;
-  const int rows = kc < BOX_ROWS ? kc : BOX_ROWS;
-  int rc = weight_map(wo, L, H * d, D, rows, &maps.wo);
-  if (rc == 0) rc = weight_map(wgu, L, D, 2 * F, rows, &maps.wgu);
-  if (rc == 0) rc = weight_map(wd, L, F, D, rows, &maps.wd);
-  if (rc == 0) rc = weight_map(wq, L, D, 3 * H * d, rows, &maps.wq);
+  int rc = tile_map(wo, L, H * d, D, kc, &maps.wo);
+  if (rc == 0) rc = tile_map(wgu, L, D, 2 * F, kc, &maps.wgu);
+  if (rc == 0) rc = tile_map(wd, L, F, D, kc, &maps.wd);
+  if (rc == 0) rc = tile_map(wq, L, D, 3 * H * d, kc, &maps.wq);
   if (rc) return rc;
   // the largest dynamic shared size, allowed once per device
   static int allowed[64];

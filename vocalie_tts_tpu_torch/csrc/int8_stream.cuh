@@ -19,7 +19,7 @@
 //     IEEE divide's rounding, from a multiply where no tie is near).
 //   * the layer-tail bodies' weight stream: a ring of mbarrier stages that
 //     a block refills with its items' tiles as it consumes them.
-// Included by tail_swiglu.cu (B2, B8a), tail_gelu.cu (B9b) and
+// Included by tail_swiglu.cuh (B2, B8a and B12), tail_gelu.cu (B9b, B9c) and
 // decode_step.cu (B7).
 
 #pragma once
@@ -142,14 +142,49 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
       "DONE:\n"
       "}\n" :: "r"(bar), "r"(parity) : "memory");
 }
-// box (col, row, layer) of the map into shared dst, completing on bar
-__device__ __forceinline__ void tma_load(uint32_t dst, const void* map, int col, int row,
-                                         int layer, uint32_t bar) {
+// an L2 policy that evicts the lines it covers first (a stream read once)
+__device__ __forceinline__ uint64_t evict_first_policy() {
+  uint64_t p;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(p));
+  return p;
+}
+// A weight tile: the kc rows of 32 bytes from `row` (a multiple of kc) at
+// column col of layer `layer`, through a map of tensor_map.cuh's tile_map
+// ([L, K / R, R, N], R = min(kc, BOX_ROWS)), into shared dst in one request
+// that completes on bar (which is told to expect its bytes). EVICT_FIRST
+// marks it to leave L2 first: the layer bodies read their weights once a
+// call, and without the mark the stream evicted the kernels' code and small
+// inputs (on an H100, B12 took 85.8 us a call instead of 71.6, B2 at the
+// Qwen3 layer 5 % longer); B7 (decode_step.cu) asks without it, which it
+// runs ~1 % faster (PERF.md §6).
+template <bool EVICT_FIRST>
+__device__ __forceinline__ void tma_load_tile(uint32_t dst, const void* map, int col, int row,
+                                              int kc, int layer, uint32_t bar) {
+  const int rows = kc < BOX_ROWS ? kc : BOX_ROWS;
+  mbar_expect_tx(bar, kc * SLAB);
+  if (EVICT_FIRST) {
+    asm volatile(
+        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+        ".L2::cache_hint [%0], [%1, {%2, %3, %4, %5}], [%6], %7;\n"
+        :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(0), "r"(row / rows),
+           "r"(layer), "r"(bar), "l"(evict_first_policy())
+        : "memory");
+  } else {
+    asm volatile(
+        "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+        " [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+        :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(0), "r"(row / rows),
+           "r"(layer), "r"(bar)
+        : "memory");
+  }
+}
+// bulk_load under an L2 policy
+__device__ __forceinline__ void bulk_load_hint(uint32_t dst, const void* src, int n, uint32_t bar,
+                                               uint64_t policy) {
   asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3, %4}], [%5];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(layer), "r"(bar)
-      : "memory");
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint"
+      " [%0], [%1], %2, [%3], %4;\n"
+      :: "r"(dst), "l"(src), "r"(n), "r"(bar), "l"(policy) : "memory");
 }
 
 // n bytes (a multiple of 16, both addresses 16-byte aligned) of contiguous

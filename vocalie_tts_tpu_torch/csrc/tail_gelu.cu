@@ -6,8 +6,11 @@
 //
 // Replaces, in vocalie_tts_tpu/ops/decode_dense.py:
 //   B9b tail_gelu_qkv_int8_stacked  (def :985, pallas_call :1084)
-// The math is its plain version's in ops/decode_dense.py
-// (tail_gelu_qkv_int8_plain), step for step:
+//   B9c tail_gelu_int8_stacked      (def :752, pallas_call :811), the Q = 0
+//       branch: the same body without the next layer's LayerNorm + qkv (as
+//       B8a is to B2)
+// The math is the plain versions' in ops/decode_dense.py
+// (tail_gelu_qkv_int8_plain, tail_gelu_int8_plain), step for step:
 //   x2   = x + ((float(q(attn) . Wo[l]) * as) * wos + bo)
 //   u    = (float(q(ln(x2, lg[l], lb[l])) . Wu[l]) * hs) * su + bu
 //   h    = u * (0.5 * (1 + tanhf(sqrt(2/pi) * (u + 0.044715 * (u * u) * u))))
@@ -17,8 +20,9 @@
 // with int8 x int8 summed in int32 (exact in any order), every f32 step an
 // IEEE intrinsic, each LayerNorm's mean and centred variance summed in
 // double and rounded once, the quantizer's IEEE divide with floor 1e-8: the
-// outputs are bit-equal to the plain version's and to the old chain's
-// (vt_tail_gelu_int8 in decode_dense.cu, which B9c still runs).
+// outputs are bit-equal to the plain versions' and to the old chain's
+// (vt_tail_gelu_int8 in decode_dense.cu, which still runs the shapes this
+// body does not take).
 //
 // Bound: bytes. Each weight byte serves b multiply-adds. At the XTTS layer
 // (b 8, d 1024, d_ff 4096, qkv 3072) a call reads 12.6 MB of weights (3.8 us
@@ -27,8 +31,8 @@
 // Design (B2's, tail_swiglu.cu): one block per SM (cudaLaunchCooperativeKernel), 512
 // threads (256 for b > 16); grid barriers after x2 (the MLP LayerNorm),
 // after the hidden's per-(row, tile) amax, after the quantized hidden, after
-// x_out (the next LayerNorm); every block owns whole output columns in
-// 32-column slabs (items), dealt by bytes, largest first, to the least loaded
+// x_out (the next LayerNorm; not for B9c); every block owns whole output
+// columns in 32-column slabs (items), dealt by bytes, largest first, to the least loaded
 // block (ops/decode_dense.py tail_plan with mlp="gelu"); weight tiles by TMA
 // into an mbarrier ring that runs ahead across the barriers (only the
 // o-projection's tiles until barrier 1, the rest once every fc block has read
@@ -163,14 +167,14 @@ __device__ __forceinline__ int item_col(const GeluArgs& a, int code) {
   return SLAB * ((code >> 24) == 2 ? down_slab(a, code) : (code & 0xffffff));
 }
 
-// The four weight arrays' tensor maps ([L, K, N] int8, boxes of BOX_ROWS x
-// 32 bytes), kernel parameters in constant space.
+// The four weight arrays' tensor maps (tensor_map.cuh tile_map: one
+// request a kc-row tile), kernel parameters in constant space.
 struct Maps {
   CUtensorMap wo, wu, wd, wq;
 };
 
-// Requests tile j of an item into shared dst: its kc rows as kc / BOX_ROWS
-// (or one kc-row) boxes of the item's 32 columns, completing on bar.
+// Requests tile j of an item into shared dst: its kc rows of the item's 32
+// columns in one request, completing on bar, marked to leave L2 first.
 __device__ __forceinline__ void tile_request(const GeluArgs& a, const Maps& m, int code, int j,
                                              uint32_t dst, uint32_t bar) {
   const int col = item_col(a, code);
@@ -187,9 +191,7 @@ __device__ __forceinline__ void tile_request(const GeluArgs& a, const Maps& m, i
       map = &m.wq;
       layer = a.nxt;
   }
-  const int rows = a.kc < BOX_ROWS ? a.kc : BOX_ROWS;
-  mbar_expect_tx(bar, a.kc * SLAB);
-  for (int k = 0; k < a.kc; k += rows) tma_load(dst + k * SLAB, map, col, row + k, layer, bar);
+  tma_load_tile<true>(dst, map, col, row, a.kc, layer, bar);
 }
 
 // The item's int32 sums over its tiles of kc rows (activation columns from
@@ -446,26 +448,29 @@ __global__ void __launch_bounds__(threads<MT>(), 1)
     __syncthreads();
   }
   stamp(a, 9);
-  grid.sync();
-  stamp(a, 10);
 
-  // ── the next layer's LayerNorm + qkv ──
-  if (it < n_items && (items[it] >> 24) == 3) {
-    quant_rows_ln(a.x_out, b, d, reinterpret_cast<const char*>(a.ng) + (long long)a.nxt * d * esz,
-                  reinterpret_cast<const char*>(a.nb) + (long long)a.nxt * d * esz, a.norm_kind,
-                  a.eps, act, a.lda, sc, scratch);
-  }
-  for (; it < n_items && (items[it] >> 24) == 3; ++it) {
-    const int c0 = item_col(a, items[it]);
-    item_sums<MT>(a, m, rg, items[it], act_s, 0, acc, red);
-    const float* vs = reinterpret_cast<const float*>(vec + it * VEC_BYTES);
-    for (int e = tid; e < b * SLAB; e += nt) {
-      const int r = e / SLAB, c = e % SLAB, k = r * RED_ROW + c;
-      a.qkv_out[(long long)r * a.Q + c0 + c] =
-          __fmul_rn(__fmul_rn(__int2float_rn(red[k]), sc[r]), vs[c]);
-      red[k] = 0;
+  if (a.Q > 0) {   // B9b; B9c ends with x_out
+    grid.sync();
+    stamp(a, 10);
+    // ── the next layer's LayerNorm + qkv ──
+    if (it < n_items && (items[it] >> 24) == 3) {
+      quant_rows_ln(a.x_out, b, d,
+                    reinterpret_cast<const char*>(a.ng) + (long long)a.nxt * d * esz,
+                    reinterpret_cast<const char*>(a.nb) + (long long)a.nxt * d * esz,
+                    a.norm_kind, a.eps, act, a.lda, sc, scratch);
     }
-    __syncthreads();
+    for (; it < n_items && (items[it] >> 24) == 3; ++it) {
+      const int c0 = item_col(a, items[it]);
+      item_sums<MT>(a, m, rg, items[it], act_s, 0, acc, red);
+      const float* vs = reinterpret_cast<const float*>(vec + it * VEC_BYTES);
+      for (int e = tid; e < b * SLAB; e += nt) {
+        const int r = e / SLAB, c = e % SLAB, k = r * RED_ROW + c;
+        a.qkv_out[(long long)r * a.Q + c0 + c] =
+            __fmul_rn(__fmul_rn(__int2float_rn(red[k]), sc[r]), vs[c]);
+        red[k] = 0;
+      }
+      __syncthreads();
+    }
   }
   stamp(a, 11);
 }
@@ -502,8 +507,8 @@ extern "C" int vt_tail_gelu_smem(int b, int d_attn, int d, int F, int tile, int 
   return layout(b, b > 16 ? 2 : 1, lda, d, max_fc, max_items, F / tile, stages, kc).total;
 }
 
-// B9b, one launch of `grid` blocks (Q > 0; the tail alone, B9c, runs the
-// chain of decode_dense.cu). plan: the item table (ops/decode_dense.py
+// B9b (Q > 0), or B9c (Q = 0: ng, nb, wq, sq and qkv_out null; the tail
+// alone, ending with x_out), one launch of `grid` blocks. plan: the item table (ops/decode_dense.py
 // tail_plan with mlp="gelu", on the device); kc, stages, max_fc, max_items,
 // fc_blocks and smem: its tile rows, ring depth, fc items and items a block
 // at most, blocks with fc items and shared bytes (checked against
@@ -521,8 +526,9 @@ extern "C" int vt_tail_gelu_qkv_int8(
     int max_items, int fc_blocks, int smem, void* stamps, void* stream) {
   if (!shapes_ok(b, d_attn, d, F, tile, Q) || layer < 0 || layer >= L || grid < 1 ||
       norm_kind == KIND_NONE || x_kind == KIND_NONE || bias_kind == KIND_NONE ||
-      Q < SLAB || wq == nullptr || sq == nullptr || qkv_out == nullptr || ng == nullptr ||
-      nb == nullptr || plan == nullptr || fc_blocks < 1 || fc_blocks > grid ||
+      (Q != 0) != (wq != nullptr) || (Q != 0) != (sq != nullptr) ||
+      (Q != 0) != (qkv_out != nullptr) || (Q != 0) != (ng != nullptr) ||
+      (Q != 0) != (nb != nullptr) || plan == nullptr || fc_blocks < 1 || fc_blocks > grid ||
       smem != vt_tail_gelu_smem(b, d_attn, d, F, tile, max_fc, max_items, stages, kc) ||
       smem > SMEM_MAX || ws_bytes < vt_tail_gelu_one_workspace(b, d, F, tile)) {
     return (int)cudaErrorInvalidValue;
@@ -586,12 +592,12 @@ extern "C" int vt_tail_gelu_qkv_int8(
   a.fc_blocks = fc_blocks;
   a.eps = eps;
   Maps maps;
-  const int rows = kc < BOX_ROWS ? kc : BOX_ROWS;
-  int rc = weight_map(wo, L, d_attn, d, rows, &maps.wo);
-  if (rc == 0) rc = weight_map(wu, L, d, F, rows, &maps.wu);
-  if (rc == 0) rc = weight_map(wd, L, F, d, rows, &maps.wd);
-  if (rc == 0) rc = weight_map(wq, L, d, Q, rows, &maps.wq);
+  int rc = tile_map(wo, L, d_attn, d, kc, &maps.wo);
+  if (rc == 0) rc = tile_map(wu, L, d, F, kc, &maps.wu);
+  if (rc == 0) rc = tile_map(wd, L, F, d, kc, &maps.wd);
+  if (rc == 0) rc = Q ? tile_map(wq, L, d, Q, kc, &maps.wq) : 0;
   if (rc) return rc;
+  if (!Q) maps.wq = maps.wo;   // not read
   const void* fn = b > 16 ? (const void*)tail_gelu_kernel<2> : (const void*)tail_gelu_kernel<1>;
   // the largest dynamic shared size, allowed once per body and device
   static int allowed[2][64];

@@ -47,11 +47,11 @@ below one 128-column tile raises as it does there.
 On a CUDA tensor each wrapper launches ``csrc/decode_dense.cu`` (a short
 sequence of kernels from one C entry point; ``launches`` counts calls of
 the entry point), except B2 and B8a, which are one cooperative launch of
-``csrc/tail_swiglu.cu`` on the int8 tensor cores, and B9b, one launch of
-``csrc/tail_gelu.cu`` (B2's body with the GELU MLP and the LayerNorms),
-each planned per shape by :func:`tail_plan`; a shape B9b's body does not
-take (:func:`gelu_takes`) runs the old chain of ``csrc/decode_dense.cu``,
-as B9c does. On a CPU tensor each runs the plain version, which takes
+``csrc/tail_swiglu.cu`` on the int8 tensor cores, and B9b and B9c, one launch of
+``csrc/tail_gelu.cu`` (B2's body with the GELU MLP and the LayerNorms; B9c
+its branch without the next qkv, as B8a is B2's), each planned per shape by
+:func:`tail_plan`; a shape that body does not take (:func:`gelu_takes`)
+runs the old chain of ``csrc/decode_dense.cu``. On a CPU tensor each runs the plain version, which takes
 the integer products exactly in float64 (|sum| <= 8192 · 127² < 2**53).
 """
 
@@ -451,22 +451,28 @@ def tail_item_rows(p: int, d_attn: int, d: int, d_ff: int, mlp: str = "swiglu",
     return (d_attn, 2 * d, d_ff, d)[p]
 
 
-def _fixed_smem(mlp, b, lda, d, d_ff, tile, max_gu, max_items):
+def _fixed_smem(mlp, b, lda, d, d_ff, tile, max_gu, max_items, act_min=0, n_abar=0):
     """The shared bytes of a launch beside the ring: ``layout`` in
-    ``csrc/tail_swiglu.cu`` or ``csrc/tail_gelu.cu``."""
+    ``csrc/tail_swiglu.cuh`` or ``csrc/tail_gelu.cu``; ``act_min``: the
+    activations' bytes at least, ``n_abar``: mbarriers past the ring's
+    (B12's attention slots)."""
     mt = 2 if b > 16 else 1
     n_tiles = max(1, d_ff // tile)
     red = _align16((2 if mlp == "swiglu" else 1) * 16 * mt * (SLAB + 1) * 4)
     nvec = _align16(4 * d) * (1 if mlp == "swiglu" else 2)
-    return (_align16(b * lda) + red + _align16(max_gu * b * SLAB * 4) + _align16(b * SLAB * 4)
-            + _align16(4 * b * n_tiles) + nvec + max_items * (2 * SLAB * 4 + b * SLAB * 4)
-            + 32 * 12 + 8 * TAIL_MAX_STAGES)
+    return (_align16(max(b * lda, act_min)) + red + _align16(max_gu * b * SLAB * 4)
+            + _align16(b * SLAB * 4) + _align16(4 * b * n_tiles) + nvec
+            + max_items * (2 * SLAB * 4 + b * SLAB * 4) + 32 * 12 + 8 * TAIL_MAX_STAGES
+            + 8 * n_abar)
 
 
 def tail_plan(b: int, d_attn: int, d: int, d_ff: int, tile: int, Q: int, sms: int,
-              smem_max: int = SMEM_MAX, mlp: str = "swiglu") -> TailPlan:
+              smem_max: int = SMEM_MAX, mlp: str = "swiglu", act_min: int = 0,
+              n_abar: int = 0) -> TailPlan:
     """B2's (``Q`` > 0) or B8a's (``Q`` = 0) launch plan, or with ``mlp``
-    "gelu" B9b's, a pure function of the shape and the card's SM count. The
+    "gelu" B9b's (``Q`` > 0) or B9c's (``Q`` = 0), a pure function of the
+    shape and the card's SM count (B12 adds ``act_min`` and ``n_abar``, see
+    :func:`_fixed_smem`). The
     items (32-column slabs of the four products, each over its full K; a
     GELU down-projection item over one d_ff tile) are dealt largest first
     to the least loaded block (by weight bytes; ties to the lower block; an
@@ -479,7 +485,7 @@ def tail_plan(b: int, d_attn: int, d: int, d_ff: int, tile: int, Q: int, sms: in
     norm's weights and each item's column scales and residual columns, up to
     16 stages and no more than the largest block's tiles.
     Raises ``ValueError`` for a shape the body does not take."""
-    name = "B9b" if mlp == "gelu" else "B2/B8a"
+    name = "B9b/B9c" if mlp == "gelu" else "B2/B8a"
     if not 1 <= b <= TAIL_MAX_B:
         raise ValueError(f"{name} take 1 to {TAIL_MAX_B} rows, got b={b}")
     for what, n in (("d_attn", d_attn), ("d_model", d), ("d_ff", d_ff), ("tile", tile)):
@@ -521,7 +527,7 @@ def tail_plan(b: int, d_attn: int, d: int, d_ff: int, tile: int, Q: int, sms: in
     max_gu = max(sum(p == 1 for p, _ in its) for its in items)
     max_items = max(len(its) for its in items)
     lda = max(d_attn, d, d_ff) + 16
-    fixed = _fixed_smem(mlp, b, lda, d, d_ff, tile, max_gu, max_items)
+    fixed = _fixed_smem(mlp, b, lda, d, d_ff, tile, max_gu, max_items, act_min, n_abar)
     # the largest tile that divides the depths and leaves room for two stages
     kc = TAIL_KC_MAX
     while kc > SLAB and (d_attn % kc or d % kc or tile % kc
@@ -614,13 +620,14 @@ def tail_takes(b: int, d_attn: int, d: int, d_ff: int, Q: int, sms) -> bool:
 
 
 def gelu_takes(b: int, d_attn: int, d: int, d_ff: int, Q: int, sms) -> bool:
-    """Whether B9b's one-launch body takes this shape on a card of ``sms``
-    SMs (``tail_plan`` with ``mlp="gelu"`` has a plan: 1 to 32 rows, normed
-    rows of at most 2048, a two-stage ring beside the activations, and a
-    next-layer qkv); ``_tail_gelu`` runs the other shapes, and B9c, on the
-    old chain of ``csrc/decode_dense.cu``."""
-    return sms is not None and Q > 0 and _tail_fits(b, d_attn, d, d_ff, _ff_tile(d, d_ff, Q), Q,
-                                                    sms, "gelu")
+    """Whether the one-launch GELU body (``csrc/tail_gelu.cu``) takes this
+    shape on a card of ``sms`` SMs, as B9b (``Q`` > 0) or B9c (``Q`` = 0):
+    ``tail_plan`` with ``mlp="gelu"`` has a plan (1 to 32 rows, normed rows
+    of at most 2048, a two-stage ring beside the activations);
+    ``_tail_gelu`` runs the other shapes on the old chain of
+    ``csrc/decode_dense.cu``."""
+    return sms is not None and _tail_fits(b, d_attn, d, d_ff, _ff_tile(d, d_ff, Q), Q, sms,
+                                          "gelu")
 
 
 @functools.lru_cache(maxsize=None)
@@ -638,9 +645,9 @@ def _tail_launch(b: int, d_attn: int, d: int, d_ff: int, tile: int, Q: int, dev:
 
 @functools.lru_cache(maxsize=None)
 def _gelu_launch(b: int, d_attn: int, d: int, d_ff: int, tile: int, Q: int, dev: int):
-    """B9b's ``_tail_launch`` at a shape on card ``dev``, or None where its
-    one-launch body does not take the shape (``gelu_takes``): a call's one
-    cache lookup."""
+    """B9b's or B9c's ``_tail_launch`` at a shape on card ``dev``, or None
+    where the one-launch body does not take the shape (``gelu_takes``): a
+    call's one cache lookup."""
     if not gelu_takes(b, d_attn, d, d_ff, Q, _sm_count(dev)):
         return None
     return _tail_launch(b, d_attn, d, d_ff, tile, Q, dev, "gelu")
@@ -813,13 +820,13 @@ def _gelu_ws_bytes(b: int, d_attn: int, d: int, d_ff: int, tile: int, Q: int) ->
 def _tail_gelu(attn, x, wo_all, wos_all, bo_all, lg_all, lb_all, wu_all, su_all, bu_all,
                wd_all, sd_all, bd_all, nxt, layer, eps, tile, stamps=None, chain=False):
     """Checks and launches B9b (``nxt`` = (ng_all, nb_all, wq_all, sq_all))
-    or B9c (``nxt`` None) → ``(x_out, qkv_next or None)``: B9b as one launch
-    of ``csrc/tail_gelu.cu`` where ``gelu_takes``, else (and B9c) the old
-    chain. The one-launch C entry checks the pointers' 16-byte alignment
-    itself (cudaError 716, raised by ``_build.check``). ``stamps``: None,
-    or an int64 CUDA tensor of ``grid * (12 + 64)`` the one-launch body
-    fills with its phase and tile times (as ``_tail_swiglu``'s). ``chain`` runs B9b on the old
-    chain whatever the shape (the yardstick of the one-launch body)."""
+    or B9c (``nxt`` None) → ``(x_out, qkv_next or None)``: one launch of
+    ``csrc/tail_gelu.cu`` where ``gelu_takes``, else the old chain. The
+    one-launch C entry checks the pointers' 16-byte alignment itself
+    (cudaError 716, raised by ``_build.check``). ``stamps``: None, or an
+    int64 CUDA tensor of ``grid * (12 + 64)`` the one-launch body fills
+    with its phase and tile times (as ``_tail_swiglu``'s). ``chain`` runs
+    the old chain whatever the shape (the one-launch body's yardstick)."""
     b, d = x.shape
     d_attn = attn.shape[1]
     L, _, d_ff = wu_all.shape
