@@ -53,9 +53,15 @@ Phases (any failure exits non-zero before the final line is printed):
    on the int8 tensor cores, ``csrc/tail_swiglu.cu``) must be bit-equal to
    their plain versions at layers 0, L/2 and L - 1, B8a to B2's first
    output, and must issue one CUDA kernel a call; their launch plan is
-   printed. ``python3 chip_smoke.py --tail-rows`` runs the dense rows, K4
-   and K5 alone (copied into an unpacked parent commit, it times that
-   commit's kernels);
+   printed. B3 and B4 (one launch each, ``csrc/dense_int8.cu``) must be
+   bit-equal to their plain versions and to the old three-kernel chain
+   (``chain=True``) at layers 0 and L - 1, B4 also on a ``DENSE_FNS`` qkv
+   shape, one CUDA kernel a call; the chain is timed beside them, with both
+   wrappers' host µs, and every B3 and B4 launch of a main path must take
+   the one launch (``tc_launches``). ``python3 chip_smoke.py --tail-rows``
+   runs the dense rows, K4 and K5 alone, ``--dense-rows`` the B3 and B4 rows
+   with each block's phase points (copied into an unpacked parent commit,
+   each times that commit's kernels);
 3. small-input references: the tiny-scale model on the GPU (kernels)
    against the same weights on the CPU (plain versions) -- teacher-forced
    decode logits and stage-2 PCM on shared noise; then a d_model-128
@@ -173,6 +179,7 @@ and power limit; the last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import inspect
 import json
 import math
 import os
@@ -1311,7 +1318,8 @@ def _dense_entry(name, *, got, ref, ms, plain_ms, ops_ms, n_bytes, n_ops, shape,
     path's for B2-B4, the ``_qdot`` path's for B9); ``g_ms`` and
     ``ops_g_ms`` the same two graph-timed; ``host`` the wrapper's host µs a
     call (``_wrapper_host_us``). B2 and B8a (one launch,
-    ``csrc/tail_swiglu.cu``) must be bit-equal to their plain versions."""
+    ``csrc/tail_swiglu.cu``) and B3 and B4 (one launch,
+    ``csrc/dense_int8.cu``) must be bit-equal to their plain versions."""
     errs = [(g - r).abs().max().item() for g, r in zip(got, ref)]
     worst = max(e / (DENSE_TOL * r.abs().max().item()) for e, r in zip(errs, ref))
     err = max(errs)
@@ -1326,15 +1334,16 @@ def _dense_entry(name, *, got, ref, ms, plain_ms, ops_ms, n_bytes, n_ops, shape,
         f"; wrapper host time {host[0]:.2f} us a call, {host[1]:.2f} us of it before the C call"))
     if not worst <= 1.0:
         failures.append(f"{name} differs from its plain version: worst ratio {worst}")
-    if name in TAIL_NAMES and not exact:
+    if name in TAIL_NAMES + DENSE_ONE_NAMES and not exact:
         failures.append(f"{name} is not bit-equal to its plain version (max_abs_err {err})")
     source = ("tail_swiglu.cu" if name in TAIL_NAMES else
-              "tail_gelu.cu" if name in (B9B_NAME, B9C_NAME) else "decode_dense.cu")
+              "tail_gelu.cu" if name in (B9B_NAME, B9C_NAME) else
+              "dense_int8.cu" if name in DENSE_ONE_NAMES else "decode_dense.cu")
     return {"name": name, "route": "cuda",
             "source": "vocalie_tts_tpu_torch/csrc/" + source,
             "replaces": f"vocalie_tts_tpu/ops/decode_dense.py:{DENSE_LINES[name]}",
             "max_abs_err": err, "bit_equal": exact, "tolerance": f"{DENSE_TOL} x max|ref|"
-            + ("; bit-equal" if name in TAIL_NAMES else ""),
+            + ("; bit-equal" if name in TAIL_NAMES + DENSE_ONE_NAMES else ""),
             "ms": ms, "graph_ms": g_ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "library_ms": None, ops_key: ops_ms, ops_key.removesuffix("_ms") + "_graph_ms": ops_g_ms,
             "cuda_kernels_per_call": None, "shape": shape,
@@ -1357,9 +1366,13 @@ TAIL_NAMES = ("B2 tail_swiglu_qkv_int8", "B8a tail_swiglu_int8")
 #: does not take)
 B9B_NAME = "B9b tail_gelu_qkv_int8"
 B9C_NAME = "B9c tail_gelu_int8"
+#: B3 and B4: one launch each (csrc/dense_int8.cu), bit-equal to their
+#: plain versions and to the old three-kernel chain (which still runs the
+#: shapes the body does not take)
+DENSE_ONE_NAMES = ("B3 qkv_norm_int8", "B4 dense_int8 (lm_head)")
 #: the kernels that must be one CUDA kernel a call (B1 and B13 at each of
 #: their shapes: ``count_dense_kernels``)
-ONE_KERNEL_NAMES = TAIL_NAMES + (B9B_NAME, B9C_NAME, "B7 decode_step_fused",
+ONE_KERNEL_NAMES = TAIL_NAMES + DENSE_ONE_NAMES + (B9B_NAME, B9C_NAME, "B7 decode_step_fused",
                                  "B1 decode_attention_int8", "B13 group_norm_fused",
                                  "B12 layer_swiglu_qkv_int8")
 #: the SwiGLU dense kernels' decode shapes: the Chatterbox T3 voice-over
@@ -1426,6 +1439,83 @@ def _tail_plan_note(dev, shape: dict, qkv: bool) -> dict:
     return note
 
 
+def _chain_kw(fn) -> dict:
+    """``{"chain": True}`` where the wrapper ``fn`` takes it; a tree whose B3
+    and B4 are the old chain itself (before their one launch) takes none."""
+    return {"chain": True} if "chain" in inspect.signature(fn).parameters else {}
+
+
+def check_b3_b4(t, failures, label: str) -> list:
+    """B3 (the layer-0 norm + qkv prologue) and B4 (the 128-padded int8
+    lm_head) at a decode shape ``t`` (``_dense_inputs``), each one launch of
+    ``csrc/dense_int8.cu``: against their plain versions and, bit for bit,
+    the old three-kernel chain (``chain=True``) at layers 0 and L - 1, B4
+    also on the layer's qkv weights (the ``DENSE_FNS`` qkv shape); each
+    timed eager and graph beside the chain, with both wrappers' host µs in
+    this process. Each timed call reads another layer, as the decode step
+    does (the head over as many copies for the same reason). The yardstick
+    (``slice1_ops_ms``) is the ops the port runs for the same work with the
+    dense kernels off (``_qdot`` and the f32 norm): no PyTorch call
+    quantizes activations. Returns the two ``kernels`` entries."""
+    from vocalie_tts_tpu_torch.models.common import transformer as tr
+    from vocalie_tts_tpu_torch.ops import decode_dense as dd
+
+    L, b, d, Q, N, eps = t.L, t.b, t.d, t.Q, t.N, t.eps
+    x, nw, wq, sq, wh, sh = t.x, t.nw, t.wq, t.sq, t.wh, t.sh
+    kw = _chain_kw(dd.dense_int8_stacked)
+    rows = {
+        DENSE_ONE_NAMES[0]: dict(
+            call=lambda l, **k: dd.qkv_norm_int8_stacked(x, nw, wq, sq, l, eps=eps, **k),
+            plain=lambda l: dd.qkv_norm_int8_plain(x, nw, wq, sq, l, eps=eps),
+            ops=lambda l: tr._qdot(tr.rms_norm(x, nw[l], eps), {"q": wq[l], "s": sq[l]}),
+            n_bytes=b * d * 2 + d * 4 + d * Q + Q * 4 + b * Q * 4, n_ops=2 * b * d * Q,
+            shape=f"x[{b},{d}] bf16, f32 norm weights, W[{L},{d},{Q}] int8"),
+        DENSE_ONE_NAMES[1]: dict(
+            call=lambda l, **k: dd.dense_int8_stacked(x, wh, sh, l, **k),
+            plain=lambda l: dd.dense_int8_plain(x, wh, sh, l),
+            ops=lambda l: tr._qdot(x, {"q": wh[l], "s": sh[l]}, f32_out=True),
+            n_bytes=b * d * 2 + d * N + N * 4 + b * N * 4, n_ops=2 * b * d * N,
+            shape=f"x[{b},{d}] bf16, W[1,{d},{N}] int8 (timed over {L} copies); also the "
+                  f"DENSE_FNS qkv W[{L},{d},{Q}] at layers 0 and {L - 1}"),
+    }
+    out = []
+    for name, r in rows.items():
+        key = f"{name.split()[0]} [{label}]"
+        layers = (0, L - 1)
+        got = [r["call"](l) for l in layers]
+        ref = [r["plain"](l) for l in layers]
+        chain = [r["call"](l, **kw) for l in layers]
+        if name == DENSE_ONE_NAMES[1]:
+            got += [dd.dense_int8_stacked(x, wq, sq, l) for l in layers]
+            ref += [dd.dense_int8_plain(x, wq, sq, l) for l in layers]
+            chain += [dd.dense_int8_stacked(x, wq, sq, l, **kw) for l in layers]
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, c) for a, c in zip(got, chain))
+        log(f"{key}: equal to the old chain at layers 0, {L - 1}: {same} (max |diff| "
+            f"{max((a - c).abs().max().item() for a, c in zip(got, chain)):.3e})")
+        if not same:
+            failures.append(f"{key} differs from the old chain (vt_dense_int8)")
+        ms, g_ms = timed(lambda i: r["call"](i % L), 300, key)
+        old_ms, old_g_ms = timed(lambda i: r["call"](i % L, **kw), 300, f"{key}, the old chain")
+        host = _wrapper_host_us(lambda i: r["call"](i % L))
+        old_host = _wrapper_host_us(lambda i: r["call"](i % L, **kw))
+        ops_ms, ops_g_ms = timed(lambda i: r["ops"](i % L), 100, f"{key} yardstick")
+        e = _dense_entry(name, got=got, ref=ref, ms=ms, g_ms=g_ms, host=host,
+                         plain_ms=cuda_ms(lambda i: r["plain"](i % L), 20), ops_ms=ops_ms,
+                         ops_g_ms=ops_g_ms, n_bytes=r["n_bytes"], n_ops=r["n_ops"],
+                         shape=r["shape"], failures=failures)
+        e["shape"] = f"{label}: {e['shape']}"
+        e.update(equal_to_old_chain=same, earlier_ms=old_ms, earlier_graph_ms=old_g_ms,
+                 earlier_host_us=old_host[0], earlier_host_python_us=old_host[1],
+                 earlier="the old three-kernel chain (vt_dense_int8, chain=True), timed in "
+                         "this run")
+        log(f"{key}: the old chain {old_ms:.6f} ms eager, {fmt_ms(old_g_ms)} ms graph; wrapper "
+            f"host time {host[0]:.2f} us a call against the old chain's {old_host[0]:.2f} us"
+            + (" (more: a miss)" if host[0] > old_host[0] else ""))
+        out.append(e)
+    return out
+
+
 def check_dense(dev, failures, shape=T3_DENSE):
     """B3, B2 and B4 (and at the Qwen3 shape B8a and B8b) at the decode
     shapes of a main path. Each timed call reads another layer, as the
@@ -1455,21 +1545,8 @@ def check_dense(dev, failures, shape=T3_DENSE):
         e["shape"] = f"{label}: {e['shape']}"
         return e
 
-    out = []
-    # B3: the layer-0 norm + qkv prologue
-    got = [dd.qkv_norm_int8_stacked(x, nw, wq, sq, 0, eps=eps)]
-    ref = [dd.qkv_norm_int8_plain(x, nw, wq, sq, 0, eps=eps)]
-    torch.cuda.synchronize()
-    ms, g_ms = timed(lambda i: dd.qkv_norm_int8_stacked(x, nw, wq, sq, i % L, eps=eps), 300,
-                     f"B3 [{label}]")
-    ops_ms, ops_g_ms = timed(lambda i: tr._qdot(tr.rms_norm(x, nw[i % L], eps),
-                                                i8(wq, sq, i % L)), 100, f"B3 yardstick [{label}]")
-    out.append(entry(
-        "B3 qkv_norm_int8", got=got, ref=ref, ms=ms, g_ms=g_ms,
-        plain_ms=cuda_ms(lambda i: dd.qkv_norm_int8_plain(x, nw, wq, sq, i % L, eps=eps), 20),
-        ops_ms=ops_ms, ops_g_ms=ops_g_ms,
-        n_bytes=b * d * 2 + d * 4 + d * Q + Q * 4 + b * Q * 4, n_ops=2 * b * d * Q,
-        shape=f"x[{b},{d}] bf16, W[{L},{d},{Q}] int8"))
+    b3, b4 = check_b3_b4(t, failures, label)
+    out = [b3]
     # B2: the layer tail + the next layer's norm + qkv, at a middle layer
     # and at the last one (next qkv clamped to it)
     got, ref = [], []
@@ -1503,19 +1580,7 @@ def check_dense(dev, failures, shape=T3_DENSE):
         n_ops=2 * b * (tail_w + d * Q),
         shape=f"attn[{b},{d}] f32, x[{b},{d}] bf16, d_ff {F} in tiles of {tile}, qkv {Q}, "
               f"{L} layers (layers 0, {L // 2} and {L - 1} checked)"))
-    # B4: the 128-padded int8 lm_head
-    got = [dd.dense_int8_stacked(x, wh[:1], sh[:1], 0)]
-    ref = [dd.dense_int8_plain(x, wh[:1], sh[:1], 0)]
-    torch.cuda.synchronize()
-    ms, g_ms = timed(lambda i: dd.dense_int8_stacked(x, wh, sh, i % L), 300, f"B4 [{label}]")
-    ops_ms, ops_g_ms = timed(lambda i: tr._qdot(x, i8(wh, sh, i % L), f32_out=True), 100,
-                             f"B4 yardstick [{label}]")
-    out.append(entry(
-        "B4 dense_int8 (lm_head)", got=got, ref=ref, ms=ms, g_ms=g_ms,
-        plain_ms=cuda_ms(lambda i: dd.dense_int8_plain(x, wh, sh, i % L), 20),
-        ops_ms=ops_ms, ops_g_ms=ops_g_ms,
-        n_bytes=b * d * 2 + d * N + N * 4 + b * N * 4, n_ops=2 * b * d * N,
-        shape=f"x[{b},{d}] bf16, W[1,{d},{N}] int8"))
+    out.append(b4)
     if shape is not QWEN3_DENSE:
         return out
     # B8a: the tail alone (VOCALIE_MEGATAIL=0), at a middle and the last layer
@@ -2599,9 +2664,10 @@ class DecodeSteps:
 
 class TcLaunches:
     """The launches of a flash wrapper (B6, B6t, B11a, B11b) that took the
-    tensor-core body (its ``tc_launches``), under the launch counters'
-    attribute, so that they are reset and read with them. Not a kernel of its
-    own."""
+    tensor-core body, or of B3 or B4 that took their one launch
+    (``csrc/dense_int8.cu``, not the old chain) (the wrapper's
+    ``tc_launches``), under the launch counters' attribute, so that they are
+    reset and read with them. Not a kernel of its own."""
 
     def __init__(self, wrapper):
         self._wrapper = wrapper
@@ -2615,17 +2681,21 @@ class TcLaunches:
         self._wrapper.tc_launches = n
 
 
-#: each flash wrapper's key → the key of its tensor-core launches
-TC_KEYS = {"B6": "B6tc", "B6t": "B6t_tc", "B11a": "B11a_tc", "B11b": "B11b_tc"}
+#: each flash wrapper's key → the key of its tensor-core launches; B3's and
+#: B4's → the key of their one launch's
+TC_KEYS = {"B6": "B6tc", "B6t": "B6t_tc", "B11a": "B11a_tc", "B11b": "B11b_tc", "B3": "B3tc",
+           "B4": "B4tc"}
 
 
 def check_tc(label: str, c: dict, failures) -> None:
     """Every B6, B6t, B11a and B11b launch of a full-width path took the
-    tensor-core body (bf16 at d 64 or 128): its count equals the wrapper's."""
+    tensor-core body (bf16 at d 64 or 128), and every B3 and B4 launch the
+    one launch of ``csrc/dense_int8.cu`` (no served shape takes the old
+    chain): each such count equals the wrapper's."""
     for key, tc in TC_KEYS.items():
         if tc in c and c[tc] != c[key]:
-            failures.append(f"[{label}] {tc} (the tensor-core body) launched {c[tc]} times, "
-                            f"{key} {c[key]}")
+            failures.append(f"[{label}] {tc} (the tensor-core body or one launch) launched "
+                            f"{c[tc]} times, {key} {c[key]}")
 
 
 def _wrappers():
@@ -2662,7 +2732,9 @@ def _wrappers():
             "K5": cache_append_k_stacked, "B6tc": TcLaunches(flash_attention),
             "B6t_tc": TcLaunches(flash_attention_lse),
             "B11a_tc": TcLaunches(fb.flash_attention_bwd_dkv),
-            "B11b_tc": TcLaunches(fb.flash_attention_bwd_dq), "steps": DecodeSteps()}
+            "B11b_tc": TcLaunches(fb.flash_attention_bwd_dq),
+            "B3tc": TcLaunches(qkv_norm_int8_stacked), "B4tc": TcLaunches(dense_int8_stacked),
+            "steps": DecodeSteps()}
 
 
 def path_wants(lm, env: dict, steps: int) -> dict:
@@ -4540,8 +4612,8 @@ def drive_unrounded(dev, failures, scale: str = "full", steps: int = 80):
 
     loop(lens_600[0], 4)()   # load and warm up
     base = {**{k: 0 for k in wrappers}, "B2": L * steps, "B3": steps, "B4": steps + 1,
-            "B5": steps, "B6": L if s >= 512 else 0, "B6tc": L if s >= 512 else 0,
-            "steps": steps}
+            "B3tc": steps, "B4tc": steps + 1, "B5": steps, "B6": L if s >= 512 else 0,
+            "B6tc": L if s >= 512 else 0, "steps": steps}
     counts = _counted_loops("unrounded T3 cache", wrappers, [
         (f"cache_len {lens_600[0]}", loop(lens_600[0]), {**base, "B1w": L * steps}),
         (f"cache_len {lens_600[1]}", loop(lens_600[1]), {**base, "B1": L * steps}),
@@ -4604,8 +4676,8 @@ def drive_gelu_rms(dev, failures, scale: str = "full", steps: int = 64):
 
     loop(4)()   # load and warm up
     want = {**{k: 0 for k in wrappers}, "B9d": L * steps, "B4": steps * (1 + 2 * L) + 1,
-            "B1": L * steps, "B5": steps, "B6": L if s >= 512 else 0,
-            "B6tc": L if s >= 512 else 0, "steps": steps}
+            "B4tc": steps * (1 + 2 * L) + 1, "B1": L * steps, "B5": steps,
+            "B6": L if s >= 512 else 0, "B6tc": L if s >= 512 else 0, "steps": steps}
     counts = _counted_loops("GELU MLP under RMSNorm", wrappers,
                             [(f"{s} prompt, cache_len {cache_len}", loop(), want)],
                             cfg.vocab_size, failures)
@@ -4659,7 +4731,8 @@ def main() -> int:
         entry["qwen3_shape"] = {k: q3.get(k) for k in (
             "max_abs_err", "bit_equal", "ms", "graph_ms", "plain_ms", "bound_ms", "bound_by",
             "slice1_ops_ms", "slice1_ops_graph_ms", "plan", "host_us", "host_python_us",
-            "shape")}
+            "equal_to_old_chain", "earlier_ms", "earlier_graph_ms", "earlier_host_us",
+            "earlier_host_python_us", "shape") if k in q3}
     f32_attn = check_f32_attention(dev, failures)
     kernels = [check_decode_attention(dev, failures), *dense, check_cache_append(dev, failures),
                check_flash_attention(dev, failures), check_decode_step(dev, failures),
@@ -4769,6 +4842,9 @@ def main() -> int:
     by_key["B6t"]["tc_launches"] = train_counts["B6t_tc"]
     by_key["B11a"]["tc_launches"] = train_counts["B11a_tc"]
     by_key["B11b"]["tc_launches"] = train_counts["B11b_tc"]
+    # B3's and B4's that took their one launch (every one: check_tc)
+    by_key["B3"]["tc_launches"] = counts["B3tc"]
+    by_key["B4"]["tc_launches"] = counts["B4tc"]
     for key, entry in by_key.items():
         if key == "B13":
             continue
@@ -5156,6 +5232,81 @@ def _tail_rows_only() -> int:
     return 0
 
 
+#: the phase points of a B3/B4 block (``stamps``; csrc/dense_int8.cu)
+DENSE_PHASES = ("entry", "asked", "normed", "products", "met", "end")
+
+
+def _dense_phases(dd, dev, x, nw, w, s, eps) -> dict:
+    """One B3 (``nw`` set) or B4 call's phase points at layer 1, from its
+    blocks' stamps (the last of three calls): for each point, the µs after
+    the earliest entry at which the first and the last block reached it,
+    beside the plan."""
+    b, K = x.shape
+    plan = dd._dense_launch(b, K, w.shape[2], dev.index or 0)
+    stamps = torch.zeros((plan.grid, len(DENSE_PHASES)), dtype=torch.int64, device=dev)
+    for _ in range(3):
+        dd._launch_dense(x, nw, eps, w, s, 1, stamps=stamps)
+    torch.cuda.synchronize()
+    t = stamps.cpu().double()
+    t = (t - t[:, 0].min()) / 1e3
+    return {"plan": {k: getattr(plan, k) for k in ("grid", "ks", "spb", "kc", "tiles",
+                                                    "smem")},
+            **{name: [t[:, i].min().item(), t[:, i].max().item()]
+               for i, name in enumerate(DENSE_PHASES)}}
+
+
+def _dense_rows_only() -> int:
+    """``--dense-rows``: build the kernels and run phase 2's B3 and B4 rows at
+    the T3 and Qwen3 decode shapes (``check_b3_b4``: bit-equal to the plain
+    versions and to the old chain, eager and graph ms of both, both
+    wrappers' host µs), then one call of each at each shape that records its
+    blocks' phase points (``_dense_phases``), then count one call's CUDA
+    kernels of each with torch.profiler (after every timing), and print the
+    rows as one JSON line. Copied into an unpacked copy of another commit
+    and run there, it times that commit's B3 and B4 on the same rows (before
+    their one launch: the old chain, no phase points); a failed gate is
+    printed, not fatal."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    from vocalie_tts_tpu_torch.ops import _build
+    from vocalie_tts_tpu_torch.ops import decode_dense as dd
+
+    log(f"kernels built -> {_build.build().name}")
+    name = ""
+    for line in _build.build_log().splitlines():   # the body's registers and spills
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "dense_int8_kernel" in name and ("registers" in line or "spill" in line):
+            log(f"  {_kernel_name(name)[:60]}: {line.strip()}")
+    dev = torch.device("cuda:0")
+    failures: list = []
+    rows, phases, counts = [], {}, {}
+    for shape in (T3_DENSE, QWEN3_DENSE):
+        t = _dense_inputs(dev, shape)
+        rows += check_b3_b4(t, failures, shape["label"])
+        for name, (nw, w, s, eps) in ((DENSE_ONE_NAMES[0], (t.nw, t.wq, t.sq, t.eps)),
+                                      (DENSE_ONE_NAMES[1], (None, t.wh, t.sh, 0.0))):
+            key = f"{name.split()[0]} [{shape['label']}]"
+            if hasattr(dd, "_dense_launch"):
+                phases[key] = _dense_phases(dd, dev, t.x, nw, w, s, eps)
+                log(f"{key}: phase points (us from the first entry; first and last block) "
+                    f"{phases[key]}")
+            call = t.calls[name]
+            call()
+            per_call = kernels_per_call(call)
+            counts[key] = sum(per_call.values())
+            log(f"{key}: CUDA kernels per call (profiled): {counts[key]} ("
+                + ", ".join(f"{_kernel_name(k)} x{n}" for k, n in sorted(per_call.items())) + ")")
+        del t
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    print(smi.stdout.strip(), flush=True)
+    print(json.dumps({"rows": rows, "phases": phases, "cuda_kernels_per_call": counts,
+                      "failures": failures}), flush=True)
+    return 0
+
+
 def sweep_int8_splits(dev) -> dict:
     """B1 at the T3 and Qwen3 decode shapes graph-timed at every split count
     the valid blocks allow (``splits=``), beside the count ``int8_splits``
@@ -5386,5 +5537,5 @@ if __name__ == "__main__":
              "--qwen3-decode-kernel": _qwen3_decode_kernel_only, "--tail-rows": _tail_rows_only,
              "--decode-steps": _decode_steps_only, "--stream-steps": _stream_steps_only,
              "--attn-gn-rows": _attn_gn_rows_only, "--e2e-ab": _e2e_ab_only,
-             "--layer-rows": _layer_rows_only}
+             "--layer-rows": _layer_rows_only, "--dense-rows": _dense_rows_only}
     sys.exit(modes[sys.argv[1]]() if sys.argv[1:2] and sys.argv[1] in modes else main())

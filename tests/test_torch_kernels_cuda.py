@@ -20,7 +20,12 @@ the 128-slot grid (every layer's k/v rows), and a cooperative grid forced
 past what the card keeps resident (refused); for B9b's one-launch body
 (``csrc/tail_gelu.cu``) the XTTS layer at b 1, 8, 16 and 17 with bf16 and f32
 rows and biases, bit-equal to the old chain, one CUDA kernel a call, and a
-shape it does not take (33 rows) and B9c on the chain; for B12 (the whole decode layer, one cooperative launch) the T3
+shape it does not take (33 rows) and B9c on the chain; for B3's and B4's
+one launch (``csrc/dense_int8.cu``) the T3 and Qwen3 decode shapes, the
+lm_heads and a ``DENSE_FNS`` qkv, b 1, 17 and 32, K 96, a zero row, the
+last layer, bf16 and f32 rows and norm weights, bit-equal to the plain
+version and to the old chain, one CUDA kernel a call, 50 repeated calls,
+and a shape it does not take (33 rows) on the chain; for B12 (the whole decode layer, one cooperative launch) the T3
 and Qwen3 layers, GQA up to g 8, d_head 32 to 128, batch 1 to 16, a row
 with every cached slot masked, the last layer, valid_len on a block
 boundary and equal to T, bf16 norms, d_ff in one and several tiles, a grid
@@ -103,6 +108,7 @@ from vocalie_tts_tpu_torch.ops.decode_dense import (
     _tail_gelu,
     card_sms,
     dense_int8_plain,
+    dense_takes,
     gelu_takes,
     pick_tile,
     dense_int8_stacked,
@@ -1149,6 +1155,117 @@ def test_dense_kernels_reject_bad_inputs(dev):
         dense_int8_stacked(torch.zeros((256, 2), device=dev).t(), w, s, 0)
     with pytest.raises(ValueError, match="K % 32"):
         dense_int8_stacked(x[:, :200].contiguous(), w[:, :200].contiguous(), s, 0)
+
+
+#: B3/B4's one launch: (label, norm, b, K, N, layer, x dtype, norm dtype,
+#: zero row); the T3 and Qwen3 decode steps' prologue and heads, a
+#: DENSE_FNS qkv, batch 1, 17 and 32, K 96, the last layer
+DENSE_ONE_CASES = [
+    ("b3-t3", True, 16, 1024, 3072, 1, torch.bfloat16, torch.float32, None),
+    ("b3-qwen3", True, 8, 2048, 4096, 2, torch.bfloat16, torch.bfloat16, 3),
+    ("b4-t3-head", False, 16, 1024, 1152, 0, torch.bfloat16, None, 5),
+    ("b4-qwen3-head", False, 8, 2048, 2176, 0, torch.bfloat16, None, None),
+    ("b4-qwen3-qkv", False, 8, 2048, 6144, 2, torch.bfloat16, None, None),
+    ("b3-b1", True, 1, 1024, 3072, 2, torch.float32, torch.float32, None),
+    ("b4-b1", False, 1, 2048, 2176, 0, torch.float32, None, None),
+    ("b3-b17", True, 17, 1024, 3072, 1, torch.bfloat16, torch.bfloat16, 16),
+    ("b4-b32", False, 32, 1024, 1152, 2, torch.float32, None, 0),
+    ("b3-b32", True, 32, 2048, 4096, 2, torch.float32, torch.bfloat16, 31),
+    ("b3-k96", True, 5, 96, 128, 2, torch.bfloat16, torch.float32, 2),
+    ("b4-k96", False, 2, 96, 128, 1, torch.float32, None, None),
+]
+
+
+def _dense_one_args(dev, norm, b, K, N, layer, x_dtype, nw_dtype, zero_row, L=3):
+    gen = _gen(dev, b * 131 + K + N + layer)
+    x = (torch.randn((b, K), generator=gen, device=dev) * 3).to(x_dtype)
+    if zero_row is not None:
+        x[zero_row] = 0
+    w, s = _int8_weights(gen, dev, L, K, N)
+    nw = (1 + 0.1 * torch.randn((L, K), generator=gen, device=dev)).to(nw_dtype) if norm else None
+    return x, nw, w, s
+
+
+def _dense_one_call(args, layer, **kw):
+    x, nw, w, s = args
+    if nw is None:
+        return dense_int8_stacked(x, w, s, layer, **kw)
+    return qkv_norm_int8_stacked(x, nw, w, s, layer, eps=1e-5, **kw)
+
+
+def _dense_one_plain(args, layer):
+    x, nw, w, s = args
+    if nw is None:
+        return dense_int8_plain(x, w, s, layer)
+    return qkv_norm_int8_plain(x, nw, w, s, layer, eps=1e-5)
+
+
+@pytest.mark.parametrize("case", DENSE_ONE_CASES, ids=[c[0] for c in DENSE_ONE_CASES])
+def test_dense_one_launch_is_bit_equal(dev, case):
+    """B3's and B4's one launch (``csrc/dense_int8.cu``) against the plain
+    version and the old three-kernel chain (``chain=True``), bit for bit;
+    the one launch counted in ``tc_launches``."""
+    _, norm, b, K, N, layer, x_dtype, nw_dtype, zero_row = case
+    args = _dense_one_args(dev, norm, b, K, N, layer, x_dtype, nw_dtype, zero_row)
+    assert dense_takes(b, K, N, card_sms(dev))
+    wrapper = qkv_norm_int8_stacked if norm else dense_int8_stacked
+    before = (wrapper.launches, wrapper.tc_launches)
+    got = _dense_one_call(args, layer)
+    chain = _dense_one_call(args, layer, chain=True)
+    ref = _dense_one_plain(args, layer)
+    torch.cuda.synchronize()
+    assert (wrapper.launches, wrapper.tc_launches) == (before[0] + 2, before[1] + 1)
+    assert got.shape == (b, N) and got.dtype == torch.float32
+    assert torch.equal(got, ref), (got - ref).abs().max().item()
+    assert torch.equal(got, chain), (got - chain).abs().max().item()
+    if zero_row is not None:
+        assert (got[zero_row] == 0).all()
+
+
+@pytest.mark.parametrize("case", DENSE_ONE_CASES[:4], ids=[c[0] for c in DENSE_ONE_CASES[:4]])
+def test_dense_one_launch_is_one_cuda_kernel_a_call(dev, case):
+    """torch.profiler sees one CUDA kernel a B3 or B4 call at the decode
+    shapes (the old chain launches three), counted through
+    ``_profiled_kernels``."""
+    _, norm, b, K, N, layer, x_dtype, nw_dtype, zero_row = case
+    args = _dense_one_args(dev, norm, b, K, N, layer, x_dtype, nw_dtype, zero_row)
+    names = _profiled_kernels(lambda: _dense_one_call(args, layer))
+    assert len(names) == 1 and "dense_int8_kernel" in names[0], names
+    names = _profiled_kernels(lambda: _dense_one_call(args, layer, chain=True))
+    assert len(names) == 3 and not any("dense_int8_kernel" in n for n in names), names
+
+
+@pytest.mark.parametrize("case", [DENSE_ONE_CASES[i] for i in (0, 2, 4, 9)],
+                         ids=[DENSE_ONE_CASES[i][0] for i in (0, 2, 4, 9)])
+def test_dense_one_launch_repeats_bit_equal(dev, case):
+    """50 calls a case, layers 1 and 2 in turn, each bit-equal to the old
+    chain at its layer: the split-K sums met across a cluster give the same
+    bits every call."""
+    _, norm, b, K, N, _, x_dtype, nw_dtype, zero_row = case
+    args = _dense_one_args(dev, norm, b, K, N, 1, x_dtype, nw_dtype, zero_row)
+    want = {layer: _dense_one_call(args, layer, chain=True) for layer in (1, 2)}
+    got = [_dense_one_call(args, 1 + i % 2) for i in range(50)]
+    torch.cuda.synchronize()
+    bad = [i for i, y in enumerate(got) if not torch.equal(y, want[1 + i % 2])]
+    assert not bad, f"calls {bad} differ from the chain"
+
+
+@pytest.mark.parametrize("norm", [True, False], ids=["B3", "B4"])
+def test_untaken_dense_shapes_take_the_chain(dev, norm):
+    """33 rows, which the one launch does not take (``dense_takes``): the
+    wrapper runs the old chain (3 CUDA kernels), within the gate of the
+    plain version, and ``tc_launches`` stays."""
+    args = _dense_one_args(dev, norm, 33, 1024, 1152, 1, torch.bfloat16,
+                           torch.float32 if norm else None, 4)
+    assert not dense_takes(33, 1024, 1152, card_sms(dev))
+    wrapper = qkv_norm_int8_stacked if norm else dense_int8_stacked
+    before = wrapper.tc_launches
+    names = _cuda_kernels(lambda: _dense_one_call(args, 1))
+    assert len(names) == 3 and not any("dense_int8_kernel" in n for n in names), names
+    got = _dense_one_call(args, 1)
+    torch.cuda.synchronize()
+    assert wrapper.tc_launches == before
+    _close(got, _dense_one_plain(args, 1))
 
 
 # ── B9a, B9b, B9c ───────────────────────────────────────────────────────

@@ -19,14 +19,16 @@
 //     IEEE divide's rounding, from a multiply where no tie is near).
 //   * the layer-tail bodies' weight stream: a ring of mbarrier stages that
 //     a block refills with its items' tiles as it consumes them.
-// Included by tail_swiglu.cuh (B2, B8a and B12), tail_gelu.cu (B9b, B9c) and
-// decode_step.cu (B7).
+// Included by tail_swiglu.cuh (B2, B8a and B12), tail_gelu.cu (B9b, B9c),
+// decode_step.cu (B7) and dense_int8.cu (B3, B4).
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace i8s {
 
@@ -68,6 +70,33 @@ __device__ __forceinline__ uint32_t quant4(const float4& v, float s, float r) {
          (((uint32_t)quant_fast(v.y, s, r) & 0xffu) << 8) |
          (((uint32_t)quant_fast(v.z, s, r) & 0xffu) << 16) |
          ((uint32_t)quant_fast(v.w, s, r) << 24);
+}
+
+// quant4 as a call, for the rare word with a near tie (quant4_fast): kept out
+// of line so that the divides are not computed for every word (a template,
+// so that the sources that do not use it compile no copy)
+template <int UNUSED = 0>
+__device__ __noinline__ uint32_t quant4_call(float4 v, float s, float r) {
+  return quant4(v, s, r);
+}
+
+// quant4 without its float-to-int conversions (B3 and B4, dense_int8.cu):
+// y + 1.5 * 2^23 rounds y (|y| < 2^22) to an integer, half to even, as
+// rintf does, and the float's low byte is then that integer's int8 byte;
+// four values with no near tie need no conversion and no divide, the others
+// take quant4. Bit-equal to quant4.
+__device__ __forceinline__ uint32_t quant4_fast(const float4& v, float s, float r) {
+  constexpr float M = 12582912.0f;   // 1.5 * 2^23
+  const float y0 = __fmul_rn(v.x, r), y1 = __fmul_rn(v.y, r);
+  const float y2 = __fmul_rn(v.z, r), y3 = __fmul_rn(v.w, r);
+  const float t0 = __fadd_rn(y0, M), t1 = __fadd_rn(y1, M);
+  const float t2 = __fadd_rn(y2, M), t3 = __fadd_rn(y3, M);
+  if (near_tie(y0, __fsub_rn(t0, M)) || near_tie(y1, __fsub_rn(t1, M)) ||
+      near_tie(y2, __fsub_rn(t2, M)) || near_tie(y3, __fsub_rn(t3, M))) {
+    return quant4_call<>(v, s, r);
+  }
+  return __byte_perm(__byte_perm(__float_as_uint(t0), __float_as_uint(t1), 0x0040),
+                     __byte_perm(__float_as_uint(t2), __float_as_uint(t3), 0x0040), 0x5410);
 }
 
 // 4 consecutive norm weights (f32, or bf16) from index i (a multiple of 4)
@@ -319,9 +348,12 @@ __device__ __forceinline__ void acc_to_red(int (&acc)[MT][4][4], int* red, int b
 // lane of its part in registers (all its loads in flight at once): the
 // parts' double sums are added in part order and their maxima met through
 // shared memory (scratch: QUANT_SCRATCH bytes), so every block gets the
-// same bits. Rows go nwarp / wpr at a time.
-template <int VEC, bool LN>
-__device__ __forceinline__ void quant_rows_t(const float* x, int b, int d, const void* w,
+// same bits. Rows go nwarp / wpr at a time. XT is x's type: float, or
+// __nv_bfloat16 (B3 and B4, dense_int8.cu), whose rows come four values (8
+// bytes) a load and are widened exactly; the float body is the same code.
+// FASTQ quantizes with quant4_fast (B3 and B4), the same bits.
+template <int VEC, bool LN, typename XT = float, bool FASTQ = false>
+__device__ __forceinline__ void quant_rows_t(const XT* x, int b, int d, const void* w,
                                              const void* wb, int wkind, float eps, int8_t* act,
                                              int lda, float* rs, int wpr, void* scratch) {
   double* part_ss = reinterpret_cast<double*>(scratch);
@@ -332,12 +364,23 @@ __device__ __forceinline__ void quant_rows_t(const float* x, int b, int d, const
   for (int r0 = 0; r0 < b; r0 += rows) {
     const int r = r0 + warp / wpr;
     const bool live = warp / wpr < rows && r < b;
-    const float4* xp = reinterpret_cast<const float4*>(x + (long long)(live ? r : 0) * d) + p * per;
     float4 v[VEC];
+    if constexpr (std::is_same<XT, float>::value) {
+      const float4* xp = reinterpret_cast<const float4*>(x + (long long)(live ? r : 0) * d) + p * per;
 #pragma unroll
-    for (int j = 0; j < VEC; ++j) {
-      const int i = lane + 32 * j;
-      v[j] = live && i < per ? __ldcg(xp + i) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      for (int j = 0; j < VEC; ++j) {
+        const int i = lane + 32 * j;
+        v[j] = live && i < per ? __ldcg(xp + i) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      }
+    } else {
+      const uint2* xp = reinterpret_cast<const uint2*>(x + (long long)(live ? r : 0) * d) + p * per;
+#pragma unroll
+      for (int j = 0; j < VEC; ++j) {
+        const int i = lane + 32 * j;
+        const uint2 u = live && i < per ? __ldcg(xp + i) : make_uint2(0u, 0u);
+        v[j] = make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                           __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+      }
     }
     if (LN) {
       double s1 = 0.0;
@@ -432,7 +475,10 @@ __device__ __forceinline__ void quant_rows_t(const float* x, int b, int d, const
 #pragma unroll
       for (int j = 0; j < VEC; ++j) {
         const int i = lane + 32 * j;
-        if (i < per) *reinterpret_cast<uint32_t*>(dst + 4 * i) = quant4(v[j], s, inv_s);
+        if (i < per) {
+          *reinterpret_cast<uint32_t*>(dst + 4 * i) =
+              FASTQ ? quant4_fast(v[j], s, inv_s) : quant4(v[j], s, inv_s);
+        }
       }
       if (lane == 0 && p == 0) rs[r] = s;
     }
@@ -479,6 +525,28 @@ __device__ __forceinline__ void quant_rows(const float* x, int b, int d, const v
                                            float eps, int8_t* act, int lda, float* rs,
                                            void* scratch) {
   quant_rows_n<false>(x, b, d, w, nullptr, wkind, eps, act, lda, rs, scratch);
+}
+
+// quant_rows on f32 or bf16 rows (x 16- or 8-byte aligned, d % 4 == 0)
+// with quant4_fast, inlined: B3's and B4's (dense_int8.cu), whose one call
+// site a launch ran ~1.3 us faster inlined than as quant_rows_n's call on an
+// H100 (PERF.md §6)
+template <typename XT>
+__device__ __forceinline__ void quant_rows_dense(const XT* x, int b, int d, const void* w,
+                                                 int wkind, float eps, int8_t* act, int lda,
+                                                 float* rs, void* scratch) {
+  int vec;
+  const int wpr = rows_split(b, d, vec);
+  if (vec <= 1) {
+    quant_rows_t<1, false, XT, true>(x, b, d, w, nullptr, wkind, eps, act, lda, rs, wpr, scratch);
+  } else if (vec <= 2) {
+    quant_rows_t<2, false, XT, true>(x, b, d, w, nullptr, wkind, eps, act, lda, rs, wpr, scratch);
+  } else if (vec <= 4) {
+    quant_rows_t<4, false, XT, true>(x, b, d, w, nullptr, wkind, eps, act, lda, rs, wpr, scratch);
+  } else {
+    quant_rows_t<MAX_VEC, false, XT, true>(x, b, d, w, nullptr, wkind, eps, act, lda, rs, wpr,
+                                           scratch);
+  }
 }
 
 __device__ __forceinline__ void quant_rows_ln(const float* x, int b, int d, const void* g,

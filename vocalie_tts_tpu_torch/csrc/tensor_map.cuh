@@ -3,8 +3,9 @@
 // height, encoded once by cuTensorMapEncodeTiled (which the runtime
 // hands out through cudaGetDriverEntryPoint: no -lcuda) and cached by
 // pointer and shape.
-// Included by tail_swiglu.cuh (B2, B8a and B12), tail_gelu.cu (B9b, B9c) and
-// decode_step.cu (B7); each source keeps its own cache.
+// Included by tail_swiglu.cuh (B2, B8a and B12), tail_gelu.cu (B9b, B9c),
+// decode_step.cu (B7) and dense_int8.cu (B3, B4); each source keeps its own
+// cache.
 
 #pragma once
 

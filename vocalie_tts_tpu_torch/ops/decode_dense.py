@@ -51,12 +51,18 @@ the entry point), except B2 and B8a, which are one cooperative launch of
 ``csrc/tail_gelu.cu`` (B2's body with the GELU MLP and the LayerNorms; B9c
 its branch without the next qkv, as B8a is B2's), each planned per shape by
 :func:`tail_plan`; a shape that body does not take (:func:`gelu_takes`)
-runs the old chain of ``csrc/decode_dense.cu``. On a CPU tensor each runs the plain version, which takes
+runs the old chain of ``csrc/decode_dense.cu``. B3 and B4 are one launch of
+``csrc/dense_int8.cu`` (TMA weight slices, int8 tensor cores, split-K met in
+a thread-block cluster), planned per shape by :func:`dense_plan`; a shape
+it does not take (:func:`dense_takes`) runs their old three-kernel chain,
+and ``chain=True`` forces it (the one launch's yardstick); ``tc_launches``
+counts the one launch's calls. On a CPU tensor each runs the plain version, which takes
 the integer products exactly in float64 (|sum| <= 8192 · 127² < 2**53).
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import functools
 import heapq
@@ -319,18 +325,37 @@ def _workspace(nbytes: int, dev) -> torch.Tensor:
     return torch.empty((max(int(nbytes), 1),), dtype=torch.uint8, device=dev)
 
 
-def _launch_dense(x, nw_all, eps, w_all, s_all, layer):
+_DENSE_ONE_ARGTYPES = ([_build.P, _build.I, _build.P, _build.I, _build.F, _build.P, _build.P]
+                       + [_build.I] * 5 + [_build.P] + [_build.I] * 5 + [_build.P, _build.P])
+
+
+def _launch_dense(x, nw_all, eps, w_all, s_all, layer, chain=False, stamps=None):
+    """B3 (``nw_all`` the stacked norm weights) or B4 (``nw_all`` None):
+    one launch of ``csrc/dense_int8.cu`` where ``dense_takes``, else (or
+    with ``chain``) the old chain of ``csrc/decode_dense.cu``. ``stamps``:
+    None, or an int64 CUDA tensor of ``grid * 6`` the one launch fills with
+    its blocks' phase times (entry, thread 0's tiles asked for, norm,
+    products, the cluster's meet, end)."""
     b, K = x.shape
     L, _, N = w_all.shape
-    ws = _workspace(_dense_ws_bytes(b, K, N), x.device)
+    dev = x.device.index if x.device.index is not None else torch.cuda.current_device()
+    plan = None if chain else _dense_launch(b, K, N, dev)
     out = torch.empty((b, N), dtype=torch.float32, device=x.device)
-    fn = _build.kernel("vt_dense_int8", _DENSE_ARGTYPES)
-    rc = fn(x.data_ptr(), _kind(x, "x"),
-            None if nw_all is None else nw_all.data_ptr(),
-            0 if nw_all is None else _kind(nw_all, "nw_all"), float(eps),
-            w_all.data_ptr(), s_all.data_ptr(), int(layer), b, K, N,
-            out.data_ptr(), ws.data_ptr(), ws.numel(), _build.stream_ptr(x))
-    _build.check(rc, "vt_dense_int8")
+    nw = (None, 0) if nw_all is None else (nw_all.data_ptr(), _kind(nw_all, "nw_all"))
+    if plan is None:
+        ws = _workspace(_dense_ws_bytes(b, K, N), x.device)
+        fn = _build.kernel("vt_dense_int8", _DENSE_ARGTYPES)
+        rc = fn(x.data_ptr(), _kind(x, "x"), *nw, float(eps), w_all.data_ptr(), s_all.data_ptr(),
+                int(layer), b, K, N, out.data_ptr(), ws.data_ptr(), ws.numel(),
+                _build.stream_ptr(x))
+        _build.check(rc, "vt_dense_int8")
+        return out
+    fn = _build.kernel("vt_dense_int8_one", _DENSE_ONE_ARGTYPES)
+    rc = fn(x.data_ptr(), _kind(x, "x"), *nw, float(eps), w_all.data_ptr(), s_all.data_ptr(),
+            int(layer), L, b, K, N, out.data_ptr(), plan.grid, plan.ks, plan.spb, plan.kc,
+            plan.smem, None if stamps is None else stamps.data_ptr(), _build.stream_ptr(x))
+    _build.check(rc, "vt_dense_int8_one")
+    (dense_int8_stacked if nw_all is None else qkv_norm_int8_stacked).tc_launches += 1
     return out
 
 
@@ -339,8 +364,11 @@ def dense_int8_stacked(
     w_all: torch.Tensor,   # [L, d_in, d_out] int8
     s_all: torch.Tensor,   # [L, 1, d_out] f32 per-channel scales
     layer: int,
+    *,
+    chain: bool = False,
 ) -> torch.Tensor:
-    """x · W[layer] with int8 × int8 products → [b, d_out] f32."""
+    """x · W[layer] with int8 × int8 products → [b, d_out] f32. ``chain``
+    runs the old three-kernel chain on a card whatever the shape."""
     b, d_in = x.shape
     L, _, d_out = w_all.shape
     if pick_tile(d_out, TILE_BUDGET, d_in) == 0:
@@ -350,7 +378,7 @@ def dense_int8_stacked(
     _check(x.device, layer, L, ("x", x, _ACT, (b, d_in)),
            ("w_all", w_all, _I8, (L, d_in, d_out)), ("s_all", s_all, _FL, (L, 1, d_out)))
     dense_int8_stacked.launches += 1
-    return _launch_dense(x, None, 0.0, w_all, s_all, layer)
+    return _launch_dense(x, None, 0.0, w_all, s_all, layer, chain)
 
 
 def qkv_norm_int8_stacked(
@@ -361,8 +389,10 @@ def qkv_norm_int8_stacked(
     layer: int,
     *,
     eps: float,
+    chain: bool = False,
 ) -> torch.Tensor:
-    """rms_norm(x) · Wqkv[layer] → [b, d_out] f32."""
+    """rms_norm(x) · Wqkv[layer] → [b, d_out] f32. ``chain`` runs the old
+    three-kernel chain on a card whatever the shape."""
     b, d_in = x.shape
     L, _, d_out = w_all.shape
     if pick_tile(d_out, TILE_BUDGET, d_in) == 0:
@@ -372,7 +402,7 @@ def qkv_norm_int8_stacked(
     _check(x.device, layer, L, ("x", x, _ACT, (b, d_in)), ("nw_all", nw_all, _ACT, (L, d_in)),
            ("w_all", w_all, _I8, (L, d_in, d_out)), ("s_all", s_all, _FL, (L, 1, d_out)))
     qkv_norm_int8_stacked.launches += 1
-    return _launch_dense(x, nw_all, eps, w_all, s_all, layer)
+    return _launch_dense(x, nw_all, eps, w_all, s_all, layer, chain)
 
 
 def _ff_tile(d: int, d_ff: int, Q: int) -> int:
@@ -651,6 +681,131 @@ def _gelu_launch(b: int, d_attn: int, d: int, d_ff: int, tile: int, Q: int, dev:
     if not gelu_takes(b, d_attn, d, d_ff, Q, _sm_count(dev)):
         return None
     return _tail_launch(b, d_attn, d, d_ff, tile, Q, dev, "gelu")
+
+
+#: B3/B4's one launch (``csrc/dense_int8.cu``): the rows, the row width
+#: (``quant_rows``' reach in whole parts) and the cluster size (a portable
+#: cluster) it takes at most, and the most rows of a weight tile (one TMA box)
+DENSE_MAX_B = 32
+DENSE_MAX_K = 8192
+DENSE_MAX_KS = 8
+DENSE_KC_MAX = 256
+#: ``quant_rows``' shared scratch (``int8_stream.cuh`` QUANT_SCRATCH)
+QUANT_SCRATCH = 32 * 8 + 32 * 4
+
+
+@dataclasses.dataclass(frozen=True)
+class DensePlan:
+    """One B3/B4 launch at one shape: ``grid`` blocks in clusters of ``ks``;
+    cluster g owns the output slabs [g · spb, min((g + 1) · spb, N / 32)) (32
+    columns each), and its rank r the K tiles [r · tiles / ks, (r + 1) ·
+    tiles / ks) (floors) of ``kc`` rows; ``smem`` the shared bytes of a block
+    (``vt_dense_one_smem``'s)."""
+    grid: int
+    ks: int
+    spb: int
+    kc: int
+    tiles: int
+    smem: int
+
+    def blocks(self, N: int) -> list:
+        """Each block's (first column, end column, first K row, end K row),
+        in block order (block g · ks + r is rank r of cluster g)."""
+        n_slabs = N // SLAB
+        out = []
+        for blk in range(self.grid):
+            g, r = divmod(blk, self.ks)
+            s0, s1 = g * self.spb, min((g + 1) * self.spb, n_slabs)
+            t0, t1 = r * self.tiles // self.ks, (r + 1) * self.tiles // self.ks
+            out.append((SLAB * s0, SLAB * s1, t0 * self.kc, t1 * self.kc))
+        return out
+
+
+def dense_smem(b: int, K: int, spb: int, kc: int, tile_rows: int) -> int:
+    """A B3/B4 block's shared bytes (``dense_layout`` in
+    ``csrc/dense_int8.cu``): ``spb`` slabs of ``tile_rows`` tiles of ``kc``
+    rows, the int8 rows (+ 16 bytes a row against bank conflicts), the int32
+    sums, the row and column scales, the quantizer's scratch and an mbarrier a
+    tile."""
+    mt = 2 if b > 16 else 1
+    return (spb * tile_rows * kc * SLAB + _align16(b * (K + 16)) + spb * 16 * mt * (SLAB + 1) * 4
+            + _align16(4 * b) + spb * SLAB * 4 + QUANT_SCRATCH + 8 * spb * tile_rows)
+
+
+def dense_plan(b: int, K: int, N: int, sms: int, smem_max: int = SMEM_MAX,
+               resident=None) -> DensePlan:
+    """B3's or B4's launch plan, a pure function of the shape, the card's SM
+    count and (``resident(ks, smem)``, where given) the clusters of ``ks``
+    blocks of ``smem`` bytes the card keeps resident at once: the N / 32
+    slabs dealt ``spb`` = ceil(slabs / sms) to a cluster, and K split over
+    ``ks`` ranks, the most (up to 8, no more than sms // clusters) whose
+    clusters all run in one wave; tiles of ``kc`` rows, the largest power of
+    two up to 256 that divides K into at least four tiles a rank (at least
+    32 rows; ``ks`` no more than the tiles). A block's whole slice and the
+    int8 rows lie in shared memory. Raises ``ValueError`` for a shape the
+    body does not take: past 32 rows, K not a multiple of 32 or past 8192, N
+    not a multiple of 32, or a slice past shared memory."""
+    if not 1 <= b <= DENSE_MAX_B:
+        raise ValueError(f"B3/B4 take 1 to {DENSE_MAX_B} rows, got b={b}")
+    if K < SLAB or K % SLAB or K > DENSE_MAX_K:
+        raise ValueError(f"B3/B4 need K a multiple of {SLAB} up to {DENSE_MAX_K}, got {K}")
+    if N < SLAB or N % SLAB:
+        raise ValueError(f"B3/B4 need N a multiple of {SLAB}, got {N}")
+    n_slabs = N // SLAB
+    spb = -(-n_slabs // sms)
+    clusters = -(-n_slabs // spb)
+    for ks in range(max(1, min(DENSE_MAX_KS, sms // clusters, K // SLAB)), 0, -1):
+        kc = DENSE_KC_MAX
+        while kc > SLAB and (K % kc or K // kc < 4 * ks):
+            kc //= 2
+        tiles = K // kc
+        smem = dense_smem(b, K, spb, kc, -(-tiles // ks))
+        if smem > smem_max:
+            raise ValueError(f"B3/B4 at b={b}, K={K}, N={N}: a block's slice and rows take "
+                             f"{smem} bytes, past {smem_max} of shared memory")
+        if ks == 1 or resident is None or clusters <= resident(ks, smem):
+            return DensePlan(grid=clusters * ks, ks=ks, spb=spb, kc=kc, tiles=tiles, smem=smem)
+    raise AssertionError("ks = 1 always returns")
+
+
+@functools.lru_cache(maxsize=None)
+def _dense_fits(b: int, K: int, N: int, sms: int) -> bool:
+    try:
+        dense_plan(b, K, N, sms)
+    except ValueError:
+        return False
+    return True
+
+
+def dense_takes(b: int, K: int, N: int, sms) -> bool:
+    """Whether B3/B4's one launch (``csrc/dense_int8.cu``) takes this shape
+    on a card of ``sms`` SMs: ``dense_plan`` has a plan for it; never off a
+    card (``sms`` None). The wrappers run the other shapes on the old
+    three-kernel chain."""
+    return sms is not None and _dense_fits(b, K, N, sms)
+
+
+@functools.lru_cache(maxsize=None)
+def _dense_resident(dev: int, b: int, ks: int, smem: int) -> int:
+    """Clusters of ``ks`` blocks of ``smem`` bytes (b rows) card ``dev``
+    keeps resident at once for B3/B4 (``cudaOccupancyMaxActiveClusters``)."""
+    n = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        rc = _build.kernel("vt_dense_clusters", [_build.I] * 3 + [_build.P])(
+            b, ks, smem, ctypes.byref(n))
+    _build.check(rc, "vt_dense_clusters")
+    return n.value
+
+
+@functools.lru_cache(maxsize=None)
+def _dense_launch(b: int, K: int, N: int, dev: int):
+    """B3/B4's plan at a shape on card ``dev`` (with the card's resident
+    clusters), or None where the one launch does not take it: a call's one
+    cache lookup (a decode step is bound by host time)."""
+    sms = _sm_count(dev)
+    if not dense_takes(b, K, N, sms):
+        return None
+    return dense_plan(b, K, N, sms, resident=lambda ks, smem: _dense_resident(dev, b, ks, smem))
 
 
 def _tail_swiglu(attn, x, wo_all, wos_all, mw_all, wgu_all, sgu_all, wd_all, sd_all, nxt,
@@ -965,9 +1120,12 @@ def mlp_gelu_int8_stacked(
     return out
 
 
-#: launches of the CUDA entry points (the plain versions are not counted)
+#: launches of the CUDA entry points (the plain versions are not counted);
+#: ``tc_launches``: B3's and B4's that took the one launch
 dense_int8_stacked.launches = 0
 qkv_norm_int8_stacked.launches = 0
+dense_int8_stacked.tc_launches = 0
+qkv_norm_int8_stacked.tc_launches = 0
 tail_swiglu_qkv_int8_stacked.launches = 0
 tail_swiglu_int8_stacked.launches = 0
 mlp_swiglu_int8_stacked.launches = 0
@@ -988,4 +1146,5 @@ __all__ = [
     "mlp_gelu_int8_stacked", "mlp_gelu_int8_plain",
     "gelu_tanh", "pick_tile", "TILE_BUDGET", "TailPlan", "tail_plan", "tail_stream",
     "tail_workspace_bytes", "gelu_workspace_bytes", "gelu_takes",
+    "DensePlan", "dense_plan", "dense_smem", "dense_takes",
 ]
