@@ -34,7 +34,10 @@ Phases (any failure exits non-zero before the final line is printed):
    B1 on the same slots of a 640-slot cache timed beside it), B9d, the int8
    GELU MLP alone (the XTTS layer, f32 and bf16 rows, against the ``_qdot``
    ops), and K5, the one-array append without scales (one bf16
-   [30,16,16,640,128] array at three positions, byte-exact) -- at the
+   [30,16,16,640,128] array at three positions, byte-exact), and K6, the
+   one-array append with scales (JAX's ``_write_k_scales_kernel``: one int8
+   [30,16,16,640,128] array and its two bf16 scale rows at three
+   positions, byte-exact) -- at the
    shapes the path gives it (B1-B6 also at the Qwen3 shapes:
    d_model 2048, 16 q / 8 kv heads of 128, d_ff 8192, b = 8; B6 at
    [8, 16, 512, 128] causal with 8 kv heads, and at the one-chunk batch-1
@@ -48,8 +51,8 @@ Phases (any failure exits non-zero before the final line is printed):
    card could take (bytes over 3.35 TB/s or operations over the peak rate).
    Every kernel row and its yardstick is timed eager and as a CUDA graph of
    its calls (``timed``: ``cuda_ms`` and ``try_graph_ms``; a launch the
-   capture refuses is logged and keeps its eager time), and K4 and K5 also
-   print their wrapper's host µs a call. B2 and B8a (one cooperative launch
+   capture refuses is logged and keeps its eager time), and B5, K4, K5
+   and K6 also print their wrapper's host µs a call. B2 and B8a (one cooperative launch
    on the int8 tensor cores, ``csrc/tail_swiglu.cu``) must be bit-equal to
    their plain versions at layers 0, L/2 and L - 1, B8a to B2's first
    output, and must issue one CUDA kernel a call; their launch plan is
@@ -58,10 +61,13 @@ Phases (any failure exits non-zero before the final line is printed):
    (``chain=True``) at layers 0 and L - 1, B4 also on a ``DENSE_FNS`` qkv
    shape, one CUDA kernel a call; the chain is timed beside them, with both
    wrappers' host µs, and every B3 and B4 launch of a main path must take
-   the one launch (``tc_launches``). ``python3 chip_smoke.py --tail-rows``
-   runs the dense rows, K4 and K5 alone, ``--dense-rows`` the B3 and B4 rows
-   with each block's phase points (copied into an unpacked parent commit,
-   each times that commit's kernels);
+   the one launch (``tc_launches``); so must B9a (the same launch with the
+   LayerNorm), at layers 0, L/2 and L - 1 on bf16 and f32 rows, on every
+   XTTS path and in phase 3's GPT-2 (``B9atc``). ``python3 chip_smoke.py
+   --tail-rows`` runs the dense rows, K4 and K5 alone, ``--dense-rows`` the
+   B3, B4 and B9a rows with each block's phase points and the B5 and K6
+   rows (copied into an unpacked parent commit, each times that commit's
+   kernels);
 3. small-input references: the tiny-scale model on the GPU (kernels)
    against the same weights on the CPU (plain versions) -- teacher-forced
    decode logits and stage-2 PCM on shared noise; then a d_model-128
@@ -167,11 +173,13 @@ Phases (any failure exits non-zero before the final line is printed):
    is still checked;
 5. torch.profiler, only now, so that nothing above is timed in a process
    where it has been on: short windows of each configuration show where
-   the time goes, the studio pass's one UNet call and the XTTS and Qwen3
-   decode windows included, the Chatterbox and Qwen3 bench requests with
-   ``VOCALIE_MEGALAYER=1`` beside their default config, slice 10's two
-   rows (prefill alone and prefill + 16 steps, at 600 and 640 slots), and
-   one flash train step at 8 x 128 and at 8 x 512.
+   the time goes (each decode loop in two windows, prefill + 2 and prefill
+   + 10 steps, ``WINDOW_STEPS``, whose difference gives the device
+   operations a step), the studio pass's one UNet call and the XTTS and
+   Qwen3 decode windows included, the Chatterbox and Qwen3 bench requests
+   with ``VOCALIE_MEGALAYER=1`` beside their default config, slice 10's two
+   rows (at 600 and 640 slots), and one flash train step at 8 x 128 and at
+   8 x 512. Each phase's seconds are logged.
 
 The second-to-last lines are a JSON ``kernels`` line and the card's name
 and power limit; the last line is ``{"ok": true, "device": {...}}``.
@@ -474,6 +482,14 @@ def check_decode_attention(dev, failures):
             "adversarial": _b1_adversarial(dev, failures)}
 
 
+def _same_bytes(got, ref) -> bool:
+    """Whether the int8 and bf16 tensors of ``got`` hold ``ref``'s bytes."""
+    def bits(a):
+        return a.view(torch.uint8 if a.dtype == torch.int8 else torch.int16)
+
+    return all(torch.equal(bits(a), bits(r)) for a, r in zip(got, ref))
+
+
 def _b5_case(dev, failures, *, L, b, kv, d, T, pos, seed, label):
     from vocalie_tts_tpu_torch.ops.cache_update import cache_append_plain, cache_append_stacked
 
@@ -490,26 +506,31 @@ def _b5_case(dev, failures, *, L, b, kv, d, T, pos, seed, label):
                                kn, vn, ksn, vsn, pos)
     ref = cache_append_plain(k.clone(), v.clone(), ks.clone(), vs.clone(), kn, vn, ksn, vsn, pos)
     torch.cuda.synchronize()
-    exact = all(torch.equal(a.view(torch.uint8) if a.dtype == torch.int8 else a.view(torch.int16),
-                            r.view(torch.uint8) if r.dtype == torch.int8 else r.view(torch.int16))
-                for a, r in zip(got, ref))
+    exact = _same_bytes(got, ref)
     err = 0.0 if exact else float("inf")
-    ms, g_ms = timed(lambda i: cache_append_stacked(k, v, ks, vs, kn, vn, ksn, vsn, i % T), 300,
-                     f"B5 [{label}]")
+    def call(i):
+        return cache_append_stacked(k, v, ks, vs, kn, vn, ksn, vsn, i % T)
+
+    ms, g_ms = timed(call, 300, f"B5 [{label}]")
     plain_ms = cuda_ms(lambda i: cache_append_plain(k, v, ks, vs, kn, vn, ksn, vsn, i % T), 100)
+    host = _host_us(call)
     rows = L * b * kv
     bms, by = bound_ms(2 * rows * (2 * d + 2 * 2), 0, PEAK_INT8_OPS)
     log(f"B5 cache_append [{label}]: byte-exact={exact} (tolerance: byte-exact); kernel "
         f"{ms:.6f} ms eager, {fmt_ms(g_ms)} ms graph, plain {plain_ms:.6f} ms, bound {bms:.6f} ms "
-        f"({by})")
+        f"({by}); wrapper host time {host:.2f} us a call")
     if not exact:
         failures.append(f"B5 [{label}] differs from its plain version")
     return {"max_abs_err": err, "tolerance": 0.0, "ms": ms, "graph_ms": g_ms, "plain_ms": plain_ms,
-            "bound_ms": bms, "bound_by": by, "library_ms": None,
+            "bound_ms": bms, "bound_by": by, "library_ms": None, "host_us": host,
             "shape": f"{label}: new[{L},{b},{kv},{d}] int8 into cache[{L},{b},{kv},{T},{d}]"}
 
 
 def check_cache_append(dev, failures):
+    """B5 (the grid-stride word body with the scales, ``csrc/cache_update.cu``)
+    at the T3 and Qwen3 int8 caches: byte-exact to its plain version, eager
+    and graph, the wrapper's host µs; no PyTorch call writes both arrays and
+    both scales."""
     main = _b5_case(dev, failures, L=30, b=16, kv=16, d=64, T=640, pos=416, seed=2,
                     label="voice-over")
     return {"name": "B5 cache_append", "route": "cuda",
@@ -1318,7 +1339,7 @@ def _dense_entry(name, *, got, ref, ms, plain_ms, ops_ms, n_bytes, n_ops, shape,
     path's for B2-B4, the ``_qdot`` path's for B9); ``g_ms`` and
     ``ops_g_ms`` the same two graph-timed; ``host`` the wrapper's host µs a
     call (``_wrapper_host_us``). B2 and B8a (one launch,
-    ``csrc/tail_swiglu.cu``) and B3 and B4 (one launch,
+    ``csrc/tail_swiglu.cu``) and B3, B4 and B9a (one launch,
     ``csrc/dense_int8.cu``) must be bit-equal to their plain versions."""
     errs = [(g - r).abs().max().item() for g, r in zip(got, ref)]
     worst = max(e / (DENSE_TOL * r.abs().max().item()) for e, r in zip(errs, ref))
@@ -1334,16 +1355,16 @@ def _dense_entry(name, *, got, ref, ms, plain_ms, ops_ms, n_bytes, n_ops, shape,
         f"; wrapper host time {host[0]:.2f} us a call, {host[1]:.2f} us of it before the C call"))
     if not worst <= 1.0:
         failures.append(f"{name} differs from its plain version: worst ratio {worst}")
-    if name in TAIL_NAMES + DENSE_ONE_NAMES and not exact:
+    if name in TAIL_NAMES + ONE_LAUNCH_DENSE and not exact:
         failures.append(f"{name} is not bit-equal to its plain version (max_abs_err {err})")
     source = ("tail_swiglu.cu" if name in TAIL_NAMES else
               "tail_gelu.cu" if name in (B9B_NAME, B9C_NAME) else
-              "dense_int8.cu" if name in DENSE_ONE_NAMES else "decode_dense.cu")
+              "dense_int8.cu" if name in ONE_LAUNCH_DENSE else "decode_dense.cu")
     return {"name": name, "route": "cuda",
             "source": "vocalie_tts_tpu_torch/csrc/" + source,
             "replaces": f"vocalie_tts_tpu/ops/decode_dense.py:{DENSE_LINES[name]}",
             "max_abs_err": err, "bit_equal": exact, "tolerance": f"{DENSE_TOL} x max|ref|"
-            + ("; bit-equal" if name in TAIL_NAMES + DENSE_ONE_NAMES else ""),
+            + ("; bit-equal" if name in TAIL_NAMES + ONE_LAUNCH_DENSE else ""),
             "ms": ms, "graph_ms": g_ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "library_ms": None, ops_key: ops_ms, ops_key.removesuffix("_ms") + "_graph_ms": ops_g_ms,
             "cuda_kernels_per_call": None, "shape": shape,
@@ -1366,13 +1387,15 @@ TAIL_NAMES = ("B2 tail_swiglu_qkv_int8", "B8a tail_swiglu_int8")
 #: does not take)
 B9B_NAME = "B9b tail_gelu_qkv_int8"
 B9C_NAME = "B9c tail_gelu_int8"
-#: B3 and B4: one launch each (csrc/dense_int8.cu), bit-equal to their
-#: plain versions and to the old three-kernel chain (which still runs the
-#: shapes the body does not take)
+#: B3, B4 and B9a: one launch each (csrc/dense_int8.cu; B9a B3's with the
+#: LayerNorm), bit-equal to their plain versions and to the old three-kernel
+#: chain (which still runs the shapes the body does not take)
 DENSE_ONE_NAMES = ("B3 qkv_norm_int8", "B4 dense_int8 (lm_head)")
+B9A_NAME = "B9a qkv_lnorm_int8"
+ONE_LAUNCH_DENSE = DENSE_ONE_NAMES + (B9A_NAME,)
 #: the kernels that must be one CUDA kernel a call (B1 and B13 at each of
 #: their shapes: ``count_dense_kernels``)
-ONE_KERNEL_NAMES = TAIL_NAMES + DENSE_ONE_NAMES + (B9B_NAME, B9C_NAME, "B7 decode_step_fused",
+ONE_KERNEL_NAMES = TAIL_NAMES + ONE_LAUNCH_DENSE + (B9B_NAME, B9C_NAME, "B7 decode_step_fused",
                                  "B1 decode_attention_int8", "B13 group_norm_fused",
                                  "B12 layer_swiglu_qkv_int8")
 #: the SwiGLU dense kernels' decode shapes: the Chatterbox T3 voice-over
@@ -1638,9 +1661,11 @@ def _gelu_inputs(dev, L: int = 24):
     request (b = 8 chunks; the full XTTS layer: d_model 1024, d_ff 4096, the
     fused qkv 3072; bf16 residual stream and o/fc/proj biases, f32 LayerNorm
     parameters, as the model stores them), from a seed, and one call of each
-    wrapper by its entry's name."""
+    wrapper by its entry's name; ``cfg`` the XTTS GPT's config at these
+    widths (for the ``_qdot`` yardsticks)."""
     import types
 
+    from vocalie_tts_tpu_torch.models.common import transformer as tr
     from vocalie_tts_tpu_torch.ops import decode_dense as dd
 
     b, d, F, Q, eps = 8, 1024, 4096, 3072, 1e-5
@@ -1664,17 +1689,81 @@ def _gelu_inputs(dev, L: int = 24):
     lg, lb, ng, nb = vec(d, 1.0), vec(d), vec(d, 1.0), vec(d)
     tail = (attn, x, wo, wos, bo, lg, lb, wu, su, bu, wd, sd, bd)
     nxt = (ng, nb, wq, sq)
-    calls = {"B9a qkv_lnorm_int8": lambda: dd.qkv_lnorm_int8_stacked(x, ng, nb, wq, sq, 1, eps=eps),
+    cfg = tr.TransformerConfig(vocab_size=1026, d_model=d, n_layers=L, n_heads=16,
+                               n_kv_heads=16, d_head=64, d_ff=F, norm_eps=eps, norm_type="layer",
+                               mlp_type="gelu", bias=True)
+    calls = {B9A_NAME: lambda: dd.qkv_lnorm_int8_stacked(x, ng, nb, wq, sq, 1, eps=eps),
              "B9b tail_gelu_qkv_int8": lambda: dd.tail_gelu_qkv_int8_stacked(*tail, *nxt, 1,
                                                                              eps=eps),
              "B9c tail_gelu_int8": lambda: dd.tail_gelu_int8_stacked(*tail, 1, eps=eps)}
     return types.SimpleNamespace(**locals())
 
 
+def _qdot_qkv(t, l, x):
+    """The ``_qdot`` path's LayerNorm + qkv on ``_gelu_inputs`` ``t``: B9a's
+    yardstick."""
+    from vocalie_tts_tpu_torch.models.common import transformer as tr
+
+    return tr._qdot(tr._norm(x, t.cfg, t.ng[l], t.nb[l]), {"q": t.wq[l], "s": t.sq[l]})
+
+
+def check_b9a(t, failures) -> dict:
+    """B9a (the XTTS prologue's LayerNorm + int8 qkv: one launch of
+    ``csrc/dense_int8.cu``, B3's with the LayerNorm) on ``_gelu_inputs``
+    ``t``: bit-equal to its plain version and to the old three-kernel chain
+    (``chain=True``) at layers 0, L/2 and L - 1 on the bf16 rows and on the
+    same rows as f32; timed eager and graph beside the chain, with both
+    wrappers' host µs in this process, each timed call reading another
+    layer. The yardstick is the ``_qdot`` path's ops (the f32 LayerNorm, the
+    int8-weight product): no PyTorch call quantizes activations. Returns the
+    ``kernels`` entry."""
+    from vocalie_tts_tpu_torch.ops import decode_dense as dd
+
+    L, b, d, Q, eps = t.L, t.b, t.d, t.Q, t.eps
+    kw = _chain_kw(dd.qkv_lnorm_int8_stacked)
+
+    def call(x, l, **k):
+        return dd.qkv_lnorm_int8_stacked(x, t.ng, t.nb, t.wq, t.sq, l, eps=eps, **k)
+
+    layers, rows = (0, L // 2, L - 1), (t.x, t.x.float())
+    got = [call(x, l) for x in rows for l in layers]
+    ref = [dd.qkv_lnorm_int8_plain(x, t.ng, t.nb, t.wq, t.sq, l, eps=eps)
+           for x in rows for l in layers]
+    chain = [call(x, l, **kw) for x in rows for l in layers]
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, c) for a, c in zip(got, chain))
+    log(f"B9a: equal to the old chain at layers {layers}, bf16 and f32 rows: {same} (max |diff| "
+        f"{max((a - c).abs().max().item() for a, c in zip(got, chain)):.3e})")
+    if not same:
+        failures.append("B9a differs from the old chain (vt_qkv_lnorm_int8)")
+    ms, g_ms = timed(lambda i: call(t.x, i % L), 300, "B9a")
+    old_ms, old_g_ms = timed(lambda i: call(t.x, i % L, **kw), 300, "B9a, the old chain")
+    host = _wrapper_host_us(lambda i: call(t.x, i % L))
+    old_host = _wrapper_host_us(lambda i: call(t.x, i % L, **kw))
+    ops_ms, ops_g_ms = timed(lambda i: _qdot_qkv(t, i % L, t.x), 100, "B9a yardstick")
+    e = _dense_entry(
+        B9A_NAME, got=got, ref=ref, ms=ms, g_ms=g_ms, host=host,
+        plain_ms=cuda_ms(lambda i: dd.qkv_lnorm_int8_plain(t.x, t.ng, t.nb, t.wq, t.sq, i % L,
+                                                           eps=eps), 20),
+        ops_ms=ops_ms, ops_g_ms=ops_g_ms, ops_key="qdot_ops_ms",
+        n_bytes=b * d * 2 + 2 * d * 4 + d * Q + Q * 4 + b * Q * 4, n_ops=2 * b * d * Q,
+        shape=f"x[{b},{d}] bf16 (and f32 for the gates), LayerNorm f32, W[{L},{d},{Q}] int8",
+        failures=failures)
+    e.update(equal_to_old_chain=same, earlier_ms=old_ms, earlier_graph_ms=old_g_ms,
+             earlier_host_us=old_host[0], earlier_host_python_us=old_host[1],
+             earlier="the old three-kernel chain (vt_qkv_lnorm_int8, chain=True), timed in this "
+                     "run")
+    log(f"B9a: the old chain {old_ms:.6f} ms eager, {fmt_ms(old_g_ms)} ms graph; wrapper host "
+        f"time {host[0]:.2f} us a call against the old chain's {old_host[0]:.2f} us"
+        + (" (more: a miss)" if host[0] > old_host[0] else ""))
+    return e
+
+
 def check_dense_gelu(dev, failures, L: int = 24):
-    """B9a, B9b and B9c at the XTTS decode shapes against their plain
-    versions (``DENSE_TOL``: the kernels repeat the plain versions' steps,
-    the tanh-GELU with ``tanhf`` on both sides). Each timed call reads
+    """B9a (``check_b9a``), B9b and B9c at the XTTS decode shapes against
+    their plain versions (``DENSE_TOL``: the kernels repeat the plain
+    versions' steps, the tanh-GELU with ``tanhf`` on both sides; B9a, B9b and
+    B9c also bit-equal to their old chains). Each timed call reads
     another layer of 24, as the decode step does (the 302 MB of int8 layer
     weights are far larger than the 50 MB L2). The ops the port runs for the
     same work without the dense kernels (the ``_qdot`` path: the f32
@@ -1684,16 +1773,10 @@ def check_dense_gelu(dev, failures, L: int = 24):
     from vocalie_tts_tpu_torch.ops import decode_dense as dd
 
     t = _gelu_inputs(dev, L)
-    b, d, F, Q, eps = t.b, t.d, t.F, t.Q, t.eps
-    cfg = tr.TransformerConfig(vocab_size=1026, d_model=d, n_layers=L, n_heads=16, n_kv_heads=16,
-                               d_head=64, d_ff=F, norm_eps=eps, norm_type="layer",
-                               mlp_type="gelu", bias=True)
+    b, d, F, Q, eps, cfg = t.b, t.d, t.F, t.Q, t.eps, t.cfg
 
     def i8(w, s, l):
         return {"q": w[l], "s": s[l]}
-
-    def qdot_qkv(l, x):
-        return tr._qdot(tr._norm(x, cfg, t.ng[l], t.nb[l]), i8(t.wq, t.sq, l))
 
     attn_heads = t.attn.to(torch.bfloat16).reshape(b, 16, 1, 64)
 
@@ -1706,20 +1789,7 @@ def check_dense_gelu(dev, failures, L: int = 24):
     vec_bytes = 4 * 4 * d + 2 * (d + F + d)          # LayerNorm gains/biases, bf16 biases
     tail_w = d * d + d * F + F * d
     tail_scales = 4 * (d + F + d)
-    out = []
-    got = [dd.qkv_lnorm_int8_stacked(t.x, t.ng, t.nb, t.wq, t.sq, 0, eps=eps)]
-    ref = [dd.qkv_lnorm_int8_plain(t.x, t.ng, t.nb, t.wq, t.sq, 0, eps=eps)]
-    torch.cuda.synchronize()
-    ms, g_ms = timed(lambda i: dd.qkv_lnorm_int8_stacked(t.x, t.ng, t.nb, t.wq, t.sq, i % L,
-                                                         eps=eps), 300, "B9a")
-    ops_ms, ops_g_ms = timed(lambda i: qdot_qkv(i % L, t.x), 100, "B9a yardstick")
-    out.append(_dense_entry(
-        "B9a qkv_lnorm_int8", got=got, ref=ref, ms=ms, g_ms=g_ms,
-        plain_ms=cuda_ms(lambda i: dd.qkv_lnorm_int8_plain(t.x, t.ng, t.nb, t.wq, t.sq, i % L,
-                                                           eps=eps), 20),
-        ops_ms=ops_ms, ops_g_ms=ops_g_ms, ops_key="qdot_ops_ms",
-        n_bytes=b * d * 2 + 2 * d * 4 + d * Q + Q * 4 + b * Q * 4, n_ops=2 * b * d * Q,
-        shape=f"x[{b},{d}] bf16, LayerNorm f32, W[{L},{d},{Q}] int8", failures=failures))
+    out = [check_b9a(t, failures)]
     # B9b at a middle layer and at the last one (its next qkv clamped to it),
     # against its plain version and, bit for bit, the old 12-kernel chain
     tile = dd.pick_tile(F, dd.TILE_BUDGET, 2 * d)
@@ -1738,8 +1808,8 @@ def check_dense_gelu(dev, failures, L: int = 24):
                      300, "B9b")
     old_ms, old_g_ms = timed(lambda i: dd._tail_gelu(*t.tail, t.nxt, i % L, eps, tile,
                                                      chain=True), 300, "B9b, the old chain")
-    ops_ms, ops_g_ms = timed(lambda i: qdot_qkv(min(i % L + 1, L - 1), qdot_tail(i % L)[:, 0]),
-                             100, "B9b yardstick")
+    ops_ms, ops_g_ms = timed(lambda i: _qdot_qkv(t, min(i % L + 1, L - 1),
+                                                 qdot_tail(i % L)[:, 0]), 100, "B9b yardstick")
     out.append(_dense_entry(
         B9B_NAME, got=got, ref=ref, ms=ms, g_ms=g_ms,
         host=_wrapper_host_us(lambda i: dd.tail_gelu_qkv_int8_stacked(*t.tail, *t.nxt, i % L,
@@ -2477,7 +2547,8 @@ XTTS_SMALL = dict(d_model=128, n_layers=2, n_heads=2, n_kv_heads=2, d_ff=256, ma
 def small_reference_xtts(dev, failures):
     """A d_model-128 XTTS (2 layers, 2 heads of 64, d_ff 256, vocab 1026,
     f32) in the default int8 serving env, random weights from a seed, on
-    the GPU through B9a + B9b per layer and B4, against (a) the same GPU
+    the GPU through B9a + B9b per layer and B4 (every B9a the one launch of
+    ``csrc/dense_int8.cu``, K split over clusters), against (a) the same GPU
     steps through the kernels' plain versions (``DENSE_TOL`` at every
     step), and (b) the same weights on the CPU: prefill + 12 teacher-forced
     decode steps on the prompt ``build_prompt_embeds`` makes, logits within
@@ -2522,8 +2593,10 @@ def small_reference_xtts(dev, failures):
 
     wrappers = (dd.qkv_lnorm_int8_stacked, dd.tail_gelu_qkv_int8_stacked, dd.dense_int8_stacked)
     before = [w.launches for w in wrappers]
+    tc_before = dd.qkv_lnorm_int8_stacked.tc_launches
     kernel = run(rt, dev)
     launched = [w.launches - b0 for w, b0 in zip(wrappers, before)]
+    b9a_tc = dd.qkv_lnorm_int8_stacked.tc_launches - tc_before
     kept = (tr.qkv_lnorm_int8_stacked, tr.tail_gelu_qkv_int8_stacked, tr.dense_int8_stacked)
     tr.qkv_lnorm_int8_stacked = dd.qkv_lnorm_int8_plain
     tr.tail_gelu_qkv_int8_stacked = dd.tail_gelu_qkv_int8_plain
@@ -2540,12 +2613,16 @@ def small_reference_xtts(dev, failures):
                           for a, c in zip(kernel, on_cpu)])
     outside = int((ratios > 1).sum())
     log(f"small reference, XTTS d_model 128 (prefill + {n_steps} teacher-forced steps): launches "
-        f"B9a/B9b/B4 = {launched} (expected {want}); GPU kernels vs GPU plain versions: worst "
+        f"B9a/B9b/B4 = {launched} (expected {want}; B9a's one launch {b9a_tc}); GPU kernels "
+        "vs GPU plain versions: worst "
         f"|diff| / ({DENSE_TOL} x max|ref|) = {worst_plain:.3f} (must be <= 1); GPU vs CPU: worst "
         f"|diff| / (2e-3 + 2e-3|ref|) = {ratios.max().item():.3f}, {outside} of {ratios.numel()} "
         "(step, row) logit rows outside it (at most a quarter)")
     if launched != want:
         failures.append(f"XTTS reference launches {launched} != {want}")
+    if b9a_tc != launched[0]:
+        failures.append(f"XTTS reference: {b9a_tc} of {launched[0]} B9a launches took the one "
+                        "launch")
     if not worst_plain <= 1.0:
         failures.append(f"XTTS reference: kernels differ from plain versions by {worst_plain}")
     if outside * 4 > ratios.numel():
@@ -2636,10 +2713,10 @@ def _request(script: str, out_path: str) -> dict:
 KERNEL_NAMES = ("B1", "B2", "B3", "B4", "B5", "B6")
 #: the training path's kernels, held to 0 on every serving path
 TRAIN_ZERO = {"B6t": 0, "B11a": 0, "B11b": 0, "B11a_tc": 0, "B11b_tc": 0}
-#: slice 10's kernels, held to 0 on every serving path of the runtimes: they
-#: round their caches to 128-multiples (B1w), no family has a GELU MLP under
-#: RMSNorm (B9d), and K5 is for JAX's one-array API alone
-SLICE10_ZERO = {"B1w": 0, "B9d": 0, "K5": 0}
+#: the kernels held to 0 on every serving path of the runtimes: they round
+#: their caches to 128-multiples (B1w), no family has a GELU MLP under
+#: RMSNorm (B9d), and K5 and K6 are for JAX's one-array API alone
+UNSERVED_ZERO = {"B1w": 0, "B9d": 0, "K5": 0, "K6": 0}
 
 
 class DecodeSteps:
@@ -2664,7 +2741,7 @@ class DecodeSteps:
 
 class TcLaunches:
     """The launches of a flash wrapper (B6, B6t, B11a, B11b) that took the
-    tensor-core body, or of B3 or B4 that took their one launch
+    tensor-core body, or of B3, B4 or B9a that took their one launch
     (``csrc/dense_int8.cu``, not the old chain) (the wrapper's
     ``tc_launches``), under the launch counters' attribute, so that they are
     reset and read with them. Not a kernel of its own."""
@@ -2681,16 +2758,16 @@ class TcLaunches:
         self._wrapper.tc_launches = n
 
 
-#: each flash wrapper's key → the key of its tensor-core launches; B3's and
-#: B4's → the key of their one launch's
+#: each flash wrapper's key → the key of its tensor-core launches; B3's,
+#: B4's and B9a's → the key of their one launch's
 TC_KEYS = {"B6": "B6tc", "B6t": "B6t_tc", "B11a": "B11a_tc", "B11b": "B11b_tc", "B3": "B3tc",
-           "B4": "B4tc"}
+           "B4": "B4tc", "B9a": "B9atc"}
 
 
 def check_tc(label: str, c: dict, failures) -> None:
     """Every B6, B6t, B11a and B11b launch of a full-width path took the
-    tensor-core body (bf16 at d 64 or 128), and every B3 and B4 launch the
-    one launch of ``csrc/dense_int8.cu`` (no served shape takes the old
+    tensor-core body (bf16 at d 64 or 128), and every B3, B4 and B9a launch
+    the one launch of ``csrc/dense_int8.cu`` (no served shape takes the old
     chain): each such count equals the wrapper's."""
     for key, tc in TC_KEYS.items():
         if tc in c and c[tc] != c[key]:
@@ -2700,6 +2777,7 @@ def check_tc(label: str, c: dict, failures) -> None:
 
 def _wrappers():
     from vocalie_tts_tpu_torch.ops.cache_update import (
+        cache_append_k_scales_stacked,
         cache_append_k_stacked,
         cache_append_kv_stacked,
         cache_append_stacked,
@@ -2729,7 +2807,8 @@ def _wrappers():
             "K4": cache_append_kv_stacked, "B6t": flash_attention_lse,
             "B11a": fb.flash_attention_bwd_dkv, "B11b": fb.flash_attention_bwd_dq,
             "B1w": decode_attention_int8_whole_stacked, "B9d": mlp_gelu_int8_stacked,
-            "K5": cache_append_k_stacked, "B6tc": TcLaunches(flash_attention),
+            "K5": cache_append_k_stacked, "K6": cache_append_k_scales_stacked,
+            "B6tc": TcLaunches(flash_attention),
             "B6t_tc": TcLaunches(flash_attention_lse),
             "B11a_tc": TcLaunches(fb.flash_attention_bwd_dkv),
             "B11b_tc": TcLaunches(fb.flash_attention_bwd_dq),
@@ -2758,7 +2837,7 @@ def path_wants(lm, env: dict, steps: int) -> dict:
             "B3": steps if lm.dense_kernel else 0,
             "B4": steps if lm.dense_kernel else 0,
             "B5": append if lm.kv_quant else 0, "K4": 0 if lm.kv_quant else append,
-            "K2": 0, "B10": 0, **TRAIN_ZERO, **SLICE10_ZERO}
+            "K2": 0, "B10": 0, **TRAIN_ZERO, **UNSERVED_ZERO}
 
 
 def drive_path(dev, failures, label: str, env: dict, requests, scale: str = "full",
@@ -3056,7 +3135,7 @@ def drive_cosyvoice(dev, failures, b7_inputs: dict, scale: str = "full"):
             want = {"B3": steps, "B4": steps + 1, "B7": steps if fused else 0,
                     "B1": 0 if fused else lm.n_layers * steps,
                     "B2": 0 if fused else lm.n_layers * steps, "K2": 0, "B10": 0, **TRAIN_ZERO,
-                    **SLICE10_ZERO}
+                    **UNSERVED_ZERO}
             for k, n in want.items():
                 if c[k] != n:
                     failures.append(f"cosyvoice [{label}] {k} launched {c[k]} times, the path "
@@ -3068,12 +3147,7 @@ def drive_cosyvoice(dev, failures, b7_inputs: dict, scale: str = "full"):
 
             def windows(label=label, env=env):
                 set_env(env)
-                n0 = _profiled(f"cosyvoice {label}, prefill alone", lambda: _cosy_decode(rt, 0))
-                n32 = _profiled(f"cosyvoice {label}, prefill + 32 decode steps",
-                                lambda: _cosy_decode(rt, 32, window=32))
-                if n0 and n32:
-                    log(f"breakdown [cosyvoice {label}]: {(n32 - n0) / 32:.1f} device operations "
-                        "per decode step")
+                _step_windows(f"cosyvoice {label}", lambda n: _cosy_decode(rt, n, window=n))
 
             profiles.append(windows)
 
@@ -3138,12 +3212,7 @@ def _cosy_stream_noenv(dev, failures, tmp, wrappers, profiles) -> dict:
 
     def windows():
         set_env(NOENV_ENV)
-        n0 = _profiled(f"cosyvoice {label}, prefill alone", lambda: _cosy_decode(rt, 0))
-        n32 = _profiled(f"cosyvoice {label}, prefill + 32 decode steps",
-                        lambda: _cosy_decode(rt, 32, window=32))
-        if n0 and n32:
-            log(f"breakdown [cosyvoice {label}]: {(n32 - n0) / 32:.1f} device operations per "
-                "decode step")
+        _step_windows(f"cosyvoice {label}", lambda n: _cosy_decode(rt, n, window=n))
 
     profiles.append(windows)
     return {**c, "first_packet_ms": first, "sustained_rtf": audio_s / wall, "wall2_s": wall2,
@@ -3192,7 +3261,7 @@ def _cosy_offline(engine, rt, request, tmp, label, env, wrappers, failures) -> d
     L = lm.n_layers
     want = {"B1": 0 if mega else L * steps, "B2": 0 if mega else L * steps, "B3": steps,
             "B4": steps + 1, "B7": 0, "B12": L * steps if mega else 0, "K2": 0, "B10": 0,
-            **TRAIN_ZERO, **SLICE10_ZERO}
+            **TRAIN_ZERO, **UNSERVED_ZERO}
     for k, n in want.items():
         if c[k] != n:
             failures.append(f"cosyvoice {label} {k} launched {c[k]} times, the path needs {n}")
@@ -3234,6 +3303,7 @@ def _xtts_wrappers() -> dict:
     from vocalie_tts_tpu_torch.ops import decode_dense as dd
 
     return {**_cosy_wrappers(), "B9a": dd.qkv_lnorm_int8_stacked,
+            "B9atc": TcLaunches(dd.qkv_lnorm_int8_stacked),
             "B9b": dd.tail_gelu_qkv_int8_stacked, "B9c": dd.tail_gelu_int8_stacked}
 
 
@@ -3363,8 +3433,9 @@ def drive_xtts(dev, failures, scale: str = "full"):
                 want = {"B9a": L * steps, "B9c": L * steps, "B9b": 0}
             else:
                 want = {"B9a": steps, "B9b": L * steps, "B9c": 0}
+            want["B9atc"] = want["B9a"]   # every B9a the one launch
             want.update(B1=L * steps, B4=steps + 1, B7=0, B2=0, B3=0, K2=0, B10=0, **TRAIN_ZERO,
-                        **SLICE10_ZERO)
+                        **UNSERVED_ZERO)
             if script == XTTS_LONG and bm["prompt_bucket"] != 544:
                 failures.append(f"xtts [{label}]: prompt bucket {bm['prompt_bucket']}, not 544")
             if script == XTTS_LONG and c["B6"] == 0:
@@ -3379,13 +3450,7 @@ def drive_xtts(dev, failures, scale: str = "full"):
 
             def windows(label=label, env=env, texts=texts):
                 set_env(env)
-                n0 = _profiled(f"xtts {label}, prefill alone",
-                               lambda: _xtts_decode(rt, texts, spk, 0))
-                n32 = _profiled(f"xtts {label}, prefill + 32 decode steps",
-                                lambda: _xtts_decode(rt, texts, spk, 32))
-                if n0 and n32:
-                    log(f"breakdown [xtts {label}]: {(n32 - n0) / 32:.1f} device operations per "
-                        "decode step")
+                _step_windows(f"xtts {label}", lambda n: _xtts_decode(rt, texts, spk, n))
 
             profiles.append(windows)
 
@@ -3581,7 +3646,7 @@ def drive_qwen3(dev, failures, scale: str = "full"):
                 want = {**path_wants(lm, env, steps), "B8a": 0}
                 if lm.dense_kernel:
                     want["B4"] = steps + 1
-            want.update(B7=0, B8b=0, **SLICE10_ZERO)
+            want.update(B7=0, B8b=0, **UNSERVED_ZERO)
             if script == QWEN3_LONG:
                 if bm["prompt_bucket"] != 512:
                     failures.append(f"qwen3 [{label}]: prompt bucket {bm['prompt_bucket']}, not 512")
@@ -3601,13 +3666,7 @@ def drive_qwen3(dev, failures, scale: str = "full"):
 
             def windows(label=label, env=env, texts=texts, spk=spk, rt=rt):
                 set_env(env)
-                n0 = _profiled(f"qwen3 {label}, prefill alone",
-                               lambda: _qwen3_decode(rt, texts, 0, spk))
-                n32 = _profiled(f"qwen3 {label}, prefill + 32 decode steps",
-                                lambda: _qwen3_decode(rt, texts, 32, spk))
-                if n0 and n32:
-                    log(f"breakdown [qwen3 {label}]: {(n32 - n0) / 32:.1f} device operations per "
-                        "decode step")
+                _step_windows(f"qwen3 {label}", lambda n: _qwen3_decode(rt, texts, n, spk))
 
             if label.startswith("bench") or (script == QWEN3_LONG and env is not MEGALAYER_ENV):
                 profiles.append(windows)
@@ -3805,11 +3864,31 @@ def _profiled(label: str, fn) -> int:
     return n_ops
 
 
+#: the decode steps of phase 5's two profiled windows of a decode loop
+#: (prefill + that many steps each); the device operations a step are the
+#: two counts' difference over the steps between them, so that the loop's
+#: fixed operations cancel (earlier runs took prefill alone and prefill +
+#: 32 or 16 steps, whose difference also held the fixed operations over 32
+#: or 16)
+WINDOW_STEPS = (2, 10)
+
+
+def _step_windows(label: str, run) -> None:
+    """Phase 5's two profiled windows of a decode loop (``run(n)``: prefill
+    + n decode steps, synchronized) and the device operations a step."""
+    lo, hi = WINDOW_STEPS
+    n_lo = _profiled(f"{label}, prefill + {lo} decode steps", lambda: run(lo))
+    n_hi = _profiled(f"{label}, prefill + {hi} decode steps", lambda: run(hi))
+    if n_lo and n_hi:
+        log(f"breakdown [{label}]: {(n_hi - n_lo) / (hi - lo):.1f} device operations per decode "
+            "step")
+
+
 def breakdown(rt, dev, label: str, stage2_window: bool = True):
     """Where one bench request's time goes: host wall time of the decode
     (prefill + loop) and of stage 2, measured now; and a function that
-    runs torch.profiler over windows of the same work (prefill alone,
-    prefill + 32 decode steps, and one stage-2 call) for the device's busy
+    runs torch.profiler over windows of the same work (``_step_windows``'s
+    two decode windows and one stage-2 call) for the device's busy
     share, the kernels that fill it and the device operations per decode
     step. The windows are short because the profiler's post-processing
     grows with the number of launches."""
@@ -3838,10 +3917,7 @@ def breakdown(rt, dev, label: str, stage2_window: bool = True):
         f"stage 2 {t_end - t_gen:.3f} s")
 
     def windows():
-        n0 = _profiled(f"{label}, prefill alone", lambda: decode(0))
-        n32 = _profiled(f"{label}, prefill + 32 decode steps", lambda: decode(32))
-        if n0 and n32:
-            log(f"breakdown [{label}]: {(n32 - n0) / 32:.1f} device operations per decode step")
+        _step_windows(label, decode)
         if stage2_window:
             _profiled(f"{label}, stage 2 ({toks.shape[1]} tokens x {toks.shape[0]} rows)",
                       lambda: stage2(toks, tl))
@@ -4315,6 +4391,7 @@ def drive_training(dev, failures, scale: str = "full"):
 B1W_NAME = "B1w decode_attention_int8_whole"
 B9D_NAME = "B9d mlp_gelu_int8"
 K5_NAME = "K5 cache_append_k (one array, no scales)"
+K6_NAME = "K6 cache_append_k_scales (one array, scales)"
 #: B1w's shapes: the T3 voice-over's cache at phase 4 (a)'s unrounded
 #: length (cache_len 600: the 512 prompt bucket + 80 steps; 552 slots in use
 #: mid-run) and the Qwen3 decode shape at 520 slots
@@ -4481,8 +4558,64 @@ def check_cache_append_k(dev, failures):
                   library_call="k_all[:, :, :, pos] = k_new")
 
 
+def check_cache_append_k_scales(dev, failures):
+    """K6 (JAX's one-array branch with scales, ``cache_append_kv_stacked(k,
+    None, kn, None, pos, ks, vs, ksn, vsn)``: the B5 body with no v) on one
+    int8 array of the T3 k|v width ([30,16,16,640,128]) and its two bf16
+    scale rows, at three positions, against its plain version (byte-equal);
+    eager and graph, the wrapper's host µs. No PyTorch call writes the array
+    and both scales."""
+    from vocalie_tts_tpu_torch.ops.cache_update import (
+        cache_append_k_scales_plain,
+        cache_append_kv_stacked,
+    )
+
+    L, b, kv, T, D = K5_SHAPE.values()
+    gen = torch.Generator(device=dev).manual_seed(24)
+    k = torch.randint(-127, 128, (L, b, kv, T, D), generator=gen, device=dev, dtype=torch.int8)
+    kn = torch.randint(-127, 128, (L, b, kv, D), generator=gen, device=dev, dtype=torch.int8)
+    ks, vs = (torch.rand((L, b, kv, T), generator=gen, device=dev).to(torch.bfloat16)
+              for _ in range(2))
+    ksn, vsn = (torch.rand((L, b, kv), generator=gen, device=dev).to(torch.bfloat16)
+                for _ in range(2))
+    exact = True
+    for pos in (0, T * 2 // 3, T - 1):
+        got = cache_append_kv_stacked(k.clone(), None, kn, None, pos, ks.clone(), vs.clone(),
+                                      ksn, vsn)
+        ref = cache_append_k_scales_plain(k.clone(), ks.clone(), vs.clone(), kn, ksn, vsn, pos)
+        torch.cuda.synchronize()
+        exact = exact and len(got) == 3 and _same_bytes(got, ref)
+        del got, ref
+
+    def call(i):
+        return cache_append_kv_stacked(k, None, kn, None, i % T, ks, vs, ksn, vsn)
+
+    ms, g_ms = timed(call, 300, "K6")
+    plain_ms = cuda_ms(lambda i: cache_append_k_scales_plain(k, ks, vs, kn, ksn, vsn, i % T), 100)
+    host = _host_us(call)
+    rows = L * b * kv
+    bms, by = bound_ms(2 * rows * (D + 2 * 2), 0, PEAK_INT8_OPS)
+    log(f"{K6_NAME}: byte-exact={exact} (tolerance: byte-exact) at positions 0, {T * 2 // 3}, "
+        f"{T - 1}; kernel {ms:.6f} ms eager, {fmt_ms(g_ms)} ms graph, plain {plain_ms:.6f} ms, "
+        f"bound {bms:.6f} ms ({by}); wrapper host time {host:.2f} us a call")
+    if not exact:
+        failures.append("K6 differs from its plain version")
+    return _entry(K6_NAME, "vocalie_tts_tpu_torch/csrc/cache_update.cu",
+                  "vocalie_tts_tpu/ops/cache_update.py:154",
+                  {"max_abs_err": 0.0 if exact else float("inf"), "tolerance": 0.0, "ms": ms,
+                   "graph_ms": g_ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                   "library_ms": None, "host_us": host,
+                   "shape": f"new[{L},{b},{kv},{D}] int8 and 2 x [{L},{b},{kv}] bf16 scales into "
+                            f"one array [{L},{b},{kv},{T},{D}] and its scale rows"},
+                  launches_path="no served path: only JAX's one-array API reaches it (the "
+                                "port's caches are split); launches counted on the Chatterbox "
+                                "default path, every phase-4 path held to 0",
+                  library_call="none (k_all[:, :, :, pos] = k_new and the two scale rows' "
+                               "assignments are three calls)")
+
+
 def _slice10_calls(dev) -> dict:
-    """One call each of B1w, B9d and K5 at their phase-2 shapes, for the
+    """One call each of B1w, B9d, K5 and K6 at their phase-2 shapes, for the
     kernel-count child."""
     from vocalie_tts_tpu_torch.ops import decode_attention as da
     from vocalie_tts_tpu_torch.ops import decode_dense as dd
@@ -4492,11 +4625,15 @@ def _slice10_calls(dev) -> dict:
     g = _gelu_inputs(dev, 2)
     k = torch.zeros((30, 16, 16, 640, 128), dtype=torch.bfloat16, device=dev)
     kn = torch.zeros((30, 16, 16, 128), dtype=torch.bfloat16, device=dev)
+    k8, kn8 = torch.zeros_like(k, dtype=torch.int8), torch.zeros_like(kn, dtype=torch.int8)
+    ks, vs = (torch.zeros((30, 16, 16, 640), dtype=torch.bfloat16, device=dev) for _ in range(2))
+    ksn, vsn = (torch.zeros((30, 16, 16), dtype=torch.bfloat16, device=dev) for _ in range(2))
     return {
         B1W_NAME: lambda: da.decode_attention_int8_whole_stacked(
             t.q, t.k, t.v, t.bias, 7, t.ks, t.vs, t.kn, t.vn, valid_len=t.valid, sm_scale=t.sm),
         B9D_NAME: lambda: dd.mlp_gelu_int8_stacked(g.x, g.wu, g.su, g.bu, g.wd, g.sd, 1),
         K5_NAME: lambda: cache_append_kv_stacked(k, None, kn, None, 417),
+        K6_NAME: lambda: cache_append_kv_stacked(k8, None, kn8, None, 417, ks, vs, ksn, vsn),
     }
 
 
@@ -4625,14 +4762,8 @@ def drive_unrounded(dev, failures, scale: str = "full", steps: int = 80):
 
     def profile():
         set_env(DEFAULT_ENV)
-        n = min(16, steps)
         for cache_len in lens_600:
-            label = f"T3 cache_len {cache_len}"
-            n0 = _profiled(f"{label}, prefill alone", loop(cache_len, 0))
-            n16 = _profiled(f"{label}, prefill + {n} decode steps", loop(cache_len, n))
-            if n0 and n16:
-                log(f"breakdown [{label}]: {(n16 - n0) / n:.1f} device operations per decode "
-                    "step")
+            _step_windows(f"T3 cache_len {cache_len}", lambda n: loop(cache_len, n)())
 
     return counts, profile
 
@@ -4686,12 +4817,7 @@ def drive_gelu_rms(dev, failures, scale: str = "full", steps: int = 64):
 
     def profile():
         set_env(DEFAULT_ENV)
-        n = min(16, steps)
-        n0 = _profiled("GELU MLP under RMSNorm, prefill alone", loop(0))
-        n16 = _profiled(f"GELU MLP under RMSNorm, prefill + {n} decode steps", loop(n))
-        if n0 and n16:
-            log(f"breakdown [GELU MLP under RMSNorm]: {(n16 - n0) / n:.1f} device operations "
-                "per decode step")
+        _step_windows("GELU MLP under RMSNorm", lambda n: loop(n)())
 
     return counts, profile
 
@@ -4740,9 +4866,11 @@ def main() -> int:
                *dense_q3[3:], check_decode_layer(dev, failures), *f32_attn,
                check_cache_append_kv(dev, failures), *check_flash_train(dev, failures),
                check_whole_attention(dev, failures), check_mlp_gelu(dev, failures),
-               check_cache_append_k(dev, failures)]
+               check_cache_append_k(dev, failures), check_cache_append_k_scales(dev, failures)]
     by_key = {k["name"].split()[0]: k for k in kernels}
     count_dense_kernels(kernels, failures)
+    phase_s = {"2": time.monotonic() - t_start}
+    log(f"chip_smoke: phase 2 took {phase_s['2']:.1f} s")
     if failures:
         raise SystemExit("kernel checks failed: " + "; ".join(failures))
     # the small models run in f32 and are held against the CPU's f32
@@ -4759,6 +4887,8 @@ def main() -> int:
     small_reference_train(dev, failures)
     b9d_small = small_reference_gelu_rms(dev, failures)
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    phase_s["3"] = time.monotonic() - t_start - sum(phase_s.values())
+    log(f"chip_smoke: phase 3 took {phase_s['3']:.1f} s")
     if failures:
         raise SystemExit("small-input reference failed: " + "; ".join(failures))
     requests = [("bench 8-chunk", BENCH_SCRIPT), ("512-bucket prompt", LONG_SCRIPT)]
@@ -4788,6 +4918,8 @@ def main() -> int:
         train_counts, profile_train = drive_training(dev, failures)
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    phase_s["4"] = time.monotonic() - t_start - sum(phase_s.values())
+    log(f"chip_smoke: phase 4 took {phase_s['4']:.1f} s")
     if failures:
         raise SystemExit("main path failed: " + "; ".join(failures))
     # torch.profiler last: everything above is timed without it
@@ -4804,6 +4936,8 @@ def main() -> int:
     profile_unrounded()
     profile_gelu_rms()
     profile_train()
+    phase_s["5"] = time.monotonic() - t_start - sum(phase_s.values())
+    log(f"chip_smoke: phase 5 took {phase_s['5']:.1f} s")
     by_key["B13"]["launches"] = studio[GN_SETTINGS[0][0]]["launches"]
     by_key["B13"]["two_pass_launches"] = studio[GN_SETTINGS[0][0]]["two_pass_launches"]
     by_key["B13"]["launches_knob_unset"] = studio[GN_SETTINGS[1][0]]["launches"]
@@ -4845,6 +4979,7 @@ def main() -> int:
     # B3's and B4's that took their one launch (every one: check_tc)
     by_key["B3"]["tc_launches"] = counts["B3tc"]
     by_key["B4"]["tc_launches"] = counts["B4tc"]
+    by_key["B9a"]["tc_launches"] = xtts["bench 8-chunk, default"]["B9atc"]
     for key, entry in by_key.items():
         if key == "B13":
             continue
@@ -5236,16 +5371,18 @@ def _tail_rows_only() -> int:
 DENSE_PHASES = ("entry", "asked", "normed", "products", "met", "end")
 
 
-def _dense_phases(dd, dev, x, nw, w, s, eps) -> dict:
-    """One B3 (``nw`` set) or B4 call's phase points at layer 1, from its
-    blocks' stamps (the last of three calls): for each point, the µs after
-    the earliest entry at which the first and the last block reached it,
-    beside the plan."""
+def _dense_phases(dd, dev, x, nw, w, s, eps, nb=None) -> dict:
+    """One B3 (``nw`` set), B9a (``nw`` the gains, ``nb`` the biases) or B4
+    call's phase points at layer 1, from its blocks' stamps (the last of
+    three calls): for each point, the µs after the earliest entry at which
+    the first and the last block reached it, beside the plan."""
     b, K = x.shape
-    plan = dd._dense_launch(b, K, w.shape[2], dev.index or 0)
+    ln = {} if nb is None else {"ln": True}
+    plan = dd._dense_launch(b, K, w.shape[2], dev.index or 0, **ln)
     stamps = torch.zeros((plan.grid, len(DENSE_PHASES)), dtype=torch.int64, device=dev)
     for _ in range(3):
-        dd._launch_dense(x, nw, eps, w, s, 1, stamps=stamps)
+        dd._launch_dense(x, nw, eps, w, s, 1, stamps=stamps, **({} if nb is None else
+                                                                {"nb_all": nb}))
     torch.cuda.synchronize()
     t = stamps.cpu().double()
     t = (t - t[:, 0].min()) / 1e3
@@ -5259,13 +5396,16 @@ def _dense_rows_only() -> int:
     """``--dense-rows``: build the kernels and run phase 2's B3 and B4 rows at
     the T3 and Qwen3 decode shapes (``check_b3_b4``: bit-equal to the plain
     versions and to the old chain, eager and graph ms of both, both
-    wrappers' host µs), then one call of each at each shape that records its
-    blocks' phase points (``_dense_phases``), then count one call's CUDA
-    kernels of each with torch.profiler (after every timing), and print the
-    rows as one JSON line. Copied into an unpacked copy of another commit
-    and run there, it times that commit's B3 and B4 on the same rows (before
-    their one launch: the old chain, no phase points); a failed gate is
-    printed, not fatal."""
+    wrappers' host µs) and B9a's at the XTTS layer (``check_b9a``, the same
+    gates and times), then one call of each that records its blocks' phase
+    points (``_dense_phases``), then count one call's CUDA kernels of each
+    with torch.profiler (after every timing); then B5's rows at the T3 and
+    Qwen3 caches (``check_cache_append``) and K6's
+    (``check_cache_append_k_scales``); and print the rows as one JSON line.
+    Copied into an unpacked copy of another commit and run there, it times
+    that commit's kernels on the same rows (where B3, B4 or B9a are the old
+    chain there: no phase points; a commit without K6: no K6 row); a failed
+    gate is printed, not fatal."""
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
@@ -5299,6 +5439,23 @@ def _dense_rows_only() -> int:
             log(f"{key}: CUDA kernels per call (profiled): {counts[key]} ("
                 + ", ".join(f"{_kernel_name(k)} x{n}" for k, n in sorted(per_call.items())) + ")")
         del t
+    g = _gelu_inputs(dev)
+    rows.append(check_b9a(g, failures))
+    if "nb_all" in inspect.signature(dd._launch_dense).parameters:
+        phases["B9a [xtts]"] = _dense_phases(dd, dev, g.x, g.ng, g.wq, g.sq, g.eps, nb=g.nb)
+        log(f"B9a [xtts]: phase points (us from the first entry; first and last block) "
+            f"{phases['B9a [xtts]']}")
+    g.calls[B9A_NAME]()
+    per_call = kernels_per_call(g.calls[B9A_NAME])
+    counts["B9a [xtts]"] = sum(per_call.values())
+    log(f"B9a [xtts]: CUDA kernels per call (profiled): {counts['B9a [xtts]']} ("
+        + ", ".join(f"{_kernel_name(k)} x{n}" for k, n in sorted(per_call.items())) + ")")
+    del g
+    rows.append(check_cache_append(dev, failures))
+    from vocalie_tts_tpu_torch.ops import cache_update
+
+    if hasattr(cache_update, "cache_append_k_scales_stacked"):
+        rows.append(check_cache_append_k_scales(dev, failures))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     print(smi.stdout.strip(), flush=True)

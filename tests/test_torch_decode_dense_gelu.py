@@ -4,7 +4,8 @@
 mode on the CPU as the JAX package's own tests run them
 (``VOCALIE_TILE_MB`` unset). Inputs are made with numpy from a seed, at the
 shapes of ``tests/test_decode_dense.py:163-178`` (L 3, b 4, d 128, d_ff 256,
-qkv 384, non-zero biases and LayerNorm parameters), and B9b once at the full
+qkv 384, non-zero biases and LayerNorm parameters), B9a also at 1 and 32
+bf16 rows (the ends of its one launch's reach), and B9b once at the full
 XTTS layer width (d_model 1024, d_ff 4096, qkv 3072), where the hidden is
 quantized in two d_ff tiles of 2048.
 
@@ -86,6 +87,22 @@ def test_qkv_lnorm_int8_bf16_rows_match_jax():
     got = pd.qkv_lnorm_int8_stacked(torch.from_numpy(x).to(torch.bfloat16),
                                     *map(torch.from_numpy, (ng, nb, q, s)), 0, eps=EPS)
     assert _rel(got.numpy(), ref) < 1e-4
+
+
+@pytest.mark.parametrize("b", [1, 32])
+def test_qkv_lnorm_int8_bf16_rows_match_jax_at_the_batch_edges(b):
+    """The rows B9a's one launch takes at most and at least (1 and 32: one
+    and two m16 row tiles on the card), bf16 rows as the decode step hands
+    them, the last of two layers, against JAX."""
+    rng = np.random.RandomState(6 + b)
+    x = (rng.randn(b, 256) * 2 + 0.5).astype(np.float32)
+    ng, nb = _vec(rng, 2, 256, 1.0), _vec(rng, 2, 256)
+    q, s = _quant_cols(rng, 256, 384, 2)
+    ref = jd.qkv_lnorm_int8_stacked(jnp.asarray(x, jnp.bfloat16), *map(jnp.asarray, (ng, nb, q, s)),
+                                    1, eps=EPS)
+    got = pd.qkv_lnorm_int8_stacked(torch.from_numpy(x).to(torch.bfloat16),
+                                    *map(torch.from_numpy, (ng, nb, q, s)), 1, eps=EPS)
+    assert got.shape == (b, 384) and _rel(got.numpy(), ref) < 1e-4
 
 
 @pytest.mark.parametrize("layer", [0, 1, 2])

@@ -15,7 +15,12 @@ resident), and a block's shared bytes and its cluster stay within
 Hopper's limits. ``dense_takes`` takes exactly what ``dense_plan`` plans;
 the wrappers run the other shapes on the old chain. A numpy emulation of
 the plan's split-K int32 parts, met in any order, then the kernel's f32
-epilogue, gives the plain versions' bits.
+epilogue, gives the plain versions' bits. B9a (the LayerNorm + int8 qkv of
+the XTTS prologue) is the same launch with a LayerNorm: planned at the XTTS
+layer (b 1, 8, 16; [1024] x [1024, 3072]) and at phase 3's d_model-128
+GPT-2 ([128] x [128, 384], split over clusters of 4), and held by the same
+emulation to ``qkv_lnorm_int8_plain``'s bits. The C entries' parameters are
+counted against the ctypes argument types their wrappers declare.
 """
 
 import re
@@ -171,7 +176,7 @@ def _emulate(plan, q, w, xs, s, order_seed):
 
 @pytest.mark.parametrize("b,K,N,sms", [(16, 1024, 1152, 132), (5, 96, 128, 132),
                                        (8, 2048, 2176, 40), (3, 512, 384, 4)])
-@pytest.mark.parametrize("norm", [False, True], ids=["B4", "B3"])
+@pytest.mark.parametrize("norm", [False, True, "ln"], ids=["B4", "B3", "B9a"])
 def test_split_k_parts_meet_to_the_plain_bits(b, K, N, sms, norm):
     rng = np.random.default_rng(b * 7 + K + N)
     x = torch.from_numpy(rng.standard_normal((b, K)).astype(np.float32)).to(torch.bfloat16)
@@ -181,7 +186,11 @@ def test_split_k_parts_meet_to_the_plain_bits(b, K, N, sms, norm):
     nw = torch.from_numpy((1 + 0.1 * rng.standard_normal((2, K))).astype(np.float32))
     plan = dense_plan(b, K, N, sms)
     assert plan.ks > 1 or plan.spb > 1
-    if norm:
+    if norm == "ln":
+        nb = torch.from_numpy((0.1 * rng.standard_normal((2, K))).astype(np.float32))
+        ref = dd.qkv_lnorm_int8_plain(x, nw, nb, w, s, 1, eps=1e-5)
+        q, xs = dd._quantize_rows(dd._ln_rows(x.float(), nw[1], nb[1], 1e-5))
+    elif norm:
         ref = dd.qkv_norm_int8_plain(x, nw, w, s, 1, eps=1e-5)
         q, xs = dd._quantize_rows(dd._rms_rows(x.float(), nw[1], 1e-5))
     else:
@@ -192,4 +201,49 @@ def test_split_k_parts_meet_to_the_plain_bits(b, K, N, sms, norm):
     for seed in range(3):
         got = _emulate(plan, q8, w[1].numpy(), xs.numpy(), s[1].numpy(), seed)
         assert np.array_equal(got, ref.numpy()), np.abs(got - ref.numpy()).max()
-    assert not ref[b // 2].any()
+    if norm != "ln":   # a zero row LayerNorms to its bias
+        assert not ref[b // 2].any()
+
+
+#: B9a's shapes: the XTTS layer's qkv ([1024] x [1024, 3072]) at the batch-1
+#: chunk, the bench request's 8 chunks and 16 rows, and phase 3's
+#: d_model-128 GPT-2 ([128] x [128, 384]; chip_smoke.py's 4 rows)
+B9A_SHAPES = [(1, 1024, 3072), (8, 1024, 3072), (16, 1024, 3072), (4, 128, 384)]
+
+
+@pytest.mark.parametrize("b,K,N", B9A_SHAPES)
+def test_b9a_plans(b, K, N):
+    """B9a takes B3's plan: at the XTTS layer 96 slabs, one a block over the
+    whole K in four 256-row tiles (one wave of 96 blocks, no K split); the
+    d_model-128 GPT-2's 12 slabs split K over clusters of 4 ranks of one
+    32-row tile. Every column is owned once, every K row once a column."""
+    plan = dense_plan(b, K, N, H100_SMS)
+    assert dense_takes(b, K, N, H100_SMS)
+    want = (96, 1, 1, 256, 4) if K == 1024 else (48, 4, 1, 32, 4)
+    assert (plan.grid, plan.ks, plan.spb, plan.kc, plan.tiles) == want, plan
+    assert plan.grid <= H100_SMS and plan.smem <= SMEM_MAX
+    for s, ranges in _owners(plan, N).items():
+        got = sorted(ranges)
+        assert got[0][0] == 0 and got[-1][1] == K and len(got) == plan.ks, (s, got)
+        assert all(a[1] == c[0] for a, c in zip(got, got[1:])), (s, got)
+
+
+def _c_params(source: str, entry: str) -> int:
+    src = (Path(dd.__file__).resolve().parents[1] / "csrc" / source).read_text()
+    return len(re.search(r'extern "C" int %s\(([^)]*)\)' % entry, src).group(1).split(","))
+
+
+@pytest.mark.parametrize("source,entry,argtypes", [
+    ("dense_int8.cu", "vt_dense_clusters", "_CLUSTERS_ARGTYPES"),
+    ("decode_dense.cu", "vt_qkv_lnorm_int8", "_LNORM_ARGTYPES"),
+    ("cache_update.cu", "vt_cache_append", "_ARGTYPES"),
+    ("cache_update.cu", "vt_cache_append_kv", "_KV_ARGTYPES"),
+])
+def test_the_other_c_entries_take_their_wrappers_arguments(source, entry, argtypes):
+    """B9a's chain entry, the resident-cluster query (the body's kind among
+    its arguments) and the appends' entries (B5/K6 and K4/K5) take as many
+    parameters as their wrappers pass."""
+    from vocalie_tts_tpu_torch.ops import cache_update as cu
+
+    module = cu if source == "cache_update.cu" else dd
+    assert _c_params(source, entry) == len(getattr(module, argtypes))

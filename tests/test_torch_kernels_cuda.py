@@ -1,5 +1,6 @@
 """The port's CUDA kernels (B1 int8 decode attention and B1w, its whole-row
-branch, B5 KV-cache append and K5, the one-array append without scales,
+branch, B5 KV-cache append, K6, the one-array append with scales, and K5,
+the one-array append without scales,
 B6 flash attention, the training path's B6 with its logsumexp (B6t) and the
 flash-attention backward B11 (B11b dQ, B11a dK/dV), the dense decode kernels B2/B3/B4, the unfused SwiGLU
 tail and MLP B8a/B8b and the GPT-2 siblings B9a/B9b/B9c, the whole-step
@@ -25,7 +26,14 @@ one launch (``csrc/dense_int8.cu``) the T3 and Qwen3 decode shapes, the
 lm_heads and a ``DENSE_FNS`` qkv, b 1, 17 and 32, K 96, a zero row, the
 last layer, bf16 and f32 rows and norm weights, bit-equal to the plain
 version and to the old chain, one CUDA kernel a call, 50 repeated calls,
-and a shape it does not take (33 rows) on the chain; for B12 (the whole decode layer, one cooperative launch) the T3
+and a shape it does not take (33 rows) on the chain; for B9a's one launch
+(B3's with the LayerNorm) the XTTS layer and K 128 (split over clusters),
+b 1, 3, 8, 17 and 32, bf16 and f32 rows and LayerNorm parameters, layers 0 and
+2, a constant row, bit-equal to the plain version and to the old chain, one
+CUDA kernel a call, and 33 rows on the chain; for B5 and K6 (the
+grid-stride word body with the scales) the T3 and Qwen3 caches, 105 rows
+(not a multiple of the block) and 8-byte rows, at the first and the last
+slot; for B12 (the whole decode layer, one cooperative launch) the T3
 and Qwen3 layers, GQA up to g 8, d_head 32 to 128, batch 1 to 16, a row
 with every cached slot masked, the last layer, valid_len on a block
 boundary and equal to T, bf16 norms, d_ff in one and several tiles, a grid
@@ -51,7 +59,7 @@ a machine that has only PyTorch:
 
     python -m pytest --noconftest tests/test_torch_kernels_cuda.py -q
 
-Tolerances: B5 and K5 byte-exact. B1 and B1w atol 5e-4 on unit-scale inputs: both
+Tolerances: B5, K6 and K5 byte-exact. B1 and B1w atol 5e-4 on unit-scale inputs: both
 sides re-quantize q and p to int8, and a value on a rounding boundary
 may round the other way under another exp/summation order; a p block
 of other than 128 slots lands well outside it
@@ -85,6 +93,8 @@ from vocalie_tts_tpu_torch.ops.cache_update import (
     _KV_ARGTYPES,
     append_word,
     cache_append_k_plain,
+    cache_append_k_scales_plain,
+    cache_append_k_scales_stacked,
     cache_append_k_stacked,
     cache_append_kv_plain,
     cache_append_kv_stacked,
@@ -396,6 +406,51 @@ def test_cache_append_kernel_is_byte_exact(dev, L, b, kv, T, d, pos):
                                kn, vn, ksn, vsn, pos)
     ref = cache_append_plain(k.clone(), v.clone(), ks.clone(), vs.clone(), kn, vn, ksn, vsn, pos)
     torch.cuda.synchronize()
+    for a, r in zip(got, ref):
+        bits = torch.uint8 if a.dtype == torch.int8 else torch.int16
+        assert torch.equal(a.view(bits), r.view(bits))
+
+
+@pytest.mark.parametrize("one_array", [False, True], ids=["B5", "K6"])
+@pytest.mark.parametrize("pos_at", ["first", "last"])
+@pytest.mark.parametrize("L,b,kv,T,d", [
+    (30, 16, 16, 640, 64),   # the T3 cache: 16-byte words, 4 a row
+    (28, 8, 8, 512, 128),    # the Qwen3 cache: 8 a row
+    (3, 5, 7, 24, 64),       # 105 rows, 420 words: not a multiple of the 256-thread block
+    (2, 3, 1, 16, 8),        # 8-byte rows: 4-byte words
+])
+def test_cache_append_scales_words_are_byte_exact(dev, L, b, kv, T, d, pos_at, one_array):
+    """B5 (k and v) and K6 (one array, JAX's ``cache_append_kv_stacked(k,
+    None, kn, None, pos, ks, vs, ksn, vsn)``) in the grid-stride body's
+    words, each row's scales written with its word 0, at the first and the
+    last slot: byte for byte against the plain versions, one launch counted
+    on each entry."""
+    pos = 0 if pos_at == "first" else T - 1
+    gen = _gen(dev, L + b + kv + T + d + pos)
+    k, v = (torch.randint(-127, 128, (L, b, kv, T, d), generator=gen, device=dev,
+                          dtype=torch.int8) for _ in range(2))
+    ks, vs = (torch.rand((L, b, kv, T), generator=gen, device=dev).to(torch.bfloat16)
+              for _ in range(2))
+    kn, vn = (torch.randint(-127, 128, (L, b, kv, d), generator=gen, device=dev,
+                            dtype=torch.int8) for _ in range(2))
+    ksn, vsn = (torch.rand((L, b, kv), generator=gen, device=dev).to(torch.bfloat16)
+                for _ in range(2))
+    assert append_word(d, k.data_ptr(), v.data_ptr(), kn.data_ptr(), vn.data_ptr()) == (
+        4 if d == 8 else 16)
+    before = cache_append_stacked.launches, cache_append_k_scales_stacked.launches
+    if one_array:
+        got = cache_append_kv_stacked(k.clone(), None, kn, None, pos, ks.clone(), vs.clone(),
+                                      ksn, vsn)
+        ref = cache_append_k_scales_plain(k.clone(), ks.clone(), vs.clone(), kn, ksn, vsn, pos)
+    else:
+        got = cache_append_kv_stacked(k.clone(), v.clone(), kn, vn, pos, ks.clone(), vs.clone(),
+                                      ksn, vsn)
+        ref = cache_append_plain(k.clone(), v.clone(), ks.clone(), vs.clone(), kn, vn, ksn, vsn,
+                                 pos)
+    torch.cuda.synchronize()
+    assert (cache_append_stacked.launches, cache_append_k_scales_stacked.launches) == (
+        before[0] + (not one_array), before[1] + one_array)
+    assert len(got) == len(ref)
     for a, r in zip(got, ref):
         bits = torch.uint8 if a.dtype == torch.int8 else torch.int16
         assert torch.equal(a.view(bits), r.view(bits))
@@ -1043,9 +1098,8 @@ def test_tail_swiglu_one_launch_is_bit_equal(dev, width, b, layer, dtype):
 
 def test_tail_swiglu_is_one_cuda_kernel_a_call(dev):
     """torch.profiler sees one CUDA kernel for a B2 call and one for a B8a
-    call (the old body issued 12 and 9)."""
-    from torch.profiler import ProfilerActivity, profile
-
+    call (the old body issued 12 and 9), counted through
+    ``_profiled_kernels``."""
     d, F, Q, eps = TAIL_WIDTHS["t3"]
     wo, wos, mw, wgu, sgu, wd, sd, nw, wq, sq = _tail_weights(dev, "t3")
     gen = _gen(dev, 7)
@@ -1055,15 +1109,8 @@ def test_tail_swiglu_is_one_cuda_kernel_a_call(dev):
     calls = [lambda: tail_swiglu_qkv_int8_stacked(*tail, nw, wq, sq, 1, eps=eps),
              lambda: tail_swiglu_int8_stacked(*tail, 1, eps=eps)]
     for call in calls:
-        call()   # builds, plans and uploads the item table outside the profile
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            call()
-            torch.cuda.synchronize()
-        kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-                   and "memcpy" not in e.name.lower() and "memset" not in e.name.lower()]
-        assert [e.name for e in kernels if "tail_swiglu_kernel" in e.name] and len(kernels) == 1, [
-            e.name for e in kernels]
+        names = _profiled_kernels(call)
+        assert [n for n in names if "tail_swiglu_kernel" in n] and len(names) == 1, names
 
 
 def test_tail_swiglu_refuses_bad_inputs(dev):
@@ -1291,6 +1338,74 @@ def test_qkv_lnorm_int8_kernel(dev, b, d, dq, dtype, const_row, layer):
     torch.cuda.synchronize()
     assert qkv_lnorm_int8_stacked.launches == before + 1
     _close(got, ref)
+
+
+#: B9a's one launch (``csrc/dense_int8.cu`` with the LayerNorm): (rows dtype,
+#: gains and biases dtype, layer of 3): bf16 rows as the decode step hands
+#: them with f32 LayerNorm parameters at layer 0, and f32 rows with bf16
+#: parameters at the last layer
+B9A_KINDS = {"bf16-rows-l0": (torch.bfloat16, torch.float32, 0),
+             "f32-rows-l2": (torch.float32, torch.bfloat16, 2)}
+
+
+def _b9a_args(dev, b, K, N, x_dtype, g_dtype, L=3):
+    gen = _gen(dev, 7 * b + K + N)
+    x = (torch.randn((b, K), generator=gen, device=dev) * 3 + 0.5).to(x_dtype)
+    if b > 1:
+        x[b // 2] = 2.0   # a constant row: LayerNorm gives the bias alone
+    g = (1 + 0.1 * torch.randn((L, K), generator=gen, device=dev)).to(g_dtype)
+    nb = (0.1 * torch.randn((L, K), generator=gen, device=dev)).to(g_dtype)
+    w, s = _int8_weights(gen, dev, L, K, N)
+    return x, g, nb, w, s
+
+
+@pytest.mark.parametrize("kinds", list(B9A_KINDS))
+@pytest.mark.parametrize("K,N", [(1024, 3072), (128, 384)], ids=["xtts", "k128"])
+@pytest.mark.parametrize("b", [1, 3, 8, 17, 32])
+def test_qkv_lnorm_one_launch_is_bit_equal(dev, b, K, N, kinds):
+    """B9a's one launch against its plain version and the old three-kernel
+    chain (``chain=True``), bit for bit: the XTTS layer (one slab a block)
+    and K 128 (K split over clusters of 4), 1 to 32 rows (3 and 17: warps
+    whose rows are not live still read the parts' sums); the one launch
+    counted in ``tc_launches``."""
+    x_dtype, g_dtype, layer = B9A_KINDS[kinds]
+    args = _b9a_args(dev, b, K, N, x_dtype, g_dtype)
+    assert dense_takes(b, K, N, card_sms(dev))
+    before = (qkv_lnorm_int8_stacked.launches, qkv_lnorm_int8_stacked.tc_launches)
+    got = qkv_lnorm_int8_stacked(*args, layer, eps=1e-5)
+    chain = qkv_lnorm_int8_stacked(*args, layer, eps=1e-5, chain=True)
+    ref = qkv_lnorm_int8_plain(*args, layer, eps=1e-5)
+    torch.cuda.synchronize()
+    assert (qkv_lnorm_int8_stacked.launches, qkv_lnorm_int8_stacked.tc_launches) == (
+        before[0] + 2, before[1] + 1)
+    assert got.shape == (b, N) and got.dtype == torch.float32
+    assert torch.equal(got, ref), (got - ref).abs().max().item()
+    assert torch.equal(got, chain), (got - chain).abs().max().item()
+
+
+def test_qkv_lnorm_one_launch_is_one_cuda_kernel_a_call(dev):
+    """torch.profiler sees one CUDA kernel a B9a call at the XTTS shape (the
+    old chain launches three)."""
+    args = _b9a_args(dev, 8, 1024, 3072, torch.bfloat16, torch.float32)
+    names = _profiled_kernels(lambda: qkv_lnorm_int8_stacked(*args, 1, eps=1e-5))
+    assert len(names) == 1 and "dense_int8_kernel" in names[0], names
+    names = _profiled_kernels(lambda: qkv_lnorm_int8_stacked(*args, 1, eps=1e-5, chain=True))
+    assert len(names) == 3 and not any("dense_int8_kernel" in n for n in names), names
+
+
+def test_untaken_qkv_lnorm_shapes_take_the_chain(dev):
+    """33 rows, which the one launch does not take: B9a runs the old chain
+    (3 CUDA kernels) within the plain version's gate, and ``tc_launches``
+    stays."""
+    args = _b9a_args(dev, 33, 1024, 3072, torch.bfloat16, torch.float32)
+    assert not dense_takes(33, 1024, 3072, card_sms(dev))
+    before = qkv_lnorm_int8_stacked.tc_launches
+    names = _cuda_kernels(lambda: qkv_lnorm_int8_stacked(*args, 1, eps=1e-5))
+    assert len(names) == 3 and not any("dense_int8_kernel" in n for n in names), names
+    got = qkv_lnorm_int8_stacked(*args, 1, eps=1e-5)
+    torch.cuda.synchronize()
+    assert qkv_lnorm_int8_stacked.tc_launches == before
+    _close(got, qkv_lnorm_int8_plain(*args, 1, eps=1e-5))
 
 
 def _gelu_tail_args(dev, b, L, d, F, Q, dtype, bias_dtype):

@@ -1,28 +1,35 @@
-// B4 (the int8 product of per-row int8 activations) and B3 (RMSNorm + the
-// fused int8 qkv product) as ONE launch each, on the int8 weight stream of
-// the layer bodies (int8_stream.cuh): TMA weight slices, int8 mma.sync, and
-// split-K met in a thread-block cluster.
+// B4 (the int8 product of per-row int8 activations), B3 (RMSNorm + the
+// fused int8 qkv product) and B9a (LayerNorm + the fused int8 qkv product) as
+// ONE launch each, on the int8 weight stream of the layer bodies
+// (int8_stream.cuh): TMA weight slices, int8 mma.sync, and split-K met in a
+// thread-block cluster.
 //
 // Replaces, in vocalie_tts_tpu/ops/decode_dense.py:
-//   B4 dense_int8_stacked     (def :116, pallas_call :143)
-//   B3 qkv_norm_int8_stacked  (def :269, pallas_call :302)
+//   B4 dense_int8_stacked      (def :116, pallas_call :143)
+//   B3 qkv_norm_int8_stacked   (def :269, pallas_call :302)
+//   B9a qkv_lnorm_int8_stacked (def :652, pallas_call :686)
 // The math is theirs, step for step, and the plain versions' in
-// ops/decode_dense.py (dense_int8_plain, qkv_norm_int8_plain):
+// ops/decode_dense.py (dense_int8_plain, qkv_norm_int8_plain,
+// qkv_lnorm_int8_plain):
 //   h   = x (B4), or x * (1 / sqrt(mean(x * x) + eps)) * nw[l] (B3), the mean
-//         of the squares summed in double and rounded to f32 once;
+//         of the squares summed in double and rounded to f32 once, or (B9a)
+//         c * (1 / sqrt(mean(c * c) + eps)) * nw[l] + nb[l], c = x - mean(x),
+//         the mean and the variance each summed in double and rounded once;
 //   q   = round_half_even(h / s), s = max(max|h| / 127, 1e-8), per row;
 //   out = (float(q . W[l]) * s) * ws[l], the product int8 x int8 in int32
 // (exact in any order, so the K split costs no bit), every f32 step an IEEE
 // intrinsic: the outputs are bit-equal to the plain versions' and to the old
-// three-kernel chain of decode_dense.cu (norm_quant, gemv_partial,
-// gemv_finish), which still runs the shapes this body does not take.
+// three-kernel chain of decode_dense.cu (norm_quant or ln_quant,
+// gemv_partial, gemv_finish), which still runs the shapes this body does not
+// take.
 //
 // Bound: bytes. Each weight byte serves b <= 32 multiply-adds, far below the
 // ~590 int8 operations a byte at which Hopper's tensor cores become the
 // limit. B3 reads 3.1 MB of int8 weights a call at the T3 layer ([16, 1024]
 // x [1024, 3072]: 1.0 us at 3.35 TB/s) and 8.4 MB at the Qwen3 layer ([8,
 // 2048] x [2048, 4096]: 2.6 us); B4 on the lm_head 1.2 MB at T3 ([1024,
-// 1152]) and 4.5 MB at Qwen3 ([2048, 2176]).
+// 1152]) and 4.5 MB at Qwen3 ([2048, 2176]); B9a 3.1 MB at the XTTS layer
+// ([8, 1024] x [1024, 3072]: 0.98 us).
 //
 // Design. The old chain was three kernels a call (a block a row reading the
 // row three times, __dp4a partials over K slices written to a workspace, a
@@ -45,9 +52,9 @@
 //   * while the tiles land, every block norms and quantizes all b rows
 //     itself into shared int8 (quant_rows' body inlined, f32 or bf16 rows,
 //     with the conversion-free quant4_fast: the same bits in every block),
-//     which needs no grid barrier and no workspace; B3's norm weights are
-//     prefetched into L1 at entry, where the norm reads them after its first
-//     reduction. The norm is the launch's critical path: on an H100 it ends
+//     which needs no grid barrier and no workspace; B3's norm weights (B9a's
+//     gains and biases) are prefetched into L1 at entry, where the norm reads
+//     them after its first reduction (B9a's after its second). The norm is the launch's critical path: on an H100 it ends
 //     ~3.6 us after entry for B4's 16 rows of 1024, ~4.4 us for B3's, ~6.5
 //     us for B3's 8 rows of 2048, when the weights have landed; without it
 //     the launch would take 5.3-8.5 us graph-timed instead of 8-11 (PERF.md
@@ -83,7 +90,8 @@ constexpr int DENSE_STAMPS = 6;
 
 struct DenseArgs {
   const void* x;      // [b, K] (x_kind)
-  const void* nw;     // [K] the layer's norm weights (nw_kind), or null (B4)
+  const void* nw;     // [K] the layer's norm weights or gains (nw_kind), or null (B4)
+  const void* nb;     // [K] the layer's LayerNorm biases (nw_kind; B9a), or null
   const float* s;     // [N] the layer's column scales
   float* out;         // [b, N]
   unsigned long long* stamps;
@@ -125,7 +133,8 @@ __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" :: "r"(dst), "l"(src) : "memory");
 }
 
-template <int MT>
+// LN: B9a (nw the gains, nb the biases); else B3 (nw set) or B4
+template <int MT, bool LN>
 __global__ void __launch_bounds__(threads<MT>(), 1)
     dense_int8_kernel(DenseArgs a, const __grid_constant__ CUtensorMap map) {
   extern __shared__ __align__(1024) unsigned char smem[];
@@ -162,21 +171,26 @@ __global__ void __launch_bounds__(threads<MT>(), 1)
     cp_async4(smem_u32(sc + i), a.s + SLAB * slab0 + i);
   }
   cp_async_commit();
-  // B3's norm weights into L1, where the norm reads them after its first reduction
+  // B3's norm weights (B9a's gains and biases) into L1, where the norm reads
+  // them after its first reduction (B9a's after its second)
   const int nw_bytes = a.nw == nullptr ? 0 : a.K * (a.nw_kind == KIND_BF16 ? 2 : 4);
   for (int i = tid; i < nw_bytes / 128; i += nthr) {
     asm volatile("prefetch.global.L1 [%0];\n"
                  :: "l"(reinterpret_cast<const char*>(a.nw) + 128 * i));
+    if (LN) {
+      asm volatile("prefetch.global.L1 [%0];\n"
+                   :: "l"(reinterpret_cast<const char*>(a.nb) + 128 * i));
+    }
   }
   for (int i = tid; i < ns * red_n; i += nthr) red[i] = 0;
 
   // the norm and the quantizer while the tiles land (ends with __syncthreads)
   if (a.x_kind == KIND_BF16) {
-    quant_rows_dense(reinterpret_cast<const __nv_bfloat16*>(a.x), b, a.K, a.nw, a.nw_kind, a.eps,
-                     act, a.lda, rs, smem + lo.scratch);
+    quant_rows_dense<LN>(reinterpret_cast<const __nv_bfloat16*>(a.x), b, a.K, a.nw, a.nb,
+                         a.nw_kind, a.eps, act, a.lda, rs, smem + lo.scratch);
   } else {
-    quant_rows_dense(reinterpret_cast<const float*>(a.x), b, a.K, a.nw, a.nw_kind, a.eps, act,
-                     a.lda, rs, smem + lo.scratch);
+    quant_rows_dense<LN>(reinterpret_cast<const float*>(a.x), b, a.K, a.nw, a.nb, a.nw_kind,
+                         a.eps, act, a.lda, rs, smem + lo.scratch);
   }
   dense_stamp(a, 2);
 
@@ -223,19 +237,23 @@ bool shapes_ok(int b, int K, int N) {
 }
 
 
-// The body for b rows, its largest dynamic shared size allowed once per
-// body and device.
-int dense_fn(int b, const void** fn) {
-  static int allowed[2][64];
-  const int mt2 = b > 16;
-  *fn = mt2 ? (const void*)dense_int8_kernel<2> : (const void*)dense_int8_kernel<1>;
+// The body for b rows (ln: B9a's), its largest dynamic shared size allowed
+// once per body and device.
+int dense_fn(int b, int ln, const void** fn) {
+  static int allowed[4][64];
+  const int k = 2 * (ln != 0) + (b > 16);
+  const void* fns[4] = {(const void*)dense_int8_kernel<1, false>,
+                        (const void*)dense_int8_kernel<2, false>,
+                        (const void*)dense_int8_kernel<1, true>,
+                        (const void*)dense_int8_kernel<2, true>};
+  *fn = fns[k];
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
-  if (!allowed[mt2][dev & 63]) {
+  if (!allowed[k][dev & 63]) {
     e = cudaFuncSetAttribute(*fn, cudaFuncAttributeMaxDynamicSharedMemorySize, DENSE_SMEM_MAX);
     if (e != cudaSuccess) return (int)e;
-    allowed[mt2][dev & 63] = 1;
+    allowed[k][dev & 63] = 1;
   }
   return 0;
 }
@@ -269,48 +287,53 @@ extern "C" int vt_dense_one_smem(int b, int K, int N, int ks, int spb, int kc) {
   return dense_layout(b, K, spb, kc, (tiles + ks - 1) / ks).total;
 }
 
-// Clusters of ks blocks of `smem` shared bytes (b rows) the card keeps
-// resident at once (cudaOccupancyMaxActiveClusters), which dense_plan reads.
-extern "C" int vt_dense_clusters(int b, int ks, int smem, int* clusters) {
+// Clusters of ks blocks of `smem` shared bytes (b rows; ln: B9a's body) the
+// card keeps resident at once (cudaOccupancyMaxActiveClusters), which
+// dense_plan reads.
+extern "C" int vt_dense_clusters(int b, int ln, int ks, int smem, int* clusters) {
   if (b < 1 || b > DENSE_MAX_B || ks < 1 || ks > DENSE_MAX_KS || smem < 0 ||
       smem > DENSE_SMEM_MAX || clusters == nullptr) {
     return (int)cudaErrorInvalidValue;
   }
   const void* fn;
-  const int rc = dense_fn(b, &fn);
+  const int rc = dense_fn(b, ln, &fn);
   if (rc) return rc;
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg = dense_config(b, ks, ks, smem, nullptr, attr);
   return (int)cudaOccupancyMaxActiveClusters(clusters, fn, &cfg);
 }
 
-// B4 (nw_all null, nw_kind 0) and B3: out = the layer's int8 product of the
-// (RMS-normed) rows of x, [b, N] f32, in one launch of `grid` blocks in
+// B4 (nw_all and nb_all null, nw_kind 0), B3 (nb_all null) and B9a (nw_all
+// the LayerNorm gains, nb_all its biases): out = the layer's int8 product of
+// the (normed) rows of x, [b, N] f32, in one launch of `grid` blocks in
 // clusters of ks (ops/decode_dense.py dense_plan: ks, spb slabs a block, kc
 // tile rows; smem checked against vt_dense_one_smem). x is 16-byte aligned
-// (f32) or 8-byte aligned (bf16), nw_all likewise by nw_kind, w_all 16-byte
-// aligned. stamps: null, or [grid, 6] u64 (the phase points above).
-extern "C" int vt_dense_int8_one(const void* x, int x_kind, const void* nw_all, int nw_kind,
-                                 float eps, const void* w_all, const void* s_all, int layer, int L,
-                                 int b, int K, int N, void* out, int grid, int ks, int spb, int kc,
-                                 int smem, void* stamps, void* stream) {
+// (f32) or 8-byte aligned (bf16), nw_all and nb_all likewise by nw_kind,
+// w_all 16-byte aligned. stamps: null, or [grid, 6] u64 (the phase points
+// above).
+extern "C" int vt_dense_int8_one(const void* x, int x_kind, const void* nw_all,
+                                 const void* nb_all, int nw_kind, float eps, const void* w_all,
+                                 const void* s_all, int layer, int L, int b, int K, int N,
+                                 void* out, int grid, int ks, int spb, int kc, int smem,
+                                 void* stamps, void* stream) {
   const int groups = (N / SLAB + spb - 1) / (spb > 0 ? spb : 1);
   if (!shapes_ok(b, K, N) || layer < 0 || layer >= L || x_kind == KIND_NONE ||
-      (nw_kind != KIND_NONE) != (nw_all != nullptr) || smem < 0 ||
+      (nw_kind != KIND_NONE) != (nw_all != nullptr) || (nb_all != nullptr && nw_all == nullptr) ||
+      smem < 0 ||
       smem != vt_dense_one_smem(b, K, N, ks, spb, kc) || smem > DENSE_SMEM_MAX ||
       grid != groups * ks) {
     return (int)cudaErrorInvalidValue;
   }
   const int xa = x_kind == KIND_BF16 ? 8 : 16, na = nw_kind == KIND_BF16 ? 8 : 16;
-  if ((uintptr_t)x % xa || (uintptr_t)nw_all % na || (uintptr_t)w_all % 16 ||
-      (uintptr_t)s_all % 4) {
+  if ((uintptr_t)x % xa || (uintptr_t)nw_all % na || (uintptr_t)nb_all % na ||
+      (uintptr_t)w_all % 16 || (uintptr_t)s_all % 4) {
     return (int)cudaErrorMisalignedAddress;
   }
   DenseArgs a;
+  const long long norm_off = (long long)layer * K * (nw_kind == KIND_BF16 ? 2 : 4);
   a.x = x;
-  a.nw = nw_all == nullptr ? nullptr
-                           : reinterpret_cast<const char*>(nw_all) +
-                                 (long long)layer * K * (nw_kind == KIND_BF16 ? 2 : 4);
+  a.nw = nw_all == nullptr ? nullptr : reinterpret_cast<const char*>(nw_all) + norm_off;
+  a.nb = nb_all == nullptr ? nullptr : reinterpret_cast<const char*>(nb_all) + norm_off;
   a.s = reinterpret_cast<const float*>(s_all) + (long long)layer * N;
   a.out = reinterpret_cast<float*>(out);
   a.stamps = reinterpret_cast<unsigned long long*>(stamps);
@@ -330,7 +353,7 @@ extern "C" int vt_dense_int8_one(const void* x, int x_kind, const void* nw_all, 
   int rc = tile_map(w_all, L, K, N, kc, &map);
   if (rc) return rc;
   const void* fn;
-  rc = dense_fn(b, &fn);
+  rc = dense_fn(b, nb_all != nullptr, &fn);
   if (rc) return rc;
   cudaLaunchAttribute attr[1];
   const cudaLaunchConfig_t cfg = dense_config(b, grid, ks, smem, (cudaStream_t)stream, attr);

@@ -20,7 +20,7 @@
 //   * the layer-tail bodies' weight stream: a ring of mbarrier stages that
 //     a block refills with its items' tiles as it consumes them.
 // Included by tail_swiglu.cuh (B2, B8a and B12), tail_gelu.cu (B9b, B9c),
-// decode_step.cu (B7) and dense_int8.cu (B3, B4).
+// decode_step.cu (B7) and dense_int8.cu (B3, B4, B9a).
 
 #pragma once
 
@@ -349,9 +349,9 @@ __device__ __forceinline__ void acc_to_red(int (&acc)[MT][4][4], int* red, int b
 // parts' double sums are added in part order and their maxima met through
 // shared memory (scratch: QUANT_SCRATCH bytes), so every block gets the
 // same bits. Rows go nwarp / wpr at a time. XT is x's type: float, or
-// __nv_bfloat16 (B3 and B4, dense_int8.cu), whose rows come four values (8
-// bytes) a load and are widened exactly; the float body is the same code.
-// FASTQ quantizes with quant4_fast (B3 and B4), the same bits.
+// __nv_bfloat16 (B3, B4 and B9a, dense_int8.cu), whose rows come four values
+// (8 bytes) a load and are widened exactly; the float body is the same code.
+// FASTQ quantizes with quant4_fast (B3, B4 and B9a), the same bits.
 template <int VEC, bool LN, typename XT = float, bool FASTQ = false>
 __device__ __forceinline__ void quant_rows_t(const XT* x, int b, int d, const void* w,
                                              const void* wb, int wkind, float eps, int8_t* act,
@@ -530,22 +530,22 @@ __device__ __forceinline__ void quant_rows(const float* x, int b, int d, const v
 // quant_rows on f32 or bf16 rows (x 16- or 8-byte aligned, d % 4 == 0)
 // with quant4_fast, inlined: B3's and B4's (dense_int8.cu), whose one call
 // site a launch ran ~1.3 us faster inlined than as quant_rows_n's call on an
-// H100 (PERF.md §6)
-template <typename XT>
+// H100 (PERF.md §6); with LN, B9a's LayerNorm (gain w, bias wb) in place of
+// the RMSNorm, quant_rows_t's LN branch
+template <bool LN, typename XT>
 __device__ __forceinline__ void quant_rows_dense(const XT* x, int b, int d, const void* w,
-                                                 int wkind, float eps, int8_t* act, int lda,
-                                                 float* rs, void* scratch) {
+                                                 const void* wb, int wkind, float eps,
+                                                 int8_t* act, int lda, float* rs, void* scratch) {
   int vec;
   const int wpr = rows_split(b, d, vec);
   if (vec <= 1) {
-    quant_rows_t<1, false, XT, true>(x, b, d, w, nullptr, wkind, eps, act, lda, rs, wpr, scratch);
+    quant_rows_t<1, LN, XT, true>(x, b, d, w, wb, wkind, eps, act, lda, rs, wpr, scratch);
   } else if (vec <= 2) {
-    quant_rows_t<2, false, XT, true>(x, b, d, w, nullptr, wkind, eps, act, lda, rs, wpr, scratch);
+    quant_rows_t<2, LN, XT, true>(x, b, d, w, wb, wkind, eps, act, lda, rs, wpr, scratch);
   } else if (vec <= 4) {
-    quant_rows_t<4, false, XT, true>(x, b, d, w, nullptr, wkind, eps, act, lda, rs, wpr, scratch);
+    quant_rows_t<4, LN, XT, true>(x, b, d, w, wb, wkind, eps, act, lda, rs, wpr, scratch);
   } else {
-    quant_rows_t<MAX_VEC, false, XT, true>(x, b, d, w, nullptr, wkind, eps, act, lda, rs, wpr,
-                                           scratch);
+    quant_rows_t<MAX_VEC, LN, XT, true>(x, b, d, w, wb, wkind, eps, act, lda, rs, wpr, scratch);
   }
 }
 

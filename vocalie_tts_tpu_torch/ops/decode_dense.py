@@ -23,7 +23,7 @@ The GPT-2 family (XTTS):
 
 - ``qkv_lnorm_int8_stacked`` (B9a): f32 LayerNorm (gain, bias), then the
   fused qkv product (the layer-0 prologue; every layer with
-  ``VOCALIE_MEGATAIL=0``);
+  ``VOCALIE_MEGATAIL=0``), B3's launch with the LayerNorm;
 - ``tail_gelu_qkv_int8_stacked`` (B9b): o-proj + bias → residual →
   LayerNorm → fc + bias → tanh-GELU → proj + bias → residual, then the
   next layer's LayerNorm + qkv (layer ``min(l + 1, L - 1)``);
@@ -51,11 +51,12 @@ the entry point), except B2 and B8a, which are one cooperative launch of
 ``csrc/tail_gelu.cu`` (B2's body with the GELU MLP and the LayerNorms; B9c
 its branch without the next qkv, as B8a is B2's), each planned per shape by
 :func:`tail_plan`; a shape that body does not take (:func:`gelu_takes`)
-runs the old chain of ``csrc/decode_dense.cu``. B3 and B4 are one launch of
-``csrc/dense_int8.cu`` (TMA weight slices, int8 tensor cores, split-K met in
-a thread-block cluster), planned per shape by :func:`dense_plan`; a shape
-it does not take (:func:`dense_takes`) runs their old three-kernel chain,
-and ``chain=True`` forces it (the one launch's yardstick); ``tc_launches``
+runs the old chain of ``csrc/decode_dense.cu``. B3, B4 and B9a are one
+launch of ``csrc/dense_int8.cu`` (TMA weight slices, int8 tensor cores,
+split-K met in a thread-block cluster; B9a with the LayerNorm in place of
+B3's RMSNorm), planned per shape by :func:`dense_plan`; a shape it does not
+take (:func:`dense_takes`) runs their old three-kernel chain, and
+``chain=True`` forces it (the one launch's yardstick); ``tc_launches``
 counts the one launch's calls. On a CPU tensor each runs the plain version, which takes
 the integer products exactly in float64 (|sum| <= 8192 · 127² < 2**53).
 """
@@ -325,37 +326,48 @@ def _workspace(nbytes: int, dev) -> torch.Tensor:
     return torch.empty((max(int(nbytes), 1),), dtype=torch.uint8, device=dev)
 
 
-_DENSE_ONE_ARGTYPES = ([_build.P, _build.I, _build.P, _build.I, _build.F, _build.P, _build.P]
-                       + [_build.I] * 5 + [_build.P] + [_build.I] * 5 + [_build.P, _build.P])
+_DENSE_ONE_ARGTYPES = ([_build.P, _build.I, _build.P, _build.P, _build.I, _build.F, _build.P,
+                        _build.P] + [_build.I] * 5 + [_build.P] + [_build.I] * 5
+                       + [_build.P, _build.P])
+_CLUSTERS_ARGTYPES = [_build.I] * 4 + [_build.P]
 
 
-def _launch_dense(x, nw_all, eps, w_all, s_all, layer, chain=False, stamps=None):
-    """B3 (``nw_all`` the stacked norm weights) or B4 (``nw_all`` None):
-    one launch of ``csrc/dense_int8.cu`` where ``dense_takes``, else (or
-    with ``chain``) the old chain of ``csrc/decode_dense.cu``. ``stamps``:
-    None, or an int64 CUDA tensor of ``grid * 6`` the one launch fills with
-    its blocks' phase times (entry, thread 0's tiles asked for, norm,
-    products, the cluster's meet, end)."""
+def _launch_dense(x, nw_all, eps, w_all, s_all, layer, chain=False, stamps=None, nb_all=None):
+    """B3 (``nw_all`` the stacked norm weights), B9a (``nw_all`` the
+    LayerNorm gains, ``nb_all`` its biases) or B4 (``nw_all`` None): one
+    launch of ``csrc/dense_int8.cu`` where ``dense_takes``, else (or with
+    ``chain``) the old chain of ``csrc/decode_dense.cu``. ``stamps``: None,
+    or an int64 CUDA tensor of ``grid * 6`` the one launch fills with its
+    blocks' phase times (entry, thread 0's tiles asked for, norm, products,
+    the cluster's meet, end)."""
     b, K = x.shape
     L, _, N = w_all.shape
+    ln = nb_all is not None
     dev = x.device.index if x.device.index is not None else torch.cuda.current_device()
-    plan = None if chain else _dense_launch(b, K, N, dev)
+    plan = None if chain else _dense_launch(b, K, N, dev, ln)
     out = torch.empty((b, N), dtype=torch.float32, device=x.device)
     nw = (None, 0) if nw_all is None else (nw_all.data_ptr(), _kind(nw_all, "nw_all"))
     if plan is None:
         ws = _workspace(_dense_ws_bytes(b, K, N), x.device)
-        fn = _build.kernel("vt_dense_int8", _DENSE_ARGTYPES)
-        rc = fn(x.data_ptr(), _kind(x, "x"), *nw, float(eps), w_all.data_ptr(), s_all.data_ptr(),
-                int(layer), b, K, N, out.data_ptr(), ws.data_ptr(), ws.numel(),
-                _build.stream_ptr(x))
-        _build.check(rc, "vt_dense_int8")
+        tail = (w_all.data_ptr(), s_all.data_ptr(), int(layer), b, K, N, out.data_ptr(),
+                ws.data_ptr(), ws.numel(), _build.stream_ptr(x))
+        if ln:
+            rc = _build.kernel("vt_qkv_lnorm_int8", _LNORM_ARGTYPES)(
+                x.data_ptr(), _kind(x, "x"), nw[0], nb_all.data_ptr(), nw[1], float(eps), *tail)
+            _build.check(rc, "vt_qkv_lnorm_int8")
+        else:
+            rc = _build.kernel("vt_dense_int8", _DENSE_ARGTYPES)(
+                x.data_ptr(), _kind(x, "x"), *nw, float(eps), *tail)
+            _build.check(rc, "vt_dense_int8")
         return out
     fn = _build.kernel("vt_dense_int8_one", _DENSE_ONE_ARGTYPES)
-    rc = fn(x.data_ptr(), _kind(x, "x"), *nw, float(eps), w_all.data_ptr(), s_all.data_ptr(),
-            int(layer), L, b, K, N, out.data_ptr(), plan.grid, plan.ks, plan.spb, plan.kc,
-            plan.smem, None if stamps is None else stamps.data_ptr(), _build.stream_ptr(x))
+    rc = fn(x.data_ptr(), _kind(x, "x"), nw[0], nb_all.data_ptr() if ln else None, nw[1],
+            float(eps), w_all.data_ptr(), s_all.data_ptr(), int(layer), L, b, K, N,
+            out.data_ptr(), plan.grid, plan.ks, plan.spb, plan.kc, plan.smem,
+            None if stamps is None else stamps.data_ptr(), _build.stream_ptr(x))
     _build.check(rc, "vt_dense_int8_one")
-    (dense_int8_stacked if nw_all is None else qkv_norm_int8_stacked).tc_launches += 1
+    (qkv_lnorm_int8_stacked if ln else dense_int8_stacked if nw_all is None
+     else qkv_norm_int8_stacked).tc_launches += 1
     return out
 
 
@@ -734,7 +746,7 @@ def dense_smem(b: int, K: int, spb: int, kc: int, tile_rows: int) -> int:
 
 def dense_plan(b: int, K: int, N: int, sms: int, smem_max: int = SMEM_MAX,
                resident=None) -> DensePlan:
-    """B3's or B4's launch plan, a pure function of the shape, the card's SM
+    """B3's, B4's or B9a's launch plan, a pure function of the shape, the card's SM
     count and (``resident(ks, smem)``, where given) the clusters of ``ks``
     blocks of ``smem`` bytes the card keeps resident at once: the N / 32
     slabs dealt ``spb`` = ceil(slabs / sms) to a cluster, and K split over
@@ -778,7 +790,7 @@ def _dense_fits(b: int, K: int, N: int, sms: int) -> bool:
 
 
 def dense_takes(b: int, K: int, N: int, sms) -> bool:
-    """Whether B3/B4's one launch (``csrc/dense_int8.cu``) takes this shape
+    """Whether B3/B4's (and B9a's) one launch (``csrc/dense_int8.cu``) takes this shape
     on a card of ``sms`` SMs: ``dense_plan`` has a plan for it; never off a
     card (``sms`` None). The wrappers run the other shapes on the old
     three-kernel chain."""
@@ -786,26 +798,28 @@ def dense_takes(b: int, K: int, N: int, sms) -> bool:
 
 
 @functools.lru_cache(maxsize=None)
-def _dense_resident(dev: int, b: int, ks: int, smem: int) -> int:
+def _dense_resident(dev: int, b: int, ks: int, smem: int, ln: bool = False) -> int:
     """Clusters of ``ks`` blocks of ``smem`` bytes (b rows) card ``dev``
-    keeps resident at once for B3/B4 (``cudaOccupancyMaxActiveClusters``)."""
+    keeps resident at once for B3/B4 (``ln``: B9a's body)
+    (``cudaOccupancyMaxActiveClusters``)."""
     n = ctypes.c_int(0)
     with torch.cuda.device(dev):
-        rc = _build.kernel("vt_dense_clusters", [_build.I] * 3 + [_build.P])(
-            b, ks, smem, ctypes.byref(n))
+        rc = _build.kernel("vt_dense_clusters", _CLUSTERS_ARGTYPES)(
+            b, int(ln), ks, smem, ctypes.byref(n))
     _build.check(rc, "vt_dense_clusters")
     return n.value
 
 
 @functools.lru_cache(maxsize=None)
-def _dense_launch(b: int, K: int, N: int, dev: int):
-    """B3/B4's plan at a shape on card ``dev`` (with the card's resident
-    clusters), or None where the one launch does not take it: a call's one
-    cache lookup (a decode step is bound by host time)."""
+def _dense_launch(b: int, K: int, N: int, dev: int, ln: bool = False):
+    """B3/B4's (``ln``: B9a's) plan at a shape on card ``dev`` (with the
+    card's resident clusters), or None where the one launch does not take
+    it: a call's one cache lookup (a decode step is bound by host time)."""
     sms = _sm_count(dev)
     if not dense_takes(b, K, N, sms):
         return None
-    return dense_plan(b, K, N, sms, resident=lambda ks, smem: _dense_resident(dev, b, ks, smem))
+    return dense_plan(b, K, N, sms,
+                      resident=lambda ks, smem: _dense_resident(dev, b, ks, smem, ln))
 
 
 def _tail_swiglu(attn, x, wo_all, wos_all, mw_all, wgu_all, sgu_all, wd_all, sd_all, nxt,
@@ -944,8 +958,10 @@ def qkv_lnorm_int8_stacked(
     layer: int,
     *,
     eps: float,
+    chain: bool = False,
 ) -> torch.Tensor:
-    """layer_norm(x) · Wqkv[layer] → [b, d_out] f32 (B9a)."""
+    """layer_norm(x) · Wqkv[layer] → [b, d_out] f32 (B9a). ``chain`` runs
+    the old three-kernel chain on a card whatever the shape."""
     b, d_in = x.shape
     L, _, d_out = w_all.shape
     if pick_tile(d_out, TILE_BUDGET, d_in) == 0:
@@ -955,15 +971,8 @@ def qkv_lnorm_int8_stacked(
     _check(x.device, layer, L, ("x", x, _ACT, (b, d_in)), ("ng_all", ng_all, _ACT, (L, d_in)),
            ("nb_all", nb_all, (ng_all.dtype,), (L, d_in)),
            ("w_all", w_all, _I8, (L, d_in, d_out)), ("s_all", s_all, _FL, (L, 1, d_out)))
-    ws = _workspace(_dense_ws_bytes(b, d_in, d_out), x.device)
-    out = torch.empty((b, d_out), dtype=torch.float32, device=x.device)
-    fn = _build.kernel("vt_qkv_lnorm_int8", _LNORM_ARGTYPES)
     qkv_lnorm_int8_stacked.launches += 1
-    rc = fn(x.data_ptr(), _kind(x, "x"), ng_all.data_ptr(), nb_all.data_ptr(),
-            _kind(ng_all, "ng_all"), float(eps), w_all.data_ptr(), s_all.data_ptr(), int(layer),
-            b, d_in, d_out, out.data_ptr(), ws.data_ptr(), ws.numel(), _build.stream_ptr(x))
-    _build.check(rc, "vt_qkv_lnorm_int8")
-    return out
+    return _launch_dense(x, ng_all, eps, w_all, s_all, layer, chain, nb_all=nb_all)
 
 
 @functools.lru_cache(maxsize=None)
@@ -1121,7 +1130,7 @@ def mlp_gelu_int8_stacked(
 
 
 #: launches of the CUDA entry points (the plain versions are not counted);
-#: ``tc_launches``: B3's and B4's that took the one launch
+#: ``tc_launches``: B3's, B4's and B9a's that took the one launch
 dense_int8_stacked.launches = 0
 qkv_norm_int8_stacked.launches = 0
 dense_int8_stacked.tc_launches = 0
@@ -1130,6 +1139,7 @@ tail_swiglu_qkv_int8_stacked.launches = 0
 tail_swiglu_int8_stacked.launches = 0
 mlp_swiglu_int8_stacked.launches = 0
 qkv_lnorm_int8_stacked.launches = 0
+qkv_lnorm_int8_stacked.tc_launches = 0
 tail_gelu_int8_stacked.launches = 0
 tail_gelu_qkv_int8_stacked.launches = 0
 mlp_gelu_int8_stacked.launches = 0
