@@ -1255,8 +1255,10 @@ def count_dense_kernels(kernels, failures) -> None:
         # B1's Qwen3 shape and B13's other studio shapes are counted under
         # "<name> [<label>]" into their own dicts
         targets = [(entry["name"], entry, entry["name"])]
-        if entry["name"] in (B1_NAME, B12_NAME):
+        if entry["name"] in (B1_NAME, B12_NAME, B1W_NAME):
             targets.append((f"{entry['name']} [qwen3]", entry["qwen3_shape"], entry["name"]))
+        if entry["name"] == B1W_NAME:
+            targets.append((f"{B1W_NAME} [no k_new]", entry["no_new_shape"], B1W_NAME))
         for case in entry.get("cases", ()) if entry["name"] == B13_NAME else ():
             targets.append((f"{B13_NAME} [{case['label']}]", case, B13_NAME))
         for key, into, name in targets:
@@ -1355,16 +1357,16 @@ def _dense_entry(name, *, got, ref, ms, plain_ms, ops_ms, n_bytes, n_ops, shape,
         f"; wrapper host time {host[0]:.2f} us a call, {host[1]:.2f} us of it before the C call"))
     if not worst <= 1.0:
         failures.append(f"{name} differs from its plain version: worst ratio {worst}")
-    if name in TAIL_NAMES + ONE_LAUNCH_DENSE and not exact:
+    if name in TAIL_NAMES + ONE_LAUNCH_DENSE + (B9D_NAME,) and not exact:
         failures.append(f"{name} is not bit-equal to its plain version (max_abs_err {err})")
     source = ("tail_swiglu.cu" if name in TAIL_NAMES else
-              "tail_gelu.cu" if name in (B9B_NAME, B9C_NAME) else
+              "tail_gelu.cu" if name in (B9B_NAME, B9C_NAME, B9D_NAME) else
               "dense_int8.cu" if name in ONE_LAUNCH_DENSE else "decode_dense.cu")
     return {"name": name, "route": "cuda",
             "source": "vocalie_tts_tpu_torch/csrc/" + source,
             "replaces": f"vocalie_tts_tpu/ops/decode_dense.py:{DENSE_LINES[name]}",
             "max_abs_err": err, "bit_equal": exact, "tolerance": f"{DENSE_TOL} x max|ref|"
-            + ("; bit-equal" if name in TAIL_NAMES + ONE_LAUNCH_DENSE else ""),
+            + ("; bit-equal" if name in TAIL_NAMES + ONE_LAUNCH_DENSE + (B9D_NAME,) else ""),
             "ms": ms, "graph_ms": g_ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "library_ms": None, ops_key: ops_ms, ops_key.removesuffix("_ms") + "_graph_ms": ops_g_ms,
             "cuda_kernels_per_call": None, "shape": shape,
@@ -1397,7 +1399,8 @@ ONE_LAUNCH_DENSE = DENSE_ONE_NAMES + (B9A_NAME,)
 #: their shapes: ``count_dense_kernels``)
 ONE_KERNEL_NAMES = TAIL_NAMES + ONE_LAUNCH_DENSE + (B9B_NAME, B9C_NAME, "B7 decode_step_fused",
                                  "B1 decode_attention_int8", "B13 group_norm_fused",
-                                 "B12 layer_swiglu_qkv_int8")
+                                 "B12 layer_swiglu_qkv_int8",
+                                 "B1w decode_attention_int8_whole", "B9d mlp_gelu_int8")
 #: the SwiGLU dense kernels' decode shapes: the Chatterbox T3 voice-over
 #: (b = 16: 8 chunks, CFG-doubled; the 1026-token head padded to 1152) and
 #: the Qwen3 bench request (b = 8; GQA qkv 16 x 128 + 2 x 8 x 128; d_ff 8192
@@ -2741,34 +2744,40 @@ class DecodeSteps:
 
 class TcLaunches:
     """The launches of a flash wrapper (B6, B6t, B11a, B11b) that took the
-    tensor-core body, or of B3, B4 or B9a that took their one launch
-    (``csrc/dense_int8.cu``, not the old chain) (the wrapper's
-    ``tc_launches``), under the launch counters' attribute, so that they are
-    reset and read with them. Not a kernel of its own."""
+    tensor-core body, of B3, B4, B9a or B9d that took their one launch
+    (``csrc/dense_int8.cu``, ``csrc/tail_gelu.cu``, not the old chain) (the
+    wrapper's ``tc_launches``), or of B1w that took the split body (its
+    ``cluster_launches``, with ``attr``), under the launch counters'
+    attribute, so that they are reset and read with them. Not a kernel of
+    its own."""
 
-    def __init__(self, wrapper):
+    def __init__(self, wrapper, attr: str = "tc_launches"):
         self._wrapper = wrapper
+        self._attr = attr
 
     @property
     def launches(self) -> int:
-        return self._wrapper.tc_launches
+        return getattr(self._wrapper, self._attr)
 
     @launches.setter
     def launches(self, n: int) -> None:
-        self._wrapper.tc_launches = n
+        setattr(self._wrapper, self._attr, n)
 
 
 #: each flash wrapper's key → the key of its tensor-core launches; B3's,
-#: B4's and B9a's → the key of their one launch's
+#: B4's, B9a's and B9d's → the key of their one launch's; B1w's → its split
+#: body's
 TC_KEYS = {"B6": "B6tc", "B6t": "B6t_tc", "B11a": "B11a_tc", "B11b": "B11b_tc", "B3": "B3tc",
-           "B4": "B4tc", "B9a": "B9atc"}
+           "B4": "B4tc", "B9a": "B9atc", "B9d": "B9d_tc", "B1w": "B1w_cl"}
 
 
 def check_tc(label: str, c: dict, failures) -> None:
     """Every B6, B6t, B11a and B11b launch of a full-width path took the
-    tensor-core body (bf16 at d 64 or 128), and every B3, B4 and B9a launch
-    the one launch of ``csrc/dense_int8.cu`` (no served shape takes the old
-    chain): each such count equals the wrapper's."""
+    tensor-core body (bf16 at d 64 or 128), every B3, B4 and B9a launch the
+    one launch of ``csrc/dense_int8.cu`` and every B9d launch that of
+    ``csrc/tail_gelu.cu`` (no served shape takes the old chain), and every
+    B1w launch the split body (no path's row is past 16 blocks' shared
+    memory): each such count equals the wrapper's."""
     for key, tc in TC_KEYS.items():
         if tc in c and c[tc] != c[key]:
             failures.append(f"[{label}] {tc} (the tensor-core body or one launch) launched "
@@ -2813,6 +2822,8 @@ def _wrappers():
             "B11a_tc": TcLaunches(fb.flash_attention_bwd_dkv),
             "B11b_tc": TcLaunches(fb.flash_attention_bwd_dq),
             "B3tc": TcLaunches(qkv_norm_int8_stacked), "B4tc": TcLaunches(dense_int8_stacked),
+            "B9d_tc": TcLaunches(mlp_gelu_int8_stacked),
+            "B1w_cl": TcLaunches(decode_attention_int8_whole_stacked, "cluster_launches"),
             "steps": DecodeSteps()}
 
 
@@ -4422,25 +4433,34 @@ def _whole_inputs(dev, *, L, b, kv, g, d, T, prompt_pad, n_dec, seed):
                                  sm=1.0 / math.sqrt(d))
 
 
-def _whole_case(dev, failures, attn, label, with_new=True):
-    """B1w against its plain version (atol 5e-4, B1's), timed over the
-    layers; B1 (T-blocked) timed on the same slots of a cache rounded up to
-    a 128-multiple, the kernel the port runs for a runtime's rounded cache."""
+def _whole_case(dev, failures, attn, label, with_new=True, host=False):
+    """B1w (split over a cluster) against its plain version (atol 5e-4,
+    B1's) and the one-block body (``one_block=True``) beside it, both timed
+    over the layers; B1 (T-blocked) timed on the same slots of a cache
+    rounded up to a 128-multiple, the kernel the port runs for a runtime's
+    rounded cache; with ``host``, both bodies' wrapper host µs."""
     from vocalie_tts_tpu_torch.ops import decode_attention as da
 
     t = _whole_inputs(dev, **attn)
     new = (t.kn, t.vn) if with_new else (None, None)
     vl = t.valid if with_new else None
-    out = da.decode_attention_int8_whole_stacked(t.q, t.k, t.v, t.bias, 7, t.ks, t.vs, *new,
-                                                 valid_len=vl, sm_scale=t.sm)
+    n = t.valid if with_new else t.T
+
+    def call(i, **kw):
+        return da.decode_attention_int8_whole_stacked(
+            t.q, t.k, t.v, t.bias, i % t.L, t.ks, t.vs, *new, valid_len=vl, sm_scale=t.sm, **kw)
+
+    out, one = call(7), call(7, one_block=True)
     ref = da.decode_attention_whole_plain(t.q, t.k, t.v, t.bias, 7, t.ks, t.vs, *new, vl,
                                           sm_scale=t.sm)
     torch.cuda.synchronize()
     err = (out - ref).abs().max().item()
+    one_err = (one - ref).abs().max().item()
     tol = 5e-4
-    ms, g_ms = timed(lambda i: da.decode_attention_int8_whole_stacked(
-        t.q, t.k, t.v, t.bias, i % t.L, t.ks, t.vs, *new, valid_len=vl, sm_scale=t.sm), 300,
-        f"{B1W_NAME} [{label}]")
+    splits = da.card_whole_splits(t.b * t.kv, n, t.g, t.d)
+    ms, g_ms = timed(call, 300, f"{B1W_NAME} [{label}]")
+    old_ms, old_g_ms = timed(lambda i: call(i, one_block=True), 300,
+                             f"{B1W_NAME} [{label}], one block")
     plain_ms = cuda_ms(lambda i: da.decode_attention_whole_plain(
         t.q, t.k, t.v, t.bias, i % t.L, t.ks, t.vs, *new, vl, sm_scale=t.sm), 20)
     T128 = -(-t.T // 128) * 128
@@ -4452,65 +4472,91 @@ def _whole_case(dev, failures, attn, label, with_new=True):
         t.q, k1, v1, bias1, i % t.L, ks1, vs1, t.kn, t.vn, valid_len=t.valid, sm_scale=t.sm), 300,
         f"B1 on a {T128}-slot cache [{label}]")
     del k1, v1
-    n = t.valid if with_new else t.T
     n_bytes = (n * t.b * t.kv * (2 * t.d + 2 * 2) + n * t.b * 4
                + 2 * t.b * t.kv * t.g * t.d * 4 + (2 * t.b * t.kv * t.d * 4 if with_new else 0))
     n_ops = 2 * 2 * n * t.b * t.kv * t.g * t.d
     bms, by = bound_ms(n_bytes, n_ops, PEAK_INT8_OPS)
-    log(f"{B1W_NAME} [{label}]: max_abs_err={err:.3e} (tolerance {tol}, B1's); kernel "
-        f"{ms:.6f} ms eager, {fmt_ms(g_ms)} ms graph, plain {plain_ms:.6f} ms, B1 (T-blocked) on "
-        f"a {T128}-slot cache {b1_ms:.6f} ms eager, {fmt_ms(b1_g_ms)} ms graph, bound "
-        f"{bms:.6f} ms ({by}, {n} slots read)")
+    hosts = {}
+    if host:
+        hosts = {"host_us": _wrapper_host_us(call),
+                 "earlier_host_us": _wrapper_host_us(lambda i: call(i, one_block=True))}
+    log(f"{B1W_NAME} [{label}]: max_abs_err={err:.3e} (tolerance {tol}, B1's; the one-block "
+        f"body {one_err:.3e}); kernel ({splits} blocks a pair) {ms:.6f} ms eager, "
+        f"{fmt_ms(g_ms)} ms graph; the one-block body {old_ms:.6f} ms eager, {fmt_ms(old_g_ms)} "
+        f"ms graph; plain {plain_ms:.6f} ms, B1 (T-blocked) on a {T128}-slot cache "
+        f"{b1_ms:.6f} ms eager, {fmt_ms(b1_g_ms)} ms graph, bound {bms:.6f} ms ({by}, {n} slots "
+        "read)" + "".join(f"; {k.replace('_', ' ')} {v[0]:.2f} ({v[1]:.2f} before the C call)"
+                          for k, v in hosts.items()))
     if not err <= tol:
         failures.append(f"B1w [{label}] max_abs_err {err} > {tol}")
+    if not one_err <= tol:
+        failures.append(f"B1w [{label}], one block: max_abs_err {one_err} > {tol}")
     return {"max_abs_err": err, "tolerance": tol, "ms": ms, "graph_ms": g_ms,
             "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by, "library_ms": None,
+            "splits": splits, "earlier_ms": old_ms, "earlier_graph_ms": old_g_ms,
+            "earlier_max_abs_err": one_err,
+            "earlier": "the one-block body (one_block=True), timed in this run",
+            **{k: v[0] for k, v in hosts.items()},
             "b1_tblocked_ms": b1_ms, "b1_tblocked_graph_ms": b1_g_ms,
             "shape": f"{label}: q[{t.b},{t.kv},{t.g},{t.d}] cache[{t.L},{t.b},{t.kv},{t.T},"
                      f"{t.d}] int8, " + (f"valid_len={t.valid}" if with_new else
                                          "no current token: all T read")}
 
 
-def check_whole_attention(dev, failures):
+def check_whole_attention(dev, failures, host=False):
     """B1w at the T3 unrounded cache with the current token (the path's
     call) and without it, and at the Qwen3 shape → its ``kernels`` entry."""
-    main = _whole_case(dev, failures, T3_WHOLE, "unrounded T3 cache")
+    main = _whole_case(dev, failures, T3_WHOLE, "unrounded T3 cache", host=host)
     return _entry(B1W_NAME, "vocalie_tts_tpu_torch/csrc/decode_attention.cu",
                   "vocalie_tts_tpu/ops/decode_attention.py:190", main,
                   no_new_shape=_whole_case(dev, failures, T3_WHOLE, "T3, no k_new/valid_len",
-                                           with_new=False),
-                  qwen3_shape=_whole_case(dev, failures, QWEN3_WHOLE, "qwen3, 520 slots"),
+                                           with_new=False, host=host),
+                  qwen3_shape=_whole_case(dev, failures, QWEN3_WHOLE, "qwen3, 520 slots",
+                                          host=host),
                   library_call="none (no PyTorch call attends over an int8 cache with scales); "
                                "b1_tblocked_ms: B1 on the same slots of a 640-slot cache")
 
 
 def check_mlp_gelu(dev, failures, L: int = 24):
-    """B9d at the XTTS layer (b 8, d_model 1024, d_ff 4096 in two tiles of
-    2048, bf16 fc bias) with f32 and bf16 rows against its plain version
-    (``DENSE_TOL``), timed on bf16 rows over the layers; the ``_qdot`` ops
-    the port runs for the same MLP without the dense kernels as the
-    yardstick."""
+    """B9d (one launch of ``csrc/tail_gelu.cu``) at the XTTS layer (b 8,
+    d_model 1024, d_ff 4096 in two tiles of 2048, bf16 fc bias) with f32 and
+    bf16 rows at layers 0 and L - 1, bit-equal to its plain version and to
+    the old six-kernel chain (``chain=True``); timed on bf16 rows over the
+    layers beside the chain, with both wrappers' host µs in this process;
+    the ``_qdot`` ops the port runs for the same MLP without the dense
+    kernels as the yardstick."""
     from vocalie_tts_tpu_torch.models.common import transformer as tr
     from vocalie_tts_tpu_torch.ops import decode_dense as dd
 
     t = _gelu_inputs(dev, L)
     b, d, F = t.b, t.d, t.F
     args = (t.wu, t.su, t.bu, t.wd, t.sd)
-    got = [dd.mlp_gelu_int8_stacked(x, *args, layer) for x in (t.x.float(), t.x)
-           for layer in (0, L - 1)]
-    ref = [dd.mlp_gelu_int8_plain(x, *args, layer) for x in (t.x.float(), t.x)
-           for layer in (0, L - 1)]
+    cases = [(x, layer) for x in (t.x.float(), t.x) for layer in (0, L - 1)]
+    got = [dd.mlp_gelu_int8_stacked(x, *args, layer) for x, layer in cases]
+    ref = [dd.mlp_gelu_int8_plain(x, *args, layer) for x, layer in cases]
+    chain = [dd.mlp_gelu_int8_stacked(x, *args, layer, chain=True) for x, layer in cases]
     torch.cuda.synchronize()
+    same = all(torch.equal(a, c) for a, c in zip(got, chain))
+    log(f"B9d: equal to the old chain at layers 0 and {L - 1}, f32 and bf16 rows: {same} (max "
+        f"|diff| {max((a - c).abs().max().item() for a, c in zip(got, chain)):.3e})")
+    if not same:
+        failures.append("B9d differs from the old chain (vt_mlp_gelu_int8)")
 
     def qdot_mlp(l):
         up = tr._qdot(t.x, {"q": t.wu[l], "s": t.su[l]}, f32_out=True) + t.bu[l].float()
         return tr._qdot(dd.gelu_tanh(up).to(t.x.dtype), {"q": t.wd[l], "s": t.sd[l]},
                         f32_out=True)
 
-    ms, g_ms = timed(lambda i: dd.mlp_gelu_int8_stacked(t.x, *args, i % L), 300, "B9d")
+    def call(i, **kw):
+        return dd.mlp_gelu_int8_stacked(t.x, *args, i % L, **kw)
+
+    ms, g_ms = timed(call, 300, "B9d")
+    old_ms, old_g_ms = timed(lambda i: call(i, chain=True), 300, "B9d, the old chain")
+    host = _wrapper_host_us(call)
+    old_host = _wrapper_host_us(lambda i: call(i, chain=True))
     ops_ms, ops_g_ms = timed(lambda i: qdot_mlp(i % L), 100, "B9d yardstick")
-    return _dense_entry(
-        B9D_NAME, got=got, ref=ref, ms=ms, g_ms=g_ms,
+    e = _dense_entry(
+        B9D_NAME, got=got, ref=ref, ms=ms, g_ms=g_ms, host=host,
         plain_ms=cuda_ms(lambda i: dd.mlp_gelu_int8_plain(t.x, *args, i % L), 20),
         ops_ms=ops_ms, ops_g_ms=ops_g_ms, ops_key="qdot_ops_ms",
         n_bytes=b * d * 2 + 2 * d * F + 4 * (F + d) + 2 * F + b * d * 4,
@@ -4518,6 +4564,13 @@ def check_mlp_gelu(dev, failures, L: int = 24):
         shape=f"x[{b},{d}] bf16 (and f32), bf16 fc bias, d_ff {F} in tiles of "
               f"{dd.pick_tile(F, dd.TILE_BUDGET, 2 * d)}, {L} layers (layers 0 and {L - 1} "
               "checked)", failures=failures)
+    e.update(equal_to_old_chain=same, earlier_ms=old_ms, earlier_graph_ms=old_g_ms,
+             earlier_host_us=old_host[0], earlier_host_python_us=old_host[1],
+             earlier="the old six-kernel chain (vt_mlp_gelu_int8, chain=True), timed in this run")
+    log(f"B9d: the old chain {old_ms:.6f} ms eager, {fmt_ms(old_g_ms)} ms graph; wrapper host "
+        f"time {host[0]:.2f} us a call against the old chain's {old_host[0]:.2f} us"
+        + (" (more: a miss)" if host[0] > old_host[0] else ""))
+    return e
 
 
 def check_cache_append_k(dev, failures):
@@ -4615,13 +4668,14 @@ def check_cache_append_k_scales(dev, failures):
 
 
 def _slice10_calls(dev) -> dict:
-    """One call each of B1w, B9d, K5 and K6 at their phase-2 shapes, for the
-    kernel-count child."""
+    """One call each of B1w (at its three phase-2 shapes), B9d, K5 and K6 at
+    their phase-2 shapes, for the kernel-count child."""
     from vocalie_tts_tpu_torch.ops import decode_attention as da
     from vocalie_tts_tpu_torch.ops import decode_dense as dd
     from vocalie_tts_tpu_torch.ops.cache_update import cache_append_kv_stacked
 
     t = _whole_inputs(dev, **T3_WHOLE)
+    t3 = _whole_inputs(dev, **{**QWEN3_WHOLE, "L": 8})
     g = _gelu_inputs(dev, 2)
     k = torch.zeros((30, 16, 16, 640, 128), dtype=torch.bfloat16, device=dev)
     kn = torch.zeros((30, 16, 16, 128), dtype=torch.bfloat16, device=dev)
@@ -4631,6 +4685,11 @@ def _slice10_calls(dev) -> dict:
     return {
         B1W_NAME: lambda: da.decode_attention_int8_whole_stacked(
             t.q, t.k, t.v, t.bias, 7, t.ks, t.vs, t.kn, t.vn, valid_len=t.valid, sm_scale=t.sm),
+        f"{B1W_NAME} [no k_new]": lambda: da.decode_attention_int8_whole_stacked(
+            t.q, t.k, t.v, t.bias, 7, t.ks, t.vs, sm_scale=t.sm),
+        f"{B1W_NAME} [qwen3]": lambda: da.decode_attention_int8_whole_stacked(
+            t3.q, t3.k, t3.v, t3.bias, 7, t3.ks, t3.vs, t3.kn, t3.vn, valid_len=t3.valid,
+            sm_scale=t3.sm),
         B9D_NAME: lambda: dd.mlp_gelu_int8_stacked(g.x, g.wu, g.su, g.bu, g.wd, g.sd, 1),
         K5_NAME: lambda: cache_append_kv_stacked(k, None, kn, None, 417),
         K6_NAME: lambda: cache_append_kv_stacked(k8, None, kn8, None, 417, ks, vs, ksn, vsn),
@@ -4752,7 +4811,8 @@ def drive_unrounded(dev, failures, scale: str = "full", steps: int = 80):
             "B3tc": steps, "B4tc": steps + 1, "B5": steps, "B6": L if s >= 512 else 0,
             "B6tc": L if s >= 512 else 0, "steps": steps}
     counts = _counted_loops("unrounded T3 cache", wrappers, [
-        (f"cache_len {lens_600[0]}", loop(lens_600[0]), {**base, "B1w": L * steps}),
+        (f"cache_len {lens_600[0]}", loop(lens_600[0]),
+         {**base, "B1w": L * steps, "B1w_cl": L * steps}),
         (f"cache_len {lens_600[1]}", loop(lens_600[1]), {**base, "B1": L * steps}),
     ], cfg.vocab_size, failures)
     for cache_len in (lens_600[1], lens_600[0]):
@@ -4806,7 +4866,8 @@ def drive_gelu_rms(dev, failures, scale: str = "full", steps: int = 64):
         return lambda: _decode_loop(params, cfg, None, lens, cache_len, n, 0.0, tokens=toks)
 
     loop(4)()   # load and warm up
-    want = {**{k: 0 for k in wrappers}, "B9d": L * steps, "B4": steps * (1 + 2 * L) + 1,
+    want = {**{k: 0 for k in wrappers}, "B9d": L * steps, "B9d_tc": L * steps,
+            "B4": steps * (1 + 2 * L) + 1,
             "B4tc": steps * (1 + 2 * L) + 1, "B1": L * steps, "B5": steps,
             "B6": L if s >= 512 else 0, "B6tc": L if s >= 512 else 0, "steps": steps}
     counts = _counted_loops("GELU MLP under RMSNorm", wrappers,
@@ -4980,6 +5041,9 @@ def main() -> int:
     by_key["B3"]["tc_launches"] = counts["B3tc"]
     by_key["B4"]["tc_launches"] = counts["B4tc"]
     by_key["B9a"]["tc_launches"] = xtts["bench 8-chunk, default"]["B9atc"]
+    # B9d's that took its one launch, B1w's the split body (every one: check_tc)
+    by_key["B9d"]["tc_launches"] = next(iter(gelu_rms.values()))["B9d_tc"]
+    by_key["B1w"]["cluster_launches"] = unrounded["cache_len 600"]["B1w_cl"]
     for key, entry in by_key.items():
         if key == "B13":
             continue
@@ -5464,6 +5528,94 @@ def _dense_rows_only() -> int:
     return 0
 
 
+def sweep_whole_splits(dev) -> dict:
+    """B1w's split body at its three phase-2 shapes graph-timed at every
+    split count from 1 to 16 (``splits=``), beside the count
+    ``card_whole_splits`` picks on this card."""
+    from vocalie_tts_tpu_torch.ops import decode_attention as da
+
+    out = {}
+    for label, attn, with_new in (("t3", T3_WHOLE, True), ("t3 no k_new", T3_WHOLE, False),
+                                  ("qwen3", QWEN3_WHOLE, True)):
+        t = _whole_inputs(dev, **attn)
+        new = (t.kn, t.vn) if with_new else (None, None)
+        vl = t.valid if with_new else None
+        row = {"planned": da.card_whole_splits(t.b * t.kv, t.valid if with_new else t.T, t.g,
+                                               t.d)}
+        for n in range(1, da.WHOLE_SPLIT_MAX + 1):
+            row[n] = graph_ms(lambda i, n=n: da.decode_attention_int8_whole_stacked(
+                t.q, t.k, t.v, t.bias, i % t.L, t.ks, t.vs, *new, valid_len=vl, sm_scale=t.sm,
+                splits=n))
+        log(f"B1w [{label}] by split count (graph ms): "
+            + ", ".join(f"{k}: {v:.6f}" for k, v in row.items() if k != "planned")
+            + f"; planned {row['planned']}")
+        out[label] = row
+        del t
+    return out
+
+
+def _whole_mlp_rows_only() -> int:
+    """``--whole-mlp-rows [--sweep]``: build the kernels and run phase 2's
+    B1w rows (the T3 cache of 600 slots with 552 valid and the current
+    token, the same without it, Qwen3's cache of 520 with 352 valid: the
+    split body beside the one-block body and B1 on the same slots of a
+    128-rounded cache, eager and graph-timed, both bodies' wrapper host µs)
+    and B9d's (the XTTS layer: bit-equal to its plain version and to the old
+    chain, beside the chain, both wrappers' host µs), then B1w's phase points
+    at the planned split (``tools/attn_gn_trace.py`` ``trace_b1w``) and
+    B9d's (``tools/tail_swiglu_trace.py``: each block's phase points and
+    when its tiles landed), then
+    count one call's CUDA kernels of each with torch.profiler (after every
+    timing), and print it all as one JSON line; with ``--sweep``, also
+    ``sweep_whole_splits``. A failed gate is printed, not fatal."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    from vocalie_tts_tpu_torch.ops import _build
+    from vocalie_tts_tpu_torch.ops import decode_dense as dd
+    from vocalie_tts_tpu_torch.tools import tail_swiglu_trace as tst
+    from vocalie_tts_tpu_torch.tools.attn_gn_trace import B1W_SHAPES, _line, trace_b1w
+
+    log(f"kernels built -> {_build.build().name}")
+    name = ""
+    for line in _build.build_log().splitlines():   # the two bodies' registers and spills
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif ("attend_int8_whole" in name or "tail_gelu_kernel" in name) and (
+                "registers" in line or "spill" in line):
+            log(f"  {_kernel_name(name)[:60]}: {line.strip()}")
+    dev = torch.device("cuda:0")
+    failures: list = []
+    rows = [check_whole_attention(dev, failures, host=True), check_mlp_gelu(dev, failures)]
+    phases = {}
+    for shape in B1W_SHAPES:
+        phases[shape] = trace_b1w(dev, shape)
+        log(_line(f"B1w {shape} phase points ({phases[shape]['splits']} blocks a pair)",
+                  phases[shape]))
+    plan, call = tst._mlp_gelu_call(tst.GELU_SHAPE, dev, 8)
+    res = tst.trace(plan, call, qkv=False, skip=(1, 2))
+    tst._report(f"B9d phase points (us from the first entry, first-last block; stages "
+                f"{res.pop('stages')})", res, phases)
+    sweep = sweep_whole_splits(dev) if "--sweep" in sys.argv else None
+    counts = {}
+    g = _gelu_inputs(dev, 2)
+    calls = {k: c for k, c in _slice10_calls(dev).items() if k.split()[0] in ("B1w", "B9d")}
+    calls[f"{B9D_NAME} [chain=True]"] = lambda: dd.mlp_gelu_int8_stacked(
+        g.x, g.wu, g.su, g.bu, g.wd, g.sd, 1, chain=True)
+    for key, call in calls.items():
+        call()
+        per_call = kernels_per_call(call)
+        counts[key] = sum(per_call.values())
+        log(f"{key}: CUDA kernels per call (profiled): {counts[key]} ("
+            + ", ".join(f"{_kernel_name(k)} x{n}" for k, n in sorted(per_call.items())) + ")")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    print(smi.stdout.strip(), flush=True)
+    print(json.dumps({"rows": rows, "phases": phases, "cuda_kernels_per_call": counts,
+                      "sweep": sweep, "failures": failures}), flush=True)
+    return 0
+
+
 def sweep_int8_splits(dev) -> dict:
     """B1 at the T3 and Qwen3 decode shapes graph-timed at every split count
     the valid blocks allow (``splits=``), beside the count ``int8_splits``
@@ -5694,5 +5846,6 @@ if __name__ == "__main__":
              "--qwen3-decode-kernel": _qwen3_decode_kernel_only, "--tail-rows": _tail_rows_only,
              "--decode-steps": _decode_steps_only, "--stream-steps": _stream_steps_only,
              "--attn-gn-rows": _attn_gn_rows_only, "--e2e-ab": _e2e_ab_only,
-             "--layer-rows": _layer_rows_only, "--dense-rows": _dense_rows_only}
+             "--layer-rows": _layer_rows_only, "--dense-rows": _dense_rows_only,
+             "--whole-mlp-rows": _whole_mlp_rows_only}
     sys.exit(modes[sys.argv[1]]() if sys.argv[1:2] and sys.argv[1] in modes else main())

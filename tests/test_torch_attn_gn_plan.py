@@ -1,5 +1,6 @@
 """The launch planners of B1 (the int8 T-blocked decode attention, split over
-a thread-block cluster) and B13 (the one-pass GroupNorm, a cluster per batch
+a thread-block cluster), B1w (the int8 whole-row decode attention, split the
+same way) and B13 (the one-pass GroupNorm, a cluster per batch
 row), on the CPU, in pure Python:
 
 - ``int8_splits``: at most the valid 128-slot blocks, whole blocks a rank
@@ -15,7 +16,13 @@ row), on the CPU, in pure Python:
   cluster of blocks that an SM holds two of, the blocks cover the row with
   none empty, the counts at those shapes; a row past 16 blocks' shared
   memory takes the two-pass route;
-- CPU calls of both wrappers run their plain versions and count nothing.
+- ``whole_splits`` (B1w split over a cluster, off the 128-slot grid): every
+  slot in exactly one rank (``whole_ranges``), at most 16 ranks, a rank's
+  scores and v rows within a block's shared memory, the counts at the T3
+  and Qwen3 shapes, a row past 16 ranks' room on the one-block body; a
+  plain-PyTorch emulation of the split kernel's order of operations against
+  ``decode_attention_whole_plain``;
+- CPU calls of the wrappers run their plain versions and count nothing.
 
 The kernels themselves are held against their plain versions on the card in
 ``tests/test_torch_kernels_cuda.py``.
@@ -196,6 +203,111 @@ def test_b1_cpu_calls_run_the_plain_version():
     out = da.decode_attention_int8_stacked(*args[:4], 0, *args[4:], valid_len=200, sm_scale=0.125)
     ref = da.decode_attention_plain(*args[:4], 0, *args[4:], 200, 0.125)
     assert torch.equal(out, ref) and da.decode_attention_int8_stacked.launches == before
+
+
+# ── B1w: whole_splits ───────────────────────────────────────────────────
+
+
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
+@pytest.mark.parametrize("n", [1, 7, 40, 352, 552, 7000])
+@pytest.mark.parametrize("bc", [1, 8, 64, 256])
+def test_whole_splits_cover_every_slot_once(bc, n, g):
+    """Every slot lies in exactly one rank's range, the ranks are contiguous,
+    none is empty, there are at most 16, and each rank's scores and v rows
+    stay within the shared memory a block may take."""
+    for d in (64, 128):
+        s = da.whole_splits(bc, n, g, d)
+        assert s is not None and 1 <= s <= da.WHOLE_SPLIT_MAX
+        ranges = da.whole_ranges(n, s)
+        assert ranges[0][0] == 0 and ranges[-1][1] == n
+        assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+        assert all(lo < hi for lo, hi in ranges)
+        assert max(hi - lo for lo, hi in ranges) <= -(-n // s)   # the kernel's layout
+        assert da.whole_smem(g, d, -(-n // s)) <= da.WHOLE_SMEM_MAX
+
+
+@pytest.mark.parametrize("bc,n,g,d,per_sm,want", [
+    (256, 552, 1, 64, 8, 2),      # T3 voice-over at cache_len 600: 16 rows x 16 kv heads
+    (256, 600, 1, 64, 8, 2),      # ... without the current token: all 600 slots
+    (256, 552, 1, 64, 1, 1),      # the same where 2 ranks would take two waves
+    (64, 352, 2, 128, 8, 3),      # Qwen3: 8 rows x 8 kv heads, 352 of 520 slots: 96 a rank
+    (1, 6900, 8, 64, 8, 16),      # one pair, a long row at g 8: the largest cluster
+    (512, 600, 1, 64, 8, 1),      # pairs enough for two blocks an SM: no split
+])
+def test_whole_splits_at_the_card_shapes(bc, n, g, d, per_sm, want):
+    assert da.whole_splits(bc, n, g, d, _resident(per_sm)) == want
+
+
+def test_whole_splits_make_room_for_long_rows():
+    """A rank's scores and v rows must fit a block's shared memory: the T
+    7000, g 8 row takes 5 ranks at least; a row that 16 ranks cannot hold
+    (20,000 slots at g 8, d 128), or a card that holds no cluster of the
+    fewest ranks, goes to the one-block body (None)."""
+    assert da.whole_smem(8, 64, 6900 // 4 + 1) > da.WHOLE_SMEM_MAX
+    assert da.whole_splits(1, 6900, 8, 64, lambda n: int(n == 5)) == 5   # no larger one resident
+    assert da.whole_splits(1, 19_900, 8, 128) is None
+    assert da.whole_smem(8, 128, -(-19_900 // 16)) > da.WHOLE_SMEM_MAX
+    assert da.whole_splits(1, 6900, 8, 64, lambda n: 0) is None
+
+
+def emulate_whole_split(q, k_all, v_all, bias, layer, k_scale, v_scale, k_new, v_new,
+                        valid_len, sm_scale, splits):
+    """``decode_attention_whole_plain`` as the split kernel orders it: each
+    rank of ``whole_ranges`` scores its slots; M is the max of the ranks'
+    maxima and the current token's score; each rank sums its p and takes its
+    max of p · vs; ps from the max over the ranks; the int32 partials of the
+    ranks summed; l summed in rank order; the current token last."""
+    b, kv, g, d = q.shape
+    T = k_all.shape[3]
+    n = da._n_slots(T, k_new, valid_len)
+    BC = b * kv
+    f32 = torch.float32
+    qf = q.reshape(BC, g, d).to(f32)
+    qq, qs = _quantize_rows(qf)
+    k = k_all[layer].reshape(BC, T, d).to(f32)
+    v = v_all[layer].reshape(BC, T, d).to(f32)
+    ks = k_scale[layer].reshape(BC, T).to(f32)
+    vs = v_scale[layer].reshape(BC, T).to(f32)
+    bias_m = bias.to(f32)[:, None, :].expand(b, kv, T).reshape(BC, T)
+    ranges = da.whole_ranges(n, splits)
+    s_r = [torch.matmul(qq, k[:, lo:hi].transpose(1, 2)) * (qs * sm_scale) * ks[:, None, lo:hi]
+           + bias_m[:, None, lo:hi] for lo, hi in ranges]
+    M = torch.stack([s.amax(-1, keepdim=True) for s in s_r]).amax(0)
+    s_new = (qf * k_new.reshape(BC, 1, d).to(f32)).sum(-1, keepdim=True) * sm_scale
+    M = torch.maximum(M, s_new)
+    p_r = [torch.exp(s - M) for s in s_r]
+    pv_r = [p * vs[:, None, lo:hi] for p, (lo, hi) in zip(p_r, ranges)]
+    ps = torch.clamp(torch.stack([pv.amax(-1, keepdim=True) for pv in pv_r]).amax(0)
+                     / torch.full_like(M, 127.0), min=1e-20)
+    o = sum(torch.matmul(torch.round(pv / ps), v[:, lo:hi]) for pv, (lo, hi) in zip(pv_r, ranges))
+    L = torch.zeros_like(M)
+    for p in p_r:
+        L = L + p.sum(-1, keepdim=True)
+    p_new = torch.exp(s_new - M)
+    out = (o * ps + p_new * v_new.reshape(BC, 1, d).to(f32)) / torch.clamp(L + p_new, min=1e-30)
+    return out.reshape(b, kv, g, d)
+
+
+@pytest.mark.parametrize("splits", [1, 3, 16])
+@pytest.mark.parametrize("slope", [0.0, 0.02], ids=["flat", "rising"])
+def test_whole_split_order_matches_the_plain_version(splits, slope):
+    """Split over any count of ranks, every p8 rounds as in the plain version
+    (one max and one p scale over the row): the outputs move only by the
+    order in which l is summed."""
+    valid_len = 300
+    args = _b1_inputs(5, 1, 2, 2, 2, 320, 64, valid_len, slope)
+    got = emulate_whole_split(*args[:4], 0, *args[4:], valid_len, 0.125, splits)
+    ref = da.decode_attention_whole_plain(*args[:4], 0, *args[4:], valid_len, sm_scale=0.125)
+    assert torch.allclose(got, ref, atol=1e-6, rtol=1e-6), (got - ref).abs().max().item()
+
+
+def test_b1w_cpu_calls_run_the_plain_version():
+    args = _b1_inputs(4, 1, 2, 2, 1, 200, 64, 150, 0.0)
+    fn = da.decode_attention_int8_whole_stacked
+    before = (fn.launches, fn.cluster_launches)
+    out = fn(*args[:4], 0, *args[4:], valid_len=150, sm_scale=0.125)
+    ref = da.decode_attention_whole_plain(*args[:4], 0, *args[4:], 150, sm_scale=0.125)
+    assert torch.equal(out, ref) and (fn.launches, fn.cluster_launches) == before
 
 
 # ── B13: gn_plan ────────────────────────────────────────────────────────

@@ -238,12 +238,15 @@ def _c_params(source: str, entry: str) -> int:
     ("decode_dense.cu", "vt_qkv_lnorm_int8", "_LNORM_ARGTYPES"),
     ("cache_update.cu", "vt_cache_append", "_ARGTYPES"),
     ("cache_update.cu", "vt_cache_append_kv", "_KV_ARGTYPES"),
+    ("tail_gelu.cu", "vt_mlp_gelu_one", "_MLP_GELU_ONE_ARGTYPES"),
+    ("decode_attention.cu", "vt_decode_attention_int8_whole_split", "_WHOLE_SPLIT_ARGTYPES"),
 ])
 def test_the_other_c_entries_take_their_wrappers_arguments(source, entry, argtypes):
     """B9a's chain entry, the resident-cluster query (the body's kind among
-    its arguments) and the appends' entries (B5/K6 and K4/K5) take as many
-    parameters as their wrappers pass."""
+    its arguments), the appends' entries (B5/K6 and K4/K5), B9d's one launch
+    and split B1w's take as many parameters as their wrappers pass."""
     from vocalie_tts_tpu_torch.ops import cache_update as cu
+    from vocalie_tts_tpu_torch.ops import decode_attention as da
 
-    module = cu if source == "cache_update.cu" else dd
+    module = {"cache_update.cu": cu, "decode_attention.cu": da}.get(source, dd)
     assert _c_params(source, entry) == len(getattr(module, argtypes))

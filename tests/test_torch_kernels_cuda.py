@@ -303,12 +303,13 @@ def test_decode_attention_kernel_at_block_edges(dev, g, d, valid_len):
 
 @pytest.mark.parametrize("shape", list(B1_MAIN))
 def test_decode_attention_kernel_is_one_cuda_kernel_a_call(dev, shape):
-    """torch.profiler sees one CUDA kernel for a B1 call at the main shapes,
-    and the planned split spreads the Qwen3 shape's 64 (row, kv head) pairs
-    over more than one block each."""
+    """torch.profiler sees one CUDA kernel for a B1 call at the main shapes
+    (counted through ``_profiled_kernels``: the profiler once saw no kernel
+    at all for the Qwen3 case), and the planned split spreads the Qwen3
+    shape's 64 (row, kv head) pairs over more than one block each."""
     b, kv, g, d, T, valid_len = B1_MAIN[shape]
     q, k, v, bias, ks, vs, kn, vn = _b1_inputs(dev, 3, 2, b, kv, g, T, d, valid_len)
-    names = _cuda_kernels(lambda: decode_attention_int8_stacked(
+    names = _profiled_kernels(lambda: decode_attention_int8_stacked(
         q, k, v, bias, 1, ks, vs, kn, vn, valid_len=valid_len, sm_scale=0.125))
     assert len(names) == 1 and "attend_int8_tblk_kernel" in names[0], names
     if shape == "qwen3":
@@ -328,16 +329,25 @@ def test_decode_attention_kernel_refuses_a_bad_split(dev):
 # ── B1w ─────────────────────────────────────────────────────────────────
 
 
-@pytest.mark.parametrize("L,b,kv,g,T,d,prompt_pad,n_dec,layer,with_new,masked_row", [
-    (30, 16, 16, 1, 600, 64, 512, 50, 7, True, False),    # the T3 at cache_len 600
-    (28, 8, 8, 2, 520, 128, 256, 96, 27, True, False),    # the Qwen3 shape, last layer
-    (2, 3, 2, 4, 40, 16, 24, 9, 1, True, True),           # a short cache, a masked prompt
-    (1, 2, 1, 8, 8, 32, 4, 3, 0, True, False),            # T 8, g 8
-    (2, 2, 2, 1, 256, 64, 100, 20, 1, False, True),       # no current token: all T read
-    (1, 1, 1, 8, 7000, 64, 6000, 900, 0, True, False),    # g*T*4 > 200 KB: the workspace
-])
-def test_decode_attention_whole_kernel(dev, L, b, kv, g, T, d, prompt_pad, n_dec, layer,
-                                       with_new, masked_row):
+#: B1w's cases: (L, b, kv, g, T, d, prompt_pad, n_dec, layer, with_new, masked_row)
+B1W_CASES = {
+    "t3": (30, 16, 16, 1, 600, 64, 512, 50, 7, True, False),     # the T3 at cache_len 600
+    "qwen3": (28, 8, 8, 2, 520, 128, 256, 96, 27, True, False),  # the Qwen3 shape, last layer
+    "t3_no_new": (30, 16, 16, 1, 600, 64, 512, 50, 7, False, False),   # all 600 slots read
+    "short_masked": (2, 3, 2, 4, 40, 16, 24, 9, 1, True, True),  # a short cache, a masked prompt
+    "t8_g8": (1, 2, 1, 8, 8, 32, 4, 3, 0, True, False),          # T 8, g 8
+    "t8_g8_masked": (1, 2, 1, 8, 8, 32, 4, 3, 0, True, True),    # ... and a masked row
+    "no_new": (2, 2, 2, 1, 256, 64, 100, 20, 1, False, True),    # no current token: all T read
+    "valid_len_1": (2, 4, 2, 2, 200, 64, 1, 0, 1, True, False),  # one slot read
+    "mid_block": (2, 4, 4, 4, 1000, 128, 700, 33, 0, True, False),   # ranges end off 128
+    "t7000_g8": (1, 1, 1, 8, 7000, 64, 6000, 900, 0, True, False),   # 5 ranks at least
+    # 16 ranks of 1,250 slots take 205 KB each: past the shared memory, the
+    # one-block body (its scores in a global workspace)
+    "t20000_g8": (1, 1, 1, 8, 20000, 128, 19000, 900, 0, True, False),
+}
+
+
+def _b1w_inputs(dev, L, b, kv, g, T, d, prompt_pad, n_dec, layer, with_new, masked_row):
     gen = _gen(dev, T + d + g)
     q = torch.randn((b, kv, g, d), generator=gen, device=dev)
     k, v = (torch.randint(-127, 128, (L, b, kv, T, d), generator=gen, device=dev,
@@ -354,15 +364,84 @@ def test_decode_attention_whole_kernel(dev, L, b, kv, g, T, d, prompt_pad, n_dec
     bias = torch.where(valid, 0.0, NEG).float()
     new = (kn, vn) if with_new else (None, None)
     vl = valid_len if with_new else None
-    sm = 1.0 / math.sqrt(d)
-    before = decode_attention_int8_whole_stacked.launches
-    out = decode_attention_int8_whole_stacked(q, k, v, bias, layer, ks, vs, *new, valid_len=vl,
-                                              sm_scale=sm)
-    ref = decode_attention_whole_plain(q, k, v, bias, layer, ks, vs, *new, vl, sm_scale=sm)
+    args = (q, k, v, bias, layer, ks, vs, *new)
+    return args, dict(valid_len=vl, sm_scale=1.0 / math.sqrt(d))
+
+
+def _b1w_slots(case) -> int:
+    L, b, kv, g, T, d, prompt_pad, n_dec, layer, with_new, masked_row = B1W_CASES[case]
+    return min(max(prompt_pad + n_dec, 1), T) if with_new else T
+
+
+@pytest.mark.parametrize("case", list(B1W_CASES))
+def test_decode_attention_whole_kernel(dev, case):
+    """B1w against its plain version at its planned split (the cluster
+    body, counted in ``cluster_launches``) or, for a row past 16 blocks'
+    shared memory, on the one-block body; and the one-block body
+    (``one_block=True``) on the same inputs."""
+    from vocalie_tts_tpu_torch.ops.decode_attention import card_whole_splits
+
+    L, b, kv, g, T, d = B1W_CASES[case][:6]
+    args, kw = _b1w_inputs(dev, *B1W_CASES[case])
+    split = card_whole_splits(b * kv, _b1w_slots(case), g, d)
+    assert (split is None) == (case == "t20000_g8"), split
+    fn = decode_attention_int8_whole_stacked
+    before = (fn.launches, fn.cluster_launches)
+    out = fn(*args, **kw)
+    one = fn(*args, **kw, one_block=True)
+    ref = decode_attention_whole_plain(*args, kw["valid_len"], sm_scale=kw["sm_scale"])
     torch.cuda.synchronize()
-    assert decode_attention_int8_whole_stacked.launches == before + 1
-    assert torch.isfinite(out).all()
+    assert (fn.launches, fn.cluster_launches) == (before[0] + 2,
+                                                  before[1] + (split is not None))
+    assert torch.isfinite(out).all() and torch.isfinite(one).all()
     assert torch.allclose(out, ref, atol=5e-4, rtol=0), (out - ref).abs().max().item()
+    assert torch.allclose(one, ref, atol=5e-4, rtol=0), (one - ref).abs().max().item()
+
+
+@pytest.mark.parametrize("case", ["t3", "qwen3", "t3_no_new"])
+def test_decode_attention_whole_every_split(dev, case):
+    """The cluster body at every split count the wrapper takes, 1 to 16 (past
+    the planner's top: 5 at T3, 3 at Qwen3), each within B1's 5e-4 of the
+    plain version; a split of 0 or past 16 is refused."""
+    from vocalie_tts_tpu_torch.ops.decode_attention import (
+        WHOLE_MIN_SLOTS,
+        WHOLE_SPLIT_MAX,
+        card_whole_splits,
+    )
+
+    L, b, kv, g, T, d = B1W_CASES[case][:6]
+    args, kw = _b1w_inputs(dev, *B1W_CASES[case])
+    ref = decode_attention_whole_plain(*args, kw["valid_len"], sm_scale=kw["sm_scale"])
+    n = _b1w_slots(case)
+    assert card_whole_splits(b * kv, n, g, d) <= max(1, n // WHOLE_MIN_SLOTS)
+    top = WHOLE_SPLIT_MAX
+    errs = {}
+    for splits in range(1, top + 1):
+        out = decode_attention_int8_whole_stacked(*args, **kw, splits=splits)
+        errs[splits] = (out - ref).abs().max().item()
+    assert all(e <= 5e-4 for e in errs.values()), errs
+    for splits in (0, top + 1):
+        with pytest.raises(ValueError, match="splits"):
+            decode_attention_int8_whole_stacked(*args, **kw, splits=splits)
+
+
+@pytest.mark.parametrize("case", ["t3", "t3_no_new", "qwen3"])
+def test_decode_attention_whole_is_one_cuda_kernel_a_call(dev, case):
+    """torch.profiler sees one CUDA kernel, the cluster body, for a B1w call
+    at the T3 shape with and without the current token and at the Qwen3
+    shape; its stamps record every phase point of every block in order."""
+    from vocalie_tts_tpu_torch.ops.decode_attention import WHOLE_STAMPS, card_whole_splits
+
+    L, b, kv, g, T, d = B1W_CASES[case][:6]
+    args, kw = _b1w_inputs(dev, *B1W_CASES[case])
+    names = _profiled_kernels(lambda: decode_attention_int8_whole_stacked(*args, **kw))
+    assert len(names) == 1 and "attend_int8_whole_kernel" in names[0], names
+    splits = card_whole_splits(b * kv, _b1w_slots(case), g, d)
+    stamps = torch.zeros((b * kv * splits, WHOLE_STAMPS), dtype=torch.int64, device=dev)
+    decode_attention_int8_whole_stacked(*args, **kw, stamps=stamps)
+    torch.cuda.synchronize()
+    t = stamps.cpu()
+    assert (t > 0).all() and (t[:, 1:] >= t[:, :-1]).all()
 
 
 def test_decode_attention_whole_kernel_rejects_bad_inputs(dev):
@@ -1450,12 +1529,18 @@ def test_tail_gelu_int8_kernels(dev, b, L, d, F, Q, layer, dtype, bias_dtype):
     assert torch.equal(x_out, x_c)
 
 
-@pytest.mark.parametrize("b,L,d,F,layer,dtype,bias_dtype,zero_row", [
+#: B9d's cases: (b, L, d, F, layer, row dtype, fc bias dtype, zero row)
+B9D_CASES = [
     (8, 3, 1024, 4096, 2, torch.float32, torch.float32, None),   # the XTTS width: two tiles
     (8, 2, 1024, 4096, 0, torch.bfloat16, torch.bfloat16, 3),    # bf16 rows, a zero row
     (17, 2, 128, 256, 1, torch.float32, torch.bfloat16, None),   # one tile, two row passes
-])
-def test_mlp_gelu_int8_kernel(dev, b, L, d, F, layer, dtype, bias_dtype, zero_row):
+    (1, 2, 1024, 4096, 1, torch.bfloat16, torch.bfloat16, None),  # batch 1
+    (17, 2, 1024, 4096, 1, torch.bfloat16, torch.float32, None),  # two m16 tiles
+    (32, 2, 1024, 4096, 1, torch.float32, torch.bfloat16, None),  # the most rows
+]
+
+
+def _b9d_args(dev, b, L, d, F, dtype, bias_dtype, zero_row):
     gen = _gen(dev, b + d + F + 11)
     x = torch.randn((b, d), generator=gen, device=dev).to(dtype)
     if zero_row is not None:
@@ -1463,12 +1548,60 @@ def test_mlp_gelu_int8_kernel(dev, b, L, d, F, layer, dtype, bias_dtype, zero_ro
     wu, su = _int8_weights(gen, dev, L, d, F)
     wd, sd = _int8_weights(gen, dev, L, F, d)
     bu = (0.1 * torch.randn((L, F), generator=gen, device=dev)).to(bias_dtype)
-    before = mlp_gelu_int8_stacked.launches
-    got = mlp_gelu_int8_stacked(x, wu, su, bu, wd, sd, layer)
-    ref = mlp_gelu_int8_plain(x, wu, su, bu, wd, sd, layer)
+    return x, wu, su, bu, wd, sd
+
+
+@pytest.mark.parametrize("b,L,d,F,layer,dtype,bias_dtype,zero_row", B9D_CASES)
+def test_mlp_gelu_int8_kernel(dev, b, L, d, F, layer, dtype, bias_dtype, zero_row):
+    """B9d's one launch (``csrc/tail_gelu.cu``, counted in ``tc_launches``)
+    bit-equal to its plain version and to the old six-kernel chain
+    (``chain=True``)."""
+    from vocalie_tts_tpu_torch.ops.decode_dense import mlp_gelu_takes
+
+    args = _b9d_args(dev, b, L, d, F, dtype, bias_dtype, zero_row)
+    assert mlp_gelu_takes(b, d, F, card_sms(dev))
+    fn = mlp_gelu_int8_stacked
+    before = (fn.launches, fn.tc_launches)
+    got = fn(*args, layer)
+    chain = fn(*args, layer, chain=True)
+    ref = mlp_gelu_int8_plain(*args, layer)
     torch.cuda.synchronize()
-    assert mlp_gelu_int8_stacked.launches == before + 1
-    _close(got, ref)
+    assert (fn.launches, fn.tc_launches) == (before[0] + 2, before[1] + 1)
+    assert got.shape == (b, d) and torch.isfinite(got).all()
+    assert torch.equal(got, ref), (got - ref).abs().max().item()
+    assert torch.equal(got, chain), (got - chain).abs().max().item()
+
+
+def test_mlp_gelu_is_one_cuda_kernel_a_call(dev):
+    """torch.profiler sees one CUDA kernel a B9d call at the XTTS layer (the
+    one-launch GELU body) and six on the old chain; 50 calls in a row, layers
+    0 and 1 in turn, give the same bits each (nothing of the workspace is
+    carried from one call to the next)."""
+    args = _b9d_args(dev, 8, 2, 1024, 4096, torch.bfloat16, torch.bfloat16, None)
+    names = _profiled_kernels(lambda: mlp_gelu_int8_stacked(*args, 1))
+    assert len(names) == 1 and "tail_gelu_kernel" in names[0], names
+    names = _profiled_kernels(lambda: mlp_gelu_int8_stacked(*args, 1, chain=True))
+    assert len(names) == 6 and not any("tail_gelu_kernel" in n for n in names), names
+    want = [mlp_gelu_int8_stacked(*args, layer, chain=True) for layer in (0, 1)]
+    got = [mlp_gelu_int8_stacked(*args, i % 2) for i in range(50)]
+    torch.cuda.synchronize()
+    bad = [i for i, y in enumerate(got) if not torch.equal(y, want[i % 2])]
+    assert not bad, f"calls {bad} differ from the chain"
+
+
+def test_untaken_mlp_gelu_shapes_take_the_chain(dev):
+    """33 rows, which the one launch does not take (``mlp_gelu_takes``): B9d
+    runs the old chain within the plain version's gate, and
+    ``tc_launches`` stays."""
+    from vocalie_tts_tpu_torch.ops.decode_dense import mlp_gelu_takes
+
+    args = _b9d_args(dev, 33, 2, 1024, 4096, torch.bfloat16, torch.bfloat16, None)
+    assert not mlp_gelu_takes(33, 1024, 4096, card_sms(dev))
+    before = mlp_gelu_int8_stacked.tc_launches
+    got = mlp_gelu_int8_stacked(*args, 1)
+    torch.cuda.synchronize()
+    assert mlp_gelu_int8_stacked.tc_launches == before
+    _close(got, mlp_gelu_int8_plain(*args, 1))
 
 
 #: B9b's one-launch body at the XTTS layer: d_model 1024, d_ff 4096 (two

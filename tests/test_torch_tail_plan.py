@@ -25,7 +25,9 @@ one item a (slab, d_ff tile), so that it spans 64 SMs instead of 32, each
 block streaming the later tiles' items before the tile-0 item that waits
 for them; with ``Q = 0`` it is B9c's (the same body without the next
 qkv). ``gelu_takes`` says which shapes the one-launch body takes; the
-others run the old chain.
+others run the old chain. ``tail_plan(..., mlp="gelu_mlp")`` is B9d's (the
+same body's MLP branch): the fc and down items alone, no o-projection and no
+qkv; ``mlp_gelu_takes`` says which shapes it takes.
 """
 
 import dataclasses
@@ -40,6 +42,7 @@ from vocalie_tts_tpu_torch.ops.decode_dense import (
     SMEM_MAX,
     TAIL_MAX_STAGES,
     gelu_takes,
+    mlp_gelu_takes,
     pick_tile,
     tail_item_rows,
     tail_plan,
@@ -234,6 +237,51 @@ def test_gelu_takes_what_the_gelu_plan_plans(b, Q, sms, takes):
     if b > 32:
         with pytest.raises(ValueError, match="rows"):
             tail_plan(b, d_attn, d, d_ff, 2048, Q, H100_SMS, mlp="gelu")
+
+
+@pytest.mark.parametrize("b", [1, 8, 17, 32])
+def test_gelu_mlp_plan_deals_every_item_once(b):
+    """B9d's plan (``mlp="gelu_mlp"``) at the XTTS widths: every fc slab and
+    every (down slab, d_ff tile) pair is dealt exactly once, no block holds
+    an o-projection or a qkv item, every weight row of the two products is
+    streamed once, the later tiles' down items before a block's tile-0 item,
+    within the shared bytes, over every SM."""
+    _, d, d_ff, _ = XTTS
+    tile = pick_tile(d_ff, TILE_BUDGET, 2 * d)
+    n_tiles = d_ff // tile
+    plan = tail_plan(b, 0, d, d_ff, tile, 0, H100_SMS, mlp="gelu_mlp")
+    assert (plan.mlp, plan.tile, n_tiles) == ("gelu_mlp", 2048, 2)
+    owned = [(p, s) for its in plan.items for p, s in its]
+    assert len(owned) == len(set(owned))
+    assert sorted(owned) == ([(1, s) for s in range(d_ff // SLAB)]
+                             + [(2, s) for s in range(d // SLAB * n_tiles)])
+    tiles = [t for blk in range(plan.grid) for t in tail_stream(plan, blk, 0, d, d_ff)]
+    assert len(tiles) == sum(plan.tiles)
+    assert sorted(tiles) == sorted((p, c, r) for p, (n, k) in ((1, (d_ff, d)), (2, (d, d_ff)))
+                                   for c in range(0, n, SLAB) for r in range(0, k, plan.kc))
+    for its in plan.items:
+        down_t = [n_tiles - 1 - s // (d // SLAB) for p, s in its if p == 2]
+        assert down_t == sorted(down_t, reverse=True)
+    assert plan.smem <= SMEM_MAX and tile % plan.kc == 0 and plan.grid == H100_SMS
+    assert sum(any(p == 2 for p, _ in its) for its in plan.items) == 64
+
+
+@pytest.mark.parametrize("b,d,d_ff,sms,takes", [
+    (8, 1024, 4096, H100_SMS, True),     # the XTTS layer
+    (32, 1024, 4096, H100_SMS, True),    # the most rows
+    (33, 1024, 4096, H100_SMS, False),   # past 32 rows: the old chain
+    (8, 2048, 8192, H100_SMS, True),     # the widest rows
+    (8, 2080, 8192, H100_SMS, False),    # past 2048: the old chain
+    (8, 1024, 4096, None, False),        # off a card: the plain version
+])
+def test_mlp_gelu_takes_what_the_plan_plans(b, d, d_ff, sms, takes):
+    assert mlp_gelu_takes(b, d, d_ff, sms) is takes
+    tile = pick_tile(d_ff, TILE_BUDGET, 2 * d)
+    if sms is not None and not takes:
+        with pytest.raises(ValueError, match="B9d"):
+            tail_plan(b, 0, d, d_ff, tile, 0, sms, mlp="gelu_mlp")
+    with pytest.raises(ValueError, match="no o-projection"):
+        tail_plan(8, 1024, 1024, 4096, 2048, 0, H100_SMS, mlp="gelu_mlp")
 
 
 @pytest.mark.parametrize("megatail", [True, False], ids=["B2", "B8a"])

@@ -1,8 +1,9 @@
 // q_len == 1 decode attention over one layer of the stacked KV cache, read
 // in place, with the current token's k/v merged unquantized: the int8
-// whole-row kernel (B1w) first, then the f32 kernel of K1, K2 and B10, then
-// the int8 T-blocked kernel (B1), which shares the f32 kernel's split over
-// a thread-block cluster (see their own notes below).
+// whole-row kernel (B1w) in one block first, then the f32 kernel of K1, K2
+// and B10, then the int8 T-blocked kernel (B1), then B1w split, which share
+// the f32 kernel's split over a thread-block cluster (see their own notes
+// below).
 //
 // The TPU's lane-packed k|v layout is not copied: k and v are separate
 // [L, b, kv, T, d] int8 arrays (bf16 scales [L, b, kv, T]) or float arrays.
@@ -79,7 +80,9 @@ __device__ __forceinline__ float block_sum(float v, float* red) {
 // PV: each thread owns 4 output columns (one int32 word of a v row) over a
 // slice of the slots, sums p8 * v in int32 (exact in any order), and the
 // slices meet in shared memory through integer atomics. No tensor cores,
-// no TMA.
+// no TMA. Since the split body at the end of this file
+// (attend_int8_whole_kernel), this one runs only for a row that 16 blocks'
+// shared memory cannot hold, and as that body's yardstick (one_block=True).
 
 #define WHOLE_SMEM_MAX (200 * 1024)   // scores in shared memory up to this size
 
@@ -1351,4 +1354,571 @@ extern "C" int vt_attend_int8_clusters(int g, int d, int n_blk, int splits, int*
   return dispatch_int8_tblk(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
                             nullptr, nullptr, nullptr, 0, 1, 1, TBLK, d, g, n_blk, splits, 1.0f,
                             nullptr, clusters);
+}
+
+
+// ---------------------------------------------------------------------------
+// B1w split over a thread-block cluster: the whole-row int8 decode attention
+// of decode_attention_int8_whole_kernel above, the same function and the
+// same JAX kernels replaced (_kernel_stacked_int8dots[_new] :190, :260,
+// pallas_call :844; _kernel_stacked_int8dots_packed :268, pallas_call :808),
+// with each (row, kv head) on a cluster of `splits` blocks.
+//
+// Unlike B1 the math has no sequential chain: ONE max over the row (joined
+// by the current token's exact score), ONE l summed before the v scales, ONE
+// p scale ps = max(max(p * vs) / 127, 1e-20) over the row, and an int32 PV
+// product exact in any order. So the ranks publish two row-wide reductions,
+// the max and then the p-max, and each rank then rounds its own p8 exactly
+// as the one-block body and the plain version round them.
+//
+// Bound: bytes, as the one-block body (the slots' k and v rows, two bf16
+// scales and the bias).
+//
+// Design: rank r takes the slots [r * n / splits, (r + 1) * n / splits)
+// (ops/decode_attention.py whole_splits, whole_ranges), off the 128-slot
+// grid, the last range ending at n. Its threads walk the range 128 slots a
+// pass, laid out as B1's blocks: a lane holds E int8 of a k row (16 bytes
+// where g allows), a group of LG lanes covers a row, so that a warp load
+// reads 32 / LG whole, contiguous rows; each lane owns one row a pass.
+//   0. Loads that wait on nothing first: q (and the current token's k), the
+//      first pass's k rows into registers, the lane's own rows' scales and
+//      bias.
+//   1. Scores: q quantized in registers; a row's dot is the group's __dp4a
+//      partials met by B1's transposing butterfly; the owning lane scales
+//      and biases it into shared memory, where it stays: each score is
+//      computed once. Before a pass's dots, the next pass's k rows are asked
+//      for, then this pass's v rows into shared memory by 16-byte cp.async,
+//      in flight until the PV product: every block's k bytes stay ahead of
+//      its v bytes in the memory queue (all of the rank's v rows asked for
+//      at entry held the later passes' k rows, and so the scores, ~2 µs
+//      behind at the T3 shape).
+//      __dp4a, not mma.sync: one query row a group member fills 1/16 (g 1)
+//      to 1/2 (g 8) of an m16 tile, the k rows would need a transpose into
+//      the B fragment's layout, and the dots are a few instructions a 16-byte
+//      load the lane already holds.
+//   2. The rank's max per group member published; cluster.sync(); every rank
+//      takes M = the max over the ranks (distributed shared memory), joined
+//      by the exact s_new.
+//   3. p = exp(s - M) in place of s; the rank's l and max of p * vs
+//      published; cluster.sync(); ps = max(max_r / 127, 1e-20), the same bits
+//      in every rank.
+//   4. p8 = round(p * vs / ps), as bytes; the int32 partial p8 . v over the
+//      rank's rows from shared memory, four rows a __dp4a: a lane takes 4
+//      rows x 16 (g 8: 8) columns, transposes each 4 x 4 block of bytes
+//      (__byte_perm) into a column's 4 rows and multiplies it with the
+//      group member's 4 p8 in one word (lanes met by xor shuffles, warps by
+//      shared integer atomics). cluster.sync(); the ranks share the g * d outputs
+//      out: each sums the ranks' int32 partials (exact in any order), times
+//      ps, takes l summed in rank order, merges the current token, divides
+//      by max(l, 1e-30) and writes. A last cluster.sync() keeps the shared
+//      memory alive until every rank has read it.
+// With `stamps` set, thread 0 of every block writes the card's ns clock at
+// the W_STAMPS phase points (ops/decode_attention.py WHOLE_STAMP_POINTS).
+
+#define W_SMEM_MAX (160 * 1024)   // dynamic shared bytes a block may take
+#define W_STAMPS 9
+
+// a rank's shared memory: its scores [G][nr] and v scales [nr] (f32), its v
+// rows [nr][d], its p8 [G][nr] (bytes); nr is the most slots a rank takes
+// padded to 4, so that the v rows start on 16 bytes and a 4-row quad's v
+// rows and p8 word lie inside (ops/decode_attention.py whole_smem says the
+// same)
+__host__ __device__ __forceinline__ int w_rows(int ns) { return (ns + 3) & ~3; }
+__host__ __device__ __forceinline__ int w_smem_bytes(int G, int ns, int d) {
+  return w_rows(ns) * ((G + 1) * 4 + d + G);
+}
+
+// The 4 x 4 bytes of words a0..a3 (rows 0-3) transposed: c[j] holds column
+// j's 4 rows, row i in byte i.
+__device__ __forceinline__ void w_transpose4(uint32_t a0, uint32_t a1, uint32_t a2, uint32_t a3,
+                                             uint32_t (&c)[4]) {
+  const uint32_t lo01 = __byte_perm(a0, a1, 0x5140), hi01 = __byte_perm(a0, a1, 0x7362);
+  const uint32_t lo23 = __byte_perm(a2, a3, 0x5140), hi23 = __byte_perm(a2, a3, 0x7362);
+  c[0] = __byte_perm(lo01, lo23, 0x5410);
+  c[1] = __byte_perm(lo01, lo23, 0x7632);
+  c[2] = __byte_perm(hi01, hi23, 0x5410);
+  c[3] = __byte_perm(hi01, hi23, 0x7632);
+}
+
+__device__ __forceinline__ void w_stamp(unsigned long long* stamps, int i) {
+  if (stamps != nullptr && threadIdx.x == 0) {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    stamps[blockIdx.x * W_STAMPS + i] = t;
+  }
+}
+
+template <int G>
+__device__ __forceinline__ void w_warp_max(float (&v)[G]) {
+#pragma unroll
+  for (int gi = 0; gi < G; ++gi) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v[gi] = fmaxf(v[gi], __shfl_xor_sync(0xffffffffu, v[gi], o));
+  }
+}
+
+template <int G, int LG>
+__global__ void __launch_bounds__(ATT_THREADS) attend_int8_whole_kernel(
+    const float* __restrict__ q,                  // [BC, g, d]
+    const int8_t* __restrict__ k_all,             // [L * BC, T, d]; this layer's rows from row0
+    const int8_t* __restrict__ v_all,
+    const __nv_bfloat16* __restrict__ ks_all,     // [L * BC, T]
+    const __nv_bfloat16* __restrict__ vs_all,
+    const float* __restrict__ bias,               // [b, T]
+    const float* __restrict__ k_new,              // [BC, d] or null
+    const float* __restrict__ v_new,
+    float* __restrict__ out,                      // [BC, g, d]
+    unsigned long long* __restrict__ stamps,      // [grid, W_STAMPS] or null
+    long long row0, int kv, int T, int d, int g, int n, int splits, float sm_scale) {
+  constexpr int E = 16 < 32 / G ? 16 : 32 / G;   // int8 columns a lane holds
+  constexpr int EW = E / 4;
+  constexpr int RPW = 32 / LG;                    // rows a warp load covers
+  constexpr int NU = LG;                          // rows a lane group takes of a pass
+  constexpr int PASS = NU * ATT_WARPS * RPW;      // slots a pass: 128
+  constexpr int EPV = G <= 4 ? 16 : 8;            // v columns a lane takes in the PV product
+  extern __shared__ __align__(16) float dyn[];    // sc [G][nr] (s, p * vs), vsc [nr], v rows, p8
+  __shared__ int osum[G * MAX_D];
+  __shared__ float wred[ATT_WARPS][G], wred2[ATT_WARPS][G];
+  __shared__ float rmax_s[G], l_s[G], pm_s[G], m_s[G], ps_s[G], lt_s[G], snew_s[G];
+
+  w_stamp(stamps, 0);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int bc = blockIdx.x / splits;
+  const int row = bc / kv;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int lig = lane & (LG - 1), grp = lane / LG;
+  const int col0 = lig * E;
+  const bool colv = col0 < d;              // lanes past d (d / E not a power of two) idle
+  const int gd = g * d;
+  const bool with_new = k_new != nullptr;
+
+  const int lo = (int)((long long)rank * n / splits);
+  const int cnt = (int)((long long)(rank + 1) * n / splits) - lo;
+  const int nr = w_rows((n + splits - 1) / splits);
+  const int quads = (cnt + 3) >> 2;
+  float* sc = dyn;
+  float* vsc = dyn + G * nr;
+  int8_t* vbuf = reinterpret_cast<int8_t*>(vsc + nr);
+  int8_t* p8b = vbuf + nr * d;
+
+  const long long lrow = row0 + bc;
+  const int8_t* kb = k_all + (lrow * T + lo) * d;
+  const int8_t* vb = v_all + (lrow * T + lo) * d;
+  const __nv_bfloat16* ksb = ks_all + lrow * T + lo;
+  const __nv_bfloat16* vsb = vs_all + lrow * T + lo;
+  const float* brow = bias + (long long)row * T + lo;
+  // row u of a lane group in a pass: (u * ATT_WARPS + warp) * RPW + grp; one
+  // warp load covers the RPW rows of one u, contiguous. The lane's own row
+  // (whose score it writes) is u = lig.
+  const int own = (lig * ATT_WARPS + warp) * RPW + grp;
+
+  // 0. q and the current token's k, the first pass's k rows, own scales and
+  // bias, all in flight before any is used
+  const float* qb = q + (long long)bc * gd;
+  float4 qx[G][E / 4], knx[E / 4];
+#pragma unroll
+  for (int j = 0; j < E / 4; ++j) {
+    knx[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (with_new && colv) {
+      knx[j] = *reinterpret_cast<const float4*>(k_new + (long long)bc * d + col0 + 4 * j);
+    }
+#pragma unroll
+    for (int gi = 0; gi < G; ++gi) {
+      qx[gi][j] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (gi < g && colv) qx[gi][j] = *reinterpret_cast<const float4*>(qb + gi * d + col0 + 4 * j);
+    }
+  }
+  auto load = [&](I8Rows<E, NU>& r, int base) {
+#pragma unroll
+    for (int u = 0; u < NU; ++u) {
+      const int t = base + (u * ATT_WARPS + warp) * RPW + grp;
+      if (colv && t < cnt) r.k[u].load(kb + (long long)t * d + col0);
+      else r.k[u].zero();
+    }
+    const int t = base + own;
+    const bool live = t < cnt;
+    r.ksc = live ? __bfloat162float(ksb[t]) : 0.0f;
+    r.bias = live ? __ldg(brow + t) : 0.0f;
+    r.vs = live ? __bfloat162float(vsb[t]) : 0.0f;
+  };
+  I8Rows<E, NU> ra, rb;
+  load(ra, 0);
+  for (int e = tid; e < gd; e += ATT_THREADS) osum[e] = 0;
+
+  // q quantized in registers, the lane's own columns; the current token's
+  // score from the unquantized q
+  uint32_t qw[G][EW];
+  float qss[G];
+  float kn[E];
+#pragma unroll
+  for (int j = 0; j < E / 4; ++j) {
+    kn[4 * j] = knx[j].x; kn[4 * j + 1] = knx[j].y; kn[4 * j + 2] = knx[j].z;
+    kn[4 * j + 3] = knx[j].w;
+  }
+#pragma unroll
+  for (int gi = 0; gi < G; ++gi) {
+    float x[E];
+#pragma unroll
+    for (int j = 0; j < E / 4; ++j) {
+      x[4 * j] = qx[gi][j].x; x[4 * j + 1] = qx[gi][j].y; x[4 * j + 2] = qx[gi][j].z;
+      x[4 * j + 3] = qx[gi][j].w;
+    }
+    float a = 0.0f, sn = 0.0f;
+#pragma unroll
+    for (int j = 0; j < E; ++j) {
+      a = fmaxf(a, fabsf(x[j]));
+      sn = fmaf(x[j], kn[j], sn);
+    }
+#pragma unroll
+    for (int o = 1; o < LG; o <<= 1) {
+      a = fmaxf(a, __shfl_xor_sync(0xffffffffu, a, o));
+      sn += __shfl_xor_sync(0xffffffffu, sn, o);
+    }
+    const float qs = fmaxf(a / 127.0f, 1e-8f);
+    qss[gi] = __fmul_rn(qs, sm_scale);
+#pragma unroll
+    for (int w = 0; w < EW; ++w) {
+      uint32_t word = 0u;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        word |= ((uint32_t)__float2int_rn(x[4 * w + i] / qs) & 0xffu) << (8 * i);
+      }
+      qw[gi][w] = word;
+    }
+    if (tid == 0 && gi < g) snew_s[gi] = __fmul_rn(sn, sm_scale);
+  }
+  w_stamp(stamps, 1);
+
+  // 1. scores and v scales, the rank's max per group member
+  float mloc[G];
+#pragma unroll
+  for (int gi = 0; gi < G; ++gi) mloc[gi] = -INFINITY;
+  const uint32_t vdst = (uint32_t)__cvta_generic_to_shared(vbuf);
+  for (int base = 0; base < cnt; base += PASS) {
+    if (base + PASS < cnt) load(rb, base + PASS);
+    // this pass's v rows, behind the next pass's k rows
+    for (int i = base * d / 16 + tid; i < min(base + PASS, cnt) * d / 16; i += ATT_THREADS) {
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+                   :: "r"(vdst + 16 * i), "l"(vb + 16 * i) : "memory");
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    const int t = base + own;
+    if (t < cnt) vsc[t] = ra.vs;
+#pragma unroll
+    for (int gi = 0; gi < G; ++gi) {
+      int dot[NU];
+#pragma unroll
+      for (int u = 0; u < NU; ++u) {
+        dot[u] = 0;
+#pragma unroll
+        for (int w = 0; w < EW; ++w) dot[u] = __dp4a((int)ra.k[u].w[w], (int)qw[gi][w], dot[u]);
+      }
+      // transposing butterfly (B1's): dot[0] ends as row lig's
+#pragma unroll
+      for (int o = NU / 2; o >= 1; o >>= 1) {
+        const bool up = (lig & o) != 0;
+#pragma unroll
+        for (int i = 0; i < o; ++i) {
+          const int send = up ? dot[i] : dot[i + o];
+          const int keep = up ? dot[i + o] : dot[i];
+          dot[i] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+        }
+      }
+      if (gi < g && t < cnt) {
+        const float s = __fadd_rn(__fmul_rn(__fmul_rn((float)dot[0], qss[gi]), ra.ksc), ra.bias);
+        sc[gi * nr + t] = s;
+        mloc[gi] = fmaxf(mloc[gi], s);
+      }
+    }
+    ra = rb;
+  }
+  w_warp_max<G>(mloc);
+  if (lane == 0) {
+#pragma unroll
+    for (int gi = 0; gi < G; ++gi) wred[warp][gi] = mloc[gi];
+  }
+  __syncthreads();
+  if (tid < g) {
+    float mx = wred[0][tid];
+#pragma unroll
+    for (int w = 1; w < ATT_WARPS; ++w) mx = fmaxf(mx, wred[w][tid]);
+    rmax_s[tid] = mx;
+  }
+  w_stamp(stamps, 2);
+  cluster.sync();   // every rank's max is written
+  w_stamp(stamps, 3);
+
+  // 2. the row's max, joined by the current token's exact score
+  if (tid < g) {
+    float mx = -INFINITY;
+    for (int r = 0; r < splits; ++r) mx = fmaxf(mx, cluster.map_shared_rank(rmax_s, r)[tid]);
+    if (with_new) mx = fmaxf(mx, snew_s[tid]);
+    m_s[tid] = mx;
+  }
+  __syncthreads();
+
+  // 3. p, its sum, p * vs (in place of s) and its max
+  float lloc[G], ploc[G];
+#pragma unroll
+  for (int gi = 0; gi < G; ++gi) lloc[gi] = ploc[gi] = 0.0f;
+  for (int t = own; t < cnt; t += PASS) {
+    const float vs = vsc[t];
+#pragma unroll
+    for (int gi = 0; gi < G; ++gi) {
+      if (gi < g) {
+        const float p = expf(sc[gi * nr + t] - m_s[gi]);
+        lloc[gi] = __fadd_rn(lloc[gi], p);
+        const float pv = __fmul_rn(p, vs);   // fold the v scales in before quantizing
+        sc[gi * nr + t] = pv;
+        ploc[gi] = fmaxf(ploc[gi], pv);
+      }
+    }
+  }
+#pragma unroll
+  for (int gi = 0; gi < G; ++gi) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      lloc[gi] = __fadd_rn(lloc[gi], __shfl_xor_sync(0xffffffffu, lloc[gi], o));
+      ploc[gi] = fmaxf(ploc[gi], __shfl_xor_sync(0xffffffffu, ploc[gi], o));
+    }
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int gi = 0; gi < G; ++gi) {
+      wred[warp][gi] = lloc[gi];
+      wred2[warp][gi] = ploc[gi];
+    }
+  }
+  __syncthreads();
+  if (tid < g) {
+    float l = wred[0][tid], pm = wred2[0][tid];
+#pragma unroll
+    for (int w = 1; w < ATT_WARPS; ++w) {
+      l = __fadd_rn(l, wred[w][tid]);
+      pm = fmaxf(pm, wred2[w][tid]);
+    }
+    l_s[tid] = l;
+    pm_s[tid] = pm;
+  }
+  w_stamp(stamps, 4);
+  cluster.sync();   // every rank's l and p-max are written
+  w_stamp(stamps, 5);
+
+  // 4. the row's one p scale; p8 over the rank's own slots; p8 . v
+  if (tid < g) {
+    float pm = 0.0f;
+    for (int r = 0; r < splits; ++r) pm = fmaxf(pm, cluster.map_shared_rank(pm_s, r)[tid]);
+    ps_s[tid] = fmaxf(pm / 127.0f, 1e-20f);
+  }
+  __syncthreads();
+  for (int t = own; t < cnt; t += PASS) {
+#pragma unroll
+    for (int gi = 0; gi < G; ++gi) {
+      if (gi < g) p8b[gi * nr + t] = (int8_t)__float2int_rn(sc[gi * nr + t] / ps_s[gi]);
+    }
+  }
+  if (tid < 4 * g) {   // the last quad's rows past the range multiply by 0
+    const int t = cnt + (tid & 3);
+    if (t < 4 * quads) p8b[(tid >> 2) * nr + t] = 0;
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();
+  {
+    // lane (quad set, column group): EPV columns of 4 rows a quad
+    int lgp = 1;
+    while (lgp * EPV < d) lgp <<= 1;
+    const int pc0 = (lane & (lgp - 1)) * EPV;
+    const int qpw = 32 / lgp;
+    int o[G][EPV];
+#pragma unroll
+    for (int gi = 0; gi < G; ++gi) {
+#pragma unroll
+      for (int j = 0; j < EPV; ++j) o[gi][j] = 0;
+    }
+    if (pc0 < d) {
+      for (int qd = warp * qpw + lane / lgp; qd < quads; qd += ATT_WARPS * qpw) {
+        const int8_t* vr = vbuf + 4 * qd * d + pc0;
+        uint32_t a[4][EPV / 4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if constexpr (EPV == 16) {
+            const uint4 x = *reinterpret_cast<const uint4*>(vr + i * d);
+            a[i][0] = x.x; a[i][1] = x.y; a[i][2] = x.z; a[i][3] = x.w;
+          } else {
+            const uint2 x = *reinterpret_cast<const uint2*>(vr + i * d);
+            a[i][0] = x.x; a[i][1] = x.y;
+          }
+        }
+        int pw[G];
+#pragma unroll
+        for (int gi = 0; gi < G; ++gi) {
+          pw[gi] = gi < g ? *reinterpret_cast<const int*>(p8b + gi * nr + 4 * qd) : 0;
+        }
+#pragma unroll
+        for (int w = 0; w < EPV / 4; ++w) {
+          uint32_t c[4];
+          w_transpose4(a[0][w], a[1][w], a[2][w], a[3][w], c);
+#pragma unroll
+          for (int gi = 0; gi < G; ++gi) {
+#pragma unroll
+            for (int j = 0; j < 4; ++j) o[gi][4 * w + j] = __dp4a((int)c[j], pw[gi], o[gi][4 * w + j]);
+          }
+        }
+      }
+    }
+    for (int off = lgp; off < 32; off <<= 1) {
+#pragma unroll
+      for (int gi = 0; gi < G; ++gi) {
+#pragma unroll
+        for (int j = 0; j < EPV; ++j) o[gi][j] += __shfl_xor_sync(0xffffffffu, o[gi][j], off);
+      }
+    }
+    if (lane < lgp && pc0 < d) {
+#pragma unroll
+      for (int gi = 0; gi < G; ++gi) {
+        if (gi < g) {
+#pragma unroll
+          for (int j = 0; j < EPV; ++j) atomicAdd(&osum[gi * d + pc0 + j], o[gi][j]);
+        }
+      }
+    }
+  }
+  w_stamp(stamps, 6);
+  cluster.sync();   // every rank's int32 partials are summed
+  w_stamp(stamps, 7);
+
+  // 5. the ranks' partials met, times ps; l in rank order; the current token
+  if (tid < g) {
+    float l = 0.0f;
+    for (int r = 0; r < splits; ++r) l = __fadd_rn(l, cluster.map_shared_rank(l_s, r)[tid]);
+    lt_s[tid] = l;
+  }
+  __syncthreads();
+  {
+    const int per = (gd + splits - 1) / splits;
+    const int e_hi = min((rank + 1) * per, gd);
+    float* ob = out + (long long)bc * gd;
+    for (int e = rank * per + tid; e < e_hi; e += ATT_THREADS) {
+      const int gi = e / d;
+      int acc = 0;
+      for (int r0 = 0; r0 < splits; r0 += ATT_MERGE) {
+        int part[ATT_MERGE];
+#pragma unroll
+        for (int j = 0; j < ATT_MERGE; ++j) {
+          part[j] = r0 + j < splits ? cluster.map_shared_rank(osum, r0 + j)[e] : 0;
+        }
+#pragma unroll
+        for (int j = 0; j < ATT_MERGE; ++j) acc += part[j];
+      }
+      float val = __fmul_rn(__int2float_rn(acc), ps_s[gi]);
+      float l = lt_s[gi];
+      if (with_new) {
+        const float p_new = expf(snew_s[gi] - m_s[gi]);
+        l = __fadd_rn(l, p_new);
+        val = __fadd_rn(val, __fmul_rn(p_new, v_new[(long long)bc * d + (e - gi * d)]));
+      }
+      ob[e] = val / fmaxf(l, 1e-30f);
+    }
+  }
+  w_stamp(stamps, 8);
+  cluster.sync();   // no block leaves before the others have read its shared memory
+}
+
+// Launches split B1w over clusters of `splits` blocks; with `clusters` set,
+// stores instead how many such clusters the card keeps resident at once
+// (n: the slots, which set a rank's shared bytes).
+template <int G, int LG>
+static int launch_int8_whole(const void* q, const void* k_all, const void* v_all, const void* ks,
+                             const void* vs, const void* bias, const void* k_new,
+                             const void* v_new, void* out, void* stamps, long long row0, int BC,
+                             int kv, int T, int d, int g, int n, int splits, float sm_scale,
+                             cudaStream_t stream, int* clusters) {
+  void (*kern)(const float*, const int8_t*, const int8_t*, const __nv_bfloat16*,
+               const __nv_bfloat16*, const float*, const float*, const float*, float*,
+               unsigned long long*, long long, int, int, int, int, int, int, float) =
+      attend_int8_whole_kernel<G, LG>;
+  static bool ready = false;   // set once per instantiation
+  if (!ready) {
+    cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return (int)e;
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, W_SMEM_MAX);
+    if (e != cudaSuccess) return (int)e;
+    ready = true;
+  }
+  const int smem = w_smem_bytes(G, (n + splits - 1) / splits, d);
+  if (smem > W_SMEM_MAX) return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(BC * splits), 1, 1);
+  cfg.blockDim = dim3(ATT_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = (size_t)smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (clusters != nullptr) return (int)cudaOccupancyMaxActiveClusters(clusters, kern, &cfg);
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, kern, (const float*)q, (const int8_t*)k_all, (const int8_t*)v_all,
+      (const __nv_bfloat16*)ks, (const __nv_bfloat16*)vs, (const float*)bias,
+      (const float*)k_new, (const float*)v_new, (float*)out, (unsigned long long*)stamps, row0,
+      kv, T, d, g, n, splits, sm_scale);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// The instantiation g and d select, as B1's (dispatch_int8_tblk).
+static int dispatch_int8_whole(const void* q, const void* k_all, const void* v_all,
+                               const void* ks, const void* vs, const void* bias,
+                               const void* k_new, const void* v_new, void* out, void* stamps,
+                               long long row0, int BC, int kv, int T, int d, int g, int n,
+                               int splits, float sm_scale, cudaStream_t st, int* clusters) {
+#define VT_W(G, LG)                                                                        \
+  launch_int8_whole<G, LG>(q, k_all, v_all, ks, vs, bias, k_new, v_new, out, stamps, row0, \
+                           BC, kv, T, d, g, n, splits, sm_scale, st, clusters)
+#define VT_W_LG(G, L0) \
+  (d <= 16 ? VT_W(G, L0) : d <= 32 ? VT_W(G, 2 * L0) : d <= 64 ? VT_W(G, 4 * L0) \
+   : VT_W(G, 8 * L0))
+  if (g <= 1) return VT_W_LG(1, 1);
+  if (g <= 2) return VT_W_LG(2, 1);
+  if (g <= 4) return VT_W_LG(4, 2);
+  return VT_W_LG(8, 4);
+#undef VT_W_LG
+#undef VT_W
+}
+
+// Split B1w on layer `layer` of the int8 cache: the first n_slots slots,
+// over clusters of `splits` blocks (1 <= splits <= min(n_slots, 16); a rank's
+// shared bytes within W_SMEM_MAX; whole_splits). k_new / v_new: both or
+// neither. stamps: [b * kv * splits, W_STAMPS] u64 or null.
+extern "C" int vt_decode_attention_int8_whole_split(
+    const void* q, const void* k_all, const void* v_all,
+    const void* k_scale, const void* v_scale, const void* bias,
+    const void* k_new, const void* v_new, void* out, void* stamps,
+    int b, int kv, int g, int d, int T, int layer, int n_slots, int splits,
+    float sm_scale, void* stream) {
+  if (g < 1 || g > MAX_G || d < 16 || d > MAX_D || d % 16 != 0 || n_slots < 1 || n_slots > T ||
+      splits < 1 || splits > n_slots || splits > ATT_MAX_SPLITS ||
+      (k_new == nullptr) != (v_new == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int BC = b * kv;
+  return dispatch_int8_whole(q, k_all, v_all, k_scale, v_scale, bias, k_new, v_new, out, stamps,
+                             (long long)layer * BC, BC, kv, T, d, g, n_slots, splits, sm_scale,
+                             (cudaStream_t)stream, nullptr);
+}
+
+// Clusters of `splits` blocks the card keeps resident at once for split B1w
+// at this g and d over n slots (their shared bytes set by all three).
+extern "C" int vt_attend_whole_clusters(int g, int d, int n, int splits, int* clusters) {
+  if (g < 1 || g > MAX_G || d < 16 || d > MAX_D || d % 16 != 0 || n < 1 || splits < 1 ||
+      splits > ATT_MAX_SPLITS || splits > n || clusters == nullptr) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return dispatch_int8_whole(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                             nullptr, nullptr, nullptr, 0, 1, 1, n, d, g, n, splits, 1.0f,
+                             nullptr, clusters);
 }

@@ -661,7 +661,9 @@ extern "C" long long vt_mlp_gelu_workspace(int b, int d, int F, int tile) {
 }
 
 // B9d (the MLP that JAX's decode step gives a GELU MLP with biases under
-// RMSNorm): out = sum_t q_t(gelu(u)) . Wd[l] (* scales), with
+// RMSNorm) on the old chain: since the one launch of tail_gelu.cu took it
+// (vt_mlp_gelu_one), only for the shapes that body does not take and as its
+// yardstick (chain=True). out = sum_t q_t(gelu(u)) . Wd[l] (* scales), with
 // u = q(x) . Wu[l] (* scales) + bu[l]; x are the post-norm rows; no
 // residual, and the proj bias is the caller's add. bias_kind is bu's dtype.
 extern "C" int vt_mlp_gelu_int8(const void* x, int x_kind, const void* wu, const void* su,

@@ -502,22 +502,23 @@ __device__ __forceinline__ int rows_split(int b, int d, int& vec) {
 }
 
 // quant_rows_t split by rows_split, RMSNorm (or none; with LN, LayerNorm:
-// gain w, bias wb). Not inlined: one copy of the code serves every call (the
-// instruction cache is small). Ends with __syncthreads().
-template <bool LN>
-static __device__ __noinline__ void quant_rows_n(const float* x, int b, int d, const void* w,
+// gain w, bias wb), on f32 rows or (XT, B9d's) bf16 ones. Not inlined: one
+// copy of the code serves every call (the instruction cache is small). Ends
+// with __syncthreads().
+template <bool LN, typename XT = float>
+static __device__ __noinline__ void quant_rows_n(const XT* x, int b, int d, const void* w,
                                                  const void* wb, int wkind, float eps,
                                                  int8_t* act, int lda, float* rs, void* scratch) {
   int vec;
   const int wpr = rows_split(b, d, vec);
   if (vec <= 1) {
-    quant_rows_t<1, LN>(x, b, d, w, wb, wkind, eps, act, lda, rs, wpr, scratch);
+    quant_rows_t<1, LN, XT>(x, b, d, w, wb, wkind, eps, act, lda, rs, wpr, scratch);
   } else if (vec <= 2) {
-    quant_rows_t<2, LN>(x, b, d, w, wb, wkind, eps, act, lda, rs, wpr, scratch);
+    quant_rows_t<2, LN, XT>(x, b, d, w, wb, wkind, eps, act, lda, rs, wpr, scratch);
   } else if (vec <= 4) {
-    quant_rows_t<4, LN>(x, b, d, w, wb, wkind, eps, act, lda, rs, wpr, scratch);
+    quant_rows_t<4, LN, XT>(x, b, d, w, wb, wkind, eps, act, lda, rs, wpr, scratch);
   } else {
-    quant_rows_t<MAX_VEC, LN>(x, b, d, w, wb, wkind, eps, act, lda, rs, wpr, scratch);
+    quant_rows_t<MAX_VEC, LN, XT>(x, b, d, w, wb, wkind, eps, act, lda, rs, wpr, scratch);
   }
 }
 

@@ -9,6 +9,9 @@
 //   B9c tail_gelu_int8_stacked      (def :752, pallas_call :811), the Q = 0
 //       branch: the same body without the next layer's LayerNorm + qkv (as
 //       B8a is to B2)
+//   B9d mlp_gelu_int8_stacked       (def :862, pallas_call :898), the MLP
+//       branch (template MLP): no o-projection, no LayerNorm, no residual
+//       and no proj bias (see "B9d" below)
 // The math is the plain versions' in ops/decode_dense.py
 // (tail_gelu_qkv_int8_plain, tail_gelu_int8_plain), step for step:
 //   x2   = x + ((float(q(attn) . Wo[l]) * as) * wos + bo)
@@ -55,6 +58,21 @@
 // simpler body stays.
 // vocalie_tts_tpu_torch/tools/tail_swiglu_trace.py reads the card's clock at
 // each phase point (the `stamps` argument).
+//
+// B9d (the GELU MLP alone, JAX _mlp_gelu_kernel :829-858) is the same body
+// with the o-projection taken out (ops/decode_dense.py tail_plan with
+// mlp="gelu_mlp": no product-0 items):
+//   u    = (float(q(x) . Wu[l]) * xs) * su + bu, x the post-norm rows
+//   out  = (sum over tiles, in order, of float(q_t(gelu(u)) . Wd_t) * s_t) * sd
+// Every block streams its tiles from its first instruction (its fc items
+// first); an fc block quantizes the rows of x itself (an amax and a divide,
+// no norm) in place of the o-projection and barrier 1. There is no barrier
+// before the fc items, so nothing device-wide can be zeroed for them: the
+// hidden's amax is written per (row, fc slab), each word once, and every
+// block takes the max of a (row, tile)'s slabs after barrier 2. Then the
+// quantized-hidden barrier and the down items, (slab, d_ff tile) pairs met in
+// tile order by the slab's tile-0 block as in B9c; the output is acc * sd
+// (the proj bias is the caller's add, as in JAX).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -209,7 +227,7 @@ __device__ __forceinline__ void item_sums(const GeluArgs& a, const Maps& m, Tile
   __syncthreads();
 }
 
-template <int MT>
+template <int MT, bool MLP>
 __global__ void __launch_bounds__(threads<MT>(), 1)
     tail_gelu_kernel(GeluArgs a, const __grid_constant__ Maps m) {
   cg::grid_group grid = cg::this_grid();
@@ -249,11 +267,14 @@ __global__ void __launch_bounds__(threads<MT>(), 1)
   const int bsz = a.bias_kind == KIND_BF16 ? 2 : 4;
   // the small inputs, in a group of their own ahead of the tiles: the MLP
   // LayerNorm's gain and bias, each item's column scales and bias, the
-  // o-projection's residual columns
-  copy_async(smem_u32(lgv), reinterpret_cast<const char*>(a.lg) + (long long)a.layer * d * esz,
-             d * esz);
-  copy_async(smem_u32(lbv), reinterpret_cast<const char*>(a.lb) + (long long)a.layer * d * esz,
-             d * esz);
+  // o-projection's residual columns (B9d: the fc's scales and bias, the
+  // down-projection's scales)
+  if constexpr (!MLP) {
+    copy_async(smem_u32(lgv), reinterpret_cast<const char*>(a.lg) + (long long)a.layer * d * esz,
+               d * esz);
+    copy_async(smem_u32(lbv), reinterpret_cast<const char*>(a.lb) + (long long)a.layer * d * esz,
+               d * esz);
+  }
   for (int it = 0; it < n_items; ++it) {
     const int p = items[it] >> 24, c0 = item_col(a, items[it]);
     const float* s0 = p == 0   ? a.wos + (long long)a.layer * d + c0
@@ -262,7 +283,7 @@ __global__ void __launch_bounds__(threads<MT>(), 1)
                                : a.sq + (long long)a.nxt * a.Q + c0;
     const uint32_t v = smem_u32(vec) + it * VEC_BYTES;
     if (tid < 8) cp_async16(v + 16 * tid, s0 + 4 * tid);
-    if (p < 3) {
+    if (p < (MLP ? 2 : 3)) {
       const char* b0 = reinterpret_cast<const char*>(p == 0 ? a.bo : p == 1 ? a.bu : a.bd) +
                        ((long long)a.layer * (p == 1 ? F : d) + c0) * bsz;
       if (tid >= 8 && tid < 8 + SLAB * bsz / 16) cp_async16(v + 128 + 16 * (tid - 8), b0 + 16 * (tid - 8));
@@ -277,60 +298,80 @@ __global__ void __launch_bounds__(threads<MT>(), 1)
     }
   }
   cp_async_commit();   // group 0: the small inputs
-  fill(a, m, rg);      // the o-projection's tiles, alone on the card until barrier 1
+  // B9b/B9c: the o-projection's tiles, alone on the card until barrier 1;
+  // B9d: every tile, each block's fc tiles first
+  if (MLP) rg.cap = 3;
+  fill(a, m, rg);
 
   for (int i = tid; i < 16 * MT * RED_ROW; i += nt) red[i] = 0;
-  if (blockIdx.x == 0) {   // used after barrier 1
-    for (int i = tid; i < b * n_tiles; i += nt) a.amax[i] = 0u;
+  if (blockIdx.x == 0) {   // used after barrier 1 (B9d: after barrier 2)
+    if (!MLP) {
+      for (int i = tid; i < b * n_tiles; i += nt) a.amax[i] = 0u;
+      if (tid == 0) *a.normed = 0u;
+    }
     for (int i = tid; i < n_tiles * (d / SLAB); i += nt) a.flags[i] = 0u;
-    if (tid == 0) *a.normed = 0u;
   }
   int it = 0;
   int acc[MT][4][4];
   zero_acc(acc);
 
-  // ── o-projection + bias + residual: x2 ──
-  if (it < n_items && (items[it] >> 24) == 0) {
-    quant_rows(a.attn, b, a.d_attn, nullptr, KIND_NONE, 0.0f, act, a.lda, sc, scratch);
-    wait_first();   // the column scales, the biases and the residual columns
-  }
-  for (; it < n_items && (items[it] >> 24) == 0; ++it) {
-    const int c0 = item_col(a, items[it]);
-    item_sums<MT>(a, m, rg, items[it], act_s, 0, acc, red);
-    const unsigned char* xr = reinterpret_cast<const unsigned char*>(cols + it * b * SLAB);
-    const float* vs = reinterpret_cast<const float*>(vec + it * VEC_BYTES);
-    const void* vb = vec + it * VEC_BYTES + 128;
-    for (int e = tid; e < b * SLAB; e += nt) {
-      const int r = e / SLAB, c = e % SLAB;
-      const int k = r * RED_ROW + c;
-      const float o = __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(red[k]), sc[r]), vs[c]),
-                                load_f(vb, a.bias_kind, c));
-      a.x2[(long long)r * d + c0 + c] = __fadd_rn(load_f(xr + r * COL_ROW, a.x_kind, c), o);
-      red[k] = 0;
+  if constexpr (!MLP) {   // B9b, B9c
+    // ── o-projection + bias + residual: x2 ──
+    if (it < n_items && (items[it] >> 24) == 0) {
+      quant_rows(a.attn, b, a.d_attn, nullptr, KIND_NONE, 0.0f, act, a.lda, sc, scratch);
+      wait_first();   // the column scales, the biases and the residual columns
     }
-    __syncthreads();
-  }
-  stamp(a, 1);
-  grid.sync();
-  stamp(a, 2);
-  wait_first();   // the small inputs of every later phase
-  rg.cap = 3;
-  if (it >= n_items || (items[it] >> 24) != 1) {
-    // the rest of the stream once every fc block has read its rows through
-    // L2 for the MLP LayerNorm (the stream would slow those reads down)
-    if (tid == 0) {
-      while (atomicAdd(a.normed, 0u) < (unsigned)a.fc_blocks) __nanosleep(256);
+    for (; it < n_items && (items[it] >> 24) == 0; ++it) {
+      const int c0 = item_col(a, items[it]);
+      item_sums<MT>(a, m, rg, items[it], act_s, 0, acc, red);
+      const unsigned char* xr = reinterpret_cast<const unsigned char*>(cols + it * b * SLAB);
+      const float* vs = reinterpret_cast<const float*>(vec + it * VEC_BYTES);
+      const void* vb = vec + it * VEC_BYTES + 128;
+      for (int e = tid; e < b * SLAB; e += nt) {
+        const int r = e / SLAB, c = e % SLAB;
+        const int k = r * RED_ROW + c;
+        const float o = __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(red[k]), sc[r]), vs[c]),
+                                  load_f(vb, a.bias_kind, c));
+        a.x2[(long long)r * d + c0 + c] = __fadd_rn(load_f(xr + r * COL_ROW, a.x_kind, c), o);
+        red[k] = 0;
+      }
+      __syncthreads();
     }
-    __syncthreads();
-    fill(a, m, rg);
+    stamp(a, 1);
+    grid.sync();
+    stamp(a, 2);
+    wait_first();   // the small inputs of every later phase
+    rg.cap = 3;
+    if (it >= n_items || (items[it] >> 24) != 1) {
+      // the rest of the stream once every fc block has read its rows through
+      // L2 for the MLP LayerNorm (the stream would slow those reads down)
+      if (tid == 0) {
+        while (atomicAdd(a.normed, 0u) < (unsigned)a.fc_blocks) __nanosleep(256);
+      }
+      __syncthreads();
+      fill(a, m, rg);
+    }
   }
 
-  // ── MLP LayerNorm, fc + bias, tanh-GELU and its amax per (row, tile) ──
+  // ── MLP LayerNorm (B9d: the rows as they are), fc + bias, tanh-GELU and
+  // its amax per (row, tile) (B9d: per (row, slab)) ──
   const int fc_beg = it;
   if (it < n_items && (items[it] >> 24) == 1) {
-    quant_rows_ln(a.x2, b, d, lgv, lbv, a.norm_kind, a.eps, act, a.lda, sc, scratch);
-    if (tid == 0) atomicAdd(a.normed, 1u);
-    fill(a, m, rg);
+    if constexpr (MLP) {
+      if (a.x_kind == KIND_BF16) {
+        quant_rows_n<false, __nv_bfloat16>(reinterpret_cast<const __nv_bfloat16*>(a.x), b, d,
+                                            nullptr, nullptr, KIND_NONE, 0.0f, act, a.lda, sc,
+                                            scratch);
+      } else {
+        quant_rows_n<false, float>(reinterpret_cast<const float*>(a.x), b, d, nullptr, nullptr,
+                                   KIND_NONE, 0.0f, act, a.lda, sc, scratch);
+      }
+      wait_first();   // the fc's column scales and bias
+    } else {
+      quant_rows_ln(a.x2, b, d, lgv, lbv, a.norm_kind, a.eps, act, a.lda, sc, scratch);
+      if (tid == 0) atomicAdd(a.normed, 1u);
+      fill(a, m, rg);
+    }
   }
   stamp(a, 3);
   for (int slot = 0; it < n_items && (items[it] >> 24) == 1; ++it, ++slot) {
@@ -348,16 +389,32 @@ __global__ void __launch_bounds__(threads<MT>(), 1)
     }
     __syncthreads();
     // the item's 32 columns lie in one d_ff tile: one atomicMax a row
+    // (B9d: the slab's max, stored)
     const int lane = tid & 31;
     for (int r = tid >> 5; r < b; r += nt >> 5) {
       float mx = fabsf(h[r * SLAB + lane]);
       for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      if (lane == 0) atomicMax(&a.amax[r * n_tiles + c0 / a.tile], __float_as_uint(mx));
+      if (lane == 0) {
+        if (MLP) __stcg(&a.amax[r * (F / SLAB) + c0 / SLAB], __float_as_uint(mx));
+        else atomicMax(&a.amax[r * n_tiles + c0 / a.tile], __float_as_uint(mx));
+      }
     }
   }
   stamp(a, 4);
   grid.sync();
   stamp(a, 5);
+  if constexpr (MLP) {   // every (row, tile)'s scale from its slabs' maxima
+    wait_first();   // the small inputs of the blocks without fc items
+    const int lane = tid & 31, spt = a.tile / SLAB;
+    for (int i = tid >> 5; i < b * n_tiles; i += nt >> 5) {
+      const unsigned* am = a.amax + (i / n_tiles) * (F / SLAB) + (i % n_tiles) * spt;
+      float mx = 0.0f;
+      for (int j = lane; j < spt; j += 32) mx = fmaxf(mx, __uint_as_float(__ldcg(am + j)));
+      for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      if (lane == 0) sc[i] = quant_scale(mx);
+    }
+    __syncthreads();
+  }
 
   // ── the hidden quantized per (row, tile) ──
   for (int i = fc_beg, slot = 0; i < n_items && (items[i] >> 24) == 1; ++i, ++slot) {
@@ -365,7 +422,9 @@ __global__ void __launch_bounds__(threads<MT>(), 1)
     const float* h = hid + slot * b * SLAB;
     for (int e = tid; e < b * SLAB; e += nt) {
       const int r = e / SLAB;
-      const float s = quant_scale(__uint_as_float(__ldcg(&a.amax[r * n_tiles + c0 / a.tile])));
+      const float s =
+          MLP ? sc[r * n_tiles + c0 / a.tile]
+              : quant_scale(__uint_as_float(__ldcg(&a.amax[r * n_tiles + c0 / a.tile])));
       a.hq[(long long)r * F + c0 + e % SLAB] = (int8_t)quant_fast(h[e], s, __frcp_rn(s));
     }
   }
@@ -385,10 +444,10 @@ __global__ void __launch_bounds__(threads<MT>(), 1)
       const int r = i / w16, c = i - r * w16;
       *reinterpret_cast<int4*>(act + r * a.lda + 16 * c) = __ldcg(hsrc + (long long)r * w16 + c);
     }
-    for (int i = tid; i < b * n_tiles; i += nt) {
+    for (int i = tid; i < b * n_tiles && !MLP; i += nt) {
       sc[i] = quant_scale(__uint_as_float(__ldcg(&a.amax[i])));
     }
-    for (int i = it; i < n_items && (items[i] >> 24) == 2; ++i) {
+    for (int i = it; i < n_items && (items[i] >> 24) == 2 && !MLP; ++i) {
       if (down_tile(a, items[i]) != 0) continue;
       const int c0 = item_col(a, items[i]);
       for (int e = tid; e < b * SLAB / 4; e += nt) {
@@ -441,15 +500,16 @@ __global__ void __launch_bounds__(threads<MT>(), 1)
     const void* vb = vec + it * VEC_BYTES + 128;
     for (int e = tid; e < b * SLAB; e += nt) {
       const int r = e / SLAB, c = e % SLAB;
-      a.x_out[(long long)r * d + c0 + c] = __fadd_rn(
-          __fadd_rn(cols[(it * b + r) * SLAB + c], __fmul_rn(dacc[e], vs[c])),
-          load_f(vb, a.bias_kind, c));
+      a.x_out[(long long)r * d + c0 + c] =
+          MLP ? __fmul_rn(dacc[e], vs[c])
+              : __fadd_rn(__fadd_rn(cols[(it * b + r) * SLAB + c], __fmul_rn(dacc[e], vs[c])),
+                          load_f(vb, a.bias_kind, c));
     }
     __syncthreads();
   }
   stamp(a, 9);
 
-  if (a.Q > 0) {   // B9b; B9c ends with x_out
+  if (!MLP && a.Q > 0) {   // B9b; B9c and B9d end with x_out
     grid.sync();
     stamp(a, 10);
     // ── the next layer's LayerNorm + qkv ──
@@ -483,6 +543,41 @@ bool shapes_ok(int b, int d_attn, int d, int F, int tile, int Q) {
 }
 
 long long a256(long long n) { return (n + 255) / 256 * 256; }
+
+// B9d's workspace: the quantized hidden, its amax per (row, fc slab), the
+// down-projection's parts and their flags
+long long mlp_workspace(int b, int d, int F, int tile) {
+  const long long n_tiles = F / tile;
+  return a256((long long)b * F) + a256((long long)b * (F / SLAB) * 4) +
+         a256(n_tiles * b * d * 4) + a256(n_tiles * (d / SLAB) * 4);
+}
+
+// One cooperative launch of the body on `grid` blocks, the largest dynamic
+// shared size allowed once per body and device.
+template <bool MLP>
+int launch_gelu(GeluArgs& a, Maps& maps, int grid, int smem, cudaStream_t stream) {
+  const bool wide = a.b > 16;
+  const void* fn =
+      wide ? (const void*)tail_gelu_kernel<2, MLP> : (const void*)tail_gelu_kernel<1, MLP>;
+  static int allowed[2][64];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  int& ok = allowed[wide][dev & 63];
+  if (!ok) {
+    e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+    if (e != cudaSuccess) return (int)e;
+    ok = 1;
+  }
+  void* params[] = {&a, &maps};
+  e = cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(wide ? threads<2>() : threads<1>()),
+                                  params, (size_t)smem, stream);
+  if (e != cudaSuccess) {
+    cudaGetLastError();  // a refused launch leaves no sticky error; clear the last one
+    return (int)e;
+  }
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
@@ -598,24 +693,83 @@ extern "C" int vt_tail_gelu_qkv_int8(
   if (rc == 0) rc = Q ? tile_map(wq, L, d, Q, kc, &maps.wq) : 0;
   if (rc) return rc;
   if (!Q) maps.wq = maps.wo;   // not read
-  const void* fn = b > 16 ? (const void*)tail_gelu_kernel<2> : (const void*)tail_gelu_kernel<1>;
-  // the largest dynamic shared size, allowed once per body and device
-  static int allowed[2][64];
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  int& ok = allowed[b > 16][dev & 63];
-  if (!ok) {
-    e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
-    if (e != cudaSuccess) return (int)e;
-    ok = 1;
+  return launch_gelu<false>(a, maps, grid, smem, (cudaStream_t)stream);
+}
+
+// ── B9d: the GELU MLP alone, the body's MLP branch ───────────────────────
+
+// The shared bytes of a B9d launch; -1 for a plan the kernel does not take.
+extern "C" int vt_mlp_gelu_one_smem(int b, int d, int F, int tile, int max_fc, int max_items,
+                                    int stages, int kc) {
+  if (!shapes_ok(b, d, d, F, tile, 0) || stages < 1 || stages > MAX_STAGES || kc < 32 ||
+      kc % 32 || d % kc || tile % kc || max_fc < 0 || max_items < max_fc) {
+    return -1;
   }
-  void* params[] = {&a, &maps};
-  e = cudaLaunchCooperativeKernel(fn, dim3(grid), dim3(b > 16 ? threads<2>() : threads<1>()),
-                                  params, (size_t)smem, (cudaStream_t)stream);
-  if (e != cudaSuccess) {
-    cudaGetLastError();  // a refused launch leaves no sticky error; clear the last one
-    return (int)e;
+  const int lda = (F > d ? F : d) + 16;
+  return layout(b, b > 16 ? 2 : 1, lda, d, max_fc, max_items, F / tile, stages, kc).total;
+}
+
+// B9d, one launch of `grid` blocks: out = (sum over d_ff tiles t, in order,
+// of float(q_t(gelu(u)) . Wd[l]_t) * s_t) * sd[l], u = (float(q(x) . Wu[l])
+// * xs) * su[l] + bu[l]; x [b, d] the post-norm rows (x_kind), bu of
+// bias_kind; no residual, and the proj bias is the caller's add. plan: the
+// item table of tail_plan with mlp="gelu_mlp" (no o-projection items); kc,
+// stages, max_fc, max_items and smem as vt_tail_gelu_qkv_int8's (smem
+// checked against vt_mlp_gelu_one_smem). stamps: null, or [grid, 12 + 64]
+// u64. Every pointer but out, ws, plan and stamps starts on a 16-byte
+// boundary.
+extern "C" int vt_mlp_gelu_one(const void* x, int x_kind, const void* wu, const void* su,
+                               const void* bu, int bias_kind, const void* wd, const void* sd,
+                               int layer, int L, int b, int d, int F, int tile, void* out,
+                               void* ws, long long ws_bytes, const void* plan, int grid, int kc,
+                               int stages, int max_fc, int max_items, int smem, void* stamps,
+                               void* stream) {
+  if (!shapes_ok(b, d, d, F, tile, 0) || layer < 0 || layer >= L || grid < 1 ||
+      x_kind == KIND_NONE || bias_kind == KIND_NONE || plan == nullptr ||
+      smem != vt_mlp_gelu_one_smem(b, d, F, tile, max_fc, max_items, stages, kc) ||
+      smem > SMEM_MAX || ws_bytes < mlp_workspace(b, d, F, tile)) {
+    return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+  const void* aligned[] = {x, wu, su, bu, wd, sd};
+  for (const void* p : aligned) {
+    if ((uintptr_t)p % 16 != 0) return (int)cudaErrorMisalignedAddress;
+  }
+  GeluArgs a = {};
+  a.x = x;
+  a.wu = (const int8_t*)wu;
+  a.su = (const float*)su;
+  a.bu = bu;
+  a.wd = (const int8_t*)wd;
+  a.sd = (const float*)sd;
+  a.x_out = (float*)out;
+  a.plan = (const int*)plan;
+  const int n_tiles = F / tile;
+  char* p = (char*)ws;
+  a.hq = (int8_t*)p;
+  p += a256((long long)b * F);
+  a.amax = (unsigned*)p;
+  p += a256((long long)b * (F / SLAB) * 4);
+  a.part = (float*)p;
+  p += a256((long long)n_tiles * b * d * 4);
+  a.flags = (unsigned*)p;
+  a.stamps = (unsigned long long*)stamps;
+  a.x_kind = x_kind;
+  a.bias_kind = bias_kind;
+  a.norm_kind = KIND_NONE;
+  a.layer = a.nxt = layer;
+  a.b = b;
+  a.d = d;
+  a.F = F;
+  a.tile = tile;
+  a.kc = kc;
+  a.stages = stages;
+  a.lda = (F > d ? F : d) + 16;
+  a.max_fc = max_fc;
+  a.max_items = max_items;
+  Maps maps;
+  int rc = tile_map(wu, L, d, F, kc, &maps.wu);
+  if (rc == 0) rc = tile_map(wd, L, F, d, kc, &maps.wd);
+  if (rc) return rc;
+  maps.wo = maps.wq = maps.wu;   // not read
+  return launch_gelu<true>(a, maps, grid, smem, (cudaStream_t)stream);
 }

@@ -45,6 +45,14 @@ publish their maxima, and each rank runs the sequential chain over its own
 blocks from the prefix max of the ranks before it, so every block's p is
 quantized against the running max the plain version uses; the ranks'
 states then merge in rank order.
+
+B1w is split the same way, off the 128-slot grid: a cluster of
+:func:`whole_splits` blocks per (row, kv head), rank r taking the slots
+:func:`whole_ranges` gives it. Its math has no chain: the ranks publish the
+row max, then l and the p-max, so that every rank rounds its p8 against the
+one scale of the whole row, and the int32 partials meet in any order. A
+row past 16 blocks' shared memory, or a call with ``one_block=True``, runs
+the first, one-block body (its scores in a global workspace past 200 KB).
 """
 
 from __future__ import annotations
@@ -142,6 +150,91 @@ def card_int8_splits(bc: int, n_blk: int, g: int, d: int) -> int:
     ``n_blk`` valid blocks (:func:`int8_splits` with the card's resident
     clusters)."""
     return int8_splits(bc, n_blk, g, d, lambda s: resident_int8_clusters(g, d, n_blk, s))
+
+
+#: B1w's split: blocks it aims for, the largest cluster, the fewest slots a
+#: rank keeps when the planner adds ranks (a rank walks its slots 128 a pass,
+#: one row a lane: at the Qwen3 shape 3 ranks of ~117 slots ran 0.012379 ms
+#: graph-timed, 4 of 88 0.012665, 5 of 70 0.013263; at T3 2 of 276 and 3 of
+#: 184 ran alike, 0.015179: ``chip_smoke.py --whole-mlp-rows --sweep`` on an
+#: H100), and the dynamic shared bytes a block may take (the kernel's
+#: W_SMEM_MAX)
+WHOLE_SPLIT_TARGET_BLOCKS = 264
+WHOLE_SPLIT_MAX = 16
+WHOLE_MIN_SLOTS = 96
+WHOLE_SMEM_MAX = 160 * 1024
+#: the phase points at which split B1w writes the card's clock when given
+#: ``stamps`` (csrc W_STAMPS): per block, in order
+WHOLE_STAMP_POINTS = ("start", "q quantized", "scores and maxima", "barrier 1 passed",
+                      "p, l and the p-max", "barrier 2 passed", "p8 . v summed",
+                      "barrier 3 passed", "outputs written")
+WHOLE_STAMPS = len(WHOLE_STAMP_POINTS)
+
+
+def whole_smem(g: int, d: int, ns: int) -> int:
+    """Split B1w's dynamic shared bytes a block, for the most slots ``ns`` a
+    rank takes, padded to 4: the scores of its group members (g rounded up
+    to a power of two) and the v scales in f32, its v rows, and its p8 as
+    bytes (``csrc/decode_attention.cu`` ``w_smem_bytes``)."""
+    G = 1 << (int(g) - 1).bit_length()
+    return (-(-int(ns) // 4) * 4) * ((G + 1) * 4 + d + G)
+
+
+def whole_ranges(n: int, splits: int) -> list:
+    """The slots ``[lo, hi)`` rank r of split B1w takes, as the kernel cuts
+    them: ``r * n // splits`` up to the next rank's start."""
+    return [(r * n // splits, (r + 1) * n // splits) for r in range(splits)]
+
+
+def whole_splits(bc: int, n: int, g: int, d: int, resident=None) -> Optional[int]:
+    """Blocks per (row, kv head) of split B1w over ``n`` slots: the fewest
+    whose scores and v rows fit :data:`WHOLE_SMEM_MAX`, then one more while
+    the ``bc`` pairs have fewer than :data:`WHOLE_SPLIT_TARGET_BLOCKS` blocks,
+    every rank keeps :data:`WHOLE_MIN_SLOTS` slots, the count stays at most
+    :data:`WHOLE_SPLIT_MAX` and (given ``resident(splits)``, the clusters of
+    that size the card keeps resident at once) all ``bc`` clusters still run
+    in one wave. None where even 16 ranks cannot hold the row, or the card
+    holds no cluster of the fewest: the one-block body takes it."""
+    s = 1
+    while whole_smem(g, d, -(-int(n) // s)) > WHOLE_SMEM_MAX:
+        s += 1
+        if s > min(int(n), WHOLE_SPLIT_MAX):
+            return None
+    if resident is not None and resident(s) < 1:
+        return None
+    top = max(s, min(int(n) // WHOLE_MIN_SLOTS, WHOLE_SPLIT_MAX))
+    while (s < top and bc * s < WHOLE_SPLIT_TARGET_BLOCKS
+           and (resident is None or bc <= resident(s + 1))):
+        s += 1
+    return s
+
+
+@functools.lru_cache(maxsize=None)
+def resident_whole_clusters(g: int, d: int, ns: int, splits: int) -> int:
+    """Clusters of ``splits`` blocks the card keeps resident at once for
+    split B1w at this g and d, a rank taking ``ns`` slots
+    (``cudaOccupancyMaxActiveClusters``)."""
+    n = ctypes.c_int(0)
+    rc = _build.kernel("vt_attend_whole_clusters", [_build.I] * 4 + [_build.P])(
+        g, d, ns * splits, splits, ctypes.byref(n))
+    _build.check(rc, "vt_attend_whole_clusters")
+    return n.value
+
+
+@functools.lru_cache(maxsize=4096)
+def card_whole_splits(bc: int, n: int, g: int, d: int) -> Optional[int]:
+    """The split B1w takes on the card for ``bc`` (row, kv head) pairs over
+    ``n`` slots (:func:`whole_splits` with the card's resident clusters,
+    asked at a rank's slots rounded up to 128 where those fit: the cache
+    grows a slot a step, and fewer shared bytes never hold fewer
+    clusters)."""
+    def resident(s):
+        ns = -(-int(n) // s)
+        up = -(-ns // TBLK) * TBLK
+        return resident_whole_clusters(g, d, up if whole_smem(g, d, up) <= WHOLE_SMEM_MAX
+                                       else ns, s)
+
+    return whole_splits(bc, n, g, d, resident)
 
 
 def decode_attention_plain(q, k_all, v_all, bias, layer: int, k_scale, v_scale,
@@ -273,6 +366,7 @@ decode_attention_int8_stacked.launches = 0
 # ── B1w: the int8 whole-row branch ──
 
 _WHOLE_ARGTYPES = ([_build.P] * 10 + [_build.LL] + [_build.I] * 7 + [_build.F, _build.P])
+_WHOLE_SPLIT_ARGTYPES = [_build.P] * 10 + [_build.I] * 8 + [_build.F, _build.P]
 
 
 def decode_attention_whole_plain(q, k_all, v_all, bias, layer: int, k_scale, v_scale,
@@ -331,9 +425,14 @@ def decode_attention_int8_whole_stacked(
     *,
     valid_len: Optional[int] = None,   # with k_new: slots at and past it are masked
     sm_scale: float,
+    splits: Optional[int] = None,   # on a card: force the cluster size (1..min(n, 16))
+    one_block: bool = False,        # on a card: the one-block body (the yardstick)
+    stamps: Optional[torch.Tensor] = None,   # on a card: [b·kv·splits, WHOLE_STAMPS] int64
 ) -> torch.Tensor:
     """B1w: attention output ``[b, kv, g, d]`` f32 for layer ``layer`` of the
-    int8 cache, one softmax and one p scale over the whole row (any T)."""
+    int8 cache, one softmax and one p scale over the whole row (any T). On a
+    card: split over a cluster (:func:`card_whole_splits`), or the one-block
+    body where no split holds the row or ``one_block`` is set."""
     L, b, kv, T, d = k_all.shape
     g = q.shape[2]
     if (k_new is None) != (v_new is None):
@@ -362,25 +461,46 @@ def decode_attention_int8_whole_stacked(
             )
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+    n = _n_slots(T, k_new, valid_len)
+    if one_block:
+        splits = None
+    elif splits is None:
+        splits = card_whole_splits(b * kv, n, g, d)
+    elif (not 1 <= splits <= min(n, WHOLE_SPLIT_MAX)
+          or whole_smem(g, d, -(-n // splits)) > WHOLE_SMEM_MAX):
+        raise ValueError(f"splits={splits} outside 1..{min(n, WHOLE_SPLIT_MAX)} for {n} slots, "
+                         "or a rank's scores and v rows past the shared memory")
+    if stamps is not None and (splits is None or stamps.dtype != torch.int64
+                               or stamps.device != q.device
+                               or stamps.numel() < b * kv * splits * WHOLE_STAMPS):
+        raise ValueError(f"stamps: the split body's, int64 on {q.device}, "
+                         f"{b * kv * (splits or 0) * WHOLE_STAMPS} or more")
+    out = torch.empty((b, kv, g, d), dtype=torch.float32, device=q.device)
+    ptr = lambda t: 0 if t is None else t.data_ptr()   # noqa: E731
+    head = (q.data_ptr(), k_all.data_ptr(), v_all.data_ptr(), k_scale.data_ptr(),
+            v_scale.data_ptr(), bias.data_ptr(), ptr(k_new), ptr(v_new), out.data_ptr())
+    decode_attention_int8_whole_stacked.launches += 1
+    if splits is not None:
+        decode_attention_int8_whole_stacked.cluster_launches += 1
+        rc = _build.kernel("vt_decode_attention_int8_whole_split", _WHOLE_SPLIT_ARGTYPES)(
+            *head, ptr(stamps), b, kv, g, d, T, int(layer), n, int(splits), float(sm_scale),
+            _build.stream_ptr(q))
+        _build.check(rc, "vt_decode_attention_int8_whole_split")
+        return out
     need = _whole_ws_bytes(b, kv, g, T)
     ws = torch.empty((max(need, 1),), dtype=torch.uint8, device=q.device)
-    out = torch.empty((b, kv, g, d), dtype=torch.float32, device=q.device)
-    fn = _build.kernel("vt_decode_attention_int8_whole", _WHOLE_ARGTYPES)
-    ptr = lambda t: 0 if t is None else t.data_ptr()   # noqa: E731
-    decode_attention_int8_whole_stacked.launches += 1
-    rc = fn(
-        q.data_ptr(), k_all.data_ptr(), v_all.data_ptr(),
-        k_scale.data_ptr(), v_scale.data_ptr(), bias.data_ptr(),
-        ptr(k_new), ptr(v_new), out.data_ptr(), ws.data_ptr(), ws.numel(),
-        b, kv, g, d, T, int(layer), _n_slots(T, k_new, valid_len), float(sm_scale),
-        _build.stream_ptr(q),
-    )
+    rc = _build.kernel("vt_decode_attention_int8_whole", _WHOLE_ARGTYPES)(
+        *head, ws.data_ptr(), ws.numel(), b, kv, g, d, T, int(layer), n, float(sm_scale),
+        _build.stream_ptr(q))
     _build.check(rc, "vt_decode_attention_int8_whole")
     return out
 
 
-#: launches of the CUDA kernel (the plain version is not counted)
+#: launches of the CUDA kernels (the plain version is not counted);
+#: ``cluster_launches``: those of the split body (the rest ran the one-block
+#: body)
 decode_attention_int8_whole_stacked.launches = 0
+decode_attention_int8_whole_stacked.cluster_launches = 0
 
 
 # ── the f32 branches: K1 (float cache), K2 (int8 cache dequantized), B10 ──
@@ -697,4 +817,4 @@ __all__ = ["decode_attention_stacked", "decode_attention_int8_stacked",
            "decode_attention", "decode_attention_plain", "decode_attention_float_plain",
            "decode_attention_dequant_plain", "decode_attention_plain_b10", "attend_splits",
            "attend_ranges", "f32_codes", "f32_splits", "resident_clusters", "n_valid_blocks",
-           "TBLK"]
+           "whole_splits", "whole_ranges", "whole_smem", "card_whole_splits", "TBLK"]

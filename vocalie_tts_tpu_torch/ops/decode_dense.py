@@ -47,11 +47,12 @@ below one 128-column tile raises as it does there.
 On a CUDA tensor each wrapper launches ``csrc/decode_dense.cu`` (a short
 sequence of kernels from one C entry point; ``launches`` counts calls of
 the entry point), except B2 and B8a, which are one cooperative launch of
-``csrc/tail_swiglu.cu`` on the int8 tensor cores, and B9b and B9c, one launch of
+``csrc/tail_swiglu.cu`` on the int8 tensor cores, and B9b, B9c and B9d, one launch of
 ``csrc/tail_gelu.cu`` (B2's body with the GELU MLP and the LayerNorms; B9c
-its branch without the next qkv, as B8a is B2's), each planned per shape by
-:func:`tail_plan`; a shape that body does not take (:func:`gelu_takes`)
-runs the old chain of ``csrc/decode_dense.cu``. B3, B4 and B9a are one
+its branch without the next qkv, as B8a is B2's; B9d its MLP branch, with
+no o-projection), each planned per shape by :func:`tail_plan`; a shape that
+body does not take (:func:`gelu_takes`, :func:`mlp_gelu_takes`) runs the old
+chain of ``csrc/decode_dense.cu``, and B9d's ``chain=True`` forces it. B3, B4 and B9a are one
 launch of ``csrc/dense_int8.cu`` (TMA weight slices, int8 tensor cores,
 split-K met in a thread-block cluster; B9a with the LayerNorm in place of
 B3's RMSNorm), planned per shape by :func:`dense_plan`; a shape it does not
@@ -68,6 +69,7 @@ import dataclasses
 import functools
 import heapq
 import os
+from typing import Optional
 
 import numpy as np
 import torch
@@ -454,7 +456,9 @@ class TailPlan:
     gate | up pair; ``max_gu`` and ``gu_blocks`` count fc items), and a
     down-projection item is one d_ff ``tile`` of a slab, ``s = (n_tiles - 1
     - t) · d / 32 + slab``, so that a block streams the later tiles' items
-    before the tile-0 item that waits for them."""
+    before the tile-0 item that waits for them. ``mlp`` "gelu_mlp" is B9d's
+    (the same body's MLP branch): B9b's items without the o-projection's
+    and the qkv's."""
     grid: int
     kc: int
     stages: int
@@ -485,10 +489,11 @@ def _align16(n: int) -> int:
 def tail_item_rows(p: int, d_attn: int, d: int, d_ff: int, mlp: str = "swiglu",
                    tile: int = 0) -> int:
     """The weight rows (K) of one item of product ``p`` (0 the o-projection,
-    1 gate | up or, with ``mlp`` "gelu", the fc, 2 the down-projection, 3 the
-    qkv, in stream order); a gate | up item streams its gate and its up
-    slab, each ``d`` rows; a GELU down item one d_ff ``tile``."""
-    if mlp == "gelu":
+    1 gate | up or, with ``mlp`` "gelu" or "gelu_mlp", the fc, 2 the
+    down-projection, 3 the qkv, in stream order); a gate | up item streams
+    its gate and its up slab, each ``d`` rows; a GELU down item one d_ff
+    ``tile``."""
+    if mlp != "swiglu":
         return (d_attn, d, tile, d)[p]
     return (d_attn, 2 * d, d_ff, d)[p]
 
@@ -512,9 +517,10 @@ def tail_plan(b: int, d_attn: int, d: int, d_ff: int, tile: int, Q: int, sms: in
               smem_max: int = SMEM_MAX, mlp: str = "swiglu", act_min: int = 0,
               n_abar: int = 0) -> TailPlan:
     """B2's (``Q`` > 0) or B8a's (``Q`` = 0) launch plan, or with ``mlp``
-    "gelu" B9b's (``Q`` > 0) or B9c's (``Q`` = 0), a pure function of the
-    shape and the card's SM count (B12 adds ``act_min`` and ``n_abar``, see
-    :func:`_fixed_smem`). The
+    "gelu" B9b's (``Q`` > 0) or B9c's (``Q`` = 0), or with ``mlp``
+    "gelu_mlp" B9d's (``d_attn`` and ``Q`` 0: no o-projection, no qkv), a
+    pure function of the shape and the card's SM count (B12 adds ``act_min``
+    and ``n_abar``, see :func:`_fixed_smem`). The
     items (32-column slabs of the four products, each over its full K; a
     GELU down-projection item over one d_ff tile) are dealt largest first
     to the least loaded block (by weight bytes; ties to the lower block; an
@@ -527,10 +533,13 @@ def tail_plan(b: int, d_attn: int, d: int, d_ff: int, tile: int, Q: int, sms: in
     norm's weights and each item's column scales and residual columns, up to
     16 stages and no more than the largest block's tiles.
     Raises ``ValueError`` for a shape the body does not take."""
-    name = "B9b/B9c" if mlp == "gelu" else "B2/B8a"
+    name = {"gelu": "B9b/B9c", "gelu_mlp": "B9d"}.get(mlp, "B2/B8a")
     if not 1 <= b <= TAIL_MAX_B:
         raise ValueError(f"{name} take 1 to {TAIL_MAX_B} rows, got b={b}")
-    for what, n in (("d_attn", d_attn), ("d_model", d), ("d_ff", d_ff), ("tile", tile)):
+    if mlp == "gelu_mlp" and (d_attn or Q):
+        raise ValueError(f"B9d has no o-projection and no qkv, got d_attn={d_attn}, d_qkv={Q}")
+    widths = (("d_model", d), ("d_ff", d_ff), ("tile", tile))
+    for what, n in widths if mlp == "gelu_mlp" else (("d_attn", d_attn),) + widths:
         if n < SLAB or n % SLAB:
             raise ValueError(f"{name} need {what} a multiple of {SLAB}, got {n}")
     if Q < 0 or Q % SLAB or d_ff % tile:
@@ -540,8 +549,8 @@ def tail_plan(b: int, d_attn: int, d: int, d_ff: int, tile: int, Q: int, sms: in
         raise ValueError(f"{name} norm rows of at most {TAIL_MAX_D}, got d_attn={d_attn}, "
                          f"d_model={d}")
     n_tiles = d_ff // tile
-    if mlp == "gelu":
-        slabs = (d // SLAB, d_ff // SLAB, d // SLAB * n_tiles, Q // SLAB)
+    if mlp != "swiglu":
+        slabs = (d_attn // SLAB, d_ff // SLAB, d // SLAB * n_tiles, Q // SLAB)
     else:
         slabs = (d // SLAB, d_ff // SLAB, d // SLAB, Q // SLAB)
     work = sorted(((tail_item_rows(p, d_attn, d, d_ff, mlp, tile) * SLAB, p, s)
@@ -602,7 +611,7 @@ def tail_stream(plan: TailPlan, blk: int, d_attn: int, d: int, d_ff: int) -> lis
             for j in range(d // plan.kc):
                 out += [(1, c0, j * plan.kc), (1, d_ff + c0, j * plan.kc)]
             continue
-        if p == 2 and plan.mlp == "gelu":
+        if p == 2 and plan.mlp != "swiglu":
             t = d_ff // plan.tile - 1 - s // n_slabs
             c0, r0 = SLAB * (s % n_slabs), t * plan.tile
         K = tail_item_rows(p, d_attn, d, d_ff, plan.mlp, plan.tile)
@@ -626,6 +635,16 @@ def gelu_workspace_bytes(b: int, d: int, d_ff: int, tile: int) -> int:
     n_tiles = d_ff // tile
     return (a256(b * d * 4) + a256(b * d_ff) + a256(b * n_tiles * 4) + 256
             + a256(n_tiles * b * d * 4) + a256(n_tiles * (d // SLAB) * 4))
+
+
+def mlp_gelu_workspace_bytes(b: int, d: int, d_ff: int, tile: int) -> int:
+    """B9d's workspace (``tail_gelu.cu`` ``mlp_workspace``): the quantized hidden,
+    its amax per (row, fc slab), the down-projection's f32 parts [n_tiles, b,
+    d] and their flags [n_tiles, d / 32]."""
+    a256 = lambda n: (n + 255) // 256 * 256   # noqa: E731
+    n_tiles = d_ff // tile
+    return (a256(b * d_ff) + a256(b * (d_ff // SLAB) * 4) + a256(n_tiles * b * d * 4)
+            + a256(n_tiles * (d // SLAB) * 4))
 
 
 @functools.lru_cache(maxsize=None)
@@ -681,7 +700,8 @@ def _tail_launch(b: int, d_attn: int, d: int, d_ff: int, tile: int, Q: int, dev:
     here and runs no Python over the blocks."""
     plan = tail_plan(b, d_attn, d, d_ff, tile, Q, _sm_count(dev), mlp=mlp)
     table = torch.tensor(plan.table(), dtype=torch.int32, device=torch.device("cuda", dev))
-    ws = (gelu_workspace_bytes if mlp == "gelu" else tail_workspace_bytes)(b, d, d_ff, tile)
+    ws = {"gelu": gelu_workspace_bytes, "gelu_mlp": mlp_gelu_workspace_bytes}.get(
+        mlp, tail_workspace_bytes)(b, d, d_ff, tile)
     return plan, table, ws
 
 
@@ -693,6 +713,25 @@ def _gelu_launch(b: int, d_attn: int, d: int, d_ff: int, tile: int, Q: int, dev:
     if not gelu_takes(b, d_attn, d, d_ff, Q, _sm_count(dev)):
         return None
     return _tail_launch(b, d_attn, d, d_ff, tile, Q, dev, "gelu")
+
+
+def mlp_gelu_takes(b: int, d: int, d_ff: int, sms) -> bool:
+    """Whether the one-launch GELU body takes this shape as B9d (its MLP
+    branch) on a card of ``sms`` SMs: ``tail_plan`` with ``mlp="gelu_mlp"``
+    has a plan (1 to 32 rows, rows of at most 2048, a two-stage ring beside
+    the activations); ``mlp_gelu_int8_stacked`` runs the other shapes on the
+    old six-kernel chain of ``csrc/decode_dense.cu``."""
+    return sms is not None and _tail_fits(b, 0, d, d_ff, _ff_tile(d, d_ff, 0), 0, sms,
+                                          "gelu_mlp")
+
+
+@functools.lru_cache(maxsize=None)
+def _mlp_gelu_launch(b: int, d: int, d_ff: int, tile: int, dev: int):
+    """B9d's ``_tail_launch`` at a shape on card ``dev``, or None where the
+    one-launch body does not take the shape (``mlp_gelu_takes``)."""
+    if not mlp_gelu_takes(b, d, d_ff, _sm_count(dev)):
+        return None
+    return _tail_launch(b, 0, d, d_ff, tile, 0, dev, "gelu_mlp")
 
 
 #: B3/B4's one launch (``csrc/dense_int8.cu``): the rows, the row width
@@ -1095,6 +1134,8 @@ def _mlp_gelu_ws_bytes(b: int, d: int, d_ff: int, tile: int) -> int:
 
 _MLP_GELU_ARGTYPES = ([_build.P, _build.I] + [_build.P] * 3 + [_build.I] + [_build.P] * 2
                       + [_build.I] * 6 + [_build.P, _build.P, _build.LL, _build.P])
+_MLP_GELU_ONE_ARGTYPES = (_MLP_GELU_ARGTYPES[:-1] + [_build.P] + [_build.I] * 6
+                          + [_build.P, _build.P])
 
 
 def mlp_gelu_int8_stacked(
@@ -1105,9 +1146,16 @@ def mlp_gelu_int8_stacked(
     wd_all: torch.Tensor,   # [L, d_ff, d_model] int8
     sd_all: torch.Tensor,   # [L, 1, d_model] f32
     layer: int,
+    *,
+    chain: bool = False,
+    stamps: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """gelu(x·Wu + bu)·Wd of layer ``layer`` (B9d) → [b, d_model] f32; the
-    proj bias is the caller's add."""
+    proj bias is the caller's add. On a card: one launch of
+    ``csrc/tail_gelu.cu`` where ``mlp_gelu_takes``, else the old six-kernel
+    chain; ``chain`` runs the chain whatever the shape (the yardstick).
+    ``stamps``: None, or an int64 CUDA tensor of ``grid * (12 + 64)`` the
+    one launch fills with its phase and tile times."""
     b, d = x.shape
     L, _, d_ff = wu_all.shape
     tile = _ff_tile(d, d_ff, 0)
@@ -1117,20 +1165,32 @@ def mlp_gelu_int8_stacked(
            ("wu_all", wu_all, _I8, (L, d, d_ff)), ("su_all", su_all, _FL, (L, 1, d_ff)),
            ("bu_all", bu_all, _ACT, (L, d_ff)),
            ("wd_all", wd_all, _I8, (L, d_ff, d)), ("sd_all", sd_all, _FL, (L, 1, d)))
-    ws = _workspace(_mlp_gelu_ws_bytes(b, d, d_ff, tile), x.device)
+    dev = x.device.index if x.device.index is not None else torch.cuda.current_device()
+    launch = None if chain else _mlp_gelu_launch(b, d, d_ff, tile, dev)
     out = torch.empty((b, d), dtype=torch.float32, device=x.device)
-    fn = _build.kernel("vt_mlp_gelu_int8", _MLP_GELU_ARGTYPES)
-    mlp_gelu_int8_stacked.launches += 1
-    rc = fn(x.data_ptr(), _kind(x, "x"), wu_all.data_ptr(), su_all.data_ptr(),
+    head = (x.data_ptr(), _kind(x, "x"), wu_all.data_ptr(), su_all.data_ptr(),
             bu_all.data_ptr(), _kind(bu_all, "bu_all"), wd_all.data_ptr(), sd_all.data_ptr(),
-            int(layer), L, b, d, d_ff, tile, out.data_ptr(), ws.data_ptr(), ws.numel(),
-            _build.stream_ptr(x))
-    _build.check(rc, "vt_mlp_gelu_int8")
+            int(layer), L, b, d, d_ff, tile, out.data_ptr())
+    mlp_gelu_int8_stacked.launches += 1
+    if launch is None:
+        ws = _workspace(_mlp_gelu_ws_bytes(b, d, d_ff, tile), x.device)
+        rc = _build.kernel("vt_mlp_gelu_int8", _MLP_GELU_ARGTYPES)(
+            *head, ws.data_ptr(), ws.numel(), _build.stream_ptr(x))
+        _build.check(rc, "vt_mlp_gelu_int8")
+        return out
+    plan, table, ws_bytes = launch
+    ws = _workspace(ws_bytes, x.device)
+    mlp_gelu_int8_stacked.tc_launches += 1
+    rc = _build.kernel("vt_mlp_gelu_one", _MLP_GELU_ONE_ARGTYPES)(
+        *head, ws.data_ptr(), ws.numel(), table.data_ptr(), plan.grid, plan.kc, plan.stages,
+        plan.max_gu, plan.max_items, plan.smem, None if stamps is None else stamps.data_ptr(),
+        _build.stream_ptr(x))
+    _build.check(rc, "vt_mlp_gelu_one")
     return out
 
 
 #: launches of the CUDA entry points (the plain versions are not counted);
-#: ``tc_launches``: B3's, B4's and B9a's that took the one launch
+#: ``tc_launches``: B3's, B4's, B9a's and B9d's that took the one launch
 dense_int8_stacked.launches = 0
 qkv_norm_int8_stacked.launches = 0
 dense_int8_stacked.tc_launches = 0
@@ -1143,6 +1203,7 @@ qkv_lnorm_int8_stacked.tc_launches = 0
 tail_gelu_int8_stacked.launches = 0
 tail_gelu_qkv_int8_stacked.launches = 0
 mlp_gelu_int8_stacked.launches = 0
+mlp_gelu_int8_stacked.tc_launches = 0
 
 __all__ = [
     "dense_int8_stacked", "dense_int8_plain",
@@ -1155,6 +1216,7 @@ __all__ = [
     "tail_gelu_qkv_int8_stacked", "tail_gelu_qkv_int8_plain",
     "mlp_gelu_int8_stacked", "mlp_gelu_int8_plain",
     "gelu_tanh", "pick_tile", "TILE_BUDGET", "TailPlan", "tail_plan", "tail_stream",
-    "tail_workspace_bytes", "gelu_workspace_bytes", "gelu_takes",
+    "tail_workspace_bytes", "gelu_workspace_bytes", "gelu_takes", "mlp_gelu_takes",
+    "mlp_gelu_workspace_bytes",
     "DensePlan", "dense_plan", "dense_smem", "dense_takes",
 ]

@@ -1,7 +1,9 @@
 """Where a call of the port's one-launch layer tails spends its time on the
 GPU, phase by phase, from the card's own clock: the SwiGLU tail (B2, B8a:
-``vocalie_tts_tpu_torch/csrc/tail_swiglu.cu``) and the GELU tail (B9b:
-``vocalie_tts_tpu_torch/csrc/tail_gelu.cu``).
+``vocalie_tts_tpu_torch/csrc/tail_swiglu.cu``), the GELU tail (B9b:
+``vocalie_tts_tpu_torch/csrc/tail_gelu.cu``) and the GELU MLP alone (B9d,
+the same body's MLP branch: no o-projection, so no o-projection end and no
+barrier 1).
 
     python3 -m vocalie_tts_tpu_torch.tools.tail_swiglu_trace
 
@@ -11,7 +13,7 @@ twelve points: entry, the o-projection's end, after barrier 1, after the
 MLP norm, the gate | up (fc) end, after barrier 2, the hidden's
 quantization end, after barrier 3, the down-projection's start (its
 activations loaded), its end, after barrier 4, the exit. At the T3 layer
-(b 16), the Qwen3 layer (b 8) and the XTTS layer (b 8, B9b), random int8
+(b 16), the Qwen3 layer (b 8) and the XTTS layer (b 8, B9b and B9d), random int8
 weights from a seed, each call reading another of 8 layers so the weights
 come from device memory, it prints for each point the µs from the first
 block's entry at which the first and the last block reached it (the median
@@ -86,7 +88,25 @@ def _gelu_call(shape: dict, dev, L: int, chain: bool = False):
                                                           chain=chain)
 
 
-def trace(plan, call, L: int = 8, calls: int = 20, qkv: bool = True) -> dict:
+def _mlp_gelu_call(shape: dict, dev, L: int):
+    """B9d at ``shape``'s d_model and d_ff: bf16 rows and fc bias."""
+    from vocalie_tts_tpu_torch.ops import decode_dense as dd
+
+    b, d, F = (shape[k] for k in ("b", "d", "F"))
+    gen = torch.Generator(device=dev).manual_seed(10)
+    x = torch.randn((b, d), generator=gen, device=dev).to(torch.bfloat16)
+    wu, su = _weights(gen, dev, L, d, F)
+    wd, sd = _weights(gen, dev, L, F, d)
+    bu = (0.1 * torch.randn((L, F), generator=gen, device=dev)).to(torch.bfloat16)
+    tile = dd.pick_tile(F, dd.TILE_BUDGET, 2 * d)
+    plan = dd.tail_plan(b, 0, d, F, tile, 0,
+                        torch.cuda.get_device_properties(dev).multi_processor_count,
+                        mlp="gelu_mlp")
+    return plan, lambda layer, stamps=None: dd.mlp_gelu_int8_stacked(x, wu, su, bu, wd, sd,
+                                                                     layer, stamps=stamps)
+
+
+def trace(plan, call, L: int = 8, calls: int = 20, qkv: bool = True, skip=()) -> dict:
     stamps = torch.zeros((plan.grid * (len(POINTS) + 64),), dtype=torch.int64,
                          device=torch.device("cuda:0"))
     call(0)
@@ -108,7 +128,7 @@ def trace(plan, call, L: int = 8, calls: int = 20, qkv: bool = True) -> dict:
             arrivals[k].append([(int(v) - t0) / 1e3 for v in tiles[blk, :n]]
                                + [(int(v) - t0) / 1e3 for v in t[blk]])
         for p in range(len(POINTS)):
-            if not qkv and p == 10:
+            if (not qkv and p == 10) or p in skip:
                 continue
             firsts[p].append((int(t[:, p].min()) - t0) / 1e3)
             lasts[p].append((int(t[:, p].max()) - t0) / 1e3)
@@ -121,7 +141,8 @@ def trace(plan, call, L: int = 8, calls: int = 20, qkv: bool = True) -> dict:
             "tiles_ready_us": [round(statistics.median(c[j] for c in v), 2)
                                for j in range(min(plan.tiles[kinds[k]], 64))],
             "points_us": [round(statistics.median(c[min(plan.tiles[kinds[k]], 64) + j] for c in v), 2)
-                          if qkv or j != 10 else None for j in range(len(POINTS))]}
+                          if (qkv or j != 10) and j not in skip else None
+                          for j in range(len(POINTS))]}
         for k, v in arrivals.items()}
     return out
 
@@ -171,6 +192,9 @@ def main() -> int:
     plan, call = _gelu_call(GELU_SHAPE, dev, 8)
     res = trace(plan, call)
     _report(f"xtts B9b stages {res.pop('stages')}", res, out)
+    plan, call = _mlp_gelu_call(GELU_SHAPE, dev, 8)
+    res = trace(plan, call, qkv=False, skip=(1, 2))
+    _report(f"xtts B9d stages {res.pop('stages')}", res, out)
     _, chain = _gelu_call(GELU_SHAPE, dev, 8, chain=True)
     kernels = chain_kernels(chain)
     out["xtts B9b old chain"] = kernels
