@@ -13,7 +13,8 @@ Phases (any failure exits non-zero before the final line is printed):
    the fused GroupNorm of the AudioSR UNet and VAE, and the GPT-2 (XTTS)
    decode kernels B9a LayerNorm+qkv, B9b GELU layer tail + next qkv and B9c
    the tail alone, the unfused SwiGLU tail B8a and MLP B8b of the Qwen3
-   path, and B12, the whole SwiGLU decode layer as one cooperative launch
+   path (B8b one launch of B2's body, beside the old six-kernel chain), and
+   B12, the whole SwiGLU decode layer as one cooperative launch
    (``VOCALIE_MEGALAYER=1``; at the T3 and the Qwen3 layer, beside the B1 +
    B2 pair on the same inputs), and the kernels of the JAX package's no-env
    configurations: K1, the f32 decode attention over a bf16 cache
@@ -80,7 +81,10 @@ Phases (any failure exits non-zero before the final line is printed):
    dense decode with ``VOCALIE_MEGATAIL`` unset (B3 + B2) and 0 (B3 + B8a)
    the same two ways, its stage 2 GPU vs CPU; and a d_model-128 SwiGLU
    transformer with biases (B4 for the qkv and o-projections, B8b for the
-   MLP: the dispatch no served family reaches) the same two ways; and with
+   MLP: the dispatch no served family reaches) the same two ways; a 33-row
+   step of a two-layer model at the T3 widths (B2, or B8a with
+   ``VOCALIE_MEGATAIL=0``, in two row chunks a layer) against the same step
+   through the plain versions; and with
    ``VOCALIE_MEGALAYER=1`` (B3 + L x B12 + B4 a step) the d_model-128 model
    (d_head 64) and the Qwen3 d_model-256 LM (d_head 128, GQA) the same two
    ways; and the no-env rows (bf16 weights; the tiny T3 and the Qwen3
@@ -189,6 +193,7 @@ from __future__ import annotations
 
 import inspect
 import json
+import re
 import math
 import os
 import shutil
@@ -1357,16 +1362,16 @@ def _dense_entry(name, *, got, ref, ms, plain_ms, ops_ms, n_bytes, n_ops, shape,
         f"; wrapper host time {host[0]:.2f} us a call, {host[1]:.2f} us of it before the C call"))
     if not worst <= 1.0:
         failures.append(f"{name} differs from its plain version: worst ratio {worst}")
-    if name in TAIL_NAMES + ONE_LAUNCH_DENSE + (B9D_NAME,) and not exact:
+    if name in BIT_EQUAL_NAMES and not exact:
         failures.append(f"{name} is not bit-equal to its plain version (max_abs_err {err})")
-    source = ("tail_swiglu.cu" if name in TAIL_NAMES else
+    source = ("tail_swiglu.cu" if name in TAIL_NAMES + (B8B_NAME,) else
               "tail_gelu.cu" if name in (B9B_NAME, B9C_NAME, B9D_NAME) else
               "dense_int8.cu" if name in ONE_LAUNCH_DENSE else "decode_dense.cu")
     return {"name": name, "route": "cuda",
             "source": "vocalie_tts_tpu_torch/csrc/" + source,
             "replaces": f"vocalie_tts_tpu/ops/decode_dense.py:{DENSE_LINES[name]}",
             "max_abs_err": err, "bit_equal": exact, "tolerance": f"{DENSE_TOL} x max|ref|"
-            + ("; bit-equal" if name in TAIL_NAMES + ONE_LAUNCH_DENSE + (B9D_NAME,) else ""),
+            + ("; bit-equal" if name in BIT_EQUAL_NAMES else ""),
             "ms": ms, "graph_ms": g_ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
             "library_ms": None, ops_key: ops_ms, ops_key.removesuffix("_ms") + "_graph_ms": ops_g_ms,
             "cuda_kernels_per_call": None, "shape": shape,
@@ -1381,6 +1386,10 @@ DENSE_LINES = {"B3 qkv_norm_int8": 269, "B2 tail_swiglu_qkv_int8": 519,
                "B9b tail_gelu_qkv_int8": 985, "B9c tail_gelu_int8": 752,
                "B9d mlp_gelu_int8": 862}
 B8_NAMES = ("B8a tail_swiglu_int8", "B8b mlp_swiglu_int8")
+#: B8b: one launch of B2's body (its MLP branch, csrc/tail_swiglu.cu),
+#: bit-equal to its plain version and to the old six-kernel chain (which
+#: still runs the shapes the body does not take)
+B8B_NAME = B8_NAMES[1]
 #: B2 and B8a: one cooperative launch (csrc/tail_swiglu.cu), bit-equal to
 #: their plain versions; one CUDA kernel a call
 TAIL_NAMES = ("B2 tail_swiglu_qkv_int8", "B8a tail_swiglu_int8")
@@ -1395,12 +1404,14 @@ B9C_NAME = "B9c tail_gelu_int8"
 DENSE_ONE_NAMES = ("B3 qkv_norm_int8", "B4 dense_int8 (lm_head)")
 B9A_NAME = "B9a qkv_lnorm_int8"
 ONE_LAUNCH_DENSE = DENSE_ONE_NAMES + (B9A_NAME,)
+#: the dense kernels held bit-equal to their plain versions
+BIT_EQUAL_NAMES = TAIL_NAMES + ONE_LAUNCH_DENSE + ("B9d mlp_gelu_int8", B8B_NAME)
 #: the kernels that must be one CUDA kernel a call (B1 and B13 at each of
 #: their shapes: ``count_dense_kernels``)
 ONE_KERNEL_NAMES = TAIL_NAMES + ONE_LAUNCH_DENSE + (B9B_NAME, B9C_NAME, "B7 decode_step_fused",
                                  "B1 decode_attention_int8", "B13 group_norm_fused",
                                  "B12 layer_swiglu_qkv_int8",
-                                 "B1w decode_attention_int8_whole", "B9d mlp_gelu_int8")
+                                 "B1w decode_attention_int8_whole", "B9d mlp_gelu_int8", B8B_NAME)
 #: the SwiGLU dense kernels' decode shapes: the Chatterbox T3 voice-over
 #: (b = 16: 8 chunks, CFG-doubled; the 1026-token head padded to 1152) and
 #: the Qwen3 bench request (b = 8; GQA qkv 16 x 128 + 2 x 8 x 128; d_ff 8192
@@ -1633,26 +1644,73 @@ def check_dense(dev, failures, shape=T3_DENSE):
         shape=f"attn[{b},{d}] f32, x[{b},{d}] bf16, d_ff {F} in tiles of {tile}, {L} layers "
               f"(layers 0, {L // 2} and {L - 1} checked)"))
 
-    # B8b: the MLP alone on post-norm bf16 rows (the DENSE_FNS path)
+    # B8b: the MLP alone on post-norm rows (the DENSE_FNS path): one launch of
+    # B2's body, beside the old six-kernel chain
     def slice1_mlp(i):
         l = i % L
         gu = tr._qdot(x, i8(wgu, sgu, l), f32_out=True)
         hidden = (torch.nn.functional.silu(gu[:, :F]) * gu[:, F:]).to(x.dtype)
         return tr._qdot(hidden, i8(wd, sd, l), f32_out=True)
 
-    got = [dd.mlp_swiglu_int8_stacked(x, wgu, sgu, wd, sd, L - 1)]
-    ref = [dd.mlp_swiglu_int8_plain(x, wgu, sgu, wd, sd, L - 1)]
+    mlp = dd.mlp_swiglu_int8_stacked
+    # a tree before the one launch (copied into a parent for an A/B): no
+    # chain= (its wrapper is the chain), no tc_launches, no plan
+    chain_kw = _chain_kw(mlp)
+    takes_fn = getattr(dd, "mlp_swiglu_takes", lambda *a: False)
+    gen = torch.Generator(device=dev).manual_seed(81)
+    # bf16 and f32 rows at the first and the last layer; 1, 17 and 32 rows
+    # (32 past the body's room at this width: the chain) at the last
+    cases = [(xr, layer) for xr in (x, x.float()) for layer in (0, L - 1)] + [
+        (torch.randn((n, d), generator=gen, device=dev).to(torch.bfloat16), L - 1)
+        for n in (1, 17, 32)]
+    tc0 = getattr(mlp, "tc_launches", 0)
+    got = [mlp(xr, wgu, sgu, wd, sd, layer) for xr, layer in cases]
+    tc = getattr(mlp, "tc_launches", 0) - tc0
+    ref = [dd.mlp_swiglu_int8_plain(xr, wgu, sgu, wd, sd, layer) for xr, layer in cases]
+    chain = [mlp(xr, wgu, sgu, wd, sd, layer, **chain_kw) for xr, layer in cases]
+    want = [mlp(x, wgu, sgu, wd, sd, layer, **chain_kw) for layer in (0, L - 1)]
+    again = [mlp(x, wgu, sgu, wd, sd, (L - 1) * (i % 2)) for i in range(50)]
     torch.cuda.synchronize()
+    takes = [takes_fn(xr.shape[0], d, F, dd.card_sms(dev)) for xr, _ in cases]
+    same = all(torch.equal(a, c) for a, c in zip(got, chain))
+    repeats = sum(torch.equal(y, want[i % 2]) for i, y in enumerate(again))
+    log(f"B8b [{label}]: one launch for {tc} of {len(cases)} calls (rows "
+        f"{[xr.shape[0] for xr, _ in cases]}, the one launch takes {takes}); equal to the old "
+        f"chain: {same} (max |diff| "
+        f"{max((a - c).abs().max().item() for a, c in zip(got, chain)):.3e}); {repeats} of 50 "
+        "repeated calls equal to the chain")
+    if tc != sum(takes) or not all(takes[:-1]) or takes[-1]:
+        failures.append(f"B8b [{label}]: {tc} one-launch calls, the body takes {takes}")
+    if not same:
+        failures.append(f"B8b [{label}] differs from the old chain (vt_mlp_swiglu_int8)")
+    if repeats != 50:
+        failures.append(f"B8b [{label}]: {50 - repeats} of 50 repeated calls differ")
+
+    def call(i, **kw):
+        return mlp(x, wgu, sgu, wd, sd, i % L, **kw)
+
     mlp_w = d * 2 * F + F * d
-    ms, g_ms = timed(lambda i: dd.mlp_swiglu_int8_stacked(x, wgu, sgu, wd, sd, i % L), 300,
-                     f"B8b [{label}]")
+    ms, g_ms = timed(call, 300, f"B8b [{label}]")
+    old_ms, old_g_ms = timed(lambda i: call(i, **chain_kw), 300, f"B8b, the old chain [{label}]")
+    host = _wrapper_host_us(call)
+    old_host = _wrapper_host_us(lambda i: call(i, **chain_kw))
     ops_ms, ops_g_ms = timed(slice1_mlp, 100, f"B8b yardstick [{label}]")
-    out.append(entry(
-        "B8b mlp_swiglu_int8", got=got, ref=ref, ms=ms, g_ms=g_ms,
+    e = entry(
+        B8B_NAME, got=got, ref=ref, ms=ms, g_ms=g_ms, host=host,
         plain_ms=cuda_ms(lambda i: dd.mlp_swiglu_int8_plain(x, wgu, sgu, wd, sd, i % L), 20),
         ops_ms=ops_ms, ops_g_ms=ops_g_ms,
         n_bytes=b * d * 2 + mlp_w + 4 * (2 * F + d) + b * d * 4, n_ops=2 * b * mlp_w,
-        shape=f"x[{b},{d}] bf16 post-norm, d_ff {F} in tiles of {tile}, {L} layers"))
+        shape=f"x[{b},{d}] bf16 post-norm (and f32; 1, 17 and 32 rows checked), d_ff {F} in "
+              f"tiles of {tile}, {L} layers")
+    e.update(equal_to_old_chain=same, earlier_ms=old_ms, earlier_graph_ms=old_g_ms,
+             earlier_host_us=old_host[0], earlier_host_python_us=old_host[1],
+             repeats_equal=repeats,
+             earlier="the old six-kernel chain (vt_mlp_swiglu_int8, chain=True), timed in "
+                     "this run")
+    log(f"B8b [{label}]: the old chain {old_ms:.6f} ms eager, {fmt_ms(old_g_ms)} ms graph; "
+        f"wrapper host time {host[0]:.2f} us a call against the old chain's {old_host[0]:.2f} us"
+        + (" (more: a miss)" if host[0] > old_host[0] else ""))
+    out.append(e)
     return out
 
 
@@ -2378,8 +2436,9 @@ def small_reference_qwen3(dev, failures):
     L x B2 + B4 a step) and 0 (L x (B3 + B8a) + B4); stage 2 on shared tokens,
     GPU against CPU, PCM within 33 LSB. Then a d_model-128 SwiGLU transformer
     with biases (no family has one; the JAX dispatch then runs B4 for the
-    qkv and o-projections and B8b for the MLP): L x B8b and 1 + 2L B4 a step.
-    Returns the launches of B8b (the kernel no served path reaches)."""
+    qkv and o-projections and B8b for the MLP): L x B8b (each B2's body's
+    one launch, ``tc_launches``) and 1 + 2L B4 a step. Returns the launches
+    of B8b (the kernel no served path reaches) and of its one launch."""
     from vocalie_tts_tpu_torch.models.common import transformer as tr
     from vocalie_tts_tpu_torch.models.lmtts import runtime as lrt
     from vocalie_tts_tpu_torch.models.lmtts.model import LMTTSConfig
@@ -2455,13 +2514,108 @@ def small_reference_qwen3(dev, failures):
                                                 device=dev)
     bparams = tr.fuse_decode_weights(tr.quantize_weights_int8(raw))
     assert tr._dense_dispatch(bparams["layers"], bcfg, 4, 256) == tr.DENSE_FNS
+    tc0 = dd.mlp_swiglu_int8_stacked.tc_launches
     launched = _dense_reference(
         dev, failures, "biased SwiGLU d_model 128 (B4 + B8b)", bcfg, bparams,
         {"mlp_swiglu_int8_stacked": (dd.mlp_swiglu_int8_stacked, dd.mlp_swiglu_int8_plain),
          "dense_int8_stacked": (dd.dense_int8_stacked, dd.dense_int8_plain)},
         {"mlp_swiglu_int8_stacked": bcfg.n_layers * n,
          "dense_int8_stacked": 1 + n * (1 + 2 * bcfg.n_layers)})
-    return launched["mlp_swiglu_int8_stacked"]
+    tc = dd.mlp_swiglu_int8_stacked.tc_launches - tc0
+    log(f"  B8b's one launch (csrc/tail_swiglu.cu) in that run: {tc} of "
+        f"{launched['mlp_swiglu_int8_stacked']} calls")
+    if tc != launched["mlp_swiglu_int8_stacked"]:
+        failures.append(f"biased SwiGLU reference: B8b took its one launch {tc} times of "
+                        f"{launched['mlp_swiglu_int8_stacked']}")
+    return launched["mlp_swiglu_int8_stacked"], tc
+
+
+def tail_rows_past_32(dev, failures) -> None:
+    """Fault C1's row: a 33-row decode step of a two-layer model at the T3
+    widths (d_model 1024, 16 heads of 64, d_ff 4096, vocab 1152; bf16
+    activations, the int8 cache, the dense kernels, random weights from a
+    seed), two steps with ``VOCALIE_MEGATAIL`` unset (B3 + B2 a layer) and
+    0 (B3 + B8a a layer). JAX takes B2 (B8a) at any batch; on the card the
+    33 rows run as two launches a layer (16 and 17 rows). Held to the same
+    steps through the plain versions of B2/B8a, B3 and B4: logits within
+    2e-3 + 2e-3|ref| and every appended int8 byte and bf16 scale equal; the
+    launches counted. Also: a normed width past 2048 (d_model 4096) raises
+    ``ValueError`` naming the shape."""
+    import dataclasses
+
+    from vocalie_tts_tpu_torch.models.common import transformer as tr
+    from vocalie_tts_tpu_torch.ops import decode_dense as dd
+
+    cfg = tr.TransformerConfig(vocab_size=1152, d_model=1024, n_layers=2, n_heads=16,
+                               n_kv_heads=16, d_head=64, d_ff=4096, max_seq_len=256,
+                               norm_eps=1e-5, kv_quant=True, decode_kernel=True,
+                               dense_kernel=True, dtype=torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(33)
+    params = tr.fuse_decode_weights(tr.quantize_weights_int8(
+        tr.init_params(cfg, generator=gen, device=dev)))
+    b, s, n = 33, 32, 2
+    emb = (torch.randn((b, s, cfg.d_model), generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+    lens = torch.randint(3, s + 1, (b,), generator=gen, device=dev).to(torch.int32)
+    toks = torch.randint(0, cfg.vocab_size, (n, b), generator=gen, device=dev)
+    for env, tail, path in ((DEFAULT_ENV, "tail_swiglu_qkv_int8_stacked", tr.MEGATAIL),
+                            (MEGATAIL0_ENV, "tail_swiglu_int8_stacked", tr.TAIL)):
+        set_env(env)
+        label = "VOCALIE_MEGATAIL=0" if env is MEGATAIL0_ENV else "default"
+        got_path = tr._dense_dispatch(params["layers"], cfg, b, 256)
+        _, cache = tr.prefill(params, cfg, None, lens, inputs_embeds=emb, cache_len=256)
+
+        def run():
+            c = dataclasses.replace(cache, k=cache.k.clone(), v=cache.v.clone(),
+                                    k_scale=cache.k_scale.clone(),
+                                    v_scale=cache.v_scale.clone())
+            out = []
+            for i in range(n):
+                logits, c = tr.decode_step(params, cfg, toks[i], c)
+                out.append(logits.float())
+            return out, c
+
+        wrapper = getattr(dd, tail)
+        before = wrapper.launches
+        got, kc = run()
+        launches = wrapper.launches - before
+        names = ("qkv_norm_int8_stacked", "dense_int8_stacked", tail)
+        kept = {name: getattr(tr, name) for name in names}
+        for name in names:
+            setattr(tr, name, getattr(dd, name.replace("_stacked", "_plain")))
+        try:
+            ref, pc = run()
+        finally:
+            for name, fn in kept.items():
+                setattr(tr, name, fn)
+        torch.cuda.synchronize()
+        ratio = max(((g - r).abs() / (2e-3 + 2e-3 * r.abs())).max().item()
+                    for g, r in zip(got, ref))
+        finite = all(torch.isfinite(g).all().item() for g in got)
+        same = {a: torch.equal(getattr(kc, a), getattr(pc, a))
+                for a in ("k", "v", "k_scale", "v_scale")}
+        want = n * 2 * cfg.n_layers
+        log(f"33-row T3 step [{label}]: path {got_path} (expected {path}); {wrapper.__name__} "
+            f"launches {launches} (expected {want}: two row chunks a layer); against the plain "
+            f"versions: worst |diff| / (2e-3 + 2e-3|ref|) = {ratio:.3e} (must be <= 1), finite "
+            f"{finite}, appended bytes and scales equal {same}")
+        if got_path != path or launches != want or not ratio <= 1 or not finite \
+                or not all(same.values()):
+            failures.append(f"33-row T3 step [{label}]: path {got_path}, launches {launches} of "
+                            f"{want}, logit ratio {ratio}, finite {finite}, cache equal {same}")
+    set_env(DEFAULT_ENV)
+    zero = torch.zeros((), dtype=torch.int8, device=dev)   # the shapes alone, on the card
+    wide = {name: {"q": zero.expand(shape)} for name, shape in (
+        ("wqkv", (2, 4096, 12288)), ("wo", (2, 4096, 4096)), ("w_gateup", (2, 4096, 32768)),
+        ("w_down", (2, 16384, 4096)))}
+    wcfg = dataclasses.replace(cfg, d_model=4096, n_heads=32, n_kv_heads=32, d_head=128,
+                               d_ff=16384)
+    try:
+        tr._dense_dispatch(wide, wcfg, 8, 256)
+        failures.append("a SwiGLU step at d_model 4096 did not raise on the card")
+    except ValueError as e:
+        log(f"d_model 4096 on the card: {e}")
+        if "d_model=4096" not in str(e):
+            failures.append(f"the d_model-4096 refusal does not name the shape: {e}")
 
 
 def small_reference_noenv(dev, failures):
@@ -2744,8 +2898,9 @@ class DecodeSteps:
 
 class TcLaunches:
     """The launches of a flash wrapper (B6, B6t, B11a, B11b) that took the
-    tensor-core body, of B3, B4, B9a or B9d that took their one launch
-    (``csrc/dense_int8.cu``, ``csrc/tail_gelu.cu``, not the old chain) (the
+    tensor-core body, of B3, B4, B8b, B9a or B9d that took their one launch
+    (``csrc/dense_int8.cu``, ``csrc/tail_swiglu.cu``, ``csrc/tail_gelu.cu``,
+    not the old chain) (the
     wrapper's ``tc_launches``), or of B1w that took the split body (its
     ``cluster_launches``, with ``attr``), under the launch counters'
     attribute, so that they are reset and read with them. Not a kernel of
@@ -2765,17 +2920,18 @@ class TcLaunches:
 
 
 #: each flash wrapper's key → the key of its tensor-core launches; B3's,
-#: B4's, B9a's and B9d's → the key of their one launch's; B1w's → its split
-#: body's
+#: B4's, B8b's, B9a's and B9d's → the key of their one launch's; B1w's → its
+#: split body's
 TC_KEYS = {"B6": "B6tc", "B6t": "B6t_tc", "B11a": "B11a_tc", "B11b": "B11b_tc", "B3": "B3tc",
-           "B4": "B4tc", "B9a": "B9atc", "B9d": "B9d_tc", "B1w": "B1w_cl"}
+           "B4": "B4tc", "B9a": "B9atc", "B9d": "B9d_tc", "B1w": "B1w_cl", "B8b": "B8btc"}
 
 
 def check_tc(label: str, c: dict, failures) -> None:
     """Every B6, B6t, B11a and B11b launch of a full-width path took the
     tensor-core body (bf16 at d 64 or 128), every B3, B4 and B9a launch the
-    one launch of ``csrc/dense_int8.cu`` and every B9d launch that of
-    ``csrc/tail_gelu.cu`` (no served shape takes the old chain), and every
+    one launch of ``csrc/dense_int8.cu``, every B9d launch that of
+    ``csrc/tail_gelu.cu`` and every B8b launch that of ``csrc/tail_swiglu.cu``
+    (no served shape takes the old chain), and every
     B1w launch the split body (no path's row is past 16 blocks' shared
     memory): each such count equals the wrapper's."""
     for key, tc in TC_KEYS.items():
@@ -2801,6 +2957,7 @@ def _wrappers():
     from vocalie_tts_tpu_torch.ops.decode_dense import (
         dense_int8_stacked,
         mlp_gelu_int8_stacked,
+        mlp_swiglu_int8_stacked,
         qkv_norm_int8_stacked,
         tail_swiglu_qkv_int8_stacked,
     )
@@ -2816,6 +2973,7 @@ def _wrappers():
             "K4": cache_append_kv_stacked, "B6t": flash_attention_lse,
             "B11a": fb.flash_attention_bwd_dkv, "B11b": fb.flash_attention_bwd_dq,
             "B1w": decode_attention_int8_whole_stacked, "B9d": mlp_gelu_int8_stacked,
+            "B8b": mlp_swiglu_int8_stacked, "B8btc": TcLaunches(mlp_swiglu_int8_stacked),
             "K5": cache_append_k_stacked, "K6": cache_append_k_scales_stacked,
             "B6tc": TcLaunches(flash_attention),
             "B6t_tc": TcLaunches(flash_attention_lse),
@@ -2836,7 +2994,10 @@ def path_wants(lm, env: dict, steps: int) -> dict:
     ``VOCALIE_MEGALAYER=1`` on the int8 cache with the decode kernel; the
     append through B5 (int8) or K4 (bf16) with the decode or dense kernels
     on, else slice assignment. K2 and B10 are on no served path, B6t and
-    B11 on the training path alone: 0."""
+    B11 on the training path alone: 0. B8b too: a SwiGLU step under RMSNorm
+    without biases takes B2 (B8a) at any batch on a card, in row chunks past
+    what one launch takes, as JAX does; only a SwiGLU MLP with biases or a
+    LayerNorm (no family) takes ``DENSE_FNS`` and B8b."""
     L = lm.n_layers
     int8_attn = lm.kv_quant and lm.decode_kernel
     mega = int8_attn and lm.dense_kernel and env.get("VOCALIE_MEGALAYER") == "1"
@@ -2848,7 +3009,7 @@ def path_wants(lm, env: dict, steps: int) -> dict:
             "B3": steps if lm.dense_kernel else 0,
             "B4": steps if lm.dense_kernel else 0,
             "B5": append if lm.kv_quant else 0, "K4": 0 if lm.kv_quant else append,
-            "K2": 0, "B10": 0, **TRAIN_ZERO, **UNSERVED_ZERO}
+            "K2": 0, "B10": 0, "B8b": 0, **TRAIN_ZERO, **UNSERVED_ZERO}
 
 
 def drive_path(dev, failures, label: str, env: dict, requests, scale: str = "full",
@@ -3504,8 +3665,7 @@ def _weights_key(env: dict) -> tuple:
 def _qwen3_wrappers() -> dict:
     from vocalie_tts_tpu_torch.ops import decode_dense as dd
 
-    return {**_cosy_wrappers(), "B8a": dd.tail_swiglu_int8_stacked,
-            "B8b": dd.mlp_swiglu_int8_stacked}
+    return {**_cosy_wrappers(), "B8a": dd.tail_swiglu_int8_stacked}
 
 
 def _qwen3_decode(rt, texts, n_steps: int, spk) -> None:
@@ -4943,7 +5103,8 @@ def main() -> int:
     small_reference_dense(dev, failures)
     small_reference_audiosr(dev, failures)
     small_reference_xtts(dev, failures)
-    b8b_launches = small_reference_qwen3(dev, failures)
+    b8b_launches, b8b_tc = small_reference_qwen3(dev, failures)
+    tail_rows_past_32(dev, failures)
     small_reference_noenv(dev, failures)
     small_reference_train(dev, failures)
     b9d_small = small_reference_gelu_rms(dev, failures)
@@ -5043,6 +5204,7 @@ def main() -> int:
     by_key["B9a"]["tc_launches"] = xtts["bench 8-chunk, default"]["B9atc"]
     # B9d's that took its one launch, B1w's the split body (every one: check_tc)
     by_key["B9d"]["tc_launches"] = next(iter(gelu_rms.values()))["B9d_tc"]
+    by_key["B8b"]["tc_launches"] = b8b_tc
     by_key["B1w"]["cluster_launches"] = unrounded["cache_len 600"]["B1w_cl"]
     for key, entry in by_key.items():
         if key == "B13":
@@ -5397,9 +5559,10 @@ def _f32_attention_only() -> int:
 
 def _tail_rows_only() -> int:
     """``--tail-rows``: build the kernels and run phase 2's dense rows at the
-    T3 and Qwen3 shapes (B3, B2, B4; B8a, B8b) and the K4 and K5 rows, each
-    eager and graph-timed, then count one B2 call's and one B8a call's CUDA
-    kernels with torch.profiler (after every timing), and print the rows as
+    T3 and Qwen3 shapes (B3, B2, B4; B8a, B8b beside its old chain) and the
+    K4 and K5 rows, each eager and graph-timed, then count one B2 call's,
+    one B8a call's and one B8b call's CUDA kernels with torch.profiler
+    (after every timing), and print the rows as
     one JSON line. Copied into an unpacked copy of another commit and run
     there, it times that commit's kernels on the same rows; a failed gate is
     printed, not fatal (the old B2 body is not one kernel)."""
@@ -5409,16 +5572,30 @@ def _tail_rows_only() -> int:
     from vocalie_tts_tpu_torch.ops import _build
 
     log(f"kernels built -> {_build.build().name}")
+    section = fn = ""
     for line in _build.build_log().splitlines():
-        if "tail_swiglu" in line or ("registers" in line and "tail" in line):
-            log("  " + line.strip()[:160])
+        # ptxas' register and spill lines of tail_swiglu.cu's and
+        # decode_layer.cu's kernels and their callees (B2/B8a, B8b and B12
+        # share the tail body)
+        if line.startswith("== nvcc "):
+            section = line.split()[2]
+        elif "Compiling entry function" in line or "Function properties for" in line:
+            m = re.search(r"(mlp_swiglu_kernel|tail_swiglu_kernel|decode_layer_kernel|"
+                          r"quant_rows_n|merge_pair|attn_item)(ILi(\d)E)?(ILb0E(13__nv_bf|f))?",
+                          line)
+            fn = "?" if m is None else m.group(1) + (f"<{m.group(3)}>" if m.group(3) else "") + (
+                "" if m.group(5) is None else "<bf16>" if m.group(5) == "13__nv_bf" else "<f32>")
+        elif section in ("tail_swiglu.cu", "decode_layer.cu") and (
+                "registers" in line or "spill" in line):
+            log(f"  ptxas {section} {fn}: {line.replace('ptxas info    :', '').strip()}")
     dev = torch.device("cuda:0")
     failures: list = []
     rows = check_dense(dev, failures) + check_dense(dev, failures, QWEN3_DENSE)
     rows += [check_cache_append_kv(dev, failures), check_cache_append_k(dev, failures)]
     t3 = _dense_inputs(dev).calls
     q3 = _dense_inputs(dev, QWEN3_DENSE).calls
-    for name, call in ((TAIL_NAMES[0], t3[TAIL_NAMES[0]]), (TAIL_NAMES[1], q3[TAIL_NAMES[1]])):
+    for name, call in ((TAIL_NAMES[0], t3[TAIL_NAMES[0]]), (TAIL_NAMES[1], q3[TAIL_NAMES[1]]),
+                       (B8B_NAME, q3[B8B_NAME])):
         call()
         per_call = kernels_per_call(call)
         log(f"{name}: CUDA kernels per call (profiled): {sum(per_call.values())} ("

@@ -34,6 +34,7 @@ import numpy as np
 import pytest
 import torch
 
+from _int8_ties import assert_appended_cache_up_to_ties
 from vocalie_tts_tpu.models.common import transformer as jt
 from vocalie_tts_tpu_torch.bridge import tree_to_torch
 from vocalie_tts_tpu_torch.models.common import transformer as pt
@@ -344,30 +345,6 @@ def _count_b12(monkeypatch):
     return calls
 
 
-def _assert_appended_cache_up_to_ties(jcache, pcache, raw, prompt_pad=32):
-    """The decode slots of the int8 cache: bf16 scales equal; layer 0's
-    int8 values equal; the later layers' equal except where the port's
-    unquantized value (``raw``: its k and v of each step, [L, b, kv, d])
-    sits on a .5 tie, one step off."""
-    n = len(raw) // 2
-    sl = slice(prompt_pad, prompt_pad + n)
-    d = pcache.k.shape[-1]
-    jk = np.asarray(jcache.k)[:, :, :, sl]
-    jv = jk[..., d:] if jcache.v is None else np.asarray(jcache.v)[:, :, :, sl]
-    for name, ref, unq in (("k", jk[..., :d], raw[0::2]), ("v", jv, raw[1::2])):
-        scale = getattr(pcache, name + "_scale")[:, :, :, sl]
-        jscale = np.asarray(getattr(jcache, name + "_scale"))[:, :, :, sl]
-        assert np.array_equal(scale.view(torch.int16).numpy(), jscale.view(np.int16)), name
-        got = getattr(pcache, name)[:, :, :, sl].numpy()
-        assert np.array_equal(got[0], ref[0]), f"layer 0 {name}"
-        bad = got != ref
-        if not bad.any():
-            continue
-        assert np.all(np.abs(got[bad].astype(int) - ref[bad].astype(int)) == 1), name
-        x = (torch.stack(unq, 3) / scale.float()[..., None]).numpy()[bad]
-        assert np.all(np.abs(np.abs(x - np.trunc(x)) - 0.5) < 1e-3), f"{name}: {x}"
-
-
 @pytest.mark.parametrize("family", sorted(FAMILIES))
 def test_megalayer_teacher_forced_decode(monkeypatch, family):
     """``VOCALIE_MEGALAYER=1``: prefill, then 6 teacher-forced steps through
@@ -382,7 +359,7 @@ def test_megalayer_teacher_forced_decode(monkeypatch, family):
                                  jax_prompt=True)
     _assert_logits(pairs)
     assert len(calls) == n * pcfg.n_layers
-    _assert_appended_cache_up_to_ties(jcache, pcache, raw)
+    assert_appended_cache_up_to_ties(jcache, pcache, raw)
 
 
 def test_megalayer_dispatch_at_batch_one(monkeypatch):

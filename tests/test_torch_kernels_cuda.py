@@ -1203,48 +1203,97 @@ def test_tail_swiglu_refuses_bad_inputs(dev):
     empty = torch.zeros((0, d), device=dev)
     with pytest.raises(ValueError, match="rows"):
         tail_swiglu_int8_stacked(empty, empty, wo, wos, mw, wgu, sgu, wd, sd, 0, eps=eps)
-    big = torch.zeros((33, d), device=dev)
-    with pytest.raises(ValueError, match="rows"):
-        tail_swiglu_qkv_int8_stacked(big, big, wo, wos, mw, wgu, sgu, wd, sd, nw, wq, sq, 0,
-                                     eps=eps)
+    # 33 rows run in two launches (test_tail_swiglu_past_32_rows_runs_in_row_chunks);
+    # an attention row of 4096 is past every launch's normed rows: refused, named
+    wide_attn = torch.zeros((4, 4096), device=dev)
+    wide_wo = torch.zeros((wo.shape[0], 4096, d), dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError, match="no launch takes d_model=1024, d_attn=4096"):
+        tail_swiglu_qkv_int8_stacked(wide_attn, x, wide_wo, wos, mw, wgu, sgu, wd, sd, nw, wq,
+                                     sq, 0, eps=eps)
+
+
+@pytest.mark.parametrize("width,b,launches", [("t3", 33, (2, 2)), ("t3", 64, (2, 2)),
+                                              ("qwen3", 24, (2, 2)), ("qwen3", 45, (3, 2))])
+def test_tail_swiglu_past_32_rows_runs_in_row_chunks(dev, width, b, launches):
+    """More rows than one B2/B8a launch takes (32 at the T3 layer, 22 and
+    23 at the Qwen3 layer: ``tail_rows``) run as one launch a row chunk of
+    near-equal size, each counted in ``.launches``, bit-equal to the plain
+    version on the whole batch."""
+    d, F, Q, eps = TAIL_WIDTHS[width]
+    wo, wos, mw, wgu, sgu, wd, sd, nw, wq, sq = _tail_weights(dev, width)
+    gen = _gen(dev, 300 + b)
+    attn = torch.randn((b, d), generator=gen, device=dev) * 0.3
+    x = torch.randn((b, d), generator=gen, device=dev).to(torch.bfloat16)
+    tail = (attn, x, wo, wos, mw, wgu, sgu, wd, sd)
+    before = tail_swiglu_qkv_int8_stacked.launches, tail_swiglu_int8_stacked.launches
+    x_out, qkv = tail_swiglu_qkv_int8_stacked(*tail, nw, wq, sq, 2, eps=eps)
+    x8 = tail_swiglu_int8_stacked(*tail, 2, eps=eps)
+    rx, rq = tail_swiglu_qkv_int8_plain(*tail, nw, wq, sq, 2, eps=eps)
+    torch.cuda.synchronize()
+    assert (tail_swiglu_qkv_int8_stacked.launches - before[0],
+            tail_swiglu_int8_stacked.launches - before[1]) == launches
+    assert torch.equal(x_out, rx), (x_out - rx).abs().max().item()
+    assert torch.equal(qkv, rq), (qkv - rq).abs().max().item()
+    assert torch.equal(x8, rx)
 
 
 @pytest.mark.parametrize("megatail", [True, False], ids=["B2", "B8a"])
-def test_untaken_tail_batches_take_dense_fns_on_the_card(dev, monkeypatch, megatail):
-    """33 rows of the T3 layer, which B2/B8a do not take: on the card
-    ``_dense_dispatch`` sends the step to ``DENSE_FNS`` (at 32 rows it keeps
-    the megatail or the tail), whose B4 (qkv, o) and B8b (the MLP) run the
-    33 rows and agree with their plain versions."""
+def test_decode_step_past_32_rows_keeps_the_tail(dev, monkeypatch, megatail):
+    """A 33-row step of a two-layer model at the T3 widths (d_model 1024,
+    16 heads of 64, d_ff 4096, the int8 cache and the dense kernels) on the
+    card: ``_dense_dispatch`` keeps the megatail (``VOCALIE_MEGATAIL=0``:
+    the tail), as JAX does at any batch; B2 (B8a) runs two launches a
+    layer, of 16 and 17 rows. Held to the same two steps through the plain
+    versions of B2/B8a, B3 and B4 (JAX's path, which the CPU parity tests
+    hold to JAX): logits within 2e-3 + 2e-3·|ref|, every appended int8
+    byte and bf16 scale equal."""
+    import dataclasses
+
     from vocalie_tts_tpu_torch.models.common import transformer as tr
 
-    d, F, Q, eps = TAIL_WIDTHS["t3"]
-    wo, wos, mw, wgu, sgu, wd, sd, nw, wq, sq = _tail_weights(dev, "t3")
     monkeypatch.delenv("VOCALIE_MEGALAYER", raising=False)
     monkeypatch.setenv("VOCALIE_MEGATAIL", "1" if megatail else "0")
-    cfg = tr.TransformerConfig(vocab_size=1152, d_model=d, n_layers=3, n_heads=16,
-                               n_kv_heads=16, d_head=64, d_ff=F, norm_eps=eps, kv_quant=True,
-                               decode_kernel=True, dense_kernel=True)
-    layers = {"wqkv": {"q": wq, "s": sq}, "wo": {"q": wo, "s": wos},
-              "w_gateup": {"q": wgu, "s": sgu}, "w_down": {"q": wd, "s": sd}}
-    assert tr._dense_dispatch(layers, cfg, 32, 640) == (tr.MEGATAIL if megatail else tr.TAIL)
-    assert tr._dense_dispatch(layers, cfg, 33, 640) == tr.DENSE_FNS
-    qkv_dot, o_dot, mlp_fn = tr._dense_fns(layers, cfg, 2)
-    x = torch.randn((33, 1, d), generator=_gen(dev, 33), device=dev).to(torch.bfloat16)
-    for dot, w, s in ((qkv_dot, wq, sq), (o_dot, wo, wos)):
-        got = dot(x)[:, 0]
-        ref = dense_int8_plain(x[:, 0], w, s, 2)
-        torch.cuda.synchronize()
-        # the path casts B4's f32 output to the activations' bf16: within
-        # that rounding (2^-8 of the value) of the plain version, plus B4's
-        # own 1e-5 of max|ref|
-        err = (got.float() - ref).abs()
-        assert got.shape == ref.shape and torch.isfinite(got).all()
-        assert (err <= ref.abs() * 2 ** -8 + 1e-5 * ref.abs().max()).all(), err.max().item()
-    got = mlp_fn(x)[:, 0]
-    ref = mlp_swiglu_int8_plain(x[:, 0], wgu, sgu, wd, sd, 2)
+    cfg = tr.TransformerConfig(vocab_size=1152, d_model=1024, n_layers=2, n_heads=16,
+                               n_kv_heads=16, d_head=64, d_ff=4096, max_seq_len=256,
+                               norm_eps=1e-5, kv_quant=True, decode_kernel=True,
+                               dense_kernel=True, dtype=torch.bfloat16)
+    gen = _gen(dev, 33)
+    params = tr.fuse_decode_weights(tr.quantize_weights_int8(
+        tr.init_params(cfg, generator=gen, device=dev)))
+    b, s = 33, 32
+    path = tr._dense_dispatch(params["layers"], cfg, b, 256)
+    assert path == (tr.MEGATAIL if megatail else tr.TAIL)
+    emb = (torch.randn((b, s, 1024), generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+    lens = torch.randint(3, s + 1, (b,), generator=gen, device=dev).to(torch.int32)
+    toks = torch.randint(0, 1152, (2, b), generator=gen, device=dev)
+    _, cache = tr.prefill(params, cfg, None, lens, inputs_embeds=emb, cache_len=256)
+    tail = tr.tail_swiglu_qkv_int8_stacked if megatail else tr.tail_swiglu_int8_stacked
+    name = tail.__name__
+
+    def run():
+        c = dataclasses.replace(cache, k=cache.k.clone(), v=cache.v.clone(),
+                                k_scale=cache.k_scale.clone(), v_scale=cache.v_scale.clone())
+        out = []
+        for i in range(2):
+            logits, c = tr.decode_step(params, cfg, toks[i], c)
+            out.append(logits.float())
+        return out, c
+
+    before = tail.launches
+    got, kc = run()
+    assert tail.launches - before == 2 * 2 * cfg.n_layers   # 2 steps x 2 launches a layer
+    from vocalie_tts_tpu_torch.ops import decode_dense as dd
+
+    for fn in ("qkv_norm_int8_stacked", "dense_int8_stacked", name):
+        monkeypatch.setattr(tr, fn, getattr(dd, fn.replace("_stacked", "_plain")))
+    ref, pc = run()
     torch.cuda.synchronize()
-    assert got.shape == (33, d)
-    _close(got, ref)
+    for i, (g, r) in enumerate(zip(got, ref)):
+        assert g.shape == (b, 1152) and torch.isfinite(g).all()
+        ratio = ((g - r).abs() / (2e-3 + 2e-3 * r.abs())).max().item()
+        assert ratio <= 1, f"step {i}: {ratio}"
+    for attr in ("k", "v", "k_scale", "v_scale"):
+        assert torch.equal(getattr(kc, attr), getattr(pc, attr)), attr
 
 
 @pytest.mark.parametrize("b,L,d,F,layer,dtype,zero_row", [
@@ -1267,6 +1316,76 @@ def test_mlp_swiglu_int8_kernel(dev, b, L, d, F, layer, dtype, zero_row):
     _close(got, ref)
     if zero_row is not None:
         assert (got[zero_row] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("layer", [0, 2])
+@pytest.mark.parametrize("b", [1, 8, 17, 32])
+@pytest.mark.parametrize("width", list(TAIL_WIDTHS))
+def test_mlp_swiglu_one_launch_is_bit_equal(dev, width, b, layer, dtype):
+    """B8b's one launch (``csrc/tail_swiglu.cu`` ``mlp_swiglu_kernel``,
+    counted in ``tc_launches``) at the T3 and Qwen3 widths, first and last
+    layer, bf16 and f32 rows with a zero row: bit-equal to its plain version
+    and to the old six-kernel chain (``chain=True``). 32 rows at the Qwen3
+    width (hidden rows of 8 KB) do not fit beside a ring: the chain runs
+    them, bit-equal all the same."""
+    from vocalie_tts_tpu_torch.ops.decode_dense import mlp_swiglu_takes
+
+    d, F, _, _ = TAIL_WIDTHS[width]
+    _, _, _, wgu, sgu, wd, sd, _, _, _ = _tail_weights(dev, width)
+    x = torch.randn((b, d), generator=_gen(dev, 200 * b + layer), device=dev).to(dtype)
+    x[b // 2] = 0
+    takes = mlp_swiglu_takes(b, d, F, card_sms(dev))
+    assert takes is not (width == "qwen3" and b == 32)
+    fn = mlp_swiglu_int8_stacked
+    before = (fn.launches, fn.tc_launches)
+    got = fn(x, wgu, sgu, wd, sd, layer)
+    chain = fn(x, wgu, sgu, wd, sd, layer, chain=True)
+    ref = mlp_swiglu_int8_plain(x, wgu, sgu, wd, sd, layer)
+    torch.cuda.synchronize()
+    assert (fn.launches - before[0], fn.tc_launches - before[1]) == (2, int(takes))
+    assert got.shape == (b, d) and torch.isfinite(got).all() and (got[b // 2] == 0).all()
+    assert torch.equal(got, ref), (got - ref).abs().max().item()
+    assert torch.equal(got, chain), (got - chain).abs().max().item()
+
+
+def test_mlp_swiglu_is_one_cuda_kernel_a_call(dev):
+    """torch.profiler sees one CUDA kernel a B8b call at the Qwen3 layer
+    (b 8) and six on the old chain, counted through ``_profiled_kernels``;
+    50 calls in a row, layers 0 and 2 in turn, give the chain's bits each
+    (nothing of the workspace is carried from one call to the next: the
+    hidden's amax is written whole every call)."""
+    _, _, _, wgu, sgu, wd, sd, _, _, _ = _tail_weights(dev, "qwen3")
+    x = torch.randn((8, 2048), generator=_gen(dev, 8), device=dev).to(torch.bfloat16)
+    args = (wgu, sgu, wd, sd)
+    names = _profiled_kernels(lambda: mlp_swiglu_int8_stacked(x, *args, 1))
+    assert len(names) == 1 and "mlp_swiglu_kernel" in names[0], names
+    names = _profiled_kernels(lambda: mlp_swiglu_int8_stacked(x, *args, 1, chain=True))
+    assert len(names) == 6 and not any("mlp_swiglu_kernel" in n for n in names), names
+    want = [mlp_swiglu_int8_stacked(x, *args, layer, chain=True) for layer in (0, 2)]
+    got = [mlp_swiglu_int8_stacked(x, *args, 2 * (i % 2)) for i in range(50)]
+    torch.cuda.synchronize()
+    bad = [i for i, y in enumerate(got) if not torch.equal(y, want[i % 2])]
+    assert not bad, f"calls {bad} differ from the chain"
+
+
+def test_untaken_mlp_swiglu_shapes_take_the_chain(dev):
+    """33 rows at the T3 width and 24 at the Qwen3 width, which the one
+    launch does not take (``mlp_swiglu_takes``): B8b runs the old chain,
+    bit-equal to the plain version, and ``tc_launches`` stays."""
+    from vocalie_tts_tpu_torch.ops.decode_dense import mlp_swiglu_takes
+
+    for width, b in (("t3", 33), ("qwen3", 24)):
+        d, F, _, _ = TAIL_WIDTHS[width]
+        _, _, _, wgu, sgu, wd, sd, _, _, _ = _tail_weights(dev, width)
+        x = torch.randn((b, d), generator=_gen(dev, b), device=dev).to(torch.bfloat16)
+        assert not mlp_swiglu_takes(b, d, F, card_sms(dev))
+        before = mlp_swiglu_int8_stacked.tc_launches
+        got = mlp_swiglu_int8_stacked(x, wgu, sgu, wd, sd, 1)
+        ref = mlp_swiglu_int8_plain(x, wgu, sgu, wd, sd, 1)
+        torch.cuda.synchronize()
+        assert mlp_swiglu_int8_stacked.tc_launches == before
+        assert torch.equal(got, ref), (width, (got - ref).abs().max().item())
 
 
 def test_dense_kernels_reject_bad_inputs(dev):

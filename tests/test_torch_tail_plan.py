@@ -15,8 +15,11 @@ once, the shared bytes stay within the 232,448 a Hopper block may use, and
 the ring holds every tile of the call where the call's weights fit beside
 the activations (the T3 layer: ~127 KB an SM) and is a ring of stages where
 they do not (the Qwen3 layer: ~470 KB an SM). ``tail_takes`` says which
-shapes the body takes on such a card, and ``_dense_dispatch`` sends the
-others to ``DENSE_FNS`` (B4 + B8b), which take any batch and width.
+shapes one launch takes on such a card; ``tail_rows`` the most rows one
+launch takes at a width, so that a larger batch runs in row chunks (every
+quantity of the tail is per row: the plain version on a batch equals it on
+its chunks, bit for bit), and ``_dense_dispatch`` keeps JAX's path at any
+batch on a card, raising where no launch takes the width.
 
 ``tail_plan(..., mlp="gelu")`` is B9b's plan (``csrc/tail_gelu.cu``) at the
 XTTS layer (d_model 1024, d_ff 4096 in tiles of 2048, qkv 3072): the same
@@ -27,11 +30,15 @@ for them; with ``Q = 0`` it is B9c's (the same body without the next
 qkv). ``gelu_takes`` says which shapes the one-launch body takes; the
 others run the old chain. ``tail_plan(..., mlp="gelu_mlp")`` is B9d's (the
 same body's MLP branch): the fc and down items alone, no o-projection and no
-qkv; ``mlp_gelu_takes`` says which shapes it takes.
+qkv; ``mlp_gelu_takes`` says which shapes it takes. ``tail_plan(...,
+mlp="swiglu_mlp")`` is B8b's (B2's body's MLP branch): B8a's gate | up and
+down items without the o-projection's; ``mlp_swiglu_takes`` says which
+shapes it takes (the others run the old chain).
 """
 
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
@@ -43,10 +50,13 @@ from vocalie_tts_tpu_torch.ops.decode_dense import (
     TAIL_MAX_STAGES,
     gelu_takes,
     mlp_gelu_takes,
+    mlp_swiglu_takes,
     pick_tile,
     tail_item_rows,
     tail_plan,
+    tail_rows,
     tail_stream,
+    tail_swiglu_qkv_int8_plain,
     tail_takes,
     TILE_BUDGET,
 )
@@ -284,12 +294,72 @@ def test_mlp_gelu_takes_what_the_plan_plans(b, d, d_ff, sms, takes):
         tail_plan(8, 1024, 1024, 4096, 2048, 0, H100_SMS, mlp="gelu_mlp")
 
 
+@pytest.mark.parametrize("d_ff,tile", [(4096, 2048), (8192, 1024)], ids=["t3", "qwen3"])
+@pytest.mark.parametrize("b", [1, 8, 17, 23])
+def test_mlp_swiglu_plan_deals_every_item_once(b, d_ff, tile):
+    """B8b's plan (``mlp="swiglu_mlp"``): gate | up items (a gate slab with
+    its up slab) and down items (a whole slab over d_ff), each owned by one
+    block, every weight row streamed once, gate | up before down in each
+    block's stream; B8a's plan without its o-projection items."""
+    d = d_ff // 4
+    plan = tail_plan(b, 0, d, d_ff, tile, 0, H100_SMS, mlp="swiglu_mlp")
+    owned = [(p, s) for its in plan.items for p, s in its]
+    assert len(owned) == len(set(owned))
+    assert sorted(owned) == ([(1, s) for s in range(d_ff // SLAB)]
+                             + [(2, s) for s in range(d // SLAB)])
+    tiles = [t for blk in range(plan.grid) for t in tail_stream(plan, blk, 0, d, d_ff)]
+    assert len(tiles) == sum(plan.tiles) == len(set(tiles))
+    assert sorted(tiles) == sorted((p, c, r) for p, (n, k) in ((1, (2 * d_ff, d)), (2, (d, d_ff)))
+                                   for c in range(0, n, SLAB) for r in range(0, k, plan.kc))
+    for its in plan.items:
+        assert [p for p, _ in its] == sorted(p for p, _ in its)
+    assert plan.smem <= SMEM_MAX and tile % plan.kc == 0 and plan.grid == H100_SMS
+    b8a = tail_plan(b, d, d, d_ff, tile, 0, H100_SMS)
+    assert b8a.smem - b8a.stages * b8a.kc * SLAB == plan.smem - plan.stages * plan.kc * SLAB
+    assert sorted(owned) == sorted((p, s) for its in b8a.items for p, s in its if p)
+
+
+@pytest.mark.parametrize("b,d,d_ff,sms,takes", [
+    (8, 2048, 8192, H100_SMS, True),     # the Qwen3 layer
+    (23, 2048, 8192, H100_SMS, True),    # its most rows: 23 hidden rows of 8208 bytes
+    (24, 2048, 8192, H100_SMS, False),   # no room for a two-stage ring: the old chain
+    (32, 1024, 4096, H100_SMS, True),    # the T3 widths' most rows
+    (33, 1024, 4096, H100_SMS, False),   # past 32 rows: the old chain
+    (8, 2080, 8192, H100_SMS, False),    # past 2048: the old chain
+    (8, 1024, 4096, None, False),        # off a card: the plain version
+])
+def test_mlp_swiglu_takes_what_the_plan_plans(b, d, d_ff, sms, takes):
+    assert mlp_swiglu_takes(b, d, d_ff, sms) is takes
+    tile = pick_tile(d_ff, TILE_BUDGET, 2 * d)
+    if sms is not None and not takes:
+        with pytest.raises(ValueError, match="B8b"):
+            tail_plan(b, 0, d, d_ff, tile, 0, sms, mlp="swiglu_mlp")
+    with pytest.raises(ValueError, match="B8b has no o-projection"):
+        tail_plan(8, 1024, 1024, 4096, 2048, 0, H100_SMS, mlp="swiglu_mlp")
+
+
+@pytest.mark.parametrize("d,d_ff,Q,rows", [
+    (1024, 4096, 3072, 32),    # the T3 layer, B2
+    (1024, 4096, 0, 32),       # B8a
+    (2048, 8192, 4096, 22),    # the Qwen3 layer, B2: its hidden rows fill shared memory first
+    (2048, 8192, 0, 23),       # B8a
+    (4096, 16384, 12288, None),   # normed rows past 2048: no launch
+])
+def test_tail_rows_is_the_most_rows_one_launch_takes(d, d_ff, Q, rows):
+    assert tail_rows(d, d, d_ff, Q, H100_SMS) == rows
+    if rows is not None:
+        assert tail_takes(rows, d, d, d_ff, Q, H100_SMS)
+        assert rows == 32 or not tail_takes(rows + 1, d, d, d_ff, Q, H100_SMS)
+
+
 @pytest.mark.parametrize("megatail", [True, False], ids=["B2", "B8a"])
 def test_dispatch_sends_untaken_tail_shapes_to_dense_fns(monkeypatch, megatail):
-    """On a card (``card_sms`` answering 132), the T3 layer at 32 rows takes
-    the megatail (or, with ``VOCALIE_MEGATAIL=0``, the tail) and at 33 rows
-    ``DENSE_FNS``; off a card (the plain versions) 33 rows keep the JAX
-    package's path."""
+    """No shape is sent to ``DENSE_FNS`` any more: on a card (``card_sms``
+    answering 132) the T3 layer keeps the megatail (or, with
+    ``VOCALIE_MEGATAIL=0``, the tail) at 32, 33 and 64 rows, which run in
+    row chunks, as off a card; normed rows of 4096, which no launch takes,
+    raise ``ValueError`` naming the shape on a card and keep the path off
+    it (the plain versions take any shape)."""
     from vocalie_tts_tpu_torch.models.chatterbox.runtime import SCALES
     from vocalie_tts_tpu_torch.models.common import transformer as tr
     from vocalie_tts_tpu_torch.models.common.ar_runtime import apply_runtime_env
@@ -301,17 +371,56 @@ def test_dispatch_sends_untaken_tail_shapes_to_dense_fns(monkeypatch, megatail):
         monkeypatch.delenv("VOCALIE_MEGATAIL", raising=False)
     else:
         monkeypatch.setenv("VOCALIE_MEGATAIL", "0")
-    cfg = dataclasses.replace(apply_runtime_env(SCALES["tiny"]).lm, d_model=1024, n_heads=16,
-                              n_kv_heads=16, d_head=64, d_ff=4096)
-    zero = torch.zeros((), dtype=torch.int8)
-    layers = {name: {"q": zero.expand(shape)} for name, shape in (
-        ("wqkv", (2, 1024, 3072)), ("wo", (2, 1024, 1024)),
-        ("w_gateup", (2, 1024, 8192)), ("w_down", (2, 4096, 1024)))}
     path = tr.MEGATAIL if megatail else tr.TAIL
-    assert tr._dense_dispatch(layers, cfg, 33, 640) == path
+
+    def layers_at(d, d_ff):
+        zero = torch.zeros((), dtype=torch.int8)
+        return {name: {"q": zero.expand(shape)} for name, shape in (
+            ("wqkv", (2, d, 3 * d)), ("wo", (2, d, d)),
+            ("w_gateup", (2, d, 2 * d_ff)), ("w_down", (2, d_ff, d)))}
+
+    base = apply_runtime_env(SCALES["tiny"]).lm
+    cfg = dataclasses.replace(base, d_model=1024, n_heads=16, n_kv_heads=16, d_head=64,
+                              d_ff=4096)
+    wide = dataclasses.replace(base, d_model=4096, n_heads=32, n_kv_heads=32, d_head=128,
+                               d_ff=16384)
+    assert tr._dense_dispatch(layers_at(1024, 4096), cfg, 33, 640) == path
+    assert tr._dense_dispatch(layers_at(4096, 16384), wide, 8, 640) == path
     monkeypatch.setattr(tr, "card_sms", lambda device: H100_SMS)
-    assert tr._dense_dispatch(layers, cfg, 32, 640) == path
-    assert tr._dense_dispatch(layers, cfg, 33, 640) == tr.DENSE_FNS
+    for b in (32, 33, 64):
+        assert tr._dense_dispatch(layers_at(1024, 4096), cfg, b, 640) == path
+    with pytest.raises(ValueError, match="d_model=4096, d_attn=4096, d_ff=16384"):
+        tr._dense_dispatch(layers_at(4096, 16384), wide, 8, 640)
+
+
+def test_plain_tail_on_row_chunks_is_the_one_call():
+    """The plain B2 on 33 rows equals, bit for bit, the concatenation of the
+    plain B2 on its row chunks (16 and 17 rows): what a card computes for a
+    batch past 32 rows is the one call's result (every quantity is per
+    row)."""
+    from vocalie_tts_tpu_torch.ops.decode_dense import _row_chunks
+
+    rng = np.random.default_rng(33)
+    L, b, d, d_ff, Q = 2, 33, 128, 256, 384
+
+    def i8(*shape):
+        return torch.from_numpy(rng.integers(-127, 128, shape).astype(np.int8))
+
+    def f32(*shape, scale=1.0, shift=0.0):
+        return torch.from_numpy((shift + scale * rng.standard_normal(shape)).astype(np.float32))
+
+    attn, x = f32(b, d, scale=0.3), f32(b, d).to(torch.bfloat16)
+    weights = (i8(L, d, d), f32(L, 1, d, scale=1e-3, shift=4e-3), f32(L, d, scale=0.1, shift=1),
+               i8(L, d, 2 * d_ff), f32(L, 1, 2 * d_ff, scale=1e-3, shift=4e-3),
+               i8(L, d_ff, d), f32(L, 1, d, scale=1e-3, shift=4e-3),
+               f32(L, d, scale=0.1, shift=1), i8(L, d, Q), f32(L, 1, Q, scale=1e-3, shift=4e-3))
+    chunks = _row_chunks(b, 32)
+    assert chunks == [(0, 16), (16, 33)]
+    whole = tail_swiglu_qkv_int8_plain(attn, x, *weights, 1, eps=1e-5)
+    parts = [tail_swiglu_qkv_int8_plain(attn[r0:r1], x[r0:r1], *weights, 1, eps=1e-5)
+             for r0, r1 in chunks]
+    for i, name in enumerate(("x_out", "qkv")):
+        assert torch.equal(whole[i], torch.cat([p[i] for p in parts])), name
 
 
 @pytest.mark.parametrize("row_bytes,ptrs,word", [

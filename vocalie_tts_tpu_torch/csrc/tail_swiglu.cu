@@ -6,6 +6,8 @@
 // Replaces, in vocalie_tts_tpu/ops/decode_dense.py:
 //   B2  tail_swiglu_qkv_int8_stacked  (def :519, pallas_call :611)
 //   B8a tail_swiglu_int8_stacked      (def :368, pallas_call :428)
+//   B8b mlp_swiglu_int8_stacked       (def :190, pallas_call :234), the MLP
+//       branch (mlp_swiglu_kernel, see "B8b" below)
 // The math is theirs, step for step, and the plain versions' in
 // ops/decode_dense.py (tail_swiglu_qkv_int8_plain, tail_swiglu_int8_plain):
 //   x2   = x + (float(q(attn) . Wo[l]) * as) * wos
@@ -69,6 +71,24 @@
 // (decode_layer.cu), which computes x2 its own way.
 // vocalie_tts_tpu_torch/tools/tail_swiglu_trace.py reads the card's clock at
 // each phase point (the `stamps` argument).
+//
+// B8b (the SwiGLU MLP alone, JAX _mlp_kernel :155-187) is the same body
+// with the o-projection, the norm and the residual taken out
+// (tail_after_x2<MT, true>; ops/decode_dense.py tail_plan with
+// mlp="swiglu_mlp": gate | up and down items only):
+//   gu   = (float(q(x) . Wgu[l]) * xs) * sgu, x the post-norm rows
+//   out  = (sum over tiles, in order, of float(q_t(silu(g) * u) . Wd_t) * s_t) * sd
+// Every block asks for its tiles from its first instruction (its gate | up
+// items first); a gate | up block quantizes the rows of x itself (bf16 or
+// f32, an amax and a divide) in place of the o-projection and barrier 1.
+// With no barrier before gate | up nothing device-wide can be zeroed for it:
+// the hidden's amax is written per (row, gate | up slab), each word once,
+// and every block takes the max of a (row, tile)'s slabs after barrier 2
+// (as B9d does, tail_gelu.cu). Then the quantized-hidden barrier and the
+// down items, each a whole slab over d_ff met in tile order in its block:
+// two grid barriers a call, where the old chain (vt_mlp_swiglu_int8 in
+// decode_dense.cu, which still runs the shapes this body does not take) was
+// six kernels.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -130,6 +150,27 @@ __global__ void __launch_bounds__(threads<MT>(), 1)
     __syncthreads();
   }
   tail_after_x2<MT>(a, m, rg, s, it, acc);
+}
+
+// B8b: the MLP alone on the rows of x (the tail's MLP branch); every tile
+// asked for at entry
+template <int MT>
+__global__ void __launch_bounds__(threads<MT>(), 1)
+    mlp_swiglu_kernel(TailArgs a, const __grid_constant__ Maps m) {
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const int tid = threadIdx.x, nt = threads<MT>();
+  const Layout lo =
+      layout(a.b, MT, a.lda, a.d, a.max_gu, a.max_items, a.F / a.tile, a.stages, a.kc);
+  const TailSmem s = tail_smem<MT>(smem, lo);
+  stamp(a, 0);
+  TileRing rg = tail_ring(a, smem, lo);
+  tail_small_inputs<true>(a, s, rg);
+  rg.cap = 3;
+  fill(a, m, rg);
+  for (int i = tid; i < 2 * 16 * MT * RED_ROW; i += nt) s.red[i] = 0;
+  int acc[MT][4][4];
+  zero_acc(acc);
+  tail_after_x2<MT, true>(a, m, rg, s, 0, acc);
 }
 
 bool shapes_ok(int b, int d_attn, int d, int F, int tile, int Q) {
@@ -240,6 +281,94 @@ extern "C" int vt_tail_swiglu_qkv_int8(
   const cudaError_t e = cudaLaunchCooperativeKernel(fn, dim3(grid),
                                                     dim3(b > 16 ? threads<2>() : threads<1>()),
                                   params, (size_t)smem, (cudaStream_t)stream);
+  if (e != cudaSuccess) {
+    cudaGetLastError();  // a refused launch leaves no sticky error; clear the last one
+    return (int)e;
+  }
+  return (int)cudaGetLastError();
+}
+
+// ── B8b: the SwiGLU MLP alone, the body's MLP branch ─────────────────────
+
+// B8b's workspace: the quantized hidden and its amax per (row, gate | up slab)
+extern "C" long long vt_mlp_swiglu_one_workspace(int b, int d, int F, int tile) {
+  if (b < 1 || d < 1 || F < 1 || tile < 1 || F % tile) return -1;
+  auto a256 = [](long long n) { return (n + 255) / 256 * 256; };
+  return a256((long long)b * F) + a256((long long)b * (F / SLAB) * 4);
+}
+
+// The shared bytes of a B8b launch; -1 for a plan the kernel does not take.
+extern "C" int vt_mlp_swiglu_one_smem(int b, int d, int F, int tile, int max_gu, int max_items,
+                                      int stages, int kc) {
+  if (!shapes_ok(b, d, d, F, tile, 0) || stages < 1 || stages > MAX_STAGES || kc < 32 ||
+      kc % 32 || d % kc || tile % kc || max_gu < 0 || max_items < max_gu) {
+    return -1;
+  }
+  return layout(b, b > 16 ? 2 : 1, tail_lda(0, d, F), d, max_gu, max_items, F / tile, stages, kc)
+      .total;
+}
+
+// B8b, one launch of `grid` blocks: out = (sum over d_ff tiles t, in order,
+// of float(q_t(silu(g) * u) . Wd[l]_t) * s_t) * sd[l], [g | u] =
+// (float(q(x) . Wgu[l]) * xs) * sgu[l]; x [b, d] the post-norm rows
+// (x_kind), no residual. plan: the item table of tail_plan with
+// mlp="swiglu_mlp" (no o-projection or qkv items); kc, stages, max_gu,
+// max_items and smem as vt_tail_swiglu_qkv_int8's (smem checked against
+// vt_mlp_swiglu_one_smem). stamps: null, or [grid, 12 + 64] u64. Every
+// pointer but out, ws, plan and stamps starts on a 16-byte boundary.
+extern "C" int vt_mlp_swiglu_one(const void* x, int x_kind, const void* wgu, const void* sgu,
+                                 const void* wd, const void* sd, int layer, int L, int b, int d,
+                                 int F, int tile, void* out, void* ws, long long ws_bytes,
+                                 const void* plan, int grid, int kc, int stages, int max_gu,
+                                 int max_items, int smem, void* stamps, void* stream) {
+  if (!shapes_ok(b, d, d, F, tile, 0) || layer < 0 || layer >= L || grid < 1 ||
+      x_kind == KIND_NONE || plan == nullptr ||
+      smem != vt_mlp_swiglu_one_smem(b, d, F, tile, max_gu, max_items, stages, kc) ||
+      smem > TAIL_SMEM_MAX || ws_bytes < vt_mlp_swiglu_one_workspace(b, d, F, tile)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const void* aligned[] = {x, wgu, sgu, wd, sd};
+  for (const void* q : aligned) {
+    if ((uintptr_t)q % 16 != 0) return (int)cudaErrorMisalignedAddress;
+  }
+  TailArgs a = {};
+  a.x = x;
+  a.wgu = (const int8_t*)wgu;
+  a.sgu = (const float*)sgu;
+  a.wd = (const int8_t*)wd;
+  a.sd = (const float*)sd;
+  a.x_out = (float*)out;
+  a.plan = (const int*)plan;
+  char* p = (char*)ws;
+  a.hq = (int8_t*)p;
+  p += ((long long)b * F + 255) / 256 * 256;
+  a.amax = (unsigned*)p;
+  a.stamps = (unsigned long long*)stamps;
+  a.x_kind = x_kind;
+  a.norm_kind = KIND_NONE;
+  a.layer = a.nxt = layer;
+  a.b = b;
+  a.d = d;
+  a.F = F;
+  a.tile = tile;
+  a.kc = kc;
+  a.stages = stages;
+  a.lda = tail_lda(0, d, F);
+  a.max_gu = max_gu;
+  a.max_items = max_items;
+  Maps maps;
+  int rc = tile_map(wgu, L, d, 2 * F, kc, &maps.wgu);
+  if (rc == 0) rc = tile_map(wd, L, F, d, kc, &maps.wd);
+  if (rc) return rc;
+  maps.wo = maps.wq = maps.wgu;   // not read
+  const void* fn = b > 16 ? (const void*)mlp_swiglu_kernel<2> : (const void*)mlp_swiglu_kernel<1>;
+  static int allowed[2][64];
+  const int ok = allow_smem_once(fn, allowed[b > 16]);
+  if (ok) return ok;
+  void* params[] = {&a, &maps};
+  const cudaError_t e = cudaLaunchCooperativeKernel(fn, dim3(grid),
+                                                    dim3(b > 16 ? threads<2>() : threads<1>()),
+                                                    params, (size_t)smem, (cudaStream_t)stream);
   if (e != cudaSuccess) {
     cudaGetLastError();  // a refused launch leaves no sticky error; clear the last one
     return (int)e;

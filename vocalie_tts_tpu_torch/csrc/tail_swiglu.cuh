@@ -7,7 +7,9 @@
 // layout, the weight tiles' requests, the ring's set-up, the small inputs
 // and everything after the o-projection (tail_after_x2). A kernel that
 // includes it computes x2 its own way and then calls tail_after_x2, so the
-// tail's arithmetic is one copy of code.
+// tail's arithmetic is one copy of code. With MLP (B8b, tail_swiglu.cu's
+// mlp_swiglu_kernel) the same body runs the MLP alone on the rows of x: no
+// x2, no norm, no residual and no barrier before gate | up.
 
 #pragma once
 
@@ -45,7 +47,7 @@ struct TailArgs {
   const int* plan;     // [grid + 1] item offsets, then the items (product << 24 | slab)
   float* x2;           // [b, d]        workspace
   int8_t* hq;          // [b, F]
-  unsigned* amax;      // [b, F / tile] float bits
+  unsigned* amax;      // [b, F / tile] float bits (MLP: [b, F / 32], a gate | up slab's)
   unsigned* normed;    // the blocks past the MLP norm
   unsigned long long* stamps;  // [grid, TAIL_STAMPS] %globaltimer at each phase point, or null
   int x_kind, norm_kind, layer, nxt, b, d_attn, d, F, tile, Q;
@@ -190,15 +192,19 @@ __device__ __forceinline__ TileRing tail_ring(const TailArgs& a, unsigned char* 
   return rg;
 }
 
-// The small inputs, one cp.async group: the MLP norm's weights, each item's
-// column scales, the o-projection items' residual columns.
+// The small inputs, one cp.async group: the MLP norm's weights (not with
+// MLP: there is no norm), each item's column scales, the o-projection items'
+// residual columns.
+template <bool MLP = false>
 __device__ __forceinline__ void tail_small_inputs(const TailArgs& a, const TailSmem& s,
                                                   const TileRing& rg) {
   const int b = a.b, d = a.d, F = a.F, tid = threadIdx.x, nt = blockDim.x;
   const int esz = a.norm_kind == KIND_BF16 ? 2 : 4;
   const int xsz = a.x_kind == KIND_BF16 ? 2 : 4;
-  copy_async(smem_u32(s.nvec), reinterpret_cast<const char*>(a.mw) + (long long)a.layer * d * esz,
-             d * esz);
+  if constexpr (!MLP) {
+    copy_async(smem_u32(s.nvec),
+               reinterpret_cast<const char*>(a.mw) + (long long)a.layer * d * esz, d * esz);
+  }
   for (int it = 0; it < rg.n_items; ++it) {
     const int p = rg.items[it] >> 24, c0 = SLAB * (rg.items[it] & 0xffffff);
     const float* s0 = p == 0   ? a.wos + (long long)a.layer * d + c0
@@ -237,7 +243,13 @@ __device__ __forceinline__ void tail_reset(const TailArgs& a, const TailSmem& s)
 // Barrier 1, the MLP RMSNorm, gate | up, silu(g) * u and its amax, barrier
 // 2, the hidden quantized, barrier 3, the down-projection and x_out, then
 // (Q > 0) barrier 4 and the next layer's RMSNorm + qkv.
-template <int MT>
+// With MLP (B8b: no o-projection items, Q 0, every tile asked for at entry):
+// no barrier 1; a gate | up block quantizes the rows of x as they are (bf16
+// or f32, no norm). Nothing device-wide can be zeroed before gate | up, so
+// the hidden's amax is stored once per (row, gate | up slab) and every block
+// meets a (row, d_ff tile)'s slabs after barrier 2; x_out is the sum times
+// sd, with no residual.
+template <int MT, bool MLP = false>
 __device__ __forceinline__ void tail_after_x2(const TailArgs& a, const Maps& m, TileRing& rg,
                                               const TailSmem& s, int it, int (&acc)[MT][4][4]) {
   namespace cg = cooperative_groups;
@@ -257,27 +269,42 @@ __device__ __forceinline__ void tail_after_x2(const TailArgs& a, const Maps& m, 
   float* cols = s.cols;
   const uint32_t act_s = s.act_s;
 
-  stamp(a, 1);
-  grid.sync();
-  stamp(a, 2);
-  wait_first();   // the small inputs of every later phase
-  rg.cap = 3;
-  if (it >= n_items || (items[it] >> 24) != 1) {
-    // the rest of the stream once every gate | up block has read its rows
-    // through L2 for the MLP norm (the stream would slow those reads down)
-    if (tid == 0) {
-      while (atomicAdd(a.normed, 0u) < (unsigned)a.gu_blocks) __nanosleep(256);
+  if constexpr (!MLP) {
+    stamp(a, 1);
+    grid.sync();
+    stamp(a, 2);
+    wait_first();   // the small inputs of every later phase
+    rg.cap = 3;
+    if (it >= n_items || (items[it] >> 24) != 1) {
+      // the rest of the stream once every gate | up block has read its rows
+      // through L2 for the MLP norm (the stream would slow those reads down)
+      if (tid == 0) {
+        while (atomicAdd(a.normed, 0u) < (unsigned)a.gu_blocks) __nanosleep(256);
+      }
+      __syncthreads();
+      fill(a, m, rg);
     }
-    __syncthreads();
-    fill(a, m, rg);
   }
 
-  // ── MLP RMSNorm, gate | up, silu(g) * u and its amax per (row, tile) ──
+  // ── MLP RMSNorm (MLP: the rows of x as they are), gate | up, silu(g) * u
+  // and its amax per (row, tile) (MLP: per (row, slab)) ──
   const int gu_beg = it;
   if (it < n_items && (items[it] >> 24) == 1) {
-    quant_rows(a.x2, b, d, s.nvec, a.norm_kind, a.eps, act, a.lda, sc, s.scratch);
-    if (tid == 0) atomicAdd(a.normed, 1u);
-    fill(a, m, rg);
+    if constexpr (MLP) {
+      if (a.x_kind == KIND_BF16) {
+        quant_rows_n<false, __nv_bfloat16>(reinterpret_cast<const __nv_bfloat16*>(a.x), b, d,
+                                            nullptr, nullptr, KIND_NONE, 0.0f, act, a.lda, sc,
+                                            s.scratch);
+      } else {
+        quant_rows_n<false, float>(reinterpret_cast<const float*>(a.x), b, d, nullptr, nullptr,
+                                   KIND_NONE, 0.0f, act, a.lda, sc, s.scratch);
+      }
+      wait_first();   // the items' column scales
+    } else {
+      quant_rows(a.x2, b, d, s.nvec, a.norm_kind, a.eps, act, a.lda, sc, s.scratch);
+      if (tid == 0) atomicAdd(a.normed, 1u);
+      fill(a, m, rg);
+    }
   }
   stamp(a, 3);
   {
@@ -307,17 +334,33 @@ __device__ __forceinline__ void tail_after_x2(const TailArgs& a, const Maps& m, 
       }
       __syncthreads();
       // the item's 32 columns lie in one d_ff tile: one atomicMax a row
+      // (MLP: the slab's max, stored)
       const int lane = tid & 31;
       for (int r = tid >> 5; r < b; r += nt >> 5) {
         float mx = fabsf(h[r * SLAB + lane]);
         for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-        if (lane == 0) atomicMax(&a.amax[r * n_tiles + c0 / a.tile], __float_as_uint(mx));
+        if (lane == 0) {
+          if constexpr (MLP) __stcg(&a.amax[r * (F / SLAB) + c0 / SLAB], __float_as_uint(mx));
+          else atomicMax(&a.amax[r * n_tiles + c0 / a.tile], __float_as_uint(mx));
+        }
       }
     }
   }
   stamp(a, 4);
   grid.sync();
   stamp(a, 5);
+  if constexpr (MLP) {   // every (row, tile)'s scale from its slabs' maxima
+    wait_first();   // the column scales of the blocks without gate | up items
+    const int lane = tid & 31, spt = a.tile / SLAB;
+    for (int i = tid >> 5; i < b * n_tiles; i += nt >> 5) {
+      const unsigned* am = a.amax + (i / n_tiles) * (F / SLAB) + (i % n_tiles) * spt;
+      float mx = 0.0f;
+      for (int j = lane; j < spt; j += 32) mx = fmaxf(mx, __uint_as_float(__ldcg(am + j)));
+      for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      if (lane == 0) sc[i] = quant_scale(mx);
+    }
+    __syncthreads();
+  }
 
   // ── the hidden quantized per (row, tile) ──
   for (int i = gu_beg, slot = 0; i < n_items && (items[i] >> 24) == 1; ++i, ++slot) {
@@ -325,7 +368,9 @@ __device__ __forceinline__ void tail_after_x2(const TailArgs& a, const Maps& m, 
     const float* h = hid + slot * b * SLAB;
     for (int e = tid; e < b * SLAB; e += nt) {
       const int r = e / SLAB;
-      const float sv = quant_scale(__uint_as_float(__ldcg(&a.amax[r * n_tiles + c0 / a.tile])));
+      const float sv =
+          MLP ? sc[r * n_tiles + c0 / a.tile]
+              : quant_scale(__uint_as_float(__ldcg(&a.amax[r * n_tiles + c0 / a.tile])));
       a.hq[(long long)r * F + c0 + e % SLAB] = (int8_t)quant_fast(h[e], sv, __frcp_rn(sv));
     }
   }
@@ -343,10 +388,10 @@ __device__ __forceinline__ void tail_after_x2(const TailArgs& a, const Maps& m, 
       const int r = i / w16, c = i - r * w16;
       *reinterpret_cast<int4*>(act + r * a.lda + 16 * c) = __ldcg(hsrc + (long long)r * w16 + c);
     }
-    for (int i = tid; i < b * n_tiles; i += nt) {
+    for (int i = tid; i < b * n_tiles && !MLP; i += nt) {
       sc[i] = quant_scale(__uint_as_float(__ldcg(&a.amax[i])));
     }
-    for (int i = it; i < n_items && (items[i] >> 24) == 2; ++i) {
+    for (int i = it; i < n_items && (items[i] >> 24) == 2 && !MLP; ++i) {
       const int c0 = SLAB * (items[i] & 0xffffff);
       for (int e = tid; e < b * SLAB / 4; e += nt) {
         const int r = e / (SLAB / 4), c = 4 * (e % (SLAB / 4));
@@ -380,8 +425,10 @@ __device__ __forceinline__ void tail_after_x2(const TailArgs& a, const Maps& m, 
       const int c0 = SLAB * (items[it] & 0xffffff);
       for (int e = tid; e < b * SLAB; e += nt) {
         const int r = e / SLAB, c = e % SLAB;
-        a.x_out[(long long)r * d + c0 + c] =
-            __fadd_rn(cols[(it * b + r) * SLAB + c], __fmul_rn(dacc[e], vec[it * 2 * SLAB + c]));
+        float* o = a.x_out + (long long)r * d + c0 + c;
+        const float y = __fmul_rn(dacc[e], vec[it * 2 * SLAB + c]);
+        if constexpr (MLP) *o = y;
+        else *o = __fadd_rn(cols[(it * b + r) * SLAB + c], y);
       }
       __syncthreads();
     }

@@ -67,9 +67,9 @@ from vocalie_tts_tpu_torch.ops.decode_dense import (
     qkv_norm_int8_stacked,
     tail_gelu_int8_stacked,
     tail_gelu_qkv_int8_stacked,
+    tail_rows,
     tail_swiglu_int8_stacked,
     tail_swiglu_qkv_int8_stacked,
-    tail_takes,
 )
 from vocalie_tts_tpu_torch.ops.decode_attention import decode_attention_stacked
 from vocalie_tts_tpu_torch.ops.decode_layer import layer_swiglu_qkv_int8_stacked
@@ -456,11 +456,12 @@ def _dense_dispatch(layers: Params, cfg: TransformerConfig, batch: int, max_len:
     LayerNorm, a GELU MLP with biases under RMSNorm, a d_ff that is not a
     128-multiple, a GELU MLP without biases), B4 for the qkv and
     o-projections and the int8 SwiGLU MLP (B8b), the int8 GELU MLP (B9d) or
-    ``_qdot`` for the MLP; on a card, a batch or width that the one-launch
-    B2/B8a body does not take (``tail_takes``: more than 32 rows, normed
-    rows wider than 2048, activations that leave no room for its weight
-    ring) also takes ``DENSE_FNS`` where the megatail or the tail would run.
-    The JAX ``decode_step``'s choice from
+    ``_qdot`` for the MLP. On a card, a batch past what one B2/B8a launch
+    takes runs the same path in row chunks (``tail_rows``); widths that no
+    launch takes (normed rows wider than 2048, no room for the weight ring
+    beside one row) raise ``ValueError`` where the megatail or the tail
+    would run: JAX takes B2/B8a at any shape, and ``DENSE_FNS`` computes
+    another thing. The JAX ``decode_step``'s choice from
     the config and the shapes (``transformer.py:778-857``; the B7
     conditions of ``maybe_head_stack_qkv``, ``:422-464``, which the JAX
     generate programs apply at batch 1, for the SwiGLU family without
@@ -484,7 +485,8 @@ def _dense_dispatch(layers: Params, cfg: TransformerConfig, batch: int, max_len:
     d_attn, d_ff = layers["wo"]["q"].shape[1], layers["w_down"]["q"].shape[1]
     sms = card_sms(layers["wo"]["q"].device)
     if not mega:
-        return TAIL if tail_takes(batch, d_attn, cfg.d_model, d_ff, 0, sms) else DENSE_FNS
+        _tail_on_card(batch, d_attn, cfg.d_model, d_ff, 0, sms)
+        return TAIL
     int8_attn = cfg.decode_kernel and cfg.kv_quant
     packed = int8_attn and 2 * cfg.d_head == 128   # the JAX cache's lane-packed k|v
     # at batch 1 the JAX generate programs install the head-stacked qkv
@@ -496,9 +498,19 @@ def _dense_dispatch(layers: Params, cfg: TransformerConfig, batch: int, max_len:
     if (int8_attn and (packed or cfg.d_head % 128 == 0) and max_len % 128 == 0
             and bool_env("VOCALIE_MEGALAYER")):
         return MEGALAYER
-    if not tail_takes(batch, d_attn, cfg.d_model, d_ff, layers["wqkv"]["q"].shape[2], sms):
-        return DENSE_FNS
+    _tail_on_card(batch, d_attn, cfg.d_model, d_ff, layers["wqkv"]["q"].shape[2], sms)
     return MEGATAIL
+
+
+def _tail_on_card(batch: int, d_attn: int, d: int, d_ff: int, Q: int, sms) -> None:
+    """Raises ``ValueError`` naming the shape where no B2 (``Q`` > 0) or B8a
+    launch takes these widths on a card of ``sms`` SMs (``tail_rows``); off
+    a card (``sms`` None) the plain versions take any shape."""
+    if sms is not None and tail_rows(d_attn, d, d_ff, Q, sms) is None:
+        raise ValueError(
+            f"the SwiGLU decode step at d_model={d}, d_attn={d_attn}, d_ff={d_ff} ({batch} "
+            f"rows) has no B2/B8a launch on this card (normed rows of at most 2048 and a "
+            "two-stage weight ring beside one row); the reference takes B2/B8a there")
 
 
 def _layer(layers: Params, l: int) -> Params:

@@ -47,12 +47,15 @@ below one 128-column tile raises as it does there.
 On a CUDA tensor each wrapper launches ``csrc/decode_dense.cu`` (a short
 sequence of kernels from one C entry point; ``launches`` counts calls of
 the entry point), except B2 and B8a, which are one cooperative launch of
-``csrc/tail_swiglu.cu`` on the int8 tensor cores, and B9b, B9c and B9d, one launch of
-``csrc/tail_gelu.cu`` (B2's body with the GELU MLP and the LayerNorms; B9c
-its branch without the next qkv, as B8a is B2's; B9d its MLP branch, with
-no o-projection), each planned per shape by :func:`tail_plan`; a shape that
-body does not take (:func:`gelu_takes`, :func:`mlp_gelu_takes`) runs the old
-chain of ``csrc/decode_dense.cu``, and B9d's ``chain=True`` forces it. B3, B4 and B9a are one
+``csrc/tail_swiglu.cu`` on the int8 tensor cores (a batch past what one
+launch takes, :func:`tail_rows`, one launch a row chunk), B8b, the same
+body's MLP branch (no o-projection, norm or residual), and B9b, B9c and
+B9d, one launch of ``csrc/tail_gelu.cu`` (B2's body with the GELU MLP and
+the LayerNorms; B9c its branch without the next qkv, as B8a is B2's; B9d
+its MLP branch, with no o-projection), each planned per shape by
+:func:`tail_plan`; a shape that body does not take (:func:`gelu_takes`,
+:func:`mlp_gelu_takes`, :func:`mlp_swiglu_takes`) runs the old chain of
+``csrc/decode_dense.cu``, and B8b's and B9d's ``chain=True`` force it. B3, B4 and B9a are one
 launch of ``csrc/dense_int8.cu`` (TMA weight slices, int8 tensor cores,
 split-K met in a thread-block cluster; B9a with the LayerNorm in place of
 B3's RMSNorm), planned per shape by :func:`dense_plan`; a shape it does not
@@ -458,7 +461,9 @@ class TailPlan:
     - t) · d / 32 + slab``, so that a block streams the later tiles' items
     before the tile-0 item that waits for them. ``mlp`` "gelu_mlp" is B9d's
     (the same body's MLP branch): B9b's items without the o-projection's
-    and the qkv's."""
+    and the qkv's; "swiglu_mlp" is B8b's (B2's body's MLP branch,
+    ``csrc/tail_swiglu.cu`` ``mlp_swiglu_kernel``): B8a's items without the
+    o-projection's."""
     grid: int
     kc: int
     stages: int
@@ -482,6 +487,13 @@ class TailPlan:
         return offsets + codes
 
 
+#: the GELU plans (``csrc/tail_gelu.cu``); "swiglu" and "swiglu_mlp" are
+#: ``csrc/tail_swiglu.cu``'s
+_GELU = ("gelu", "gelu_mlp")
+#: the MLP branches: no o-projection, no qkv
+_MLP_ONLY = ("gelu_mlp", "swiglu_mlp")
+
+
 def _align16(n: int) -> int:
     return (n + 15) // 16 * 16
 
@@ -493,7 +505,7 @@ def tail_item_rows(p: int, d_attn: int, d: int, d_ff: int, mlp: str = "swiglu",
     down-projection, 3 the qkv, in stream order); a gate | up item streams
     its gate and its up slab, each ``d`` rows; a GELU down item one d_ff
     ``tile``."""
-    if mlp != "swiglu":
+    if mlp in _GELU:
         return (d_attn, d, tile, d)[p]
     return (d_attn, 2 * d, d_ff, d)[p]
 
@@ -505,8 +517,8 @@ def _fixed_smem(mlp, b, lda, d, d_ff, tile, max_gu, max_items, act_min=0, n_abar
     (B12's attention slots)."""
     mt = 2 if b > 16 else 1
     n_tiles = max(1, d_ff // tile)
-    red = _align16((2 if mlp == "swiglu" else 1) * 16 * mt * (SLAB + 1) * 4)
-    nvec = _align16(4 * d) * (1 if mlp == "swiglu" else 2)
+    red = _align16((1 if mlp in _GELU else 2) * 16 * mt * (SLAB + 1) * 4)
+    nvec = _align16(4 * d) * (2 if mlp in _GELU else 1)
     return (_align16(max(b * lda, act_min)) + red + _align16(max_gu * b * SLAB * 4)
             + _align16(b * SLAB * 4) + _align16(4 * b * n_tiles) + nvec
             + max_items * (2 * SLAB * 4 + b * SLAB * 4) + 32 * 12 + 8 * TAIL_MAX_STAGES
@@ -518,9 +530,9 @@ def tail_plan(b: int, d_attn: int, d: int, d_ff: int, tile: int, Q: int, sms: in
               n_abar: int = 0) -> TailPlan:
     """B2's (``Q`` > 0) or B8a's (``Q`` = 0) launch plan, or with ``mlp``
     "gelu" B9b's (``Q`` > 0) or B9c's (``Q`` = 0), or with ``mlp``
-    "gelu_mlp" B9d's (``d_attn`` and ``Q`` 0: no o-projection, no qkv), a
-    pure function of the shape and the card's SM count (B12 adds ``act_min``
-    and ``n_abar``, see :func:`_fixed_smem`). The
+    "gelu_mlp" B9d's or "swiglu_mlp" B8b's (``d_attn`` and ``Q`` 0: no
+    o-projection, no qkv), a pure function of the shape and the card's SM
+    count (B12 adds ``act_min`` and ``n_abar``, see :func:`_fixed_smem`). The
     items (32-column slabs of the four products, each over its full K; a
     GELU down-projection item over one d_ff tile) are dealt largest first
     to the least loaded block (by weight bytes; ties to the lower block; an
@@ -533,13 +545,13 @@ def tail_plan(b: int, d_attn: int, d: int, d_ff: int, tile: int, Q: int, sms: in
     norm's weights and each item's column scales and residual columns, up to
     16 stages and no more than the largest block's tiles.
     Raises ``ValueError`` for a shape the body does not take."""
-    name = {"gelu": "B9b/B9c", "gelu_mlp": "B9d"}.get(mlp, "B2/B8a")
+    name = {"gelu": "B9b/B9c", "gelu_mlp": "B9d", "swiglu_mlp": "B8b"}.get(mlp, "B2/B8a")
     if not 1 <= b <= TAIL_MAX_B:
         raise ValueError(f"{name} take 1 to {TAIL_MAX_B} rows, got b={b}")
-    if mlp == "gelu_mlp" and (d_attn or Q):
-        raise ValueError(f"B9d has no o-projection and no qkv, got d_attn={d_attn}, d_qkv={Q}")
+    if mlp in _MLP_ONLY and (d_attn or Q):
+        raise ValueError(f"{name} has no o-projection and no qkv, got d_attn={d_attn}, d_qkv={Q}")
     widths = (("d_model", d), ("d_ff", d_ff), ("tile", tile))
-    for what, n in widths if mlp == "gelu_mlp" else (("d_attn", d_attn),) + widths:
+    for what, n in widths if mlp in _MLP_ONLY else (("d_attn", d_attn),) + widths:
         if n < SLAB or n % SLAB:
             raise ValueError(f"{name} need {what} a multiple of {SLAB}, got {n}")
     if Q < 0 or Q % SLAB or d_ff % tile:
@@ -549,10 +561,10 @@ def tail_plan(b: int, d_attn: int, d: int, d_ff: int, tile: int, Q: int, sms: in
         raise ValueError(f"{name} norm rows of at most {TAIL_MAX_D}, got d_attn={d_attn}, "
                          f"d_model={d}")
     n_tiles = d_ff // tile
-    if mlp != "swiglu":
+    if mlp in _GELU:
         slabs = (d_attn // SLAB, d_ff // SLAB, d // SLAB * n_tiles, Q // SLAB)
     else:
-        slabs = (d // SLAB, d_ff // SLAB, d // SLAB, Q // SLAB)
+        slabs = (d // SLAB if d_attn else 0, d_ff // SLAB, d // SLAB, Q // SLAB)
     work = sorted(((tail_item_rows(p, d_attn, d, d_ff, mlp, tile) * SLAB, p, s)
                    for p in range(4) for s in range(slabs[p])),
                   key=lambda w: (-w[0], w[1], w[2]))
@@ -607,11 +619,11 @@ def tail_stream(plan: TailPlan, blk: int, d_attn: int, d: int, d_ff: int) -> lis
     n_slabs = d // SLAB
     for p, s in plan.items[blk]:
         c0, r0 = SLAB * s, 0
-        if p == 1 and plan.mlp == "swiglu":
+        if p == 1 and plan.mlp not in _GELU:
             for j in range(d // plan.kc):
                 out += [(1, c0, j * plan.kc), (1, d_ff + c0, j * plan.kc)]
             continue
-        if p == 2 and plan.mlp != "swiglu":
+        if p == 2 and plan.mlp in _GELU:
             t = d_ff // plan.tile - 1 - s // n_slabs
             c0, r0 = SLAB * (s % n_slabs), t * plan.tile
         K = tail_item_rows(p, d_attn, d, d_ff, plan.mlp, plan.tile)
@@ -635,6 +647,13 @@ def gelu_workspace_bytes(b: int, d: int, d_ff: int, tile: int) -> int:
     n_tiles = d_ff // tile
     return (a256(b * d * 4) + a256(b * d_ff) + a256(b * n_tiles * 4) + 256
             + a256(n_tiles * b * d * 4) + a256(n_tiles * (d // SLAB) * 4))
+
+
+def mlp_swiglu_workspace_bytes(b: int, d: int, d_ff: int, tile: int) -> int:
+    """B8b's workspace (``vt_mlp_swiglu_one_workspace``): the quantized
+    hidden and its amax per (row, gate | up slab)."""
+    a256 = lambda n: (n + 255) // 256 * 256   # noqa: E731
+    return a256(b * d_ff) + a256(b * (d_ff // SLAB) * 4)
 
 
 def mlp_gelu_workspace_bytes(b: int, d: int, d_ff: int, tile: int) -> int:
@@ -670,14 +689,38 @@ def _tail_fits(b: int, d_attn: int, d: int, d_ff: int, tile: int, Q: int, sms: i
 
 
 def tail_takes(b: int, d_attn: int, d: int, d_ff: int, Q: int, sms) -> bool:
-    """Whether B2 (``Q`` > 0) or B8a (``Q`` = 0) takes this shape: on a card
-    of ``sms`` SMs, where ``tail_plan`` has a plan for it (1 to 32 rows,
-    normed rows of at most 2048, the activations and a two-stage ring in
-    shared memory); off a card (``sms`` None) always, as the plain version
-    takes any shape. ``_dense_dispatch`` sends the rest to ``DENSE_FNS``."""
+    """Whether B2 (``Q`` > 0) or B8a (``Q`` = 0) takes this shape in one
+    launch: on a card of ``sms`` SMs, where ``tail_plan`` has a plan for it
+    (1 to 32 rows, normed rows of at most 2048, the activations and a
+    two-stage ring in shared memory); off a card (``sms`` None) always, as
+    the plain version takes any shape. A batch past it runs in row chunks
+    of at most :func:`tail_rows` rows."""
     if sms is None:
         return True
     return _tail_fits(b, d_attn, d, d_ff, _ff_tile(d, d_ff, Q), Q, sms)
+
+
+@functools.lru_cache(maxsize=None)
+def tail_rows(d_attn: int, d: int, d_ff: int, Q: int, sms: int):
+    """The most rows (at most ``TAIL_MAX_B``) that one B2 (``Q`` > 0) or B8a
+    (``Q`` = 0) launch takes at these widths on a card of ``sms`` SMs, or
+    None where none does (a normed row past 2048, no two-stage ring beside
+    one row's activations). Every quantity of the tail is per row, so a
+    batch of more rows runs as launches over row chunks of at most this
+    many, bit for bit the one call's result (``_tail_swiglu``)."""
+    tile = _ff_tile(d, d_ff, Q)
+    for b in range(TAIL_MAX_B, 0, -1):
+        if _tail_fits(b, d_attn, d, d_ff, tile, Q, sms):
+            return b
+    return None
+
+
+def _row_chunks(b: int, rows: int) -> list:
+    """``ceil(b / rows)`` row ranges [r0, r1) of near-equal size covering
+    ``range(b)`` in order."""
+    n = -(-b // rows)
+    bounds = [b * i // n for i in range(n + 1)]
+    return list(zip(bounds[:-1], bounds[1:]))
 
 
 def gelu_takes(b: int, d_attn: int, d: int, d_ff: int, Q: int, sms) -> bool:
@@ -700,8 +743,8 @@ def _tail_launch(b: int, d_attn: int, d: int, d_ff: int, tile: int, Q: int, dev:
     here and runs no Python over the blocks."""
     plan = tail_plan(b, d_attn, d, d_ff, tile, Q, _sm_count(dev), mlp=mlp)
     table = torch.tensor(plan.table(), dtype=torch.int32, device=torch.device("cuda", dev))
-    ws = {"gelu": gelu_workspace_bytes, "gelu_mlp": mlp_gelu_workspace_bytes}.get(
-        mlp, tail_workspace_bytes)(b, d, d_ff, tile)
+    ws = {"gelu": gelu_workspace_bytes, "gelu_mlp": mlp_gelu_workspace_bytes,
+          "swiglu_mlp": mlp_swiglu_workspace_bytes}.get(mlp, tail_workspace_bytes)(b, d, d_ff, tile)
     return plan, table, ws
 
 
@@ -732,6 +775,25 @@ def _mlp_gelu_launch(b: int, d: int, d_ff: int, tile: int, dev: int):
     if not mlp_gelu_takes(b, d, d_ff, _sm_count(dev)):
         return None
     return _tail_launch(b, 0, d, d_ff, tile, 0, dev, "gelu_mlp")
+
+
+def mlp_swiglu_takes(b: int, d: int, d_ff: int, sms) -> bool:
+    """Whether B2's body takes this shape as B8b (its MLP branch) on a card
+    of ``sms`` SMs: ``tail_plan`` with ``mlp="swiglu_mlp"`` has a plan (1 to
+    32 rows, rows of at most 2048, a two-stage ring beside the activations,
+    whose rows are d_ff wide); ``mlp_swiglu_int8_stacked`` runs the other
+    shapes on the old six-kernel chain of ``csrc/decode_dense.cu``."""
+    return sms is not None and _tail_fits(b, 0, d, d_ff, _ff_tile(d, d_ff, 0), 0, sms,
+                                          "swiglu_mlp")
+
+
+@functools.lru_cache(maxsize=None)
+def _mlp_swiglu_launch(b: int, d: int, d_ff: int, tile: int, dev: int):
+    """B8b's ``_tail_launch`` at a shape on card ``dev``, or None where the
+    one-launch body does not take the shape (``mlp_swiglu_takes``)."""
+    if not mlp_swiglu_takes(b, d, d_ff, _sm_count(dev)):
+        return None
+    return _tail_launch(b, 0, d, d_ff, tile, 0, dev, "swiglu_mlp")
 
 
 #: B3/B4's one launch (``csrc/dense_int8.cu``): the rows, the row width
@@ -864,10 +926,14 @@ def _dense_launch(b: int, K: int, N: int, dev: int, ln: bool = False):
 def _tail_swiglu(attn, x, wo_all, wos_all, mw_all, wgu_all, sgu_all, wd_all, sd_all, nxt,
                  layer, eps, tile, stamps=None):
     """Checks and launches B2 (``nxt`` = (nw_all, wq_all, sq_all)) or B8a
-    (``nxt`` None) → ``(x_out, qkv_next or None)``. ``stamps``: None, or an
+    (``nxt`` None) → ``(x_out, qkv_next or None)``: one launch, or, for more
+    rows than one launch takes (:func:`tail_rows`), one launch over each of
+    ``_row_chunks`` (each counted in ``.launches``); a width no launch
+    takes raises ``ValueError`` naming the shape. ``stamps``: None, or an
     int64 CUDA tensor of ``grid * (12 + 64)`` the kernel fills with its
     blocks' phase times and their first 64 tiles' arrival times
-    (``python3 -m vocalie_tts_tpu_torch.tools.tail_swiglu_trace``)."""
+    (``python3 -m vocalie_tts_tpu_torch.tools.tail_swiglu_trace``; one
+    launch only)."""
     b, d = x.shape
     d_attn = attn.shape[1]
     L, d_ff = wd_all.shape[0], wd_all.shape[1]
@@ -888,24 +954,37 @@ def _tail_swiglu(attn, x, wo_all, wos_all, mw_all, wgu_all, sgu_all, wd_all, sd_
         raise ValueError("B2/B8a read attn, x and the weights in 16-byte chunks: each must "
                          "start on a 16-byte boundary")
     dev = x.device.index if x.device.index is not None else torch.cuda.current_device()
-    plan, table, ws_bytes = _tail_launch(b, d_attn, d, d_ff, tile, Q, dev)
-    ws = _workspace(ws_bytes, x.device)
+    rows = tail_rows(d_attn, d, d_ff, Q, _sm_count(dev))
+    if rows is None:
+        raise ValueError(f"B2/B8a: no launch takes d_model={d}, d_attn={d_attn}, d_ff={d_ff} "
+                         f"(rows {b}): normed rows past {TAIL_MAX_D} or no room for a two-stage "
+                         "weight ring beside one row")
+    chunks = [(0, b)] if b <= rows else _row_chunks(b, rows)
+    if stamps is not None and len(chunks) > 1:
+        raise ValueError(f"stamps trace one launch: {b} rows take {len(chunks)}")
     x_out = torch.empty((b, d), dtype=torch.float32, device=x.device)
     qkv = torch.empty((b, Q), dtype=torch.float32, device=x.device) if Q else None
     ptrs = [None] * 3 if nxt is None else [t.data_ptr() for t in nxt]
     fn = _build.kernel("vt_tail_swiglu_qkv_int8", _TAIL_ARGTYPES)
-    (tail_swiglu_int8_stacked if nxt is None else tail_swiglu_qkv_int8_stacked).launches += 1
-    rc = fn(attn.data_ptr(), x.data_ptr(), _kind(x, "x"),
-            wo_all.data_ptr(), wos_all.data_ptr(), mw_all.data_ptr(),
-            wgu_all.data_ptr(), sgu_all.data_ptr(), wd_all.data_ptr(), sd_all.data_ptr(),
-            *ptrs, _kind(mw_all, "mw_all"),
-            int(layer), L, b, d_attn, d, d_ff, tile, Q, float(eps),
-            x_out.data_ptr(), None if qkv is None else qkv.data_ptr(), ws.data_ptr(),
-            ws.numel(), table.data_ptr(), plan.grid, plan.kc, plan.stages, plan.max_gu,
-            plan.max_items, plan.gu_blocks, plan.smem,
-            None if stamps is None else stamps.data_ptr(),
-            _build.stream_ptr(x))
-    _build.check(rc, "vt_tail_swiglu_qkv_int8")
+    wrapper = tail_swiglu_int8_stacked if nxt is None else tail_swiglu_qkv_int8_stacked
+    xsz = x.element_size()
+    for r0, r1 in chunks:
+        # contiguous row views by pointer: every row starts on a 16-byte
+        # boundary (the widths are multiples of 32)
+        plan, table, ws_bytes = _tail_launch(r1 - r0, d_attn, d, d_ff, tile, Q, dev)
+        ws = _workspace(ws_bytes, x.device)
+        wrapper.launches += 1
+        rc = fn(attn.data_ptr() + 4 * r0 * d_attn, x.data_ptr() + xsz * r0 * d, _kind(x, "x"),
+                wo_all.data_ptr(), wos_all.data_ptr(), mw_all.data_ptr(),
+                wgu_all.data_ptr(), sgu_all.data_ptr(), wd_all.data_ptr(), sd_all.data_ptr(),
+                *ptrs, _kind(mw_all, "mw_all"),
+                int(layer), L, r1 - r0, d_attn, d, d_ff, tile, Q, float(eps),
+                x_out.data_ptr() + 4 * r0 * d, None if qkv is None else qkv.data_ptr() + 4 * r0 * Q,
+                ws.data_ptr(), ws.numel(), table.data_ptr(), plan.grid, plan.kc, plan.stages,
+                plan.max_gu, plan.max_items, plan.gu_blocks, plan.smem,
+                None if stamps is None else stamps.data_ptr(),
+                _build.stream_ptr(x))
+        _build.check(rc, "vt_tail_swiglu_qkv_int8")
     return x_out, qkv
 
 
@@ -957,6 +1036,10 @@ def _mlp_ws_bytes(b: int, d: int, d_ff: int, tile: int) -> int:
         b, d, d_ff, tile)
 
 
+_MLP_ONE_ARGTYPES = (_MLP_ARGTYPES[:-1] + [_build.P] + [_build.I] * 6
+                     + [_build.P, _build.P])
+
+
 def mlp_swiglu_int8_stacked(
     x: torch.Tensor,        # [b, d_model] post-norm activations
     wgu_all: torch.Tensor,  # [L, d_model, 2*d_ff] int8 ([gate | up])
@@ -964,8 +1047,16 @@ def mlp_swiglu_int8_stacked(
     wd_all: torch.Tensor,   # [L, d_ff, d_model] int8
     sd_all: torch.Tensor,   # [L, 1, d_model] f32
     layer: int,
+    *,
+    chain: bool = False,
+    stamps: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """silu(x·Wg)·(x·Wu)·Wd of layer ``layer`` (B8b) → [b, d_model] f32."""
+    """silu(x·Wg)·(x·Wu)·Wd of layer ``layer`` (B8b) → [b, d_model] f32. On
+    a card: one launch of ``csrc/tail_swiglu.cu`` (B2's body's MLP branch)
+    where ``mlp_swiglu_takes``, else the old six-kernel chain; ``chain``
+    runs the chain whatever the shape (the yardstick). ``stamps``: None, or
+    an int64 CUDA tensor of ``grid * (12 + 64)`` the one launch fills with
+    its phase and tile times."""
     b, d = x.shape
     L, d_ff = wd_all.shape[0], wd_all.shape[1]
     if wgu_all.shape[2] != 2 * d_ff:
@@ -977,14 +1068,27 @@ def mlp_swiglu_int8_stacked(
            ("wgu_all", wgu_all, _I8, (L, d, 2 * d_ff)),
            ("sgu_all", sgu_all, _FL, (L, 1, 2 * d_ff)),
            ("wd_all", wd_all, _I8, (L, d_ff, d)), ("sd_all", sd_all, _FL, (L, 1, d)))
-    ws = _workspace(_mlp_ws_bytes(b, d, d_ff, tile), x.device)
+    dev = x.device.index if x.device.index is not None else torch.cuda.current_device()
+    launch = None if chain else _mlp_swiglu_launch(b, d, d_ff, tile, dev)
     out = torch.empty((b, d), dtype=torch.float32, device=x.device)
-    fn = _build.kernel("vt_mlp_swiglu_int8", _MLP_ARGTYPES)
-    mlp_swiglu_int8_stacked.launches += 1
-    rc = fn(x.data_ptr(), _kind(x, "x"), wgu_all.data_ptr(), sgu_all.data_ptr(),
+    head = (x.data_ptr(), _kind(x, "x"), wgu_all.data_ptr(), sgu_all.data_ptr(),
             wd_all.data_ptr(), sd_all.data_ptr(), int(layer), L, b, d, d_ff, tile,
-            out.data_ptr(), ws.data_ptr(), ws.numel(), _build.stream_ptr(x))
-    _build.check(rc, "vt_mlp_swiglu_int8")
+            out.data_ptr())
+    mlp_swiglu_int8_stacked.launches += 1
+    if launch is None:
+        ws = _workspace(_mlp_ws_bytes(b, d, d_ff, tile), x.device)
+        rc = _build.kernel("vt_mlp_swiglu_int8", _MLP_ARGTYPES)(
+            *head, ws.data_ptr(), ws.numel(), _build.stream_ptr(x))
+        _build.check(rc, "vt_mlp_swiglu_int8")
+        return out
+    plan, table, ws_bytes = launch
+    ws = _workspace(ws_bytes, x.device)
+    mlp_swiglu_int8_stacked.tc_launches += 1
+    rc = _build.kernel("vt_mlp_swiglu_one", _MLP_ONE_ARGTYPES)(
+        *head, ws.data_ptr(), ws.numel(), table.data_ptr(), plan.grid, plan.kc, plan.stages,
+        plan.max_gu, plan.max_items, plan.smem, None if stamps is None else stamps.data_ptr(),
+        _build.stream_ptr(x))
+    _build.check(rc, "vt_mlp_swiglu_one")
     return out
 
 
@@ -1190,7 +1294,7 @@ def mlp_gelu_int8_stacked(
 
 
 #: launches of the CUDA entry points (the plain versions are not counted);
-#: ``tc_launches``: B3's, B4's, B9a's and B9d's that took the one launch
+#: ``tc_launches``: B3's, B4's, B8b's, B9a's and B9d's that took the one launch
 dense_int8_stacked.launches = 0
 qkv_norm_int8_stacked.launches = 0
 dense_int8_stacked.tc_launches = 0
@@ -1198,6 +1302,7 @@ qkv_norm_int8_stacked.tc_launches = 0
 tail_swiglu_qkv_int8_stacked.launches = 0
 tail_swiglu_int8_stacked.launches = 0
 mlp_swiglu_int8_stacked.launches = 0
+mlp_swiglu_int8_stacked.tc_launches = 0
 qkv_lnorm_int8_stacked.launches = 0
 qkv_lnorm_int8_stacked.tc_launches = 0
 tail_gelu_int8_stacked.launches = 0
@@ -1217,6 +1322,6 @@ __all__ = [
     "mlp_gelu_int8_stacked", "mlp_gelu_int8_plain",
     "gelu_tanh", "pick_tile", "TILE_BUDGET", "TailPlan", "tail_plan", "tail_stream",
     "tail_workspace_bytes", "gelu_workspace_bytes", "gelu_takes", "mlp_gelu_takes",
-    "mlp_gelu_workspace_bytes",
+    "mlp_gelu_workspace_bytes", "mlp_swiglu_takes", "mlp_swiglu_workspace_bytes", "tail_rows",
     "DensePlan", "dense_plan", "dense_smem", "dense_takes",
 ]

@@ -1,9 +1,11 @@
 """Where a call of the port's one-launch layer tails spends its time on the
 GPU, phase by phase, from the card's own clock: the SwiGLU tail (B2, B8a:
-``vocalie_tts_tpu_torch/csrc/tail_swiglu.cu``), the GELU tail (B9b:
+``vocalie_tts_tpu_torch/csrc/tail_swiglu.cu``) and the SwiGLU MLP alone
+(B8b, that body's MLP branch), the GELU tail (B9b:
 ``vocalie_tts_tpu_torch/csrc/tail_gelu.cu``) and the GELU MLP alone (B9d,
-the same body's MLP branch: no o-projection, so no o-projection end and no
-barrier 1).
+the same body's MLP branch). The MLP branches have no o-projection, so no
+o-projection end and no barrier 1; their "mlp norm" point is the end of
+the rows' quantization.
 
     python3 -m vocalie_tts_tpu_torch.tools.tail_swiglu_trace
 
@@ -13,7 +15,7 @@ twelve points: entry, the o-projection's end, after barrier 1, after the
 MLP norm, the gate | up (fc) end, after barrier 2, the hidden's
 quantization end, after barrier 3, the down-projection's start (its
 activations loaded), its end, after barrier 4, the exit. At the T3 layer
-(b 16), the Qwen3 layer (b 8) and the XTTS layer (b 8, B9b and B9d), random int8
+(b 16), the Qwen3 layer (b 8, B2, B8a and B8b) and the XTTS layer (b 8, B9b and B9d), random int8
 weights from a seed, each call reading another of 8 layers so the weights
 come from device memory, it prints for each point the µs from the first
 block's entry at which the first and the last block reached it (the median
@@ -106,6 +108,21 @@ def _mlp_gelu_call(shape: dict, dev, L: int):
                                                                      layer, stamps=stamps)
 
 
+def _mlp_swiglu_call(shape: dict, dev, L: int):
+    """B8b at ``shape``'s d_model and d_ff: bf16 rows."""
+    from vocalie_tts_tpu_torch.ops import decode_dense as dd
+
+    b, d, F = (shape[k] for k in ("b", "d", "F"))
+    gen = torch.Generator(device=dev).manual_seed(11)
+    x = torch.randn((b, d), generator=gen, device=dev).to(torch.bfloat16)
+    wgu, sgu = _weights(gen, dev, L, d, 2 * F)
+    wd, sd = _weights(gen, dev, L, F, d)
+    tile = dd.pick_tile(F, dd.TILE_BUDGET, 2 * d)
+    plan = dd.tail_plan(b, 0, d, F, tile, 0, dd.card_sms(dev), mlp="swiglu_mlp")
+    return plan, lambda layer, stamps=None: dd.mlp_swiglu_int8_stacked(x, wgu, sgu, wd, sd,
+                                                                       layer, stamps=stamps)
+
+
 def trace(plan, call, L: int = 8, calls: int = 20, qkv: bool = True, skip=()) -> dict:
     stamps = torch.zeros((plan.grid * (len(POINTS) + 64),), dtype=torch.int64,
                          device=torch.device("cuda:0"))
@@ -189,6 +206,9 @@ def main() -> int:
             plan, call = _swiglu_call(shape, dev, 8, qkv)
             res = trace(plan, call, qkv=qkv)
             _report(f"{name} {'B2' if qkv else 'B8a'} stages {res.pop('stages')}", res, out)
+    plan, call = _mlp_swiglu_call(SHAPES["qwen3"], dev, 8)
+    res = trace(plan, call, qkv=False, skip=(1, 2))
+    _report(f"qwen3 B8b stages {res.pop('stages')}", res, out)
     plan, call = _gelu_call(GELU_SHAPE, dev, 8)
     res = trace(plan, call)
     _report(f"xtts B9b stages {res.pop('stages')}", res, out)

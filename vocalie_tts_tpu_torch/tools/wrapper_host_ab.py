@@ -1,16 +1,19 @@
-"""The host's µs that the B9b and B7 wrappers spend in Python before their
-C call, this tree's beside another tree's (a parent commit unpacked by
-``git archive``), in one process on the GPU:
+"""The host's µs that the B9b, B7, B2 and B8b wrappers spend in Python
+before their C call, this tree's beside another tree's (a parent commit
+unpacked by ``git archive``), in one process on the GPU:
 
     python3 -m vocalie_tts_tpu_torch.tools.wrapper_host_ab PARENT_DIR
 
 Needs an NVIDIA GPU and ``nvcc`` (the port builds its kernels at first
 use). It loads PARENT_DIR's ``vocalie_tts_tpu_torch/ops/decode_dense.py``
 and ``decode_step.py`` as modules of their own beside this tree's, makes
-the inputs of B9b at the XTTS layer (b 8, bf16 rows and biases) and of B7
+the inputs of B9b at the XTTS layer (b 8, bf16 rows and biases), of B7
 at the CosyVoice streaming shape (16 heads of 64, d_model 1024, d_ff 4096,
-a 640-slot cache with 383 valid, a bf16 qkv bias; 2 layers, as the
-wrappers' Python does not depend on the depth), random from a seed, and
+a 640-slot cache with 383 valid, a bf16 qkv bias), of B2 at the T3 layer
+(b 16, bf16 rows) and of B8b at the Qwen3 layer (b 8, d_model 2048, d_ff
+8192, bf16 rows; its one launch here, the old chain in a tree before it);
+2 layers, as the wrappers' Python does not depend on the depth; random
+from a seed, and
 calls this tree's wrappers once for real (their per-shape caches fill).
 Then it stubs the kernel library's entry points to return at once and
 times 300 calls of each wrapper, the two trees in turn, in 7 rounds; it
@@ -90,6 +93,26 @@ def _b7_args(dev, L=2, H=16, d=64, D=1024, F=4096, T=640, valid=383):
             torch.cat([c, c], -1), torch.cat([-s, s], -1))
 
 
+def _b2_args(dev, L=2, b=16, d=1024, F=4096, Q=3072):
+    gen = torch.Generator(device=dev).manual_seed(2)
+    wo, wos = _int8(gen, dev, L, d, d)
+    wgu, sgu = _int8(gen, dev, L, d, 2 * F)
+    wd, sd = _int8(gen, dev, L, F, d)
+    wq, sq = _int8(gen, dev, L, d, Q)
+    attn = torch.randn((b, d), generator=gen, device=dev) * 0.3
+    x = torch.randn((b, d), generator=gen, device=dev).to(torch.bfloat16)
+    mw, nw = (1 + 0.1 * torch.randn((L, d), generator=gen, device=dev) for _ in range(2))
+    return attn, x, wo, wos, mw, wgu, sgu, wd, sd, nw, wq, sq
+
+
+def _b8b_args(dev, L=2, b=8, d=2048, F=8192):
+    gen = torch.Generator(device=dev).manual_seed(8)
+    wgu, sgu = _int8(gen, dev, L, d, 2 * F)
+    wd, sd = _int8(gen, dev, L, F, d)
+    x = torch.randn((b, d), generator=gen, device=dev).to(torch.bfloat16)
+    return x, wgu, sgu, wd, sd
+
+
 def _us(fn) -> float:
     fn()
     t0 = time.perf_counter()
@@ -111,14 +134,20 @@ def main(argv) -> int:
 
     other_dd, other_ds = _load(argv[0], "decode_dense"), _load(argv[0], "decode_step")
     dev = torch.device("cuda:0")
-    g, s = _b9b_args(dev), _b7_args(dev)
+    g, s, t, m = _b9b_args(dev), _b7_args(dev), _b2_args(dev), _b8b_args(dev)
     kw = dict(sm_scale=0.125, eps=1e-5)
     calls = {"B9b tail_gelu_qkv_int8": {
                  "this": lambda: dd.tail_gelu_qkv_int8_stacked(*g, 1, eps=1e-5),
                  "other": lambda: other_dd.tail_gelu_qkv_int8_stacked(*g, 1, eps=1e-5)},
              "B7 decode_step_fused": {
                  "this": lambda: ds.decode_step_fused_packed(*s, **kw),
-                 "other": lambda: other_ds.decode_step_fused_packed(*s, **kw)}}
+                 "other": lambda: other_ds.decode_step_fused_packed(*s, **kw)},
+             "B2 tail_swiglu_qkv_int8": {
+                 "this": lambda: dd.tail_swiglu_qkv_int8_stacked(*t, 1, eps=1e-5),
+                 "other": lambda: other_dd.tail_swiglu_qkv_int8_stacked(*t, 1, eps=1e-5)},
+             "B8b mlp_swiglu_int8": {
+                 "this": lambda: dd.mlp_swiglu_int8_stacked(*m, 1),
+                 "other": lambda: other_dd.mlp_swiglu_int8_stacked(*m, 1)}}
     for pair in calls.values():
         pair["this"]()   # for real: this tree's per-shape caches fill
     torch.cuda.synchronize()
