@@ -53,7 +53,9 @@ Phases (any failure exits non-zero before the final line is printed):
    Every kernel row and its yardstick is timed eager and as a CUDA graph of
    its calls (``timed``: ``cuda_ms`` and ``try_graph_ms``; a launch the
    capture refuses is logged and keeps its eager time), and B5, K4, K5
-   and K6 also print their wrapper's host µs a call. B2 and B8a (one cooperative launch
+   and K6 also print their wrapper's host µs a call (B5 and K6 beside their
+   four and three slice assignments, eager and graph: no one PyTorch call
+   writes the arrays and the scales). B2 and B8a (one cooperative launch
    on the int8 tensor cores, ``csrc/tail_swiglu.cu``) must be bit-equal to
    their plain versions at layers 0, L/2 and L - 1, B8a to B2's first
    output, and must issue one CUDA kernel a call; their launch plan is
@@ -84,7 +86,10 @@ Phases (any failure exits non-zero before the final line is printed):
    MLP: the dispatch no served family reaches) the same two ways; a 33-row
    step of a two-layer model at the T3 widths (B2, or B8a with
    ``VOCALIE_MEGATAIL=0``, in two row chunks a layer) against the same step
-   through the plain versions; and with
+   through the plain versions; ``VOCALIE_MEGALAYER=1`` steps of 17 and 33
+   rows of that model (B12 in 2 and 3 row chunks a layer) against the plain
+   versions and against each chunk's rows run alone (bit for bit); the tiny
+   VITS (Piper) GPU vs CPU on the same duration noise and ``eps``; and with
    ``VOCALIE_MEGALAYER=1`` (B3 + L x B12 + B4 a step) the d_model-128 model
    (d_head 64) and the Qwen3 d_model-256 LM (d_head 128, GQA) the same two
    ways; and the no-env rows (bf16 weights; the tiny T3 and the Qwen3
@@ -169,7 +174,13 @@ Phases (any failure exits non-zero before the final line is printed):
    XTTS GPT widths with RMSNorm (a GELU MLP with biases under RMSNorm, int8
    weights and cache), batch 8, a 544-bucket prompt and 64 steps (B9d = 24
    x steps, B4 for qkv, o and the head, B1, B5); every earlier path holds
-   B1w = B9d = K5 = 0;
+   B1w = B9d = K5 = 0; then the Piper/VITS engine at full width
+   (``VITSConfig()``, random weights from a seed), which runs no kernel of
+   the port (every count held at 0): ``run_tts_pipeline`` with
+   ``tts_backend: "piper"`` on ``scripts/bench_engine.py``'s 8-chunk
+   request and on BASELINE #1's single sentence, each WAV checked at 24 kHz
+   against its chunks' 22050 Hz lengths (multiples of the hop) and gaps;
+   wall, RTF and each request timed twice;
    To keep the run's time, each runtime is warmed up by its first request
    only, and three Qwen3 requests of earlier slices (the voice clone with a
    transcript, voice design, the batch-1 chunk with ``VOCALIE_MEGALAYER=1``)
@@ -182,8 +193,10 @@ Phases (any failure exits non-zero before the final line is printed):
    operations a step), the studio pass's one UNet call and the XTTS and
    Qwen3 decode windows included, the Chatterbox and Qwen3 bench requests
    with ``VOCALIE_MEGALAYER=1`` beside their default config, slice 10's two
-   rows (at 600 and 640 slots), and one flash train step at 8 x 128 and at
-   8 x 512. Each phase's seconds are logged.
+   rows (at 600 and 640 slots), one flash train step at 8 x 128 and at
+   8 x 512, and one Piper ``synthesize_batch`` of each request (the
+   device's busy share and its operations a call). Each phase's seconds are
+   logged.
 
 The second-to-last lines are a JSON ``kernels`` line and the card's name
 and power limit; the last line is ``{"ok": true, "device": {...}}``.
@@ -519,15 +532,27 @@ def _b5_case(dev, failures, *, L, b, kv, d, T, pos, seed, label):
     ms, g_ms = timed(call, 300, f"B5 [{label}]")
     plain_ms = cuda_ms(lambda i: cache_append_plain(k, v, ks, vs, kn, vn, ksn, vsn, i % T), 100)
     host = _host_us(call)
+
+    def assign(i):
+        p = i % T
+        k[:, :, :, p] = kn
+        v[:, :, :, p] = vn
+        ks[:, :, :, p] = ksn
+        vs[:, :, :, p] = vsn
+
+    asg_ms, asg_g_ms = timed(assign, 100, f"B5 [{label}]'s four slice assignments")
     rows = L * b * kv
     bms, by = bound_ms(2 * rows * (2 * d + 2 * 2), 0, PEAK_INT8_OPS)
     log(f"B5 cache_append [{label}]: byte-exact={exact} (tolerance: byte-exact); kernel "
-        f"{ms:.6f} ms eager, {fmt_ms(g_ms)} ms graph, plain {plain_ms:.6f} ms, bound {bms:.6f} ms "
-        f"({by}); wrapper host time {host:.2f} us a call")
+        f"{ms:.6f} ms eager, {fmt_ms(g_ms)} ms graph, plain {plain_ms:.6f} ms, the four slice "
+        f"assignments (k, v and both scales) {asg_ms:.6f} ms eager, {fmt_ms(asg_g_ms)} ms graph, "
+        f"bound {bms:.6f} ms ({by}); wrapper host time {host:.2f} us a call")
     if not exact:
         failures.append(f"B5 [{label}] differs from its plain version")
     return {"max_abs_err": err, "tolerance": 0.0, "ms": ms, "graph_ms": g_ms, "plain_ms": plain_ms,
-            "bound_ms": bms, "bound_by": by, "library_ms": None, "host_us": host,
+            "bound_ms": bms, "bound_by": by, "library_ms": None,
+            "slice_assignments_ms": asg_ms, "slice_assignments_graph_ms": asg_g_ms,
+            "host_us": host,
             "shape": f"{label}: new[{L},{b},{kv},{d}] int8 into cache[{L},{b},{kv},{T},{d}]"}
 
 
@@ -535,7 +560,7 @@ def check_cache_append(dev, failures):
     """B5 (the grid-stride word body with the scales, ``csrc/cache_update.cu``)
     at the T3 and Qwen3 int8 caches: byte-exact to its plain version, eager
     and graph, the wrapper's host µs; no PyTorch call writes both arrays and
-    both scales."""
+    both scales: their four slice assignments are timed beside it."""
     main = _b5_case(dev, failures, L=30, b=16, kv=16, d=64, T=640, pos=416, seed=2,
                     label="voice-over")
     return {"name": "B5 cache_append", "route": "cuda",
@@ -2618,6 +2643,105 @@ def tail_rows_past_32(dev, failures) -> None:
             failures.append(f"the d_model-4096 refusal does not name the shape: {e}")
 
 
+def megalayer_rows_past_16(dev, failures) -> None:
+    """Fault C2's row: ``VOCALIE_MEGALAYER=1`` decode steps of 17 and 33 rows
+    of a two-layer model at the T3 widths (as ``tail_rows_past_32``), two
+    steps each. JAX takes B12 at any batch; on the card one launch takes 16
+    rows (``layer_rows``), so the steps run 2 and 3 launches a layer. Held
+    (a) to the same steps through the plain versions of B12, B3 and B4:
+    logits within 2e-3 + 2e-3|ref|, the appended int8 bytes and bf16 scales
+    compared (B12 is within 1e-5 of its plain version, not bit-equal, so a
+    byte on a .5 tie may round apart: each must be within one step, and the
+    count is printed); and (b) to each row chunk's rows run as a batch of
+    their own (one launch a layer) from the same cache rows: logits and
+    every cache byte bit for bit, since every quantity is per row."""
+    import dataclasses
+
+    from vocalie_tts_tpu_torch.models.common import transformer as tr
+    from vocalie_tts_tpu_torch.ops import decode_dense as dd
+    from vocalie_tts_tpu_torch.ops import decode_layer as dl
+
+    set_env(MEGALAYER_ENV)
+    cfg = tr.TransformerConfig(vocab_size=1152, d_model=1024, n_layers=2, n_heads=16,
+                               n_kv_heads=16, d_head=64, d_ff=4096, max_seq_len=256,
+                               norm_eps=1e-5, kv_quant=True, decode_kernel=True,
+                               dense_kernel=True, dtype=torch.bfloat16)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    params = tr.fuse_decode_weights(tr.quantize_weights_int8(
+        tr.init_params(cfg, generator=gen, device=dev)))
+    s, n = 32, 2
+    tile = dd._ff_tile(cfg.d_model, cfg.d_ff, params["layers"]["wqkv"]["q"].shape[2])
+
+    def plain_layer(*a, **k):
+        return dl.layer_swiglu_qkv_int8_plain(*a, **{**k, "tile": tile})
+
+    swaps = {"qkv_norm_int8_stacked": dd.qkv_norm_int8_plain,
+             "dense_int8_stacked": dd.dense_int8_plain,
+             "layer_swiglu_qkv_int8_stacked": plain_layer}
+    try:
+        for b in (17, 33):
+            emb = (torch.randn((b, s, cfg.d_model), generator=gen, device=dev) * 0.5
+                   ).to(torch.bfloat16)
+            lens = torch.randint(3, s + 1, (b,), generator=gen, device=dev).to(torch.int32)
+            toks = torch.randint(0, cfg.vocab_size, (n, b), generator=gen, device=dev)
+            path = tr._dense_dispatch(params["layers"], cfg, b, 256)
+            _, cache = tr.prefill(params, cfg, None, lens, inputs_embeds=emb, cache_len=256)
+
+            def run(r0=0, r1=b):
+                c = dataclasses.replace(
+                    cache, k=cache.k[:, r0:r1].clone(), v=cache.v[:, r0:r1].clone(),
+                    k_scale=cache.k_scale[:, r0:r1].clone(),
+                    v_scale=cache.v_scale[:, r0:r1].clone(),
+                    prompt_lengths=cache.prompt_lengths[r0:r1].clone())
+                out = []
+                for i in range(n):
+                    logits, c = tr.decode_step(params, cfg, toks[i, r0:r1], c)
+                    out.append(logits.float())
+                return out, c
+
+            before = dl.layer_swiglu_qkv_int8_stacked.launches
+            got, kc = run()
+            launches = dl.layer_swiglu_qkv_int8_stacked.launches - before
+            chunks = dd._row_chunks(b, 16)
+            want = n * cfg.n_layers * len(chunks)
+            alone = [run(r0, r1) for r0, r1 in chunks]
+            same_alone = all(
+                all(torch.equal(g[r0:r1], a) for g, a in zip(got, al_logits))
+                and all(torch.equal(getattr(kc, at)[:, r0:r1], getattr(al_c, at))
+                        for at in ("k", "v", "k_scale", "v_scale"))
+                for (r0, r1), (al_logits, al_c) in zip(chunks, alone))
+            kept = {name: getattr(tr, name) for name in swaps}
+            for name, fn in swaps.items():
+                setattr(tr, name, fn)
+            try:
+                ref, pc = run()
+            finally:
+                for name, fn in kept.items():
+                    setattr(tr, name, fn)
+            torch.cuda.synchronize()
+            ratio = max(((g - r).abs() / (2e-3 + 2e-3 * r.abs())).max().item()
+                        for g, r in zip(got, ref))
+            finite = all(torch.isfinite(g).all().item() for g in got)
+            moved = {a: int((getattr(kc, a) != getattr(pc, a)).sum()) for a in ("k", "v")}
+            one_step = all(int((getattr(kc, a).int() - getattr(pc, a).int()).abs().max()) <= 1
+                           for a in ("k", "v"))
+            scales = {a: torch.equal(getattr(kc, a), getattr(pc, a))
+                      for a in ("k_scale", "v_scale")}
+            log(f"{b}-row VOCALIE_MEGALAYER=1 T3 step: path {path} (expected {tr.MEGALAYER}); "
+                f"B12 launches {launches} (expected {want}: chunks "
+                f"{[r1 - r0 for r0, r1 in chunks]} a layer); each chunk alone bit for bit "
+                f"{same_alone}; against the plain versions: worst |diff| / (2e-3 + 2e-3|ref|) = "
+                f"{ratio:.3e} (must be <= 1), finite {finite}, appended bytes that differ "
+                f"{moved} (each within one step: {one_step}), scales equal {scales}")
+            if path != tr.MEGALAYER or launches != want or not same_alone or not ratio <= 1 \
+                    or not finite or not one_step:
+                failures.append(f"{b}-row MEGALAYER step: path {path}, launches {launches} of "
+                                f"{want}, chunks alone equal {same_alone}, logit ratio {ratio}, "
+                                f"finite {finite}, bytes within a step {one_step}")
+    finally:
+        set_env(DEFAULT_ENV)
+
+
 def small_reference_noenv(dev, failures):
     """The rows that keep the bf16 weights on small models, GPU against CPU:
     the tiny Chatterbox T3 (d_model 64) and the Qwen3 LM at ``QWEN3_SMALL``
@@ -2846,6 +2970,224 @@ def small_reference_audiosr(dev, failures):
         f"CPU: max |diff| = {err:.3e}, output peak {peak:.3e} (tolerance 1e-3 x peak)")
     if not (peak > 0 and err <= 1e-3 * peak and got.shape == want.shape):
         failures.append(f"tiny AudioSR differs: {err} against peak {peak}")
+
+
+# ── the Piper/VITS engine: no kernel (every product and conv a PyTorch call) ─
+
+#: phase 3's texts (three: batch bucket 4) and phase 4's requests:
+#: bench_engine.py's 8-chunk request (its sentence, 250 ms gaps, no engine
+#: params) and BASELINE #1's single sentence (that sentence alone, no ref
+#: voice)
+PIPER_TEXTS = ["Bonjour à tous, voici un essai.",
+               "Un deuxième texte, un peu plus long que le premier.", "Trois."]
+PIPER_GAP_MS = 250
+
+
+def _fill_vits_zeros(params, gen) -> None:
+    """Give the leaves the VITS init leaves at zero (the dp flows' ``proj``,
+    the couplings' ``post``, the affine ``m``/``logs``) seeded values, in
+    place, so that the spline bins are uneven and the couplings move the
+    latents (the dp ``proj`` ten times its fan-in scale)."""
+    for flow in params["dp"]["flows"]:
+        w = flow["proj"]["w"]
+        w.copy_((torch.rand(w.shape, generator=gen, device=w.device) * 2 - 1) * 10
+                / math.sqrt(w.shape[1]))
+        flow["proj"]["b"].copy_(torch.randn(flow["proj"]["b"].shape, generator=gen,
+                                            device=w.device) * 0.1)
+    for flow in params["flows"]:
+        w = flow["post"]["w"]
+        w.copy_((torch.rand(w.shape, generator=gen, device=w.device) * 2 - 1)
+                / math.sqrt(w.shape[1]))
+    for key in ("m", "logs"):
+        leaf = params["dp"]["affine"][key]
+        leaf.copy_(torch.randn(leaf.shape, generator=gen, device=leaf.device) * 0.1)
+
+
+def small_reference_vits(dev, failures) -> None:
+    """The tiny VITS (f32; d_model 32, a 64-channel vocoder) on the GPU
+    against the same weights on the CPU (TF32 off, as for every small
+    reference), its zero-initialized flow leaves
+    filled (``_fill_vits_zeros``), three texts (batch bucket 4), the same
+    duration noise (x 2, some spline inputs past the tail bound) and the
+    same ``eps``: stats and log-durations within 1e-4 + 1e-4|ref|;
+    durations equal except ceil ties (``exp(logw) · length_scale`` within
+    1e-5 relative of an integer, shown); stage B on the CPU's durations on
+    both: audio within 1e-3 of the peak, sample lengths equal."""
+    import numpy as np
+
+    from vocalie_tts_tpu_torch.models.vits import model as vm
+    from vocalie_tts_tpu_torch.models.vits.runtime import FRAME_BUCKETS, SCALES, VITSRuntime
+    from vocalie_tts_tpu_torch.ops.kv_cache import pick_bucket
+
+    cfg = SCALES["tiny"]
+    cpu = torch.device("cpu")
+    params = vm.init_vits(cfg, generator=torch.Generator().manual_seed(21))
+    _fill_vits_zeros(params, torch.Generator().manual_seed(22))
+    gpu = _to(params, dev)
+    rt = VITSRuntime(params, cfg, ".", cpu)
+    phones, lengths, pb, bb = rt.phone_batch(PIPER_TEXTS)
+    g = torch.Generator().manual_seed(23)
+    noise = torch.randn((bb, pb, 2), generator=g) * 2.5
+    spk = torch.tensor([0, 1, 2, 3], dtype=torch.int32)[:bb]
+    ls = 0.8
+    mask = (torch.arange(pb)[None] < torch.from_numpy(lengths)[:, None]).float()
+    out = []
+    for d, p in ((cpu, params), (dev, gpu)):
+        ph, ln, m = torch.from_numpy(phones).to(d), torch.from_numpy(lengths).to(d), mask.to(d)
+        with torch.no_grad():
+            stats, dur = vm.encode_and_durations(p, cfg, ph, ln, spk.to(d), noise.to(d),
+                                                 length_scale=ls)
+            x = vm._encoder(p, cfg, ph.long(), m)
+            logw = vm.duration_log_w(p, cfg, x, m, vm._speaker_vec(p, spk.to(d)), noise.to(d))
+        out.append((stats.cpu(), dur.cpu(), logw.cpu()))
+    (s_c, d_c, l_c), (s_g, d_g, l_g) = out
+
+    def ratio(a, r):
+        return ((a - r).abs() / (1e-4 + 1e-4 * r.abs())).max().item()
+
+    past = int(((noise[..., 0].abs() > cfg.dp_tail_bound) & (mask > 0)).sum())
+    w = torch.stack([l_c.exp(), l_g.exp()]) * ls
+    tie = ((w - w.round()).abs() <= 1e-5 * w.abs()).any(0)
+    differ = d_c != d_g
+    ties = differ.nonzero().tolist()
+    not_tie = int((differ & ~tie).sum())
+    fb = pick_bucket(int(d_c.sum(1).max()), FRAME_BUCKETS)
+    eps = torch.randn((bb, fb, cfg.latent_dim), generator=g)
+    audio = []
+    for d, p in ((cpu, params), (dev, gpu)):
+        with torch.no_grad():
+            a, n = vm.decode_frames(p, cfg, s_c.to(d), d_c.to(d), eps.to(d), max_frames=fb,
+                                    speaker_id=spk.to(d), noise_scale=0.667)
+        audio.append((a.cpu(), n.cpu()))
+    (a_c, n_c), (a_g, n_g) = audio
+    peak = a_c.abs().max().item()
+    err = (a_g - a_c).abs().max().item()
+    rs, rl = ratio(s_g, s_c), ratio(l_g, l_c)
+    log(f"small reference: tiny VITS ({len(PIPER_TEXTS)} texts, phone bucket {pb}, batch {bb}; "
+        f"{past} spline inputs past +-{cfg.dp_tail_bound}), GPU vs CPU: stats worst |diff| / "
+        f"(1e-4 + 1e-4|ref|) = {rs:.3e}, log-durations {rl:.3e} (each <= 1); durations differ "
+        f"at {ties} ({not_tie} not at a ceil tie); stage B at {fb} frames on the CPU's "
+        f"durations: audio max |diff| {err:.3e} against peak {peak:.3e} (tolerance 1e-3 x "
+        f"peak), sample lengths equal {torch.equal(n_c, n_g)}")
+    if not (rs <= 1 and rl <= 1 and not_tie == 0 and peak > 0 and err <= 1e-3 * peak
+            and torch.equal(n_c, n_g) and past > 0):
+        failures.append(f"tiny VITS differs: stats {rs}, logw {rl}, durations off a tie "
+                        f"{not_tie}, audio {err} against {peak}, lengths "
+                        f"{torch.equal(n_c, n_g)}, spline inputs past the bound {past}")
+
+
+def _piper_wav_ok(res, lengths_22k, gap_ms: int) -> tuple:
+    """Piper's WAV check: 24 kHz; each chunk's 22050 Hz length a multiple
+    of the hop (256) before resampling; a length that follows from each
+    chunk's resampled length (``resample_poly`` by 160/147:
+    ``ceil(n · 160 / 147)``) and the gaps; finite samples, not all zero.
+    Returns (ok, expected length, wav length)."""
+    import numpy as np
+
+    from vocalie_tts_tpu_torch.io.wavio import read_wav
+
+    wav, sr = read_wav(res.out_path)
+    n = len(lengths_22k)
+    gap = int(24000 * gap_ms / 1000) if (n > 1 and gap_ms > 0) else 0
+    expect = sum(-(-m * 160 // 147) for m in lengths_22k) + gap * (n - 1)
+    ok = (sr == 24000 and len(wav) == expect and len(wav) > 0 and bool(np.isfinite(wav).all())
+          and int(np.count_nonzero(wav)) > 0 and all(m % 256 == 0 and m > 0 for m in lengths_22k)
+          and res.meta["chunks"] == n)
+    return ok, expect, len(wav)
+
+
+def drive_piper(dev, failures, scale: str = "full"):
+    """The Piper/VITS engine at full width (``VITSConfig()``: d_model 192, 6
+    encoder layers, 512 vocoder channels; random weights from seed 42),
+    through ``run_tts_pipeline`` with ``tts_backend: "piper"``: (a)
+    bench_engine.py's 8-chunk request (one batch of 8), (b) BASELINE #1's
+    single sentence. Each is warmed up, driven with every kernel counter at
+    0 (Piper launches none of the port's kernels: each must stay 0), timed
+    twice, and its WAV checked (``_piper_wav_ok``). Returns the results by
+    request and a function that profiles one ``synthesize_batch`` of each
+    (device busy share, device operations a call)."""
+    from vocalie_tts_tpu_torch.engines.piper import PiperEngine
+    from vocalie_tts_tpu_torch.models.common.weights import tree_items
+    from vocalie_tts_tpu_torch.ops.groupnorm import group_norm_fused
+    from vocalie_tts_tpu_torch.pipeline import run_tts_pipeline
+    from vocalie_tts_tpu_torch.text import parse_manual_chunks
+
+    set_env(DEFAULT_ENV)
+    os.environ["VOCALIE_MODEL_SCALE"] = scale
+    os.environ["VOCALIE_ALLOW_RANDOM_WEIGHTS"] = "1"
+    wrappers = {**_wrappers(), **_xtts_wrappers(), "B13": group_norm_fused}
+    results, texts_of = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.monotonic()
+        engine = PiperEngine(device=dev, assets=os.path.join(tmp, "assets"))
+        rt = engine.runtime()
+        torch.cuda.synchronize()
+        n_params = sum(t.numel() for _, t in tree_items(rt.params))
+        on_card = all(t.is_cuda for _, t in tree_items(rt.params))
+        log(f"piper: full-width VITS runtime built in {time.monotonic() - t0:.2f} s (random "
+            f"weights, seed 42; d_model {rt.cfg.d_model}, {rt.cfg.n_layers} layers, vocoder "
+            f"{rt.cfg.vocoder_channels} channels, {n_params / 1e6:.2f} M parameters, all on the "
+            f"card: {on_card})")
+        if not on_card:
+            failures.append("piper: a parameter is not on the card")
+        lengths: list = []
+        batch = engine.synthesize_batch
+
+        def recording(texts, **kw):
+            out = batch(texts, **kw)
+            lengths.append([len(a) for a, _, _ in out])
+            texts_of[label] = list(texts)
+            return out
+
+        engine.synthesize_batch = recording
+        for label, script in (("bench 8-chunk", "\n[[CHUNK]]\n".join([XTTS_SENT] * 8)),
+                              ("BASELINE #1 single sentence", XTTS_SENT)):
+            request = {"tts_backend": "piper", "script": script,
+                       "chunks": parse_manual_chunks(script)[0], "engine_params": {},
+                       "inter_chunk_gap_ms": PIPER_GAP_MS, "target_sr": 24000,
+                       "out_path": os.path.join(tmp, "piper.wav")}
+            t0 = time.monotonic()
+            run_tts_pipeline({**request, "out_path": os.path.join(tmp, "warm.wav")},
+                             engine=engine)
+            warm = time.monotonic() - t0
+            for w in wrappers.values():
+                w.launches = 0
+            lengths.clear()
+            t0 = time.monotonic()
+            res = run_tts_pipeline(request, engine=engine)
+            wall = time.monotonic() - t0
+            c = {k: w.launches for k, w in wrappers.items()}
+            t0 = time.monotonic()
+            run_tts_pipeline({**request, "out_path": os.path.join(tmp, "again.wav")},
+                             engine=engine)
+            wall2 = time.monotonic() - t0
+            ok, expect, got = _piper_wav_ok(res, lengths[0], PIPER_GAP_MS)
+            meta = res.meta
+            bm = meta["backend_meta"]
+            audio_s = meta["total_duration"]
+            log(f"piper [{label}]: {meta['chunks']} chunks (batch bucket {bm['batch_bucket']}, "
+                f"phone bucket {bm['phone_bucket']}, frame bucket {bm['frame_bucket']}), "
+                f"22050 Hz lengths {lengths[0]}; audio {audio_s:.3f} s, wall {wall:.3f} s, RTF "
+                f"{audio_s / wall:.3f}x (the request again: wall {wall2:.3f} s, RTF "
+                f"{audio_s / wall2:.3f}x; warm-up {warm:.3f} s); batch call "
+                f"{bm['elapsed_ms_batch']} ms; wav ok={ok} ({got} samples, expected {expect}); "
+                f"kernel launches {sum(c.values())} (none expected)")
+            if not ok:
+                failures.append(f"piper [{label}]: WAV check failed ({got} samples, expected "
+                                f"{expect}, 22050 Hz lengths {lengths[0]})")
+            if any(c.values()):
+                failures.append(f"piper [{label}]: kernels launched {c}, the path has none")
+            results[label] = {"audio_s": audio_s, "wall_s": wall, "wall2_s": wall2,
+                              "rtf": audio_s / wall, "chunks": meta["chunks"]}
+        engine.synthesize_batch = batch
+
+    def profile():
+        for label, texts in texts_of.items():
+            _profiled(f"piper {label}, one synthesize_batch",
+                      lambda: rt.synthesize_batch(texts))
+            results[label]["profile"] = dict(getattr(_profiled, "last", {}))
+
+    return results, profile
 
 
 # ── phase 4: the main path ───────────────────────────────────────────────
@@ -4777,7 +5119,7 @@ def check_cache_append_k_scales(dev, failures):
     int8 array of the T3 k|v width ([30,16,16,640,128]) and its two bf16
     scale rows, at three positions, against its plain version (byte-equal);
     eager and graph, the wrapper's host µs. No PyTorch call writes the array
-    and both scales."""
+    and both scales: their three slice assignments are timed beside it."""
     from vocalie_tts_tpu_torch.ops.cache_update import (
         cache_append_k_scales_plain,
         cache_append_kv_stacked,
@@ -4806,18 +5148,29 @@ def check_cache_append_k_scales(dev, failures):
     ms, g_ms = timed(call, 300, "K6")
     plain_ms = cuda_ms(lambda i: cache_append_k_scales_plain(k, ks, vs, kn, ksn, vsn, i % T), 100)
     host = _host_us(call)
+
+    def assign(i):
+        p = i % T
+        k[:, :, :, p] = kn
+        ks[:, :, :, p] = ksn
+        vs[:, :, :, p] = vsn
+
+    asg_ms, asg_g_ms = timed(assign, 100, "K6's three slice assignments")
     rows = L * b * kv
     bms, by = bound_ms(2 * rows * (D + 2 * 2), 0, PEAK_INT8_OPS)
     log(f"{K6_NAME}: byte-exact={exact} (tolerance: byte-exact) at positions 0, {T * 2 // 3}, "
         f"{T - 1}; kernel {ms:.6f} ms eager, {fmt_ms(g_ms)} ms graph, plain {plain_ms:.6f} ms, "
-        f"bound {bms:.6f} ms ({by}); wrapper host time {host:.2f} us a call")
+        f"the three slice assignments (the array and both scale rows) {asg_ms:.6f} ms eager, "
+        f"{fmt_ms(asg_g_ms)} ms graph, bound {bms:.6f} ms ({by}); wrapper host time {host:.2f} "
+        f"us a call")
     if not exact:
         failures.append("K6 differs from its plain version")
     return _entry(K6_NAME, "vocalie_tts_tpu_torch/csrc/cache_update.cu",
                   "vocalie_tts_tpu/ops/cache_update.py:154",
                   {"max_abs_err": 0.0 if exact else float("inf"), "tolerance": 0.0, "ms": ms,
                    "graph_ms": g_ms, "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-                   "library_ms": None, "host_us": host,
+                   "library_ms": None, "slice_assignments_ms": asg_ms,
+                   "slice_assignments_graph_ms": asg_g_ms, "host_us": host,
                    "shape": f"new[{L},{b},{kv},{D}] int8 and 2 x [{L},{b},{kv}] bf16 scales into "
                             f"one array [{L},{b},{kv},{T},{D}] and its scale rows"},
                   launches_path="no served path: only JAX's one-array API reaches it (the "
@@ -5105,6 +5458,8 @@ def main() -> int:
     small_reference_xtts(dev, failures)
     b8b_launches, b8b_tc = small_reference_qwen3(dev, failures)
     tail_rows_past_32(dev, failures)
+    megalayer_rows_past_16(dev, failures)
+    small_reference_vits(dev, failures)
     small_reference_noenv(dev, failures)
     small_reference_train(dev, failures)
     b9d_small = small_reference_gelu_rms(dev, failures)
@@ -5137,6 +5492,7 @@ def main() -> int:
         qwen3, profile_qwen3 = drive_qwen3(dev, failures)
         unrounded, profile_unrounded = drive_unrounded(dev, failures)
         gelu_rms, profile_gelu_rms = drive_gelu_rms(dev, failures)
+        _piper, profile_piper = drive_piper(dev, failures)
         train_counts, profile_train = drive_training(dev, failures)
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -5157,6 +5513,7 @@ def main() -> int:
     profile_qwen3()
     profile_unrounded()
     profile_gelu_rms()
+    profile_piper()
     profile_train()
     phase_s["5"] = time.monotonic() - t_start - sum(phase_s.values())
     log(f"chip_smoke: phase 5 took {phase_s['5']:.1f} s")

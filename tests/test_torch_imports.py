@@ -157,6 +157,14 @@ SLICE9_MODULES = (
     "vocalie_tts_tpu_torch.parallel.train",
     "vocalie_tts_tpu_torch.training.finetune_fr",
 )
+#: the modules the Piper/VITS slice added
+SLICE22_MODULES = (
+    "vocalie_tts_tpu_torch.text.phonemes",
+    "vocalie_tts_tpu_torch.text.piper_ids",
+    "vocalie_tts_tpu_torch.models.vits.model",
+    "vocalie_tts_tpu_torch.models.vits.runtime",
+    "vocalie_tts_tpu_torch.engines.piper",
+)
 
 #: one child interpreter imports each module alone: it blocks JAX, the JAX
 #: package and Triton, imports torch once, and for each module drops every
@@ -189,7 +197,7 @@ def alone():
     import json
 
     modules = (SLICE3_MODULES + SLICE4_MODULES + SLICE5_MODULES + SLICE6_MODULES
-               + SLICE7_MODULES + SLICE9_MODULES)
+               + SLICE7_MODULES + SLICE9_MODULES + SLICE22_MODULES)
     out = subprocess.run([sys.executable, "-c", _ALONE, json.dumps(modules)], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
@@ -311,5 +319,32 @@ def test_xtts_entry_points_refuse_cpu_fallback(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run_tts_pipeline({"tts_backend": "xtts", "script": "Bonjour à tous.",
                           "voice_ref_path": str(tmp_path / "ref.wav"),
+                          "out_path": str(tmp_path / "x.wav")})
+    assert not (tmp_path / "x.wav").exists()
+
+
+@pytest.mark.parametrize("module", SLICE22_MODULES)
+def test_piper_module_imports_alone(alone, module):
+    """Each module of the Piper/VITS slice imports on its own with JAX, the
+    JAX package and Triton blocked, loads no kernel library and touches no
+    GPU."""
+    test_slice3_module_imports_alone(alone, module)
+
+
+def test_piper_entry_points_refuse_cpu_fallback(tmp_path, monkeypatch):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid here")
+    from vocalie_tts_tpu_torch.engines.piper import PiperEngine
+    from vocalie_tts_tpu_torch.models.vits.runtime import VITSRuntime
+    from vocalie_tts_tpu_torch.pipeline import run_tts_pipeline
+
+    monkeypatch.setenv("VOCALIE_MODEL_SCALE", "tiny")
+    monkeypatch.setenv("VOCALIE_ALLOW_RANDOM_WEIGHTS", "1")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        VITSRuntime.create(tmp_path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PiperEngine()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_tts_pipeline({"tts_backend": "piper", "script": "Bonjour à tous.",
                           "out_path": str(tmp_path / "x.wav")})
     assert not (tmp_path / "x.wav").exists()

@@ -1296,6 +1296,74 @@ def test_decode_step_past_32_rows_keeps_the_tail(dev, monkeypatch, megatail):
         assert torch.equal(getattr(kc, attr), getattr(pc, attr)), attr
 
 
+@pytest.mark.parametrize("b", [17, 33])
+def test_megalayer_step_past_16_rows_runs_b12_in_row_chunks(dev, monkeypatch, b):
+    """A ``VOCALIE_MEGALAYER=1`` step of 17 (33) rows of a two-layer model at
+    the T3 widths on the card: ``_dense_dispatch`` keeps B12, as JAX does at
+    any batch, and B12 runs 2 (3) launches a layer. Each chunk's rows run
+    alone from the same cache rows give the same logits and cache bytes bit
+    for bit; the plain versions of B12, B3 and B4 give logits within 2e-3 +
+    2e-3·|ref| and appended bytes within one step (B12 is within 1e-5 of its
+    plain version, so a byte on a .5 tie may round apart)."""
+    import dataclasses
+
+    from vocalie_tts_tpu_torch.models.common import transformer as tr
+    from vocalie_tts_tpu_torch.ops import decode_dense as dd
+    from vocalie_tts_tpu_torch.ops import decode_layer as dl
+
+    monkeypatch.setenv("VOCALIE_MEGALAYER", "1")
+    monkeypatch.delenv("VOCALIE_MEGATAIL", raising=False)
+    cfg = tr.TransformerConfig(vocab_size=1152, d_model=1024, n_layers=2, n_heads=16,
+                               n_kv_heads=16, d_head=64, d_ff=4096, max_seq_len=256,
+                               norm_eps=1e-5, kv_quant=True, decode_kernel=True,
+                               dense_kernel=True, dtype=torch.bfloat16)
+    gen = _gen(dev, b)
+    params = tr.fuse_decode_weights(tr.quantize_weights_int8(
+        tr.init_params(cfg, generator=gen, device=dev)))
+    s = 32
+    assert tr._dense_dispatch(params["layers"], cfg, b, 256) == tr.MEGALAYER
+    emb = (torch.randn((b, s, 1024), generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+    lens = torch.randint(3, s + 1, (b,), generator=gen, device=dev).to(torch.int32)
+    toks = torch.randint(0, 1152, (2, b), generator=gen, device=dev)
+    _, cache = tr.prefill(params, cfg, None, lens, inputs_embeds=emb, cache_len=256)
+
+    def run(r0=0, r1=b):
+        c = dataclasses.replace(cache, k=cache.k[:, r0:r1].clone(), v=cache.v[:, r0:r1].clone(),
+                                k_scale=cache.k_scale[:, r0:r1].clone(),
+                                v_scale=cache.v_scale[:, r0:r1].clone(),
+                                prompt_lengths=cache.prompt_lengths[r0:r1].clone())
+        out = []
+        for i in range(2):
+            logits, c = tr.decode_step(params, cfg, toks[i, r0:r1], c)
+            out.append(logits.float())
+        return out, c
+
+    chunks = dd._row_chunks(b, 16)
+    assert len(chunks) == (2 if b == 17 else 3)
+    before = dl.layer_swiglu_qkv_int8_stacked.launches
+    got, kc = run()
+    assert dl.layer_swiglu_qkv_int8_stacked.launches - before == 2 * cfg.n_layers * len(chunks)
+    for r0, r1 in chunks:
+        alone, ac = run(r0, r1)
+        for g, a in zip(got, alone):
+            assert torch.equal(g[r0:r1], a), (r0, r1)
+        for attr in ("k", "v", "k_scale", "v_scale"):
+            assert torch.equal(getattr(kc, attr)[:, r0:r1], getattr(ac, attr)), (r0, r1, attr)
+    tile = dd._ff_tile(1024, 4096, params["layers"]["wqkv"]["q"].shape[2])
+    monkeypatch.setattr(tr, "layer_swiglu_qkv_int8_stacked",
+                        lambda *a, **k: dl.layer_swiglu_qkv_int8_plain(*a, **k, tile=tile))
+    for fn in ("qkv_norm_int8_stacked", "dense_int8_stacked"):
+        monkeypatch.setattr(tr, fn, getattr(dd, fn.replace("_stacked", "_plain")))
+    ref, pc = run()
+    torch.cuda.synchronize()
+    for i, (g, r) in enumerate(zip(got, ref)):
+        assert g.shape == (b, 1152) and torch.isfinite(g).all()
+        ratio = ((g - r).abs() / (2e-3 + 2e-3 * r.abs())).max().item()
+        assert ratio <= 1, f"step {i}: {ratio}"
+    for attr in ("k", "v"):
+        assert (getattr(kc, attr).int() - getattr(pc, attr).int()).abs().max() <= 1, attr
+
+
 @pytest.mark.parametrize("b,L,d,F,layer,dtype,zero_row", [
     (8, 2, 2048, 8192, 1, torch.bfloat16, None),   # the Qwen3 layer
     (17, 3, 128, 256, 2, torch.float32, 5),        # one tile, two row passes, a zero row
@@ -2132,9 +2200,12 @@ def test_decode_layer_refuses_a_split_its_layout_does_not_hold(dev, monkeypatch)
 
 
 def test_decode_layer_kernel_refuses_bad_inputs(dev):
-    """A grid past residency (cudaErrorCooperativeLaunchTooLarge), b > 16,
-    d_head 96 (a Wo tile holds no whole number of its heads) and a wrong
-    dtype are refused: the wrapper raises, no fallback."""
+    """A grid past residency (cudaErrorCooperativeLaunchTooLarge), d_head 96
+    (a Wo tile holds no whole number of its heads), d_model 4096 (no launch
+    takes its normed rows, not even at one row) and a wrong dtype are
+    refused: the wrapper raises, no fallback. 17 rows, which one launch does
+    not take, run as two launches (8 and 9 rows) within the plain version's
+    tolerance."""
     head, valid_len, tail = _b12_args(dev, 9, 1, 2, 2, 1, 64, 128, 256, 512, 40, 8)
     kw = dict(sm_scale=0.125, eps=1e-5)
     most = b12_max_blocks(2, 2, 1, 64, 128, 256, 512, 384)
@@ -2143,9 +2214,15 @@ def test_decode_layer_kernel_refuses_bad_inputs(dev):
     _close(ok[0], layer_swiglu_qkv_int8_plain(*head, 0, valid_len, *tail, **kw)[0])
     with pytest.raises(RuntimeError, match="decode_layer"):
         layer_swiglu_qkv_int8_stacked(*head, 0, valid_len, *tail, **kw, grid=most + 1)
-    big, valid_len, tail17 = _b12_args(dev, 10, 1, 17, 2, 1, 64, 128, 128, 256, 40, 8)
-    with pytest.raises(ValueError, match="b <= 16"):
-        layer_swiglu_qkv_int8_stacked(*big, 0, valid_len, *tail17, **kw)
+    big, valid_len17, tail17 = _b12_args(dev, 10, 1, 17, 2, 1, 64, 128, 128, 256, 40, 8)
+    before = layer_swiglu_qkv_int8_stacked.launches
+    got17 = layer_swiglu_qkv_int8_stacked(*big, 0, valid_len17, *tail17, **kw)
+    assert layer_swiglu_qkv_int8_stacked.launches == before + 2
+    for g_, r in zip(got17, layer_swiglu_qkv_int8_plain(*big, 0, valid_len17, *tail17, **kw)):
+        _close(g_, r)
+    wide, valid_w, tail_w = _b12_args(dev, 12, 1, 2, 2, 1, 64, 128, 4096, 256, 40, 8)
+    with pytest.raises(ValueError, match="no launch takes"):
+        layer_swiglu_qkv_int8_stacked(*wide, 0, valid_w, *tail_w, **kw)
     h96, valid_len96, tail96 = _b12_args(dev, 11, 1, 2, 4, 1, 96, 128, 256, 512, 40, 8)
     with pytest.raises(ValueError, match="d_head"):
         layer_swiglu_qkv_int8_stacked(*h96, 0, valid_len96, *tail96, **kw)

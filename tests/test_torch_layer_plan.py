@@ -35,6 +35,7 @@ from vocalie_tts_tpu_torch.ops.decode_attention import TBLK, n_valid_blocks
 from vocalie_tts_tpu_torch.ops.decode_dense import (
     SMEM_MAX,
     _ff_tile,
+    _row_chunks,
     _int_dot,
     _quantize_rows,
     _rms_rows,
@@ -43,13 +44,16 @@ from vocalie_tts_tpu_torch.ops.decode_dense import (
     tail_plan,
 )
 from vocalie_tts_tpu_torch.ops.decode_layer import (
+    LAYER_MAX_B,
     LAYER_MAX_SLOTS,
     layer_act_min,
     layer_attn_items,
     layer_attn_split,
     layer_attn_team,
+    layer_cache_offset,
     layer_head_order,
     layer_plan,
+    layer_rows,
     layer_splits,
     layer_swiglu_qkv_int8_plain,
 )
@@ -279,3 +283,115 @@ def test_kernel_order_equals_the_plain_version(dims, where, prompt_pad, valid_le
                                           tile=plan.tail.tile)
         for a, r in zip(got, ref):
             assert torch.equal(a, r), (where, layer, (a - r).abs().max().item())
+
+
+# ── fault C2: a batch past what one B12 launch takes ────────────────────
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=[s[0] for s in SHAPES])
+def test_layer_rows_is_the_most_rows_one_launch_takes(shape):
+    """16 rows at the T3, Qwen3 and tiny layers on 132 SMs: ``layer_plan``
+    takes 16 and refuses 17."""
+    _, b, kv, g, d, T, D, F, _ = shape
+    Q = (kv * g + 2 * kv) * d
+    tile = _ff_tile(D, F, Q)
+    assert layer_rows(kv, g, d, T, D, F, tile, Q, H100_SMS) == LAYER_MAX_B == 16
+    layer_plan(16, kv, g, d, T, D, F, tile, Q, H100_SMS)
+    with pytest.raises(ValueError, match="b <= 16"):
+        layer_plan(17, kv, g, d, T, D, F, tile, Q, H100_SMS)
+
+
+@pytest.mark.parametrize("b,chunks", [
+    (16, [(0, 16)]),
+    (17, [(0, 8), (8, 17)]),
+    (33, [(0, 11), (11, 22), (22, 33)]),
+])
+def test_row_chunks_past_16_rows(b, chunks):
+    """The launches a ``VOCALIE_MEGALAYER=1`` layer takes at 16, 17 and 33
+    rows (the T3 layer; a Chatterbox request of 9 chunks or more has 18 CFG
+    rows or more): near-equal chunks of at most 16 rows, in order."""
+    rows = layer_rows(16, 1, 64, 640, 1024, 4096, _ff_tile(1024, 4096, 3072), 3072, H100_SMS)
+    got = [(0, b)] if b <= rows else _row_chunks(b, rows)
+    assert got == chunks
+    assert all(r1 - r0 <= rows for r0, r1 in got)
+
+
+@pytest.mark.parametrize("layer", [0, 1, 2])
+@pytest.mark.parametrize("b,r0,r1", [(17, 0, 8), (17, 8, 17), (33, 11, 22), (33, 22, 33),
+                                     (16, 0, 16)])
+def test_cache_offset_lands_on_the_layer_slice(layer, b, r0, r1):
+    """The kernel's index math on the pointer a chunk hands it: pair ``pc``
+    of its ``bc`` rows at row ``layer · bc · kv + pc`` from the moved
+    pointer, on a cache whose every row holds its own index, reads the
+    layer slice ``k[layer, r0:r1]`` row for row, inside the cache."""
+    L, kv = 3, 2
+    rows = np.arange(L * b * kv).reshape(L, b, kv)        # each row's flat index
+    bc = r1 - r0
+    off = layer_cache_offset(layer, b, r0, r1) * kv
+    read = np.array([off + layer * bc * kv + pc for pc in range(bc * kv)])
+    assert read.min() >= 0 and read.max() < rows.size
+    assert np.array_equal(read, rows[layer, r0:r1].reshape(-1))
+
+
+def test_plain_layer_on_row_chunks_is_the_one_call():
+    """The plain B12 on 33 rows equals, bit for bit, the concatenation of the
+    plain B12 on its row chunks (11, 11 and 11 rows), each handed its rows'
+    cache: what the card computes for a batch past 16 rows is the one call's
+    result (every quantity is per row)."""
+    L, b, kv, g, d, T, D, F = 2, 33, 2, 2, 32, 384, 128, 256
+    valid_len, prompt_pad = 301, 200
+    head, tail = _inputs(5, L, b, kv, g, d, T, D, F, prompt_pad, valid_len)
+    kw = dict(sm_scale=d ** -0.5, eps=1e-6)
+    chunks = _row_chunks(b, 16)
+    assert chunks == [(0, 11), (11, 22), (22, 33)]
+    for layer in range(L):
+        whole = layer_swiglu_qkv_int8_plain(*head, layer, valid_len, *tail, **kw)
+        parts = []
+        for r0, r1 in chunks:
+            q, x, k, v, ks, vs, bias, kn, vn = head
+            sub = (q[r0:r1], x[r0:r1], k[:, r0:r1], v[:, r0:r1], ks[:, r0:r1], vs[:, r0:r1],
+                   bias[r0:r1], kn[r0:r1], vn[r0:r1])
+            parts.append(layer_swiglu_qkv_int8_plain(*sub, layer, valid_len, *tail, **kw))
+        for i, name in enumerate(("x_out", "qkv")):
+            assert torch.equal(whole[i], torch.cat([p[i] for p in parts])), (layer, name)
+
+
+def test_megalayer_dispatch_past_16_rows_and_its_refusal(monkeypatch):
+    """On a card (``card_sms`` answering 132) ``VOCALIE_MEGALAYER=1`` keeps
+    B12 at 16, 17 and 33 rows of the T3 layer (JAX's ``use_megalayer`` has
+    no row limit), and off a card; a width no B12 launch takes at one row
+    (normed rows of 4096) raises ``ValueError`` naming the shape on a card
+    instead of falling to another path."""
+    import dataclasses
+
+    from vocalie_tts_tpu_torch.models.chatterbox.runtime import SCALES
+    from vocalie_tts_tpu_torch.models.common import transformer as tr
+    from vocalie_tts_tpu_torch.models.common.ar_runtime import apply_runtime_env
+
+    for name, value in (("VOCALIE_DENSE_KERNEL", "1"), ("VOCALIE_KV_INT8", "1"),
+                        ("VOCALIE_DECODE_KERNEL", "1"), ("VOCALIE_MEGALAYER", "1")):
+        monkeypatch.setenv(name, value)
+    monkeypatch.delenv("VOCALIE_MEGATAIL", raising=False)
+
+    def layers_at(d, d_ff):
+        zero = torch.zeros((), dtype=torch.int8)
+        return {name: {"q": zero.expand(shape)} for name, shape in (
+            ("wqkv", (2, d, 3 * d)), ("wo", (2, d, d)),
+            ("w_gateup", (2, d, 2 * d_ff)), ("w_down", (2, d_ff, d)))}
+
+    base = apply_runtime_env(SCALES["tiny"]).lm
+    cfg = dataclasses.replace(base, d_model=1024, n_heads=16, n_kv_heads=16, d_head=64,
+                              d_ff=4096)
+    wide = dataclasses.replace(base, d_model=4096, n_heads=32, n_kv_heads=32, d_head=128,
+                               d_ff=16384)
+    assert cfg.kv_quant and cfg.decode_kernel
+    for b in (16, 17, 33):
+        assert tr._dense_dispatch(layers_at(1024, 4096), cfg, b, 640) == tr.MEGALAYER
+    assert tr._dense_dispatch(layers_at(4096, 16384), wide, 8, 640) == tr.MEGALAYER
+    monkeypatch.setattr(tr, "card_sms", lambda device: H100_SMS)
+    for b in (16, 17, 33):
+        assert tr._dense_dispatch(layers_at(1024, 4096), cfg, b, 640) == tr.MEGALAYER
+    with pytest.raises(ValueError, match="d_model=4096, 32 q / 32 kv heads of 128, d_ff=16384"):
+        tr._dense_dispatch(layers_at(4096, 16384), wide, 8, 640)
+    assert layer_rows(32, 1, 128, 640, 4096, 16384, _ff_tile(4096, 16384, 12288), 12288,
+                      H100_SMS) is None

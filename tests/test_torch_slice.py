@@ -37,7 +37,8 @@ runs them on two workers (this file: ``slice1``;
 
 JAX's generate program is remembered per input where it decodes greedily
 (which reads no key), so the greedy, stage-2 and pipeline tests share one
-JAX decode of the script.
+JAX decode of the script. The port's side runs on one torch thread (a
+fixture).
 """
 
 import dataclasses
@@ -104,14 +105,30 @@ def make_runtimes(config, tmp_path_factory):
         wdir = assets / "chatterbox" / "weights"
         save_params(wdir, "t3", init_t3(jax.random.PRNGKey(1), cfg),
                     meta={"family": "chatterbox", "stage": "t3"})
-        save_params(wdir, "s3gen", init_token_decoder(jax.random.PRNGKey(2), cfg),
-                    meta={"family": "chatterbox", "stage": "s3gen"})
+        # the stage-2 tree in one jitted call (the eager init compiled op by
+        # op: ~10 s of this fixture); the T3 tree stays eager, as its greedy
+        # tokens' ties were recorded on it
+        s3gen = jax.device_get(jax.jit(lambda k: init_token_decoder(k, cfg))(
+            jax.random.PRNGKey(2)))
+        save_params(wdir, "s3gen", s3gen, meta={"family": "chatterbox", "stage": "s3gen"})
         jrt = JaxRuntime.create(assets / "chatterbox")
         prt = ChatterboxRuntime.create(assets / "chatterbox", device="cpu")
         assert jrt.cfg.lm.dense_kernel is dense and jrt.cfg.lm.decode_kernel is True
         assert prt.cfg.lm.dense_kernel is dense and prt.cfg.lm.d_model == cfg.d_model
         _memo_generate(jrt)
         yield jrt, prt, mp
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """The port's side runs tiny tensors: one intra-op thread is as fast
+    here, and it keeps the suite's parallel workers from oversubscribing the
+    CPU with spinning thread pools (the port's greedy tokens are the same on
+    one thread as on eight, in both configurations)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module", params=["slice1"])

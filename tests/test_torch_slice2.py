@@ -8,6 +8,7 @@ import pytest
 from test_torch_slice import (  # noqa: F401  (collected here with this file's fixture)
     greedy,
     make_runtimes,
+    one_torch_thread,
     test_greedy_tokens_match,
     test_run_tts_pipeline_matches,
     test_stage2_pcm_on_jax_tokens,

@@ -68,4 +68,22 @@ def lmtts_bundle(lm_bundle: Any, decoder: Any, device="cpu") -> Any:
             "decoder": tree_to_torch(decoder, device)}
 
 
-__all__ = ["to_torch", "tree_to_torch", "cosyvoice_bundle", "xtts_bundle", "lmtts_bundle"]
+def vits_params(tree: Any, device="cpu") -> Any:
+    """The VITS runtime's params from the JAX tree of ``init_vits`` (numpy
+    leaves): the same keys and lists (``enc_layers``, ``dp.flows``,
+    ``dp.convs.layers``, ``flows``, the vocoder's ``ups`` and
+    ``resblocks[stage][kernel]``), the ``[k, c_in, c_out]`` convs and the
+    depthwise ``sep.w [k, 1, c]`` kept as they are (``models/vits/model.py``
+    re-lays them out inside its convs), and the relative embeddings ``[1,
+    2w + 1, d_head]``. Raises ``ValueError`` on a depthwise kernel of
+    another layout."""
+    for i, lyr in enumerate(tree["dp"]["convs"]["layers"]
+                            + [l for f in tree["dp"]["flows"] for l in f["convs"]["layers"]]):
+        shape = np.shape(lyr["sep"]["w"])
+        if len(shape) != 3 or shape[1] != 1 or shape[2] != np.shape(lyr["sep"]["b"])[0]:
+            raise ValueError(f"DDSConv layer {i}: sep.w {shape} is not [k, 1, c]")
+    return tree_to_torch(tree, device)
+
+
+__all__ = ["to_torch", "tree_to_torch", "cosyvoice_bundle", "xtts_bundle", "lmtts_bundle",
+           "vits_params"]

@@ -58,6 +58,7 @@ import torch.nn.functional as F
 from vocalie_tts_tpu_torch.ops.cache_update import cache_append_kv_stacked, cache_append_stacked
 from vocalie_tts_tpu_torch.device import div_const
 from vocalie_tts_tpu_torch.ops.decode_dense import (
+    _ff_tile,
     card_sms,
     dense_int8_stacked,
     gelu_tanh,
@@ -72,7 +73,7 @@ from vocalie_tts_tpu_torch.ops.decode_dense import (
     tail_swiglu_qkv_int8_stacked,
 )
 from vocalie_tts_tpu_torch.ops.decode_attention import decode_attention_stacked
-from vocalie_tts_tpu_torch.ops.decode_layer import layer_swiglu_qkv_int8_stacked
+from vocalie_tts_tpu_torch.ops.decode_layer import layer_rows, layer_swiglu_qkv_int8_stacked
 from vocalie_tts_tpu_torch.ops.decode_step import decode_step_fused_packed
 from vocalie_tts_tpu_torch.ops.flash_attention import (
     flash_attention,
@@ -456,12 +457,12 @@ def _dense_dispatch(layers: Params, cfg: TransformerConfig, batch: int, max_len:
     LayerNorm, a GELU MLP with biases under RMSNorm, a d_ff that is not a
     128-multiple, a GELU MLP without biases), B4 for the qkv and
     o-projections and the int8 SwiGLU MLP (B8b), the int8 GELU MLP (B9d) or
-    ``_qdot`` for the MLP. On a card, a batch past what one B2/B8a launch
-    takes runs the same path in row chunks (``tail_rows``); widths that no
-    launch takes (normed rows wider than 2048, no room for the weight ring
-    beside one row) raise ``ValueError`` where the megatail or the tail
-    would run: JAX takes B2/B8a at any shape, and ``DENSE_FNS`` computes
-    another thing. The JAX ``decode_step``'s choice from
+    ``_qdot`` for the MLP. On a card, a batch past what one B2/B8a (B12)
+    launch takes runs the same path in row chunks (``tail_rows``,
+    ``layer_rows``); widths that no launch takes (normed rows wider than
+    2048, no room for the weight ring beside one row) raise ``ValueError``
+    where the megatail, the tail or B12 would run: JAX takes B2/B8a and B12
+    at any shape, and ``DENSE_FNS`` computes another thing. The JAX ``decode_step``'s choice from
     the config and the shapes (``transformer.py:778-857``; the B7
     conditions of ``maybe_head_stack_qkv``, ``:422-464``, which the JAX
     generate programs apply at batch 1, for the SwiGLU family without
@@ -497,6 +498,7 @@ def _dense_dispatch(layers: Params, cfg: TransformerConfig, batch: int, max_len:
         return FUSED_STEP
     if (int8_attn and (packed or cfg.d_head % 128 == 0) and max_len % 128 == 0
             and bool_env("VOCALIE_MEGALAYER")):
+        _layer_on_card(batch, cfg, d_ff, max_len, layers["wqkv"]["q"].shape[2], sms)
         return MEGALAYER
     _tail_on_card(batch, d_attn, cfg.d_model, d_ff, layers["wqkv"]["q"].shape[2], sms)
     return MEGATAIL
@@ -511,6 +513,21 @@ def _tail_on_card(batch: int, d_attn: int, d: int, d_ff: int, Q: int, sms) -> No
             f"the SwiGLU decode step at d_model={d}, d_attn={d_attn}, d_ff={d_ff} ({batch} "
             f"rows) has no B2/B8a launch on this card (normed rows of at most 2048 and a "
             "two-stage weight ring beside one row); the reference takes B2/B8a there")
+
+
+def _layer_on_card(batch: int, cfg: TransformerConfig, d_ff: int, max_len: int, Q: int,
+                   sms) -> None:
+    """Raises ``ValueError`` naming the shape where no B12 launch takes the
+    layer at one row on a card of ``sms`` SMs (``layer_rows``); a batch past
+    what one launch takes runs in row chunks. Off a card the plain version
+    takes any shape."""
+    kv, g = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+    if sms is not None and layer_rows(kv, g, cfg.d_head, max_len, cfg.d_model, d_ff,
+                                      _ff_tile(cfg.d_model, d_ff, Q), Q, sms) is None:
+        raise ValueError(
+            f"the VOCALIE_MEGALAYER=1 decode step at d_model={cfg.d_model}, {cfg.n_heads} q / "
+            f"{kv} kv heads of {cfg.d_head}, d_ff={d_ff}, cache {max_len} ({batch} rows) has "
+            "no B12 launch on this card, not even at one row; the reference takes B12 there")
 
 
 def _layer(layers: Params, l: int) -> Params:

@@ -9,7 +9,7 @@ multi-receptive-field resblocks after each transposed-conv upsample stage
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -60,14 +60,24 @@ def init_vocoder(cfg: VocoderConfig, *, generator: Optional[torch.Generator] = N
     return params
 
 
-def apply_vocoder(params: Params, cfg: VocoderConfig, mel: torch.Tensor) -> torch.Tensor:
-    """mel [batch, frames, n_mels] → audio [batch, frames * hop]. (The JAX
-    function's speaker ``cond`` / per-stage ``stage_conds`` inputs serve
-    XTTS, not ported yet.)"""
+def apply_vocoder(params: Params, cfg: VocoderConfig, mel: torch.Tensor,
+                  cond: Optional[torch.Tensor] = None,
+                  stage_conds: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
+    """mel [batch, frames, n_mels] → audio [batch, frames * hop].
+
+    ``cond`` [batch, base_channels] is the speaker-conditioning vector the
+    published generator adds after the stem conv (its ``cond`` 1×1
+    projection lives with the caller's params: VITS's ``voc_cond``).
+    ``stage_conds`` (one [batch, ch_i] vector per upsample stage) is added
+    right after each upsample conv, before the MRF resblocks."""
     x = conv1d(params["pre"], mel.to(cfg.dtype))
+    if cond is not None:
+        x = x + cond[:, None, :].to(x.dtype)
     for i, rate in enumerate(cfg.upsample_rates):
         x = leaky_relu(x)
         x = conv1d_transpose(params["ups"][i], x, stride=rate)
+        if stage_conds is not None:
+            x = x + stage_conds[i][:, None, :].to(x.dtype)
         acc = None
         for rb, dil in zip(params["resblocks"][i], cfg.resblock_dilations):
             y = resblock_apply(rb, x, dil)

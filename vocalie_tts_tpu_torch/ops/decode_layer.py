@@ -65,6 +65,7 @@ from vocalie_tts_tpu_torch.ops.decode_dense import (
     _kind,
     _quantize_rows,
     _rms_rows,
+    _row_chunks,
     _sm_count,
     _swiglu_down,
     qkv_norm_int8_plain,
@@ -327,11 +328,19 @@ def layer_swiglu_qkv_int8_stacked(
     """The whole decode layer →
     ``(x_out [b, d_model] f32, qkv_next [b, d_qkv] f32)``.
 
+    On a card, more rows than one launch takes (:func:`layer_rows`: 16 at
+    the T3 and Qwen3 layers) run as one launch over each of
+    ``_row_chunks`` (near-equal; each counted in ``.launches``), bit for bit
+    the one call's result; a shape no launch takes at one row raises
+    ``ValueError`` naming it. JAX takes B12 at any batch (``use_megalayer``,
+    ``vocalie_tts_tpu/models/common/transformer.py:833-841``).
+
     CUDA only: ``grid`` forces the number of cooperative blocks instead of
     one per SM (a grid larger than the card keeps resident is refused);
     ``stamps`` is
     None or an int64 tensor of ``grid · LAYER_STAMPS`` the kernel fills with
-    its blocks' phase times (``tools/decode_layer_trace.py``)."""
+    its blocks' phase times (``tools/decode_layer_trace.py``; one launch
+    only)."""
     b, kv, g, d = q.shape
     L, _, _, T, _ = k_all.shape
     D = x.shape[1]
@@ -347,11 +356,10 @@ def layer_swiglu_qkv_int8_stacked(
             q, x, k_all, v_all, k_scale, v_scale, bias2d, k_new, v_new, layer, valid_len,
             wo_all, wos_all, mw_all, wgu_all, sgu_all, wd_all, sd_all, nw_all, wq_all, sq_all,
             sm_scale=sm_scale, eps=eps, tile=tile)
-    if not (1 <= b <= LAYER_MAX_B and 1 <= g <= LAYER_MAX_G and d % 32 == 0 and 32 <= d <= 128
+    if not (b >= 1 and 1 <= g <= LAYER_MAX_G and d % 32 == 0 and 32 <= d <= 128
             and D % 128 == 0 and Q % 128 == 0):
-        raise ValueError(f"the kernel takes 1 <= b <= 16, 1 <= g <= 8, d_head 32..128 step 32 "
-                         f"and d_model, d_qkv multiples of 128; got b={b} g={g} d={d} D={D} "
-                         f"Q={Q}")
+        raise ValueError(f"the kernel takes 1 <= g <= 8, d_head 32..128 step 32 and d_model, "
+                         f"d_qkv multiples of 128; got b={b} g={g} d={d} D={D} Q={Q}")
     H = kv * g
     f32, i8, bf16 = (torch.float32,), (torch.int8,), (torch.bfloat16,)
     norm = (mw_all.dtype,)
@@ -368,31 +376,85 @@ def layer_swiglu_qkv_int8_stacked(
            ("nw_all", nw_all, norm, (L, D)),
            ("wq_all", wq_all, i8, (L, D, Q)), ("sq_all", sq_all, f32, (L, 1, Q)))
     dev = q.device.index if q.device.index is not None else torch.cuda.current_device()
-    plan, splits, table, ws = _layer_launch(b, kv, g, d, T, D, F, tile, Q, dev, int(grid))
+    rows = layer_rows(kv, g, d, T, D, F, tile, Q, int(grid) or _sm_count(dev))
+    if rows is None:
+        raise ValueError(f"B12: no launch takes kv={kv} g={g} d_head={d} T={T} d_model={D} "
+                         f"d_ff={F} d_qkv={Q} ({b} rows), not even one row")
+    chunks = [(0, b)] if b <= rows else _row_chunks(b, rows)
+    if stamps is not None and len(chunks) > 1:
+        raise ValueError(f"stamps trace one launch: {b} rows take {len(chunks)}")
     n_blk = n_valid_blocks(valid_len, T)
-    slots, team = splits[n_blk - 1]
-    if stamps is not None and (stamps.dtype != torch.int64 or stamps.device != q.device
-                               or stamps.numel() < plan.grid * LAYER_STAMPS):
-        raise ValueError(f"stamps: int64 on {q.device}, {plan.grid * LAYER_STAMPS} or more")
     x_out = torch.empty((b, D), dtype=torch.float32, device=q.device)
     qkv = torch.empty((b, Q), dtype=torch.float32, device=q.device)
     fn = _build.kernel("vt_decode_layer", _ARGTYPES)
-    layer_swiglu_qkv_int8_stacked.launches += 1
-    tp = plan.tail
-    rc = fn(q.data_ptr(), x.data_ptr(), k_all.data_ptr(), v_all.data_ptr(),
-            k_scale.data_ptr(), v_scale.data_ptr(), bias2d.data_ptr(),
-            k_new.data_ptr(), v_new.data_ptr(),
-            wo_all.data_ptr(), wos_all.data_ptr(), mw_all.data_ptr(),
-            wgu_all.data_ptr(), sgu_all.data_ptr(), wd_all.data_ptr(), sd_all.data_ptr(),
-            nw_all.data_ptr(), wq_all.data_ptr(), sq_all.data_ptr(),
-            x_out.data_ptr(), qkv.data_ptr(),
-            _kind(mw_all, "mw_all"), L, int(layer), b, kv, g, d, T,
-            n_blk, D, F, tile, Q, float(sm_scale), float(eps),
-            ws.data_ptr(), ws.numel(), table.data_ptr(), plan.grid, tp.kc, tp.stages, tp.max_gu,
-            tp.max_items, tp.gu_blocks, plan.smem, slots, team, plan.slot, plan.slot_end,
-            None if stamps is None else stamps.data_ptr(), _build.stream_ptr(q))
-    _build.check(rc, "vt_decode_layer")
+    for r0, r1 in chunks:
+        # row slices of the [b, ...] inputs and outputs are contiguous and
+        # 16-byte aligned (every width is a multiple of 4 f32); the cache by
+        # layer_cache_offset
+        bc = r1 - r0
+        plan, splits, table, ws = _layer_launch(bc, kv, g, d, T, D, F, tile, Q, dev, int(grid))
+        slots, team = splits[n_blk - 1]
+        if stamps is not None and (stamps.dtype != torch.int64 or stamps.device != q.device
+                                   or stamps.numel() < plan.grid * LAYER_STAMPS):
+            raise ValueError(f"stamps: int64 on {q.device}, {plan.grid * LAYER_STAMPS} or more")
+        off = layer_cache_offset(int(layer), b, r0, r1) * kv * T
+        layer_swiglu_qkv_int8_stacked.launches += 1
+        tp = plan.tail
+        rc = fn(q[r0:r1].data_ptr(), x[r0:r1].data_ptr(), k_all.data_ptr() + off * d,
+                v_all.data_ptr() + off * d, k_scale.data_ptr() + 2 * off,
+                v_scale.data_ptr() + 2 * off, bias2d[r0:r1].data_ptr(),
+                k_new[r0:r1].data_ptr(), v_new[r0:r1].data_ptr(),
+                wo_all.data_ptr(), wos_all.data_ptr(), mw_all.data_ptr(),
+                wgu_all.data_ptr(), sgu_all.data_ptr(), wd_all.data_ptr(), sd_all.data_ptr(),
+                nw_all.data_ptr(), wq_all.data_ptr(), sq_all.data_ptr(),
+                x_out[r0:r1].data_ptr(), qkv[r0:r1].data_ptr(),
+                _kind(mw_all, "mw_all"), L, int(layer), bc, kv, g, d, T,
+                n_blk, D, F, tile, Q, float(sm_scale), float(eps),
+                ws.data_ptr(), ws.numel(), table.data_ptr(), plan.grid, tp.kc, tp.stages,
+                tp.max_gu, tp.max_items, tp.gu_blocks, plan.smem, slots, team, plan.slot,
+                plan.slot_end, None if stamps is None else stamps.data_ptr(),
+                _build.stream_ptr(q))
+        _build.check(rc, "vt_decode_layer")
     return x_out, qkv
+
+
+def _layer_fits(b: int, kv: int, g: int, d: int, T: int, D: int, F: int, tile: int, Q: int,
+                sms: int) -> bool:
+    try:
+        layer_plan(b, kv, g, d, T, D, F, tile, Q, sms)
+    except ValueError:
+        return False
+    return True
+
+
+@functools.lru_cache(maxsize=None)
+def layer_rows(kv: int, g: int, d: int, T: int, D: int, F: int, tile: int, Q: int, sms: int):
+    """The most rows (at most ``LAYER_MAX_B``) that one B12 launch takes at
+    these widths on a card of ``sms`` SMs, or None where none does (what
+    :func:`layer_plan` refuses at one row: ``g`` past 8, a head width it has
+    no body for, a normed row past 2048, ...). Every quantity B12 computes is
+    per row (the attention per (row, kv head) over that row's own cache, the
+    activations quantized per row, the weights shared), so a batch of more
+    rows runs as launches over row chunks of at most this many, bit for bit
+    the one call's result (``decode_dense._row_chunks``)."""
+    for b in range(LAYER_MAX_B, 0, -1):
+        if _layer_fits(b, kv, g, d, T, D, F, tile, Q, sms):
+            return b
+    return None
+
+
+def layer_cache_offset(layer: int, b: int, r0: int, r1: int) -> int:
+    """The batch rows (each ``kv · T · d`` int8 bytes, ``kv · T`` bf16
+    scales) by which a launch over rows ``[r0, r1)`` of a ``b``-row step
+    moves its cache pointers. The kernel reads its pair ``pc`` at row
+    ``layer · bc · kv + pc`` (``bc = r1 - r0``) of the ``[L, bc, kv, T, d]``
+    cache it is handed; the rows wanted are those of the layer slice
+    ``k_all[layer, r0:r1]`` (contiguous, unlike the batch slice
+    ``k_all[:, r0:r1]``, which is strided across layers): rows ``(layer · b
+    + r0) · kv + pc`` of the whole cache. So the pointer moves by ``layer ·
+    (b - bc) + r0`` batch rows (>= 0: it stays inside the cache) and the
+    layer index goes in unchanged, as the weights need it."""
+    return layer * (b - (r1 - r0)) + r0
 
 
 def max_resident_blocks(b: int, kv: int, g: int, d: int, T: int, D: int, F: int, Q: int) -> int:
@@ -411,5 +473,5 @@ layer_swiglu_qkv_int8_stacked.launches = 0
 
 __all__ = ["layer_swiglu_qkv_int8_stacked", "layer_swiglu_qkv_int8_plain", "max_resident_blocks",
            "layer_plan", "layer_attn_split", "layer_attn_team", "layer_attn_items", "layer_splits",
-           "layer_head_order", "LayerPlan",
+           "layer_head_order", "layer_rows", "layer_cache_offset", "LayerPlan",
            "ATT_STAMP_POINTS", "LAYER_STAMPS"]

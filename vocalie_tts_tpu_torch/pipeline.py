@@ -6,7 +6,8 @@ Per-chunk clean render, short-text padding, resample to the target rate,
 inter-chunk gap with crossfades. The engine is passed in, or built from
 the port's own ``engines.ENGINES`` by ``tts_backend`` (``chatterbox``,
 ``cosyvoice``, ``xtts``: the voice clone, which needs ``voice_ref_path``,
-``qwen3``: its three modes, a ``voice_ref_path`` taking voice_clone) on
+``qwen3``: its three modes, a ``voice_ref_path`` taking voice_clone,
+``piper``: the fr_FR VITS at 22050 Hz, resampled like any engine) on
 ``device`` — the GPU unless the caller asks for the CPU.
 """
 

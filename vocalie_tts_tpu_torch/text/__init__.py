@@ -1,9 +1,10 @@
 """Deterministic text preparation: the port's copy of the JAX package's
 ``text/`` chunker, renderer and duration model (pure Python, no JAX).
 
-Only what the voice-over path reads is copied; the G2P, lexicon and
-published-tokenizer modules stay with the JAX package until a slice
-needs them.
+Only what the voice-over path reads is copied, and the French G2P and
+the Piper id map of the VITS engine (``phonemes.py``, ``piper_ids.py``);
+the prep lexicon and the published-tokenizer modules stay with the JAX
+package until a slice needs them.
 """
 
 from vocalie_tts_tpu_torch.text.constants import (
